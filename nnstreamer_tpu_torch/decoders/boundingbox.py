@@ -1,0 +1,249 @@
+"""``bounding_boxes`` decoder: detection model output → box overlay video.
+
+Counterpart of the JAX package's ``decoders/boundingbox.py`` for the
+``mobilenet-ssd-postprocess`` scheme (parity: the reference's
+box_properties/mobilenetssdpp.cc — boxes (N,4 ymin,xmin,ymax,xmax
+normalized), classes (N,), scores (N,), num_detections (1,); or the
+batched (B,N,4) layout of an in-model decode+NMS head).  Options follow
+the reference grammar:
+
+- option1 — decoding scheme: ``mobilenet-ssd-postprocess`` (alias
+  ``mobilenetssd-pp``); the other schemes are not ported yet
+- option4 — output video size ``WIDTH:HEIGHT``
+- option5 — model input size ``WIDTH:HEIGHT``
+- option7 — render backend: ``host`` (default, numpy rasterization) |
+  ``device`` (boxutil.device_render on the pipeline's device).  With
+  ``device`` the structured detections stay on the device at
+  ``meta["detections_device"]``; the host path attaches python
+  :class:`Detection` lists at ``meta["detections"]``.
+
+Label files (option2) are not supported by this slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
+from . import Decoder, drain_once, register_decoder
+from .boxutil import Detection, device_render, draw_boxes
+
+_SCHEMES = ("mobilenet-ssd-postprocess", "mobilenetssd-pp")
+
+
+@register_decoder
+class BoundingBoxes(Decoder):
+    MODE = "bounding_boxes"
+
+    def __init__(self):
+        super().__init__()
+        self.scheme = "mobilenet-ssd-postprocess"
+        self.out_w, self.out_h = 300, 300
+        self.in_w, self.in_h = 300, 300
+        self.conf_thresh = 0.25
+        self.backend = "host"
+        #: set by the fusion pass when the device overlay runs INSIDE the
+        #: upstream torch-cuda filter: decode() then consumes a ready
+        #: canvas instead of rendering
+        self.fused_upstream = False
+
+    def options_updated(self) -> None:
+        if self.options[6]:
+            self.backend = self.options[6].strip().lower()
+        if self.options[0]:
+            scheme = self.options[0].strip().lower()
+            if scheme not in _SCHEMES:
+                raise NotImplementedError(
+                    f"bounding_boxes scheme {scheme!r} is not ported to "
+                    "nnstreamer_tpu_torch yet")
+            self.scheme = scheme
+        if self.options[1]:
+            raise NotImplementedError(
+                "bounding_boxes option2 (label file): label text overlay "
+                "is not ported to nnstreamer_tpu_torch yet")
+        if self.options[3]:
+            w, _, h = self.options[3].partition(":")
+            self.out_w, self.out_h = int(w), int(h or w)
+        if self.options[4]:
+            w, _, h = self.options[4].partition(":")
+            self.in_w, self.in_h = int(w), int(h or w)
+
+    def out_caps(self, in_spec: TensorsSpec) -> Caps:
+        # Batched postprocess input — boxes (B,N,4) from an on-device
+        # decode+NMS head — yields one buffer of B overlay frames; the
+        # ``frames`` field is the framework's batched-video extension.
+        frames = 1
+        if self.fused_upstream:
+            # overlay fused into the upstream filter: tensor 0 of the
+            # incoming schema IS the rendered canvas
+            t0 = in_spec.tensors[0] if in_spec.tensors else None
+            if t0 is not None and t0.rank == 4 and t0.shape[0] > 1:
+                frames = t0.shape[0]
+        elif in_spec.tensors and in_spec.tensors[0].rank == 3:
+            frames = in_spec.tensors[0].shape[0]
+        extra = {"frames": frames} if frames > 1 else {}
+        return Caps.new(CapsStruct.make(
+            "video/x-raw", format="RGBA", width=self.out_w,
+            height=self.out_h, framerate=in_spec.rate, **extra))
+
+    # -- host path ------------------------------------------------------------
+
+    def _decode_ssd_postprocess(self, buf: Buffer):
+        """Post-processed 4-tensor layout; a batched (B>1) layout yields a
+        list of per-frame detection lists."""
+        boxes_t = buf.tensors[0].np()
+        # (1,N,4) is the canonical single-frame layout — flatten; only a
+        # true multi-frame batch (B>1) takes the batched branch
+        if boxes_t.ndim == 3 and boxes_t.shape[0] > 1:
+            classes = buf.tensors[1].np()
+            scores = buf.tensors[2].np()
+            nums = buf.tensors[3].np().reshape(-1) \
+                if buf.num_tensors > 3 else None
+            return [
+                self._ssd_pp_frame(boxes_t[b], classes[b], scores[b],
+                                   int(nums[b]) if nums is not None
+                                   else scores.shape[1])
+                for b in range(boxes_t.shape[0])]
+        boxes = boxes_t.reshape(-1, 4)
+        classes = buf.tensors[1].np().reshape(-1)
+        scores = buf.tensors[2].np().reshape(-1)
+        n = int(buf.tensors[3].np().reshape(-1)[0]) \
+            if buf.num_tensors > 3 else len(scores)
+        return self._ssd_pp_frame(boxes, classes, scores, n)
+
+    def _ssd_pp_frame(self, boxes, classes, scores, n) -> List[Detection]:
+        dets = []
+        for i in range(min(n, len(scores))):
+            if scores[i] < self.conf_thresh:
+                continue
+            ymin, xmin, ymax, xmax = boxes[i]
+            dets.append(Detection(
+                x=float(xmin), y=float(ymin), w=float(xmax - xmin),
+                h=float(ymax - ymin), class_id=int(classes[i]),
+                score=float(scores[i])))
+        return dets  # already NMS'd by the model
+
+    # -- device render path --------------------------------------------------
+
+    def _device_active(self) -> bool:
+        return self.backend == "device"
+
+    def device_post_program(self):
+        """For the fusion pass (runtime/fusion.py): an epilogue mapping the
+        upstream filter's postprocess outputs (boxes, classes, scores,
+        num) to (canvas, boxes, classes, scores, num), so transform +
+        model + NMS + overlay run as one program per window.  None when
+        this configuration does not render on the device."""
+        if not self._device_active():
+            return None
+        out_h, out_w, conf = self.out_h, self.out_w, self.conf_thresh
+
+        def post(*outs):
+            boxes = outs[0]
+            if boxes.ndim == 2:
+                boxes = boxes[None]
+            b, n = boxes.shape[0], boxes.shape[1]
+            classes = outs[1].reshape(b, n)
+            scores = outs[2].reshape(b, n)
+            num = outs[3].reshape(b) if len(outs) > 3 \
+                else torch.full((b,), n, dtype=torch.int32,
+                                device=boxes.device)
+            canvas = device_render(boxes, classes, scores, num, out_h,
+                                   out_w, conf)
+            return (canvas, *outs)
+
+        post.chain_digest = "bounding_boxes:%s:%dx%d:%s" % (
+            self.scheme, out_w, out_h, conf)
+        return post
+
+    def _decode_fused(self, buf: Buffer) -> Buffer:
+        """Consume the fused program's output: tensor 0 is the rendered
+        canvas; 1.. are the model's postprocess tensors, kept on the
+        device as ``meta["detections_device"]``."""
+        canvas = buf.tensors[0].torch()
+        batched = canvas.ndim == 4 and canvas.shape[0] > 1
+        if canvas.ndim == 4 and not batched:
+            canvas = canvas[0]
+        out = Buffer(
+            tensors=[Tensor(canvas,
+                            TensorSpec.from_shape(tuple(canvas.shape),
+                                                  np.uint8))],
+            pts=buf.pts, duration=buf.duration, meta=dict(buf.meta))
+        if buf.num_tensors >= 4:
+            boxes = buf.tensors[1].torch()
+            if boxes.ndim == 2:
+                boxes = boxes[None]
+            b, n = boxes.shape[0], boxes.shape[1]
+            out.meta["detections_device"] = {
+                "boxes": boxes,
+                "classes": buf.tensors[2].torch().reshape(b, n),
+                "scores": buf.tensors[3].torch().reshape(b, n),
+                "num": buf.tensors[4].torch().reshape(b)
+                if buf.num_tensors > 4
+                else torch.full((b,), n, dtype=torch.int32,
+                                device=boxes.device)}
+        return out
+
+    def _decode_device(self, buf: Buffer) -> Buffer:
+        """Rasterize the overlay on the tensors' device (option7=device,
+        unfused): the four postprocess tensors stay where they are and the
+        (B,H,W,4) canvas is returned as a device tensor."""
+        boxes = buf.tensors[0].torch()
+        # single-frame layouts ((N,4) or (1,N,4)) keep the host path's
+        # (H,W,4) output rank; only a true batch (B>1) emits (B,H,W,4)
+        batched = boxes.ndim == 3 and boxes.shape[0] > 1
+        if boxes.ndim == 2:
+            boxes = boxes[None]
+        b, n = boxes.shape[0], boxes.shape[1]
+        classes = buf.tensors[1].torch().reshape(b, n)
+        scores = buf.tensors[2].torch().reshape(b, n)
+        num = buf.tensors[3].torch().reshape(b) if buf.num_tensors > 3 \
+            else torch.full((b,), n, dtype=torch.int32, device=boxes.device)
+        with torch.inference_mode():
+            canvas = device_render(boxes, classes, scores, num, self.out_h,
+                                   self.out_w, self.conf_thresh)
+        if not batched:
+            canvas = canvas[0]
+        out = Buffer(
+            tensors=[Tensor(canvas,
+                            TensorSpec.from_shape(tuple(canvas.shape),
+                                                  np.uint8))],
+            pts=buf.pts, duration=buf.duration, meta=dict(buf.meta))
+        out.meta["detections_device"] = {
+            "boxes": boxes, "classes": classes, "scores": scores,
+            "num": num}
+        return out
+
+    # -- decode --------------------------------------------------------------
+
+    def decode(self, buf: Buffer, in_spec: Optional[TensorsSpec]) -> Buffer:
+        if self._device_active():
+            # fused path: tensor 0 must actually BE a canvas (uint8, rank
+            # 3/4) — a withdrawn fusion (flexible stream) leaves raw
+            # detection tensors, which route to the normal renderer
+            if self.fused_upstream and buf.num_tensors >= 1 and \
+                    buf.tensors[0].spec.rank >= 3 and \
+                    buf.tensors[0].spec.dtype.torch_dtype == torch.uint8:
+                return self._decode_fused(buf)
+            return self._decode_device(buf)
+        # the host decoder reads every tensor: drain the device-resident
+        # ones with ONE packed copy instead of one per tensor
+        drain_once(buf.tensors)
+        dets = self._decode_ssd_postprocess(buf)
+        batched = bool(dets) and isinstance(dets[0], list)
+        if batched:
+            frame = np.zeros((len(dets), self.out_h, self.out_w, 4),
+                             np.uint8)
+            for b, f in enumerate(dets):
+                draw_boxes(f, self.out_w, self.out_h, out=frame[b])
+        else:
+            frame = draw_boxes(dets, self.out_w, self.out_h)
+        out = Buffer(
+            tensors=[Tensor(frame,
+                            TensorSpec.from_shape(frame.shape, np.uint8))],
+            pts=buf.pts, duration=buf.duration, meta=dict(buf.meta))
+        out.meta["detections"] = dets
+        return out

@@ -1,0 +1,73 @@
+"""In-band and out-of-band events flowing between pipeline elements
+(copied from the JAX package's ``runtime/events.py``).
+
+Replacement for the GstEvent subset nnstreamer relies on: EOS,
+caps, segment, QoS throttling (tensor_rate → tensor_filter interplay,
+nnstreamer:gst/nnstreamer/elements/gsttensor_rate.c:81-88 and
+tensor_filter.c:511), flush, and custom events (model RELOAD,
+nnstreamer_plugin_api_filter.h:351-357).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from fractions import Fraction
+from typing import Any, Dict, Optional
+
+
+class EventKind(enum.Enum):
+    EOS = "eos"
+    FLUSH = "flush"
+    SEGMENT = "segment"
+    QOS_THROTTLE = "qos-throttle"  # upstream: requested max framerate
+    RELOAD_MODEL = "reload-model"  # custom: hot model swap
+    EPOCH_COMPLETE = "epoch-complete"  # trainer notifications
+    TRAINING_COMPLETE = "training-complete"
+    CUSTOM = "custom"
+
+
+@dataclasses.dataclass
+class Event:
+    kind: EventKind
+    data: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def eos(cls) -> "Event":
+        return cls(EventKind.EOS)
+
+    @classmethod
+    def flush(cls) -> "Event":
+        return cls(EventKind.FLUSH)
+
+    @classmethod
+    def qos_throttle(cls, rate: Fraction) -> "Event":
+        """Ask upstream producers to cap their rate (frames/sec)."""
+        return cls(EventKind.QOS_THROTTLE, {"rate": Fraction(rate)})
+
+    @classmethod
+    def reload_model(cls, model: Any) -> "Event":
+        return cls(EventKind.RELOAD_MODEL, {"model": model})
+
+
+class MessageKind(enum.Enum):
+    ERROR = "error"
+    WARNING = "warning"
+    EOS = "eos"
+    LATENCY = "latency"
+    ELEMENT = "element"  # element-specific info (stats, training progress)
+    STATE = "state"
+
+
+@dataclasses.dataclass
+class Message:
+    """Out-of-band message posted on the pipeline bus (parity: GstBus)."""
+
+    kind: MessageKind
+    source: str  # element name
+    data: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    error: Optional[BaseException] = None
+
+    def __str__(self):
+        e = f" error={self.error!r}" if self.error else ""
+        return f"<{self.kind.value} from {self.source}{e} {self.data}>"

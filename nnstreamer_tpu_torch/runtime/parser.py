@@ -1,0 +1,329 @@
+"""gst-launch-style pipeline description parser (counterpart of the JAX
+package's ``runtime/parser.py``; the same grammar).
+
+``parse_launch`` builds a Pipeline from strings like::
+
+    device_src name=src num-buffers=4 ! tensor_transform mode=arithmetic
+      option=typecast:float32,add:-127.5,div:127.5 !
+      tensor_filter framework=torch-cuda model=net ! appsink name=out
+
+on the device the caller names (``cuda`` unless asked for ``cpu``).
+
+Supported syntax (the subset the reference's pipelines and tests rely on —
+see nnstreamer:Documentation/gst-launch-script-example.md):
+- ``factory prop=value ...`` element segments, ``!`` links
+- ``name=...`` names an element; ``somename.`` / ``somename.padname``
+  references an existing element (request pads resolved on demand)
+- bare caps strings (``other/tensors,format=static,...``) insert an implicit
+  capsfilter
+- quoted property values via shlex rules
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+from typing import List, Optional, Tuple, Union
+
+from ..core import Caps, CapsStruct
+from ..utils.device import DeviceLike
+from .element import Element, Pad, PadDirection
+from .pipeline import Pipeline
+from .registry import make, register_element
+
+
+class ParseError(Exception):
+    """Pipeline/caps description error.
+
+    ``pos`` (when known) is the 0-based character offset of the offending
+    token in the parsed string, so tooling can point at the exact spot;
+    for single-line descriptions it doubles as the column.  Use
+    :meth:`context` to render a caret marker.  ``kind`` is a stable
+    symbolic cause for tooling (``"double-link"`` today; messages are for
+    humans and may be reworded)."""
+
+    def __init__(self, message: str, pos: Optional[int] = None,
+                 kind: Optional[str] = None):
+        super().__init__(message)
+        self.pos = pos
+        self.kind = kind
+
+    @property
+    def column(self) -> Optional[int]:
+        return self.pos
+
+    def context(self, desc: str, width: int = 60) -> str:
+        """Render the description with a ``^`` caret under ``pos``."""
+        if self.pos is None:
+            return desc[:width]
+        lo = max(0, self.pos - width // 2)
+        frag = desc[lo:lo + width]
+        return frag + "\n" + " " * (self.pos - lo) + "^"
+
+
+def parse_caps_string(s: str, base_pos: int = 0) -> Caps:
+    """Parse ``mime,key=value,...``; values may be ints, fractions, or
+    strings; ``{a,b}`` denotes a set.  ``base_pos`` offsets error positions
+    when the caps string is embedded in a larger description."""
+    parts = _split_caps_fields(s)
+    offs = []
+    off = 0
+    for part in parts:  # recover each field's offset within s
+        offs.append(off)
+        off += len(part) + 1  # the separating comma
+    mime = parts[0].strip()
+    fields = {}
+    for kv, kvoff in zip(parts[1:], offs[1:]):
+        if "=" not in kv:
+            raise ParseError(f"bad caps field {kv!r} in {s!r}",
+                             pos=base_pos + kvoff)
+        k, v = kv.split("=", 1)
+        k = k.strip()
+        if k in ("dimensions", "types", "format"):
+            # grammar fields stay strings: a scalar like dimensions=1 must
+            # not become int (it would break the dimensions special-case in
+            # caps intersection, which is string-typed)
+            fields[k] = v.strip().strip('"')
+        else:
+            fields[k] = _parse_value(v.strip())
+    return Caps.new(CapsStruct.make(mime, **fields))
+
+
+def _split_caps_fields(s: str) -> List[str]:
+    out, depth, cur = [], 0, []
+    for ch in s:
+        if ch == "{":
+            depth += 1
+        elif ch == "}":
+            depth -= 1
+        if ch == "," and depth == 0:
+            out.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    out.append("".join(cur))
+    return out
+
+
+def _parse_value(v: str):
+    v = v.strip().strip('"')
+    if v.startswith("{") and v.endswith("}"):
+        return frozenset(_parse_value(x) for x in v[1:-1].split(","))
+    if "/" in v:
+        a, _, b = v.partition("/")
+        if a.strip().lstrip("-").isdigit() and b.strip().isdigit():
+            return Fraction(int(a), int(b))
+    if v.lstrip("-").isdigit():
+        return int(v)
+    low = v.lower()
+    if low in ("true", "yes"):
+        return True
+    if low in ("false", "no"):
+        return False
+    try:
+        return float(v)  # 0.5, 1e-3 — gst-launch float properties
+    except ValueError:
+        return v
+
+
+@register_element("capsfilter")
+class CapsFilter(Element):
+    """Pass-through element that constrains negotiation to its caps."""
+
+    FACTORY = "capsfilter"
+
+    def __init__(self, name=None, caps: Optional[Union[Caps, str]] = None,
+                 **props):
+        self.caps = caps
+        super().__init__(name, **props)
+        if isinstance(self.caps, str):
+            self.caps = parse_caps_string(self.caps)
+        self.add_sink_pad()
+        self.add_src_pad()
+
+    def pad_template_caps(self, pad: Pad) -> Caps:
+        return self.caps if self.caps is not None else Caps.any_tensors()
+
+    def propose_src_caps(self, pad: Pad) -> Caps:
+        base = super().propose_src_caps(pad)
+        return base.intersect(self.caps) if self.caps is not None else base
+
+    def chain(self, pad: Pad, buf) -> None:
+        self.push(buf)
+
+
+class _Segment:
+    __slots__ = ("kind", "value", "props", "pad", "pos")
+
+    def __init__(self, kind, value, props=None, pad=None, pos=None):
+        self.kind = kind  # 'element' | 'ref' | 'caps'
+        self.value = value
+        self.props = props or {}
+        self.pad = pad
+        self.pos = pos  # character offset of the segment's first token
+
+
+def _tokenize(desc: str) -> List[Tuple[str, int]]:
+    """Split on whitespace with posix-shlex quoting rules, keeping each
+    token's character offset in ``desc`` (so parse errors can point at the
+    exact spot).  Returns ``[(token, offset), ...]``."""
+    toks: List[Tuple[str, int]] = []
+    i, n = 0, len(desc)
+    while i < n:
+        while i < n and desc[i].isspace():
+            i += 1
+        if i >= n:
+            break
+        start = i
+        buf: List[str] = []
+        while i < n and not desc[i].isspace():
+            ch = desc[i]
+            if ch in ("'", '"'):
+                quote = ch
+                i += 1
+                while i < n and desc[i] != quote:
+                    if quote == '"' and desc[i] == "\\" and i + 1 < n \
+                            and desc[i + 1] in ('"', "\\"):
+                        i += 1
+                    buf.append(desc[i])
+                    i += 1
+                if i >= n:
+                    raise ParseError(
+                        f"unterminated {quote} quote", pos=start)
+                i += 1
+            elif ch == "\\" and i + 1 < n:
+                buf.append(desc[i + 1])
+                i += 2
+            else:
+                buf.append(ch)
+                i += 1
+        toks.append(("".join(buf), start))
+    return toks
+
+
+def parse_launch(desc: str, pipeline: Optional[Pipeline] = None,
+                 device: DeviceLike = "cuda") -> Pipeline:
+    """Build (or extend ``pipeline``) from ``desc``.  A new pipeline runs
+    on ``device``."""
+    pipe = pipeline or Pipeline(device=device)
+    tokens = _tokenize(desc)
+    if not tokens:
+        raise ParseError("empty pipeline description")
+
+    # split into chains at '!' boundaries, building segments
+    chains: List[List[_Segment]] = [[]]
+    i = 0
+    auto_id = [0]
+
+    def new_name(factory: str) -> str:
+        while True:
+            n = f"{factory}{auto_id[0]}"
+            auto_id[0] += 1
+            if n not in pipe.elements:
+                return n
+
+    while i < len(tokens):
+        tok, pos = tokens[i]
+        if tok == "!":
+            i += 1
+            continue
+        # gather props until next '!' or end
+        props = {}
+        j = i + 1
+        while j < len(tokens) and tokens[j][0] != "!":
+            if "=" not in tokens[j][0]:
+                break
+            k, v = tokens[j][0].split("=", 1)
+            props[k] = _parse_value(v)
+            j += 1
+        if "/" in tok and "=" not in tok.split(",")[0]:
+            seg = _Segment("caps", tok, pos=pos)
+        elif tok.endswith(".") or ("." in tok and "=" not in tok):
+            el, _, padname = tok.partition(".")
+            seg = _Segment("ref", el, pad=padname or None, pos=pos)
+        else:
+            seg = _Segment("element", tok, props, pos=pos)
+        chains[-1].append(seg)
+        i = j
+        # a segment not followed by '!' starts a new chain
+        if i < len(tokens) and tokens[i][0] != "!":
+            chains.append([])
+        elif i >= len(tokens):
+            break
+        else:
+            i += 1  # skip '!'
+
+    # instantiate and link
+    for chain in chains:
+        prev: Optional[Tuple[Element, Optional[str]]] = None
+        for seg in chain:
+            if seg.kind == "element":
+                nm = seg.props.pop("name", None) or new_name(seg.value)
+                try:
+                    el = make(seg.value, el_name=str(nm), **{
+                        k.replace("-", "_"): v
+                        for k, v in seg.props.items()})
+                except KeyError as e:
+                    raise ParseError(
+                        f"unknown element factory {seg.value!r}",
+                        pos=seg.pos) from e
+                except ValueError as e:
+                    raise ParseError(
+                        f"{seg.value}: {e}", pos=seg.pos) from e
+                pipe.add(el)
+                cur: Tuple[Element, Optional[str]] = (el, None)
+            elif seg.kind == "caps":
+                # positions are relative to the dequoted token; skip a
+                # leading quote so field offsets land on the right char
+                # (inner escapes can still drift — tokens rarely have any)
+                base = seg.pos
+                if base is not None and base < len(desc) \
+                        and desc[base] in "'\"":
+                    base += 1
+                caps = parse_caps_string(seg.value, base_pos=base)
+                el = CapsFilter(name=new_name("capsfilter"), caps=caps)
+                pipe.add(el)
+                cur = (el, None)
+            else:  # ref
+                if seg.value not in pipe.elements:
+                    raise ParseError(
+                        f"unknown element reference {seg.value!r}",
+                        pos=seg.pos)
+                cur = (pipe.elements[seg.value], seg.pad)
+            if prev is not None:
+                _link(prev, cur, pos=seg.pos)
+            prev = cur
+    return pipe
+
+
+def _link(a: Tuple[Element, Optional[str]], b: Tuple[Element, Optional[str]],
+          pos: Optional[int] = None) -> None:
+    ael, apad = a
+    bel, bpad = b
+    try:
+        src = ael.get_pad(apad) if apad \
+            else _free_pad(ael, PadDirection.SRC, pos)
+        sink = bel.get_pad(bpad) if bpad \
+            else _free_pad(bel, PadDirection.SINK, pos)
+    except KeyError as e:
+        raise ParseError(
+            e.args[0] if e.args else str(e), pos=pos) from e
+    try:
+        src.link(sink)
+    except ValueError as e:
+        # double link: surface as a parse error pointing at the segment
+        raise ParseError(str(e), pos=pos, kind="double-link") from e
+
+
+def _free_pad(el: Element, direction: PadDirection,
+              pos: Optional[int] = None) -> Pad:
+    pads = el.srcpads if direction == PadDirection.SRC else el.sinkpads
+    for p in pads:
+        if p.peer is None:
+            return p
+    rp = el.request_pad("src_%u" if direction == PadDirection.SRC
+                        else "sink_%u")
+    if rp is not None:
+        return rp
+    raise ParseError(f"{el.name}: no free {direction.value} pad "
+                     f"(all pads already linked)", pos=pos,
+                     kind="double-link")

@@ -1,0 +1,76 @@
+"""The port's box overlay renderers against the JAX package's.
+
+Byte-exact: the device renderer (``device_render``) against the JAX
+package's ``device_render_fn`` on the same detections, and against the
+port's own host ``draw_boxes``.  The cases cover overlapping boxes (later
+boxes win), boxes thinner than the stroke, classes past the palette,
+``num < N`` and scores under the threshold.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nnstreamer_tpu.decoders import boxutil as jbox
+from nnstreamer_tpu_torch.decoders import boxutil
+from nnstreamer_tpu_torch.decoders.boundingbox import BoundingBoxes
+
+H, W, CONF = 40, 48, 0.25
+
+
+def _detections(seed: int, batch: int = 3, n: int = 7):
+    rng = np.random.default_rng(seed)
+    y0 = rng.uniform(-0.1, 0.9, (batch, n))
+    x0 = rng.uniform(-0.1, 0.9, (batch, n))
+    boxes = np.stack([y0, x0, y0 + rng.uniform(0, 0.6, (batch, n)),
+                      x0 + rng.uniform(0, 0.6, (batch, n))], -1)
+    boxes[0, 0] = [0.2, 0.2, 0.21, 0.7]     # thinner than the stroke
+    boxes[0, 1] = [0.1, 0.1, 0.8, 0.8]      # overlaps box 2 ...
+    boxes[0, 2] = [0.3, 0.3, 0.6, 0.6]      # ... and loses nothing of it
+    boxes[1, 3] = [0.5, 0.5, 0.5, 0.5]      # a single point
+    classes = rng.integers(0, 15, (batch, n)).astype(np.int32)  # > palette
+    scores = rng.uniform(0, 1, (batch, n)).astype(np.float32)
+    scores[0, :3] = 0.9
+    num = np.array([n, n - 3, 2], np.int32)[:batch]                # num < N
+    return boxes.astype(np.float32), classes, scores, num
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_device_render_matches_jax_byte_exact(seed):
+    boxes, classes, scores, num = _detections(seed)
+    want = np.asarray(jbox.device_render_fn(*boxes.shape[:2], H, W, CONF)(
+        boxes, classes, scores, num))
+    got = boxutil.device_render(
+        torch.from_numpy(boxes), torch.from_numpy(classes),
+        torch.from_numpy(scores), torch.from_numpy(num), H, W, CONF)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
+    assert np.array_equal(got.numpy(), want)
+    assert got[..., 3].max() == 255  # alpha (bit 24, the sign bit) set
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_device_render_equals_host_draw_boxes(seed):
+    boxes, classes, scores, num = _detections(seed)
+    dev = BoundingBoxes()
+    for i, v in ((0, "mobilenet-ssd-postprocess"), (3, f"{W}:{H}"),
+                 (6, "device")):
+        dev.set_option(i, v)
+    host = BoundingBoxes()
+    host.set_option(3, f"{W}:{H}")
+    from nnstreamer_tpu_torch.core import Buffer
+
+    buf = Buffer.of(torch.from_numpy(boxes), torch.from_numpy(classes),
+                    torch.from_numpy(scores), torch.from_numpy(num))
+    got = dev.decode(buf, None).tensors[0].np()
+    hbuf = Buffer.of(boxes, classes.astype(np.float32), scores, num)
+    want = host.decode(hbuf, None).tensors[0].np()
+    assert got.shape == want.shape == (3, H, W, 4)
+    assert np.array_equal(got, want)
+
+
+def test_unported_scheme_and_labels_raise():
+    dec = BoundingBoxes()
+    with pytest.raises(NotImplementedError, match="yolov5"):
+        dec.set_option(0, "yolov5")
+    with pytest.raises(NotImplementedError, match="label"):
+        BoundingBoxes().set_option(1, "labels.txt")
