@@ -3,17 +3,26 @@
 
     python3 chip_smoke.py
 
+It drives the port's two paths — the composite detection pipeline and
+the ViT classification pipeline — through ``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
    CUDA and compute capability 9.0 (Hopper);
 2. build: compiles every kernel of the port from ``nnstreamer_tpu_torch/
-   ops/csrc`` with nvcc (sm_90a) into ``build/nnstreamer_tpu_torch/``;
+   ops/csrc`` with nvcc (sm_90a) into ``build/nnstreamer_tpu_torch/``,
+   one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and on ragged shapes and other input types
-   (0 difference expected, at most 1 ulp accepted), and its time (CUDA
-   events, median of 30 single launches after warm-up) beside its bound;
-4. main path: the composite detection pipeline through ``parse_launch`` at
+   the paths' shapes and on ragged shapes and other input types, and its
+   device time beside its bound (``time_ms``: 30 calls back to back
+   between two CUDA events behind a spin kernel, so the host's launch
+   time drops out; median of 5 such groups).  ``scale_bias_cast``: 0
+   difference expected, at most 1 ulp accepted.  ``flash_attention``:
+   bf16 within atol 1e-2 + rtol 1e-2 and at most 16 bf16 ulps where
+   |plain| >= 1/64 (the kernel rounds p to bf16 for p·v), f32 within atol
+   1e-5 + rtol 1e-4; timed beside ``scaled_dot_product_attention`` as a
+   yardstick;
+4. detection path: the composite detection pipeline through ``parse_launch`` at
    full width — SSD-MobileNetV2, 91 classes, 300x300, max_out=10, batch
    256 — with the transform on the CUDA kernel (``backend=cuda``); the
    kernel's launch count must show the run went through it.  The same
@@ -23,7 +32,18 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    kernels by device time and the device's busy share;
 6. reference check: a small input (batch 2, f32 compute, TF32 off) through
    the same pipeline on the card and on the CPU must agree;
-7. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+7. ViT path: the classification pipeline (``device_src`` → transform with
+   ``backend=cuda`` → ViT filter [→ ``tensor_decoder
+   mode=image_labeling``]) at the JAX package's benchmark width — batch
+   64, 256x256, patch 16, dim 512, depth 6, 4 heads, MLP 2048, 1000
+   classes, bf16 compute.
+   (a) without the decoder: one fused segment, ``flash_attention`` run at
+   least 6 times a window, finite (64, 1000) logits, frames/s and p50
+   window; one window's logits with the plain attention swapped in agree
+   with the kernel's within atol 5e-2 + rtol 5e-2, same argmax; (b) with
+   the decoder: the label is the argmax of (a)'s logits; (c) batch 2, f32,
+   TF32 off: card against CPU within 1e-3, labels equal; then a profile;
+8. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 """
@@ -60,6 +80,29 @@ HBM_BYTES_PER_S = {
     "H200": 4.8e12,
 }
 
+#: the ViT path: the JAX package's benchmark configuration (bench.py)
+VIT_BATCH = 64
+VIT_SIZE = 256
+VIT = dict(patch=16, dim=512, depth=6, heads=4, mlp_dim=2048,
+           num_classes=1000)
+LABELS = os.path.join(HERE, "tests", "golden", "labels.txt")
+#: spec-sheet dense bf16 tensor-core rate of an H100 SXM
+BF16_FLOPS = 989e12
+#: the spin ahead of each timed group: about 10 ms at the H100's clocks
+SPIN_CYCLES = 20_000_000
+#: bf16 ulps (where |plain| >= 1/64) the attention kernel may be off:
+#: p is rounded to bf16 (2^-9 relative) before p·v, and o once more
+FA_BF16_ULPS = 16
+
+VIT_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=net framework=torch-cuda model={model} ! "
+    "{dec}appsink name=out max-buffers={sink}")
+LABEL_DEC = ("tensor_decoder name=label mode=image_labeling "
+             f"option1={LABELS} ! ")
+
 COMPOSITE = (
     "device_src name=src num-buffers={n} ! "
     "tensor_transform name=norm mode=arithmetic option={norm} "
@@ -77,23 +120,52 @@ def hbm_bandwidth(name: str) -> float:
     raise RuntimeError(f"no spec-sheet memory bandwidth known for {name!r}")
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median of ``reps`` single calls, each timed by a pair of CUDA
-    events, after ``warmup`` calls."""
+def time_ms(fn, reps: int = 30, warmup: int = 5, groups: int = 5) -> float:
+    """Device time of one call: ``reps`` calls queued back to back between
+    one pair of CUDA events, divided by ``reps``; the median of ``groups``
+    such groups, after ``warmup`` calls.  A spin kernel queued ahead of
+    the start event keeps the card busy while the host queues the group,
+    so the host's launch time drops out; raises if the host took longer
+    to queue a group than the spin lasted."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
+    for _ in range(groups):
+        e0, s, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
         e.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        spin_ms = e0.elapsed_time(s)
+        if host_ms >= spin_ms:
+            raise RuntimeError(f"time_ms: the host took {host_ms:.3f} ms to "
+                               f"queue {reps} calls, the spin only "
+                               f"{spin_ms:.3f} ms: host time would count")
+        times.append(s.elapsed_time(e) / reps)
     return statistics.median(times)
+
+
+def bf16_ulps(o, r, floor: float = 2 ** -6) -> float:
+    """Largest ``|o - r|`` in bf16 units in the last place of ``r``'s
+    binade, over elements with ``|r| >= floor``; nearer zero an ulp says
+    nothing and the absolute tolerance governs."""
+    import torch
+
+    r = r.float()
+    mask = r.abs() >= floor
+    if not bool(mask.any()):
+        return 0.0
+    rr = r[mask]
+    ulp = torch.exp2(torch.floor(torch.log2(rr.abs())) - 7)
+    return float(((o.float()[mask] - rr).abs() / ulp).max())
 
 
 def ulp_diff(a, b) -> int:
@@ -127,21 +199,29 @@ def register_detector(name: str, model, anchors, batch: int, dtype) -> None:
                    in_shapes=[(batch, SIZE, SIZE, 3)], in_dtypes=np.float32)
 
 
-def run_pipeline(model: str, backend: str, frames, n: int, device="cuda"):
-    """One run of the composite pipeline; returns (pipeline, buffers,
+def composite(model: str, backend: str, n: int) -> str:
+    return COMPOSITE.format(n=n, norm=NORM, backend=backend, model=model,
+                            s=SIZE, sink=n + 4)
+
+
+def vit_pipe(model: str, n: int, decoder: bool = False) -> str:
+    return VIT_PIPE.format(n=n, norm=NORM, model=model, sink=n + 4,
+                           dec=LABEL_DEC if decoder else "")
+
+
+def run_pipeline(desc: str, frames, n: int, device="cuda"):
+    """One run of a pipeline description; returns (pipeline, buffers,
     host seconds from start to EOS)."""
     from nnstreamer_tpu_torch.runtime import parse_launch
 
-    p = parse_launch(COMPOSITE.format(n=n, norm=NORM, backend=backend,
-                                      model=model, s=SIZE, sink=n + 4),
-                     device=device)
+    p = parse_launch(desc, device=device)
     p["src"].frames = frames
     p["src"].pool_size = len(frames)
     t0 = time.perf_counter()
     p.start()
     try:
         if not p.wait_eos(timeout=900):
-            raise RuntimeError(f"{model}/{backend}: no EOS within 900 s")
+            raise RuntimeError(f"{desc}: no EOS within 900 s")
     finally:
         p.stop()
     secs = time.perf_counter() - t0
@@ -152,7 +232,7 @@ def run_pipeline(model: str, backend: str, frames, n: int, device="cuda"):
             break
         bufs.append(b)
     if len(bufs) != n:
-        raise RuntimeError(f"{model}/{backend}: {len(bufs)} of {n} buffers")
+        raise RuntimeError(f"{desc}: {len(bufs)} of {n} buffers")
     return p, bufs, secs
 
 
@@ -166,6 +246,8 @@ def phase_kernels(card: str, power: str):
     cases = [
         ("u8 main", (BATCH, SIZE, SIZE, 3), torch.uint8, torch.float32),
         ("u8 main", (BATCH, SIZE, SIZE, 3), torch.uint8, torch.bfloat16),
+        ("u8 vit", (VIT_BATCH, VIT_SIZE, VIT_SIZE, 3), torch.uint8,
+         torch.float32),
         ("u8 ragged", (3, 5), torch.uint8, torch.float32),
         ("u8 ragged", (1, 299, 299, 3), torch.uint8, torch.float32),
         ("i8", (1, 299, 299, 3), torch.int8, torch.float32),
@@ -220,6 +302,77 @@ def phase_kernels(card: str, power: str):
     return worst, rows[torch.float32]
 
 
+def phase_flash_attention(card: str, power: str):
+    """``flash_attention`` against its plain version on the card at the
+    ViT path's shape and on the other shapes it must take, then its time
+    at the path's shape (bf16) beside the plain version, PyTorch's
+    ``scaled_dot_product_attention`` (a yardstick only: the port never
+    calls it) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the f32 plain version
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED)
+    heads, dh = VIT["heads"], VIT["dim"] // VIT["heads"]
+    s = (VIT_SIZE // VIT["patch"]) ** 2
+    main = (VIT_BATCH, heads, s, dh)
+    cases = [
+        ("vit main", main, main),
+        ("vit 224px S=196", (VIT_BATCH, 2, 196, 128),
+         (VIT_BATCH, 2, 196, 128)),
+        ("ragged", (1, 2, 17, 128), (1, 2, 17, 128)),
+        ("cross", (1, 128, 128), (1, 512, 128)),
+        ("D=64", (2, 3, 100, 64), (2, 3, 100, 64)),
+    ]
+    tol = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-4)}
+    worst = 0.0
+    for label, q_shape, kv_shape in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(sh, generator=g).to(dt).to(dev)
+                       for sh in (q_shape, kv_shape, kv_shape))
+            o = kernels.flash_attention(q, k, v)
+            r = kernels.flash_attention_reference(q, k, v)
+            torch.cuda.synchronize()
+            diff = float((o.float() - r.float()).abs().max())
+            ulps = bf16_ulps(o, r) if dt == torch.bfloat16 else 0.0
+            print(f"kernel flash_attention {label} q{tuple(q_shape)} "
+                  f"kv{tuple(kv_shape)} {dt}: max_abs_diff={diff}" +
+                  (f" max_bf16_ulps(|plain|>=1/64)={ulps:.2f}"
+                   if dt == torch.bfloat16 else ""), flush=True)
+            atol, rtol = tol[dt]
+            bad = (o.float() - r.float()).abs() > atol + rtol * r.float().abs()
+            if bool(bad.any()) or not bool(torch.isfinite(o).all()):
+                raise RuntimeError(f"flash_attention {label} {dt}: "
+                                   f"{int(bad.sum())} elements off its plain "
+                                   f"version (atol {atol}, rtol {rtol})")
+            if ulps > FA_BF16_ULPS:
+                raise RuntimeError(f"flash_attention {label} {dt}: {ulps} "
+                                   f"bf16 ulps off its plain version (at "
+                                   f"most {FA_BF16_ULPS})")
+            worst = max(worst, diff)
+    q, k, v = (torch.randn(main, generator=g).to(torch.bfloat16).to(dev)
+               for _ in range(3))
+    ms = time_ms(lambda: kernels.flash_attention(q, k, v))
+    plain = time_ms(lambda: kernels.flash_attention_reference(q, k, v))
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = 4 * q.shape[0] * q.shape[1] * s * s * dh
+    bytes_ms = nbytes / hbm_bandwidth(card) * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"kernel flash_attention bf16 {main}: ms={ms:.6f} "
+          f"plain_ms={plain:.6f} sdpa_ms={sdpa:.6f} bound_ms={bound:.6f} "
+          f"({by}; {nbytes} B -> {bytes_ms:.6f} ms, {flops} FLOP -> "
+          f"{ops_ms:.6f} ms) share_of_bound={bound / ms:.3f} "
+          f"vs_sdpa={ms / sdpa:.2f}x [{card}, {power}]", flush=True)
+    return worst, {"ms": ms, "plain_ms": plain, "library_ms": sdpa,
+                   "bound_ms": bound, "bound_by": by}
+
+
 def phase_main_path(card: str, power: str):
     import torch
 
@@ -255,8 +408,9 @@ def phase_main_path(card: str, power: str):
 
     torch.cuda.reset_peak_memory_stats()
     kernels.scale_bias_cast.launches = 0
-    p, bufs, secs = run_pipeline("ssd_mobilenet_v2", "cuda", frames,
-                                 NUM_BUFFERS)
+    p, bufs, secs = run_pipeline(
+        composite("ssd_mobilenet_v2", "cuda", NUM_BUFFERS), frames,
+        NUM_BUFFERS)
     launches = kernels.scale_bias_cast.launches
     peak = torch.cuda.max_memory_allocated()
     segs = p.fused_segments
@@ -299,8 +453,9 @@ def phase_main_path(card: str, power: str):
           f"{int(dets['num'][0])} classes={dets['classes'][0].tolist()}",
           flush=True)
 
-    _, bufs_plain, secs_plain = run_pipeline("ssd_mobilenet_v2", "torch",
-                                             frames, NUM_BUFFERS)
+    _, bufs_plain, secs_plain = run_pipeline(
+        composite("ssd_mobilenet_v2", "torch", NUM_BUFFERS), frames,
+        NUM_BUFFERS)
     for i, (a, b) in enumerate(zip(bufs, bufs_plain)):
         if not torch.equal(a.tensors[0].torch(), b.tensors[0].torch()):
             raise RuntimeError(f"window {i}: canvases differ between "
@@ -332,13 +487,15 @@ def phase_main_path(card: str, power: str):
             "frames": frames}
 
 
-def phase_profile(frames, card: str, power: str, windows: int = 3,
-                  top: int = 12):
-    """Where the device time goes: one short run of the main path (its
-    start included: negotiation runs the filter's program once on zeros
-    for the model's declared input and once for the fused one) under
+def phase_profile(desc: str, frames, card: str, power: str, windows: int = 3,
+                  top: int = 12, label: str = "profile"):
+    """Where the device time goes: one short run of a path (its start
+    included: negotiation runs the filter's program once on zeros for the
+    model's declared input and once for the fused one) under
     torch.profiler; prints the kernels by self device time and the
-    device's busy share of the run's wall time."""
+    device's busy share of the run's wall time.  Returns the rows (name,
+    self device ms, calls) and the busy ms, or None when the profiler saw
+    no device kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -346,24 +503,26 @@ def phase_profile(frames, card: str, power: str, windows: int = 3,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_pipeline("ssd_mobilenet_v2", "cuda", frames[:windows], windows)
+        run_pipeline(desc, frames[:windows], windows)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if not rows or busy_ms <= 0:
-        print("profile: torch.profiler recorded no device kernels here; "
+        print(f"{label}: torch.profiler recorded no device kernels here; "
               "device breakdown not measured", flush=True)
-        return
-    print(f"profile: {windows} windows + 2 negotiation forwards: device "
+        return None
+    print(f"{label}: {windows} windows + 2 negotiation forwards: device "
           f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (busy share "
           f"{busy_ms / wall_ms:.3f}) [{card}, {power}]", flush=True)
-    for e in sorted(rows, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:top]:
-        print(f"profile: {e.self_device_time_total / 1e3:9.3f} ms "
+    rows = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
+    for e in rows[:top]:
+        print(f"{label}: {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / 1e3 / busy_ms:6.1%} "
               f"n={e.count:5d} {e.key[:100]}", flush=True)
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in rows], busy_ms
 
 
 def phase_reference(model, anchors):
@@ -379,8 +538,8 @@ def phase_reference(model, anchors):
     register_detector("ssd_small_f32", model, anchors, 2, torch.float32)
     rng = np.random.default_rng(SEED + 1)
     frames = [rng.integers(0, 256, (2, SIZE, SIZE, 3), dtype=np.uint8)]
-    _, gpu, _ = run_pipeline("ssd_small_f32", "cuda", frames, 1)
-    _, cpu, _ = run_pipeline("ssd_small_f32", "cuda", frames, 1,
+    _, gpu, _ = run_pipeline(composite("ssd_small_f32", "cuda", 1), frames, 1)
+    _, cpu, _ = run_pipeline(composite("ssd_small_f32", "cuda", 1), frames, 1,
                              device="cpu")
     dg, dc = gpu[0].meta["detections_device"], cpu[0].meta[
         "detections_device"]
@@ -400,6 +559,154 @@ def phase_reference(model, anchors):
           flush=True)
     if same < 0.999:
         raise RuntimeError("reference check: canvases differ")
+
+
+def phase_vit(card: str, power: str):
+    """The ViT classification path at full width (see the module doc,
+    phase 7)."""
+    import torch
+
+    import nnstreamer_tpu_torch.models.vit as vit_module
+    from nnstreamer_tpu_torch.core import DType
+    from nnstreamer_tpu_torch.elements.transform import (
+        _fold_affine,
+        parse_arith_ops,
+    )
+    from nnstreamer_tpu_torch.filters import register_model
+    from nnstreamer_tpu_torch.models import register_vit, vit_apply, vit_init
+    from nnstreamer_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    register_vit("vit_b64", batch=VIT_BATCH, image_size=VIT_SIZE, seed=SEED,
+                 **VIT)
+    model = vit_init(SEED, image_size=VIT_SIZE, **VIT)  # the same weights
+    rng = np.random.default_rng(SEED + 2)
+    frames = [rng.integers(0, 256, (VIT_BATCH, VIT_SIZE, VIT_SIZE, 3),
+                           dtype=np.uint8) for _ in range(POOL)]
+    print(f"vit: {sum(p.numel() for p in model.parameters())} parameters "
+          f"({VIT}, image {VIT_SIZE}, batch {VIT_BATCH}) + {POOL} frame "
+          f"batches ready in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (a) the pipeline without the decoder
+    torch.cuda.reset_peak_memory_stats()
+    kernels.flash_attention.launches = 0
+    kernels.scale_bias_cast.launches = 0
+    p, bufs, secs = run_pipeline(vit_pipe("vit_b64", NUM_BUFFERS), frames,
+                                 NUM_BUFFERS)
+    fa_launches = kernels.flash_attention.launches
+    sbc_launches = kernels.scale_bias_cast.launches
+    peak = torch.cuda.max_memory_allocated()
+    segs = [(s.transforms, s.filter, s.decoder) for s in p.fused_segments]
+    if segs != [(("norm",), "net", None)]:
+        raise RuntimeError(f"vit: expected one fused segment norm→net, got "
+                           f"{p.fused_segments}")
+    depth = VIT["depth"]
+    if fa_launches < depth * NUM_BUFFERS or sbc_launches < NUM_BUFFERS:
+        raise RuntimeError(f"vit: flash_attention launched {fa_launches} "
+                           f"times, scale_bias_cast {sbc_launches} times, "
+                           f"for {NUM_BUFFERS} windows of depth {depth}")
+    print(f"vit (a): fused {p.fused_segments[0]}; flash_attention "
+          f"launches={fa_launches}, scale_bias_cast launches={sbc_launches} "
+          f"for {NUM_BUFFERS} windows", flush=True)
+    logits = [b.tensors[0].torch() for b in bufs]
+    for y in logits:
+        if tuple(y.shape) != (VIT_BATCH, VIT["num_classes"]) or \
+                y.dtype != torch.float32 or not bool(torch.isfinite(y).all()):
+            raise RuntimeError(f"vit: logits {tuple(y.shape)} {y.dtype} "
+                               "not finite (64, 1000) float32")
+    evs = [b.meta["device_done"] for b in bufs]
+    gaps = [evs[i - 1].elapsed_time(evs[i]) for i in range(1, len(evs))]
+    fps = (len(evs) - 1) * VIT_BATCH / (evs[0].elapsed_time(evs[-1]) / 1e3)
+    p50 = statistics.median(gaps)
+    print(f"vit (a): {fps:.1f} frames/s over windows 2..{NUM_BUFFERS}, p50 "
+          f"window {p50:.3f} ms, host start→EOS {secs:.2f} s, peak device "
+          f"memory {peak / 2**30:.2f} GiB [{card}, {power}]", flush=True)
+
+    # one window: the kernel's logits against the plain attention's
+    a, b, _ = _fold_affine(parse_arith_ops(NORM), DType.UINT8)
+    x_u8 = torch.from_numpy(frames[0]).cuda()
+    x = kernels.scale_bias_cast(x_u8, a, b / a)
+    if not torch.equal(x, kernels.scale_bias_cast_reference(x_u8, a, b / a)):
+        raise RuntimeError("vit: prologue kernel and plain version differ")
+    model_card = vit_init(SEED, image_size=VIT_SIZE, **VIT).cuda()
+    with torch.inference_mode():
+        k_logits = vit_apply(model_card, x)
+        vit_module.flash_attention = kernels.flash_attention_reference
+        try:
+            r_logits = vit_apply(model_card, x)
+        finally:
+            vit_module.flash_attention = kernels.flash_attention
+    if not torch.equal(k_logits, logits[0]):
+        raise RuntimeError("vit: the direct forward differs from the "
+                           "pipeline's window 0")
+    err = float((k_logits - r_logits).abs().max())
+    k_arg, r_arg = int(k_logits.argmax()), int(r_logits.argmax())
+    print(f"vit kernel vs plain attention, window 0: max_abs_diff={err} "
+          f"argmax {k_arg} vs {r_arg}; rows whose argmax differ: "
+          f"{int((k_logits.argmax(-1) != r_logits.argmax(-1)).sum())} of "
+          f"{VIT_BATCH}", flush=True)
+    if not torch.allclose(k_logits, r_logits, atol=5e-2, rtol=5e-2) or \
+            k_arg != r_arg:
+        raise RuntimeError("vit: kernel and plain attention disagree")
+
+    # (b) the same frames with the image_labeling decoder
+    _, lbufs, _ = run_pipeline(vit_pipe("vit_b64", 2, decoder=True), frames,
+                               2)
+    for i, lb in enumerate(lbufs):
+        flat = logits[i].reshape(-1)
+        idx = int(flat.argmax())
+        if (lb.meta["label_index"], lb.meta["score"]) != \
+                (idx, float(flat[idx])):
+            raise RuntimeError(
+                f"vit (b) window {i}: label_index/score "
+                f"{lb.meta['label_index']}/{lb.meta['score']} != argmax/max "
+                f"{idx}/{float(flat[idx])} of (a)'s logits")
+        print(f"vit (b) window {i}: label {lb.meta['label']!r} index "
+              f"{idx} score {lb.meta['score']} = argmax/max of (a)",
+              flush=True)
+
+    # (c) batch 2, f32, TF32 off: the card against the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    register_model("vit_small_f32",
+                   lambda m, x: vit_apply(m, x, torch.float32),
+                   params=model, in_dtypes=np.float32,
+                   in_shapes=[(2, VIT_SIZE, VIT_SIZE, 3)])
+    small = [np.random.default_rng(SEED + 3).integers(
+        0, 256, (2, VIT_SIZE, VIT_SIZE, 3), dtype=np.uint8)]
+    ref = {}
+    for device in ("cuda", "cpu"):
+        _, lg, _ = run_pipeline(vit_pipe("vit_small_f32", 1), small, 1,
+                                device=device)
+        _, lb, _ = run_pipeline(vit_pipe("vit_small_f32", 1, decoder=True),
+                                small, 1, device=device)
+        ref[device] = (lg[0].tensors[0].torch().cpu(), lb[0].meta["label"])
+    err_c = float((ref["cuda"][0] - ref["cpu"][0]).abs().max())
+    print(f"vit (c) reference check, batch 2, f32, TF32 off: logits "
+          f"max_abs_diff card vs CPU = {err_c}; labels "
+          f"{ref['cuda'][1]!r} vs {ref['cpu'][1]!r}", flush=True)
+    if err_c > 1e-3 or ref["cuda"][1] != ref["cpu"][1]:
+        raise RuntimeError("vit (c): card and CPU disagree")
+
+    prof = phase_profile(vit_pipe("vit_b64", 3), frames, card, power,
+                         label="vit profile")
+    share = per_launch = None
+    if prof is not None:
+        rows, busy = prof
+        fa = [(ms, n) for key, ms, n in rows if "flash_attention" in key]
+        fa_ms = sum(ms for ms, _ in fa)
+        share = fa_ms / busy
+        per_launch = fa_ms / max(1, sum(n for _, n in fa))
+        print(f"vit profile: flash_attention kernel {fa_ms:.3f} ms of "
+              f"{busy:.3f} ms device busy (share {share:.3f}), "
+              f"{per_launch:.6f} ms per launch [{card}, {power}]",
+              flush=True)
+    return {"fps": fps, "p50_window_ms": p50, "host_s": secs,
+            "peak_gib": peak / 2**30, "flash_launches": fa_launches,
+            "scale_bias_cast_launches": sbc_launches,
+            "kernel_vs_plain_max_abs_diff": err, "card_vs_cpu_f32": err_c,
+            "flash_share_of_device": share,
+            "flash_profile_ms_per_launch": per_launch}
 
 
 def main() -> int:
@@ -433,18 +740,24 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}")
 
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
+    fa_worst, fa = phase_flash_attention(card, power)
     main_path = phase_main_path(card, power)
-    phase_profile(main_path.pop("frames"), card, power)
+    phase_profile(composite("ssd_mobilenet_v2", "cuda", 3),
+                  main_path.pop("frames"), card, power)
     phase_reference(main_path.pop("model"), main_path.pop("anchors"))
+    vit_path = phase_vit(card, power)
 
-    print(json.dumps({"main_path": main_path, "card": card,
-                      "power_limit": power}))
+    print(json.dumps({"main_path": main_path, "vit_path": vit_path,
+                      "card": card, "power_limit": power}))
+    sbc_by_path = {"detection": main_path["launches"],
+                   "vit": vit_path["scale_bias_cast_launches"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",
         "source": "nnstreamer_tpu_torch/ops/csrc/scale_bias_cast.cu",
         "replaces": "nnstreamer_tpu/ops/kernels.py:92",
-        "launches": main_path["launches"],
+        "launches": sum(sbc_by_path.values()),
+        "launches_by_path": sbc_by_path,
         "max_abs_err": worst,
         "max_abs_diff": worst,
         "ms": ms,
@@ -452,6 +765,22 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "card": card,
+        "power_limit": power,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "nnstreamer_tpu/ops/kernels.py:180",
+        "launches": vit_path["flash_launches"],
+        "launches_by_path": {"vit": vit_path["flash_launches"]},
+        "max_abs_err": fa_worst,
+        "max_abs_diff": fa_worst,
+        "ms": fa["ms"],
+        "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"],
+        "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"],
         "card": card,
         "power_limit": power,
     }]}))

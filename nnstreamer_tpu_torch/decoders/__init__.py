@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``decoders/__init__.py`` (parity target:
 the reference's decoder sub-plugin ABI, init/setOption/getOutCaps/decode
-registered under a mode string).  This slice of the port carries the
-``bounding_boxes`` decoder.
+registered under a mode string).  The port carries the
+``bounding_boxes`` and ``image_labeling`` decoders.
 """
 
 from __future__ import annotations
@@ -102,6 +102,6 @@ def _ensure_builtin() -> None:
     with _builtin_lock:
         if _builtin_done:
             return
-        from . import boundingbox  # noqa: F401  self-registering
+        from . import boundingbox, imagelabel  # noqa: F401  self-registering
 
         _builtin_done = True

@@ -11,10 +11,15 @@ package run on the same weights.
   package) into a ``state_dict`` of :class:`~.ssd.SSDMobileNetV2`: conv
   weights go from HWIO to OIHW, depthwise weights from (kh,kw,1,C) to
   (C,1,kh,kw); batch-norm vectors keep their names.
+- :func:`vit_params_from_jax` turns a JAX ViT tree into a ``state_dict``
+  of :class:`~.vit.ViT`: the patch-embed weight goes from HWIO to OIHW;
+  dense ``w`` (din, dout), layer-norm ``g``/``b``, ``pos`` and biases keep
+  their layout.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
@@ -22,6 +27,7 @@ import torch
 
 from .mobilenet import Params, _conv_init, _rng_of, mobilenet_v2_init
 from .ssd import _ANCHORS_PER_CELL, _EXTRA_CHANNELS, SSDMobileNetV2
+from .vit import ViT
 
 
 def ssd_mobilenet_v2_init(seed: int, num_classes: int = 91) -> Params:
@@ -75,4 +81,42 @@ def ssd_from_jax(tree: Any) -> SSDMobileNetV2:
     weights of a JAX-layout tree."""
     model = SSDMobileNetV2(num_classes=int(tree["num_classes"]))
     model.load_state_dict(params_from_jax(tree), strict=True)
+    return model.eval()
+
+
+def _f32(a) -> torch.Tensor:
+    """A contiguous f32 tensor holding a copy of ``a``."""
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def vit_params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`ViT` from a JAX-layout ViT tree (numpy
+    leaves: ``embed.w`` (p,p,3,D) HWIO and ``embed.b``, ``pos`` (N,D),
+    ``blocks[i].{ln1,qkv,proj,ln2,mlp1,mlp2}``, ``head``, ``ln_f``)."""
+    sd: Dict[str, torch.Tensor] = {
+        "embed_w": _f32(np.transpose(tree["embed"]["w"], (3, 2, 0, 1))),
+        "embed_b": _f32(tree["embed"]["b"]),
+        "pos": _f32(tree["pos"]),
+    }
+    for prefix, p in (("head.", tree["head"]), ("ln_f.", tree["ln_f"])):
+        for k, v in p.items():
+            sd[prefix + k] = _f32(v)
+    for i, blk in enumerate(tree["blocks"]):
+        for part, p in blk.items():
+            for k, v in p.items():
+                sd[f"blocks.{i}.{part}.{k}"] = _f32(v)
+    return sd
+
+
+def vit_from_jax(tree: Any, heads: int) -> ViT:
+    """A :class:`ViT` (on the CPU, eval mode) holding the weights of a
+    JAX-layout tree; ``heads`` is what the JAX code passes per call."""
+    patch, _, _, dim = np.shape(tree["embed"]["w"])
+    side = math.isqrt(np.shape(tree["pos"])[0])   # patches per image side
+    blocks = tree["blocks"]
+    model = ViT(image_size=side * patch, patch=patch, dim=dim,
+                depth=len(blocks), heads=heads,
+                mlp_dim=np.shape(blocks[0]["mlp1"]["w"])[1] if blocks else 1,
+                num_classes=np.shape(tree["head"]["w"])[1])
+    model.load_state_dict(vit_params_from_jax(tree), strict=True)
     return model.eval()

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "scale_bias_cast": "scale_bias_cast.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 _lock = threading.Lock()

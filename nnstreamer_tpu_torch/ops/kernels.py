@@ -5,18 +5,26 @@
   (``csrc/scale_bias_cast.cu``): the port of the Pallas kernel of the same
   name in the JAX package.  The transform reaches it through
   ``backend=cuda``, and the fusion pass carries it into the filter.
+- ``flash_attention`` is non-causal, unmasked ``softmax(q·kᵀ·scale)·v``
+  with an online softmax (``csrc/flash_attention.cu``): the port of the
+  Pallas kernel of the same name, under the ViT's attention
+  (``models/vit.py``).  bf16 runs on the tensor cores, f32 on the CUDA
+  cores; head dims 64 and 128, any sequence lengths.
 
 Every kernel has three faces here: the plain version
 (``*_reference``: what the CPU tests run and what the card's result is
 held against), the wrapper (plain version for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises — it never falls back), and a
-launch count on the wrapper (``scale_bias_cast.launches``) that shows a
-run really went through the kernel.
+launch count on the wrapper (``scale_bias_cast.launches``,
+``flash_attention.launches``) that shows a run really went through the
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,19 +45,22 @@ def _torch_dtype(dt) -> torch.dtype:
     return DType.from_np(dt).torch_dtype
 
 
-def _launcher():
-    """The kernel's C launcher (building the library on first use), with
-    every pointer and the stream declared ``c_void_p`` so ctypes passes
-    them whole."""
+def _launcher(name: str, symbol: str, argtypes: list):
+    """Kernel ``name``'s C launcher (building the library on first use),
+    with every pointer and the stream declared ``c_void_p`` so ctypes
+    passes them whole."""
     from .build import load
 
-    fn = load("scale_bias_cast").nns_scale_bias_cast
+    fn = getattr(load(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device, as the C launchers take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def scale_bias_cast_available(shape, in_dtype) -> bool:
@@ -94,11 +105,13 @@ def scale_bias_cast(x: torch.Tensor, scale: float, bias: float,
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return y
-    fn = _launcher()
+    fn = _launcher("scale_bias_cast", "nns_scale_bias_cast",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), x.numel(), _IN_CODES[x.dtype],
-                _OUT_CODES[out_dtype], float(scale), float(bias), stream)
+                _OUT_CODES[out_dtype], float(scale), float(bias), _stream(x))
     if rc != 0:
         raise RuntimeError(f"scale_bias_cast: kernel launch failed "
                            f"(cudaError {rc})")
@@ -107,3 +120,108 @@ def scale_bias_cast(x: torch.Tensor, scale: float, bias: float,
 
 
 scale_bias_cast.launches = 0
+
+
+# -- flash attention ---------------------------------------------------------
+
+_FA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FA_HEAD_DIMS = (64, 128)
+
+
+def _default_scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return 1.0 / float(np.sqrt(q.shape[-1])) if scale is None else scale
+
+
+def _fa_unsupported(q_shape, k_shape, v_shape, dtypes) -> Optional[str]:
+    """Why the kernel cannot take these shapes and types, or None: every
+    shape and type rule of the kernel lives here."""
+    q_shape, k_shape, v_shape = tuple(q_shape), tuple(k_shape), tuple(v_shape)
+    dtypes = [_torch_dtype(dt) for dt in dtypes]
+    if len(set(dtypes)) != 1:
+        return f"mixed types {', '.join(map(str, dtypes))}"
+    if dtypes[0] not in _FA_DTYPES:
+        return f"no kernel for {dtypes[0]}"
+    if k_shape != v_shape:
+        return f"k {k_shape} and v {v_shape} differ"
+    if len(q_shape) < 2 or len(q_shape) != len(k_shape) \
+            or q_shape[:-2] != k_shape[:-2] or q_shape[-1] != k_shape[-1]:
+        return (f"q {q_shape} and k {k_shape} must be (..., S, D) and "
+                "(..., Sk, D) with the same leading dims")
+    if q_shape[-1] not in _FA_HEAD_DIMS:
+        return f"head dim must be one of {_FA_HEAD_DIMS}, got {q_shape[-1]}"
+    if q_shape[-2] < 1 or k_shape[-2] < 1:
+        return f"empty sequence: q {q_shape}, k {k_shape}"
+    return None
+
+
+def flash_attention_available(q_shape, k_shape, dtype) -> bool:
+    """Kernel eligibility: bf16 or f32, head dim 64 or 128, q (..., S, D)
+    and k/v (..., Sk, D) with the same leading dims and S, Sk >= 1.  Any
+    S and Sk: the kernel masks its ragged tiles (the TPU kernel's rule
+    that S tile by 128 does not carry over)."""
+    return _fa_unsupported(q_shape, k_shape, k_shape, [dtype]) is None
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version, in the kernel's math: q and k to f32, scores
+    ``(q·kᵀ) * scale`` in f32, a full softmax, ``p·v`` in f32, cast to
+    q's type.  (The JAX package's reference takes the first product in
+    the input type, which rounds bf16 scores; the kernel does not.)"""
+    scale = _default_scale(q, scale)
+    s = torch.einsum("...qd,...kd->...qk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("...qk,...kd->...qd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """``softmax(q·kᵀ·scale)·v`` (scale defaults to 1/√D) as one CUDA
+    kernel, never materializing the (S, Sk) scores.
+
+    CPU tensors get the plain version.  CUDA tensors must be contiguous,
+    16-byte aligned, on one device, of one type and shape that
+    :func:`flash_attention_available` accepts; anything else raises
+    ``ValueError``."""
+    scale = _default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v must share a device")
+    why = _fa_unsupported(q.shape, k.shape, v.shape,
+                          [q.dtype, k.dtype, v.dtype])
+    if why is not None:
+        raise ValueError(f"flash_attention: {why}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             "aligned")
+    S, D, Sk = q.shape[-2], q.shape[-1], k.shape[-2]
+    bh = math.prod(q.shape[:-2])
+    o = torch.empty_like(q)
+    if bh == 0:
+        return o
+    fn = _launcher("flash_attention", "nns_flash_attention",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
+                S, Sk, D, _FA_DTYPES[q.dtype], float(scale), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed "
+                           f"(cudaError {rc})")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -6,7 +6,11 @@ They skip on a machine without one; on the card run them with
 
 They import torch and the port only (no JAX), so they run where JAX is
 not installed.  Each CUDA kernel is held against its plain PyTorch version
-on the card: bit-exact expected, 1 ulp accepted.
+on the card:
+- ``scale_bias_cast``: bit-exact expected, 1 ulp accepted;
+- ``flash_attention``: f32 atol 1e-5 + rtol 1e-4 (the order of summation
+  differs); bf16 atol 1e-2 + rtol 1e-2 (the kernel rounds p to bf16 for
+  the p·v product on the tensor cores, the plain version does not).
 """
 
 import numpy as np
@@ -82,3 +86,74 @@ def test_transform_runs_kernel_on_card(card):
     want = (torch.from_numpy(x).float() + np.float32(-127.5)) \
         * np.float32(1 / 127.5)
     assert torch.equal(got.cpu(), want)
+
+
+# -- flash attention ----------------------------------------------------------
+
+_FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _qkv(q_shape, kv_shape, dtype, card, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dtype).to(card)
+            for s in (q_shape, kv_shape, kv_shape)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,sk", [(17, 17), (100, 100), (256, 256),
+                                  (130, 70), (1, 300)])
+def test_flash_attention_kernel_matches_plain(card, dtype, d, s, sk):
+    """Ragged query and key tiles (17, 100, 130 and 70 are no multiple
+    of 64), cross attention, one query row."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv((2, 3, s, d), (2, 3, sk, d), dtype, card)
+    before = kernels.flash_attention.launches
+    o = kernels.flash_attention(q, k, v)
+    r = kernels.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape and o.is_cuda
+    tol = _FA_TOL[dtype]
+    torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol * 10
+                               if dtype == torch.float32 else tol)
+
+
+def test_flash_attention_scale_and_leading_dims(card):
+    q, k, v = _qkv((128, 128), (512, 128), torch.float32, card, seed=1)
+    o = kernels.flash_attention(q, k, v, scale=0.3)
+    r = kernels.flash_attention_reference(q, k, v, scale=0.3)
+    torch.testing.assert_close(o, r, atol=1e-5, rtol=1e-4)
+
+
+def test_flash_attention_refuses_without_fallback(card):
+    q, k, v = _qkv((1, 2, 16, 96), (1, 2, 16, 96), torch.bfloat16, card)
+    before = kernels.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.flash_attention(q, k, v)
+    q, k, v = _qkv((1, 2, 16, 64), (1, 2, 16, 64), torch.float64, card)
+    with pytest.raises(ValueError, match="float64"):
+        kernels.flash_attention(q, k, v)
+    q, k, v = _qkv((1, 2, 64, 16), (1, 2, 64, 16), torch.bfloat16, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.flash_attention(q.transpose(-1, -2), k.transpose(-1, -2),
+                                v.transpose(-1, -2))
+    assert kernels.flash_attention.launches == before
+
+
+def test_vit_on_card_matches_cpu(card):
+    """The tiny ViT at f32 (TF32 off): the card, through the kernels,
+    against the CPU's plain versions."""
+    from nnstreamer_tpu_torch.models import vit_apply, vit_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vit_init(0, image_size=32, patch=8, dim=256, depth=2, heads=2,
+                     mlp_dim=128, num_classes=5)
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(2))
+    before = kernels.flash_attention.launches
+    with torch.inference_mode():
+        want = vit_apply(model, x, torch.float32)
+        got = vit_apply(model.to(card), x.to(card), torch.float32)
+    assert kernels.flash_attention.launches == before + 2   # one per block
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

@@ -1,4 +1,11 @@
-"""The port's box overlay renderers against the JAX package's.
+"""The port's decoders against the JAX package's.
+
+``image_labeling``: the same score tensors through both packages' decoders
+give the same label, index, score, payload and caps; the port's device
+path (a torch tensor, argmax on its device) equals its host path (numpy),
+ties resolved to the first index.
+
+The box overlay renderers:
 
 Byte-exact: the device renderer (``device_render``) against the JAX
 package's ``device_render_fn`` on the same detections, and against the
@@ -74,3 +81,62 @@ def test_unported_scheme_and_labels_raise():
         dec.set_option(0, "yolov5")
     with pytest.raises(NotImplementedError, match="label"):
         BoundingBoxes().set_option(1, "labels.txt")
+
+
+# -- image_labeling -----------------------------------------------------------
+
+from nnstreamer_tpu.core import Buffer as JBuffer  # noqa: E402
+from nnstreamer_tpu.core import TensorsSpec as JTensorsSpec  # noqa: E402
+from nnstreamer_tpu.decoders.imagelabel import (  # noqa: E402
+    ImageLabeling as JImageLabeling,
+)
+from nnstreamer_tpu_torch.core import Buffer, TensorsSpec  # noqa: E402
+from nnstreamer_tpu_torch.decoders import find_decoder  # noqa: E402
+from nnstreamer_tpu_torch.decoders.imagelabel import (  # noqa: E402
+    ImageLabeling,
+    argmax_pair,
+)
+
+
+def _labels(tmp_path, n=7):
+    path = tmp_path / "labels.txt"
+    path.write_text("".join(f"class {i}\n" for i in range(n)) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("shape", [(10,), (4, 10), (2, 1, 10)])
+def test_image_labeling_matches_jax(tmp_path, shape):
+    """One label per buffer: the argmax over the WHOLE flattened tensor,
+    so a batch gives one label; an index past the labels file gives its
+    decimal string."""
+    path = _labels(tmp_path)
+    scores = np.random.default_rng(len(shape)).standard_normal(shape) \
+        .astype(np.float32)
+    jdec, tdec = JImageLabeling(), ImageLabeling()
+    jdec.set_option(0, path)
+    tdec.set_option(0, path)
+    want = jdec.decode(JBuffer.of(scores, pts=5), None)
+    for arr in (scores, torch.from_numpy(scores)):   # host, then tensor
+        got = tdec.decode(Buffer.of(arr, pts=5), None)
+        for k in ("label", "label_index", "score"):
+            assert got.meta[k] == want.meta[k], k
+        assert got.pts == 5
+        assert got.tensors[0].np().tobytes() == want.tensors[0].tobytes()
+    assert want.meta["label_index"] == int(np.argmax(scores))
+    spec = TensorsSpec.from_shapes([shape], np.float32)
+    jspec = JTensorsSpec.from_shapes([shape], np.float32)
+    assert str(tdec.out_caps(spec)) == str(jdec.out_caps(jspec))
+    assert "text/x-raw" in str(tdec.out_caps(spec))
+
+
+def test_image_labeling_past_the_labels_and_ties(tmp_path):
+    dec = find_decoder("image_labeling")()
+    dec.set_option(0, _labels(tmp_path, n=3))
+    x = np.zeros((2, 5), np.float32)
+    x[1, 2] = x[1, 4] = 3.5                    # tie: the first index wins
+    for arr in (x, torch.from_numpy(x)):
+        out = dec.decode(Buffer.of(arr), None)
+        assert (out.meta["label"], out.meta["label_index"],
+                out.meta["score"]) == ("7", 7, 3.5)
+    pair = argmax_pair(torch.from_numpy(x).bfloat16())
+    assert pair.dtype == torch.float32 and pair.tolist() == [7.0, 3.5]

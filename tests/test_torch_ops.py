@@ -1,10 +1,24 @@
-"""The port's ``scale_bias_cast`` against the JAX package's Pallas kernel.
+"""The port's kernels against the JAX package's Pallas kernels.
 
-On the CPU the port's wrapper runs its plain version (the CUDA kernel is
-held against that same plain version on the card by chip_smoke.py); the
-JAX side runs the Pallas kernel in interpret mode, as its own tests do.
-Same inputs from a numpy seed on both sides.  Tolerance: rtol 1e-6 for an
-f32 output, 1 bf16 ulp for a bf16 output.
+On the CPU the port's wrappers run their plain versions (each CUDA kernel
+is held against that same plain version on the card by chip_smoke.py and
+tests/test_torch_cuda.py); the JAX side runs the Pallas kernel in
+interpret mode, as its own tests do.  Same inputs from a numpy seed on
+both sides.
+
+Tolerances:
+- ``scale_bias_cast``: rtol 1e-6 for an f32 output, 1 bf16 ulp for a
+  bf16 output;
+- ``flash_attention`` where the JAX kernel engages (D = 128, S a multiple
+  of its block): f32 atol 1e-5 + rtol 1e-4 (only the order of summation
+  differs); bf16 atol 1e-2 + rtol 1e-2, and at most 1 bf16 ulp for
+  outputs of magnitude 1/64 or more;
+- ``flash_attention`` where the JAX package takes its jnp reference (D =
+  64, S = 100): f32 rtol 1e-5 + atol 1e-6 (the atol covers outputs near
+  zero, where a 2e-7 difference is a large relative one); bf16 atol 3e-2
+  + rtol 3e-2, because the JAX reference takes q·kᵀ in bf16 and so rounds
+  the scores, which the port's plain version (like its kernel) keeps in
+  f32.
 """
 
 import ml_dtypes
@@ -84,3 +98,105 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     meta = torch.empty(4, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="device"):
         tk.scale_bias_cast(meta, SCALE, BIAS)
+
+
+# -- flash attention ----------------------------------------------------------
+
+_FA_DT = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
+
+
+def _qkv(q_shape, kv_shape, dtype, seed=1):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(_FA_DT[dtype])
+            for s in (q_shape, kv_shape, kv_shape)]
+
+
+def _both(q, k, v):
+    want = np.asarray(jk.flash_attention(*map(jnp.asarray, (q, k, v))))
+    before = tk.flash_attention.launches
+    got = to_numpy(tk.flash_attention(*map(from_numpy, (q, k, v))))
+    assert tk.flash_attention.launches == before  # CPU: plain version
+    assert got.dtype == want.dtype and got.shape == want.shape
+    return got, want
+
+
+def _no_jax_reference(monkeypatch):
+    """Make the JAX side's fallback to its jnp reference an error, so a
+    test that means to hold the port against the Pallas kernel does."""
+    def refuse(*a, **kw):
+        raise AssertionError("the JAX kernel's tiling check failed")
+
+    monkeypatch.setattr(jk, "flash_attention_reference", refuse)
+
+
+@pytest.mark.parametrize("q_shape,kv_shape", [
+    ((2, 2, 256, 128), (2, 2, 256, 128)),
+    ((1, 128, 128), (1, 512, 128)),
+], ids=["self", "cross"])
+def test_flash_attention_f32_matches_pallas(q_shape, kv_shape, monkeypatch):
+    _no_jax_reference(monkeypatch)
+    got, want = _both(*_qkv(q_shape, kv_shape, "float32"))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_flash_attention_bf16_matches_pallas(monkeypatch):
+    _no_jax_reference(monkeypatch)
+    got, want = _both(*_qkv((2, 2, 128, 128), (2, 2, 128, 128), "bfloat16"))
+    np.testing.assert_allclose(got.astype(np.float32),
+                               want.astype(np.float32), rtol=1e-2, atol=1e-2)
+    # at most 1 ulp where |o| >= 1/64 (nearer zero an ulp is below the
+    # f32 summation noise, and the atol above holds)
+    big = np.abs(want.astype(np.float32)) >= 2 ** -6
+    assert big.mean() > 0.5
+    _assert_close(got[big], want[big], "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", sorted(_FA_DT))
+def test_flash_attention_where_jax_takes_its_reference(dtype):
+    """D = 64, S = 100: the JAX package computes its jnp reference; the
+    port's plain version (and kernel) take any S and D in (64, 128)."""
+    q, k, v = _qkv((1, 100, 64), (1, 100, 64), dtype, seed=3)
+    assert tk.flash_attention_available(q.shape, k.shape, q.dtype)
+    got, want = _both(q, k, v)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got.astype(np.float32),
+                                   want.astype(np.float32),
+                                   rtol=3e-2, atol=3e-2)
+
+
+def test_flash_attention_plain_version_follows_the_kernels_math():
+    """Scores in f32 even for bf16 inputs (the JAX reference rounds them
+    to bf16), a full softmax, p·v in f32, one cast at the end; scale
+    defaults to 1/sqrt(D) and is applied after the dot."""
+    q, k, v = (from_numpy(a) for a in
+               _qkv((2, 3, 17, 64), (2, 3, 9, 64), "bfloat16", seed=4))
+    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) / 8.0
+    want = (torch.softmax(s, dim=-1) @ v.float()).to(torch.bfloat16)
+    got = tk.flash_attention_reference(q, k, v)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 17, 64)
+    assert (got.float() - want.float()).abs().max() <= 2 ** -8
+    scaled = tk.flash_attention_reference(q, k, v, scale=0.5)
+    assert not torch.equal(scaled, got)
+    # the ragged S = 17 against the JAX reference at f32
+    qf, kf, vf = _qkv((2, 3, 17, 128), (2, 3, 17, 128), "float32", seed=5)
+    np.testing.assert_allclose(
+        tk.flash_attention_reference(*map(torch.from_numpy, (qf, kf, vf))
+                                     ).numpy(),
+        np.asarray(jk.flash_attention_reference(qf, kf, vf)),
+        rtol=1e-4, atol=1e-6)
+
+
+def test_flash_attention_eligibility():
+    ok = tk.flash_attention_available
+    assert ok((64, 4, 256, 128), (64, 4, 256, 128), torch.bfloat16)
+    assert ok((1, 2, 17, 64), (1, 2, 5, 64), np.float32)
+    assert not ok((1, 2, 16, 96), (1, 2, 16, 96), torch.bfloat16)  # D
+    assert not ok((1, 2, 16, 64), (1, 2, 16, 64), torch.float64)
+    assert not ok((1, 2, 16, 64), (1, 3, 16, 64), torch.float32)   # lead
+    assert not ok((1, 2, 16, 64), (1, 2, 16, 128), torch.float32)
+    assert not ok((16, 64), (0, 64), torch.float32)                # Sk = 0
+    meta = torch.empty(1, 4, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tk.flash_attention(meta, meta, meta)

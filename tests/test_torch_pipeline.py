@@ -1,8 +1,9 @@
 """The port's pipelines against the JAX package's, on the CPU.
 
-1. Golden replay: the committed golden cases of the main path's elements
-   (``transform_arithmetic``, ``transform_typecast``,
-   ``decoder_boundingbox_pp``) run their own case code from
+1. Golden replay: the committed golden cases of the ported paths'
+   elements (``transform_arithmetic``, ``transform_typecast``,
+   ``decoder_boundingbox_pp``, ``decoder_image_labeling``) run their own
+   case code from
    ``tests/golden_cases.py`` with the port's ``parse_launch(device="cpu")``,
    ``TensorsSpec`` and ``Buffer`` in place of the JAX package's, and must
    reproduce the committed files byte for byte.
@@ -51,14 +52,15 @@ COMPOSITE = (
 
 @pytest.mark.parametrize("case", ["transform_arithmetic",
                                   "transform_typecast",
-                                  "decoder_boundingbox_pp"])
+                                  "decoder_boundingbox_pp",
+                                  "decoder_image_labeling"])
 def test_golden_replay_byte_exact(case, tmp_path, monkeypatch):
     monkeypatch.setattr(golden_cases, "parse_launch",
                         lambda desc: parse_launch(desc, device="cpu"))
     monkeypatch.setattr(golden_cases, "TensorsSpec", TensorsSpec)
     monkeypatch.setattr(golden_cases, "Buffer", Buffer)
     out = str(tmp_path / f"{case}.out")
-    getattr(golden_cases, f"case_{case}")(out)
+    golden_cases.run_case(case, out)   # image_labeling: the labels file
     got = open(out, "rb").read()
     want = open(os.path.join(golden_cases.GOLDEN_DIR, f"{case}.golden"),
                 "rb").read()
