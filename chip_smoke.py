@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``nnstreamer_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-per-forward DIR   # one count, see below
 
 It drives the port's two paths — the composite detection pipeline and
 the ViT classification pipeline — through ``parse_launch`` at full width.
@@ -11,7 +12,9 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    CUDA and compute capability 9.0 (Hopper);
 2. build: compiles every kernel of the port from ``nnstreamer_tpu_torch/
    ops/csrc`` with nvcc (sm_90a) into ``build/nnstreamer_tpu_torch/``,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together, and prints ptxas's report
+   per kernel (registers, spills, warnings such as C7508 ``setmaxnreg``
+   ignored); the bf16 attention kernel must show no spill and no warning;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes and on ragged shapes and other input types, and its
    device time beside its bound (``time_ms``: 30 calls back to back
@@ -20,8 +23,9 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    difference expected, at most 1 ulp accepted.  ``flash_attention``:
    bf16 within atol 1e-2 + rtol 1e-2 and at most 16 bf16 ulps where
    |plain| >= 1/64 (the kernel rounds p to bf16 for p·v), f32 within atol
-   1e-5 + rtol 1e-4; timed beside ``scaled_dot_product_attention`` as a
-   yardstick;
+   1e-5 + rtol 1e-4, on contiguous inputs and on the ViT's head-split
+   views of one qkv projection ("vit qkv views"); timed on both layouts
+   beside ``scaled_dot_product_attention`` as a yardstick;
 4. detection path: the composite detection pipeline through ``parse_launch`` at
    full width — SSD-MobileNetV2, 91 classes, 300x300, max_out=10, batch
    256 — with the transform on the CUDA kernel (``backend=cuda``); the
@@ -42,16 +46,23 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    window; one window's logits with the plain attention swapped in agree
    with the kernel's within atol 5e-2 + rtol 5e-2, same argmax; (b) with
    the decoder: the label is the argmax of (a)'s logits; (c) batch 2, f32,
-   TF32 off: card against CPU within 1e-3, labels equal; then a profile;
+   TF32 off: card against CPU within 1e-3, labels equal; then a profile,
+   and the number of CUDA kernels one forward queues;
 8. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
+
+``--kernels-per-forward DIR`` runs nothing but one full-width ViT forward
+with the port found in the checkout DIR and prints how many CUDA kernels
+it queued: the same count phase 7 prints, for another tree on the same
+card.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -125,18 +136,19 @@ def time_ms(fn, reps: int = 30, warmup: int = 5, groups: int = 5) -> float:
     one pair of CUDA events, divided by ``reps``; the median of ``groups``
     such groups, after ``warmup`` calls.  A spin kernel queued ahead of
     the start event keeps the card busy while the host queues the group,
-    so the host's launch time drops out; raises if the host took longer
-    to queue a group than the spin lasted."""
+    so the host's launch time drops out.  A group whose queueing outlasted
+    its spin is discarded and repeated behind a spin lengthened to twice
+    the host's time; raises if that still fails ``retries`` times."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(groups):
+    spin, retries, times = SPIN_CYCLES, 6, []
+    while len(times) < groups:
         e0, s, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         e0.record()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         s.record()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -145,11 +157,18 @@ def time_ms(fn, reps: int = 30, warmup: int = 5, groups: int = 5) -> float:
         host_ms = (time.perf_counter() - t0) * 1e3
         e.synchronize()
         spin_ms = e0.elapsed_time(s)
-        if host_ms >= spin_ms:
+        if host_ms < spin_ms:
+            times.append(s.elapsed_time(e) / reps)
+            continue
+        if retries == 0:
             raise RuntimeError(f"time_ms: the host took {host_ms:.3f} ms to "
                                f"queue {reps} calls, the spin only "
                                f"{spin_ms:.3f} ms: host time would count")
-        times.append(s.elapsed_time(e) / reps)
+        retries -= 1
+        spin = int(spin * 2 * host_ms / spin_ms) + 1
+        print(f"time_ms: the host took {host_ms:.3f} ms to queue {reps} "
+              f"calls, the spin {spin_ms:.3f} ms: group repeated behind "
+              f"{spin} spin cycles", flush=True)
     return statistics.median(times)
 
 
@@ -234,6 +253,38 @@ def run_pipeline(desc: str, frames, n: int, device="cuda"):
     if len(bufs) != n:
         raise RuntimeError(f"{desc}: {len(bufs)} of {n} buffers")
     return p, bufs, secs
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_attention_bf16_kernel<Li128>`` from the Itanium-mangled
+    name after ``_ZN``: the last of its length-prefixed parts, then its
+    template arguments as mangled."""
+    i, part = 0, ""
+    while i < len(mangled) and mangled[i].isdigit():
+        m = re.match(r"\d+", mangled[i:])
+        n = int(m.group())
+        i += len(m.group())
+        part, i = mangled[i:i + n], i + n
+    args = re.match(r"I(\w*?)EE", mangled[i:])
+    return f"{part}<{args.group(1)}>" if args else part
+
+
+def ptxas_report(log: str):
+    """nvcc's ``-Xptxas -v`` output by kernel: the registers, shared
+    memory and spill lines and every warning (for example C7508,
+    ``setmaxnreg`` ignored), keyed by the kernel's name."""
+    report, kernel = {}, None
+    for line in log.splitlines():
+        line = line.strip()
+        m = re.search(r"entry function '_ZN(\w+)'", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            report[kernel] = []
+        elif "warning" in line.lower():
+            report.setdefault(kernel or "(no kernel)", []).append(line)
+        elif kernel and ("Used" in line or "spill" in line):
+            report[kernel].append(line.replace("ptxas info    : ", ""))
+    return report
 
 
 def phase_kernels(card: str, power: str):
@@ -321,6 +372,7 @@ def phase_flash_attention(card: str, power: str):
     main = (VIT_BATCH, heads, s, dh)
     cases = [
         ("vit main", main, main),
+        ("vit qkv views", main, None),
         ("vit 224px S=196", (VIT_BATCH, 2, 196, 128),
          (VIT_BATCH, 2, 196, 128)),
         ("ragged", (1, 2, 17, 128), (1, 2, 17, 128)),
@@ -331,15 +383,19 @@ def phase_flash_attention(card: str, power: str):
     worst = 0.0
     for label, q_shape, kv_shape in cases:
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v = (torch.randn(sh, generator=g).to(dt).to(dev)
-                       for sh in (q_shape, kv_shape, kv_shape))
+            if kv_shape is None:
+                q, k, v = vit_qkv_views(g, dt)
+            else:
+                q, k, v = (torch.randn(sh, generator=g).to(dt).to(dev)
+                           for sh in (q_shape, kv_shape, kv_shape))
             o = kernels.flash_attention(q, k, v)
             r = kernels.flash_attention_reference(q, k, v)
             torch.cuda.synchronize()
             diff = float((o.float() - r.float()).abs().max())
             ulps = bf16_ulps(o, r) if dt == torch.bfloat16 else 0.0
-            print(f"kernel flash_attention {label} q{tuple(q_shape)} "
-                  f"kv{tuple(kv_shape)} {dt}: max_abs_diff={diff}" +
+            print(f"kernel flash_attention {label} q{tuple(q.shape)} "
+                  f"kv{tuple(k.shape)} strides {q.stride()} {dt}: "
+                  f"max_abs_diff={diff}" +
                   (f" max_bf16_ulps(|plain|>=1/64)={ulps:.2f}"
                    if dt == torch.bfloat16 else ""), flush=True)
             atol, rtol = tol[dt]
@@ -356,6 +412,8 @@ def phase_flash_attention(card: str, power: str):
     q, k, v = (torch.randn(main, generator=g).to(torch.bfloat16).to(dev)
                for _ in range(3))
     ms = time_ms(lambda: kernels.flash_attention(q, k, v))
+    qv, kv, vv = vit_qkv_views(g, torch.bfloat16)
+    views_ms = time_ms(lambda: kernels.flash_attention(qv, kv, vv))
     plain = time_ms(lambda: kernels.flash_attention_reference(q, k, v))
     sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     nbytes = 4 * q.numel() * q.element_size()
@@ -364,13 +422,73 @@ def phase_flash_attention(card: str, power: str):
     ops_ms = flops / BF16_FLOPS * 1e3
     bound = max(bytes_ms, ops_ms)
     by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"kernel flash_attention bf16 {main}: ms={ms:.6f} "
+    print(f"kernel flash_attention bf16 {main}: ms={ms:.6f} (contiguous) "
+          f"views_ms={views_ms:.6f} (the ViT's qkv views) "
           f"plain_ms={plain:.6f} sdpa_ms={sdpa:.6f} bound_ms={bound:.6f} "
           f"({by}; {nbytes} B -> {bytes_ms:.6f} ms, {flops} FLOP -> "
           f"{ops_ms:.6f} ms) share_of_bound={bound / ms:.3f} "
           f"vs_sdpa={ms / sdpa:.2f}x [{card}, {power}]", flush=True)
-    return worst, {"ms": ms, "plain_ms": plain, "library_ms": sdpa,
-                   "bound_ms": bound, "bound_by": by}
+    return worst, {"ms": ms, "views_ms": views_ms, "plain_ms": plain,
+                   "library_ms": sdpa, "bound_ms": bound, "bound_by": by}
+
+
+def vit_qkv_views(g, dtype):
+    """q, k, v as the ViT path hands them to the kernel: the head-split
+    thirds of one (batch, S, 3·dim) qkv projection, strides (S·3·dim, dh,
+    3·dim, 1)."""
+    import torch
+
+    b, d, h = VIT_BATCH, VIT["dim"], VIT["heads"]
+    s = (VIT_SIZE // VIT["patch"]) ** 2
+    qkv = torch.randn((b, s, 3 * d), generator=g).to(dtype).cuda()
+    return [t.reshape(b, s, h, d // h).transpose(1, 2)
+            for t in qkv.split(d, dim=-1)]
+
+
+def kernels_per_forward(model, x):
+    """CUDA kernels one ViT forward queues (torch.profiler; copies and
+    fills by the copy engine excluded): (total, of which copy kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.models import vit_apply
+
+    with torch.inference_mode():
+        vit_apply(model, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            vit_apply(model, x)
+            torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    return (sum(e.count for e in rows),
+            sum(e.count for e in rows if "copy" in e.key.lower()))
+
+
+def count_forward_kernels(root: str) -> int:
+    """``--kernels-per-forward ROOT``: the kernels one full-width ViT
+    forward queues with the port found under ROOT (another checkout, to
+    compare two trees on one card); prints one line, nothing else runs."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import nnstreamer_tpu_torch
+    from nnstreamer_tpu_torch.models import vit_init
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    model = vit_init(SEED, image_size=VIT_SIZE, **VIT).cuda()
+    x = torch.rand((VIT_BATCH, VIT_SIZE, VIT_SIZE, 3),
+                   generator=torch.Generator().manual_seed(SEED)).cuda()
+    n, copies = kernels_per_forward(model, x)
+    print(f"vit forward with {os.path.dirname(nnstreamer_tpu_torch.__file__)}"
+          f": {n} CUDA kernels queued, {copies} of them copy kernels "
+          f"[{torch.cuda.get_device_name(0)}]", flush=True)
+    return 0
 
 
 def phase_main_path(card: str, power: str):
@@ -690,6 +808,9 @@ def phase_vit(card: str, power: str):
 
     prof = phase_profile(vit_pipe("vit_b64", 3), frames, card, power,
                          label="vit profile")
+    n_kernels, n_copies = kernels_per_forward(model_card, x)
+    print(f"vit profile: one forward queues {n_kernels} CUDA kernels, "
+          f"{n_copies} of them copy kernels", flush=True)
     share = per_launch = None
     if prof is not None:
         rows, busy = prof
@@ -706,10 +827,14 @@ def phase_vit(card: str, power: str):
             "scale_bias_cast_launches": sbc_launches,
             "kernel_vs_plain_max_abs_diff": err, "card_vs_cpu_f32": err_c,
             "flash_share_of_device": share,
+            "kernels_per_forward": n_kernels,
+            "copy_kernels_per_forward": n_copies,
             "flash_profile_ms_per_launch": per_launch}
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
+        return count_forward_kernels(sys.argv[2])
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -734,10 +859,17 @@ def main() -> int:
     libs = build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s "
           f"into {build.BUILD_DIR}", flush=True)
-    for name, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build {name}: {line.strip()}")
+    for name in libs:
+        report = ptxas_report(build.build_logs.get(name, ""))
+        if not report:
+            print(f"build {name}: reused from disk, no ptxas report")
+        for kernel, lines in report.items():
+            print(f"build {name}: {kernel}: {'; '.join(lines)}")
+            bad = [ln for ln in lines if "warning" in ln
+                   or ("spill" in ln and " 0 bytes spill stores, 0 bytes "
+                       "spill loads" not in ln)]
+            if "bf16_kernel" in kernel and bad:
+                raise RuntimeError(f"{kernel}: ptxas reports {bad}")
 
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
@@ -777,6 +909,7 @@ def main() -> int:
         "max_abs_err": fa_worst,
         "max_abs_diff": fa_worst,
         "ms": fa["ms"],
+        "ms_vit_qkv_views": fa["views_ms"],
         "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"],

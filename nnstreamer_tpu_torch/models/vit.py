@@ -78,9 +78,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, S, D) → (B, H, S, D/H), contiguous for the kernel."""
+    """(B, S, D) → (B, H, S, D/H) as a view: for a third of the qkv
+    projection, strides (S·3D, D/H, 3D, 1), which the kernel reads as
+    they are."""
     B, S, D = t.shape
-    return t.reshape(B, S, heads, D // heads).transpose(1, 2).contiguous()
+    return t.reshape(B, S, heads, D // heads).transpose(1, 2)
 
 
 class Block(nn.Module):
@@ -96,7 +98,10 @@ class Block(nn.Module):
     def attention(self, x: torch.Tensor, heads: int,
                   dtype: torch.dtype) -> torch.Tensor:
         """``_attention``: q, k, v are contiguous thirds of the qkv
-        projection, heads split as (B, S, H, dh) → (B, H, S, dh)."""
+        projection, heads split as (B, S, H, dh) → (B, H, S, dh).  The
+        kernel takes those views without a copy and writes o in (B, S, H,
+        dh) order, so on the card the reshape back to (B, S, D) is a view
+        too."""
         B, S, D = x.shape
         q, k, v = self.qkv(x, dtype).split(D, dim=-1)
         o = flash_attention(*(_split_heads(t, heads) for t in (q, k, v)))

@@ -8,8 +8,11 @@
 - ``flash_attention`` is non-causal, unmasked ``softmax(q·kᵀ·scale)·v``
   with an online softmax (``csrc/flash_attention.cu``): the port of the
   Pallas kernel of the same name, under the ViT's attention
-  (``models/vit.py``).  bf16 runs on the tensor cores, f32 on the CUDA
-  cores; head dims 64 and 128, any sequence lengths.
+  (``models/vit.py``).  bf16 runs on the tensor cores (TMA loads,
+  ``wgmma``, a producer warpgroup and two consumer warpgroups), f32 on
+  the CUDA cores; head dims 64 and 128, any sequence lengths; q, k and v
+  are read by stride (:func:`_fa_layout`), so the ViT hands it the
+  head-split views of its qkv projection.
 
 Every kernel has three faces here: the plain version
 (``*_reference``: what the CPU tests run and what the card's result is
@@ -23,8 +26,7 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -178,15 +180,65 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                         v.to(torch.float32)).to(q.dtype)
 
 
+class _FaLayout(NamedTuple):
+    """A (B, H, S, D) view with element strides (sB, sH, sS, 1)."""
+    B: int
+    H: int
+    S: int
+    D: int
+    sB: int
+    sH: int
+    sS: int
+
+
+def _fa_layout(t: torch.Tensor) -> Union[_FaLayout, str]:
+    """``t`` (..., S, D) as the kernel reads it: a rank-4 (B, H, S, D)
+    layout with element strides, or why the kernel cannot read it.
+
+    The last dim must have stride 1.  The dim before S is H; the ones
+    before that must merge into one dim B (as a contiguous tensor's do);
+    no leading dims means B = H = 1.  A dim of size 1 is never stepped
+    over, so its stride is set to one TMA takes.  TMA's rules: a 16-byte
+    aligned base and strides that are positive multiples of 16 bytes,
+    below 2**40 bytes."""
+    if t.dim() < 2:
+        return f"needs (..., S, D), got shape {tuple(t.shape)}"
+    S, D = t.shape[-2], t.shape[-1]
+    if t.stride(-1) != 1:
+        return f"the last dim must have stride 1, got {t.stride(-1)}"
+    lead = [(n, st) for n, st in zip(t.shape[:-2], t.stride()[:-2]) if n != 1]
+    H, sH = lead.pop() if lead else (1, 0)
+    B, sB = lead.pop() if lead else (1, 0)
+    for n, st in reversed(lead):
+        if st != sB * B:
+            return (f"leading dims {tuple(t.shape[:-2])} with strides "
+                    f"{t.stride()[:-2]} do not merge into (B, H)")
+        B *= n
+    sS = t.stride(-2) if S > 1 else D
+    sH = sH if H > 1 else S * sS
+    sB = sB if B > 1 else H * sH
+    esize = t.element_size()
+    if t.data_ptr() % 16:
+        return f"its base {t.data_ptr():#x} is not 16-byte aligned"
+    for name, st in (("S", sS), ("H", sH), ("B", sB)):
+        if st <= 0 or (st * esize) % 16 or st * esize >= 2 ** 40:
+            return (f"the stride of its {name} dim, {st * esize} bytes, is "
+                    "not a positive multiple of 16 below 2**40")
+    return _FaLayout(B, H, S, D, sB, sH, sS)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """``softmax(q·kᵀ·scale)·v`` (scale defaults to 1/√D) as one CUDA
     kernel, never materializing the (S, Sk) scores.
 
-    CPU tensors get the plain version.  CUDA tensors must be contiguous,
-    16-byte aligned, on one device, of one type and shape that
-    :func:`flash_attention_available` accepts; anything else raises
-    ``ValueError``."""
+    CPU tensors get the plain version.  CUDA tensors must be on one
+    device, of one type and shape that :func:`flash_attention_available`
+    accepts, and each readable by the kernel as :func:`_fa_layout` says —
+    any strides TMA takes, so the head-split views of a qkv projection go
+    in without a copy; anything else raises ``ValueError``.  The output
+    is allocated (B, S, H, D) and returned as its (..., S, D) view, so
+    ``o.transpose(1, 2)`` of a 4-d result is contiguous."""
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
@@ -198,30 +250,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           [q.dtype, k.dtype, v.dtype])
     if why is not None:
         raise ValueError(f"flash_attention: {why}")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    layouts = []
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be 16-byte "
-                             "aligned")
-    S, D, Sk = q.shape[-2], q.shape[-1], k.shape[-2]
-    bh = math.prod(q.shape[:-2])
-    o = torch.empty_like(q)
-    if bh == 0:
-        return o
+        lay = _fa_layout(t)
+        if isinstance(lay, str):
+            raise ValueError(f"flash_attention: {name}: {lay}")
+        layouts.append(lay)
+    B, H, S, D = layouts[0][:4]
+    o4 = torch.empty((B, S, H, D), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    layouts.append(_fa_layout(o4))
     fn = _launcher("flash_attention", "nns_flash_attention",
                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_float, ctypes.c_void_p])
+                    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
-                S, Sk, D, _FA_DTYPES[q.dtype], float(scale), _stream(q))
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(),
+                (ctypes.c_int64 * 28)(*(x for lay in layouts for x in lay)),
+                _FA_DTYPES[q.dtype], float(scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention.launches += 1
-    return o
+    return o4.view(q.shape)
 
 
 flash_attention.launches = 0

@@ -10,7 +10,8 @@ on the card:
 - ``scale_bias_cast``: bit-exact expected, 1 ulp accepted;
 - ``flash_attention``: f32 atol 1e-5 + rtol 1e-4 (the order of summation
   differs); bf16 atol 1e-2 + rtol 1e-2 (the kernel rounds p to bf16 for
-  the p·v product on the tensor cores, the plain version does not).
+  the p·v product on the tensor cores, the plain version does not); on
+  contiguous inputs and on the ViT's strided qkv views alike.
 """
 
 import numpy as np
@@ -135,10 +136,53 @@ def test_flash_attention_refuses_without_fallback(card):
     with pytest.raises(ValueError, match="float64"):
         kernels.flash_attention(q, k, v)
     q, k, v = _qkv((1, 2, 64, 16), (1, 2, 64, 16), torch.bfloat16, card)
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(ValueError, match="stride 1"):
         kernels.flash_attention(q.transpose(-1, -2), k.transpose(-1, -2),
                                 v.transpose(-1, -2))
+    q, k, v = _qkv((1, 2, 16, 68), (1, 2, 16, 68), torch.bfloat16, card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.flash_attention(q[..., 1:65], k[..., :64], v[..., :64])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kernels.flash_attention(q[..., :64], k[..., :64], v[..., :64])
     assert kernels.flash_attention.launches == before
+
+
+def _qkv_views(B, s, sk, H, d, dtype, card, seed=3):
+    """q from the first third of a (B, s, 3·H·d) projection, k and v the
+    second and third thirds of a (B, sk, 3·H·d) one, split into heads as
+    the ViT does: (B, H, S, d) views with strides (S·3Hd, d, 3Hd, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    D = H * d
+
+    def heads(t, n):
+        return t.reshape(B, n, H, d).transpose(1, 2)
+
+    pq = torch.randn(B, s, 3 * D, generator=g).to(dtype).to(card)
+    pkv = torch.randn(B, sk, 3 * D, generator=g).to(dtype).to(card)
+    return (heads(pq[..., :D], s), heads(pkv[..., D:2 * D], sk),
+            heads(pkv[..., 2 * D:], sk))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,sk", [(17, 17), (256, 256), (130, 70), (1, 300)])
+def test_flash_attention_kernel_on_qkv_views(card, dtype, d, s, sk):
+    """The ViT's layout: q, k, v read by stride out of the qkv projection,
+    o written (B, S, H, d), at the same tolerances as contiguous inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv_views(2, s, sk, 4, d, dtype, card)
+    if s > 1:  # a one-row view counts as contiguous
+        assert not q.is_contiguous() and q.stride(-2) == 3 * 4 * d
+    before = kernels.flash_attention.launches
+    o = kernels.flash_attention(q, k, v)
+    r = kernels.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    assert o.shape == q.shape and o.dtype == dtype
+    assert o.transpose(1, 2).is_contiguous()
+    tol = _FA_TOL[dtype]
+    torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol * 10
+                               if dtype == torch.float32 else tol)
 
 
 def test_vit_on_card_matches_cpu(card):

@@ -23,6 +23,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "flash_study.py")
 
 
 def test_port_imports_with_jax_blocked():
@@ -47,7 +48,7 @@ def test_port_imports_with_jax_blocked():
 
 def test_no_jax_or_jax_package_import_in_source():
     """AST scan: no ``import jax``/``from jax`` and no import of the JAX
-    package anywhere in the port or in chip_smoke.py."""
+    package anywhere in the port, chip_smoke.py or flash_study.py."""
     bad = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), filename=path)

@@ -188,6 +188,80 @@ def test_flash_attention_plain_version_follows_the_kernels_math():
         rtol=1e-4, atol=1e-6)
 
 
+def _qkv_views(B, S, H, dh, dtype=torch.bfloat16, seed=6):
+    """q, k, v as the ViT splits its qkv projection: thirds of one
+    (B, S, 3·H·dh) tensor, each viewed (B, S, H, dh) → (B, H, S, dh)."""
+    D = H * dh
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, S, 3 * D, generator=g).to(dtype)
+    return [t.reshape(B, S, H, dh).transpose(1, 2)
+            for t in qkv.split(D, dim=-1)]
+
+
+_L = tk._FaLayout
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((64, 4, 256, 128), _L(64, 4, 256, 128, 4 * 256 * 128, 256 * 128, 128)),
+    ((2, 3, 17, 64), _L(2, 3, 17, 64, 3 * 17 * 64, 17 * 64, 64)),
+    ((5, 100, 64), _L(1, 5, 100, 64, 5 * 100 * 64, 100 * 64, 64)),
+    ((128, 128), _L(1, 1, 128, 128, 128 * 128, 128 * 128, 128)),
+    ((2, 3, 4, 9, 64), _L(6, 4, 9, 64, 4 * 9 * 64, 9 * 64, 64)),
+    ((1, 4, 1, 64), _L(1, 4, 1, 64, 4 * 64, 64, 64)),
+], ids=["vit", "bhsd", "hsd", "sd", "merged-lead", "size-1"])
+def test_fa_layout_of_contiguous_tensors(shape, want):
+    """Leading dims merge into (B, H); none means B = H = 1; a size-1 dim
+    gets a stride TMA takes (it is never stepped over)."""
+    assert tk._fa_layout(torch.zeros(shape, dtype=torch.bfloat16)) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,dh", [(64, 256, 4, 128), (2, 100, 4, 64),
+                                      (1, 17, 2, 128)])
+def test_fa_layout_of_the_qkv_head_views(B, S, H, dh, dtype):
+    """The ViT's head-split thirds of the qkv projection: strides
+    (S·3D, dh, 3D, 1) with k and v at offsets D and 2D, read as they are."""
+    D = H * dh
+    q, k, v = _qkv_views(B, S, H, dh, dtype)
+    for t in (q, k, v):
+        assert tk._fa_layout(t) == _L(B, H, S, dh, S * 3 * D if B > 1 else
+                                      H * dh, dh, 3 * D)
+    assert (k.data_ptr() - q.data_ptr()) // q.element_size() == D
+    assert (v.data_ptr() - q.data_ptr()) // q.element_size() == 2 * D
+
+
+@pytest.mark.parametrize("make,why", [
+    (lambda: torch.zeros(1, 2, 128, 64).transpose(-1, -2),
+     "last dim must have stride 1"),
+    (lambda: torch.zeros(1, 2, 16, 65)[..., 1:], "16-byte aligned"),
+    (lambda: torch.zeros(1, 2, 16, 3 * 64 + 4, dtype=torch.bfloat16)[..., :64],
+     "stride of its S dim, 392 bytes"),
+    (lambda: torch.zeros(3, 16, 64).expand(2, 3, 16, 64),
+     "stride of its B dim, 0 bytes"),
+    (lambda: torch.zeros(4, 3, 2, 16, 64).transpose(0, 1),
+     "do not merge into (B, H)"),
+    (lambda: torch.zeros(64), "needs (..., S, D)"),
+], ids=["transposed", "misaligned-base", "misaligned-stride", "broadcast",
+        "unmergeable", "rank-1"])
+def test_fa_layout_refuses_with_the_reason(make, why):
+    got = tk._fa_layout(make())
+    assert isinstance(got, str) and why in got, got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_plain_version_on_qkv_views(dtype, dh):
+    """On the CPU the wrapper's plain version reads the strided views: the
+    same values as on contiguous copies."""
+    q, k, v = _qkv_views(2, 33, 4, dh, dtype)
+    assert not q.is_contiguous()
+    got = tk.flash_attention(q, k, v)
+    want = tk.flash_attention_reference(q.contiguous(), k.contiguous(),
+                                        v.contiguous())
+    assert got.shape == q.shape and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
 def test_flash_attention_eligibility():
     ok = tk.flash_attention_available
     assert ok((64, 4, 256, 128), (64, 4, 256, 128), torch.bfloat16)

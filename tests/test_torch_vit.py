@@ -212,6 +212,35 @@ def test_heads_layout_matches_jax(monkeypatch):
     assert not np.allclose(seen["port"][0], seen["port"][1])
 
 
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_attention_hands_the_kernel_qkv_views(config, monkeypatch):
+    """No copies around the kernel: q, k and v are the head-split thirds
+    of one qkv projection, strides (S·3D, dh, 3D, 1) with k and v D and
+    2D elements past q in the same storage; the forward is unchanged."""
+    heads, tree, x = CONFIGS[config], _jax_tree(), _image(2)
+    dim, S = TINY["dim"], 16
+    dh, inner, seen = dim // heads, tvit.flash_attention, []
+
+    def capture(q, k, v, *a, **kw):
+        seen.append((q, k, v))
+        return inner(q, k, v, *a, **kw)
+
+    model = convert.vit_from_jax(tree, heads)
+    want = _port_logits(model, x, torch.float32)
+    monkeypatch.setattr(tvit, "flash_attention", capture)
+    got = _port_logits(model, x, torch.float32)
+    assert len(seen) == TINY["depth"]
+    np.testing.assert_array_equal(got, want)
+    for q, k, v in seen:
+        for t in (q, k, v):
+            assert t.shape == (2, heads, S, dh)
+            assert t.stride() == (S * 3 * dim, dh, 3 * dim, 1)
+            assert t.untyped_storage().data_ptr() == \
+                q.untyped_storage().data_ptr()
+        assert k.storage_offset() - q.storage_offset() == dim
+        assert v.storage_offset() - q.storage_offset() == 2 * dim
+
+
 def test_register_vit_through_the_filter():
     """``register_vit``: the model a ``tensor_filter`` names, bf16
     compute, logits equal to ``vit_apply`` on the same weights."""
