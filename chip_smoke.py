@@ -4,8 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-per-forward DIR   # one count, see below
 
-It drives the port's two paths — the composite detection pipeline and
-the ViT classification pipeline — through ``parse_launch`` at full width.
+It drives the port's three paths — the composite detection pipeline, the
+ViT classification pipeline and shared-model serving at the ViT's width —
+through ``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
@@ -48,7 +49,25 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    the decoder: the label is the argmax of (a)'s logits; (c) batch 2, f32,
    TF32 off: card against CPU within 1e-3, labels equal; then a profile,
    and the number of CUDA kernels one forward queues;
-8. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+8. serving: the JAX package's bench_serving topology at the ViT's width
+   — 8 closed-loop streams (8 frames in flight each) of uint8
+   (1,256,256,3) frames staged on the card, each ``appsrc ! queue !
+   tensor_transform backend=cuda ! tensor_filter`` on the ViT per frame
+   ``batch=64 batch-timeout-ms=2 batch-buckets=8,16,32,64 ! tensor_decoder
+   mode=image_labeling ! appsink``; two legs, ``share-model=true`` (one
+   pool, one cross-stream adaptive window) and ``share-model=false``
+   (eight element-level windows), each a warm-up round and then 64 timed
+   frames per stream: frames/s, push→pull p50/p99, dispatches, frames and
+   streams per dispatch, flushes by reason, kernel launches and peak
+   memory.  Every stream's pts come back in order, none lost; the pooled
+   logits of every staged frame within 5e-2 (bf16) of the frame run alone
+   through a batch-1 pipeline, and every timed label equal to the alone
+   argmax wherever its top-2 margin exceeds 5e-2.  Then the non-pooled
+   ``batch=16`` path (the prologue fused and run once a window),
+   ``flash_attention`` timed at every bucket, and each new transform mode
+   on the card against the CPU at (64,256,256,3): byte for byte, ``stand``
+   within 1 ulp (float64 sums in another order);
+9. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -113,6 +132,28 @@ VIT_PIPE = (
     "{dec}appsink name=out max-buffers={sink}")
 LABEL_DEC = ("tensor_decoder name=label mode=image_labeling "
              f"option1={LABELS} ! ")
+
+#: the serving phase: the JAX package's bench_serving topology
+#: (nnstreamer_tpu/bench.py:2139-2156) with the ViT above, per frame
+SERVE_STREAMS = 8
+SERVE_DEPTH = 8        # frames each closed-loop client keeps in flight
+SERVE_WARMUP = 16      # frames per stream before the timed region
+SERVE_FRAMES = 64      # timed frames per stream
+SERVE_POOL = 16        # distinct frames per stream, staged on the card
+SERVE_BUCKETS = (8, 16, 32, 64)
+#: pooled logits against the same frame run alone: a window's rows are
+#: computed as they are alone, up to the order of a few f32 sums (read
+#: 2.9e-6 on an H100); any two different frames' logits must lie more
+#: than twice this apart, so a frame swapped or split wrongly fails
+SERVE_TOL = 1e-4
+SERVE_PIPE = (
+    "appsrc name=src max-buffers=32 ! queue max-size-buffers=32 ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=net framework=torch-cuda model={model} "
+    "share-model={share} batch={batch} batch-timeout-ms=2 "
+    "batch-buckets={buckets}{sample} ! {dec}appsink name=out "
+    "max-buffers=128")
 
 COMPOSITE = (
     "device_src name=src num-buffers={n} ! "
@@ -299,6 +340,14 @@ def phase_kernels(card: str, power: str):
         ("u8 main", (BATCH, SIZE, SIZE, 3), torch.uint8, torch.bfloat16),
         ("u8 vit", (VIT_BATCH, VIT_SIZE, VIT_SIZE, 3), torch.uint8,
          torch.float32),
+        # the serving phase: one frame (shared leg), a bucket-8 window
+        # (unshared leg) and a batch=16 window, each fused or not
+        ("u8 serving frame", (1, VIT_SIZE, VIT_SIZE, 3), torch.uint8,
+         torch.float32),
+        ("u8 serving window", (8, 1, VIT_SIZE, VIT_SIZE, 3), torch.uint8,
+         torch.float32),
+        ("u8 serving window", (16, 1, VIT_SIZE, VIT_SIZE, 3), torch.uint8,
+         torch.float32),
         ("u8 ragged", (3, 5), torch.uint8, torch.float32),
         ("u8 ragged", (1, 299, 299, 3), torch.uint8, torch.float32),
         ("i8", (1, 299, 299, 3), torch.int8, torch.float32),
@@ -432,13 +481,13 @@ def phase_flash_attention(card: str, power: str):
                    "library_ms": sdpa, "bound_ms": bound, "bound_by": by}
 
 
-def vit_qkv_views(g, dtype):
+def vit_qkv_views(g, dtype, batch: int = VIT_BATCH):
     """q, k, v as the ViT path hands them to the kernel: the head-split
     thirds of one (batch, S, 3·dim) qkv projection, strides (S·3·dim, dh,
     3·dim, 1)."""
     import torch
 
-    b, d, h = VIT_BATCH, VIT["dim"], VIT["heads"]
+    b, d, h = batch, VIT["dim"], VIT["heads"]
     s = (VIT_SIZE // VIT["patch"]) ** 2
     qkv = torch.randn((b, s, 3 * d), generator=g).to(dtype).cuda()
     return [t.reshape(b, s, h, d // h).transpose(1, 2)
@@ -832,6 +881,485 @@ def phase_vit(card: str, power: str):
             "flash_profile_ms_per_launch": per_launch}
 
 
+def serve_pipe(model: str, share: bool, batch: int = 64,
+               buckets: str = ",".join(map(str, SERVE_BUCKETS)),
+               decoder: bool = True, every_dispatch: bool = False) -> str:
+    """The serving pipeline; ``every_dispatch`` times every dispatch
+    (stat-sample-interval-ms=0: it waits for the card each window)."""
+    return SERVE_PIPE.format(
+        norm=NORM, model=model, share=str(share).lower(), batch=batch,
+        buckets=buckets, dec=LABEL_DEC if decoder else "",
+        sample=" stat-sample-interval-ms=0" if every_dispatch else "")
+
+
+def closed_loop(pipes, pools, first_pts: int, n: int, depth: int):
+    """Each pipeline gets a client thread that pushes frames of its pool
+    (frame ``pts`` is ``pool[pts % len(pool)]``, already on the card),
+    keeps ``depth`` of them in flight and pulls every result.  Returns
+    (buffers by stream, push→pull seconds of every frame, wall seconds
+    from the first push to the last pull)."""
+    import threading
+
+    from nnstreamer_tpu_torch.core import Buffer, Tensor
+
+    outs = [[] for _ in pipes]
+    lats = [[] for _ in pipes]
+    errors = []
+
+    def client(s):
+        src, sink, pool = pipes[s]["src"], pipes[s]["out"], pools[s]
+        pushed, sent = {}, 0
+        try:
+            while len(outs[s]) < n:
+                while sent < n and sent - len(outs[s]) < depth:
+                    pts = first_pts + sent
+                    pushed[pts] = time.perf_counter()
+                    src.push_buffer(Buffer(
+                        tensors=[Tensor(pool[pts % len(pool)])], pts=pts))
+                    sent += 1
+                b = sink.pull(timeout=120)
+                if b is None:
+                    raise RuntimeError(f"stream {s}: no result within 120 s "
+                                       f"after {len(outs[s])} of {n}")
+                lats[s].append(time.perf_counter() - pushed[b.pts])
+                outs[s].append(b)
+        except Exception as e:  # noqa: BLE001 - re-raised by the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(s,), name=f"client{s}")
+               for s in range(len(pipes))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"closed loop failed: {errors or 'client hung'}")
+    for p in pipes:
+        if p.error is not None:
+            raise RuntimeError(f"pipeline error: {p.error}")
+    return outs, [x for per in lats for x in per], wall
+
+
+def serve_leg(share: bool, pools, card: str, power: str, decoder=True,
+              warmup: int = SERVE_WARMUP, n: int = SERVE_FRAMES,
+              profile: bool = False):
+    """One leg of the serving phase: SERVE_STREAMS pipelines on the
+    per-frame ViT, a warm-up round, then ``n`` timed frames per stream.
+    Returns the leg's numbers and its buffers by stream (timed only).
+
+    ``profile``: every dispatch waits for the card and is split into
+    host prep, device and host drain (the pool's InvokeStats), and the
+    timed region runs under torch.profiler for the device's busy share."""
+    import contextlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    label = ("shared" if share else "unshared") + \
+        (", profiled" if profile else "")
+    pipes = [parse_launch(serve_pipe("vit_serve", share, decoder=decoder,
+                                     every_dispatch=profile))
+             for _ in range(SERVE_STREAMS)]
+    try:
+        from nnstreamer_tpu_torch.core import TensorsSpec
+
+        for p in pipes:
+            p["src"].spec = TensorsSpec.parse(
+                f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
+            p.start()
+        nets = [p["net"] for p in pipes]
+        if share and len({id(f.pool) for f in nets}) != 1:
+            raise RuntimeError("shared leg: the filters are not one pool")
+        if share and any(p.fused_segments for p in pipes):
+            raise RuntimeError("shared leg: a share-model filter was fused")
+        if not share and any(
+                [(s.transforms, s.filter) for s in p.fused_segments]
+                != [(("norm",), "net")] for p in pipes):
+            raise RuntimeError("unshared leg: expected norm fused into net")
+        if warmup:
+            closed_loop(pipes, pools, 0, warmup, SERVE_DEPTH)
+        torch.cuda.synchronize()
+
+        def batchers():
+            return [nets[0].pool.batcher] if share else \
+                [f._batcher for f in nets]
+
+        def counts():
+            sts = [nets[0].pool.stats] if share else \
+                [f.invoke_stats for f in nets]
+            c = {"dispatches": sum(st.total_invoke_num for st in sts),
+                 "frames": sum(st.total_frame_num for st in sts),
+                 "streams": sum(st.total_stream_num for st in sts)}
+            for why in ("full", "deadline", "adaptive", "forced"):
+                c[f"flush_{why}"] = sum(getattr(b, f"flushes_{why}")
+                                        for b in batchers())
+            return c
+
+        before = counts()
+        phase0 = dict(nets[0].pool.stats.snapshot()["phase"]) if share \
+            else None
+        torch.cuda.reset_peak_memory_stats()
+        ctx = profiler(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) if profile \
+            else contextlib.nullcontext()
+        with ctx as prof:
+            outs, lats, wall = closed_loop(pipes, pools, warmup, n,
+                                           SERVE_DEPTH)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        after = counts()
+        phase1 = dict(nets[0].pool.stats.snapshot()["phase"]) if share \
+            else None
+        for p in pipes:
+            p["src"].end_of_stream()
+        for p in pipes:
+            if not p.wait_eos(timeout=120):
+                raise RuntimeError(f"{label} leg: no EOS")
+    finally:
+        for p in pipes:
+            p.stop()
+    d = {k: after[k] - before[k] for k in after}
+    for s, bufs in enumerate(outs):
+        if [b.pts for b in bufs] != list(range(warmup, warmup + n)):
+            raise RuntimeError(f"{label} leg, stream {s}: pts out of order "
+                               f"or lost: {[b.pts for b in bufs]}")
+    lats.sort()
+    res = {
+        "frames_per_s": SERVE_STREAMS * n / wall,
+        "wall_s": wall,
+        "p50_ms": lats[len(lats) // 2] * 1e3,
+        "p99_ms": lats[min(int(0.99 * len(lats)), len(lats) - 1)] * 1e3,
+        "dispatches": d["dispatches"],
+        "frames_per_dispatch": d["frames"] / max(d["dispatches"], 1),
+        "streams_per_dispatch": (d["streams"] / max(d["dispatches"], 1))
+        if share else 1.0,
+        "flushes": {k[len("flush_"):]: v for k, v in d.items()
+                    if k.startswith("flush_")},
+        "peak_gib": peak / 2**30,
+    }
+    if d["frames"] != SERVE_STREAMS * n:
+        raise RuntimeError(f"{label} leg: {d['frames']} frames dispatched "
+                           f"for {SERVE_STREAMS * n} pushed")
+    if profile and share:
+        k = phase1["samples"] - phase0["samples"]
+        per = {ph: (phase1[f"{ph}_s"] - phase0[f"{ph}_s"]) / max(k, 1) * 1e3
+               for ph in ("host_prep", "device", "host_drain")}
+        cycle = wall * 1e3 / max(d["dispatches"], 1)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        res["profile"] = {"sampled_dispatches": k, "window_cycle_ms": cycle,
+                          **{f"{ph}_ms": v for ph, v in per.items()},
+                          "between_dispatches_ms": cycle - sum(per.values()),
+                          "device_busy_ms": busy,
+                          "busy_share": busy / (wall * 1e3)}
+        print(f"serving profile (shared, every dispatch timed): {k} "
+              f"dispatches, window cycle {cycle:.3f} ms = host prep "
+              f"{per['host_prep']:.3f} + device {per['device']:.3f} + host "
+              f"drain (demux, decoder, sinks) {per['host_drain']:.3f} + "
+              f"between dispatches {cycle - sum(per.values()):.3f} ms; "
+              f"device busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall "
+              f"(share {busy / (wall * 1e3):.3f}) [{card}, {power}]",
+              flush=True)
+        rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        for e in rows[:8]:
+            print(f"serving profile: {e.self_device_time_total / 1e3:9.3f} "
+                  f"ms n={e.count:6d} {e.key[:90]}", flush=True)
+    print(f"serving {label}: {res['frames_per_s']:.1f} frames/s "
+          f"({SERVE_STREAMS} streams x {n} frames, {SERVE_DEPTH} in flight "
+          f"each, {wall:.3f} s), push->pull p50 {res['p50_ms']:.3f} ms "
+          f"p99 {res['p99_ms']:.3f} ms, {d['dispatches']} dispatches, "
+          f"{res['frames_per_dispatch']:.2f} frames and "
+          f"{res['streams_per_dispatch']:.2f} streams per dispatch, flushes "
+          f"{res['flushes']}, peak device memory {res['peak_gib']:.3f} GiB "
+          f"[{card}, {power}]", flush=True)
+    return res, outs
+
+
+def run_alone(pools):
+    """Every pool frame through a batch-1 pipeline, one at a time: the
+    logits each frame gets alone, by stream."""
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    n = sum(len(p) for p in pools)
+    p = parse_launch(
+        "appsrc name=src max-buffers=4 ! tensor_transform mode=arithmetic "
+        f"option={NORM} backend=cuda ! tensor_filter framework=torch-cuda "
+        f"model=vit_serve ! appsink name=out max-buffers={n + 4}")
+    p["src"].spec = TensorsSpec.parse(f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
+    with p:
+        for i, x in enumerate(x for pool in pools for x in pool):
+            p["src"].push_buffer(Buffer(tensors=[Tensor(x)], pts=i))
+        p["src"].end_of_stream()
+        if not p.wait_eos(timeout=300):
+            raise RuntimeError("alone: no EOS")
+    flat = [p["out"].pull(timeout=1).tensors[0].torch() for _ in range(n)]
+    return [flat[s * len(pools[0]):(s + 1) * len(pools[0])]
+            for s in range(len(pools))]
+
+
+def window_by_bucket(pools, alone):
+    """One window of every bucket through a pooled instance's
+    ``invoke_batched``, each row against its frame run alone: the fold
+    verdict must come out True at every bucket and each row within
+    SERVE_TOL.  Returns max_abs_diff by bucket."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import DType, TensorSpec
+    from nnstreamer_tpu_torch.elements.transform import _OpChain
+    from nnstreamer_tpu_torch.filters import TorchCudaFilter
+    from nnstreamer_tpu_torch.filters.api import FilterProps
+
+    norm = _OpChain("arithmetic", NORM, backend="cuda").fn_for(
+        TensorSpec.from_shape((1, VIT_SIZE, VIT_SIZE, 3), DType.UINT8))
+    xs = [norm(x) for pool in pools for x in pool]
+    ref = [y for a in alone for y in a]
+    sp = TorchCudaFilter.open_shared(FilterProps(
+        framework="torch-cuda", model="vit_serve",
+        device=torch.device("cuda")))
+    diffs = {}
+    try:
+        for bucket in SERVE_BUCKETS:
+            outs = sp.invoke_batched([[x] for x in xs[:bucket]], bucket)
+            if sp._batch_fold.get((sp._program.in_spec, bucket)) is not True:
+                raise RuntimeError(f"serving: bucket {bucket} does not fold "
+                                   "into one call")
+            diffs[bucket] = max(float((o[0] - r).abs().max())
+                                for o, r in zip(outs, ref))
+    finally:
+        TorchCudaFilter.close_shared(sp)
+    print(f"serving: one window per bucket against its frames alone, "
+          f"max_abs_diff by bucket {diffs} (limit {SERVE_TOL})", flush=True)
+    if max(diffs.values()) > SERVE_TOL:
+        raise RuntimeError(f"serving: a window's logits off alone: {diffs}")
+    return diffs
+
+
+def phase_serving(card: str, power: str):
+    """Shared-model serving at the ViT's width: the two legs of the JAX
+    package's bench_serving (one pool and its cross-stream window against
+    eight element-level windows), the pooled logits against each frame
+    run alone, the non-pooled ``batch=16`` path with the fused prologue on
+    the window, ``flash_attention`` at every bucket, and the new
+    transform modes on the card against the CPU."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
+    g = torch.Generator().manual_seed(SEED + 4)
+    pools = [[torch.randint(0, 256, (1, VIT_SIZE, VIT_SIZE, 3), generator=g,
+                            dtype=torch.uint8).cuda()
+              for _ in range(SERVE_POOL)] for _ in range(SERVE_STREAMS)]
+    print(f"serving: per-frame ViT ({VIT}, image {VIT_SIZE}) and "
+          f"{SERVE_STREAMS}x{SERVE_POOL} frames on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # the two legs, each path's kernel counts from 0
+    launches = {}
+    legs = {}
+    for share in (True, False):
+        kernels.flash_attention.launches = 0
+        kernels.scale_bias_cast.launches = 0
+        legs[share], outs = serve_leg(share, pools, card, power)
+        launches["shared" if share else "unshared"] = {
+            "flash_attention": kernels.flash_attention.launches,
+            "scale_bias_cast": kernels.scale_bias_cast.launches}
+        if share:
+            shared_outs = outs
+    frames = SERVE_STREAMS * (SERVE_WARMUP + SERVE_FRAMES)
+    sh = launches["shared"]
+    if sh["scale_bias_cast"] < frames or \
+            sh["flash_attention"] < VIT["depth"] * legs[True]["dispatches"]:
+        raise RuntimeError(f"serving: launches {sh} for {frames} frames and "
+                           f"{legs[True]['dispatches']} timed dispatches")
+    profiled, _ = serve_leg(True, pools, card, power, profile=True)
+    ratio = legs[True]["frames_per_s"] / legs[False]["frames_per_s"]
+    print(f"serving: shared/unshared frames/s {ratio:.3f}; kernel launches "
+          f"{launches} [{card}, {power}]", flush=True)
+
+    # correctness: pooled logits (a leg without the decoder) and the
+    # timed leg's labels against every frame run alone
+    alone = run_alone(pools)
+    _, logit_outs = serve_leg(True, pools, card, power, decoder=False,
+                              warmup=0, n=SERVE_POOL)
+    worst, checked, labels_checked = 0.0, 0, 0
+    for s in range(SERVE_STREAMS):
+        for b in logit_outs[s]:
+            y, ref = b.tensors[0].torch(), alone[s][b.pts % SERVE_POOL]
+            if tuple(y.shape) != (1, VIT["num_classes"]) or \
+                    not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"serving: logits {tuple(y.shape)}")
+            worst = max(worst, float((y - ref).abs().max()))
+            if not torch.allclose(y, ref, atol=SERVE_TOL, rtol=SERVE_TOL):
+                raise RuntimeError(f"serving: stream {s} frame {b.pts}: "
+                                   "pooled logits differ from alone")
+            checked += 1
+        for b in shared_outs[s]:
+            ref = alone[s][b.pts % SERVE_POOL].reshape(-1)
+            top2 = torch.topk(ref, 2).values
+            if float(top2[0] - top2[1]) > SERVE_TOL:
+                labels_checked += 1
+                if b.meta["label_index"] != int(ref.argmax()):
+                    raise RuntimeError(f"serving: stream {s} frame {b.pts}: "
+                                       "label differs from the frame alone")
+    flat = torch.stack([y.reshape(-1) for a in alone for y in a])
+    apart = (flat[:, None] - flat[None]).abs().amax(-1)
+    apart.fill_diagonal_(float("inf"))
+    nearest = float(apart.min())
+    del flat, apart
+    if nearest <= 2 * SERVE_TOL:
+        raise RuntimeError(f"serving: two different frames' logits lie only "
+                           f"{nearest} apart: a limit of {SERVE_TOL} could "
+                           "not tell a swapped frame")
+    print(f"serving: pooled logits of {checked} frames within "
+          f"{SERVE_TOL} of each frame alone (max_abs_diff {worst}); the "
+          f"nearest two different frames' logits lie {nearest} apart (what "
+          f"a frame swapped between streams would read); labels of "
+          f"{labels_checked} timed frames (top-2 margin > {SERVE_TOL}) "
+          f"equal to alone", flush=True)
+    by_bucket_diff = window_by_bucket(pools, alone)
+
+    # the non-pooled batch=16 path: the prologue fused, run on the window
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    n16 = 64
+    p = parse_launch(serve_pipe("vit_serve", False, batch=16, buckets="16",
+                                decoder=False))
+    p["src"].spec = TensorsSpec.parse(f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
+    kernels.flash_attention.launches = 0
+    kernels.scale_bias_cast.launches = 0
+    with p:
+        for i in range(n16):
+            p["src"].push_buffer(Buffer(
+                tensors=[Tensor(pools[0][i % SERVE_POOL])], pts=i))
+        p["src"].end_of_stream()
+        if not p.wait_eos(timeout=300):
+            raise RuntimeError("batch=16: no EOS")
+        windows = p["net"].invoke_stats.total_invoke_num
+    b16 = {"windows": windows,
+           "scale_bias_cast": kernels.scale_bias_cast.launches,
+           "flash_attention": kernels.flash_attention.launches}
+    bufs = [p["out"].pull(timeout=1) for _ in range(n16)]
+    if [b.pts for b in bufs] != list(range(n16)) or \
+            [(x.transforms, x.filter) for x in p.fused_segments] != \
+            [(("norm",), "net")]:
+        raise RuntimeError("batch=16: pts or fusion wrong")
+    # negotiation runs the program on zeros twice (the model's declared
+    # input, then the fused one): one prologue and two forwards more; the
+    # fold verdict runs the first window's first and last frame alone:
+    # two prologues and two forwards more
+    if b16["scale_bias_cast"] != windows + 1 + 2 or \
+            b16["flash_attention"] != VIT["depth"] * (windows + 2 + 2):
+        raise RuntimeError(f"batch=16: launches {b16} for {windows} "
+                           "windows")
+    worst16 = max(float((b.tensors[0].torch()
+                         - alone[0][b.pts % SERVE_POOL]).abs().max())
+                  for b in bufs)
+    if worst16 > SERVE_TOL:
+        raise RuntimeError(f"batch=16: logits {worst16} off alone")
+    print(f"serving batch=16 (fused prologue on the window): {n16} frames in "
+          f"{windows} windows, scale_bias_cast launches "
+          f"{b16['scale_bias_cast']} (one a window + one at negotiation + "
+          f"two for the fold verdict), flash_attention "
+          f"{b16['flash_attention']}; logits within {worst16} of alone",
+          flush=True)
+
+    # flash_attention at every bucket, at the path's qkv views: against
+    # its plain version at phase_flash_attention's limits, then timed
+    bw = hbm_bandwidth(card)
+    heads, dh = VIT["heads"], VIT["dim"] // VIT["heads"]
+    s_len = (VIT_SIZE // VIT["patch"]) ** 2
+    by_bucket, fa_worst = {}, 0.0
+    for bucket in SERVE_BUCKETS:
+        q, k, v = vit_qkv_views(g, torch.bfloat16, batch=bucket)
+        o = kernels.flash_attention(q, k, v)
+        r = kernels.flash_attention_reference(q, k, v).float()
+        torch.cuda.synchronize()
+        diff = float((o.float() - r).abs().max())
+        ulps = bf16_ulps(o, r)
+        bad = int(((o.float() - r).abs() > 1e-2 + 1e-2 * r.abs()).sum())
+        if bad or ulps > FA_BF16_ULPS or not bool(torch.isfinite(o).all()):
+            raise RuntimeError(f"flash_attention bucket {bucket}: {bad} "
+                               f"elements off its plain version (atol/rtol "
+                               f"1e-2), {ulps} bf16 ulps (at most "
+                               f"{FA_BF16_ULPS})")
+        fa_worst = max(fa_worst, diff)
+        ms = time_ms(lambda: kernels.flash_attention(q, k, v))
+        nbytes = 4 * q.numel() * q.element_size()
+        flops = 4 * bucket * heads * s_len * s_len * dh
+        bound = max(nbytes / bw * 1e3, flops / BF16_FLOPS * 1e3)
+        by_bucket[bucket] = {"ms": ms, "bound_ms": bound,
+                             "share_of_bound": bound / ms,
+                             "max_abs_diff": diff, "max_bf16_ulps": ulps}
+        print(f"kernel flash_attention bf16 ({bucket},{heads},{s_len},{dh}) "
+              f"qkv views: max_abs_diff={diff} max_bf16_ulps={ulps:.2f} "
+              f"ms={ms:.6f} bound_ms={bound:.6f} "
+              f"share_of_bound={bound / ms:.3f} [{card}, {power}]",
+              flush=True)
+
+    modes = phase_transform_modes(card, power)
+    print(f"serving phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"shared": legs[True], "unshared": legs[False],
+            "shared_profiled": profiled,
+            "shared_over_unshared": ratio, "launches": launches,
+            "pooled_vs_alone_max_abs_diff": worst,
+            "nearest_other_frame_max_abs_diff": nearest,
+            "window_vs_alone_by_bucket": by_bucket_diff,
+            "labels_checked": labels_checked, "batch16": b16,
+            "batch16_vs_alone_max_abs_diff": worst16,
+            "flash_attention_by_bucket": by_bucket,
+            "flash_attention_worst": fa_worst,
+            "transform_modes": modes}
+
+
+def phase_transform_modes(card: str, power: str):
+    """Each transform mode this slice ported, on the card at
+    (64,256,256,3) against the CPU: byte for byte, and ``stand`` within
+    1 ulp (its float64 sums run in another order on the card)."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import DType, TensorSpec
+    from nnstreamer_tpu_torch.elements.transform import _OpChain
+
+    shape = (VIT_BATCH, VIT_SIZE, VIT_SIZE, 3)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 5))
+    spec = TensorSpec.from_shape(shape, DType.FLOAT32)
+    xc = x.cuda()
+    rows = {}
+    for mode, option in (("transpose", "1:0:2:3"), ("dimchg", "0:2"),
+                         ("stand", "default"),
+                         ("stand", "dc-average:per-channel"),
+                         ("clamp", "-0.5:0.5"),
+                         ("padding", "1:1,2:2,value:0.5")):
+        fn = _OpChain(mode, option).fn_for(spec)
+        want = fn(x)
+        got = fn(xc).cpu()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise RuntimeError(f"{mode} {option}: {got.shape} {got.dtype} on "
+                               f"the card, {want.shape} {want.dtype} on CPU")
+        ulps = ulp_diff(got, want)
+        rows[f"{mode}:{option}"] = ulps
+        print(f"transform {mode} option={option} {tuple(shape)} -> "
+              f"{tuple(got.shape)}: card vs CPU "
+              f"{'byte-equal' if ulps == 0 else f'{ulps} ulp apart'}",
+              flush=True)
+        if ulps > (1 if mode == "stand" else 0):
+            raise RuntimeError(f"{mode} {option}: card and CPU {ulps} ulp "
+                               "apart")
+    return rows
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -878,11 +1406,19 @@ def main() -> int:
                   main_path.pop("frames"), card, power)
     phase_reference(main_path.pop("model"), main_path.pop("anchors"))
     vit_path = phase_vit(card, power)
+    serving = phase_serving(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
-                      "card": card, "power_limit": power}))
+                      "serving": serving, "card": card,
+                      "power_limit": power}))
+    served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
-                   "vit": vit_path["scale_bias_cast_launches"]}
+                   "vit": vit_path["scale_bias_cast_launches"],
+                   "serving_shared": served["shared"]["scale_bias_cast"],
+                   "serving_unshared": served["unshared"]["scale_bias_cast"]}
+    fa_by_path = {"vit": vit_path["flash_launches"],
+                  "serving_shared": served["shared"]["flash_attention"],
+                  "serving_unshared": served["unshared"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",
@@ -904,12 +1440,14 @@ def main() -> int:
         "route": "cuda",
         "source": "nnstreamer_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "nnstreamer_tpu/ops/kernels.py:180",
-        "launches": vit_path["flash_launches"],
-        "launches_by_path": {"vit": vit_path["flash_launches"]},
-        "max_abs_err": fa_worst,
-        "max_abs_diff": fa_worst,
+        "launches": sum(fa_by_path.values()),
+        "launches_by_path": fa_by_path,
+        "max_abs_err": max(fa_worst, serving["flash_attention_worst"]),
+        "max_abs_diff": max(fa_worst, serving["flash_attention_worst"]),
         "ms": fa["ms"],
         "ms_vit_qkv_views": fa["views_ms"],
+        "ms_by_bucket": {str(b): r["ms"] for b, r in
+                         serving["flash_attention_by_bucket"].items()},
         "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"],

@@ -1,26 +1,35 @@
 """``tensor_filter`` — the NN invoke element.
 
-Counterpart of the JAX package's ``elements/filter.py`` for its
-single-instance path (parity: the reference's tensor_filter.c hot path and
+Counterpart of the JAX package's ``elements/filter.py`` (parity: the
+reference's tensor_filter.c hot path, throttling and stats, and
 tensor_filter_common.c open_fw): open the framework, negotiate (including
 the SET_INPUT_INFO reshape and the fused prologue/epilogue from
-runtime/fusion.py), and invoke once per buffer.  Inputs are handed to the
-sub-plugin as tensors on its device; PyTorch launches the work
-asynchronously, so the streaming thread runs ahead of the card.
+runtime/fusion.py), and invoke — once per buffer, once per micro-batched
+window (``batch=``, runtime/batching.py), or through a model shared by
+many pipelines (``share-model=true``, runtime/serving.py).  Inputs are
+handed to the sub-plugin as tensors on its device; PyTorch launches the
+work asynchronously, so the streaming thread runs ahead of the card, and
+only a sampled dispatch (at most one a ``stat-sample-interval-ms``)
+waits for it to time the invoke.
 
-Not in this slice (later work): micro-batching, shared serving pools,
-chaos injection, model lifecycle / hot reload, observability hooks.
+Not in this slice (later work): chaos injection, model lifecycle / hot
+reload, mesh placement and pipeline-stage handoff, tenant attribution,
+observability hooks.
 """
 
 from __future__ import annotations
 
+import time
+from fractions import Fraction
 from typing import Any, List, Optional
 
 from ..core import Buffer, Caps, Tensor, TensorFormat, TensorsSpec
 from ..filters.api import FilterError, FilterProps, FilterSubplugin
 from ..filters.registry import detect_framework, find_filter
 from ..runtime.element import Element, NegotiationError, Pad, StreamError
+from ..runtime.events import Event, EventKind
 from ..runtime.registry import register_element
+from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
 
 
 def _parse_combination(s: str) -> Optional[List[int]]:
@@ -36,27 +45,68 @@ class TensorFilter(Element):
     def __init__(self, name=None, framework: str = "auto", model: Any = None,
                  accelerator: str = "", custom: str = "",
                  input_combination: str = "", output_combination: str = "",
-                 inputtype: str = "", input: str = "", outputtype: str = "",
-                 output: str = "", **props):
+                 invoke_dynamic: bool = False,
+                 shared_tensor_filter_key: str = "", inputtype: str = "",
+                 input: str = "", outputtype: str = "", output: str = "",
+                 batch: int = 1, batch_timeout_ms: float = 1.0,
+                 batch_buckets: str = "", share_model: bool = False,
+                 stat_sample_interval_ms: Optional[float] = None,
+                 priority: str = "normal", deadline_ms: float = 0.0,
+                 slo_ms: float = 0.0, queue_limit: int = 0, **props):
         self.framework = framework
         self.model = model
         self.accelerator = accelerator
         self.custom = custom
         self.input_combination = input_combination
         self.output_combination = output_combination
+        self.invoke_dynamic = invoke_dynamic
+        self.shared_tensor_filter_key = shared_tensor_filter_key
         self.inputtype, self.input = inputtype, input
         self.outputtype, self.output = outputtype, output
+        # dynamic micro-batching (runtime/batching.py): batch>1 coalesces
+        # in-flight buffers into ONE program call per window; buckets
+        # bound the set of window shapes; timeout bounds added latency
+        self.batch = batch
+        self.batch_timeout_ms = batch_timeout_ms
+        self.batch_buckets = batch_buckets
+        # shared-model serving (runtime/serving.py): share-model=true
+        # attaches this element to the process-wide ModelPool — N filters
+        # on the same model share ONE sub-plugin instance (one weight
+        # copy) and, with batch>1, one CROSS-pipeline coalescing window
+        self.share_model = share_model
+        # cadence of the blocking latency sample — None = the default
+        # utils.stats.STAT_SAMPLE_INTERVAL
+        self.stat_sample_interval_ms = stat_sample_interval_ms
+        # SLO-aware admission (runtime/admission.py, share-model only):
+        # priority names this STREAM's class (high/normal/low),
+        # deadline-ms its per-frame deadline (0 = the pool SLO),
+        # queue-limit bounds its parked frames (0 = 16x batch); slo-ms
+        # is POOL-level — >0 arms the admission controller
+        self.priority = priority
+        self.deadline_ms = deadline_ms
+        self.slo_ms = slo_ms
+        self.queue_limit = queue_limit
         super().__init__(name, **props)
         self.add_sink_pad()
         self.add_src_pad()
         self.subplugin: Optional[FilterSubplugin] = None
         self.in_spec: Optional[TensorsSpec] = None
         self.out_spec: Optional[TensorsSpec] = None
+        self.invoke_stats = InvokeStats()
+        self._sampler = DispatchSampler(self.invoke_stats)
         self._in_combi = None
         self._out_combi = None
+        self._throttle_interval = 0.0
+        self._last_invoke_ts = 0.0
+        self._dyn_spec: Optional[TensorsSpec] = None
         self._fused_pre: list = []  # op chains inlined by runtime/fusion.py
         self._fused_post: list = []  # epilogue fns (decoder overlay fusion)
         self._fused_post_decoder = None  # Decoder obj to notify on unfuse
+        self._batcher = None         # MicroBatcher when batch>1 (start())
+        self._buckets: tuple = (1,)
+        self._pool_entry = None      # serving.PoolEntry (share-model=true)
+        self._pool_attached = False  # registered as a live pool stream
+        self._pool_batched = False   # frames go through the SharedBatcher
 
     # -- open ----------------------------------------------------------------
 
@@ -79,29 +129,121 @@ class TensorFilter(Element):
             accelerator=self.accelerator, custom=self.custom,
             input_spec=self._user_spec(self.input, self.inputtype),
             output_spec=self._user_spec(self.output, self.outputtype),
-            device=self.device)
-        sp = cls()
-        sp.configure(fprops)
-        if self._fused_pre and hasattr(sp, "set_fused_pre"):
-            sp.set_fused_pre(self._fused_pre)
-        if self._fused_post and hasattr(sp, "set_fused_post"):
-            sp.set_fused_post(self._fused_post)
-        self.subplugin = sp
-        self.in_spec, self.out_spec = sp.get_model_info()
+            device=self.device,
+            shared_key=self.shared_tensor_filter_key or None)
+        if self.share_model:
+            if self.invoke_dynamic:
+                raise ValueError(
+                    f"{self.name}: share-model=true cannot combine with "
+                    "invoke-dynamic (per-buffer reshapes would rebuild the "
+                    "shared instance under every sharer)")
+            from ..runtime.serving import MODEL_POOL, pool_key
+
+            self._pool_entry = MODEL_POOL.acquire(
+                pool_key(fw_name, fprops),
+                lambda: cls.open_shared(fprops), cls.close_shared)
+            self.subplugin = self._pool_entry.subplugin
+        else:
+            sp = cls()
+            sp.configure(fprops)
+            if self._fused_pre and hasattr(sp, "set_fused_pre"):
+                sp.set_fused_pre(self._fused_pre)
+            if self._fused_post and hasattr(sp, "set_fused_post"):
+                sp.set_fused_post(self._fused_post)
+            self.subplugin = sp
+        self.in_spec, self.out_spec = self.subplugin.get_model_info()
         self._in_combi = _parse_combination(self.input_combination)
         # output-combination tokens: iN (input passthrough) / oN (model out)
         self._out_combi = [t.strip() for t in str(
             self.output_combination).split(",") if t.strip()] or None
 
+    def start(self) -> None:
+        b = int(self.batch or 1)
+        if self._pool_entry is not None:
+            # shared-model serving: this element becomes one STREAM of
+            # the pool entry.  batch* properties are pool-level — the
+            # attach validates them against the settings other sharers
+            # fixed, and raises on conflict (caught by Pipeline.start).
+            self._pool_batched = self._pool_entry.attach(
+                self, b, float(self.batch_timeout_ms), self.batch_buckets,
+                slo_ms=float(self.slo_ms or 0.0),
+                priority=self.priority,
+                deadline_ms=float(self.deadline_ms or 0.0),
+                queue_limit=int(self.queue_limit or 0))
+            self._pool_attached = True
+            return
+        if b <= 1:
+            return
+        if self.invoke_dynamic:
+            raise ValueError(
+                f"{self.name}: batch={b} requires static shapes; "
+                "invoke-dynamic streams reshape per buffer and cannot "
+                "share a bucketed window")
+        from ..runtime.batching import MicroBatcher, parse_buckets
+
+        self._buckets = parse_buckets(self.batch_buckets, b)
+        self._batcher = MicroBatcher(
+            max_batch=b, timeout_s=float(self.batch_timeout_ms) / 1e3,
+            flush_fn=self._invoke_microbatch, error_fn=self.post_error,
+            name=self.name)
+        self._batcher.start()
+
     def stop(self) -> None:
+        if self._pool_entry is not None:
+            from ..runtime.serving import MODEL_POOL
+
+            entry, self._pool_entry = self._pool_entry, None
+            self._pool_batched = False
+            if self._pool_attached:
+                self._pool_attached = False
+                try:
+                    entry.detach(self)  # flushes THIS stream's parked
+                    # frames; survivors keep dispatching on the entry
+                except Exception as e:  # noqa: BLE001 - report, keep
+                    # stopping: the refcount must still drop
+                    self.post_error(e)
+            MODEL_POOL.release(entry)
+            self.subplugin = None
+            return
+        if self._batcher is not None:
+            try:
+                self._batcher.flush()  # drain, best effort: downstream
+                # may already be stopping, but frames must not vanish
+            except Exception as e:  # noqa: BLE001 - report, keep stopping
+                self.post_error(e)
+            self._batcher.stop()
+            self._batcher = None
         if self.subplugin is not None:
             self.subplugin.close()
             self.subplugin = None
+
+    def on_eos(self) -> None:
+        # partial-batch flush BEFORE the EOS event forwards downstream:
+        # no frame loss, and sinks see data-then-EOS in order
+        if self._pool_entry is not None and self._pool_attached:
+            try:
+                # per-stream flush: only THIS stream's parked frames
+                # must drain; other pipelines' windows stay open
+                self._pool_entry.flush_stream(self)
+            except Exception as e:  # noqa: BLE001 - report, let EOS
+                # propagate so wait_eos() terminates
+                self.post_error(e)
+            return
+        if self._batcher is not None:
+            try:
+                self._batcher.flush()
+            except Exception as e:  # noqa: BLE001 - the EOS path has no
+                # guarded caller (Queue._loop forwards unguarded): a
+                # flush failure must reach the bus, and EOS must still
+                # propagate so wait_eos() terminates
+                self.post_error(e)
 
     # -- negotiation ---------------------------------------------------------
 
     def pad_template_caps(self, pad: Pad) -> Caps:
         if pad.direction.value == "sink":
+            if self.invoke_dynamic:
+                return Caps.any_tensors()
             try:
                 self.open_fw()
             except (FilterError, KeyError, ValueError) as e:
@@ -117,6 +259,8 @@ class TensorFilter(Element):
         return Caps.any_tensors()
 
     def caps_negotiated(self, pad: Pad) -> None:
+        if self.invoke_dynamic:
+            return
         self.open_fw()
         spec = pad.spec
         if spec is None or self._in_combi is not None:
@@ -147,6 +291,15 @@ class TensorFilter(Element):
                     f"{spec}: {e}") from e
             return
         if not spec.is_compatible(self.in_spec):
+            if self._shared_by_others():
+                # a pooled model must not be rebuilt under the other
+                # sharers' feet: sharers negotiate identical schemas
+                raise NegotiationError(
+                    f"{self.name}: input {spec} incompatible with the "
+                    f"shared model's {self.in_spec}, which "
+                    f"{self._pool_entry.refcount - 1} other filter(s) "
+                    f"depend on — share-model sharers must negotiate "
+                    f"identical input schemas")
             try:
                 self.in_spec, self.out_spec = \
                     self.subplugin.set_input_info(spec)
@@ -155,10 +308,19 @@ class TensorFilter(Element):
                     f"{self.name}: input {spec} incompatible with model "
                     f"{self.in_spec}: {e}") from e
 
+    def _shared_by_others(self) -> bool:
+        """Whether other elements currently hold the same pooled model
+        (reshaping it would swap the program under them)."""
+        return self._pool_entry is not None and self._pool_entry.refcount > 1
+
     def propose_src_caps(self, pad: Pad) -> Caps:
         self.open_fw()
-        rate = self.sinkpad.spec.rate if self.sinkpad.spec is not None \
-            else 0
+        rate = Fraction(0, 1)
+        if self.sinkpad.spec is not None:
+            rate = self.sinkpad.spec.rate
+        if self.invoke_dynamic:
+            return Caps.from_spec(TensorsSpec(
+                format=TensorFormat.FLEXIBLE, rate=rate))
         out = self.out_spec.with_rate(rate)
         if self._out_combi is not None and self.sinkpad.spec is not None:
             out = self._combined_out_spec(self.sinkpad.spec).with_rate(rate)
@@ -181,17 +343,100 @@ class TensorFilter(Element):
     def chain(self, pad: Pad, buf: Buffer) -> None:
         sp = self.subplugin
         if sp is None:
+            # checked BEFORE the QoS throttle: a misconfigured filter must
+            # report, not silently drop every buffer as "throttled"
             raise StreamError(f"{self.name}: no sub-plugin opened")
+        if self._throttled():
+            return  # QoS drop (parity: tensor_filter.c:511)
+        if self._pool_batched and self._pool_entry is not None:
+            # shared-model serving: park the buffer in the CROSS-pipeline
+            # window; the pool dispatch demuxes the result back here
+            self._pool_entry.submit(self, buf)
+            return
+        if self._batcher is not None:
+            # micro-batching: park the buffer in the coalescing window;
+            # the window flush (full/deadline/EOS) dispatches it
+            self._batcher.submit(buf)
+            return
         tensors = buf.tensors
         if self._in_combi is not None:
             tensors = [tensors[i] for i in self._in_combi]
+        if self.invoke_dynamic:
+            self._reshape_dynamic(buf)
+        sample, t0 = self._sampler.begin(self._sample_interval())
         outputs = sp.invoke([t.torch(sp.device) for t in tensors])
+        self._sampler.end(outputs, t0, sample)
         out_tensors = [Tensor(o) for o in outputs]
         if self._out_combi is not None:
             out_tensors = self._combine_outputs(buf, out_tensors)
         self.push(Buffer(tensors=out_tensors, pts=buf.pts,
                          duration=buf.duration, offset=buf.offset,
-                         meta=dict(buf.meta), format=TensorFormat.STATIC))
+                         meta=dict(buf.meta),
+                         format=TensorFormat.FLEXIBLE if self.invoke_dynamic
+                         else TensorFormat.STATIC))
+
+    def _sample_interval(self) -> float:
+        """Seconds between blocking stats samples (utils/stats.py
+        DispatchSampler): ``stat-sample-interval-ms``, else the default."""
+        return STAT_SAMPLE_INTERVAL if self.stat_sample_interval_ms is None \
+            else float(self.stat_sample_interval_ms) / 1e3
+
+    def _invoke_microbatch(self, bufs: List[Buffer]) -> None:
+        """Window flush: dispatch 1..batch queued buffers as one program
+        call (padded to a bucket), then unbatch the outputs back into
+        per-frame Buffers in arrival order, pts/offset/meta preserved.
+        Runs on the producer thread (full window) or the coalescer's
+        timer thread (deadline/EOS) — never concurrently (MicroBatcher
+        serializes flushes)."""
+        from ..runtime.batching import pick_bucket
+
+        sp = self.subplugin
+        if sp is None:
+            raise StreamError(f"{self.name}: no sub-plugin opened")
+        sample, t0 = self._sampler.begin(self._sample_interval())
+        frames = [self._pool_frame_inputs(buf) for buf in bufs]
+        bucket = pick_bucket(len(frames), self._buckets)
+        t1 = time.monotonic()
+        if getattr(sp, "SUPPORTS_BATCH", False):
+            outs = sp.invoke_batched(frames, bucket)
+        else:
+            # framework without a batched entry point: the window still
+            # coalesces (ordering, EOS flush, occupancy stats) but each
+            # frame dispatches separately
+            outs = [sp.invoke(list(f)) for f in frames]
+        t2 = self._sampler.end([o for out in outs for o in out], t0, sample,
+                               frames=len(bufs))
+        for buf, out in zip(bufs, outs):
+            self._pool_emit(buf, out)
+        if sample:
+            # host-prep / device / host-drain split of the window
+            self.invoke_stats.record_phases(t1 - t0, t2 - t1,
+                                            time.monotonic() - t2)
+
+    # -- serving-pool hooks (runtime/serving.py drives these) ----------------
+
+    def _pool_frame_inputs(self, buf: Buffer) -> List[Any]:
+        """Model inputs of one parked frame, input-combination applied.
+        Device-resident tensors pass through as they are; host-resident
+        ones stay numpy, so the window stacks them on the host and
+        copies the stack to the card once."""
+        tensors = buf.tensors
+        if self._in_combi is not None:
+            tensors = [tensors[i] for i in self._in_combi]
+        return [t.torch() if t.is_device else t.np() for t in tensors]
+
+    def _pool_emit(self, buf: Buffer, out: List[Any]) -> None:
+        """Demux one dispatch result onto THIS filter's downstream pad —
+        the owner's flush context: output-combination, pts/offset/meta
+        preservation, and any downstream failure surfacing on THIS
+        element's bus."""
+        out_tensors = [Tensor(o) for o in out]
+        if self._out_combi is not None:
+            out_tensors = self._combine_outputs(buf, out_tensors)
+        self.push(Buffer(
+            tensors=out_tensors, pts=buf.pts, duration=buf.duration,
+            offset=buf.offset, meta=dict(buf.meta),
+            format=TensorFormat.STATIC))
 
     def _combine_outputs(self, in_buf: Buffer, outputs: List[Tensor]
                          ) -> List[Tensor]:
@@ -203,3 +448,70 @@ class TensorFilter(Element):
             elif tok.startswith("o"):
                 combined.append(outputs[int(tok[1:])])
         return combined
+
+    def _reshape_dynamic(self, buf: Buffer) -> None:
+        spec = buf.spec()
+        if self._dyn_spec is not None and spec.is_compatible(self._dyn_spec):
+            return
+        self.in_spec, self.out_spec = self.subplugin.set_input_info(spec)
+        self._dyn_spec = spec
+
+    def _throttled(self) -> bool:
+        if self._throttle_interval <= 0:
+            return False
+        now = time.monotonic()
+        if now - self._last_invoke_ts < self._throttle_interval:
+            return True
+        self._last_invoke_ts = now
+        return False
+
+    # -- events --------------------------------------------------------------
+
+    def handle_upstream_event(self, pad: Pad, event: Event) -> None:
+        if event.kind == EventKind.QOS_THROTTLE:
+            rate = event.data.get("rate")
+            self._throttle_interval = float(1 / rate) if rate else 0.0
+        super().handle_upstream_event(pad, event)
+
+    # -- introspection props -------------------------------------------------
+
+    @property
+    def latency_us(self) -> int:
+        return self.invoke_stats.latency_us
+
+    @property
+    def throughput_milli_fps(self) -> int:
+        return self.invoke_stats.throughput_milli_fps
+
+    @property
+    def dispatch_milli_fps(self) -> int:
+        """1000×dispatches/s — below throughput_milli_fps exactly when
+        micro-batching is coalescing."""
+        return self.invoke_stats.dispatch_milli_fps
+
+    @property
+    def batch_occupancy(self) -> float:
+        """Realized mean frames per dispatch (1.0 unbatched)."""
+        return self.invoke_stats.avg_batch_occupancy
+
+    @property
+    def pool(self):
+        """The shared serving-pool entry (``share-model=true``), else
+        None.  Its ``stats`` carry the TRUE cross-pipeline dispatch
+        counts; this element's own ``invoke_stats`` count the dispatches
+        its frames rode in."""
+        return self._pool_entry
+
+    @property
+    def pool_streams(self) -> int:
+        """Streams currently attached to the shared pool entry (0 when
+        not sharing)."""
+        return self._pool_entry.attached_streams \
+            if self._pool_entry is not None else 0
+
+    @property
+    def pool_stream_occupancy(self) -> float:
+        """Mean distinct pipelines per shared dispatch (0.0 when not
+        sharing)."""
+        return self._pool_entry.stats.avg_stream_occupancy \
+            if self._pool_entry is not None else 0.0

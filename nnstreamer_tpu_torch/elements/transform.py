@@ -1,12 +1,12 @@
-"""``tensor_transform`` — element-wise tensor stream ops.
+"""``tensor_transform`` — element-wise and layout tensor stream ops.
 
 Counterpart of the JAX package's ``elements/transform.py`` (parity target:
-the reference's gsttensor_transform.c), for the modes this slice of the
-port covers: ``typecast`` and ``arithmetic`` with its mini-language
+the reference's gsttensor_transform.c) with its seven modes:
+``typecast``, ``arithmetic`` with its mini-language
 (``typecast:float32,add:-127.5,div:127.5``, multi-op chains in one
-instance, per-channel operands).  The other modes (``dimchg``,
-``transpose``, ``stand``, ``clamp``, ``padding``) raise
-``NotImplementedError`` naming the mode.
+instance, per-channel operands), ``transpose``, ``dimchg``, ``stand``,
+``clamp`` and ``padding``.  Dimension indices in options are nnstreamer's,
+innermost first.
 
 ``backend=`` selects how a foldable affine arithmetic chain runs:
 ``torch`` (default) runs the chain as plain tensor ops; ``cuda`` folds it
@@ -15,14 +15,26 @@ to ``(x + b/a) * a`` and runs the hand-written kernel
 JAX spellings ``xla`` and ``pallas`` are accepted as aliases so one launch
 string parses in both packages.  A transform feeding a ``torch-cuda``
 filter is fused into the filter's program (runtime/fusion.py).
+
+``donate=true`` hands the input frame over: a chain that keeps the
+input's shape and float type runs in place on the input's memory when no
+other tensor can see that memory, and the input is marked donated either
+way (a later read raises ``DonatedTensorError``).
+
+``stand`` takes its mean and variance accumulated in float64 and rounded
+to float32, then multiplies by ``1 / (std + 1e-10)``: that reproduces the
+committed golden byte for byte, which the JAX package's own
+``(x - mean) / (std + 1e-10)`` misses by one ulp.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import Buffer, Caps, DType, Tensor, TensorSpec
 from ..runtime.element import NegotiationError, Pad, TransformElement
@@ -31,8 +43,9 @@ from ..runtime.registry import register_element
 #: backend= spellings → backend (the JAX names are aliases)
 _BACKENDS = {"torch": "torch", "xla": "torch", "cuda": "cuda",
              "pallas": "cuda"}
-_PORTED_MODES = ("typecast", "arithmetic")
-_UNPORTED_MODES = ("dimchg", "transpose", "stand", "clamp", "padding")
+_MODES = ("typecast", "arithmetic", "transpose", "dimchg", "stand", "clamp",
+          "padding")
+_STAND_EPS = 1e-10
 
 
 # -- option grammar parsing --------------------------------------------------
@@ -104,17 +117,27 @@ def _fold_affine(ops, in_dtype: Optional[DType] = None) -> Optional[tuple]:
     return a, b, out_dt
 
 
+def _dim_axis(rank: int, dim_index: int) -> int:
+    """nnstreamer dim index (innermost-first) → tensor axis."""
+    return rank - 1 - dim_index
+
+
+def _stand_stats(xf: torch.Tensor, axis, keepdim: bool):
+    """Mean and population std of float32 ``xf`` over ``axis``, each
+    accumulated in float64 and rounded to float32 (see the module doc)."""
+    mean = xf.double().mean(dim=axis, keepdim=keepdim).float()
+    d = xf - mean
+    std = (d.double() ** 2).mean(dim=axis, keepdim=keepdim).sqrt().float()
+    return mean, d, std
+
+
 class _OpChain:
     """One transform instance's op list; builds a fn specialized to the
     negotiated input spec."""
 
     def __init__(self, mode: str, option: str, acceleration: bool = True,
                  backend: str = "torch"):
-        if mode in _UNPORTED_MODES:
-            raise NotImplementedError(
-                f"tensor_transform mode={mode} is not ported to "
-                "nnstreamer_tpu_torch yet")
-        if mode not in _PORTED_MODES:
+        if mode not in _MODES:
             raise ValueError(f"unknown transform mode {mode!r}")
         self.mode = mode
         self.option = option
@@ -144,13 +167,18 @@ class _OpChain:
         the same schema (see :func:`_fold_affine`)."""
         x = torch.empty(spec.shape, dtype=spec.dtype.torch_dtype,
                         device="meta")
-        o = self._plain_fn()(x)
+        o = self._plain_fn(spec.rank)(x)
         return TensorSpec.from_shape(tuple(o.shape),
                                      DType.from_torch(o.dtype),
                                      name=spec.name)
 
-    def fn_for(self, spec: TensorSpec) -> Callable:
-        """Return fn(tensor) -> tensor for this op chain on this schema."""
+    def fn_for(self, spec: TensorSpec, lead: int = 0) -> Callable:
+        """Return fn(tensor) -> tensor for this op chain on this schema.
+
+        ``lead`` leading axes ahead of the schema's own are a window of
+        frames (a micro-batched filter runs its fused prologue on the
+        stacked window): axes are addressed past them and ``stand``
+        reduces per frame, so each frame comes out as it would alone."""
         if self.mode == "arithmetic" and self.acceleration \
                 and self.backend == "cuda":
             from ..ops import scale_bias_cast, scale_bias_cast_available
@@ -174,18 +202,136 @@ class _OpChain:
                     return scale_bias_cast_reference(x, _a, _b / _a, _dt)
 
                 return fn
-        return self._plain_fn()
+        return self._plain_fn(spec.rank, lead)
 
-    def _plain_fn(self) -> Callable:
+    def inplace_fn_for(self, spec: TensorSpec) -> Optional[Callable]:
+        """fn(x) that writes the chain's result into ``x`` itself, or
+        None where the chain changes the shape or type, or runs on the
+        kernel (which writes a new tensor).  In-place and plain results
+        are bit-equal: the same ops in the same order."""
+        dt = spec.dtype.torch_dtype
+        out = self.out_spec_of(spec)
+        if not dt.is_floating_point or spec.rank == 0 or \
+                (out.shape, out.dtype) != (spec.shape, spec.dtype):
+            return None
         if self.mode == "typecast":
-            dt = DType.from_string(self.option).torch_dtype
+            return lambda x: x
+        if self.mode == "clamp":
+            lo, hi = self._clamp_bounds()
+            return lambda x: x.clamp_(lo, hi)
+        if self.mode == "stand":
+            kind, per_channel = self._stand_opts()
+            axis = tuple(range(spec.rank - (1 if per_channel else 0)))
 
-            def fn(x):
-                return x.to(dt)
+            def stand_(x):
+                mean, _, std = _stand_stats(x, axis, per_channel)
+                x.sub_(mean)
+                if kind == "default":
+                    x.mul_(torch.reciprocal(std + _STAND_EPS))
+                return x
 
-            return fn
+            return stand_
+        if self.mode != "arithmetic":
+            return None
         ops = parse_arith_ops(self.option)
+        if any(n == "typecast" and a.torch_dtype != dt for n, a in ops):
+            return None
+        if self.acceleration and self.backend == "cuda" and \
+                _fold_affine(ops, spec.dtype) is not None:
+            return None
 
+        def arith_(x):
+            for i, (name, arg) in enumerate(ops):
+                if name in ("add", "pc-add"):
+                    x.add_(arg if name == "add" else self._pc_const(i, arg, x))
+                elif name in ("sub", "pc-sub"):
+                    x.sub_(arg if name == "sub" else self._pc_const(i, arg, x))
+                elif name in ("mul", "pc-mul"):
+                    x.mul_(arg if name == "mul" else self._pc_const(i, arg, x))
+                elif name in ("div", "pc-div"):
+                    x.div_(arg if name == "div" else self._pc_const(i, arg, x))
+                elif name == "pow":
+                    x.pow_(arg)
+            return x
+
+        return arith_
+
+    def _clamp_bounds(self) -> Tuple[float, float]:
+        lo, _, hi = self.option.partition(":")
+        return float(lo), float(hi)
+
+    def _stand_opts(self) -> Tuple[str, bool]:
+        opt = self.option.split(":")
+        kind = opt[0].strip().lower() or "default"
+        if kind not in ("default", "dc-average"):
+            raise ValueError(f"unknown stand mode {kind!r}")
+        return kind, len(opt) > 1 and opt[1].strip() == "per-channel"
+
+    def _plain_fn(self, rank: int, lead: int = 0) -> Callable:
+        """The chain as plain tensor ops for frames of ``rank`` axes
+        behind ``lead`` window axes."""
+        mode, option = self.mode, self.option
+        if mode == "typecast":
+            dt = DType.from_string(option).torch_dtype
+            return lambda x: x.to(dt)
+        if mode == "arithmetic":
+            return self._arith_fn(parse_arith_ops(option))
+        if mode == "transpose":
+            # option "1:0:2:3": new dim i comes from old dim perm[i]
+            # (innermost-first); unspecified outer dims keep their place
+            perm = [int(p) for p in option.split(":") if p.strip()]
+            if len(perm) != rank:
+                perm = perm + list(range(len(perm), rank))
+            axes = list(range(lead)) + [
+                lead + rank - 1 - perm[rank - 1 - ax] for ax in range(rank)]
+            return lambda x: x.permute(axes).contiguous()
+        if mode == "dimchg":
+            # option "from:to" moves dim index from→to (innermost-first)
+            f, _, t = option.partition(":")
+            src = lead + _dim_axis(rank, int(f))
+            dst = lead + _dim_axis(rank, int(t))
+            return lambda x: torch.movedim(x, src, dst).contiguous()
+        if mode == "stand":
+            kind, per_channel = self._stand_opts()
+            # per frame: every axis of the frame, or all but the channel
+            axis = tuple(range(lead, lead + (rank - 1 if per_channel
+                                             else rank)))
+            keep = bool(per_channel or lead)
+
+            def stand(x):
+                xf = x.to(torch.float32)
+                if not axis:  # a rank-0 frame is its own mean
+                    return xf - xf
+                mean, d, std = _stand_stats(xf, axis, keep)
+                if kind == "dc-average":
+                    return d
+                return d * torch.reciprocal(std + _STAND_EPS)
+
+            return stand
+        if mode == "clamp":
+            lo, hi = self._clamp_bounds()
+            return lambda x: torch.clamp(x, lo, hi)
+        if mode == "padding":
+            # option "d0b:d0e,d1b:d1e,...[,value:v]" innermost-first: the
+            # order F.pad takes its (begin, end) pairs in
+            pads: List[int] = []
+            value = 0.0
+            for tok in option.split(","):
+                tok = tok.strip()
+                if not tok:
+                    continue
+                if tok.startswith("value:"):
+                    value = float(tok[len("value:"):])
+                    continue
+                b, _, e = tok.partition(":")
+                pads += [int(b), int(e) if e else int(b)]
+            if len(pads) > 2 * rank:
+                raise ValueError(f"padding {option!r} names more dims than "
+                                 f"the tensor's {rank}")
+            return lambda x: F.pad(x, pads, value=value)
+        raise ValueError(f"unknown transform mode {mode!r}")
+
+    def _arith_fn(self, ops) -> Callable:
         def fn(x):
             for i, (name, arg) in enumerate(ops):
                 if name == "typecast":
@@ -216,23 +362,40 @@ class _OpChain:
         return fn
 
 
+def _sole_storage(t: Tensor, x: torch.Tensor) -> bool:
+    """Whether ``x`` (the device payload of ``t``) is the only thing that
+    can see its memory: not a view, the whole of its storage, and no host
+    or wire copy that may alias it (``torch.from_numpy`` shares memory)."""
+    return (t._host is None and t._raw is None and x._base is None
+            and x.storage_offset() == 0
+            and x.untyped_storage().nbytes() == x.numel() * x.element_size())
+
+
 @register_element("tensor_transform")
 class TensorTransform(TransformElement):
     FACTORY = "tensor_transform"
 
+    #: bound of the flexible-stream cache of per-schema fns
+    FLEX_CACHE_MAX = 64
+
     def __init__(self, name=None, mode: str = "", option: str = "",
-                 acceleration: bool = True, backend: str = "torch", **props):
+                 acceleration: bool = True, backend: str = "torch",
+                 donate: bool = False, **props):
         self.mode = mode
         self.option = option
         self.acceleration = acceleration
         self.backend = backend  # "torch" (default) | "cuda"; xla/pallas alias
+        self.donate = donate
         super().__init__(name, **props)
         self._chain_def: Optional[_OpChain] = None
         self._fns: List[Callable] = []
+        self._inplace: List[Optional[Callable]] = []
         # set by the pipeline fusion pass: this element's op chain runs
         # inside the downstream torch-cuda filter — act as passthrough
         self._fused = False
         self._fusion_filter = None  # the filter holding our op chain
+        # flexible streams: (shape, dtype) → (fn, in-place fn), LRU-bounded
+        self._flex_cache: "OrderedDict" = OrderedDict()
 
     def _opchain(self) -> _OpChain:
         if self._chain_def is None:
@@ -246,6 +409,11 @@ class TensorTransform(TransformElement):
             self._chain_def = _OpChain(self.mode, str(self.option),
                                        bool(self.acceleration), backend)
         return self._chain_def
+
+    def _fns_of(self, spec: TensorSpec) -> Tuple[Callable, Optional[Callable]]:
+        oc = self._opchain()
+        return oc.fn_for(spec), (oc.inplace_fn_for(spec) if self.donate
+                                 else None)
 
     # -- negotiation ---------------------------------------------------------
 
@@ -274,7 +442,7 @@ class TensorTransform(TransformElement):
         oc = self._opchain()
         try:
             outs = tuple(oc.out_spec_of(t) for t in in_spec.tensors)
-        except (ValueError, TypeError, RuntimeError) as e:
+        except (ValueError, TypeError, RuntimeError, IndexError) as e:
             raise NegotiationError(
                 f"{self.name}: mode={self.mode} option={self.option!r} "
                 f"invalid for {in_spec}: {e}") from e
@@ -285,21 +453,45 @@ class TensorTransform(TransformElement):
         if self._fused and (in_spec is None or not in_spec.is_static()):
             self._unfuse()  # flexible after all: run the chain here
         if self._fused or in_spec is None or not in_spec.is_static():
-            self._fns = []
+            self._fns, self._inplace = [], []
             return
-        oc = self._opchain()
-        self._fns = [oc.fn_for(t) for t in in_spec.tensors]
+        pairs = [self._fns_of(t) for t in in_spec.tensors]
+        self._fns = [f for f, _ in pairs]
+        self._inplace = [g for _, g in pairs]
 
     # -- hot path ------------------------------------------------------------
+
+    def _flex_fns(self, spec: TensorSpec):
+        """Schema-keyed cache for flexible streams: each distinct
+        per-buffer schema builds its fns once."""
+        key = (spec.shape, spec.dtype)
+        fns = self._flex_cache.get(key)
+        if fns is None:
+            fns = self._fns_of(spec)
+            self._flex_cache[key] = fns
+            while len(self._flex_cache) > self.FLEX_CACHE_MAX:
+                self._flex_cache.popitem(last=False)
+        else:
+            self._flex_cache.move_to_end(key)
+        return fns
 
     def transform(self, buf: Buffer) -> Buffer:
         if self._fused:
             return buf  # op chain executes inside the fused filter
-        fns = self._fns or [self._opchain().fn_for(t.spec)
-                            for t in buf.tensors]
+        if self._fns:
+            pairs = list(zip(self._fns, self._inplace))
+        else:  # flexible stream: per-buffer schema
+            pairs = [self._flex_fns(t.spec) for t in buf.tensors]
+        out = []
         with torch.inference_mode():
-            out = [Tensor(fn(t.torch(self.device)))
-                   for fn, t in zip(fns, buf.tensors)]
+            for (fn, inplace), t in zip(pairs, buf.tensors):
+                x = t.torch(self.device)
+                if inplace is not None and _sole_storage(t, x):
+                    out.append(Tensor(inplace(x)))
+                else:
+                    out.append(Tensor(fn(x)))
+        if self.donate:
+            buf.mark_donated()
         return Buffer(tensors=out, pts=buf.pts, duration=buf.duration,
                       offset=buf.offset, format=buf.format,
                       meta=dict(buf.meta))

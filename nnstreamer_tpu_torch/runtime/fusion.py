@@ -13,8 +13,11 @@ nnstreamer:gst/nnstreamer/elements/gsttensor_transform.c:473-483.)
 
 Fusion is skipped for a candidate filter when any of these hold (the
 pipeline still runs, just unfused): framework isn't torch-cuda,
-input/output-combination in play, a transform mid-run feeds more than one
-consumer, or a transform has no static mode.
+input/output-combination or invoke-dynamic in play, the filter shares its
+model with other pipelines (share-model), a transform mid-run feeds more
+than one consumer, or a transform has no static mode.  A micro-batched
+filter (``batch>1``) keeps its fused prologue: it runs on the stacked
+window, frame by frame in effect (``_OpChain.fn_for(lead=1)``).
 """
 
 from __future__ import annotations
@@ -87,7 +90,13 @@ def fuse_transform_filter(pipeline, enable: bool = True) -> int:
     for el in list(pipeline.elements.values()):
         if not isinstance(el, TensorFilter):
             continue
-        if el.input_combination or el.output_combination:
+        if el.invoke_dynamic or el.input_combination \
+                or el.output_combination:
+            continue
+        if el.share_model:
+            # a pooled instance serves MANY pipelines: baking one
+            # pipeline's transform chain into it would corrupt every
+            # other sharer's stream
             continue
         if not _is_torch_cuda(el):
             continue
@@ -152,7 +161,8 @@ def fuse_filter_decoder(pipeline, enable: bool = True) -> int:
         up = el.sinkpads[0].peer.element
         if not isinstance(up, TensorFilter):
             continue
-        if up.output_combination or up._fused_post:
+        if up.invoke_dynamic or up.output_combination or up._fused_post \
+                or up.share_model:
             continue
         if len(up.srcpads) != 1 or \
                 up.srcpads[0].peer is not el.sinkpads[0]:

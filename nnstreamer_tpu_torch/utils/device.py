@@ -33,6 +33,15 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
+def block_all(outs) -> None:
+    """Wait until the card finished every tensor in ``outs``: one
+    synchronize per CUDA device among them; CPU tensors are ready."""
+    devices = {o.device for o in outs
+               if isinstance(o, torch.Tensor) and o.is_cuda}
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
 def parse_accel_kind(accl: str) -> Optional[str]:
     """Device kind out of the reference's ``accelerator=`` grammar
     ("true:gpu", "gpu", "cuda", "cpu", "" = the pipeline's device).
@@ -47,3 +56,13 @@ def parse_accel_kind(accl: str) -> Optional[str]:
         elif p == "tpu":
             raise ValueError("accelerator=tpu: this port runs on cuda or cpu")
     return kind
+
+
+def device_key(accelerator: str, device: Optional[torch.device]) -> str:
+    """Where a filter with this ``accelerator=`` in a pipeline on
+    ``device`` runs, as a key: two filters with the same key run on the
+    same device (so they may share one model instance)."""
+    kind = parse_accel_kind(accelerator)
+    dev = torch.device(kind) if kind is not None else \
+        (device if device is not None else torch.device("cuda"))
+    return dev.type if dev.index in (None, 0) else str(dev)

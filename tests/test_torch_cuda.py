@@ -201,3 +201,130 @@ def test_vit_on_card_matches_cpu(card):
         got = vit_apply(model.to(card), x.to(card), torch.float32)
     assert kernels.flash_attention.launches == before + 2   # one per block
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# -- shared-model serving and the transform modes on the card -----------------
+
+_TRANSFORM_MODES = [
+    ("transpose", "1:0:2:3", "float32"), ("dimchg", "0:2", "uint8"),
+    ("stand", "default", "float32"), ("stand", "dc-average:per-channel",
+                                      "float32"),
+    ("clamp", "-0.5:0.5", "float32"), ("padding", "1:2,2:0,value:0.5",
+                                       "float32"),
+    ("typecast", "int16", "float32"),
+    ("arithmetic", "per-channel-mul:1;2;3,add:0.5", "float32"),
+]
+
+
+@pytest.mark.parametrize("mode,option,types", _TRANSFORM_MODES)
+def test_transform_mode_card_matches_cpu(card, mode, option, types):
+    """Every mode on the card against the CPU, byte for byte; ``stand``
+    within 1 f32 ulp (its float64 reductions sum in another order on the
+    card)."""
+    from nnstreamer_tpu_torch.core import DType, TensorSpec
+    from nnstreamer_tpu_torch.elements.transform import _OpChain
+
+    shape = (4, 16, 16, 3)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(shape, generator=g) * 50
+    if types == "uint8":
+        x = x.abs().to(torch.uint8)
+    spec = TensorSpec.from_shape(shape, DType.from_string(types))
+    for lead, chain_in in ((0, x), (1, x.reshape((2, 2) + shape[1:]))):
+        fspec = spec if lead == 0 else TensorSpec.from_shape(
+            chain_in.shape[1:], spec.dtype)
+        fn = _OpChain(mode, option).fn_for(fspec, lead)
+        want = fn(chain_in)
+        got = fn(chain_in.to(card)).cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if mode == "stand":
+            ulps = (got.view(torch.int32).long()
+                    - want.view(torch.int32).long()).abs().max()
+            assert int(ulps) <= 1
+        else:
+            assert torch.equal(got, want)
+
+
+def _pooled_vit(card, n_streams, n, batch, share):
+    """``n_streams`` pipelines of uint8 (1,32,32,3) frames → transform
+    (backend=cuda) → a tiny bf16 ViT, ``share-model`` as asked; returns
+    the per-stream logits."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    register_vit("cuda_pooled_vit", batch=1, image_size=32, patch=8,
+                 dim=256, depth=2, heads=2, mlp_dim=128, num_classes=5,
+                 seed=4)
+    desc = ("appsrc name=src ! queue ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 backend=cuda ! "
+            "tensor_filter name=net framework=torch-cuda "
+            f"model=cuda_pooled_vit share-model={str(share).lower()} "
+            f"batch={batch} batch-timeout-ms=50 ! appsink name=out "
+            "max-buffers=64")
+    pipes = [parse_launch(desc) for _ in range(n_streams)]
+    g = torch.Generator().manual_seed(6)
+    frames = [[torch.randint(0, 256, (1, 32, 32, 3), generator=g,
+                             dtype=torch.uint8).to(card) for _ in range(n)]
+              for _ in range(n_streams)]
+    for p in pipes:
+        p["src"].spec = TensorsSpec.parse("3:32:32:1", "uint8")
+        p.start()
+    try:
+        for s, p in enumerate(pipes):
+            for i, x in enumerate(frames[s]):
+                p["src"].push_buffer(Buffer.of(x, pts=i))
+            p["src"].end_of_stream()
+        out = []
+        for p in pipes:
+            assert p.wait_eos(timeout=120)
+            bufs = [p["out"].pull(timeout=5) for _ in range(n)]
+            assert [b.pts for b in bufs] == list(range(n))
+            out.append([b.tensors[0].torch().cpu() for b in bufs])
+    finally:
+        for p in pipes:
+            p.stop()
+    return out
+
+
+#: pooled logits against the same frame alone: the rows of a window are
+#: computed as they are alone, up to the order of a few f32 sums
+POOLED_TOL = 1e-4
+
+
+def test_pooled_window_matches_per_frame_runs(card):
+    """Two streams on one shared, micro-batched ViT: every frame's
+    logits within 1e-4 of the same frame run alone (batch 1), while any
+    two different frames' logits lie further apart than that — so a
+    frame swapped between streams, or a wrong split of the window, would
+    fail."""
+    pooled = _pooled_vit(card, 2, 6, batch=4, share=True)
+    alone = _pooled_vit(card, 2, 6, batch=1, share=False)
+    for s in range(2):
+        for i in range(6):
+            torch.testing.assert_close(pooled[s][i], alone[s][i],
+                                       atol=POOLED_TOL, rtol=POOLED_TOL)
+    flat = torch.stack([y.reshape(-1) for ys in alone for y in ys])
+    apart = (flat[:, None] - flat[None]).abs().amax(-1)
+    apart.fill_diagonal_(float("inf"))
+    assert float(apart.min()) > 2 * POOLED_TOL
+
+
+def test_batched_window_of_cuda_tensors_never_takes_a_plain_version(
+        card, monkeypatch):
+    """The window path on CUDA tensors launches the kernels: with the
+    plain versions made to raise it still runs, and the launch counts
+    show one flash_attention per block per window."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on the card's path")
+
+    monkeypatch.setattr(kernels, "flash_attention_reference", refuse)
+    monkeypatch.setattr(kernels, "scale_bias_cast_reference", refuse)
+    fa, sbc = kernels.flash_attention.launches, kernels.scale_bias_cast.launches
+    out = _pooled_vit(card, 2, 4, batch=4, share=True)
+    assert all(bool(torch.isfinite(y).all()) for s in out for y in s)
+    assert kernels.scale_bias_cast.launches - sbc == 8  # one a frame
+    # 2 blocks x (1..8 windows + the forward on zeros at negotiation +
+    # up to two lone forwards a window while the fold verdict is open)
+    launches = kernels.flash_attention.launches - fa
+    assert launches % 2 == 0 and 2 * 2 <= launches <= 2 * 25

@@ -39,11 +39,16 @@ def test_port_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "assert not any(k == 'nnstreamer_tpu' or k.startswith("
         "'nnstreamer_tpu.') for k in sys.modules), 'JAX package imported'\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    names = set(out.stdout.split())
+    assert len(names) >= 29
+    for mod in ("runtime.batching", "runtime.serving", "runtime.admission",
+                "utils.stats", "elements.transform", "elements.filter",
+                "filters.api", "filters.torch_cuda"):
+        assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 
 def test_no_jax_or_jax_package_import_in_source():
