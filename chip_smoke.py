@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-per-forward DIR   # one count, see below
+    python3 chip_smoke.py --serving-legs DIR          # phase 8's legs only
 
-It drives the port's three paths — the composite detection pipeline, the
-ViT classification pipeline and shared-model serving at the ViT's width —
+It drives the port's paths — the composite detection pipeline, the ViT
+classification pipeline, shared-model serving at the ViT's width and the
+model lifecycle of that pool (hot swap, canary, the kernel cache) —
 through ``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
@@ -67,14 +69,37 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    ``flash_attention`` timed at every bucket, and each new transform mode
    on the card against the CPU at (64,256,256,3): byte for byte, ``stand``
    within 1 ulp (float64 sums in another order);
-9. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+9. lifecycle: the serving topology above (no decoder: the logits are
+   checked) with ``is-updatable=true``, the ViT loaded from weights files
+   the port's ``params_io`` wrote (v0 from numpy seed 0, v1 from seed 1)
+   as ``file://…/vit_v0.safetensors@v0``.  (a) Hot swap: RELOAD_MODEL to
+   ``@v1`` while 8 closed-loop streams run, every window timed to the
+   card: no frame lost, pts in order, every frame's logits within 1e-4 of
+   the frame alone on v0 or v1, each stream v0 then v1 once, every window
+   one version, one swap with its ``@v1`` provenance, no fold verdict
+   taken after the flip; prints the staging seconds, the flip stall, the
+   first v1 window against the steady one, frames/s before, during and
+   after staging.  (b) Canary: a pool declaring ``canary=next:1/4``;
+   twice RELOAD_MODEL to v1: streams 3 and 7 (``attach_seq % 4 == 3``)
+   read v1, the others v0; promote refused before 16 canary frames; the
+   first canary rolled back (v0 only at once), the second promoted (v1
+   only); dispatches by bucket per version.  (c) A weights-only swap
+   from a params dict (seed 2): every frame on the new weights, no
+   verdict taken anew.  (d) The kernel cache: three processes on one
+   fresh ``NNS_TPU_COMPILE_CACHE_DIR`` — cold (misses and stores), warm
+   (hits, no nvcc), after a truncated entry (an error, one rebuild) —
+   each launching both kernels against their plain versions.  (e)
+   ``flash_attention`` at every bucket the canary's groups reached;
+10. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
 ``--kernels-per-forward DIR`` runs nothing but one full-width ViT forward
 with the port found in the checkout DIR and prints how many CUDA kernels
 it queued: the same count phase 7 prints, for another tree on the same
-card.
+card.  ``--serving-legs DIR`` runs nothing but phase 8's shared and
+unshared legs with the port in DIR: run it for two trees in one call, in
+the order parent, change, change, parent, to compare them.
 """
 
 from __future__ import annotations
@@ -154,6 +179,47 @@ SERVE_PIPE = (
     "share-model={share} batch={batch} batch-timeout-ms=2 "
     "batch-buckets={buckets}{sample} ! {dec}appsink name=out "
     "max-buffers=128")
+
+#: the lifecycle phase: the serving topology above with hot reload; no
+#: decoder, so every frame's logits can be held against its version alone
+LC_PIPE = (
+    "appsrc name=src max-buffers=32 ! queue max-size-buffers=32 ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=net framework=torch-cuda model={model} "
+    "share-model=true batch=64 batch-timeout-ms=2 batch-buckets={buckets} "
+    "is-updatable=true{canary} ! appsink name=out max-buffers=128")
+LC_BEFORE = 256        # frames served (all streams) before the reload
+LC_AFTER = 512         # frames served after the flip
+LC_ROUND = 16          # frames per stream in each canary round
+#: the lifecycle phase's device; its logic also runs on "cpu" at a small
+#: width, as a dry run before a call to the card
+LC_DEVICE = "cuda"
+#: what a kernel-cache probe process runs: load every kernel (building
+#: what the cache misses), launch each once against its plain version
+CACHE_PROBE = """
+import json, sys, time
+sys.path.insert(0, {here!r})
+import torch
+from nnstreamer_tpu_torch.ops import build, kernels
+from nnstreamer_tpu_torch.runtime import compilecache
+t0 = time.perf_counter()
+build.build_all()
+for name in build.SOURCES:
+    build.load(name)
+load_s = time.perf_counter() - t0
+x = torch.arange(256, dtype=torch.uint8, device="cuda")
+ok = torch.equal(kernels.scale_bias_cast(x, 0.5, 1.0),
+                 kernels.scale_bias_cast_reference(x, 0.5, 1.0))
+q, k, v = (torch.randn(1, 2, 17, 128, device="cuda").bfloat16()
+           for _ in range(3))
+ok = ok and torch.allclose(kernels.flash_attention(q, k, v).float(),
+                           kernels.flash_attention_reference(q, k, v).float(),
+                           atol=1e-2, rtol=1e-2)
+print(json.dumps({{"load_s": load_s, "nvcc_runs": build.nvcc_runs,
+                  "stats": compilecache.CACHE_STATS.snapshot(),
+                  "ok": bool(ok)}}))
+"""
 
 COMPOSITE = (
     "device_src name=src num-buffers={n} ! "
@@ -538,6 +604,44 @@ def count_forward_kernels(root: str) -> int:
           f": {n} CUDA kernels queued, {copies} of them copy kernels "
           f"[{torch.cuda.get_device_name(0)}]", flush=True)
     return 0
+
+
+def serving_legs(root: str) -> int:
+    """``--serving-legs ROOT``: the serving phase's shared and unshared
+    legs with the port found under ROOT (another checkout, to compare two
+    trees on one card in one call); prints the legs' lines, nothing else
+    runs."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import nnstreamer_tpu_torch
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.ops import build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    card, _, power = (s.strip() for s in card_and_power().partition(","))
+    build.build_all()
+    register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
+    g = torch.Generator().manual_seed(SEED + 4)
+    pools = [[torch.randint(0, 256, (1, VIT_SIZE, VIT_SIZE, 3), generator=g,
+                            dtype=torch.uint8).cuda()
+              for _ in range(SERVE_POOL)] for _ in range(SERVE_STREAMS)]
+    print(f"serving legs with {os.path.dirname(nnstreamer_tpu_torch.__file__)}",
+          flush=True)
+    for share in (True, False):
+        serve_leg(share, pools, card, power)
+    return 0
+
+
+def card_and_power() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def phase_main_path(card: str, power: str):
@@ -1277,11 +1381,36 @@ def phase_serving(card: str, power: str):
 
     # flash_attention at every bucket, at the path's qkv views: against
     # its plain version at phase_flash_attention's limits, then timed
+    by_bucket, fa_worst = flash_at_buckets(SERVE_BUCKETS, g, card, power)
+
+    modes = phase_transform_modes(card, power)
+    print(f"serving phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"shared": legs[True], "unshared": legs[False],
+            "shared_profiled": profiled,
+            "shared_over_unshared": ratio, "launches": launches,
+            "pooled_vs_alone_max_abs_diff": worst,
+            "nearest_other_frame_max_abs_diff": nearest,
+            "window_vs_alone_by_bucket": by_bucket_diff,
+            "labels_checked": labels_checked, "batch16": b16,
+            "batch16_vs_alone_max_abs_diff": worst16,
+            "flash_attention_by_bucket": by_bucket,
+            "flash_attention_worst": fa_worst,
+            "transform_modes": modes}
+
+
+def flash_at_buckets(buckets, g, card: str, power: str):
+    """``flash_attention`` at each bucket, at the ViT path's qkv views:
+    against its plain version at phase_flash_attention's limits, then
+    timed beside its bound.  Returns (rows by bucket, worst difference)."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import kernels
+
     bw = hbm_bandwidth(card)
     heads, dh = VIT["heads"], VIT["dim"] // VIT["heads"]
     s_len = (VIT_SIZE // VIT["patch"]) ** 2
     by_bucket, fa_worst = {}, 0.0
-    for bucket in SERVE_BUCKETS:
+    for bucket in buckets:
         q, k, v = vit_qkv_views(g, torch.bfloat16, batch=bucket)
         o = kernels.flash_attention(q, k, v)
         r = kernels.flash_attention_reference(q, k, v).float()
@@ -1307,20 +1436,7 @@ def phase_serving(card: str, power: str):
               f"ms={ms:.6f} bound_ms={bound:.6f} "
               f"share_of_bound={bound / ms:.3f} [{card}, {power}]",
               flush=True)
-
-    modes = phase_transform_modes(card, power)
-    print(f"serving phase: {time.perf_counter() - t0:.2f} s", flush=True)
-    return {"shared": legs[True], "unshared": legs[False],
-            "shared_profiled": profiled,
-            "shared_over_unshared": ratio, "launches": launches,
-            "pooled_vs_alone_max_abs_diff": worst,
-            "nearest_other_frame_max_abs_diff": nearest,
-            "window_vs_alone_by_bucket": by_bucket_diff,
-            "labels_checked": labels_checked, "batch16": b16,
-            "batch16_vs_alone_max_abs_diff": worst16,
-            "flash_attention_by_bucket": by_bucket,
-            "flash_attention_worst": fa_worst,
-            "transform_modes": modes}
+    return by_bucket, fa_worst
 
 
 def phase_transform_modes(card: str, power: str):
@@ -1360,9 +1476,478 @@ def phase_transform_modes(card: str, power: str):
     return rows
 
 
+def write_vit_file(path: str, seed: int) -> str:
+    """A ViT weights file at the benchmark width: the JAX package's tree
+    (numpy seed ``seed``), applied by the port's ``vit_tree_apply``."""
+    from nnstreamer_tpu_torch.models import params_io, vit_tree
+
+    widths = {k: v for k, v in VIT.items() if k != "heads"}
+    params_io.save_safetensors(path, vit_tree(seed, image_size=VIT_SIZE,
+                                              **widths), {
+        "apply": "nnstreamer_tpu_torch.models.vit:vit_tree_apply",
+        "apply_kwargs": json.dumps({"heads": VIT["heads"]}),
+        "in_shapes": json.dumps([[1, VIT_SIZE, VIT_SIZE, 3]]),
+        "in_dtypes": "float32"})
+    return path
+
+
+def alone_logits(model, pools):
+    """Every pool frame through a lone instance of ``model`` (a path or a
+    ModelDef), one at a time: (16, classes) logits by stream."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import DType, TensorSpec
+    from nnstreamer_tpu_torch.elements.transform import _OpChain
+    from nnstreamer_tpu_torch.filters import TorchCudaFilter
+    from nnstreamer_tpu_torch.filters.api import FilterProps
+
+    norm = _OpChain("arithmetic", NORM, backend="cuda").fn_for(
+        TensorSpec.from_shape((1, VIT_SIZE, VIT_SIZE, 3), DType.UINT8))
+    sp = TorchCudaFilter()
+    sp.configure(FilterProps(framework="torch-cuda", model=model,
+                             device=torch.device(LC_DEVICE)))
+    try:
+        return [torch.cat([sp.invoke([norm(x)])[0] for x in pool])
+                for pool in pools]
+    finally:
+        sp.close()
+
+
+def classify(outs, refs):
+    """The version (a key of ``refs``) whose alone logits each frame's
+    logits match within SERVE_TOL; raises for a frame that matches none
+    or has the wrong shape.  Returns ({(stream, pts): version}, versions
+    by stream in pts order, worst difference to the matched version)."""
+    import torch
+
+    names, by_frame, by_stream, worst = list(refs), {}, [], 0.0
+    for s, bufs in enumerate(outs):
+        y = torch.cat([b.tensors[0].torch() for b in bufs])
+        if tuple(y.shape) != (len(bufs), VIT["num_classes"]) or \
+                not bool(torch.isfinite(y).all()):
+            raise RuntimeError(f"lifecycle: stream {s} logits "
+                               f"{tuple(y.shape)}")
+        idx = torch.tensor([b.pts % SERVE_POOL for b in bufs],
+                           device=y.device)
+        dist = torch.stack([(y - refs[v][s][idx]).abs().amax(-1)
+                            for v in names])
+        best, which = (t.tolist() for t in dist.min(0))
+        for b, d, w in zip(bufs, best, which):
+            if d > SERVE_TOL:
+                raise RuntimeError(f"lifecycle: stream {s} frame {b.pts}: "
+                                   f"logits {d} from its nearest version's "
+                                   f"alone (limit {SERVE_TOL})")
+            by_frame[s, b.pts] = names[w]
+        worst = max(worst, max(best))
+        by_stream.append([names[w] for w in which])
+    return by_frame, by_stream, worst
+
+
+def run_until(pipes, pools, stop, served, first_pts: int = 0):
+    """Closed-loop clients (SERVE_DEPTH frames in flight each) that push
+    until ``stop`` is set, then drain.  ``served[0]`` counts pulled
+    frames.  Returns a join function giving (buffers by stream, pull
+    times)."""
+    import threading
+
+    from nnstreamer_tpu_torch.core import Buffer, Tensor
+
+    outs, stamps, errors = [[] for _ in pipes], [], []
+    lock = threading.Lock()
+
+    def client(s):
+        src, sink, pool = pipes[s]["src"], pipes[s]["out"], pools[s]
+        sent = 0
+        try:
+            while True:
+                while not stop.is_set() and sent - len(outs[s]) < SERVE_DEPTH:
+                    pts = first_pts + sent
+                    src.push_buffer(Buffer(
+                        tensors=[Tensor(pool[pts % len(pool)])], pts=pts))
+                    sent += 1
+                if len(outs[s]) == sent:
+                    break
+                b = sink.pull(timeout=120)
+                if b is None:
+                    raise RuntimeError(f"stream {s}: no result within 120 s")
+                outs[s].append(b)
+                with lock:
+                    stamps.append(time.perf_counter())
+                    served[0] += 1
+        except Exception as e:  # noqa: BLE001 - re-raised by join
+            errors.append(e)
+            stop.set()
+
+    threads = [threading.Thread(target=client, args=(s,), name=f"lc{s}")
+               for s in range(len(pipes))]
+    for t in threads:
+        t.start()
+
+    def join():
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"lifecycle clients failed: "
+                               f"{errors or 'client hung'}")
+        return outs, sorted(stamps)
+
+    return join
+
+
+def wait_for(cond, what: str, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"lifecycle: {what} within {timeout} s")
+        time.sleep(0.002)
+
+
+def lc_pipes(model: str, canary: str = ""):
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    pipes = [parse_launch(LC_PIPE.format(
+        norm=NORM, model=model, buckets=",".join(map(str, SERVE_BUCKETS)),
+        canary=f" canary={canary}" if canary else ""), device=LC_DEVICE)
+        for _ in range(SERVE_STREAMS)]
+    for p in pipes:
+        p["src"].spec = TensorsSpec.parse(f"3:{VIT_SIZE}:{VIT_SIZE}:1",
+                                          "uint8")
+        p.start()
+    if len({id(p["net"].pool) for p in pipes}) != 1:
+        raise RuntimeError("lifecycle: the filters are not one pool")
+    return pipes
+
+
+def check_pipes(pipes) -> None:
+    for p in pipes:
+        if p.error is not None:
+            raise RuntimeError(f"lifecycle: pipeline error {p.error}")
+
+
+def lc_hot_swap(pools, refs, files, card: str, power: str):
+    """Part 1: RELOAD_MODEL to v1 on 8 running streams."""
+    import threading
+
+    import torch
+
+    from nnstreamer_tpu_torch.runtime.batching import pick_bucket
+    from nnstreamer_tpu_torch.runtime.events import Event
+
+    pipes = lc_pipes(f"file://{files[0]}@v0")
+    try:
+        entry = pipes[0]["net"].pool
+        sp = entry.subplugin
+        stream_of = {id(p["net"]): s for s, p in enumerate(pipes)}
+        windows = []
+        batcher = entry.batcher
+        flush = batcher._flush_fn
+
+        def timed(items):
+            # every window waits for the card, so its time is the
+            # window's own: host prep + device + demux
+            t0 = time.perf_counter()
+            flush(items)
+            if LC_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            windows.append((t0, time.perf_counter(),
+                            [(stream_of[id(it[0])], it[1].pts)
+                             for it in items]))
+
+        batcher._flush_fn = timed
+        stop, served = threading.Event(), [0]
+        join = run_until(pipes, pools, stop, served)
+        wait_for(lambda: served[0] >= LC_BEFORE or stop.is_set(),
+                 f"{LC_BEFORE} frames before the reload")
+        t_stage0 = time.perf_counter()
+        pipes[0]["net"].handle_event(None, Event.reload_model(
+            f"file://{files[1]}@v1"))
+        t_stage1 = time.perf_counter()
+        misses_at_flip = sp.batch_cache_misses
+        at_swap = served[0]
+        wait_for(lambda: served[0] >= at_swap + LC_AFTER or stop.is_set(),
+                 f"{LC_AFTER} frames after the flip")
+        stop.set()
+        outs, stamps = join()
+        check_pipes(pipes)
+        lc = entry.lifecycle
+        misses_after = sp.batch_cache_misses - misses_at_flip
+    finally:
+        for p in pipes:
+            p.stop()
+    if lc.swaps != 1 or lc.baseline.tag != "v1" or not any(
+            ev["event"] == "swap" and ev["source"].endswith("@v1")
+            for ev in lc.history):
+        raise RuntimeError(f"lifecycle: swaps {lc.swaps}, history "
+                           f"{lc.history}")
+    by_frame, by_stream, worst = classify(outs, refs)
+    for s, (bufs, vers) in enumerate(zip(outs, by_stream)):
+        if [b.pts for b in bufs] != list(range(len(bufs))):
+            raise RuntimeError(f"lifecycle: stream {s} pts lost or out of "
+                               f"order")
+        k = vers.index("v1") if "v1" in vers else len(vers)
+        if k == 0 or k == len(vers) or vers != ["v0"] * k + ["v1"] * (
+                len(vers) - k):
+            raise RuntimeError(f"lifecycle: stream {s} did not switch from "
+                               f"v0 to v1 once: {vers}")
+    mixed = [w for w in windows
+             if len({by_frame[it] for it in w[2]}) != 1]
+    if mixed:
+        raise RuntimeError(f"lifecycle: {len(mixed)} windows mix versions")
+    if misses_after:
+        raise RuntimeError(f"lifecycle: {misses_after} fold verdicts taken "
+                           "after the flip (the shadow was not warm)")
+    windows.sort()
+    first = next(i for i, w in enumerate(windows)
+                 if by_frame[w[2][0]] == "v1")
+    fb = pick_bucket(len(windows[first][2]), SERVE_BUCKETS)
+
+    def median_ms(ws):
+        ts = [(t1 - t0) * 1e3 for t0, t1, it in ws
+              if pick_bucket(len(it), SERVE_BUCKETS) == fb]
+        return statistics.median(ts) if ts else float("nan")
+
+    first_ms = (windows[first][1] - windows[first][0]) * 1e3
+    steady_v0 = median_ms([w for w in windows[:first] if w[1] < t_stage0])
+    steady_v1 = median_ms(windows[first + 1:])
+
+    def rate(t0, t1):
+        n = sum(1 for t in stamps if t0 <= t < t1)
+        return n / (t1 - t0) if t1 > t0 else float("nan")
+
+    res = {
+        "frames": sum(len(b) for b in outs), "windows": len(windows),
+        "stage_s": t_stage1 - t_stage0, "load_s": lc.baseline.load_s,
+        "swap_stall_s": lc.last_swap_stall_s,
+        "first_window_ms": first_ms, "first_window_bucket": fb,
+        "steady_window_ms_v0": steady_v0, "steady_window_ms_v1": steady_v1,
+        "frames_per_s_before": rate(stamps[0], t_stage0),
+        "frames_per_s_during": rate(t_stage0, t_stage1),
+        "frames_per_s_after": rate(t_stage1, stamps[-1]),
+        "max_abs_diff": worst, "verdict_misses_after_flip": misses_after,
+    }
+    print(f"lifecycle hot swap: {res['frames']} frames of {SERVE_STREAMS} "
+          f"streams in {len(windows)} windows, none lost, pts in order, "
+          f"each stream v0 then v1 once, every window one version, logits "
+          f"within {worst} of their version alone (limit {SERVE_TOL}); "
+          f"staging {res['stage_s']:.6f} s (load+place+warm "
+          f"{res['load_s']:.6f} s), flip stall {res['swap_stall_s'] * 1e3:.6f}"
+          f" ms under the flush lock; first v1 window (bucket {fb}) "
+          f"{first_ms:.3f} ms against steady {steady_v0:.3f} ms (v0) / "
+          f"{steady_v1:.3f} ms (v1), {misses_after} verdicts taken after "
+          f"the flip; frames/s before {res['frames_per_s_before']:.1f}, "
+          f"during staging {res['frames_per_s_during']:.1f}, after "
+          f"{res['frames_per_s_after']:.1f} (every window waits for the "
+          f"card) [{card}, {power}]", flush=True)
+    return res
+
+
+def lc_canary(pools, refs, files, tree2, card: str, power: str):
+    """Part 2: ``canary=next:1/4`` on 8 streams — routing, rollback,
+    promote refused then done — and part 3: a weights-only swap."""
+    from nnstreamer_tpu_torch.runtime.events import Event
+    from nnstreamer_tpu_torch.runtime.lifecycle import LifecycleError
+
+    pipes = lc_pipes(f"file://{files[0]}@v0", canary="next:1/4")
+    pts = [0]
+    canary_streams = [s for s in range(SERVE_STREAMS) if s % 4 == 3]
+
+    def round_versions():
+        outs, _, _ = closed_loop(pipes, pools, pts[0], LC_ROUND, SERVE_DEPTH)
+        pts[0] += LC_ROUND
+        check_pipes(pipes)
+        _, by_stream, worst = classify(outs, refs)
+        return [set(v) for v in by_stream], worst
+
+    try:
+        entry = pipes[0]["net"].pool
+        lc = entry.lifecycle
+        sp = entry.subplugin
+        rows, worst = {}, 0.0
+        for attempt in ("rollback", "promote"):
+            pipes[0]["net"].handle_event(None, Event.reload_model(
+                f"file://{files[1]}@v1"))
+            check_pipes(pipes)
+            if not lc.canary_active or \
+                    lc.summary()["canary_streams"] != len(canary_streams):
+                raise RuntimeError(f"lifecycle: canary not started: "
+                                   f"{lc.summary()}")
+            try:
+                lc.promote()
+                raise RuntimeError("lifecycle: promote before any canary "
+                                   "frame was not refused")
+            except LifecycleError:
+                pass
+            vers, w = round_versions()
+            worst = max(worst, w)
+            want = [{"v1"} if s in canary_streams else {"v0"}
+                    for s in range(SERVE_STREAMS)]
+            if vers != want:
+                raise RuntimeError(f"lifecycle: canary routing {vers}")
+            rows[attempt] = {r["version"]: r["buckets"]
+                             for r in lc.snapshot_rows()}
+            if attempt == "rollback":
+                lc.rollback()
+                after = "v0"
+            else:
+                lc.promote()
+                after = "v1"
+            vers, w = round_versions()
+            worst = max(worst, w)
+            if vers != [{after}] * SERVE_STREAMS:
+                raise RuntimeError(f"lifecycle: after {attempt} {vers}")
+        # part 3: a weights-only swap from a params dict (seed 2)
+        misses = sp.batch_cache_misses
+        lc.stage(tree2)
+        lc.swap()
+        vers, w = round_versions()
+        worst = max(worst, w)
+        if vers != [{"w2"}] * SERVE_STREAMS:
+            raise RuntimeError(f"lifecycle: weights-only swap {vers}")
+        w_misses = sp.batch_cache_misses - misses
+        if w_misses:
+            raise RuntimeError(f"lifecycle: the weights-only swap took "
+                               f"{w_misses} fold verdicts anew")
+        summary = lc.summary()
+    finally:
+        for p in pipes:
+            p.stop()
+    reached = sorted({int(b) for by_ver in rows.values()
+                      for bk in by_ver.values() for b in bk})
+    print(f"lifecycle canary next:1/4: streams {canary_streams} on v1, the "
+          f"others on v0, in both canaries; promote refused before "
+          f"{lc.min_canary_frames} canary frames, then done; rollback "
+          f"back to v0 only at once; dispatches by bucket per version "
+          f"{rows}; weights-only swap: every frame on the new weights, "
+          f"{w_misses} verdicts taken anew; logits within {worst} of their "
+          f"version alone; {summary} [{card}, {power}]", flush=True)
+    return {"buckets_by_version": rows, "buckets_reached": reached,
+            "max_abs_diff": worst, "swaps": summary["swaps"],
+            "promotes": summary["promotes"],
+            "rollbacks": summary["rollbacks"]}
+
+
+def lc_cache(root: str, card: str, power: str):
+    """Part 4: the persistent kernel cache across processes."""
+    import glob
+    import shutil
+
+    from nnstreamer_tpu_torch.ops.build import SOURCES
+
+    d = os.path.join(root, "kernel-cache")
+    os.makedirs(d)
+    code = CACHE_PROBE.format(here=HERE)
+
+    def probe(label):
+        out = subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True,
+            timeout=900, env=dict(os.environ, NNS_TPU_COMPILE_CACHE_DIR=d))
+        if out.returncode != 0:
+            raise RuntimeError(f"cache probe ({label}) failed:\n{out.stderr}")
+        r = json.loads(out.stdout.strip().splitlines()[-1])
+        if not r["ok"]:
+            raise RuntimeError(f"cache probe ({label}): a kernel disagrees "
+                               "with its plain version")
+        print(f"kernel cache {label}: {r} [{card}, {power}]", flush=True)
+        return r
+
+    try:
+        cold = probe("cold")
+        warm = probe("warm")
+        lib = glob.glob(os.path.join(d, "libscale_bias_cast-*.so"))[0]
+        with open(lib, "rb") as f:
+            head = f.read(os.path.getsize(lib) // 2)
+        with open(lib, "wb") as f:
+            f.write(head)
+        torn = probe("truncated scale_bias_cast")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n = len(SOURCES)
+    if cold["stats"] != {"hits": 0, "misses": n, "stores": n, "errors": 0} \
+            or warm["stats"] != {"hits": n, "misses": 0, "stores": 0,
+                                 "errors": 0} or warm["nvcc_runs"] \
+            or torn["stats"] != {"hits": 1, "misses": 1, "stores": 1,
+                                 "errors": 1}:
+        raise RuntimeError(f"kernel cache: {cold} / {warm} / {torn}")
+    return {"cold_load_s": cold["load_s"], "warm_load_s": warm["load_s"],
+            "truncated_load_s": torn["load_s"],
+            "cold_nvcc_runs": cold["nvcc_runs"],
+            "warm_nvcc_runs": warm["nvcc_runs"]}
+
+
+def phase_lifecycle(card: str, power: str):
+    """Model lifecycle on the shared pool at the ViT's width: a hot swap
+    under 8 running streams, a canary on 1 stream in 4 with its rollback
+    and promotion, a weights-only swap, the persistent kernel cache
+    across processes, and ``flash_attention`` at every bucket the
+    canary's groups reached.  Returns the numbers and the path's kernel
+    launches."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.filters.torch_cuda import ModelDef
+    from nnstreamer_tpu_torch.models import vit_tree, vit_tree_apply
+    from nnstreamer_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    build_root = os.path.join(HERE, "build")
+    os.makedirs(build_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root) as root:
+        files = [write_vit_file(os.path.join(root, f"vit_v{v}.safetensors"),
+                                v) for v in (0, 1)]
+        g = torch.Generator().manual_seed(SEED + 6)
+        pools = [[torch.randint(0, 256, (1, VIT_SIZE, VIT_SIZE, 3),
+                                generator=g, dtype=torch.uint8).to(LC_DEVICE)
+                  for _ in range(SERVE_POOL)] for _ in range(SERVE_STREAMS)]
+        widths = {k: v for k, v in VIT.items() if k != "heads"}
+        tree2 = vit_tree(2, image_size=VIT_SIZE, **widths)
+        w2 = ModelDef(functools.partial(vit_tree_apply, heads=VIT["heads"]),
+                      tree2, TensorsSpec.from_shapes(
+                          [(1, VIT_SIZE, VIT_SIZE, 3)], np.float32), "w2")
+        refs = {"v0": alone_logits(files[0], pools),
+                "v1": alone_logits(files[1], pools),
+                "w2": alone_logits(w2, pools)}
+        apart = float(torch.stack([(refs["v0"][s] - refs["v1"][s]).abs()
+                                   .amax(-1) for s in range(SERVE_STREAMS)])
+                      .min())
+        if apart <= 2 * SERVE_TOL:
+            raise RuntimeError(f"lifecycle: v0 and v1 logits of one frame "
+                               f"lie only {apart} apart")
+        print(f"lifecycle: two ViT files ({VIT}, image {VIT_SIZE}) written "
+              f"and {SERVE_STREAMS}x{SERVE_POOL} frames run alone on v0, v1 "
+              f"and the seed-2 weights in {time.perf_counter() - t0:.2f} s; "
+              f"one frame's v0 and v1 logits lie at least {apart} apart",
+              flush=True)
+        kernels.flash_attention.launches = 0
+        kernels.scale_bias_cast.launches = 0
+        swap = lc_hot_swap(pools, refs, files, card, power)
+        canary = lc_canary(pools, refs, files, tree2, card, power)
+        launches = {"flash_attention": kernels.flash_attention.launches,
+                    "scale_bias_cast": kernels.scale_bias_cast.launches}
+        frames = swap["frames"] + SERVE_STREAMS * LC_ROUND * 5
+        if launches["scale_bias_cast"] < frames or \
+                launches["flash_attention"] < VIT["depth"] * swap["windows"]:
+            raise RuntimeError(f"lifecycle: launches {launches} for {frames} "
+                               f"frames and {swap['windows']} windows")
+        cache = lc_cache(root, card, power)
+    by_bucket, fa_worst = flash_at_buckets(canary["buckets_reached"], g,
+                                           card, power)
+    print(f"lifecycle phase: {time.perf_counter() - t0:.2f} s; kernel "
+          f"launches {launches}", flush=True)
+    return {"hot_swap": swap, "canary": canary, "cache": cache,
+            "launches": launches, "flash_attention_by_bucket": by_bucket,
+            "flash_attention_worst": fa_worst}
+
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--serving-legs":
+        return serving_legs(sys.argv[2])
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -1371,10 +1956,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_and_power()
     print(smi, flush=True)
     card, _, power = (s.strip() for s in smi.partition(","))
     cap = torch.cuda.get_device_capability(0)
@@ -1407,18 +1989,21 @@ def main() -> int:
     phase_reference(main_path.pop("model"), main_path.pop("anchors"))
     vit_path = phase_vit(card, power)
     serving = phase_serving(card, power)
+    lifecycle = phase_lifecycle(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
-                      "serving": serving, "card": card,
-                      "power_limit": power}))
+                      "serving": serving, "lifecycle": lifecycle,
+                      "card": card, "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
                    "serving_shared": served["shared"]["scale_bias_cast"],
-                   "serving_unshared": served["unshared"]["scale_bias_cast"]}
+                   "serving_unshared": served["unshared"]["scale_bias_cast"],
+                   "lifecycle": lifecycle["launches"]["scale_bias_cast"]}
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
-                  "serving_unshared": served["unshared"]["flash_attention"]}
+                  "serving_unshared": served["unshared"]["flash_attention"],
+                  "lifecycle": lifecycle["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",
@@ -1442,8 +2027,10 @@ def main() -> int:
         "replaces": "nnstreamer_tpu/ops/kernels.py:180",
         "launches": sum(fa_by_path.values()),
         "launches_by_path": fa_by_path,
-        "max_abs_err": max(fa_worst, serving["flash_attention_worst"]),
-        "max_abs_diff": max(fa_worst, serving["flash_attention_worst"]),
+        "max_abs_err": max(fa_worst, serving["flash_attention_worst"],
+                           lifecycle["flash_attention_worst"]),
+        "max_abs_diff": max(fa_worst, serving["flash_attention_worst"],
+                            lifecycle["flash_attention_worst"]),
         "ms": fa["ms"],
         "ms_vit_qkv_views": fa["views_ms"],
         "ms_by_bucket": {str(b): r["ms"] for b, r in

@@ -12,9 +12,16 @@ work asynchronously, so the streaming thread runs ahead of the card, and
 only a sampled dispatch (at most one a ``stat-sample-interval-ms``)
 waits for it to time the invoke.
 
-Not in this slice (later work): chaos injection, model lifecycle / hot
-reload, mesh placement and pipeline-stage handoff, tenant attribution,
-observability hooks.
+Model lifecycle: ``is-updatable=true`` lets a RELOAD_MODEL event swap the
+model — through the pool's lifecycle (``PoolEntry.reload_model``: staged
+and warmed off the dispatch path, flipped at a window boundary or
+canaried per the pool-level ``canary=<tag>:1/N``) for a pooled filter,
+through the sub-plugin's ``prepare_swap``/``commit_swap`` otherwise;
+errors go to the bus.  ``custom=donate`` marks the tensors each dispatch
+was handed as donated, so a later read raises.
+
+Not in this slice (later work): chaos injection, mesh placement and
+pipeline-stage handoff, tenant attribution, observability hooks.
 """
 
 from __future__ import annotations
@@ -45,14 +52,15 @@ class TensorFilter(Element):
     def __init__(self, name=None, framework: str = "auto", model: Any = None,
                  accelerator: str = "", custom: str = "",
                  input_combination: str = "", output_combination: str = "",
-                 invoke_dynamic: bool = False,
+                 invoke_dynamic: bool = False, is_updatable: bool = False,
                  shared_tensor_filter_key: str = "", inputtype: str = "",
                  input: str = "", outputtype: str = "", output: str = "",
                  batch: int = 1, batch_timeout_ms: float = 1.0,
                  batch_buckets: str = "", share_model: bool = False,
                  stat_sample_interval_ms: Optional[float] = None,
                  priority: str = "normal", deadline_ms: float = 0.0,
-                 slo_ms: float = 0.0, queue_limit: int = 0, **props):
+                 slo_ms: float = 0.0, queue_limit: int = 0,
+                 canary: str = "", **props):
         self.framework = framework
         self.model = model
         self.accelerator = accelerator
@@ -60,6 +68,8 @@ class TensorFilter(Element):
         self.input_combination = input_combination
         self.output_combination = output_combination
         self.invoke_dynamic = invoke_dynamic
+        # RELOAD_MODEL allowed (hot swap; pooled: through the lifecycle)
+        self.is_updatable = is_updatable
         self.shared_tensor_filter_key = shared_tensor_filter_key
         self.inputtype, self.input = inputtype, input
         self.outputtype, self.output = outputtype, output
@@ -86,6 +96,9 @@ class TensorFilter(Element):
         self.deadline_ms = deadline_ms
         self.slo_ms = slo_ms
         self.queue_limit = queue_limit
+        # canary="<version>:1/N" (or "1/N") is POOL-level: a reload stages
+        # the new version and routes 1-in-N of the pool's streams to it
+        self.canary = canary
         super().__init__(name, **props)
         self.add_sink_pad()
         self.add_src_pad()
@@ -130,7 +143,8 @@ class TensorFilter(Element):
             input_spec=self._user_spec(self.input, self.inputtype),
             output_spec=self._user_spec(self.output, self.outputtype),
             device=self.device,
-            shared_key=self.shared_tensor_filter_key or None)
+            shared_key=self.shared_tensor_filter_key or None,
+            is_updatable=bool(self.is_updatable))
         if self.share_model:
             if self.invoke_dynamic:
                 raise ValueError(
@@ -169,7 +183,8 @@ class TensorFilter(Element):
                 slo_ms=float(self.slo_ms or 0.0),
                 priority=self.priority,
                 deadline_ms=float(self.deadline_ms or 0.0),
-                queue_limit=int(self.queue_limit or 0))
+                queue_limit=int(self.queue_limit or 0),
+                canary=str(self.canary or ""))
             self._pool_attached = True
             return
         if b <= 1:
@@ -358,6 +373,10 @@ class TensorFilter(Element):
             # the window flush (full/deadline/EOS) dispatches it
             self._batcher.submit(buf)
             return
+        if self._pool_entry is not None:
+            # per-frame pooled stream: a live canary may route THIS
+            # stream's frames through the staged version's instance
+            sp = self._pool_entry.subplugin_for(self)
         tensors = buf.tensors
         if self._in_combi is not None:
             tensors = [tensors[i] for i in self._in_combi]
@@ -365,6 +384,8 @@ class TensorFilter(Element):
             self._reshape_dynamic(buf)
         sample, t0 = self._sampler.begin(self._sample_interval())
         outputs = sp.invoke([t.torch(sp.device) for t in tensors])
+        if getattr(sp, "_donate", False):
+            self._mark_donated(buf)
         self._sampler.end(outputs, t0, sample)
         out_tensors = [Tensor(o) for o in outputs]
         if self._out_combi is not None:
@@ -404,6 +425,9 @@ class TensorFilter(Element):
             # coalesces (ordering, EOS flush, occupancy stats) but each
             # frame dispatches separately
             outs = [sp.invoke(list(f)) for f in frames]
+        if getattr(sp, "_donate", False):
+            for buf in bufs:
+                self._mark_donated(buf)
         t2 = self._sampler.end([o for out in outs for o in out], t0, sample,
                                frames=len(bufs))
         for buf, out in zip(bufs, outs):
@@ -424,6 +448,16 @@ class TensorFilter(Element):
         if self._in_combi is not None:
             tensors = [tensors[i] for i in self._in_combi]
         return [t.torch() if t.is_device else t.np() for t in tensors]
+
+    def _mark_donated(self, buf: Buffer) -> None:
+        """``custom=donate``: mark exactly the tensors a dispatch was
+        handed (the input-combination subset) as donated, so a retained
+        reference raises instead of reading memory the card may reuse."""
+        tensors = buf.tensors
+        if self._in_combi is not None:
+            tensors = [tensors[i] for i in self._in_combi]
+        for t in tensors:
+            t.mark_donated()
 
     def _pool_emit(self, buf: Buffer, out: List[Any]) -> None:
         """Demux one dispatch result onto THIS filter's downstream pad —
@@ -472,6 +506,32 @@ class TensorFilter(Element):
             rate = event.data.get("rate")
             self._throttle_interval = float(1 / rate) if rate else 0.0
         super().handle_upstream_event(pad, event)
+
+    def handle_event(self, pad: Pad, event: Event) -> None:
+        if event.kind != EventKind.RELOAD_MODEL:
+            super().handle_event(pad, event)
+            return
+        if not self.is_updatable:
+            self.post_error(FilterError(f"{self.name}: model is not "
+                                        "updatable"))
+            return
+        from ..runtime.lifecycle import LifecycleError
+
+        try:
+            if self._pool_entry is not None:
+                # the reload steers the POOL: staged and warmed off the
+                # dispatch path, then swapped at a window boundary (or
+                # canaried per the pool's canary=) for every sharer
+                self._pool_entry.reload_model(
+                    event.data["model"],
+                    version=str(event.data.get("version", "")))
+                return
+            if self.subplugin is None:
+                raise FilterError(f"{self.name}: no sub-plugin opened")
+            self.subplugin.handle_event(event)
+            self.in_spec, self.out_spec = self.subplugin.get_model_info()
+        except (FilterError, LifecycleError, ValueError, KeyError) as e:
+            self.post_error(e)
 
     # -- introspection props -------------------------------------------------
 

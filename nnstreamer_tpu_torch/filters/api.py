@@ -4,7 +4,9 @@ Parity target: the reference's v1 filter framework ABI
 (nnstreamer:gst/nnstreamer/include/nnstreamer_plugin_api_filter.h:247-469):
 open/close lifecycle, ``invoke``, model-info queries incl. SET_INPUT_INFO
 reshape, event handling, the micro-batched ``invoke_batched`` entry point,
-shared opens for the serving pool, and the shared-model table
+the hot-reload pair ``prepare_swap``/``commit_swap`` (a framework without
+hot reload raises), shared opens for the serving pool, and the shared-model
+table
 (nnstreamer_plugin_api_filter.h:551-590).
 
 In the port, ``invoke`` consumes and produces ``torch.Tensor``s on the
@@ -117,6 +119,22 @@ class FilterSubplugin:
         """Run the model on one frame's tensors (device tensors in,
         device tensors out)."""
         raise NotImplementedError
+
+    # -- hot reload (runtime/lifecycle.py) ------------------------------------
+
+    def model_name(self) -> str:
+        """The served model's identity (a path, a registered name)."""
+        return ""
+
+    def prepare_swap(self, model: Any, buckets: Sequence[int] = (),
+                     warm: bool = True) -> "FilterSubplugin":
+        """Load ``model`` into a warmed shadow instance off the dispatch
+        path.  Default: this framework has no hot reload."""
+        raise FilterError(f"{self.NAME}: this framework has no hot reload")
+
+    def commit_swap(self, shadow: Any) -> None:
+        """Flip a prepared shadow in.  Default: no hot reload."""
+        raise FilterError(f"{self.NAME}: this framework has no hot reload")
 
     # -- events --------------------------------------------------------------
 

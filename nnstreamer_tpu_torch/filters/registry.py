@@ -9,6 +9,7 @@ so auto-detection knows in-process registered models only.
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, Type
 
@@ -45,11 +46,21 @@ def list_filters():
 
 
 def detect_framework(model) -> str:
-    """framework="auto": a name registered with the torch-cuda filter."""
+    """framework="auto": a name registered with the torch-cuda filter, or
+    a model file of a type it knows (it loads some and names the format
+    it refuses)."""
     _ensure_builtin()
-    from .torch_cuda import get_model
+    from .modeluri import resolve_model_uri
+    from .torch_cuda import MODEL_FILE_TYPES, XLA_PROGRAM_TYPES, get_model
 
     if isinstance(model, str) and get_model(model) is not None:
+        return "torch-cuda"
+    try:
+        path = resolve_model_uri(model)
+    except (ValueError, KeyError):
+        path = None
+    if isinstance(path, str) and os.path.splitext(path)[1].lower() in (
+            MODEL_FILE_TYPES + XLA_PROGRAM_TYPES + (".msgpack",)):
         return "torch-cuda"
     raise ValueError(f"cannot auto-detect framework for model {model!r}")
 

@@ -33,13 +33,35 @@ leading axis) runs the window frame by frame instead, as the JAX
 package does for a framework without ``SUPPORTS_BATCH``.  The check
 costs two lone calls per (schema, bucket); the verdict is cached.
 
-Not in this slice (later work): model files, a persistent cache, mesh /
-sharding, hot swap, donation (``custom=donate``).
+Model files (``model=`` a path, or ``file://…@tag``): ``.npz`` and
+``.safetensors`` weights files (``models/params_io.py``: the JAX
+package's pytree layout, numpy leaves, plus an ``apply`` "module:callable"
+naming a port callable ``fn(params, *inputs)``) and ``.pkl`` dicts.
+Serialized XLA programs (``.jaxexp``/``.stablehlo``/``.mlir``) and flax
+``.msgpack`` raise :class:`FilterError` naming the format.
+
+Double-buffered hot swap (``runtime/lifecycle.py`` drives it):
+:meth:`TorchCudaFilter.prepare_swap` builds a SHADOW instance off the
+dispatch path — its weights copied to the card and its fold verdicts
+taken on seeded, distinct frames at every hot bucket — and
+:meth:`~TorchCudaFilter.commit_swap` flips (model, program, verdicts) in
+under ``_swap_lock``, which every dispatch reads them under as one
+snapshot.  ``custom=donate`` marks the tensors a dispatch was handed as
+donated (the element and the pool do the marking).
+
+Not in this slice (later work): mesh / sharding.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import functools
+import importlib
+import json
+import os
+import pickle
+import struct
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -48,8 +70,10 @@ import torch
 
 from ..core import DType, TensorsSpec
 from ..core.buffer import from_numpy
+from ..runtime.events import Event, EventKind
 from ..utils.device import parse_accel_kind, resolve_device
 from .api import SHARED_MODELS, FilterError, FilterProps, FilterSubplugin
+from .modeluri import resolve_model_uri
 from .registry import register_filter
 
 # -- in-process model registry ----------------------------------------------
@@ -60,12 +84,15 @@ _models_lock = threading.Lock()
 
 def _place(obj: Any, device: torch.device) -> Any:
     """A copy of a params tree on ``device``: ``nn.Module``s (copied, put
-    in eval mode), tensors, and dicts/lists/tuples of them; other leaves
+    in eval mode), tensors, numpy arrays and scalars (as tensors — a
+    weights file's leaves), and dicts/lists/tuples of them; other leaves
     (ints, strings) pass through."""
     if isinstance(obj, torch.nn.Module):
         return copy.deepcopy(obj).to(device).eval()
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return from_numpy(np.asarray(obj), device)
     if isinstance(obj, dict):
         return {k: _place(v, device) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -124,6 +151,103 @@ def unregister_model(name: str) -> None:
 def get_model(name: str) -> Optional[ModelDef]:
     with _models_lock:
         return _models.get(name)
+
+
+# -- model files ---------------------------------------------------------------
+
+#: weights files and pickled dicts this port loads
+MODEL_FILE_TYPES = (".npz", ".safetensors", ".pkl")
+#: serialized XLA programs: the JAX package runs them, PyTorch cannot
+XLA_PROGRAM_TYPES = (".jaxexp", ".stablehlo", ".mlir")
+
+
+def _load_file(path: str) -> ModelDef:
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".npz", ".safetensors"):
+        return _load_weights_file(path, ext)
+    if ext == ".pkl":
+        return _load_pickled(path)
+    if ext in XLA_PROGRAM_TYPES:
+        raise FilterError(
+            f"torch-cuda: {path}: {ext} is a serialized XLA program, which "
+            "PyTorch cannot run; write the weights with models.params_io "
+            "and name a port callable as 'apply'")
+    if ext == ".msgpack":
+        raise FilterError(
+            f"torch-cuda: {path}: .msgpack needs flax, which this port "
+            "does not use")
+    raise FilterError(f"torch-cuda: unsupported model file type {ext!r}")
+
+
+def _load_weights_file(path: str, ext: str) -> ModelDef:
+    """A weights file (models/params_io.py): the JAX package's pytree
+    (numpy leaves) plus an ``apply`` "module:callable" naming a port
+    callable ``fn(params, *inputs)``, its ``apply_kwargs`` and the input
+    schema in the metadata."""
+    from ..models.params_io import load_npz, load_safetensors
+
+    try:
+        params, meta = (load_npz(path) if ext == ".npz"
+                        else load_safetensors(path))
+        in_shapes, kwargs = meta.get("in_shapes"), meta.get("apply_kwargs")
+        if isinstance(in_shapes, str):
+            in_shapes = json.loads(in_shapes)
+        if isinstance(kwargs, str):
+            kwargs = json.loads(kwargs)
+    except (ValueError, KeyError, OSError, struct.error) as e:
+        raise FilterError(f"torch-cuda: {path}: {e}") from e
+    apply = meta.get("apply")
+    if not apply:
+        raise FilterError(
+            f"torch-cuda: {path} carries no 'apply' metadata (write it "
+            "with models.params_io.save_npz/save_safetensors)")
+    fn = _resolve_apply(apply, path, kwargs)
+    in_spec = None
+    if in_shapes:
+        in_spec = TensorsSpec.from_shapes(
+            in_shapes, np.dtype(meta.get("in_dtypes") or "float32"))
+    return ModelDef(fn, params, in_spec, name=path)
+
+
+def _resolve_apply(target: Any, path: str,
+                   kwargs: Optional[dict] = None) -> Callable:
+    """``apply`` of a model file: a callable, or a "module:callable"
+    import path; ``kwargs`` are bound to it by keyword."""
+    if isinstance(target, str):
+        mod, _, attr = target.partition(":")
+        try:
+            target = getattr(importlib.import_module(mod), attr)
+        except (ImportError, AttributeError, ValueError) as e:
+            raise FilterError(
+                f"torch-cuda: cannot resolve apply {target!r} ({path}): "
+                f"{e}") from e
+    if not callable(target):
+        raise FilterError(f"torch-cuda: bad apply entry {type(target)} "
+                          f"({path})")
+    if kwargs:
+        if not isinstance(kwargs, dict):
+            raise FilterError(f"torch-cuda: {path}: apply_kwargs must be "
+                              f"an object, got {type(kwargs)}")
+        return functools.partial(target, **kwargs)
+    return target
+
+
+def _load_pickled(path: str) -> ModelDef:
+    """A pickled dict: ``apply`` ("module:callable" or a callable),
+    ``params`` (the weight pytree), optional ``apply_kwargs``,
+    ``in_shapes`` and ``in_dtypes``."""
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    if not isinstance(blob, dict) or "apply" not in blob:
+        raise FilterError(
+            f"torch-cuda: {path} must hold a dict with an 'apply' "
+            "\"module:callable\" entry")
+    fn = _resolve_apply(blob["apply"], path, blob.get("apply_kwargs"))
+    in_spec = None
+    if blob.get("in_shapes") is not None:
+        in_spec = TensorsSpec.from_shapes(
+            blob["in_shapes"], blob.get("in_dtypes", np.float32))
+    return ModelDef(fn, blob.get("params"), in_spec, name=path)
 
 
 # -- the sub-plugin ----------------------------------------------------------
@@ -200,6 +324,10 @@ class TorchCudaFilter(FilterSubplugin):
         # folds into one program call, False = it runs frame by frame
         self._batch_fold: Dict[Tuple[TensorsSpec, int], bool] = {}
         self._batch_lock = threading.Lock()
+        # (model, program) flip together under this lock (commit_swap);
+        # every dispatch reads them as one snapshot under it
+        self._swap_lock = threading.Lock()
+        self._donate = False  # custom=donate: callers mark inputs donated
         self.batch_cache_hits = 0
         self.batch_cache_misses = 0
         self._cache_by_bucket: Dict[int, List[int]] = {}  # b -> [hit, miss]
@@ -223,6 +351,7 @@ class TorchCudaFilter(FilterSubplugin):
 
     def configure(self, props: FilterProps) -> None:
         super().configure(props)
+        self._donate = "donate" in (props.custom or "")
         try:
             kind = parse_accel_kind(props.accelerator)
         except ValueError as e:
@@ -252,8 +381,9 @@ class TorchCudaFilter(FilterSubplugin):
                 table_key, (self._model, self._program))
 
     def close(self) -> None:
-        self._program = None
-        self._model = None
+        with self._swap_lock:
+            self._program = None
+            self._model = None
         with self._batch_lock:
             self._batch_fold.clear()
 
@@ -269,10 +399,6 @@ class TorchCudaFilter(FilterSubplugin):
                               sorted(self._cache_by_bucket.items())},
             }
 
-    def hot_buckets(self) -> Tuple[int, ...]:
-        """Bucket sizes whose window has run on the current schema."""
-        with self._batch_lock:
-            return tuple(sorted({int(k[1]) for k in self._batch_fold}))
 
     @staticmethod
     def _resolve_model(model) -> ModelDef:
@@ -282,12 +408,23 @@ class TorchCudaFilter(FilterSubplugin):
             m = get_model(model)
             if m is not None:
                 return m
+            if "://" in model or "@" in model:
+                try:
+                    model = resolve_model_uri(model)
+                except (ValueError, KeyError) as e:
+                    raise FilterError(f"torch-cuda: {e}") from None
+            if os.path.isfile(model):
+                return _load_file(model)
             raise FilterError(
-                f"torch-cuda: model {model!r} is not a registered name "
-                "(model files are not supported by this port yet)")
+                f"torch-cuda: model {model!r} is neither a registered name "
+                "nor a file")
         if callable(model):
             return ModelDef(model)
         raise FilterError(f"torch-cuda: unsupported model object {type(model)}")
+
+    def model_name(self) -> str:
+        m = self._model
+        return m.name if m is not None else ""
 
     # -- program -------------------------------------------------------------
 
@@ -372,17 +509,26 @@ class TorchCudaFilter(FilterSubplugin):
         fused stages currently installed).  A pooled instance is never
         reshaped under other sharers: the element refuses first
         (``TensorFilter.caps_negotiated``)."""
-        self._program = self._build(in_spec)
+        p = self._build(in_spec)
+        with self._swap_lock:
+            self._program = p
         with self._batch_lock:
             self._batch_fold.clear()  # verdicts are per schema
-        return self._program.in_spec, self._program.out_spec
+        return p.in_spec, p.out_spec
 
     # -- hot path ------------------------------------------------------------
 
-    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
-        p = self._program
+    def _snapshot(self) -> _Program:
+        """The serving program, read as one with its model (commit_swap
+        flips both under ``_swap_lock``)."""
+        with self._swap_lock:
+            p = self._program
         if p is None:
             raise FilterError("torch-cuda: not configured")
+        return p
+
+    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
+        p = self._snapshot()
         inputs = [x if x.device == self.device else x.to(self.device)
                   for x in inputs]
         with torch.inference_mode():
@@ -395,9 +541,7 @@ class TorchCudaFilter(FilterSubplugin):
         to ``bucket`` by replaying the last frame; returns n per-frame
         output lists (views into the window's outputs).  A model that does
         not fold runs the window frame by frame (see the module doc)."""
-        p = self._program
-        if p is None:
-            raise FilterError("torch-cuda: not configured")
+        p = self._snapshot()
         n = len(frames)
         if n == 0:
             return []
@@ -471,3 +615,118 @@ class TorchCudaFilter(FilterSubplugin):
                     _rows_agree(w[i], a) for w, a in zip(per, alone)):
                 return False
         return True
+
+    # -- double-buffered hot swap (runtime/lifecycle.py drives this) ---------
+
+    def hot_buckets(self) -> Tuple[int, ...]:
+        """Bucket sizes with a fold verdict on the current schema: the set
+        a replacement must have warm before the flip."""
+        with self._batch_lock:
+            return tuple(sorted({int(k[1]) for k in self._batch_fold}))
+
+    def prepare_swap(self, model: Any, buckets: Sequence[int] = (),
+                     warm: bool = True) -> "TorchCudaFilter":
+        """Load a replacement OFF the dispatch path: a configured SHADOW
+        instance (same device, custom and fused stages as this one, the
+        serving input schema forced) while this instance keeps serving.
+        ``model`` is anything ``model=`` accepts, or a bare params dict —
+        the weights-only swap: this instance's ``fn`` with new weights.
+        The shadow's weights are copied to the device at its configure;
+        with ``warm`` it runs once alone and once a window at every
+        bucket of ``buckets`` (else :meth:`hot_buckets`), so its fold
+        verdicts exist before the flip, and the copies and forwards are
+        finished when this returns.  A weights-only shadow starts from
+        this instance's verdicts (the architecture decides them), so its
+        warm windows are verdict hits.  Raises when the replacement
+        changes the output schema."""
+        if self.props is None:
+            raise FilterError("torch-cuda: not configured (nothing to swap)")
+        with self._swap_lock:
+            cur_model, cur = self._model, self._program
+        weights_only = isinstance(model, dict) and "apply" not in model
+        if weights_only:
+            if cur_model is None or cur_model.params is None:
+                raise FilterError(
+                    "torch-cuda: a weights-only swap needs a model that "
+                    "carries params to swap into")
+            model = ModelDef(cur_model.fn, model, cur_model.in_spec,
+                             name=f"{cur_model.name}@weights")
+        shadow = type(self)()
+        # the same program shape: fused stages ride along by reference,
+        # and the serving schema is forced so the flip serves the caps
+        # already flowing; a private instance until commit (no shared key)
+        shadow._pre_chains = self._pre_chains
+        shadow._post_fns = self._post_fns
+        shadow.configure(dataclasses.replace(
+            self.props, model=model,
+            input_spec=cur.in_spec if cur is not None
+            else self.props.input_spec, shared_key=None))
+        if cur is not None and shadow._program.out_spec != cur.out_spec:
+            raise FilterError(
+                f"torch-cuda: replacement model {shadow.model_name()!r} "
+                f"changes the output schema ({cur.out_spec} -> "
+                f"{shadow._program.out_spec}); a hot swap must keep the "
+                f"negotiated caps — restart the pipeline to change schemas")
+        if weights_only and cur is not None:
+            with self._batch_lock:
+                verdicts = dict(self._batch_fold)
+            shadow._batch_fold = {(shadow._program.in_spec, k[1]): v
+                                  for k, v in verdicts.items()
+                                  if k[0] == cur.in_spec}
+        want = tuple(sorted({int(b) for b in buckets} or self.hot_buckets()))
+        if warm:
+            self._warm_shadow(shadow, want)
+        return shadow
+
+    @staticmethod
+    def _warm_shadow(shadow: "TorchCudaFilter",
+                     buckets: Tuple[int, ...]) -> None:
+        """Run the shadow once alone and once a window at each bucket on
+        two seeded frames that differ — the first window per bucket takes
+        the fold verdict, which two equal frames (zeros) cannot — then
+        wait for the device, so the flip inherits finished work."""
+        p = shadow._program
+        rng = np.random.default_rng(0)
+        pair = []
+        for _ in range(2):
+            frame = []
+            for t in p.in_spec.tensors:
+                dt = t.dtype.np_dtype
+                if np.issubdtype(dt, np.floating):
+                    a = rng.standard_normal(t.shape).astype(dt)
+                elif dt == np.bool_:
+                    a = rng.integers(0, 2, t.shape).astype(dt)
+                else:
+                    a = rng.integers(0, 100, t.shape).astype(dt)
+                frame.append(from_numpy(a, shadow.device))
+            pair.append(frame)
+        outs = list(shadow.invoke(pair[0]))
+        for b in buckets:
+            window = [pair[0]] + [pair[1]] * (int(b) - 1)
+            outs += [o for out in shadow.invoke_batched(window, int(b))
+                     for o in out]
+        if shadow.device.type == "cuda":
+            torch.cuda.current_stream(shadow.device).synchronize()
+
+    def commit_swap(self, shadow: Any) -> None:
+        """Adopt a prepared shadow's (model, program, fold verdicts): the
+        double-buffer flip.  Dispatches read (model, program) under
+        ``_swap_lock``, so none sees a torn pair; the lifecycle layer
+        also flips at a window boundary, so no window straddles it."""
+        with self._swap_lock:
+            self._model = shadow._model
+            self._program = shadow._program
+        with self._batch_lock:
+            self._batch_fold = dict(shadow._batch_fold)
+
+    # -- events --------------------------------------------------------------
+
+    def handle_event(self, event: Event) -> None:
+        """RELOAD_MODEL on a non-pooled instance: stage and warm the
+        replacement, then flip it in (the element's own window, if any,
+        keeps its flush order; the pool goes through its lifecycle)."""
+        if event.kind != EventKind.RELOAD_MODEL:
+            return
+        if self.props is None or not self.props.is_updatable:
+            raise FilterError("torch-cuda: model is not updatable")
+        self.commit_swap(self.prepare_swap(event.data["model"]))

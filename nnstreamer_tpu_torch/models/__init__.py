@@ -1,7 +1,7 @@
 """Model zoo for the ``torch-cuda`` filter: the SSD-MobileNetV2 detector
 of the detection path, with its MobileNetV2 backbone; the ViT classifier
-of the classification path; and the converters from JAX-layout parameter
-trees."""
+of the classification path; the converters from JAX-layout parameter
+trees; and ``params_io``, the weights files both packages read."""
 
 from .convert import (
     params_from_jax,
@@ -19,7 +19,14 @@ from .ssd import (
     ssd_anchors,
     ssd_detect_apply,
 )
-from .vit import ViT, register_vit, vit_apply, vit_init, vit_tree
+from .vit import (
+    ViT,
+    register_vit,
+    vit_apply,
+    vit_init,
+    vit_tree,
+    vit_tree_apply,
+)
 
 __all__ = [
     "params_from_jax", "ssd_from_jax", "ssd_mobilenet_v2_init",
@@ -28,4 +35,5 @@ __all__ = [
     "ssd_anchors", "ssd_detect_apply",
     "vit_from_jax", "vit_params_from_jax",
     "ViT", "register_vit", "vit_apply", "vit_init", "vit_tree",
+    "vit_tree_apply",
 ]

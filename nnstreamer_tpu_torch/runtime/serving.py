@@ -35,9 +35,16 @@ the pool's dispatch on another without an event between them.
 Frameworks without ``SUPPORTS_BATCH`` still share the instance; their
 streams dispatch per frame through the element's chain.
 
-Not in this slice: model lifecycle (hot swap, canary), the actuator
-API, tenant attribution, placement over a mesh, and the tracer, chaos,
-transfer-ledger and lockdep seams of the JAX package.
+Model lifecycle (``runtime/lifecycle.py``): :attr:`PoolEntry.lifecycle`
+is built on first use; :meth:`PoolEntry.reload_model` stages a new
+version off the dispatch path and flips it in at a window boundary, or
+canaries it on 1-in-N streams when the pool declares ``canary=``.  A
+window then partitions by version and each part dispatches through its
+own instance at its own bucket.
+
+Not in this slice: the actuator API, tenant attribution, placement over
+a mesh, and the tracer, chaos, transfer-ledger and lockdep seams of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from .admission import (
 )
 from .batching import MicroBatcher, parse_buckets, pick_bucket
 from .events import Message, MessageKind
+from .lifecycle import parse_canary
 
 _log = logging.getLogger("nnstreamer_tpu_torch")
 
@@ -188,6 +196,9 @@ class PoolEntry:
         # any attached filter's stat-sample-interval-ms (the minimum)
         self._sampler = DispatchSampler(self.stats)
         self.sample_interval = STAT_SAMPLE_INTERVAL
+        # model lifecycle (runtime/lifecycle.py), built on first use: a
+        # pool that never swaps pays nothing for it
+        self._lifecycle = None
 
     # -- streams -------------------------------------------------------------
 
@@ -196,13 +207,58 @@ class PoolEntry:
         with self._lock:
             return len(self._streams)
 
+    def stream_ids(self) -> List[int]:
+        with self._lock:
+            return list(self._streams)
+
+    def label(self) -> str:
+        """Short pool label: ``framework:model-tail``."""
+        model = str(self.key[1])
+        return f"{self.key[0]}:{model.rsplit('/', 1)[-1]}"
+
+    # -- model lifecycle (runtime/lifecycle.py) ------------------------------
+
+    @property
+    def lifecycle(self):
+        """The entry's version registry and swap/canary state machine."""
+        with self._lock:
+            if self._lifecycle is None:
+                from .lifecycle import VersionManager
+
+                self._lifecycle = VersionManager(self)
+            return self._lifecycle
+
+    def subplugin_for(self, owner: Any) -> Any:
+        """The instance serving ``owner``'s per-frame dispatches: the
+        canary shadow for a canary-routed stream, else the shared one
+        (a batched window partitions instead, see :meth:`_dispatch`)."""
+        lc = self._lifecycle
+        if lc is not None and lc.canary_active:
+            return lc.subplugin_for(owner)
+        return self.subplugin
+
+    def reload_model(self, model: Any, version: str = "") -> dict:
+        """RELOAD_MODEL on a share-model pool: stage the replacement off
+        the dispatch path, then start the declared canary (``canary=``)
+        or swap at the next window boundary.  A concrete declared tag
+        (``canary=v7:1/N``) canaries only that version; ``next`` canaries
+        whatever is staged."""
+        lc = self.lifecycle
+        ver = lc.stage(model, version=version)
+        tag, n = lc.default_canary
+        if n >= 2 and (tag in ("", "next") or ver.tag == tag):
+            return lc.start_canary(n, ver)
+        return lc.swap(ver)
+
     def attach(self, owner: Any, batch: int, timeout_ms: float,
                buckets_spec: str, slo_ms: float = 0.0,
                priority: Any = "normal", deadline_ms: float = 0.0,
-               queue_limit: int = 0) -> bool:
+               queue_limit: int = 0, canary: str = "") -> bool:
         """Register ``owner`` as a live stream of this entry.  The first
-        attach fixes the pool-level window settings (``batch*`` and
-        ``slo-ms``); later attaches with different settings raise
+        attach fixes the pool-level window settings (``batch*``,
+        ``slo-ms`` and the ``canary=`` declaration, validated by
+        ``lifecycle.parse_canary``); later attaches with different
+        settings raise
         :class:`PoolConflictError`.  ``priority`` / ``deadline-ms`` /
         ``queue-limit`` are PER-STREAM (runtime/admission.py).  Returns
         True when the owner must submit through the shared batcher,
@@ -212,8 +268,10 @@ class PoolEntry:
         batched = batch > 1 and bool(
             getattr(self.subplugin, "SUPPORTS_BATCH", False))
         slo_ms = float(slo_ms or 0.0)
+        canary = str(canary or "").strip()
+        canary_cfg = parse_canary(canary)  # validates the grammar
         cfg = (batch, float(timeout_ms), str(buckets_spec or "").strip(),
-               slo_ms)
+               slo_ms, canary)
         policy = StreamPolicy(
             priority=parse_priority(priority),
             # EDF deadline: explicit per-stream deadline, else the pool
@@ -234,7 +292,8 @@ class PoolEntry:
                 raise PoolConflictError(
                     f"{getattr(owner, 'name', owner)}: batch settings "
                     f"{cfg} conflict with the pool's {self._batch_cfg} — "
-                    f"batch/batch-timeout-ms/batch-buckets/slo-ms are "
+                    f"batch/batch-timeout-ms/batch-buckets/slo-ms/canary "
+                    f"are "
                     f"pool-level for share-model filters and must agree "
                     f"across all {len(self._streams)} sharer(s)")
             self._streams[id(owner)] = owner
@@ -252,6 +311,13 @@ class PoolEntry:
                 start = self.batcher
             n = len(self._streams)
         self.stats.attached_streams = n
+        if canary_cfg[1] >= 2:
+            # reloads stage and canary at this split instead of cutting
+            # the whole pool over
+            self.lifecycle.default_canary = canary_cfg
+        lc = self._lifecycle
+        if lc is not None:
+            lc.on_attach(owner)
         if start is not None:
             start.start()
         return batched
@@ -273,6 +339,9 @@ class PoolEntry:
                 self._batch_cfg = None
                 self.admission = None
         self.stats.attached_streams = n
+        lc = self._lifecycle
+        if lc is not None:
+            lc.on_detach(owner)
         if batcher is None:
             return
         if present and not last:
@@ -343,12 +412,27 @@ class PoolEntry:
 
     def _dispatch(self, items: List[Tuple[Any, Any, float, float]]
                   ) -> None:
-        """Window flush: ONE invoke for frames from every attached
-        stream, then demux each result back to its owner's downstream
-        pad.  Serialized by the batcher (never concurrent); items are
-        ``(owner, buf, deadline, enqueue-ts)`` in window order (arrival
-        order, or EDF order under admission control)."""
-        sp = self.subplugin
+        """Window flush: frames from every attached stream, then each
+        result demuxed back to its owner's downstream pad.  Serialized by
+        the batcher (never concurrent); items are ``(owner, buf, deadline,
+        enqueue-ts)`` in window order (arrival order, or EDF order under
+        admission control).  Once the lifecycle is engaged the window
+        partitions by version (every stream maps to one version, so
+        per-stream FIFO survives) and each part dispatches through its
+        version's instance."""
+        lc = self._lifecycle
+        if lc is None:
+            self._dispatch_group(items, self.subplugin, None)
+            return
+        for ver, sp, part in lc.partition(items):
+            self._dispatch_group(part, sp, ver)
+
+    def _dispatch_group(self, items: List[Tuple[Any, Any, float, float]],
+                        sp: Any, version: Any) -> None:
+        """Dispatch one version-homogeneous group through ``sp`` at the
+        smallest bucket that holds it: invoke, donation marks, per-owner
+        demux, stats.  A failure errors this group's owners only and
+        counts against ``version`` (a ``lifecycle.ModelVersion``)."""
         owners: Dict[int, List[Any]] = {}
         for owner, _buf, _dl, _enq in items:
             owners.setdefault(id(owner), [owner, 0])[1] += 1
@@ -370,11 +454,22 @@ class PoolEntry:
             # affects EVERY stream that parked a frame in it: the error
             # must land on each owner's bus, not only on whichever
             # producer happened to trigger the flush
+            if version is not None:
+                self._lifecycle.record_error(version)
             for owner, _n in owners.values():
                 owner.post_error(e)
             return
+        if getattr(sp, "_donate", False):
+            # custom=donate: the dispatch consumed the tensors it was
+            # handed — exactly the input-combination subset of each frame
+            for owner, buf, _dl, _enq in items:
+                owner._mark_donated(buf)
         t2 = self._sampler.end([o for out in outs for o in out], t0, sample,
                                frames=len(items), streams=len(owners))
+        if version is not None:
+            self._lifecycle.record(version, (t2 - t0) if sample else None,
+                                   frames=len(items), streams=len(owners),
+                                   bucket=bucket)
         for owner, n in owners.values():
             owner.invoke_stats.count(frames=n)
         adm = self.admission

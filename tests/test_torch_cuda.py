@@ -12,7 +12,12 @@ on the card:
   differs); bf16 atol 1e-2 + rtol 1e-2 (the kernel rounds p to bf16 for
   the p·v product on the tensor cores, the plain version does not); on
   contiguous inputs and on the ViT's strided qkv views alike.
+The model lifecycle runs on the card at small width (a hot swap and a
+canary of ViT weights files, each frame against its version alone within
+1e-4), and the kernel cache makes a round trip with the real ``nvcc``.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -328,3 +333,172 @@ def test_batched_window_of_cuda_tensors_never_takes_a_plain_version(
     # up to two lone forwards a window while the fold verdict is open)
     launches = kernels.flash_attention.launches - fa
     assert launches % 2 == 0 and 2 * 2 <= launches <= 2 * 25
+
+
+# -- model lifecycle and the kernel cache on the card -------------------------
+
+_CARD_VIT = dict(image_size=32, patch=8, dim=256, depth=2, mlp_dim=128,
+                 num_classes=5)
+
+
+def _vit_files(tmp_path):
+    """Two bf16 ViT weights files (seeds 0 and 1) in the JAX layout."""
+    import json
+
+    from nnstreamer_tpu_torch.models import params_io, vit_tree
+
+    paths = []
+    for seed in (0, 1):
+        path = str(tmp_path / f"vit_v{seed}.safetensors")
+        params_io.save_safetensors(path, vit_tree(seed, **_CARD_VIT), {
+            "apply": "nnstreamer_tpu_torch.models.vit:vit_tree_apply",
+            "apply_kwargs": json.dumps({"heads": 2}),
+            "in_shapes": "[[1, 32, 32, 3]]", "in_dtypes": "float32"})
+        paths.append(path)
+    return paths
+
+
+def _lifecycle_rig(card, tmp_path, n_streams, canary=""):
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    paths = _vit_files(tmp_path)
+    desc = ("appsrc name=src ! queue ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 backend=cuda ! "
+            f"tensor_filter name=net framework=torch-cuda "
+            f"model=file://{paths[0]}@v0 share-model=true batch=4 "
+            f"batch-timeout-ms=50 batch-buckets=2,4 is-updatable=true"
+            f"{' canary=' + canary if canary else ''} ! appsink name=out "
+            "max-buffers=64")
+    pipes = [parse_launch(desc) for _ in range(n_streams)]
+    for p in pipes:
+        p["src"].spec = TensorsSpec.parse("3:32:32:1", "uint8")
+        p.start()
+    g = torch.Generator().manual_seed(7)
+    frames = [[torch.randint(0, 256, (1, 32, 32, 3), generator=g,
+                             dtype=torch.uint8).to(card) for _ in range(4)]
+              for _ in range(n_streams)]
+    return paths, pipes, frames
+
+
+def _serve(pipes, frames, first_pts):
+    from nnstreamer_tpu_torch.core import Buffer
+
+    for s, p in enumerate(pipes):
+        for i, x in enumerate(frames[s]):
+            p["src"].push_buffer(Buffer.of(x, pts=first_pts + i))
+    out = []
+    for s, p in enumerate(pipes):
+        bufs = [p["out"].pull(timeout=60) for _ in frames[s]]
+        assert [b.pts for b in bufs] == \
+            list(range(first_pts, first_pts + len(frames[s])))
+        out.append([b.tensors[0].torch() for b in bufs])
+    return out
+
+
+def _alone(card, path, frames):
+    """Each frame through a lone instance of ``path``'s model."""
+    from nnstreamer_tpu_torch.core import DType, TensorSpec
+    from nnstreamer_tpu_torch.elements.transform import _OpChain
+    from nnstreamer_tpu_torch.filters import TorchCudaFilter
+    from nnstreamer_tpu_torch.filters.api import FilterProps
+
+    norm = _OpChain("arithmetic", "typecast:float32,add:-127.5,div:127.5",
+                    backend="cuda").fn_for(
+        TensorSpec.from_shape((1, 32, 32, 3), DType.UINT8))
+    sp = TorchCudaFilter()
+    sp.configure(FilterProps(framework="torch-cuda", model=path,
+                             device=card))
+    try:
+        return [[sp.invoke([norm(x)])[0] for x in fs] for fs in frames]
+    finally:
+        sp.close()
+
+
+def test_hot_swap_on_card_matches_each_version_alone(card, tmp_path):
+    """RELOAD_MODEL on a pooled small ViT loaded from a weights file:
+    frames before the swap match v0 alone, frames after match v1 alone
+    (within the pooled 1e-4), and the two versions' logits differ."""
+    from nnstreamer_tpu_torch.runtime.events import Event
+
+    paths, pipes, frames = _lifecycle_rig(card, tmp_path, 2)
+    try:
+        before = _serve(pipes, frames, 0)
+        pipes[0]["net"].handle_event(None, Event.reload_model(
+            f"file://{paths[1]}@v1"))
+        lc = pipes[0]["net"].pool.lifecycle
+        assert lc.swaps == 1 and lc.baseline.tag == "v1"
+        assert lc.last_swap_stall_s < 2e-3
+        after = _serve(pipes, frames, 100)
+    finally:
+        for p in pipes:
+            p.stop()
+    for served, path in ((before, paths[0]), (after, paths[1])):
+        alone = _alone(card, path, frames)
+        for s in range(2):
+            for y, r in zip(served[s], alone[s]):
+                torch.testing.assert_close(y, r, atol=POOLED_TOL,
+                                           rtol=POOLED_TOL)
+    assert float((before[0][0] - after[0][0]).abs().max()) > 2 * POOLED_TOL
+
+
+def test_canary_on_card_routes_one_in_n_streams(card, tmp_path):
+    """``canary=next:1/2`` on 4 streams: streams 1 and 3 read v1 alone's
+    logits, 0 and 2 read v0's; rollback returns them all to v0."""
+    paths, pipes, frames = _lifecycle_rig(card, tmp_path, 4,
+                                          canary="next:1/2")
+    try:
+        entry = pipes[0]["net"].pool
+        assert entry.reload_model(f"file://{paths[1]}@v1")["streams"] == 2
+        served = _serve(pipes, frames, 0)
+        entry.lifecycle.rollback()
+        rolled = _serve(pipes, frames, 100)
+    finally:
+        for p in pipes:
+            p.stop()
+    alone = {v: _alone(card, paths[v], frames) for v in (0, 1)}
+    for s in range(4):
+        for i in range(4):
+            torch.testing.assert_close(served[s][i], alone[s % 2][s][i],
+                                       atol=POOLED_TOL, rtol=POOLED_TOL)
+            torch.testing.assert_close(rolled[s][i], alone[0][s][i],
+                                       atol=POOLED_TOL, rtol=POOLED_TOL)
+
+
+def test_kernel_cache_round_trip_with_nvcc(card, tmp_path, monkeypatch):
+    """``NNS_TPU_COMPILE_CACHE_DIR`` with the real compiler: a cold
+    process builds and stores, a warm one hits and runs no nvcc, a
+    truncated entry is an error and is rebuilt; the library works."""
+    from nnstreamer_tpu_torch.ops import build
+    from nnstreamer_tpu_torch.runtime import compilecache
+
+    monkeypatch.setenv(compilecache.CACHE_ENV, str(tmp_path))
+
+    def fresh():
+        monkeypatch.setattr(build, "_loaded", {})
+        monkeypatch.setattr(build, "_nvcc_versions", {})
+        monkeypatch.setattr(build, "nvcc_runs", 0)
+        compilecache.CACHE_STATS.reset()
+
+    fresh()
+    lib = build.build_all(["scale_bias_cast"])["scale_bias_cast"]
+    assert compilecache.CACHE_STATS.snapshot() == {
+        "hits": 0, "misses": 1, "stores": 1, "errors": 0}
+    fresh()
+    build.build_all(["scale_bias_cast"])
+    assert compilecache.CACHE_STATS.snapshot()["hits"] == 1
+    assert build.nvcc_runs == 0
+    # truncated, as a torn copy lands: a new file at the entry's path
+    # (this process keeps its mapping of the intact one)
+    torn = lib.with_suffix(".torn")
+    torn.write_bytes(lib.read_bytes()[:4096])
+    os.replace(torn, lib)
+    fresh()
+    build.build_all(["scale_bias_cast"])
+    assert compilecache.CACHE_STATS.snapshot() == {
+        "hits": 0, "misses": 1, "stores": 1, "errors": 1}
+    x = torch.arange(64, dtype=torch.uint8, device=card)
+    torch.testing.assert_close(
+        kernels.scale_bias_cast(x, 0.5, 1.0),
+        kernels.scale_bias_cast_reference(x, 0.5, 1.0), atol=0, rtol=0)
+    compilecache.CACHE_STATS.reset()

@@ -18,7 +18,9 @@ The slice as a whole: 3 streams × ``share-model=true batch=4`` over the
 small ViT of ``tests/test_torch_vit.py`` (weights carried across by
 ``vit_from_jax``, f32 compute), transform unfused ahead of the pooled
 filter as the pool requires: per-frame logits equal to the JAX pool's
-within 1e-3.
+within 1e-3.  The same slice from model files: each package's pool
+opens its own weights file of one numpy tree (``file://…@v0``), hot-swaps
+to ``@v1`` and serves again, per-frame logits equal within 1e-3.
 
 Every pipeline and pool a test starts is stopped and its threads joined.
 """
@@ -603,6 +605,86 @@ def test_pooled_vit_slice_matches_jax_pool():
             p.stop()
     for s in range(n_streams):
         for i in range(n):
+            got, want = logits["port"][s][i], logits["jax"][s][i]
+            assert got.shape == want.shape == (1, 5)
+            np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+FILE_SLICE = ("appsrc name=src ! queue max-size-buffers=16 ! "
+              "tensor_transform mode=arithmetic "
+              "option=typecast:float32,add:-127.5,div:127.5 backend=pallas ! "
+              "tensor_filter name=net framework={fw} model={model} "
+              "share-model=true batch=4 batch-timeout-ms=50 "
+              "batch-buckets=2,4 is-updatable=true ! "
+              "appsink name=out max-buffers=16")
+SMALL = dict(image_size=32, patch=8, dim=64, depth=2, mlp_dim=128,
+             num_classes=5)
+
+
+def jax_vit_f32(params, x):
+    """The JAX files' ``apply``: the JAX package's ViT in f32, 2 heads."""
+    return jvit.vit_apply(params, x, heads=2, dtype=jnp.float32)
+
+
+def test_pooled_vit_from_weights_files_hot_swap_matches_jax_pool(tmp_path):
+    """The slice from model files: each package's pool opens its own
+    ``file://…@v0`` (one numpy tree per version, written once per
+    package: the same pytree, each naming its own ``apply``), serves 3
+    streams, hot-swaps to ``@v1`` through ``reload_model`` and serves
+    again.  Per-frame logits equal to the JAX pool's within 1e-3 (f32),
+    before and after the swap; the swap is recorded with its tag."""
+    from nnstreamer_tpu.models import params_io as jio
+    from nnstreamer_tpu_torch.models import params_io as tio
+
+    n_streams, n = 3, 4
+    shapes = [[1, 32, 32, 3]]
+    files = {}
+    for seed in (0, 1):
+        tree = tvit.vit_tree(seed, **SMALL)
+        meta = {"in_shapes": "[[1, 32, 32, 3]]", "in_dtypes": "float32"}
+        files["jax", seed] = str(tmp_path / f"jax_v{seed}.safetensors")
+        jio.save_safetensors(files["jax", seed], tree, metadata=dict(
+            meta, apply="test_torch_serving:jax_vit_f32"))
+        files["port", seed] = str(tmp_path / f"port_v{seed}.npz")
+        tio.save_npz(files["port", seed], tree,
+                     apply="nnstreamer_tpu_torch.models.vit:vit_tree_apply",
+                     in_shapes=shapes, in_dtypes=np.float32,
+                     apply_kwargs={"heads": 2, "dtype": "float32"})
+    rng = np.random.default_rng(8)
+    frames = [[rng.integers(0, 256, shapes[0], dtype=np.uint8)
+               for _ in range(2 * n)] for _ in range(n_streams)]
+    logits = {}
+    for pkg, k in PKGS.items():
+        pipes = [k.parse_launch(FILE_SLICE.format(
+            fw=k.fw, model=f"file://{files[pkg, 0]}@v0"))
+            for _ in range(n_streams)]
+        for p in pipes:
+            p["src"].spec = k.core.TensorsSpec.from_shapes(shapes, np.uint8)
+            p.start()
+        entry = pipes[0]["net"].pool
+        outs = [[] for _ in pipes]
+        for half in (0, 1):
+            if half:
+                res = entry.reload_model(f"file://{files[pkg, 1]}@v1")
+                assert res["version"] == "v1"
+            for s, p in enumerate(pipes):
+                for i in range(half * n, (half + 1) * n):
+                    p["src"].push_buffer(k.core.Buffer.of(frames[s][i],
+                                                          pts=i))
+            for s, p in enumerate(pipes):
+                outs[s] += _pull_all(p["out"], n)
+        lc = entry.lifecycle
+        assert lc.swaps == 1 and lc.baseline.tag == "v1"
+        assert any(ev["event"] == "swap" and ev["source"].endswith("@v1")
+                   for ev in lc.history)
+        for p in pipes:
+            p.stop()
+        logits[pkg] = [[np.asarray(b.tensors[0].np()) for b in bufs]
+                       for bufs in outs]
+        for bufs in outs:
+            assert [b.pts for b in bufs] == list(range(2 * n))
+    for s in range(n_streams):
+        for i in range(2 * n):
             got, want = logits["port"][s][i], logits["jax"][s][i]
             assert got.shape == want.shape == (1, 5)
             np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
