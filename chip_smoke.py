@@ -6,9 +6,10 @@
     python3 chip_smoke.py --serving-legs DIR          # phase 8's legs only
 
 It drives the port's paths — the composite detection pipeline, the ViT
-classification pipeline, shared-model serving at the ViT's width and the
-model lifecycle of that pool (hot swap, canary, the kernel cache) —
-through ``parse_launch`` at full width.
+classification pipeline, shared-model serving at the ViT's width, the
+model lifecycle of that pool (hot swap, canary, the kernel cache),
+MobileNet classification and YOLO detection — through ``parse_launch``
+at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
@@ -31,12 +32,15 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    beside ``scaled_dot_product_attention`` as a yardstick;
 4. detection path: the composite detection pipeline through ``parse_launch`` at
    full width — SSD-MobileNetV2, 91 classes, 300x300, max_out=10, batch
-   256 — with the transform on the CUDA kernel (``backend=cuda``); the
+   256, bf16-resident weights (``weights_to_bf16``, as the JAX benchmark)
+   — with the transform on the CUDA kernel (``backend=cuda``); the
    kernel's launch count must show the run went through it.  The same
    frames through ``backend=torch`` must give byte-equal canvases
-   (cuDNN set deterministic for the comparison);
+   (cuDNN set deterministic for the comparison), and one window with the
+   f32 weights cast per call must too;
 5. profile: one short run of the main path under torch.profiler — the
-   kernels by device time and the device's busy share;
+   kernels by device time, the device's busy share, and the cast
+   (``aten::_to_copy``) and padding (``aten::constant_pad_nd``) copies;
 6. reference check: a small input (batch 2, f32 compute, TF32 off) through
    the same pipeline on the card and on the CPU must agree;
 7. ViT path: the classification pipeline (``device_src`` → transform with
@@ -90,7 +94,29 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    (hits, no nvcc), after a truncated entry (an error, one rebuild) —
    each launching both kernels against their plain versions.  (e)
    ``flash_attention`` at every bucket the canary's groups reached;
-10. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+10. classification: the JAX package's bench_classify — ``device_src``
+   (uint8 512×224×224×3) → transform ``add:-127.5,div:127.5``
+   ``backend=cuda`` → MobileNetV1 (1001 classes, bf16-resident weights,
+   argmax to int32 in the model) → ``appsink``, 8 windows: one fused
+   segment, ``scale_bias_cast`` every window, labels (512,) int32 in
+   [0, 1001), frames/s, p50 window, a profile; then batch 2, f32, TF32
+   off: logits card vs CPU within 1e-3, labels equal wherever the top-2
+   margin exceeds it.  The MobileNetV2 classifier the same way (3
+   windows);
+11. YOLO: the JAX package's bench_yolo — ``device_src`` (uint8
+   64×640×640×3) → transform ``div:255.0`` ``backend=cuda`` → YOLO (width
+   64, depth 2, 80 classes, max_out=10, decode + NMS in the model,
+   bf16-resident weights) → ``bounding_boxes option7=device`` →
+   ``appsink``, 8 windows: canvases (64,640,640,4) uint8, the detection
+   contract (scores descending, ymax >= ymin, num <= max_out),
+   ``scale_bias_cast`` every window, frames/s, p50 window, a profile;
+   ``backend=torch`` byte-equal; batch 2, f32, TF32 off, card vs CPU:
+   boxes within 1e-4, scores within 1e-5, classes and num equal.  Then
+   the raw variant at batch 1 through the ``yolov8`` scheme: the device
+   pre-reduce gives the host decode's detections of the same tensor on
+   the CPU (at a threshold at most 512 anchors pass), and window 0 equals
+   a direct forward's;
+12. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -148,6 +174,33 @@ SPIN_CYCLES = 20_000_000
 #: bf16 ulps (where |plain| >= 1/64) the attention kernel may be off:
 #: p is rounded to bf16 (2^-9 relative) before p·v, and o once more
 FA_BF16_ULPS = 16
+
+#: the classification path: the JAX package's bench_classify (bench.py:
+#: 66,71,533-586): MobileNetV1, 1001 classes, argmax in the model,
+#: bf16-resident weights
+CLS_BATCH = 512
+CLS_SIZE = 224
+CLS_CLASSES = 1001
+#: the YOLO path: the JAX package's bench_yolo (bench.py:84-90,862-907)
+YOLO_BATCH = 64
+YOLO_SIZE = 640
+YOLO_CLASSES = 80
+YOLO_WIDTH = 64
+YOLO_DEPTH = 2
+YOLO_NORM = "typecast:float32,div:255.0"
+CLS_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=net framework=torch-cuda model={model} ! "
+    "appsink name=out max-buffers={sink}")
+YOLO_RAW_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=net framework=torch-cuda model={model} ! "
+    "tensor_decoder name=dec mode=bounding_boxes option1=yolov8 "
+    "option4={s}:{s} option5={s}:{s} ! appsink name=out max-buffers={sink}")
 
 VIT_PIPE = (
     "device_src name=src num-buffers={n} ! "
@@ -325,9 +378,10 @@ def register_detector(name: str, model, anchors, batch: int, dtype) -> None:
                    in_shapes=[(batch, SIZE, SIZE, 3)], in_dtypes=np.float32)
 
 
-def composite(model: str, backend: str, n: int) -> str:
-    return COMPOSITE.format(n=n, norm=NORM, backend=backend, model=model,
-                            s=SIZE, sink=n + 4)
+def composite(model: str, backend: str, n: int, norm: str = NORM,
+              size: int = SIZE) -> str:
+    return COMPOSITE.format(n=n, norm=norm, backend=backend, model=model,
+                            s=size, sink=n + 4)
 
 
 def vit_pipe(model: str, n: int, decoder: bool = False) -> str:
@@ -360,6 +414,23 @@ def run_pipeline(desc: str, frames, n: int, device="cuda"):
     if len(bufs) != n:
         raise RuntimeError(f"{desc}: {len(bufs)} of {n} buffers")
     return p, bufs, secs
+
+
+def window_times(bufs, batch: int):
+    """frames/s over windows 2..n and the p50 window (ms), from the
+    sink's CUDA completion events."""
+    evs = [b.meta["device_done"] for b in bufs]
+    gaps = [evs[i - 1].elapsed_time(evs[i]) for i in range(1, len(evs))]
+    fps = (len(evs) - 1) * batch / (evs[0].elapsed_time(evs[-1]) / 1e3)
+    return fps, statistics.median(gaps)
+
+
+def check_fused(p, decoder, what: str) -> None:
+    segs = [(s.transforms, s.filter, s.decoder) for s in p.fused_segments]
+    if segs != [(("norm",), "net", decoder)]:
+        raise RuntimeError(f"{what}: expected one fused segment "
+                           f"norm→net{'→' + decoder if decoder else ''}, got "
+                           f"{p.fused_segments}")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -413,6 +484,14 @@ def phase_kernels(card: str, power: str):
         ("u8 serving window", (8, 1, VIT_SIZE, VIT_SIZE, 3), torch.uint8,
          torch.float32),
         ("u8 serving window", (16, 1, VIT_SIZE, VIT_SIZE, 3), torch.uint8,
+         torch.float32),
+        # the classification and YOLO paths (div:255 folds to scale
+        # 1/255, bias 0; the affine does not change what is compared)
+        ("u8 classify", (CLS_BATCH, CLS_SIZE, CLS_SIZE, 3), torch.uint8,
+         torch.float32),
+        ("u8 yolo", (YOLO_BATCH, YOLO_SIZE, YOLO_SIZE, 3), torch.uint8,
+         torch.float32),
+        ("u8 yolo raw", (1, YOLO_SIZE, YOLO_SIZE, 3), torch.uint8,
          torch.float32),
         ("u8 ragged", (3, 5), torch.uint8, torch.float32),
         ("u8 ragged", (1, 299, 299, 3), torch.uint8, torch.float32),
@@ -657,6 +736,7 @@ def phase_main_path(card: str, power: str):
         ssd_anchors,
         ssd_from_jax,
         ssd_mobilenet_v2_init,
+        weights_to_bf16,
     )
     from nnstreamer_tpu_torch.ops import kernels
 
@@ -667,9 +747,14 @@ def phase_main_path(card: str, power: str):
           "flip a bf16 tie in NMS between the two runs compared)",
           flush=True)
     t0 = time.perf_counter()
-    model = ssd_from_jax(ssd_mobilenet_v2_init(SEED, NUM_CLASSES))
+    tree = ssd_mobilenet_v2_init(SEED, NUM_CLASSES)
+    model = ssd_from_jax(tree)           # f32 weights, cast per call
     anchors = ssd_anchors(SIZE, feature_sizes_for(SIZE))
-    register_detector("ssd_mobilenet_v2", model, anchors, BATCH,
+    # the JAX benchmark's bf16-resident weights (bench.py:110-115)
+    register_detector("ssd_mobilenet_v2",
+                      ssd_from_jax(weights_to_bf16(tree)), anchors, BATCH,
+                      torch.bfloat16)
+    register_detector("ssd_mobilenet_v2_f32w", model, anchors, BATCH,
                       torch.bfloat16)
     rng = np.random.default_rng(SEED)
     frames = [rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
@@ -684,11 +769,7 @@ def phase_main_path(card: str, power: str):
         NUM_BUFFERS)
     launches = kernels.scale_bias_cast.launches
     peak = torch.cuda.max_memory_allocated()
-    segs = p.fused_segments
-    if len(segs) != 1 or (segs[0].transforms, segs[0].filter,
-                          segs[0].decoder) != (("norm",), "net", "overlay"):
-        raise RuntimeError(f"expected one fused segment norm→net→overlay, "
-                           f"got {segs}")
+    check_fused(p, "overlay", "main path")
     if launches < NUM_BUFFERS:
         raise RuntimeError(f"scale_bias_cast launched {launches} times for "
                            f"{NUM_BUFFERS} buffers")
@@ -709,16 +790,24 @@ def phase_main_path(card: str, power: str):
         if int(det["num"].max()) > MAX_OUT or \
                 int(det["classes"].max()) >= NUM_CLASSES:
             raise RuntimeError("num/classes out of range")
-    # windows timed on the card: the sink's completion events
-    evs = [b.meta["device_done"] for b in bufs]
-    gaps = [evs[i - 1].elapsed_time(evs[i]) for i in range(1, len(evs))]
-    span = evs[0].elapsed_time(evs[-1])
-    fps = (len(evs) - 1) * BATCH / (span / 1e3)
-    p50 = statistics.median(gaps)
+    fps, p50 = window_times(bufs, BATCH)
     print(f"main path (backend=cuda): {fps:.1f} frames/s over windows "
           f"2..{NUM_BUFFERS}, p50 window {p50:.3f} ms, host start→EOS "
           f"{secs:.2f} s, peak device memory {peak / 2**30:.2f} GiB "
           f"[{card}, {power}]", flush=True)
+    # bf16-resident weights hold the same bf16 numbers as f32 weights
+    # cast per call: one window must come out byte for byte the same
+    _, bufs_f32w, _ = run_pipeline(
+        composite("ssd_mobilenet_v2_f32w", "cuda", 1), frames, 1)
+    a, b = bufs[0], bufs_f32w[0]
+    if not torch.equal(a.tensors[0].torch(), b.tensors[0].torch()) or any(
+            not torch.equal(a.meta["detections_device"][k],
+                            b.meta["detections_device"][k])
+            for k in ("boxes", "scores", "classes", "num")):
+        raise RuntimeError("window 0: bf16-resident weights and f32 weights "
+                           "cast per call differ")
+    print("main path: window 0 with bf16-resident weights byte-equal to f32 "
+          "weights cast per call (canvas and detections)", flush=True)
     dets = bufs[-1].meta["detections_device"]
     print("main path: last window, frame 0: num="
           f"{int(dets['num'][0])} classes={dets['classes'][0].tolist()}",
@@ -736,8 +825,7 @@ def phase_main_path(card: str, power: str):
                                b.meta["detections_device"][k]):
                 raise RuntimeError(f"window {i}: {k} differ between "
                                    "backend=cuda and backend=torch")
-    evs = [b.meta["device_done"] for b in bufs_plain]
-    fps_plain = (len(evs) - 1) * BATCH / (evs[0].elapsed_time(evs[-1]) / 1e3)
+    fps_plain, _ = window_times(bufs_plain, BATCH)
     print(f"main path (backend=torch): {fps_plain:.1f} frames/s, host "
           f"start→EOS {secs_plain:.2f} s; canvases and detections "
           f"byte-equal to backend=cuda in all {NUM_BUFFERS} windows "
@@ -772,7 +860,8 @@ def phase_profile(desc: str, frames, card: str, power: str, windows: int = 3,
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         run_pipeline(desc, frames[:windows], windows)
         torch.cuda.synchronize()
@@ -792,6 +881,20 @@ def phase_profile(desc: str, frames, card: str, power: str, windows: int = 3,
         print(f"{label}: {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / 1e3 / busy_ms:6.1%} "
               f"n={e.count:5d} {e.key[:100]}", flush=True)
+    # the copies by the op that makes them: dtype casts (weights cast per
+    # call, the batch-norm vectors, the input) and the SAME padding
+    copies = ("aten::_to_copy", "aten::constant_pad_nd")
+    for e in prof.key_averages():
+        if e.key in copies:
+            print(f"{label}: {e.key}: {e.count} calls, "
+                  f"{e.device_time_total / 1e3:.3f} ms device "
+                  f"({e.device_time_total / 1e3 / busy_ms:.1%})", flush=True)
+    by_shape = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                       if e.key in copies),
+                      key=lambda e: e.device_time_total, reverse=True)
+    for e in by_shape[:4]:
+        print(f"{label}:   {e.key} {e.input_shapes}: {e.count} calls, "
+              f"{e.device_time_total / 1e3:.3f} ms device", flush=True)
     return [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in rows], busy_ms
 
@@ -867,10 +970,7 @@ def phase_vit(card: str, power: str):
     fa_launches = kernels.flash_attention.launches
     sbc_launches = kernels.scale_bias_cast.launches
     peak = torch.cuda.max_memory_allocated()
-    segs = [(s.transforms, s.filter, s.decoder) for s in p.fused_segments]
-    if segs != [(("norm",), "net", None)]:
-        raise RuntimeError(f"vit: expected one fused segment norm→net, got "
-                           f"{p.fused_segments}")
+    check_fused(p, None, "vit")
     depth = VIT["depth"]
     if fa_launches < depth * NUM_BUFFERS or sbc_launches < NUM_BUFFERS:
         raise RuntimeError(f"vit: flash_attention launched {fa_launches} "
@@ -885,10 +985,7 @@ def phase_vit(card: str, power: str):
                 y.dtype != torch.float32 or not bool(torch.isfinite(y).all()):
             raise RuntimeError(f"vit: logits {tuple(y.shape)} {y.dtype} "
                                "not finite (64, 1000) float32")
-    evs = [b.meta["device_done"] for b in bufs]
-    gaps = [evs[i - 1].elapsed_time(evs[i]) for i in range(1, len(evs))]
-    fps = (len(evs) - 1) * VIT_BATCH / (evs[0].elapsed_time(evs[-1]) / 1e3)
-    p50 = statistics.median(gaps)
+    fps, p50 = window_times(bufs, VIT_BATCH)
     print(f"vit (a): {fps:.1f} frames/s over windows 2..{NUM_BUFFERS}, p50 "
           f"window {p50:.3f} ms, host start→EOS {secs:.2f} s, peak device "
           f"memory {peak / 2**30:.2f} GiB [{card}, {power}]", flush=True)
@@ -1943,6 +2040,341 @@ def phase_lifecycle(card: str, power: str):
 
 
 
+def card_vs_cpu(desc: str, frames):
+    """One window of ``desc`` on the card and on the CPU (the CPU runs the
+    kernels' plain versions); returns both buffers."""
+    _, gpu, _ = run_pipeline(desc, frames, 1)
+    _, cpu, _ = run_pipeline(desc, frames, 1, device="cpu")
+    return gpu[0], cpu[0]
+
+
+def classify_small_check(family: str, tree, card: str, power: str):
+    """Batch 2, f32 compute, f32 weights, TF32 off: the logits on the card
+    against the CPU within 1e-3; the labels equal wherever the CPU's top-2
+    margin exceeds that tolerance."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters import register_model
+    from nnstreamer_tpu_torch.models import (
+        mobilenet_v1_apply,
+        mobilenet_v1_from_jax,
+        mobilenet_v2_apply,
+        mobilenet_v2_from_jax,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from_jax, apply = (mobilenet_v1_from_jax, mobilenet_v1_apply) \
+        if family == "v1" else (mobilenet_v2_from_jax, mobilenet_v2_apply)
+    name = f"mobilenet_{family}_small_f32"
+    register_model(name, lambda m, x: apply(m, x, torch.float32),
+                   params=from_jax(tree), in_dtypes=np.float32,
+                   in_shapes=[(2, CLS_SIZE, CLS_SIZE, 3)])
+    small = [np.random.default_rng(SEED + 7).integers(
+        0, 256, (2, CLS_SIZE, CLS_SIZE, 3), dtype=np.uint8)]
+    g, c = card_vs_cpu(CLS_PIPE.format(n=1, norm=NORM, model=name, sink=5),
+                       small)
+    lg, lc = g.tensors[0].torch().cpu(), c.tensors[0].torch()
+    err = float((lg - lc).abs().max())
+    top2 = lc.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    sure = margin > 1e-3
+    same = bool((lg.argmax(-1) == lc.argmax(-1))[sure].all())
+    print(f"classify {family} batch 2, f32, TF32 off: logits max_abs_diff "
+          f"card vs CPU = {err}; logits spread {float(lc.std())}; top-2 "
+          f"margins {margin.tolist()}; labels {lg.argmax(-1).tolist()} vs "
+          f"{lc.argmax(-1).tolist()} [{card}, {power}]", flush=True)
+    if err > 1e-3 or not same:
+        raise RuntimeError(f"classify {family}: card and CPU disagree")
+    return err
+
+
+def phase_classify(card: str, power: str):
+    """The classification path at the JAX benchmark's width (see the
+    module doc, phase 10)."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters import register_model
+    from nnstreamer_tpu_torch.models import (
+        mobilenet_v1_apply,
+        mobilenet_v1_from_jax,
+        mobilenet_v1_init,
+        mobilenet_v2_apply,
+        mobilenet_v2_from_jax,
+        mobilenet_v2_init,
+        weights_to_bf16,
+    )
+    from nnstreamer_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    res = {}
+    rng = np.random.default_rng(SEED + 8)
+    frames = [rng.integers(0, 256, (CLS_BATCH, CLS_SIZE, CLS_SIZE, 3),
+                           dtype=np.uint8) for _ in range(POOL)]
+    for family, init, from_jax, apply, windows in (
+            ("v1", mobilenet_v1_init, mobilenet_v1_from_jax,
+             mobilenet_v1_apply, NUM_BUFFERS),
+            ("v2", mobilenet_v2_init, mobilenet_v2_from_jax,
+             mobilenet_v2_apply, 3)):
+        tree = init(SEED, CLS_CLASSES)
+        model = from_jax(weights_to_bf16(tree))
+        if model.stem.weight.dtype != torch.bfloat16:
+            raise RuntimeError(f"classify {family}: weights not bf16")
+
+        def classify(m, x, _apply=apply):
+            return torch.argmax(_apply(m, x), dim=-1).to(torch.int32)
+
+        name = f"mobilenet_{family}_cls"
+        register_model(name, classify, params=model, in_dtypes=np.float32,
+                       in_shapes=[(CLS_BATCH, CLS_SIZE, CLS_SIZE, 3)])
+        desc = CLS_PIPE.format(n=windows, norm=NORM, model=name,
+                               sink=windows + 4)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.scale_bias_cast.launches = 0
+        p, bufs, secs = run_pipeline(desc, frames, windows)
+        launches = kernels.scale_bias_cast.launches
+        peak = torch.cuda.max_memory_allocated()
+        check_fused(p, None, f"classify {family}")
+        if launches < windows:
+            raise RuntimeError(f"classify {family}: scale_bias_cast launched "
+                               f"{launches} times for {windows} windows")
+        distinct = set()
+        for b in bufs:
+            y = b.tensors[0].torch()
+            if tuple(y.shape) != (CLS_BATCH,) or y.dtype != torch.int32 or \
+                    int(y.min()) < 0 or int(y.max()) >= CLS_CLASSES:
+                raise RuntimeError(f"classify {family}: labels "
+                                   f"{tuple(y.shape)} {y.dtype} not int32 "
+                                   f"({CLS_BATCH},) in [0, {CLS_CLASSES})")
+            distinct |= set(y.tolist())
+        fps, p50 = window_times(bufs, CLS_BATCH)
+        print(f"classify {family}: fused {p.fused_segments[0]}; "
+              f"scale_bias_cast launches={launches} for {windows} windows; "
+              f"{fps:.1f} frames/s over windows 2..{windows}, p50 window "
+              f"{p50:.3f} ms, host start→EOS {secs:.2f} s, peak device "
+              f"memory {peak / 2**30:.2f} GiB; {len(distinct)} distinct "
+              f"labels [{card}, {power}]", flush=True)
+        res[family] = {"fps": fps, "p50_window_ms": p50, "host_s": secs,
+                       "launches": launches, "peak_gib": peak / 2**30,
+                       "distinct_labels": len(distinct)}
+        if family == "v1":
+            prof = phase_profile(CLS_PIPE.format(n=3, norm=NORM, model=name,
+                                                 sink=7),
+                                 frames, card, power, label="classify profile")
+            if prof is not None:
+                res["v1"]["busy_ms"] = prof[1]
+        res[family]["card_vs_cpu_f32"] = classify_small_check(
+            family, tree, card, power)
+    print(f"classify phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return res
+
+
+def check_detections(det, batch: int, max_out: int, classes: int,
+                     what: str) -> None:
+    """The postprocess contract at full width: shapes, finite values,
+    scores descending, ymax >= ymin, num <= max_out, classes in range."""
+    import torch
+
+    boxes, scores = det["boxes"], det["scores"]
+    if tuple(boxes.shape) != (batch, max_out, 4) or \
+            tuple(scores.shape) != (batch, max_out):
+        raise RuntimeError(f"{what}: boxes {tuple(boxes.shape)} scores "
+                           f"{tuple(scores.shape)}")
+    if not bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all()):
+        raise RuntimeError(f"{what}: non-finite detections")
+    if bool((scores[:, 1:] > scores[:, :-1]).any()):
+        raise RuntimeError(f"{what}: scores not descending")
+    if bool((boxes[..., 2] < boxes[..., 0]).any()):
+        raise RuntimeError(f"{what}: ymax < ymin")
+    if int(det["num"].max()) > max_out or int(det["classes"].min()) < 0 or \
+            int(det["classes"].max()) >= classes:
+        raise RuntimeError(f"{what}: num or classes out of range")
+
+
+def _det_keys(dets):
+    return sorted((d.class_id, d.score, d.x, d.y, d.w, d.h) for d in dets)
+
+
+def phase_yolo(card: str, power: str):
+    """YOLO end to end and raw at the JAX benchmark's width (see the
+    module doc, phase 11)."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, DType
+    from nnstreamer_tpu_torch.decoders.boundingbox import (
+        _YOLO_TOPK,
+        BoundingBoxes,
+    )
+    from nnstreamer_tpu_torch.elements.transform import (
+        _fold_affine,
+        parse_arith_ops,
+    )
+    from nnstreamer_tpu_torch.filters import register_model
+    from nnstreamer_tpu_torch.models import (
+        weights_to_bf16,
+        yolo_detect_apply,
+        yolo_from_jax,
+        yolo_init,
+        yolo_raw_apply,
+    )
+    from nnstreamer_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    tree = yolo_init(SEED, num_classes=YOLO_CLASSES, width=YOLO_WIDTH,
+                     depth=YOLO_DEPTH)
+    model = yolo_from_jax(weights_to_bf16(tree))
+    register_model("yolo_e2e",
+                   lambda m, x: yolo_detect_apply(m, x, max_out=MAX_OUT),
+                   params=model, in_dtypes=np.float32,
+                   in_shapes=[(YOLO_BATCH, YOLO_SIZE, YOLO_SIZE, 3)])
+    rng = np.random.default_rng(SEED + 9)
+    frames = [rng.integers(0, 256, (YOLO_BATCH, YOLO_SIZE, YOLO_SIZE, 3),
+                           dtype=np.uint8) for _ in range(POOL)]
+    windows = NUM_BUFFERS
+    desc = composite("yolo_e2e", "cuda", windows, YOLO_NORM, YOLO_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.scale_bias_cast.launches = 0
+    p, bufs, secs = run_pipeline(desc, frames, windows)
+    launches = kernels.scale_bias_cast.launches
+    peak = torch.cuda.max_memory_allocated()
+    check_fused(p, "overlay", "yolo")
+    if launches < windows:
+        raise RuntimeError(f"yolo: scale_bias_cast launched {launches} times "
+                           f"for {windows} windows")
+    for i, b in enumerate(bufs):
+        canvas = b.tensors[0].torch()
+        if tuple(canvas.shape) != (YOLO_BATCH, YOLO_SIZE, YOLO_SIZE, 4) or \
+                canvas.dtype != torch.uint8:
+            raise RuntimeError(f"yolo: canvas {tuple(canvas.shape)} "
+                               f"{canvas.dtype}")
+        check_detections(b.meta["detections_device"], YOLO_BATCH, MAX_OUT,
+                         YOLO_CLASSES, f"yolo window {i}")
+    fps, p50 = window_times(bufs, YOLO_BATCH)
+    det = bufs[-1].meta["detections_device"]
+    print(f"yolo: fused {p.fused_segments[0]}; scale_bias_cast launches="
+          f"{launches} for {windows} windows; {fps:.1f} frames/s over "
+          f"windows 2..{windows}, p50 window {p50:.3f} ms, host start→EOS "
+          f"{secs:.2f} s, peak device memory {peak / 2**30:.2f} GiB; last "
+          f"window frame 0: num={int(det['num'][0])} classes="
+          f"{det['classes'][0].tolist()} [{card}, {power}]", flush=True)
+    res = {"fps": fps, "p50_window_ms": p50, "host_s": secs,
+           "launches": launches, "peak_gib": peak / 2**30}
+
+    # the same frames through the plain prologue: byte-equal
+    _, plain, _ = run_pipeline(
+        composite("yolo_e2e", "torch", windows, YOLO_NORM, YOLO_SIZE),
+        frames, windows)
+    for i, (a, b) in enumerate(zip(bufs, plain)):
+        if not torch.equal(a.tensors[0].torch(), b.tensors[0].torch()) or \
+                any(not torch.equal(a.meta["detections_device"][k],
+                                    b.meta["detections_device"][k])
+                    for k in ("boxes", "scores", "classes", "num")):
+            raise RuntimeError(f"yolo window {i}: backend=cuda and "
+                               "backend=torch differ")
+    print(f"yolo: canvases and detections byte-equal between backend=cuda "
+          f"and backend=torch in all {windows} windows", flush=True)
+    prof = phase_profile(
+        composite("yolo_e2e", "cuda", 3, YOLO_NORM, YOLO_SIZE), frames, card,
+        power, label="yolo profile")
+    if prof is not None:
+        res["busy_ms"] = prof[1]
+
+    # batch 2, f32 compute, f32 weights, TF32 off: card against CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    register_model("yolo_small_f32",
+                   lambda m, x: yolo_detect_apply(m, x, max_out=MAX_OUT,
+                                                  dtype=torch.float32),
+                   params=yolo_from_jax(tree), in_dtypes=np.float32,
+                   in_shapes=[(2, YOLO_SIZE, YOLO_SIZE, 3)])
+    small = [np.random.default_rng(SEED + 10).integers(
+        0, 256, (2, YOLO_SIZE, YOLO_SIZE, 3), dtype=np.uint8)]
+    g, c = card_vs_cpu(composite("yolo_small_f32", "cuda", 1, YOLO_NORM,
+                                 YOLO_SIZE), small)
+    dg, dc = g.meta["detections_device"], c.meta["detections_device"]
+    errs = {k: float((dg[k].cpu() - dc[k]).abs().max())
+            for k in ("boxes", "scores")}
+    print(f"yolo batch 2, f32, TF32 off: card vs CPU max_abs_diff {errs}; "
+          f"classes {dg['classes'].tolist()} vs {dc['classes'].tolist()}; "
+          f"num {dg['num'].tolist()} vs {dc['num'].tolist()}", flush=True)
+    if errs["boxes"] > 1e-4 or errs["scores"] > 1e-5 or \
+            not torch.equal(dg["classes"].cpu(), dc["classes"]) or \
+            not torch.equal(dg["num"].cpu(), dc["num"]):
+        raise RuntimeError("yolo: card and CPU disagree at f32")
+    res["card_vs_cpu_f32"] = errs
+
+    # the raw variant at batch 1: the yolov8 scheme, pre-reduced on the card
+    register_model("yolo_raw", lambda m, x: yolo_raw_apply(m, x),
+                   params=model, in_dtypes=np.float32,
+                   in_shapes=[(1, YOLO_SIZE, YOLO_SIZE, 3)])
+    raw_frames = [f[:1] for f in frames]
+    kernels.scale_bias_cast.launches = 0
+    p, rbufs, rsecs = run_pipeline(YOLO_RAW_PIPE.format(
+        n=windows, norm=YOLO_NORM, model="yolo_raw", s=YOLO_SIZE,
+        sink=windows + 4), raw_frames, windows)
+    raw_launches = kernels.scale_bias_cast.launches
+    check_fused(p, None, "yolo raw")
+    if raw_launches < windows:
+        raise RuntimeError(f"yolo raw: scale_bias_cast launched "
+                           f"{raw_launches} times for {windows} windows")
+    for b in rbufs:
+        if b.tensors[0].np().shape != (YOLO_SIZE, YOLO_SIZE, 4) or \
+                not b.meta["detections"] or any(
+                    not 0 <= d.class_id < YOLO_CLASSES
+                    for d in b.meta["detections"]):
+            raise RuntimeError("yolo raw: bad canvas or detections")
+    # the pre-reduce against the host decode of the same tensor on the
+    # CPU, with the threshold set so at most _YOLO_TOPK anchors pass
+    a, b, _ = _fold_affine(parse_arith_ops(YOLO_NORM), DType.UINT8)
+    x = kernels.scale_bias_cast(torch.from_numpy(raw_frames[0]).cuda(), a,
+                                b / a)
+    with torch.inference_mode():
+        raw = yolo_raw_apply(model.cuda(), x)
+    # random weights saturate many scores to equal values: take the
+    # lowest distinct score that at most _YOLO_TOPK anchors reach
+    vals, counts = torch.unique(raw[0, 4:].max(dim=0).values,
+                                return_counts=True)
+    cum = counts.flip(0).cumsum(0)
+    fit = torch.nonzero(cum <= _YOLO_TOPK).flatten()
+    if fit.numel() == 0:
+        raise RuntimeError(f"yolo raw: {int(counts[-1])} anchors tie at the "
+                           "top score, more than the pre-reduce keeps")
+    thr = float(vals.flip(0)[int(fit.max())])
+    kept = int(cum[int(fit.max())])
+    dec = BoundingBoxes()
+    for i, v in ((0, "yolov8"), (2, f"{thr!r}:0.5"),
+                 (3, f"{YOLO_SIZE}:{YOLO_SIZE}"),
+                 (4, f"{YOLO_SIZE}:{YOLO_SIZE}")):
+        dec.set_option(i, v)
+    on_card = dec.decode(Buffer.of(raw), None)
+    on_host = dec.decode(Buffer.of(raw.cpu().numpy()), None)
+    same = _det_keys(on_card.meta["detections"]) == \
+        _det_keys(on_host.meta["detections"])
+    pix = float((on_card.tensors[0].torch() == on_host.tensors[0].torch())
+                .all(dim=-1).float().mean())
+    # window 0 of the pipeline (threshold 0.25) against this forward
+    dec0 = BoundingBoxes()
+    for i, v in ((0, "yolov8"), (3, f"{YOLO_SIZE}:{YOLO_SIZE}"),
+                 (4, f"{YOLO_SIZE}:{YOLO_SIZE}")):
+        dec0.set_option(i, v)
+    pipe_same = _det_keys(rbufs[0].meta["detections"]) == _det_keys(
+        dec0.decode(Buffer.of(raw), None).meta["detections"])
+    print(f"yolo raw: scale_bias_cast launches={raw_launches} for {windows} "
+          f"windows; {len(rbufs[0].meta['detections'])} detections in window "
+          f"0, equal to a direct forward's: {pipe_same}; pre-reduce on the "
+          f"card vs host decode on the CPU at threshold {thr!r} ({kept} "
+          f"anchors pass): {len(on_card.meta['detections'])} detections, "
+          f"equal: {same}, canvas pixels agree {pix:.6f}; host start→EOS "
+          f"{rsecs:.2f} s [{card}, {power}]", flush=True)
+    if not same or not pipe_same or kept > _YOLO_TOPK:
+        raise RuntimeError("yolo raw: the pre-reduce and the host decode "
+                           "disagree")
+    res["raw"] = {"launches": raw_launches, "host_s": rsecs,
+                  "prereduce_threshold": thr, "anchors_passing": kept}
+    print(f"yolo phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -1990,16 +2422,23 @@ def main() -> int:
     vit_path = phase_vit(card, power)
     serving = phase_serving(card, power)
     lifecycle = phase_lifecycle(card, power)
+    classify = phase_classify(card, power)
+    yolo = phase_yolo(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
+                      "classify": classify, "yolo": yolo,
                       "card": card, "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
                    "serving_shared": served["shared"]["scale_bias_cast"],
                    "serving_unshared": served["unshared"]["scale_bias_cast"],
-                   "lifecycle": lifecycle["launches"]["scale_bias_cast"]}
+                   "lifecycle": lifecycle["launches"]["scale_bias_cast"],
+                   "classify": classify["v1"]["launches"],
+                   "classify_v2": classify["v2"]["launches"],
+                   "yolo": yolo["launches"],
+                   "yolo_raw": yolo["raw"]["launches"]}
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],

@@ -1,21 +1,33 @@
 """``bounding_boxes`` decoder: detection model output → box overlay video.
 
-Counterpart of the JAX package's ``decoders/boundingbox.py`` for the
-``mobilenet-ssd-postprocess`` scheme (parity: the reference's
-box_properties/mobilenetssdpp.cc — boxes (N,4 ymin,xmin,ymax,xmax
-normalized), classes (N,), scores (N,), num_detections (1,); or the
-batched (B,N,4) layout of an in-model decode+NMS head).  Options follow
-the reference grammar:
+Counterpart of the JAX package's ``decoders/boundingbox.py`` (parity: the
+reference's box_properties/ mobilenetssd.cc, mobilenetssdpp.cc and
+yolo.cc).  Options follow the reference grammar:
 
-- option1 — decoding scheme: ``mobilenet-ssd-postprocess`` (alias
-  ``mobilenetssd-pp``); the other schemes are not ported yet
+- option1 — decoding scheme: ``mobilenet-ssd`` (raw loc (A,4) + class
+  logits (A,C), decoded against SSD anchors), ``mobilenet-ssd-postprocess``
+  (alias ``mobilenetssd-pp``: boxes (N,4 ymin,xmin,ymax,xmax normalized),
+  classes (N,), scores (N,), num (1,); or the batched (B,N,4) layout of an
+  in-model decode+NMS head), ``yolov5`` ((1, A, 5+C): xywh, objectness,
+  class confidences) and ``yolov8`` ((1, 4+C, A): xywh, class
+  confidences), pixel-space xywh; ov-person and mp-palm are not ported
+- option3 — scheme detail: mobilenet-ssd, a box-priors file (blank:
+  synthesize the SSD anchors for option5's size); yolo,
+  ``<conf_thresh>:<iou_thresh>``
 - option4 — output video size ``WIDTH:HEIGHT``
-- option5 — model input size ``WIDTH:HEIGHT``
+- option5 — model input size ``WIDTH:HEIGHT`` (yolo box scaling, anchors)
 - option7 — render backend: ``host`` (default, numpy rasterization) |
-  ``device`` (boxutil.device_render on the pipeline's device).  With
-  ``device`` the structured detections stay on the device at
-  ``meta["detections_device"]``; the host path attaches python
-  :class:`Detection` lists at ``meta["detections"]``.
+  ``device`` (boxutil.device_render on the pipeline's device; the
+  postprocess scheme only).  With ``device`` the structured detections
+  stay on the device at ``meta["detections_device"]``; the host path
+  attaches python :class:`Detection` lists at ``meta["detections"]``.
+
+A yolo tensor that lives on a device is pre-reduced there
+(:func:`yolo_prereduce`): best class, its score and the top
+``_YOLO_TOPK`` anchors by that score, so only those (K, 6) rows cross to
+the host; the detections equal the host decode's whenever a frame has at
+most K anchors above the threshold.  The top-K is the stable sort of
+``models/ssd.py`` (``lax.top_k``'s order among equal scores).
 
 Label files (option2) are not supported by this slice of the port.
 """
@@ -28,10 +40,42 @@ import numpy as np
 import torch
 
 from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
+from ..models.ssd import (
+    _SCALE_WH,
+    _SCALE_XY,
+    _top_k,
+    feature_sizes_for,
+    ssd_anchors,
+)
 from . import Decoder, drain_once, register_decoder
-from .boxutil import Detection, device_render, draw_boxes
+from .boxutil import Detection, device_render, draw_boxes, nms, sigmoid
 
-_SCHEMES = ("mobilenet-ssd-postprocess", "mobilenetssd-pp")
+_PP_SCHEMES = ("mobilenet-ssd-postprocess", "mobilenetssd-pp")
+_SCHEMES = ("mobilenet-ssd", "yolov5", "yolov8") + _PP_SCHEMES
+
+#: yolo device pre-reduction keeps the top-K anchors by best class score
+#: and drains only those (K, 6) rows
+_YOLO_TOPK = 512
+
+
+def yolo_prereduce(out: torch.Tensor, v8: bool,
+                   k: int = _YOLO_TOPK) -> torch.Tensor:
+    """A raw yolo tensor → (K, 6) f32 rows of [cx, cy, w, h, best score,
+    class], the top K anchors by best score, on ``out``'s device.  v8:
+    (1, 4+C, A), no objectness; v5: (1, A, 5+C), scores = class
+    confidences × objectness."""
+    if v8:
+        arr = out.reshape(out.shape[-2], out.shape[-1]).T
+        boxes, scores = arr[:, :4], arr[:, 4:]
+    else:
+        arr = out.reshape(-1, out.shape[-1])
+        boxes = arr[:, :4]
+        scores = arr[:, 5:] * arr[:, 4:5]
+    best, cls = torch.max(scores, dim=1)
+    val, idx = _top_k(best, min(k, best.shape[0]))
+    return torch.cat([boxes[idx].to(torch.float32),
+                      val[:, None].to(torch.float32),
+                      cls[idx][:, None].to(torch.float32)], dim=1)
 
 
 @register_decoder
@@ -41,9 +85,11 @@ class BoundingBoxes(Decoder):
     def __init__(self):
         super().__init__()
         self.scheme = "mobilenet-ssd-postprocess"
+        self.priors: Optional[np.ndarray] = None
         self.out_w, self.out_h = 300, 300
         self.in_w, self.in_h = 300, 300
         self.conf_thresh = 0.25
+        self.iou_thresh = 0.5
         self.backend = "host"
         #: set by the fusion pass when the device overlay runs INSIDE the
         #: upstream torch-cuda filter: decode() then consumes a ready
@@ -64,12 +110,33 @@ class BoundingBoxes(Decoder):
             raise NotImplementedError(
                 "bounding_boxes option2 (label file): label text overlay "
                 "is not ported to nnstreamer_tpu_torch yet")
+        self._interpret_opt3(self.options[2])
         if self.options[3]:
             w, _, h = self.options[3].partition(":")
             self.out_w, self.out_h = int(w), int(h or w)
         if self.options[4]:
             w, _, h = self.options[4].partition(":")
             self.in_w, self.in_h = int(w), int(h or w)
+
+    def _interpret_opt3(self, o3: Optional[str]) -> None:
+        """option3 against the current scheme: yolo "<conf>:<iou>"
+        thresholds, mobilenet-ssd a box-priors file."""
+        if not o3:
+            return
+        if self.scheme.startswith("yolo"):
+            c, _, i = o3.partition(":")
+            try:
+                if c:
+                    self.conf_thresh = float(c)
+                if i:
+                    self.iou_thresh = float(i)
+            except ValueError:
+                pass  # not a threshold pair (e.g. a stale priors path)
+        elif self.scheme == "mobilenet-ssd":
+            try:
+                self.priors = np.loadtxt(o3, dtype=np.float32)
+            except (OSError, ValueError):
+                pass
 
     def out_caps(self, in_spec: TensorsSpec) -> Caps:
         # Batched postprocess input — boxes (B,N,4) from an on-device
@@ -82,7 +149,8 @@ class BoundingBoxes(Decoder):
             t0 = in_spec.tensors[0] if in_spec.tensors else None
             if t0 is not None and t0.rank == 4 and t0.shape[0] > 1:
                 frames = t0.shape[0]
-        elif in_spec.tensors and in_spec.tensors[0].rank == 3:
+        elif in_spec.tensors and in_spec.tensors[0].rank == 3 \
+                and self.scheme in _PP_SCHEMES:
             frames = in_spec.tensors[0].shape[0]
         extra = {"frames": frames} if frames > 1 else {}
         return Caps.new(CapsStruct.make(
@@ -90,6 +158,74 @@ class BoundingBoxes(Decoder):
             height=self.out_h, framerate=in_spec.rate, **extra))
 
     # -- host path ------------------------------------------------------------
+
+    def _anchors(self, num: int) -> np.ndarray:
+        if self.priors is not None and len(self.priors) >= num:
+            return self.priors[:num]
+        # the standard SSD anchor table for the model input size
+        a = ssd_anchors(self.in_w, feature_sizes_for(self.in_w))
+        if len(a) < num:
+            a = np.vstack([a] * (num // len(a) + 1))
+        return a[:num]
+
+    def _decode_mobilenet_ssd(self, buf: Buffer) -> List[Detection]:
+        """Raw 2-tensor layout: loc (A,4) or (1,A,4) + class logits (A,C)
+        or (1,A,C); class 0 is the background."""
+        loc = buf.tensors[0].np().reshape(-1, 4)
+        cls = buf.tensors[1].np()
+        cls = cls.reshape(-1, cls.shape[-1])
+        anchors = self._anchors(loc.shape[0])
+        cy = loc[:, 0] / _SCALE_XY * anchors[:, 2] + anchors[:, 0]
+        cx = loc[:, 1] / _SCALE_XY * anchors[:, 3] + anchors[:, 1]
+        h = np.exp(loc[:, 2] / _SCALE_WH) * anchors[:, 2]
+        w = np.exp(loc[:, 3] / _SCALE_WH) * anchors[:, 3]
+        scores = sigmoid(cls)
+        dets = []
+        for a in range(loc.shape[0]):
+            c = int(scores[a, 1:].argmax()) + 1
+            s = float(scores[a, c])
+            if s < self.conf_thresh:
+                continue
+            dets.append(Detection(
+                x=float(cx[a] - w[a] / 2), y=float(cy[a] - h[a] / 2),
+                w=float(w[a]), h=float(h[a]), class_id=c, score=s))
+        return nms(dets, self.iou_thresh)
+
+    def _decode_yolo(self, buf: Buffer, v8: bool) -> List[Detection]:
+        t = buf.tensors[0]
+        scale = np.array([self.in_w, self.in_h, self.in_w, self.in_h],
+                         np.float32)
+        if t.is_device:
+            # pre-reduced where the tensor lives: only (K, 6) rows cross
+            with torch.inference_mode():
+                rows = yolo_prereduce(t.torch(), v8).cpu().numpy()
+            dets = []
+            for r in rows:
+                if r[4] < self.conf_thresh:
+                    break  # rows are score-sorted: nothing further passes
+                cx, cy, w, h = r[:4] / scale
+                dets.append(Detection(
+                    x=float(cx - w / 2), y=float(cy - h / 2), w=float(w),
+                    h=float(h), class_id=int(r[5]), score=float(r[4])))
+            return nms(dets, self.iou_thresh)
+        out = t.np()
+        if v8:
+            # (1, 4+C, A) → (A, 4+C); no objectness
+            arr = out.reshape(out.shape[-2], out.shape[-1]).T
+            boxes, scores = arr[:, :4], arr[:, 4:]
+        else:
+            # (1, A, 5+C): xywh + objectness + class confidences
+            arr = out.reshape(-1, out.shape[-1])
+            boxes = arr[:, :4]
+            scores = arr[:, 5:] * arr[:, 4:5]
+        dets = []
+        for a in np.nonzero(scores.max(axis=1) >= self.conf_thresh)[0]:
+            c = int(scores[a].argmax())
+            cx, cy, w, h = boxes[a] / scale
+            dets.append(Detection(
+                x=float(cx - w / 2), y=float(cy - h / 2), w=float(w),
+                h=float(h), class_id=c, score=float(scores[a, c])))
+        return nms(dets, self.iou_thresh)
 
     def _decode_ssd_postprocess(self, buf: Buffer):
         """Post-processed 4-tensor layout; a batched (B>1) layout yields a
@@ -129,7 +265,7 @@ class BoundingBoxes(Decoder):
     # -- device render path --------------------------------------------------
 
     def _device_active(self) -> bool:
-        return self.backend == "device"
+        return self.backend == "device" and self.scheme in _PP_SCHEMES
 
     def device_post_program(self):
         """For the fusion pass (runtime/fusion.py): an epilogue mapping the
@@ -229,10 +365,17 @@ class BoundingBoxes(Decoder):
                     buf.tensors[0].spec.dtype.torch_dtype == torch.uint8:
                 return self._decode_fused(buf)
             return self._decode_device(buf)
-        # the host decoder reads every tensor: drain the device-resident
-        # ones with ONE packed copy instead of one per tensor
-        drain_once(buf.tensors)
-        dets = self._decode_ssd_postprocess(buf)
+        scheme = self.scheme
+        if scheme in ("yolov5", "yolov8"):
+            # pre-reduces on the device instead: no drain of the raw tensor
+            dets = self._decode_yolo(buf, v8=scheme == "yolov8")
+        else:
+            # the host decoders read every tensor: drain the device-resident
+            # ones with ONE packed copy instead of one per tensor
+            drain_once(buf.tensors)
+            dets = self._decode_mobilenet_ssd(buf) \
+                if scheme == "mobilenet-ssd" \
+                else self._decode_ssd_postprocess(buf)
         batched = bool(dets) and isinstance(dets[0], list)
         if batched:
             frame = np.zeros((len(dets), self.out_h, self.out_w, 4),

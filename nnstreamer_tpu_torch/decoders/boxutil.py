@@ -1,9 +1,10 @@
 """Shared box post-processing + drawing utilities for decoders.
 
 Counterpart of the JAX package's ``decoders/boxutil.py``: the host-side
-IoU/NMS helpers and rasterizer (parity: the reference's
-tensordec-boundingbox.cc ``nms()`` and ``draw()``), and the device
-rasterizer :func:`device_render` as a plain function on tensors.
+IoU/NMS helpers, ``sigmoid``/``softmax`` and ``load_labels``, and the
+rasterizer (parity: the reference's tensordec-boundingbox.cc ``nms()``
+and ``draw()``), and the device rasterizer :func:`device_render` as a
+plain function on tensors.
 
 Label text is not drawn by this slice of the port (it needs the bitmap
 font module, still to be ported).
@@ -29,6 +30,12 @@ class Detection:
     class_id: int
     score: float
     label: str = ""
+
+
+def load_labels(path: str) -> List[str]:
+    """One label per non-empty line of a text file."""
+    with open(path, "r", encoding="utf-8") as f:
+        return [ln.strip() for ln in f if ln.strip()]
 
 
 def iou_xywh(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -64,6 +71,15 @@ def nms(dets: List[Detection], iou_thresh: float = 0.5,
                 alive[i + 1:] &= ~sup
     out.sort(key=lambda d: -d.score)
     return out[:max_out] if max_out else out
+
+
+def sigmoid(x: np.ndarray) -> np.ndarray:
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def softmax(x: np.ndarray, axis: int = -1) -> np.ndarray:
+    e = np.exp(x - x.max(axis=axis, keepdims=True))
+    return e / e.sum(axis=axis, keepdims=True)
 
 
 #: default overlay palette, shared by the host and device renderers

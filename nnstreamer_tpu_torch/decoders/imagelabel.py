@@ -22,6 +22,7 @@ import torch
 
 from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
 from . import Decoder, register_decoder
+from .boxutil import load_labels
 
 
 def argmax_pair(x: torch.Tensor) -> torch.Tensor:
@@ -43,8 +44,7 @@ class ImageLabeling(Decoder):
     def options_updated(self) -> None:
         path = self.options[0]
         if path:
-            with open(path, "r", encoding="utf-8") as f:
-                self.labels = [ln.strip() for ln in f if ln.strip()]
+            self.labels = load_labels(path)
 
     def out_caps(self, in_spec: TensorsSpec) -> Caps:
         return Caps.new(CapsStruct.make(

@@ -1,31 +1,46 @@
-"""MobileNetV2 in PyTorch: the backbone of the SSD detector.
+"""MobileNetV1 and MobileNetV2 in PyTorch: the classifiers, and the V2
+backbone of the SSD detector.
 
 Counterpart of the JAX package's ``models/mobilenet.py``:
 
-- the numpy init (:func:`mobilenet_v2_init` and its helpers) draws the
+- the numpy init (:func:`mobilenet_v1_init`, :func:`mobilenet_v2_init`
+  and their helpers) draws the
   same numbers in the same order as the JAX package, so one seed gives a
   bit-identical parameter tree in the JAX layout (HWIO conv weights);
   ``models/convert.py`` turns such a tree into a module ``state_dict``;
 - :class:`ConvBN` (``_conv_bn``), :class:`InvertedResidual`
   (``_inverted_residual``) and :class:`MobileNetV2Backbone`
   (``mobilenet_v2_backbone``) are ``nn.Module``s whose forward takes and
-  returns NHWC tensors, as the JAX functions do.  Inside, a convolution
+  returns NHWC tensors, as the JAX functions do; :class:`MobileNetV1`
+  (``mobilenet_v1_apply``) and :class:`MobileNetV2` (``mobilenet_v2_apply``)
+  end in the global mean and the dense head, f32 logits out.  Inside, a
+  convolution
   runs on the NCHW view of the same memory (channels-last strides), so the
   permutes at the boundary move no data on the card.
 
 Inference applies *folded* batch-norm: the scale and offset are computed
 in f32 and cast to the compute dtype before the epilogue, in the JAX
-package's order.
+package's order.  Weights may sit in bf16 (``params_io.weights_to_bf16``):
+the per-call ``.to(dtype)`` is then a no-op at bf16 compute, while the
+batch-norm buffers stay f32.  ``jnp.mean`` over bf16 sums in f32 and
+rounds once, and so does :func:`_mean_hw`.  The head is ``_dense``'s two
+bf16 roundings (``vit.Dense``).
+
+:func:`register_mobilenet` registers a seeded classifier with the
+``torch-cuda`` filter, as the JAX package's does with ``jax-xla``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .vit import Dense
 
 Params = Dict[str, Any]
 
@@ -65,6 +80,46 @@ def _dense_init(rng: np.random.Generator, cin, cout) -> Params:
             "b": np.zeros((cout,), np.float32)}
 
 
+# -- MobileNetV1 ---------------------------------------------------------------
+
+# (stride, out_channels) per depthwise-separable block.
+_V1_BLOCKS: List[Tuple[int, int]] = [
+    (1, 64), (2, 128), (1, 128), (2, 256), (1, 256), (2, 512),
+    (1, 512), (1, 512), (1, 512), (1, 512), (1, 512),
+    (2, 1024), (1, 1024),
+]
+
+
+def _ch_fn(width: float):
+    def ch(c):
+        return max(8, int(c * width))
+
+    return ch
+
+
+def mobilenet_v1_init(key, num_classes: int = 1001,
+                      width: float = 1.0) -> Params:
+    """MobileNetV1 parameter tree in the JAX package's layout, drawn from
+    numpy exactly as the JAX package draws it."""
+    ch = _ch_fn(width)
+    rng = _rng_of(key)
+    params: Params = {"stem": _conv_init(rng, 3, 3, 3, ch(32))}
+    cin = ch(32)
+    blocks = []
+    for _stride, cout in _V1_BLOCKS:
+        cout = ch(cout)
+        blocks.append({
+            "dw": _conv_init(rng, 3, 3, cin, cin, groups=cin),
+            "pw": _conv_init(rng, 1, 1, cin, cout),
+        })
+        cin = cout
+    params["blocks"] = blocks
+    params["head"] = _dense_init(rng, cin, num_classes)
+    return params
+
+
+# -- MobileNetV2 ---------------------------------------------------------------
+
 # (expansion, out_channels, num_repeats, first_stride)
 _V2_BLOCKS: List[Tuple[int, int, int, int]] = [
     (1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
@@ -87,9 +142,7 @@ def mobilenet_v2_init(key, num_classes: int = 1001,
                       width: float = 1.0) -> Params:
     """MobileNetV2 parameter tree in the JAX package's layout, drawn from
     numpy exactly as the JAX package draws it."""
-    def ch(c):
-        return max(8, int(c * width))
-
+    ch = _ch_fn(width)
     rng = _rng_of(key)
     params: Params = {"stem": _conv_init(rng, 3, 3, 3, ch(32))}
     cin = ch(32)
@@ -185,10 +238,7 @@ class MobileNetV2Backbone(nn.Module):
 
     def __init__(self, width: float = 1.0):
         super().__init__()
-
-        def ch(c):
-            return max(8, int(c * width))
-
+        ch = _ch_fn(width)
         self.stem = ConvBN(3, ch(32), 3, stride=2)
         blocks, cin = [], ch(32)
         for (t, c, n, _s), stride in zip(
@@ -209,3 +259,106 @@ class MobileNetV2Backbone(nn.Module):
             if i in taps:
                 tapped.append(x)
         return x, tapped
+
+
+def _mean_hw(x: torch.Tensor) -> torch.Tensor:
+    """Global average pool over H and W of an NHWC tensor: ``jnp.mean``
+    over bf16 sums in f32 and rounds once, and so does this."""
+    return x.float().mean(dim=(1, 2)).to(x.dtype)
+
+
+class DepthwiseSeparable(nn.Module):
+    """MobileNetV1 block: depthwise 3x3 (``dw``), then pointwise 1x1
+    (``pw``), each a ConvBN with ReLU6."""
+
+    def __init__(self, cin: int, cout: int, stride: int):
+        super().__init__()
+        self.dw = ConvBN(cin, cin, 3, stride=stride, groups=cin)
+        self.pw = ConvBN(cin, cout, 1)
+
+    def forward(self, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+        return self.pw(self.dw(x, dtype), dtype)
+
+
+class MobileNetV1(nn.Module):
+    """``mobilenet_v1_apply``: stem, 13 depthwise-separable blocks, global
+    mean, dense head; NHWC in, (N, num_classes) f32 logits out."""
+
+    def __init__(self, num_classes: int = 1001, width: float = 1.0):
+        super().__init__()
+        ch = _ch_fn(width)
+        self.stem = ConvBN(3, ch(32), 3, stride=2)
+        blocks, cin = [], ch(32)
+        for stride, cout in _V1_BLOCKS:
+            blocks.append(DepthwiseSeparable(cin, ch(cout), stride))
+            cin = ch(cout)
+        self.blocks = nn.ModuleList(blocks)
+        self.head = Dense(cin, num_classes)
+
+    def forward(self, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+        x = self.stem(x.to(dtype), dtype)
+        for block in self.blocks:
+            x = block(x, dtype)
+        return self.head(_mean_hw(x), dtype).to(torch.float32)
+
+
+class MobileNetV2(MobileNetV2Backbone):
+    """``mobilenet_v2_apply``: the backbone, the ``last`` 1x1 ConvBN,
+    global mean, dense head; (N, num_classes) f32 logits out."""
+
+    def __init__(self, num_classes: int = 1001, width: float = 1.0):
+        super().__init__(width)
+        last = max(1280, int(1280 * width))
+        self.last = ConvBN(_ch_fn(width)(320), last, 1)
+        self.head = Dense(last, num_classes)
+
+    def forward(self, x: torch.Tensor,  # type: ignore[override]
+                dtype=torch.bfloat16) -> torch.Tensor:
+        x, _ = super().forward(x, dtype)
+        x = self.last(x, dtype)
+        return self.head(_mean_hw(x), dtype).to(torch.float32)
+
+
+def mobilenet_v1_apply(model: MobileNetV1, x: torch.Tensor,
+                       dtype=None) -> torch.Tensor:
+    """(N, H, W, 3) → (N, num_classes) f32 logits; compute in ``dtype``
+    (bf16 by default)."""
+    return model(x, torch.bfloat16 if dtype is None else dtype)
+
+
+def mobilenet_v2_apply(model: MobileNetV2, x: torch.Tensor,
+                       dtype=None) -> torch.Tensor:
+    """(N, H, W, 3) → (N, num_classes) f32 logits; compute in ``dtype``
+    (bf16 by default)."""
+    return model(x, torch.bfloat16 if dtype is None else dtype)
+
+
+# -- registration --------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_params(family: str, num_classes: int, width: float, seed: int):
+    if family == "v1":
+        return mobilenet_v1_init(seed, num_classes, width)
+    return mobilenet_v2_init(seed, num_classes, width)
+
+
+def register_mobilenet(name: str = "mobilenet_v1", family: str = "v1",
+                       num_classes: int = 1001, width: float = 1.0,
+                       batch: int = 1, size: int = 224, seed: int = 0) -> str:
+    """Register a seeded MobileNet classifier (``family`` "v1" or "v2")
+    for ``tensor_filter framework=torch-cuda model=<name>``: f32 NHWC
+    input of ``(batch, size, size, 3)``, bf16 compute, f32 logits out."""
+    from ..filters import register_model
+    from .convert import mobilenet_v1_from_jax, mobilenet_v2_from_jax
+
+    if family not in ("v1", "v2"):
+        raise ValueError(f"mobilenet family {family!r}: 'v1' or 'v2'")
+    tree = _cached_params(family, num_classes, width, seed)
+    if family == "v1":
+        model, apply = mobilenet_v1_from_jax(tree), mobilenet_v1_apply
+    else:
+        model, apply = mobilenet_v2_from_jax(tree), mobilenet_v2_apply
+    return register_model(name, apply, params=model,
+                          in_shapes=[(batch, size, size, 3)],
+                          in_dtypes=np.float32)

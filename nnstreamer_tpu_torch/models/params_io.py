@@ -19,6 +19,14 @@ shapes/dtypes), so a weights file loads with ``tensor_filter
 model=weights.safetensors``.  The port adds one optional key,
 ``apply_kwargs`` (a JSON object bound to ``apply`` by keyword), which the
 JAX package's reader carries along unread.
+
+bfloat16 without ``ml_dtypes``: a ``BF16`` safetensors leaf is read as
+its raw 16-bit words and handed on as a ``torch.bfloat16`` tensor, and a
+``torch.bfloat16`` leaf is written from its raw words, so a bf16 weights
+file reads and writes where ``ml_dtypes`` is absent.  A numpy bf16 leaf
+(``ml_dtypes``) is still written as the JAX package writes it.
+:func:`weights_to_bf16` is the JAX package's cast to bf16-resident
+weights, on torch tensors.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import struct
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 # -- pytree ⇄ flat dict -------------------------------------------------------
 
@@ -80,10 +89,32 @@ def flatten_params(params: Any, sep: str = "/") -> Dict[str, np.ndarray]:
                 seg = f"#{i}"
                 walk(f"{prefix}{sep}{seg}" if prefix else seg, v)
         else:
-            out[prefix] = np.asarray(node)
+            out[prefix] = _host_leaf(node)
 
     walk("", params)
     return out
+
+
+def _host_leaf(node: Any):
+    """A leaf as a host array: a torch tensor becomes numpy, except a
+    bf16 one, which stays a CPU ``torch.bfloat16`` tensor (numpy has no
+    bf16 of its own); anything else goes through ``np.asarray``."""
+    if isinstance(node, torch.Tensor):
+        t = node.detach().cpu()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+    return np.asarray(node)
+
+
+def _bf16_words(t: torch.Tensor) -> np.ndarray:
+    """The raw 16-bit words of a bf16 tensor, as a uint16 array."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(
+        np.uint16)
+
+
+def _bf16_tensor(words: np.ndarray) -> torch.Tensor:
+    """A ``torch.bfloat16`` tensor holding the raw 16-bit ``words``."""
+    return torch.from_numpy(
+        np.ascontiguousarray(words).view(np.int16)).view(torch.bfloat16)
 
 
 def unflatten_params(flat: Dict[str, np.ndarray], sep: str = "/",
@@ -125,7 +156,10 @@ def save_npz(path: str, params: Any, apply: Optional[str] = None,
     """Write a pytree as .npz; ``apply`` ("module:callable"), its
     ``apply_kwargs`` and the input schema ride along so the file works
     as a tensor_filter model."""
-    flat = flatten_params(params)
+    # a bf16 tensor is stored as the JAX package stores a numpy bf16 leaf:
+    # raw 2-byte voids
+    flat = {k: _bf16_words(v).view("V2") if isinstance(v, torch.Tensor)
+            else v for k, v in flatten_params(params).items()}
     meta = {"apply": apply, "in_shapes": in_shapes,
             "in_dtypes": np.dtype(in_dtypes).name
             if in_dtypes is not None else None,
@@ -171,10 +205,10 @@ def _st_name(dt: np.dtype) -> str:
 
 
 def _st_np(name: str):
+    """The numpy type a leaf is read as: ``BF16`` as its raw uint16
+    words (:func:`load_safetensors` hands those on as a bf16 tensor)."""
     if name == "BF16":
-        import ml_dtypes
-
-        return np.dtype(ml_dtypes.bfloat16)
+        return np.dtype(np.uint16)
     try:
         return np.dtype(_ST_DTYPES[name])
     except KeyError:
@@ -194,9 +228,14 @@ def save_safetensors(path: str, params: Any,
     off = 0
     chunks: List[bytes] = []
     for name in sorted(flat):
-        arr = np.ascontiguousarray(flat[name])
+        arr = flat[name]
+        if isinstance(arr, torch.Tensor):      # bf16
+            st_dtype, arr = "BF16", _bf16_words(arr)
+        else:
+            arr = np.ascontiguousarray(arr)
+            st_dtype = _st_name(arr.dtype)
         raw = arr.tobytes()
-        header[name] = {"dtype": _st_name(arr.dtype),
+        header[name] = {"dtype": st_dtype,
                         "shape": list(arr.shape),
                         "data_offsets": [off, off + len(raw)]}
         chunks.append(raw)
@@ -222,7 +261,7 @@ def load_safetensors(path: str) -> Tuple[Any, Dict[str, str]]:
         header = json.loads(f.read(hlen).decode("utf-8"))
         base = 8 + hlen
         meta = header.pop("__metadata__", {}) or {}
-        flat: Dict[str, np.ndarray] = {}
+        flat: Dict[str, Any] = {}
         for name, desc in header.items():
             dt = _st_np(desc["dtype"])
             lo, hi = desc["data_offsets"]
@@ -235,7 +274,41 @@ def load_safetensors(path: str) -> Tuple[Any, Dict[str, str]]:
             f.seek(base + lo)
             flat[name] = np.frombuffer(
                 f.read(hi - lo), dt).reshape(desc["shape"]).copy()
+            if desc["dtype"] == "BF16":
+                flat[name] = _bf16_tensor(flat[name])
     # only v3 files escape separators; v2 files and files from other
     # tools (whose names may carry literal backslashes) use a plain split
     return unflatten_params(
         flat, escaped=meta.get("format") == "nns-params-v3"), dict(meta)
+
+
+# -- low-precision residency ---------------------------------------------------
+
+
+def weights_to_bf16(params: Any) -> Any:
+    """A copy of a params pytree whose f32 WEIGHT leaves (``ndim >= 2``:
+    conv kernels, dense matrices, embeddings) are cast to bf16, so they
+    sit on the card in bf16 and the compute path's ``.to(bf16)`` casts
+    are no-ops; 1-D leaves (biases, batch-norm statistics) stay f32.
+    Array leaves, numpy or torch, come back as torch tensors; other
+    leaves pass through.  ``.to(torch.bfloat16)`` rounds to nearest
+    even, so the bits equal the JAX package's ``weights_to_bf16``."""
+    from ..core.buffer import from_numpy
+
+    def cast(leaf):
+        if isinstance(leaf, np.ndarray):
+            leaf = from_numpy(leaf)
+        elif not isinstance(leaf, torch.Tensor):
+            return leaf
+        if leaf.dtype == torch.float32 and leaf.dim() >= 2:
+            return leaf.to(torch.bfloat16)
+        return leaf
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return cast(node)
+
+    return walk(params)

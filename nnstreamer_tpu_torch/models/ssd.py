@@ -233,3 +233,28 @@ def ssd_detect_apply(model: SSDMobileNetV2, x: torch.Tensor,
                                       iou_thresh=iou_thresh,
                                       score_thresh=lt, fill=-np.inf)
     return out_b, torch.sigmoid(out_s.to(torch.float32)), out_c
+
+
+def register_ssd(name: str = "ssd_mobilenet_v2", num_classes: int = 91,
+                 batch: int = 1, size: int = 300, max_out: int = 100,
+                 seed: int = 0, end_to_end: bool = True) -> str:
+    """Register a seeded SSD-MobileNetV2 for ``tensor_filter
+    framework=torch-cuda model=<name>``.  ``end_to_end=True`` puts decode
+    + NMS in the model and returns ``(boxes, scores, classes)``, as the
+    JAX package's does; ``False`` returns the raw ``(loc, cls)`` head
+    outputs in f32 for the ``mobilenet-ssd`` decoder scheme."""
+    from ..filters import register_model
+    from .convert import ssd_from_jax, ssd_mobilenet_v2_init
+
+    model = ssd_from_jax(ssd_mobilenet_v2_init(seed, num_classes))
+    if end_to_end:
+        anchors = torch.from_numpy(ssd_anchors(size, feature_sizes_for(size)))
+        return register_model(
+            name,
+            lambda p, x: ssd_detect_apply(p["model"], x, p["anchors"],
+                                          max_out=max_out),
+            params={"model": model, "anchors": anchors},
+            in_shapes=[(batch, size, size, 3)], in_dtypes=np.float32)
+    return register_model(name, lambda m, x: m(x), params=model,
+                          in_shapes=[(batch, size, size, 3)],
+                          in_dtypes=np.float32)

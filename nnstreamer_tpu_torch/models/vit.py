@@ -28,10 +28,7 @@ file holds, building its module once per tree.
 
 from __future__ import annotations
 
-import math
-import threading
-from collections import OrderedDict
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -213,58 +210,13 @@ def vit_apply(model: ViT, x: torch.Tensor,
     return model(x, torch.bfloat16 if dtype is None else dtype)
 
 
-#: trees :func:`vit_tree_apply` keeps a module for, most recent last
-_TREE_VITS_MAX = 8
-_tree_vits: "OrderedDict[Tuple[int, int], Tuple[Any, ViT]]" = OrderedDict()
-_tree_vits_lock = threading.Lock()
-
-
-def _tensor(a: Any) -> torch.Tensor:
-    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-
-
 def _vit_of_tree(tree: Params, heads: int) -> ViT:
-    """The :class:`ViT` that ``vit_from_jax(tree, heads)`` makes, built
-    on the tree's own tensors (``load_state_dict(assign=True)`` on a
-    module made on the meta device): no weight is copied but the patch
-    embed, which goes HWIO → OIHW.  Kept per (tree, heads), so a model
-    file's tree builds its module once; the cache holds the tree, so its
-    ``id`` is not reused while cached."""
-    key = (id(tree), int(heads))
-    with _tree_vits_lock:
-        hit = _tree_vits.get(key)
-        if hit is not None:
-            _tree_vits.move_to_end(key)
-            return hit[1]
-    embed = _tensor(tree["embed"]["w"])                  # (p, p, 3, D)
-    patch, dim = int(embed.shape[0]), int(embed.shape[3])
-    side = math.isqrt(int(_tensor(tree["pos"]).shape[0]))
-    blocks = tree["blocks"]
-    sd: Dict[str, torch.Tensor] = {
-        "embed_w": embed.permute(3, 2, 0, 1).contiguous(),
-        "embed_b": _tensor(tree["embed"]["b"]),
-        "pos": _tensor(tree["pos"]),
-    }
-    for prefix in ("head", "ln_f"):
-        for k, v in tree[prefix].items():
-            sd[f"{prefix}.{k}"] = _tensor(v)
-    for i, blk in enumerate(blocks):
-        for part, p in blk.items():
-            for k, v in p.items():
-                sd[f"blocks.{i}.{part}.{k}"] = _tensor(v)
-    with torch.device("meta"):
-        model = ViT(image_size=side * patch, patch=patch, dim=dim,
-                    depth=len(blocks), heads=heads,
-                    mlp_dim=int(_tensor(blocks[0]["mlp1"]["w"]).shape[1])
-                    if blocks else 1,
-                    num_classes=int(_tensor(tree["head"]["w"]).shape[1]))
-    model.load_state_dict(sd, strict=True, assign=True)
-    model.eval()
-    with _tree_vits_lock:
-        _tree_vits[key] = (tree, model)
-        while len(_tree_vits) > _TREE_VITS_MAX:
-            _tree_vits.popitem(last=False)
-    return model
+    """The :class:`ViT` of a JAX-layout tree, built on the tree's own
+    tensors and kept per (tree, heads) (``convert._module_of_tree``), so
+    a model file's tree builds its module once."""
+    from .convert import _module_of_tree, vit_from_jax
+
+    return _module_of_tree(tree, vit_from_jax, int(heads))
 
 
 def vit_tree_apply(tree: Params, x: torch.Tensor, heads: int = 2,

@@ -33,6 +33,34 @@ from typing import Deque, Dict
 #: stream priority classes, best first (comparisons use the rank)
 PRIORITY_CLASSES = {"high": 0, "normal": 1, "low": 2}
 
+#: Buffer.meta key carrying the pipeline-ingress time.  A source stamps
+#: it (``SourceElement._loop``) only while some admission controller is
+#: armed in the process (:data:`ACTIVE`): a full window dispatches inline
+#: on the producer thread, so an overload backlog waits in the UPSTREAM
+#: ``queue`` elements, and only a deadline and a latency anchored at
+#: ingress let the controller see that wait.
+INGRESS_TS_META = "_nns_ingress_ts"
+
+#: the flag the sources read once a frame; kept by the counter below
+ACTIVE = False
+
+_active_lock = threading.Lock()
+_active_count = 0
+
+
+def _controller_armed() -> None:
+    global ACTIVE, _active_count
+    with _active_lock:
+        _active_count += 1
+        ACTIVE = True
+
+
+def _controller_disarmed() -> None:
+    global ACTIVE, _active_count
+    with _active_lock:
+        _active_count = max(_active_count - 1, 0)
+        ACTIVE = _active_count > 0
+
 _PRIORITY_NAMES = {v: k for k, v in PRIORITY_CLASSES.items()}
 
 

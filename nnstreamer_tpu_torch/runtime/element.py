@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..core import Buffer, Caps, TensorsSpec
+from . import admission as _admission
 from .events import Event, EventKind, Message, MessageKind
 
 
@@ -463,6 +464,10 @@ class SourceElement(Element):
                     if wait > 0:
                         time.sleep(wait)
                 last = time.monotonic()
+            if _admission.ACTIVE:
+                # deadline anchor for SLO-aware admission, stamped after
+                # the throttle and only while a controller is armed
+                buf.meta[_admission.INGRESS_TS_META] = time.monotonic()
             self.push(buf)
 
 

@@ -57,8 +57,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from ..utils.device import device_key
 from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
 from .admission import (
+    INGRESS_TS_META,
     AdmissionController,
     StreamPolicy,
+    _controller_armed,
+    _controller_disarmed,
     parse_priority,
     priority_name,
 )
@@ -301,6 +304,7 @@ class PoolEntry:
             self._batch_cfg = cfg
             if slo_ms > 0 and self.admission is None:
                 self.admission = AdmissionController(slo_ms / 1e3)
+                _controller_armed()  # sources start stamping ingress
             if batched and self.batcher is None:
                 self.buckets = parse_buckets(cfg[2], batch)
                 self.batcher = SharedBatcher(
@@ -337,7 +341,9 @@ class PoolEntry:
             if last:
                 self.batcher = None
                 self._batch_cfg = None
-                self.admission = None
+                if self.admission is not None:
+                    self.admission = None
+                    _controller_disarmed()
         self.stats.attached_streams = n
         lc = self._lifecycle
         if lc is not None:
@@ -368,8 +374,15 @@ class PoolEntry:
             raise RuntimeError(
                 f"{getattr(owner, 'name', owner)}: stream is not "
                 f"attached to a shared batcher (start() not run?)")
+        # deadline and latency anchor: the buffer's pipeline-ingress stamp
+        # when present (an overload backlog waits upstream of this call,
+        # in the queue elements), else now (a buffer pushed before the
+        # controller armed)
         enq = time.monotonic()
         if adm is not None and pol is not None:
+            t_in = buf.meta.get(INGRESS_TS_META)
+            if t_in is not None:
+                enq = t_in
             if not adm.admit(pol.priority):
                 # p99 over SLO and this stream is sheddable: dropped at
                 # the cheapest point — before any queueing — and LOUDLY
@@ -502,7 +515,10 @@ class PoolEntry:
 
     def _close(self) -> None:
         batcher, self.batcher = self.batcher, None
-        self.admission = None
+        if self.admission is not None:
+            # torn down without a last detach
+            self.admission = None
+            _controller_disarmed()
         if batcher is not None:
             batcher.flush()
             batcher.stop()

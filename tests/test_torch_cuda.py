@@ -12,7 +12,11 @@ on the card:
   differs); bf16 atol 1e-2 + rtol 1e-2 (the kernel rounds p to bf16 for
   the p·v product on the tensor cores, the plain version does not); on
   contiguous inputs and on the ViT's strided qkv views alike.
-The model lifecycle runs on the card at small width (a hot swap and a
+MobileNetV1, the MobileNetV2 classifier and YOLO (raw and end to end) run
+on the card against the CPU at f32 with TF32 off (logits and boxes within
+1e-4, classes and ``num`` equal), and the yolo decoder's pre-reduce on a
+CUDA tensor gives the CPU's rows.  The model lifecycle runs on the card
+at small width (a hot swap and a
 canary of ViT weights files, each frame against its version alone within
 1e-4), and the kernel cache makes a round trip with the real ``nvcc``.
 """
@@ -206,6 +210,75 @@ def test_vit_on_card_matches_cpu(card):
         got = vit_apply(model.to(card), x.to(card), torch.float32)
     assert kernels.flash_attention.launches == before + 2   # one per block
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.parametrize("family", ["v1", "v2"])
+def test_mobilenet_on_card_matches_cpu(card, family):
+    from nnstreamer_tpu_torch.models import (
+        mobilenet_v1_apply,
+        mobilenet_v1_from_jax,
+        mobilenet_v1_init,
+        mobilenet_v2_apply,
+        mobilenet_v2_from_jax,
+        mobilenet_v2_init,
+    )
+
+    _tf32_off()
+    init, from_jax, apply = (
+        (mobilenet_v1_init, mobilenet_v1_from_jax, mobilenet_v1_apply)
+        if family == "v1" else
+        (mobilenet_v2_init, mobilenet_v2_from_jax, mobilenet_v2_apply))
+    model = from_jax(init(0, 10, 0.25))
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        want = apply(model, x, torch.float32)
+        got = apply(model.to(card), x.to(card), torch.float32)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("raw", [True, False])
+def test_yolo_on_card_matches_cpu(card, raw):
+    from nnstreamer_tpu_torch.models import (
+        yolo_detect_apply,
+        yolo_from_jax,
+        yolo_init,
+        yolo_raw_apply,
+    )
+
+    _tf32_off()
+    model = yolo_from_jax(yolo_init(0, num_classes=5, width=8, depth=2))
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        if raw:
+            want = yolo_raw_apply(model, x, torch.float32)
+            got = yolo_raw_apply(model.to(card), x.to(card), torch.float32)
+            torch.testing.assert_close(got.cpu(), want, atol=1e-4,
+                                       rtol=1e-4)
+            return
+        want = yolo_detect_apply(model, x, max_out=10, dtype=torch.float32)
+        got = [t.cpu() for t in yolo_detect_apply(
+            model.to(card), x.to(card), max_out=10, dtype=torch.float32)]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("v8", [True, False])
+def test_yolo_prereduce_on_card_matches_cpu(card, v8):
+    from nnstreamer_tpu_torch.decoders.boundingbox import yolo_prereduce
+
+    g = torch.Generator().manual_seed(6)
+    shape = (1, 4 + 6, 8400) if v8 else (1, 8400, 5 + 6)
+    x = torch.rand(shape, generator=g)
+    x[..., :3] = 0.75                  # ties: the lower index first
+    got = yolo_prereduce(x.to(card), v8)
+    assert got.device.type == "cuda" and tuple(got.shape) == (512, 6)
+    assert torch.equal(got.cpu(), yolo_prereduce(x, v8))
 
 
 # -- shared-model serving and the transform modes on the card -----------------

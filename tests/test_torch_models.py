@@ -5,7 +5,9 @@ Tolerances: bit-exact for the parameter init; rtol 1e-6 for the box
 decode and the IoU matrix (elementwise f32 math, at most an ulp apart);
 atol 1e-4 + rtol 1e-4 for the network's f32 outputs (the two frameworks
 sum the convolutions in a different order); exact equality for the NMS on
-hand-built inputs, ties included.
+hand-built inputs, ties included.  ``register_ssd`` (raw and end to end)
+through both packages' ``parse_launch`` at its bf16 compute: raw outputs
+within 5e-2 of each tensor's largest magnitude, scores within 5e-2.
 """
 
 import functools
@@ -225,3 +227,60 @@ def test_ssd_detect_apply_f32_matches_jax():
                                atol=1e-4)
     np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("end_to_end", [False, True])
+def test_register_ssd_through_both_pipelines(end_to_end):
+    """``register_ssd`` through both packages' ``parse_launch`` at the
+    registration's bf16 compute: the raw ``(loc, cls)`` within 5e-2 of
+    each tensor's largest magnitude (the SSD is deep, and one bf16 ulp of
+    a large intermediate, summed in another order, lands on the small
+    outputs whole; the f32 forward is held at 1e-4 above); end
+    to end ``(boxes, scores, classes)`` with the JAX package's dtypes,
+    scores within 5e-2 and the contract held (boxes ordered, scores
+    descending)."""
+    from nnstreamer_tpu.core import Buffer as JBuffer
+    from nnstreamer_tpu.core import TensorsSpec as JTensorsSpec
+    from nnstreamer_tpu.filters import jax_xla
+    from nnstreamer_tpu.runtime import parse_launch as jax_parse_launch
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.filters import unregister_model
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    name = f"torch_parity_ssd_{int(end_to_end)}"
+    kw = dict(num_classes=NUM_CLASSES, batch=1, size=64, max_out=10, seed=2,
+              end_to_end=end_to_end)
+    jssd.register_ssd(name, **kw)
+    ssd.register_ssd(name, **kw)
+    desc = (f"appsrc name=src ! tensor_filter framework={{fw}} model={name} "
+            "! appsink name=out")
+    x = np.random.default_rng(12).uniform(-1, 1, (1, 64, 64, 3)) \
+        .astype(np.float32)
+    outs = []
+    try:
+        for parse, buf, spec, fw, extra in (
+                (jax_parse_launch, JBuffer, JTensorsSpec, "jax-xla", {}),
+                (parse_launch, Buffer, TensorsSpec, "torch-cuda",
+                 {"device": "cpu"})):
+            p = parse(desc.format(fw=fw), **extra)
+            p["src"].spec = spec.from_shapes([x.shape], np.float32)
+            with p:
+                p["src"].push_buffer(buf.of(x))
+                outs.append([np.asarray(t.np()) for t in
+                             p["out"].pull(timeout=120).tensors])
+                p["src"].end_of_stream()
+    finally:
+        jax_xla.unregister_model(name)
+        unregister_model(name)
+    want, got = outs
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    if not end_to_end:
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=5e-2 * np.abs(w).max())
+        return
+    boxes, scores, classes = got
+    assert (boxes[..., 2] >= boxes[..., 0]).all()
+    assert (np.diff(scores, axis=-1) <= 0).all()
+    np.testing.assert_allclose(scores, want[1], rtol=5e-2, atol=5e-2)

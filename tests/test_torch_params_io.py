@@ -18,10 +18,20 @@ package's, on the CPU.
 - The port's model-file formats: ``.npz``, ``.safetensors``, ``.pkl`` load
   (also as ``file://…@tag``); ``.jaxexp``/``.stablehlo``/``.mlir`` and
   ``.msgpack`` raise ``FilterError`` naming the format.
+- bf16: ``weights_to_bf16`` bit-equal to the JAX package's (compared as
+  uint16, halfway cases included); a bf16 safetensors file the JAX package
+  wrote reads with ``ml_dtypes`` unimportable, leaves bit-equal, and runs
+  through the port's filter (bf16 compute, 5e-2).
+- Each family's weights file (MobileNetV1, the MobileNetV2 classifier,
+  SSD raw and end to end, YOLO raw and end to end), written by the JAX
+  package's ``params_io`` (safetensors) or the port's (npz, which keeps
+  ``apply_kwargs``), loads through the port's ``model=file://…`` and
+  matches the JAX function at f32 within 1e-4, integer outputs equal.
 """
 
 import json
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -75,6 +85,10 @@ def _assert_same_tree(a, b):
         for x, y in zip(a, b):
             _assert_same_tree(x, y)
     elif isinstance(a, np.ndarray):
+        if a.dtype.name == "bfloat16" and isinstance(b, torch.Tensor):
+            # the port reads a bf16 leaf as a torch.bfloat16 tensor
+            assert b.dtype == torch.bfloat16
+            b = b.view(torch.int16).numpy().view(a.dtype)
         assert isinstance(b, np.ndarray)
         assert a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes()
@@ -361,3 +375,165 @@ def test_jax_tree_from_jax_init_loads_in_port(tmp_path):
     want = np.asarray(jax_vit_f32(tree, x), np.float32)
     np.testing.assert_allclose(_port_logits(path, x), want, rtol=1e-4,
                                atol=1e-4)
+
+
+# -- bf16 weights: weights_to_bf16, and bf16 files without ml_dtypes -----------
+
+from nnstreamer_tpu.models import mobilenet as jmob  # noqa: E402
+from nnstreamer_tpu.models import ssd as jssd  # noqa: E402
+from nnstreamer_tpu.models import yolo as jyolo  # noqa: E402
+
+
+def _as_np(tree):
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a) if hasattr(a, "shape") else a, tree)
+
+
+def _words(leaf) -> np.ndarray:
+    """The raw bits of a bf16 leaf (numpy or torch), as uint16."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(leaf).view(np.uint16)
+
+
+def test_weights_to_bf16_bit_equal_to_jax():
+    """Round to nearest even in both: the bits of every cast leaf match,
+    1-D leaves stay f32, non-array leaves pass through."""
+    tree = _as_np(jmob.mobilenet_v1_init(jax.random.PRNGKey(1), 10, 0.25))
+    rng = np.random.default_rng(0)
+    # halfway cases and big/small magnitudes on top of the real weights
+    tree["extra"] = {"w": np.concatenate([
+        rng.standard_normal((4, 64)).astype(np.float32),
+        np.array([[1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), 3e38,
+                   1e-40, 0.0, -0.0, 65504.5] * 8], np.float32)]),
+        "n": 3}
+    want = jio.weights_to_bf16(tree)
+    got = tio.weights_to_bf16(tree)
+    for (path, g), (_, w) in zip(sorted(tio.flatten_params(got).items()),
+                                 sorted(jio.flatten_params(want).items())):
+        if w.dtype.name == "bfloat16":
+            assert g.dtype == torch.bfloat16, path
+            assert np.array_equal(_words(g), _words(w)), path
+        else:
+            assert g.dtype == w.dtype and np.array_equal(g, w), path
+    assert got["extra"]["n"] == 3
+    assert isinstance(got["stem"]["scale"], torch.Tensor)
+    assert got["stem"]["scale"].dtype == torch.float32
+    # torch leaves are taken as well
+    again = tio.weights_to_bf16({"w": torch.from_numpy(tree["head"]["w"])})
+    assert np.array_equal(_words(again["w"]), _words(want["head"]["w"]))
+
+
+def test_bf16_safetensors_from_jax_loads_without_ml_dtypes(tmp_path,
+                                                           monkeypatch):
+    """A bf16 weights file the JAX package wrote reads in the port with
+    ``ml_dtypes`` unimportable: bf16 leaves come back as bf16 tensors,
+    bit for bit, and the file runs through the port's filter."""
+    tree = jio.weights_to_bf16(_as_np(jmob.mobilenet_v1_init(
+        jax.random.PRNGKey(2), 10, 0.25)))
+    path = str(tmp_path / "v1_bf16.safetensors")
+    jio.save_safetensors(path, tree, metadata={
+        "apply": "nnstreamer_tpu_torch.models.convert:"
+                 "mobilenet_v1_tree_apply",
+        "in_shapes": json.dumps([[2, 32, 32, 3]]), "in_dtypes": "float32"})
+    x = np.random.default_rng(3).uniform(-1, 1, (2, 32, 32, 3)).astype(
+        np.float32)
+    want = np.asarray(jmob.mobilenet_v1_apply(tree, x), np.float32)
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    with pytest.raises(ImportError):
+        import ml_dtypes  # noqa: F401
+    back, _ = tio.load_safetensors(path)
+    flat_back, flat_want = tio.flatten_params(back), jio.flatten_params(tree)
+    assert set(flat_back) == set(flat_want)
+    for k, w in flat_want.items():
+        g = flat_back[k]
+        if w.dtype.name == "bfloat16":
+            assert isinstance(g, torch.Tensor) and g.dtype == torch.bfloat16
+            assert np.array_equal(_words(g), _words(w)), k
+        else:
+            assert np.array_equal(g, w), k
+    # the port writes the same file back, byte for byte
+    again = str(tmp_path / "again.safetensors")
+    tio.save_safetensors(again, back, metadata={"x": "y"})
+    jio.save_safetensors(str(tmp_path / "ref.safetensors"), tree,
+                         metadata={"x": "y"})
+    assert open(again, "rb").read() == \
+        open(tmp_path / "ref.safetensors", "rb").read()
+    got = _port_logits(f"file://{path}@v2", x)
+    np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2)
+
+
+# -- each family's weights file, written by the JAX package -----------------------
+
+FAMILY_SIZE = 64
+
+
+def _family_case(family):
+    """(JAX tree, port apply, apply_kwargs, JAX reference fn of x)."""
+    key = jax.random.PRNGKey(5)
+    f32 = jnp.float32
+    if family in ("v1", "v2"):
+        init = jmob.mobilenet_v1_init if family == "v1" else \
+            jmob.mobilenet_v2_init
+        apply = jmob.mobilenet_v1_apply if family == "v1" else \
+            jmob.mobilenet_v2_apply
+        tree = _as_np(init(key, 10, 0.25))
+        return (tree, f"mobilenet_{family}_tree_apply", {"dtype": "float32"},
+                lambda x: (apply(tree, x, dtype=f32),))
+    if family.startswith("ssd"):
+        tree = _as_np(jssd.ssd_mobilenet_v2_init(key, 5))
+        if family == "ssd_raw":
+            return (tree, "ssd_tree_apply",
+                    {"end_to_end": False, "dtype": "float32"},
+                    lambda x: jssd.ssd_mobilenet_v2_apply(tree, x, dtype=f32))
+        anchors = jssd.ssd_anchors(FAMILY_SIZE, tuple(
+            int(np.ceil(FAMILY_SIZE / s)) for s in (16, 32, 64, 128, 256,
+                                                    512)))
+        return (tree, "ssd_tree_apply", {"max_out": 10, "dtype": "float32"},
+                lambda x: jssd.ssd_detect_apply(tree, x, anchors, max_out=10,
+                                                dtype=f32))
+    tree = _as_np(jyolo.yolo_init(key, num_classes=5, width=8, depth=2))
+    if family == "yolo_raw":
+        return (tree, "yolo_tree_apply", {"raw": True, "dtype": "float32"},
+                lambda x: (jyolo.yolo_raw_apply(tree, x, dtype=f32),))
+    return (tree, "yolo_tree_apply", {"max_out": 10, "dtype": "float32"},
+            lambda x: jyolo.yolo_detect_apply(tree, x, max_out=10,
+                                              dtype=f32))
+
+
+@pytest.mark.parametrize("fmt", ["npz", "safetensors"])
+@pytest.mark.parametrize("family", ["v1", "v2", "ssd_raw", "ssd", "yolo_raw",
+                                    "yolo"])
+def test_family_weights_file_from_jax_runs_in_port(tmp_path, family, fmt):
+    """A weights file of each family, written by the JAX package's
+    ``params_io`` and naming the port's ``*_tree_apply``, loads through the
+    port's ``model=file://…`` and matches the JAX function at f32 (1e-4;
+    integer outputs equal)."""
+    tree, apply, kwargs, ref = _family_case(family)
+    shapes = [[1, FAMILY_SIZE, FAMILY_SIZE, 3]]
+    apply = f"nnstreamer_tpu_torch.models.convert:{apply}"
+    path = str(tmp_path / f"{family}.{fmt}")
+    if fmt == "npz":
+        # the JAX writer drops apply_kwargs; the port's keeps them
+        tio.save_npz(path, tree, apply=apply, in_shapes=shapes,
+                     in_dtypes=np.float32, apply_kwargs=kwargs)
+    else:
+        jio.save_safetensors(path, tree, metadata={
+            "apply": apply, "apply_kwargs": json.dumps(kwargs),
+            "in_shapes": json.dumps(shapes), "in_dtypes": "float32"})
+    x = np.random.default_rng(6).uniform(0, 1, shapes[0]).astype(np.float32)
+    want = [np.asarray(t) for t in ref(x)]
+    sp = TorchCudaFilter()
+    sp.configure(FilterProps(framework="torch-cuda",
+                             model=f"file://{path}@v1",
+                             device=torch.device("cpu")))
+    try:
+        got = [t.numpy() for t in sp.invoke([torch.from_numpy(x)])]
+    finally:
+        sp.close()
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        if np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)

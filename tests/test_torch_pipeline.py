@@ -2,7 +2,8 @@
 
 1. Golden replay: the committed golden cases of the ported paths'
    elements (``transform_arithmetic``, ``transform_typecast``,
-   ``decoder_boundingbox_pp``, ``decoder_image_labeling``) run their own
+   ``decoder_boundingbox_pp``, ``decoder_image_labeling``,
+   ``decoder_yolov8``, ``decoder_yolov5``) run their own
    case code from
    ``tests/golden_cases.py`` with the port's ``parse_launch(device="cpu")``,
    ``TensorsSpec`` and ``Buffer`` in place of the JAX package's, and must
@@ -53,7 +54,9 @@ COMPOSITE = (
 @pytest.mark.parametrize("case", ["transform_arithmetic",
                                   "transform_typecast",
                                   "decoder_boundingbox_pp",
-                                  "decoder_image_labeling"])
+                                  "decoder_image_labeling",
+                                  "decoder_yolov8",
+                                  "decoder_yolov5"])
 def test_golden_replay_byte_exact(case, tmp_path, monkeypatch):
     monkeypatch.setattr(golden_cases, "parse_launch",
                         lambda desc: parse_launch(desc, device="cpu"))

@@ -22,6 +22,13 @@ within 1e-3.  The same slice from model files: each package's pool
 opens its own weights file of one numpy tree (``file://…@v0``), hot-swaps
 to ``@v1`` and serves again, per-frame logits equal within 1e-3.
 
+Admission's ingress anchor (both packages): a source stamps each buffer
+with its ingress time only while a pool's admission controller is armed
+(armed by the attach of a stream under ``slo-ms``, disarmed with the last
+stream); a pool held back behind an upstream ``queue`` takes that stamp
+as each frame's entry time, so the backlog's wait reaches the p99, which
+crosses the shedding ramp at the same observation in both packages.
+
 Every pipeline and pool a test starts is stopped and its threads joined.
 """
 
@@ -39,9 +46,11 @@ import torch
 import nnstreamer_tpu.core as jcore
 import nnstreamer_tpu.elements.basic as jbasic
 import nnstreamer_tpu.runtime as jruntime
+import nnstreamer_tpu.runtime.admission as jadmission
 import nnstreamer_tpu_torch.core as tcore
 import nnstreamer_tpu_torch.elements.basic as tbasic
 import nnstreamer_tpu_torch.runtime as truntime
+import nnstreamer_tpu_torch.runtime.admission as tadmission
 from nnstreamer_tpu.elements.filter import TensorFilter as JFilter
 from nnstreamer_tpu.filters import jax_xla
 from nnstreamer_tpu.models import vit as jvit
@@ -63,12 +72,12 @@ SHAPE = (4,)
 PKGS = {
     "jax": SimpleNamespace(
         core=jcore, basic=jbasic, Filter=JFilter, fw="jax-xla",
-        serving=jserving, NegotiationError=jruntime.NegotiationError,
+        serving=jserving, admission=jadmission, NegotiationError=jruntime.NegotiationError,
         pipeline=lambda name: jruntime.Pipeline(name=name),
         parse_launch=jruntime.parse_launch),
     "port": SimpleNamespace(
         core=tcore, basic=tbasic, Filter=TFilter, fw="torch-cuda",
-        serving=tserving, NegotiationError=truntime.NegotiationError,
+        serving=tserving, admission=tadmission, NegotiationError=truntime.NegotiationError,
         pipeline=lambda name: truntime.Pipeline(name=name, device="cpu"),
         parse_launch=functools.partial(truntime.parse_launch,
                                        device="cpu")),
@@ -118,14 +127,15 @@ def _frame(k, stream: int, i: int):
 
 
 def _pipeline(k, tag: str, share=True, batch=8, timeout_ms=50.0, n_bufs=64,
-              framework=None, model="_t_torch_serving", spec=None):
+              framework=None, model="_t_torch_serving", spec=None,
+              **filter_props):
     p = k.pipeline(f"p_{tag}")
     spec = spec or k.core.TensorsSpec.from_shapes([SHAPE], np.float32)
     src = k.basic.AppSrc(name="src", spec=spec, max_buffers=n_bufs + 4)
     q = k.basic.Queue(name="q", max_size_buffers=n_bufs + 4)
     flt = k.Filter(name="net", framework=framework or k.fw, model=model,
                    batch=batch, batch_timeout_ms=timeout_ms,
-                   share_model=share)
+                   share_model=share, **filter_props)
     sink = k.basic.AppSink(name="out", max_buffers=n_bufs + 4)
     p.add(src, q, flt, sink).link(src, q, flt, sink)
     return p, src, flt, sink
@@ -746,3 +756,107 @@ def test_invoke_dynamic_reshapes_per_buffer(pkg):
         np.testing.assert_array_equal(np.asarray(b.tensors[0].np()),
                                       x * 2.0 + 1.0)
     assert p["net"].in_spec.tensors[0].shape == (6,)
+
+
+# -- admission's ingress anchor ----------------------------------------------------
+
+
+@pytest.mark.parametrize("pkg", sorted(PKGS))
+def test_ingress_stamp_gated_on_active_controller(pkg):
+    """``tests/test_chaos.py``'s case on both packages: the stamp waits
+    for an armed controller, which the pool's attach under ``slo-ms``
+    arms and the last stream's detach disarms."""
+    k = PKGS[pkg]
+    assert not k.admission.ACTIVE
+    p0, src0, _, sink0 = _pipeline(k, "nostamp", batch=4, timeout_ms=2.0)
+    with p0:
+        src0.push_buffer(_frame(k, 0, 0))
+        out = sink0.pull(timeout=10)
+        assert out is not None
+        assert not k.admission.ACTIVE          # no slo-ms: never armed
+    p, src, flt, sink = _pipeline(k, "stamp", batch=4, timeout_ms=2.0,
+                                  slo_ms=100.0)
+    seen = []
+    orig = k.serving.PoolEntry.submit
+
+    def spy(self, owner, buf):
+        seen.append(buf.meta.get(k.admission.INGRESS_TS_META))
+        return orig(self, owner, buf)
+
+    k.serving.PoolEntry.submit = spy
+    try:
+        p.start()
+        try:
+            assert k.admission.ACTIVE           # armed by the pool attach
+            t0 = time.monotonic()
+            src.push_buffer(_frame(k, 0, 0))
+            assert sink.pull(timeout=10) is not None
+        finally:
+            p.stop()
+    finally:
+        k.serving.PoolEntry.submit = orig
+    assert not k.admission.ACTIVE               # disarmed with the last stream
+    assert len(seen) == 1 and seen[0] is not None and seen[0] >= t0
+
+
+@pytest.mark.parametrize("pkg", sorted(PKGS))
+def test_stall_behind_upstream_queue_reaches_the_p99(pkg):
+    """The pool is held back (its submit waits on a gate) while 32 frames
+    pile up in the upstream ``queue``; after 0.3 s it is let go.  Every
+    frame's ``enq`` is its ingress stamp, so every latency includes the
+    stall, and the p99 crosses the ramp (SLO 100 ms) at the first
+    recompute, observation 16, in both packages; later frames are shed."""
+    k = PKGS[pkg]
+    stall, n = 0.3, 32
+    gate = threading.Event()
+    pool_submit = k.serving.PoolEntry.submit
+    submit_from = k.serving.SharedBatcher.submit_from
+    observe = k.admission.AdmissionController.observe
+    enqs, crossed = [], []
+
+    def held(self, owner, buf):
+        gate.wait(10)
+        return pool_submit(self, owner, buf)
+
+    def recording(self, stream, item, deadline_s=0.0, enq=None):
+        enqs.append((item.meta.get(k.admission.INGRESS_TS_META), enq))
+        return submit_from(self, stream, item, deadline_s=deadline_s,
+                           enq=enq)
+
+    def watched(self, lat_s):
+        observe(self, lat_s)
+        if self.at_risk and not crossed:
+            crossed.append((len(self._lat), self.p99_s))
+
+    k.serving.PoolEntry.submit = held
+    k.serving.SharedBatcher.submit_from = recording
+    k.admission.AdmissionController.observe = watched
+    p, src, flt, sink = _pipeline(k, "stall", batch=4, timeout_ms=2.0,
+                                  slo_ms=100.0)
+    try:
+        p.start()
+        try:
+            t0 = time.monotonic()
+            for i in range(n):
+                src.push_buffer(_frame(k, 0, i))
+            time.sleep(stall)
+            released = time.monotonic()
+            gate.set()
+            got = []
+            while (b := sink.pull(timeout=2.0)) is not None:
+                got.append(b)
+            adm = flt.pool.admission
+            shed = adm.snapshot()["shed"]["normal"]
+        finally:
+            p.stop()
+    finally:
+        k.serving.PoolEntry.submit = pool_submit
+        k.serving.SharedBatcher.submit_from = submit_from
+        k.admission.AdmissionController.observe = observe
+    assert len(enqs) >= 16 and len(got) == len(enqs)
+    for stamp, enq in enqs:
+        assert stamp is not None and enq == stamp      # ingress, not submit
+        assert t0 <= stamp <= released - stall + 0.25
+    assert crossed and crossed[0][0] == 16, crossed
+    assert crossed[0][1] >= stall
+    assert shed > 0 and len(got) + shed == n
