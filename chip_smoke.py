@@ -4,11 +4,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-per-forward DIR   # one count, see below
     python3 chip_smoke.py --serving-legs DIR          # phase 8's legs only
+    python3 chip_smoke.py --decoders                  # build + phase 12 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
 model lifecycle of that pool (hot swap, canary, the kernel cache),
-MobileNet classification and YOLO detection — through ``parse_launch``
+MobileNet classification, YOLO detection, and the decoders with the
+detect → tensor_region → tensor_crop cascade — through ``parse_launch``
 at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
@@ -116,7 +118,33 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    pre-reduce gives the host decode's detections of the same tensor on
    the CPU (at a threshold at most 512 anchors pass), and window 0 equals
    a direct forward's;
-12. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+12. decoders and cascade: (a) SSD-MobileNetV2 as phase 4 builds it, at
+   batch 1, 256 frames (uint8 1×300×300×3) staged on the card: ``device_src
+   ! tee``, one branch ``queue ! tensor_transform backend=cuda ! SSD !
+   tensor_decoder mode=tensor_region option1=4 option2=<labels>
+   option3=300:300 ! crop.sink_info``, the other ``queue ! crop.sink_raw``,
+   ``tensor_crop ! appsink``: every output a flexible buffer of 1–4 uint8
+   crops on the card, each byte-equal to its frame's slice at the regions
+   the port's CPU decode of the same detections gives, every eighth frame's
+   regions equal to a numpy decode written out with the JAX package's
+   semantics, ``scale_bias_cast`` once a frame plus negotiation and its
+   output equal to its plain version's on a frame; frames/s, then the
+   source→sink latency of 64 frames with the source paced at 30 frames/s
+   as a camera sends them (beside that of the unthrottled run, which is
+   mostly queueing).  (b) Phase 4's composite at batch 256 with
+   ``option7=host option2=<91 labels>``, 3 windows: each canvas byte-equal
+   to the CPU render of the same detections and differing from the
+   box-only render in label pixels only; frames/s.  ``option7=device``
+   with option2 warns once and gives the box-only device canvas.  (c)
+   ``image_segment`` at DeepLab v3 257's output (1,257,257,21) and
+   ``pose_estimation`` at PoseNet MobileNetV1 257's (1,9,9,17) +
+   (1,9,9,34) ``heatmap-offset``, staged on the card through ``appsrc``:
+   one card→host copy of the (257,257) map or the (17,5) rows a frame,
+   results equal to the CPU's.  (d) The cascade filter's 4 outputs from
+   the card through ``tensor_decoder mode=protobuf ! tensor_converter !
+   tensor_decoder mode=octet_stream``: the bytes come back.  It prints
+   which glyph source (PIL or blocks) drew the labels;
+13. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -126,6 +154,8 @@ it queued: the same count phase 7 prints, for another tree on the same
 card.  ``--serving-legs DIR`` runs nothing but phase 8's shared and
 unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
+``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
+line).
 """
 
 from __future__ import annotations
@@ -274,6 +304,31 @@ print(json.dumps({{"load_s": load_s, "nvcc_runs": build.nvcc_runs,
                   "ok": bool(ok)}}))
 """
 
+CASCADE_FRAMES = 256     # camera frames, one at a time (tensor_region
+CASCADE_REGIONS = 4      # reads one frame)
+CAMERA_FPS = 30          # the paced run's source rate, for the latency
+PACED_FRAMES = 64
+BATCH_LABELS = 91        # lines of the labels file phase 12 writes
+LABELED_WINDOWS = 3
+PREREDUCE_FRAMES = 4
+WIRE_FRAMES = 8
+CASCADE_PIPE = (
+    "tensor_crop name=crop ! appsink name=out max-buffers={sink} "
+    "device_src name=src num-buffers={n} ! tee name=t "
+    "t. ! queue ! tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! tensor_filter name=net framework=torch-cuda "
+    "model={model} ! tensor_decoder name=region mode=tensor_region "
+    "option1={regions} option2={labels} option3={s}:{s} ! crop.sink_info "
+    "t. ! queue ! crop.sink_raw")
+LABELED_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=net framework=torch-cuda model={model} ! "
+    "tensor_decoder name=overlay mode=bounding_boxes "
+    "option1=mobilenet-ssd-postprocess {labels}option4={s}:{s} "
+    "option5={s}:{s} option7={render} ! appsink name=out max-buffers={sink}")
+
 COMPOSITE = (
     "device_src name=src num-buffers={n} ! "
     "tensor_transform name=norm mode=arithmetic option={norm} "
@@ -389,14 +444,17 @@ def vit_pipe(model: str, n: int, decoder: bool = False) -> str:
                            dec=LABEL_DEC if decoder else "")
 
 
-def run_pipeline(desc: str, frames, n: int, device="cuda"):
+def run_pipeline(desc: str, frames, n: int, device="cuda", setup=None):
     """One run of a pipeline description; returns (pipeline, buffers,
-    host seconds from start to EOS)."""
+    host seconds from start to EOS).  ``setup(p)`` runs on the parsed
+    pipeline before it starts."""
     from nnstreamer_tpu_torch.runtime import parse_launch
 
     p = parse_launch(desc, device=device)
     p["src"].frames = frames
     p["src"].pool_size = len(frames)
+    if setup is not None:
+        setup(p)
     t0 = time.perf_counter()
     p.start()
     try:
@@ -493,6 +551,8 @@ def phase_kernels(card: str, power: str):
          torch.float32),
         ("u8 yolo raw", (1, YOLO_SIZE, YOLO_SIZE, 3), torch.uint8,
          torch.float32),
+        # the cascade: one camera frame at a time
+        ("u8 cascade", (1, SIZE, SIZE, 3), torch.uint8, torch.float32),
         ("u8 ragged", (3, 5), torch.uint8, torch.float32),
         ("u8 ragged", (1, 299, 299, 3), torch.uint8, torch.float32),
         ("i8", (1, 299, 299, 3), torch.int8, torch.float32),
@@ -2375,11 +2435,578 @@ def phase_yolo(card: str, power: str):
     return res
 
 
+# -- phase 12: decoders and the detect → region → crop cascade --------------
+
+def decoders_dir() -> str:
+    """Files phase 12 writes (the labels file), inside the checkout's
+    ignored ``build/``."""
+    d = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def write_labels(n: int) -> str:
+    path = os.path.join(decoders_dir(), f"labels_{n}.txt")
+    with open(path, "w") as f:
+        f.write("".join(f"label {i}\n" for i in range(n)))
+    return path
+
+
+def stamp_times(p, fps: float = 0.0) -> None:
+    """Host clock at the source's create and at the sink's render, on
+    each buffer's meta (``t_src`` rides through every element that copies
+    the meta; ``t_sink`` is set where the buffer arrives).  With ``fps``
+    the source makes frame i no earlier than i/fps s after its first, as
+    a camera does."""
+    src, sink = p["src"], p["out"]
+    create, render = src.create, sink.render
+    clock = {"n": 0, "t0": None}
+
+    def created():
+        if fps:
+            now = time.perf_counter()
+            if clock["t0"] is None:
+                clock["t0"] = now
+            wait = clock["t0"] + clock["n"] / fps - now
+            if wait > 0:
+                time.sleep(wait)
+            clock["n"] += 1
+        b = create()
+        if b is not None:
+            b.meta["t_src"] = time.perf_counter()
+        return b
+
+    def rendered(b):
+        b.meta["t_sink"] = time.perf_counter()
+        render(b)
+
+    src.create, sink.render = created, rendered
+
+
+def record_decodes(dec, keep_device: int = 0):
+    """Wrap a decoder's ``decode``: by input offset (or call order), the
+    host copies of its input tensors (free: the element drained them), its
+    output's first tensor, and for the first ``keep_device`` calls the
+    input tensors as they live on the card."""
+    rec, orig = {}, dec.decode
+
+    def decode(buf, spec):
+        out = orig(buf, spec)
+        key = buf.offset if buf.offset is not None else len(rec)
+        rec[key] = {"inputs": [t.np().copy() for t in buf.tensors],
+                    "output": out.tensors[0].np().copy(),
+                    "device": [t.torch() for t in buf.tensors]
+                    if len(rec) < keep_device else None}
+        return out
+
+    dec.decode = decode
+    return rec
+
+
+def region_reference(boxes, classes, scores, num, n_regions: int,
+                     fw: int, fh: int, conf: float = 0.25):
+    """The JAX package's tensor_region semantics on numpy, written out:
+    detections over ``conf`` among the first ``num``, sorted by score
+    (stable), the top ``n_regions`` as pixel (x, y, w, h); the whole
+    frame when none passes."""
+    boxes = boxes.reshape(-1, 4)
+    scores = scores.reshape(-1)
+    n = min(int(num.reshape(-1)[0]), len(scores))
+    dets = []
+    for i in range(n):
+        if scores[i] < conf:
+            continue
+        ymin, xmin, ymax, xmax = boxes[i]
+        dets.append((float(xmin), float(ymin), float(xmax - xmin),
+                     float(ymax - ymin), float(scores[i])))
+    dets.sort(key=lambda d: -d[4])
+    dets = dets[:n_regions]
+    regions = np.zeros((max(len(dets), 1), 4), np.uint32)
+    for i, (x, y, w, h, _) in enumerate(dets):
+        regions[i] = (int(np.clip(x, 0, 1) * fw), int(np.clip(y, 0, 1) * fh),
+                      max(int(w * fw), 1), max(int(h * fh), 1))
+    if not dets:
+        regions[0] = (0, 0, fw, fh)
+    return regions
+
+
+def crop_slices(frame, regions):
+    """Each region's slice of a (1, H, W, C) frame, clamped as
+    tensor_crop clamps it, as bytes."""
+    hh, ww = frame.shape[1], frame.shape[2]
+    out = []
+    for x, y, w, h in regions.astype(np.int64):
+        x = max(0, min(int(x), ww - 1))
+        y = max(0, min(int(y), hh - 1))
+        w = max(1, min(int(w), ww - x))
+        h = max(1, min(int(h), hh - y))
+        out.append(np.ascontiguousarray(frame[:, y:y + h, x:x + w]))
+    return out
+
+
+def latencies(bufs):
+    """p50 and p99 source→sink latency (ms, host clock) of stamped
+    buffers."""
+    lat = sorted((b.meta["t_sink"] - b.meta["t_src"]) * 1e3 for b in bufs)
+    return statistics.median(lat), lat[int(0.99 * (len(lat) - 1))]
+
+
+def count_card_copies():
+    """Count the device→host copies made through ``Tensor.cpu`` (every
+    drain of the port goes through it); returns (shapes list, restore)."""
+    import torch
+
+    copies, cpu = [], torch.Tensor.cpu
+
+    def counting(self, *a, **kw):
+        if self.device.type == "cuda":
+            copies.append(tuple(self.shape))
+        return cpu(self, *a, **kw)
+
+    torch.Tensor.cpu = counting
+
+    def restore():
+        torch.Tensor.cpu = cpu
+
+    return copies, restore
+
+
+def cascade_phase(tree, card: str, power: str, labels: str):
+    """(a) the cascade at full SSD width, batch 1; returns its numbers and
+    the first frames' detection tensors as they live on the card."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, DType, TensorFormat
+    from nnstreamer_tpu_torch.decoders.tensorregion import TensorRegion
+    from nnstreamer_tpu_torch.elements.transform import (
+        _fold_affine,
+        parse_arith_ops,
+    )
+    from nnstreamer_tpu_torch.models import (
+        feature_sizes_for,
+        ssd_anchors,
+        ssd_from_jax,
+        weights_to_bf16,
+    )
+    from nnstreamer_tpu_torch.ops import kernels
+
+    n = CASCADE_FRAMES
+    anchors = ssd_anchors(SIZE, feature_sizes_for(SIZE))
+    register_detector("ssd_cascade", ssd_from_jax(weights_to_bf16(tree)),
+                      anchors, 1, torch.bfloat16)
+    rng = np.random.default_rng(SEED + 12)
+    frames = [rng.integers(0, 256, (1, SIZE, SIZE, 3), dtype=np.uint8)
+              for _ in range(n)]
+    rec = {}
+
+    def setup(p):
+        stamp_times(p)
+        rec.update(src=record_decodes(p["region"]._decoder(),
+                                      keep_device=WIRE_FRAMES))
+
+    desc = CASCADE_PIPE.format(sink=n + 4, n=n, norm=NORM,
+                               model="ssd_cascade", regions=CASCADE_REGIONS,
+                               labels=labels, s=SIZE)
+    kernels.scale_bias_cast.launches = 0
+    p, bufs, secs = run_pipeline(desc, frames, n, setup=setup)
+    launches = kernels.scale_bias_cast.launches
+    check_fused(p, None, "cascade")
+    if not n <= launches <= n + 2:
+        raise RuntimeError(f"cascade: scale_bias_cast launched {launches} "
+                           f"times for {n} frames (one a frame expected, "
+                           "plus negotiation)")
+    # the kernel's prologue output at the cascade's shape, exactly
+    a, b, _ = _fold_affine(parse_arith_ops(NORM), DType.UINT8)
+    x = torch.from_numpy(frames[0]).cuda()
+    if not torch.equal(kernels.scale_bias_cast(x, a, b / a, torch.float32),
+                       kernels.scale_bias_cast_reference(x, a, b / a,
+                                                         torch.float32)):
+        raise RuntimeError("cascade: prologue kernel and plain version "
+                           "differ")
+    decoded = rec["src"]
+    ref = TensorRegion()
+    for i, v in enumerate((str(CASCADE_REGIONS), labels, f"{SIZE}:{SIZE}")):
+        ref.set_option(i, v)
+    n_crops, whole, checked = [], 0, 0
+    for b in bufs:
+        off = b.offset
+        if b.format != TensorFormat.FLEXIBLE or \
+                not 1 <= b.num_tensors <= CASCADE_REGIONS or off not in decoded:
+            raise RuntimeError(f"cascade: bad output buffer {b}")
+        for t in b.tensors:
+            x = t.torch()
+            if x.device.type != "cuda" or x.dtype != torch.uint8:
+                raise RuntimeError(f"cascade: crop {tuple(x.shape)} "
+                                   f"{x.dtype} on {x.device}")
+        dets = decoded[off]["inputs"]
+        regions = ref.decode(Buffer.of(*dets), None).tensors[0].np()
+        if not np.array_equal(regions, decoded[off]["output"]):
+            raise RuntimeError(f"cascade frame {off}: the card's regions "
+                               "differ from the CPU decode's")
+        want = crop_slices(frames[off], regions)
+        got = [t.np() for t in b.tensors]
+        if len(got) != len(want) or any(
+                g.shape != w.shape or g.tobytes() != w.tobytes()
+                for g, w in zip(got, want)):
+            raise RuntimeError(f"cascade frame {off}: crops differ from the "
+                               "frame's slices at the CPU decode's regions")
+        if off % 8 == 0:
+            jref = region_reference(*dets, CASCADE_REGIONS, SIZE, SIZE)
+            if not np.array_equal(jref, regions):
+                raise RuntimeError(f"cascade frame {off}: regions differ "
+                                   "from the JAX-semantics decode")
+            checked += 1
+        n_crops.append(b.num_tensors)
+        whole += int(regions.shape[0] == 1 and
+                     tuple(regions[0]) == (0, 0, SIZE, SIZE))
+    if sorted(b.offset for b in bufs) != list(range(n)):
+        raise RuntimeError("cascade: frames lost or repeated")
+    fps, p50_gap = window_times(bufs, 1)
+    sat = latencies(bufs)
+    # the latency a camera sees: the source paced at CAMERA_FPS, below the
+    # cascade's frames/s, so no frame waits behind another in the queues
+    _, paced, _ = run_pipeline(
+        CASCADE_PIPE.format(sink=PACED_FRAMES + 4, n=PACED_FRAMES, norm=NORM,
+                            model="ssd_cascade", regions=CASCADE_REGIONS,
+                            labels=labels, s=SIZE),
+        frames[:PACED_FRAMES], PACED_FRAMES,
+        setup=lambda q: stamp_times(q, CAMERA_FPS))
+    if sorted(b.offset for b in paced) != list(range(PACED_FRAMES)):
+        raise RuntimeError("cascade (paced): frames lost or repeated")
+    lat = latencies(paced)
+    slow = sorted(((b.meta["t_sink"] - b.meta["t_src"]) * 1e3, b.offset)
+                  for b in paced)[-3:]
+    hist = {k: n_crops.count(k) for k in sorted(set(n_crops))}
+    print(f"decoders (a) cascade: {n} frames (1x{SIZE}x{SIZE}x3) through "
+          f"tee → SSD → tensor_region option1={CASCADE_REGIONS} → "
+          f"tensor_crop: fused {p.fused_segments[0]}; scale_bias_cast "
+          f"launches={launches}; crops per frame {hist}, whole-frame "
+          f"regions {whole}; every crop byte-equal to its frame's slice at "
+          f"the CPU decode's regions, {checked} frames equal to the "
+          f"JAX-semantics region decode; {fps:.1f} frames/s (CUDA events, "
+          f"frames 2..{n}), p50 gap {p50_gap:.3f} ms; source→sink latency "
+          f"(host clock) with the source at {CAMERA_FPS} frames/s "
+          f"({PACED_FRAMES} frames): p50 {lat[0]:.3f} ms, p99 {lat[1]:.3f} "
+          f"ms, slowest (ms, frame) {[(round(t, 3), i) for t, i in slow]}; "
+          f"under the unthrottled source (mostly queueing): p50 "
+          f"{sat[0]:.3f} ms, p99 {sat[1]:.3f} ms; host start→EOS "
+          f"{secs:.2f} s [{card}, {power}]", flush=True)
+    fwd = ssd_forward_cost(tree, anchors, frames[0])
+    print(f"decoders (a) one batch-1 SSD forward (decode + NMS) alone: "
+          f"{fwd['kernels']} CUDA kernels, {fwd['enqueue_ms']:.3f} ms "
+          f"of host time to queue them, {fwd['wall_ms']:.3f} ms to the "
+          f"end of its device work (medians of 20) [{card}, {power}]",
+          flush=True)
+    prof = phase_profile(
+        CASCADE_PIPE.format(sink=36, n=32, norm=NORM, model="ssd_cascade",
+                            regions=CASCADE_REGIONS, labels=labels, s=SIZE),
+        frames, card, power, windows=32, label="cascade profile")
+    busy = prof[1] if prof is not None else None
+    device = [decoded[k]["device"] for k in sorted(decoded)
+              if decoded[k]["device"] is not None]
+    return {"fps": fps, "busy_ms_32_frames": busy, "forward": fwd,
+            "p50_latency_ms": lat[0], "p99_latency_ms": lat[1],
+            "p50_latency_saturated_ms": sat[0],
+            "p99_latency_saturated_ms": sat[1],
+            "launches": launches, "crops_per_frame": hist,
+            "whole_frame": whole, "jax_semantics_frames": checked,
+            "host_s": secs}, device
+
+
+def ssd_forward_cost(tree, anchors, frame):
+    """One batch-1 SSD forward with its decode and NMS, called directly:
+    the CUDA kernels it queues (torch.profiler, copy-engine rows
+    excluded), the host time to queue them and the time to the end of
+    its device work, medians of 20 after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.models import (
+        ssd_detect_apply,
+        ssd_from_jax,
+        weights_to_bf16,
+    )
+
+    model = ssd_from_jax(weights_to_bf16(tree)).cuda()
+    anc = torch.from_numpy(anchors).cuda()
+    x = (torch.from_numpy(frame).cuda().float() - 127.5) / 127.5
+
+    def forward():
+        return ssd_detect_apply(model, x, anc, max_out=MAX_OUT,
+                                dtype=torch.bfloat16)
+
+    enq, wall = [], []
+    with torch.inference_mode():
+        for _ in range(25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enq.append((t1 - t0) * 1e3)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    return {"kernels": sum(e.count for e in rows),
+            "enqueue_ms": statistics.median(enq[5:]),
+            "wall_ms": statistics.median(wall[5:])}
+
+
+def text_mask_of(dets, width: int, height: int):
+    """The pixels the label text of ``dets`` covers on one canvas."""
+    from nnstreamer_tpu_torch.decoders.font import draw_text, label_anchor
+
+    mask = np.zeros((height, width, 4), np.uint8)
+    f32 = np.float32
+    for d in dets:
+        if not d.label:
+            continue
+        x0 = min(max(int(f32(d.x) * f32(width)), 0), width - 1)
+        y0 = min(max(int(f32(d.y) * f32(height)), 0), height - 1)
+        lx, ly = label_anchor(x0, y0)
+        draw_text(mask, lx, ly, d.label, (1, 1, 1, 1))
+    return mask.any(-1)
+
+
+def labeled_phase(tree, card: str, power: str, labels: str):
+    """(b) the SSD composite at batch 256 with label text on the host
+    overlay, and option2 with option7=device."""
+    import logging
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.decoders.boundingbox import BoundingBoxes
+    from nnstreamer_tpu_torch.models import (
+        feature_sizes_for,
+        ssd_anchors,
+        ssd_from_jax,
+        weights_to_bf16,
+    )
+    from nnstreamer_tpu_torch.ops import kernels
+
+    anchors = ssd_anchors(SIZE, feature_sizes_for(SIZE))
+    register_detector("ssd_labeled", ssd_from_jax(weights_to_bf16(tree)),
+                      anchors, BATCH, torch.bfloat16)
+    rng = np.random.default_rng(SEED + 13)
+    frames = [rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+              for _ in range(LABELED_WINDOWS)]
+    rec = {}
+
+    def setup(p):
+        stamp_times(p)
+        rec.update(dec=record_decodes(p["overlay"]._decoder()))
+
+    def desc(n, render, with_labels):
+        return LABELED_PIPE.format(
+            n=n, norm=NORM, model="ssd_labeled", s=SIZE, sink=n + 4,
+            render=render,
+            labels=f"option2={labels} " if with_labels else "")
+
+    kernels.scale_bias_cast.launches = 0
+    p, bufs, secs = run_pipeline(desc(LABELED_WINDOWS, "host", True),
+                                 frames, LABELED_WINDOWS, setup=setup)
+    launches = kernels.scale_bias_cast.launches
+    check_fused(p, None, "labeled overlay")
+    plain, host = BoundingBoxes(), BoundingBoxes()
+    for d in (plain, host):
+        for i, v in ((0, "mobilenet-ssd-postprocess"), (3, f"{SIZE}:{SIZE}"),
+                     (4, f"{SIZE}:{SIZE}")):
+            d.set_option(i, v)
+    host.set_option(1, labels)
+    text_px = 0
+    for w, b in enumerate(bufs):
+        canvas = b.tensors[0].np()
+        inputs = list(rec["dec"].values())[w]["inputs"]
+        cpu = host.decode(Buffer.of(*inputs), None)
+        if canvas.shape != (BATCH, SIZE, SIZE, 4) or \
+                canvas.tobytes() != cpu.tensors[0].np().tobytes():
+            raise RuntimeError(f"labeled window {w}: the canvas differs from "
+                               "the CPU render of the same detections")
+        box_only = plain.decode(Buffer.of(*inputs), None).tensors[0].np()
+        diff = (canvas != box_only).any(-1)
+        for f, dets in enumerate(cpu.meta["detections"]):
+            if (diff[f] & ~text_mask_of(dets, SIZE, SIZE)).any():
+                raise RuntimeError(f"labeled window {w} frame {f}: pixels "
+                                   "outside the label text differ from the "
+                                   "box-only render")
+        text_px += int(diff.sum())
+    if text_px == 0:
+        raise RuntimeError("labeled: no label pixel drawn")
+    t = [b.meta["t_sink"] for b in bufs]
+    fps = (len(t) - 1) * BATCH / (t[-1] - t[0])
+    p50 = statistics.median((b - a) * 1e3 for a, b in zip(t, t[1:]))
+
+    # option2 with option7=device: one warning, the box-only device canvas
+    msgs = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "label text" in record.getMessage():
+                msgs.append(record.getMessage())
+
+    log = logging.getLogger("nnstreamer_tpu_torch")
+    catch = Catch()
+    log.addHandler(catch)
+    try:
+        _, dev_l, _ = run_pipeline(desc(2, "device", True), frames[:2], 2)
+    finally:
+        log.removeHandler(catch)
+    _, dev_p, _ = run_pipeline(desc(2, "device", False), frames[:2], 2)
+    for a, b in zip(dev_l, dev_p):
+        if not torch.equal(a.tensors[0].torch(), b.tensors[0].torch()):
+            raise RuntimeError("option7=device with option2: the canvas "
+                               "differs from the box-only device canvas")
+    if len(msgs) != 1:
+        raise RuntimeError(f"option7=device with option2: {len(msgs)} "
+                           "warnings, one expected")
+    print(f"decoders (b) labeled overlay: SSD batch {BATCH}, "
+          f"{LABELED_WINDOWS} windows, option7=host option2=<{BATCH_LABELS} "
+          f"labels>: scale_bias_cast launches={launches}; every canvas "
+          f"byte-equal to the CPU render of the same detections, {text_px} "
+          f"label pixels and nothing else differ from the box-only render; "
+          f"{fps:.1f} frames/s (host clock at the sink, windows 2.."
+          f"{LABELED_WINDOWS}), p50 window {p50:.3f} ms, host start→EOS "
+          f"{secs:.2f} s; option7=device with option2: one warning "
+          f"({msgs[0]!r}), canvases equal to the box-only device canvas "
+          f"[{card}, {power}]", flush=True)
+    return {"fps": fps, "p50_window_ms": p50, "launches": launches,
+            "label_pixels": text_px, "host_s": secs}
+
+
+def prereduce_phase(card: str, power: str):
+    """(c) image_segment and pose_estimation pre-reduced on the card at
+    DeepLab v3 257's and PoseNet MobileNetV1 257's output shapes, staged
+    on the card through ``appsrc``."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.decoders import find_decoder
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    rng = np.random.default_rng(SEED + 14)
+    res = {}
+    cases = (
+        ("image_segment", "", [(1, 257, 257, 21)], (257, 257)),
+        ("pose_estimation", "option1=257:257 option2=257:257 "
+         "option4=heatmap-offset", [(1, 9, 9, 17), (1, 9, 9, 34)], (17, 5)),
+    )
+    for mode, opts, shapes, rows in cases:
+        ins = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+               for _ in range(PREREDUCE_FRAMES)]
+        p = parse_launch(f"appsrc name=src ! tensor_decoder name=dec "
+                         f"mode={mode} {opts} ! appsink name=out "
+                         f"max-buffers={PREREDUCE_FRAMES + 4}",
+                         device="cuda")
+        p["src"].spec = TensorsSpec.from_shapes(shapes, np.float32)
+        staged = [[torch.from_numpy(a).cuda() for a in f]
+                  for f in ins]
+        copies, restore = count_card_copies()
+        try:
+            with p:
+                for i, f in enumerate(staged):
+                    p["src"].push_buffer(Buffer.of(*f, pts=i))
+                p["src"].end_of_stream()
+                if not p.wait_eos(timeout=300):
+                    raise RuntimeError(f"{mode}: no EOS")
+        finally:
+            restore()
+        outs = []
+        while (b := p["out"].pull(timeout=0)) is not None:
+            outs.append(b)
+        if len(outs) != PREREDUCE_FRAMES or \
+                copies != [rows] * PREREDUCE_FRAMES:
+            raise RuntimeError(f"{mode}: {len(outs)} outputs, card→host "
+                               f"copies {copies}; one {rows} copy a frame "
+                               "expected")
+        ref = find_decoder(mode)()
+        for i, tok in enumerate(opts.split()):
+            ref.set_option(int(tok[6]) - 1, tok.partition("=")[2])
+        for b, f in zip(outs, ins):
+            cpu = ref.decode(Buffer.of(*f), None)
+            if b.tensors[0].np().tobytes() != cpu.tensors[0].np().tobytes():
+                raise RuntimeError(f"{mode}: frame differs from the CPU's")
+            if mode == "image_segment":
+                same = np.array_equal(b.meta["segment_map"],
+                                      cpu.meta["segment_map"])
+            else:
+                same = b.meta["keypoints"] == cpu.meta["keypoints"]
+            if not same:
+                raise RuntimeError(f"{mode}: result differs from the CPU's")
+        print(f"decoders (c) {mode} {' '.join(str(s) for s in shapes)} on "
+              f"the card: {PREREDUCE_FRAMES} frames, one card→host copy of "
+              f"{rows} a frame, maps/keypoints and RGBA frames equal to the "
+              f"CPU run's [{card}, {power}]", flush=True)
+        res[mode] = {"frames": PREREDUCE_FRAMES, "copy_shape": list(rows)}
+    return res
+
+
+def wire_phase(device_dets, card: str, power: str):
+    """(d) the cascade filter's 4 output tensors, from the card, through
+    protobuf → tensor_converter → octet_stream: the bytes come back."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    first = device_dets[0]
+    p = parse_launch(
+        "appsrc name=src ! tensor_decoder mode=protobuf ! tensor_converter "
+        "! tensor_decoder mode=octet_stream ! appsink name=out "
+        f"max-buffers={len(device_dets) + 4}", device="cuda")
+    p["src"].spec = TensorsSpec.from_shapes(
+        [tuple(t.shape) for t in first],
+        [np.dtype(str(t.dtype).replace("torch.", "")) for t in first])
+    with p:
+        for i, ts in enumerate(device_dets):
+            if not all(t.is_cuda for t in ts):
+                raise RuntimeError("wire: the detections are not on the card")
+            p["src"].push_buffer(Buffer.of(*ts, pts=i))
+        p["src"].end_of_stream()
+        if not p.wait_eos(timeout=120):
+            raise RuntimeError("wire: no EOS")
+    n = 0
+    for ts in device_dets:
+        b = p["out"].pull(timeout=1)
+        want = b"".join(t.cpu().numpy().tobytes() for t in ts)
+        if b is None or b.tensors[0].np().tobytes() != want:
+            raise RuntimeError("wire: protobuf round trip changed the bytes")
+        n += len(want)
+    print(f"decoders (d) wire: {len(device_dets)} frames of the cascade "
+          f"filter's 4 outputs ({', '.join(str(tuple(t.shape)) for t in first)}"
+          f") from the card through protobuf → tensor_converter → "
+          f"octet_stream: {n} bytes equal [{card}, {power}]", flush=True)
+    return {"frames": len(device_dets), "bytes": n}
+
+
+def phase_decoders(card: str, power: str):
+    """Phase 12 (see the module doc)."""
+    from nnstreamer_tpu_torch.decoders.font import glyph_source
+    from nnstreamer_tpu_torch.models import ssd_mobilenet_v2_init
+
+    t0 = time.perf_counter()
+    print(f"decoders: label glyphs from {glyph_source()}", flush=True)
+    tree = ssd_mobilenet_v2_init(SEED, NUM_CLASSES)
+    labels = write_labels(BATCH_LABELS)
+    res, device_dets = cascade_phase(tree, card, power, labels)
+    out = {"cascade": res,
+           "labeled": labeled_phase(tree, card, power, labels),
+           "prereduce": prereduce_phase(card, power),
+           "wire": wire_phase(device_dets, card, power),
+           "glyphs": glyph_source()}
+    print(f"decoders phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--serving-legs":
         return serving_legs(sys.argv[2])
+    alone = sys.argv[1:] == ["--decoders"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -2413,6 +3040,12 @@ def main() -> int:
             if "bf16_kernel" in kernel and bad:
                 raise RuntimeError(f"{kernel}: ptxas reports {bad}")
 
+    if alone:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        print(json.dumps({"decoders": phase_decoders(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     main_path = phase_main_path(card, power)
@@ -2424,10 +3057,12 @@ def main() -> int:
     lifecycle = phase_lifecycle(card, power)
     classify = phase_classify(card, power)
     yolo = phase_yolo(card, power)
+    decoders = phase_decoders(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
                       "classify": classify, "yolo": yolo,
+                      "decoders": decoders,
                       "card": card, "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
@@ -2438,7 +3073,9 @@ def main() -> int:
                    "classify": classify["v1"]["launches"],
                    "classify_v2": classify["v2"]["launches"],
                    "yolo": yolo["launches"],
-                   "yolo_raw": yolo["raw"]["launches"]}
+                   "yolo_raw": yolo["raw"]["launches"],
+                   "cascade": decoders["cascade"]["launches"],
+                   "labeled_overlay": decoders["labeled"]["launches"]}
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],

@@ -65,13 +65,16 @@ def from_numpy(a: np.ndarray, device: Optional[torch.device] = None
 class Tensor:
     """One tensor payload with lazy device/host/wire conversion."""
 
-    __slots__ = ("_dev", "_host", "_raw", "_spec", "_donated")
+    __slots__ = ("_dev", "_host", "_raw", "_spec", "_donated", "_shared")
 
     def __init__(self, data: ArrayLike, spec: Optional[TensorSpec] = None):
         self._dev = None
         self._host = None
         self._raw = None
         self._donated = False
+        #: set by a fan-out (``tee``): more than one branch holds this
+        #: tensor, so no branch may write into its memory
+        self._shared = False
         if isinstance(data, (bytes, bytearray, memoryview)):
             if spec is None:
                 raise ValueError("raw bytes tensor requires an explicit spec")

@@ -2,8 +2,15 @@
 
 Counterpart of the JAX package's ``decoders/__init__.py`` (parity target:
 the reference's decoder sub-plugin ABI, init/setOption/getOutCaps/decode
-registered under a mode string).  The port carries the
-``bounding_boxes`` and ``image_labeling`` decoders.
+registered under a mode string).  Every mode the JAX package registers
+is here: ``bounding_boxes``, ``image_labeling``, ``direct_video``,
+``image_segment``, ``pose_estimation``, ``tensor_region``,
+``octet_stream``, ``flexbuf``, ``flatbuf``, ``protobuf`` and ``python3``.
+
+The JAX package keeps a bounded cache of jitted helper programs
+(``JitFnCache``) for its packed drain and pre-reductions.  The port has
+no counterpart: eager torch ops compile nothing, so there is nothing to
+cache.
 """
 
 from __future__ import annotations
@@ -62,6 +69,21 @@ class Decoder:
     def out_caps(self, in_spec: TensorsSpec) -> Caps:
         raise NotImplementedError
 
+    def wants_host_input(self) -> bool:
+        """Whether decode() reads the input tensors on the host.  True for
+        every reference decoder (they are CPU rasterizers); a decoder that
+        renders on the device returns False so ``tensor_decoder`` makes no
+        device→host copy for it."""
+        return True
+
+    def prereduce_active(self, buf: Buffer) -> bool:
+        """Whether decode() reduces THIS buffer on its device first (an
+        argmax, a top-k, its own packed drain), so only a small result
+        crosses to the host.  When true, ``tensor_decoder`` makes no copy
+        of its own: copying the whole input would move what the
+        reduction discards."""
+        return False
+
     def decode(self, buf: Buffer, in_spec: Optional[TensorsSpec]) -> Buffer:
         raise NotImplementedError
 
@@ -102,6 +124,8 @@ def _ensure_builtin() -> None:
     with _builtin_lock:
         if _builtin_done:
             return
-        from . import boundingbox, imagelabel  # noqa: F401  self-registering
-
+        from . import directvideo, imagelabel  # noqa: F401
+        for mod in ("boundingbox", "imagesegment", "pose", "tensorregion",
+                    "octetstream", "flexbuf", "wirefmt", "python3"):
+            __import__(f"{__name__}.{mod}")
         _builtin_done = True

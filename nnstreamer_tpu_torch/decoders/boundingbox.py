@@ -1,26 +1,36 @@
 """``bounding_boxes`` decoder: detection model output → box overlay video.
 
 Counterpart of the JAX package's ``decoders/boundingbox.py`` (parity: the
-reference's box_properties/ mobilenetssd.cc, mobilenetssdpp.cc and
-yolo.cc).  Options follow the reference grammar:
+reference's box_properties/ mobilenetssd.cc, mobilenetssdpp.cc, yolo.cc,
+ovdetection.cc and mppalmdetection.cc).  Options follow the reference
+grammar:
 
 - option1 — decoding scheme: ``mobilenet-ssd`` (raw loc (A,4) + class
   logits (A,C), decoded against SSD anchors), ``mobilenet-ssd-postprocess``
   (alias ``mobilenetssd-pp``: boxes (N,4 ymin,xmin,ymax,xmax normalized),
   classes (N,), scores (N,), num (1,); or the batched (B,N,4) layout of an
   in-model decode+NMS head), ``yolov5`` ((1, A, 5+C): xywh, objectness,
-  class confidences) and ``yolov8`` ((1, 4+C, A): xywh, class
-  confidences), pixel-space xywh; ov-person and mp-palm are not ported
+  class confidences), ``yolov8`` ((1, 4+C, A): xywh, class confidences),
+  pixel-space xywh, ``ov-person-detection`` (OpenVINO rows [image_id,
+  label, conf, x_min, y_min, x_max, y_max]) and ``mp-palm-detection``
+  (MediaPipe palm anchors, clamped-sigmoid scores)
+- option2 — a label file, one label per line: each detection's
+  ``label`` is the line of its class, drawn above its box on the host
+  overlay
 - option3 — scheme detail: mobilenet-ssd, a box-priors file (blank:
   synthesize the SSD anchors for option5's size); yolo,
-  ``<conf_thresh>:<iou_thresh>``
+  ``<conf_thresh>:<iou_thresh>``; mp-palm, ``<score_thresh>[:…]`` (the
+  threshold is read, the anchor fields keep the palm model's constants)
 - option4 — output video size ``WIDTH:HEIGHT``
-- option5 — model input size ``WIDTH:HEIGHT`` (yolo box scaling, anchors)
-- option7 — render backend: ``host`` (default, numpy rasterization) |
-  ``device`` (boxutil.device_render on the pipeline's device; the
-  postprocess scheme only).  With ``device`` the structured detections
-  stay on the device at ``meta["detections_device"]``; the host path
-  attaches python :class:`Detection` lists at ``meta["detections"]``.
+- option5 — model input size ``WIDTH:HEIGHT`` (yolo and palm box
+  scaling, anchors)
+- option7 — render backend: ``host`` (default, numpy rasterization with
+  label text) | ``device`` (boxutil.device_render on the pipeline's
+  device; the postprocess scheme only).  The device path draws boxes
+  only: with option2 set it warns once and leaves the text out.  With
+  ``device`` the structured detections stay on the device at
+  ``meta["detections_device"]``; the host path attaches python
+  :class:`Detection` lists at ``meta["detections"]``.
 
 A yolo tensor that lives on a device is pre-reduced there
 (:func:`yolo_prereduce`): best class, its score and the top
@@ -28,12 +38,11 @@ A yolo tensor that lives on a device is pre-reduced there
 the host; the detections equal the host decode's whenever a frame has at
 most K anchors above the threshold.  The top-K is the stable sort of
 ``models/ssd.py`` (``lax.top_k``'s order among equal scores).
-
-Label files (option2) are not supported by this slice of the port.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional
 
 import numpy as np
@@ -47,11 +56,21 @@ from ..models.ssd import (
     feature_sizes_for,
     ssd_anchors,
 )
-from . import Decoder, drain_once, register_decoder
-from .boxutil import Detection, device_render, draw_boxes, nms, sigmoid
+from . import Decoder, register_decoder
+from .boxutil import (
+    Detection,
+    device_render,
+    draw_boxes,
+    load_labels,
+    nms,
+    sigmoid,
+)
+
+_log = logging.getLogger("nnstreamer_tpu_torch")
 
 _PP_SCHEMES = ("mobilenet-ssd-postprocess", "mobilenetssd-pp")
-_SCHEMES = ("mobilenet-ssd", "yolov5", "yolov8") + _PP_SCHEMES
+_SCHEMES = ("mobilenet-ssd", "yolov5", "yolov8", "ov-person-detection",
+            "mp-palm-detection") + _PP_SCHEMES
 
 #: yolo device pre-reduction keeps the top-K anchors by best class score
 #: and drains only those (K, 6) rows
@@ -85,12 +104,18 @@ class BoundingBoxes(Decoder):
     def __init__(self):
         super().__init__()
         self.scheme = "mobilenet-ssd-postprocess"
+        self.labels: List[str] = []
         self.priors: Optional[np.ndarray] = None
         self.out_w, self.out_h = 300, 300
         self.in_w, self.in_h = 300, 300
         self.conf_thresh = 0.25
         self.iou_thresh = 0.5
         self.backend = "host"
+        self._warned_device_labels = False
+        #: mp-palm score threshold (reference default 0.5), settable via
+        #: option3 when the scheme is mp-palm-detection
+        self._palm_thresh: Optional[float] = None
+        self._palm_anchor_cache: Optional[np.ndarray] = None
         #: set by the fusion pass when the device overlay runs INSIDE the
         #: upstream torch-cuda filter: decode() then consumes a ready
         #: canvas instead of rendering
@@ -102,14 +127,12 @@ class BoundingBoxes(Decoder):
         if self.options[0]:
             scheme = self.options[0].strip().lower()
             if scheme not in _SCHEMES:
-                raise NotImplementedError(
-                    f"bounding_boxes scheme {scheme!r} is not ported to "
-                    "nnstreamer_tpu_torch yet")
+                raise ValueError(
+                    f"bounding_boxes: unknown scheme {scheme!r} (known: "
+                    f"{', '.join(_SCHEMES)})")
             self.scheme = scheme
         if self.options[1]:
-            raise NotImplementedError(
-                "bounding_boxes option2 (label file): label text overlay "
-                "is not ported to nnstreamer_tpu_torch yet")
+            self.labels = load_labels(self.options[1])
         self._interpret_opt3(self.options[2])
         if self.options[3]:
             w, _, h = self.options[3].partition(":")
@@ -120,7 +143,9 @@ class BoundingBoxes(Decoder):
 
     def _interpret_opt3(self, o3: Optional[str]) -> None:
         """option3 against the current scheme: yolo "<conf>:<iou>"
-        thresholds, mobilenet-ssd a box-priors file."""
+        thresholds, mp-palm "<threshold>[:num_layers:min_scale:…]" (the
+        threshold is read, the rest keep the palm model's constants),
+        mobilenet-ssd a box-priors file."""
         if not o3:
             return
         if self.scheme.startswith("yolo"):
@@ -132,6 +157,11 @@ class BoundingBoxes(Decoder):
                     self.iou_thresh = float(i)
             except ValueError:
                 pass  # not a threshold pair (e.g. a stale priors path)
+        elif self.scheme == "mp-palm-detection":
+            try:
+                self._palm_thresh = float(o3.partition(":")[0])
+            except ValueError:
+                pass
         elif self.scheme == "mobilenet-ssd":
             try:
                 self.priors = np.loadtxt(o3, dtype=np.float32)
@@ -190,6 +220,93 @@ class BoundingBoxes(Decoder):
                 x=float(cx[a] - w[a] / 2), y=float(cy[a] - h[a] / 2),
                 w=float(w[a]), h=float(h[a]), class_id=c, score=s))
         return nms(dets, self.iou_thresh)
+
+    def _decode_ov_detection(self, buf: Buffer) -> List[Detection]:
+        """``ov-person-detection``: one (200, 7) tensor of rows [image_id,
+        label, conf, x_min, y_min, x_max, y_max]; a negative image_id ends
+        the list, conf >= 0.8 keeps the row (parity:
+        box_properties/ovdetection.cc)."""
+        arr = buf.tensors[0].np().reshape(-1, 7)
+        dets: List[Detection] = []
+        for row in arr:
+            if row[0] < 0:
+                break
+            if row[2] < 0.8:
+                continue
+            x0, y0, x1, y1 = (float(row[3]), float(row[4]),
+                              float(row[5]), float(row[6]))
+            dets.append(Detection(
+                x=x0, y=y0, w=x1 - x0, h=y1 - y0,
+                class_id=int(row[1]), score=float(row[2])))
+        return dets
+
+    # MediaPipe palm anchor defaults (box_properties/mppalmdetection.cc)
+    _PALM_STRIDES = (8, 16, 16, 16)
+    _PALM_MIN_SCALE = 1.0
+    _PALM_MAX_SCALE = 1.0
+    _PALM_OFFSET = 0.5
+    _PALM_INPUT = 192
+
+    def _palm_anchors(self) -> np.ndarray:
+        """MediaPipe SSD anchors of the palm model: per run of equal
+        strides, two unit-aspect anchors per layer of the run, centers at
+        (cell + 0.5)/grid (parity: mp_palm_detection_generate_anchors).
+        (A, 4) rows of [y_center, x_center, h, w], built once."""
+        if self._palm_anchor_cache is not None:
+            return self._palm_anchor_cache
+        n = len(self._PALM_STRIDES)
+
+        def scale(i):
+            if n == 1:
+                return (self._PALM_MIN_SCALE + self._PALM_MAX_SCALE) / 2
+            return self._PALM_MIN_SCALE + \
+                (self._PALM_MAX_SCALE - self._PALM_MIN_SCALE) * i / (n - 1)
+
+        out: List[List[float]] = []
+        layer = 0
+        while layer < n:
+            run_end = layer
+            dims: List[float] = []
+            while run_end < n and \
+                    self._PALM_STRIDES[run_end] == self._PALM_STRIDES[layer]:
+                dims.extend([scale(run_end), scale(run_end + 1)])
+                run_end += 1
+            grid = int(np.ceil(self._PALM_INPUT /
+                               self._PALM_STRIDES[layer]))
+            for y in range(grid):
+                for x in range(grid):
+                    cy = (y + self._PALM_OFFSET) / grid
+                    cx = (x + self._PALM_OFFSET) / grid
+                    for sc in dims:
+                        out.append([cy, cx, sc, sc])
+            layer = run_end
+        self._palm_anchor_cache = np.asarray(out, np.float32)
+        return self._palm_anchor_cache
+
+    def _decode_mp_palm(self, buf: Buffer) -> List[Detection]:
+        """``mp-palm-detection``: boxes (A, 18) + raw scores (A,); offsets
+        scale by the anchor box relative to the model input size, scores
+        pass a sigmoid clamped at ±100, palms suppress at IoU 0.05
+        (parity: box_properties/mppalmdetection.cc)."""
+        boxes = buf.tensors[0].np().reshape(-1, 18)
+        scores = buf.tensors[1].np().ravel()
+        anchors = self._palm_anchors()
+        a = min(len(anchors), len(boxes), len(scores))
+        s = 1.0 / (1.0 + np.exp(-np.clip(scores[:a], -100.0, 100.0)))
+        thresh = 0.5 if self._palm_thresh is None else self._palm_thresh
+        dets: List[Detection] = []
+        for d in np.nonzero(s >= thresh)[0]:
+            ay, ax, ah, aw = anchors[d]
+            b = boxes[d]
+            yc = b[0] / self.in_h * ah + ay
+            xc = b[1] / self.in_w * aw + ax
+            h = b[2] / self.in_h * ah
+            w = b[3] / self.in_w * aw
+            dets.append(Detection(
+                x=max(float(xc - w / 2), 0.0),
+                y=max(float(yc - h / 2), 0.0),
+                w=float(w), h=float(h), class_id=0, score=float(s[d])))
+        return nms(dets, 0.05)
 
     def _decode_yolo(self, buf: Buffer, v8: bool) -> List[Detection]:
         t = buf.tensors[0]
@@ -266,6 +383,17 @@ class BoundingBoxes(Decoder):
 
     def _device_active(self) -> bool:
         return self.backend == "device" and self.scheme in _PP_SCHEMES
+
+    def wants_host_input(self) -> bool:
+        # the device renderer consumes the tensors where they are
+        return not self._device_active()
+
+    def prereduce_active(self, buf: Buffer) -> bool:
+        # the yolo schemes take the top-k of a device-resident frame on its
+        # device; every other scheme reads the whole input on the host and
+        # leaves the packed drain to tensor_decoder
+        return self.scheme in ("yolov5", "yolov8") and \
+            any(t.is_device for t in buf.tensors)
 
     def device_post_program(self):
         """For the fusion pass (runtime/fusion.py): an epilogue mapping the
@@ -357,6 +485,12 @@ class BoundingBoxes(Decoder):
 
     def decode(self, buf: Buffer, in_spec: Optional[TensorsSpec]) -> Buffer:
         if self._device_active():
+            if self.labels and not self._warned_device_labels:
+                self._warned_device_labels = True
+                _log.warning(
+                    "bounding_boxes: option7=device draws boxes only — "
+                    "label text (option2) is not rasterized on the device; "
+                    "use option7=host for labeled overlays")
             # fused path: tensor 0 must actually BE a canvas (uint8, rank
             # 3/4) — a withdrawn fusion (flexible stream) leaves raw
             # detection tensors, which route to the normal renderer
@@ -369,21 +503,27 @@ class BoundingBoxes(Decoder):
         if scheme in ("yolov5", "yolov8"):
             # pre-reduces on the device instead: no drain of the raw tensor
             dets = self._decode_yolo(buf, v8=scheme == "yolov8")
+        elif scheme == "mobilenet-ssd":
+            dets = self._decode_mobilenet_ssd(buf)
+        elif scheme == "ov-person-detection":
+            dets = self._decode_ov_detection(buf)
+        elif scheme == "mp-palm-detection":
+            dets = self._decode_mp_palm(buf)
         else:
-            # the host decoders read every tensor: drain the device-resident
-            # ones with ONE packed copy instead of one per tensor
-            drain_once(buf.tensors)
-            dets = self._decode_mobilenet_ssd(buf) \
-                if scheme == "mobilenet-ssd" \
-                else self._decode_ssd_postprocess(buf)
+            dets = self._decode_ssd_postprocess(buf)
         batched = bool(dets) and isinstance(dets[0], list)
+        for d in (x for f in dets for x in f) if batched else dets:
+            if d.class_id < len(self.labels):
+                d.label = self.labels[d.class_id]
+        labels = bool(self.labels)
         if batched:
             frame = np.zeros((len(dets), self.out_h, self.out_w, 4),
                              np.uint8)
             for b, f in enumerate(dets):
-                draw_boxes(f, self.out_w, self.out_h, out=frame[b])
+                draw_boxes(f, self.out_w, self.out_h, labels=labels,
+                           out=frame[b])
         else:
-            frame = draw_boxes(dets, self.out_w, self.out_h)
+            frame = draw_boxes(dets, self.out_w, self.out_h, labels=labels)
         out = Buffer(
             tensors=[Tensor(frame,
                             TensorSpec.from_shape(frame.shape, np.uint8))],

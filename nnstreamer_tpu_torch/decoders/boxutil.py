@@ -2,12 +2,10 @@
 
 Counterpart of the JAX package's ``decoders/boxutil.py``: the host-side
 IoU/NMS helpers, ``sigmoid``/``softmax`` and ``load_labels``, and the
-rasterizer (parity: the reference's tensordec-boundingbox.cc ``nms()``
-and ``draw()``), and the device rasterizer :func:`device_render` as a
-plain function on tensors.
-
-Label text is not drawn by this slice of the port (it needs the bitmap
-font module, still to be ported).
+rasterizer with its label text (parity: the reference's
+tensordec-boundingbox.cc ``nms()`` and ``draw()``, and tensordec-font.c
+through ``font.py``), and the device rasterizer :func:`device_render` as
+a plain function on tensors, which draws boxes only.
 """
 
 from __future__ import annotations
@@ -146,10 +144,12 @@ def device_render(boxes: torch.Tensor, classes: torch.Tensor,
 
 
 def draw_boxes(dets: Sequence[Detection], width: int, height: int,
-               thickness: int = 2,
+               thickness: int = 2, labels: bool = False,
                out: Optional[np.ndarray] = None) -> np.ndarray:
     """Render detections into an RGBA overlay frame (H, W, 4) uint8 on
-    the host.  ``out`` draws into an existing zeroed frame."""
+    the host.  With ``labels=True`` each detection carrying a ``label``
+    gets its text stamped above the box in the box's color.  ``out``
+    draws into an existing zeroed frame."""
     img = np.zeros((height, width, 4), np.uint8) if out is None else out
     palette = PALETTE
     for d in dets:
@@ -169,4 +169,9 @@ def draw_boxes(dets: Sequence[Detection], width: int, height: int,
         img[max(y1 - t + 1, 0):y1 + 1, x0:x1 + 1] = color
         img[y0:y1 + 1, x0:x0 + t] = color
         img[y0:y1 + 1, max(x1 - t + 1, 0):x1 + 1] = color
+        if labels and d.label:
+            from .font import draw_text, label_anchor
+
+            lx, ly = label_anchor(x0, y0)
+            draw_text(img, lx, ly, d.label, color)
     return img

@@ -50,6 +50,9 @@ class ImageLabeling(Decoder):
         return Caps.new(CapsStruct.make(
             "text/x-raw", format="utf8", framerate=in_spec.rate))
 
+    def prereduce_active(self, buf: Buffer) -> bool:
+        return buf.tensors[0].is_device
+
     def decode(self, buf: Buffer, in_spec: Optional[TensorsSpec]) -> Buffer:
         t = buf.tensors[0]
         if t.is_device:

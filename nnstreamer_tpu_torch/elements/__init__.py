@@ -2,6 +2,8 @@
 port's built-in elements with the runtime registry."""
 
 from . import basic  # noqa: F401
+from . import converter  # noqa: F401
+from . import crop  # noqa: F401
 from . import decoder  # noqa: F401
 from . import devicesrc  # noqa: F401
 from . import filter  # noqa: F401

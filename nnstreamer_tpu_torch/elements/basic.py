@@ -1,9 +1,16 @@
-"""Basic plumbing elements: appsrc, appsink, queue, filesink.
+"""Basic plumbing elements: appsrc, appsink, queue, tee, filesrc, filesink.
 
 Counterpart of the JAX package's ``elements/basic.py`` for the elements
 this slice of the port covers (GStreamer appsrc/appsink semantics, the
-``queue`` thread boundary, and ``filesink``, the tail of every golden
-comparison).
+``queue`` thread boundary, ``tee`` fan-out, and ``filesrc``/``filesink``,
+the head and tail of every golden comparison).
+
+``tee`` hands the same buffer, the same tensors, to every branch, as the
+JAX package does.  Torch tensors are mutable, so it first marks each
+tensor shared: a ``tensor_transform donate=true`` on one branch then
+never writes into the frame in place (it still marks the frame donated,
+so a later read on another branch raises ``DonatedTensorError``, as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -13,7 +20,9 @@ import queue as _q
 import threading
 from typing import Optional
 
-from ..core import Buffer, Caps, TensorsSpec
+import numpy as np
+
+from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
 from ..runtime.element import Element, Pad, SinkElement, SourceElement
 from ..runtime.events import Event, EventKind
 from ..runtime.registry import register_element
@@ -177,6 +186,85 @@ class Queue(Element):
     def current_level_buffers(self) -> int:
         with self._cv:
             return len(self._dq)
+
+
+@register_element("tee")
+class Tee(Element):
+    """1→N fan-out; each downstream branch receives every buffer."""
+
+    FACTORY = "tee"
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.add_sink_pad()
+        self._next = 0
+
+    def request_pad(self, name: str) -> Optional[Pad]:
+        if name in ("src_%u", "src"):
+            name = f"src_{self._next}"
+        if not name.startswith("src_"):
+            return None
+        self._next += 1
+        return self.add_src_pad(name)
+
+    def propose_src_caps(self, pad: Pad) -> Caps:
+        if self.sinkpad.caps is not None:
+            return self.sinkpad.caps
+        return Caps.any_tensors()
+
+    def chain(self, pad: Pad, buf: Buffer) -> None:
+        if len(self.srcpads) > 1:
+            for t in buf.tensors:
+                t._shared = True
+        for sp in self.srcpads:
+            self.push(buf, sp)
+
+
+@register_element("filesrc")
+class FileSrc(SourceElement):
+    """Read a file and push its bytes as application/octet-stream buffers
+    (parity: GStreamer filesrc, the head of every golden pipeline).
+    ``blocksize=0`` pushes the whole file as one buffer."""
+
+    FACTORY = "filesrc"
+
+    def __init__(self, name=None, location: str = "", blocksize: int = 0,
+                 **props):
+        self.location = location
+        self.blocksize = blocksize
+        super().__init__(name, **props)
+        self._fh = None
+        self._done = False
+
+    def output_caps(self) -> Caps:
+        return Caps.new(CapsStruct.make("application/octet-stream"))
+
+    def output_spec(self):
+        return None
+
+    def start(self) -> None:
+        self._fh = open(self.location, "rb")
+        self._done = False
+        super().start()
+
+    def stop(self) -> None:
+        super().stop()
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+    def create(self) -> Optional[Buffer]:
+        if self._done or self._fh is None:
+            return None
+        size = int(self.blocksize)
+        data = self._fh.read(size) if size > 0 else self._fh.read()
+        if not data or size <= 0:
+            self._done = True
+        if not data:
+            return None
+        arr = np.frombuffer(data, np.uint8)
+        return Buffer(tensors=[Tensor(
+            arr, TensorSpec.from_shape(arr.shape, np.uint8))])
 
 
 @register_element("filesink")

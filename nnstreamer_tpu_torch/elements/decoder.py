@@ -3,6 +3,12 @@
 Near-copy of the JAX package's ``elements/decoder.py`` (parity target:
 the reference's gsttensor_decoder.c): ``mode=`` selects the sub-plugin,
 option1..option9 configure it.
+
+The host-read policy: a decoder that reads its input on the host, and
+does not reduce this buffer on the device first, gets every device tensor
+of the buffer in ONE device→host copy (``drain_once``) before it decodes,
+instead of one synchronising copy per tensor.  A device-rendering or
+pre-reducing decoder gets no copy from here.
 """
 
 from __future__ import annotations
@@ -10,7 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..core import Buffer, Caps
-from ..decoders import Decoder, find_decoder
+from ..decoders import Decoder, drain_once, find_decoder
 from ..runtime.element import NegotiationError, Pad, TransformElement
 from ..runtime.registry import register_element
 
@@ -53,4 +59,7 @@ class TensorDecoder(TransformElement):
             Caps.any()
 
     def transform(self, buf: Buffer) -> Buffer:
-        return self._decoder().decode(buf, self.sinkpad.spec)
+        dec = self._decoder()
+        if dec.wants_host_input() and not dec.prereduce_active(buf):
+            drain_once(buf.tensors)
+        return dec.decode(buf, self.sinkpad.spec)

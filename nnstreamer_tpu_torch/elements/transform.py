@@ -364,9 +364,11 @@ class _OpChain:
 
 def _sole_storage(t: Tensor, x: torch.Tensor) -> bool:
     """Whether ``x`` (the device payload of ``t``) is the only thing that
-    can see its memory: not a view, the whole of its storage, and no host
-    or wire copy that may alias it (``torch.from_numpy`` shares memory)."""
-    return (t._host is None and t._raw is None and x._base is None
+    can see its memory: not a view, the whole of its storage, no host or
+    wire copy that may alias it (``torch.from_numpy`` shares memory), and
+    not handed to several branches by a ``tee``."""
+    return (t._host is None and t._raw is None and not t._shared
+            and x._base is None
             and x.storage_offset() == 0
             and x.untyped_storage().nbytes() == x.numel() * x.element_size())
 

@@ -575,3 +575,119 @@ def test_kernel_cache_round_trip_with_nvcc(card, tmp_path, monkeypatch):
         kernels.scale_bias_cast(x, 0.5, 1.0),
         kernels.scale_bias_cast_reference(x, 0.5, 1.0), atol=0, rtol=0)
     compilecache.CACHE_STATS.reset()
+
+
+# -- decoders and the detect → region → crop cascade ------------------------
+
+def test_image_segment_prereduce_on_card_matches_cpu(card):
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.decoders.imagesegment import ImageSegment
+
+    x = torch.randn(1, 257, 257, 21, generator=torch.Generator()
+                    .manual_seed(3))
+    dec = ImageSegment()
+    got = dec.decode(Buffer.of(x.to(card)), None)
+    want = dec.decode(Buffer.of(x.numpy()), None)
+    np.testing.assert_array_equal(got.meta["segment_map"],
+                                  want.meta["segment_map"])
+    np.testing.assert_array_equal(got.tensors[0].np(), want.tensors[0].np())
+
+
+@pytest.mark.parametrize("offsets", [False, True])
+def test_pose_prereduce_on_card_matches_cpu(card, offsets):
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.decoders.pose import PoseEstimation
+
+    g = torch.Generator().manual_seed(4)
+    hm = torch.randn(1, 9, 9, 17, generator=g)
+    off = torch.randn(1, 9, 9, 34, generator=g) * 8
+    dec = PoseEstimation()
+    for i, v in enumerate(("257:257", "257:257", "",
+                           "heatmap-offset" if offsets else "")):
+        if v:
+            dec.set_option(i, v)
+    got = dec.decode(Buffer.of(hm.to(card), off.to(card)), None)
+    want = dec.decode(Buffer.of(hm.numpy(), off.numpy()), None)
+    assert got.meta["keypoints"] == want.meta["keypoints"]
+    np.testing.assert_array_equal(got.tensors[0].np(), want.tensors[0].np())
+
+
+def test_host_decoder_makes_one_copy_a_buffer_on_card(card, monkeypatch):
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    rng = np.random.default_rng(1)
+    arrays = [rng.uniform(0, 1, (1, 10, 4)).astype(np.float32),
+              rng.integers(0, 5, (1, 10)).astype(np.float32),
+              rng.uniform(0, 1, (1, 10)).astype(np.float32),
+              np.array([10], np.int32)]
+    copies = []
+    cpu = torch.Tensor.cpu
+
+    def counting(self, *a, **kw):
+        if self.is_cuda:
+            copies.append(tuple(self.shape))
+        return cpu(self, *a, **kw)
+
+    p = parse_launch("appsrc name=src ! tensor_decoder mode=tensor_region "
+                     "option1=4 option3=300:300 ! appsink name=out")
+    p["src"].spec = TensorsSpec.from_shapes([a.shape for a in arrays],
+                                            [a.dtype for a in arrays])
+    monkeypatch.setattr(torch.Tensor, "cpu", counting)
+    with p:
+        for _ in range(3):
+            p["src"].push_buffer(Buffer.of(*[torch.from_numpy(a).to(card)
+                                             for a in arrays]))
+        p["src"].end_of_stream()
+        assert p.wait_eos(timeout=60)
+    assert copies == [(sum(a.nbytes for a in arrays),)] * 3
+
+
+def test_cascade_crops_on_card_equal_cpu(card):
+    """appsrc ! tee, a detector and tensor_region into crop.sink_info,
+    the frame into crop.sink_raw: the card's crops (cut on the card) are
+    byte-equal to the CPU run's."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.filters import register_model
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    h, w, n = 48, 64, 4
+
+    def detect(x):
+        u = torch.round((x + 1) * 127.5)
+        a = u[0, 0, :n, :]
+        boxes = torch.stack([a[:, 0] / 1024, a[:, 1] / 1024,
+                             a[:, 0] / 1024 + 0.375,
+                             a[:, 1] / 1024 + 0.25], -1)[None]
+        return (boxes, torch.floor(a[:, 2] / 64)[None],
+                (u[0, 1, :n, 0] / 255)[None],
+                torch.full((1,), n, dtype=torch.int32, device=x.device))
+
+    register_model("card_cascade_detector", detect, in_shapes=[(1, h, w, 3)],
+                   in_dtypes=np.float32)
+    desc = ("tensor_crop name=crop ! appsink name=out max-buffers=16 "
+            "appsrc name=src ! tee name=t "
+            "t. ! queue ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 backend=cuda "
+            "! tensor_filter framework=torch-cuda model=card_cascade_detector "
+            f"! tensor_decoder mode=tensor_region option1=2 option3={w}:{h} "
+            "! crop.sink_info t. ! queue ! crop.sink_raw")
+    frames = np.random.default_rng(5).integers(0, 256, (4, 1, h, w, 3),
+                                               dtype=np.uint8)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = parse_launch(desc, device=dev)
+        p["src"].spec = TensorsSpec.from_shapes([(1, h, w, 3)], np.uint8)
+        with p:
+            for i, f in enumerate(frames):
+                p["src"].push_buffer(Buffer.of(
+                    torch.from_numpy(f).to(dev), pts=i))
+            p["src"].end_of_stream()
+            assert p.wait_eos(timeout=120)
+        got = []
+        while (b := p["out"].pull(timeout=0)) is not None:
+            if dev == "cuda":
+                assert all(t.torch().is_cuda for t in b.tensors)
+            got.append((b.pts, [t.np().tobytes() for t in b.tensors]))
+        outs[dev] = got
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 4

@@ -44,12 +44,19 @@ def test_port_imports_with_jax_blocked():
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 33
+    assert len(names) >= 54
     for mod in ("runtime.batching", "runtime.serving", "runtime.admission",
                 "utils.stats", "elements.transform", "elements.filter",
                 "filters.api", "filters.torch_cuda", "filters.modeluri",
                 "models.params_io", "runtime.lifecycle",
-                "runtime.compilecache", "ops.build"):
+                "runtime.compilecache", "ops.build",
+                "decoders.font", "decoders.imagesegment", "decoders.pose",
+                "decoders.tensorregion", "decoders.directvideo",
+                "decoders.octetstream", "decoders.wirefmt",
+                "decoders.flexbuf", "decoders.python3", "decoders.refcompat",
+                "elements.sync", "elements.crop", "elements.converter",
+                "converters", "converters.codecs", "converters.wirefmt",
+                "converters.python3"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 

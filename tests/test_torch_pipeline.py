@@ -1,13 +1,24 @@
 """The port's pipelines against the JAX package's, on the CPU.
 
 1. Golden replay: the committed golden cases of the ported paths'
-   elements (``transform_arithmetic``, ``transform_typecast``,
-   ``decoder_boundingbox_pp``, ``decoder_image_labeling``,
-   ``decoder_yolov8``, ``decoder_yolov5``) run their own
-   case code from
-   ``tests/golden_cases.py`` with the port's ``parse_launch(device="cpu")``,
-   ``TensorsSpec`` and ``Buffer`` in place of the JAX package's, and must
-   reproduce the committed files byte for byte.
+   elements (``transform_arithmetic``, ``transform_typecast``, the
+   decoders ``boundingbox_pp``, ``image_labeling``, ``yolov8``,
+   ``yolov5``, ``direct_video``, ``image_segment``, ``pose``,
+   ``tensor_region``, ``octet_stream``, ``flexbuf``, ``flatbuf``,
+   ``protobuf`` and ``ov_person``, then ``wire_roundtrip_protobuf``,
+   ``converter_octet``, ``crop_regions`` and ``python3_converter``) run
+   their own case code from ``tests/golden_cases.py`` with the port's
+   ``parse_launch(device="cpu")``, ``TensorsSpec`` and ``Buffer`` in
+   place of the JAX package's, and must reproduce the committed files
+   byte for byte.  ``converter_flexible_to_static`` imports the JAX
+   package's ``TensorFormat`` inside its case, so its pipeline is built
+   here with the port's and compared with the same golden.
+   ``decoder_mp_palm`` reads recorded palm-model tensors that are not in
+   the tree (the JAX package cannot run its case either) and joins them
+   with ``tensor_mux``: its golden canvas holds one box, so palm tensors
+   whose one confident anchor decodes to that box are built here and
+   pushed as one two-tensor buffer through the case's decoder options in
+   both packages; both reproduce the golden byte for byte.
 2. The composite detection pipeline (device_src → transform with
    ``backend=pallas`` → SSD filter with in-model decode + NMS → device
    overlay decoder) at batch 2, 64x64 input, f32 compute, through both
@@ -51,12 +62,31 @@ COMPOSITE = (
     "option7=device ! appsink name=out max-buffers=4")
 
 
+def _golden(case):
+    with open(os.path.join(golden_cases.GOLDEN_DIR, f"{case}.golden"),
+              "rb") as f:
+        return f.read()
+
+
 @pytest.mark.parametrize("case", ["transform_arithmetic",
                                   "transform_typecast",
                                   "decoder_boundingbox_pp",
                                   "decoder_image_labeling",
                                   "decoder_yolov8",
-                                  "decoder_yolov5"])
+                                  "decoder_yolov5",
+                                  "decoder_direct_video",
+                                  "decoder_image_segment",
+                                  "decoder_pose",
+                                  "decoder_tensor_region",
+                                  "decoder_octet_stream",
+                                  "decoder_flexbuf",
+                                  "decoder_flatbuf",
+                                  "decoder_protobuf",
+                                  "decoder_ov_person",
+                                  "wire_roundtrip_protobuf",
+                                  "converter_octet",
+                                  "crop_regions",
+                                  "python3_converter"])
 def test_golden_replay_byte_exact(case, tmp_path, monkeypatch):
     monkeypatch.setattr(golden_cases, "parse_launch",
                         lambda desc: parse_launch(desc, device="cpu"))
@@ -65,10 +95,29 @@ def test_golden_replay_byte_exact(case, tmp_path, monkeypatch):
     out = str(tmp_path / f"{case}.out")
     golden_cases.run_case(case, out)   # image_labeling: the labels file
     got = open(out, "rb").read()
-    want = open(os.path.join(golden_cases.GOLDEN_DIR, f"{case}.golden"),
-                "rb").read()
+    want = _golden(case)
     assert got == want, f"{case}: {len(got)}B differs from golden " \
         f"({len(want)}B)"
+
+
+def test_golden_converter_flexible_to_static(tmp_path):
+    """``converter_flexible_to_static`` with the port's ``TensorFormat``
+    (the case itself imports the JAX package's)."""
+    from nnstreamer_tpu_torch.core import TensorFormat
+
+    out = str(tmp_path / "flex.out")
+    p = parse_launch(
+        "appsrc name=src ! tensor_converter input-dim=4:1 "
+        f"input-type=float32 ! filesink location={out}", device="cpu")
+    p["src"].spec = TensorsSpec(format=TensorFormat.FLEXIBLE)
+    with p:
+        p["src"].push_buffer(Buffer.of(
+            np.array([[0.5, 1.5, -2.5, 4.0]], np.float32),
+            format=TensorFormat.FLEXIBLE))
+        p["src"].end_of_stream()
+        assert p.wait_eos(timeout=120)
+    assert open(out, "rb").read() == \
+        _golden("converter_flexible_to_static")
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,3 +220,44 @@ def test_queue_thread_boundary_matches_jax():
         outs.append(got)
     assert [pts for pts, _ in outs[1]] == list(range(len(xs)))
     assert outs[0] == outs[1]
+
+
+def _palm_tensors_for_box(x0, y0, x1, y1, out_w=160, out_h=120, size=300):
+    """(2016, 18) boxes and (2016, 1) scores whose only anchor over the
+    threshold (anchor 0: centre (0.5/24, 0.5/24), unit scale) decodes to
+    a box drawn at pixels x0..x1, y0..y1 of an out_w x out_h canvas."""
+    x, y = (x0 + 0.5) / out_w, (y0 + 0.5) / out_h
+    w, h = (x1 - x0) / out_w, (y1 - y0) / out_h
+    a = 0.5 / 24
+    boxes = np.zeros((2016, 18), np.float32)
+    boxes[0, :4] = [(y + h / 2 - a) * size, (x + w / 2 - a) * size,
+                    h * size, w * size]
+    scores = np.full((2016, 1), -100.0, np.float32)
+    scores[0] = 5.0
+    return boxes, scores
+
+
+def test_golden_decoder_mp_palm_from_its_box(tmp_path):
+    want = _golden("decoder_mp_palm")
+    canvas = np.frombuffer(want, np.uint8).reshape(120, 160, 4)
+    ys, xs = np.nonzero(canvas[..., 3])
+    arrays = _palm_tensors_for_box(xs.min(), ys.min(), xs.max(), ys.max())
+    import nnstreamer_tpu.core as jcore
+
+    desc = ("appsrc name=src ! tensor_decoder mode=bounding_boxes "
+            "option1=mp-palm-detection "
+            "option3=0.5:4:1.0:1.0:0.5:0.5:8:16:16:16 "
+            "option4=160:120 option5=300:300 ! filesink location={}")
+    for name, parse, core in (("jax", jax_parse_launch, jcore),
+                              ("port", functools.partial(
+                                  parse_launch, device="cpu"), None)):
+        out = str(tmp_path / f"{name}.out")
+        p = parse(desc.format(out))
+        spec_cls = core.TensorsSpec if core else TensorsSpec
+        buf_cls = core.Buffer if core else Buffer
+        p["src"].spec = spec_cls.parse("18:2016,1:2016", "float32,float32")
+        with p:
+            p["src"].push_buffer(buf_cls.of(*arrays))
+            p["src"].end_of_stream()
+            assert p.wait_eos(timeout=120)
+        assert open(out, "rb").read() == want, name

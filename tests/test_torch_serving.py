@@ -162,8 +162,41 @@ def _check_stream(bufs, stream: int):
 
 @pytest.mark.parametrize("pkg", sorted(PKGS))
 def test_concurrent_streams_fifo_pts_and_cross_stream_coalescing(pkg):
+    """Every dispatch is held until each stream has parked a frame.  A
+    producer whose window fills dispatches inline, and a fast one can
+    fill window after window of its own frames before another stream's
+    thread runs; the JAX pool only mixed streams because its first
+    dispatch compiles for ~0.2 s while the others park.  Behind a held
+    dispatch at most ``batch - 1`` frames plus one of each blocked
+    stream wait, so the frames of the other three streams cannot all
+    land in single-stream windows."""
     k = PKGS[pkg]
     n_streams, n = 4, 40
+    parked, all_parked = set(), threading.Event()
+    submit_from = k.serving.SharedBatcher.submit_from
+    dispatch = k.serving.PoolEntry._dispatch
+
+    def recording(self, stream, item, *a, **kw):
+        parked.add(id(stream))
+        if len(parked) == n_streams:
+            all_parked.set()
+        return submit_from(self, stream, item, *a, **kw)
+
+    def held(self, items):
+        all_parked.wait(10)
+        return dispatch(self, items)
+
+    k.serving.SharedBatcher.submit_from = recording
+    k.serving.PoolEntry._dispatch = held
+    try:
+        _run_concurrent_streams(k, n_streams, n)
+    finally:
+        k.serving.SharedBatcher.submit_from = submit_from
+        k.serving.PoolEntry._dispatch = dispatch
+    assert all_parked.is_set()
+
+
+def _run_concurrent_streams(k, n_streams, n):
     pipes = [_pipeline(k, str(s)) for s in range(n_streams)]
     for p, *_ in pipes:
         p.start()
