@@ -5,13 +5,15 @@
     python3 chip_smoke.py --kernels-per-forward DIR   # one count, see below
     python3 chip_smoke.py --serving-legs DIR          # phase 8's legs only
     python3 chip_smoke.py --decoders                  # build + phase 12 only
+    python3 chip_smoke.py --elements                  # build + phase 13 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
 model lifecycle of that pool (hot swap, canary, the kernel cache),
-MobileNet classification, YOLO detection, and the decoders with the
-detect → tensor_region → tensor_crop cascade — through ``parse_launch``
-at full width.
+MobileNet classification, YOLO detection, the decoders with the
+detect → tensor_region → tensor_crop cascade, and the stream elements
+(aggregated camera frames into a TorchScript classifier, a gated camera,
+two cameras in one window) — through ``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
@@ -144,7 +146,40 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    the card through ``tensor_decoder mode=protobuf ! tensor_converter !
    tensor_decoder mode=octet_stream``: the bytes come back.  It prints
    which glyph source (PIL or blocks) drew the labels;
-13. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+13. stream elements, cuDNN deterministic: (a) MobileNetV1 as phase 10
+   builds it (224x224, 1001 classes, bf16-resident weights) traced to a
+   TorchScript file in a temporary directory: ``device_src`` (2048 uint8
+   1×224×224×3 camera frames staged on the card) ``! tensor_aggregator
+   frames-in=1 frames-out=512 frames-flush=512 frames-dim=3 !
+   tensor_transform backend=cuda ! tensor_filter framework=pytorch !
+   tensor_sink``: each window the ``torch.cat`` of its 512 frames, no
+   device→host copy before the sink (torch.profiler's copy rows, in one
+   forward and in windows 3..7 of an 8-window run, whose busy share it
+   prints: the union of the kernels' intervals over the device's span),
+   ``scale_bias_cast`` once a window and equal to its plain version on
+   one, the logits within 2 bf16 ulps at the logits' largest magnitude
+   of the same windows through ``framework=torch-cuda``
+   ``register_mobilenet`` (argmax equal where the top-2 margin exceeds
+   twice that), while the same module computing at f32 on one window
+   must fall outside it; frames/s, the aggregator's host time a window, the out-spec
+   inference forward, the kernels of one forward, a profile.  (b) The
+   SSD of phase 4 at batch 1: 512 frames stamped at 30 frames/s through
+   ``tensor_rate framerate=15/1`` (exactly the frames on that clock reach
+   the filter), ``tensor_if A_VALUE 0:0 ge k`` on the top detection's
+   ymin (random weights saturate every score, so the detection count is
+   the same on every frame; k is the median ymin of those frames run
+   alone: the routed set equals theirs, one scalar copy a verdict), the
+   kept frames' device overlays through ``tee`` to a dense sink and
+   through ``tensor_converter ! tensor_sparse_enc ! tensor_sparse_dec``
+   (the overlay is video media; the converter keeps it on the card):
+   byte-equal; then two cameras of 512 frames
+   through ``tensor_merge option=3 sync-mode=slowest ! tensor_aggregator
+   frames-in=2 frames-out=256`` into the SSD at batch 256 and
+   ``tensor_demux tensorpick=0:1:2:3,2``: each window the two cameras
+   interleaved per instant, overlays byte-equal to phase 4's composite
+   on the same windows, the scores on ``tensor_sink`` equal to output 2;
+   frames/s per camera;
+14. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -155,18 +190,20 @@ card.  ``--serving-legs DIR`` runs nothing but phase 8's shared and
 unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
-line).
+line); ``--elements`` does the same for phase 13.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -3001,12 +3038,598 @@ def phase_decoders(card: str, power: str):
     return out
 
 
+# -- phase 13: the stream elements and the pytorch filter ------------------------
+
+ELEM_FRAMES = 2048        # 13a: camera frames, 4 windows of CLS_BATCH
+GATED_FRAMES = 512        # 13b gated: camera frames stamped at GATED_FPS
+GATED_FPS = 30
+GATED_RATE = "15/1"
+TWO_CAM_FRAMES = 512      # 13b two cameras: frames per camera
+TWO_CAM_BATCH = 256
+#: TorchScript logits against the torch-cuda filter's, both bf16 compute
+#: with bf16-rounded logits: at most this many bf16 ulps at the logits'
+#: largest magnitude (the H100 reads 1 ulp: 9.77e-4 at magnitudes
+#: 0.125-0.25; the same module at f32 compute must fall outside)
+TS_ULPS = 2
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values (8 significant bits) at ``|x|``."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+AGG_CLS_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_aggregator name=agg frames-in=1 frames-out={b} "
+    "frames-flush={b} frames-dim=3 ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! tensor_filter name=net {fw} ! {sink}")
+GATED_PIPE = (
+    "device_src name=src num-buffers={n} fps={fps} ! "
+    "tensor_rate name=rate framerate={rate} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! tensor_filter name=net framework=torch-cuda "
+    "model={model} ! tensor_if name=gate compared-value=A_VALUE "
+    "compared-value-option=0:0 operator=ge supplied-value={k!r} "
+    "then=PASSTHROUGH else=SKIP "
+    "gate.src_then ! tensor_decoder name=overlay mode=bounding_boxes "
+    "option1=mobilenet-ssd-postprocess option4={s}:{s} option5={s}:{s} "
+    "option7=device ! tee name=o "
+    "o. ! queue ! appsink name=dense max-buffers={sink} "
+    "o. ! queue ! tensor_converter ! tensor_sparse_enc ! "
+    "tensor_sparse_dec ! appsink name=roundtrip max-buffers={sink}")
+DETECT_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! tensor_filter name=net framework=torch-cuda "
+    "model={model} ! appsink name=out max-buffers={sink}")
+TWO_CAM_PIPE = (
+    "tensor_merge name=m mode=linear option=3 sync-mode=slowest ! "
+    "tensor_aggregator name=agg frames-in=2 frames-out={b} "
+    "frames-flush={b} frames-dim=3 ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! tensor_filter name=net framework=torch-cuda "
+    "model={model} ! tensor_demux name=d tensorpick=0:1:2:3,2 "
+    "d.src_0 ! tensor_decoder name=overlay mode=bounding_boxes "
+    "option1=mobilenet-ssd-postprocess option4={s}:{s} option5={s}:{s} "
+    "option7=device ! appsink name=out max-buffers={sink} "
+    "d.src_1 ! tensor_sink name=scores "
+    "device_src name=cam0 num-buffers={n} fps={fps} ! m.sink_0 "
+    "device_src name=cam1 num-buffers={n} fps={fps} ! m.sink_1")
+
+
+def run_started(p, timeout: float = 900):
+    """Start ``p``, wait for EOS, stop it; host seconds start→EOS."""
+    t0 = time.perf_counter()
+    p.start()
+    try:
+        if not p.wait_eos(timeout=timeout):
+            raise RuntimeError(f"no EOS within {timeout} s")
+    finally:
+        p.stop()
+    return time.perf_counter() - t0
+
+
+def pull_all(sink):
+    out = []
+    while (b := sink.pull(timeout=0)) is not None:
+        out.append(b)
+    return out
+
+
+def record_pushes(el, keep=lambda b: b):
+    """Wrap an element's ``push``: keep ``keep(buf)`` of every buffer it
+    pushes, with the host clock at the push."""
+    rec, push = [], el.push
+
+    def recording(buf, pad=None):
+        rec.append((time.perf_counter(), keep(buf)))
+        push(buf, pad)
+
+    el.push = recording
+    return rec
+
+
+def elements_classify(card: str, power: str):
+    """13a: camera frames aggregated into MobileNetV1 windows, the model a
+    TorchScript file through ``framework=pytorch``."""
+    import tempfile
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import DType
+    from nnstreamer_tpu_torch.elements.transform import (
+        _fold_affine,
+        parse_arith_ops,
+    )
+    from nnstreamer_tpu_torch.filters.pytorch import PyTorchFilter
+    from nnstreamer_tpu_torch.models import (
+        mobilenet_v1_from_jax,
+        mobilenet_v1_init,
+        register_mobilenet,
+        trace_classifier,
+        weights_to_bf16,
+    )
+    from nnstreamer_tpu_torch.ops import kernels
+
+    n, b, s = ELEM_FRAMES, CLS_BATCH, CLS_SIZE
+    windows = n // b
+    rng = np.random.default_rng(SEED + 13)
+    frames = [rng.integers(0, 256, (1, s, s, 3), dtype=np.uint8)
+              for _ in range(n)]
+    # phase 10's weights, bf16-resident, traced to TorchScript on the card
+    tree = mobilenet_v1_init(SEED, CLS_CLASSES)
+    model = mobilenet_v1_from_jax(weights_to_bf16(tree)).to("cuda")
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "mobilenet_v1.pt")
+    t0 = time.perf_counter()
+    trace_classifier(model, (b, s, s, 3)).save(path)
+    trace_s = time.perf_counter() - t0
+    del model
+    fw = (f"framework=pytorch model={path} input=3:{s}:{s}:{b} "
+          "inputtype=float32")
+    desc = AGG_CLS_PIPE.format(n=n, b=b, norm=NORM, fw=fw,
+                               sink="tensor_sink name=out")
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    p = parse_launch(desc, device="cuda")
+    p["src"].frames, p["src"].pool_size = frames, n
+    logits = []
+    p["out"].connect(logits.append)
+    agg = p["agg"]
+    starts, transform = [], agg.transform
+
+    def timed(buf):
+        if not agg._window:
+            starts.append(time.perf_counter())
+        return transform(buf)
+
+    agg.transform = timed
+    wins = record_pushes(agg, lambda w: w.tensors[0].torch())
+    infer, orig_infer = [], PyTorchFilter._infer_out_spec
+
+    def timed_infer(self, spec):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_infer(self, spec)
+        torch.cuda.synchronize()
+        infer.append(time.perf_counter() - t)
+        return out
+
+    PyTorchFilter._infer_out_spec = timed_infer
+    kernels.scale_bias_cast.launches = 0
+    try:
+        secs = run_started(p)
+    finally:
+        PyTorchFilter._infer_out_spec = orig_infer
+    launches = kernels.scale_bias_cast.launches
+    if len(logits) != windows or len(wins) != windows:
+        raise RuntimeError(f"elements (a): {len(logits)} logits, "
+                           f"{len(wins)} windows for {windows}")
+    if not windows <= launches <= windows + 2:
+        raise RuntimeError(f"elements (a): scale_bias_cast launched "
+                           f"{launches} times for {windows} windows")
+    pool = [t[0] for t in p["src"]._pool]
+    for w, (_, x) in enumerate(wins):
+        if x.device.type != "cuda" or not torch.equal(
+                x, torch.cat(pool[w * b:(w + 1) * b])):
+            raise RuntimeError(f"elements (a) window {w}: not the "
+                               f"torch.cat of its {b} source frames")
+    a_, c_, _ = _fold_affine(parse_arith_ops(NORM), DType.UINT8)
+    x0 = wins[0][1]
+    if not torch.equal(kernels.scale_bias_cast(x0, a_, c_ / a_, torch.float32),
+                       kernels.scale_bias_cast_reference(x0, a_, c_ / a_,
+                                                         torch.float32)):
+        raise RuntimeError("elements (a): scale_bias_cast and its plain "
+                           "version differ on a window")
+    gather = [(t - s0) * 1e3 for s0, (t, _) in zip(starts, wins)]
+    fps, p50 = window_times(logits, b)
+    ts = [x.tensors[0].torch() for x in logits]
+    # the same windows through framework=torch-cuda register_mobilenet
+    register_mobilenet("elements_mobilenet_v1", "v1", CLS_CLASSES, batch=b,
+                       size=s, seed=SEED)
+    q = parse_launch(AGG_CLS_PIPE.format(
+        n=n, b=b, norm=NORM,
+        fw="framework=torch-cuda model=elements_mobilenet_v1",
+        sink=f"appsink name=out max-buffers={windows + 4}"),
+        device="cuda")
+    q["src"].frames, q["src"].pool_size = frames, n
+    run_started(q)
+    ref = [x.tensors[0].torch() for x in pull_all(q["out"])]
+    tol = TS_ULPS * bf16_ulp(max(float(r.abs().max()) for r in ref))
+    worst, equal, agree = 0.0, 0, True
+    for g, r in zip(ts, ref):
+        d = (g - r).abs()
+        worst = max(worst, float(d.max()))
+        equal += int((d == 0).sum())
+        if not bool((d <= tol).all()):
+            raise RuntimeError(f"elements (a): TorchScript logits differ "
+                               f"from torch-cuda's beyond {tol} ({TS_ULPS} "
+                               f"bf16 ulps; max {float(d.max())})")
+        top2 = r.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        agree &= bool((g.argmax(-1) == r.argmax(-1))[sure].all())
+    if not agree:
+        raise RuntimeError("elements (a): argmax differs where the top-2 "
+                           "margin exceeds twice the tolerance")
+    total = sum(int(t.numel()) for t in ts)
+    ts_mod = torch.jit.load(path, map_location="cuda")
+    xf = x0.float()
+    fwd = kernels_per_call(lambda: ts_mod(xf))
+    eager = mobilenet_v1_from_jax(weights_to_bf16(tree)).to("cuda")
+    fwd_eager = kernels_per_call(lambda: eager(xf))
+    # the gate must see a change of precision: the same module computing
+    # at f32 on window 0's filter input falls outside it
+    with torch.inference_mode():
+        f32 = eager(kernels.scale_bias_cast_reference(
+            x0, a_, c_ / a_, torch.float32), torch.float32)
+    f32_worst = float((f32 - ref[0]).abs().max())
+    if f32_worst <= tol:
+        raise RuntimeError(f"elements (a): the module at f32 compute is "
+                           f"within {tol} of the bf16 logits (max "
+                           f"{f32_worst}): the gate cannot tell them apart")
+    del eager, f32
+    print(f"elements (a): {n} camera frames (1x{s}x{s}x3) → "
+          f"tensor_aggregator frames-out={b} → transform backend=cuda → "
+          f"tensor_filter framework=pytorch (MobileNetV1, TorchScript traced "
+          f"in {trace_s:.2f} s, bf16-resident weights, {CLS_CLASSES} classes) → "
+          f"tensor_sink: {windows} windows, each the torch.cat of its "
+          f"{b} frames; scale_bias_cast launches={launches}, equal to its "
+          f"plain version on a window; {fps:.1f} frames/s (CUDA events, "
+          f"windows 2..{windows}), "
+          f"p50 window {p50:.3f} ms; aggregator host time a window "
+          f"({b} buffers through device_src → tensor_aggregator) "
+          f"{[round(g, 3) for g in gather]} ms; out-spec inference "
+          f"(one forward at batch {b}, at negotiation) "
+          f"{[round(t * 1e3, 3) for t in infer]} ms; host start→EOS "
+          f"{secs:.2f} s [{card}, {power}]", flush=True)
+    print(f"elements (a): TorchScript vs framework=torch-cuda "
+          f"register_mobilenet on the same windows: max |Δlogit| {worst} "
+          f"(gate {tol}: {TS_ULPS} bf16 ulps at the largest |logit|), "
+          f"{equal} of {total} logits equal, argmax equal where the margin "
+          f"exceeds {2 * tol}; the same module at f32 compute on window 0: "
+          f"max |Δlogit| {f32_worst}, outside the gate; one forward at "
+          f"batch {b} (medians of 5): "
+          f"TorchScript {fwd['kernels']} CUDA kernels, {fwd['d2h']} "
+          f"device→host copies, returns after {fwd['enqueue_ms']:.3f} ms, "
+          f"device work done at {fwd['wall_ms']:.3f} ms; the eager module "
+          f"{fwd_eager['kernels']} kernels, {fwd_eager['d2h']} copies, "
+          f"{fwd_eager['enqueue_ms']:.3f} ms, {fwd_eager['wall_ms']:.3f} ms "
+          f"[{card}, {power}]", flush=True)
+    prof = phase_profile(
+        AGG_CLS_PIPE.format(n=2 * b, b=b, norm=NORM, fw=fw,
+                            sink="appsink name=out max-buffers=8"),
+        frames, card, power, windows=2, label="elements (a) profile")
+    # the busy share in steady state: windows 3..7 of an 8-window run
+    q = parse_launch(desc.replace(f"num-buffers={n}",
+                                  f"num-buffers={8 * b}"),
+                     device="cuda")
+    q["src"].frames, q["src"].pool_size = frames, n
+    steady = []
+    q["out"].connect(steady.append)
+    busy, span, host_ms, d2h = steady_profile(q, steady, 2, 7)
+    print(f"elements (a) steady: while windows 3..7 of 8 reach the sink "
+          f"({host_ms:.3f} ms on the host): kernels busy {busy:.3f} ms of a "
+          f"{span:.3f} ms device span, first kernel start to last kernel "
+          f"end (busy share {busy / span:.4f}, the union of kernel "
+          f"intervals), {d2h} device→host copies [{card}, {power}]",
+          flush=True)
+    if d2h or fwd["d2h"]:
+        raise RuntimeError(f"elements (a): {d2h} device→host copies in "
+                           f"windows 3..7, {fwd['d2h']} in one TorchScript "
+                           "forward (the path must make none before the "
+                           "sink)")
+    tmp.cleanup()
+    return {"fps": fps, "p50_window_ms": p50, "launches": launches,
+            "gather_ms": gather, "out_spec_forward_ms":
+            [t * 1e3 for t in infer], "torchscript_vs_torch_cuda_max":
+            worst, "torchscript_gate": tol, "f32_vs_torch_cuda_max":
+            f32_worst, "equal_logits": equal, "logits": total,
+            "forward": fwd, "forward_eager": fwd_eager, "host_s": secs,
+            "busy_ms_2_windows": prof[1] if prof is not None else None,
+            "steady_busy_ms": busy, "steady_span_ms": span,
+            "steady_host_ms": host_ms, "steady_busy_share": busy / span,
+            "steady_d2h": d2h}
+
+
+def kernels_per_call(fn):
+    """One call of ``fn`` after a warm-up: the CUDA kernels it queues and
+    the device→host copies it makes (torch.profiler; copy-engine rows
+    apart), the host time until it returns (medians of 5, the card idle
+    before each call) and the time to the end of its device work (CUDA
+    events).  A call that returns only when its device work is done
+    syncs inside."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        walls, enqueue = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            s.record()
+            fn()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            e.record()
+            e.synchronize()
+            walls.append(s.elapsed_time(e))
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    return {"kernels": sum(ev.count for ev in rows
+                           if not ev.key.startswith(("Memcpy", "Memset"))),
+            "d2h": sum(ev.count for ev in rows
+                       if ev.key.startswith("Memcpy DtoH")),
+            "enqueue_ms": statistics.median(enqueue),
+            "wall_ms": statistics.median(walls)}
+
+
+def device_busy(events):
+    """The device's busy share over its own clock, from torch.profiler's
+    events: the union of the kernel rows' intervals (overlapping kernels
+    counted once; copy-engine rows apart) over the span from the first
+    kernel's start to the last kernel's end.  Returns (busy ms, span ms,
+    device→host copies).  Neither end of the span is a host time, so work
+    queued before the profile started or run after it stopped cannot
+    push the share above 1."""
+    from torch.autograd import DeviceType
+
+    rows = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in rows
+                   if not ev.name.startswith(("Memcpy", "Memset")))
+    d2h = sum(1 for ev in rows if ev.name.startswith("Memcpy DtoH"))
+    if not spans:
+        return 0.0, 0.0, d2h
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo = a
+        hi = max(hi, b)
+    busy += hi - lo
+    span = max(b for _, b in spans) - spans[0][0]
+    if busy > span:
+        raise RuntimeError(f"device busy {busy} µs over a span of {span} µs")
+    return busy / 1e3, span / 1e3, d2h
+
+
+def steady_profile(p, bufs, first: int, last: int):
+    """Device busy share of a running pipeline while its sink receives
+    buffers ``first``..``last`` (torch.profiler, device activity only,
+    started and stopped at those host arrivals; the share itself is
+    :func:`device_busy`'s, on the device's clock).  Returns busy ms, the
+    device span ms, the host ms between the two arrivals and the
+    device→host copies.  Starts ``p``, and stops it at EOS."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p.start()
+    try:
+        wait_for(lambda: len(bufs) >= first, f"sink buffer {first}")
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.perf_counter()
+        wait_for(lambda: len(bufs) >= last, f"sink buffer {last}")
+        host_ms = (time.perf_counter() - t0) * 1e3
+        prof.stop()
+        if not p.wait_eos(timeout=600):
+            raise RuntimeError("steady profile: no EOS within 600 s")
+    finally:
+        p.stop()
+    busy, span, d2h = device_busy(prof.events())
+    if span <= 0:
+        raise RuntimeError("steady profile: the profiler saw no kernel")
+    return busy, span, host_ms, d2h
+
+
+def elements_gated(tree, anchors, card: str, power: str):
+    """13b, gated: one camera at batch 1 through tensor_rate, the SSD and
+    tensor_if, the kept frames' overlays through a sparse round trip."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import ssd_from_jax, weights_to_bf16
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    n = GATED_FRAMES
+    register_detector("elements_ssd_1", ssd_from_jax(weights_to_bf16(tree)),
+                      anchors, 1, torch.bfloat16)
+    rng = np.random.default_rng(SEED + 14)
+    frames = [rng.integers(0, 256, (1, SIZE, SIZE, 3), dtype=np.uint8)
+              for _ in range(n)]
+    # the frames on the 15/1 clock, computed here from the stamps: for
+    # each slot, the first frame whose pts is at or after it
+    pts = [int(i * 1_000_000_000 / GATED_FPS) for i in range(n)]
+    step = int(1_000_000_000 * 1 / 15)
+    slots = range(0, pts[-1] + 1, step)
+    on_clock = [next(i for i in range(n) if pts[i] >= t) for t in slots]
+    # the frames on the clock alone: the gate's value for each, and k.
+    # The random-weight SSD saturates every score (all max_out
+    # detections pass, on every frame), so the count cannot split the
+    # stream; the gate reads the top detection's ymin (tensor 0, flat
+    # index 0), and k is its median over these frames
+    _, alone, _ = run_pipeline(DETECT_PIPE.format(
+        n=len(on_clock), norm=NORM, model="elements_ssd_1",
+        sink=len(on_clock) + 4), [frames[i] for i in on_clock],
+        len(on_clock), device="cuda")
+    alone = sorted(alone, key=lambda x: x.offset)
+    nums = [int(x.tensors[3].torch().reshape(-1)[0]) for x in alone]
+    ymin = [float(x.tensors[0].torch().reshape(-1)[0]) for x in alone]
+    k = float(np.median(ymin))
+    want_then = {t: v >= k for t, v in zip(slots, ymin)}
+    if all(want_then.values()) or not any(want_then.values()):
+        raise RuntimeError("elements (b): the median takes one branch only")
+    p = parse_launch(GATED_PIPE.format(n=n, fps=GATED_FPS, rate=GATED_RATE,
+                                       norm=NORM, model="elements_ssd_1",
+                                       k=k, s=SIZE, sink=n + 4),
+                     device="cuda")
+    p["src"].frames, p["src"].pool_size = frames, n
+    at_filter = []
+    chain = p["net"].chain
+
+    def seen(pad, buf):
+        at_filter.append((buf.pts, buf.offset))
+        chain(pad, buf)
+
+    p["net"].chain = seen
+    kernels.scale_bias_cast.launches = 0
+    secs = run_started(p)
+    launches = kernels.scale_bias_cast.launches
+    if [o for _, o in at_filter] != on_clock or \
+            [t for t, _ in at_filter] != list(slots):
+        raise RuntimeError(f"elements (b): frames at the filter "
+                           f"{at_filter[:6]}… are not those on the "
+                           f"{GATED_RATE} clock {on_clock[:6]}…")
+    if not len(on_clock) <= launches <= len(on_clock) + 2:
+        raise RuntimeError(f"elements (b): scale_bias_cast launched "
+                           f"{launches} times for {len(on_clock)} frames")
+    dense, round_ = pull_all(p["dense"]), pull_all(p["roundtrip"])
+    kept = sorted(x.pts for x in dense)
+    if kept != sorted(t for t, v in want_then.items() if v):
+        raise RuntimeError("elements (b): the frames routed to then differ "
+                           "from those the same outputs run alone give")
+    gate = p["gate"]
+    if gate.verdict_copies != len(on_clock):
+        raise RuntimeError(f"elements (b): {gate.verdict_copies} verdict "
+                           f"copies for {len(on_clock)} frames")
+    by_pts = {x.pts: x for x in round_}
+    for x in dense:
+        if x.tensors[0].torch().device.type != "cuda":
+            raise RuntimeError("elements (b): the overlay left the card")
+        twin = by_pts[x.pts].tensors[0]
+        if twin.tobytes() != x.tensors[0].tobytes():
+            raise RuntimeError(f"elements (b) frame at {x.pts}: the sparse "
+                               "round trip changed the canvas")
+    fps, p50 = window_times(sorted(dense, key=lambda x: x.pts), 1)
+    print(f"elements (b) gated: {n} frames (1x{SIZE}x{SIZE}x3) stamped at "
+          f"{GATED_FPS} frames/s → tensor_rate {GATED_RATE}: "
+          f"{len(on_clock)} frames at the filter, exactly those on the "
+          f"clock; SSD at batch 1 (detection counts of the frames alone "
+          f"{dict(sorted(Counter(nums).items()))}) → tensor_if top ymin >= "
+          f"{k!r} (its median over the frames alone): "
+          f"kept {len(dense)} of {len(on_clock)} (share "
+          f"{len(dense) / len(on_clock):.3f}), the routed set equal to the "
+          f"alone run's; {gate.verdict_copies} scalar copies for "
+          f"{len(on_clock)} verdicts; every canvas byte-equal after "
+          f"tensor_sparse_enc → tensor_sparse_dec; scale_bias_cast "
+          f"launches={launches}; kept frames {fps:.1f}/s (CUDA events at "
+          f"the dense sink), p50 gap {p50:.3f} ms; {len(on_clock) / secs:.1f} "
+          f"frames/s into the filter over host start→EOS {secs:.2f} s "
+          f"[{card}, {power}]", flush=True)
+    return {"launches": launches, "k": k, "kept": len(dense),
+            "at_filter": len(on_clock), "kept_share":
+            len(dense) / len(on_clock), "kept_fps": fps,
+            "p50_gap_ms": p50, "filter_fps_host": len(on_clock) / secs,
+            "host_s": secs, "verdict_copies": gate.verdict_copies}
+
+
+def elements_two_cameras(tree, anchors, card: str, power: str):
+    """13b, two cameras: merged into one 256-frame window, the SSD end to
+    end, the outputs fanned out by tensor_demux."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import ssd_from_jax, weights_to_bf16
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    n, b = TWO_CAM_FRAMES, TWO_CAM_BATCH
+    windows = 2 * n // b
+    register_detector("elements_ssd_256", ssd_from_jax(weights_to_bf16(tree)),
+                      anchors, b, torch.bfloat16)
+    rng = np.random.default_rng(SEED + 15)
+    cams = [[rng.integers(0, 256, (1, SIZE, SIZE, 3), dtype=np.uint8)
+             for _ in range(n)] for _ in range(2)]
+    p = parse_launch(TWO_CAM_PIPE.format(b=b, norm=NORM,
+                                         model="elements_ssd_256", s=SIZE,
+                                         sink=windows + 4, n=n,
+                                         fps=GATED_FPS), device="cuda")
+    for c in range(2):
+        p[f"cam{c}"].frames, p[f"cam{c}"].pool_size = cams[c], n
+    scores = []
+    p["scores"].connect(scores.append)
+    wins = record_pushes(p["agg"], lambda w: w.tensors[0].torch())
+    outs = record_pushes(p["net"], lambda o: o.tensors[2].torch())
+    kernels.scale_bias_cast.launches = 0
+    secs = run_started(p)
+    launches = kernels.scale_bias_cast.launches
+    over = pull_all(p["out"])
+    if not (len(over) == len(scores) == len(wins) == windows):
+        raise RuntimeError(f"elements (b) two cameras: {len(over)} overlays, "
+                           f"{len(scores)} score buffers, {len(wins)} "
+                           f"windows for {windows}")
+    if not windows <= launches <= windows + 2:
+        raise RuntimeError(f"elements (b) two cameras: scale_bias_cast "
+                           f"launched {launches} times for {windows} windows")
+    pools = [[t[0] for t in p[f"cam{c}"]._pool] for c in range(2)]
+    half = b // 2
+    for w, (_, x) in enumerate(wins):
+        want = torch.cat([pools[c][j] for j in range(w * half,
+                                                     (w + 1) * half)
+                          for c in range(2)])
+        if not torch.equal(x, want):
+            raise RuntimeError(f"elements (b) window {w}: frames not "
+                               "interleaved camera 0, camera 1 per instant")
+    for w, (sc, (_, o)) in enumerate(zip(scores, outs)):
+        if not torch.equal(sc.tensors[0].torch(), o):
+            raise RuntimeError(f"elements (b) window {w}: the scores on "
+                               "tensor_sink are not the filter's output 2")
+    # the same windows through phase 4's composite (fused, one program)
+    _, comp, _ = run_pipeline(
+        composite("elements_ssd_256", "cuda", windows, size=SIZE),
+        [x.cpu().numpy() for _, x in wins], windows, device="cuda")
+    for w, (a, c) in enumerate(zip(over, comp)):
+        if not torch.equal(a.tensors[0].torch(), c.tensors[0].torch()):
+            raise RuntimeError(f"elements (b) window {w}: the overlays "
+                               "differ from the composite's")
+    fps, p50 = window_times(over, half)
+    print(f"elements (b) two cameras: 2 x {n} frames (1x{SIZE}x{SIZE}x3, "
+          f"stamped at {GATED_FPS} frames/s) → tensor_merge option=3 "
+          f"sync-mode=slowest → tensor_aggregator frames-out={b} → SSD at "
+          f"batch {b} → tensor_demux 0:1:2:3,2: {windows} windows, each "
+          f"the two cameras interleaved per instant; overlays byte-equal to "
+          f"phase 4's composite on the same windows; the scores on "
+          f"tensor_sink equal output 2; scale_bias_cast "
+          f"launches={launches}; {fps:.1f} frames/s per camera (CUDA "
+          f"events, windows 2..{windows}), p50 window {p50:.3f} ms; host "
+          f"start→EOS {secs:.2f} s [{card}, {power}]", flush=True)
+    return {"launches": launches, "fps_per_camera": fps,
+            "p50_window_ms": p50, "host_s": secs}
+
+
+def phase_elements(card: str, power: str):
+    """Phase 13 (see the module doc)."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import (
+        feature_sizes_for,
+        ssd_anchors,
+        ssd_mobilenet_v2_init,
+    )
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"classify": elements_classify(card, power)}
+    tree = ssd_mobilenet_v2_init(SEED, NUM_CLASSES)
+    anchors = ssd_anchors(SIZE, feature_sizes_for(SIZE))
+    out["gated"] = elements_gated(tree, anchors, card, power)
+    out["two_cameras"] = elements_two_cameras(tree, anchors, card, power)
+    print(f"elements phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--serving-legs":
         return serving_legs(sys.argv[2])
     alone = sys.argv[1:] == ["--decoders"]
+    elements_alone = sys.argv[1:] == ["--elements"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -3046,6 +3669,10 @@ def main() -> int:
         print(json.dumps({"decoders": phase_decoders(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if elements_alone:
+        print(json.dumps({"elements": phase_elements(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     main_path = phase_main_path(card, power)
@@ -3058,11 +3685,12 @@ def main() -> int:
     classify = phase_classify(card, power)
     yolo = phase_yolo(card, power)
     decoders = phase_decoders(card, power)
+    elements = phase_elements(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
                       "classify": classify, "yolo": yolo,
-                      "decoders": decoders,
+                      "decoders": decoders, "elements": elements,
                       "card": card, "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
@@ -3075,7 +3703,11 @@ def main() -> int:
                    "yolo": yolo["launches"],
                    "yolo_raw": yolo["raw"]["launches"],
                    "cascade": decoders["cascade"]["launches"],
-                   "labeled_overlay": decoders["labeled"]["launches"]}
+                   "labeled_overlay": decoders["labeled"]["launches"],
+                   "elements_classify": elements["classify"]["launches"],
+                   "elements_gated": elements["gated"]["launches"],
+                   "elements_two_cameras":
+                       elements["two_cameras"]["launches"]}
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],

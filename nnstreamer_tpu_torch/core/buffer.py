@@ -118,6 +118,17 @@ class Tensor:
     def is_donated(self) -> bool:
         return self._donated
 
+    def shared_view(self) -> "Tensor":
+        """Another handle on this payload, for a second consumer (a
+        repeated pick, a frame pushed again).  Both handles are marked
+        shared, so no consumer writes into the memory in place, and
+        donating one handle leaves the other readable."""
+        self._shared = True
+        t = Tensor.__new__(Tensor)
+        t._dev, t._host, t._raw = self._dev, self._host, self._raw
+        t._spec, t._donated, t._shared = self._spec, self._donated, True
+        return t
+
     def torch(self, device: Optional[torch.device] = None) -> torch.Tensor:
         """The payload as a ``torch.Tensor`` on ``device`` (uploads host
         data on first call; moves a tensor that lives elsewhere).  With
@@ -288,3 +299,64 @@ class Buffer:
                     f"flexible payload size {len(body)} != {mi.data_nbytes()}")
             tensors.append(Tensor(body, mi.to_spec()))
         return cls(tensors=tensors, pts=pts, format=TensorFormat.FLEXIBLE)
+
+
+# -- sparse codec -----------------------------------------------------------
+# Parity: the JAX package's ``sparse_from_dense``/``sparse_to_dense`` (the
+# reference's gst_tensor_sparse_from_dense / gst_tensor_sparse_to_dense,
+# gsttensor_sparseutil.c:31,116).  Layout: sparse meta header (with nnz),
+# then u32 flat indices, then values.  The bytes equal the JAX codec's for
+# every dtype: NaN is stored (it is nonzero), -0.0 is not (it equals 0).
+
+#: a signed integer dtype per element size: an integer is zero exactly
+#: when its bits are, so unsigned tensors are tested through these views
+_SIGNED_BY_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}
+
+
+def _sparse_parts_torch(x: torch.Tensor) -> Tuple[int, bytes]:
+    """(nnz, indices ‖ values bytes) of a tensor, found where it lives:
+    the nonzeros are selected on its device and the indices and values
+    cross to the host in ONE copy; the dense tensor never does."""
+    flat = x.detach().contiguous().reshape(-1)
+    esize = flat.element_size()
+    test = flat if flat.dtype.is_floating_point \
+        else flat.view(_SIGNED_BY_SIZE[esize])
+    idx = torch.nonzero(test != 0).reshape(-1)
+    vals = flat.view(torch.uint8).reshape(-1, esize)[idx].reshape(-1)
+    packed = torch.cat([idx.to(torch.int32).view(torch.uint8), vals])
+    return int(idx.numel()), packed.cpu().numpy().tobytes()
+
+
+def sparse_from_dense(t: Tensor) -> bytes:
+    """The sparse wire form of one tensor.  A tensor resident on a device
+    is encoded there (:func:`_sparse_parts_torch`); a host or wire tensor
+    with numpy, as the JAX package does."""
+    if t.is_device:
+        nnz, body = _sparse_parts_torch(t.torch())
+    else:
+        arr = np.ascontiguousarray(t.np()).reshape(-1)
+        idx = np.nonzero(arr)[0].astype(np.uint32)
+        nnz, body = len(idx), idx.tobytes() + arr[idx].tobytes()
+    mi = MetaInfo.from_spec(t.spec, format=TensorFormat.SPARSE, nnz=nnz)
+    return mi.pack() + body
+
+
+def sparse_to_dense(payload: bytes) -> Tensor:
+    """The dense host tensor of one sparse payload.  The values are
+    scattered as bytes, so bfloat16 needs no numpy dtype."""
+    mi = MetaInfo.unpack(payload)
+    if mi.format != TensorFormat.SPARSE:
+        raise ValueError("payload is not sparse")
+    esize = mi.dtype.size
+    off = mi.header_size
+    idx = np.frombuffer(payload, dtype=np.uint32, count=mi.nnz, offset=off)
+    off += mi.nnz * 4
+    vals = np.frombuffer(payload, dtype=np.uint8, count=mi.nnz * esize,
+                         offset=off).reshape(mi.nnz, esize)
+    spec = mi.to_spec()
+    dense = np.zeros((spec.num_elements, esize), np.uint8)
+    dense[idx] = vals
+    if mi.dtype is DType.BFLOAT16:
+        return Tensor(dense.tobytes(), spec)
+    return Tensor(dense.view(mi.dtype.np_dtype).reshape(mi.shape), spec)

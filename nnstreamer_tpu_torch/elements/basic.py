@@ -1,9 +1,11 @@
-"""Basic plumbing elements: appsrc, appsink, queue, tee, filesrc, filesink.
+"""Basic plumbing elements: appsrc, appsink, tensor_sink, fakesink,
+queue, tee, identity, filesrc, filesink, tensor_debug.
 
-Counterpart of the JAX package's ``elements/basic.py`` for the elements
-this slice of the port covers (GStreamer appsrc/appsink semantics, the
-``queue`` thread boundary, ``tee`` fan-out, and ``filesrc``/``filesink``,
-the head and tail of every golden comparison).
+Counterpart of the JAX package's ``elements/basic.py`` (GStreamer
+appsrc/appsink semantics, the reference's ``tensor_sink`` ``new-data``
+callback element and ``tensor_debug``, the ``queue`` thread boundary,
+``tee`` fan-out, and ``filesrc``/``filesink``, the head and tail of every
+golden comparison).
 
 ``tee`` hands the same buffer, the same tensors, to every branch, as the
 JAX package does.  Torch tensors are mutable, so it first marks each
@@ -16,15 +18,16 @@ the JAX package).
 from __future__ import annotations
 
 import collections
+import logging
 import queue as _q
 import threading
-from typing import Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
 from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
 from ..runtime.element import Element, Pad, SinkElement, SourceElement
-from ..runtime.events import Event, EventKind
+from ..runtime.events import Event, EventKind, Message, MessageKind
 from ..runtime.registry import register_element
 
 
@@ -102,6 +105,47 @@ class AppSink(SinkElement):
             return self._q.get(timeout=timeout)
         except _q.Empty:
             return None
+
+
+@register_element("tensor_sink")
+class TensorSink(SinkElement):
+    """Callback sink (parity: gsttensor_sink.c ``new-data`` signal +
+    emit-signal/signal-rate properties).  The callback runs on the
+    streaming thread after the sink's depth-1 fence, with the buffer as
+    the pipeline left it (device tensors stay on the device)."""
+
+    FACTORY = "tensor_sink"
+
+    def __init__(self, name=None, callback: Optional[Callable] = None,
+                 emit_signal: bool = True, sync: bool = False, **props):
+        self.callback = callback
+        self.emit_signal = emit_signal
+        self.sync = sync
+        super().__init__(name, **props)
+        self.buffers_rendered = 0
+        self.last_buffer: Optional[Buffer] = None
+        self._cbs: List[Callable] = []
+
+    def connect(self, cb: Callable) -> None:
+        """connect('new-data'-style) a callback(buffer)."""
+        self._cbs.append(cb)
+
+    def render(self, buf: Buffer) -> None:
+        self.buffers_rendered += 1
+        self.last_buffer = buf
+        if self.emit_signal:
+            if self.callback is not None:
+                self.callback(buf)
+            for cb in self._cbs:
+                cb(buf)
+
+
+@register_element("fakesink")
+class FakeSink(SinkElement):
+    FACTORY = "fakesink"
+
+    def render(self, buf: Buffer) -> None:
+        pass
 
 
 @register_element("queue")
@@ -220,6 +264,19 @@ class Tee(Element):
             self.push(buf, sp)
 
 
+@register_element("identity")
+class Identity(Element):
+    FACTORY = "identity"
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.add_sink_pad()
+        self.add_src_pad()
+
+    def chain(self, pad: Pad, buf: Buffer) -> None:
+        self.push(buf)
+
+
 @register_element("filesrc")
 class FileSrc(SourceElement):
     """Read a file and push its bytes as application/octet-stream buffers
@@ -290,3 +347,34 @@ class FileSink(SinkElement):
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+
+
+@register_element("tensor_debug")
+class TensorDebug(Element):
+    """Stream introspection (parity: the reference's gsttensor_debug.c):
+    posts an ELEMENT bus message describing each buffer (schema and pts
+    only: no tensor is read, so nothing crosses from the device), passes
+    data through; ``output-mode=console`` also logs it."""
+
+    FACTORY = "tensor_debug"
+
+    def __init__(self, name=None, output_mode: str = "console", **props):
+        self.output_mode = output_mode
+        super().__init__(name, **props)
+        self.add_sink_pad()
+        self.add_src_pad()
+
+    def chain(self, pad: Pad, buf: Buffer) -> None:
+        desc = {
+            "num_tensors": buf.num_tensors,
+            "dims": [t.spec.dim_string() for t in buf.tensors],
+            "types": [str(t.dtype) for t in buf.tensors],
+            "format": str(buf.format),
+            "pts": buf.pts,
+        }
+        if self.output_mode == "console":
+            logging.getLogger("nnstreamer_tpu_torch").info(
+                "[%s] buffer %s", self.name, desc)
+        self.post_message(
+            Message(MessageKind.ELEMENT, self.name, data=desc))
+        self.push(buf)

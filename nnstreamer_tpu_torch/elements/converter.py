@@ -7,9 +7,10 @@ video rows whose stride needs no 4-byte padding, ``frames-per-tensor``
 batching, and external converter sub-plugins for other mimetypes
 (``converters/``).
 
-A converted frame keeps its payload on the host, zero-copy (a numpy
-view) whenever the source layout is tight; it moves to the card once, at
-the first device element.
+A converted frame keeps its payload where it is: a host frame stays on
+the host, zero-copy (a numpy view) whenever the source layout is tight,
+and moves to the card once, at the first device element; a media frame
+already on the device (a device-rendered overlay) stays there, reshaped.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from fractions import Fraction
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core import (
     Buffer,
@@ -30,6 +32,7 @@ from ..core import (
     TensorsSpec,
 )
 from ..converters import find_converter
+from ..core.buffer import to_numpy
 from ..runtime.element import Element, NegotiationError, Pad, StreamError
 from ..runtime.registry import register_element
 
@@ -266,9 +269,18 @@ class TensorConverter(Element):
                 self._pending, self._pending_pts = [], None
                 self._push_frame(frames, pts)
 
-    def _media_frame_to_array(self, buf: Buffer) -> np.ndarray:
+    def _media_frame_to_array(self, buf: Buffer):
         spec = self._frame_spec
         t = buf.tensors[0]
+        if t._host is None and t._dev is not None:
+            # a frame already on the device (a device-rendered overlay)
+            # stays there: a reshape, no copy
+            x = t.torch()
+            if x.numel() * x.element_size() != spec.nbytes:
+                raise StreamError(
+                    f"{self.name}: frame size "
+                    f"{x.numel() * x.element_size()} != {spec.nbytes}")
+            return x.reshape(spec.shape)
         if t._host is not None or t._dev is not None:
             arr = t.np()
             if arr.size * arr.itemsize != spec.nbytes:
@@ -288,12 +300,15 @@ class TensorConverter(Element):
                 f"{self.name}: payload {len(raw)}B != expected {spec.nbytes}B")
         return np.frombuffer(raw, dtype=spec.dtype.np_dtype).reshape(spec.shape)
 
-    def _push_frame(self, frames: List[np.ndarray], pts: Optional[int]) -> None:
+    def _push_frame(self, frames: list, pts: Optional[int]) -> None:
         out_spec = self._out_spec.tensors[0]
         if len(frames) == 1:
             arr = frames[0].reshape(out_spec.shape)
+        elif all(isinstance(f, torch.Tensor) for f in frames):
+            arr = torch.stack(frames).reshape(out_spec.shape)
         else:
-            arr = np.stack(frames, axis=0).reshape(out_spec.shape)
+            arr = np.stack([f if isinstance(f, np.ndarray) else to_numpy(f)
+                            for f in frames], axis=0).reshape(out_spec.shape)
         if pts is None and self.set_timestamp:
             from ..core import SECOND
 

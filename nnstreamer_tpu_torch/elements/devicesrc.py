@@ -103,10 +103,11 @@ class DeviceSrc(SourceElement):
         if 0 <= self.num_buffers <= self._i:
             return None
         slot = self._pool[self._i % len(self._pool)]
-        pts = None
+        pts = duration = None
         if self.fps:
             pts = int(self._i * 1_000_000_000 / self.fps)
+            duration = int(1_000_000_000 / self.fps)
         buf = Buffer(tensors=[Tensor(a) for a in slot], pts=pts,
-                     offset=self._i)
+                     duration=duration, offset=self._i)
         self._i += 1
         return buf

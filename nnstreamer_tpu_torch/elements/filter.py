@@ -7,10 +7,12 @@ the SET_INPUT_INFO reshape and the fused prologue/epilogue from
 runtime/fusion.py), and invoke — once per buffer, once per micro-batched
 window (``batch=``, runtime/batching.py), or through a model shared by
 many pipelines (``share-model=true``, runtime/serving.py).  Inputs are
-handed to the sub-plugin as tensors on its device; PyTorch launches the
-work asynchronously, so the streaming thread runs ahead of the card, and
-only a sampled dispatch (at most one a ``stat-sample-interval-ms``)
-waits for it to time the invoke.
+handed to the sub-plugin as tensors on its device (a host numpy
+framework, ``HOST_INVOKE``, gets the buffer's tensors as numpy arrays
+through one packed device→host copy); PyTorch launches the work
+asynchronously, so the streaming thread runs ahead of the card, and only
+a sampled dispatch (at most one a ``stat-sample-interval-ms``) waits for
+it to time the invoke.
 
 Model lifecycle: ``is-updatable=true`` lets a RELOAD_MODEL event swap the
 model — through the pool's lifecycle (``PoolEntry.reload_model``: staged
@@ -31,6 +33,7 @@ from fractions import Fraction
 from typing import Any, List, Optional
 
 from ..core import Buffer, Caps, Tensor, TensorFormat, TensorsSpec
+from ..decoders import drain_once
 from ..filters.api import FilterError, FilterProps, FilterSubplugin
 from ..filters.registry import detect_framework, find_filter
 from ..runtime.element import Element, NegotiationError, Pad, StreamError
@@ -383,7 +386,12 @@ class TensorFilter(Element):
         if self.invoke_dynamic:
             self._reshape_dynamic(buf)
         sample, t0 = self._sampler.begin(self._sample_interval())
-        outputs = sp.invoke([t.torch(sp.device) for t in tensors])
+        if getattr(sp, "HOST_INVOKE", False):
+            # a host numpy framework: the buffer's device tensors cross
+            # in one packed copy
+            outputs = sp.invoke(drain_once(tensors))
+        else:
+            outputs = sp.invoke([t.torch(sp.device) for t in tensors])
         if getattr(sp, "_donate", False):
             self._mark_donated(buf)
         self._sampler.end(outputs, t0, sample)

@@ -3,8 +3,8 @@ package's ``filters/registry.py``).
 
 Parity target: nnstreamer_filter_probe/find
 (nnstreamer:gst/nnstreamer/nnstreamer_subplugin.c:141,225) and
-``framework=auto`` detection.  This slice of the port loads no model files,
-so auto-detection knows in-process registered models only.
+``framework=auto`` detection from a model file's extension with the
+conf-driven priority (gst_tensor_filter_detect_framework).
 """
 
 from __future__ import annotations
@@ -46,22 +46,36 @@ def list_filters():
 
 
 def detect_framework(model) -> str:
-    """framework="auto": a name registered with the torch-cuda filter, or
-    a model file of a type it knows (it loads some and names the format
-    it refuses)."""
+    """framework="auto": a callable (``custom-easy``); a model file by its
+    extension, the candidates ordered by ``utils/conf.py``'s
+    ``framework_priority_<ext>`` (a file of a type the torch-cuda filter
+    refuses goes to it, which names the format); else a name registered
+    with the torch-cuda filter or as a custom-easy model."""
     _ensure_builtin()
+    from ..utils.conf import get_conf
+    from .custom import easy_model_registered
     from .modeluri import resolve_model_uri
-    from .torch_cuda import MODEL_FILE_TYPES, XLA_PROGRAM_TYPES, get_model
+    from .torch_cuda import XLA_PROGRAM_TYPES, get_model
 
+    if callable(model):
+        return "custom-easy"
     if isinstance(model, str) and get_model(model) is not None:
         return "torch-cuda"
     try:
         path = resolve_model_uri(model)
     except (ValueError, KeyError):
         path = None
-    if isinstance(path, str) and os.path.splitext(path)[1].lower() in (
-            MODEL_FILE_TYPES + XLA_PROGRAM_TYPES + (".msgpack",)):
-        return "torch-cuda"
+    if isinstance(path, (str, os.PathLike)):
+        ext = os.path.splitext(str(path))[1].lower()
+        candidates = get_conf().framework_priority(ext)
+        if not candidates and ext in (XLA_PROGRAM_TYPES + (".msgpack",)):
+            candidates = ["torch-cuda"]   # which refuses, naming the format
+        with _lock:
+            for c in candidates:
+                if c in _frameworks:
+                    return c
+    if isinstance(model, str) and easy_model_registered(model):
+        return "custom-easy"
     raise ValueError(f"cannot auto-detect framework for model {model!r}")
 
 
@@ -76,6 +90,6 @@ def _ensure_builtin() -> None:
     with _builtin_lock:
         if _builtin_done:
             return
-        from . import torch_cuda  # noqa: F401  self-registering
+        from . import custom, pytorch, torch_cuda  # noqa: F401
 
         _builtin_done = True

@@ -1,9 +1,11 @@
 """Model zoo for the ``torch-cuda`` filter: the SSD-MobileNetV2 detector
 with its MobileNetV2 backbone, the MobileNetV1 and MobileNetV2
 classifiers, the YOLO detector (raw v8 layout or decode + NMS in the
-model), the ViT classifier; the converters from JAX-layout parameter
-trees and each family's ``*_tree_apply`` for weights files; and
-``params_io``, the weights files both packages read."""
+model), the ViT classifier; ``trace_classifier``, a MobileNet as a
+TorchScript module for the ``pytorch`` filter; the converters from
+JAX-layout parameter trees and each family's ``*_tree_apply`` for
+weights files; and ``params_io``, the weights files both packages
+read."""
 
 from .convert import (
     mobilenet_v1_from_jax,
@@ -28,6 +30,7 @@ from .mobilenet import (
     mobilenet_v2_apply,
     mobilenet_v2_init,
     register_mobilenet,
+    trace_classifier,
 )
 from .params_io import weights_to_bf16
 from .ssd import (
@@ -63,7 +66,8 @@ __all__ = [
     "yolo_from_jax", "yolo_tree_apply",
     "MobileNetV1", "MobileNetV2", "MobileNetV2Backbone",
     "mobilenet_v1_apply", "mobilenet_v1_init", "mobilenet_v2_apply",
-    "mobilenet_v2_init", "register_mobilenet", "weights_to_bf16",
+    "mobilenet_v2_init", "register_mobilenet", "trace_classifier",
+    "weights_to_bf16",
     "SSDMobileNetV2", "batched_nms", "decode_boxes", "feature_sizes_for",
     "register_ssd", "ssd_anchors", "ssd_detect_apply",
     "ViT", "register_vit", "vit_apply", "vit_init", "vit_tree",

@@ -171,7 +171,12 @@ def _v2_strides() -> List[int]:
 def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
     """XLA's ``padding="SAME"`` for one spatial dim: (before, after).  It
     is asymmetric when the total is odd — at 300, k=3, stride 2 it pads 0
-    before and 1 after, which ``nn.Conv2d(padding=1)`` cannot express."""
+    before and 1 after, which ``nn.Conv2d(padding=1)`` cannot express.
+    ``size`` is taken as a plain int: a traced module
+    (``trace_classifier``) then holds the pad amounts as constants; traced
+    shape arithmetic made the TorchScript executor read each amount back
+    from the card, a device→host copy and a wait each."""
+    size = int(size)
     out = -(-size // stride)
     total = max((out - 1) * stride + k - size, 0)
     return total // 2, total - total // 2
@@ -331,6 +336,31 @@ def mobilenet_v2_apply(model: MobileNetV2, x: torch.Tensor,
     """(N, H, W, 3) → (N, num_classes) f32 logits; compute in ``dtype``
     (bf16 by default)."""
     return model(x, torch.bfloat16 if dtype is None else dtype)
+
+
+class _ComputeIn(nn.Module):
+    """A classifier's forward with its compute dtype bound, for tracing."""
+
+    def __init__(self, model: nn.Module, dtype: torch.dtype):
+        super().__init__()
+        self.model, self.dtype = model, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x, self.dtype)
+
+
+def trace_classifier(model: nn.Module, shape: Sequence[int],
+                     dtype=None) -> torch.jit.ScriptModule:
+    """A MobileNet classifier traced to TorchScript — the file the
+    ``pytorch`` filter loads — at an NHWC float32 input of ``shape`` on
+    the model's device, computing in ``dtype`` (bf16 by default).  The
+    trace fixes the input shape (the convolutions' padding is computed
+    from it)."""
+    dtype = torch.bfloat16 if dtype is None else dtype
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        return torch.jit.trace(_ComputeIn(model, dtype).eval(),
+                               torch.zeros(tuple(shape), device=dev))
 
 
 # -- registration --------------------------------------------------------------

@@ -150,6 +150,13 @@ class Element:
         # threads at once, and `d[k] += 1` is a racy read-modify-write
         self._stats_lock = threading.Lock()
         self.stats: Dict[str, Any] = {"buffers_in": 0, "buffers_out": 0}
+        # per-element config file (parity: gst_tensor_parse_config_file):
+        # the file overrides constructor values; set_property afterwards
+        # (incl. later keys in a pipeline string) overrides the file
+        cfg = props.pop("config_file", None) or props.pop("config-file",
+                                                          None)
+        if cfg:
+            self.load_config_file(str(cfg))
         for k, v in props.items():
             self.set_property(k, v)
 
@@ -163,6 +170,27 @@ class Element:
 
     def get_property(self, key: str) -> Any:
         return getattr(self, key.replace("-", "_"))
+
+    def load_config_file(self, path: str, skip=()) -> None:
+        """Apply ``key=value`` lines (# comments, blank lines skipped) as
+        properties, with the pipeline-string value grammar.  ``skip``
+        names properties that must keep their current values (the parser
+        passes the keys given explicitly alongside config-file)."""
+        from .parser import _parse_value
+
+        skip = {k.replace("-", "_") for k in skip}
+        with open(path) as f:
+            for ln, line in enumerate(f, 1):
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                if "=" not in line:
+                    raise ValueError(
+                        f"{path}:{ln}: expected key=value, got {line!r}")
+                k, _, v = line.partition("=")
+                if k.strip().replace("-", "_") in skip:
+                    continue
+                self.set_property(k.strip(), _parse_value(v.strip()))
 
     @property
     def device(self) -> torch.device:

@@ -258,6 +258,11 @@ def parse_launch(desc: str, pipeline: Optional[Pipeline] = None,
         for seg in chain:
             if seg.kind == "element":
                 nm = seg.props.pop("name", None) or new_name(seg.value)
+                # config-file applies AFTER the other keys of this
+                # segment and never overrides them: explicit
+                # pipeline-string values win over the file
+                cfg = seg.props.pop("config-file", None) or \
+                    seg.props.pop("config_file", None)
                 try:
                     el = make(seg.value, el_name=str(nm), **{
                         k.replace("-", "_"): v
@@ -269,6 +274,8 @@ def parse_launch(desc: str, pipeline: Optional[Pipeline] = None,
                 except ValueError as e:
                     raise ParseError(
                         f"{seg.value}: {e}", pos=seg.pos) from e
+                if cfg:
+                    el.load_config_file(str(cfg), skip=seg.props.keys())
                 pipe.add(el)
                 cur: Tuple[Element, Optional[str]] = (el, None)
             elif seg.kind == "caps":

@@ -10,6 +10,7 @@ modules once, lazily, on the first factory lookup.
 from __future__ import annotations
 
 import importlib
+import logging
 import threading
 from typing import Callable, Dict, Optional, Type
 
@@ -66,7 +67,9 @@ _BUILTIN_MODULES = [
 
 
 def _ensure_scanned() -> None:
-    """Lazy one-shot import of the built-in element modules."""
+    """Lazy one-shot import of the built-in element modules plus any
+    extra modules configured through ``utils/conf.py``
+    (``NNS_TPU_TORCH_COMMON_PLUGINS``)."""
     global _scanned
     if _scanned:
         return
@@ -75,6 +78,15 @@ def _ensure_scanned() -> None:
     with _scan_lock:
         if _scanned:
             return
-        for m in _BUILTIN_MODULES:
-            importlib.import_module(m)
+        from ..utils.conf import get_conf
+
+        for m in _BUILTIN_MODULES + get_conf().extra_plugin_modules:
+            try:
+                importlib.import_module(m)
+            except ImportError as e:
+                # built-ins must import; configured extras may be absent
+                if m in _BUILTIN_MODULES:
+                    raise
+                logging.getLogger("nnstreamer_tpu_torch").warning(
+                    "plugin module %s failed to import: %s", m, e)
         _scanned = True

@@ -19,6 +19,12 @@ CUDA tensor gives the CPU's rows.  The model lifecycle runs on the card
 at small width (a hot swap and a
 canary of ViT weights files, each frame against its version alone within
 1e-4), and the kernel cache makes a round trip with the real ``nvcc``.
+The stream elements on the card: a merge with a host branch and an
+aggregator window stay on the card (no device→host copy, each window the
+``torch.cat`` of its frames), ``tensor_if`` makes one scalar copy a
+verdict, the ``pytorch`` filter runs on ``cuda`` (against the CPU within
+atol 1e-5 + rtol 1e-4), and the sparse encoder copies only the indices
+and values of a device tensor.
 """
 
 import os
@@ -691,3 +697,140 @@ def test_cascade_crops_on_card_equal_cpu(card):
             got.append((b.pts, [t.np().tobytes() for t in b.tensors]))
         outs[dev] = got
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 4
+
+
+# -- stream elements and the pytorch filter on the card --------------------------
+
+def _count_card_copies(monkeypatch):
+    """Record the shape of every device→host ``Tensor.cpu``/``.item``."""
+    copies = []
+    cpu, item = torch.Tensor.cpu, torch.Tensor.item
+
+    def counting_cpu(self, *a, **kw):
+        if self.is_cuda:
+            copies.append(("cpu", tuple(self.shape)))
+        return cpu(self, *a, **kw)
+
+    def counting_item(self):
+        if self.is_cuda:
+            copies.append(("item", tuple(self.shape)))
+        return item(self)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", counting_cpu)
+    monkeypatch.setattr(torch.Tensor, "item", counting_item)
+    return copies
+
+
+def _pull_all(sink):
+    out = []
+    while (b := sink.pull(timeout=0)) is not None:
+        out.append(b)
+    return out
+
+
+def test_aggregator_and_merge_stay_on_card(card, monkeypatch):
+    """A window of camera frames is one torch.cat on the card, and a merge
+    with a host branch concatenates on the card: no device→host copy."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    frames = [torch.randint(0, 256, (1, 8, 8, 3), dtype=torch.uint8,
+                            device=card) for _ in range(6)]
+    p = parse_launch(
+        "tensor_merge name=m mode=linear option=3 ! tensor_aggregator "
+        "frames-in=2 frames-out=4 frames-flush=4 frames-dim=3 ! "
+        "appsink name=out appsrc name=a ! m.sink_0 appsrc name=b ! m.sink_1")
+    for s in ("a", "b"):
+        p[s].spec = TensorsSpec.parse("3:8:8:1", "uint8")
+    copies = _count_card_copies(monkeypatch)
+    host = [np.full((1, 8, 8, 3), i, np.uint8) for i in range(6)]
+    with p:
+        for i in range(6):
+            p["a"].push_buffer(Buffer.of(frames[i], pts=i))
+            p["b"].push_buffer(Buffer.of(host[i], pts=i))
+        p["a"].end_of_stream()
+        p["b"].end_of_stream()
+        assert p.wait_eos(timeout=60)
+    out = _pull_all(p["out"])
+    assert copies == []
+    monkeypatch.undo()
+    assert len(out) == 3
+    for w, b in enumerate(out):
+        x = b.tensors[0].torch()
+        assert x.is_cuda and tuple(x.shape) == (4, 8, 8, 3)
+        want = torch.cat([torch.cat([frames[j], torch.from_numpy(host[j])
+                                     .to(card)]) for j in (2 * w, 2 * w + 1)])
+        assert torch.equal(x, want)
+
+
+def test_tensor_if_one_scalar_copy_on_card(card, monkeypatch):
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    p = parse_launch(
+        "appsrc name=src ! tensor_if name=i compared-value=ALL_TENSORS_TOTAL "
+        "operator=ge supplied-value=10 then=PASSTHROUGH else=FILL_ZERO "
+        "i.src_then ! appsink name=t i.src_else ! appsink name=e")
+    p["src"].spec = TensorsSpec.parse("4,2", "int32,float32")
+    copies = _count_card_copies(monkeypatch)
+    with p:
+        for v in (1, 5, 0, 9):
+            p["src"].push_buffer(Buffer.of(
+                torch.full((4,), v, dtype=torch.int32, device=card),
+                torch.full((2,), 0.5, device=card), pts=v))
+        p["src"].end_of_stream()
+        assert p.wait_eos(timeout=60)
+    then, other = _pull_all(p["t"]), _pull_all(p["e"])
+    assert copies == [("item", ())] * 4 and p["i"].verdict_copies == 4
+    monkeypatch.undo()
+    assert [b.pts for b in then] == [5, 9] and [b.pts for b in other] == [1, 0]
+    z = other[0].tensors[0].torch()
+    assert z.is_cuda and z.dtype == torch.int32 and int(z.abs().sum()) == 0
+
+
+def test_pytorch_filter_runs_on_card(card, tmp_path):
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    torch.manual_seed(0)
+    m = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                            torch.nn.Linear(16, 4))
+    path = str(tmp_path / "mlp.pt")
+    torch.jit.script(m).save(path)
+    x = torch.randn(2, 8)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = parse_launch(f"appsrc name=src ! tensor_filter "
+                         f"framework=pytorch model={path} input=8:2 "
+                         "inputtype=float32 ! appsink name=out", device=dev)
+        p["src"].spec = TensorsSpec.parse("8:2", "float32")
+        with p:
+            p["src"].push_buffer(Buffer.of(x.to(dev)))
+            p["src"].end_of_stream()
+            assert p.wait_eos(timeout=60)
+        y = p["out"].pull(timeout=1).tensors[0].torch()
+        assert y.device.type == dev
+        outs[dev] = y.cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=1e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8, torch.int64])
+def test_sparse_encoder_copies_only_indices_and_values(card, monkeypatch,
+                                                       dtype):
+    from nnstreamer_tpu_torch.core import Tensor
+    from nnstreamer_tpu_torch.core.buffer import (
+        sparse_from_dense,
+        sparse_to_dense,
+    )
+
+    x = torch.zeros(64, 32, dtype=dtype, device=card)
+    x[3, 4], x[10, 0], x[63, 31] = 7, 2, 1
+    want = sparse_from_dense(Tensor(x.cpu()))
+    copies = _count_card_copies(monkeypatch)
+    got = sparse_from_dense(Tensor(x))
+    assert copies == [("cpu", (3 * (4 + x.element_size()),))]
+    monkeypatch.undo()
+    assert got == want
+    assert sparse_to_dense(got).tobytes() == Tensor(x).tobytes()

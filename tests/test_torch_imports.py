@@ -44,7 +44,7 @@ def test_port_imports_with_jax_blocked():
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 54
+    assert len(names) >= 65
     for mod in ("runtime.batching", "runtime.serving", "runtime.admission",
                 "utils.stats", "elements.transform", "elements.filter",
                 "filters.api", "filters.torch_cuda", "filters.modeluri",
@@ -56,7 +56,11 @@ def test_port_imports_with_jax_blocked():
                 "decoders.flexbuf", "decoders.python3", "decoders.refcompat",
                 "elements.sync", "elements.crop", "elements.converter",
                 "converters", "converters.codecs", "converters.wirefmt",
-                "converters.python3"):
+                "converters.python3", "elements.basic",
+                "elements.combiners", "elements.condition",
+                "elements.aggregator", "elements.rate", "elements.sparse",
+                "elements.repo", "elements.datarepo", "elements.sensorsrc",
+                "filters.custom", "filters.pytorch", "utils.conf"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 
