@@ -6,6 +6,7 @@
     python3 chip_smoke.py --serving-legs DIR          # phase 8's legs only
     python3 chip_smoke.py --decoders                  # build + phase 12 only
     python3 chip_smoke.py --elements                  # build + phase 13 only
+    python3 chip_smoke.py --obs                       # build + phase 14 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -13,7 +14,8 @@ model lifecycle of that pool (hot swap, canary, the kernel cache),
 MobileNet classification, YOLO detection, the decoders with the
 detect → tensor_region → tensor_crop cascade, and the stream elements
 (aggregated camera frames into a TorchScript classifier, a gated camera,
-two cameras in one window) — through ``parse_launch`` at full width.
+two cameras in one window), and the observability layer on the serving
+and detection paths — through ``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
@@ -94,7 +96,7 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    only); dispatches by bucket per version.  (c) A weights-only swap
    from a params dict (seed 2): every frame on the new weights, no
    verdict taken anew.  (d) The kernel cache: three processes on one
-   fresh ``NNS_TPU_COMPILE_CACHE_DIR`` — cold (misses and stores), warm
+   fresh ``NNS_TPU_TORCH_COMPILE_CACHE_DIR`` — cold (misses and stores), warm
    (hits, no nvcc), after a truncated entry (an error, one rebuild) —
    each launching both kernels against their plain versions.  (e)
    ``flash_attention`` at every bucket the canary's groups reached;
@@ -179,7 +181,38 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    interleaved per instant, overlays byte-equal to phase 4's composite
    on the same windows, the scores on ``tensor_sink`` equal to output 2;
    frames/s per camera;
-14. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+14. observability, on two full-width paths that run both kernels.
+   (a) Phase 8's shared topology (8 closed-loop streams, the ViT per
+   frame, ``share-model=true batch=64 batch-timeout-ms=2
+   batch-buckets=8,16,32,64``), streams 0–3 ``tenant=a`` and 4–7
+   ``tenant=b``, ``slo-ms`` far above a window cycle (admission reads its
+   p99 from the registry and sheds nothing), a ``LatencyTracer`` at 1 in
+   8, ``serve_metrics`` on an ephemeral port scraped over HTTP
+   (``/metrics``, ``/snapshot``, ``/healthz``) during the timed run and
+   after it, and ``NNS_TPU_TORCH_CHAOS=seed=7;slow-invoke:ms=2,p=0.05,
+   match=pool``: every stream's pts in order, none lost; labels equal to
+   each frame alone's argmax where its top-2 margin exceeds 5e-2; every
+   traced frame's residencies sum to its end-to-end latency, which is at
+   least its window's device time (CUDA events around the window); the
+   Chrome trace loads and nests; over a profiled span the transfer
+   ledger's copies equal torch.profiler's copy rows; the bucket-64
+   program's counted FLOPs within 1% of the ViT's by hand, every
+   ``nns_mfu`` in (0, 1.05]; the tenant split exact and a's and b's
+   frames 50% ± one window; ``nns_chaos_injected_total`` equal to the
+   plan's count and the pool's injected sleep to count × 2 ms; the device
+   memory table equal to ``torch.cuda.memory_stats``/``mem_get_info``;
+   ``nns_model_weight_bytes`` equal to the ViT's parameter bytes.  (b)
+   Phase 4's pipeline, 8 windows, in the order passive obs (in this
+   process), ``NNS_TPU_TORCH_OBS_DISABLE=1`` (a child process), passive,
+   disabled: the passive cost at most 3% of the p50 window; the ledger
+   against the profiler's copy rows over a run, and the crossings between
+   source and sink once staged; the counted FLOPs beside a hand count of
+   the convolutions, ``nns_mfu`` in (0, 1.05]; with
+   ``NNS_TPU_TORCH_FLIGHTREC_DIR`` set, ``chaos=seed=3;fail-invoke:
+   every=2,count=1`` on the filter puts a ``ChaosInvokeError`` on the bus
+   and the flight recorder writes a trace and a snapshot that load, the
+   snapshot counting one injected failure;
+15. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -190,7 +223,7 @@ card.  ``--serving-legs DIR`` runs nothing but phase 8's shared and
 unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
-line); ``--elements`` does the same for phase 13.
+line); ``--elements`` and ``--obs`` do the same for phases 13 and 14.
 """
 
 from __future__ import annotations
@@ -219,14 +252,6 @@ POOL = 4
 SEED = 0
 NORM = "typecast:float32,add:-127.5,div:127.5"
 
-#: spec-sheet HBM bandwidth by card name (NVIDIA data sheets)
-HBM_BYTES_PER_S = {
-    "H100 80GB HBM3": 3.35e12,   # H100 SXM
-    "H100 SXM": 3.35e12,
-    "H100 NVL": 3.9e12,
-    "H100 PCIe": 2.0e12,
-    "H200": 4.8e12,
-}
 
 #: the ViT path: the JAX package's benchmark configuration (bench.py)
 VIT_BATCH = 64
@@ -234,8 +259,6 @@ VIT_SIZE = 256
 VIT = dict(patch=16, dim=512, depth=6, heads=4, mlp_dim=2048,
            num_classes=1000)
 LABELS = os.path.join(HERE, "tests", "golden", "labels.txt")
-#: spec-sheet dense bf16 tensor-core rate of an H100 SXM
-BF16_FLOPS = 989e12
 #: the spin ahead of each timed group: about 10 ms at the H100's clocks
 SPIN_CYCLES = 20_000_000
 #: bf16 ulps (where |plain| >= 1/64) the attention kernel may be off:
@@ -376,11 +399,20 @@ COMPOSITE = (
     "option7=device ! appsink name=out max-buffers={sink}")
 
 
+def card_spec(name: str):
+    """The card's row of the port's peak table (``obs/hwspec.py``: NVIDIA
+    data-sheet dense bf16 rate and HBM bandwidth), the denominator of
+    every bound here and of ``nns_mfu``."""
+    from nnstreamer_tpu_torch.obs.hwspec import spec_for_device_name
+
+    spec = spec_for_device_name(name)
+    if spec is None:
+        raise RuntimeError(f"no data-sheet peaks known for {name!r}")
+    return spec
+
+
 def hbm_bandwidth(name: str) -> float:
-    for key, bw in HBM_BYTES_PER_S.items():
-        if key in name:
-            return bw
-    raise RuntimeError(f"no spec-sheet memory bandwidth known for {name!r}")
+    return card_spec(name).hbm_bw
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 5, groups: int = 5) -> float:
@@ -710,7 +742,7 @@ def phase_flash_attention(card: str, power: str):
     nbytes = 4 * q.numel() * q.element_size()
     flops = 4 * q.shape[0] * q.shape[1] * s * s * dh
     bytes_ms = nbytes / hbm_bandwidth(card) * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
+    ops_ms = flops / card_spec(card).peak_flops * 1e3
     bound = max(bytes_ms, ops_ms)
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"kernel flash_attention bf16 {main}: ms={ms:.6f} (contiguous) "
@@ -801,10 +833,7 @@ def serving_legs(root: str) -> int:
     card, _, power = (s.strip() for s in card_and_power().partition(","))
     build.build_all()
     register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
-    g = torch.Generator().manual_seed(SEED + 4)
-    pools = [[torch.randint(0, 256, (1, VIT_SIZE, VIT_SIZE, 3), generator=g,
-                            dtype=torch.uint8).cuda()
-              for _ in range(SERVE_POOL)] for _ in range(SERVE_STREAMS)]
+    pools, _ = serve_pools()
     print(f"serving legs with {os.path.dirname(nnstreamer_tpu_torch.__file__)}",
           flush=True)
     for share in (True, False):
@@ -1440,6 +1469,19 @@ def window_by_bucket(pools, alone):
     return diffs
 
 
+def serve_pools():
+    """Each stream's SERVE_POOL distinct uint8 frames, staged on the card,
+    and the generator that drew them (seeded: phases 8 and 14 draw the
+    same frames)."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 4)
+    pools = [[torch.randint(0, 256, (1, VIT_SIZE, VIT_SIZE, 3), generator=g,
+                            dtype=torch.uint8).cuda()
+              for _ in range(SERVE_POOL)] for _ in range(SERVE_STREAMS)]
+    return pools, g
+
+
 def phase_serving(card: str, power: str):
     """Shared-model serving at the ViT's width: the two legs of the JAX
     package's bench_serving (one pool and its cross-stream window against
@@ -1454,10 +1496,7 @@ def phase_serving(card: str, power: str):
 
     t0 = time.perf_counter()
     register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
-    g = torch.Generator().manual_seed(SEED + 4)
-    pools = [[torch.randint(0, 256, (1, VIT_SIZE, VIT_SIZE, 3), generator=g,
-                            dtype=torch.uint8).cuda()
-              for _ in range(SERVE_POOL)] for _ in range(SERVE_STREAMS)]
+    pools, g = serve_pools()
     print(f"serving: per-frame ViT ({VIT}, image {VIT_SIZE}) and "
           f"{SERVE_STREAMS}x{SERVE_POOL} frames on the card in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -1621,7 +1660,8 @@ def flash_at_buckets(buckets, g, card: str, power: str):
         ms = time_ms(lambda: kernels.flash_attention(q, k, v))
         nbytes = 4 * q.numel() * q.element_size()
         flops = 4 * bucket * heads * s_len * s_len * dh
-        bound = max(nbytes / bw * 1e3, flops / BF16_FLOPS * 1e3)
+        bound = max(nbytes / bw * 1e3,
+                    flops / card_spec(card).peak_flops * 1e3)
         by_bucket[bucket] = {"ms": ms, "bound_ms": bound,
                              "share_of_bound": bound / ms,
                              "max_abs_diff": diff, "max_bf16_ulps": ulps}
@@ -2035,7 +2075,8 @@ def lc_cache(root: str, card: str, power: str):
     def probe(label):
         out = subprocess.run(
             [sys.executable, "-c", code], capture_output=True, text=True,
-            timeout=900, env=dict(os.environ, NNS_TPU_COMPILE_CACHE_DIR=d))
+            timeout=900,
+            env=dict(os.environ, NNS_TPU_TORCH_COMPILE_CACHE_DIR=d))
         if out.returncode != 0:
             raise RuntimeError(f"cache probe ({label}) failed:\n{out.stderr}")
         r = json.loads(out.stdout.strip().splitlines()[-1])
@@ -3304,9 +3345,7 @@ def elements_classify(card: str, power: str):
                                   f"num-buffers={8 * b}"),
                      device="cuda")
     q["src"].frames, q["src"].pool_size = frames, n
-    steady = []
-    q["out"].connect(steady.append)
-    busy, span, host_ms, d2h = steady_profile(q, steady, 2, 7)
+    busy, span, host_ms, d2h = steady_profile(q, 2, 7)
     print(f"elements (a) steady: while windows 3..7 of 8 reach the sink "
           f"({host_ms:.3f} ms on the host): kernels busy {busy:.3f} ms of a "
           f"{span:.3f} ms device span, first kernel start to last kernel "
@@ -3399,28 +3438,43 @@ def device_busy(events):
     return busy / 1e3, span / 1e3, d2h
 
 
-def steady_profile(p, bufs, first: int, last: int):
-    """Device busy share of a running pipeline while its sink receives
-    buffers ``first``..``last`` (torch.profiler, device activity only,
-    started and stopped at those host arrivals; the share itself is
+def steady_profile(p, first: int, last: int):
+    """Device busy share of a running pipeline while its sink ``out``
+    receives buffers ``first``..``last`` (torch.profiler, device activity
+    only, started and stopped at those host arrivals; the share itself is
     :func:`device_busy`'s, on the device's clock).  Returns busy ms, the
     device span ms, the host ms between the two arrivals and the
-    device→host copies.  Starts ``p``, and stops it at EOS."""
+    device→host copies.  Starts ``p``, and stops it at EOS.
+
+    The profiler starts and stops inside the sink's callback, on the
+    pipeline's one streaming thread: stopping it from another thread
+    while that thread launches kernels crashed the process (a segfault,
+    or glibc's "double free or corruption") in about one run in six."""
     from torch.profiler import ProfilerActivity, profile
 
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    seen, t0, host = [0], [0.0], []
+
+    def on_buffer(_buf):
+        seen[0] += 1
+        if seen[0] == first:
+            prof.start()
+            t0[0] = time.perf_counter()
+        elif seen[0] == last:
+            host.append((time.perf_counter() - t0[0]) * 1e3)
+            prof.stop()
+
+    p["out"].connect(on_buffer)
     p.start()
     try:
-        wait_for(lambda: len(bufs) >= first, f"sink buffer {first}")
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        prof.start()
-        t0 = time.perf_counter()
-        wait_for(lambda: len(bufs) >= last, f"sink buffer {last}")
-        host_ms = (time.perf_counter() - t0) * 1e3
-        prof.stop()
         if not p.wait_eos(timeout=600):
             raise RuntimeError("steady profile: no EOS within 600 s")
     finally:
         p.stop()
+    if not host:
+        raise RuntimeError(f"steady profile: {seen[0]} buffers reached the "
+                           f"sink, not {last}")
+    host_ms = host[0]
     busy, span, d2h = device_busy(prof.events())
     if span <= 0:
         raise RuntimeError("steady profile: the profiler saw no kernel")
@@ -3623,13 +3677,649 @@ def phase_elements(card: str, power: str):
     return out
 
 
+# -- phase 14: the observability layer on two full-width paths ---------------
+
+#: 14a: phase 8's shared topology under observation (see the module doc)
+OBS_TRACE_EVERY = 8        # the tracer samples 1 frame in 8
+OBS_CHAOS = "seed=7;slow-invoke:ms=2,p=0.05,match=pool"
+OBS_SLOW_S = 0.002         # the plan's slow-invoke sleep
+#: the pool SLO: far above a window cycle, so admission arms and reads its
+#: p99 from the registry's histogram but sheds nothing (a shed frame would
+#: never come back to its closed-loop client); the warm-up's first windows
+#: (a bucket's first dispatch is counted and fold-checked) can take the
+#: p99 past the ramp of a tighter SLO, so the signal is reset after it
+OBS_SLO_MS = 5000
+OBS_SAMPLE_MS = 0          # every dispatch a blocking stats sample
+OBS_MARGIN = 5e-2          # top-2 margin above which a label must be alone's
+OBS_PROFILED = 16          # frames per stream of the ledger-vs-profiler span
+OBS_MFU_MAX = 1.05
+OBS_FLOPS_TOL = 0.01
+OBS_SCRAPE_S = 0.25        # the HTTP scraper's period during the timed run
+#: 14b: phase 4's pipeline, passive obs against the kill switch
+OBS_WINDOWS = 8
+OBS_PASSIVE_TOL = 0.03     # the JAX package's own bound (obs/metrics.py)
+OBS_FAIL = "seed=3;fail-invoke:every=2,count=1"
+#: the device of 14b's hand count; a dry run on "cpu" shrinks the sizes
+OBS_DEVICE = "cuda"
+
+
+def vit_flops_per_frame() -> int:
+    """The ViT forward's matmul and convolution FLOPs a frame, by hand
+    (2·MAC; attention 4·H·T²·dh): what the port's count covers."""
+    t = (VIT_SIZE // VIT["patch"]) ** 2
+    dim, mlp, heads = VIT["dim"], VIT["mlp_dim"], VIT["heads"]
+    embed = 2 * t * dim * 3 * VIT["patch"] ** 2
+    block = (2 * t * dim * 3 * dim                 # qkv
+             + 4 * heads * t * t * (dim // heads)  # q·kᵀ and p·v
+             + 2 * t * dim * dim                   # output projection
+             + 2 * 2 * t * dim * mlp)              # the MLP
+    return embed + VIT["depth"] * block + 2 * dim * VIT["num_classes"]
+
+
+def profiled_copies(fn):
+    """(result, {"HtoD": (count, bytes), "DtoH": (count, bytes)}): the
+    host↔device copy rows of torch.profiler's trace of ``fn()``."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    rows = {"HtoD": [0, 0], "DtoH": [0, 0]}
+    for e in events:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        for kind, row in rows.items():
+            if kind in e["name"]:
+                row[0] += 1
+                row[1] += int(e["args"]["bytes"])
+    return out, {k: tuple(v) for k, v in rows.items()}
+
+
+def ledger_totals():
+    """{"HtoD": (count, bytes), "DtoH": ...} of the transfer ledger."""
+    from nnstreamer_tpu_torch.obs.transfer import LEDGER
+
+    return {"HtoD": LEDGER.totals(direction="h2d"),
+            "DtoH": LEDGER.totals(direction="d2h")}
+
+
+def _delta(a, b):
+    return {k: (b[k][0] - a[k][0], b[k][1] - a[k][1]) for k in a}
+
+
+def _http(base: str, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=30) as r:
+        body = r.read().decode()
+    return body if path == "/metrics" else json.loads(body)
+
+
+def _metric(text: str, name: str, **labels) -> float:
+    """The sum of the exposition samples of ``name`` whose labels include
+    ``labels``."""
+    total = 0.0
+    for line in text.splitlines():
+        if not line.startswith(name + "{") and not line.startswith(
+                name + " "):
+            continue
+        head, _, value = line.rpartition(" ")
+        if all(f'{k}="{v}"' in head for k, v in labels.items()):
+            total += float(value)
+    return total
+
+
+def _phase_hists(label: str):
+    """(sum, count) of the pool's nns_invoke_* histograms by phase."""
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+
+    fams = REGISTRY.collect()
+    out = {}
+    for fam, phase in (("nns_invoke_device_seconds", "device"),
+                       ("nns_invoke_host_seconds", "prep"),
+                       ("nns_invoke_host_seconds", "drain")):
+        s = n = 0.0
+        for x in fams.get(fam, {}).get("samples", ()):
+            lb = x["labels"]
+            if lb.get("source") != label or lb.get("kind") != "pool" or \
+                    lb.get("phase", "device") != phase:
+                continue
+            if x.get("name", "").endswith("_sum"):
+                s += x["value"]
+            elif x.get("name", "").endswith("_count"):
+                n += x["value"]
+        out[phase] = (s, n)
+    return out
+
+
+def check_trace_nests(doc: dict) -> int:
+    """The Chrome trace round-trips through JSON and every event lies in
+    its frame's span; returns the number of frames."""
+    doc = json.loads(json.dumps(doc))
+    events = doc["traceEvents"]
+    frames = {e["tid"]: e for e in events if e["cat"] == "frame"}
+    for e in events:
+        f = frames[e["tid"]]
+        if e["ts"] < f["ts"] - 1e-3 or \
+                e["ts"] + e.get("dur", 0) > f["ts"] + f["dur"] + 1e-3:
+            raise RuntimeError(f"obs: trace event {e['name']} outside its "
+                               "frame's span")
+    return len(frames)
+
+
+def obs_vit_serving(card: str, power: str, phase8=None):
+    """14a: phase 8's shared topology at the ViT's width under the whole
+    observability layer (see the module doc)."""
+    import gc
+    import threading
+
+    import torch
+
+    from nnstreamer_tpu_torch import chaos
+    from nnstreamer_tpu_torch.chaos import hooks as chaos_hooks
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.filters.torch_cuda import get_model
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.obs import LatencyTracer, serve_metrics
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+    from nnstreamer_tpu_torch.obs.tenantstat import TENANT_STATS
+    from nnstreamer_tpu_torch.obs.transfer import LEDGER, params_nbytes
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
+    pools, _ = serve_pools()
+    on_card = pools[0][0].is_cuda
+    alone = run_alone(pools)
+    model_bytes = params_nbytes(get_model("vit_serve").params)
+    per_frame = vit_flops_per_frame()
+    os.environ["NNS_TPU_TORCH_CHAOS"] = OBS_CHAOS
+    chaos_hooks._env_checked = False  # read at the next pipeline start
+    TENANT_STATS.reset()
+    srv = serve_metrics(port=0)
+    base = f"http://127.0.0.1:{srv.port}"
+    pipes = [parse_launch(SERVE_PIPE.format(
+        norm=NORM, model="vit_serve", share="true", batch=64,
+        buckets=",".join(map(str, SERVE_BUCKETS)), dec=LABEL_DEC,
+        sample=f" stat-sample-interval-ms={OBS_SAMPLE_MS} "
+        f"slo-ms={OBS_SLO_MS} tenant={'a' if s < 4 else 'b'}"))
+        for s in range(SERVE_STREAMS)]
+    tracer = LatencyTracer(sample_every=OBS_TRACE_EVERY)
+    scrapes, stop = [], threading.Event()
+
+    def scraper():
+        while not stop.is_set():
+            scrapes.append((_http(base, "/metrics"),
+                            _http(base, "/snapshot"),
+                            _http(base, "/healthz")))
+            stop.wait(OBS_SCRAPE_S)
+
+    try:
+        for p in pipes:
+            p["src"].spec = TensorsSpec.parse(
+                f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
+            p.start()
+        plan = chaos.active_plan()
+        if plan is None or plan.seed != 7:
+            raise RuntimeError("obs: NNS_TPU_TORCH_CHAOS installed no plan")
+        entry = pipes[0]["net"].pool
+        label = entry.label()
+        if entry.admission is None or entry.admission._hist is None:
+            raise RuntimeError("obs: admission does not read the registry")
+        kernels.flash_attention.launches = 0
+        kernels.scale_bias_cast.launches = 0
+        closed_loop(pipes, pools, 0, SERVE_WARMUP, SERVE_DEPTH)
+        torch.cuda.synchronize()
+        warm_p99 = entry.admission.p99_s
+        entry.admission.reset_signal()
+        tracer.install()
+        LEDGER.clear()
+        hist0 = _phase_hists(label)
+        REGISTRY.snapshot()  # the MFU join's window starts here
+        th = threading.Thread(target=scraper, name="obs-scraper")
+        th.start()
+        try:
+            outs, lats, wall = closed_loop(pipes, pools, SERVE_WARMUP,
+                                           SERVE_FRAMES, SERVE_DEPTH)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            th.join()
+        hist1 = _phase_hists(label)
+        timed = ledger_totals()
+        timed_rows = LEDGER.snapshot()
+        first = SERVE_WARMUP + SERVE_FRAMES
+        before = ledger_totals()
+        _, prof = profiled_copies(lambda: closed_loop(
+            pipes, pools, first, OBS_PROFILED, SERVE_DEPTH))
+        copies = _delta(before, ledger_totals())
+        after = (_http(base, "/metrics"), _http(base, "/snapshot"),
+                 _http(base, "/healthz"))
+        gc.collect()
+        torch.cuda.synchronize()
+        gc.disable()
+        try:
+            snap = REGISTRY.snapshot()
+            stats = torch.cuda.memory_stats(0)
+            limit = torch.cuda.mem_get_info(0)[1]
+        finally:
+            gc.enable()
+        launches = {"flash_attention": kernels.flash_attention.launches,
+                    "scale_bias_cast": kernels.scale_bias_cast.launches}
+        adm_p99 = entry.admission.p99_s
+        for p in pipes:
+            p["src"].end_of_stream()
+        for p in pipes:
+            if not p.wait_eos(timeout=120):
+                raise RuntimeError("obs: no EOS")
+    finally:
+        for p in pipes:
+            p.stop()
+        tracer.uninstall()
+        srv.close()
+        chaos.uninstall_plan()
+        os.environ.pop("NNS_TPU_TORCH_CHAOS", None)
+    frames_all = SERVE_STREAMS * (SERVE_WARMUP + SERVE_FRAMES + OBS_PROFILED)
+    if on_card and (launches["scale_bias_cast"] < frames_all
+                    or launches["flash_attention"] < VIT["depth"]):
+        raise RuntimeError(f"obs: launches {launches} for {frames_all} "
+                           "frames")
+    # every stream's frames back in order, none lost; labels as alone
+    labels_checked = 0
+    for s, bufs in enumerate(outs):
+        if [b.pts for b in bufs] != list(range(SERVE_WARMUP, first)):
+            raise RuntimeError(f"obs: stream {s}: pts out of order or lost")
+        for b in bufs:
+            ref = alone[s][b.pts % SERVE_POOL].reshape(-1)
+            top2 = torch.topk(ref, 2).values
+            if float(top2[0] - top2[1]) > OBS_MARGIN:
+                labels_checked += 1
+                if b.meta["label_index"] != int(ref.argmax()):
+                    raise RuntimeError(f"obs: stream {s} frame {b.pts}: "
+                                       "label differs from the frame alone")
+    lats.sort()
+    fps = SERVE_STREAMS * SERVE_FRAMES / wall
+    p50, p99 = lats[len(lats) // 2] * 1e3, \
+        lats[min(int(0.99 * len(lats)), len(lats) - 1)] * 1e3
+    # the tracer: residencies partition each record; each at least its
+    # window's device time from the window's CUDA events
+    recs = tracer.records()
+    if len(recs) < SERVE_STREAMS * SERVE_FRAMES // OBS_TRACE_EVERY:
+        raise RuntimeError(f"obs: {len(recs)} trace records")
+    residency = {}
+    for r in recs:
+        if abs(sum(r["residency_s"].values()) - r["e2e_s"]) > 1e-9:
+            raise RuntimeError("obs: residencies do not sum to e2e")
+        dev = r.get("device_window_s")
+        if (dev is None and on_card) or \
+                (dev is not None and not r["e2e_s"] >= dev > 0):
+            raise RuntimeError(f"obs: frame {r['frame']}: e2e {r['e2e_s']} "
+                               f"s against its window's device time {dev}")
+        for el, t in r["residency_s"].items():
+            residency.setdefault(el, []).append(t * 1e3)
+    nframes = check_trace_nests(tracer.chrome_trace())
+    # the ledger against the profiler's copy rows over the same span
+    if copies["DtoH"] != prof["DtoH"] or copies["HtoD"] != prof["HtoD"]:
+        raise RuntimeError(f"obs: ledger {copies} against the profiler's "
+                           f"copies {prof}")
+    timed_frames = SERVE_STREAMS * SERVE_FRAMES
+    per_frame_rows = {f"{r['direction']}:{r['reason']}":
+                      r["count"] / timed_frames for r in timed_rows}
+    # cost: the count at bucket 64 against the hand count, and nns_mfu
+    rows = [r for _, sn, _ in scrapes + [after]
+            for r in sn["executables"] if r["source"] == "vit_serve"]
+    row64 = [r for r in rows if r["bucket"] == 64]
+    if not row64:
+        raise RuntimeError("obs: no bucket-64 program captured")
+    flops64 = row64[-1]["flops"]
+    if abs(flops64 - 64 * per_frame) > OBS_FLOPS_TOL * 64 * per_frame:
+        raise RuntimeError(f"obs: nns_executable_flops at bucket 64 "
+                           f"{flops64} against {64 * per_frame} by hand")
+    mfu, hbm = {}, {}
+    for r in rows:
+        if "mfu" in r:
+            if not 0 < r["mfu"] <= OBS_MFU_MAX:
+                raise RuntimeError(f"obs: nns_mfu {r['mfu']} at bucket "
+                                   f"{r['bucket']}")
+            mfu.setdefault(r["bucket"], []).append(r["mfu"])
+            hbm.setdefault(r["bucket"], []).append(r.get("hbm_bw_util", 0))
+    if 64 not in mfu:
+        raise RuntimeError("obs: no nns_mfu reading at bucket 64")
+    # the tenant split
+    t_ns, p_ns = TENANT_STATS.exactness(label)
+    trows = {r["tenant"]: r for r in TENANT_STATS.snapshot()
+             if r["pool"] == label}
+    fa, fb = trows["a"]["frames"], trows["b"]["frames"]
+    if t_ns != p_ns or p_ns <= 0 or abs(fa - fb) / 2 > 64:
+        raise RuntimeError(f"obs: tenant split {t_ns} vs {p_ns}, frames "
+                           f"a {fa} b {fb}")
+    # chaos: the exported counter is the plan's count, the sleeps add up
+    k = plan.counts().get("slow-invoke", 0)
+    exported = _metric(after[0], "nns_chaos_injected_total",
+                       fault="slow-invoke")
+    if exported != k or plan.counts().keys() - {"slow-invoke"}:
+        raise RuntimeError(f"obs: nns_chaos_injected_total {exported} "
+                           f"against plan.counts() {plan.counts()}")
+    slept = entry.chaos_sleep_s
+    if abs(slept - k * OBS_SLOW_S) > 1e-9:
+        raise RuntimeError(f"obs: {k} slow-invokes injected {slept} s of "
+                           "sleep")
+    # device memory and the pooled weights
+    (mem,) = [r for r in snap["device_memory"] if r["device"] == "cuda:0"]
+    if (mem["in_use"], mem["peak"], mem["limit"]) != (
+            stats["allocated_bytes.all.current"],
+            stats["allocated_bytes.all.peak"], limit):
+        raise RuntimeError(f"obs: device memory {mem} against memory_stats")
+    (prow,) = [r for r in snap["pools"] if r["pool"] == label]
+    if prow["weights"]["bytes"] != model_bytes or _metric(
+            after[0], "nns_model_weight_bytes", pool=label) != model_bytes:
+        raise RuntimeError(f"obs: weights {prow['weights']} against "
+                           f"{model_bytes} bytes of parameters")
+    if after[2]["status"] != "ok" or not after[2]["device_memory"]:
+        raise RuntimeError(f"obs: /healthz {after[2]}")
+    d = {ph: (hist1[ph][0] - hist0[ph][0]) / max(hist1[ph][1] - hist0[ph][1],
+                                                 1) * 1e3
+         for ph in hist1}
+    res = {
+        "frames_per_s": fps, "p50_ms": p50, "p99_ms": p99,
+        "labels_checked": labels_checked, "trace_records": len(recs),
+        "trace_frames": nframes,
+        "residency_p50_ms": {el: statistics.median(v)
+                             for el, v in residency.items()},
+        "e2e_p50_ms": statistics.median(r["e2e_s"] for r in recs) * 1e3,
+        "device_window_p50_ms": statistics.median(
+            r.get("device_window_s", 0.0) for r in recs) * 1e3,
+        "phase_ms": d, "flops_bucket64": flops64,
+        "flops_bucket64_by_hand": 64 * per_frame,
+        "mfu_by_bucket": {b: statistics.median(v) for b, v in mfu.items()},
+        "hbm_bw_util_by_bucket": {b: statistics.median(v)
+                                  for b, v in hbm.items()},
+        "crossings_per_frame": per_frame_rows,
+        "profiled_copies": prof, "slow_invokes": k, "slept_s": slept,
+        "tenant_frames": {"a": fa, "b": fb}, "tenant_device_ns": p_ns,
+        "device_memory": mem, "weight_bytes": model_bytes,
+        "scrapes": len(scrapes), "launches": launches,
+        "warmup_admission_p99_ms": warm_p99 * 1e3,
+        "admission_p99_ms": adm_p99 * 1e3}
+    ref = "" if phase8 is None else (
+        f" (phase 8 shared leg: {phase8['frames_per_s']:.1f} frames/s, "
+        f"p50 {phase8['p50_ms']:.3f} ms, p99 {phase8['p99_ms']:.3f} ms)")
+    print(f"obs (a) ViT serving under observation: {fps:.1f} frames/s, "
+          f"push->pull p50 {p50:.3f} ms p99 {p99:.3f} ms{ref}; "
+          f"{labels_checked} labels (top-2 margin > {OBS_MARGIN}) equal to "
+          f"alone; {len(recs)} traced frames (1 in {OBS_TRACE_EVERY}), "
+          f"residencies summing to e2e, e2e p50 "
+          f"{res['e2e_p50_ms']:.3f} ms >= its window's device time (p50 "
+          f"{res['device_window_p50_ms']:.3f} ms); {len(scrapes)} scrapes "
+          f"of /metrics, /snapshot and /healthz; admission p99 from the "
+          f"registry {res['admission_p99_ms']:.3f} ms (warm-up "
+          f"{res['warmup_admission_p99_ms']:.3f} ms, then reset) "
+          f"[{card}, {power}]", flush=True)
+    print("obs (a) residency p50 ms by element: " + ", ".join(
+        f"{el} {v:.3f}" for el, v in res["residency_p50_ms"].items()),
+        flush=True)
+    print(f"obs (a) pool dispatch from the registry histograms: host prep "
+          f"{d['prep']:.3f} ms, device {d['device']:.3f} ms, host drain "
+          f"{d['drain']:.3f} ms (means of the sampled dispatches)",
+          flush=True)
+    print(f"obs (a) cost: nns_executable_flops at bucket 64 {flops64:.6g} "
+          f"against {64 * per_frame:.6g} by hand; nns_mfu by bucket "
+          f"{res['mfu_by_bucket']}, nns_hbm_bw_util (a lower bound) "
+          f"{res['hbm_bw_util_by_bucket']} [{card}, {power}]", flush=True)
+    print(f"obs (a) crossings per frame {per_frame_rows}; over the profiled "
+          f"span ledger {copies} = profiler {prof}; tenants a {fa} b {fb} "
+          f"frames, device split exact ({p_ns} ns); {k} slow-invokes "
+          f"injected = nns_chaos_injected_total, {slept:.6f} s of sleep; "
+          f"device memory {mem}; pooled weights {model_bytes} bytes",
+          flush=True)
+    return res
+
+
+def _composite_p50(desc: str, frames, n: int):
+    _, bufs, _ = run_pipeline(desc, frames, n)
+    return window_times(bufs, BATCH)
+
+
+def obs_detect_child() -> int:
+    """``--obs-detect-child``: phase 4's pipeline, OBS_WINDOWS windows, in
+    this process (run with NNS_TPU_TORCH_OBS_DISABLE=1 by 14b); prints
+    its frames/s and p50 window as one JSON line."""
+    import torch
+
+    from nnstreamer_tpu_torch.obs import hooks
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    frames = obs_detector()
+    _composite_p50(composite("ssd_obs", "cuda", 2), frames, 2)
+    fps, p50 = _composite_p50(composite("ssd_obs", "cuda", OBS_WINDOWS),
+                              frames, OBS_WINDOWS)
+    print(json.dumps({"obs_disabled": hooks.DISABLED, "fps": fps,
+                      "p50_window_ms": p50}))
+    return 0
+
+
+def obs_detector():
+    """Phase 4's detector as ``ssd_obs`` and its frame batches."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import (
+        feature_sizes_for,
+        ssd_anchors,
+        ssd_from_jax,
+        ssd_mobilenet_v2_init,
+        weights_to_bf16,
+    )
+
+    tree = ssd_mobilenet_v2_init(SEED, NUM_CLASSES)
+    anchors = ssd_anchors(SIZE, feature_sizes_for(SIZE))
+    register_detector("ssd_obs", ssd_from_jax(weights_to_bf16(tree)),
+                      anchors, BATCH, torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+            for _ in range(POOL)]
+
+
+def conv_flops(fn, *args) -> int:
+    """The FLOPs of every ``F.conv2d`` call ``fn(*args)`` makes, by hand:
+    2 · output elements · (input channels a group) · kh · kw."""
+    import torch.nn.functional as F
+
+    conv, total = F.conv2d, [0]
+
+    def counting(x, w, *a, **kw):
+        y = conv(x, w, *a, **kw)
+        total[0] += 2 * y.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        return y
+
+    F.conv2d = counting
+    try:
+        fn(*args)
+    finally:
+        F.conv2d = conv
+    return total[0]
+
+
+def obs_detection(card: str, power: str):
+    """14b: phase 4's detection pipeline, passive obs against the kill
+    switch, its crossings, its cost, and a black box (see the module
+    doc)."""
+    import glob
+    import shutil
+
+    import torch
+
+    from nnstreamer_tpu_torch.chaos import ChaosInvokeError
+    from nnstreamer_tpu_torch.filters.torch_cuda import get_model
+    from nnstreamer_tpu_torch.obs import flightrec
+    from nnstreamer_tpu_torch.obs.flightrec import FLIGHT
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+    from nnstreamer_tpu_torch.obs.transfer import LEDGER
+    from nnstreamer_tpu_torch.obs.xlacost import XLA_COST
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    frames = obs_detector()
+    desc = composite("ssd_obs", "cuda", OBS_WINDOWS)
+    _composite_p50(composite("ssd_obs", "cuda", 2), frames, 2)  # warm
+    env = dict(os.environ, NNS_TPU_TORCH_OBS_DISABLE="1")
+    passive, disabled, mfu = [], [], []
+    kernels.scale_bias_cast.launches = 0
+    for _ in range(2):  # A B A B
+        REGISTRY.snapshot()  # the MFU join's window starts here
+        passive.append(_composite_p50(desc, frames, OBS_WINDOWS))
+        mfu += [r["mfu"] for r in REGISTRY.snapshot()["executables"]
+                if r["source"] == "ssd_obs" and "mfu" in r]
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--obs-detect-child"], capture_output=True, text=True,
+            timeout=600, env=env, cwd=HERE)
+        if out.returncode != 0:
+            raise RuntimeError(f"obs: the kill-switch run failed:\n"
+                               f"{out.stderr[-4000:]}")
+        child = json.loads(out.stdout.strip().splitlines()[-1])
+        if child["obs_disabled"] is not True:
+            raise RuntimeError("obs: the child ran with obs on")
+        disabled.append((child["fps"], child["p50_window_ms"]))
+    launches = kernels.scale_bias_cast.launches
+    if launches < 2 * OBS_WINDOWS:
+        raise RuntimeError(f"obs (b): scale_bias_cast launched {launches} "
+                           f"times for {2 * OBS_WINDOWS} windows")
+    p_on = statistics.mean(p for _, p in passive)
+    p_off = statistics.mean(p for _, p in disabled)
+    overhead = (p_on - p_off) / p_off
+    if overhead > OBS_PASSIVE_TOL:
+        raise RuntimeError(f"obs (b): passive metrics cost {overhead:.4f} "
+                           f"of the p50 window ({p_on:.3f} ms against "
+                           f"{p_off:.3f} ms with the kill switch)")
+    if not mfu or not all(0 < m <= OBS_MFU_MAX for m in mfu):
+        raise RuntimeError(f"obs (b): nns_mfu {mfu}")
+    # crossings: the ledger against the profiler over one run
+    LEDGER.clear()
+    _, prof = profiled_copies(lambda: run_pipeline(desc, frames,
+                                                   OBS_WINDOWS))
+    got = ledger_totals()
+    if got != prof:
+        raise RuntimeError(f"obs (b): ledger {got} against the profiler's "
+                           f"copies {prof}")
+    rows = LEDGER.snapshot()
+    staged = [r for r in rows if r["source"] == "src"]
+    windows = [r for r in rows if r["source"] != "src"]
+    # cost: the counted program against a hand count of its convolutions
+    flops = XLA_COST.get("ssd_obs", 0)["flops"]
+    fn = get_model("ssd_obs").flat_fn(torch.device(OBS_DEVICE))
+    x = torch.zeros((BATCH, SIZE, SIZE, 3), device=OBS_DEVICE)
+    with torch.inference_mode():
+        hand = conv_flops(fn, x)
+    prologue = 2 * BATCH * SIZE * SIZE * 3
+    # the steady windows' utilization, from the count and the p50 window
+    # (the gauge reads the one sampled dispatch: each pipeline's first)
+    mfu_p50 = flops / (p_on / 1e3) / card_spec(card).peak_flops \
+        if OBS_DEVICE == "cuda" else 0.0
+    # the black box: a fail-invoke through the filter's chaos= property
+    frdir = os.path.join(HERE, "build", "obs_flightrec")
+    shutil.rmtree(frdir, ignore_errors=True)
+    os.environ[flightrec.DIR_ENV] = frdir
+    flightrec._env_checked = False  # read at the next pipeline start
+    FLIGHT.clear()
+    p = parse_launch(composite("ssd_obs", "cuda", 4))
+    p["src"].frames = frames
+    p["src"].pool_size = len(frames)
+    p["net"].set_property("chaos", OBS_FAIL)
+    try:
+        p.start()
+        ended = p.wait_eos(timeout=300, raise_on_error=False)
+        err = p.error
+    finally:
+        p.stop()
+        os.environ.pop(flightrec.DIR_ENV, None)
+    if ended or err is None or not isinstance(err.error, ChaosInvokeError):
+        raise RuntimeError(f"obs (b): the injected failure was not "
+                           f"reported: {err}")
+    deadline = time.monotonic() + 30
+    while not FLIGHT.dumps and time.monotonic() < deadline:
+        time.sleep(0.05)
+    FLIGHT.disarm()
+    if not FLIGHT.dumps:
+        raise RuntimeError("obs (b): the flight recorder wrote no dump")
+    trace_path, snap_path = FLIGHT.dumps[0]
+    with open(trace_path) as f:
+        marks = [e["name"] for e in json.load(f)["traceEvents"]]
+    if "error:net" not in marks:
+        raise RuntimeError(f"obs (b): the dumped trace lacks the error: "
+                           f"{marks}")
+    with open(snap_path) as f:
+        dumped = json.load(f)
+    injected = sum(
+        s["value"] for s in dumped["snapshot"]["metrics"][
+            "nns_chaos_injected_total"]["samples"]
+        if s["labels"]["fault"] == "fail-invoke")
+    if injected != 1:
+        raise RuntimeError(f"obs (b): the dump counts {injected} injected "
+                           "failures")
+    res = {"passive": passive, "disabled": disabled,
+           "passive_overhead": overhead, "mfu": mfu, "flops": flops,
+           "conv_flops_by_hand": hand, "prologue_flops": prologue,
+           "mfu_at_p50_window": mfu_p50,
+           "copies": prof, "staged": staged, "window_crossings": windows,
+           "launches": launches,
+           "flightrec": [os.path.basename(trace_path),
+                         os.path.basename(snap_path)],
+           "error": f"{type(err.error).__name__}: {err.error}"}
+    print(f"obs (b) detection, passive obs against the kill switch (A B A "
+          f"B, {OBS_WINDOWS} windows each): p50 window "
+          f"{[round(p, 3) for _, p in passive]} against "
+          f"{[round(p, 3) for _, p in disabled]} ms, frames/s "
+          f"{[round(f, 1) for f, _ in passive]} against "
+          f"{[round(f, 1) for f, _ in disabled]}: passive cost "
+          f"{overhead:+.4f} of the p50 window (bound {OBS_PASSIVE_TOL}) "
+          f"[{card}, {power}]", flush=True)
+    print(f"obs (b) crossings: ledger = profiler {prof}; staging "
+          f"{[(r['direction'], r['count'], r['bytes']) for r in staged]}; "
+          f"between source and sink once staged "
+          f"{[(r['source'], r['direction'], r['reason'], r['count'])
+              for r in windows]}", flush=True)
+    print(f"obs (b) cost: nns_executable_flops {flops:.6g} a window against "
+          f"{hand:.6g} of convolutions by hand + {prologue:.6g} of the "
+          f"prologue; nns_mfu {[round(m, 4) for m in mfu]} (each run's "
+          f"first window, the one sampled); at the p50 window "
+          f"{mfu_p50:.4f} [{card}, {power}]", flush=True)
+    print(f"obs (b) flight recorder: {res['error']} on the bus, dump "
+          f"{res['flightrec']} loads, nns_chaos_injected_total "
+          f"fail-invoke = {injected}", flush=True)
+    return res
+
+
+def phase_obs(card: str, power: str, phase8=None):
+    """Phase 14 (see the module doc)."""
+    t0 = time.perf_counter()
+    out = {"vit_serving": obs_vit_serving(card, power, phase8),
+           "detection": obs_detection(card, power)}
+    print(f"obs phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--serving-legs":
         return serving_legs(sys.argv[2])
+    if sys.argv[1:] == ["--obs-detect-child"]:
+        return obs_detect_child()
     alone = sys.argv[1:] == ["--decoders"]
     elements_alone = sys.argv[1:] == ["--elements"]
+    obs_alone = sys.argv[1:] == ["--obs"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -3673,6 +4363,10 @@ def main() -> int:
         print(json.dumps({"elements": phase_elements(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if obs_alone:
+        print(json.dumps({"obs": phase_obs(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     main_path = phase_main_path(card, power)
@@ -3686,12 +4380,13 @@ def main() -> int:
     yolo = phase_yolo(card, power)
     decoders = phase_decoders(card, power)
     elements = phase_elements(card, power)
+    obs = phase_obs(card, power, serving["shared"])
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
                       "classify": classify, "yolo": yolo,
                       "decoders": decoders, "elements": elements,
-                      "card": card, "power_limit": power}))
+                      "obs": obs, "card": card, "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
@@ -3707,11 +4402,16 @@ def main() -> int:
                    "elements_classify": elements["classify"]["launches"],
                    "elements_gated": elements["gated"]["launches"],
                    "elements_two_cameras":
-                       elements["two_cameras"]["launches"]}
+                       elements["two_cameras"]["launches"],
+                   "obs_vit_serving": obs["vit_serving"]["launches"][
+                       "scale_bias_cast"],
+                   "obs_detection": obs["detection"]["launches"]}
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],
-                  "lifecycle": lifecycle["launches"]["flash_attention"]}
+                  "lifecycle": lifecycle["launches"]["flash_attention"],
+                  "obs_vit_serving": obs["vit_serving"]["launches"][
+                      "flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

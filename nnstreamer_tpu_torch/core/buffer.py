@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs import transfer as _xfer
 from .meta import MetaInfo
 from .spec import TensorSpec, TensorsSpec
 from .types import DType, MediaType, TensorFormat
@@ -40,18 +41,20 @@ class DonatedTensorError(RuntimeError):
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Host ndarray of a tensor (waits for pending device work).
-    bfloat16 needs ``ml_dtypes`` and imports it only here."""
-    t = t.detach()
+    """Host ndarray of a tensor (waits for pending device work; a drain
+    off the card is recorded in the transfer ledger).  bfloat16 needs
+    ``ml_dtypes`` and imports it only here."""
+    t = _xfer.to_host(t.detach())
     if t.dtype == torch.bfloat16:
-        return t.cpu().view(torch.int16).numpy().view(DType.BFLOAT16.np_dtype)
-    return t.cpu().numpy()
+        return t.view(torch.int16).numpy().view(DType.BFLOAT16.np_dtype)
+    return t.numpy()
 
 
-def from_numpy(a: np.ndarray, device: Optional[torch.device] = None
-               ) -> torch.Tensor:
+def from_numpy(a: np.ndarray, device: Optional[torch.device] = None,
+               reason: str = "input") -> torch.Tensor:
     """``torch.Tensor`` of a host ndarray (bfloat16 by bit pattern),
-    placed on ``device``."""
+    placed on ``device`` (an upload to the card is recorded in the
+    transfer ledger under ``reason``)."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()
@@ -59,7 +62,7 @@ def from_numpy(a: np.ndarray, device: Optional[torch.device] = None
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t if device is None else t.to(device)
+    return t if device is None else _xfer.to_device(t, device, reason)
 
 
 class Tensor:
@@ -138,7 +141,7 @@ class Tensor:
             self._check_donated()
             self._dev = from_numpy(self.np(), device)
         elif device is not None and self._dev.device != device:
-            self._dev = self._dev.to(device)
+            self._dev = _xfer.move(self._dev, device)
         return self._dev
 
     def np(self) -> np.ndarray:
@@ -158,7 +161,8 @@ class Tensor:
             if self._host is None and self._dev is not None:
                 # straight from the tensor's bytes: no numpy dtype needed
                 # (bfloat16 has none without ml_dtypes)
-                flat = self._dev.detach().contiguous().reshape(-1).cpu()
+                flat = _xfer.to_host(
+                    self._dev.detach().contiguous().reshape(-1))
                 self._raw = flat.view(torch.uint8).numpy().tobytes()
             else:
                 self._raw = np.ascontiguousarray(self.np()).tobytes()
@@ -259,6 +263,21 @@ class Buffer:
     def nbytes(self) -> int:
         return sum(t.nbytes for t in self.tensors)
 
+    @property
+    def residency(self) -> str:
+        """Where this frame's payload lives now: ``device`` when every
+        tensor is on a card (``obs.transfer.on_card``), ``host`` when
+        none is (host arrays, raw bytes, CPU tensors), ``mixed``
+        otherwise.  The tracer samples it at element boundaries: each
+        flip is a crossing of the frame."""
+        if not self.tensors:
+            return "host"
+        n_dev = sum(1 for t in self.tensors
+                    if t._dev is not None and _xfer.on_card(t._dev))
+        if n_dev == 0:
+            return "host"
+        return "device" if n_dev == len(self.tensors) else "mixed"
+
     def spec(self, rate=None) -> TensorsSpec:
         from fractions import Fraction
 
@@ -325,7 +344,7 @@ def _sparse_parts_torch(x: torch.Tensor) -> Tuple[int, bytes]:
     idx = torch.nonzero(test != 0).reshape(-1)
     vals = flat.view(torch.uint8).reshape(-1, esize)[idx].reshape(-1)
     packed = torch.cat([idx.to(torch.int32).view(torch.uint8), vals])
-    return int(idx.numel()), packed.cpu().numpy().tobytes()
+    return int(idx.numel()), _xfer.to_host(packed).numpy().tobytes()
 
 
 def sparse_from_dense(t: Tensor) -> bytes:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core import Buffer, Caps, Tensor, TensorsSpec
+from ..obs import transfer as _xfer
 
 _lock = threading.Lock()
 _decoders: Dict[str, Type["Decoder"]] = {}
@@ -39,7 +40,7 @@ def drain_once(tensors: List[Tensor]) -> List[np.ndarray]:
         return [t.np() for t in tensors]
     packed = torch.cat([t.torch().detach().contiguous().reshape(-1)
                         .view(torch.uint8) for t in dev])
-    flat = packed.cpu().numpy()  # the one device→host copy
+    flat = _xfer.to_host(packed).numpy()  # the one device→host copy
     off = 0
     for t in dev:
         n = t.spec.nbytes

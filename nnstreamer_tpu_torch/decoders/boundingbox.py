@@ -56,6 +56,7 @@ from ..models.ssd import (
     feature_sizes_for,
     ssd_anchors,
 )
+from ..obs import transfer as _xfer
 from . import Decoder, register_decoder
 from .boxutil import (
     Detection,
@@ -315,7 +316,7 @@ class BoundingBoxes(Decoder):
         if t.is_device:
             # pre-reduced where the tensor lives: only (K, 6) rows cross
             with torch.inference_mode():
-                rows = yolo_prereduce(t.torch(), v8).cpu().numpy()
+                rows = _xfer.to_host(yolo_prereduce(t.torch(), v8)).numpy()
             dets = []
             for r in rows:
                 if r[4] < self.conf_thresh:

@@ -86,6 +86,17 @@ PALETTE = np.array([
     [255, 255, 0, 255], [255, 0, 255, 255], [0, 255, 255, 255]],
     np.uint8)
 
+#: the palette on each device, copied there once
+_DEVICE_PALETTE: dict = {}
+
+
+def _palette_on(dev: torch.device) -> torch.Tensor:
+    pal = _DEVICE_PALETTE.get(dev)
+    if pal is None:
+        pal = _DEVICE_PALETTE.setdefault(
+            dev, torch.as_tensor(PALETTE, device=dev))
+    return pal
+
 
 def device_render(boxes: torch.Tensor, classes: torch.Tensor,
                   scores: torch.Tensor, num: torch.Tensor, height: int,
@@ -110,7 +121,7 @@ def device_render(boxes: torch.Tensor, classes: torch.Tensor,
     B, N = boxes.shape[0], boxes.shape[1]
     H, W, t = height, width, thickness
     dev = boxes.device
-    pal = torch.as_tensor(PALETTE, device=dev)
+    pal = _palette_on(dev)
     ys = torch.arange(H, dtype=torch.int32, device=dev)[None, None, :]
     xs = torch.arange(W, dtype=torch.int32, device=dev)[None, None, :]
     valid = (torch.arange(N, device=dev)[None, :] < num[:, None]) & \

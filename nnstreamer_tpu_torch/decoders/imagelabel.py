@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
+from ..obs import transfer as _xfer
 from . import Decoder, register_decoder
 from .boxutil import load_labels
 
@@ -29,8 +30,11 @@ def argmax_pair(x: torch.Tensor) -> torch.Tensor:
     """(index as f32, max as f32) of the flattened ``x``, as one (2,)
     tensor on ``x``'s device; the first index among equal maxima."""
     flat = x.reshape(-1)
-    idx = torch.argmax(flat)
-    return torch.stack([idx.to(torch.float32), flat[idx].to(torch.float32)])
+    idx = torch.argmax(flat).reshape(1)
+    # gather, not flat[idx]: indexing with a 0-d tensor reads the index on
+    # the host, a device→host copy of its own
+    return torch.cat([idx.to(torch.float32),
+                      flat.gather(0, idx).to(torch.float32)])
 
 
 @register_decoder
@@ -56,7 +60,8 @@ class ImageLabeling(Decoder):
     def decode(self, buf: Buffer, in_spec: Optional[TensorsSpec]) -> Buffer:
         t = buf.tensors[0]
         if t.is_device:
-            pair = argmax_pair(t.torch()).cpu()  # the one device→host copy
+            # the one device→host copy
+            pair = _xfer.to_host(argmax_pair(t.torch()))
             idx, score = int(pair[0]), float(pair[1])
         else:
             flat = t.np().reshape(-1)

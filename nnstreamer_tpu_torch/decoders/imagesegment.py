@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
+from ..obs import transfer as _xfer
 from . import Decoder, register_decoder
 
 _PALETTE = np.array(
@@ -70,7 +71,7 @@ class ImageSegment(Decoder):
         if self.prereduce_active(buf):
             with torch.inference_mode():
                 # the one device→host copy: the (H, W) map
-                idx = argmax_channel(t.torch()).cpu().numpy() \
+                idx = _xfer.to_host(argmax_channel(t.torch())).numpy() \
                     .astype(np.int64)
         else:
             arr = t.np()

@@ -27,6 +27,7 @@ import torch
 
 from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
 from ..core.buffer import from_numpy
+from ..obs import transfer as _xfer
 from . import Decoder, register_decoder
 from .boxutil import load_labels, sigmoid
 
@@ -105,7 +106,7 @@ class PoseEstimation(Decoder):
         else:
             ins = [from_numpy(t.np()) for t in buf.tensors[:1 + with_off]]
         with torch.inference_mode():
-            rows = keypoint_rows(*ins).cpu().numpy()
+            rows = _xfer.to_host(keypoint_rows(*ins)).numpy()
         hshape = t0.spec.shape
         return rows, hshape[-3], hshape[-2]
 

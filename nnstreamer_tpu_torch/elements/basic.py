@@ -26,6 +26,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from ..core import Buffer, Caps, CapsStruct, Tensor, TensorSpec, TensorsSpec
+from ..obs import hooks as _hooks
 from ..runtime.element import Element, Pad, SinkElement, SourceElement
 from ..runtime.events import Event, EventKind, Message, MessageKind
 from ..runtime.registry import register_element
@@ -181,6 +182,9 @@ class Queue(Element):
                     self._cv.wait(0.05)
                 if not self._running:
                     return
+            tracer = _hooks.tracer
+            if tracer is not None:
+                tracer.queue_enqueued(self, buf)
             self._dq.append(buf)
             self._cv.notify_all()
 
@@ -223,6 +227,9 @@ class Queue(Element):
                     break
                 else:
                     continue
+            tracer = _hooks.tracer
+            if tracer is not None:
+                tracer.queue_dequeued(self, buf)
             self.push(buf)
         self.forward_event(Event.eos())
 

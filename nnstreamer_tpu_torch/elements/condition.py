@@ -10,7 +10,8 @@ reference's gsttensor_if.c) with
 - a registrable custom predicate callback (include/tensor_if.h).
 
 On the device: the compared value is reduced where the tensor lives, and
-only the scalar verdict crosses to the host — one ``.item()`` a frame,
+only the scalar verdict crosses to the host — one copy a frame, recorded
+in the transfer ledger (``obs/transfer.py``),
 which waits for the work that computes the tensor (the filter upstream):
 the element cannot route a frame before its value exists.  A device error
 raises; the port does not retry on the host (the JAX element does).
@@ -21,9 +22,9 @@ Shared storage: a frame this element may push again
 (``Tensor.shared_view``), so a downstream ``donate=true`` never writes
 into it, and the repeat reads the frame as it was.
 
-``offload=then|else`` is validated at start.  The JAX element then records
-each routing decision into its stage store (``obs/stagestat.py``); the
-port's observability hooks are later work, so the port records nothing.
+``offload=then|else`` names the branch that feeds the heavy stage of a
+cascade: each routing decision is recorded into the stage store
+(``obs/stagestat.py``, ``nns_cascade_offload_ratio``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ import numpy as np
 import torch
 
 from ..core import Buffer, Caps, Tensor
+from ..obs import stagestat as _stagestat
+from ..obs import transfer as _xfer
 from ..runtime.element import Element, NegotiationError, Pad, StreamError
 from ..runtime.registry import register_element
 from .combiners import parse_tensorpick
@@ -121,7 +124,7 @@ class TensorIf(Element):
     def _item(self, v: torch.Tensor) -> float:
         """The one scalar copy a verdict makes."""
         self.verdict_copies += 1
-        return float(v.item())
+        return float(_xfer.item(v))
 
     def _scalar(self, t: Tensor, kind: str, flat_idx: int = 0) -> float:
         """One predicate scalar from one tensor: reduced on its device
@@ -278,6 +281,12 @@ class TensorIf(Element):
 
     def chain(self, pad: Pad, buf: Buffer) -> None:
         take_then = self._verdict(buf)
+        if self.offload:
+            # cascade accounting: the DECISION counts (a SKIP on the kept
+            # branch still was a routing verdict)
+            _stagestat.record_offload(
+                self.pipeline.name if self.pipeline is not None else "",
+                self.name, take_then == (self.offload == "then"))
         pad_name = "src_then" if take_then else "src_else"
         behavior = self.then if take_then else self.else_
         option = self.then_option if take_then else self.else_option

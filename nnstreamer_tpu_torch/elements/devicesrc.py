@@ -21,6 +21,7 @@ import numpy as np
 
 from ..core import Buffer, Tensor, TensorsSpec
 from ..core.buffer import from_numpy
+from ..obs import transfer as _xfer
 from ..runtime.element import NegotiationError, SourceElement
 from ..runtime.registry import register_element
 
@@ -64,7 +65,14 @@ class DeviceSrc(SourceElement):
         return self.spec
 
     def start(self) -> None:
-        self._stage_pool()
+        # the staging uploads are this source's crossings in the ledger
+        xctx = _xfer.push_context(
+            self.pipeline.name if self.pipeline is not None else "",
+            self.name)
+        try:
+            self._stage_pool()
+        finally:
+            _xfer.pop_context(xctx)
         super().start()
 
     def _stage_pool(self) -> None:

@@ -22,8 +22,18 @@ through the sub-plugin's ``prepare_swap``/``commit_swap`` otherwise;
 errors go to the bus.  ``custom=donate`` marks the tensors each dispatch
 was handed as donated, so a later read raises.
 
-Not in this slice (later work): chaos injection, mesh placement and
-pipeline-stage handoff, tenant attribution, observability hooks.
+Observability and faults: ``latency=1`` makes every dispatch a blocking
+sample, ``latency-report=true`` posts LATENCY bus messages when the mean
+moves past ±25% (``utils/stats.py``), a sampled dispatch's host-prep /
+device / host-drain split goes to the registry's ``nns_invoke_*``
+histograms and the tracer; ``tenant=`` names who a pooled stream's frames
+are billed to (``obs/tenantstat.py``); ``chaos=<spec>`` scopes a fault
+plan to this element (``chaos/plan.py``), besides the process-wide
+``NNS_TPU_TORCH_CHAOS``; the model name keys the cost rows
+(``obs/xlacost.py``).
+
+Not in this slice (later work): mesh placement and pipeline-stage
+handoff.
 """
 
 from __future__ import annotations
@@ -32,12 +42,17 @@ import time
 from fractions import Fraction
 from typing import Any, List, Optional
 
+from ..chaos import hooks as _chaos_hooks
+from ..chaos.plan import FaultPlan, apply_invoke_fault
 from ..core import Buffer, Caps, Tensor, TensorFormat, TensorsSpec
 from ..decoders import drain_once
 from ..filters.api import FilterError, FilterProps, FilterSubplugin
 from ..filters.registry import detect_framework, find_filter
 from ..runtime.element import Element, NegotiationError, Pad, StreamError
-from ..runtime.events import Event, EventKind
+from ..obs import hooks as _hooks
+from ..obs import transfer as _xfer
+from ..obs.tracer import TRACE_META_KEY
+from ..runtime.events import Event, EventKind, Message, MessageKind
 from ..runtime.registry import register_element
 from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
 
@@ -56,14 +71,16 @@ class TensorFilter(Element):
                  accelerator: str = "", custom: str = "",
                  input_combination: str = "", output_combination: str = "",
                  invoke_dynamic: bool = False, is_updatable: bool = False,
-                 shared_tensor_filter_key: str = "", inputtype: str = "",
+                 shared_tensor_filter_key: str = "", latency: int = 0,
+                 latency_report: bool = False, inputtype: str = "",
                  input: str = "", outputtype: str = "", output: str = "",
                  batch: int = 1, batch_timeout_ms: float = 1.0,
                  batch_buckets: str = "", share_model: bool = False,
                  stat_sample_interval_ms: Optional[float] = None,
                  priority: str = "normal", deadline_ms: float = 0.0,
                  slo_ms: float = 0.0, queue_limit: int = 0,
-                 canary: str = "", **props):
+                 canary: str = "", tenant: str = "", chaos: str = "",
+                 **props):
         self.framework = framework
         self.model = model
         self.accelerator = accelerator
@@ -74,6 +91,8 @@ class TensorFilter(Element):
         # RELOAD_MODEL allowed (hot swap; pooled: through the lifecycle)
         self.is_updatable = is_updatable
         self.shared_tensor_filter_key = shared_tensor_filter_key
+        self.latency = latency          # 1 = every dispatch a sample
+        self.latency_report = latency_report  # LATENCY bus messages
         self.inputtype, self.input = inputtype, input
         self.outputtype, self.output = outputtype, output
         # dynamic micro-batching (runtime/batching.py): batch>1 coalesces
@@ -102,6 +121,12 @@ class TensorFilter(Element):
         # canary="<version>:1/N" (or "1/N") is POOL-level: a reload stages
         # the new version and routes 1-in-N of the pool's streams to it
         self.canary = canary
+        # tenant attribution (obs/tenantstat.py, share-model only): who
+        # this STREAM's frames are billed to; "" = "default"
+        self.tenant = tenant
+        # a fault plan scoped to THIS element (chaos/plan.py grammar);
+        # the process-wide NNS_TPU_TORCH_CHAOS plan applies regardless
+        self.chaos = chaos
         super().__init__(name, **props)
         self.add_sink_pad()
         self.add_src_pad()
@@ -123,6 +148,7 @@ class TensorFilter(Element):
         self._pool_entry = None      # serving.PoolEntry (share-model=true)
         self._pool_attached = False  # registered as a live pool stream
         self._pool_batched = False   # frames go through the SharedBatcher
+        self._chaos_plan = None      # parsed from the chaos= prop (start)
 
     # -- open ----------------------------------------------------------------
 
@@ -169,6 +195,13 @@ class TensorFilter(Element):
                 sp.set_fused_post(self._fused_post)
             self.subplugin = sp
         self.in_spec, self.out_spec = self.subplugin.get_model_info()
+        mn = getattr(self.subplugin, "model_name", None)
+        if callable(mn):
+            # obs join key: this element's nns_invoke_device_seconds
+            # series measures this model's programs (obs/xlacost.py)
+            from ..obs import xlacost as _xlacost
+
+            _xlacost.map_source(self.name, mn())
         self._in_combi = _parse_combination(self.input_combination)
         # output-combination tokens: iN (input passthrough) / oN (model out)
         self._out_combi = [t.strip() for t in str(
@@ -176,6 +209,8 @@ class TensorFilter(Element):
 
     def start(self) -> None:
         b = int(self.batch or 1)
+        if str(self.chaos or "").strip():
+            self._chaos_plan = FaultPlan.parse(str(self.chaos))
         if self._pool_entry is not None:
             # shared-model serving: this element becomes one STREAM of
             # the pool entry.  batch* properties are pool-level — the
@@ -187,7 +222,8 @@ class TensorFilter(Element):
                 priority=self.priority,
                 deadline_ms=float(self.deadline_ms or 0.0),
                 queue_limit=int(self.queue_limit or 0),
-                canary=str(self.canary or ""))
+                canary=str(self.canary or ""),
+                tenant=str(self.tenant or ""))
             self._pool_attached = True
             return
         if b <= 1:
@@ -367,6 +403,11 @@ class TensorFilter(Element):
         if self._throttled():
             return  # QoS drop (parity: tensor_filter.c:511)
         if self._pool_batched and self._pool_entry is not None:
+            if self._chaos_plan is not None:
+                # element-scoped faults on a pooled stream apply at
+                # admission (the pool dispatch belongs to every sharer;
+                # the process-wide plan covers it there)
+                apply_invoke_fault(self._chaos_plan, self.name)
             # shared-model serving: park the buffer in the CROSS-pipeline
             # window; the pool dispatch demuxes the result back here
             self._pool_entry.submit(self, buf)
@@ -380,29 +421,77 @@ class TensorFilter(Element):
             # per-frame pooled stream: a live canary may route THIS
             # stream's frames through the staged version's instance
             sp = self._pool_entry.subplugin_for(self)
+        # model-path fault seam (unbatched dispatch): the element plan AND
+        # the process-wide plan both apply
+        self._chaos_invoke()
         tensors = buf.tensors
         if self._in_combi is not None:
             tensors = [tensors[i] for i in self._in_combi]
         if self.invoke_dynamic:
             self._reshape_dynamic(buf)
-        sample, t0 = self._sampler.begin(self._sample_interval())
+        # the sample gate opens BEFORE input prep: host-prep is part of
+        # what this element spends per dispatch
+        sample, t0 = self._sampler.begin(self._sample_interval(),
+                                         force=bool(self.latency))
         if getattr(sp, "HOST_INVOKE", False):
             # a host numpy framework: the buffer's device tensors cross
             # in one packed copy
-            outputs = sp.invoke(drain_once(tensors))
+            inputs = drain_once(tensors)
         else:
-            outputs = sp.invoke([t.torch(sp.device) for t in tensors])
+            inputs = [t.torch(sp.device) for t in tensors]
+        t1 = time.monotonic()
+        outputs = sp.invoke(inputs)
         if getattr(sp, "_donate", False):
             self._mark_donated(buf)
-        self._sampler.end(outputs, t0, sample)
+        t2 = self._sampler.end(outputs, t0, sample)
+        self._report_latency()
         out_tensors = [Tensor(o) for o in outputs]
         if self._out_combi is not None:
             out_tensors = self._combine_outputs(buf, out_tensors)
-        self.push(Buffer(tensors=out_tensors, pts=buf.pts,
-                         duration=buf.duration, offset=buf.offset,
-                         meta=dict(buf.meta),
-                         format=TensorFormat.FLEXIBLE if self.invoke_dynamic
-                         else TensorFormat.STATIC))
+        out = Buffer(tensors=out_tensors, pts=buf.pts,
+                     duration=buf.duration, offset=buf.offset,
+                     meta=dict(buf.meta),
+                     format=TensorFormat.FLEXIBLE if self.invoke_dynamic
+                     else TensorFormat.STATIC)
+        if sample:
+            # phases recorded (and trace marks planted) BEFORE the push:
+            # a sink reached inline closes the trace record
+            t3 = time.monotonic()
+            self._attribute_phases(t0, t1, t2, t3, bucket=1)
+            tracer = _hooks.tracer
+            if tracer is not None:
+                tracer.invoke_split([(self.name, out)], t0, t1, t2, t3)
+        self.push(out)
+
+    def _chaos_invoke(self) -> None:
+        """The invoke fault seam of this element's own dispatches: its
+        ``chaos=`` plan, then the process-wide plan."""
+        if self._chaos_plan is not None:
+            apply_invoke_fault(self._chaos_plan, self.name)
+        ch = _chaos_hooks.plan
+        if ch is not None:
+            apply_invoke_fault(ch, self.name)
+
+    def _report_latency(self) -> None:
+        """``latency-report=true``: a LATENCY bus message whenever the
+        mean invoke latency moved past the threshold."""
+        if self.latency_report:
+            rep = self.invoke_stats.latency_to_report()
+            if rep is not None:
+                self.post_message(Message(
+                    MessageKind.LATENCY, self.name,
+                    data={"latency_us": rep}))
+
+    def _attribute_phases(self, t0: float, t1: float, t2: float,
+                          t3: float, bucket: int) -> None:
+        """One sampled dispatch's host-prep (t0→t1) / device (t1→t2) /
+        host-drain (t2→t3) split into the element's InvokeStats and the
+        registry's ``nns_invoke_*`` histograms."""
+        from ..obs.metrics import observe_invoke_phases
+
+        self.invoke_stats.record_phases(t1 - t0, t2 - t1, t3 - t2)
+        observe_invoke_phases("element", self.name, bucket,
+                              t1 - t0, t2 - t1, t3 - t2)
 
     def _sample_interval(self) -> float:
         """Seconds between blocking stats samples (utils/stats.py
@@ -417,12 +506,34 @@ class TensorFilter(Element):
         Runs on the producer thread (full window) or the coalescer's
         timer thread (deadline/EOS) — never concurrently (MicroBatcher
         serializes flushes)."""
-        from ..runtime.batching import pick_bucket
-
         sp = self.subplugin
         if sp is None:
             raise StreamError(f"{self.name}: no sub-plugin opened")
-        sample, t0 = self._sampler.begin(self._sample_interval())
+        # model-path fault seam: a fail-invoke loses the whole window
+        self._chaos_invoke()
+        sample, t0 = self._sampler.begin(self._sample_interval(),
+                                         force=bool(self.latency))
+        # transfer-label context for the window: deadline/EOS flushes run
+        # on the coalescer's timer thread, which carries no chain context
+        xctx = None
+        pushed = _xfer.ACTIVE
+        if pushed:
+            traces = tuple(
+                tr for tr in (b.meta.get(TRACE_META_KEY) for b in bufs)
+                if tr is not None) or None
+            xctx = _xfer.push_context(
+                self.pipeline.name if self.pipeline is not None else "",
+                self.name, traces)
+        try:
+            self._invoke_window(sp, bufs, sample, t0)
+        finally:
+            if pushed:
+                _xfer.pop_context(xctx)
+
+    def _invoke_window(self, sp: Any, bufs: List[Buffer], sample: bool,
+                       t0: float) -> None:
+        from ..runtime.batching import pick_bucket
+
         frames = [self._pool_frame_inputs(buf) for buf in bufs]
         bucket = pick_bucket(len(frames), self._buckets)
         t1 = time.monotonic()
@@ -438,12 +549,21 @@ class TensorFilter(Element):
                 self._mark_donated(buf)
         t2 = self._sampler.end([o for out in outs for o in out], t0, sample,
                                frames=len(bufs))
+        self._report_latency()
+        if sample:
+            tracer = _hooks.tracer
+            if tracer is not None:
+                # marks planted BEFORE the demux; each buffer's own demux
+                # mark closes its drain span
+                tracer.invoke_split([(self.name, b) for b in bufs],
+                                    t0, t1, t2)
         for buf, out in zip(bufs, outs):
             self._pool_emit(buf, out)
         if sample:
-            # host-prep / device / host-drain split of the window
-            self.invoke_stats.record_phases(t1 - t0, t2 - t1,
-                                            time.monotonic() - t2)
+            # host-drain of the window: unbatch + per-frame wrap + the
+            # downstream handoff of every frame demuxed above
+            self._attribute_phases(t0, t1, t2, time.monotonic(),
+                                   bucket=bucket)
 
     # -- serving-pool hooks (runtime/serving.py drives these) ----------------
 
@@ -472,6 +592,9 @@ class TensorFilter(Element):
         the owner's flush context: output-combination, pts/offset/meta
         preservation, and any downstream failure surfacing on THIS
         element's bus."""
+        tracer = _hooks.tracer
+        if tracer is not None:
+            tracer.batch_demuxed(self, buf)
         out_tensors = [Tensor(o) for o in out]
         if self._out_combi is not None:
             out_tensors = self._combine_outputs(buf, out_tensors)

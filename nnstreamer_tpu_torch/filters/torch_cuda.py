@@ -49,6 +49,14 @@ under ``_swap_lock``, which every dispatch reads them under as one
 snapshot.  ``custom=donate`` marks the tensors a dispatch was handed as
 donated (the element and the pool do the marking).
 
+Observability: the weights' placement on the card is recorded in the
+transfer ledger (reason ``weights``), :meth:`TorchCudaFilter.weight_bytes`
+gives the pooled model's footprint (``nns_model_weight_bytes``), and each
+program's forward is counted once for ``obs/xlacost.py`` — the
+single-frame program on the call on zeros that reads its output schema,
+a window bucket on its first (fold-checked) dispatch.  The fold check's
+verdicts cross to the host as recorded drains.
+
 Not in this slice (later work): mesh / sharding.
 """
 
@@ -70,6 +78,9 @@ import torch
 
 from ..core import DType, TensorsSpec
 from ..core.buffer import from_numpy
+from ..obs import transfer as _xfer
+from ..obs import xlacost as _xlacost
+from ..obs.hwspec import device_platform
 from ..runtime.events import Event, EventKind
 from ..utils.device import parse_accel_kind, resolve_device
 from .api import SHARED_MODELS, FilterError, FilterProps, FilterSubplugin
@@ -86,13 +97,22 @@ def _place(obj: Any, device: torch.device) -> Any:
     """A copy of a params tree on ``device``: ``nn.Module``s (copied, put
     in eval mode), tensors, numpy arrays and scalars (as tensors — a
     weights file's leaves), and dicts/lists/tuples of them; other leaves
-    (ints, strings) pass through."""
+    (ints, strings) pass through.  Uploads to the card are recorded in
+    the transfer ledger as ``weights``."""
     if isinstance(obj, torch.nn.Module):
-        return copy.deepcopy(obj).to(device).eval()
+        m = copy.deepcopy(obj)
+        moved = [t for t in list(m.parameters()) + list(m.buffers())
+                 if not _xfer.on_card(t)]
+        m = m.to(device).eval()
+        if _xfer.ACTIVE and _xfer.on_card(device) and moved:
+            _xfer.LEDGER.record("h2d", "weights",
+                                sum(t.numel() * t.element_size()
+                                    for t in moved))
+        return m
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return _xfer.move(obj, device, "weights")
     if isinstance(obj, (np.ndarray, np.generic)):
-        return from_numpy(np.asarray(obj), device)
+        return from_numpy(np.asarray(obj), device, reason="weights")
     if isinstance(obj, dict):
         return {k: _place(v, device) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -287,10 +307,15 @@ def _rows_agree(row: torch.Tensor, alone: torch.Tensor) -> bool:
     if tuple(row.shape) != tuple(alone.shape) or row.dtype != alone.dtype:
         return False
     if not row.dtype.is_floating_point:
-        return bool(torch.equal(row, alone))
+        return _on_host((row == alone).all())
     tol = FOLD_TOL.get(row.dtype, FOLD_TOL_DEFAULT)
-    return bool(torch.allclose(row.float(), alone.float(), rtol=tol,
-                               atol=tol, equal_nan=True))
+    return _on_host(torch.isclose(row.float(), alone.float(), rtol=tol,
+                                  atol=tol, equal_nan=True).all())
+
+
+def _on_host(verdict: torch.Tensor) -> bool:
+    """A device verdict read on the host: one recorded drain."""
+    return bool(_xfer.to_host(verdict))
 
 
 def _stack_window(col: Sequence[Any], bucket: int,
@@ -302,8 +327,8 @@ def _stack_window(col: Sequence[Any], bucket: int,
     pad = bucket - len(col)
     if all(isinstance(x, np.ndarray) for x in col):
         return from_numpy(np.stack(list(col) + [col[-1]] * pad), device)
-    ts = [(x if isinstance(x, torch.Tensor) else from_numpy(x)).to(device)
-          for x in col]
+    ts = [_xfer.move(x, device) if isinstance(x, torch.Tensor)
+          else from_numpy(x, device) for x in col]
     return torch.stack(ts + [ts[-1]] * pad)
 
 
@@ -426,6 +451,32 @@ class TorchCudaFilter(FilterSubplugin):
         m = self._model
         return m.name if m is not None else ""
 
+    def _placement(self) -> str:
+        return "device" if _xfer.on_card(self.device) else "host"
+
+    def weight_bytes(self) -> Optional[dict]:
+        """The model's weights on this instance's device, for
+        ``nns_model_weight_bytes{pool,placement}``; None without weights."""
+        m = self._model
+        if m is None or m.params is None:
+            return None
+        with m._lock:
+            params = m._dev_params.get(self.device)
+        if params is None:
+            return None
+        return {"bytes": _xfer.params_nbytes(params),
+                "placement": self._placement()}
+
+    def _capture(self, fn: Callable, *args: Any, bucket: int) -> Any:
+        """``fn(*args)`` with its cost recorded for ``(model, bucket)``
+        (obs/xlacost.py)."""
+        w = self.weight_bytes()
+        return _xlacost.capture(
+            self._model.name, fn, *args, bucket=bucket,
+            placement=self._placement(),
+            platform=device_platform(self.device),
+            weight_bytes=w["bytes"] if w else 0)
+
     # -- program -------------------------------------------------------------
 
     def _pre_fns(self, in_spec: TensorsSpec, lead: int = 0) -> List[Callable]:
@@ -484,7 +535,8 @@ class TorchCudaFilter(FilterSubplugin):
                              device=self.device) for t in in_spec.tensors]
         try:
             with torch.inference_mode():
-                outs = program(*zeros)
+                # the single-frame program's cost row (bucket 0)
+                outs = self._capture(program, *zeros, bucket=0)
         except (RuntimeError, ValueError, TypeError, IndexError) as e:
             raise FilterError(
                 f"torch-cuda: model {self._model.name} rejects input "
@@ -529,8 +581,8 @@ class TorchCudaFilter(FilterSubplugin):
 
     def invoke(self, inputs: Sequence[Any]) -> List[Any]:
         p = self._snapshot()
-        inputs = [x if x.device == self.device else x.to(self.device)
-                  for x in inputs]
+        inputs = [x if x.device == self.device else
+                  _xfer.move(x, self.device) for x in inputs]
         with torch.inference_mode():
             return list(p.fn(*inputs))
 
@@ -582,7 +634,9 @@ class TorchCudaFilter(FilterSubplugin):
         n = len(frames)
         window = [_stack_window([f[j] for f in frames], bucket, self.device)
                   for j in range(len(p.in_spec.tensors))]
-        outs = p.window_fn(*window)
+        # the bucket's cost row, counted on its first (probe) dispatch
+        outs = self._capture(p.window_fn, *window, bucket=bucket) if probe \
+            else p.window_fn(*window)
         want = [(bucket * t.shape[0],) + tuple(t.shape[1:])
                 for t in p.out_spec.tensors]
         if [tuple(o.shape) for o in outs] != want:
@@ -594,14 +648,14 @@ class TorchCudaFilter(FilterSubplugin):
             if not self._rows_independent(p, frames, per):
                 return None, False
             # two equal probe frames cannot show a model that mixes rows
-            if all(torch.equal(w[0], w[n - 1]) for w in window):
+            if all(_on_host((w[0] == w[n - 1]).all()) for w in window):
                 verdict = None
         return [[o[i] for o in per] for i in range(n)], verdict
 
     def _run_alone(self, p: _Program, frame: Sequence[Any]) -> List[Any]:
-        return list(p.fn(*[(x if isinstance(x, torch.Tensor)
-                            else from_numpy(x)).to(self.device)
-                           for x in frame]))
+        return list(p.fn(*[_xfer.move(x, self.device)
+                           if isinstance(x, torch.Tensor)
+                           else from_numpy(x, self.device) for x in frame]))
 
     def _rows_independent(self, p: _Program, frames: Sequence[Sequence[Any]],
                           per: Sequence[torch.Tensor]) -> bool:

@@ -147,10 +147,12 @@ def batched_nms(boxes: torch.Tensor, class_scores: torch.Tensor,
     beats = (sj > raw[..., None]) | \
         ((sj == raw[..., None]) & (rank[None, None, :] < cand[..., None]))
     suppressed = (_take(overlap, cand) & beats).any(dim=-1)   # (B,M)
-    thresh = torch.tensor(score_thresh, dtype=s.dtype, device=s.device)
+    # torch.full fills on the device (torch.tensor of a Python scalar
+    # would copy it from the host each call); same rounding to s.dtype
+    thresh = torch.full((), score_thresh, dtype=s.dtype, device=s.device)
     keep = (raw > thresh) & ~suppressed
-    kept = torch.where(keep, raw, torch.tensor(fill, dtype=s.dtype,
-                                               device=s.device))
+    kept = torch.where(keep, raw, torch.full((), fill, dtype=s.dtype,
+                                             device=s.device))
     top_scores, sel = _top_k(kept, m)                # final slate from M
     out_b = _take(b, torch.gather(cand, 1, sel))
     out_s = top_scores

@@ -1,0 +1,361 @@
+"""Per-executable cost capture + the scrape-time MFU join.
+
+Counterpart of the JAX package's ``obs/xlacost.py``; the file keeps its
+name so a reader finds the counterpart, but **the counts are the port's
+own, not XLA's**: PyTorch has no cost analysis of a compiled program.
+
+- **Capture** — ``filters/torch_cuda.py`` counts the forward of each
+  program once: the single-frame program (bucket 0) on the call on zeros
+  that reads its output schema, and each window bucket on the first
+  dispatch of that bucket (the one that already runs the fold check; the
+  check's two lone runs are not counted).  :func:`count` runs the forward
+  under ``torch.utils.flop_counter.FlopCounterMode``, a dispatch mode —
+  never in steady state.  It counts matmuls and convolutions as 2·MAC
+  and nothing elementwise (XLA's figure also counts elementwise work, so
+  the two packages' numbers differ on one model).  The hand-written
+  kernels run through ctypes, where the counter cannot see them, so
+  their wrappers add analytic counts (:func:`add_kernel_flops`):
+  ``flash_attention`` 4·B·H·S²·D when it launches on the card (on the CPU
+  its plain version's matmuls are counted instead) and
+  ``scale_bias_cast`` 2 an element.
+- **Bytes** — "bytes accessed" has no torch counterpart.  The port
+  defines it as weights + inputs + outputs of one dispatch, each counted
+  once: a LOWER bound on the card's memory traffic (intermediate
+  activations are not counted), so ``nns_hbm_bw_util`` is a lower bound.
+- **Join** — at scrape time :meth:`XlaCostStats.join` joins the static
+  rows, keyed ``(source, bucket)`` (``source`` the model name, ``bucket``
+  the window bucket, 0 for the single-frame program), with the measured
+  ``nns_invoke_device_seconds`` histogram: ``MFU = flops x dispatches /
+  (device_seconds x peak_flops)`` over the window since the previous
+  scrape.  Dispatch sources (element names, pool labels) map to model
+  names via :func:`map_source`.  The peaks come from :mod:`.hwspec` by
+  the row's platform (the card's name); on the CPU no utilization is
+  derived.
+
+Exported: ``nns_executable_{flops,bytes,peak_memory_bytes}{source,bucket,
+placement}``, ``nns_mfu`` / ``nns_hbm_bw_util``, and the snapshot's
+``executables`` table.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from . import hooks as _hooks
+from .hwspec import HwSpec, spec_for_platform
+
+#: fast-path flag (same contract as obs/transfer.py): honors the global
+#: obs kill switch at process start
+ACTIVE = not _hooks.DISABLED
+
+
+def _peak_memory(ca: dict, in_bytes: int, out_bytes: int
+                 ) -> Tuple[int, bool]:
+    """Peak memory of one executable: a reported figure when ``ca``
+    carries one, else the static I/O footprint (arguments + outputs — a
+    lower bound; the port reports none).  Returns ``(bytes,
+    estimated)``."""
+    for key in ("peak memory", "peak_memory", "bytes accessed peak"):
+        v = ca.get(key)
+        if v:
+            return int(v), False
+    return int(in_bytes) + int(out_bytes), True
+
+
+class _Row:
+    __slots__ = ("placement", "platform", "flops", "bytes",
+                 "peak_memory", "peak_memory_estimated", "in_bytes",
+                 "out_bytes", "compiles")
+
+    def __init__(self):
+        self.placement = ""
+        self.platform = ""
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.peak_memory = 0
+        self.peak_memory_estimated = True
+        self.in_bytes = 0
+        self.out_bytes = 0
+        self.compiles = 0
+
+
+class XlaCostStats:
+    """Process-wide store of per-executable static cost + the
+    scrape-to-scrape state the live MFU join needs."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._rows: Dict[Tuple[str, int], _Row] = {}
+        self._sources: Dict[str, str] = {}  # dispatch source -> model
+        # previous scrape's (sum, count) per device-histogram child —
+        # the delta window "live" utilization derives from.  BOTH
+        # consumers of one registry (Prometheus exposition and
+        # snapshot/nns-top polls) advance it, so interleaved consumers
+        # see shorter windows; the _last_* caches below keep an idle
+        # (possibly zero-sample) window re-exporting the last derived
+        # figure instead of flapping to the lifetime average.
+        self._prev_hist: Dict[Tuple, Tuple[float, int]] = {}
+        self._last_util: Dict[Tuple, dict] = {}
+        self._last_exec: Dict[Tuple[str, int], dict] = {}
+
+    # -- capture (filters/torch_cuda.py) -------------------------------------
+
+    def record(self, source: str, bucket: int, placement: str,
+               platform: str, ca: dict, in_bytes: int = 0,
+               out_bytes: int = 0) -> None:
+        key = (str(source), int(bucket))
+        peak, est = _peak_memory(ca, in_bytes, out_bytes)
+        with self._lock:
+            row = self._rows.get(key)
+            if row is None:
+                row = self._rows[key] = _Row()
+            row.placement = str(placement)
+            row.platform = str(platform)
+            row.flops = float(ca.get("flops", 0.0) or 0.0)
+            row.bytes = float(ca.get("bytes accessed", 0.0) or 0.0)
+            row.peak_memory = peak
+            row.peak_memory_estimated = est
+            row.in_bytes = int(in_bytes)
+            row.out_bytes = int(out_bytes)
+            row.compiles += 1
+
+    def map_source(self, source: str, model: str) -> None:
+        """Register a dispatch-source label (element name / pool label)
+        as serving ``model`` — the join key between the measured
+        ``nns_invoke_device_seconds`` series and the executable rows.
+        Source labels follow the histogram's labeling (element name /
+        pool label), so two live pipelines with same-named filters
+        serving DIFFERENT models share one measured series — the join
+        can't untangle that, and the remap warning below is the loud
+        signal to rename one of them."""
+        prev = None
+        with self._lock:
+            prev = self._sources.get(str(source))
+            self._sources[str(source)] = str(model)
+        if prev is not None and prev != str(model):
+            from ..utils.log import logw
+
+            logw("obs: dispatch source %r remapped from model %r to "
+                 "%r — if both are live, their nns_invoke_device_"
+                 "seconds series merge and nns_mfu misattributes "
+                 "device time; give the filters distinct names",
+                 source, prev, model)
+
+    def model_of(self, source: str) -> str:
+        with self._lock:
+            # a model invoked outside any mapped element dispatches under
+            # its own name
+            return self._sources.get(str(source), str(source))
+
+    def get(self, source: str, bucket: int = 0) -> Optional[dict]:
+        """One raw captured row (tests/bench cross-checks)."""
+        with self._lock:
+            row = self._rows.get((str(source), int(bucket)))
+            if row is None:
+                return None
+            return {"flops": row.flops, "bytes": row.bytes,
+                    "peak_memory": row.peak_memory,
+                    "placement": row.placement,
+                    "platform": row.platform, "compiles": row.compiles}
+
+    def reset(self) -> None:
+        """Tests/bench only: drop every row and all join state."""
+        with self._lock:
+            self._rows.clear()
+            self._sources.clear()
+            self._prev_hist.clear()
+            self._last_util.clear()
+            self._last_exec.clear()
+
+    # -- the scrape-time join ------------------------------------------------
+
+    def _exec_key_for(self, rows: Dict[Tuple[str, int], _Row],
+                      source: str, bucket_label: str
+                      ) -> Optional[Tuple[str, int]]:
+        """Map one measured series' (source, bucket) to an executable
+        row key — resolved against the caller's row snapshot so a row
+        captured mid-join can't pass the check and miss the lookup.
+        The dispatch source resolves to its model, and the single-frame
+        chain path (hist bucket "1") to the bucket-0 executable when no
+        bucket-1 one exists."""
+        try:
+            b = int(bucket_label)
+        except (TypeError, ValueError):
+            return None
+        model = self.model_of(source)
+        if (model, b) in rows:
+            return (model, b)
+        if b == 1 and (model, 0) in rows:
+            return (model, 0)
+        return None
+
+    def join(self, device_hist_rows: List[tuple]
+             ) -> Tuple[List[dict], List[dict]]:
+        """The scrape-time MFU join.  ``device_hist_rows`` is the
+        ``nns_invoke_device_seconds`` family's ``_hist_rows()`` output
+        (labels, buckets, sum, count).  Returns ``(executables table,
+        utilization samples)``:
+
+        - table rows: the static cost per executable annotated with
+          intensity, roofline classification, and — when the hardware
+          spec is known and device seconds were measured — live
+          ``mfu`` / ``hbm_bw_util`` over the window since the previous
+          scrape (cumulative on the first scrape / an idle window);
+        - samples: per measured ``{kind, source, bucket}`` series, the
+          same utilizations for the ``nns_mfu`` / ``nns_hbm_bw_util``
+          gauges.
+        """
+        with self._lock:
+            rows = dict(self._rows)
+        samples: List[dict] = []
+        # per exec row: accumulated (delta_sum, delta_count) across the
+        # dispatch sources measured against it
+        per_exec: Dict[Tuple[str, int], Tuple[float, int]] = {}
+        for labels, _buckets, hsum, hcount in device_hist_rows:
+            key = self._exec_key_for(rows, labels.get("source", ""),
+                                     labels.get("bucket", ""))
+            if key is None:
+                continue
+            row = rows[key]
+            pkey = (labels.get("kind", ""), labels.get("source", ""),
+                    labels.get("bucket", ""))
+            with self._lock:
+                prev = self._prev_hist.get(pkey)
+                self._prev_hist[pkey] = (hsum, hcount)
+            if prev is None:
+                # first scrape of this series: the cumulative figures
+                # ARE the window (the one-shot bench/test path)
+                dsum, dcount = hsum, hcount
+            else:
+                dsum, dcount = hsum - prev[0], hcount - prev[1]
+            if dcount <= 0 or dsum <= 0:
+                # idle window (no new samples since the last consumer's
+                # scrape): re-export the last derived figure
+                with self._lock:
+                    last = self._last_util.get(pkey)
+                if last:
+                    samples.append({"labels": dict(labels), **last})
+                continue
+            acc = per_exec.get(key, (0.0, 0))
+            per_exec[key] = (acc[0] + dsum, acc[1] + dcount)
+            spec = spec_for_platform(row.platform)
+            util = _utilization(row, spec, dsum, dcount)
+            if util:
+                with self._lock:
+                    self._last_util[pkey] = dict(util)
+                samples.append({"labels": dict(labels), **util})
+        table: List[dict] = []
+        for (source, bucket), row in sorted(rows.items()):
+            spec = spec_for_platform(row.platform)
+            entry = {
+                "source": source, "bucket": bucket,
+                "placement": row.placement, "platform": row.platform,
+                "flops": row.flops, "bytes": row.bytes,
+                "peak_memory_bytes": row.peak_memory,
+                "peak_memory_estimated": row.peak_memory_estimated,
+                "compiles": row.compiles,
+            }
+            if row.bytes:
+                intensity = row.flops / row.bytes
+                entry["intensity_flops_per_byte"] = intensity
+                if spec is not None:
+                    entry["ridge_flops_per_byte"] = spec.ridge
+                    entry["bound"] = "compute" \
+                        if intensity >= spec.ridge else "bandwidth"
+                    entry["mfu_ceiling"] = min(intensity / spec.ridge,
+                                               1.0)
+            dsum, dcount = per_exec.get((source, bucket), (0.0, 0))
+            if dcount > 0 and dsum > 0:
+                win = {"device_seconds_window": dsum,
+                       "dispatches_window": dcount}
+                win.update(_utilization(row, spec, dsum, dcount))
+                with self._lock:
+                    self._last_exec[(source, bucket)] = dict(win)
+                entry.update(win)
+            else:
+                # idle window: keep the row's last derived figures so
+                # the nns-top MFU column doesn't blank between polls
+                with self._lock:
+                    last = self._last_exec.get((source, bucket))
+                if last:
+                    entry.update(last)
+            table.append(entry)
+        return table, samples
+
+
+def _utilization(row: _Row, spec: Optional[HwSpec], dsum: float,
+                 dcount: int) -> dict:
+    """{mfu, hbm_bw_util} of ``dcount`` dispatches of one executable
+    over ``dsum`` measured device seconds; {} when the hardware peaks
+    are unknown (intensity-only fallback)."""
+    if spec is None or dsum <= 0 or dcount <= 0:
+        return {}
+    out: dict = {}
+    if row.flops and spec.peak_flops:
+        out["mfu"] = row.flops * dcount / (dsum * spec.peak_flops)
+    if row.bytes and spec.hbm_bw:
+        out["hbm_bw_util"] = row.bytes * dcount / (dsum * spec.hbm_bw)
+    return out
+
+
+#: the process-wide store every capture seam feeds
+XLA_COST = XlaCostStats()
+
+_TLS = threading.local()
+
+
+def add_kernel_flops(n: float) -> None:
+    """A hand-written kernel's analytic FLOPs, added to the count running
+    on this thread (no-op outside :func:`count`)."""
+    acc = getattr(_TLS, "acc", None)
+    if acc is not None:
+        acc[0] += n
+
+
+def count(fn: Callable, *args: Any) -> Tuple[Any, float]:
+    """``(fn(*args), flops)``: the call under ``FlopCounterMode`` plus the
+    analytic counts of the hand-written kernels it launched."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    prev = getattr(_TLS, "acc", None)
+    acc = _TLS.acc = [0.0]
+    try:
+        with FlopCounterMode(display=False) as fc:
+            out = fn(*args)
+    finally:
+        _TLS.acc = prev
+    return out, float(fc.get_total_flops()) + acc[0]
+
+
+def nbytes_of(tensors: Any) -> int:
+    """Payload bytes of a tensor or a (nested) list/tuple of them."""
+    if isinstance(tensors, (list, tuple)):
+        return sum(nbytes_of(t) for t in tensors)
+    return int(tensors.numel() * tensors.element_size()) \
+        if hasattr(tensors, "element_size") else 0
+
+
+def capture(source: str, fn: Callable, *args: Any, bucket: int = 0,
+            placement: str = "", platform: str = "",
+            weight_bytes: int = 0) -> Any:
+    """Run ``fn(*args)`` and record its cost as the ``(source, bucket)``
+    row: flops from :func:`count`, bytes = ``weight_bytes`` + inputs +
+    outputs.  Returns ``fn``'s outputs.  Under the kill switch it only
+    runs ``fn``."""
+    if not ACTIVE:
+        return fn(*args)
+    out, flops = count(fn, *args)
+    in_b, out_b = nbytes_of(list(args)), nbytes_of(out)
+    XLA_COST.record(source, bucket, placement, platform,
+                    {"flops": flops,
+                     "bytes accessed": float(weight_bytes + in_b + out_b)},
+                    in_bytes=in_b, out_bytes=out_b)
+    return out
+
+
+def map_source(source: str, model: str) -> None:
+    """Module-level shim of :meth:`XlaCostStats.map_source`."""
+    if not ACTIVE:
+        return
+    XLA_COST.map_source(source, model)

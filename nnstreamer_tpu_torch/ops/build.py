@@ -8,7 +8,7 @@ takes seconds, not minutes.  By default libraries go to
 hash of the source and the flags: an edited source builds anew, an
 unchanged one is reused.
 
-With ``NNS_TPU_COMPILE_CACHE_DIR`` set to a writable directory
+With ``NNS_TPU_TORCH_COMPILE_CACHE_DIR`` set to a writable directory
 (``runtime/compilecache.py``) the libraries are stored and looked up
 there instead, keyed also by the ``nvcc --version`` string and the arch;
 every lookup is counted in ``compilecache.CACHE_STATS``.  An entry whose

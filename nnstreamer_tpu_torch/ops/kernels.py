@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.types import DType
+from ..obs import xlacost as _xlacost
 
 _IN_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
              torch.int32: 4, torch.float16: 5, torch.bfloat16: 6,
@@ -94,6 +95,9 @@ def scale_bias_cast(x: torch.Tensor, scale: float, bias: float,
     contiguous, of a type :func:`scale_bias_cast_available` accepts, with
     an f32 or bf16 ``out_dtype``; anything else raises."""
     out_dtype = _torch_dtype(out_dtype)
+    # cost capture (obs/xlacost.py): 2 FLOPs an element, on either path
+    # (the counter sees neither the kernel nor elementwise plain ops)
+    _xlacost.add_kernel_flops(2 * x.numel())
     if x.device.type == "cpu":
         return scale_bias_cast_reference(x, scale, bias, out_dtype)
     if x.device.type != "cuda":
@@ -274,6 +278,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention.launches += 1
+    # cost capture (obs/xlacost.py): 4·B·H·S·Sk·D, which the counter
+    # cannot see through ctypes (on the CPU it counts the plain
+    # version's matmuls instead)
+    _xlacost.add_kernel_flops(4 * q.numel() * k.shape[-2])
     return o4.view(q.shape)
 
 

@@ -1,10 +1,14 @@
 """SLO-aware admission control for the shared serving path.
 
-Counterpart of the JAX package's ``runtime/admission.py``, on its path
-without the metrics registry (``hist=None``: the p99 comes from a private
-window of recent latencies).  Open-loop traffic does not slow down when
-the server does, so the :class:`~nnstreamer_tpu_torch.runtime.serving.
-SharedBatcher` gets the classic overload-control trio:
+Counterpart of the JAX package's ``runtime/admission.py``.  The pool wires
+in its ``nns_admission_latency_seconds`` child of the metrics registry
+(``hist=``): every serve latency feeds it and the p99 the shed decision
+acts on is read from its buckets, so a scraper sees the signal the
+shedder uses; a private window of recent latencies is the fallback
+(``hist=None``, or a p99 past the last finite bucket).  Open-loop
+traffic does not slow down when the server does, so the
+:class:`~nnstreamer_tpu_torch.runtime.serving.SharedBatcher` gets the
+classic overload-control trio:
 
 - **priority classes** — each sharing stream (``tensor_filter
   priority=high|normal|low``) names how much it matters;
@@ -28,7 +32,7 @@ from __future__ import annotations
 import random
 import threading
 from collections import deque
-from typing import Deque, Dict
+from typing import Deque, Dict, Optional
 
 #: stream priority classes, best first (comparisons use the rank)
 PRIORITY_CLASSES = {"high": 0, "normal": 1, "low": 2}
@@ -84,13 +88,16 @@ class StreamPolicy:
     """One stream's admission settings (derived from tensor_filter
     props at pool attach)."""
 
-    __slots__ = ("priority", "deadline_s", "queue_limit")
+    __slots__ = ("priority", "deadline_s", "queue_limit", "tenant")
 
     def __init__(self, priority: int = 1, deadline_s: float = 0.0,
-                 queue_limit: int = 0):
+                 queue_limit: int = 0, tenant: str = "default"):
         self.priority = int(priority)
         self.deadline_s = float(deadline_s)
         self.queue_limit = int(queue_limit)
+        # who this stream's frames are billed to: the tenant= filter
+        # property, attributed per dispatch by obs/tenantstat.py
+        self.tenant = str(tenant) or "default"
 
 
 class AdmissionController:
@@ -100,11 +107,14 @@ class AdmissionController:
     #: recompute the p99 estimate every N observations (a sort of the
     #: whole window per frame would throttle the hot path)
     RECOMPUTE_EVERY = 16
+    #: how many per-recompute histogram deltas the rolling distribution
+    #: sums over — 32 × RECOMPUTE_EVERY ≈ the private window's 512
+    HIST_WINDOW_DELTAS = 32
     #: the shed-probability ramp: 0 below RAMP_START×SLO, 1 at the SLO
     #: (a hard on/off threshold duty-cycles; the graded ramp settles)
     RAMP_START = 0.7
 
-    def __init__(self, slo_s: float, window: int = 512):
+    def __init__(self, slo_s: float, window: int = 512, hist=None):
         if slo_s <= 0:
             raise ValueError(f"slo_s must be > 0, got {slo_s}")
         self.slo_s = float(slo_s)
@@ -113,6 +123,12 @@ class AdmissionController:
         self._rng = random.Random(0)
         self._since_recompute = 0
         self._p99 = 0.0
+        # the registry's exported serve-latency histogram child (with
+        # hist_state()); None keeps the private window as the signal
+        self._hist = hist
+        self._hist_prev = None  # cumulative buckets at last recompute
+        self._hist_deltas: Deque[list] = deque(
+            maxlen=self.HIST_WINDOW_DELTAS)
         self.at_risk = False
         self.risk_episodes = 0  # times the at-risk flag armed
         # pre-seeded per-priority counters: the hot path only ever
@@ -127,6 +143,11 @@ class AdmissionController:
 
     def observe(self, lat_s: float) -> None:
         """Feed one serve latency (window park → results demuxed)."""
+        hist = self._hist
+        if hist is not None:
+            # the exported histogram's own lock serializes this, so it
+            # stays outside the controller lock
+            hist.observe(float(lat_s))
         with self._lock:
             self._lat.append(float(lat_s))
             self._since_recompute += 1
@@ -137,12 +158,38 @@ class AdmissionController:
         self._since_recompute = 0
         if not self._lat:
             return
-        s = sorted(self._lat)
-        self._p99 = s[min(int(0.99 * len(s)), len(s) - 1)]
+        p99 = self._hist_p99_locked() if self._hist is not None else None
+        if p99 is None:
+            # registry detached (or the tail ran past the last finite
+            # bucket): the private window is the fallback signal
+            s = sorted(self._lat)
+            p99 = s[min(int(0.99 * len(s)), len(s) - 1)]
+        self._p99 = p99
         was = self.at_risk
         self.at_risk = self._shed_probability_locked() > 0.0
         if self.at_risk and not was:
             self.risk_episodes += 1
+
+    def _hist_p99_locked(self) -> Optional[float]:
+        """p99 from the exported histogram: the cumulative bucket counts
+        diffed since the last recompute, the recent deltas summed into a
+        rolling distribution, and the quantile interpolated by the
+        registry's :func:`~nnstreamer_tpu_torch.obs.metrics.
+        bucket_quantile`.  None when there is no recent data or the p99
+        lies in the +Inf bucket."""
+        from ..obs.metrics import bucket_quantile
+
+        buckets, _sum, _count = self._hist.hist_state()
+        prev = self._hist_prev
+        self._hist_prev = buckets
+        if prev is None or len(prev) != len(buckets):
+            return None
+        delta = [c - p for c, p in zip(buckets, prev)]
+        if any(d < 0 for d in delta):  # histogram child was reset
+            return None
+        self._hist_deltas.append(delta)
+        dist = [sum(col) for col in zip(*self._hist_deltas)]
+        return bucket_quantile(self._hist.bucket_bounds, dist, 0.99)
 
     def _shed_probability_locked(self) -> float:
         """0 while the p99 sits safely under the SLO, ramping linearly
@@ -151,6 +198,23 @@ class AdmissionController:
         if self._p99 <= start:
             return 0.0
         return min((self._p99 - start) / (self.slo_s - start), 1.0)
+
+    def reset_signal(self) -> None:
+        """Drop the accumulated latency signal (warm-up latencies must
+        not arm the controller before real traffic).  The exported
+        histogram keeps its cumulative counts — resetting a Prometheus
+        counter would break scrapers — but its rolling delta window
+        restarts from the current state."""
+        hist_state = self._hist.hist_state() if self._hist is not None \
+            else None
+        with self._lock:
+            self._lat.clear()
+            self._p99 = 0.0
+            self.at_risk = False
+            self._since_recompute = 0
+            self._hist_deltas.clear()
+            if hist_state is not None:
+                self._hist_prev = hist_state[0]
 
     @property
     def shed_probability(self) -> float:

@@ -40,6 +40,9 @@ import threading
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+from ..chaos import hooks as _chaos
+from ..obs import hooks as _hooks
+
 
 def parse_buckets(spec: str, max_batch: int) -> Tuple[int, ...]:
     """Resolve the ``batch-buckets`` property into the sorted tuple of
@@ -116,7 +119,7 @@ class MicroBatcher:
                  adaptive: bool = False, name: str = ""):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        self.name = name  # thread label (owning element / pool)
+        self.name = name  # thread and trace label (owning element / pool)
         self.max_batch = int(max_batch)
         self.timeout_s = float(timeout_s)
         self.adaptive = bool(adaptive)
@@ -167,6 +170,9 @@ class MicroBatcher:
 
     def submit(self, item: Any) -> None:
         """Enqueue one item; dispatches inline when the window fills."""
+        tracer = _hooks.tracer
+        if tracer is not None:
+            tracer.batch_parked(self, item)
         with self._cv:
             self._pending.append(item)
             full = len(self._pending) >= self.max_batch
@@ -212,6 +218,17 @@ class MicroBatcher:
                     else time.monotonic() + self.timeout_s
             if not batch:
                 return 0
+            tracer = _hooks.tracer
+            if tracer is not None:
+                tracer.batch_dispatch(self, batch)
+            ch = _chaos.plan
+            if ch is not None:
+                # queue-pressure seam: an injected dispatch stall backs
+                # the window up as a slow device would (it holds the
+                # flush lock as a real dispatch does)
+                stall = ch.queue_stall(self.name or "batch")
+                if stall > 0:
+                    time.sleep(stall)
             self._flush_fn(batch)
         with self._cv:
             # wake the timer: the dispatch is done, so an adaptive

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``runtime/compilecache.py``.  The port
 has no XLA executables; what a fresh PyTorch process rebuilds is the
 shared library of each hand-written CUDA kernel (``ops/build.py``).  With
-``NNS_TPU_COMPILE_CACHE_DIR`` naming a writable directory, those
+``NNS_TPU_TORCH_COMPILE_CACHE_DIR`` naming a writable directory, those
 libraries are stored and looked up there, keyed by everything that makes
 two builds interchangeable::
 
@@ -33,7 +33,7 @@ from typing import Iterable, Optional
 _log = logging.getLogger("nnstreamer_tpu_torch")
 
 #: the one switch: set to a directory to arm the persistent cache
-CACHE_ENV = "NNS_TPU_COMPILE_CACHE_DIR"
+CACHE_ENV = "NNS_TPU_TORCH_COMPILE_CACHE_DIR"
 
 _lock = threading.Lock()
 #: cache dirs already warned about (unwritable/missing): once each

@@ -14,6 +14,12 @@ computes.  Every launch goes to the default stream, so a tensor made in
 one element's thread is safe to use in the next.
 
 Every element reads its device from the pipeline (:attr:`Element.device`).
+
+Observability seams (``obs/``), each one global read when nothing is
+attached: the tracer's pre/post-chain marks and the source's sampling
+decision, the transfer ledger's label context around each chain, the
+sink's fence completing deferred trace records, and ``post_error`` feeding
+the flight recorder and ``nns_element_errors_total``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..core import Buffer, Caps, TensorsSpec
+from ..obs import hooks as _hooks
+from ..obs import transfer as _xfer
+from ..obs.tracer import FENCE_PENDING, TRACE_META_KEY
 from . import admission as _admission
 from .events import Event, EventKind, Message, MessageKind
 
@@ -330,13 +339,34 @@ class Element:
             self.stats[key] = self.stats.get(key, 0) + n
 
     def _chain_guarded(self, pad: Pad, buf: Buffer) -> None:
+        # transfer-ledger label context (obs/transfer.py): crossings made
+        # while this element owns the buffer are attributed to
+        # (pipeline, element); one flag read when obs is off
+        x_on = _xfer.ACTIVE
+        xctx = None
         try:
             self.count_stat("buffers_in")
+            # tracer hook (obs/hooks.py): read ONCE so an attach
+            # mid-buffer keeps the pre/post pair together
+            tracer = _hooks.tracer
+            if x_on:
+                tr = buf.meta.get(TRACE_META_KEY) \
+                    if tracer is not None else None
+                xctx = _xfer.push_context(
+                    self.pipeline.name if self.pipeline is not None
+                    else "", self.name, (tr,) if tr is not None else None)
+            if tracer is not None:
+                tracer.pre_chain(self, buf)
             self.chain(pad, buf)
+            if tracer is not None:
+                tracer.post_chain(self, buf)
         except Exception as e:  # noqa: BLE001 - any failure must surface
             # as an ERROR bus message, not silently kill the upstream
             # streaming thread
             self.post_error(e)
+        finally:
+            if x_on:
+                _xfer.pop_context(xctx)
 
     def chain(self, pad: Pad, buf: Buffer) -> None:
         raise NotImplementedError(f"{type(self).__name__} has no chain")
@@ -387,7 +417,26 @@ class Element:
             self.pipeline.post(msg)
 
     def post_error(self, err: BaseException) -> None:
+        # bus FIRST: consumers watching for the ERROR must not wait on any
+        # recorder work
         self.post_message(Message(MessageKind.ERROR, self.name, error=err))
+        # black-box evidence (obs/flightrec.py) and errors as a series
+        try:
+            from ..obs.flightrec import FLIGHT
+            from ..obs.metrics import REGISTRY
+
+            REGISTRY.counter(
+                "nns_element_errors_total",
+                "errors posted to a pipeline bus by an element",
+                labelnames=("pipeline", "element"),
+            ).labels(
+                pipeline=getattr(self.pipeline, "name", "") or "",
+                element=self.name,
+            ).inc()
+            FLIGHT.element_error(self.name, err)
+        except Exception:  # noqa: BLE001 - the black box must never
+            # break the error path it records
+            pass
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"
@@ -496,6 +545,11 @@ class SourceElement(Element):
                 # deadline anchor for SLO-aware admission, stamped after
                 # the throttle and only while a controller is armed
                 buf.meta[_admission.INGRESS_TS_META] = time.monotonic()
+            tracer = _hooks.tracer
+            if tracer is not None:
+                # the trace starts here, after the throttle: the latency
+                # a sampled buffer reports is pipeline time
+                tracer.source_created(self, buf)
             self.push(buf)
 
 
@@ -513,12 +567,18 @@ class SinkElement(Element):
     event, so ``wait_eos()`` returning means every window finished.  The
     event rides the buffer as ``meta["device_done"]``: a caller can time
     windows on the device with it.
+
+    With a tracer attached, a sampled buffer that carries such an event
+    has its trace record closed by the fence on that event, after it fired
+    (``obs/tracer.py``), not when the chain returns.
     """
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self.add_sink_pad()
         self._pending_fence: Optional[torch.cuda.Event] = None
+        # trace dicts whose records wait for the pending fence
+        self._pending_traces: tuple = ()
         self._fence_lock = threading.Lock()
 
     def chain(self, pad: Pad, buf: Buffer) -> None:
@@ -532,11 +592,30 @@ class SinkElement(Element):
                     cur.record()
                 buf.meta["device_done"] = cur
                 break
+        traces = ()
+        if cur is not None and _hooks.tracer is not None:
+            tr = buf.meta.get(TRACE_META_KEY)
+            if tr is not None:
+                tr[FENCE_PENDING] = True
+                traces = (tr,)
         with self._fence_lock:
             prev, self._pending_fence = self._pending_fence, cur
-        if prev is not None:
-            prev.synchronize()
+            prev_traces, self._pending_traces = self._pending_traces, traces
+        self._fence(prev, prev_traces)
         self.render(buf)
+
+    def _fence(self, ev, traces=()) -> None:
+        if ev is None:
+            return
+        tracer = _hooks.tracer
+        if tracer is None:
+            ev.synchronize()
+            return
+        import time
+
+        t0 = time.monotonic()
+        ev.synchronize()
+        tracer.sink_fenced(self, time.monotonic() - t0, traces)
 
     def render(self, buf: Buffer) -> None:
         raise NotImplementedError
@@ -545,11 +624,11 @@ class SinkElement(Element):
         if event.kind == EventKind.EOS:
             with self._fence_lock:
                 prev, self._pending_fence = self._pending_fence, None
+                traces, self._pending_traces = self._pending_traces, ()
             try:
                 # wait for the retained window BEFORE EOS posts: "EOS on
                 # the bus" must mean the card finished every window
-                if prev is not None:
-                    prev.synchronize()
+                self._fence(prev, traces)
             except Exception as e:  # noqa: BLE001 - a device fault
                 # surfacing at the EOS fence still belongs on this sink's
                 # bus (event delivery has no _chain_guarded)

@@ -25,9 +25,11 @@ pool (``runtime/serving.py``):
   (refused before ``min_canary_frames``) and
   :meth:`~VersionManager.rollback` give the verdict.
 
-Not in this slice (later work): the ``model`` actuators of the control
-API, the flight recorder (``history`` is the only trail here) and
-checkpoint step directories (the trainer's orbax layout).
+Every lifecycle event (stage, swap, canary, promote, rollback, errors) is
+kept in ``history`` and noted in the flight recorder
+(``obs/flightrec.py``).  Not in this slice (later work): the ``model``
+actuators of the control API and checkpoint step directories (the
+trainer's orbax layout).
 """
 
 from __future__ import annotations
@@ -229,6 +231,11 @@ class VersionManager:
         with self._lock:
             self.history.append(rec)
             del self.history[:-HISTORY_LEN]
+        from ..obs.flightrec import FLIGHT
+
+        FLIGHT.note("lifecycle", f"{self._entry_label()}:{event}",
+                    **{k: v for k, v in data.items()
+                       if isinstance(v, (str, int, float, bool))})
 
     # -- stage ----------------------------------------------------------------
 

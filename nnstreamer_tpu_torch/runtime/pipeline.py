@@ -7,6 +7,12 @@ static negotiation pass (sources outward), then spawns source threads.
 
 A pipeline owns the device its elements compute on: ``"cuda"`` unless the
 caller asks for ``"cpu"``; asking for ``cuda`` without a card raises.
+
+While playing, a pipeline is registered (weakly) with the process metrics
+registry (``obs/metrics.py``); its first start also reads the chaos plan
+(``NNS_TPU_TORCH_CHAOS``), arms the flight recorder
+(``NNS_TPU_TORCH_FLIGHTREC_DIR``) and serves the registry
+(``NNS_TPU_TORCH_METRICS_PORT``).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import threading
 import time
 from typing import Dict, Optional, Union
 
+from ..obs import metrics as _metrics
 from ..utils.device import DeviceLike, resolve_device
 from .element import Element, NegotiationError, SourceElement
 from .events import Message, MessageKind
@@ -152,9 +159,18 @@ class Pipeline:
             self.stop()
             raise
         self.playing = True
+        # visible to the metrics registry: scrape-time pull only, the
+        # hot path pays nothing
+        _metrics.REGISTRY.register_pipeline(self)
+        from ..chaos import hooks as _chaos_hooks
+        from ..obs import flightrec as _flightrec
+
+        _chaos_hooks.maybe_install_from_env()
+        _flightrec.maybe_arm_from_env()
         return self
 
     def stop(self) -> "Pipeline":
+        _metrics.REGISTRY.unregister_pipeline(self)
         for e in self.elements.values():
             if isinstance(e, SourceElement):
                 e.stop()

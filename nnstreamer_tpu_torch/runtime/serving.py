@@ -42,9 +42,18 @@ canaries it on 1-in-N streams when the pool declares ``canary=``.  A
 window then partitions by version and each part dispatches through its
 own instance at its own bucket.
 
-Not in this slice: the actuator API, tenant attribution, placement over
-a mesh, and the tracer, chaos, transfer-ledger and lockdep seams of the
-JAX package.
+Observability and faults (``obs/``, ``chaos/``): a window dispatch runs
+under the transfer ledger's pool label; the process-wide chaos plan's
+invoke faults apply inside the window's error guard (a ``fail-invoke``
+reaches every owner's bus); a sampled dispatch feeds its host-prep /
+device / host-drain split to the registry's ``nns_invoke_*`` histograms
+and the tracer, and its device time to the per-tenant split
+(``obs/tenantstat.py``, the ``tenant=`` stream property); the admission
+controller reads its p99 from the registry's histogram; a hard shed
+triggers the flight recorder.
+
+Not in this slice: the actuator API, placement over a mesh and the
+lockdep seam of the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +63,11 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..chaos import hooks as _chaos
+from ..obs import hooks as _obs_hooks
+from ..obs import tenantstat as _tenantstat
+from ..obs import transfer as _xfer
+from ..obs.tracer import TRACE_META_KEY
 from ..utils.device import device_key
 from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
 from .admission import (
@@ -193,7 +207,12 @@ class PoolEntry:
         # batch settings); per-stream policies keyed like _streams
         self.admission: Optional[AdmissionController] = None
         self._policies: Dict[int, StreamPolicy] = {}
+        # id(owner) -> tenant, read lock-free on the dispatch path
+        # (rebuilt only under self._lock)
+        self._tenants: Dict[int, str] = {}
         self._shed_warn_ts: Dict[int, float] = {}
+        #: seconds of sleep the chaos plan's slow-invoke faults injected
+        self.chaos_sleep_s = 0.0
         # blocking stats samples (dispatches are serialized by the
         # batcher's flush lock); the cadence is the default, tightened by
         # any attached filter's stat-sample-interval-ms (the minimum)
@@ -253,17 +272,27 @@ class PoolEntry:
             return lc.start_canary(n, ver)
         return lc.swap(ver)
 
+    def _serve_hist(self):
+        """The registry's per-pool serve-latency histogram the admission
+        controller feeds AND reads its p99 from."""
+        from ..obs.metrics import admission_latency_hist
+
+        return admission_latency_hist(self.label())
+
     def attach(self, owner: Any, batch: int, timeout_ms: float,
                buckets_spec: str, slo_ms: float = 0.0,
                priority: Any = "normal", deadline_ms: float = 0.0,
-               queue_limit: int = 0, canary: str = "") -> bool:
+               queue_limit: int = 0, canary: str = "",
+               tenant: str = "") -> bool:
         """Register ``owner`` as a live stream of this entry.  The first
         attach fixes the pool-level window settings (``batch*``,
         ``slo-ms`` and the ``canary=`` declaration, validated by
         ``lifecycle.parse_canary``); later attaches with different
         settings raise
         :class:`PoolConflictError`.  ``priority`` / ``deadline-ms`` /
-        ``queue-limit`` are PER-STREAM (runtime/admission.py).  Returns
+        ``queue-limit`` / ``tenant`` are PER-STREAM (runtime/admission.py;
+        the tenant names who the stream's frames are billed to,
+        obs/tenantstat.py).  Returns
         True when the owner must submit through the shared batcher,
         False for shared-instance/per-frame dispatch (``batch<=1`` or a
         framework without ``SUPPORTS_BATCH``)."""
@@ -276,6 +305,7 @@ class PoolEntry:
         cfg = (batch, float(timeout_ms), str(buckets_spec or "").strip(),
                slo_ms, canary)
         policy = StreamPolicy(
+            tenant=str(tenant or "").strip() or _tenantstat.DEFAULT_TENANT,
             priority=parse_priority(priority),
             # EDF deadline: explicit per-stream deadline, else the pool
             # SLO (a frame older than the SLO is the one to save first)
@@ -285,6 +315,13 @@ class PoolEntry:
             queue_limit=int(queue_limit) if int(queue_limit or 0) > 0
             else (16 * batch if slo_ms > 0 else 0))
         owner_ms = getattr(owner, "stat_sample_interval_ms", None)
+        mn = getattr(self.subplugin, "model_name", None)
+        if callable(mn):
+            # obs join key: the pool's nns_invoke_device_seconds series
+            # measures this model's programs (obs/xlacost.py)
+            from ..obs import xlacost as _xlacost
+
+            _xlacost.map_source(self.label(), mn())
         start = None
         with self._lock:
             if owner_ms is not None:
@@ -301,9 +338,11 @@ class PoolEntry:
                     f"across all {len(self._streams)} sharer(s)")
             self._streams[id(owner)] = owner
             self._policies[id(owner)] = policy
+            self._tenants = {**self._tenants, id(owner): policy.tenant}
             self._batch_cfg = cfg
             if slo_ms > 0 and self.admission is None:
-                self.admission = AdmissionController(slo_ms / 1e3)
+                self.admission = AdmissionController(
+                    slo_ms / 1e3, hist=self._serve_hist())
                 _controller_armed()  # sources start stamping ingress
             if batched and self.batcher is None:
                 self.buckets = parse_buckets(cfg[2], batch)
@@ -334,6 +373,8 @@ class PoolEntry:
         with self._lock:
             present = self._streams.pop(id(owner), None) is not None
             self._policies.pop(id(owner), None)
+            self._tenants = {k: v for k, v in self._tenants.items()
+                             if k != id(owner)}
             self._shed_warn_ts.pop(id(owner), None)
             batcher = self.batcher
             n = len(self._streams)
@@ -386,6 +427,7 @@ class PoolEntry:
             if not adm.admit(pol.priority):
                 # p99 over SLO and this stream is sheddable: dropped at
                 # the cheapest point — before any queueing — and LOUDLY
+                _tenantstat.record_shed(self.label(), pol.tenant, "slo")
                 self._warn_shed(owner, pol, adm, reason="slo")
                 return
             if pol.queue_limit > 0 and not batcher.wait_below(
@@ -394,6 +436,8 @@ class PoolEntry:
                 # bounded queue never drained (wedged device): shed
                 # rather than wedge the producer thread forever
                 adm.count_queue_full(pol.priority)
+                _tenantstat.record_shed(self.label(), pol.tenant,
+                                        "queue-full")
                 self._warn_shed(owner, pol, adm, reason="queue-full")
                 return
         batcher.submit_from(owner, buf,
@@ -420,6 +464,12 @@ class PoolEntry:
         _log.warning("%s: load-shedding %s-priority frames (%s; %d shed so "
                      "far on this pool)", getattr(owner, "name", owner),
                      priority_name(pol.priority), reason, total)
+        # black box: every (rate-limited) shed episode is noted; the shed
+        # ramp saturating at 1.0 is the hard-shed trigger of a dump
+        from ..obs.flightrec import FLIGHT
+
+        FLIGHT.shed(self.label(), priority_name(pol.priority), reason,
+                    total, hard=adm.shed_probability >= 1.0)
 
     # -- the cross-stream dispatch -------------------------------------------
 
@@ -433,12 +483,27 @@ class PoolEntry:
         partitions by version (every stream maps to one version, so
         per-stream FIFO survives) and each part dispatches through its
         version's instance."""
-        lc = self._lifecycle
-        if lc is None:
-            self._dispatch_group(items, self.subplugin, None)
-            return
-        for ver, sp, part in lc.partition(items):
-            self._dispatch_group(part, sp, ver)
+        # transfer-label context: the dispatch runs on whichever producer
+        # or timer thread closed the window; its crossings belong to the
+        # POOL, not to that thread's element
+        xctx = None
+        pushed = _xfer.ACTIVE
+        if pushed:
+            traces = tuple(
+                tr for tr in (buf.meta.get(TRACE_META_KEY)
+                              for _o, buf, _dl, _enq in items)
+                if tr is not None) or None
+            xctx = _xfer.push_context("", self.label(), traces)
+        try:
+            lc = self._lifecycle
+            if lc is None:
+                self._dispatch_group(items, self.subplugin, None)
+                return
+            for ver, sp, part in lc.partition(items):
+                self._dispatch_group(part, sp, ver)
+        finally:
+            if pushed:
+                _xfer.pop_context(xctx)
 
     def _dispatch_group(self, items: List[Tuple[Any, Any, float, float]],
                         sp: Any, version: Any) -> None:
@@ -451,18 +516,28 @@ class PoolEntry:
             owners.setdefault(id(owner), [owner, 0])[1] += 1
         sample, t0 = self._sampler.begin(self.sample_interval)
         bucket = len(items)
+        tracer = _obs_hooks.tracer
         try:
+            ch = _chaos.plan
+            if ch is not None:
+                # model-path fault seam: slow-invoke sleeps here (the
+                # whole window pays, like a device stall); fail-invoke
+                # raises into this guard, so every owner's bus gets it
+                self._chaos_invoke(ch)
             # frame prep inside the guard: items already left the
             # pending queue, so ANY failure from here on loses the
             # window and must surface on every owner's bus
             frames = [owner._pool_frame_inputs(buf)
                       for owner, buf, _dl, _enq in items]
             t1 = time.monotonic()  # host-prep done, device phase begins
+            ev = self._window_start(tracer, items, sp)
             if getattr(sp, "SUPPORTS_BATCH", False):
                 bucket = pick_bucket(len(frames), self.buckets)
                 outs = sp.invoke_batched(frames, bucket)
             else:
                 outs = [sp.invoke(list(f)) for f in frames]
+            if ev is not None:
+                self._window_end(tracer, items, ev)
         except Exception as e:  # noqa: BLE001 - a failed shared window
             # affects EVERY stream that parked a frame in it: the error
             # must land on each owner's bus, not only on whichever
@@ -485,13 +560,29 @@ class PoolEntry:
                                    bucket=bucket)
         for owner, n in owners.values():
             owner.invoke_stats.count(frames=n)
+        if sample and tracer is not None:
+            # marks BEFORE the demux (a sink reached inline closes the
+            # record); each buffer's demux mark closes its drain span
+            tracer.invoke_split(
+                [(getattr(owner, "name", str(owner)), buf)
+                 for owner, buf, _dl, _enq in items], t0, t1, t2)
         adm = self.admission
         done = time.monotonic()
+        tstats = _tenantstat.ACTIVE
+        label = self.label()
+        tenants = self._tenants
         for (owner, buf, _dl, enq), out in zip(items, outs):
             if adm is not None:
                 # the admission controller's latency signal: window
                 # park → results demuxed
-                adm.observe(done - enq)
+                lat = done - enq
+                adm.observe(lat)
+                if tstats:
+                    # per-tenant SLO attainment, graded on the SAME
+                    # per-frame latency the shed decision reads
+                    _tenantstat.record_latency(
+                        label, tenants.get(id(owner), "default"), lat,
+                        adm.slo_s)
             try:
                 # the owner's flush context: push through ITS pads, so
                 # a broken downstream errors on ITS bus only
@@ -501,9 +592,62 @@ class PoolEntry:
                 owner.post_error(e)
         if sample:
             # cost attribution: host-prep (t0→t1) / device (t1→t2) /
-            # host-drain (t2→now: per-owner demux)
-            self.stats.record_phases(t1 - t0, t2 - t1,
-                                     time.monotonic() - t2)
+            # host-drain (t2→t3: per-owner demux) into the pool stats and
+            # the registry's nns_invoke_* histograms
+            from ..obs.metrics import observe_invoke_phases
+
+            t3 = time.monotonic()
+            self.stats.record_phases(t1 - t0, t2 - t1, t3 - t2)
+            observe_invoke_phases("pool", label, bucket, t1 - t0, t2 - t1,
+                                  t3 - t2)
+        if tstats:
+            # tenant attribution: this window's device phase split by
+            # useful-frame occupancy, from the SAME t1/t2 clock reads the
+            # histogram observed; an unsampled dispatch counts frames only
+            tenant_frames: Dict[str, int] = {}
+            for owner, n in owners.values():
+                t = tenants.get(id(owner), "default")
+                tenant_frames[t] = tenant_frames.get(t, 0) + n
+            _tenantstat.record_window(
+                label, tenant_frames,
+                round((t2 - t1) * 1e9) if sample else None)
+
+    def _chaos_invoke(self, plan: Any) -> None:
+        """Apply the plan's invoke fault for this pool; a slow-invoke's
+        sleep is added to :attr:`chaos_sleep_s`."""
+        from ..chaos.plan import apply_invoke_fault
+
+        fault = apply_invoke_fault(plan, f"pool:{self.key[0]}:{self.key[1]}")
+        if fault is not None:
+            self.chaos_sleep_s += fault[1]
+
+    @staticmethod
+    def _window_start(tracer: Any, items: List[Any], sp: Any):
+        """With a tracer attached and a traced frame in a window on the
+        card: a CUDA event recorded ahead of the window's device work."""
+        if tracer is None or not any(
+                TRACE_META_KEY in buf.meta for _o, buf, _dl, _enq in items):
+            return None
+        dev = getattr(sp, "device", None)
+        if dev is None or getattr(dev, "type", "") != "cuda":
+            return None
+        import torch
+
+        with torch.cuda.device(dev):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        return ev, dev
+
+    @staticmethod
+    def _window_end(tracer: Any, items: List[Any], start) -> None:
+        import torch
+
+        ev, dev = start
+        with torch.cuda.device(dev):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        tracer.device_window([buf for _o, buf, _dl, _enq in items], ev,
+                             end)
 
     def _error_all(self, err: BaseException) -> None:
         with self._lock:

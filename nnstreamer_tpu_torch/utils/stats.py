@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ``utils/stats.py`` ``InvokeStats`` (parity
 target: the reference's tensor_filter.c:366-468 — a rolling window of
 recent invoke latencies, overflow-safe accumulators, throughput as
-1000×FPS).  LATENCY reporting on the bus, the process-wide compile and
-dispatch counters and the metrics registry of the JAX package are not
-part of the port.
+1000×FPS, and the thresholded LATENCY bus report).  The metrics registry
+pulls :meth:`InvokeStats.snapshot` at scrape time (``obs/metrics.py``).
+The JAX package's process-wide XLA compile counters have no counterpart:
+the port compiles no programs.
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ import threading
 import time
 from typing import Any, List, Optional, Tuple
 
+from ..obs import hooks as _hooks
 from .device import block_all
 
 STAT_MAX_RECENT = 10
+LATENCY_REPORT_HEADROOM = 1.05   # 5% headroom on reported latency
+LATENCY_REPORT_THRESHOLD = 0.25  # re-report when moving beyond ±25%
 #: at most one blocking stats sample per this many seconds, by default
 #: (``tensor_filter stat-sample-interval-ms`` overrides it)
 STAT_SAMPLE_INTERVAL = 1.0
@@ -62,6 +66,7 @@ class InvokeStats:
         self.total_host_prep_s = 0.0
         self.total_device_s = 0.0
         self.total_host_drain_s = 0.0
+        self._last_reported_us: Optional[float] = None
 
     def _tick(self, frames: int, streams: int) -> None:
         """Bump invoke count + first/last timestamps (callers hold _lock)."""
@@ -218,6 +223,23 @@ class InvokeStats:
             }
 
 
+    def latency_to_report(self) -> Optional[int]:
+        """µs to report on the bus if it moved past the threshold, else
+        None (parity: track_latency, tensor_filter.c:480-506).  The
+        window mean and the last-reported compare-and-swap run under one
+        lock acquisition."""
+        with self._lock:
+            cur = self._latency_us_locked()
+            if cur < 0:
+                return None
+            last = self._last_reported_us
+            if last is None or \
+                    abs(cur - last) > last * LATENCY_REPORT_THRESHOLD:
+                self._last_reported_us = cur
+                return int(cur * LATENCY_REPORT_HEADROOM)
+        return None
+
+
 class DispatchSampler:
     """The time-based gate on blocking stats samples, shared by the
     filter element and the serving pool.  PyTorch launches work
@@ -225,7 +247,11 @@ class DispatchSampler:
     for it: at most one dispatch per ``interval_s`` (and the first) is a
     sample, which first drains the backlog of earlier dispatches — so
     its time covers ONE dispatch — and then waits for its own outputs.
-    The others are only counted.  Callers serialize their dispatches."""
+    The others are only counted.  Callers serialize their dispatches.
+
+    Under the obs kill switch (``NNS_TPU_TORCH_OBS_DISABLE``) no dispatch
+    is a sample — the dispatch path never waits for the card — and no
+    output is kept alive for a next sample."""
 
     def __init__(self, stats: InvokeStats):
         self.stats = stats
@@ -233,10 +259,14 @@ class DispatchSampler:
         self._last_ts = 0.0
         self._last_out: Any = None  # the previous dispatch's last output
 
-    def begin(self, interval_s: float) -> Tuple[bool, float]:
-        """Whether this dispatch is a sample, and its start time."""
+    def begin(self, interval_s: float,
+              force: bool = False) -> Tuple[bool, float]:
+        """Whether this dispatch is a sample, and its start time.
+        ``force`` makes every dispatch a sample (``latency=1``)."""
+        if _hooks.DISABLED:
+            return False, time.monotonic()
         self._seq += 1
-        sample = (self._seq == 1 or
+        sample = (force or self._seq == 1 or
                   time.monotonic() - self._last_ts >= interval_s)
         if sample and self._last_out is not None:
             block_all([self._last_out])
@@ -254,5 +284,6 @@ class DispatchSampler:
         else:
             t2 = time.monotonic()
             self.stats.count(frames=frames, streams=streams)
-        self._last_out = outs[-1] if outs else None
+        self._last_out = (outs[-1] if outs else None) \
+            if not _hooks.DISABLED else None
         return t2

@@ -25,6 +25,13 @@ aggregator window stay on the card (no device→host copy, each window the
 verdict, the ``pytorch`` filter runs on ``cuda`` (against the CPU within
 atol 1e-5 + rtol 1e-4), and the sparse encoder copies only the indices
 and values of a device tensor.
+The observability layer on the card: the device-memory table against
+``torch.cuda.memory_stats``/``mem_get_info`` read at the same scrape, the
+transfer ledger's host↔device counts and bytes against torch.profiler's
+copy rows over the same run, the FLOP count of a small model with both
+kernels against its hand count, the tracer's records closed at the sink's
+fence (each at least its window's device time, residencies summing to it),
+and the kill switch leaving the pool's dispatches unsampled.
 """
 
 import os
@@ -545,7 +552,7 @@ def test_canary_on_card_routes_one_in_n_streams(card, tmp_path):
 
 
 def test_kernel_cache_round_trip_with_nvcc(card, tmp_path, monkeypatch):
-    """``NNS_TPU_COMPILE_CACHE_DIR`` with the real compiler: a cold
+    """``NNS_TPU_TORCH_COMPILE_CACHE_DIR`` with the real compiler: a cold
     process builds and stores, a warm one hits and runs no nvcc, a
     truncated entry is an error and is rebuilt; the library works."""
     from nnstreamer_tpu_torch.ops import build
@@ -834,3 +841,183 @@ def test_sparse_encoder_copies_only_indices_and_values(card, monkeypatch,
     monkeypatch.undo()
     assert got == want
     assert sparse_to_dense(got).tobytes() == Tensor(x).tobytes()
+
+
+# -- the observability layer on the card -------------------------------------
+
+
+def test_device_memory_table_equals_memory_stats(card):
+    from nnstreamer_tpu_torch.obs import devicemem
+
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+    torch.cuda.synchronize()
+    (row,) = [r for r in devicemem.device_memory_table()
+              if r["device"] == str(torch.device("cuda", 0))]
+    stats = torch.cuda.memory_stats(card)
+    assert row["in_use"] == stats["allocated_bytes.all.current"]
+    assert row["peak"] == stats["allocated_bytes.all.peak"]
+    assert row["reserved"] == stats["reserved_bytes.all.current"]
+    assert row["limit"] == torch.cuda.mem_get_info(card)[1]
+    assert row["in_use"] >= x.numel()
+    del x
+
+
+def _profiled_copies(fn, tmp_path):
+    """(result, {"HtoD": (count, bytes), "DtoH": (count, bytes)}) of the
+    memcpy rows torch.profiler's trace shows for ``fn()``."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    rows = {"HtoD": [0, 0], "DtoH": [0, 0]}
+    for e in json.load(open(path))["traceEvents"]:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        for kind in rows:
+            if kind in e["name"]:
+                rows[kind][0] += 1
+                rows[kind][1] += int(e["args"]["bytes"])
+    return out, {k: tuple(v) for k, v in rows.items()}
+
+
+def test_ledger_equals_profiler_copies(card, tmp_path):
+    """Host frames uploaded at the filter, one (index, score) pair drained
+    a frame by image_labeling: the ledger's counts and bytes are the
+    profiler's copy rows."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.filters import register_model
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    register_model("cuda_obs_lin", lambda x: x * 2.0 + 1.0,
+                   in_shapes=[(1, 16)], in_dtypes=np.float32)
+    frames = [np.random.default_rng(i).standard_normal((1, 16))
+              .astype(np.float32) for i in range(8)]
+
+    def run():
+        p = parse_launch("appsrc name=src ! tensor_filter "
+                         "framework=torch-cuda model=cuda_obs_lin ! "
+                         "tensor_decoder mode=image_labeling ! "
+                         "appsink name=out")
+        p["src"].spec = TensorsSpec.parse("16:1", "float32")
+        with p:
+            for i, f in enumerate(frames):
+                p["src"].push_buffer(Buffer.of(f, pts=i))
+            p["src"].end_of_stream()
+            assert p.wait_eos(timeout=60)
+        return p
+
+    run()  # the first run warms the card's libraries up
+    xfer.LEDGER.clear()
+    p, rows = _profiled_copies(run, tmp_path)
+    assert xfer.LEDGER.totals(direction="h2d") == rows["HtoD"] == (8, 8 * 64)
+    assert xfer.LEDGER.totals(direction="d2h") == rows["DtoH"] == (8, 8 * 8)
+    got = [p["out"].pull(timeout=1).meta["label_index"] for _ in range(8)]
+    assert got == [int(np.argmax(f * 2 + 1)) for f in frames]
+
+
+def test_flop_count_with_both_kernels_on_card(card):
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.obs import xlacost
+
+    B, S, D = 2, 64, 128
+    x = torch.randint(0, 256, (B, 8, 8, 3), dtype=torch.uint8, device=card)
+    w = torch.randn(4, 3, 3, 3, device=card)
+    lw = torch.randn(D, 4, device=card)
+
+    def small(x):
+        y = kernels.scale_bias_cast(x, 1 / 127.5, -127.5)
+        h = F.conv2d(y.permute(0, 3, 1, 2), w, padding=1)
+        t = F.linear(h.flatten(2).transpose(1, 2), lw).bfloat16()
+        q = t.reshape(B, 1, S, D)
+        return kernels.flash_attention(q, q, q)
+
+    before = kernels.flash_attention.launches
+    with torch.inference_mode():
+        _, flops = xlacost.count(small, x)
+    assert kernels.flash_attention.launches == before + 1
+    assert flops == (2 * B * 8 * 8 * 3 + 2 * B * 4 * 8 * 8 * 3 * 9
+                     + 2 * B * S * 4 * D + 4 * B * S * S * D)
+
+
+def test_tracer_closes_records_at_the_sink_fence(card):
+    """A pooled window on the card under a tracer: every record ends with
+    the sink's device-done mark, its residencies sum to its end-to-end
+    latency, and that latency is at least its window's device time."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.filters import register_model
+    from nnstreamer_tpu_torch.obs import LatencyTracer
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    w = torch.randn(512, 512)
+    register_model("cuda_obs_mm", lambda p, x: (x @ p["w"]) @ p["w"],
+                   params={"w": w}, in_shapes=[(1, 512)],
+                   in_dtypes=np.float32)
+    pipes = [parse_launch(
+        "appsrc name=src ! queue ! tensor_filter name=net "
+        "framework=torch-cuda model=cuda_obs_mm share-model=true batch=8 "
+        "batch-timeout-ms=2 batch-buckets=8 ! appsink name=out")
+        for _ in range(2)]
+    with LatencyTracer(sample_every=1) as tr:
+        for p in pipes:
+            p["src"].spec = TensorsSpec.parse("512:1", "float32")
+            p.start()
+        try:
+            for i in range(16):
+                for p in pipes:
+                    p["src"].push_buffer(Buffer.of(
+                        torch.randn(1, 512, device=card), pts=i))
+            for p in pipes:
+                p["src"].end_of_stream()
+            for p in pipes:
+                assert p.wait_eos(timeout=60)
+        finally:
+            for p in pipes:
+                p.stop()
+    recs = tr.records()
+    assert len(recs) == 32
+    for r in recs:
+        assert r["marks"][-1][2] == "device-done"
+        assert sum(r["residency_s"].values()) == pytest.approx(r["e2e_s"],
+                                                               abs=1e-9)
+        assert r["e2e_s"] >= r["device_window_s"] > 0
+
+
+def test_kill_switch_keeps_pool_dispatch_async(card):
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys, numpy as np, torch\n"
+        f"sys.path.insert(0, {repo!r})\n"
+        "from nnstreamer_tpu_torch.core import Buffer, TensorsSpec\n"
+        "from nnstreamer_tpu_torch.filters import register_model\n"
+        "from nnstreamer_tpu_torch.runtime import parse_launch\n"
+        "register_model('ks', lambda x: x + 1, in_shapes=[(1, 4)],"
+        " in_dtypes=np.float32)\n"
+        "p = parse_launch('appsrc name=src ! tensor_filter name=net "
+        "framework=torch-cuda model=ks share-model=true batch=4 "
+        "batch-buckets=4 latency=1 ! appsink name=out')\n"
+        "p['src'].spec = TensorsSpec.parse('4:1', 'float32')\n"
+        "with p:\n"
+        "    for i in range(8):\n"
+        "        p['src'].push_buffer(Buffer.of(torch.zeros(1, 4,"
+        " device='cuda'), pts=i))\n"
+        "    p['src'].end_of_stream()\n"
+        "    assert p.wait_eos(timeout=60)\n"
+        "    pool = p['net'].pool\n"
+        "    print(pool.stats.phase_samples,"
+        " pool._sampler._last_out is None)\n")
+    env = dict(os.environ, NNS_TPU_TORCH_OBS_DISABLE="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0", "True"]

@@ -60,7 +60,12 @@ def test_port_imports_with_jax_blocked():
                 "elements.combiners", "elements.condition",
                 "elements.aggregator", "elements.rate", "elements.sparse",
                 "elements.repo", "elements.datarepo", "elements.sensorsrc",
-                "filters.custom", "filters.pytorch", "utils.conf"):
+                "filters.custom", "filters.pytorch", "utils.conf",
+                "utils.log", "obs", "obs.hooks", "obs.tracer",
+                "obs.tracectx", "obs.hwspec", "obs.transfer",
+                "obs.devicemem", "obs.xlacost", "obs.stagestat",
+                "obs.tenantstat", "obs.metrics", "obs.flightrec",
+                "chaos", "chaos.plan", "chaos.hooks"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 
@@ -136,3 +141,57 @@ def test_filter_accelerator_grammar(monkeypatch):
     p["src"].spec = TensorsSpec.parse("4", "float32")
     with pytest.raises(Exception, match="cuda"):
         p.start()
+
+
+def test_obs_and_chaos_read_only_the_ports_keys():
+    """The obs and chaos modules read environment keys of the port's
+    prefix only, and the JAX package's keys leave the port as it is: no
+    kill switch, no chaos plan, no flight recorder armed, no metrics
+    endpoint, no price, text logs."""
+    import re
+
+    keys = set()
+    for sub in ("obs", "chaos"):
+        for root, _, files in os.walk(os.path.join(PKG, sub)):
+            for f in files:
+                if f.endswith(".py"):
+                    keys |= set(re.findall(r"NNS_TPU_[A-Z_]+",
+                                           open(os.path.join(root, f)).read()))
+    assert keys and all(k.startswith("NNS_TPU_TORCH_") for k in keys), keys
+    code = (
+        "import sys, json, logging\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from nnstreamer_tpu_torch import chaos\n"
+        "from nnstreamer_tpu_torch.obs import hooks, transfer, hwspec\n"
+        "from nnstreamer_tpu_torch.obs.flightrec import FLIGHT\n"
+        "from nnstreamer_tpu_torch.obs.metrics import REGISTRY\n"
+        "from nnstreamer_tpu_torch.utils import log\n"
+        "from nnstreamer_tpu_torch.runtime import parse_launch\n"
+        "p = parse_launch('appsrc caps=other/tensors,format=static,"
+        "num_tensors=1,dimensions=4,types=float32,framerate=0/1 ! "
+        "appsink', device='cpu')\n"
+        "p.start(); p.stop()\n"
+        "h = [x for x in logging.getLogger('nnstreamer_tpu_torch').handlers"
+        " if getattr(x, log._HANDLER_TAG, False)][0]\n"
+        "print(json.dumps([hooks.DISABLED, transfer.ACTIVE,"
+        " chaos.active_plan() is None, FLIGHT.armed,"
+        " REGISTRY._server is None, hwspec.chip_hour_price(),"
+        " type(h.formatter).__name__,"
+        " logging.getLogger('nnstreamer_tpu_torch').level]))\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("NNS_TPU_")}
+    jax_keys = {"NNS_TPU_OBS_DISABLE": "1",
+                "NNS_TPU_CHAOS": "seed=1;drop:p=0.5",
+                "NNS_TPU_FLIGHTREC_DIR": os.path.join(REPO, "build", "fr"),
+                "NNS_TPU_METRICS_PORT": "0",
+                "NNS_TPU_CHIP_HOUR_USD": "2.0",
+                "NNS_TPU_LOG_JSON": "1", "NNS_TPU_LOG_LEVEL": "DEBUG"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO,
+                         env={**env, **jax_keys})
+    assert out.returncode == 0, out.stderr
+    import json
+
+    assert json.loads(out.stdout) == [False, True, True, False, True, 0.0,
+                                      "Formatter", 30]
