@@ -7,6 +7,7 @@
     python3 chip_smoke.py --decoders                  # build + phase 12 only
     python3 chip_smoke.py --elements                  # build + phase 13 only
     python3 chip_smoke.py --obs                       # build + phase 14 only
+    python3 chip_smoke.py --control                   # build + phase 15 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -14,8 +15,10 @@ model lifecycle of that pool (hot swap, canary, the kernel cache),
 MobileNet classification, YOLO detection, the decoders with the
 detect → tensor_region → tensor_crop cascade, and the stream elements
 (aggregated camera frames into a TorchScript classifier, a gated camera,
-two cameras in one window), and the observability layer on the serving
-and detection paths — through ``parse_launch`` at full width.
+two cameras in one window), the observability layer on the serving
+and detection paths, and the active layer (host profiler, watchdog,
+controller, lock witness, ``nns-top``) on the serving path — through
+``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
@@ -212,7 +215,39 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    every=2,count=1`` on the filter puts a ``ChaosInvokeError`` on the bus
    and the flight recorder writes a trace and a snapshot that load, the
    snapshot counting one injected failure;
-15. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+15. the active layer on phase 8's shared topology at the ViT's width
+   (8 closed-loop streams, ``share-model=true batch=64
+   batch-timeout-ms=2 batch-buckets=8,16,32,64``, each pipeline named so
+   the profiler's accounts stay apart).  (a) The host profiler: the
+   element threads under their ``nns:<pipeline>:<element>`` names in the
+   thread registry; a leg with the sampler at 47 Hz: the accounts' CPU
+   at most the process's CPU delta (+2%), every card wait on the wait
+   side (the sink's fence, the label's drain, the sampled dispatch's
+   synchronize all go through ``card_wait``), the pool's dispatch cycle
+   split into CPU, card wait and neither; three interleaved off/on pairs
+   for the sampler's overhead, printed beside the JAX package's 3% bound
+   as a reading; an alert (a threshold rule on the pool's frames) starts
+   a deep capture whose ``torch.profiler`` trace must hold both kernels'
+   device rows, while eight open-loop cameras at ``CAMERA_FPS`` keep
+   pushing (every frame back, in order; the gate's holds printed).
+   (b) The JAX package's three pool scripts of bench_mttr on the ViT
+   (their rules, playbooks, chaos plans and 50 ms watch and control
+   intervals; 2 or 3 streams, windows of 8, 8 and 16): each
+   rig's capacity measured in a closed loop, then open-loop pumps at 0.6
+   of it; gates: detected, actuated and recovered (held 0.5 s), no alert
+   before the fault, the audit ring equal to ``nns_control_actions_total``,
+   every stream's pts in order, none lost but the frames admission shed.
+   (c) The default rule pack over the shared leg with no fault, as long
+   as the longest script's watched span (at most 12 s): the alerts that
+   fired (false positives) and the forecasts table; the ``forecasts``
+   and alert sections present while the watch runs, and empty in a child
+   under ``NNS_TPU_TORCH_OBS_DISABLE=1`` (``--control-disabled-child``).
+   (d) The shared leg in a child under ``NNS_TPU_TORCH_LOCKDEP=1``
+   (``--control-lockdep-child``): no lock-order cycle, no lock held
+   across a dispatch but the marked flush lock.  (e) ``nns-top --once
+   --json`` against ``serve_metrics`` while slo-burn fires: a row for
+   every element and the pool, and slo-burn firing in ALERTS;
+16. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -223,7 +258,8 @@ card.  ``--serving-legs DIR`` runs nothing but phase 8's shared and
 unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
-line); ``--elements`` and ``--obs`` do the same for phases 13 and 14.
+line); ``--elements``, ``--obs`` and ``--control`` do the same for
+phases 13, 14 and 15.
 """
 
 from __future__ import annotations
@@ -1469,16 +1505,16 @@ def window_by_bucket(pools, alone):
     return diffs
 
 
-def serve_pools():
-    """Each stream's SERVE_POOL distinct uint8 frames, staged on the card,
-    and the generator that drew them (seeded: phases 8 and 14 draw the
-    same frames)."""
+def serve_pools(n: int = SERVE_STREAMS, device: str = "cuda"):
+    """Each of ``n`` streams' SERVE_POOL distinct uint8 frames, staged on
+    ``device``, and the generator that drew them (seeded: phases 8, 14
+    and 15 draw the same frames)."""
     import torch
 
     g = torch.Generator().manual_seed(SEED + 4)
     pools = [[torch.randint(0, 256, (1, VIT_SIZE, VIT_SIZE, 3), generator=g,
-                            dtype=torch.uint8).cuda()
-              for _ in range(SERVE_POOL)] for _ in range(SERVE_STREAMS)]
+                            dtype=torch.uint8).to(device)
+              for _ in range(SERVE_POOL)] for _ in range(n)]
     return pools, g
 
 
@@ -4310,6 +4346,949 @@ def phase_obs(card: str, power: str, phase8=None):
     return out
 
 
+# -- phase 15: the active layer (profiler, watchdog, controller, lockdep) ----
+
+#: phase 15's device; its logic also runs on "cpu" at a small width (with
+#: VIT/VIT_SIZE shrunk), as a dry run before a call to the card
+CTL_DEVICE = "cuda"
+CTL_PROF_HZ = 47.0          # the JAX package's sampler rate
+CTL_FRAMES = 96             # frames per stream, the profiled leg
+CTL_AB_PAIRS = 3            # interleaved sampler off/on pairs
+CTL_AB_FRAMES = 48          # frames per stream, each A/B leg
+CTL_AB_BOUND = 0.03         # the JAX package's overhead bound (a reading)
+CTL_DEEP_S = 0.3            # the deep capture's episode
+CTL_INTERVAL_S = 0.05       # watch and control intervals (bench_mttr's)
+CTL_LOAD_SHARE = 0.6        # offered rate / the window's capacity
+CTL_CHAOS_SEED = 20260803   # the JAX bench's CHAOS_SEED
+CTL_DETECT_S = 20.0         # bench_mttr's detect and recover deadlines
+CTL_RECOVER_S = 30.0
+CTL_HOLD_S = 0.5            # recovery must hold this long
+CTL_CLEAN_MAX_S = 12.0      # the clean leg: the scripts' span, capped
+
+
+def _ctl_sync() -> None:
+    import torch
+
+    if CTL_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ctl_card_gate(ok: bool, failure: str, what: str) -> None:
+    """A gate that only the card can pass (card waits, device rows,
+    kernel launches): raise ``failure`` on the card; on the CPU dry run
+    say that the gate was skipped."""
+    if CTL_DEVICE != "cuda":
+        print(f"control dry run on {CTL_DEVICE}: skipped the card-only "
+              f"gate: {what}", flush=True)
+    elif not ok:
+        raise RuntimeError(failure)
+
+
+def ctl_open_loop(pipes, pools, first_pts: int, stop, fps: float):
+    """Each pipeline gets a camera that pushes a frame of its pool every
+    ``1/fps`` s, never waiting for results, and a reader that pulls
+    them, until ``stop`` is set; then every result is pulled.  Raises
+    unless each stream's results come back complete and in pts order.
+    Returns the frames sent per stream."""
+    import threading
+
+    from nnstreamer_tpu_torch.core import Buffer, Tensor
+
+    sent = [0] * len(pipes)
+    got = [[] for _ in pipes]
+    errors = []
+
+    def camera(s):
+        src, pool = pipes[s]["src"], pools[s]
+        nxt = time.monotonic()
+        while not stop.is_set():
+            pts = first_pts + sent[s]
+            src.push_buffer(Buffer(tensors=[Tensor(pool[pts % len(pool)])],
+                                   pts=pts))
+            sent[s] += 1
+            nxt += 1.0 / fps
+            time.sleep(max(0.0, nxt - time.monotonic()))
+
+    cams = [threading.Thread(target=camera, args=(s,), name=f"camera{s}")
+            for s in range(len(pipes))]
+
+    def reader(s):
+        sink, deadline = pipes[s]["out"], None
+        while True:
+            if stop.is_set() and not cams[s].is_alive():
+                if len(got[s]) >= sent[s]:
+                    return
+                deadline = deadline or time.monotonic() + 120
+                if time.monotonic() > deadline:
+                    errors.append(f"stream {s}: {len(got[s])} of "
+                                  f"{sent[s]} results")
+                    return
+            b = sink.pull(timeout=0.05)
+            if b is not None:
+                got[s].append(b.pts)
+
+    readers = [threading.Thread(target=reader, args=(s,), name=f"reader{s}")
+               for s in range(len(pipes))]
+    for t in cams + readers:
+        t.start()
+    for t in cams + readers:
+        t.join(timeout=600)
+    for s in range(len(pipes)):
+        if got[s] != list(range(first_pts, first_pts + sent[s])):
+            errors.append(f"stream {s}: results out of order or lost")
+    if errors or any(t.is_alive() for t in cams + readers):
+        raise RuntimeError(f"open loop failed: {errors or 'a thread hung'}")
+    return sent
+
+
+def ctl_pipes(tag: str, n: int, batch: int = 64,
+              buckets: str = ",".join(map(str, SERVE_BUCKETS)),
+              extra: str = "", priorities=None):
+    """``n`` pipelines of phase 8's shared topology, each with its own
+    name (the host profiler keys its accounts by pipeline and element)."""
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.runtime import Pipeline, parse_launch
+
+    pipes = []
+    for s in range(n):
+        prio = f" priority={priorities[s]}" if priorities else ""
+        p = parse_launch(SERVE_PIPE.format(
+            norm=NORM, model="vit_serve", share="true", batch=batch,
+            buckets=buckets, dec=LABEL_DEC, sample=extra + prio),
+            pipeline=Pipeline(name=f"{tag}{s}", device=CTL_DEVICE))
+        p["src"].spec = TensorsSpec.parse(
+            f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
+        pipes.append(p)
+    return pipes
+
+
+def _acct_delta(rows0, names):
+    from nnstreamer_tpu_torch.obs import prof
+
+    out = []
+    for r in prof.account_rows():
+        if r["pipeline"] not in names:
+            continue
+        b = rows0.get((r["pipeline"], r["element"]))
+        if b is not None:
+            r = dict(r, **{k: r[k] - b[k] for k in (
+                "cpu_s", "run_s", "wait_s", "card_wait_s", "iters")})
+        out.append(r)
+    return out
+
+
+def _dispatch_delta(d0, label):
+    from nnstreamer_tpu_torch.obs import prof
+
+    (r,) = [r for r in prof.dispatch_rows() if r["pool"] == label]
+    b = d0.get(label)
+    if b is None:
+        return r
+    n = r["dispatches"] - b["dispatches"]
+    d = {k: r[k] - b[k] for k in ("wall_s", "cpu_s", "card_wait_s",
+                                  "card_wait_cpu_s")}
+    d["dispatches"] = n
+    for k in ("wall", "cpu", "card_wait"):
+        d[f"{k}_ms"] = d[f"{k}_s"] / max(n, 1) * 1e3
+    d["other_ms"] = d["wall_ms"] - d["cpu_ms"] - d["card_wait_ms"]
+    return d
+
+
+def ctl_hostprof(card: str, power: str):
+    """15a: the host profiler on the shared leg (see the module doc)."""
+    import tempfile
+    import threading
+
+    from nnstreamer_tpu_torch.obs import prof
+    from nnstreamer_tpu_torch.obs.watch import AlertRule, Watch
+
+    pools = serve_pools(SERVE_STREAMS, CTL_DEVICE)[0]
+    pipes = ctl_pipes("ctl", SERVE_STREAMS)
+    names = {p.name for p in pipes}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    deep_dir = tempfile.mkdtemp(prefix="deepprof-",
+                                dir=os.path.join(HERE, "build"))
+    try:
+        for p in pipes:
+            p.start()
+        label = pipes[0]["net"].pool.label()
+        closed_loop(pipes, pools, 0, SERVE_WARMUP, SERVE_DEPTH)
+        _ctl_sync()
+        # every element loop runs under its nns: name, in the registry
+        missing = []
+        for p in pipes:
+            for el in p.elements.values():
+                t = getattr(el, "_thread", None)
+                if t is None:
+                    continue
+                info = prof.THREADS.lookup(t.ident) or {}
+                if t.name != f"nns:{p.name}:{el.name}" or \
+                        (info.get("pipeline"), info.get("element")) != \
+                        (p.name, el.name):
+                    missing.append((t.name, info))
+        if missing or len(prof.THREADS) < 2 * SERVE_STREAMS:
+            raise RuntimeError(f"control (a): element threads outside the "
+                               f"registry: {missing}")
+        first = SERVE_WARMUP
+
+        def leg(n, hz):
+            nonlocal first
+            rows0 = {(r["pipeline"], r["element"]): r
+                     for r in prof.account_rows()}
+            d0 = {r["pool"]: r for r in prof.dispatch_rows()}
+            prof.PROFILER.clear()
+            started = hz > 0 and prof.PROFILER.configure(hz).start()
+            cpu0 = time.process_time()
+            outs, _lats, wall = closed_loop(pipes, pools, first, n,
+                                            SERVE_DEPTH)
+            _ctl_sync()
+            cpu = time.process_time() - cpu0
+            if started:
+                prof.PROFILER.stop()
+            for s, bufs in enumerate(outs):
+                if [b.pts for b in bufs] != list(range(first, first + n)):
+                    raise RuntimeError(f"control (a): stream {s}: pts out "
+                                       "of order or lost")
+            first += n
+            return {"rows": _acct_delta(rows0, names),
+                    "dispatch": _dispatch_delta(d0, label),
+                    "process_cpu_s": cpu, "wall_s": wall,
+                    "fps": SERVE_STREAMS * n / wall,
+                    "samples": prof.PROFILER.element_samples(),
+                    "summary": prof.PROFILER.summary(),
+                    "self_cpu_s": prof.PROFILER.self_cpu_s}
+
+        on = leg(CTL_FRAMES, CTL_PROF_HZ)
+        rows = on["rows"]
+        total_cpu = sum(r["cpu_s"] for r in rows)
+        exact = total_cpu <= on["process_cpu_s"] * 1.02 + 0.005
+        if not exact:
+            raise RuntimeError(f"control (a): accounts' CPU {total_cpu} s "
+                               f"above the process's {on['process_cpu_s']}")
+        card_wait = sum(r["card_wait_s"] for r in rows)
+        _ctl_card_gate(
+            card_wait > 0 and on["dispatch"]["card_wait_s"] > 0
+            and all(r["wait_s"] >= r["card_wait_s"] - 1e-9 for r in rows),
+            f"control (a): card waits not on the wait side: {rows} "
+            f"{on['dispatch']}", "card waits on the wait side")
+        if on["summary"]["samples"] <= 0 or on["summary"]["errors"]:
+            raise RuntimeError(f"control (a): sampler {on['summary']}")
+        # interleaved A/B of the same leg: off/on, on/off
+        ratios, self_fracs, ab = [], [], []
+        for pair in range(CTL_AB_PAIRS):
+            arms = ("off", "on") if pair % 2 == 0 else ("on", "off")
+            got = {}
+            for arm in arms:
+                r = leg(CTL_AB_FRAMES, CTL_PROF_HZ if arm == "on" else 0.0)
+                got[arm] = r
+                ab.append((arm, r["fps"], r["process_cpu_s"]))
+            ratios.append(got["on"]["process_cpu_s"]
+                          / got["off"]["process_cpu_s"] - 1.0)
+            self_fracs.append(got["on"]["self_cpu_s"]
+                              / got["on"]["process_cpu_s"])
+        overhead = statistics.median(ratios)
+        # one alert-triggered deep capture with its device session
+        prof.DEEP.clear()
+        prof.DEEP.arm(deep_dir, seconds=CTL_DEEP_S, hz=200.0,
+                      min_interval_s=3600.0, device=True)
+        w = Watch(rules=[AlertRule(
+            name="serving-live", kind="threshold",
+            metric="nns_pool_frames_total", op=">", value=0.0,
+            for_s=0.0, severity="info")], interval_s=CTL_INTERVAL_S)
+        # open-loop cameras through the capture: frames keep arriving
+        # while the session starts and stops (the gate holds them back;
+        # none may be lost or reordered)
+        stop = threading.Event()
+        fed = {}
+
+        def feed():
+            try:
+                fed["sent"] = ctl_open_loop(pipes, pools, first, stop,
+                                            CAMERA_FPS)
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                fed["error"] = e
+
+        th = threading.Thread(target=feed, name="ctl-feed")
+        w.start()
+        th.start()
+        try:
+            deadline = time.monotonic() + 60
+            while not prof.DEEP.captures and time.monotonic() < deadline:
+                time.sleep(0.05)
+        finally:
+            stop.set()
+            th.join(timeout=300)
+            w.stop()
+            prof.DEEP.disarm()
+        if "error" in fed or th.is_alive():
+            raise RuntimeError(f"control (a): open-loop feed through the "
+                               f"capture: {fed.get('error', 'hung')}")
+        first += max(fed["sent"])
+        if not prof.DEEP.captures:
+            raise RuntimeError("control (a): the alert started no deep "
+                               "capture")
+        if prof.DEEP.device_failures or not prof.DEEP.device_traces:
+            raise RuntimeError(f"control (a): deep capture's device trace "
+                               f"failed: {prof.DEEP.last_device_error}")
+        with open(prof.DEEP.device_traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        knames = [e.get("name", "") for e in events
+                  if e.get("cat") == "kernel"]
+        deep_rows = {k: sum(k in n for n in knames)
+                     for k in ("scale_bias_cast", "flash_attention")}
+        _ctl_card_gate(all(deep_rows.values()),
+                       f"control (a): the deep trace lacks a kernel's "
+                       f"device rows: {deep_rows}",
+                       "the deep trace's kernel rows")
+        for p in pipes:
+            p["src"].end_of_stream()
+        for p in pipes:
+            if not p.wait_eos(timeout=120):
+                raise RuntimeError("control (a): no EOS")
+    finally:
+        for p in pipes:
+            p.stop()
+    samples = on["samples"]
+    elements = {}
+    for r in rows:
+        key = f"{r['pipeline']}:{r['element']}"
+        elements[key] = {k: r[k] for k in ("cpu_s", "run_s", "wait_s",
+                                           "card_wait_s", "iters")}
+        elements[key]["samples"] = samples.get(
+            (r["pipeline"], r["element"]), 0)
+    disp = on["dispatch"]
+    res = {"fps": on["fps"], "process_cpu_s": on["process_cpu_s"],
+           "element_cpu_s": total_cpu, "attribution_exact": exact,
+           "elements": elements, "dispatch": disp,
+           "sampler": on["summary"], "ab": ab,
+           "ab_overhead_frac": overhead, "ab_bound": CTL_AB_BOUND,
+           "sampler_self_cpu_frac": max(self_fracs),
+           "deep_capture": {"trace": os.path.relpath(
+               prof.DEEP.device_traces[0], HERE), "kernel_rows": deep_rows,
+               "kernel_events": len(knames),
+               "gate_holds_ms": [h * 1e3 for h in prof.DEEP.gate_holds_s],
+               "open_loop_fps": CAMERA_FPS,
+               "open_loop_frames": sum(fed["sent"])}}
+    print(f"control (a) host profiler at {CTL_PROF_HZ:g} Hz on the shared "
+          f"leg: {on['fps']:.1f} frames/s, process CPU "
+          f"{on['process_cpu_s']:.3f} s, the element accounts "
+          f"{total_cpu:.3f} s (exact: {exact}), card waits {card_wait:.3f} s "
+          f"on the wait side, {on['summary']['samples']} samples "
+          f"[{card}, {power}]", flush=True)
+    for q in sorted(elements):
+        e = elements[q]
+        print(f"control (a) {q}: cpu {e['cpu_s']:.4f} s run "
+              f"{e['run_s']:.4f} s wait {e['wait_s']:.4f} s (card "
+              f"{e['card_wait_s']:.4f} s) samples {e['samples']}",
+              flush=True)
+    print(f"control (a) pool dispatch cycle ({disp['dispatches']} "
+          f"dispatches): {disp['wall_ms']:.3f} ms = CPU "
+          f"{disp['cpu_ms']:.3f} + card wait {disp['card_wait_ms']:.3f} + "
+          f"neither (interpreter or lock waits) {disp['other_ms']:.3f} ms "
+          f"[{card}, {power}]", flush=True)
+    print(f"control (a) sampler overhead, {CTL_AB_PAIRS} interleaved pairs "
+          f"of {CTL_AB_FRAMES} frames a stream: median extra process CPU "
+          f"{overhead:.4f} (the JAX package's bound {CTL_AB_BOUND}, a "
+          f"reading here), sampler thread {max(self_fracs):.4f} of the "
+          f"process CPU; legs (arm, frames/s, CPU s) {ab} [{card}, "
+          f"{power}]", flush=True)
+    dc = res["deep_capture"]
+    print(f"control (a) deep capture on an alert: device trace "
+          f"{dc['trace']}, kernel rows {deep_rows}; the gate closed "
+          f"{dc['gate_holds_ms']} ms for the session's start and stop "
+          f"while {len(pipes)} open-loop cameras at {CAMERA_FPS} frames/s "
+          f"sent {dc['open_loop_frames']} frames, none lost or reordered "
+          f"[{card}, {power}]", flush=True)
+    return res
+
+
+class CtlRig:
+    """``n`` share-model pipelines of the ViT with open-loop pumps: the
+    serving fixture each bench_mttr pool script steers.  Pumps push the
+    staged frames at a fixed pace and drain their sinks, from warm-up
+    through fault and recovery; each stream's delivered pts are kept."""
+
+    def __init__(self, tag: str, n: int, batch: int, slo_ms: float = 0.0,
+                 priorities=None, burst: int = 1):
+        self.pipes = ctl_pipes(
+            tag, n, batch=batch, buckets=str(batch),
+            extra=" stat-sample-interval-ms=50"
+            + (f" slo-ms={slo_ms:g}" if slo_ms else ""),
+            priorities=priorities)
+        self.pools = serve_pools(n, CTL_DEVICE)[0]
+        self.n, self.batch, self.burst = n, batch, burst
+        self.pace_s = 0.0
+        self.pushed = [0] * n
+        self.got = [[] for _ in range(n)]
+        self._stop = None
+        self._quiet = None  # set: stop pushing, keep draining
+        self._threads = []
+
+    @property
+    def entry(self):
+        return self.pipes[0]["net"].pool
+
+    def capacity(self, n_frames: int = 32) -> float:
+        """Frames/s the window sustains: a closed loop with a window of
+        frames in flight a stream."""
+        outs, _lats, wall = closed_loop(self.pipes, self.pools, 0,
+                                        n_frames, self.batch)
+        for s, bufs in enumerate(outs):
+            self.got[s] += [b.pts for b in bufs]
+            self.pushed[s] = n_frames
+        return self.n * n_frames / wall
+
+    def start(self, rate: float):
+        import threading
+
+        self.pace_s = self.burst / (rate / self.n)
+        self._stop = threading.Event()
+        self._quiet = threading.Event()
+        for s in range(self.n):
+            t = threading.Thread(target=self._pump, args=(s,),
+                                 name=f"ctl-pump{s}", daemon=True)
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def _pump(self, s):
+        from nnstreamer_tpu_torch.core import Buffer, Tensor
+
+        p, pool = self.pipes[s], self.pools[s]
+        src, sink = p["src"], p["out"]
+        while not self._stop.is_set():
+            for _ in range(0 if self._quiet.is_set() else self.burst):
+                pts = self.pushed[s]
+                try:
+                    src.push_buffer(Buffer(
+                        tensors=[Tensor(pool[pts % len(pool)])], pts=pts),
+                        timeout=0.5)
+                except Exception:  # noqa: BLE001 - a full source under a
+                    # stalled window is backpressure: drain and retry
+                    break
+                self.pushed[s] += 1
+            while True:
+                b = sink.pull(timeout=0)
+                if b is None:
+                    break
+                self.got[s].append(b.pts)
+            time.sleep(self.pace_s)
+
+    def stop(self):
+        """The pumps stop pushing and keep draining; EOS flushes every
+        parked frame to the sinks; then the pumps stop and a last drain
+        takes what they left."""
+        if self._quiet is not None:
+            self._quiet.set()
+            time.sleep(2 * self.pace_s + 0.6)  # a push in flight lands
+        for p in self.pipes:
+            p["src"].end_of_stream()
+        for p in self.pipes:
+            p.wait_eos(timeout=120)
+        if self._stop is not None:
+            self._stop.set()
+        for t in self._threads:
+            t.join(timeout=10)
+        for s, p in enumerate(self.pipes):
+            while True:
+                b = p["out"].pull(timeout=0)
+                if b is None:
+                    break
+                self.got[s].append(b.pts)
+        for p in self.pipes:
+            p.stop()
+
+    def check_streams(self, shed: int) -> dict:
+        """Every stream's pts in order; none lost but the frames the
+        admission controller shed."""
+        lost = 0
+        for s in range(self.n):
+            got = self.got[s]
+            if any(b <= a for a, b in zip(got, got[1:])):
+                raise RuntimeError(f"control (b): stream {s} out of order")
+            lost += self.pushed[s] - len(got)
+        if lost != shed:
+            raise RuntimeError(f"control (b): {lost} frames lost, {shed} "
+                               "shed by admission")
+        return {"pushed": sum(self.pushed),
+                "delivered": sum(len(g) for g in self.got), "shed": shed}
+
+
+def _actuate_retry(act, value, attempts: int = 8, wait_s: float = 0.3):
+    from nnstreamer_tpu_torch.runtime.actuators import CooldownActive
+
+    for i in range(attempts):
+        try:
+            return act.actuate(value)
+        except CooldownActive:
+            if i == attempts - 1:
+                raise
+            time.sleep(wait_s)
+
+
+def _ctl_actions_total() -> float:
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+
+    return _metric(REGISTRY.exposition(), "nns_control_actions_total")
+
+
+def ctl_mttr_run(name, rig, expect_rule, rules, playbooks, fault_fn,
+                 recovered_fn, warmup_s: float, during_fn=None):
+    """bench_mttr's ``_mttr_run`` on the port: clean warm-up under the
+    watch → seeded fault → alert → actuation → recovery held
+    CTL_HOLD_S.  ``during_fn`` runs once while the alert fires."""
+    from nnstreamer_tpu_torch.obs.control import Controller
+    from nnstreamer_tpu_torch.obs.watch import Watch
+
+    w = Watch(rules=rules, interval_s=CTL_INTERVAL_S)
+    ctl = Controller(playbooks=playbooks, watch=w, interval_s=CTL_INTERVAL_S)
+    actions0 = _ctl_actions_total()
+    t_watch = time.monotonic()
+    w.start()
+    ctl.start()
+    row = {"script": name, "expected_rule": expect_rule, "detected": False,
+           "actuated": False, "recovered": False, "detect_s": None,
+           "actuate_s": None, "mttr_s": None, "pre_fault_alerts": 0}
+    during = None
+    try:
+        time.sleep(warmup_s)
+        row["pre_fault_alerts"] = len(w.alert_log)
+        t_fault = time.monotonic()
+        fault_fn()
+
+        def firing(rule):
+            return any(a["rule"] == rule and a["firing"] for a in w.alerts())
+
+        deadline = t_fault + CTL_DETECT_S
+        while time.monotonic() < deadline:
+            post = [ev for ev in w.alert_log if ev["ts"] >= t_fault]
+            if post:
+                row["detected"] = True
+                row["detect_s"] = post[0]["ts"] - t_fault
+                row["rules_fired"] = sorted({ev["rule"] for ev in post})
+                break
+            time.sleep(CTL_INTERVAL_S / 2)
+        if during_fn is not None and firing(expect_rule):
+            during = during_fn()
+        while time.monotonic() < deadline:
+            acted = [d for d in list(ctl.audit)
+                     if d["outcome"] in ("applied", "reverted")
+                     and d["ts"] >= t_fault]
+            if acted:
+                row["actuated"] = True
+                row["actuate_s"] = acted[0]["ts"] - t_fault
+                break
+            time.sleep(CTL_INTERVAL_S / 2)
+        deadline = t_fault + CTL_RECOVER_S
+        good_since = None
+        while time.monotonic() < deadline:
+            ok = row["detected"] and row["actuated"] \
+                and not firing(expect_rule) and recovered_fn()
+            now = time.monotonic()
+            if not ok:
+                good_since = None
+            elif good_since is None:
+                good_since = now
+            elif now - good_since >= CTL_HOLD_S:
+                row["recovered"] = True
+                row["mttr_s"] = good_since - t_fault
+                break
+            time.sleep(CTL_INTERVAL_S / 2)
+    finally:
+        ctl.stop()
+        w.stop()
+    row["watched_s"] = time.monotonic() - t_watch
+    row["actions"] = ctl.actions_total
+    row["audit"] = [{k: d.get(k) for k in ("playbook", "actuator", "target",
+                                           "applied", "prior", "outcome")}
+                    for d in ctl.audit]
+    row["exported_actions"] = _ctl_actions_total() - actions0
+    bad = [k for k in ("detected", "actuated", "recovered") if not row[k]]
+    if bad or row["pre_fault_alerts"] or expect_rule not in row.get(
+            "rules_fired", []):
+        raise RuntimeError(f"control (b) {name}: {bad or 'alerts'} {row}")
+    if not (len(ctl.audit) == ctl.actions_total == row["exported_actions"]):
+        raise RuntimeError(f"control (b) {name}: audit {len(ctl.audit)}, "
+                           f"actions {ctl.actions_total}, "
+                           f"nns_control_actions_total "
+                           f"{row['exported_actions']}")
+    return row, during
+
+
+def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
+               playbooks, fault, recovered, warmup_s, during_fn=None):
+    """One bench_mttr pool script on the ViT: the rig's capacity in this
+    call, the offered rate CTL_LOAD_SHARE of it, then the run."""
+    from nnstreamer_tpu_torch import chaos
+
+    rig = CtlRig(name, **rig_kw)
+    if chaos_spec:
+        chaos.install_plan(chaos.FaultPlan.parse(chaos_spec))
+    try:
+        for p in rig.pipes:
+            p.start()
+        adm = rig.entry.admission
+        if adm is not None:
+            # a warm-up and a closed loop find the window's capacity; the
+            # shed ramp held at its top meanwhile (a closed-loop client
+            # waits for every frame it pushed), then back to its default,
+            # and the measurement's latencies dropped from the signal
+            adm.set_ramp_start(0.99)
+        closed_loop(rig.pipes, rig.pools, 0, rig.batch, rig.batch)
+        if adm is not None:
+            adm.reset_signal()  # the first windows checked the fold
+        for s in range(rig.n):
+            rig.got[s], rig.pushed[s] = [], 0
+        cap = rig.capacity()
+        if adm is not None:
+            adm.set_ramp_start(adm.RAMP_START)
+            adm.reset_signal()
+        rate = CTL_LOAD_SHARE * cap
+        rig.start(rate)
+        row, during = ctl_mttr_run(name, rig, rules[0].name, rules,
+                                   playbooks, lambda: fault(rig),
+                                   lambda: recovered(rig), warmup_s,
+                                   during_fn=(lambda: during_fn(rig))
+                                   if during_fn else None)
+        adm = rig.entry.admission
+        shed = adm.total_shed if adm is not None else 0
+    finally:
+        rig.stop()
+        if chaos_spec:
+            chaos.uninstall_plan()
+    # rig.stop() unwound the pool before the check: its flush delivered
+    # every parked frame
+    row["frames"] = rig.check_streams(shed)
+    row["capacity_fps"] = cap
+    row["offered_fps"] = rate
+    row["jax_offered_fps"] = jax_rate
+    print(f"control (b) {name}: detect {row['detect_s']:.3f} s, actuate "
+          f"{row['actuate_s']:.3f} s, MTTR {row['mttr_s']:.3f} s; rules "
+          f"{row['rules_fired']}; {row['actions']} decisions = "
+          f"nns_control_actions_total {row['exported_actions']:g}; offered "
+          f"{rate:.1f} frames/s ({CTL_LOAD_SHARE} of the window's "
+          f"{cap:.1f} frames/s in this call; the JAX script offered "
+          f"{jax_rate:g} to its CPU model); frames {row['frames']} "
+          f"[{card}, {power}]", flush=True)
+    return row, during
+
+
+def ctl_top(rig, base: str):
+    """15e: ``nns-top --once --json`` (and the rendered table) against
+    the serving endpoint while slo-burn fires."""
+    import io
+
+    from nnstreamer_tpu_torch.obs import top
+
+    connect = base.split("//", 1)[1]
+    buf = io.StringIO()
+    if top.main(["--once", "--json", "--connect", connect], out=buf) != 0:
+        raise RuntimeError("control (e): nns-top --json failed")
+    doc = json.loads(buf.getvalue())
+    text = io.StringIO()
+    if top.main(["--once", "--interval", "0.1", "--connect", connect],
+                out=text) != 0:
+        raise RuntimeError("control (e): nns-top --once failed")
+    text = text.getvalue()
+    rows = {(pl["pipeline"], el["element"]) for pl in doc["pipelines"]
+            for el in pl["elements"]}
+    want = {(p.name, el) for p in rig.pipes for el in p.elements}
+    pools = [r["pool"] for r in doc["pools"]]
+    firing = [s["labels"].get("rule") for s in
+              doc["metrics"].get("nns_alert_state", {}).get("samples", [])
+              if s.get("value")]
+    lines = text.splitlines()
+    head = [k for k, ln in enumerate(lines) if ln.startswith("ALERT ")]
+    alerts = []
+    for ln in lines[head[0] + 1:] if head else []:
+        if not ln.strip():
+            break
+        alerts.append(ln)
+    if not want <= rows or rig.entry.label() not in pools or \
+            "slo-burn" not in firing or not any(
+                ln.startswith("slo-burn") and "FIRING" in ln
+                for ln in alerts):
+        raise RuntimeError(f"control (e): nns-top rows {sorted(rows)}, "
+                           f"pools {pools}, firing {firing}, ALERTS "
+                           f"{alerts}")
+    return {"element_rows": len(rows & want), "pools": pools,
+            "firing": firing}
+
+
+def ctl_mttr(card: str, power: str):
+    """15b and 15e: bench_mttr's three pool scripts on the ViT."""
+    from nnstreamer_tpu_torch.obs.control import Playbook
+    from nnstreamer_tpu_torch.obs.metrics import serve_metrics
+    from nnstreamer_tpu_torch.obs.watch import AlertRule
+
+    rows = {}
+    # window-stall → pool-stall → resume-coalescing
+    rows["window-stall"], _ = ctl_script(
+        "window-stall", card, power, dict(n=2, batch=8), 2 * 500.0, "",
+        [AlertRule(name="pool-stall", kind="threshold",
+                   metric="nns_pool_pending", op=">=", value=16.0,
+                   for_s=0.1, severity="critical")],
+        [Playbook(name="resume-coalescing", rule="pool-stall", kind="pool",
+                  actuator="coalescing", action="set", value=1.0,
+                  cooldown_s=0.5)],
+        lambda rig: _actuate_retry(rig.entry.actuators()["coalescing"], 0.0),
+        lambda rig: rig.entry.batcher is not None
+        and rig.entry.batcher.pending < 8 and not rig.entry.batcher.paused,
+        warmup_s=1.0)
+    # window-collapse → dispatch-amplification → revert max-batch
+    rows["window-collapse"], _ = ctl_script(
+        "window-collapse", card, power, dict(n=3, batch=8, burst=4),
+        3 * 4 / 0.008, f"seed={CTL_CHAOS_SEED};slow-invoke:ms=2,p=1,"
+        "match=pool:",
+        [AlertRule(name="dispatch-amplification", kind="threshold",
+                   metric="nns_pool_dispatches_total",
+                   per="nns_pool_frames_total", op=">=", value=0.7,
+                   for_s=0.25, severity="warning")],
+        [Playbook(name="widen-window", rule="dispatch-amplification",
+                  kind="pool", actuator="max-batch", action="revert",
+                  cooldown_s=0.5)],
+        lambda rig: _actuate_retry(rig.entry.actuators()["max-batch"], 1.0),
+        lambda rig: rig.entry.batcher is not None
+        and rig.entry.batcher.max_batch == 8
+        and rig.entry.batcher.pending < 32,
+        warmup_s=1.2)
+    # slo-burn-overload → slo-burn → widen-window + tighten-admission,
+    # with nns-top against the endpoint while the burn fires
+    srv = serve_metrics(port=0)
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        rows["slo-burn-overload"], top_res = ctl_script(
+            "slo-burn-overload", card, power,
+            dict(n=3, batch=16, slo_ms=250.0,
+                 priorities=["high", "low", "low"], burst=4),
+            3 * 4 / 0.012, f"seed={CTL_CHAOS_SEED + 1};slow-invoke:ms=8,p=1,"
+            "match=pool:",
+            [AlertRule(name="slo-burn", kind="slo_burn",
+                       metric="nns_admission_latency_seconds", fast_s=0.4,
+                       slow_s=1.6, budget=0.05, burn=2.0,
+                       severity="critical")],
+            [Playbook(name="widen-window", rule="slo-burn", kind="pool",
+                      actuator="max-batch", action="step", value=15.0,
+                      cooldown_s=1.0),
+             Playbook(name="tighten-admission", rule="slo-burn",
+                      kind="pool", actuator="ramp-start", action="set",
+                      value=0.5, cooldown_s=1.0)],
+            lambda rig: _actuate_retry(rig.entry.actuators()["max-batch"],
+                                       1.0),
+            lambda rig: rig.entry.admission is not None
+            and rig.entry.batcher is not None
+            and rig.entry.batcher.max_batch == 16
+            and rig.entry.admission.p99_s < 0.25,
+            warmup_s=1.5, during_fn=lambda rig: ctl_top(rig, base))
+    finally:
+        srv.close()
+    if top_res is None:
+        raise RuntimeError("control (e): slo-burn was not firing when "
+                           "nns-top looked")
+    print(f"control (e) nns-top --once --json during slo-burn: "
+          f"{top_res['element_rows']} element rows, pools "
+          f"{top_res['pools']}, firing {top_res['firing']} [{card}, "
+          f"{power}]", flush=True)
+    return rows, top_res
+
+
+def ctl_clean(card: str, power: str, seconds: float):
+    """15c: the default rule pack over the shared leg, no fault."""
+    import threading
+
+    from nnstreamer_tpu_torch.obs import forecast
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+    from nnstreamer_tpu_torch.obs.watch import Watch, default_rules
+
+    pools = serve_pools(SERVE_STREAMS, CTL_DEVICE)[0]
+    pipes = ctl_pipes("clean", SERVE_STREAMS)
+    forecast.FORECASTS.reset()
+    w = Watch(rules=default_rules(), interval_s=CTL_INTERVAL_S)
+    try:
+        for p in pipes:
+            p.start()
+        closed_loop(pipes, pools, 0, SERVE_WARMUP, SERVE_DEPTH)
+        _ctl_sync()
+        stop, first, frames = threading.Event(), [SERVE_WARMUP], [0]
+
+        def feed():
+            while not stop.is_set():
+                closed_loop(pipes, pools, first[0], SERVE_DEPTH, SERVE_DEPTH)
+                first[0] += SERVE_DEPTH
+                frames[0] += SERVE_STREAMS * SERVE_DEPTH
+
+        w.start()
+        th = threading.Thread(target=feed, name="ctl-clean-feed")
+        t0 = time.monotonic()
+        th.start()
+        try:
+            time.sleep(seconds)
+            snap = REGISTRY.snapshot()
+        finally:
+            stop.set()
+            th.join(timeout=300)
+            w.stop()
+        wall = time.monotonic() - t0
+        for p in pipes:
+            p["src"].end_of_stream()
+        for p in pipes:
+            if not p.wait_eos(timeout=120):
+                raise RuntimeError("control (c): no EOS")
+    finally:
+        for p in pipes:
+            p.stop()
+    fc = snap.get("forecasts") or {}
+    if "nns_alert_state" not in snap["metrics"] or not (
+            fc.get("rules") or fc.get("capacity")):
+        raise RuntimeError(f"control (c): alerts/forecasts sections absent "
+                           f"while the watch runs: {sorted(snap['metrics'])}"
+                           f" {fc}")
+    fired = [ev for ev in w.alert_log]
+    disabled = ctl_disabled_check()
+    res = {"seconds": wall, "frames": frames[0],
+           "fps": frames[0] / wall, "false_positives": len(fired),
+           "fired": sorted({ev["rule"] for ev in fired}),
+           "forecasts": fc, "disabled": disabled}
+    print(f"control (c) clean leg, default rule pack, {wall:.2f} s, "
+          f"{frames[0]} frames ({res['fps']:.1f} frames/s): "
+          f"{len(fired)} alerts fired {res['fired']} (false positives: no "
+          f"fault was injected); forecasts table {json.dumps(fc)}; with "
+          f"{'NNS_TPU_TORCH_OBS_DISABLE'}=1 {disabled} [{card}, {power}]",
+          flush=True)
+    return res
+
+
+def ctl_disabled_child() -> int:
+    """``--control-disabled-child``: run with the kill switch; a watch,
+    the environment's watchdog and a pipeline on the CPU, then which of
+    the snapshot's active sections hold anything (as one JSON line)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.obs import hooks, watch
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    w = watch.Watch(rules=watch.default_rules(), interval_s=CTL_INTERVAL_S)
+    started = w.start()
+    p = parse_launch("appsrc name=src ! queue ! appsink name=out",
+                     device="cpu")
+    p["src"].spec = TensorsSpec.parse("4", "float32")
+    with p:
+        for i in range(8):
+            p["src"].push_buffer(Buffer.of(np.zeros(4, np.float32), pts=i))
+        p["src"].end_of_stream()
+        p.wait_eos(timeout=60)
+        time.sleep(3 * CTL_INTERVAL_S)
+        snap = REGISTRY.snapshot()
+    print(json.dumps({"obs_disabled": hooks.DISABLED, "watch_started": started,
+                      "env_watch": watch.WATCH is not None,
+                      "alert_family": "nns_alert_state" in snap["metrics"],
+                      "forecast_rows": len(snap["forecasts"]["rules"])
+                      + len(snap["forecasts"]["capacity"])}))
+    return 0
+
+
+def ctl_disabled_check() -> dict:
+    env = dict(os.environ, NNS_TPU_TORCH_OBS_DISABLE="1",
+               NNS_TPU_TORCH_WATCH=str(CTL_INTERVAL_S))
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--control-disabled-child"], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=HERE)
+    if out.returncode != 0:
+        raise RuntimeError(f"control (c): the kill-switch child failed:\n"
+                           f"{out.stderr[-4000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if res != {"obs_disabled": True, "watch_started": False,
+               "env_watch": False, "alert_family": False,
+               "forecast_rows": 0}:
+        raise RuntimeError(f"control (c): with the kill switch {res}")
+    return res
+
+
+def ctl_lockdep_child() -> int:
+    """``--control-lockdep-child``: run with NNS_TPU_TORCH_LOCKDEP=1;
+    the shared leg, then the witness's counts as one JSON line."""
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.ops import build
+    from nnstreamer_tpu_torch.utils import lockdep
+
+    if CTL_DEVICE == "cuda":
+        build.build_all()
+    register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
+    pools = serve_pools(SERVE_STREAMS, CTL_DEVICE)[0]
+    pipes = ctl_pipes("lockdep", SERVE_STREAMS)
+    try:
+        for p in pipes:
+            p.start()
+        closed_loop(pipes, pools, 0, SERVE_WARMUP + CTL_AB_FRAMES,
+                    SERVE_DEPTH)
+        _ctl_sync()
+        for p in pipes:
+            p["src"].end_of_stream()
+        for p in pipes:
+            p.wait_eos(timeout=120)
+    finally:
+        for p in pipes:
+            p.stop()
+    wit = lockdep.witness_dict()
+    print(json.dumps({"enabled": lockdep.enabled(),
+                      "nodes": len(wit["nodes"]), "edges": len(wit["edges"]),
+                      "cycles": wit["cycles"],
+                      "violations": wit["violations"],
+                      "dispatch_ok": sorted(
+                          n["label"] for n in wit["nodes"]
+                          if "_flush_serial_lock" in n["label"])}))
+    return 0
+
+
+def ctl_lockdep(card: str, power: str) -> dict:
+    """15d: the shared leg under the lock-order witness, in a child."""
+    env = dict(os.environ, NNS_TPU_TORCH_LOCKDEP="1")
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--control-lockdep-child"], capture_output=True,
+                         text=True, timeout=600, env=env, cwd=HERE)
+    if out.returncode != 0:
+        raise RuntimeError(f"control (d): the lockdep child failed:\n"
+                           f"{out.stderr[-4000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if not res["enabled"] or not res["nodes"] or res["cycles"] or \
+            res["violations"] or not res["dispatch_ok"]:
+        raise RuntimeError(f"control (d): lockdep witness {res}")
+    print(f"control (d) lockdep on the shared leg (a child process): "
+          f"{res['nodes']} lock nodes, {res['edges']} order edges, no "
+          f"cycle, no lock held across a dispatch but the marked "
+          f"{res['dispatch_ok']} [{card}, {power}]", flush=True)
+    return res
+
+
+def phase_control(card: str, power: str):
+    """Phase 15 (see the module doc)."""
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
+    kernels.flash_attention.launches = 0
+    kernels.scale_bias_cast.launches = 0
+    hostprof = ctl_hostprof(card, power)
+    mttr, top_res = ctl_mttr(card, power)
+    launches = {"flash_attention": kernels.flash_attention.launches,
+                "scale_bias_cast": kernels.scale_bias_cast.launches}
+    _ctl_card_gate(all(launches.values()),
+                   f"control: a kernel never launched: {launches}",
+                   "kernel launches on phase 15's path")
+    clean = ctl_clean(card, power, min(CTL_CLEAN_MAX_S, max(
+        r["watched_s"] for r in mttr.values())))
+    lock = ctl_lockdep(card, power)
+    out = {"hostprof": hostprof, "mttr": mttr, "top": top_res,
+           "clean": clean, "lockdep": lock, "launches": launches}
+    print(f"control: kernel launches on phase 15's path {launches}; "
+          f"control phase: {time.perf_counter() - t0:.2f} s [{card}, "
+          f"{power}]", flush=True)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -4317,9 +5296,12 @@ def main() -> int:
         return serving_legs(sys.argv[2])
     if sys.argv[1:] == ["--obs-detect-child"]:
         return obs_detect_child()
+    if sys.argv[1:] == ["--control-disabled-child"]:
+        return ctl_disabled_child()
     alone = sys.argv[1:] == ["--decoders"]
     elements_alone = sys.argv[1:] == ["--elements"]
     obs_alone = sys.argv[1:] == ["--obs"]
+    control_alone = sys.argv[1:] == ["--control"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -4335,6 +5317,8 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"needs a Hopper card (capability 9.0), got {cap}")
 
+    if sys.argv[1:] == ["--control-lockdep-child"]:
+        return ctl_lockdep_child()
     from nnstreamer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -4367,6 +5351,10 @@ def main() -> int:
         print(json.dumps({"obs": phase_obs(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if control_alone:
+        print(json.dumps({"control": phase_control(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     main_path = phase_main_path(card, power)
@@ -4381,12 +5369,14 @@ def main() -> int:
     decoders = phase_decoders(card, power)
     elements = phase_elements(card, power)
     obs = phase_obs(card, power, serving["shared"])
+    control = phase_control(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
                       "classify": classify, "yolo": yolo,
                       "decoders": decoders, "elements": elements,
-                      "obs": obs, "card": card, "power_limit": power}))
+                      "obs": obs, "control": control, "card": card,
+                      "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
@@ -4405,13 +5395,15 @@ def main() -> int:
                        elements["two_cameras"]["launches"],
                    "obs_vit_serving": obs["vit_serving"]["launches"][
                        "scale_bias_cast"],
-                   "obs_detection": obs["detection"]["launches"]}
+                   "obs_detection": obs["detection"]["launches"],
+                   "control": control["launches"]["scale_bias_cast"]}
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],
                   "lifecycle": lifecycle["launches"]["flash_attention"],
                   "obs_vit_serving": obs["vit_serving"]["launches"][
-                      "flash_attention"]}
+                      "flash_attention"],
+                  "control": control["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

@@ -1,9 +1,11 @@
 """Chaos engineering for the serving stack: deterministic fault injection
-(:mod:`.plan`) and the process-wide hook the seams read (:mod:`.hooks`).
+(:mod:`.plan`), the reconnect backoff + circuit breaker the edge links
+share (:mod:`.retrypolicy`, steered by the actuator API), and the
+process-wide hook the seams read (:mod:`.hooks`).
 
-Counterpart of the JAX package's ``chaos/``.  The JAX package's
-``retrypolicy`` (the edge links' reconnect backoff and circuit breaker)
-comes with the port's edge slice, its only caller.
+Counterpart of the JAX package's ``chaos/``.  The edge transports that
+call the retry policy and ``FaultPlan.wire`` come with the port's edge
+slice.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ from .plan import (
     FaultSpec,
     WireOp,
 )
+from .retrypolicy import BreakerOpen, RetryPolicy
 
 __all__ = [
     "ChaosInvokeError", "FAULTS", "FaultPlan", "FaultSpec",
     "INVOKE_FAULTS", "QUEUE_FAULTS", "WIRE_FAULTS", "WireOp",
+    "BreakerOpen", "RetryPolicy",
     "install_plan", "uninstall_plan", "active_plan",
 ]
 

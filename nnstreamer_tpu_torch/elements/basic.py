@@ -30,6 +30,7 @@ from ..obs import hooks as _hooks
 from ..runtime.element import Element, Pad, SinkElement, SourceElement
 from ..runtime.events import Event, EventKind, Message, MessageKind
 from ..runtime.registry import register_element
+from ..utils.profile import GATE
 
 
 @register_element("appsrc")
@@ -67,11 +68,16 @@ class AppSrc(SourceElement):
         self._q.put(None)
 
     def create(self) -> Optional[Buffer]:
-        while self._running.is_set():
-            try:
-                return self._q.get(timeout=0.05)
-            except _q.Empty:
-                continue
+        try:
+            return self._q.get_nowait()
+        except _q.Empty:
+            pass
+        with GATE.outside():
+            while self._running.is_set():
+                try:
+                    return self._q.get(timeout=0.05)
+                except _q.Empty:
+                    continue
         return None
 
 
@@ -99,7 +105,11 @@ class AppSink(SinkElement):
                     pass
                 self._q.put_nowait(buf)
         else:
-            self._q.put(buf)
+            try:
+                self._q.put_nowait(buf)
+            except _q.Full:
+                with GATE.outside():
+                    self._q.put(buf)
 
     def pull(self, timeout: Optional[float] = None) -> Optional[Buffer]:
         try:
@@ -178,8 +188,10 @@ class Queue(Element):
                 while len(self._dq) >= cap:
                     self._dq.popleft()
             else:
-                while self._running and len(self._dq) >= cap:
-                    self._cv.wait(0.05)
+                if self._running and len(self._dq) >= cap:
+                    with GATE.outside():
+                        while self._running and len(self._dq) >= cap:
+                            self._cv.wait(0.05)
                 if not self._running:
                     return
             tracer = _hooks.tracer
@@ -199,10 +211,11 @@ class Queue(Element):
     def start(self) -> None:
         self._running = True
         self._eos = False
-        pipe = self.pipeline.name if self.pipeline is not None else "-"
-        self._thread = threading.Thread(
-            target=self._loop, name=f"nns:{pipe}:{self.name}:queue",
-            daemon=True)
+        # deterministic name (nns:<pipeline>:<element>) + thread-
+        # registry coverage for profiler attribution (obs/prof.py)
+        from ..obs import prof as _prof
+
+        self._thread = _prof.element_thread(self, self._loop, "queue")
         self._thread.start()
 
     def stop(self) -> None:
@@ -214,7 +227,23 @@ class Queue(Element):
             self._thread = None
 
     def _loop(self) -> None:
+        import time
+
+        from ..obs import prof as _prof
+
+        # exact run/wait accounting (obs/prof.py): the cv-wait/pop is
+        # the wait side, push() — the whole downstream chain runs in
+        # this thread — is the run side, less its card waits.  None
+        # under NNS_TPU_TORCH_OBS_DISABLE → the loop skips every clock
+        # read.
+        pipe = getattr(self, "pipeline", None)
+        acct = _prof.element_account(
+            getattr(pipe, "name", "") or "-", self.name)
+        t0 = c0 = 0.0
         while True:
+            if acct is not None:
+                t0 = time.monotonic()
+                c0 = time.thread_time()
             with self._cv:
                 while self._running and not self._dq and not self._eos:
                     self._cv.wait(0.05)
@@ -230,8 +259,17 @@ class Queue(Element):
             tracer = _hooks.tracer
             if tracer is not None:
                 tracer.queue_dequeued(self, buf)
-            self.push(buf)
-        self.forward_event(Event.eos())
+            # the chain runs torch work: inside the profiler's gate
+            GATE.enter()
+            try:
+                if acct is None:
+                    self.push(buf)
+                else:
+                    acct.run_chain(self.push, buf, t0, c0)
+            finally:
+                GATE.exit()
+        with GATE.inside():
+            self.forward_event(Event.eos())
 
     @property
     def current_level_buffers(self) -> int:

@@ -39,8 +39,9 @@ handoff.
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext as _nullcontext
 from fractions import Fraction
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence
 
 from ..chaos import hooks as _chaos_hooks
 from ..chaos.plan import FaultPlan, apply_invoke_fault
@@ -54,7 +55,19 @@ from ..obs import transfer as _xfer
 from ..obs.tracer import TRACE_META_KEY
 from ..runtime.events import Event, EventKind, Message, MessageKind
 from ..runtime.registry import register_element
+from ..utils import profile as _profile
 from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
+
+
+def _trace_ids(bufs: Sequence[Buffer]) -> List[str]:
+    """Obs trace ids riding a dispatch's buffers (usually empty: only
+    1-in-N sampled frames carry a trace)."""
+    out = []
+    for b in bufs:
+        tr = b.meta.get(TRACE_META_KEY)
+        if tr is not None and tr.get("id"):
+            out.append(str(tr["id"]))
+    return out
 
 
 def _parse_combination(s: str) -> Optional[List[int]]:
@@ -440,7 +453,13 @@ class TensorFilter(Element):
         else:
             inputs = [t.torch(sp.device) for t in tensors]
         t1 = time.monotonic()
-        outputs = sp.invoke(inputs)
+        if _profile.trace_active():
+            # trace correlation: the sampled frame's trace id shows up
+            # as a span on the torch.profiler timeline
+            with _profile.frame_annotation(_trace_ids([buf])):
+                outputs = sp.invoke(inputs)
+        else:
+            outputs = sp.invoke(inputs)
         if getattr(sp, "_donate", False):
             self._mark_donated(buf)
         t2 = self._sampler.end(outputs, t0, sample)
@@ -537,13 +556,18 @@ class TensorFilter(Element):
         frames = [self._pool_frame_inputs(buf) for buf in bufs]
         bucket = pick_bucket(len(frames), self._buckets)
         t1 = time.monotonic()
-        if getattr(sp, "SUPPORTS_BATCH", False):
-            outs = sp.invoke_batched(frames, bucket)
-        else:
-            # framework without a batched entry point: the window still
-            # coalesces (ordering, EOS flush, occupancy stats) but each
-            # frame dispatches separately
-            outs = [sp.invoke(list(f)) for f in frames]
+        # trace correlation: the window's sampled trace ids ride the
+        # dispatch as a span (no-op without an active torch.profiler
+        # capture, guarded to keep the hot path free)
+        with _profile.frame_annotation(_trace_ids(bufs)) \
+                if _profile.trace_active() else _nullcontext():
+            if getattr(sp, "SUPPORTS_BATCH", False):
+                outs = sp.invoke_batched(frames, bucket)
+            else:
+                # framework without a batched entry point: the window
+                # still coalesces (ordering, EOS flush, occupancy stats)
+                # but each frame dispatches separately
+                outs = [sp.invoke(list(f)) for f in frames]
         if getattr(sp, "_donate", False):
             for buf in bufs:
                 self._mark_donated(buf)
@@ -646,7 +670,7 @@ class TensorFilter(Element):
             self.post_error(FilterError(f"{self.name}: model is not "
                                         "updatable"))
             return
-        from ..runtime.lifecycle import LifecycleError
+        from ..runtime.actuators import ActuationError
 
         try:
             if self._pool_entry is not None:
@@ -661,7 +685,7 @@ class TensorFilter(Element):
                 raise FilterError(f"{self.name}: no sub-plugin opened")
             self.subplugin.handle_event(event)
             self.in_spec, self.out_spec = self.subplugin.get_model_info()
-        except (FilterError, LifecycleError, ValueError, KeyError) as e:
+        except (FilterError, ActuationError, ValueError, KeyError) as e:
             self.post_error(e)
 
     # -- introspection props -------------------------------------------------

@@ -25,6 +25,7 @@ import torch
 from ..core import Buffer, Tensor, TensorsSpec
 from ..runtime.element import NegotiationError, SinkElement, SourceElement
 from ..runtime.registry import register_element
+from ..utils.profile import GATE
 
 
 class _Repo:
@@ -63,9 +64,15 @@ class TensorRepoSink(SinkElement):
         (e.g. it hit num_buffers), displace the oldest entry instead of
         blocking the upstream streaming thread forever."""
         q = REPO.slot(int(self.slot))
+        try:
+            q.put_nowait(item)
+            return
+        except _q.Full:
+            pass
         while True:
             try:
-                q.put(item, timeout=0.5)
+                with GATE.outside():
+                    q.put(item, timeout=0.5)
                 return
             except _q.Full:
                 try:
@@ -137,10 +144,11 @@ class TensorRepoSrc(SourceElement):
 
         q = REPO.slot(int(self.slot))
         deadline = time.monotonic() + float(self.timeout)
-        while self._running.is_set():
-            try:
-                return q.get(timeout=0.1)
-            except _q.Empty:
-                if time.monotonic() > deadline:
-                    raise
+        with GATE.outside():
+            while self._running.is_set():
+                try:
+                    return q.get(timeout=0.1)
+                except _q.Empty:
+                    if time.monotonic() > deadline:
+                        raise
         return None

@@ -40,6 +40,7 @@ import numpy as np
 from ..core import SECOND, Buffer, Tensor, TensorSpec, TensorsSpec
 from ..runtime.element import NegotiationError, SourceElement
 from ..runtime.registry import register_element
+from ..utils.profile import GATE
 
 _sensors: Dict[str, Callable[[], "np.ndarray"]] = {}
 _sensors_lock = threading.Lock()
@@ -198,7 +199,8 @@ class TensorSrcSensor(SourceElement):
                 target = self._t0 + (self._count * cap + i) * period
                 delay = target - time.monotonic()
                 if delay > 0:
-                    time.sleep(delay)
+                    with GATE.outside():
+                        time.sleep(delay)
             if not self._running.is_set():
                 return None
             rows.append(self._sample())

@@ -678,6 +678,20 @@ class TorchCudaFilter(FilterSubplugin):
         with self._batch_lock:
             return tuple(sorted({int(k[1]) for k in self._batch_fold}))
 
+    def check_buckets(self, buckets: Sequence[int]) -> Tuple[int, ...]:
+        """Take the fold verdict of each bucket of ``buckets`` that has
+        none yet, on the calling thread (a ``max-batch`` actuation calls
+        this before a window may grow onto a new bucket): seeded frames
+        of the serving schema run once a window at each.  Returns the
+        buckets checked."""
+        if self._program is None:
+            return ()
+        hot = set(self.hot_buckets())
+        missing = tuple(sorted({int(b) for b in buckets} - hot))
+        if missing:
+            self._warm_shadow(self, missing)
+        return missing
+
     def prepare_swap(self, model: Any, buckets: Sequence[int] = (),
                      warm: bool = True) -> "TorchCudaFilter":
         """Load a replacement OFF the dispatch path: a configured SHADOW

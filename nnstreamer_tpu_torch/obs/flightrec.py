@@ -13,17 +13,16 @@ triggered:
 - **admission hard-shed** — the shed ramp reached 1.0
   (``runtime/serving.py`` ``_warn_shed``);
 - **uncaught element error** (``Element.post_error``);
-- **circuit breaker opening** (:meth:`FlightRecorder.breaker_opened`, for
-  the edge links' retry policy);
+- **circuit breaker opening** (``chaos/retrypolicy.py``);
 - **explicitly** — the metrics server's ``/dump`` endpoint, SIGUSR2
   (:func:`install_signal_handler`), or :meth:`FlightRecorder.trigger`.
 
 A dump is two files in the armed directory: a Perfetto loadable trace
 (``flightrec-NNN-<reason>-trace.json``: the ring's events as instant
 marks, plus — when a latency tracer is attached — its per-frame spans)
-and a metrics-registry snapshot (``…-snapshot.json``).  The JAX package
-also embeds the host profiler's stacks; the port's profiler comes with a
-later slice.
+and a metrics-registry snapshot (``…-snapshot.json``); while the host
+profiler's sampler runs (``obs/prof.py``) the dump also embeds its last
+seconds of collapsed stacks (``host_stacks``).
 
 Arming: ``NNS_TPU_TORCH_FLIGHTREC_DIR=<dir>`` (picked up at first
 pipeline start, like ``NNS_TPU_TORCH_CHAOS``) or :meth:`FLIGHT.arm
@@ -48,11 +47,6 @@ from . import hooks as _hooks
 
 #: the environment key that arms dump-to-disk
 DIR_ENV = f"{ENV_PREFIX}FLIGHTREC_DIR"
-
-
-def _thread(role: str, target, args: tuple = ()) -> threading.Thread:
-    return threading.Thread(target=target, args=args, daemon=True,
-                            name=f"nns:flightrec:{role}")
 
 
 class FlightRecorder:
@@ -132,7 +126,9 @@ class FlightRecorder:
             self._dump_files(directory, reason, seq,
                              self.dump_json(reason))
 
-        _thread("dump", _work).start()
+        from . import prof as _prof
+
+        _prof.named_thread("flightrec", "dump", _work).start()
         return True
 
     def trigger_dump(self, reason: str = "endpoint") -> dict:
@@ -179,8 +175,8 @@ class FlightRecorder:
 
     def breaker_opened(self, link: str, failures: int,
                        opens: int) -> None:
-        """A link's circuit breaker opened (the edge links' retry
-        policy) — called on the retry path, dump offloaded."""
+        """A link's circuit breaker opened (chaos/retrypolicy.py) —
+        called on the retry path, dump offloaded."""
         self.note("breaker-open", link, failures=failures, opens=opens)
         self.trigger_async("breaker-open", link)
 
@@ -245,6 +241,14 @@ class FlightRecorder:
             "trace": self.chrome_trace(),
             "snapshot": REGISTRY.snapshot(),
         }
+        # host profiler (obs/prof.py): when the sampler is armed, the
+        # dump embeds its last-K-seconds collapsed stacks — a hard-shed
+        # or breaker-open dump answers "what was the host doing"
+        # without a reproduction
+        from .prof import PROFILER
+
+        if PROFILER.running:
+            doc["host_stacks"] = PROFILER.ring_collapsed()
         return doc
 
     def _dump_files(self, directory: str, reason: str, seq: int,
@@ -260,7 +264,9 @@ class FlightRecorder:
             with open(snap_path, "w") as f:
                 json.dump({"reason": doc["reason"], "time": doc["time"],
                            "triggers": doc["triggers"],
-                           "snapshot": doc["snapshot"]}, f)
+                           "snapshot": doc["snapshot"],
+                           **({"host_stacks": doc["host_stacks"]}
+                              if "host_stacks" in doc else {})}, f)
         except (OSError, TypeError, ValueError) as e:
             # TypeError/ValueError: a ring event carried a
             # non-JSON-serializable arg — the dump fails, the process
@@ -329,7 +335,10 @@ def install_signal_handler(signum: Optional[int] = None) -> bool:
         # which may hold FLIGHT._lock or a registry lock — trigger()'s
         # non-reentrant lock acquire + blocking file I/O would wedge
         # the very process the signal is meant to diagnose
-        _thread("signal", FLIGHT.trigger, args=("signal",)).start()
+        from . import prof as _prof
+
+        _prof.named_thread("flightrec", "signal", FLIGHT.trigger,
+                           args=("signal",)).start()
 
     try:
         _signal.signal(signum, _on_signal)

@@ -29,12 +29,14 @@ Outputs:
   (the flight recorder).  ``NNS_TPU_TORCH_METRICS_PORT`` serves the
   global registry when the first pipeline starts.
 
-Not in the port yet, and absent rather than stubbed: the snapshot's
-``compiles`` (the port compiles no XLA programs), ``mesh`` and the
-placement-overlap gauges (mesh placement), ``forecasts``, ``control`` and
-``profile`` tables, the host-profiler families, and the ``/prof``
-endpoint, each with the module a later slice ports (``obs/forecast.py``,
-``obs/control.py``, ``obs/prof.py``, ``obs/meshstat.py``).
+The active layer feeds it too: the ``forecasts`` table (``obs/forecast.py``,
+filled by a running watchdog), the ``control`` table (``obs/control.py``),
+the ``profile`` table and the host-profiler families (``obs/prof.py``),
+``/prof`` (the profiler's stacks), and ``/healthz``'s ``alerts``,
+``control``, ``capacity`` and ``prof`` sections.  Not in the port yet,
+and absent rather than stubbed: the snapshot's ``compiles`` (the port
+compiles no XLA programs), and ``mesh`` with the placement-overlap
+gauges (mesh placement, ``obs/meshstat.py``).
 """
 
 from __future__ import annotations
@@ -198,7 +200,8 @@ class MetricsRegistry:
                  collect_devices: bool = False,
                  collect_executables: bool = False,
                  collect_stages: bool = False,
-                 collect_tenants: bool = False):
+                 collect_tenants: bool = False,
+                 collect_prof: bool = False):
         self._lock = threading.Lock()
         self._families: Dict[str, Family] = {}
         self._collectors: List[Callable[[], Iterable[tuple]]] = []
@@ -217,6 +220,7 @@ class MetricsRegistry:
         self._collect_executables = bool(collect_executables)
         self._collect_stages = bool(collect_stages)
         self._collect_tenants = bool(collect_tenants)
+        self._collect_prof = bool(collect_prof)
 
     # -- instruments ---------------------------------------------------------
 
@@ -408,6 +412,31 @@ class MetricsRegistry:
                 sample_name=hname + "_sum")
             add(hname, "histogram", hhelp, labels, rtt["count"],
                 sample_name=hname + "_count")
+        # host-execution profiler (obs/prof.py): the exact per-element
+        # run/wait/CPU accumulators as counter families, plus the
+        # sampled GIL-pressure proxy while the profiler runs; the
+        # accounts store is process-wide, so (like the ledgers above)
+        # only opted-in registries pull it
+        from . import prof as _prof
+
+        prof_rows = _prof.account_rows() if self._collect_prof else []
+        for row in prof_rows:
+            labels = {"pipeline": row["pipeline"],
+                      "element": row["element"]}
+            add("nns_element_cpu_seconds_total", "counter",
+                "host CPU seconds consumed by the element's loop "
+                "thread", labels, row["cpu_s"])
+            add("nns_element_run_seconds_total", "counter",
+                "wall seconds the element loop spent running its "
+                "chain", labels, row["run_s"])
+            add("nns_element_wait_seconds_total", "counter",
+                "wall seconds the element loop spent waiting for "
+                "work", labels, row["wait_s"])
+        if self._collect_prof and _prof.PROFILER.running:
+            add("nns_gil_waiters", "gauge",
+                "sampled runnable-but-not-running threads (GIL "
+                "pressure proxy)", {},
+                float(_prof.PROFILER.gil_waiters))
         return (tables, pools, models, links, transfers, devmem, execs,
                 stages, tenants, fams)
 
@@ -447,6 +476,9 @@ class MetricsRegistry:
             "executables": execs,
             "stages": stages,
             "tenants": tenants,
+            "forecasts": _forecast_table(),
+            "control": _control_table(),
+            "profile": _profile_table(),
             "metrics": fams,
         }
 
@@ -1069,6 +1101,79 @@ def _stage_samples(stages) -> Iterable[tuple]:
                    row["kept"])
 
 
+def _control_table() -> dict:
+    """The closed-loop controller's decision view (obs/control.py):
+    playbooks, action totals, recent audit entries — empty-but-present
+    when no controller runs, so the snapshot shape is stable."""
+    from .control import control_table
+
+    return control_table()
+
+
+def _forecast_table() -> dict:
+    from .forecast import FORECASTS
+
+    return FORECASTS.snapshot()
+
+
+def _profile_table() -> dict:
+    from .prof import profile_table
+
+    return profile_table()
+
+
+def alert_health(registry: "MetricsRegistry") -> dict:
+    """Cheap alert summary for ``/healthz``: the current
+    ``nns_alert_state`` gauge children (exported by an attached
+    ``obs/watch.py`` watchdog; empty when none runs) — firing count by
+    severity plus the firing rule names, WITHOUT a full snapshot
+    walk."""
+    with registry._lock:
+        fam = registry._families.get("nns_alert_state")
+    if fam is None:
+        return {"firing": 0, "by_severity": {}, "rules": []}
+    by_sev: Dict[str, int] = {}
+    rules: List[str] = []
+    for labels, value in fam.collect():
+        if value:
+            sev = labels.get("severity", "warning")
+            by_sev[sev] = by_sev.get(sev, 0) + 1
+            rules.append(labels.get("rule", "?"))
+    return {"firing": len(rules), "by_severity": by_sev,
+            "rules": sorted(rules)}
+
+
+def _control_health() -> dict:
+    from .control import control_health
+
+    return control_health()
+
+
+def _prof_health() -> dict:
+    from .prof import prof_health
+
+    return prof_health()
+
+
+def capacity_health() -> dict:
+    """Cheap capacity summary for ``/healthz``: the per-pool headroom
+    rows an attached watchdog's forecast tick published (empty when
+    none runs) — worst headroom plus the pools predicted to overload,
+    WITHOUT a full snapshot walk."""
+    from .forecast import FORECASTS
+
+    rows = FORECASTS.snapshot()["capacity"]
+    if not rows:
+        return {"pools": 0, "min_headroom": None, "at_risk": []}
+    worst = min(rows, key=lambda r: r["headroom"])
+    return {
+        "pools": len(rows),
+        "min_headroom": round(worst["headroom"], 4),
+        "at_risk": sorted(r["pool"] for r in rows
+                          if r["headroom"] <= 0.0),
+    }
+
+
 def _tenant_table() -> List[dict]:
     from .tenantstat import TENANT_STATS
 
@@ -1211,9 +1316,10 @@ def _pool_samples(pools) -> Iterable[tuple]:
 class MetricsServer:
     """stdlib-http scrape endpoint: ``/metrics`` (Prometheus text),
     ``/json`` and ``/snapshot`` (the full snapshot), ``/healthz`` (cheap
-    liveness probe: status + pipeline/pool/link counts and the device
-    in-use bytes, no full snapshot walk), ``/dump`` (a flight-recorder
-    dump).  Runs on a daemon thread; ``port=0`` binds an ephemeral port
+    liveness probe: status + pipeline/pool/link counts, the device
+    in-use bytes and the alert/control/capacity/profiler summaries, no
+    full snapshot walk), ``/prof`` (the host profiler's stacks), ``/dump``
+    (a flight-recorder dump).  Runs on a daemon thread; ``port=0`` binds an ephemeral port
     readable back from :attr:`port`."""
 
     def __init__(self, registry: MetricsRegistry, port: int = 0,
@@ -1248,9 +1354,52 @@ class MetricsServer:
                         if reg._collect_links else 0,
                         "device_memory": device_memory_summary()
                         if reg._collect_devices else [],
+                        # alerting view (obs/watch.py): a fleet
+                        # controller probing liveness sees WHAT is
+                        # firing, not just that the process answers
+                        "alerts": alert_health(reg),
+                        # actuation view (obs/control.py): playbooks
+                        # loaded, decisions taken, the last action —
+                        # whether the loop is CLOSED, not only that
+                        # alarms ring
+                        "control": _control_health(),
+                        # predictive view (obs/forecast.py): whether
+                        # arrivals are forecast to outrun capacity —
+                        # the probe sees trouble BEFORE alerts fire
+                        "capacity": capacity_health(),
+                        # host-execution view (obs/prof.py): whether
+                        # the sampling profiler runs, its tick/sample
+                        # counts and the GIL-pressure proxy
+                        "prof": _prof_health(),
                         "time": time.time(),
                     }).encode()
                     ctype = "application/json"
+                elif path == "/prof":
+                    # host profiler export (obs/prof.py): collapsed-
+                    # stack text by default (flamegraph.pl input),
+                    # ?format=trace for Perfetto/Chrome trace events,
+                    # ?last=S to restrict to the recent-sample ring
+                    from .prof import PROFILER
+
+                    query = self.path.split("?", 1)[1] \
+                        if "?" in self.path else ""
+                    qs = dict(kv.split("=", 1)
+                              for kv in query.split("&") if "=" in kv)
+                    last = None
+                    try:
+                        if qs.get("last"):
+                            last = float(qs["last"])
+                    except ValueError:
+                        last = None
+                    if qs.get("format") == "trace":
+                        body = json.dumps(
+                            PROFILER.chrome_trace()).encode()
+                        ctype = "application/json"
+                    else:
+                        text = PROFILER.ring_collapsed(last) \
+                            if last is not None else PROFILER.collapsed()
+                        body = (text + "\n").encode()
+                        ctype = "text/plain; charset=utf-8"
                 elif path == "/dump":
                     # flight recorder: explicit black-box dump — the
                     # response carries the trace + snapshot, and when
@@ -1277,9 +1426,10 @@ class MetricsServer:
         self._httpd.daemon_threads = True
         self.host = host
         self.port = int(self._httpd.server_address[1])
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="nns:metrics:http",
-            daemon=True)
+        from . import prof as _prof
+
+        self._thread = _prof.named_thread(
+            "metrics", "http", self._httpd.serve_forever)
         self._thread.start()
 
     def close(self) -> None:
@@ -1299,7 +1449,8 @@ class MetricsServer:
 #: transfer, device-memory, executable, stage and tenant stores
 REGISTRY = MetricsRegistry(collect_stages=True, collect_links=True,
                            collect_transfers=True, collect_devices=True,
-                           collect_executables=True, collect_tenants=True)
+                           collect_executables=True, collect_tenants=True,
+                           collect_prof=True)
 
 
 # -- dispatch cost attribution (nns_invoke_*) ---------------------------------

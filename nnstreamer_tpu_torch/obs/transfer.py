@@ -45,6 +45,7 @@ import time
 from bisect import bisect_left
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..utils.device import card_wait
 from . import hooks as _hooks
 
 #: crossing directions and reasons (the label vocabulary); ``d2d`` is
@@ -218,9 +219,9 @@ def _drain(t, copy, nbytes: int, reason: str):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            out = copy()
+            out = card_wait(copy)
             e1.record()
-            e1.synchronize()
+            card_wait(e1.synchronize)
         secs = e0.elapsed_time(e1) / 1e3
     else:
         t0 = time.perf_counter()
@@ -233,7 +234,7 @@ def _drain(t, copy, nbytes: int, reason: str):
 def to_host(t, reason: str = "drain"):
     """``t.cpu()`` with the crossing recorded when ``t`` is on a card."""
     if not ACTIVE or not on_card(t):
-        return t.cpu()
+        return card_wait(t.cpu) if t.is_cuda else t.cpu()
     return _drain(t, t.cpu, t.numel() * t.element_size(), reason)
 
 
@@ -241,7 +242,7 @@ def item(t, reason: str = "drain"):
     """``t.item()`` of a one-element tensor, the scalar's copy recorded
     when ``t`` is on a card."""
     if not ACTIVE or not on_card(t):
-        return t.item()
+        return card_wait(t.item) if t.is_cuda else t.item()
     return _drain(t, t.item, t.element_size(), reason)
 
 

@@ -118,6 +118,11 @@ class AdmissionController:
         if slo_s <= 0:
             raise ValueError(f"slo_s must be > 0, got {slo_s}")
         self.slo_s = float(slo_s)
+        # instance copy of the ramp start so an external controller can
+        # retune the shed aggressiveness at runtime (the "ramp-start"
+        # actuator, runtime/actuators.py); the class constant stays the
+        # documented default
+        self.ramp_start = float(self.RAMP_START)
         self._lat: Deque[float] = deque(maxlen=int(window))
         self._lock = threading.Lock()
         self._rng = random.Random(0)
@@ -194,10 +199,26 @@ class AdmissionController:
     def _shed_probability_locked(self) -> float:
         """0 while the p99 sits safely under the SLO, ramping linearly
         to 1 as it reaches it."""
-        start = self.RAMP_START * self.slo_s
+        start = self.ramp_start * self.slo_s
         if self._p99 <= start:
             return 0.0
         return min((self._p99 - start) / (self.slo_s - start), 1.0)
+
+    def set_ramp_start(self, frac: float) -> None:
+        """Retune the shed ramp (the external controller's knob): the
+        shed probability stays 0 until the p99 crosses ``frac``×SLO and
+        reaches 1 at the SLO.  Lower = shed earlier/harder.  The
+        at-risk flag re-derives immediately so a retune takes effect on
+        this window, not RECOMPUTE_EVERY observations later."""
+        frac = float(frac)
+        if not 0.0 < frac < 1.0:
+            raise ValueError(f"ramp_start must be in (0, 1), got {frac}")
+        with self._lock:
+            self.ramp_start = frac
+            was = self.at_risk
+            self.at_risk = self._shed_probability_locked() > 0.0
+            if self.at_risk and not was:
+                self.risk_episodes += 1
 
     def reset_signal(self) -> None:
         """Drop the accumulated latency signal (warm-up latencies must
@@ -256,7 +277,7 @@ class AdmissionController:
             return {
                 "slo_ms": self.slo_s * 1e3,
                 "p99_ms": self._p99 * 1e3,
-                "ramp_start": self.RAMP_START,
+                "ramp_start": self.ramp_start,
                 "at_risk": self.at_risk,
                 "shed_probability": round(
                     self._shed_probability_locked(), 4),

@@ -42,6 +42,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from ..chaos import hooks as _chaos
 from ..obs import hooks as _hooks
+from ..utils.profile import GATE
 
 
 def parse_buckets(spec: str, max_batch: int) -> Tuple[int, ...]:
@@ -130,9 +131,11 @@ class MicroBatcher:
         self._cv = threading.Condition()
         # taken BEFORE the pending prefix: flush-lock acquisition order
         # IS downstream emission order.  Also the adaptive window's
-        # "device busy" signal: held exactly while a flush is in flight
-        # (holding it across the device invoke is the design)
-        self._flush_serial_lock = threading.Lock()
+        # "device busy" signal: held exactly while a flush is in flight.
+        # this lock IS the window-flush serialization; holding it
+        # across the device invoke is the design (utils/lockdep.py
+        # exempts the marked line at the dispatch fence)
+        self._flush_serial_lock = threading.Lock()  # nns-lock: dispatch-ok
         self._deadline: Optional[float] = None
         self._last_flush_done = 0.0  # adaptive settle anchor (see below)
         self._running = False
@@ -142,6 +145,12 @@ class MicroBatcher:
         self.flushes_deadline = 0
         self.flushes_forced = 0
         self.flushes_adaptive = 0
+        # actuator seam (runtime/actuators.py "coalescing"): while
+        # paused, submits park without dispatching — no inline
+        # full-window flush, no timer flush.  Explicit flush()/
+        # flush_stream() (EOS/stop) IGNORE the pause: frames are never
+        # lost to a paused window, only delayed by one.
+        self.paused = False
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -150,9 +159,12 @@ class MicroBatcher:
             if self._running:
                 return
             self._running = True
-        self._thread = threading.Thread(
-            target=self._timer_loop, name=f"nns:batch:{self.name or '-'}",
-            daemon=True)
+        # deterministic name (nns:batch:<owner>) + thread-registry
+        # coverage for profiler attribution (obs/prof.py)
+        from ..obs import prof as _prof
+
+        self._thread = _prof.named_thread(
+            "batch", self.name or "-", self._timer_loop)
         self._thread.start()
 
     def stop(self) -> None:
@@ -175,7 +187,8 @@ class MicroBatcher:
             tracer.batch_parked(self, item)
         with self._cv:
             self._pending.append(item)
-            full = len(self._pending) >= self.max_batch
+            full = len(self._pending) >= self.max_batch \
+                and not self.paused
             if self._deadline is None:
                 self._deadline = time.monotonic() + self.timeout_s
                 self._cv.notify_all()
@@ -197,6 +210,29 @@ class MicroBatcher:
         with self._cv:
             return len(self._pending)
 
+    # -- actuator seam (runtime/actuators.py) --------------------------------
+
+    def pause(self) -> None:
+        """Park-only mode: submits queue, nothing dispatches until
+        :meth:`resume` (or an explicit EOS/stop flush, which always
+        drains).  The steering use: freeze the window while re-tuning,
+        or deliberately compose a cross-stream window in tests."""
+        with self._cv:
+            self.paused = True
+
+    def resume(self) -> None:
+        """Leave park-only mode.  The backlog drains on the TIMER
+        thread (the parked window's deadline is long expired, so it
+        fires immediately; the adaptive settle paces the rest) and on
+        producers' inline full-window flushes — deliberately NOT here:
+        resume() is an actuation-plane call, and running dispatch +
+        demux inline would let a blocked downstream wedge the caller
+        (a controller tick) against the very contract the actuator
+        API exists to uphold."""
+        with self._cv:
+            self.paused = False
+            self._cv.notify_all()
+
     # -- flush machinery -----------------------------------------------------
 
     def _take_batch_locked(self) -> List[Any]:
@@ -210,32 +246,50 @@ class MicroBatcher:
 
     def _drain(self) -> int:
         """Take up to max_batch pending items (serialized, FIFO) and run
-        flush_fn on them.  Returns the number of items flushed."""
-        with self._flush_serial_lock:
+        flush_fn on them.  Returns the number of items flushed.  Runs
+        inside the profiler's gate (``utils/profile.py``), re-entrant
+        for a producer's inline drain; waiting for another thread's
+        flush, or an injected stall, waits outside it."""
+        GATE.enter()
+        try:
+            if not self._flush_serial_lock.acquire(blocking=False):
+                with GATE.outside():
+                    self._flush_serial_lock.acquire()
+            try:
+                n = self._drain_locked()
+            finally:
+                self._flush_serial_lock.release()
+        finally:
+            GATE.exit()
+        if n:
             with self._cv:
-                batch = self._take_batch_locked()
-                self._deadline = None if not self._pending \
-                    else time.monotonic() + self.timeout_s
-            if not batch:
-                return 0
-            tracer = _hooks.tracer
-            if tracer is not None:
-                tracer.batch_dispatch(self, batch)
-            ch = _chaos.plan
-            if ch is not None:
-                # queue-pressure seam: an injected dispatch stall backs
-                # the window up as a slow device would (it holds the
-                # flush lock as a real dispatch does)
-                stall = ch.queue_stall(self.name or "batch")
-                if stall > 0:
-                    time.sleep(stall)
-            self._flush_fn(batch)
+                # wake the timer: the dispatch is done, so an adaptive
+                # window holding frames that piled up meanwhile can
+                # flush now instead of waiting out its deadline
+                self._last_flush_done = time.monotonic()
+                self._cv.notify_all()
+        return n
+
+    def _drain_locked(self) -> int:
         with self._cv:
-            # wake the timer: the dispatch is done, so an adaptive
-            # window holding frames that piled up meanwhile can flush
-            # now instead of waiting out its deadline
-            self._last_flush_done = time.monotonic()
-            self._cv.notify_all()
+            batch = self._take_batch_locked()
+            self._deadline = None if not self._pending \
+                else time.monotonic() + self.timeout_s
+        if not batch:
+            return 0
+        tracer = _hooks.tracer
+        if tracer is not None:
+            tracer.batch_dispatch(self, batch)
+        ch = _chaos.plan
+        if ch is not None:
+            # queue-pressure seam: an injected dispatch stall backs
+            # the window up as a slow device would (it holds the
+            # flush lock as a real dispatch does)
+            stall = ch.queue_stall(self.name or "batch")
+            if stall > 0:
+                with GATE.outside():
+                    time.sleep(stall)
+        self._flush_fn(batch)
         return len(batch)
 
     def _timer_loop(self) -> None:
@@ -243,7 +297,8 @@ class MicroBatcher:
             adaptive_fire = False
             with self._cv:
                 while self._running:
-                    if self._deadline is not None and self._pending:
+                    if self._deadline is not None and self._pending \
+                            and not self.paused:
                         target = self._deadline
                         idle = self.adaptive and \
                             not self._flush_serial_lock.locked()

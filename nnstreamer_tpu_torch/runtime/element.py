@@ -35,6 +35,8 @@ from ..core import Buffer, Caps, TensorsSpec
 from ..obs import hooks as _hooks
 from ..obs import transfer as _xfer
 from ..obs.tracer import FENCE_PENDING, TRACE_META_KEY
+from ..utils import profile as _profile
+from ..utils.device import card_wait
 from . import admission as _admission
 from .events import Event, EventKind, Message, MessageKind
 
@@ -357,7 +359,11 @@ class Element:
                     else "", self.name, (tr,) if tr is not None else None)
             if tracer is not None:
                 tracer.pre_chain(self, buf)
-            self.chain(pad, buf)
+            if _profile.trace_active():
+                with _profile.annotate(self.name):
+                    self.chain(pad, buf)
+            else:
+                self.chain(pad, buf)
             if tracer is not None:
                 tracer.post_chain(self, buf)
         except Exception as e:  # noqa: BLE001 - any failure must surface
@@ -507,10 +513,12 @@ class SourceElement(Element):
 
     def start(self) -> None:
         self._running.set()
-        pipe = self.pipeline.name if self.pipeline is not None else "-"
-        self._thread = threading.Thread(
-            target=self._loop, name=f"nns:{pipe}:{self.name}:src",
-            daemon=True)
+        # deterministic name (nns:<pipeline>:<element>) + thread-
+        # registry coverage: obs/prof.py joins profiler samples, lockdep
+        # site labels and py-spy output on this string
+        from ..obs import prof as _prof
+
+        self._thread = _prof.element_thread(self, self._loop, "src")
         self._thread.start()
 
     def stop(self) -> None:
@@ -522,35 +530,61 @@ class SourceElement(Element):
     def _loop(self) -> None:
         import time
 
+        from ..obs import prof as _prof
+
+        # exact run/wait accounting (obs/prof.py): create()+throttle is
+        # the wait side, push() — the whole downstream chain runs in
+        # this thread — is the run side, less its card waits.  None
+        # under NNS_TPU_TORCH_OBS_DISABLE → the loop skips every clock
+        # read.
+        pipe = getattr(self, "pipeline", None)
+        acct = _prof.element_account(
+            getattr(pipe, "name", "") or "-", self.name)
+        gate = _profile.GATE
+        t0 = c0 = 0.0
         last = None
         while self._running.is_set():
+            if acct is not None:
+                t0 = time.monotonic()
+                c0 = time.thread_time()
+            # an iteration runs torch work (create() may, the chain
+            # does): inside the profiler's gate, its waits outside
+            gate.enter()
             try:
-                buf = self.create()
-            except Exception as e:  # noqa: BLE001 - report, don't kill pipeline
-                self.post_error(e)
-                break
-            if buf is None:
-                self.srcpad.push_event(Event.eos())
-                break
-            with self._throttle_lock:
-                rate = self._throttle_rate
-            if rate and rate > 0:
-                now = time.monotonic()
-                if last is not None:
-                    wait = float(1 / rate) - (now - last)
-                    if wait > 0:
-                        time.sleep(wait)
-                last = time.monotonic()
-            if _admission.ACTIVE:
-                # deadline anchor for SLO-aware admission, stamped after
-                # the throttle and only while a controller is armed
-                buf.meta[_admission.INGRESS_TS_META] = time.monotonic()
-            tracer = _hooks.tracer
-            if tracer is not None:
-                # the trace starts here, after the throttle: the latency
-                # a sampled buffer reports is pipeline time
-                tracer.source_created(self, buf)
-            self.push(buf)
+                try:
+                    buf = self.create()
+                except Exception as e:  # noqa: BLE001 - report, don't kill pipeline
+                    self.post_error(e)
+                    break
+                if buf is None:
+                    self.srcpad.push_event(Event.eos())
+                    break
+                with self._throttle_lock:
+                    rate = self._throttle_rate
+                if rate and rate > 0:
+                    now = time.monotonic()
+                    if last is not None:
+                        wait = float(1 / rate) - (now - last)
+                        if wait > 0:
+                            with gate.outside():
+                                time.sleep(wait)
+                    last = time.monotonic()
+                if _admission.ACTIVE:
+                    # deadline anchor for SLO-aware admission, stamped
+                    # after the throttle and only while a controller is
+                    # armed
+                    buf.meta[_admission.INGRESS_TS_META] = time.monotonic()
+                tracer = _hooks.tracer
+                if tracer is not None:
+                    # the trace starts here, after the throttle: the
+                    # latency a sampled buffer reports is pipeline time
+                    tracer.source_created(self, buf)
+                if acct is None:
+                    self.push(buf)
+                else:
+                    acct.run_chain(self.push, buf, t0, c0)
+            finally:
+                gate.exit()
 
 
 class SinkElement(Element):
@@ -609,12 +643,12 @@ class SinkElement(Element):
             return
         tracer = _hooks.tracer
         if tracer is None:
-            ev.synchronize()
+            card_wait(ev.synchronize)
             return
         import time
 
         t0 = time.monotonic()
-        ev.synchronize()
+        card_wait(ev.synchronize)
         tracer.sink_fenced(self, time.monotonic() - t0, traces)
 
     def render(self, buf: Buffer) -> None:

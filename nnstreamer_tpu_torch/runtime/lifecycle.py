@@ -27,9 +27,13 @@ pool (``runtime/serving.py``):
 
 Every lifecycle event (stage, swap, canary, promote, rollback, errors) is
 kept in ``history`` and noted in the flight recorder
-(``obs/flightrec.py``).  Not in this slice (later work): the ``model``
-actuators of the control API and checkpoint step directories (the
-trainer's orbax layout).
+(``obs/flightrec.py``).  Every knob is exposed through the actuator API
+(``runtime/actuators.py``, kind ``model``): ``swap`` and ``canary`` take
+the model reference as a TEXT value, ``promote``/``rollback`` are
+numeric and playbook-drivable; a failed operation raises
+:class:`LifecycleError`, an ``ActuationError``.  Not in this slice:
+checkpoint step directories (the trainer's orbax layout) as swap
+sources.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..utils.stats import InvokeStats
+from .actuators import ActuationError
 
 _log = logging.getLogger("nnstreamer_tpu_torch")
 
@@ -56,9 +61,11 @@ MIN_CANARY_FRAMES = 16
 HISTORY_LEN = 64
 
 
-class LifecycleError(ValueError):
+class LifecycleError(ActuationError):
     """A lifecycle operation that cannot apply (bad canary grammar,
-    nothing staged, premature promote)."""
+    nothing staged, premature promote); an ``ActuationError``, so a
+    controller and the filter's RELOAD_MODEL count it as a failed
+    actuation."""
 
 
 def parse_canary(spec: str) -> Tuple[str, int]:
@@ -154,6 +161,7 @@ class VersionManager:
         self._rollback_ref: Optional[ModelVersion] = None
         self.last_swap_stall_s = 0.0
         self.history: List[dict] = []  # bounded provenance trail
+        self._actuators: Dict[str, Any] = {}
         self._seq = 0  # version sequence for auto tags
 
     # -- introspection --------------------------------------------------------
@@ -503,6 +511,89 @@ class VersionManager:
     def record_error(self, version: ModelVersion) -> None:
         with self._lock:
             version.errors += 1
+
+    # -- actuators (runtime/actuators.py kind "model") ------------------------
+
+    def actuators(self) -> Dict[str, Any]:
+        """The lifecycle's named knobs on this pool: ``swap`` /
+        ``canary`` (text-valued: the model reference), ``promote`` /
+        ``rollback`` (numeric, playbook-drivable).  Built once; state
+        (cooldowns) persists for the entry's lifetime."""
+        with self._lock:
+            if self._actuators:
+                return self._actuators
+        from .actuators import Actuator
+
+        label = self._entry_label()
+
+        def _swap(ref) -> None:
+            if isinstance(ref, str) and ref.strip():
+                self.stage(ref.strip())
+            self.swap()
+
+        def _canary(ref) -> None:
+            if isinstance(ref, (int, float)):
+                if float(ref) <= 0:
+                    # numeric 0 stops the canary without a verdict
+                    with self._lock:
+                        if self._canary is not None:
+                            self._canary.state = "staged"
+                            self._staged = self._canary
+                        self._canary = None
+                        self.canary_n = 0
+                        self._assign = {}
+                    return
+                self.start_canary(int(ref))
+                return
+            ref = str(ref).strip()
+            n = 0
+            if ":" in ref and "/" in ref.rsplit(":", 1)[-1]:
+                # trailing :1/N ratio on the reference (the version
+                # identity rides the reference's own @tag)
+                head, _, ratio = ref.rpartition(":")
+                try:
+                    _, n = parse_canary(ratio)
+                    ref = head
+                except LifecycleError:
+                    n = 0
+            if n == 0:
+                n = self.default_canary[1] or 2
+            if ref:
+                self.stage(ref)
+            self.start_canary(n)
+
+        built = {
+            "swap": Actuator(
+                "swap", "model", label,
+                get_fn=lambda: self.baseline.tag,
+                set_fn=_swap, unit="ref", text=True,
+                # revert of a swap IS a rollback: the retained prior
+                # executable state flips back (not a re-stage by tag)
+                snapshot_fn=lambda: self.baseline.tag,
+                restore_fn=lambda prior: self.rollback()),
+            "canary": Actuator(
+                "canary", "model", label,
+                get_fn=lambda: float(self.canary_n),
+                set_fn=_canary, unit="ref|1/N", text=True,
+                snapshot_fn=lambda: float(self.canary_n),
+                restore_fn=lambda prior: _canary(float(prior or 0))),
+            "promote": Actuator(
+                "promote", "model", label,
+                get_fn=lambda: 1.0 if self.canary_active else 0.0,
+                set_fn=lambda v: self.promote(force=v >= 2.0)
+                if v >= 0.5 else None,
+                lo=0.0, hi=2.0, unit="go"),
+            "rollback": Actuator(
+                "rollback", "model", label,
+                get_fn=lambda: 0.0,
+                set_fn=lambda v: self.rollback()
+                if v >= 0.5 else None,
+                lo=0.0, hi=1.0, unit="go"),
+        }
+        with self._lock:
+            if not self._actuators:
+                self._actuators = built
+            return self._actuators
 
 
 def _swap_state_of(sp: Any) -> Any:

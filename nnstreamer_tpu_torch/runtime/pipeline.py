@@ -11,8 +11,11 @@ caller asks for ``"cpu"``; asking for ``cuda`` without a card raises.
 While playing, a pipeline is registered (weakly) with the process metrics
 registry (``obs/metrics.py``); its first start also reads the chaos plan
 (``NNS_TPU_TORCH_CHAOS``), arms the flight recorder
-(``NNS_TPU_TORCH_FLIGHTREC_DIR``) and serves the registry
-(``NNS_TPU_TORCH_METRICS_PORT``).
+(``NNS_TPU_TORCH_FLIGHTREC_DIR``), serves the registry
+(``NNS_TPU_TORCH_METRICS_PORT``) and starts the watchdog
+(``NNS_TPU_TORCH_WATCH``), the host profiler (``NNS_TPU_TORCH_PROF``,
+``NNS_TPU_TORCH_PROF_DEEP_DIR``) and the controller
+(``NNS_TPU_TORCH_CTL``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict, Optional, Union
 
 from ..obs import metrics as _metrics
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profile import GATE
 from .element import Element, NegotiationError, SourceElement
 from .events import Message, MessageKind
 
@@ -146,12 +150,14 @@ class Pipeline:
                 1 for e in self.elements.values()
                 if not e.srcpads and e.sinkpads)
             # Start sinks/others before sources so data finds everything
-            # live.
-            for e in self.elements.values():
-                if not isinstance(e, SourceElement):
-                    e.start()
-            for s in sources:
-                s.start()
+            # live.  Starting loads models onto the card: inside the
+            # profiler's gate (utils/profile.py)
+            with GATE.inside():
+                for e in self.elements.values():
+                    if not isinstance(e, SourceElement):
+                        e.start()
+                for s in sources:
+                    s.start()
         except Exception:
             # A failed transition must not leak what already opened:
             # roll back to NULL (stop() is safe on never-started
@@ -163,10 +169,19 @@ class Pipeline:
         # hot path pays nothing
         _metrics.REGISTRY.register_pipeline(self)
         from ..chaos import hooks as _chaos_hooks
+        from ..obs import control as _control
         from ..obs import flightrec as _flightrec
+        from ..obs import prof as _prof
+        from ..obs import watch as _watch
 
         _chaos_hooks.maybe_install_from_env()
         _flightrec.maybe_arm_from_env()
+        # watchdog (_WATCH), host profiler (_PROF, _PROF_DEEP_DIR) and
+        # controller (_CTL): each starts from its environment key on the
+        # first pipeline start
+        _watch.maybe_start_from_env()
+        _prof.maybe_start_from_env()
+        _control.maybe_start_from_env()
         return self
 
     def stop(self) -> "Pipeline":

@@ -52,8 +52,13 @@ and the tracer, and its device time to the per-tenant split
 controller reads its p99 from the registry's histogram; a hard shed
 triggers the flight recorder.
 
-Not in this slice: the actuator API, placement over a mesh and the
-lockdep seam of the JAX package.
+Control (``runtime/actuators.py``, ``utils/lockdep.py``,
+``obs/prof.py``): :meth:`PoolEntry.actuators` gives the pool's named,
+bounded, reversible knobs (a ``max-batch`` actuation checks the fold of
+every bucket the new window can reach before the window may grow onto
+it); a window flush is the lock witness's dispatch fence; and each
+dispatch cycle is split into CPU, card wait and neither for the host
+profiler.  Not in this slice: placement over a mesh.
 """
 
 from __future__ import annotations
@@ -65,10 +70,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..chaos import hooks as _chaos
 from ..obs import hooks as _obs_hooks
+from ..obs import prof as _prof
 from ..obs import tenantstat as _tenantstat
 from ..obs import transfer as _xfer
 from ..obs.tracer import TRACE_META_KEY
+from ..utils import lockdep as _lockdep
 from ..utils.device import device_key
+from ..utils.profile import GATE
 from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
 from .admission import (
     INGRESS_TS_META,
@@ -143,6 +151,11 @@ class SharedBatcher(MicroBatcher):
             return True
         deadline = time.monotonic() + timeout_s
         with self._cv:
+            if sum(1 for it in self._pending if it[0] is stream) < limit:
+                return True
+        # the window drains on another thread: wait outside the
+        # profiler's gate (utils/profile.py)
+        with GATE.outside(), self._cv:
             while sum(1 for it in self._pending
                       if it[0] is stream) >= limit:
                 remain = deadline - time.monotonic()
@@ -190,6 +203,10 @@ class PoolEntry:
     """One pooled model: the shared sub-plugin instance, the attached
     streams, the cross-stream batcher, and pool-level stats."""
 
+    #: the host profiler's account of this pool's dispatch cycles
+    #: (``obs/prof.py``); None under the obs kill switch
+    _dispatch_acct = None
+
     def __init__(self, key: Tuple, subplugin: Any,
                  close_fn: Callable[[Any], None]):
         self.key = key
@@ -221,6 +238,10 @@ class PoolEntry:
         # model lifecycle (runtime/lifecycle.py), built on first use: a
         # pool that never swaps pays nothing for it
         self._lifecycle = None
+        # actuator set (runtime/actuators.py), built lazily and kept
+        # (cooldown and revert state persist across discoveries)
+        self._actuators: Dict[str, Any] = {}
+        self._dispatch_acct = _prof.dispatch_account(self.label())
 
     # -- streams -------------------------------------------------------------
 
@@ -471,6 +492,159 @@ class PoolEntry:
         FLIGHT.shed(self.label(), priority_name(pol.priority), reason,
                     total, hard=adm.shed_probability >= 1.0)
 
+    # -- the actuator API (runtime/actuators.py) ------------------------------
+
+    def _live_batcher(self) -> SharedBatcher:
+        from .actuators import ActuationError
+
+        b = self.batcher
+        if b is None:
+            raise ActuationError(
+                f"{self.label()}: no live cross-stream window "
+                f"(no batched stream attached, or the pool is "
+                f"tearing down)")
+        return b
+
+    def _live_admission(self) -> Any:
+        from .actuators import ActuationError
+
+        adm = self.admission
+        if adm is None:
+            raise ActuationError(
+                f"{self.label()}: no admission controller armed "
+                f"(no sharer set slo-ms)")
+        return adm
+
+    def actuators(self) -> Dict[str, Any]:
+        """The pool's named, bounded, reversible knobs: window
+        deadline, window size, coalescing pause, admission shed ramp,
+        per-stream queue limits.  Built once per entry (cooldown and
+        revert state persist); every knob reads its target through the
+        entry, so an actuation racing ``Pipeline.stop()`` raises a
+        clean ``ActuationError`` instead of steering a dead window."""
+        with self._lock:
+            acts = self._actuators
+        if acts:
+            # the window bound follows the live bucket set (a pool
+            # re-attached with new settings keeps its knobs' cooldown/
+            # revert state but must clamp against the NEW ceiling)
+            acts["max-batch"].hi = float(self.buckets[-1])
+            return acts
+        from .actuators import Actuator
+
+        label = self.label()
+
+        def _set_window_ms(v: float) -> None:
+            b = self._live_batcher()
+            b.timeout_s = v / 1e3
+            b.settle_s = min(b.settle_s, b.timeout_s)
+
+        def _window_cfg():
+            # snapshot BOTH knobs the setter touches: settle_s only
+            # ever shrinks under _set_window_ms, so a scalar prior
+            # could not restore it and "revert restores the exact
+            # prior config" would silently lie
+            b = self._live_batcher()
+            return (b.timeout_s, b.settle_s)
+
+        def _restore_window(prior) -> None:
+            b = self._live_batcher()
+            b.timeout_s, b.settle_s = prior
+
+        def _set_max_batch(v: float) -> None:
+            b = self._live_batcher()
+            n = int(round(v))
+            # every bucket a window of <= n frames can land on gets its
+            # fold checked HERE, on the actuating thread, before the
+            # window may grow onto it: a dispatch never runs an
+            # unchecked fold, and never pays for a check
+            self._check_buckets(
+                [k for k in self.buckets if k <= pick_bucket(n, self.buckets)])
+            b.max_batch = n
+
+        def _set_coalescing(v: float) -> None:
+            b = self._live_batcher()
+            if v >= 0.5:
+                b.resume()
+            else:
+                b.pause()
+
+        def _queue_limits() -> Dict[int, int]:
+            with self._lock:
+                return {sid: pol.queue_limit
+                        for sid, pol in self._policies.items()}
+
+        def _set_queue_limit(v: float) -> None:
+            self._live_admission()  # queue limits are an admission knob
+            with self._lock:
+                for pol in self._policies.values():
+                    pol.queue_limit = int(round(v))
+
+        def _restore_queue_limits(prior: Dict[int, int]) -> None:
+            # exact per-stream restore; streams that detached since the
+            # snapshot are simply gone (their policy died with them)
+            with self._lock:
+                for sid, pol in self._policies.items():
+                    if sid in prior:
+                        pol.queue_limit = prior[sid]
+
+        # max-batch upper bound: the LARGEST configured bucket — every
+        # window size up to it pads onto a configured bucket; growing
+        # past it would need a bucket the pool never declared
+        built = {
+            "window-ms": Actuator(
+                "window-ms", "pool", label,
+                get_fn=lambda: self._live_batcher().timeout_s * 1e3,
+                set_fn=_set_window_ms, lo=0.1, hi=1000.0, unit="ms",
+                snapshot_fn=_window_cfg, restore_fn=_restore_window),
+            "max-batch": Actuator(
+                "max-batch", "pool", label,
+                get_fn=lambda: float(self._live_batcher().max_batch),
+                set_fn=_set_max_batch, lo=1.0,
+                hi=float(self.buckets[-1]), unit="frames"),
+            "coalescing": Actuator(
+                "coalescing", "pool", label,
+                get_fn=lambda: 0.0 if self._live_batcher().paused
+                else 1.0,
+                set_fn=_set_coalescing, lo=0.0, hi=1.0, unit="on"),
+            "ramp-start": Actuator(
+                "ramp-start", "pool", label,
+                get_fn=lambda: self._live_admission().ramp_start,
+                set_fn=lambda v: self._live_admission()
+                .set_ramp_start(v),
+                lo=0.3, hi=0.99, unit="xSLO"),
+            "queue-limit": Actuator(
+                "queue-limit", "pool", label,
+                get_fn=lambda: float(max(
+                    _queue_limits().values(), default=0)),
+                set_fn=_set_queue_limit, lo=1.0, hi=65536.0,
+                unit="frames", snapshot_fn=_queue_limits,
+                restore_fn=_restore_queue_limits),
+        }
+        with self._lock:
+            # two concurrent first builds must converge on ONE set —
+            # split sets would split the cooldown/revert state the
+            # module promises to persist
+            if not self._actuators:
+                self._actuators = built
+            return self._actuators
+
+    def _check_buckets(self, buckets: List[int]) -> None:
+        """Take the fold verdict of every bucket in ``buckets`` that has
+        none yet, off the dispatch path (the serving instance and a
+        canary's shadow both): seeded frames of the serving schema run
+        once a window at each such bucket (``TorchCudaFilter``
+        ``check_buckets``).  A framework that keeps no verdicts has
+        nothing to check."""
+        instances = [self.subplugin]
+        lc = self._lifecycle
+        if lc is not None and lc.canary_active:
+            instances.append(lc._canary.subplugin)
+        for sp in instances:
+            check = getattr(sp, "check_buckets", None)
+            if check is not None:
+                check(buckets)
+
     # -- the cross-stream dispatch -------------------------------------------
 
     def _dispatch(self, items: List[Tuple[Any, Any, float, float]]
@@ -483,6 +657,14 @@ class PoolEntry:
         partitions by version (every stream maps to one version, so
         per-stream FIFO survives) and each part dispatches through its
         version's instance."""
+        # lockdep fence: a window flush is a device-dispatch point — a
+        # thread that reaches it holding any witnessed lock stalls
+        # every pooled stream for the invoke (utils/lockdep.py)
+        if _lockdep.ENABLED:
+            _lockdep.check_dispatch(f"pool:{self.label()}")
+        # the dispatch cycle's CPU / card-wait split (obs/prof.py)
+        acct = self._dispatch_acct
+        clocks = acct.begin() if acct is not None else None
         # transfer-label context: the dispatch runs on whichever producer
         # or timer thread closed the window; its crossings belong to the
         # POOL, not to that thread's element
@@ -495,15 +677,21 @@ class PoolEntry:
                 if tr is not None) or None
             xctx = _xfer.push_context("", self.label(), traces)
         try:
-            lc = self._lifecycle
-            if lc is None:
-                self._dispatch_group(items, self.subplugin, None)
-                return
-            for ver, sp, part in lc.partition(items):
-                self._dispatch_group(part, sp, ver)
+            self._dispatch_inner(items)
         finally:
             if pushed:
                 _xfer.pop_context(xctx)
+            if clocks is not None:
+                acct.end(clocks)
+
+    def _dispatch_inner(self, items: List[Tuple[Any, Any, float, float]]
+                        ) -> None:
+        lc = self._lifecycle
+        if lc is None:
+            self._dispatch_group(items, self.subplugin, None)
+            return
+        for ver, sp, part in lc.partition(items):
+            self._dispatch_group(part, sp, ver)
 
     def _dispatch_group(self, items: List[Tuple[Any, Any, float, float]],
                         sp: Any, version: Any) -> None:
@@ -706,6 +894,11 @@ class ModelPool:
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
+
+    def entries(self) -> List[PoolEntry]:
+        """The live entries, a copy taken under the pool lock."""
+        with self._lock:
+            return list(self._entries.values())
 
     def clear(self) -> None:
         """Drop every entry regardless of refcount (test teardown)."""

@@ -7,6 +7,8 @@ carries on quietly on the CPU.
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Optional, Union
 
 import torch
@@ -33,13 +35,62 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
+_card = threading.local()
+_hooks = None
+
+
+def _obs_hooks():
+    """``obs/hooks.py``, bound at the first card wait (the obs package
+    imports this module)."""
+    global _hooks
+    from ..obs import hooks
+
+    _hooks = hooks
+    return hooks
+
+
+def card_wait(fn, *args):
+    """``fn(*args)``: a call that blocks until the card finished queued
+    work (an event's ``synchronize``, a device→host copy, ``.item()``),
+    its wall time added to this thread's card-wait clock
+    (:func:`card_wait_seconds`).
+
+    Every card wait on the port's paths goes through here, for the host
+    profiler (``obs/prof.py``): a thread blocked in CUDA sits in C code
+    with the caller's Python frame on top, so the sampler would count it
+    as running.  With this function on top it is counted as waiting
+    (``card_wait`` is one of the profiler's wait leaves), and the element
+    loops move the clock's delta from their run side to their wait side.
+    Under ``NNS_TPU_TORCH_OBS_DISABLE`` it is ``fn(*args)`` alone."""
+    if (_hooks or _obs_hooks()).DISABLED:
+        return fn(*args)
+    t0 = time.monotonic()
+    c0 = time.thread_time()
+    try:
+        return fn(*args)
+    finally:
+        _card.c = getattr(_card, "c", 0.0) + (time.thread_time() - c0)
+        _card.s = getattr(_card, "s", 0.0) + (time.monotonic() - t0)
+
+
+def card_wait_seconds() -> float:
+    """Wall seconds this thread spent in :func:`card_wait` so far."""
+    return getattr(_card, "s", 0.0)
+
+
+def card_wait_cpu_seconds() -> float:
+    """Thread CPU seconds spent inside :func:`card_wait` so far (a
+    synchronize may spin while it waits)."""
+    return getattr(_card, "c", 0.0)
+
+
 def block_all(outs) -> None:
     """Wait until the card finished every tensor in ``outs``: one
     synchronize per CUDA device among them; CPU tensors are ready."""
     devices = {o.device for o in outs
                if isinstance(o, torch.Tensor) and o.is_cuda}
     for d in devices:
-        torch.cuda.synchronize(d)
+        card_wait(torch.cuda.synchronize, d)
 
 
 def parse_accel_kind(accl: str) -> Optional[str]:

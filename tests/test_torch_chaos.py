@@ -321,6 +321,9 @@ class TestPoolFaults:
                 if eb["sink"].pull(timeout=0.2) is not None:
                     got_b += 1
             assert got_b == 2
+            # a's frames may ride a later window than b's: its error
+            # lands when that window demuxes
+            _wait(lambda: errs["a"])
             assert errs["a"] and not errs["b"]
         finally:
             pa.stop()

@@ -32,9 +32,15 @@ copy rows over the same run, the FLOP count of a small model with both
 kernels against its hand count, the tracer's records closed at the sink's
 fence (each at least its window's device time, residencies summing to it),
 and the kill switch leaving the pool's dispatches unsampled.
+The active layer on the card: ``hw.probe()`` against ``torch.cuda``, a
+``max-batch`` actuation onto buckets no window reached (their fold
+verdicts taken before it returns, each frame within 1e-4 of the frame
+alone), and an alert-triggered deep capture whose trace holds both
+kernels' device rows.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -1021,3 +1027,135 @@ def test_kill_switch_keeps_pool_dispatch_async(card):
                          text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["0", "True"]
+
+
+# -- the active observability layer on the card -------------------------------
+
+
+def test_hw_probe_on_card(card):
+    from nnstreamer_tpu_torch.utils import hw
+
+    caps = hw.probe()
+    devs = caps["cuda"]
+    assert len(devs) == torch.cuda.device_count()
+    for i, d in enumerate(devs):
+        free, total = torch.cuda.mem_get_info(i)
+        assert d["kind"] == torch.cuda.get_device_name(i)
+        assert d["bytes_limit"] == total
+        assert 0 < d["bytes_in_use"] <= total
+    assert caps["cpu"] and hw.accelerator_available("gpu")
+
+
+def _vit_pool_rig(card, name, buckets):
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    register_vit(name, batch=1, image_size=32, patch=8, dim=256, depth=2,
+                 heads=2, mlp_dim=128, num_classes=5, seed=4)
+    desc = ("appsrc name=src ! queue ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 backend=cuda ! "
+            f"tensor_filter name=net framework=torch-cuda model={name} "
+            f"share-model=true batch={buckets[-1]} batch-timeout-ms=5 "
+            f"batch-buckets={','.join(map(str, buckets))} ! "
+            "appsink name=out max-buffers=256")
+    p = parse_launch(desc)
+    p["src"].spec = TensorsSpec.parse("3:32:32:1", "uint8")
+    return p
+
+
+def _frames(card, n, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 256, (1, 32, 32, 3), generator=g,
+                          dtype=torch.uint8).to(card) for _ in range(n)]
+
+
+def test_max_batch_actuation_onto_unchecked_bucket_on_card(card):
+    """max-batch steered onto buckets no window reached yet: their fold
+    verdicts are taken before the actuation returns, every later window
+    is a verdict hit, and each frame's logits equal the frame alone."""
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.runtime.actuators import find_actuators
+
+    p = _vit_pool_rig(card, "cuda_ctl_vit", (2, 4, 8))
+    frames = _frames(card, 24)
+    with p:
+        entry = p["net"].pool
+        sp = entry.subplugin
+        for i in range(2):
+            p["src"].push_buffer(Buffer.of(frames[i], pts=i))
+        first = [p["out"].pull(timeout=60) for _ in range(2)]
+        before = set(sp.hot_buckets())
+        (act,) = find_actuators("pool", entry.label(), "max-batch")
+        act.actuate(7)
+        assert {2, 4, 8} <= set(sp.hot_buckets()) and before != {2, 4, 8}
+        misses = sp.batch_cache_misses
+        for i in range(2, 24):
+            p["src"].push_buffer(Buffer.of(frames[i], pts=i))
+        rest = [p["out"].pull(timeout=60) for _ in range(22)]
+        assert sp.batch_cache_misses == misses
+        outs = first + rest
+        assert [b.pts for b in outs] == list(range(24))
+        logits = [b.tensors[0].torch().cpu() for b in outs]
+    # the same ViT (seed 4) on the same frames (seed 6), each alone
+    alone = _pooled_vit(card, 1, 24, batch=1, share=False)[0]
+    for i in range(24):
+        torch.testing.assert_close(logits[i], alone[i], atol=POOLED_TOL,
+                                   rtol=POOLED_TOL)
+
+
+def test_deep_capture_device_rows_on_card(card, tmp_path):
+    """An alert-triggered deep capture with the device session: the
+    trace it writes holds both hand-written kernels' device rows, and
+    frames pushed open-loop (every 4 ms, never waiting for a result)
+    while the session starts and stops all arrive, in order."""
+    import json
+    import threading
+
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.obs import prof
+
+    p = _vit_pool_rig(card, "cuda_deep_vit", (4,))
+    frames = _frames(card, 64, seed=7)
+    prof.DEEP.arm(str(tmp_path), seconds=0.5, hz=100.0, min_interval_s=0.0,
+                  device=True)
+    sent = []
+
+    def camera(stop):
+        while not stop.is_set():
+            i = len(sent)
+            p["src"].push_buffer(Buffer.of(frames[i % 64], pts=i))
+            sent.append(i)
+            time.sleep(0.004)
+
+    try:
+        with p:
+            for i in range(8):
+                p["src"].push_buffer(Buffer.of(frames[i], pts=i))
+            outs = [p["out"].pull(timeout=60) for _ in range(8)]
+            sent.extend(range(8))
+            stop = threading.Event()
+            cam = threading.Thread(target=camera, args=(stop,))
+            cam.start()
+            try:
+                assert prof.deep_trigger("card")
+                deadline = time.monotonic() + 30
+                while not prof.DEEP.captures and \
+                        time.monotonic() < deadline:
+                    outs.append(p["out"].pull(timeout=60))
+            finally:
+                stop.set()
+                cam.join(10)
+            while len(outs) < len(sent):
+                outs.append(p["out"].pull(timeout=60))
+        assert [b.pts for b in outs] == list(range(len(sent)))
+        assert prof.DEEP.device_failures == 0, prof.DEEP.last_device_error
+        (path,) = prof.DEEP.device_traces
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        assert any("scale_bias_cast" in n for n in names), sorted(names)[:20]
+        assert any("flash_attention" in n for n in names), sorted(names)[:20]
+    finally:
+        prof.DEEP.disarm()
+        prof.DEEP.clear()

@@ -65,7 +65,11 @@ def test_port_imports_with_jax_blocked():
                 "obs.tracectx", "obs.hwspec", "obs.transfer",
                 "obs.devicemem", "obs.xlacost", "obs.stagestat",
                 "obs.tenantstat", "obs.metrics", "obs.flightrec",
-                "chaos", "chaos.plan", "chaos.hooks"):
+                "chaos", "chaos.plan", "chaos.hooks", "utils.profile",
+                "utils.hw", "obs.prof", "chaos.retrypolicy",
+                "runtime.actuators", "utils.lockdep", "obs.forecast",
+                "obs.watch", "obs.control", "obs.scrape", "obs.top",
+                "obs.benchgate"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 
@@ -144,14 +148,15 @@ def test_filter_accelerator_grammar(monkeypatch):
 
 
 def test_obs_and_chaos_read_only_the_ports_keys():
-    """The obs and chaos modules read environment keys of the port's
-    prefix only, and the JAX package's keys leave the port as it is: no
-    kill switch, no chaos plan, no flight recorder armed, no metrics
-    endpoint, no price, text logs."""
+    """The obs, chaos and utils modules read environment keys of the
+    port's prefix only, and the JAX package's keys leave the port as it
+    is: no kill switch, no chaos plan, no flight recorder armed, no
+    metrics endpoint, no price, text logs, no host profiler, watchdog,
+    controller or lock witness."""
     import re
 
     keys = set()
-    for sub in ("obs", "chaos"):
+    for sub in ("obs", "chaos", "utils"):
         for root, _, files in os.walk(os.path.join(PKG, sub)):
             for f in files:
                 if f.endswith(".py"):
@@ -174,11 +179,17 @@ def test_obs_and_chaos_read_only_the_ports_keys():
         "p.start(); p.stop()\n"
         "h = [x for x in logging.getLogger('nnstreamer_tpu_torch').handlers"
         " if getattr(x, log._HANDLER_TAG, False)][0]\n"
+        "from nnstreamer_tpu_torch.obs import prof, watch, control\n"
+        "from nnstreamer_tpu_torch.utils import lockdep\n"
+        "import threading\n"
         "print(json.dumps([hooks.DISABLED, transfer.ACTIVE,"
         " chaos.active_plan() is None, FLIGHT.armed,"
         " REGISTRY._server is None, hwspec.chip_hour_price(),"
         " type(h.formatter).__name__,"
-        " logging.getLogger('nnstreamer_tpu_torch').level]))\n")
+        " logging.getLogger('nnstreamer_tpu_torch').level,"
+        " prof.PROFILER.running, prof.DEEP.armed, watch.WATCH is None,"
+        " control.CONTROLLER is None, lockdep.enabled(),"
+        " type(threading.Lock()).__name__]))\n")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("NNS_TPU_")}
     jax_keys = {"NNS_TPU_OBS_DISABLE": "1",
@@ -186,7 +197,11 @@ def test_obs_and_chaos_read_only_the_ports_keys():
                 "NNS_TPU_FLIGHTREC_DIR": os.path.join(REPO, "build", "fr"),
                 "NNS_TPU_METRICS_PORT": "0",
                 "NNS_TPU_CHIP_HOUR_USD": "2.0",
-                "NNS_TPU_LOG_JSON": "1", "NNS_TPU_LOG_LEVEL": "DEBUG"}
+                "NNS_TPU_LOG_JSON": "1", "NNS_TPU_LOG_LEVEL": "DEBUG",
+                "NNS_TPU_PROF": "47",
+                "NNS_TPU_PROF_DEEP_DIR": os.path.join(REPO, "build", "dp"),
+                "NNS_TPU_WATCH": "0.05", "NNS_TPU_CTL": "0.05",
+                "NNS_TPU_LOCKDEP": "1"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO,
                          env={**env, **jax_keys})
@@ -194,4 +209,5 @@ def test_obs_and_chaos_read_only_the_ports_keys():
     import json
 
     assert json.loads(out.stdout) == [False, True, True, False, True, 0.0,
-                                      "Formatter", 30]
+                                      "Formatter", 30, False, False, True,
+                                      True, False, "lock"]

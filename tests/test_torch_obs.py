@@ -15,7 +15,8 @@ consistent snapshot, the latency-report threshold) and the log module
 (idempotent configure, JSON lines).  The port alone: ``/snapshot`` and
 ``/healthz`` over HTTP, the snapshot's tables, the trace context blobs
 and their clock math, and the kill switch read from the port's own key.
-The nns-top tests wait for the port's ``top``.
+The nns-top tests of ``tests/test_obs.py`` run in
+``tests/test_torch_top.py``.
 """
 
 import json
@@ -268,16 +269,19 @@ def test_snapshot_and_exposition_carry_element_stats(P):
 
 def test_port_snapshot_tables():
     """The port's snapshot keeps the JAX package's keys for every table
-    it has; the tables of later slices are absent, not stubbed."""
+    it has; the tables of later slices (mesh placement, XLA compiles)
+    are absent, not stubbed."""
     snap = tobs.REGISTRY.snapshot()
     jsnap = jobs.REGISTRY.snapshot()
     assert snap["version"] == jsnap["version"]
     assert set(snap) == {"version", "time", "host", "pipelines", "pools",
                          "models", "links", "transfers", "device_memory",
-                         "executables", "stages", "tenants", "metrics"}
+                         "executables", "stages", "tenants", "forecasts",
+                         "control", "profile", "metrics"}
     assert set(snap) <= set(jsnap)
-    assert set(jsnap) - set(snap) == {"compiles", "mesh", "forecasts",
-                                      "control", "profile"}
+    assert set(jsnap) - set(snap) == {"compiles", "mesh"}
+    for table in ("forecasts", "control", "profile"):
+        assert set(snap[table]) == set(jsnap[table]), table
     json.dumps(snap)
 
 
@@ -326,8 +330,14 @@ def test_port_http_snapshot_healthz_and_404():
             health = json.loads(r.read().decode())
         assert health["status"] == "ok"
         assert health["device_memory"] == []  # no card in use
+        # the active layer's summaries, present with nothing running
+        assert health["alerts"]["firing"] == 0
+        assert health["prof"]["running"] is False
+        assert {"capacity", "control"} <= set(health)
+        with urllib.request.urlopen(base + "/prof", timeout=5) as r:
+            assert r.headers["Content-Type"].startswith("text/plain")
         with pytest.raises(urllib.error.HTTPError):
-            urllib.request.urlopen(base + "/prof", timeout=5)
+            urllib.request.urlopen(base + "/nothing-here", timeout=5)
     finally:
         srv.close()
 
