@@ -8,6 +8,7 @@
     python3 chip_smoke.py --elements                  # build + phase 13 only
     python3 chip_smoke.py --obs                       # build + phase 14 only
     python3 chip_smoke.py --control                   # build + phase 15 only
+    python3 chip_smoke.py --repairs                   # build + phase 16 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -17,7 +18,8 @@ detect → tensor_region → tensor_crop cascade, and the stream elements
 (aggregated camera frames into a TorchScript classifier, a gated camera,
 two cameras in one window), the observability layer on the serving
 and detection paths, and the active layer (host profiler, watchdog,
-controller, lock witness, ``nns-top``) on the serving path — through
+controller, lock witness, ``nns-top``) on the serving path, and the
+repaired elements with the static analyzer against all of them — through
 ``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
@@ -224,7 +226,11 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    at most the process's CPU delta (+2%), every card wait on the wait
    side (the sink's fence, the label's drain, the sampled dispatch's
    synchronize all go through ``card_wait``), the pool's dispatch cycle
-   split into CPU, card wait and neither; three interleaved off/on pairs
+   split into CPU, card wait and neither, and one more element loop (a
+   queue before the card transform and an appsink, whose fence waits on
+   every frame) with card wait in its account, on the wait side, so the
+   gate never rests on a window happening to fill on an element thread
+   and dispatch inline there; three interleaved off/on pairs
    for the sampler's overhead, printed beside the JAX package's 3% bound
    as a reading; an alert (a threshold rule on the pool's frames) starts
    a deep capture whose ``torch.profiler`` trace must hold both kernels'
@@ -246,8 +252,35 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    (``--control-lockdep-child``): no lock-order cycle, no lock held
    across a dispatch but the marked flush lock.  (e) ``nns-top --once
    --json`` against ``serve_metrics`` while slo-burn fires: a row for
-   every element and the pool, and slo-burn firing in ALERTS;
-16. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+   every element and the pool, and slo-burn firing in ALERTS.  15a's
+   deep capture runs under the default rule pack plus bench_mttr's
+   pool-stall, its trigger after ``CTL_BASELINE_S`` of traffic: the
+   alerts that fire from the trigger to one ``for=`` window after the
+   capture's last hold are printed;
+16. repairs and the analyzer: (a) phase 4's SSD path with the host
+   ``bounding_boxes`` decoder behind ``queue prefetch-host=`` (false and
+   true in turns, ``PREFETCH_WINDOWS`` windows each): the sink bytes of
+   every run equal; with the prefetch, the transfer ledger shows each
+   of the filter's four outputs crossing once a window at the queue
+   (reason ``prefetch``) and nothing at the decoder, without it the
+   decoder's packed drain crossing once a window, the same bytes; a
+   torch.profiler window of the prefetch run shows the device→host copies
+   on a stream other than the one the filter's kernels ran on, and the
+   card's busy share; the p50 window (host, sink arrivals) of each
+   setting.  (b) ``FilterSingle`` on phase 7's ViT (``vit_b64``): its
+   logits for window 0's normalized frames against the pipeline's within
+   phase 7's bf16 tolerance (5e-2), ``flash_attention`` launched depth
+   times per invoke, the p50 of its ``InvokeStats``.  (c) ``to_dot`` of
+   the running 16a pipeline: every link with negotiated caps.  (d)
+   ``analyze_description`` over every distinct description this process
+   passed to ``parse_launch`` in phases 4–16 (recorded as they ran):
+   no error; the warnings and info counted; the static corpus
+   (``chip_smoke.py``'s literals and the element-doc examples) clean;
+   ``--self --concurrency --strict`` over the port exits 0; neither
+   kernel's launch counter moves across the lint.  (e) ``nns-torch-lint``
+   and ``nnstreamer-tpu-torch-check --json`` in children: the check
+   lists the card;
+17. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -258,8 +291,9 @@ card.  ``--serving-legs DIR`` runs nothing but phase 8's shared and
 unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
-line); ``--elements``, ``--obs`` and ``--control`` do the same for
-phases 13, 14 and 15.
+line); ``--elements``, ``--obs``, ``--control`` and ``--repairs`` do the
+same for phases 13, 14, 15 and 16 (phase 16 alone analyzes only its own
+descriptions).
 """
 
 from __future__ import annotations
@@ -4364,6 +4398,8 @@ CTL_DETECT_S = 20.0         # bench_mttr's detect and recover deadlines
 CTL_RECOVER_S = 30.0
 CTL_HOLD_S = 0.5            # recovery must hold this long
 CTL_CLEAN_MAX_S = 12.0      # the clean leg: the scripts' span, capped
+CTL_BASELINE_S = 3.0        # open-loop traffic before the deep capture
+CTL_FENCE_FRAMES = 32       # frames through the fenced element loop
 
 
 def _ctl_sync() -> None:
@@ -4494,13 +4530,48 @@ def _dispatch_delta(d0, label):
     return d
 
 
+def ctl_fence_row(pools) -> dict:
+    """One element loop that waits on the card on every frame: the
+    queue's thread runs the transform on the card and the appsink, whose
+    fence waits for the previous frame's event (``runtime/element.py``
+    ``SinkElement``).  Returns that queue's account over
+    CTL_FENCE_FRAMES frames of the first stream's pool."""
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.obs import prof
+    from nnstreamer_tpu_torch.runtime import Pipeline, parse_launch
+
+    p = parse_launch(
+        "appsrc name=src max-buffers=32 ! queue name=q "
+        "max-size-buffers=32 ! tensor_transform name=norm "
+        f"mode=arithmetic option={NORM} backend=cuda ! appsink name=out "
+        "max-buffers=128", pipeline=Pipeline(name="ctlfence",
+                                             device=CTL_DEVICE))
+    p["src"].spec = TensorsSpec.parse(f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
+    rows0 = {(r["pipeline"], r["element"]): r for r in prof.account_rows()}
+    try:
+        p.start()
+        outs = closed_loop([p], pools[:1], 0, CTL_FENCE_FRAMES,
+                           SERVE_DEPTH)[0]
+        if [b.pts for b in outs[0]] != list(range(CTL_FENCE_FRAMES)):
+            raise RuntimeError("control (a): fenced loop: pts out of order "
+                               "or lost")
+        p["src"].end_of_stream()
+        if not p.wait_eos(timeout=120):
+            raise RuntimeError("control (a): fenced loop: no EOS")
+    finally:
+        p.stop()
+    (row,) = [r for r in _acct_delta(rows0, {"ctlfence"})
+              if r["element"] == "q"]
+    return row
+
+
 def ctl_hostprof(card: str, power: str):
     """15a: the host profiler on the shared leg (see the module doc)."""
     import tempfile
     import threading
 
     from nnstreamer_tpu_torch.obs import prof
-    from nnstreamer_tpu_torch.obs.watch import AlertRule, Watch
+    from nnstreamer_tpu_torch.obs.watch import AlertRule, Watch, default_rules
 
     pools = serve_pools(SERVE_STREAMS, CTL_DEVICE)[0]
     pipes = ctl_pipes("ctl", SERVE_STREAMS)
@@ -4565,12 +4636,18 @@ def ctl_hostprof(card: str, power: str):
         if not exact:
             raise RuntimeError(f"control (a): accounts' CPU {total_cpu} s "
                                f"above the process's {on['process_cpu_s']}")
+        # every dispatch waits on the card; a leg's element loop does
+        # only when a window fills and dispatches inline on it, which a
+        # leg may never do, so one more loop waits on every frame (the
+        # sink's fence) and its account must show it, on the wait side
+        fence = ctl_fence_row(pools)
         card_wait = sum(r["card_wait_s"] for r in rows)
         _ctl_card_gate(
-            card_wait > 0 and on["dispatch"]["card_wait_s"] > 0
-            and all(r["wait_s"] >= r["card_wait_s"] - 1e-9 for r in rows),
+            fence["card_wait_s"] > 0 and on["dispatch"]["card_wait_s"] > 0
+            and all(r["wait_s"] >= r["card_wait_s"] - 1e-9
+                    for r in rows + [fence]),
             f"control (a): card waits not on the wait side: {rows} "
-            f"{on['dispatch']}", "card waits on the wait side")
+            f"{fence} {on['dispatch']}", "card waits on the wait side")
         if on["summary"]["samples"] <= 0 or on["summary"]["errors"]:
             raise RuntimeError(f"control (a): sampler {on['summary']}")
         # interleaved A/B of the same leg: off/on, on/off
@@ -4591,10 +4668,18 @@ def ctl_hostprof(card: str, power: str):
         prof.DEEP.clear()
         prof.DEEP.arm(deep_dir, seconds=CTL_DEEP_S, hz=200.0,
                       min_interval_s=3600.0, device=True)
-        w = Watch(rules=[AlertRule(
+        # the default pack and bench_mttr's pool-stall watch the capture;
+        # the trigger waits CTL_BASELINE_S of traffic so the anomaly rules
+        # hold a baseline before the gate's holds
+        watched = default_rules() + [AlertRule(
+            name="pool-stall", kind="threshold", metric="nns_pool_pending",
+            op=">=", value=16.0, for_s=0.1, severity="critical")]
+        window_s = max(r.for_s for r in watched)
+        w = Watch(rules=watched + [AlertRule(
             name="serving-live", kind="threshold",
             metric="nns_pool_frames_total", op=">", value=0.0,
-            for_s=0.0, severity="info")], interval_s=CTL_INTERVAL_S)
+            for_s=CTL_BASELINE_S, severity="info")],
+            interval_s=CTL_INTERVAL_S)
         # open-loop cameras through the capture: frames keep arriving
         # while the session starts and stops (the gate holds them back;
         # none may be lost or reordered)
@@ -4609,17 +4694,32 @@ def ctl_hostprof(card: str, power: str):
                 fed["error"] = e
 
         th = threading.Thread(target=feed, name="ctl-feed")
+        def fired():
+            return {a["rule"]: a["fired"] for a in w.alerts()
+                    if a["rule"] != "serving-live"}
+
         w.start()
         th.start()
+        before = after = None
         try:
             deadline = time.monotonic() + 60
+            while not prof.DEEP.episodes and time.monotonic() < deadline:
+                before = fired()
+                time.sleep(0.02)
             while not prof.DEEP.captures and time.monotonic() < deadline:
                 time.sleep(0.05)
+            # one for= window of traffic after the stop's hold, watched
+            time.sleep(window_s)
+            after = fired()
         finally:
             stop.set()
             th.join(timeout=300)
             w.stop()
             prof.DEEP.disarm()
+        hold_alerts = {k: v - (before or {}).get(k, 0)
+                       for k, v in (after or {}).items()
+                       if v - (before or {}).get(k, 0) > 0}
+
         if "error" in fed or th.is_alive():
             raise RuntimeError(f"control (a): open-loop feed through the "
                                f"capture: {fed.get('error', 'hung')}")
@@ -4660,6 +4760,8 @@ def ctl_hostprof(card: str, power: str):
     res = {"fps": on["fps"], "process_cpu_s": on["process_cpu_s"],
            "element_cpu_s": total_cpu, "attribution_exact": exact,
            "elements": elements, "dispatch": disp,
+           "fenced_loop": {k: fence[k] for k in ("cpu_s", "run_s", "wait_s",
+                                                 "card_wait_s", "iters")},
            "sampler": on["summary"], "ab": ab,
            "ab_overhead_frac": overhead, "ab_bound": CTL_AB_BOUND,
            "sampler_self_cpu_frac": max(self_fracs),
@@ -4667,6 +4769,10 @@ def ctl_hostprof(card: str, power: str):
                prof.DEEP.device_traces[0], HERE), "kernel_rows": deep_rows,
                "kernel_events": len(knames),
                "gate_holds_ms": [h * 1e3 for h in prof.DEEP.gate_holds_s],
+               "alerts_after_hold": hold_alerts,
+               "alerts_before_trigger": {k: v for k, v in
+                                         (before or {}).items() if v},
+               "watched_rules": len(watched), "for_window_s": window_s,
                "open_loop_fps": CAMERA_FPS,
                "open_loop_frames": sum(fed["sent"])}}
     print(f"control (a) host profiler at {CTL_PROF_HZ:g} Hz on the shared "
@@ -4681,6 +4787,11 @@ def ctl_hostprof(card: str, power: str):
               f"{e['run_s']:.4f} s wait {e['wait_s']:.4f} s (card "
               f"{e['card_wait_s']:.4f} s) samples {e['samples']}",
               flush=True)
+    fl = res["fenced_loop"]
+    print(f"control (a) ctlfence:q, the fenced loop ({fl['iters']} frames): "
+          f"cpu {fl['cpu_s']:.4f} s run {fl['run_s']:.4f} s wait "
+          f"{fl['wait_s']:.4f} s (card {fl['card_wait_s']:.4f} s) "
+          f"[{card}, {power}]", flush=True)
     print(f"control (a) pool dispatch cycle ({disp['dispatches']} "
           f"dispatches): {disp['wall_ms']:.3f} ms = CPU "
           f"{disp['cpu_ms']:.3f} + card wait {disp['card_wait_ms']:.3f} + "
@@ -4699,6 +4810,13 @@ def ctl_hostprof(card: str, power: str):
           f"while {len(pipes)} open-loop cameras at {CAMERA_FPS} frames/s "
           f"sent {dc['open_loop_frames']} frames, none lost or reordered "
           f"[{card}, {power}]", flush=True)
+    print(f"control (a) alerts of the default pack and pool-stall "
+          f"({dc['watched_rules']} rules) that fired from the capture's "
+          f"trigger to one for= window ({dc['for_window_s']:g} s) after its "
+          f"last hold: {sum(dc['alerts_after_hold'].values())} "
+          f"{dc['alerts_after_hold']} (before the trigger, after "
+          f"{CTL_BASELINE_S:g} s of traffic: "
+          f"{dc['alerts_before_trigger']}) [{card}, {power}]", flush=True)
     return res
 
 
@@ -5289,6 +5407,395 @@ def phase_control(card: str, power: str):
     return out
 
 
+# -- phase 16: queue prefetch-host=, FilterSingle, to_dot and the analyzer ---
+
+PREFETCH_WINDOWS = 12       # windows of each 16a run
+PREFETCH_RUNS = ("false", "true", "true", "false")
+PREFETCH_PROFILED = (3, 8)  # sink arrivals the 16a profile spans
+SINGLE_INVOKES = 8          # 16b: FilterSingle invokes timed
+SINGLE_TOL = 5e-2           # phase 7's bf16 tolerance, kernel vs plain
+PREFETCH_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=net framework=torch-cuda model={model} ! "
+    "queue name=q prefetch-host={pf} ! "
+    "tensor_decoder name=dec mode=bounding_boxes "
+    "option1=mobilenet-ssd-postprocess option4={s}:{s} option5={s}:{s} ! "
+    "appsink name=out max-buffers={sink}")
+
+#: (phase, description) of every parse_launch call of this process, in
+#: order: the corpus phase 16d analyzes
+LAUNCHED = []
+PHASE = ["-"]
+
+
+def record_launches() -> None:
+    """Make every ``parse_launch`` of this process record its description
+    in :data:`LAUNCHED` under the running phase (:data:`PHASE`)."""
+    import nnstreamer_tpu_torch.runtime as runtime
+    import nnstreamer_tpu_torch.runtime.parser as parser
+
+    real = parser.parse_launch
+
+    def recording(desc, *args, **kw):
+        LAUNCHED.append((PHASE[0], desc))
+        return real(desc, *args, **kw)
+
+    runtime.parse_launch = parser.parse_launch = recording
+
+
+def prefetch_pipe(pf: str, n: int) -> str:
+    return PREFETCH_PIPE.format(n=n, norm=NORM, model="ssd_mobilenet_v2",
+                                pf=pf, s=SIZE, sink=n + 4)
+
+
+def d2h_rows():
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+
+    return sorted((r["source"], r["reason"], r["count"], r["bytes"])
+                  for r in xfer.LEDGER.snapshot() if r["direction"] == "d2h")
+
+
+def copy_streams(trace_path: str):
+    """(device→host copy streams, the filter's kernel streams, copies) of a
+    torch.profiler Chrome trace: the filter's streams are those its fused
+    prologue (``scale_bias_cast``) ran on."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    d2h = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "DtoH" in e.get("name", "")]
+    filt = {e["args"].get("stream") for e in events
+            if e.get("cat") == "kernel"
+            and "scale_bias_cast" in e.get("name", "")}
+    return {e["args"].get("stream") for e in d2h}, filt, len(d2h)
+
+
+def repairs_prefetch(frames, card: str, power: str):
+    """16a: the SSD detection path with the host decoder behind
+    ``queue prefetch-host=``, false and true in turns."""
+    import hashlib
+
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    n = PREFETCH_WINDOWS
+    runs, digests, dot = [], {}, {}
+    for pf in PREFETCH_RUNS:
+        def setup(p, pf=pf):
+            stamp_times(p)
+            if pf == "true" and not dot:
+                sink, render = p["out"], p["out"].render
+
+                def first(b):
+                    dot.setdefault("text", p.to_dot())
+                    render(b)
+
+                sink.render = first
+
+        xfer.LEDGER.clear()
+        kernels.scale_bias_cast.launches = 0
+        p, bufs, secs = run_pipeline(prefetch_pipe(pf, n), frames, n,
+                                     setup=setup)
+        launches = kernels.scale_bias_cast.launches
+        check_fused(p, None, f"repairs (a) prefetch-host={pf}")
+        if launches < n:
+            raise RuntimeError(f"repairs (a): scale_bias_cast launched "
+                               f"{launches} times for {n} windows")
+        rows = d2h_rows()
+        digest = hashlib.sha256()
+        for b in bufs:
+            for t in b.tensors:
+                digest.update(t.tobytes())
+        digests.setdefault(pf, set()).add(digest.hexdigest())
+        t_sink = [b.meta["t_sink"] for b in bufs]
+        p50 = statistics.median(b - a for a, b in zip(t_sink[1:],
+                                                       t_sink[2:])) * 1e3
+        runs.append({"prefetch_host": pf, "p50_window_ms": p50,
+                     "host_s": secs, "launches": launches, "d2h": rows})
+        print(f"repairs (a) prefetch-host={pf}: p50 window {p50:.3f} ms "
+              f"(host, sink arrivals 2..{n}), start→EOS {secs:.2f} s, "
+              f"scale_bias_cast launches {launches}, device→host rows "
+              f"(source, reason, count, bytes) {rows} [{card}, {power}]",
+              flush=True)
+        del bufs
+    if len(set.union(*digests.values())) != 1:
+        raise RuntimeError(f"repairs (a): sink bytes differ between runs: "
+                           f"{digests}")
+    by = {pf: [r for r in runs if r["prefetch_host"] == pf][0]["d2h"]
+          for pf in ("false", "true")}
+    outs = 4  # boxes, classes, scores, num
+    want_pf = [("q", "prefetch", outs * n)]
+    if [r[:3] for r in by["true"]] != want_pf:
+        raise RuntimeError(f"repairs (a): with prefetch-host=true the "
+                           f"device→host crossings are {by['true']}, not "
+                           f"{want_pf}")
+    if [r[:3] for r in by["false"]] != [("dec", "drain", n)]:
+        raise RuntimeError(f"repairs (a): without prefetch the decoder's "
+                           f"packed drain should cross once a window: "
+                           f"{by['false']}")
+    if by["true"][0][3] != by["false"][0][3]:
+        raise RuntimeError(f"repairs (a): device→host bytes differ: "
+                           f"{by['true']} vs {by['false']}")
+    # a profile window of the prefetch run: the copies' streams
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    p = parse_launch(prefetch_pipe("true", n), device="cuda")
+    p["src"].frames = frames
+    p["src"].pool_size = len(frames)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    seen, host = [0], []
+    sink, render = p["out"], p["out"].render
+    first, last = PREFETCH_PROFILED
+
+    def profiled(b):
+        # start/stop on the streaming thread (see steady_profile)
+        seen[0] += 1
+        if seen[0] == first:
+            prof.start()
+            host.append(time.perf_counter())
+        elif seen[0] == last:
+            host.append(time.perf_counter())
+            prof.stop()
+        render(b)
+
+    sink.render = profiled
+    p.start()
+    try:
+        if not p.wait_eos(timeout=600):
+            raise RuntimeError("repairs (a) profile: no EOS")
+    finally:
+        p.stop()
+    while p["out"].pull(timeout=0) is not None:
+        pass
+    busy, span, _ = device_busy(prof.events())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prefetch.json")
+        prof.export_chrome_trace(path)
+        copy_s, filt_s, n_copies = copy_streams(path)
+    if not copy_s or not filt_s or copy_s & filt_s:
+        raise RuntimeError(f"repairs (a): device→host copies on streams "
+                           f"{copy_s}, the filter's kernels on {filt_s}: "
+                           "the copies must run on a stream of their own")
+    host_ms = (host[1] - host[0]) * 1e3
+    print(f"repairs (a) profile, sink arrivals {first}..{last}: "
+          f"{n_copies} device→host copies on stream(s) {sorted(copy_s)}, "
+          f"the filter's kernels on stream(s) {sorted(filt_s)}; device busy "
+          f"{busy:.3f} ms of a {span:.3f} ms device span (share "
+          f"{busy / span:.3f}), {host_ms:.3f} ms of host time "
+          f"[{card}, {power}]", flush=True)
+    if "text" not in dot or "?" in dot["text"]:
+        raise RuntimeError(f"repairs (c): to_dot of the running pipeline "
+                           f"lacks negotiated caps: {dot}")
+    links = [ln for ln in dot["text"].splitlines() if "->" in ln]
+    if len(links) != 5:
+        raise RuntimeError(f"repairs (c): {len(links)} links in the dot, "
+                           "not 5")
+    print("repairs (c) to_dot of the running prefetch pipeline (every link "
+          "with its negotiated caps):\n" + dot["text"], flush=True)
+    p50s = {pf: statistics.median(r["p50_window_ms"] for r in runs
+                                  if r["prefetch_host"] == pf)
+            for pf in ("false", "true")}
+    return {"runs": runs, "p50_window_ms": p50s, "d2h": by,
+            "busy_ms": busy, "span_ms": span, "busy_share": busy / span,
+            "copy_streams": sorted(copy_s), "filter_streams": sorted(filt_s),
+            "launches": sum(r["launches"] for r in runs), "dot_links":
+            len(links)}
+
+
+def repairs_single(card: str, power: str):
+    """16b: ``FilterSingle`` on the full-width ViT against the pipeline."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import DType
+    from nnstreamer_tpu_torch.elements.filter import FilterSingle
+    from nnstreamer_tpu_torch.elements.transform import (
+        _fold_affine,
+        parse_arith_ops,
+    )
+    from nnstreamer_tpu_torch.filters.torch_cuda import get_model
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.ops import kernels
+
+    if get_model("vit_b64") is None:
+        register_vit("vit_b64", batch=VIT_BATCH, image_size=VIT_SIZE,
+                     seed=SEED, **VIT)
+    rng = np.random.default_rng(SEED + 2)
+    frames = [rng.integers(0, 256, (VIT_BATCH, VIT_SIZE, VIT_SIZE, 3),
+                           dtype=np.uint8) for _ in range(2)]
+    _, bufs, _ = run_pipeline(vit_pipe("vit_b64", 2), frames, 2)
+    want = bufs[0].tensors[0].torch()
+    # the pipeline's fused prologue, as one kernel call (not a path launch)
+    a, b, _ = _fold_affine(parse_arith_ops(NORM), DType.UINT8)
+    x = kernels.scale_bias_cast(torch.from_numpy(frames[0]).cuda(), a, b / a)
+    depth = VIT["depth"]
+    with FilterSingle(framework="torch-cuda", model="vit_b64") as fs:
+        if fs.subplugin.device.type != "cuda":
+            raise RuntimeError(f"repairs (b): FilterSingle placed on "
+                               f"{fs.subplugin.device}, not the card")
+        fs.invoke([x])  # warm
+        kernels.flash_attention.launches = 0
+        outs = [fs.invoke([x])[0] for _ in range(SINGLE_INVOKES)]
+        launches = kernels.flash_attention.launches
+        with fs.stats._lock:
+            lat_us = sorted(list(fs.stats._recent)[-SINGLE_INVOKES:])
+    if launches != depth * SINGLE_INVOKES:
+        raise RuntimeError(f"repairs (b): flash_attention launched "
+                           f"{launches} times for {SINGLE_INVOKES} invokes "
+                           f"of depth {depth}")
+    got = outs[0]
+    err = float((got - want).abs().max())
+    exact = bool(torch.equal(got, want))
+    if not torch.allclose(got, want, atol=SINGLE_TOL, rtol=SINGLE_TOL) or \
+            not all(torch.equal(o, got) for o in outs):
+        raise RuntimeError(f"repairs (b): FilterSingle's logits differ from "
+                           f"the pipeline's window 0 by {err}")
+    p50 = statistics.median(lat_us) / 1e3
+    print(f"repairs (b) FilterSingle on vit_b64 ({VIT}, batch {VIT_BATCH}, "
+          f"{VIT_SIZE}x{VIT_SIZE}): logits vs the pipeline's window 0 "
+          f"max_abs_diff={err} (equal: {exact}); flash_attention +{depth} "
+          f"per invoke ({launches} in {SINGLE_INVOKES}); InvokeStats p50 "
+          f"{p50:.3f} ms over {len(lat_us)} synchronous invokes "
+          f"[{card}, {power}]", flush=True)
+    return {"max_abs_diff": err, "equal": exact, "launches": launches,
+            "p50_ms": p50, "invokes": SINGLE_INVOKES}
+
+
+def repairs_lint(card: str, power: str):
+    """16d: the analyzer over every description this process parsed, the
+    static corpus and the self gate, with both kernels' counters still."""
+    import io
+
+    from nnstreamer_tpu_torch.analyze import Severity, analyze_description
+    from nnstreamer_tpu_torch.analyze.cli import main as lint_main
+    from nnstreamer_tpu_torch.analyze.pipelines import default_corpus
+    from nnstreamer_tpu_torch.ops import kernels
+
+    before = (kernels.scale_bias_cast.launches,
+              kernels.flash_attention.launches)
+    launched = list(LAUNCHED)  # the analyzer's own parses come after
+    seen = {}
+    for phase, desc in launched:
+        seen.setdefault(desc, phase)
+    t0 = time.perf_counter()
+    tally = Counter()
+    errors, by_code = [], Counter()
+    for desc, phase in seen.items():
+        diags, _ = analyze_description(desc)
+        for d in diags:
+            tally[d.severity] += 1
+            by_code[d.code] += 1
+            if d.severity == Severity.ERROR:
+                errors.append((phase, desc, str(d)))
+    secs = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError(f"repairs (d): the analyzer finds errors in "
+                           f"descriptions this run parsed: {errors}")
+    phases = sorted(set(seen.values()), key=lambda s: (len(s), s))
+    print(f"repairs (d) analyzed {len(seen)} distinct descriptions of "
+          f"{len(launched)} parse_launch calls (phases {phases}) in "
+          f"{secs:.2f} s: 0 errors, {tally[Severity.WARNING]} warnings, "
+          f"{tally[Severity.INFO]} info; by code {dict(sorted(by_code.items()))}",
+          flush=True)
+    corpus = default_corpus(os.path.join(HERE, "chip_smoke.py"))
+    bad = []
+    for entry in corpus:
+        diags, _ = analyze_description(entry.description,
+                                       fragment=entry.fragment)
+        bad += [f"{entry.label}: {d}" for d in diags
+                if d.severity != Severity.INFO]
+    if bad:
+        raise RuntimeError(f"repairs (d): the static corpus is not clean: "
+                           f"{bad}")
+    out = io.StringIO()
+    rc = lint_main(["--self", "--concurrency", "--strict"], out=out)
+    if rc != 0:
+        raise RuntimeError(f"repairs (d): --self --concurrency --strict "
+                           f"exits {rc}: {out.getvalue()[-2000:]}")
+    after = (kernels.scale_bias_cast.launches,
+             kernels.flash_attention.launches)
+    if after != before:
+        raise RuntimeError(f"repairs (d): the lint launched a kernel: "
+                           f"{before} -> {after}")
+    print(f"repairs (d) static corpus: {len(corpus)} descriptions, 0 errors "
+          f"and 0 warnings; --self --concurrency --strict over "
+          f"nnstreamer_tpu_torch/ exits 0 ({out.getvalue().strip().splitlines()[-1]}); "
+          f"kernel launches unchanged across the lint {before}", flush=True)
+    return {"descriptions": len(seen), "calls": len(launched),
+            "warnings": tally[Severity.WARNING],
+            "info": tally[Severity.INFO], "by_code": dict(by_code),
+            "corpus": len(corpus), "seconds": secs}
+
+
+def repairs_children(card: str):
+    """16e: ``nns-torch-lint`` and the installation check in children."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    lint = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch.analyze", "--examples",
+         "--self", "--concurrency", "--strict", "--json"],
+        capture_output=True, text=True, timeout=600, cwd=HERE, env=env)
+    if lint.returncode != 0:
+        raise RuntimeError(f"repairs (e): nns-torch-lint exits "
+                           f"{lint.returncode}: {lint.stdout[-2000:]} "
+                           f"{lint.stderr[-2000:]}")
+    summary = json.loads(lint.stdout)["summary"]
+    check = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch.check", "--json"],
+        capture_output=True, text=True, timeout=600, cwd=HERE, env=env)
+    if check.returncode != 0:
+        raise RuntimeError(f"repairs (e): the check exits "
+                           f"{check.returncode}: {check.stderr[-2000:]}")
+    info = json.loads(check.stdout)
+    kinds = [d["kind"] for d in info["devices"].get("cuda", [])]
+    if card not in kinds:
+        raise RuntimeError(f"repairs (e): the check lists {kinds}, not "
+                           f"{card!r}")
+    print(f"repairs (e) nns-torch-lint --examples --self --concurrency "
+          f"--strict in a child: exit 0, {summary}; "
+          f"nnstreamer-tpu-torch-check --json lists cuda {kinds}, "
+          f"{len(info['elements'])} elements, native codec "
+          f"{info['native_codec']}", flush=True)
+    return {"lint_summary": summary, "check_cuda": kinds,
+            "elements": len(info["elements"])}
+
+
+def phase_repairs(card: str, power: str):
+    """Phase 16 (see the module doc): prefetch-host=, FilterSingle, to_dot
+    and the analyzer against the card's paths."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters.torch_cuda import get_model
+    from nnstreamer_tpu_torch.models import (
+        feature_sizes_for,
+        ssd_anchors,
+        ssd_from_jax,
+        ssd_mobilenet_v2_init,
+        weights_to_bf16,
+    )
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    if get_model("ssd_mobilenet_v2") is None:
+        register_detector("ssd_mobilenet_v2", ssd_from_jax(weights_to_bf16(
+            ssd_mobilenet_v2_init(SEED, NUM_CLASSES))),
+            ssd_anchors(SIZE, feature_sizes_for(SIZE)), BATCH,
+            torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    frames = [rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+              for _ in range(POOL)]
+    res = {"prefetch": repairs_prefetch(frames, card, power),
+           "single": repairs_single(card, power)}
+    res["lint"] = repairs_lint(card, power)
+    res["children"] = repairs_children(card)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"repairs phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -5302,6 +5809,7 @@ def main() -> int:
     elements_alone = sys.argv[1:] == ["--elements"]
     obs_alone = sys.argv[1:] == ["--obs"]
     control_alone = sys.argv[1:] == ["--control"]
+    repairs_alone = sys.argv[1:] == ["--repairs"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -5319,6 +5827,7 @@ def main() -> int:
 
     if sys.argv[1:] == ["--control-lockdep-child"]:
         return ctl_lockdep_child()
+    record_launches()
     from nnstreamer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -5355,28 +5864,47 @@ def main() -> int:
         print(json.dumps({"control": phase_control(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if repairs_alone:
+        PHASE[0] = "16"
+        print(json.dumps({"repairs": phase_repairs(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
+    PHASE[0] = "4"
     main_path = phase_main_path(card, power)
+    PHASE[0] = "5"
     phase_profile(composite("ssd_mobilenet_v2", "cuda", 3),
                   main_path.pop("frames"), card, power)
+    PHASE[0] = "6"
     phase_reference(main_path.pop("model"), main_path.pop("anchors"))
+    PHASE[0] = "7"
     vit_path = phase_vit(card, power)
+    PHASE[0] = "8"
     serving = phase_serving(card, power)
+    PHASE[0] = "9"
     lifecycle = phase_lifecycle(card, power)
+    PHASE[0] = "10"
     classify = phase_classify(card, power)
+    PHASE[0] = "11"
     yolo = phase_yolo(card, power)
+    PHASE[0] = "12"
     decoders = phase_decoders(card, power)
+    PHASE[0] = "13"
     elements = phase_elements(card, power)
+    PHASE[0] = "14"
     obs = phase_obs(card, power, serving["shared"])
+    PHASE[0] = "15"
     control = phase_control(card, power)
+    PHASE[0] = "16"
+    repairs = phase_repairs(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
                       "classify": classify, "yolo": yolo,
                       "decoders": decoders, "elements": elements,
-                      "obs": obs, "control": control, "card": card,
-                      "power_limit": power}))
+                      "obs": obs, "control": control, "repairs": repairs,
+                      "card": card, "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
@@ -5396,14 +5924,16 @@ def main() -> int:
                    "obs_vit_serving": obs["vit_serving"]["launches"][
                        "scale_bias_cast"],
                    "obs_detection": obs["detection"]["launches"],
-                   "control": control["launches"]["scale_bias_cast"]}
+                   "control": control["launches"]["scale_bias_cast"],
+                   "repairs_prefetch": repairs["prefetch"]["launches"]}
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],
                   "lifecycle": lifecycle["launches"]["flash_attention"],
                   "obs_vit_serving": obs["vit_serving"]["launches"][
                       "flash_attention"],
-                  "control": control["launches"]["flash_attention"]}
+                  "control": control["launches"]["flash_attention"],
+                  "repairs_single": repairs["single"]["launches"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

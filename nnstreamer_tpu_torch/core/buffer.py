@@ -42,9 +42,13 @@ class DonatedTensorError(RuntimeError):
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """Host ndarray of a tensor (waits for pending device work; a drain
-    off the card is recorded in the transfer ledger).  bfloat16 needs
-    ``ml_dtypes`` and imports it only here."""
-    t = _xfer.to_host(t.detach())
+    off the card is recorded in the transfer ledger)."""
+    return _host_array(_xfer.to_host(t.detach()))
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """ndarray view of a host tensor.  bfloat16 needs ``ml_dtypes`` and
+    imports it only here."""
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(DType.BFLOAT16.np_dtype)
     return t.numpy()
@@ -68,7 +72,8 @@ def from_numpy(a: np.ndarray, device: Optional[torch.device] = None,
 class Tensor:
     """One tensor payload with lazy device/host/wire conversion."""
 
-    __slots__ = ("_dev", "_host", "_raw", "_spec", "_donated", "_shared")
+    __slots__ = ("_dev", "_host", "_raw", "_spec", "_donated", "_shared",
+                 "_fetch")
 
     def __init__(self, data: ArrayLike, spec: Optional[TensorSpec] = None):
         self._dev = None
@@ -78,6 +83,9 @@ class Tensor:
         #: set by a fan-out (``tee``): more than one branch holds this
         #: tensor, so no branch may write into its memory
         self._shared = False
+        #: a started host copy (obs/transfer.py ``prefetch``): np() waits
+        #: for it instead of draining again
+        self._fetch = None
         if isinstance(data, (bytes, bytearray, memoryview)):
             if spec is None:
                 raise ValueError("raw bytes tensor requires an explicit spec")
@@ -130,6 +138,7 @@ class Tensor:
         t = Tensor.__new__(Tensor)
         t._dev, t._host, t._raw = self._dev, self._host, self._raw
         t._spec, t._donated, t._shared = self._spec, self._donated, True
+        t._fetch = self._fetch
         return t
 
     def torch(self, device: Optional[torch.device] = None) -> torch.Tensor:
@@ -142,12 +151,23 @@ class Tensor:
             self._dev = from_numpy(self.np(), device)
         elif device is not None and self._dev.device != device:
             self._dev = _xfer.move(self._dev, device)
+        elif self._fetch is not None:
+            # device work from here on (an in-place chain) runs after
+            # the host copy has read the payload
+            _xfer.wait_prefetch(self._fetch, self._dev.device)
         return self._dev
 
     def np(self) -> np.ndarray:
         """Host ndarray (waits for the device computation if needed)."""
         if self._host is None:
+            # a donated payload raises even when its host copy was
+            # started: the read would return bytes from before the
+            # donation
             self._check_donated()
+            if self._fetch is not None:
+                self._host = _host_array(_xfer.prefetched(self._fetch))
+                self._fetch = None
+                return self._host
             if self._dev is not None:
                 self._host = to_numpy(self._dev)
             else:
@@ -161,8 +181,11 @@ class Tensor:
             if self._host is None and self._dev is not None:
                 # straight from the tensor's bytes: no numpy dtype needed
                 # (bfloat16 has none without ml_dtypes)
-                flat = _xfer.to_host(
-                    self._dev.detach().contiguous().reshape(-1))
+                if self._fetch is not None:
+                    flat = _xfer.prefetched(self._fetch).reshape(-1)
+                else:
+                    flat = _xfer.to_host(
+                        self._dev.detach().contiguous().reshape(-1))
                 self._raw = flat.view(torch.uint8).numpy().tobytes()
             else:
                 self._raw = np.ascontiguousarray(self.np()).tobytes()
@@ -189,6 +212,23 @@ class Tensor:
     @property
     def is_device(self) -> bool:
         return self._dev is not None
+
+    @property
+    def prefetching(self) -> bool:
+        """Whether a host copy of the card payload was started
+        (:meth:`prefetch_host`) and not read yet."""
+        return self._fetch is not None
+
+    def prefetch_host(self) -> None:
+        """Start a non-blocking copy of the card payload into pinned host
+        memory on a side stream (``obs/transfer.py`` ``prefetch``), counted
+        once in the transfer ledger; a later ``np()`` waits for that copy
+        and never makes a second one.  No-op for a host tensor and for
+        one whose host copy exists or is in flight."""
+        if self._dev is None or self._host is not None \
+                or self._fetch is not None or not _xfer.on_card(self._dev):
+            return
+        self._fetch = _xfer.prefetch(self._dev.detach())
 
     def seed_host(self, arr: np.ndarray) -> None:
         """Install an already-drained host copy (size-checked) so later

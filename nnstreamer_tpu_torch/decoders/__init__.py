@@ -33,9 +33,10 @@ def drain_once(tensors: List[Tensor]) -> List[np.ndarray]:
     their host arrays (and seeds each tensor's host cache, so later
     ``.np()`` reads are free).  The tensors' bytes are packed into one
     uint8 tensor on the device, copied once, and split on the host.
-    Tensors already host-resident pass through untouched; with one (or
+    Tensors already host-resident, or whose host copy a ``queue
+    prefetch-host=true`` started, pass through untouched; with one (or
     zero) device tensors the plain ``.np()`` path is already optimal."""
-    dev = [t for t in tensors if t.is_device]
+    dev = [t for t in tensors if t.is_device and not t.prefetching]
     if len(dev) <= 1:
         return [t.np() for t in tensors]
     packed = torch.cat([t.torch().detach().contiguous().reshape(-1)

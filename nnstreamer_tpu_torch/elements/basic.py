@@ -162,14 +162,22 @@ class FakeSink(SinkElement):
 @register_element("queue")
 class Queue(Element):
     """Thread boundary with a bounded buffer (parity: GStreamer queue).
-    ``leaky``: '' (block), 'upstream' (drop new), 'downstream' (drop old)."""
+    ``leaky``: '' (block), 'upstream' (drop new), 'downstream' (drop old).
+
+    ``prefetch_host=True`` starts, for every card tensor of a buffer as it
+    enters the queue, a non-blocking copy into pinned host memory on a
+    side stream (``Tensor.prefetch_host``).  A host consumer on the other
+    side of the thread boundary then finds the payload on the host
+    instead of draining it itself, and the copy overlaps the producer's
+    next window.  A buffer the queue drops is never copied."""
 
     FACTORY = "queue"
 
     def __init__(self, name=None, max_size_buffers: int = 16,
-                 leaky: str = "", **props):
+                 leaky: str = "", prefetch_host: bool = False, **props):
         self.max_size_buffers = max_size_buffers
         self.leaky = leaky
+        self.prefetch_host = prefetch_host
         super().__init__(name, **props)
         self.add_sink_pad()
         self.add_src_pad()
@@ -194,6 +202,9 @@ class Queue(Element):
                             self._cv.wait(0.05)
                 if not self._running:
                     return
+            if self.prefetch_host:  # only for buffers actually enqueued
+                for t in buf.tensors:
+                    t.prefetch_host()
             tracer = _hooks.tracer
             if tracer is not None:
                 tracer.queue_enqueued(self, buf)

@@ -43,6 +43,8 @@ from contextlib import nullcontext as _nullcontext
 from fractions import Fraction
 from typing import Any, List, Optional, Sequence
 
+import numpy as np
+
 from ..chaos import hooks as _chaos_hooks
 from ..chaos.plan import FaultPlan, apply_invoke_fault
 from ..core import Buffer, Caps, Tensor, TensorFormat, TensorsSpec
@@ -56,6 +58,7 @@ from ..obs.tracer import TRACE_META_KEY
 from ..runtime.events import Event, EventKind, Message, MessageKind
 from ..runtime.registry import register_element
 from ..utils import profile as _profile
+from ..utils.device import DeviceLike, block_all, resolve_device
 from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
 
 
@@ -730,3 +733,54 @@ class TensorFilter(Element):
         sharing)."""
         return self._pool_entry.stats.avg_stream_occupancy \
             if self._pool_entry is not None else 0.0
+
+
+class FilterSingle:
+    """Invoke a filter sub-plugin without a pipeline (parity:
+    tensor_filter_single.c — basis of the ML single-shot API): the JAX
+    package's ``FilterSingle`` on the port.  It runs on ``device`` — the
+    card unless the caller asks for the CPU — and every ``invoke`` is
+    synchronous: it returns once the card has finished, and records that
+    latency in :attr:`stats`."""
+
+    def __init__(self, framework: str = "auto", model: Any = None,
+                 device: DeviceLike = "cuda", **kw):
+        from ..filters.modeluri import resolve_model_uri
+
+        model = resolve_model_uri(model)
+        fw = framework if framework != "auto" else detect_framework(model)
+        self.subplugin = find_filter(fw)()
+        self.subplugin.configure(FilterProps(
+            framework=fw, model=model, device=resolve_device(device), **kw))
+        self.in_spec, self.out_spec = self.subplugin.get_model_info()
+        self.stats = InvokeStats()
+
+    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
+        """The model's outputs (tensors on the sub-plugin's device) for
+        ``inputs``: tensors, or numpy arrays placed on that device."""
+        import torch
+
+        from ..core.buffer import from_numpy
+
+        dev = self.subplugin.device
+        xs = [x if isinstance(x, torch.Tensor) else
+              from_numpy(np.asarray(x), dev) for x in inputs]
+        t0 = time.monotonic()
+        out = self.subplugin.invoke(xs)
+        # single-shot is a synchronous API: stats cover execution
+        block_all(out)
+        self.stats.record(time.monotonic() - t0)
+        return out
+
+    def set_input_info(self, spec: TensorsSpec) -> None:
+        self.in_spec, self.out_spec = self.subplugin.set_input_info(spec)
+
+    def close(self) -> None:
+        self.subplugin.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

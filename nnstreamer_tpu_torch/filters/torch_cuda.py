@@ -71,6 +71,7 @@ import os
 import pickle
 import struct
 import threading
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -81,6 +82,7 @@ from ..core.buffer import from_numpy
 from ..obs import transfer as _xfer
 from ..obs import xlacost as _xlacost
 from ..obs.hwspec import device_platform
+from ..ops.kernels import shape_only
 from ..runtime.events import Event, EventKind
 from ..utils.device import parse_accel_kind, resolve_device
 from .api import SHARED_MODELS, FilterError, FilterProps, FilterSubplugin
@@ -469,7 +471,10 @@ class TorchCudaFilter(FilterSubplugin):
 
     def _capture(self, fn: Callable, *args: Any, bucket: int) -> Any:
         """``fn(*args)`` with its cost recorded for ``(model, bucket)``
-        (obs/xlacost.py)."""
+        (obs/xlacost.py).  On the ``meta`` device (the analyzer's dry
+        run) nothing computes, so nothing is recorded."""
+        if self.device.type == "meta":
+            return fn(*args)
         w = self.weight_bytes()
         return _xlacost.capture(
             self._model.name, fn, *args, bucket=bucket,
@@ -533,8 +538,10 @@ class TorchCudaFilter(FilterSubplugin):
 
         zeros = [torch.zeros(t.shape, dtype=t.dtype.torch_dtype,
                              device=self.device) for t in in_spec.tensors]
+        # on meta (the analyzer) the kernels' wrappers give shapes only
+        scope = shape_only() if self.device.type == "meta" else nullcontext()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), scope:
                 # the single-frame program's cost row (bucket 0)
                 outs = self._capture(program, *zeros, bucket=0)
         except (RuntimeError, ValueError, TypeError, IndexError) as e:

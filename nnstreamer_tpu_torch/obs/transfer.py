@@ -11,7 +11,10 @@ process-wide :data:`LEDGER`:
 - the filter's input placement and its weights' placement at configure
   (``filters/torch_cuda.py``), and a window stacked on the host and copied
   once;
-- ``tensor_if``'s scalar verdict (``.item()``).
+- ``tensor_if``'s scalar verdict (``.item()``);
+- ``queue prefetch-host=true``'s copy of each enqueued card tensor
+  (:func:`prefetch`, reason ``prefetch``), counted when the copy is
+  started and never again when the host reads it.
 
 Only crossings between the host and a CUDA device count: a CPU tensor
 crosses nothing (:func:`on_card`; the tests widen :data:`CARD_TYPES` to
@@ -19,16 +22,19 @@ exercise the seams on the CPU).
 
 Rows are keyed ``(pipeline, source, direction, reason)``, ``direction``
 ``h2d``/``d2h``/``d2d`` and ``reason`` one of
-``input``/``weights``/``drain``/``pad``/``handoff``; the labels come from a
-thread-local context the runtime pushes around each element chain,
-micro-batch flush and pool dispatch.  Counts and bytes are EXACT.
+``input``/``weights``/``drain``/``pad``/``handoff``/``prefetch``; the
+labels come from a thread-local context the runtime pushes around each
+element chain, micro-batch flush and pool dispatch.  Counts and bytes
+are EXACT.
 
 **Seconds.**  A device→host copy on the card first waits for every kernel
 queued before it.  The ledger times the copy ALONE: a drain records CUDA
 events on either side of the copy and its row's seconds are the device
 time between them; the wait for earlier work is not in the figure (the
 JAX rows time the conversion, wait included).  Uploads are timed on the
-host around the call that stages them.
+host around the call that stages them.  A prefetch is counted with
+``seconds=0`` (counted, not separately timed): its copy overlaps later
+work and is never waited for where it starts.
 
 Exported by the metrics registry at scrape time:
 ``nns_transfer_bytes_total`` / ``nns_transfer_count_total`` counters and
@@ -52,7 +58,7 @@ from . import hooks as _hooks
 #: the cross-stage HBM handoff (never a host crossing), ``handoff``
 #: its reason tag
 DIRECTIONS = ("h2d", "d2h", "d2d")
-REASONS = ("input", "weights", "drain", "pad", "handoff")
+REASONS = ("input", "weights", "drain", "pad", "handoff", "prefetch")
 
 #: transfer duration histogram bounds (seconds): sub-µs copies up to
 #: multi-second weight placements
@@ -244,6 +250,73 @@ def item(t, reason: str = "drain"):
     if not ACTIVE or not on_card(t):
         return card_wait(t.item) if t.is_cuda else t.item()
     return _drain(t, t.item, t.element_size(), reason)
+
+
+_side_lock = threading.Lock()
+#: device → the side stream prefetch copies run on
+_side_streams: Dict[Any, Any] = {}
+
+
+def _side_stream(device):
+    import torch
+
+    with _side_lock:
+        s = _side_streams.get(device)
+        if s is None:
+            s = _side_streams[device] = torch.cuda.Stream(device)
+        return s
+
+
+def prefetch(t, reason: str = "prefetch"):
+    """Start the device→host copy of card tensor ``t`` without waiting
+    for it; returns ``(host, event)`` for :func:`prefetched`.
+
+    On a CUDA tensor the copy goes into pinned host memory on a side
+    stream that first waits for the work queued so far on the producer's
+    (current) stream, and ``t``'s memory is held for the side stream
+    (``record_stream``) until the copy is done, so the allocator hands
+    it to no later window before then.  The crossing is counted here,
+    once, as one ``d2h`` under ``reason``; reading the copy later crosses
+    nothing again.  A CPU tensor under the tests' widened
+    :data:`CARD_TYPES` is copied at once (no stream to overlap on)."""
+    nbytes = t.numel() * t.element_size()
+    if t.is_cuda:
+        import torch
+
+        with torch.cuda.device(t.device):
+            producer = torch.cuda.current_stream()
+            side = _side_stream(t.device)
+            side.wait_stream(producer)
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            with torch.cuda.stream(side):
+                host.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+            t.record_stream(side)
+    else:
+        host, done = t.clone(), None
+    if ACTIVE:
+        LEDGER.record("d2h", reason, nbytes, 0.0)
+    return host, done
+
+
+def prefetched(fetch):
+    """The host tensor of a :func:`prefetch`, once its copy is done."""
+    host, done = fetch
+    if done is not None:
+        card_wait(done.synchronize)
+    return host
+
+
+def wait_prefetch(fetch, device) -> None:
+    """Order later work on ``device``'s current stream after a prefetch's
+    copy, so nothing queued from now on writes the source under it."""
+    done = fetch[1]
+    if done is not None:
+        import torch
+
+        with torch.cuda.device(device):
+            done.wait()
 
 
 def to_device(t, device, reason: str = "input"):

@@ -210,6 +210,10 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
             for _, proc, tmp in started:
                 if proc.poll() is None:
                     proc.kill()
+                    # nns-lint: disable=NNS602 -- reaps a child just
+                    # killed, which returns at once; _lock is held across
+                    # the build on purpose, so a concurrent load waits
+                    # for the library instead of starting a second nvcc
                     proc.wait()
                 tmp.unlink(missing_ok=True)
     return paths

@@ -17,7 +17,8 @@
 Every kernel has three faces here: the plain version
 (``*_reference``: what the CPU tests run and what the card's result is
 held against), the wrapper (plain version for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises — it never falls back), and a
+tensor it launches the kernel or raises — it never falls back; a meta
+tensor only inside :func:`shape_only`), and a
 launch count on the wrapper (``scale_bias_cast.launches``,
 ``flash_attention.launches``) that shows a run really went through the
 kernel.
@@ -25,7 +26,9 @@ kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -38,6 +41,31 @@ _IN_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
              torch.int32: 4, torch.float16: 5, torch.bfloat16: 6,
              torch.float32: 7}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Within this block, on this thread, a wrapper given a ``meta``
+    tensor (a shape without data: the analyzer's dry run on the meta
+    device, ``utils/device.py``) runs the plain version, which on meta
+    computes its result's shape and nothing else.  Anywhere else a meta
+    tensor is refused like any device the kernel does not take."""
+    prev = getattr(_scope, "shape_only", False)
+    _scope.shape_only = True
+    try:
+        yield
+    finally:
+        _scope.shape_only = prev
+
+
+def _plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper runs its plain version on ``t``: on the CPU, or
+    on meta inside :func:`shape_only`."""
+    kind = t.device.type
+    return kind == "cpu" or (kind == "meta"
+                             and getattr(_scope, "shape_only", False))
 
 
 def _torch_dtype(dt) -> torch.dtype:
@@ -91,14 +119,14 @@ def scale_bias_cast(x: torch.Tensor, scale: float, bias: float,
                     out_dtype=torch.float32) -> torch.Tensor:
     """``((x + bias) * scale)`` cast to f32 or bf16, as one CUDA kernel.
 
-    A CPU tensor gets the plain version.  A CUDA tensor must be
-    contiguous, of a type :func:`scale_bias_cast_available` accepts, with
+    A CPU tensor gets the plain version (a meta one inside
+    :func:`shape_only` too).  A CUDA tensor must be contiguous, of a type :func:`scale_bias_cast_available` accepts, with
     an f32 or bf16 ``out_dtype``; anything else raises."""
     out_dtype = _torch_dtype(out_dtype)
     # cost capture (obs/xlacost.py): 2 FLOPs an element, on either path
     # (the counter sees neither the kernel nor elementwise plain ops)
     _xlacost.add_kernel_flops(2 * x.numel())
-    if x.device.type == "cpu":
+    if _plain(x):
         return scale_bias_cast_reference(x, scale, bias, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"scale_bias_cast: unsupported device {x.device}")
@@ -236,7 +264,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``softmax(q·kᵀ·scale)·v`` (scale defaults to 1/√D) as one CUDA
     kernel, never materializing the (S, Sk) scores.
 
-    CPU tensors get the plain version.  CUDA tensors must be on one
+    CPU tensors get the plain version (meta ones inside
+    :func:`shape_only` too).  CUDA tensors must be on one
     device, of one type and shape that :func:`flash_attention_available`
     accepts, and each readable by the kernel as :func:`_fa_layout` says —
     any strides TMA takes, so the head-split views of a qkv projection go
@@ -244,7 +273,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is allocated (B, S, H, D) and returned as its (..., S, D) view, so
     ``o.transpose(1, 2)`` of a 4-d result is contiguous."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if _plain(q):
         return flash_attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

@@ -6,7 +6,8 @@ static negotiation pass (sources outward), then spawns source threads.
 ``bus`` carries ERROR/EOS/LATENCY/ELEMENT messages.
 
 A pipeline owns the device its elements compute on: ``"cuda"`` unless the
-caller asks for ``"cpu"``; asking for ``cuda`` without a card raises.
+caller asks for ``"cpu"``; asking for ``cuda`` without a card raises.  A
+pipeline on ``"meta"`` is assembled for the analyzer and cannot start.
 
 While playing, a pipeline is registered (weakly) with the process metrics
 registry (``obs/metrics.py``); its first start also reads the chaos plan
@@ -129,6 +130,10 @@ class Pipeline:
     def start(self) -> "Pipeline":
         if self.playing:
             return self
+        if self.device.type == "meta":
+            raise RuntimeError(
+                f"{self.name}: a pipeline on the meta device is for static "
+                "verification and cannot start")
         self._eos_evt.clear()
         self._err_evt.clear()
         self._done_evt.clear()
@@ -216,6 +221,28 @@ class Pipeline:
                     raise NegotiationError(
                         f"{e.name}.{p.name}: caps not negotiated "
                         f"(negotiation did not reach this pad)")
+
+    def to_dot(self) -> str:
+        """Graphviz dot of the pipeline graph with negotiated caps on the
+        edges ('?' on a link not negotiated yet), the same text as the JAX
+        package's ``Pipeline.to_dot`` for the same graph and caps (parity:
+        GST_DEBUG_DUMP_DOT_DIR pipeline dumps)."""
+        lines = [f'digraph "{self.name}" {{', "  rankdir=LR;",
+                 "  node [shape=box, fontsize=10];"]
+        for e in self.elements.values():
+            factory = getattr(e, "FACTORY", type(e).__name__)
+            lines.append(f'  "{e.name}" [label="{e.name}\\n({factory})"];')
+        for e in self.elements.values():
+            for sp in e.srcpads:
+                if sp.peer is None:
+                    continue
+                caps = str(sp.caps) if sp.caps is not None else "?"
+                caps = caps.replace('"', "'")
+                lines.append(
+                    f'  "{e.name}" -> "{sp.peer.element.name}" '
+                    f'[label="{caps}", fontsize=8];')
+        lines.append("}")
+        return "\n".join(lines)
 
     # -- bus convenience ------------------------------------------------------
 

@@ -82,6 +82,9 @@ def _ensure_scanned() -> None:
 
         for m in _BUILTIN_MODULES + get_conf().extra_plugin_modules:
             try:
+                # nns-lint: disable=NNS303 -- intentional: concurrent
+                # factory lookups must block until the one-shot builtin
+                # import pass completes, or they'd see a partial registry
                 importlib.import_module(m)
             except ImportError as e:
                 # built-ins must import; configured extras may be absent

@@ -3,6 +3,11 @@
 Entry points run on the card unless the caller asks for the CPU, and
 asking for the card on a machine without one is an error — the port never
 carries on quietly on the CPU.
+
+The ``meta`` device places a pipeline for static verification only (the
+analyzer, ``analyze/``): a tensor there has a shape and no data, so a
+model's forward on it computes its output schema and nothing else, and
+no CUDA context is opened.  Such a pipeline cannot start.
 """
 
 from __future__ import annotations
@@ -17,9 +22,9 @@ DeviceLike = Union[str, torch.device]
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
-    """``"cuda"``/``"gpu"``/``"cuda:N"``/``"cpu"`` (or a ``torch.device``)
-    → ``torch.device``; raises RuntimeError for a CUDA device when
-    ``torch.cuda.is_available()`` is False."""
+    """``"cuda"``/``"gpu"``/``"cuda:N"``/``"cpu"``/``"meta"`` (or a
+    ``torch.device``) → ``torch.device``; raises RuntimeError for a CUDA
+    device when ``torch.cuda.is_available()`` is False."""
     if isinstance(device, str) and device.strip().lower() == "gpu":
         device = "cuda"
     dev = torch.device(device)
@@ -30,8 +35,9 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 "False; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(
+            f"unsupported device {dev} (expected cuda, cpu or meta)")
     return dev
 
 

@@ -1159,3 +1159,183 @@ def test_deep_capture_device_rows_on_card(card, tmp_path):
     finally:
         prof.DEEP.disarm()
         prof.DEEP.clear()
+
+
+# -- queue prefetch-host=, FilterSingle and the analyzer on the card ----------
+
+
+def test_prefetch_copy_runs_on_a_side_stream(card, tmp_path):
+    """``queue prefetch-host=true`` after a card transform: each enqueued
+    tensor's device→host copy runs on a stream other than the one the
+    transform's kernel ran on (torch.profiler's Chrome trace), the sink
+    bytes equal a run without it, and each tensor crosses once."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    g = torch.Generator().manual_seed(9)
+    frames = [torch.randint(0, 256, (64, 64, 3), generator=g,
+                            dtype=torch.uint8).to(card) for _ in range(6)]
+
+    def run(pf):
+        p = parse_launch(
+            "appsrc name=src ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 backend=cuda ! "
+            f"queue prefetch-host={pf} ! appsink name=out max-buffers=16")
+        p["src"].spec = TensorsSpec.parse("3:64:64", "uint8")
+        xfer.LEDGER.clear()
+        with p:
+            for i, f in enumerate(frames):
+                p["src"].push_buffer(Buffer.of(f, pts=i))
+            p["src"].end_of_stream()
+            assert p.wait_eos(timeout=60)
+            outs = [p["out"].pull(timeout=10) for _ in frames]
+            data = b"".join(b.tensors[0].np().tobytes() for b in outs)
+        rows = [(r["reason"], r["count"]) for r in xfer.LEDGER.snapshot()
+                if r["direction"] == "d2h"]
+        return data, rows
+
+    plain, plain_rows = run("false")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fetched, rows = run("true")
+    assert fetched == plain
+    assert rows == [("prefetch", len(frames))]
+    assert plain_rows == [("drain", len(frames))]
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = {e["args"]["stream"] for e in events
+              if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]}
+    kernel = {e["args"]["stream"] for e in events
+              if e.get("cat") == "kernel" and "scale_bias_cast" in e["name"]}
+    assert copies and kernel and not copies & kernel, (copies, kernel)
+
+
+def test_prefetched_tensor_then_written_in_place_on_card(card):
+    """A card consumer after the prefetching queue (a ``donate=true``
+    chain writing in place on the card) runs after the host copy has
+    read the payload: the copy of each input holds the frame as it was
+    enqueued, and the outputs equal a run without the prefetch.  A
+    donated input still raises on ``np()``, its started copy or not."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.core.buffer import DonatedTensorError
+    from nnstreamer_tpu_torch.obs import transfer
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    g = torch.Generator().manual_seed(10)
+    frames = [torch.randn((1024, 1024), generator=g).to(card)
+              for _ in range(6)]
+
+    def run(pf):
+        p = parse_launch(
+            f"appsrc name=src ! queue prefetch-host={pf} ! "
+            "tensor_transform name=t mode=arithmetic "
+            "option=mul:2.0,add:1.0 donate=true ! "
+            "appsink name=out max-buffers=16")
+        p["src"].spec = TensorsSpec.parse("1024:1024", "float32")
+        seen, chain = [], p["t"].chain
+
+        def keep(pad, buf):
+            t = buf.tensors[0]
+            seen.append((t, t._fetch))
+            chain(pad, buf)
+
+        p["t"].chain = keep
+        with p:
+            for i, f in enumerate(frames):
+                p["src"].push_buffer(Buffer.of(f.clone(), pts=i))
+            p["src"].end_of_stream()
+            assert p.wait_eos(timeout=60)
+            outs = [p["out"].pull(timeout=10).tensors[0].np().copy()
+                    for _ in frames]
+        return seen, outs
+
+    want = [(f * 2.0 + 1.0).cpu().numpy() for f in frames]
+    for pf in ("false", "true"):
+        seen, outs = run(pf)
+        for got, w in zip(outs, want):
+            np.testing.assert_array_equal(got, w)
+    # the prefetched inputs were written in place, their copies were not
+    assert all(t.prefetching and t.is_donated for t, _ in seen)
+    for (t, fetch), f in zip(seen, frames):
+        with pytest.raises(DonatedTensorError):
+            t.np()
+        with pytest.raises(DonatedTensorError):
+            t.tobytes()
+        np.testing.assert_array_equal(transfer.prefetched(fetch).numpy(),
+                                      f.cpu().numpy())
+
+
+def test_filter_single_equals_the_pipeline_on_card(card):
+    """``FilterSingle`` on the card runs the same program as the
+    pipeline's filter: the same logits, ``flash_attention`` launched once
+    per layer per invoke, and a synchronous invoke in its stats."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.elements.filter import FilterSingle
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    register_vit("cuda_single_vit", batch=2, image_size=32, patch=8,
+                 dim=256, depth=2, heads=2, mlp_dim=128, num_classes=5,
+                 seed=5)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 32, 32, 3), generator=g).to(card)
+    p = parse_launch("appsrc name=src ! tensor_filter framework=torch-cuda "
+                     "model=cuda_single_vit ! appsink name=out")
+    p["src"].spec = TensorsSpec.parse("3:32:32:2", "float32")
+    with p:
+        p["src"].push_buffer(Buffer.of(x))
+        p["src"].end_of_stream()
+        assert p.wait_eos(timeout=60)
+        want = p["out"].pull(timeout=10).tensors[0].torch()
+    with FilterSingle(framework="torch-cuda", model="cuda_single_vit") as fs:
+        assert fs.subplugin.device.type == "cuda"
+        before = kernels.flash_attention.launches
+        got = fs.invoke([x])[0]
+        assert kernels.flash_attention.launches == before + 2
+        assert fs.stats.total_invoke_num == 1
+    assert got.is_cuda
+    torch.testing.assert_close(got, want, atol=5e-2, rtol=5e-2)
+
+
+def test_lint_opens_no_cuda_context(card):
+    """A full lint in a child — a description whose ViT the dry run opens
+    on the meta device, the static corpus, ``--self`` and
+    ``--concurrency`` — leaves ``torch.cuda.is_initialized()`` False and
+    launches no kernel."""
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import io, json, torch\n"
+        "from nnstreamer_tpu_torch.models import register_vit\n"
+        "from nnstreamer_tpu_torch.analyze.cli import main\n"
+        "from nnstreamer_tpu_torch.ops import kernels\n"
+        "register_vit('lint_vit', batch=2, image_size=32, patch=8, dim=64,"
+        " depth=2, heads=2, mlp_dim=128, num_classes=5)\n"
+        "out = io.StringIO()\n"
+        "rc = main(['device_src spec=3:32:32:2/uint8 ! tensor_transform "
+        "mode=arithmetic option=typecast:float32,div:255.0 backend=cuda ! "
+        "tensor_filter framework=torch-cuda model=lint_vit ! tensor_sink',"
+        " '--examples', '--self', '--concurrency', '--strict', '--json'],"
+        " out=out)\n"
+        "doc = json.loads(out.getvalue())\n"
+        "print(json.dumps([rc, doc['summary'], torch.cuda.is_initialized(),"
+        " kernels.flash_attention.launches,"
+        " kernels.scale_bias_cast.launches]))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=repo,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    assert r.returncode == 0, r.stderr[-2000:]
+    rc, summary, initialized, fa, sbc = json.loads(
+        r.stdout.strip().splitlines()[-1])
+    assert (rc, summary["error"], summary["warning"]) == (0, 0, 0), summary
+    assert initialized is False
+    assert (fa, sbc) == (0, 0)

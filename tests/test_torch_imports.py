@@ -69,7 +69,13 @@ def test_port_imports_with_jax_blocked():
                 "utils.hw", "obs.prof", "chaos.retrypolicy",
                 "runtime.actuators", "utils.lockdep", "obs.forecast",
                 "obs.watch", "obs.control", "obs.scrape", "obs.top",
-                "obs.benchgate"):
+                "obs.benchgate", "analyze", "analyze.__main__",
+                "analyze.cli", "analyze.diagnostics", "analyze.graph",
+                "analyze.capsflow", "analyze.codelint",
+                "analyze.concurrency", "analyze.watchrules",
+                "analyze.ctlplaybooks", "analyze.pipelines", "check",
+                "tools", "tools.gen_element_docs",
+                "tools.pipeline_convert", "tools.gen_custom_filter"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 
@@ -148,15 +154,15 @@ def test_filter_accelerator_grammar(monkeypatch):
 
 
 def test_obs_and_chaos_read_only_the_ports_keys():
-    """The obs, chaos and utils modules read environment keys of the
-    port's prefix only, and the JAX package's keys leave the port as it
+    """The obs, chaos, utils and analyze modules read environment keys of
+    the port's prefix only, and the JAX package's keys leave the port as it
     is: no kill switch, no chaos plan, no flight recorder armed, no
     metrics endpoint, no price, text logs, no host profiler, watchdog,
     controller or lock witness."""
     import re
 
     keys = set()
-    for sub in ("obs", "chaos", "utils"):
+    for sub in ("obs", "chaos", "utils", "analyze"):
         for root, _, files in os.walk(os.path.join(PKG, sub)):
             for f in files:
                 if f.endswith(".py"):

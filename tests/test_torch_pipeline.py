@@ -12,7 +12,9 @@
    place of the JAX package's, and must reproduce the committed files
    byte for byte.  ``converter_flexible_to_static`` imports the JAX
    package's ``TensorFormat`` inside its case, so its pipeline is built
-   here with the port's and compared with the same golden.
+   here with the port's and compared with the same golden, and so is
+   ``filter_hot_reload`` (its case imports the JAX package's
+   ``register_model`` and ``Event``).
    ``decoder_mp_palm`` reads recorded palm-model tensors that are not in
    the tree (the JAX package cannot run its case either) and joins them
    with ``tensor_mux``: its golden canvas holds one box, so palm tensors
@@ -118,6 +120,47 @@ def test_golden_converter_flexible_to_static(tmp_path):
         assert p.wait_eos(timeout=120)
     assert open(out, "rb").read() == \
         _golden("converter_flexible_to_static")
+
+
+def test_golden_filter_hot_reload(tmp_path):
+    """``filter_hot_reload`` (``tests/golden_cases.py``) through the port:
+    the case's steps with the port's ``register_model``, ``Event`` and
+    ``parse_launch(device="cpu")`` (the case itself imports the JAX
+    package's).  One frame through model A, then RELOAD_MODEL, then one
+    through model B: byte-equal to the committed golden."""
+    import time
+
+    from nnstreamer_tpu_torch.filters import unregister_model
+    from nnstreamer_tpu_torch.runtime.events import Event
+
+    register_model("golden_reload_a", lambda x: x * 2.0 + 1.0,
+                   in_shapes=[(2, 4)])
+    register_model("golden_reload_b", lambda x: x * 10.0 - 3.0,
+                   in_shapes=[(2, 4)])
+    out = str(tmp_path / "reload.out")
+    try:
+        p = parse_launch(
+            "appsrc name=src ! tensor_filter framework=torch-cuda "
+            "model=golden_reload_a is-updatable=true name=f ! "
+            f"filesink location={out}", device="cpu")
+        src, f = p["src"], p["f"]
+        src.spec = TensorsSpec.parse("4:2", "float32")
+        x = np.arange(8, dtype=np.float32).reshape(2, 4)
+        with p:
+            src.push_buffer(Buffer.of(x))
+            for _ in range(200):
+                if f.invoke_stats.total_invoke_num >= 1:
+                    break
+                time.sleep(0.02)
+            assert f.invoke_stats.total_invoke_num >= 1
+            f.handle_event(f.sinkpad, Event.reload_model("golden_reload_b"))
+            src.push_buffer(Buffer.of(x))
+            src.end_of_stream()
+            assert p.wait_eos(timeout=120)
+    finally:
+        unregister_model("golden_reload_a")
+        unregister_model("golden_reload_b")
+    assert open(out, "rb").read() == _golden("filter_hot_reload")
 
 
 @functools.lru_cache(maxsize=None)

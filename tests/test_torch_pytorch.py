@@ -55,29 +55,11 @@ def tparse(desc):
     return _tparse(desc, device="cpu")
 
 
-class PortSingle:
-    """The port's single-shot invoke of a framework (the JAX package's
-    ``FilterSingle``), on the CPU."""
-
-    def __init__(self, framework="auto", model=None, **kw):
-        self.subplugin = find_filter(framework)()
-        self.subplugin.configure(tapi.FilterProps(
-            framework=framework, model=model,
-            device=torch.device("cpu"), **kw))
-        self.in_spec, self.out_spec = self.subplugin.get_model_info()
-
-    def invoke(self, inputs):
-        return [o.numpy() for o in self.subplugin.invoke(
-            [torch.from_numpy(np.asarray(x)) for x in inputs])]
-
-    def set_input_info(self, spec):
-        self.in_spec, self.out_spec = self.subplugin.set_input_info(spec)
-
-
 PKGS = {
     "jax": (jfilter.FilterSingle, jcore, japi.FilterError,
             jruntime.parse_launch),
-    "port": (PortSingle, tcore, tapi.FilterError, tparse),
+    "port": (functools.partial(tfilter_el.FilterSingle, device="cpu"),
+             tcore, tapi.FilterError, tparse),
 }
 
 
@@ -205,8 +187,9 @@ class _Half(torch.nn.Module):
 def test_bf16_output_maps_through_port_dtypes(tmp_path):
     path = str(tmp_path / "half.pt")
     torch.jit.script(_Half()).save(path)
-    fs = PortSingle(framework="pytorch", model=path,
-                    input_spec=tcore.TensorsSpec.parse("3", "float32"))
+    fs = tfilter_el.FilterSingle(
+        framework="pytorch", model=path, device="cpu",
+        input_spec=tcore.TensorsSpec.parse("3", "float32"))
     assert str(fs.out_spec.tensors[0].dtype) == "bfloat16"
     out = fs.subplugin.invoke([torch.tensor([1.0, 2.0, 3.0])])[0]
     assert out.dtype == torch.bfloat16 and out.tolist() == [2.0, 4.0, 6.0]

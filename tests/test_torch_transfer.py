@@ -125,8 +125,9 @@ def test_ledger_arithmetic_same_as_jax(calls):
                {"pipeline": "p"}):
         assert b.totals(**kw) == a.totals(**kw)
     assert xfer.TRANSFER_SECONDS_BUCKETS == jxfer.TRANSFER_SECONDS_BUCKETS
+    # the port's queue prefetch-host= adds one reason of its own
     assert (xfer.DIRECTIONS, xfer.REASONS) == (jxfer.DIRECTIONS,
-                                               jxfer.REASONS)
+                                               jxfer.REASONS + ("prefetch",))
 
 
 def test_ledger_context_labels_and_trace_spans_same_as_jax():

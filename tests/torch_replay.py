@@ -51,23 +51,30 @@ def port_source(name: str, subs: Iterable[Tuple[str, str]] = ()) -> str:
 
 def replay(name: str, namespace: dict,
            subs: Iterable[Tuple[str, str]] = (),
-           only: Optional[Iterable[str]] = None) -> None:
+           only: Optional[Iterable[str]] = None,
+           leave_out: Iterable[str] = ()) -> None:
     """Execute the port's version of ``tests/<name>`` in ``namespace``
     (the replaying test module's globals).  ``only``: the test functions
     and classes to keep (every other ``test_*``/``Test*`` is left out;
-    imports, helpers and fixtures stay)."""
+    imports, helpers and fixtures stay).  ``leave_out``: test functions
+    and classes to drop, each of which must exist."""
     src = port_source(name, subs)
     path = os.path.join(TESTS, name)
     tree = ast.parse(src, filename=path)
+    names = {n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    drop = set(leave_out)
+    if drop - names:
+        raise ValueError(f"{name}: no test named {sorted(drop - names)}")
     if only is not None:
         keep = set(only)
-        missing = keep - {n.name for n in tree.body
-                          if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+        missing = keep - names
         if missing:
             raise ValueError(f"{name}: no test named {sorted(missing)}")
-        tree.body = [n for n in tree.body
-                     if not isinstance(n, (ast.FunctionDef, ast.ClassDef))
-                     or n.name in keep
-                     or not n.name.lower().startswith("test")]
+        drop |= {n for n in names
+                 if n not in keep and n.lower().startswith("test")}
+    tree.body = [n for n in tree.body
+                 if not isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                 or n.name not in drop]
     rewrite_asserts(tree, src.encode(), path)
     exec(compile(tree, f"{path} (port)", "exec"), namespace)
