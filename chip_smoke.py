@@ -9,6 +9,7 @@
     python3 chip_smoke.py --obs                       # build + phase 14 only
     python3 chip_smoke.py --control                   # build + phase 15 only
     python3 chip_smoke.py --repairs                   # build + phase 16 only
+    python3 chip_smoke.py --edge                      # build + phase 17 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -19,8 +20,10 @@ detect → tensor_region → tensor_crop cascade, and the stream elements
 two cameras in one window), the observability layer on the serving
 and detection paths, and the active layer (host profiler, watchdog,
 controller, lock witness, ``nns-top``) on the serving path, and the
-repaired elements with the static analyzer against all of them — through
-``parse_launch`` at full width.
+repaired elements with the static analyzer against all of them, and the
+edge layer (query offload across processes and within one, the pooled
+ViT served to several clients, pub/sub) — through ``parse_launch`` at
+full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
@@ -240,9 +243,18 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    (their rules, playbooks, chaos plans and 50 ms watch and control
    intervals; 2 or 3 streams, windows of 8, 8 and 16): each
    rig's capacity measured in a closed loop, then open-loop pumps at 0.6
-   of it; gates: detected, actuated and recovered (held 0.5 s), no alert
-   before the fault, the audit ring equal to ``nns_control_actions_total``,
-   every stream's pts in order, none lost but the frames admission shed.
+   of it, which run the JAX script's settle (1.0, 1.0 and 1.5 s) before
+   the watch attaches; gates: detected, actuated and recovered (held
+   0.5 s), no alert before the fault (an alert that does fire is printed
+   with its age and detail), the audit ring equal to
+   ``nns_control_actions_total``, every stream's pts in order, none lost
+   but the frames admission shed.  Then its fourth script,
+   ``breaker-stuck``: an ``edgesink`` publisher's pipeline dies, the
+   ``edgesrc`` subscriber's re-dial loop fails until its breaker opens
+   (3 failures, an 8 s open window), the publisher is back at +1 s, and
+   the ``redial-link`` playbook on the ``breaker-open`` rule forces the
+   half-open probe: recovered (breaker closed, frames flowing) before the
+   open window ends.
    (c) The default rule pack over the shared leg with no fault, as long
    as the longest script's watched span (at most 12 s): the alerts that
    fired (false positives) and the forecasts table; the ``forecasts``
@@ -280,7 +292,41 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    kernel's launch counter moves across the lint.  (e) ``nns-torch-lint``
    and ``nnstreamer-tpu-torch-check --json`` in children: the check
    lists the card;
-17. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+17. the edge layer on the card.  (a) Detection offload across processes:
+   a child process (``--edge-server-child``) serves ``tensor_query_serversrc
+   connect-type=tcp ! tensor_transform backend=cuda ! tensor_filter``
+   SSD-MobileNetV2 at batch 1 (300x300, 91 classes, bf16-resident) ``!
+   tensor_query_serversink``; here ``appsrc ! tensor_query_client
+   max-request=8 ! appsink`` offloads 256 uint8 1×300×300×3 frames staged
+   on the card in a closed loop of 8 in flight (a free-running source
+   against ``max-request=8`` drops by design): frames/s, the RTT from the
+   client's ``LinkMetrics`` (bucket bounds and mean), the link's tx/rx
+   bytes equal to the frames re-packed, crossings per frame on each side
+   from the transfer ledgers; gates: bytes exact, every frame back in
+   order, none dropped or timed out, boxes, classes and counts equal to
+   the same frames through the local pipeline and scores within 1e-5.
+   (b) The device channel in one process: the same server at batch 256
+   (69.12 MB frames) in this process over ``connect-type=tcp``, 12 frames
+   with ``device-channel=true`` then ``false``: with it no crossing
+   (0.0 a frame) and every deposit taken, none evicted; without it one
+   d2h a tensor a hop and one h2d a frame; outputs byte-equal; each run's
+   p50 gap between results; one host read of a card tensor crosses once
+   (``tobytes()`` then ``np()``, and the reverse).  (c) The pooled ViT
+   served to 4 clients over TCP (``device-channel=false``): the server
+   ``tensor_query_serversrc ! tensor_transform backend=cuda !
+   tensor_filter`` ViT ``share-model=true batch=64 batch-timeout-ms=2
+   batch-buckets=8,16,32,64 ! tensor_decoder mode=image_labeling !
+   tensor_query_serversink``; every reply routed to the client that
+   sent it, in order (by ``client_id`` at the server), each label equal
+   to the frame alone's where its top-2 margin exceeds 1e-4; frames/s
+   per client and in all, windows by bucket, ``flash_attention``
+   launches.  (d) Pub/sub: ``edgesink`` publishes card frames on a topic
+   under a ``LatencyTracer``; two ``edgesrc`` subscribers on it get
+   every frame in order, byte-equal, one of them learning the caps from
+   the publisher; a third on another topic gets none; every subscriber
+   record carries the publisher's marks as a one-way remote entry; each
+   frame leaves the card once for both subscribers;
+18. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -291,9 +337,9 @@ card.  ``--serving-legs DIR`` runs nothing but phase 8's shared and
 unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
-line); ``--elements``, ``--obs``, ``--control`` and ``--repairs`` do the
-same for phases 13, 14, 15 and 16 (phase 16 alone analyzes only its own
-descriptions).
+line); ``--elements``, ``--obs``, ``--control``, ``--repairs`` and
+``--edge`` do the same for phases 13, 14, 15, 16 and 17 (phase 16 alone
+analyzes only its own descriptions).
 """
 
 from __future__ import annotations
@@ -4971,6 +5017,10 @@ def ctl_mttr_run(name, rig, expect_rule, rules, playbooks, fault_fn,
     try:
         time.sleep(warmup_s)
         row["pre_fault_alerts"] = len(w.alert_log)
+        # what fired before the fault, for the gate's message
+        row["pre_fault"] = [{"after_watch_s": ev["ts"] - t_watch,
+                             "rule": ev["rule"], "detail": ev["detail"]}
+                            for ev in list(w.alert_log)]
         t_fault = time.monotonic()
         fault_fn()
 
@@ -5034,9 +5084,13 @@ def ctl_mttr_run(name, rig, expect_rule, rules, playbooks, fault_fn,
 
 
 def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
-               playbooks, fault, recovered, warmup_s, during_fn=None):
+               playbooks, fault, recovered, warmup_s, settle_s,
+               during_fn=None):
     """One bench_mttr pool script on the ViT: the rig's capacity in this
-    call, the offered rate CTL_LOAD_SHARE of it, then the run."""
+    call, the offered rate CTL_LOAD_SHARE of it, ``settle_s`` of that
+    open-loop traffic before the watch attaches (the JAX script's own
+    settle: the start of the pumps must age out of the rules' windows),
+    then the run."""
     from nnstreamer_tpu_torch import chaos
 
     rig = CtlRig(name, **rig_kw)
@@ -5046,12 +5100,15 @@ def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
         for p in rig.pipes:
             p.start()
         adm = rig.entry.admission
+        slo_s = adm.slo_s if adm is not None else None
         if adm is not None:
-            # a warm-up and a closed loop find the window's capacity; the
-            # shed ramp held at its top meanwhile (a closed-loop client
-            # waits for every frame it pushed), then back to its default,
-            # and the measurement's latencies dropped from the signal
-            adm.set_ramp_start(0.99)
+            # a warm-up and a closed loop find the window's capacity; a
+            # closed-loop client waits for every frame it pushed, so the
+            # SLO is held out of the shed ramp's reach meanwhile (the
+            # warm-up's first windows at a new bucket can outlast even
+            # 0.99 of it), then restored, and the measurement's
+            # latencies dropped from the signal
+            adm.slo_s = 3600.0
         closed_loop(rig.pipes, rig.pools, 0, rig.batch, rig.batch)
         if adm is not None:
             adm.reset_signal()  # the first windows checked the fold
@@ -5059,10 +5116,11 @@ def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
             rig.got[s], rig.pushed[s] = [], 0
         cap = rig.capacity()
         if adm is not None:
-            adm.set_ramp_start(adm.RAMP_START)
+            adm.slo_s = slo_s
             adm.reset_signal()
         rate = CTL_LOAD_SHARE * cap
         rig.start(rate)
+        time.sleep(settle_s)
         row, during = ctl_mttr_run(name, rig, rules[0].name, rules,
                                    playbooks, lambda: fault(rig),
                                    lambda: recovered(rig), warmup_s,
@@ -5089,6 +5147,132 @@ def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
           f"{jax_rate:g} to its CPU model); frames {row['frames']} "
           f"[{card}, {power}]", flush=True)
     return row, during
+
+
+CTL_BREAKER_OPEN_S = 8.0    # breaker-stuck: the long open window
+CTL_PUB_BACK_S = 1.0        # breaker-stuck: the publisher returns
+
+
+def ctl_breaker_stuck(card: str, power: str):
+    """15b's fourth script, bench_mttr's ``_mttr_breaker_stuck`` on the
+    port's edge layer: the publisher's pipeline dies; the subscriber's
+    re-dial loop fails until its breaker opens (3 failures, then an 8 s
+    open window); the publisher is back at +1 s; the ``redial-link``
+    playbook on ``breaker-open`` forces the half-open probe.  Frames are
+    (1, 4) float32 on the card; recovery is the breaker closed and fresh
+    frames delivered, before the open window ends."""
+    import threading
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.obs.control import Playbook
+    from nnstreamer_tpu_torch.obs.watch import AlertRule
+    from nnstreamer_tpu_torch.runtime import Pipeline, parse_launch
+
+    spec = TensorsSpec.parse("4:1", "float32")
+    frame = torch.ones((1, 4), dtype=torch.float32, device=CTL_DEVICE)
+
+    def publisher(port):
+        p = parse_launch(
+            "appsrc name=src max-buffers=64 ! edgesink name=esink "
+            f"host=127.0.0.1 port={port} topic=mttr",
+            pipeline=Pipeline(name="mttr-pub", device=CTL_DEVICE))
+        p["src"].spec = spec
+        p.start()
+        return p, p["src"], p["esink"]
+
+    ppub, psrc, esink = publisher(0)
+    port = esink.port
+    psub = parse_launch(
+        "edgesrc name=esrc dest-host=127.0.0.1 "
+        f"dest-port={port} topic=mttr caps=other/tensors,format=static,"
+        "num_tensors=1,dimensions=4:1,types=float32 "
+        "reconnect-timeout-s=60 ! appsink name=out max-buffers=256",
+        pipeline=Pipeline(name="mttr-sub", device=CTL_DEVICE))
+    esrc, outs = psub["esrc"], psub["out"]
+    psub.start()
+    # the production-shaped policy the script is about: fail fast to the
+    # breaker, then a long open window
+    esrc._retry.base_s = 0.05
+    esrc._retry.max_s = 0.2
+    esrc._retry.fail_threshold = 3
+    esrc._retry.open_s = CTL_BREAKER_OPEN_S
+    state = {"stop": False, "pub": (ppub, psrc), "sent": 0, "got": 0}
+    lock = threading.Lock()
+
+    def pump():
+        n = 0
+        while not state["stop"]:
+            with lock:
+                src = state["pub"][1]
+            try:
+                src.push_buffer(Buffer(tensors=[Tensor(frame)], pts=n),
+                                timeout=0.2)
+                state["sent"] += 1
+                n += 1
+            except Exception:  # noqa: BLE001 - publisher down mid-fault:
+                # open-loop traffic keeps trying
+                pass
+            while outs.pull(timeout=0) is not None:
+                state["got"] += 1
+            time.sleep(0.005)
+
+    pump_t = threading.Thread(target=pump, name="mttr-pump", daemon=True)
+    pump_t.start()
+    rules = [AlertRule(name="breaker-open", kind="threshold",
+                       metric="nns_edge_breaker_state", op=">=",
+                       value="open", severity="critical")]
+    playbooks = [Playbook(name="redial-link", rule="breaker-open",
+                          kind="link", actuator="breaker", action="set",
+                          value=1.0, cooldown_s=0.3)]
+
+    def fault():
+        state["got_at_fault"] = state["got"]
+        with lock:
+            p = state["pub"][0]
+        p.stop()
+
+        def restart():
+            time.sleep(CTL_PUB_BACK_S)
+            with lock:
+                state["pub"] = publisher(port)[:2]
+
+        threading.Thread(target=restart, name="mttr-restart",
+                         daemon=True).start()
+
+    def recovered():
+        # breaker closed AND fresh frames since the fault: a closed
+        # breaker on a dead data path is not recovery
+        return esrc._retry.state == 0 \
+            and state["got"] > state.get("got_at_fault", 0)
+
+    try:
+        row, _ = ctl_mttr_run("breaker-stuck", None, "breaker-open", rules,
+                              playbooks, fault, recovered, warmup_s=1.0)
+    finally:
+        # the subscriber first while the pump still drains its sink
+        psub.stop()
+        state["stop"] = True
+        pump_t.join(timeout=5)
+        with lock:
+            state["pub"][0].stop()
+    row["open_window_s"] = CTL_BREAKER_OPEN_S
+    row["breaker_opens"] = esrc._retry.breaker_opens
+    row["frames"] = {"sent": state["sent"], "delivered": state["got"]}
+    if row["mttr_s"] >= CTL_BREAKER_OPEN_S or not row["breaker_opens"]:
+        raise RuntimeError(f"control (b) breaker-stuck: not recovered "
+                           f"before the {CTL_BREAKER_OPEN_S} s open "
+                           f"window ends: {row}")
+    print(f"control (b) breaker-stuck: detect {row['detect_s']:.3f} s, "
+          f"actuate {row['actuate_s']:.3f} s, MTTR {row['mttr_s']:.3f} s "
+          f"(the open window {CTL_BREAKER_OPEN_S} s, the publisher back at "
+          f"+{CTL_PUB_BACK_S} s); rules {row['rules_fired']}; "
+          f"{row['actions']} decisions = nns_control_actions_total "
+          f"{row['exported_actions']:g}; breaker opened "
+          f"{row['breaker_opens']} time(s); frames {row['frames']} "
+          f"[{card}, {power}]", flush=True)
+    return row
 
 
 def ctl_top(rig, base: str):
@@ -5152,7 +5336,7 @@ def ctl_mttr(card: str, power: str):
         lambda rig: _actuate_retry(rig.entry.actuators()["coalescing"], 0.0),
         lambda rig: rig.entry.batcher is not None
         and rig.entry.batcher.pending < 8 and not rig.entry.batcher.paused,
-        warmup_s=1.0)
+        warmup_s=1.0, settle_s=1.0)
     # window-collapse → dispatch-amplification → revert max-batch
     rows["window-collapse"], _ = ctl_script(
         "window-collapse", card, power, dict(n=3, batch=8, burst=4),
@@ -5169,7 +5353,7 @@ def ctl_mttr(card: str, power: str):
         lambda rig: rig.entry.batcher is not None
         and rig.entry.batcher.max_batch == 8
         and rig.entry.batcher.pending < 32,
-        warmup_s=1.2)
+        warmup_s=1.2, settle_s=1.0)
     # slo-burn-overload → slo-burn → widen-window + tighten-admission,
     # with nns-top against the endpoint while the burn fires
     srv = serve_metrics(port=0)
@@ -5197,7 +5381,8 @@ def ctl_mttr(card: str, power: str):
             and rig.entry.batcher is not None
             and rig.entry.batcher.max_batch == 16
             and rig.entry.admission.p99_s < 0.25,
-            warmup_s=1.5, during_fn=lambda rig: ctl_top(rig, base))
+            warmup_s=1.5, settle_s=1.5,
+            during_fn=lambda rig: ctl_top(rig, base))
     finally:
         srv.close()
     if top_res is None:
@@ -5207,6 +5392,7 @@ def ctl_mttr(card: str, power: str):
           f"{top_res['element_rows']} element rows, pools "
           f"{top_res['pools']}, firing {top_res['firing']} [{card}, "
           f"{power}]", flush=True)
+    rows["breaker-stuck"] = ctl_breaker_stuck(card, power)
     return rows, top_res
 
 
@@ -5796,6 +5982,684 @@ def phase_repairs(card: str, power: str):
     return res
 
 
+# -- phase 17: the edge layer (query offload, device channel, pub/sub) -------
+
+EDGE_FRAMES = 256          # 17a: frames the client offloads
+EDGE_POOL = 16             # 17a: distinct frames, staged on the card
+EDGE_INFLIGHT = 8          # the client's max-request and its closed loop
+EDGE_SCORE_TOL = 1e-5      # phase 11's detection score tolerance
+EDGE_BIG_FRAMES = 12       # 17b: batch-256 frames a run
+EDGE_BIG_INFLIGHT = 2      # 17b: frames in flight (69.12 MB each)
+EDGE_VIT_CLIENTS = 4       # 17c
+EDGE_VIT_FRAMES = 64       # 17c: frames a client
+EDGE_PUB_FRAMES = 64       # 17d
+#: phase 17's device; its logic also runs on "cpu" at a small width (with
+#: ``obs.transfer.CARD_TYPES`` widened), as a dry run before a call
+EDGE_DEVICE = "cuda"
+EDGE_SERVER_PIPE = (
+    "tensor_query_serversrc name=qsrc connect-type=tcp host=127.0.0.1 "
+    "port=0 id={sid} caps=other/tensors,format=static,num_tensors=1,"
+    "dimensions=3:{s}:{s}:{b},types=uint8 ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=enet{sid} framework=torch-cuda model={model}{extra} ! "
+    "{dec}tensor_query_serversink name=qsink id={sid}")
+EDGE_CLIENT_PIPE = (
+    "appsrc name=src max-buffers={q} ! tensor_query_client name=cli "
+    "host=127.0.0.1 port={port} connect-type=tcp max-request={inflight} "
+    "timeout=120000 device-channel={devch} ! appsink name=out "
+    "max-buffers={sink}")
+
+
+def edge_register_ssd(name: str, batch: int) -> None:
+    """Phase 4's detector (SSD-MobileNetV2, bf16-resident) at ``batch``."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters.torch_cuda import get_model
+    from nnstreamer_tpu_torch.models import (
+        feature_sizes_for,
+        ssd_anchors,
+        ssd_from_jax,
+        ssd_mobilenet_v2_init,
+        weights_to_bf16,
+    )
+
+    if get_model(name) is None:
+        register_detector(name, ssd_from_jax(weights_to_bf16(
+            ssd_mobilenet_v2_init(SEED, NUM_CLASSES))),
+            ssd_anchors(SIZE, feature_sizes_for(SIZE)), batch,
+            torch.bfloat16)
+
+
+def _edge_card_gate(ok: bool, failure: str, what: str) -> None:
+    """A gate only the card can pass (kernel launches): raise
+    ``failure`` on the card; on the CPU dry run say it was skipped."""
+    if EDGE_DEVICE != "cuda":
+        print(f"edge dry run on {EDGE_DEVICE}: skipped the card-only "
+              f"gate: {what}", flush=True)
+    elif not ok:
+        raise RuntimeError(failure)
+
+
+def edge_pipe(desc: str, name: str):
+    from nnstreamer_tpu_torch.runtime import Pipeline, parse_launch
+
+    return parse_launch(desc, pipeline=Pipeline(name=name,
+                                                device=EDGE_DEVICE))
+
+
+def edge_loop(p, pool, n: int, depth: int):
+    """Push ``pool[i % len(pool)]`` (card tensors) with pts i, ``depth``
+    in flight, pull every result: (buffers, pull times, wall seconds)."""
+    from nnstreamer_tpu_torch.core import Buffer, Tensor
+
+    src, sink = p["src"], p["out"]
+    outs, pulls = [], []
+    sent = 0
+    t0 = time.perf_counter()
+    while len(outs) < n:
+        while sent < n and sent - len(outs) < depth:
+            src.push_buffer(Buffer(tensors=[Tensor(pool[sent % len(pool)])],
+                                   pts=sent))
+            sent += 1
+        b = sink.pull(timeout=300)
+        if b is None:
+            raise RuntimeError(f"{p.name}: no result within 300 s after "
+                               f"{len(outs)} of {n}")
+        pulls.append(time.perf_counter())
+        outs.append(b)
+    return outs, pulls, time.perf_counter() - t0
+
+
+def edge_eos(p) -> None:
+    p["src"].end_of_stream()
+    if not p.wait_eos(timeout=120):
+        raise RuntimeError(f"{p.name}: no EOS")
+
+
+def rtt_quantile(rtt: dict, q: float):
+    """The RTT histogram bucket bound (s) holding quantile ``q`` of the
+    ``LinkMetrics`` RTT samples."""
+    from nnstreamer_tpu_torch.obs.metrics import EDGE_RTT_BUCKETS
+
+    want, seen = q * rtt["count"], 0
+    for le, c in zip(EDGE_RTT_BUCKETS, rtt["buckets"]):
+        seen += c
+        if seen >= want:
+            return le
+    return float("inf")
+
+
+def edge_crossings(pipeline: str, frames: int) -> dict:
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+
+    d2h = xfer.LEDGER.totals(pipeline=pipeline, direction="d2h")
+    h2d = xfer.LEDGER.totals(pipeline=pipeline, direction="h2d")
+    return {"d2h": d2h[0], "d2h_bytes": d2h[1], "h2d": h2d[0],
+            "h2d_bytes": h2d[1],
+            "per_frame": (d2h[0] + h2d[0]) / max(frames, 1)}
+
+
+def edge_server_child(cfg_json: str) -> int:
+    """17a's server process: the SSD at batch 1 behind
+    ``tensor_query_serversrc connect-type=tcp``.  Prints ``PORT=<n>``,
+    serves until a line arrives on stdin, then prints its kernel launches
+    and its ledger's crossings as ``EDGE_SERVER {json}``."""
+    global SIZE, NUM_CLASSES, EDGE_DEVICE
+    cfg = json.loads(cfg_json)
+    SIZE, NUM_CLASSES, EDGE_DEVICE = (cfg["size"], cfg["classes"],
+                                      cfg["device"])
+    import torch
+
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.ops import build, kernels
+
+    if cfg["fake_card"]:
+        xfer.CARD_TYPES = ("cuda", "cpu")
+    if EDGE_DEVICE == "cuda":
+        build.build_all()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    edge_register_ssd("edge_ssd_b1", 1)
+    p = edge_pipe(EDGE_SERVER_PIPE.format(
+        sid=171, s=SIZE, b=1, norm=NORM, model="edge_ssd_b1", extra="",
+        dec=""), "edge-srv")
+    kernels.scale_bias_cast.launches = 0
+    xfer.LEDGER.clear()
+    p.start()
+    print(f"PORT={p['qsrc'].port}", flush=True)
+    sys.stdin.readline()
+    from nnstreamer_tpu_torch.edge import devicechannel
+
+    res = {"scale_bias_cast": kernels.scale_bias_cast.launches,
+           "crossings": edge_crossings("edge-srv", cfg["frames"]),
+           "fingerprint": devicechannel.fingerprint()}
+    p.stop()
+    print("EDGE_SERVER " + json.dumps(res), flush=True)
+    return 0
+
+
+def edge_local_ssd(pool):
+    """The pool's frames through the batch-1 detector here: (outputs as
+    host arrays by frame, the filter's negotiated output caps)."""
+    from nnstreamer_tpu_torch.core import TensorsSpec
+
+    p = edge_pipe(
+        "appsrc name=src max-buffers=4 ! tensor_transform mode=arithmetic "
+        f"option={NORM} backend=cuda ! tensor_filter name=enet "
+        "framework=torch-cuda model=edge_ssd_b1 ! appsink name=out "
+        f"max-buffers={len(pool) + 4}", "edge-local")
+    p["src"].spec = TensorsSpec.parse(f"3:{SIZE}:{SIZE}:1", "uint8")
+    with p:
+        outs, _, _ = edge_loop(p, pool, len(pool), 1)
+        caps = p["enet"].srcpad.caps
+        edge_eos(p)
+    return [[t.np() for t in b.tensors] for b in outs], caps
+
+
+def edge_offload(card: str, power: str):
+    """17a: the SSD offloaded to a server in a child process over TCP."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.edge.wire import (MSG_QUERY, MSG_REPLY,
+                                                EdgeMessage)
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.obs.metrics import LinkMetrics
+
+    edge_register_ssd("edge_ssd_b1", 1)
+    rng = np.random.default_rng(SEED + 17)
+    host = [rng.integers(0, 256, (1, SIZE, SIZE, 3), dtype=np.uint8)
+            for _ in range(EDGE_POOL)]
+    pool = [torch.from_numpy(h).to(EDGE_DEVICE) for h in host]
+    local, caps = edge_local_ssd(pool)
+    cfg = {"size": SIZE, "classes": NUM_CLASSES, "device": EDGE_DEVICE,
+           "fake_card": xfer.CARD_TYPES != ("cuda",), "frames": EDGE_FRAMES}
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--edge-server-child", json.dumps(cfg)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=HERE)
+    try:
+        port = None
+        t_up = time.perf_counter()
+        for line in proc.stdout:
+            if line.startswith("PORT="):
+                port = int(line.strip().split("=", 1)[1])
+                break
+        if port is None:
+            raise RuntimeError(f"edge (a): the server child exited "
+                               f"{proc.wait()} before serving")
+        t_up = time.perf_counter() - t_up
+        LinkMetrics.clear_all()
+        p = edge_pipe(EDGE_CLIENT_PIPE.format(
+            q=EDGE_INFLIGHT + 4, port=port, inflight=EDGE_INFLIGHT,
+            devch="false", sink=EDGE_FRAMES + 4), "edge-cli")
+        p["src"].spec = TensorsSpec.parse(f"3:{SIZE}:{SIZE}:1", "uint8")
+        p["cli"].caps = caps  # pinned: no caps exchange on the link
+        xfer.LEDGER.clear()
+        with p:
+            outs, pulls, wall = edge_loop(p, pool, EDGE_FRAMES,
+                                          EDGE_INFLIGHT)
+            link = LinkMetrics.get("cli", f"127.0.0.1:{port}",
+                                   kind="query").snapshot()
+            cli = edge_crossings("edge-cli", EDGE_FRAMES)
+            timeouts, dropped = p["cli"].timeouts, p["cli"].dropped
+            edge_eos(p)
+        proc.stdin.write("stop\n")
+        proc.stdin.flush()
+        server = None
+        for line in proc.stdout:
+            if line.startswith("EDGE_SERVER "):
+                server = json.loads(line[len("EDGE_SERVER "):])
+        if proc.wait(timeout=120) != 0 or server is None:
+            raise RuntimeError("edge (a): the server child failed")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    # the link's counters against the frames re-packed: 4-byte length
+    # prefix + wire bytes; replies echo seq with client_id 1
+    tx_truth = sum(4 + len(EdgeMessage.from_buffer(
+        MSG_QUERY, Buffer.of(host[i % EDGE_POOL], pts=i), seq=i + 1).pack())
+        for i in range(EDGE_FRAMES))
+    rx_truth = sum(4 + len(EdgeMessage.from_buffer(
+        MSG_REPLY, b, client_id=1, seq=i + 1).pack())
+        for i, b in enumerate(outs))
+    worst = 0.0
+    for i, b in enumerate(outs):
+        got, ref = [t.np() for t in b.tensors], local[i % EDGE_POOL]
+        if len(got) != 4 or any(g.shape != r.shape for g, r in
+                                zip(got, ref)):
+            raise RuntimeError(f"edge (a): frame {i}: outputs "
+                               f"{[g.shape for g in got]}")
+        worst = max(worst, float(np.abs(got[2].astype(np.float64)
+                                        - ref[2]).max()))
+        if not (np.array_equal(got[0], ref[0])
+                and np.array_equal(got[1], ref[1])
+                and np.array_equal(got[3], ref[3])) \
+                or worst > EDGE_SCORE_TOL:
+            raise RuntimeError(f"edge (a): frame {i} differs from the "
+                               f"same frame through the local pipeline "
+                               f"(scores off by {worst})")
+    res = {
+        "frames": len(outs), "frames_per_s": len(outs) / wall,
+        "server_start_s": t_up,
+        "rtt_p50_le_ms": rtt_quantile(link["rtt"], 0.5) * 1e3,
+        "rtt_p99_le_ms": rtt_quantile(link["rtt"], 0.99) * 1e3,
+        "rtt_mean_ms": link["rtt"]["mean_us"] / 1e3,
+        "rtt_count": link["rtt"]["count"],
+        "tx_bytes": link["tx_bytes"], "rx_bytes": link["rx_bytes"],
+        "tx_bytes_truth": tx_truth, "rx_bytes_truth": rx_truth,
+        "tx_msgs": link["tx_msgs"], "rx_msgs": link["rx_msgs"],
+        "timeouts": timeouts, "dropped": dropped,
+        "client_crossings": cli, "server_crossings": server["crossings"],
+        "server_fingerprint": server["fingerprint"],
+        "max_abs_score_diff": worst,
+        "launches": server["scale_bias_cast"],
+    }
+    if [b.pts for b in outs] != list(range(EDGE_FRAMES)) or timeouts \
+            or dropped:
+        raise RuntimeError(f"edge (a): frames lost or out of order: "
+                           f"{len(outs)} back, {timeouts} timed out, "
+                           f"{dropped} dropped")
+    if (link["tx_bytes"], link["rx_bytes"]) != (tx_truth, rx_truth) or \
+            (link["tx_msgs"], link["rx_msgs"]) != (EDGE_FRAMES,
+                                                   EDGE_FRAMES):
+        raise RuntimeError(f"edge (a): link counters {link} against the "
+                           f"re-packed frames tx {tx_truth} rx {rx_truth}")
+    if cli["d2h"] != EDGE_FRAMES or cli["h2d"] or \
+            server["crossings"]["h2d"] != EDGE_FRAMES or \
+            server["crossings"]["d2h"] != 4 * EDGE_FRAMES:
+        raise RuntimeError(f"edge (a): crossings client {cli}, server "
+                           f"{server['crossings']}: expected one d2h a "
+                           "frame here, one h2d and 4 d2h (one a "
+                           "tensor) a frame at the server")
+    _edge_card_gate(res["launches"] > 0, "edge (a): scale_bias_cast "
+                    "never launched in the server", "17a's launches")
+    print(f"edge (a) SSD offload across processes over TCP: "
+          f"{res['frames_per_s']:.1f} frames/s ({EDGE_FRAMES} frames, "
+          f"{EDGE_INFLIGHT} in flight); RTT p50 <= "
+          f"{res['rtt_p50_le_ms']:g} ms, p99 <= {res['rtt_p99_le_ms']:g} "
+          f"ms (bucket bounds), mean {res['rtt_mean_ms']:.3f} ms; tx "
+          f"{link['tx_bytes']} B rx {link['rx_bytes']} B = the re-packed "
+          f"frames; crossings a frame: client {cli['per_frame']:g} (d2h "
+          f"{cli['d2h']}), server {server['crossings']['per_frame']:g} "
+          f"(h2d {server['crossings']['h2d']}, d2h "
+          f"{server['crossings']['d2h']}); outputs equal to local, scores "
+          f"within {worst:g}; scale_bias_cast {res['launches']} launches "
+          f"in the server [{card}, {power}]", flush=True)
+    return res
+
+
+def edge_repair_d2h() -> dict:
+    """One host read of a card tensor crosses once, in either order."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import Tensor
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+
+    out = {}
+    for order in ("tobytes-np", "np-tobytes"):
+        x = torch.arange(3 * 1024, dtype=torch.float32, device=EDGE_DEVICE)
+        t = Tensor(x)
+        xfer.LEDGER.clear()
+        if order == "tobytes-np":
+            raw, arr = t.tobytes(), t.np()
+        else:
+            arr, raw = t.np(), t.tobytes()
+        got = xfer.LEDGER.totals(direction="d2h")
+        if got != (1, x.numel() * 4) or raw != arr.tobytes() or \
+                not np.array_equal(arr, np.arange(3 * 1024,
+                                                  dtype=np.float32)):
+            raise RuntimeError(f"edge (b): {order}: {got} d2h (count, "
+                               "bytes), one expected")
+        out[order] = got[0]
+    return out
+
+
+def edge_devch(card: str, power: str):
+    """17b: the SSD at batch 256 served in this process over TCP, with
+    and without the device channel."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.edge import devicechannel
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.ops import kernels
+
+    edge_register_ssd("ssd_mobilenet_v2", BATCH)
+    rng = np.random.default_rng(SEED + 18)
+    pool = [torch.from_numpy(rng.integers(
+        0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(EDGE_DEVICE)
+        for _ in range(2)]
+    srv = edge_pipe(EDGE_SERVER_PIPE.format(
+        sid=172, s=SIZE, b=BATCH, norm=NORM, model="ssd_mobilenet_v2",
+        extra="", dec=""), "edge-devch-srv")
+    runs, outs = {}, {}
+    launches = 0
+    srv.start()
+    try:
+        for on in (True, False):
+            name = f"edge-devch-{'on' if on else 'off'}"
+            p = edge_pipe(EDGE_CLIENT_PIPE.format(
+                q=4, port=srv["qsrc"].port, inflight=EDGE_BIG_INFLIGHT,
+                devch="true" if on else "false",
+                sink=EDGE_BIG_FRAMES + 4), name)
+            p["src"].spec = TensorsSpec.parse(
+                f"3:{SIZE}:{SIZE}:{BATCH}", "uint8")
+            with p:
+                granted = p["cli"]._ensure_conn().devch_ok
+                devicechannel.reset()
+                xfer.LEDGER.clear()
+                kernels.scale_bias_cast.launches = 0
+                bufs, pulls, wall = edge_loop(p, pool, EDGE_BIG_FRAMES,
+                                              EDGE_BIG_INFLIGHT)
+                launches += kernels.scale_bias_cast.launches
+                d2h = xfer.LEDGER.totals(direction="d2h")
+                h2d = xfer.LEDGER.totals(direction="h2d")
+                st = devicechannel.stats()
+                edge_eos(p)
+            gaps = [(b - a) * 1e3 for a, b in zip(pulls, pulls[1:])]
+            runs[name] = {
+                "device_channel": on, "granted": granted,
+                "d2h": d2h[0], "d2h_bytes": d2h[1], "h2d": h2d[0],
+                "h2d_bytes": h2d[1],
+                "crossings_per_frame": (d2h[0] + h2d[0]) / EDGE_BIG_FRAMES,
+                "devch": st, "frames_per_s": EDGE_BIG_FRAMES * BATCH / wall,
+                "p50_gap_ms": statistics.median(gaps),
+                "pts_in_order": [b.pts for b in bufs]
+                == list(range(EDGE_BIG_FRAMES))}
+            outs[on] = bufs
+    finally:
+        srv.stop()
+    on, off = runs["edge-devch-on"], runs["edge-devch-off"]
+    frame_bytes = BATCH * SIZE * SIZE * 3
+    out_bytes = sum(t.nbytes for t in outs[False][0].tensors)
+    if not (on["granted"] and on["pts_in_order"] and off["pts_in_order"]):
+        raise RuntimeError(f"edge (b): handshake or order: {runs}")
+    if on["crossings_per_frame"] != 0.0 or \
+            on["devch"]["deposits"] != on["devch"]["takes"] or \
+            on["devch"]["deposits"] != 2 * EDGE_BIG_FRAMES or \
+            on["devch"]["evicted"] or on["devch"]["misses"]:
+        raise RuntimeError(f"edge (b): with the device channel: {on}")
+    if (off["d2h"], off["h2d"], off["d2h_bytes"], off["h2d_bytes"]) != (
+            5 * EDGE_BIG_FRAMES, EDGE_BIG_FRAMES,
+            EDGE_BIG_FRAMES * (frame_bytes + out_bytes),
+            EDGE_BIG_FRAMES * frame_bytes) or off["devch"]["deposits"]:
+        raise RuntimeError(f"edge (b): without the device channel: {off}; "
+                           "expected one d2h a tensor a hop (1 + 4 a "
+                           "frame) and one h2d a frame")
+    for i, (a, b) in enumerate(zip(outs[True], outs[False])):
+        if [t.tobytes() for t in a.tensors] != \
+                [t.tobytes() for t in b.tensors]:
+            raise RuntimeError(f"edge (b): frame {i}: outputs differ with "
+                               "and without the device channel")
+    _edge_card_gate(launches > 0, "edge (b): scale_bias_cast never "
+                    "launched", "17b's launches")
+    res = {"runs": runs, "repair_d2h": edge_repair_d2h(),
+           "launches": launches}
+    print(f"edge (b) device channel in one process, SSD batch {BATCH} "
+          f"({frame_bytes} B frames), {EDGE_BIG_FRAMES} frames a run: with "
+          f"it {on['crossings_per_frame']:g} crossings a frame, "
+          f"{on['devch']['deposits']} deposits = takes, "
+          f"{on['devch']['evicted']} evicted, p50 gap "
+          f"{on['p50_gap_ms']:.3f} ms; without it "
+          f"{off['crossings_per_frame']:g} a frame (d2h {off['d2h']}, h2d "
+          f"{off['h2d']}), p50 gap {off['p50_gap_ms']:.3f} ms; outputs "
+          f"byte-equal; tobytes()+np() one d2h either order "
+          f"[{card}, {power}]", flush=True)
+    return res
+
+
+def edge_vit(card: str, power: str):
+    """17c: the pooled ViT served to EDGE_VIT_CLIENTS clients over TCP."""
+    import threading
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.decoders.boxutil import load_labels
+    from nnstreamer_tpu_torch.filters.torch_cuda import get_model
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.ops import kernels
+
+    if get_model("vit_serve") is None:
+        register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED,
+                     **VIT)
+    pools, _ = serve_pools(EDGE_VIT_CLIENTS, EDGE_DEVICE)
+    alone = run_alone(pools)
+    labels = load_labels(LABELS)
+    srv = edge_pipe(EDGE_SERVER_PIPE.format(
+        sid=173, s=VIT_SIZE, b=1, norm=NORM, model="vit_serve",
+        extra=" share-model=true batch=64 batch-timeout-ms=2 "
+              "batch-buckets=" + ",".join(map(str, SERVE_BUCKETS)),
+        dec=LABEL_DEC), "edge-vit-srv")
+    routed, lock = [], threading.Lock()
+    render = srv["qsink"].render
+
+    def recording(buf):
+        with lock:
+            routed.append((buf.meta.get("client_id"),
+                           buf.meta.get("query_seq")))
+        return render(buf)
+
+    srv["qsink"].render = recording
+    by_bucket = Counter()
+    clients, outs, walls, errors = [], {}, {}, []
+    srv.start()
+    try:
+        sp = srv["enet173"].pool.subplugin
+        batched = sp.invoke_batched
+
+        def counted(frames, bucket):
+            by_bucket[bucket] += 1
+            return batched(frames, bucket)
+
+        sp.invoke_batched = counted
+        for s in range(EDGE_VIT_CLIENTS):
+            p = edge_pipe(EDGE_CLIENT_PIPE.format(
+                q=EDGE_INFLIGHT + 4, port=srv["qsrc"].port,
+                inflight=EDGE_INFLIGHT, devch="false",
+                sink=EDGE_VIT_FRAMES + 4), f"edge-vit-c{s}")
+            p["src"].spec = TensorsSpec.parse(
+                f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
+            p.start()
+            clients.append(p)
+        by_bucket.clear()
+        with lock:
+            routed.clear()
+        kernels.flash_attention.launches = 0
+        kernels.scale_bias_cast.launches = 0
+
+        def client(s):
+            try:
+                outs[s], _, walls[s] = edge_loop(
+                    clients[s], pools[s], EDGE_VIT_FRAMES, EDGE_INFLIGHT)
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(s,),
+                                    name=f"edge-vit-client{s}")
+                   for s in range(EDGE_VIT_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": kernels.flash_attention.launches,
+                    "scale_bias_cast": kernels.scale_bias_cast.launches}
+        sp.invoke_batched = batched
+        for p in clients:
+            edge_eos(p)
+    finally:
+        for p in clients:
+            p.stop()
+        srv.stop()
+    if errors or len(outs) != EDGE_VIT_CLIENTS:
+        raise RuntimeError(f"edge (c): a client failed: {errors}")
+    checked = 0
+    for s in range(EDGE_VIT_CLIENTS):
+        if [b.pts for b in outs[s]] != list(range(EDGE_VIT_FRAMES)):
+            raise RuntimeError(f"edge (c): client {s}: replies out of order "
+                               "or lost")
+        for b in outs[s]:
+            ref = alone[s][b.pts % len(pools[s])].reshape(-1)
+            top2 = torch.topk(ref, 2).values
+            if float(top2[0] - top2[1]) <= SERVE_TOL:
+                continue
+            idx = int(ref.argmax())
+            want = labels[idx] if idx < len(labels) else str(idx)
+            got = bytes(b.tensors[0].np()).decode("utf-8")
+            if got != want:
+                raise RuntimeError(f"edge (c): client {s} frame {b.pts}: "
+                                   f"label {got!r}, alone {want!r}")
+            checked += 1
+    by_client = {}
+    for cid, seq in routed:
+        by_client.setdefault(cid, []).append(seq)
+    if len(by_client) != EDGE_VIT_CLIENTS or any(
+            seqs != list(range(1, EDGE_VIT_FRAMES + 1))
+            for seqs in by_client.values()):
+        raise RuntimeError(f"edge (c): replies by client_id at the server: "
+                           f"{ {c: len(v) for c, v in by_client.items()} }")
+    _edge_card_gate(all(launches.values()), f"edge (c): a kernel never "
+                    f"launched: {launches}", "17c's launches")
+    res = {"frames_per_s": EDGE_VIT_CLIENTS * EDGE_VIT_FRAMES / wall,
+           "frames_per_s_by_client": {
+               str(s): EDGE_VIT_FRAMES / walls[s]
+               for s in range(EDGE_VIT_CLIENTS)},
+           "windows_by_bucket": {str(k): v for k, v in
+                                 sorted(by_bucket.items())},
+           "labels_checked": checked, "launches": launches}
+    print(f"edge (c) pooled ViT served to {EDGE_VIT_CLIENTS} clients over "
+          f"TCP: {res['frames_per_s']:.1f} frames/s in all, by client "
+          f"{ {k: round(v, 1) for k, v in res['frames_per_s_by_client'].items()} }; "
+          f"windows by bucket {res['windows_by_bucket']}; every reply "
+          f"routed to its client in order; {checked} labels (top-2 margin "
+          f"> {SERVE_TOL}) equal to alone; launches {launches} "
+          f"[{card}, {power}]", flush=True)
+    return res
+
+
+def edge_pubsub(card: str, power: str):
+    """17d: ``edgesink`` publishing card frames; two subscribers on the
+    topic, one on another; a one-way trace span."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.obs import LatencyTracer
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+
+    caps = (f"other/tensors,format=static,num_tensors=1,"
+            f"dimensions=3:{VIT_SIZE}:{VIT_SIZE}:1,types=uint8")
+    g = torch.Generator().manual_seed(SEED + 19)
+    frames = [torch.randint(0, 256, (1, VIT_SIZE, VIT_SIZE, 3), generator=g,
+                            dtype=torch.uint8).to(EDGE_DEVICE)
+              for _ in range(EDGE_PUB_FRAMES)]
+    host = [f.cpu().numpy() for f in frames]
+    pub = edge_pipe("appsrc name=src max-buffers=8 ! edgesink name=esink "
+                    "host=127.0.0.1 port=0 connect-type=tcp topic=cam",
+                    "edge-pub")
+    pub["src"].spec = TensorsSpec.parse(f"3:{VIT_SIZE}:{VIT_SIZE}:1",
+                                        "uint8")
+    subs = []
+    with LatencyTracer(sample_every=1) as tr:
+        pub.start()
+        try:
+            port = pub["esink"].port
+            for k, (topic, pinned) in enumerate((("cam", False),
+                                                 ("cam", True),
+                                                 ("other", True))):
+                subs.append(edge_pipe(
+                    f"edgesrc name=esrc{k} dest-host=127.0.0.1 "
+                    f"dest-port={port} connect-type=tcp topic={topic} "
+                    f"device-channel=false "
+                    + (f"caps={caps} " if pinned else "")
+                    + (f"num-buffers={EDGE_PUB_FRAMES} "
+                       if topic == "cam" else "")
+                    + f"! appsink name=out{k} "
+                    f"max-buffers={EDGE_PUB_FRAMES + 4}", f"edge-sub{k}"))
+                subs[-1].start()
+            learned = subs[0]["esrc0"].srcpad.spec
+            deadline = time.monotonic() + 30
+            while len(pub["esink"]._server._subs) < 3:
+                if time.monotonic() > deadline:
+                    raise RuntimeError("edge (d): subscriptions did not land")
+                time.sleep(0.02)
+            xfer.LEDGER.clear()
+            for i, f in enumerate(frames):
+                pub["src"].push_buffer(Buffer(tensors=[Tensor(f)], pts=i))
+            got = []
+            for k in (0, 1):
+                got.append([subs[k][f"out{k}"].pull(timeout=60)
+                            for _ in range(EDGE_PUB_FRAMES)])
+                if not subs[k].wait_eos(timeout=60):
+                    raise RuntimeError(f"edge (d): subscriber {k}: no EOS")
+            stray = subs[2]["out2"].pull(timeout=0.5)
+            d2h = xfer.LEDGER.totals(pipeline="edge-pub", direction="d2h")
+            published = pub["esink"].published
+        finally:
+            for p in subs:
+                p.stop()
+            pub.stop()
+    for k in (0, 1):
+        if any(b is None for b in got[k]) or \
+                [b.pts for b in got[k]] != list(range(EDGE_PUB_FRAMES)):
+            raise RuntimeError(f"edge (d): subscriber {k} lost frames or "
+                               "got them out of order")
+        for b in got[k]:
+            if b.tensors[0].tobytes() != host[b.pts].tobytes():
+                raise RuntimeError(f"edge (d): subscriber {k} frame "
+                                   f"{b.pts} differs from the published")
+    if stray is not None:
+        raise RuntimeError("edge (d): the subscriber on another topic got "
+                           "a frame")
+    if not learned.is_static() or \
+            learned.tensors[0].dims != (3, VIT_SIZE, VIT_SIZE, 1):
+        raise RuntimeError(f"edge (d): learned caps {learned}")
+    if d2h != (EDGE_PUB_FRAMES, EDGE_PUB_FRAMES * host[0].nbytes) or \
+            published != 2 * EDGE_PUB_FRAMES:
+        raise RuntimeError(f"edge (d): {d2h} d2h (count, bytes) for "
+                           f"{published} sends: one a frame expected")
+    recs = [r for r in tr.records()
+            if any(name in ("out0", "out1") for _, name, _ in r["marks"])]
+    hops = [r["remote"][0] for r in recs if r.get("remote")]
+    if len(recs) != 2 * EDGE_PUB_FRAMES or len(hops) != len(recs) or any(
+            h["link"] not in ("esrc0", "esrc1")
+            or not {nm for _, nm, _ in h["marks"]} >= {"src"}
+            for h in hops):
+        raise RuntimeError(f"edge (d): {len(recs)} subscriber records, "
+                           f"{len(hops)} with a one-way hop")
+    lag = statistics.median(r["end"] - h["t_in"] for r, h in
+                            zip(recs, hops)) if hops else None
+    res = {"frames": EDGE_PUB_FRAMES, "subscribers": 2, "published": published,
+           "d2h": d2h[0], "learned_dims": list(learned.tensors[0].dims),
+           "oneway_records": len(hops), "p50_sub_residency_s": lag}
+    print(f"edge (d) pub/sub: {EDGE_PUB_FRAMES} card frames to 2 "
+          f"subscribers in order, byte-equal, none to the other topic; "
+          f"caps learned {res['learned_dims']}; {d2h[0]} d2h for "
+          f"{published} sends; {len(hops)} subscriber records with the "
+          f"publisher's one-way hop [{card}, {power}]", flush=True)
+    return res
+
+
+def phase_edge(card: str, power: str):
+    """Phase 17 (see the module doc)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    res = {"offload": edge_offload(card, power),
+           "devch": edge_devch(card, power),
+           "vit": edge_vit(card, power),
+           "pubsub": edge_pubsub(card, power)}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"edge phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -5805,11 +6669,14 @@ def main() -> int:
         return obs_detect_child()
     if sys.argv[1:] == ["--control-disabled-child"]:
         return ctl_disabled_child()
+    if len(sys.argv) == 3 and sys.argv[1] == "--edge-server-child":
+        return edge_server_child(sys.argv[2])
     alone = sys.argv[1:] == ["--decoders"]
     elements_alone = sys.argv[1:] == ["--elements"]
     obs_alone = sys.argv[1:] == ["--obs"]
     control_alone = sys.argv[1:] == ["--control"]
     repairs_alone = sys.argv[1:] == ["--repairs"]
+    edge_alone = sys.argv[1:] == ["--edge"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -5869,6 +6736,11 @@ def main() -> int:
         print(json.dumps({"repairs": phase_repairs(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if edge_alone:
+        PHASE[0] = "17"
+        print(json.dumps({"edge": phase_edge(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     PHASE[0] = "4"
@@ -5898,13 +6770,15 @@ def main() -> int:
     control = phase_control(card, power)
     PHASE[0] = "16"
     repairs = phase_repairs(card, power)
+    PHASE[0] = "17"
+    edge = phase_edge(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
                       "classify": classify, "yolo": yolo,
                       "decoders": decoders, "elements": elements,
                       "obs": obs, "control": control, "repairs": repairs,
-                      "card": card, "power_limit": power}))
+                      "edge": edge, "card": card, "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
@@ -5925,7 +6799,10 @@ def main() -> int:
                        "scale_bias_cast"],
                    "obs_detection": obs["detection"]["launches"],
                    "control": control["launches"]["scale_bias_cast"],
-                   "repairs_prefetch": repairs["prefetch"]["launches"]}
+                   "repairs_prefetch": repairs["prefetch"]["launches"],
+                   "edge_offload_server": edge["offload"]["launches"],
+                   "edge_devch": edge["devch"]["launches"],
+                   "edge_vit": edge["vit"]["launches"]["scale_bias_cast"]}
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],
@@ -5933,7 +6810,8 @@ def main() -> int:
                   "obs_vit_serving": obs["vit_serving"]["launches"][
                       "flash_attention"],
                   "control": control["launches"]["flash_attention"],
-                  "repairs_single": repairs["single"]["launches"]}
+                  "repairs_single": repairs["single"]["launches"],
+                  "edge_vit": edge["vit"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

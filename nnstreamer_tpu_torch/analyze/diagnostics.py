@@ -82,12 +82,10 @@ CODES: Dict[str, Tuple[str, str]] = {
                "tensor_filter latency=1 behind a queue (the reported "
                "latency excludes queue residency and can mislead)"),
     "NNS506": (Severity.INFO,
-               "(checked once tensor_query is ported, ROADMAP item 5) "
                "tensor_query_client tracing a cross-host link without "
                "NTP sync (span alignment relies on the in-band "
                "symmetric-delay estimate alone)"),
     "NNS507": (Severity.WARNING,
-               "(checked once tensor_query is ported, ROADMAP item 5) "
                "tensor_query_client on a cross-host link with "
                "timeout=0 or max-request=0 (unbounded in-flight "
                "growth against a dead or stalled server)"),

@@ -75,6 +75,7 @@ def verify_graph(pipe: Pipeline, fragment: bool = False) -> List[Diagnostic]:
     diags += _batching_checks(elements, fragment)
     diags += _serving_checks(elements)
     diags += _lifecycle_checks(elements)
+    diags += _edge_checks(elements)
     diags += _obs_checks(elements)
     diags += _dataflow_checks(elements)
     diags += _fusion_checks(elements)
@@ -247,12 +248,72 @@ def _batching_checks(elements: List[Element],
     return diags
 
 
-# NNS506/NNS507 (tensor_query_client's link bounds and clock sync) wait
-# for the port's edge layer (ROADMAP item 5); NNS509/NNS512 (mesh
-# divisibility, pool placement conflicts) for mesh placement (item 6).
-# The port's tensor_filter has no mesh=/devices= property and no
-# tensor_query_client yet, so a description using them does not parse
-# (NNS100).  The catalog keeps their codes.
+def _edge_checks(elements: List[Element]) -> List[Diagnostic]:
+    """NNS506: distributed-tracing clock hygiene.  A traced
+    ``tensor_query_client`` on a cross-host link (``connect-type`` tcp
+    or hybrid) aligns the server's spans using the in-band 4-timestamp
+    estimate, which assumes symmetric network delay; with no
+    ``ntp-servers=`` configured there is no wall-clock cross-check, so
+    a persistently asymmetric path (e.g. duplex-imbalanced WAN) skews
+    the placement of remote spans silently."""
+    diags: List[Diagnostic] = []
+    for e in elements:
+        if getattr(e, "FACTORY", "") != "tensor_query_client":
+            continue
+        if str(getattr(e, "connect_type", "tcp")) != "inproc":
+            # NNS507: a cross-host query link with the timeout or the
+            # max-request bound disabled has NO defense against a dead
+            # or stalled server — in-flight entries (and the buffers
+            # they pin) grow without bound, and EOS can never drain.
+            # (_int_prop's `or default` would fold the EXPLICIT 0 this
+            # check is about back into the default — read directly.)
+            try:
+                timeout = int(getattr(e, "timeout", 10000))
+            except (TypeError, ValueError):
+                timeout = 10000
+            try:
+                maxreq = int(getattr(e, "max_request", 8))
+            except (TypeError, ValueError):
+                maxreq = 8
+            if timeout <= 0 or maxreq <= 0:
+                off = " and ".join(
+                    ["timeout=0"] * (timeout <= 0)
+                    + ["max-request=0"] * (maxreq <= 0))
+                diags.append(Diagnostic.make(
+                    "NNS507",
+                    f"{e.name}: cross-host query link with {off} — "
+                    f"against a dead or stalled server, in-flight "
+                    f"requests (and the frames they pin) grow without "
+                    f"bound and nothing ever times out",
+                    element=e.name,
+                    hint="set timeout= (ms) so lost replies surface as "
+                         "timeouts, and max-request= so a slow server "
+                         "sheds input instead of queueing unboundedly "
+                         "(Documentation/robustness.md)"))
+        if not bool(getattr(e, "trace", True)):
+            continue
+        if str(getattr(e, "connect_type", "tcp")) == "inproc":
+            continue  # same process, same clock: nothing to align
+        if str(getattr(e, "ntp_servers", "") or "").strip():
+            continue
+        diags.append(Diagnostic.make(
+            "NNS506",
+            f"{e.name}: trace propagation on a cross-host link without "
+            f"NTP sync — remote spans are placed via the in-band "
+            f"round-trip estimate only, which assumes the network path "
+            f"is symmetric",
+            element=e.name,
+            hint="set ntp-servers=host[:port],... on the client (and "
+                 "server host) for a wall-clock cross-check, or "
+                 "trace=false to stop propagating trace contexts "
+                 "(Documentation/observability.md)"))
+    return diags
+
+
+# NNS509/NNS512 (mesh divisibility, pool placement conflicts) wait for
+# mesh placement (ROADMAP item 6): the port's tensor_filter has no
+# mesh=/devices= property yet, so a description using them does not
+# parse (NNS100).  The catalog keeps their codes.
 
 
 def _obs_checks(elements: List[Element]) -> List[Diagnostic]:

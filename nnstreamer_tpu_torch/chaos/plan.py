@@ -13,10 +13,10 @@ consult it:
 - **queue** — the batching window (``runtime/batching.py``) asks
   :meth:`FaultPlan.queue_stall` for an artificial dispatch stall, which
   shows up upstream as queue pressure;
-- **wire** — :meth:`FaultPlan.wire` drops, delays, duplicates, reorders,
-  corrupts, disconnects or partitions framed messages.  The wire faults
-  parse and count here; the transports that call them come with the
-  port's edge slice.
+- **wire** — the edge transports (:mod:`nnstreamer_tpu_torch.edge.transport`)
+  pass every framed message through :meth:`FaultPlan.wire`, which drops,
+  delays, duplicates, reorders, corrupts, disconnects or partitions it
+  (:func:`apply_wire_op` applies the result).
 
 Every injected fault is counted — locally (:meth:`FaultPlan.counts`)
 and in the process metrics registry (``nns_chaos_injected_total``
@@ -47,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 #: wire-seam faults (transport framing layer)
 WIRE_FAULTS = ("drop", "delay", "duplicate", "reorder", "corrupt",
@@ -366,6 +366,24 @@ class FaultPlan:
     def __repr__(self):
         cl = ";".join(s.fault for s in self.specs)
         return f"<FaultPlan seed={self.seed} [{cl}]>"
+
+
+def apply_wire_op(op: WireOp, deliver: Callable[[Any], Any],
+                  disconnect: Optional[Callable[[], None]] = None) -> bool:
+    """The one implementation of applying a :class:`WireOp`: sleep the
+    delay, deliver each frame, then run the disconnect action.  Every
+    transport seam routes through here so the op semantics live in one
+    place.  Returns False when any ``deliver`` explicitly returned False
+    (tx sites report send failures; rx sites return None, which counts
+    as success)."""
+    if op.delay_s > 0:
+        time.sleep(op.delay_s)
+    ok = True
+    for f in op.frames:
+        ok = (deliver(f) is not False) and ok
+    if op.disconnect and disconnect is not None:
+        disconnect()
+    return ok
 
 
 def apply_invoke_fault(plan: "FaultPlan",

@@ -2,9 +2,9 @@
 exponential backoff + a circuit breaker.
 
 Counterpart of the JAX package's ``chaos/retrypolicy.py``, with the same
-states, gauges and actuator.  The port's edge transports, its callers,
-come with a later slice; the actuation plane (``runtime/actuators.py``
-kind ``link``) steers any live policy already.  A fleet of clients
+states, gauges and actuator.  Its callers are the edge elements'
+reconnect loops (``edge/query.py``); the actuation plane
+(``runtime/actuators.py`` kind ``link``) steers any live policy.  A fleet of clients
 hammering a restarting server at a fixed interval is a thundering herd;
 a loop that never gives up hides a dead dependency forever.  This policy
 gives every loop the same three behaviors:

@@ -168,12 +168,14 @@ class Tensor:
                 self._host = _host_array(_xfer.prefetched(self._fetch))
                 self._fetch = None
                 return self._host
-            if self._dev is not None:
-                self._host = to_numpy(self._dev)
-            else:
+            if self._raw is not None:
+                # the bytes a tobytes() already drained (or the wire
+                # gave): one host read of a tensor crosses once
                 self._host = np.frombuffer(
                     self._raw, dtype=self._spec.dtype.np_dtype
                 ).reshape(self._spec.shape)
+            else:
+                self._host = to_numpy(self._dev)
         return self._host
 
     def tobytes(self) -> bytes:

@@ -710,7 +710,7 @@ EDGE_RTT_BUCKETS = (.0001, .00025, .0005, .001, .0025, .005, .01, .025,
 class LinkMetrics:
     """Per-connection edge-link stats (``nns_edge_*``): bytes/messages
     tx+rx, RTT distribution, in-flight requests, timeouts, reconnects.
-    The port's edge transports that feed it come with a later slice.
+    The port's edge transports and elements (``edge/``) feed it.
 
     One instance per (kind, link, peer) — ``kind`` names the role
     (``query``/``query-server``/``edge``...), ``link`` the owning

@@ -4,7 +4,8 @@ parity for this runtime), fleet-capable.
 Counterpart of the JAX package's ``obs/top.py``, reading the same
 snapshot keys.  The MESH section waits for the port's mesh placement
 (``obs/meshstat.py``), and the port compiles no XLA programs, so there
-is no COMPILE section; LINK rows render once edge links register.
+is no COMPILE section; LINK rows render from the edge links
+(``edge/``).
 
 Renders, per registered pipeline, one row per element: frames/s in/out
 (counter deltas between two registry snapshots), queue depth/capacity,

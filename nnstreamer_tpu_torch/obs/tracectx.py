@@ -1,9 +1,8 @@
 """Cross-device trace-context propagation — the wire side of the tracer.
 
-Counterpart of the JAX package's ``obs/tracectx.py``, with its own copy of
-the NTP estimate (:func:`offset_and_delay`, the JAX package's
-``edge/ntputil.py``).  The edge elements that send these blobs come with
-the port's edge slice; until then the blobs are held by their functions.
+Counterpart of the JAX package's ``obs/tracectx.py``.  The NTP estimate
+(``offset_and_delay``) is the port's one copy in ``edge/ntputil.py``; the
+edge elements (``edge/query.py``) send and absorb these blobs.
 
 A sampled buffer's trace dict (:mod:`.tracer`, ``Buffer.meta``) dies at
 a process boundary: the edge wire serializes tensors, not meta.  This
@@ -17,10 +16,10 @@ timeline (Documentation/observability.md, "Distributed tracing"):
 - **reply ctx** (server → client): echoes ``t1``, adds the server's
   receive/send timestamps ``t2``/``t3`` and every mark the trace
   collected server-side.  :func:`absorb_reply` runs the NTP
-  4-timestamp estimate (:func:`offset_and_delay`) over ``(t1, t2, t3,
-  t4)`` — every traced query round-trip IS a clock sample — and
-  attaches the offset-mapped remote
-  marks to the local trace as a ``remote`` entry.  The estimate
+  4-timestamp estimate (``edge/ntputil.py`` ``offset_and_delay``) over
+  ``(t1, t2, t3, t4)`` — every traced query round-trip IS a clock
+  sample — and attaches the offset-mapped remote marks to the local
+  trace as a ``remote`` entry.  The estimate
   guarantees the mapped server window lands inside ``[t1, t4]``, so
   the client's network span always nests the server's spans.
 - **one-way ctx** (edgesink/mqttsink/grpc sink → their sources): no
@@ -54,20 +53,6 @@ CTX_VERSION = 1
 #: knowledge of the payload length.
 TRAILER_MAGIC = b"NNSTRC01"
 _TRAILER_FIXED = len(TRAILER_MAGIC) + 4
-
-
-def offset_and_delay(t1: float, t2: float, t3: float,
-                     t4: float) -> Tuple[float, float]:
-    """RFC 5905 §8 estimate from one request/response exchange.
-
-    ``t1``/``t4`` are on the LOCAL clock (request send, response
-    receive), ``t2``/``t3`` on the REMOTE clock (request receive, response
-    send).  Returns ``(offset, delay)``: ``offset`` estimates ``remote -
-    local`` (symmetric path delay assumed), ``delay`` the network round
-    trip without the remote's processing time.  Remote events mapped with
-    this offset land inside the local ``[t1, t4]`` window:
-    ``t2 - offset = t1 + delay/2`` and ``t3 - offset = t4 - delay/2``."""
-    return ((t2 - t1) + (t3 - t4)) / 2.0, (t4 - t1) - (t3 - t2)
 
 
 def host_tag() -> str:
@@ -139,6 +124,8 @@ def absorb_reply(tr: Dict[str, Any], ctx: Dict[str, Any], t4: float,
     with the per-exchange offset.  Returns ``(offset_s, delay_s)`` for
     the caller's clock filter, or None when the context lacks usable
     timestamps."""
+    from ..edge.ntputil import offset_and_delay
+
     t1, t2, t3 = ctx.get("t1"), ctx.get("t2"), ctx.get("t3")
     if not all(isinstance(t, (int, float)) for t in (t1, t2, t3)):
         return None

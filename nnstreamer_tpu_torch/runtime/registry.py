@@ -63,6 +63,7 @@ _BUILTIN_MODULES = [
     "nnstreamer_tpu_torch.elements",
     "nnstreamer_tpu_torch.filters",
     "nnstreamer_tpu_torch.decoders",
+    "nnstreamer_tpu_torch.edge",
 ]
 
 

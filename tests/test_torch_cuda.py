@@ -37,6 +37,12 @@ The active layer on the card: ``hw.probe()`` against ``torch.cuda``, a
 verdicts taken before it returns, each frame within 1e-4 of the frame
 alone), and an alert-triggered deep capture whose trace holds both
 kernels' device rows.
+The edge layer on the card: one host read of a card tensor crosses once
+(``tobytes()`` then ``np()``, and the reverse), a query link in one
+process keeps card frames on the card in both directions with the
+device channel (no ledger row) and crosses once a tensor a hop without
+it, and importing the edge layer and linting a ``tensor_query_client``
+description in a child opens no CUDA context.
 """
 
 import os
@@ -1339,3 +1345,102 @@ def test_lint_opens_no_cuda_context(card):
     assert (rc, summary["error"], summary["warning"]) == (0, 0, 0), summary
     assert initialized is False
     assert (fa, sbc) == (0, 0)
+
+
+# -- the edge layer ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("order", ["tobytes-np", "np-tobytes"])
+def test_one_host_read_of_a_card_tensor_crosses_once(card, order):
+    from nnstreamer_tpu_torch.core import Tensor
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+
+    x = torch.arange(4096, dtype=torch.float32, device=card)
+    t = Tensor(x)
+    xfer.LEDGER.clear()
+    if order == "tobytes-np":
+        raw, arr = t.tobytes(), t.np()
+    else:
+        arr, raw = t.np(), t.tobytes()
+    assert xfer.LEDGER.totals(direction="d2h") == (1, 4096 * 4)
+    assert raw == arr.tobytes()
+    np.testing.assert_array_equal(arr, np.arange(4096, dtype=np.float32))
+
+
+@pytest.mark.parametrize("devch", [True, False])
+def test_edge_query_link_on_card(card, devch):
+    """``tensor_transform backend=cuda`` served over TCP in this process:
+    with the device channel the frames and replies stay on the card (no
+    ledger row, every deposit taken); without it one d2h a tensor a hop
+    and one h2d a frame at the server's card element."""
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.edge import devicechannel
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    caps = ("other/tensors,format=static,num_tensors=1,dimensions=4:8:1,"
+            "types=float32")
+    srv = parse_launch(
+        f"tensor_query_serversrc name=qsrc connect-type=tcp "
+        f"host=127.0.0.1 port=0 id=301 caps={caps} ! tensor_transform "
+        "mode=arithmetic option=mul:3 backend=cuda ! "
+        "tensor_query_serversink id=301")
+    srv.start()
+    frames = [torch.full((1, 8, 4), float(i + 1), device=card)
+              for i in range(6)]
+    try:
+        cli = parse_launch(
+            "appsrc name=src ! tensor_query_client name=cli host=127.0.0.1 "
+            f"port={srv['qsrc'].port} connect-type=tcp caps={caps} "
+            f"device-channel={'true' if devch else 'false'} ! "
+            "appsink name=out")
+        cli["src"].spec = TensorsSpec.parse("4:8:1", "float32")
+        with cli:
+            devicechannel.reset()
+            xfer.LEDGER.clear()
+            for i, f in enumerate(frames):
+                cli["src"].push_buffer(Buffer(tensors=[Tensor(f)], pts=i))
+            outs = [cli["out"].pull(timeout=60) for _ in frames]
+            d2h = xfer.LEDGER.totals(direction="d2h")
+            h2d = xfer.LEDGER.totals(direction="h2d")
+            st = devicechannel.stats()
+            cli["src"].end_of_stream()
+            assert cli.wait_eos(timeout=60)
+    finally:
+        srv.stop()
+    assert [b.pts for b in outs] == list(range(6))
+    for i, b in enumerate(outs):
+        np.testing.assert_array_equal(
+            b.tensors[0].np(), np.full((1, 8, 4), 3.0 * (i + 1), np.float32))
+    if devch:
+        assert (d2h, h2d) == ((0, 0), (0, 0))
+        assert st["deposits"] == st["takes"] == 12 and st["evicted"] == 0
+        assert all(b.tensors[0].is_device for b in outs)
+    else:
+        assert (d2h[0], h2d[0]) == (12, 6) and st["deposits"] == 0
+
+
+def test_edge_import_and_lint_open_no_cuda_context(card):
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import json, torch\n"
+        "import nnstreamer_tpu_torch.edge\n"
+        "from nnstreamer_tpu_torch.analyze import analyze_description\n"
+        "caps = ('other/tensors,format=static,num_tensors=1,'\n"
+        "        'dimensions=4:1,types=float32')\n"
+        "diags, _ = analyze_description(\n"
+        "    f'appsrc caps={caps} ! tensor_query_client caps={caps} '\n"
+        "    'dest-host=198.51.100.7 dest-port=5432 ! tensor_sink')\n"
+        "print(json.dumps([sorted({d.code for d in diags}),\n"
+        "                  torch.cuda.is_initialized()]))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=repo,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    assert r.returncode == 0, r.stderr[-2000:]
+    codes, initialized = json.loads(r.stdout.strip().splitlines()[-1])
+    assert "NNS506" in codes
+    assert initialized is False

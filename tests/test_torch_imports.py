@@ -75,7 +75,9 @@ def test_port_imports_with_jax_blocked():
                 "analyze.concurrency", "analyze.watchrules",
                 "analyze.ctlplaybooks", "analyze.pipelines", "check",
                 "tools", "tools.gen_element_docs",
-                "tools.pipeline_convert", "tools.gen_custom_filter"):
+                "tools.pipeline_convert", "tools.gen_custom_filter",
+                "edge", "edge.wire", "edge.ntputil", "edge.devicechannel",
+                "edge.transport", "edge.query"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 
@@ -154,7 +156,7 @@ def test_filter_accelerator_grammar(monkeypatch):
 
 
 def test_obs_and_chaos_read_only_the_ports_keys():
-    """The obs, chaos, utils and analyze modules read environment keys of
+    """The obs, chaos, utils, analyze and edge modules read environment keys of
     the port's prefix only, and the JAX package's keys leave the port as it
     is: no kill switch, no chaos plan, no flight recorder armed, no
     metrics endpoint, no price, text logs, no host profiler, watchdog,
@@ -162,7 +164,7 @@ def test_obs_and_chaos_read_only_the_ports_keys():
     import re
 
     keys = set()
-    for sub in ("obs", "chaos", "utils", "analyze"):
+    for sub in ("obs", "chaos", "utils", "analyze", "edge"):
         for root, _, files in os.walk(os.path.join(PKG, sub)):
             for f in files:
                 if f.endswith(".py"):

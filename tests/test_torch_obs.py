@@ -541,8 +541,9 @@ def test_port_tracer_closes_deferred_record_at_fence():
                                (0.0, 0.0, 0.0, 0.0)])
 def test_offset_and_delay_matches_jax(t):
     from nnstreamer_tpu.edge.ntputil import offset_and_delay
+    from nnstreamer_tpu_torch.edge import ntputil
 
-    assert tctx.offset_and_delay(*t) == offset_and_delay(*t)
+    assert ntputil.offset_and_delay(*t) == offset_and_delay(*t)
 
 
 def test_trace_context_round_trip_same_as_jax():
