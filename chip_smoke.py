@@ -10,6 +10,7 @@
     python3 chip_smoke.py --control                   # build + phase 15 only
     python3 chip_smoke.py --repairs                   # build + phase 16 only
     python3 chip_smoke.py --edge                      # build + phase 17 only
+    python3 chip_smoke.py --mqtt                      # build + phase 18 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -22,7 +23,9 @@ and detection paths, and the active layer (host profiler, watchdog,
 controller, lock witness, ``nns-top``) on the serving path, and the
 repaired elements with the static analyzer against all of them, and the
 edge layer (query offload across processes and within one, the pooled
-ViT served to several clients, pub/sub) — through ``parse_launch`` at
+ViT served to several clients, pub/sub), and MQTT (a camera in another
+process fed to the SSD through a broker, the pooled ViT found through the
+broker and moved mid-run, the gRPC bridge) — through ``parse_launch`` at
 full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
@@ -326,7 +329,34 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    the publisher; a third on another topic gets none; every subscriber
    record carries the publisher's marks as a one-way remote entry; each
    frame leaves the card once for both subscribers;
-18. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+18. MQTT on the card.  (a) A camera fed over MQTT to the SSD: a child
+   process (``--mqtt-pub-child``) stages 256 uint8 1×300×300×3 frames on
+   the card from a seeded ``torch.Generator`` and runs ``appsrc !
+   mqttsink pub-topic=cam`` against the port's ``MiniBroker`` here;
+   ``mqttsrc sub-topic=cam ! tensor_transform backend=cuda !
+   tensor_filter`` SSD-MobileNetV2 at batch 1 (bf16-resident) ``!
+   tensor_decoder mode=bounding_boxes … option7=device ! appsink`` and a
+   second ``mqttsrc`` on ``cam`` into a host ``appsink`` subscribe: every
+   frame arrives at both in order, the overlays equal the same frames
+   through the local pipeline, the host subscriber's bytes the published
+   ones; one d2h a frame at the publisher and one h2d a frame at the SSD
+   (the transfer ledgers); the broker's payload bytes equal the packed
+   messages (in once, out twice).  It runs twice: the child publishing
+   as fast as it can, for frames/s, then paced at ``CAMERA_FPS`` (below
+   the SSD's rate), for the p50/p99 of ``mqttsrc``'s ``last_latency_us``
+   (unpaced, that number is the subscriber's backlog).  (b) The pooled ViT of 17c behind
+   ``tensor_query_serversrc connect-type=hybrid`` (topic ``vit`` at the
+   broker), 4 ``connect-type=hybrid`` clients with 8 frames in flight:
+   32 frames each, the server stops, a replacement registers the topic on
+   a new data port, 32 more each: every frame answered, each half by its
+   own server, labels equal to the frame alone's where the top-2 margin
+   exceeds 1e-4, the retained address cleared after the last stop;
+   frames/s and the seconds from the stop to the replacement's first
+   answer.  (c) Where ``import grpc`` succeeds, two SSD windows at batch
+   256 through ``tensor_sink_grpc server=true idl=protobuf`` →
+   ``tensor_src_grpc`` byte-equal to local; where it fails, one line
+   saying so and nothing counted as held;
+19. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -337,9 +367,9 @@ card.  ``--serving-legs DIR`` runs nothing but phase 8's shared and
 unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
-line); ``--elements``, ``--obs``, ``--control``, ``--repairs`` and
-``--edge`` do the same for phases 13, 14, 15, 16 and 17 (phase 16 alone
-analyzes only its own descriptions).
+line); ``--elements``, ``--obs``, ``--control``, ``--repairs``,
+``--edge`` and ``--mqtt`` do the same for phases 13, 14, 15, 16, 17 and
+18 (phase 16 alone analyzes only its own descriptions).
 """
 
 from __future__ import annotations
@@ -6048,9 +6078,10 @@ def edge_pipe(desc: str, name: str):
                                                 device=EDGE_DEVICE))
 
 
-def edge_loop(p, pool, n: int, depth: int):
-    """Push ``pool[i % len(pool)]`` (card tensors) with pts i, ``depth``
-    in flight, pull every result: (buffers, pull times, wall seconds)."""
+def edge_loop(p, pool, n: int, depth: int, first: int = 0):
+    """Push ``pool[i % len(pool)]`` (card tensors) with pts i for i from
+    ``first`` on, ``depth`` in flight, pull every result: (buffers, pull
+    times, wall seconds)."""
     from nnstreamer_tpu_torch.core import Buffer, Tensor
 
     src, sink = p["src"], p["out"]
@@ -6059,8 +6090,9 @@ def edge_loop(p, pool, n: int, depth: int):
     t0 = time.perf_counter()
     while len(outs) < n:
         while sent < n and sent - len(outs) < depth:
-            src.push_buffer(Buffer(tensors=[Tensor(pool[sent % len(pool)])],
-                                   pts=sent))
+            pts = first + sent
+            src.push_buffer(Buffer(tensors=[Tensor(pool[pts % len(pool)])],
+                                   pts=pts))
             sent += 1
         b = sink.pull(timeout=300)
         if b is None:
@@ -6660,6 +6692,481 @@ def phase_edge(card: str, power: str):
     return res
 
 
+# -- phase 18: MQTT pub/sub, the MQTT-hybrid transport, the gRPC bridge -------
+
+MQTT_FRAMES = 256          # 18a: camera frames the publisher child sends
+MQTT_VIT_HALF = 32         # 18b: frames a client sends to each server
+MQTT_GRPC_WINDOWS = 2      # 18c: batch-256 SSD windows over gRPC
+MQTT_CAMERA_PIPE = (
+    "mqttsrc name=msrc host=127.0.0.1 port={port} sub-topic=cam "
+    "num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_filter name=mnet framework=torch-cuda model={model} ! "
+    "tensor_decoder name=overlay mode=bounding_boxes "
+    "option1=mobilenet-ssd-postprocess option4={s}:{s} option5={s}:{s} "
+    "option7=device ! appsink name=out max-buffers={sink}")
+MQTT_HYBRID_SERVER_PIPE = EDGE_SERVER_PIPE.replace(
+    "connect-type=tcp host=127.0.0.1 port=0",
+    "connect-type=hybrid host=127.0.0.1 port={broker} topic=vit")
+MQTT_HYBRID_CLIENT_PIPE = EDGE_CLIENT_PIPE.replace(
+    "port={port} connect-type=tcp",
+    "port={port} connect-type=hybrid topic=vit")
+
+
+def mqtt_camera_frames():
+    """18a's camera frames, drawn on the host from a seeded generator (the
+    publisher child and this process draw the same ones)."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 20)
+    return [torch.randint(0, 256, (1, SIZE, SIZE, 3), generator=g,
+                          dtype=torch.uint8) for _ in range(MQTT_FRAMES)]
+
+
+def mqtt_pub_child(cfg_json: str) -> int:
+    """18a's publisher process: the camera frames staged on the card,
+    ``appsrc ! mqttsink pub-topic=cam``, pushed as fast as they go or, with
+    ``fps``, frame i no earlier than i/fps s after the first, as a camera
+    does.  Prints ``READY`` once connected, publishes when a line arrives
+    on stdin, then prints its ledger's crossings as ``MQTT_PUB {json}``."""
+    global SIZE, MQTT_FRAMES, EDGE_DEVICE
+    cfg = json.loads(cfg_json)
+    SIZE, MQTT_FRAMES, EDGE_DEVICE = cfg["size"], cfg["frames"], cfg["device"]
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+
+    if cfg["fake_card"]:
+        xfer.CARD_TYPES = ("cuda", "cpu")
+    frames = [f.to(EDGE_DEVICE) for f in mqtt_camera_frames()]
+    p = edge_pipe("appsrc name=src max-buffers=8 ! mqttsink name=mk "
+                  f"host=127.0.0.1 port={cfg['port']} pub-topic=cam",
+                  "mqtt-pub")
+    p["src"].spec = TensorsSpec.parse(f"3:{SIZE}:{SIZE}:1", "uint8")
+    p.start()
+    xfer.LEDGER.clear()
+    print("READY", flush=True)
+    sys.stdin.readline()
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        if cfg["fps"]:
+            wait = t0 + i / cfg["fps"] - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+        p["src"].push_buffer(Buffer(tensors=[Tensor(f)], pts=i))
+    edge_eos(p)
+    res = {"seconds": time.perf_counter() - t0,
+           "crossings": edge_crossings("mqtt-pub", MQTT_FRAMES),
+           "caps": str(p["mk"].sinkpad.caps)}
+    p.stop()
+    print("MQTT_PUB " + json.dumps(res), flush=True)
+    return 0
+
+
+def mqtt_camera_run(host, want, fps: float, label: str):
+    """One run of 18a: the publisher child (unpaced with ``fps`` 0, else
+    paced at ``fps``) through a fresh ``MiniBroker`` to the SSD and to a
+    host subscriber, with every gate of 18a held."""
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.edge.mqtt import MiniBroker, pack_mqtt_buffer
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.ops import kernels
+
+    broker = MiniBroker()
+    proc = ssd = tap = None
+    try:
+        ssd = edge_pipe(MQTT_CAMERA_PIPE.format(
+            port=broker.port, n=MQTT_FRAMES, norm=NORM, model="edge_ssd_b1",
+            s=SIZE, sink=MQTT_FRAMES + 4), "mqtt-ssd")
+        tap = edge_pipe(
+            f"mqttsrc name=msrc2 host=127.0.0.1 port={broker.port} "
+            f"sub-topic=cam num-buffers={MQTT_FRAMES} ! appsink name=out2 "
+            f"max-buffers={MQTT_FRAMES + 4}", "mqtt-tap")
+        lat = []
+        create = ssd["msrc"].create
+
+        def stamped():
+            buf = create()
+            if buf is not None:
+                lat.append(ssd["msrc"].last_latency_us)
+            return buf
+
+        ssd["msrc"].create = stamped
+        ssd.start()
+        tap.start()
+        cfg = {"size": SIZE, "frames": MQTT_FRAMES, "device": EDGE_DEVICE,
+               "port": broker.port, "fps": fps,
+               "fake_card": xfer.CARD_TYPES != ("cuda",)}
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--mqtt-pub-child", json.dumps(cfg)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            cwd=HERE)
+        for line in proc.stdout:
+            if line.startswith("READY"):
+                break
+        else:
+            raise RuntimeError(f"mqtt (a, {label}): the publisher child "
+                               f"exited {proc.wait()} before publishing")
+        xfer.LEDGER.clear()
+        kernels.scale_bias_cast.launches = 0
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+        t0 = time.perf_counter()
+        got = []
+        for _ in range(MQTT_FRAMES):
+            b = ssd["out"].pull(timeout=300)
+            if b is None:
+                raise RuntimeError(f"mqtt (a, {label}): {len(got)} of "
+                                   f"{MQTT_FRAMES} frames reached the SSD")
+            got.append(b)
+        wall = time.perf_counter() - t0
+        taps = [tap["out2"].pull(timeout=60) for _ in range(MQTT_FRAMES)]
+        for p in (ssd, tap):
+            if not p.wait_eos(timeout=60):
+                raise RuntimeError(f"mqtt (a, {label}): {p.name}: no EOS")
+        launches = kernels.scale_bias_cast.launches
+        sub = edge_crossings("mqtt-ssd", MQTT_FRAMES)
+        pub = None
+        for line in proc.stdout:
+            if line.startswith("MQTT_PUB "):
+                pub = json.loads(line[len("MQTT_PUB "):])
+        if proc.wait(timeout=120) != 0 or pub is None:
+            raise RuntimeError(f"mqtt (a, {label}): the publisher child "
+                               "failed")
+        bytes_in, bytes_out = broker.bytes_in, broker.bytes_out
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for p in (ssd, tap):
+            if p is not None:
+                p.stop()
+        broker.stop()
+    packed = sum(len(pack_mqtt_buffer(Buffer.of(h.numpy(), pts=i), None,
+                                      0, 0))
+                 for i, h in enumerate(host))
+    frame_bytes = SIZE * SIZE * 3
+    if [b.pts for b in got] != list(range(MQTT_FRAMES)) or \
+            any(b is None for b in taps) or \
+            [b.pts for b in taps] != list(range(MQTT_FRAMES)):
+        raise RuntimeError(f"mqtt (a, {label}): frames lost or out of order")
+    for i, (b, t) in enumerate(zip(got, taps)):
+        if b.tensors[0].tobytes() != want[i]:
+            raise RuntimeError(f"mqtt (a, {label}): frame {i}: the overlay "
+                               "differs from the same frame through the "
+                               "local pipeline")
+        if t.tensors[0].tobytes() != host[i].numpy().tobytes():
+            raise RuntimeError(f"mqtt (a, {label}): frame {i}: the host "
+                               "subscriber got other bytes than were "
+                               "published")
+    pubx = pub["crossings"]
+    if (pubx["d2h"], pubx["d2h_bytes"], pubx["h2d"]) != (
+            MQTT_FRAMES, MQTT_FRAMES * frame_bytes, 0) or \
+            (sub["h2d"], sub["h2d_bytes"]) != (MQTT_FRAMES,
+                                               MQTT_FRAMES * frame_bytes):
+        raise RuntimeError(f"mqtt (a, {label}): crossings publisher {pubx}, "
+                           f"subscriber {sub}: expected one d2h a frame at "
+                           "the publisher and one h2d a frame at the SSD")
+    if (bytes_in, bytes_out) != (packed, 2 * packed):
+        raise RuntimeError(f"mqtt (a, {label}): broker bytes in {bytes_in} "
+                           f"out {bytes_out} against {packed} packed (twice "
+                           "out: two subscribers)")
+    _edge_card_gate(launches >= MQTT_FRAMES, f"mqtt (a, {label}): "
+                    f"scale_bias_cast launched {launches} times for "
+                    f"{MQTT_FRAMES} frames", "18a's launches")
+    lat.sort()
+    return {"frames_per_s": MQTT_FRAMES / wall, "publish_s": pub["seconds"],
+            "latency_p50_us": statistics.median(lat),
+            "latency_p99_us": lat[min(int(0.99 * len(lat)), len(lat) - 1)],
+            "publisher_crossings": pubx, "subscriber_crossings": sub,
+            "broker_bytes_in": bytes_in, "broker_bytes_out": bytes_out,
+            "packed_bytes": packed, "caps": pub["caps"],
+            "launches": launches}
+
+
+def mqtt_camera(card: str, power: str):
+    """18a: a camera in a child process publishing over MQTT to the SSD,
+    twice: unpaced for frames/s, then paced at ``CAMERA_FPS`` (below the
+    SSD's rate) for ``last_latency_us``, which in the unpaced run is the
+    subscriber's backlog."""
+    from nnstreamer_tpu_torch.core import TensorsSpec
+
+    edge_register_ssd("edge_ssd_b1", 1)
+    host = mqtt_camera_frames()
+    frames = [h.to(EDGE_DEVICE) for h in host]
+    local = edge_pipe(
+        "appsrc name=src max-buffers=4 ! tensor_transform mode=arithmetic "
+        f"option={NORM} backend=cuda ! tensor_filter framework=torch-cuda "
+        "model=edge_ssd_b1 ! tensor_decoder mode=bounding_boxes "
+        f"option1=mobilenet-ssd-postprocess option4={SIZE}:{SIZE} "
+        f"option5={SIZE}:{SIZE} option7=device ! appsink name=out "
+        f"max-buffers={MQTT_FRAMES + 4}", "mqtt-local")
+    local["src"].spec = TensorsSpec.parse(f"3:{SIZE}:{SIZE}:1", "uint8")
+    with local:
+        want, _, _ = edge_loop(local, frames, MQTT_FRAMES, 1)
+        edge_eos(local)
+    want = [b.tensors[0].tobytes() for b in want]
+    fast = mqtt_camera_run(host, want, 0, "unpaced")
+    paced = mqtt_camera_run(host, want, CAMERA_FPS, f"{CAMERA_FPS} frames/s")
+    res = {"frames": MQTT_FRAMES, "frames_per_s": fast["frames_per_s"],
+           "latency_p50_us": paced["latency_p50_us"],
+           "latency_p99_us": paced["latency_p99_us"],
+           "paced_fps": CAMERA_FPS, "unpaced": fast, "paced": paced,
+           # a camera faster than the SSD: the paced latency is the queue
+           "pace_above_rate": fast["frames_per_s"] < CAMERA_FPS,
+           "launches": fast["launches"] + paced["launches"]}
+    pubx, sub = fast["publisher_crossings"], fast["subscriber_crossings"]
+    print(f"mqtt (a) camera child → MiniBroker → SSD at batch 1: unpaced "
+          f"{res['frames_per_s']:.1f} frames/s ({MQTT_FRAMES} frames in "
+          f"order to the SSD and to a host subscriber, overlays equal to "
+          f"local, in both runs); paced at {CAMERA_FPS} frames/s"
+          f"{' (above the unpaced rate: a queue)' if res['pace_above_rate'] else ''}: "
+          f"last_latency_us p50 {res['latency_p50_us']} p99 "
+          f"{res['latency_p99_us']}; crossings a frame: publisher d2h "
+          f"{pubx['d2h'] / MQTT_FRAMES:g}, SSD h2d "
+          f"{sub['h2d'] / MQTT_FRAMES:g}; broker in "
+          f"{fast['broker_bytes_in']} B out {fast['broker_bytes_out']} B = "
+          f"the packed messages; scale_bias_cast {fast['launches']} + "
+          f"{paced['launches']} launches [{card}, {power}]", flush=True)
+    return res
+
+
+def mqtt_vit(card: str, power: str):
+    """18b: the pooled ViT found through the broker, moved mid-run."""
+    import threading
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.decoders.boxutil import load_labels
+    from nnstreamer_tpu_torch.edge.mqtt import MiniBroker
+    from nnstreamer_tpu_torch.edge.transport import _hybrid_discover
+    from nnstreamer_tpu_torch.filters.torch_cuda import get_model
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.ops import kernels
+
+    if get_model("vit_serve") is None:
+        register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED,
+                     **VIT)
+    pools, _ = serve_pools(EDGE_VIT_CLIENTS, EDGE_DEVICE)
+    alone = run_alone(pools)
+    labels = load_labels(LABELS)
+    broker = MiniBroker()
+    answered, lock = Counter(), threading.Lock()
+
+    def server(sid):
+        p = edge_pipe(MQTT_HYBRID_SERVER_PIPE.format(
+            broker=broker.port, sid=sid, s=VIT_SIZE, b=1, norm=NORM,
+            model="vit_serve",
+            extra=" share-model=true batch=64 batch-timeout-ms=2 "
+                  "batch-buckets=" + ",".join(map(str, SERVE_BUCKETS)),
+            dec=LABEL_DEC), f"mqtt-vit-srv{sid}")
+        render = p["qsink"].render
+
+        def counted(buf):
+            with lock:
+                answered[sid] += 1
+            return render(buf)
+
+        p["qsink"].render = counted
+        return p
+
+    def drive(first):
+        outs, errors = {}, []
+
+        def client(s):
+            try:
+                bufs, pulls, _ = edge_loop(
+                    clients[s], pools[s], MQTT_VIT_HALF, EDGE_INFLIGHT,
+                    first=first)
+                outs[s] = (bufs, pulls)
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(s,),
+                                    name=f"mqtt-vit-client{s}")
+                   for s in range(EDGE_VIT_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or len(outs) != EDGE_VIT_CLIENTS:
+            raise RuntimeError(f"mqtt (b): a client failed: {errors}")
+        return outs, time.perf_counter() - t0
+
+    clients, srv2 = [], None
+    srv1 = server(181)
+    try:
+        srv1.start()
+        for s in range(EDGE_VIT_CLIENTS):
+            p = edge_pipe(MQTT_HYBRID_CLIENT_PIPE.format(
+                q=EDGE_INFLIGHT + 4, port=broker.port,
+                inflight=EDGE_INFLIGHT, devch="false",
+                sink=2 * MQTT_VIT_HALF + 4), f"mqtt-vit-c{s}")
+            p["src"].spec = TensorsSpec.parse(
+                f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
+            p.start()
+            clients.append(p)
+        kernels.flash_attention.launches = 0
+        kernels.scale_bias_cast.launches = 0
+        first, wall1 = drive(0)
+        t_stop = time.perf_counter()
+        srv1.stop()
+        srv2 = server(182)
+        srv2.start()
+        second, wall2 = drive(MQTT_VIT_HALF)
+        moved_s = min(pulls[0] for _, pulls in second.values()) - t_stop
+        launches = {"flash_attention": kernels.flash_attention.launches,
+                    "scale_bias_cast": kernels.scale_bias_cast.launches}
+        for p in clients:
+            edge_eos(p)
+    finally:
+        for p in clients:
+            p.stop()
+        srv1.stop()
+        if srv2 is not None:
+            srv2.stop()
+    try:
+        try:
+            _hybrid_discover("127.0.0.1", broker.port, "vit", 0.5)
+            cleared = False
+        except OSError:
+            cleared = True
+    finally:
+        broker.stop()
+    checked = 0
+    for s in range(EDGE_VIT_CLIENTS):
+        bufs = first[s][0] + second[s][0]
+        if [b.pts for b in bufs] != list(range(2 * MQTT_VIT_HALF)):
+            raise RuntimeError(f"mqtt (b): client {s}: replies out of order "
+                               "or lost")
+        for b in bufs:
+            ref = alone[s][b.pts % len(pools[s])].reshape(-1)
+            top2 = torch.topk(ref, 2).values
+            if float(top2[0] - top2[1]) <= SERVE_TOL:
+                continue
+            idx = int(ref.argmax())
+            want = labels[idx] if idx < len(labels) else str(idx)
+            got = bytes(b.tensors[0].np()).decode("utf-8")
+            if got != want:
+                raise RuntimeError(f"mqtt (b): client {s} frame {b.pts}: "
+                                   f"label {got!r}, alone {want!r}")
+            checked += 1
+    answered = dict(answered)
+    if answered != {181: EDGE_VIT_CLIENTS * MQTT_VIT_HALF,
+                    182: EDGE_VIT_CLIENTS * MQTT_VIT_HALF}:
+        raise RuntimeError(f"mqtt (b): frames answered by server {answered}:"
+                           f" each half must go to its own server")
+    if not cleared:
+        raise RuntimeError("mqtt (b): the retained address outlived the "
+                           "last server")
+    _edge_card_gate(all(launches.values()), f"mqtt (b): a kernel never "
+                    f"launched: {launches}", "18b's launches")
+    n = EDGE_VIT_CLIENTS * MQTT_VIT_HALF
+    res = {"frames_per_s": 2 * n / (wall1 + wall2),
+           "frames_per_s_first": n / wall1, "frames_per_s_second": n / wall2,
+           "moved_s": moved_s, "answered": {str(k): v for k, v in
+                                            answered.items()},
+           "labels_checked": checked, "address_cleared": cleared,
+           "launches": launches}
+    print(f"mqtt (b) pooled ViT found through the broker by "
+          f"{EDGE_VIT_CLIENTS} clients (connect-type=hybrid): "
+          f"{res['frames_per_s']:.1f} frames/s ({res['frames_per_s_first']:.1f}"
+          f" before the move, {res['frames_per_s_second']:.1f} after); "
+          f"{moved_s:.3f} s from the stop to the replacement's first answer;"
+          f" answered by server {answered}; {checked} labels (top-2 margin > "
+          f"{SERVE_TOL}) equal to alone; retained address cleared; launches "
+          f"{launches} [{card}, {power}]", flush=True)
+    return res
+
+
+def mqtt_grpc(card: str, power: str):
+    """18c: the SSD's outputs at batch BATCH over the gRPC bridge, where
+    grpcio is installed."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError as e:
+        print(f"mqtt (c) gRPC bridge: not run: grpcio is not installed here "
+              f"({e}); nothing of 18c is counted as held", flush=True)
+        return {"ran": False, "reason": str(e)}
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.ops import kernels
+
+    edge_register_ssd("ssd_mobilenet_v2", BATCH)
+    g = torch.Generator().manual_seed(SEED + 21)
+    frames = [torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g,
+                            dtype=torch.uint8).to(EDGE_DEVICE)
+              for _ in range(MQTT_GRPC_WINDOWS)]
+    head = ("appsrc name=src max-buffers=4 ! tensor_transform "
+            f"mode=arithmetic option={NORM} backend=cuda ! tensor_filter "
+            "framework=torch-cuda model=ssd_mobilenet_v2 ! ")
+    local = edge_pipe(head + "appsink name=out max-buffers=8", "grpc-local")
+    send = edge_pipe(head + "tensor_sink_grpc name=gs server=true port=0 "
+                     "idl=protobuf", "grpc-send")
+    for p in (local, send):
+        p["src"].spec = TensorsSpec.parse(f"3:{SIZE}:{SIZE}:{BATCH}", "uint8")
+    with local:
+        want, _, _ = edge_loop(local, frames, MQTT_GRPC_WINDOWS, 1)
+        edge_eos(local)
+    send.start()
+    try:
+        recv = edge_pipe(f"tensor_src_grpc name=gr server=false "
+                         f"port={send['gs'].bound_port} idl=protobuf "
+                         f"num-buffers={MQTT_GRPC_WINDOWS} ! appsink "
+                         "name=out max-buffers=8", "grpc-recv")
+        recv.start()
+        try:
+            deadline = time.monotonic() + 30
+            while not send["gs"]._subscribers:
+                if time.monotonic() > deadline:
+                    raise RuntimeError("mqtt (c): no RecvTensors subscriber")
+                time.sleep(0.02)
+            kernels.scale_bias_cast.launches = 0
+            for i, f in enumerate(frames):
+                send["src"].push_buffer(Buffer(tensors=[Tensor(f)], pts=i))
+            got = [recv["out"].pull(timeout=300)
+                   for _ in range(MQTT_GRPC_WINDOWS)]
+            launches = kernels.scale_bias_cast.launches
+        finally:
+            recv.stop()
+    finally:
+        send.stop()
+    nbytes = 0
+    for i, (g_, w) in enumerate(zip(got, want)):
+        if g_ is None or [t.tobytes() for t in g_.tensors] != \
+                [t.tobytes() for t in w.tensors]:
+            raise RuntimeError(f"mqtt (c): window {i} differs from local")
+        nbytes += sum(t.nbytes for t in g_.tensors)
+    _edge_card_gate(launches > 0, "mqtt (c): scale_bias_cast never "
+                    "launched", "18c's launches")
+    res = {"ran": True, "windows": MQTT_GRPC_WINDOWS, "bytes": nbytes,
+           "launches": launches}
+    print(f"mqtt (c) gRPC bridge: {MQTT_GRPC_WINDOWS} SSD windows at batch "
+          f"{BATCH} through tensor_sink_grpc → tensor_src_grpc, {nbytes} B "
+          f"byte-equal to local; scale_bias_cast {launches} launches "
+          f"[{card}, {power}]", flush=True)
+    return res
+
+
+def phase_mqtt(card: str, power: str):
+    """Phase 18 (see the module doc)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    res = {"camera": mqtt_camera(card, power),
+           "vit": mqtt_vit(card, power),
+           "grpc": mqtt_grpc(card, power)}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"mqtt phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -6671,12 +7178,15 @@ def main() -> int:
         return ctl_disabled_child()
     if len(sys.argv) == 3 and sys.argv[1] == "--edge-server-child":
         return edge_server_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--mqtt-pub-child":
+        return mqtt_pub_child(sys.argv[2])
     alone = sys.argv[1:] == ["--decoders"]
     elements_alone = sys.argv[1:] == ["--elements"]
     obs_alone = sys.argv[1:] == ["--obs"]
     control_alone = sys.argv[1:] == ["--control"]
     repairs_alone = sys.argv[1:] == ["--repairs"]
     edge_alone = sys.argv[1:] == ["--edge"]
+    mqtt_alone = sys.argv[1:] == ["--mqtt"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -6741,6 +7251,11 @@ def main() -> int:
         print(json.dumps({"edge": phase_edge(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if mqtt_alone:
+        PHASE[0] = "18"
+        print(json.dumps({"mqtt": phase_mqtt(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     PHASE[0] = "4"
@@ -6772,13 +7287,16 @@ def main() -> int:
     repairs = phase_repairs(card, power)
     PHASE[0] = "17"
     edge = phase_edge(card, power)
+    PHASE[0] = "18"
+    mqtt = phase_mqtt(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
                       "classify": classify, "yolo": yolo,
                       "decoders": decoders, "elements": elements,
                       "obs": obs, "control": control, "repairs": repairs,
-                      "edge": edge, "card": card, "power_limit": power}))
+                      "edge": edge, "mqtt": mqtt, "card": card,
+                      "power_limit": power}))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
@@ -6802,7 +7320,11 @@ def main() -> int:
                    "repairs_prefetch": repairs["prefetch"]["launches"],
                    "edge_offload_server": edge["offload"]["launches"],
                    "edge_devch": edge["devch"]["launches"],
-                   "edge_vit": edge["vit"]["launches"]["scale_bias_cast"]}
+                   "edge_vit": edge["vit"]["launches"]["scale_bias_cast"],
+                   "mqtt_camera": mqtt["camera"]["launches"],
+                   "mqtt_vit": mqtt["vit"]["launches"]["scale_bias_cast"]}
+    if mqtt["grpc"]["ran"]:
+        sbc_by_path["mqtt_grpc"] = mqtt["grpc"]["launches"]
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],
@@ -6811,7 +7333,8 @@ def main() -> int:
                       "flash_attention"],
                   "control": control["launches"]["flash_attention"],
                   "repairs_single": repairs["single"]["launches"],
-                  "edge_vit": edge["vit"]["launches"]["flash_attention"]}
+                  "edge_vit": edge["vit"]["launches"]["flash_attention"],
+                  "mqtt_vit": mqtt["vit"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

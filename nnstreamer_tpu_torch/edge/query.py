@@ -137,9 +137,9 @@ class TensorQueryClient(Element):
         self.dest_host = dest_host      # server address (falls back to host)
         self.dest_port = dest_port
         self.connect_type = connect_type
-        # hybrid (ROADMAP item 5b; the transport raises until then):
-        # host:port is the BROKER, topic names the server whose TCP data
-        # address is discovered through it
+        # hybrid: host:port is the BROKER; topic names the server whose
+        # TCP data address is discovered through it (the reference's
+        # MQTT-hybrid)
         self.topic = topic
         self.timeout = timeout          # ms, parity: client timeout prop
         self.max_request = max_request
@@ -258,7 +258,8 @@ class TensorQueryClient(Element):
                 errors = []
                 for host, port in self._server_addrs():
                     try:
-                        self._conn = connect(host, port, self.connect_type)
+                        self._conn = connect(host, port, self.connect_type,
+                                             topic=str(self.topic))
                         self.connected_addr = (host, port)
                         self._attach_metrics(self._conn, host, port)
                         self._probe_devch(self._conn)
@@ -644,8 +645,12 @@ class TensorQueryClient(Element):
             if self.connected_addr in addrs:
                 addrs = [a for a in addrs if a != self.connected_addr] + \
                     [self.connected_addr]
-            # Retry window: long enough to ride out a restarting server
-            # (at least 3 s, the JAX package's window).  Capped at 10 s: _connlock is held throughout (chain()
+            # Retry window: long enough to ride out a restarting server.
+            # For hybrid this must cover at least one advertise interval
+            # (2 s) — a replacement server can't overwrite the dead
+            # server's stale retained advertisement any faster, and
+            # erroring out before it does would defeat re-discovery.
+            # Capped at 10 s: _connlock is held throughout (chain()
             # blocks in _ensure_conn), so the window must not scale with
             # a large `timeout` (30 s first-invoke timeouts would stall
             # upstream that long on a permanently dead server).
@@ -653,8 +658,9 @@ class TensorQueryClient(Element):
                 max(3.0, float(self.timeout) / 1000.0), 10.0)
             attempt = 0
             # the deadline (not an attempt count) bounds the loop, and
-            # each connect gets a short timeout so one unreachable
-            # address cannot blow through the cap
+            # each connect gets a short timeout — a hybrid discovery
+            # against an unregistered topic would otherwise block its
+            # full 5 s per address and blow through the cap
             while not reconnected and time.monotonic() < retry_deadline:
                 if attempt:
                     # jittered exponential backoff between sweeps — the
@@ -683,7 +689,8 @@ class TensorQueryClient(Element):
                         break
                     try:
                         conn = connect(host, port, self.connect_type,
-                                       timeout=2.5)
+                                       timeout=2.5,  # > advertise tick
+                                       topic=str(self.topic))
                     except OSError as e:
                         errors.append(f"{host}:{port}: {e}")
                         continue
@@ -828,8 +835,7 @@ class TensorQueryServerSrc(SourceElement):
         self.host = host
         self.port = port
         self.connect_type = connect_type
-        # the hybrid properties (ROADMAP item 5b; the transport raises
-        # until then): topic registered at the broker (host:port), the
+        # hybrid: the topic registered at the broker (host:port), the
         # data plane bound at data_host:data_port (0.0.0.0/0 for
         # cross-host), advertise advertise_host when the bind address
         # isn't what clients should dial
@@ -871,12 +877,19 @@ class TensorQueryServerSrc(SourceElement):
         entry = query_server_entry(int(self.id))
         if self._server is None:
             self._server = make_server(self.host, int(self.port),
-                                       self.connect_type)
+                                       self.connect_type,
+                                       topic=str(self.topic),
+                                       data_host=str(self.data_host),
+                                       data_port=int(self.data_port),
+                                       advertise_host=str(
+                                           self.advertise_host))
             self._server.on_message = self._on_message
             self._server.caps_provider = lambda: entry.sink_caps
             self._server.start()
-            # expose the actual port (port=0 binds an ephemeral one)
-            self.port = getattr(self._server, "port", self.port)
+            # expose the actual port (port=0 binds an ephemeral one;
+            # for hybrid this is the DATA port, host:port stays broker)
+            if self.connect_type != "hybrid":
+                self.port = getattr(self._server, "port", self.port)
             # after the bind so the peer label carries the real port
             # (no client can dial in before the port is known anyway)
             self._server.metrics = LinkMetrics.get(
@@ -1010,11 +1023,17 @@ class EdgeSink(SinkElement):
     def start(self) -> None:
         if self._server is None:
             self._server = make_server(self.host, int(self.port),
-                                       self.connect_type)
+                                       self.connect_type,
+                                       topic=str(self.topic),
+                                       data_host=str(self.data_host),
+                                       data_port=int(self.data_port),
+                                       advertise_host=str(
+                                           self.advertise_host))
             self._server.caps_provider = lambda: (
                 str(self.sinkpad.caps) if self.sinkpad.caps else "")
             self._server.start()
-            self.port = getattr(self._server, "port", self.port)
+            if self.connect_type != "hybrid":
+                self.port = getattr(self._server, "port", self.port)
             # after the bind so the peer label carries the real port
             self._server.metrics = LinkMetrics.get(
                 self.name, f"{self.host}:{self.port}", kind="edge-pub")
@@ -1091,7 +1110,7 @@ class EdgeSrc(SourceElement):
     def _ensure_conn(self):
         if self._conn is None:
             self._conn = connect(self.dest_host, int(self.dest_port),
-                                 self.connect_type)
+                                 self.connect_type, topic=str(self.topic))
             self._metrics = LinkMetrics.get(
                 self.name, f"{self.dest_host}:{self.dest_port}",
                 kind="edge-sub")

@@ -1,7 +1,8 @@
-"""Edge transports: in-process (by reference) and TCP (wire-serialized).
+"""Edge transports: in-process (by reference), TCP (wire-serialized) and
+MQTT-hybrid (broker discovery, TCP data).
 
-Counterpart of the JAX package's ``edge/transport.py`` for its
-``inproc`` and ``tcp`` connect types.  Parity target: the nnstreamer-edge
+Counterpart of the JAX package's ``edge/transport.py``, with its three
+connect types.  Parity target: the nnstreamer-edge
 communication library the reference's L5 layer consumes
 (``nns_edge_create_handle/start/send/event_cb``).
 
@@ -16,11 +17,13 @@ communication library the reference's L5 layer consumes
   (:mod:`.devicechannel`) keep card frames on the card and send only
   control frames.
 
-The JAX package's third type, ``hybrid`` (MQTT-broker discovery + TCP
-data), comes with the MQTT slice (ROADMAP item 5b); asking for it
-raises.
+- ``hybrid`` — broker-mediated discovery + TCP data (the reference's
+  MQTT-hybrid): ``host:port`` addresses an MQTT broker where the server
+  advertises its TCP data address under ``topic`` as a retained
+  message; reconnecting clients re-query the broker, so a server that
+  moved is found again mid-stream.
 
-Both present the same two interfaces: :class:`ServerTransport`
+All present the same two interfaces: :class:`ServerTransport`
 (accept + per-client send + topic publish) and :class:`ClientConn`
 (send + blocking receive + caps query).  Every framed message passes the
 process-wide fault plan's wire seam (``chaos/plan.py``) in both
@@ -35,6 +38,8 @@ import queue
 import socket
 import struct
 import threading
+import time
+import uuid
 from typing import Callable, Dict, Optional, Tuple
 
 from ..chaos import hooks as _chaos
@@ -710,33 +715,334 @@ class TcpClientConn(ClientConn):
             pass
 
 
+# -- MQTT-hybrid: broker-mediated discovery, TCP data plane -------------------
+
+# discovery topic grammar; the retained payload is "host:port" of the
+# data-plane TcpServer (parity: nnstreamer-edge HYBRID publishes the
+# server's TCP address through the broker, the reference's tensor_query
+# README)
+_HYBRID_TOPIC_FMT = "nns-edge/{topic}/address"
+
+
+class HybridServer(ServerTransport):
+    """``connect-type=hybrid``: the broker (at ``host:port``) carries
+    only DISCOVERY — a retained MQTT message advertising this server's
+    TCP data address under ``topic``; every tensor rides a plain
+    :class:`TcpServer`.  Stopping clears the retained advertisement (if
+    still ours), so a replacement server that registers the same topic
+    takes over and reconnecting clients find it through the broker (the
+    reference's reconnect-to-alternates story)."""
+
+    def __init__(self, host: str, port: int, topic: str = "",
+                 data_host: str = "127.0.0.1", data_port: int = 0,
+                 advertise_host: str = ""):
+        # the data plane must exist before super().__init__, whose
+        # on_message/caps_provider defaults route through the proxies
+        self._tcp = TcpServer(data_host, int(data_port))
+        super().__init__()
+        self._broker_addr = (host, int(port))
+        self.topic = topic or "tensor-query"
+        # cross-host: bind data_host=0.0.0.0 and advertise a reachable
+        # address (explicit advertise_host, else the machine's primary
+        # IP); the loopback default covers same-host deployments
+        self._advertise_host = advertise_host
+        self._mqtt = None
+        self._adv_thread = None
+        self._stop_evt = threading.Event()
+        self._adv_addr: str = ""
+        # broker outages back off through the shared edge retry policy
+        # (one WARNING per outage instead of a logline every 2 s tick;
+        # breaker state exports on the LINK row)
+        from ..chaos.retrypolicy import RetryPolicy
+        from ..obs.metrics import LinkMetrics
+
+        self._retry = RetryPolicy(
+            name=f"hybrid-adv:{self.topic}", base_s=2.0, max_s=15.0,
+            fail_threshold=5, open_s=10.0,
+            metrics=LinkMetrics.get(f"hybrid-adv:{self.topic}",
+                                    f"{host}:{port}", kind="hybrid"))
+
+    def _advertised_addr(self) -> str:
+        # resolved ONCE (after the data port is bound): a flapping
+        # resolver answer mid-life would re-advertise a different
+        # address and break stop()'s retained-slot ownership check
+        if self._adv_addr:
+            return self._adv_addr
+        host = self._advertise_host or self._tcp.host
+        if host in ("0.0.0.0", "::", ""):
+            # the UDP-connect trick: the local address on the route to
+            # the broker is what clients (who reach the same broker) can
+            # dial.  Preferred over gethostbyname(gethostname()), which
+            # Debian-family /etc/hosts maps to 127.0.1.1 — but when the
+            # broker itself is local (route → loopback) fall back to the
+            # hostname lookup, which may still yield the LAN address.
+            host = ""
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            try:
+                s.connect((self._broker_addr[0], self._broker_addr[1]
+                           or 1))  # no packets are sent
+                host = s.getsockname()[0]
+            except OSError:
+                pass
+            finally:
+                s.close()
+            if not host or host.startswith("127."):
+                try:
+                    resolved = socket.gethostbyname(socket.gethostname())
+                    if not resolved.startswith("127."):
+                        host = resolved
+                except OSError:
+                    pass
+            if not host:
+                host = "127.0.0.1"
+            if host.startswith("127."):
+                logw("hybrid server %r: wildcard bind advertises a "
+                     "LOOPBACK address (%s) — cross-host clients cannot "
+                     "dial it; set advertise-host= to the reachable IP",
+                     self.topic, host)
+        self._adv_addr = f"{host}:{self._tcp.port}"
+        return self._adv_addr
+
+    # the data plane owns dispatch: proxy the element-facing surface
+    @property
+    def on_message(self):
+        return self._tcp.on_message
+
+    @on_message.setter
+    def on_message(self, cb) -> None:
+        self._tcp.on_message = cb
+
+    @property
+    def caps_provider(self):
+        return self._tcp.caps_provider
+
+    @caps_provider.setter
+    def caps_provider(self, cb) -> None:
+        self._tcp.caps_provider = cb
+
+    @property
+    def metrics(self):
+        return self._tcp.metrics
+
+    @metrics.setter
+    def metrics(self, m) -> None:
+        self._tcp.metrics = m
+
+    @property
+    def port(self) -> int:  # the ephemeral DATA port (host:port is broker)
+        return self._tcp.port
+
+    def start(self) -> None:
+        self._tcp.start()
+        self._stop_evt = threading.Event()
+        try:
+            self._connect_mqtt_and_advertise()
+        except Exception as e:  # noqa: BLE001 - broker briefly down
+            # don't fail (and leak the started TcpServer): the advertise
+            # loop below reconnects through broker outages, and clients
+            # retry discovery — same tolerance at startup as mid-life
+            self._retry.failure(e, what=f"broker advertise "
+                                        f"({self.topic!r})")
+            self._close_mqtt()
+        # periodic re-advertisement: a broker restart without retained
+        # persistence would otherwise de-advertise a healthy server
+        # forever (the keepalive thread dies silently on the first
+        # failed ping); this loop re-publishes and reconnects as needed
+        from ..obs import prof as _prof
+
+        self._adv_thread = _prof.named_thread(
+            "edge-hybrid-adv", self.topic, self._advertise_loop)
+        self._adv_thread.start()
+
+    def _connect_mqtt_and_advertise(self) -> None:
+        from .mqtt import MqttClient
+
+        m = MqttClient(
+            self._broker_addr[0], self._broker_addr[1],
+            client_id=f"nns-hybrid-srv-{uuid.uuid4().hex[:12]}")
+        try:
+            m.publish(_HYBRID_TOPIC_FMT.format(topic=self.topic),
+                      self._advertised_addr().encode(), retain=True)
+        except Exception:
+            m.close()
+            raise
+        self._mqtt = m
+
+    def _close_mqtt(self) -> None:
+        # atomic swap-then-close: stop() and the advertise thread both
+        # call this concurrently — each takes its own reference, so
+        # neither can observe a half-closed None and raise
+        m, self._mqtt = self._mqtt, None
+        if m is not None:
+            try:
+                m.close()
+            except OSError:
+                pass
+
+    def _advertise_loop(self, interval: float = 2.0) -> None:
+        while not self._stop_evt.wait(interval):
+            try:
+                if self._mqtt is None:
+                    if not self._retry.allow():
+                        continue  # breaker open: probe after open_s,
+                        # not on every 2 s tick
+                    self._connect_mqtt_and_advertise()
+                    self._retry.success()
+                else:
+                    # refresh the retained slot (no-op for a healthy
+                    # broker; restores it after a broker restart); local
+                    # ref — stop() may swap self._mqtt to None mid-call
+                    m = self._mqtt
+                    if m is not None and not self._stop_evt.is_set():
+                        m.publish(
+                            _HYBRID_TOPIC_FMT.format(topic=self.topic),
+                            self._advertised_addr().encode(), retain=True)
+                # a reconnect or a blocked publish can outlive stop()
+                # (socket calls block up to the client timeout, longer
+                # than stop's join): never leave a fresh advertisement
+                # for a dead server — or clobber a replacement's —
+                # after teardown began
+                if self._stop_evt.is_set():
+                    self._clear_if_mine()
+                    return
+            except Exception as e:  # noqa: BLE001 - broker down: retry
+                # first failure of the outage logs at WARNING, the rest
+                # at debug (no per-tick spam); the breaker slows probes
+                # on a dead broker
+                self._retry.failure(e, what=f"broker advertise "
+                                            f"({self.topic!r})")
+                self._close_mqtt()
+
+    def _clear_if_mine(self) -> None:
+        """Clear the retained advertisement iff it is still OURS.  Uses
+        a dedicated local MqttClient (one connection: subscribe → read
+        retained → compare → clear) so it never races the advertise
+        loop's ``self._mqtt`` — the loop may still be mid-reconnect when
+        stop() runs, and its revival path calls this too.
+
+        Rolling restarts are last-writer-wins by design: while old and
+        new servers overlap, their 2 s refreshes alternate the retained
+        slot, but every address advertised belongs to a then-healthy
+        server, the ownership check here keeps the LAST stop from
+        clearing the survivor, and the survivor's next refresh (≤2 s,
+        well under the 5 s discovery timeout) converges the slot."""
+        self._close_mqtt()  # best-effort; the loop's client is not used
+        from .mqtt import MqttClient
+
+        try:
+            chk = MqttClient(self._broker_addr[0], self._broker_addr[1],
+                             client_id=f"nns-hyb-clr-{uuid.uuid4().hex[:8]}",
+                             timeout=1.0)
+        except Exception:  # noqa: BLE001 - broker gone: nothing to clear
+            return
+        try:
+            topic = _HYBRID_TOPIC_FMT.format(topic=self.topic)
+            chk.subscribe(topic)
+            got = chk.recv_publish()
+            if got is not None and \
+                    got[1].decode() == self._advertised_addr():
+                chk.publish(topic, b"", retain=True)
+        except Exception:  # noqa: BLE001
+            pass
+        finally:
+            chk.close()
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+        if self._adv_thread is not None:
+            self._adv_thread.join(timeout=3)
+            self._adv_thread = None
+        # clear the retained advertisement — but only if it is still
+        # OURS: in a rolling restart the replacement server has already
+        # overwritten the slot, and clearing it would de-advertise the
+        # healthy successor
+        self._clear_if_mine()
+        self._tcp.stop()
+
+    def send(self, client_id: int, env: Envelope) -> bool:
+        return self._tcp.send(client_id, env)
+
+    def publish(self, env: Envelope) -> int:
+        return self._tcp.publish(env)
+
+
+def _hybrid_discover(host: str, port: int, topic: str,
+                     timeout: float) -> Tuple[str, int]:
+    """Ask the broker who serves ``topic``; returns the data address.
+    All broker-level failures surface as OSError — connect callers
+    (e.g. the query client's failover loop) treat them like any other
+    unreachable-server condition."""
+    from .mqtt import MqttClient
+
+    try:
+        mqtt = MqttClient(host, int(port),
+                          client_id=f"nns-hybrid-cli-{uuid.uuid4().hex[:12]}",
+                          timeout=timeout)
+    except Exception as e:  # noqa: BLE001 - CONNACK refused is StreamError
+        if isinstance(e, OSError):
+            raise
+        raise OSError(f"hybrid: broker handshake failed: {e}") from e
+    try:
+        mqtt.subscribe(_HYBRID_TOPIC_FMT.format(topic=topic))
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            # cap each blocking read to the remaining budget, else a
+            # stray publish near the deadline lets the next recv block a
+            # full extra timeout
+            mqtt.set_recv_timeout(deadline - time.monotonic())
+            got = mqtt.recv_publish()
+            if got is None:
+                continue
+            _t, payload = got
+            if payload:
+                h, _, p = payload.decode().rpartition(":")
+                return h, int(p)
+        raise OSError(
+            f"hybrid: no server registered for topic {topic!r} at "
+            f"broker {host}:{port} within {timeout}s")
+    except OSError:
+        raise
+    except Exception as e:  # noqa: BLE001 - e.g. "no SUBACK" StreamError
+        raise OSError(f"hybrid: discovery failed: {e}") from e
+    finally:
+        mqtt.close()
+
+
+def connect_hybrid(host: str, port: int, topic: str = "",
+                   timeout: float = 5.0) -> ClientConn:
+    """Discover via broker, then open the TCP data connection.  Called
+    again after a disconnect (the query client's failover path), the
+    broker is re-queried — a server that moved re-registers its topic
+    and the client finds the new address."""
+    data_host, data_port = _hybrid_discover(
+        host, port, topic or "tensor-query", timeout)
+    return TcpClientConn(data_host, data_port, timeout=timeout)
+
+
 # -- factories ----------------------------------------------------------------
 
 
-def _no_hybrid() -> ValueError:
-    return ValueError(
-        "connect-type=hybrid (MQTT-broker discovery) is not in the port "
-        "yet: it comes with the MQTT slice, ROADMAP item 5b; use tcp or "
-        "inproc")
-
-
-def make_server(host: str, port: int,
-                connect_type: str = "tcp") -> ServerTransport:
+def make_server(host: str, port: int, connect_type: str = "tcp",
+                topic: str = "", data_host: str = "127.0.0.1",
+                data_port: int = 0,
+                advertise_host: str = "") -> ServerTransport:
     if connect_type == "inproc":
         return InprocServer(host, port)
     if connect_type == "tcp":
         return TcpServer(host, port)
     if connect_type == "hybrid":
-        raise _no_hybrid()
+        return HybridServer(host, port, topic=topic, data_host=data_host,
+                            data_port=data_port,
+                            advertise_host=advertise_host)
     raise ValueError(f"unknown connect-type {connect_type!r}")
 
 
 def connect(host: str, port: int, connect_type: str = "tcp",
-            timeout: float = 5.0) -> ClientConn:
+            timeout: float = 5.0, topic: str = "") -> ClientConn:
     if connect_type == "inproc":
         return InprocClientConn(host, port)
     if connect_type == "tcp":
         return TcpClientConn(host, port, timeout=timeout)
     if connect_type == "hybrid":
-        raise _no_hybrid()
+        return connect_hybrid(host, port, topic=topic, timeout=timeout)
     raise ValueError(f"unknown connect-type {connect_type!r}")

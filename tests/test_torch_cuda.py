@@ -42,7 +42,10 @@ The edge layer on the card: one host read of a card tensor crosses once
 process keeps card frames on the card in both directions with the
 device channel (no ledger row) and crosses once a tensor a hop without
 it, and importing the edge layer and linting a ``tensor_query_client``
-description in a child opens no CUDA context.
+description in a child opens no CUDA context.  MQTT on the card:
+``mqttsink`` drains each card tensor once (one d2h a tensor), and a
+``connect-type=hybrid`` query link found through the broker serves card
+frames with and without the device channel.
 """
 
 import os
@@ -1444,3 +1447,100 @@ def test_edge_import_and_lint_open_no_cuda_context(card):
     codes, initialized = json.loads(r.stdout.strip().splitlines()[-1])
     assert "NNS506" in codes
     assert initialized is False
+
+
+def test_mqttsink_drains_each_card_tensor_once(card):
+    """Two card tensors a buffer through ``mqttsink``: one d2h a tensor at
+    the publisher, the subscriber's bytes the card tensors'."""
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.edge.mqtt import MiniBroker
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    broker = MiniBroker()
+    frames = [(torch.full((2, 4), float(i), device=card),
+               torch.arange(3, device=card) + i) for i in range(4)]
+    try:
+        sub = parse_launch(
+            f"mqttsrc host=127.0.0.1 port={broker.port} sub-topic=cam "
+            "num-buffers=4 ! appsink name=out", device="cpu")
+        sub.start()
+        pub = parse_launch(
+            f"appsrc name=src ! mqttsink host=127.0.0.1 port={broker.port} "
+            "pub-topic=cam")
+        pub.name = "mq-card-pub"
+        pub["src"].spec = TensorsSpec.parse("4:2,3", "float32,int64")
+        pub.start()
+        try:
+            time.sleep(0.2)  # let the subscription settle
+            xfer.LEDGER.clear()
+            for i, (a, b) in enumerate(frames):
+                pub["src"].push_buffer(Buffer(tensors=[Tensor(a), Tensor(b)],
+                                              pts=i))
+            assert sub.wait_eos(timeout=60)
+            d2h = xfer.LEDGER.totals(pipeline="mq-card-pub", direction="d2h")
+            got = [sub["out"].pull(timeout=5) for _ in frames]
+        finally:
+            pub.stop()
+            sub.stop()
+    finally:
+        broker.stop()
+    assert d2h == (8, 4 * (32 + 24))
+    for g, (a, b) in zip(got, frames):
+        assert g.tensors[0].tobytes() == a.cpu().numpy().tobytes()
+        assert g.tensors[1].tobytes() == b.cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("devch", [True, False])
+def test_hybrid_query_link_on_card(card, devch):
+    """``tensor_transform backend=cuda`` served behind
+    ``connect-type=hybrid``: the client finds the data port through the
+    broker; with the device channel the frames stay on the card, without
+    it one d2h a tensor a hop and one h2d a frame."""
+    from nnstreamer_tpu_torch.core import Buffer, Tensor, TensorsSpec
+    from nnstreamer_tpu_torch.edge import devicechannel
+    from nnstreamer_tpu_torch.edge.mqtt import MiniBroker
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    caps = ("other/tensors,format=static,num_tensors=1,dimensions=4:8:1,"
+            "types=float32")
+    broker = MiniBroker()
+    srv = parse_launch(
+        f"tensor_query_serversrc name=qsrc connect-type=hybrid "
+        f"host=127.0.0.1 port={broker.port} topic=hy-card id=302 "
+        f"caps={caps} ! tensor_transform mode=arithmetic option=mul:3 "
+        "backend=cuda ! tensor_query_serversink id=302")
+    frames = [torch.full((1, 8, 4), float(i + 1), device=card)
+              for i in range(6)]
+    try:
+        srv.start()
+        cli = parse_launch(
+            "appsrc name=src ! tensor_query_client name=cli host=127.0.0.1 "
+            f"port={broker.port} connect-type=hybrid topic=hy-card "
+            f"caps={caps} device-channel={'true' if devch else 'false'} ! "
+            "appsink name=out")
+        cli["src"].spec = TensorsSpec.parse("4:8:1", "float32")
+        with cli:
+            devicechannel.reset()
+            xfer.LEDGER.clear()
+            for i, f in enumerate(frames):
+                cli["src"].push_buffer(Buffer(tensors=[Tensor(f)], pts=i))
+            outs = [cli["out"].pull(timeout=60) for _ in frames]
+            d2h = xfer.LEDGER.totals(direction="d2h")
+            h2d = xfer.LEDGER.totals(direction="h2d")
+            st = devicechannel.stats()
+            cli["src"].end_of_stream()
+            assert cli.wait_eos(timeout=60)
+    finally:
+        srv.stop()
+        broker.stop()
+    assert [b.pts for b in outs] == list(range(6))
+    for i, b in enumerate(outs):
+        np.testing.assert_array_equal(
+            b.tensors[0].np(), np.full((1, 8, 4), 3.0 * (i + 1), np.float32))
+    if devch:
+        assert (d2h, h2d) == ((0, 0), (0, 0))
+        assert st["deposits"] == st["takes"] == 12 and st["evicted"] == 0
+    else:
+        assert (d2h[0], h2d[0]) == (12, 6) and st["deposits"] == 0

@@ -8,8 +8,9 @@ failover), then the port's own cases: the wire codec byte-equal to the JAX
 device-channel extensions; one host read of a card tensor crossing once in
 both packages; the device channel in one process (no crossing, eviction at
 ``MAX_SLOTS``, a foreign fingerprint refused); a JAX client against a port
-server over TCP and the reverse, on plain framing; ``connect-type=hybrid``
-refused naming its slice; the ``query_offload`` golden byte-exact.  The
+server over TCP and the reverse, on plain framing; the ``query_offload``
+golden byte-exact.  ``connect-type=hybrid`` is held by
+``tests/test_torch_hybrid.py``.  The
 port's ledger seams run on the CPU by widening ``obs.transfer.CARD_TYPES``
 to ``("cuda", "cpu")`` (a fake card tag).
 """
@@ -383,20 +384,6 @@ def test_port_client_against_jax_server(fake_card):
     for i, o in enumerate(outs):
         _np.testing.assert_array_equal(
             o.tensors[0].np(), _np.full((1, 4), 3.0 * (i + 1), _np.float32))
-
-
-# -- what the port leaves to a later slice -------------------------------------
-
-def test_hybrid_connect_type_raises_naming_its_slice():
-    with _pytest.raises(ValueError, match="5b"):
-        ttransport.connect("127.0.0.1", 1, "hybrid")
-    with _pytest.raises(ValueError, match="5b"):
-        ttransport.make_server("127.0.0.1", 0, "hybrid")
-    p = t_parse(f"tensor_query_serversrc connect-type=hybrid caps={CAPS4} "
-                "! tensor_query_serversink", device="cpu")
-    with _pytest.raises(Exception, match="5b"):
-        p.start()
-    p.stop()
 
 
 # -- the query_offload golden ---------------------------------------------------

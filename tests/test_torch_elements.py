@@ -138,8 +138,7 @@ def _builtin(names, lookup, prefix, skip=()):
 
 def test_element_registry_matches_jax_package():
     jax = _builtin(jruntime.list_elements(), jruntime.element_factory,
-                   "nnstreamer_tpu.", skip=("nnstreamer_tpu.edge.mqtt",
-                                            "nnstreamer_tpu.edge.grpc_bridge"))
+                   "nnstreamer_tpu.")
     port = _builtin(truntime.list_elements(), truntime.element_factory,
                     "nnstreamer_tpu_torch.")
     assert port == jax - {"tensor_trainer"}

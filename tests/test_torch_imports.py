@@ -77,8 +77,33 @@ def test_port_imports_with_jax_blocked():
                 "tools", "tools.gen_element_docs",
                 "tools.pipeline_convert", "tools.gen_custom_filter",
                 "edge", "edge.wire", "edge.ntputil", "edge.devicechannel",
-                "edge.transport", "edge.query"):
+                "edge.transport", "edge.query", "edge.mqtt",
+                "edge.grpc_bridge"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
+
+
+def test_edge_imports_without_grpcio():
+    """Where ``import grpc`` fails (grpcio is an optional install) the
+    edge package still imports, with the gRPC names ``None`` and the two
+    gRPC elements unregistered; the MQTT elements and hybrid stay."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['grpc'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from nnstreamer_tpu_torch import edge\n"
+        "from nnstreamer_tpu_torch.runtime import list_elements\n"
+        "assert edge.GrpcSink is None and edge.GrpcSrc is None\n"
+        "assert 'nnstreamer_tpu_torch.edge.grpc_bridge' not in sys.modules\n"
+        "names = set(list_elements())\n"
+        "assert not names & {'tensor_src_grpc', 'tensor_sink_grpc'}, names\n"
+        "assert {'mqttsrc', 'mqttsink'} <= names, names\n"
+        "from nnstreamer_tpu_torch.edge.transport import HybridServer\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]
 
 
 def test_no_jax_or_jax_package_import_in_source():

@@ -1,11 +1,8 @@
 """``tests/test_chaos.py``'s query-link cases replayed on the port: the
 fault plan's wire seam on a real query link (resend at most once, a
-disconnect flap, seq-less drops, tombstone expiry) and an ``edgesrc``
-re-subscribing after its publisher restarts.
-
-Left out: ``TestSelfHealingLinks.test_mqttsrc_reconnects_through_broker_restart``
-(``mqttsrc``/``mqttsink``, the MQTT slice, ROADMAP item 5b); it is renamed
-out of collection below."""
+disconnect flap, seq-less drops, tombstone expiry), ``mqttsrc`` and
+``mqttsink`` reconnecting through a broker restart, and an ``edgesrc``
+re-subscribing after its publisher restarts."""
 
 from torch_replay import replay
 
@@ -13,6 +10,4 @@ replay("test_chaos.py", globals(), subs=(
     # the port's delay server: the replayed pipelining module's
     ("from tests.test_query_pipelining import DelayServer",
      "from tests.test_torch_query_pipelining import DelayServer"),
-    ("    def test_mqttsrc_reconnects_through_broker_restart(self):",
-     "    def _left_out_mqtt_item_5b(self):"),
 ), only=("TestQueryFaults", "TestSelfHealingLinks"))

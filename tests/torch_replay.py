@@ -33,20 +33,25 @@ COMMON: Tuple[Tuple[str, str], ...] = (
 )
 
 
-def port_source(name: str, subs: Iterable[Tuple[str, str]] = ()) -> str:
-    """The port's version of ``tests/<name>``: the caller's literal
-    ``subs`` first (each must occur in the JAX source), then
+def port_text(src: str, subs: Iterable[Tuple[str, str]] = (),
+              what: str = "source") -> str:
+    """The port's version of JAX-package test code ``src``: the caller's
+    literal ``subs`` first (each must occur in ``src``), then
     :data:`COMMON`."""
-    with open(os.path.join(TESTS, name), encoding="utf-8") as f:
-        src = f.read()
     for old, new in subs:
         if old not in src:
-            raise ValueError(f"{name}: replay pair no longer matches: "
+            raise ValueError(f"{what}: replay pair no longer matches: "
                              f"{old[:60]!r}")
         src = src.replace(old, new)
     for pat, rep in COMMON:
         src = re.sub(pat, rep, src)
     return src
+
+
+def port_source(name: str, subs: Iterable[Tuple[str, str]] = ()) -> str:
+    """The port's version of ``tests/<name>`` (:func:`port_text`)."""
+    with open(os.path.join(TESTS, name), encoding="utf-8") as f:
+        return port_text(f.read(), subs, what=name)
 
 
 def replay(name: str, namespace: dict,
@@ -78,3 +83,21 @@ def replay(name: str, namespace: dict,
                  or n.name not in drop]
     rewrite_asserts(tree, src.encode(), path)
     exec(compile(tree, f"{path} (port)", "exec"), namespace)
+
+
+def port_function(fn, overrides: Optional[dict] = None,
+                  subs: Iterable[Tuple[str, str]] = ()):
+    """The port's version of the JAX-package test function ``fn`` (a
+    golden case, a helper): its source through :func:`port_text`,
+    compiled in a copy of its module's globals updated with
+    ``overrides`` (the port's ``parse_launch``, ``Buffer``, ...)."""
+    import inspect
+    import textwrap
+
+    src = port_text(textwrap.dedent(inspect.getsource(fn)), subs,
+                    what=fn.__qualname__)
+    namespace = dict(fn.__globals__)
+    namespace.update(overrides or {})
+    path = inspect.getsourcefile(fn)
+    exec(compile(src, f"{path} (port)", "exec"), namespace)
+    return namespace[fn.__name__]
