@@ -356,7 +356,34 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    256 through ``tensor_sink_grpc server=true idl=protobuf`` →
    ``tensor_src_grpc`` byte-equal to local; where it fails, one line
    saying so and nothing counted as held;
-19. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+19. the parallel layer (``nnstreamer_tpu_torch/parallel/``).  (a) Phase
+   8's shared ViT topology with ``mesh=data:-1`` (``data:1`` on one
+   card): every frame's logits equal to the unmeshed pool's within 1e-4,
+   labels equal wherever the top-2 margin exceeds 1e-4, frames/s beside
+   phase 8's shared leg of the same call, ``flash_attention`` 6 times a
+   forward and the meshstat row at 1 shard, imbalance 0.0 and no pad on
+   a full window.  (b) Virtual shards on one card (8 device records over
+   ``cuda:0``, ``parallel.mesh.set_virtual_devices``; correctness only, no
+   scaling claimed): the ViT pool at ``mesh=data:4`` and ``data:8``
+   against the unmeshed logits within 5e-2, a window of 60 frames in a
+   64 bucket launching the attention once a layer per shard and meshstat
+   splitting it as ``shard_split``; phase 4's SSD at batch 256 behind the
+   fused normalize at ``mesh=data:4`` and ``mesh=data:2,model:2
+   sharding=tp`` — ``scale_bias_cast`` once per data shard, raw heads at
+   bf16 within 5e-2 and detections at f32 (TF32 off) equal to the
+   unsharded run's.  (c) The JAX package's ``bench_cascade`` topology on
+   those records (detector ``devices=0-3`` → ``tensor_crop`` →
+   ``tensor_if offload=then`` → classifier ``devices=4-7``) against the
+   single-stage run: offload ratio exactly 1/2, the stage boundary's
+   crossings per frame exactly 0.0 (the split run's ledger beyond the
+   single-stage run's), the ``d2d``/``handoff`` row byte-exact, outputs
+   equal frame for frame.  (d) A one-rank NCCL world through
+   ``multihost.initialize``: the five collectives on CUDA tensors over a
+   ``replica`` (dcn) x ``data`` mesh against their one-device meaning,
+   and the pool at ``mesh=dcn.data:1,data:-1``; the two-rank world runs
+   only in the CPU tests (gloo).  (e) The analyzer over phase 19's
+   descriptions: 0 errors;
+20. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -368,8 +395,9 @@ unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
 line); ``--elements``, ``--obs``, ``--control``, ``--repairs``,
-``--edge`` and ``--mqtt`` do the same for phases 13, 14, 15, 16, 17 and
-18 (phase 16 alone analyzes only its own descriptions).
+``--edge``, ``--mqtt`` and ``--parallel`` do the same for phases 13,
+14, 15, 16, 17, 18 and 19 (phase 16 alone analyzes only its own
+descriptions).
 """
 
 from __future__ import annotations
@@ -1356,13 +1384,16 @@ def phase_vit(card: str, power: str):
 
 def serve_pipe(model: str, share: bool, batch: int = 64,
                buckets: str = ",".join(map(str, SERVE_BUCKETS)),
-               decoder: bool = True, every_dispatch: bool = False) -> str:
+               decoder: bool = True, every_dispatch: bool = False,
+               mesh: str = "") -> str:
     """The serving pipeline; ``every_dispatch`` times every dispatch
-    (stat-sample-interval-ms=0: it waits for the card each window)."""
+    (stat-sample-interval-ms=0: it waits for the card each window);
+    ``mesh`` places the filter on a mesh (phase 19)."""
     return SERVE_PIPE.format(
         norm=NORM, model=model, share=str(share).lower(), batch=batch,
         buckets=buckets, dec=LABEL_DEC if decoder else "",
-        sample=" stat-sample-interval-ms=0" if every_dispatch else "")
+        sample=(" stat-sample-interval-ms=0" if every_dispatch else "")
+        + (f" mesh={mesh}" if mesh else ""))
 
 
 def closed_loop(pipes, pools, first_pts: int, n: int, depth: int):
@@ -1417,7 +1448,7 @@ def closed_loop(pipes, pools, first_pts: int, n: int, depth: int):
 
 def serve_leg(share: bool, pools, card: str, power: str, decoder=True,
               warmup: int = SERVE_WARMUP, n: int = SERVE_FRAMES,
-              profile: bool = False):
+              profile: bool = False, mesh: str = ""):
     """One leg of the serving phase: SERVE_STREAMS pipelines on the
     per-frame ViT, a warm-up round, then ``n`` timed frames per stream.
     Returns the leg's numbers and its buffers by stream (timed only).
@@ -1435,9 +1466,9 @@ def serve_leg(share: bool, pools, card: str, power: str, decoder=True,
     from nnstreamer_tpu_torch.runtime import parse_launch
 
     label = ("shared" if share else "unshared") + \
-        (", profiled" if profile else "")
+        (", profiled" if profile else "") + (f", mesh={mesh}" if mesh else "")
     pipes = [parse_launch(serve_pipe("vit_serve", share, decoder=decoder,
-                                     every_dispatch=profile))
+                                     every_dispatch=profile, mesh=mesh))
              for _ in range(SERVE_STREAMS)]
     try:
         from nnstreamer_tpu_torch.core import TensorsSpec
@@ -5113,6 +5144,41 @@ def ctl_mttr_run(name, rig, expect_rule, rules, playbooks, fault_fn,
     return row, during
 
 
+class GcPauses:
+    """The cyclic collector's pauses while armed (``gc.callbacks``): how
+    many collections of each generation ran and the longest, so a stall
+    in a watched window can be told from the pool's own latency."""
+
+    def __init__(self):
+        self.t0 = None
+        self.pauses = []  # (generation, seconds)
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self.t0 = time.perf_counter()
+        elif self.t0 is not None:
+            self.pauses.append((info["generation"],
+                                time.perf_counter() - self.t0))
+            self.t0 = None
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+        return False
+
+    def summary(self) -> dict:
+        gens = Counter(g for g, _ in self.pauses)
+        return {"collections": {str(g): n for g, n in sorted(gens.items())},
+                "max_pause_s": max((t for _, t in self.pauses), default=0.0)}
+
+
 def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
                playbooks, fault, recovered, warmup_s, settle_s,
                during_fn=None):
@@ -5120,9 +5186,24 @@ def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
     call, the offered rate CTL_LOAD_SHARE of it, ``settle_s`` of that
     open-loop traffic before the watch attaches (the JAX script's own
     settle: the start of the pumps must age out of the rules' windows),
-    then the run."""
+    then the run.
+
+    Before the pumps start, the heap the earlier phases left (profiler
+    traces, buffers, pipelines: millions of objects by phase 15) is
+    collected and frozen (``gc.freeze``): a full collection of it holds
+    the interpreter for a few hundred ms, and one landing after the
+    watch attached stalled the pool past the SLO before the fault (a
+    0.48 s admission sample 0.77 s into the watch).  The collector's
+    pauses over the run are kept in the row."""
+    import gc
+
     from nnstreamer_tpu_torch import chaos
 
+    heap = len(gc.get_objects())
+    t_gc = time.perf_counter()
+    gc.collect()
+    full_collect_s = time.perf_counter() - t_gc
+    gc.freeze()
     rig = CtlRig(name, **rig_kw)
     if chaos_spec:
         chaos.install_plan(chaos.FaultPlan.parse(chaos_spec))
@@ -5151,17 +5232,21 @@ def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
         rate = CTL_LOAD_SHARE * cap
         rig.start(rate)
         time.sleep(settle_s)
-        row, during = ctl_mttr_run(name, rig, rules[0].name, rules,
-                                   playbooks, lambda: fault(rig),
-                                   lambda: recovered(rig), warmup_s,
-                                   during_fn=(lambda: during_fn(rig))
-                                   if during_fn else None)
+        with GcPauses() as pauses:
+            row, during = ctl_mttr_run(name, rig, rules[0].name, rules,
+                                       playbooks, lambda: fault(rig),
+                                       lambda: recovered(rig), warmup_s,
+                                       during_fn=(lambda: during_fn(rig))
+                                       if during_fn else None)
         adm = rig.entry.admission
         shed = adm.total_shed if adm is not None else 0
     finally:
         rig.stop()
+        gc.unfreeze()
         if chaos_spec:
             chaos.uninstall_plan()
+    row["gc"] = {"heap_objects": heap, "full_collect_s": full_collect_s,
+                 **pauses.summary()}
     # rig.stop() unwound the pool before the check: its flush delivered
     # every parked frame
     row["frames"] = rig.check_streams(shed)
@@ -5174,7 +5259,8 @@ def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
           f"nns_control_actions_total {row['exported_actions']:g}; offered "
           f"{rate:.1f} frames/s ({CTL_LOAD_SHARE} of the window's "
           f"{cap:.1f} frames/s in this call; the JAX script offered "
-          f"{jax_rate:g} to its CPU model); frames {row['frames']} "
+          f"{jax_rate:g} to its CPU model); frames {row['frames']}; "
+          f"collector over the watched run {row['gc']} "
           f"[{card}, {power}]", flush=True)
     return row, during
 
@@ -7167,6 +7253,580 @@ def phase_mqtt(card: str, power: str):
     return res
 
 
+# -- phase 19: the parallel layer --------------------------------------------
+
+PAR_DEVICE = "cuda"       # the virtual records' platform (a CPU dry run: cpu)
+PAR_VIRTUAL = 8           # device records over the one card in (b)-(d)
+PAR_TOL_BF16 = 5e-2       # sharded against unsharded at bf16 compute
+PAR_TOL_F32 = 1e-4        # ... at f32 compute with TF32 off
+PAR_WINDOW = (60, 64)     # (b): frames in a window, its bucket
+PAR_CASCADE_FRAMES = 64
+PAR_CASCADE_SHAPE = (32, 32, 3)   # the JAX bench_cascade's sizes
+PAR_CASCADE_CROP = (24, 24)
+PAR_CASCADE_PERIOD = 4            # frame values cycle 0..3
+PAR_CASCADE_THRESHOLD = 3.0       # detector adds 1: {2, 3} offload, 1/2
+#: kernels launch only on the card: off it (a dry run) the launch gates
+#: read the plain versions' zero counts and are skipped
+PAR_ON_CARD = lambda: PAR_DEVICE == "cuda"  # noqa: E731
+PAR_SSD_PIPE = (
+    "appsrc name=src ! tensor_transform name=norm mode=arithmetic "
+    "option={norm} backend=cuda ! tensor_filter name={model} "
+    "framework=torch-cuda model={model}{props} ! appsink name=out")
+
+
+def _par_counts():
+    from nnstreamer_tpu_torch.ops import kernels
+
+    return {"flash_attention": kernels.flash_attention.launches,
+            "scale_bias_cast": kernels.scale_bias_cast.launches}
+
+
+def _par_zero():
+    from nnstreamer_tpu_torch.ops import kernels
+
+    kernels.flash_attention.launches = 0
+    kernels.scale_bias_cast.launches = 0
+
+
+def _par_logits(outs):
+    """{(stream, pts): logits} of a serving leg run without the decoder."""
+    return {(s, b.pts): b.tensors[0].torch().reshape(-1)
+            for s, bufs in enumerate(outs) for b in bufs}
+
+
+def _par_hold(got, want, tol: float, what: str) -> float:
+    import torch
+
+    if set(got) != set(want):
+        raise RuntimeError(f"parallel {what}: frames {sorted(got)[:4]} "
+                           f"against {sorted(want)[:4]}")
+    worst = 0.0
+    for k, y in got.items():
+        if not bool(torch.isfinite(y).all()):
+            raise RuntimeError(f"parallel {what}: non-finite logits at {k}")
+        worst = max(worst, float((y - want[k]).abs().max()))
+        if not torch.allclose(y, want[k], atol=tol, rtol=tol):
+            raise RuntimeError(f"parallel {what}: frame {k} differs from "
+                               f"the unmeshed pool's by {worst:.3e}")
+    return worst
+
+
+def _par_window(mesh: str, pools, n: int, bucket: int):
+    """One window of ``n`` f32 frames in ``bucket`` through a FilterSingle
+    of the ViT on ``mesh``, taken twice (the first checks the fold): the
+    second's attention launches and its meshstat row."""
+    import torch
+
+    from nnstreamer_tpu_torch.elements.filter import FilterSingle
+    from nnstreamer_tpu_torch.obs.meshstat import MESH_STATS
+    from nnstreamer_tpu_torch.ops import kernels
+
+    fs = FilterSingle(framework="torch-cuda", model="vit_serve",
+                      device=PAR_DEVICE, mesh=mesh)
+    sp = fs.subplugin
+    frames = [[(pools[i % len(pools)][i // len(pools)].float() - 127.5)
+               / 127.5] for i in range(n)]
+    sp.invoke_batched(frames, bucket)
+    MESH_STATS.reset()
+    n0 = kernels.flash_attention.launches
+    outs = sp.invoke_batched(frames, bucket)
+    launched = kernels.flash_attention.launches - n0
+    row = MESH_STATS.get("vit_serve")
+    shards = len(sp._placement.groups)
+    fs.close()
+    if not all(bool(torch.isfinite(o[0]).all()) for o in outs):
+        raise RuntimeError(f"parallel window {mesh}: non-finite logits")
+    return launched, row, shards
+
+
+def par_serving(card: str, power: str, phase8_fps=None):
+    """19a: the shared ViT pool on ``mesh=data:-1`` at full width."""
+    import torch
+
+    from nnstreamer_tpu_torch.obs.meshstat import MESH_STATS
+    from nnstreamer_tpu_torch.ops import kernels
+
+    pools, _ = serve_pools(device=PAR_DEVICE)
+    _, plain_outs = serve_leg(True, pools, card, power, decoder=False,
+                              warmup=0, n=SERVE_POOL)
+    plain = _par_logits(plain_outs)
+    MESH_STATS.reset()
+    _, mesh_outs = serve_leg(True, pools, card, power, decoder=False,
+                             warmup=0, n=SERVE_POOL, mesh="data:-1")
+    worst = _par_hold(_par_logits(mesh_outs), plain, SERVE_TOL,
+                      "19a logits")
+    row = MESH_STATS.get("vit_serve")
+    if row is None or row["shards"] != 1 or row["imbalance"] != 0.0 \
+            or row["replicated_dispatches"]:
+        raise RuntimeError(f"parallel 19a: meshstat row {row}")
+    # the timed leg with the decoder: frames/s and labels
+    _par_zero()
+    leg, outs = serve_leg(True, pools, card, power, mesh="data:-1")
+    launches = _par_counts()
+    if PAR_ON_CARD() and \
+            launches["flash_attention"] < VIT["depth"] * leg["dispatches"]:
+        raise RuntimeError(f"parallel 19a: {launches} for "
+                           f"{leg['dispatches']} timed dispatches")
+    labels = 0
+    for s, bufs in enumerate(outs):
+        for b in bufs:
+            ref = plain[(s, b.pts % SERVE_POOL)]
+            top2 = torch.topk(ref, 2).values
+            if float(top2[0] - top2[1]) > SERVE_TOL:
+                labels += 1
+                if b.meta["label_index"] != int(ref.argmax()):
+                    raise RuntimeError(f"parallel 19a: stream {s} frame "
+                                       f"{b.pts}: label differs")
+    # one full window: 6 attention launches a forward, no pad
+    full = SERVE_BUCKETS[-1]
+    fa, wrow, shards = _par_window("data:-1", pools, full, full)
+    if shards != 1 or (PAR_ON_CARD() and fa != VIT["depth"]) or \
+            wrow["pad_slots"] or \
+            wrow["imbalance"] != 0.0 or wrow["shard_frames"] != [full]:
+        raise RuntimeError(f"parallel 19a: a full window launched {fa} "
+                           f"attentions on {shards} shard(s), row {wrow}")
+    print(f"parallel (a) mesh=data:-1 (mesh(data:1) on this card): logits "
+          f"of {len(plain)} frames against the unmeshed pool max |diff| "
+          f"{worst:.3e} (tol {SERVE_TOL}), {labels} labels checked; "
+          f"{leg['frames_per_s']:.1f} frames/s beside phase 8's shared "
+          f"leg {phase8_fps if phase8_fps is None else round(phase8_fps, 1)}"
+          f" frames/s this call; {leg['dispatches']} dispatches, launches "
+          f"{launches}; meshstat shards {row['shards']} imbalance "
+          f"{row['imbalance']} pad_frac {row['pad_frac']:.4f}; a full "
+          f"window of {full}: {fa} attention launches, pad 0 "
+          f"[{card}, {power}]", flush=True)
+    return {"frames_per_s": leg["frames_per_s"],
+            "phase8_shared_frames_per_s": phase8_fps,
+            "max_abs_diff": worst, "labels_checked": labels,
+            "dispatches": leg["dispatches"], "launches": launches,
+            "meshstat": {k: row[k] for k in ("shards", "imbalance",
+                                             "pad_frac")},
+            "full_window_flash_launches": fa}, pools, plain
+
+
+def par_virtual_vit(pools, plain, card: str, power: str):
+    """19b, the ViT: the pool on data:4 and data:8 of the virtual records,
+    and one window per placement launching the attention per shard."""
+    from nnstreamer_tpu_torch.obs.meshstat import shard_split
+
+    out = {}
+    n, bucket = PAR_WINDOW
+    for mesh in ("data:4", "data:8"):
+        _par_zero()
+        _, outs = serve_leg(True, pools, card, power, decoder=False,
+                            warmup=0, n=SERVE_POOL, mesh=mesh)
+        worst = _par_hold(_par_logits(outs), plain, PAR_TOL_BF16,
+                          f"19b vit {mesh}")
+        pool_launches = _par_counts()
+        fa, row, shards = _par_window(mesh, pools, n, bucket)
+        want = shard_split(bucket, n, shards)
+        if row["shard_frames"] != want or (
+                PAR_ON_CARD() and fa != VIT["depth"] * shards):
+            raise RuntimeError(f"parallel 19b {mesh}: {fa} attention "
+                               f"launches on {shards} shards, frames "
+                               f"{row['shard_frames']} against {want}")
+        out[mesh] = {"max_abs_diff": worst, "shards": shards,
+                     "window_flash_launches": fa,
+                     "shard_frames": row["shard_frames"],
+                     "pool_launches": pool_launches}
+        print(f"parallel (b) virtual shards on one card, ViT {mesh}: "
+              f"logits against the unmeshed pool max |diff| {worst:.3e} "
+              f"(tol {PAR_TOL_BF16}); a window of {n} in {bucket}: "
+              f"{fa} attention launches ({VIT['depth']} a shard x "
+              f"{shards}), shard frames {row['shard_frames']} = "
+              f"shard_split; pool leg launches {pool_launches} "
+              f"[{card}, {power}]", flush=True)
+    return out
+
+
+def _par_ssd_run(model: str, frame, props: str):
+    """Two batches through the fused normalize + ``model``: the second's
+    outputs and its scale_bias_cast launches (the first builds)."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    desc = PAR_SSD_PIPE.format(norm=NORM, model=model, props=props)
+    p = parse_launch(desc, device=PAR_DEVICE)
+    p["src"].spec = TensorsSpec.from_shapes([frame.shape], np.uint8)
+    with p:
+        p["src"].push_buffer(Buffer.of(frame))
+        if p["out"].pull(timeout=300) is None:
+            raise RuntimeError(f"parallel 19b: no output from {desc}")
+        if [(s.transforms, s.filter) for s in p.fused_segments] != \
+                [(("norm",), model)]:
+            raise RuntimeError(f"parallel 19b: norm not fused in {desc}")
+        n0 = kernels.scale_bias_cast.launches
+        p["src"].push_buffer(Buffer.of(frame))
+        out = p["out"].pull(timeout=300)
+        if PAR_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        launched = kernels.scale_bias_cast.launches - n0
+        p["src"].end_of_stream()
+        p.wait_eos(timeout=120)
+    return [t.torch() for t in out.tensors], launched
+
+
+def par_virtual_ssd(card: str, power: str):
+    """19b, the SSD at batch 256: raw heads at bf16 and detections at f32
+    (TF32 off), sharded against unsharded, the prologue once a shard."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters import register_model
+    from nnstreamer_tpu_torch.models import (
+        feature_sizes_for,
+        ssd_anchors,
+        ssd_from_jax,
+        ssd_mobilenet_v2_init,
+    )
+
+    model = ssd_from_jax(ssd_mobilenet_v2_init(SEED, NUM_CLASSES))
+    anchors = ssd_anchors(SIZE, feature_sizes_for(SIZE))
+    register_model("par_ssd_raw", lambda m, x: m(x), params=model,
+                   in_shapes=[(BATCH, SIZE, SIZE, 3)], in_dtypes=np.float32)
+    register_detector("par_ssd_f32", model, anchors, BATCH, torch.float32)
+    frame = np.random.default_rng(SEED + 19).integers(
+        0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    placements = {"": 1, " mesh=data:4": 4,
+                  " mesh=data:2,model:2 sharding=tp": 2}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    out = {}
+    try:
+        for model_name, tol in (("par_ssd_raw", PAR_TOL_BF16),
+                                ("par_ssd_f32", PAR_TOL_F32)):
+            f32 = model_name.endswith("f32")
+            torch.backends.cuda.matmul.allow_tf32 = not f32 and tf32[0]
+            torch.backends.cudnn.allow_tf32 = not f32 and tf32[1]
+            want = None
+            for props, shards in placements.items():
+                _par_zero()
+                got, launched = _par_ssd_run(model_name, frame, props)
+                if PAR_ON_CARD() and launched != shards:
+                    raise RuntimeError(
+                        f"parallel 19b {model_name}{props}: "
+                        f"scale_bias_cast launched {launched} times for "
+                        f"{shards} data shard(s)")
+                if want is None:
+                    want = got
+                    continue
+                worst = max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(got, want))
+                ok = all(torch.allclose(a.float(), b.float(), atol=tol,
+                                        rtol=tol) for a, b in zip(got, want))
+                if f32:
+                    # detections equal: classes and counts exactly
+                    ok = ok and torch.equal(got[1], want[1]) \
+                        and torch.equal(got[3], want[3])
+                if not ok:
+                    raise RuntimeError(f"parallel 19b {model_name}{props}: "
+                                       f"outputs differ by {worst:.3e}")
+                out[f"{model_name}{props}"] = {"max_abs_diff": worst,
+                                               "scale_bias_cast": launched}
+                what = "f32 detections (TF32 off)" if f32 \
+                    else "bf16 raw heads"
+                print(f"parallel (b) virtual shards on one card, SSD batch "
+                      f"{BATCH} {what}"
+                      f"{props}: against unsharded max |diff| {worst:.3e} "
+                      f"(atol and rtol {tol}"
+                      f"{', classes and num equal' if f32 else ''}),"
+                      f" scale_bias_cast {launched} launches = data shards "
+                      f"[{card}, {power}]", flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def _par_cascade(split: bool, frames_n: int):
+    """One run of the JAX package's bench_cascade topology (its
+    ``_cascade_leg``) on the port: device_src → detector (devices=0-3
+    when split) → tensor_crop → tensor_if offload=then → classifier
+    (devices=4-7 when split), both share-model pools on mesh=data:4."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.elements.basic import AppSink, AppSrc, Queue
+    from nnstreamer_tpu_torch.elements.condition import TensorIf
+    from nnstreamer_tpu_torch.elements.crop import TensorCrop
+    from nnstreamer_tpu_torch.elements.devicesrc import DeviceSrc
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.obs.stagestat import STAGE_STATS
+    from nnstreamer_tpu_torch.runtime import Pipeline
+
+    ch, cw = PAR_CASCADE_CROP
+    pname = "par_cascade_split" if split else "par_cascade_fused"
+    pool = [np.full(PAR_CASCADE_SHAPE, float(k), np.float32)
+            for k in range(PAR_CASCADE_PERIOD)]
+    p = Pipeline(name=pname, device=PAR_DEVICE)
+    src = DeviceSrc(name="src", frames=pool, pool_size=PAR_CASCADE_PERIOD,
+                    num_buffers=frames_n)
+    info = AppSrc(name="regions",
+                  spec=TensorsSpec.from_shapes([(1, 4)], np.uint32),
+                  max_buffers=frames_n + 8)
+    q1 = Queue(name="q1", max_size_buffers=64)
+    det = TensorFilter(name="det", framework="torch-cuda", model="par_det",
+                       mesh="data:4", devices="0-3" if split else "",
+                       batch=4, batch_buckets="4", batch_timeout_ms=20.0,
+                       share_model=True, stat_sample_interval_ms=0)
+    crop = TensorCrop(name="crop")
+    route = TensorIf(name="route", compared_value="A_VALUE",
+                     compared_value_option="0:0",
+                     supplied_value=str(PAR_CASCADE_THRESHOLD),
+                     operator="ge", offload="then",
+                     then="PASSTHROUGH", else_="PASSTHROUGH")
+    q2 = Queue(name="q2", max_size_buffers=64)
+    cls = TensorFilter(name="cls", framework="torch-cuda", model="par_cls",
+                       mesh="data:4", devices="4-7" if split else "",
+                       batch=4, batch_buckets="4", batch_timeout_ms=20.0,
+                       share_model=True, stat_sample_interval_ms=0)
+    sink_off = AppSink(name="off", max_buffers=frames_n + 8)
+    sink_keep = AppSink(name="keep", max_buffers=frames_n + 8)
+    p.add(src, info, q1, det, crop, route, q2, cls, sink_off, sink_keep)
+    p.link(src, q1, det)
+    p.link_pads(det, "src", crop, "sink_raw")
+    p.link_pads(info, "src", crop, "sink_info")
+    p.link(crop, route)
+    p.link_pads(route, "src_then", q2, "sink")
+    p.link(q2, cls, sink_off)
+    p.link_pads(route, "src_else", sink_keep, "sink")
+    region = np.array([[0, 0, cw, ch]], np.uint32)
+
+    def crossings():
+        # this run's own pipeline rows: the pools' fold checks (their
+        # count varies with how windows fill) record under the pool
+        return xfer.LEDGER.totals(pipeline=pname, reason="input")[0] \
+            + xfer.LEDGER.totals(pipeline=pname, reason="drain")[0]
+
+    x0 = crossings()
+    h0 = xfer.LEDGER.totals(direction="d2d", reason="handoff")
+    t0 = time.perf_counter()
+    p.start()
+    try:
+        for _ in range(frames_n):
+            info.push_buffer(Buffer.of(region), timeout=120)
+        info.end_of_stream()
+        if not p.wait_eos(timeout=300):
+            raise RuntimeError(f"{pname}: no EOS")
+        secs = time.perf_counter() - t0
+        x1 = crossings()
+        h1 = xfer.LEDGER.totals(direction="d2d", reason="handoff")
+        hrow = STAGE_STATS.get(pname, "cls")
+        orow = STAGE_STATS.get(pname, "route")
+        off, keep = pull_all(sink_off), pull_all(sink_keep)
+        res = {"fps": frames_n / secs, "crossings": x1 - x0,
+               "handoff": (h1[0] - h0[0], h1[1] - h0[1]),
+               "handoff_row": hrow, "offload_row": orow,
+               "off": [b.tensors[0].torch().clone() for b in off],
+               "keep": [b.tensors[0].torch().clone() for b in keep]}
+    finally:
+        p.stop()
+    return res
+
+
+def par_cascade(card: str, power: str):
+    """19c: the stage split against the single-stage run."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters import register_model
+
+    register_model("par_det", lambda prm, f: f + prm,
+                   params=torch.tensor(1.0), in_shapes=[PAR_CASCADE_SHAPE],
+                   in_dtypes=np.float32)
+    ch, cw = PAR_CASCADE_CROP
+    register_model("par_cls",
+                   lambda prm, f: torch.tanh(f * prm).sum(dim=(0, 1)),
+                   params=torch.tensor(1.0),
+                   in_shapes=[(ch, cw, PAR_CASCADE_SHAPE[2])],
+                   in_dtypes=np.float32)
+    n = PAR_CASCADE_FRAMES
+    fused = _par_cascade(False, n)
+    split = _par_cascade(True, n)
+    crop_bytes = ch * cw * PAR_CASCADE_SHAPE[2] * 4
+    orow, hrow = split["offload_row"] or {}, split["handoff_row"] or {}
+    boundary = (split["crossings"] - fused["crossings"]) / float(n)
+    half = n // 2
+    bad = []
+    if orow.get("ratio") != 0.5:
+        bad.append(f"offload ratio {orow.get('ratio')}")
+    if boundary != 0.0:
+        bad.append(f"boundary crossings/frame {boundary}")
+    if split["handoff"] != (half, half * crop_bytes) or \
+            (hrow.get("frames"), hrow.get("bytes"), hrow.get("from"),
+             hrow.get("to"), hrow.get("depth")) != \
+            (half, half * crop_bytes, "0-3", "4-7", 0):
+        bad.append(f"handoff {split['handoff']} row {hrow}")
+    if fused["handoff"][0]:
+        bad.append(f"single-stage handoffs {fused['handoff']}")
+    for name in ("off", "keep"):
+        a, b = split[name], fused[name]
+        if len(a) != half or len(b) != half or not all(
+                torch.equal(x, y) for x, y in zip(a, b)):
+            bad.append(f"{name} outputs differ")
+    if bad:
+        raise RuntimeError(f"parallel 19c: {bad}")
+    print(f"parallel (c) stage split on the virtual records (detector "
+          f"devices=0-3, classifier devices=4-7, {n} frames): offload "
+          f"ratio {orow['ratio']}, boundary crossings/frame {boundary} "
+          f"(split run {split['crossings']} host crossings in its pipeline "
+          f"= single-stage run {fused['crossings']}: tensor_if's scalar "
+          f"a frame, the source's pool), handoff {hrow['frames']} frames "
+          f"{hrow['bytes']} B = {crop_bytes} B each ({hrow['from']} -> "
+          f"{hrow['to']}, depth {hrow['depth']}), outputs equal frame for "
+          f"frame; {split['fps']:.1f} frames/s split, {fused['fps']:.1f} "
+          f"single-stage [{card}, {power}]", flush=True)
+    return {"offload_ratio": orow["ratio"],
+            "boundary_crossings_per_frame": boundary,
+            "handoff_frames": hrow["frames"], "handoff_bytes": hrow["bytes"],
+            "fps_split": split["fps"], "fps_fused": fused["fps"]}
+
+
+def par_multihost(pools, plain, card: str, power: str):
+    """19d: a one-rank NCCL world, the collectives over it, a dcn pool."""
+    import socket
+
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import collectives as C
+    from nnstreamer_tpu_torch.parallel import mesh as M
+    from nnstreamer_tpu_torch.parallel import multihost
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t0 = time.perf_counter()
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0,
+                         backend="nccl" if PAR_DEVICE == "cuda" else "gloo")
+    try:
+        backend = multihost.backend()
+        M.set_virtual_devices(PAR_VIRTUAL, PAR_DEVICE)
+        m = multihost.hybrid_mesh([("data", PAR_VIRTUAL)], [("replica", 1)])
+        both = ("replica", "data")
+        g = torch.Generator().manual_seed(SEED + 19)
+        x = torch.randn(2 * PAR_VIRTUAL, 64, generator=g).to(PAR_DEVICE)
+        y = torch.randn(PAR_VIRTUAL, PAR_VIRTUAL * 2, 8,
+                        generator=g).to(PAR_DEVICE)
+        q, k, v = (torch.randn(2, 16 * PAR_VIRTUAL, 64,
+                               generator=g).to(PAR_DEVICE) for _ in range(3))
+        checks = {
+            "all_gather_merge": torch.equal(C.all_gather_merge(m, both)(x),
+                                            x),
+            "psum_reduce": torch.allclose(
+                C.psum_reduce(m, both)(x),
+                x.reshape(PAR_VIRTUAL, 2, 64).sum(0), atol=1e-4,
+                rtol=1e-5),
+            "ring_shift": torch.equal(C.ring_shift(m, both, 1)(x),
+                                      torch.roll(x, 2, 0)),
+            "all_to_all_regroup": torch.equal(
+                C.all_to_all_regroup(m, both, 1, 0)(y), y)}
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            att = C.ring_attention(m, both)(q, k, v)
+            ref = torch.softmax(q @ k.transpose(1, 2) / 8.0, -1) @ v
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        att_err = float((att - ref).abs().max())
+        checks["ring_attention"] = att_err <= 1e-4
+        if not all(checks.values()) or not all(
+                t.device.type == PAR_DEVICE for t in (att,)):
+            raise RuntimeError(f"parallel 19d: collectives {checks}, "
+                               f"ring attention |diff| {att_err:.3e}")
+        M.clear_virtual_devices()
+        _par_zero()
+        _, outs = serve_leg(True, pools, card, power, decoder=False,
+                            warmup=0, n=SERVE_POOL,
+                            mesh="dcn.data:1,data:-1")
+        worst = _par_hold(_par_logits(outs), plain, SERVE_TOL,
+                          "19d dcn pool")
+        launches = _par_counts()
+    finally:
+        M.clear_virtual_devices()
+        multihost.shutdown()
+    print(f"parallel (d) one-rank {backend} world via multihost.initialize "
+          f"in {time.perf_counter() - t0:.2f} s: collectives on "
+          f"{PAR_DEVICE} tensors over replica(dcn):1 x data:{PAR_VIRTUAL} "
+          f"{checks}, ring attention f32 |diff| {att_err:.3e}; pool "
+          f"mesh=dcn.data:1,data:-1 logits against the unmeshed pool max "
+          f"|diff| {worst:.3e}, launches {launches} [{card}, {power}]",
+          flush=True)
+    print("parallel (d) a two-rank world runs in the CPU tests only "
+          "(gloo, tests/test_torch_multihost.py): NCCL puts one rank on "
+          "one GPU", flush=True)
+    return {"backend": backend, "collectives": checks,
+            "ring_attention_max_abs_diff": att_err,
+            "dcn_pool_max_abs_diff": worst, "launches": launches}
+
+
+def par_lint(card: str, power: str):
+    """19e: the analyzer over the descriptions phase 19 parsed."""
+    from nnstreamer_tpu_torch.analyze import Severity, analyze_description
+    from nnstreamer_tpu_torch.parallel import mesh as M
+
+    descs = sorted({d for ph, d in LAUNCHED if ph == "19"})
+    M.set_virtual_devices(PAR_VIRTUAL, PAR_DEVICE)
+    try:
+        tally, errors = Counter(), []
+        for desc in descs:
+            diags, _ = analyze_description(desc)
+            for d in diags:
+                tally[d.severity] += 1
+                if d.severity == Severity.ERROR:
+                    errors.append((desc, str(d)))
+    finally:
+        M.clear_virtual_devices()
+    if errors:
+        raise RuntimeError(f"parallel 19e: analyzer errors {errors}")
+    print(f"parallel (e) the analyzer over phase 19's {len(descs)} distinct "
+          f"descriptions: 0 errors, {tally[Severity.WARNING]} warnings, "
+          f"{tally[Severity.INFO]} info [{card}, {power}]", flush=True)
+    return {"descriptions": len(descs), "errors": 0,
+            "warnings": tally[Severity.WARNING]}
+
+
+def phase_parallel(card: str, power: str, phase8_fps=None):
+    """Phase 19: (a)-(e) above; each leg's kernel counts from 0."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import register_vit
+    from nnstreamer_tpu_torch.parallel import mesh as M
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
+    res = {}
+    _par_zero()
+    res["serving"], pools, plain = par_serving(card, power, phase8_fps)
+    res["serving_launches"] = res["serving"]["launches"]
+    M.set_virtual_devices(PAR_VIRTUAL, PAR_DEVICE)
+    try:
+        res["virtual_vit"] = par_virtual_vit(pools, plain, card, power)
+        res["virtual_ssd"] = par_virtual_ssd(card, power)
+        res["cascade"] = par_cascade(card, power)
+    finally:
+        M.clear_virtual_devices()
+    res["multihost"] = par_multihost(pools, plain, card, power)
+    res["lint"] = par_lint(card, power)
+    fa = res["serving"]["launches"]["flash_attention"] + sum(
+        r["pool_launches"]["flash_attention"] + r["window_flash_launches"]
+        for r in res["virtual_vit"].values()) \
+        + res["multihost"]["launches"]["flash_attention"]
+    sbc = res["serving"]["launches"]["scale_bias_cast"] + sum(
+        r["pool_launches"]["scale_bias_cast"]
+        for r in res["virtual_vit"].values()) + sum(
+        r["scale_bias_cast"] for r in res["virtual_ssd"].values()) \
+        + res["multihost"]["launches"]["scale_bias_cast"]
+    res["launches"] = {"flash_attention": fa, "scale_bias_cast": sbc}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"parallel phase: {res['seconds']:.1f} s, launches "
+          f"{res['launches']} [{card}, {power}]", flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -7187,6 +7847,7 @@ def main() -> int:
     repairs_alone = sys.argv[1:] == ["--repairs"]
     edge_alone = sys.argv[1:] == ["--edge"]
     mqtt_alone = sys.argv[1:] == ["--mqtt"]
+    parallel_alone = sys.argv[1:] == ["--parallel"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -7256,6 +7917,11 @@ def main() -> int:
         print(json.dumps({"mqtt": phase_mqtt(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if parallel_alone:
+        PHASE[0] = "19"
+        print(json.dumps({"parallel": phase_parallel(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     PHASE[0] = "4"
@@ -7289,14 +7955,17 @@ def main() -> int:
     edge = phase_edge(card, power)
     PHASE[0] = "18"
     mqtt = phase_mqtt(card, power)
+    PHASE[0] = "19"
+    parallel = phase_parallel(card, power,
+                              serving["shared"]["frames_per_s"])
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
                       "classify": classify, "yolo": yolo,
                       "decoders": decoders, "elements": elements,
                       "obs": obs, "control": control, "repairs": repairs,
-                      "edge": edge, "mqtt": mqtt, "card": card,
-                      "power_limit": power}))
+                      "edge": edge, "mqtt": mqtt, "parallel": parallel,
+                      "card": card, "power_limit": power}, default=str))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
@@ -7322,7 +7991,8 @@ def main() -> int:
                    "edge_devch": edge["devch"]["launches"],
                    "edge_vit": edge["vit"]["launches"]["scale_bias_cast"],
                    "mqtt_camera": mqtt["camera"]["launches"],
-                   "mqtt_vit": mqtt["vit"]["launches"]["scale_bias_cast"]}
+                   "mqtt_vit": mqtt["vit"]["launches"]["scale_bias_cast"],
+                   "parallel": parallel["launches"]["scale_bias_cast"]}
     if mqtt["grpc"]["ran"]:
         sbc_by_path["mqtt_grpc"] = mqtt["grpc"]["launches"]
     fa_by_path = {"vit": vit_path["flash_launches"],
@@ -7334,7 +8004,8 @@ def main() -> int:
                   "control": control["launches"]["flash_attention"],
                   "repairs_single": repairs["single"]["launches"],
                   "edge_vit": edge["vit"]["launches"]["flash_attention"],
-                  "mqtt_vit": mqtt["vit"]["launches"]["flash_attention"]}
+                  "mqtt_vit": mqtt["vit"]["launches"]["flash_attention"],
+                  "parallel": parallel["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

@@ -95,8 +95,7 @@ CODES: Dict[str, Tuple[str, str]] = {
                "globally disabled (NNS_TPU_TORCH_OBS_DISABLE) — the props "
                "silently no-op"),
     "NNS509": (Severity.WARNING,
-               "(checked once mesh placement is ported, ROADMAP item "
-               "6) mesh placement whose batch (or a micro-batch bucket) "
+               "mesh placement whose batch (or a micro-batch bucket) "
                "is not divisible by the mesh data-axis size — the "
                "window cannot shard evenly, so pad slots (or full "
                "replication) burn device time on every dispatch"),
@@ -110,8 +109,7 @@ CODES: Dict[str, Tuple[str, str]] = {
                "target (pool/link) no element in the analyzed "
                "pipeline creates (the playbook can never act)"),
     "NNS512": (Severity.WARNING,
-               "(checked once mesh placement is ported, ROADMAP item "
-               "6) share-model pool placement problem (pool-level "
+               "share-model pool placement problem (pool-level "
                "NNS509): the pool's effective batch/batch-buckets "
                "are not divisible by the mesh data-axis size (every "
                "coalesced cross-pipeline window pads or replicates), "
@@ -145,9 +143,7 @@ CODES: Dict[str, Tuple[str, str]] = {
                "window pays one dispatch per stage instead of one "
                "total (Documentation/fusion.md)"),
     "NNS516": (Severity.WARNING,
-               "(checked once the pipeline split is ported, ROADMAP "
-               "item 6) pipeline-split misconfiguration: stage device "
-               "subsets "
+               "pipeline-split misconfiguration: stage device subsets "
                "overlap or index past the inventory, a tensor_if "
                "offload branch reaches its cross-subset stage only "
                "through a host-only element (the per-branch face of "

@@ -73,12 +73,15 @@ def verify_graph(pipe: Pipeline, fragment: bool = False) -> List[Diagnostic]:
     diags += _find_cycles(elements)
     diags += _find_unreachable(elements, sources, fragment)
     diags += _batching_checks(elements, fragment)
+    diags += _mesh_checks(elements)
+    diags += _pool_mesh_checks(elements)
     diags += _serving_checks(elements)
     diags += _lifecycle_checks(elements)
     diags += _edge_checks(elements)
     diags += _obs_checks(elements)
     diags += _dataflow_checks(elements)
     diags += _fusion_checks(elements)
+    diags += _stage_checks(elements)
     return diags
 
 
@@ -310,10 +313,286 @@ def _edge_checks(elements: List[Element]) -> List[Diagnostic]:
     return diags
 
 
-# NNS509/NNS512 (mesh divisibility, pool placement conflicts) wait for
-# mesh placement (ROADMAP item 6): the port's tensor_filter has no
-# mesh=/devices= property yet, so a description using them does not
-# parse (NNS100).  The catalog keeps their codes.
+def _mesh_data_axis_size(mesh_spec: str, devices_prop: str):
+    """Statically resolvable size of the mesh's data axis (the axis
+    the torch-cuda filter batch-shards over: "data" when present, else the first
+    axis), or None when it cannot be known at analysis time (a ``-1``
+    wildcard with no explicit ``devices=`` subset)."""
+    from ..parallel.mesh import MeshSpec
+
+    try:
+        spec = MeshSpec.parse(str(mesh_spec))
+    except (TypeError, ValueError):
+        return None  # unparseable mesh: the open itself will fail
+    if not spec.axes:
+        return None
+    names = [n for n, _ in spec.axes]
+    data = "data" if "data" in names else names[0]
+    sizes = dict(spec.axes)
+    size = sizes.get(data, -1)
+    if size == -1:
+        # wildcard: only resolvable when devices= pins the count and
+        # every OTHER axis is fixed
+        devs = str(devices_prop or "").strip()
+        fixed = 1
+        for name, s in spec.axes:
+            if name != data:
+                if s == -1:
+                    return None
+                fixed *= s
+        if not devs:
+            return None
+        try:
+            from ..parallel.mesh import parse_device_indices
+
+            n_devs = len(parse_device_indices(devs, 1 << 30))
+        except ValueError:
+            return None
+        return n_devs // fixed if fixed and n_devs % fixed == 0 else None
+    return int(size)
+
+
+def _mesh_checks(elements: List[Element]) -> List[Diagnostic]:
+    """NNS509: mesh/sharded placement whose micro-batch cannot split
+    evenly over the data axis.  ``invoke_batched`` only applies the
+    batch-sharding constraint when the bucket divides the axis size —
+    otherwise the window pads up (pad slots run the full computation on
+    every dispatch) or replicates onto every chip.  The obs layer
+    measures this at runtime (``nns_mesh_pad_slots_total``,
+    ``nns_shard_imbalance``); this check catches it before anything
+    runs."""
+    diags: List[Diagnostic] = []
+    for e in elements:
+        if getattr(e, "FACTORY", "") != "tensor_filter":
+            continue
+        if bool(getattr(e, "share_model", False)):
+            continue  # pool-level windows: NNS512 owns those
+        mesh_spec = str(getattr(e, "mesh", "") or "").strip()
+        if not mesh_spec:
+            continue
+        size = _mesh_data_axis_size(mesh_spec,
+                                    getattr(e, "devices", ""))
+        if size is None or size <= 1:
+            continue
+        batch = _int_prop(e, "batch", 1)
+        if batch <= 1:
+            continue
+        # the steady-state window dispatches at `batch` (a full window
+        # never pads) plus any EXPLICIT bucket; the implicit
+        # power-of-two ladder only serves deadline-closed partials and
+        # would make every mesh+batch combination fire
+        bad = sorted(b for b in _bucket_set(e) if b % size)
+        if not bad:
+            continue
+        diags.append(Diagnostic.make(
+            "NNS509",
+            f"{e.name}: mesh={mesh_spec} shards the micro-batch over "
+            f"{size} data-axis devices, but bucket(s) "
+            f"{', '.join(map(str, bad))} are not divisible by {size} — "
+            f"every such window pads up (pad slots run the full "
+            f"computation) or replicates onto every chip: device time "
+            f"burned on no frames, on every dispatch",
+            element=e.name,
+            hint=f"size batch/batch-buckets as multiples of {size} "
+                 f"(the data-axis size) so every window splits evenly; "
+                 f"the runtime counterpart is nns_mesh_pad_slots_total "
+                 f"/ nns_shard_imbalance "
+                 f"(Documentation/observability.md)"))
+    return diags
+
+
+def _bucket_set(e: Element) -> set:
+    """The window sizes a filter's coalescer can dispatch at: its
+    ``batch`` plus any EXPLICIT buckets (the implicit power-of-two
+    ladder only serves deadline-closed partials — counting it would
+    fire on every mesh+batch combination).  Empty set when the bucket
+    spec is unparseable (start() reports that itself)."""
+    batch = _int_prop(e, "batch", 1)
+    buckets = {batch}
+    for tok in str(getattr(e, "batch_buckets", "") or "").split(","):
+        tok = tok.strip()
+        if tok:
+            try:
+                buckets.add(int(tok))
+            except ValueError:
+                return set()
+    return buckets
+
+
+def _static_placement(e: Element):
+    """Lint-time placement identity of a filter: parsed mesh axes (with
+    ``-1`` wildcards kept — no device enumeration at lint time), the
+    CANONICAL sharding-rules name (``dp``/``replicated`` are one rule
+    set), and the devices subset.  None when the mesh is unparseable.
+    Deliberately coarser than ``parallel.Placement.key()``: two
+    spellings that MIGHT resolve equal (``data:-1`` vs ``data:8``)
+    compare equal here only when provably so, so the conflict check
+    below never flags a pair the runtime would happily join."""
+    from ..parallel.mesh import MeshSpec
+    from ..parallel.sharded import PARAM_RULES
+
+    mesh_spec = str(getattr(e, "mesh", "") or "").strip()
+    try:
+        axes = MeshSpec.parse(mesh_spec).axes if mesh_spec else ()
+    except (TypeError, ValueError):
+        return None
+    sharding = str(getattr(e, "sharding", "") or "").strip() \
+        or "replicated"
+    rules = PARAM_RULES.get(sharding)
+    canonical = sorted(k for k, v in PARAM_RULES.items()
+                       if v is rules)[0] if rules is not None else sharding
+    devices = str(getattr(e, "devices", "") or "").strip()
+    if devices:
+        # canonicalize the index-subset spelling ("0-3" == "0,1,2,3")
+        # the way the runtime does — a raw-string compare would flag a
+        # conflict the pool never raises
+        try:
+            from ..parallel.mesh import parse_device_indices
+
+            devices = parse_device_indices(devices, 1 << 30)
+        except (TypeError, ValueError):
+            pass  # unparseable: the open itself reports it
+    return (axes, canonical, devices)
+
+
+def _axes_compatible(a, b) -> bool:
+    """Whether two parsed mesh-axes tuples COULD resolve to the same
+    mesh: same names in order, each size pair equal or either a ``-1``
+    wildcard (``data:-1`` vs ``data:8`` may well be the same placement
+    at runtime — only a resolved count can tell)."""
+    if len(a) != len(b):
+        return False
+    for (na, sa), (nb, sb) in zip(a, b):
+        if na != nb:
+            return False
+        if sa != sb and -1 not in (sa, sb):
+            return False
+    return True
+
+
+def _placements_conflict(placements: List[tuple]) -> bool:
+    """True when SOME pair of static placements is provably
+    irreconcilable — the conservative static face of the runtime's
+    canonical-key comparison (which sees resolved device counts and
+    never flags equivalent spellings)."""
+    for i, (axes_a, rules_a, devs_a) in enumerate(placements):
+        for axes_b, rules_b, devs_b in placements[i + 1:]:
+            if rules_a != rules_b \
+                    or not _axes_compatible(axes_a, axes_b):
+                return True
+            # devices subsets are provably different only when BOTH
+            # are explicit and unequal: an omitted devices= lays the
+            # mesh over the device prefix, which may well BE the
+            # named subset ("mesh=data:4" == "devices=0-3" on most
+            # hosts — the runtime joins them into one pool)
+            if devs_a and devs_b and devs_a != devs_b:
+                return True
+    return False
+
+
+def _pool_mesh_checks(elements: List[Element]) -> List[Diagnostic]:
+    """NNS512: pool-level NNS509 for ``share-model=true`` filters.
+
+    Sharing filters of one model form ONE serving pool with ONE
+    cross-pipeline window (runtime/serving.py), so mesh divisibility is
+    a property of the POOL: a window size not divisible by the data-axis
+    size pads (or replicates) on EVERY coalesced window, burning device
+    time for every sharer at once.  Also the static face of the
+    runtime's PoolConflictError: sharers that declare provably different
+    placements would not share at all — the pool refuses the second
+    placement at start()."""
+    diags: List[Diagnostic] = []
+    pools: Dict[tuple, List[Element]] = {}
+    for e in elements:
+        if getattr(e, "FACTORY", "") != "tensor_filter":
+            continue
+        if not bool(getattr(e, "share_model", False)):
+            continue
+        model = getattr(e, "model", None)
+        if model is None:
+            continue
+        if not isinstance(model, str):
+            # non-string models (callables, ModelDef) pool by object
+            # identity at runtime — they still deserve the
+            # divisibility check (the window pads regardless of how
+            # the model was handed in)
+            model = f"<{type(model).__name__}:{id(model):#x}>"
+        elif not model:
+            continue
+        fw = str(getattr(e, "framework", "") or "auto")
+        # mirror the runtime pool identity MINUS placement
+        # (serving._key_base): filters differing in custom/IO-spec/
+        # shared-key open DIFFERENT pools, so their placements can
+        # never conflict — grouping by model alone would predict a
+        # PoolConflictError that start() never raises
+        pools.setdefault(
+            (fw, model,
+             str(getattr(e, "custom", "") or ""),
+             str(getattr(e, "input", "") or ""),
+             str(getattr(e, "inputtype", "") or ""),
+             str(getattr(e, "output", "") or ""),
+             str(getattr(e, "outputtype", "") or ""),
+             str(getattr(e, "shared_tensor_filter_key", "") or "")),
+            []).append(e)
+    for (fw, model, *_rest), els in pools.items():
+        placements = {}
+        for el in els:
+            p = _static_placement(el)
+            if p is not None:
+                placements.setdefault(p, []).append(el)
+        if _placements_conflict(list(placements)):
+            groups = "; ".join(
+                f"{'/'.join(el.name for el in group)}: "
+                f"mesh={str(getattr(group[0], 'mesh', '') or '')!r}"
+                for group in placements.values())
+            diags.append(Diagnostic.make(
+                "NNS512",
+                f"share-model filters of model {model!r} declare "
+                f"conflicting placements ({groups}) — placement is "
+                f"pool-level: the pool refuses the second placement "
+                f"with a PoolConflictError at start()",
+                element=els[0].name,
+                hint="align mesh/sharding/devices across every sharer "
+                     "of one model (equivalent spellings like data:-1 "
+                     "vs data:8 join automatically; provably different "
+                     "ones cannot share)"))
+            continue  # divisibility against an ambiguous pool mesh
+            # would double-report the same misconfiguration
+        meshed = [el for el in els
+                  if str(getattr(el, "mesh", "") or "").strip()]
+        if not meshed:
+            continue
+        ref = meshed[0]
+        size = _mesh_data_axis_size(
+            str(getattr(ref, "mesh", "") or "").strip(),
+            getattr(ref, "devices", ""))
+        if size is None or size <= 1:
+            continue
+        # pool-level window settings: every sharer must agree (runtime
+        # PoolConflictError) — lint the UNION of their declared buckets
+        buckets: set = set()
+        for el in els:
+            buckets |= _bucket_set(el)
+        buckets.discard(1)
+        bad = sorted(b for b in buckets if b % size)
+        if not bad:
+            continue
+        names = ", ".join(el.name for el in els)
+        diags.append(Diagnostic.make(
+            "NNS512",
+            f"share-model pool of model {model!r} ({names}) shards its "
+            f"coalesced window over {size} data-axis devices, but "
+            f"pool window size(s) {', '.join(map(str, bad))} are not "
+            f"divisible by {size} — EVERY cross-pipeline window pads "
+            f"up (pad slots run the full computation) or replicates "
+            f"onto every chip: device time burned on no frames, for "
+            f"every sharer at once",
+            element=ref.name,
+            hint=f"size the pool's batch/batch-buckets as multiples of "
+                 f"{size} (the data-axis size); the runtime counterpart "
+                 f"is nns_pool_pad_frac / nns_pool_shard_imbalance "
+                 f"(Documentation/serving.md \"Mesh-native pools\")"))
+    return diags
 
 
 def _obs_checks(elements: List[Element]) -> List[Diagnostic]:
@@ -718,11 +997,183 @@ def _fusion_checks(elements: List[Element]) -> List[Diagnostic]:
     return diags
 
 
-# NNS516 (pipeline-split stage subsets, the offload branch's residency,
-# the heavy stage's share-model) waits for the pipeline split (ROADMAP
-# item 6): it needs devices= stage subsets.  Its inventory face must read
-# only a CUDA runtime that is already initialised
-# (``torch.cuda.is_initialized()``): lint never opens a context itself.
+def _stage_subsets(elements: List[Element]) -> Dict[str, tuple]:
+    """Canonical device-index subset of every ``tensor_filter`` with an
+    explicit ``devices=`` — the pipeline's declared stages.  Unparseable
+    spellings are skipped (start() reports those itself)."""
+    from ..parallel.mesh import parse_device_indices
+
+    out: Dict[str, tuple] = {}
+    for e in elements:
+        if getattr(e, "FACTORY", "") != "tensor_filter":
+            continue
+        devs = str(getattr(e, "devices", "") or "").strip()
+        if not devs:
+            continue
+        try:
+            out[e.name] = parse_device_indices(devs, 1 << 30)
+        except (TypeError, ValueError):
+            pass
+    return out
+
+
+def _device_inventory() -> int:
+    """Device count of an ALREADY-initialised CUDA runtime
+    (``torch.cuda.is_initialized()``), or of the virtual inventory when
+    one is set (``parallel.mesh.set_virtual_devices``), else 0.  Lint
+    never initialises CUDA itself: opening a context to verify a launch
+    line would cost seconds and pin the card; when the embedding process
+    already runs one, its inventory is free to read."""
+    from ..parallel.mesh import virtual_devices
+
+    v = virtual_devices()
+    if v is not None:
+        return v[0]
+    import torch
+
+    if not torch.cuda.is_initialized():
+        return 0
+    return torch.cuda.device_count()
+
+
+def _stage_checks(elements: List[Element]) -> List[Diagnostic]:
+    """NNS516: disaggregated pipeline-split topology
+    (Documentation/serving.md "Pipeline-split serving").  Three faces:
+
+    - stage subsets that OVERLAP (two explicit ``devices=`` subsets
+      sharing devices defeats the disaggregation: the stages contend for
+      the same cores and per-stage attribution is unreliable — the
+      runtime face is the ``nns_placement_overlap`` gauge) or EXCEED
+      the device inventory (only checkable when the embedding process
+      already initialised CUDA; the resolve raises at start() anyway);
+    - a ``tensor_if`` offload predicate whose offload branch reaches a
+      cross-subset stage filter only THROUGH a host-only element — the
+      per-branch extension of the NNS514 residency-fence walk: the
+      handoff that should be one device-to-device copy over the device
+      channel instead pays a d2h+h2d pair per offloaded frame;
+    - the cascade's heavy-stage filter missing ``share-model=true`` —
+      every stream that offloads would open its OWN params copy and
+      window on the stage subset instead of sharing the pool the
+      disaggregation exists to concentrate."""
+    diags: List[Diagnostic] = []
+    staged = _stage_subsets(elements)
+
+    # face 1a: pairwise overlap between DIFFERENT declared subsets
+    names = sorted(staged)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            sa, sb = set(staged[a]), set(staged[b])
+            if sa == sb or not (sa & sb):
+                continue
+            shared = ",".join(map(str, sorted(sa & sb)))
+            diags.append(Diagnostic.make(
+                "NNS516",
+                f"stage subsets overlap: {a} (devices="
+                f"{','.join(map(str, staged[a]))}) and {b} (devices="
+                f"{','.join(map(str, staged[b]))}) share device(s) "
+                f"{shared} — the stages contend for the same devices and "
+                f"per-stage attribution is unreliable",
+                element=a,
+                hint="make the subsets disjoint (that is the point of "
+                     "a pipeline split); the runtime counterpart is "
+                     "the nns_placement_overlap gauge, and "
+                     "NNS_TPU_TORCH_STRICT_PLACEMENT=1 turns the resolve "
+                     "into an error (Documentation/serving.md)"))
+    # face 1b: a subset indexing past the inventory (CUDA already up)
+    n_devs = _device_inventory()
+    if n_devs:
+        for name in names:
+            over = [i for i in staged[name] if i >= n_devs]
+            if over:
+                diags.append(Diagnostic.make(
+                    "NNS516",
+                    f"{name}: devices="
+                    f"{','.join(map(str, staged[name]))} indexes past "
+                    f"the device inventory ({n_devs} device(s) "
+                    f"visible) — the placement resolve will refuse "
+                    f"this at start()",
+                    element=name,
+                    hint=f"pin indices below {n_devs}, or run on a "
+                         f"host with enough devices"))
+
+    byname = {e.name: e for e in elements}
+    down = _adjacency(elements)
+    for e in elements:
+        if getattr(e, "FACTORY", "") != "tensor_if":
+            continue
+        off = str(getattr(e, "offload", "") or "").strip().lower()
+        if not off:
+            continue
+        if off not in ("then", "else"):
+            diags.append(Diagnostic.make(
+                "NNS516",
+                f"{e.name}: offload={off!r} — must be 'then' or "
+                f"'else' (the branch feeding the heavy stage); "
+                f"start() will refuse this",
+                element=e.name,
+                hint="name the branch that routes to the cross-subset "
+                     "stage filter"))
+            continue
+        pad_name = "src_then" if off == "then" else "src_else"
+        start = None
+        for sp in e.srcpads:
+            if sp.name == pad_name and sp.peer is not None:
+                start = sp.peer.element.name
+        if start is None:
+            continue
+        # branch walk (NNS514's residency classes, scoped to the
+        # offload branch): look through transparent plumbing, look
+        # through host elements while REMEMBERING the crossing, stop
+        # at anything opaque.  A staged filter reachable only via a
+        # host path lost residency continuity.
+        seen: Set[tuple] = set()
+        stack = [(start, False)]
+        targets: Dict[str, bool] = {}  # stage filter -> host-only path
+        while stack:
+            n, crossed = stack.pop()
+            if (n, crossed) in seen:
+                continue
+            seen.add((n, crossed))
+            if n in staged:
+                targets[n] = targets.get(n, True) and crossed
+                continue
+            c = _residency_class(byname[n])
+            if c == "host":
+                stack.extend((m, True) for m in down[n])
+            elif c == "transparent":
+                stack.extend((m, crossed) for m in down[n])
+        for tname, via_host in sorted(targets.items()):
+            tgt = byname[tname]
+            subset = ",".join(map(str, staged[tname]))
+            if via_host:
+                diags.append(Diagnostic.make(
+                    "NNS516",
+                    f"{e.name}: the offload branch ({pad_name}) "
+                    f"reaches stage filter {tname} (devices={subset}) "
+                    f"only through a host-only element — the handoff "
+                    f"that should be ONE device-to-device copy over "
+                    f"the device channel instead pays a d2h drain plus "
+                    f"an h2d upload per offloaded frame (the "
+                    f"per-branch face of NNS514)",
+                    element=e.name,
+                    hint="keep the offload branch device-resident "
+                         "(transparent plumbing only) between the "
+                         "predicate and the stage filter "
+                         "(Documentation/dataflow.md)"))
+            if not bool(getattr(tgt, "share_model", False)):
+                diags.append(Diagnostic.make(
+                    "NNS516",
+                    f"{tname}: cascade heavy-stage filter (devices="
+                    f"{subset}, fed by {e.name}'s offload branch) "
+                    f"without share-model=true — every offloading "
+                    f"stream opens its OWN params copy and window on "
+                    f"the stage subset instead of sharing the one "
+                    f"pool the disaggregation concentrates",
+                    element=tname,
+                    hint="set share-model=true on the heavy-stage "
+                         "filter (Documentation/serving.md "
+                         "\"Pipeline-split serving\")"))
+    return diags
 
 
 def _resolves_torch_cuda(framework: str, model) -> bool:

@@ -38,10 +38,12 @@ How it composes with the rest of the edge stack:
 Slots are bounded: a dropped control frame (chaos, disconnect) leaks its
 slot until FIFO eviction reclaims it, counted in :func:`stats`.
 
-The JAX package's ``stage_handoff`` (a frame re-homed onto another
-device subset of one pipeline) has its only caller in the filter's
-``devices=``, which comes with the parallel layer (ROADMAP item 6); it
-is not here yet, and neither is :func:`take_buffer`'s ``device=``.
+One pipeline split over device subsets uses the same slot semantics:
+:func:`stage_handoff` deposits a frame and redeems it at once re-homed
+onto the next stage's device (:func:`take_buffer` with ``device=``): a
+device-to-device copy — a copy on the same card when both stages' device
+records lie over one card — and one ``d2d``/``handoff`` ledger row.
+Residency never flips to the host.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ import uuid
 from collections import OrderedDict
 from typing import Any, Dict, Optional
 
-from ..core import Buffer
+from ..core import Buffer, Tensor
 from ..utils.log import logw
 
 #: handshake reply payload on a fingerprint match
@@ -132,12 +134,15 @@ def deposit_buffer(buf: Buffer, chan: Any = "") -> Dict[str, Any]:
     return {"fp": fingerprint(), "slot": slot, "nbytes": nbytes}
 
 
-def take_buffer(desc: Dict[str, Any]) -> Optional[Buffer]:
+def take_buffer(desc: Dict[str, Any], device: Any = None
+                ) -> Optional[Buffer]:
     """Redeem a descriptor: pop the parked frame (tensors by reference,
     meta shallow-copied so the consumer can stamp routing keys without
-    mutating the producer's view).  Returns None — logged — when the
-    fingerprint is foreign (a sender skipped the handshake) or the slot
-    was evicted."""
+    mutating the producer's view).  ``device`` (a device record of
+    ``parallel.mesh``, or a ``torch.device``) re-homes every tensor onto
+    it: a fresh device-to-device copy, tagged with the record's id.
+    Returns None — logged — when the fingerprint is foreign (a sender
+    skipped the handshake) or the slot was evicted."""
     fp = str(desc.get("fp", ""))
     if fp != fingerprint():
         with _lock:
@@ -163,9 +168,52 @@ def take_buffer(desc: Dict[str, Any]) -> Optional[Buffer]:
         logw("devicechannel: slot %s already redeemed or evicted",
              desc.get("slot"))
         return None
-    return Buffer(tensors=list(buf.tensors), pts=buf.pts,
+    tensors = list(buf.tensors)
+    if device is not None:
+        tensors = [_rehome(t, device) for t in tensors]
+    return Buffer(tensors=tensors, pts=buf.pts,
                   duration=buf.duration, offset=buf.offset,
                   format=buf.format, meta=dict(buf.meta))
+
+
+def _rehome(t: Tensor, device: Any) -> Tensor:
+    """A copy of card tensor ``t`` on ``device`` (a device record or a
+    ``torch.device``), never through the host."""
+    from ..parallel.mesh import set_home
+
+    src = t.torch()
+    target = getattr(device, "torch_device", device)
+    moved = src.to(target, copy=True)
+    if hasattr(device, "torch_device"):
+        set_home(moved, device.id)
+    return Tensor(moved, t.spec)
+
+
+def stage_handoff(buf: Buffer, device: Any,
+                  chan: Any = "stage") -> Buffer:
+    """Cross-subset handoff within one process: a pipeline's two stages
+    on disjoint device subsets.  The frame goes through the channel's
+    slot semantics — deposit, immediate redeem re-homed onto ``device``
+    (a device-to-device copy, never a host bounce) — and leaves one
+    byte-exact ``d2d``/``handoff`` row on the transfer ledger.  Residency
+    never flips to host, so ``crossings_per_frame == 0.0`` extends
+    across the stage boundary.  Returns the original frame when it is not
+    fully on the card (host tensors upload through the normal ``h2d``
+    path) or the slot was evicted."""
+    if not eligible(buf):
+        return buf
+    import time as _time
+
+    from ..obs import transfer as _xfer
+
+    desc = deposit_buffer(buf, chan=chan)
+    t0 = _time.perf_counter()
+    out = take_buffer(desc, device=device)
+    if out is None:  # evicted under pressure: keep the original frame
+        return buf
+    _xfer.record("d2d", "handoff", desc["nbytes"],
+                 _time.perf_counter() - t0)
+    return out
 
 
 def release_chan(chan: Any) -> None:

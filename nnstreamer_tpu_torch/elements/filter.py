@@ -32,8 +32,14 @@ plan to this element (``chaos/plan.py``), besides the process-wide
 ``NNS_TPU_TORCH_CHAOS``; the model name keys the cost rows
 (``obs/xlacost.py``).
 
-Not in this slice (later work): mesh placement and pipeline-stage
-handoff.
+Placement (``parallel/``): ``mesh=`` runs the model over a device mesh
+(the batch or window split over the data axes, weights replicated or
+split per ``sharding=``), ``devices=`` pins it to a device-index subset —
+a pipeline STAGE.  A frame produced on another subset hands off device to
+device before it parks in this stage's window (``_stage_ingress``:
+``edge/devicechannel.stage_handoff``, one ``d2d``/``handoff`` ledger row,
+``obs/stagestat.py``'s handoff row and inter-stage depth, decremented
+when the frame leaves this filter).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from ..filters.api import FilterError, FilterProps, FilterSubplugin
 from ..filters.registry import detect_framework, find_filter
 from ..runtime.element import Element, NegotiationError, Pad, StreamError
 from ..obs import hooks as _hooks
+from ..obs import stagestat as _stagestat
 from ..obs import transfer as _xfer
 from ..obs.tracer import TRACE_META_KEY
 from ..runtime.events import Event, EventKind, Message, MessageKind
@@ -73,6 +80,16 @@ def _trace_ids(bufs: Sequence[Buffer]) -> List[str]:
     return out
 
 
+#: meta marker riding a frame that crossed a stage boundary (set at the
+#: handoff ingress, consumed — and stripped — at the stage's emit seams so
+#: the inter-stage depth decrements exactly once per frame)
+_STAGE_META = "nns.stage.handoff"
+#: meta carried by a frame a stage (``devices=``) emitted: that stage's
+#: device ids, so a frame derived from it downstream (a crop of it) still
+#: names the subset it lives on when it reaches the next stage
+_HOME_META = "nns.stage.home"
+
+
 def _parse_combination(s: str) -> Optional[List[int]]:
     if not s:
         return None
@@ -90,6 +107,7 @@ class TensorFilter(Element):
                  shared_tensor_filter_key: str = "", latency: int = 0,
                  latency_report: bool = False, inputtype: str = "",
                  input: str = "", outputtype: str = "", output: str = "",
+                 mesh: str = "", sharding: str = "", devices: str = "",
                  batch: int = 1, batch_timeout_ms: float = 1.0,
                  batch_buckets: str = "", share_model: bool = False,
                  stat_sample_interval_ms: Optional[float] = None,
@@ -111,6 +129,13 @@ class TensorFilter(Element):
         self.latency_report = latency_report  # LATENCY bus messages
         self.inputtype, self.input = inputtype, input
         self.outputtype, self.output = outputtype, output
+        # placement (parallel/placement.py): mesh="data:-1" runs the
+        # invoke over a device mesh; sharding= names the param-layout
+        # rules; devices="0-3" restricts the mesh to a device subset so
+        # pipeline stages can occupy disjoint subsets
+        self.mesh = mesh
+        self.sharding = sharding
+        self.devices = devices
         # dynamic micro-batching (runtime/batching.py): batch>1 coalesces
         # in-flight buffers into ONE program call per window; buckets
         # bound the set of window shapes; timeout bounds added latency
@@ -189,7 +214,9 @@ class TensorFilter(Element):
             output_spec=self._user_spec(self.output, self.outputtype),
             device=self.device,
             shared_key=self.shared_tensor_filter_key or None,
-            is_updatable=bool(self.is_updatable))
+            is_updatable=bool(self.is_updatable),
+            mesh=str(self.mesh or ""), sharding=str(self.sharding or ""),
+            devices=str(self.devices or ""))
         if self.share_model:
             if self.invoke_dynamic:
                 raise ValueError(
@@ -418,6 +445,11 @@ class TensorFilter(Element):
             raise StreamError(f"{self.name}: no sub-plugin opened")
         if self._throttled():
             return  # QoS drop (parity: tensor_filter.c:511)
+        if self.devices:
+            # stage boundary: a frame produced on ANOTHER device subset
+            # hands off device to device BEFORE it parks in this stage's
+            # window — part of arriving at the stage, never of a dispatch
+            buf = self._stage_ingress(buf)
         if self._pool_batched and self._pool_entry is not None:
             if self._chaos_plan is not None:
                 # element-scoped faults on a pooled stream apply at
@@ -472,7 +504,7 @@ class TensorFilter(Element):
             out_tensors = self._combine_outputs(buf, out_tensors)
         out = Buffer(tensors=out_tensors, pts=buf.pts,
                      duration=buf.duration, offset=buf.offset,
-                     meta=dict(buf.meta),
+                     meta=self._emit_meta(buf),
                      format=TensorFormat.FLEXIBLE if self.invoke_dynamic
                      else TensorFormat.STATIC)
         if sample:
@@ -484,6 +516,63 @@ class TensorFilter(Element):
             if tracer is not None:
                 tracer.invoke_split([(self.name, out)], t0, t1, t2, t3)
         self.push(out)
+
+    # -- stage boundary (pipeline split) ---------------------------------------
+
+    def _stage_ingress(self, buf: Buffer) -> Buffer:
+        """Cross-subset handoff INTO this stage: when this filter's
+        placement pins an explicit ``devices=`` subset and the frame's
+        tensors live on devices OUTSIDE it (the upstream stage's), the
+        frame goes through the device channel re-homed onto this stage's
+        first device — a device-to-device copy with one byte-exact
+        ``d2d``/``handoff`` ledger row, never a host bounce, so
+        ``crossings_per_frame`` stays 0.0 across the boundary.  Host or
+        mixed frames pass untouched (their upload is the ordinary
+        ``h2d`` path), as do frames already on this stage's devices."""
+        rp = getattr(self.subplugin, "_placement", None)
+        if rp is None or not getattr(rp, "stage", ""):
+            return buf
+        from ..parallel.mesh import device_ids_of
+
+        mine = set(rp.device_ids)
+        src_ids: set = set(buf.meta.get(_HOME_META, ()))
+        if not src_ids:
+            for t in buf.tensors:
+                if t.is_device:
+                    src_ids.update(device_ids_of(t.torch()))
+        if not src_ids or src_ids <= mine:
+            return buf
+        from ..edge import devicechannel as _devch
+        from ..parallel.placement import subset_label
+
+        if not _devch.eligible(buf):
+            return buf  # mixed residency: plain upload path
+        nbytes = buf.nbytes
+        out = _devch.stage_handoff(buf, rp.lead, chan=("stage", self.name))
+        if out is buf:
+            return buf
+        out.meta[_STAGE_META] = True
+        _stagestat.record_handoff(
+            self.pipeline.name if self.pipeline is not None else "",
+            self.name, subset_label(src_ids), rp.stage, 1, nbytes)
+        return out
+
+    def _emit_meta(self, buf: Buffer) -> dict:
+        """The meta an output frame carries: the input's, with a stage
+        handoff marker consumed (the inter-stage depth decrements once,
+        as the frame leaves this stage) and, leaving a stage, that
+        stage's device ids (:data:`_HOME_META`)."""
+        meta = dict(buf.meta)
+        if meta.pop(_STAGE_META, None):
+            _stagestat.record_emit(
+                self.pipeline.name if self.pipeline is not None else "",
+                self.name)
+        rp = getattr(self.subplugin, "_placement", None)
+        if rp is not None and rp.stage:
+            meta[_HOME_META] = rp.device_ids
+        else:
+            meta.pop(_HOME_META, None)
+        return meta
 
     def _chaos_invoke(self) -> None:
         """The invoke fault seam of this element's own dispatches: its
@@ -627,7 +716,7 @@ class TensorFilter(Element):
             out_tensors = self._combine_outputs(buf, out_tensors)
         self.push(Buffer(
             tensors=out_tensors, pts=buf.pts, duration=buf.duration,
-            offset=buf.offset, meta=dict(buf.meta),
+            offset=buf.offset, meta=self._emit_meta(buf),
             format=TensorFormat.STATIC))
 
     def _combine_outputs(self, in_buf: Buffer, outputs: List[Tensor]
@@ -733,6 +822,32 @@ class TensorFilter(Element):
         sharing)."""
         return self._pool_entry.stats.avg_stream_occupancy \
             if self._pool_entry is not None else 0.0
+
+    # -- multi-device bookkeeping --------------------------------------------
+
+    @property
+    def num_shards(self) -> int:
+        """Mesh size when the sub-plugin runs over a mesh=; 1 on one
+        device."""
+        rp = getattr(self.subplugin, "_placement", None)
+        return int(rp.mesh.size) if rp is not None else 1
+
+    @property
+    def data_shards(self) -> int:
+        """LOCAL batch parallelism of the sub-plugin's placement: the
+        per-process share of the data axes (this element's
+        ``invoke_stats`` count only this process's frames); 1 without a
+        mesh."""
+        rp = getattr(self.subplugin, "_placement", None)
+        return int(rp.local_data_axis_size) if rp is not None else 1
+
+    @property
+    def throughput_per_shard_milli_fps(self) -> int:
+        """Per-device share of the element's throughput along the DATA
+        axis (devices on a ``model`` axis all process the same rows, so
+        dividing by the whole mesh would understate scaling)."""
+        return self.invoke_stats.throughput_milli_fps // \
+            max(self.data_shards, 1)
 
 
 class FilterSingle:

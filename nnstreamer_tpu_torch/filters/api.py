@@ -41,6 +41,16 @@ class FilterProps:
     device: Optional[torch.device] = None
     shared_key: Optional[str] = None  # shared-model table key
     is_updatable: bool = False        # hot reload allowed
+    #: mesh spec ("data:-1", "data:4,model:2"): run the model over a
+    #: device mesh (parallel/placement.py), one invoke spanning every
+    #: device of it
+    mesh: str = ""
+    #: named param-layout rules (parallel.PARAM_RULES) for the mesh
+    sharding: str = ""
+    #: device-index subset for the mesh ("0-3", "4,5,6,7"): two filter
+    #: stages of one pipeline on disjoint subsets, frames handed off
+    #: device to device between them
+    devices: str = ""
 
 
 class FilterError(Exception):
@@ -159,9 +169,17 @@ class SharedModelTable:
         with self._lock:
             return self._table.setdefault(key, value)
 
+    def replace(self, key: str, value: Any) -> None:
+        with self._lock:
+            self._table[key] = value
+
     def remove(self, key: str) -> None:
         with self._lock:
             self._table.pop(key, None)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._table.clear()
 
 
 #: the process-wide ``shared-tensor-filter-key`` table

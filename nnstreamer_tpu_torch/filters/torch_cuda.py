@@ -57,7 +57,19 @@ single-frame program on the call on zeros that reads its output schema,
 a window bucket on its first (fold-checked) dispatch.  The fold check's
 verdicts cross to the host as recorded drains.
 
-Not in this slice (later work): mesh / sharding.
+Placement (``mesh=``/``sharding=``/``devices=``, ``parallel/``): the
+placement resolves once, at configure.  An invoke splits its batch over
+the data axes in contiguous rows, in stack order (what
+``obs/meshstat.shard_split`` assumes), runs every shard on its lead
+device with that device's weight replica or ``model``-axis slices, and
+gathers the outputs on the mesh's first device; a batch that does not
+divide runs once, replicated.  A window stacks once and dispatches
+sharded: each shard's rows run the fused prologue and the model on their
+own device, so a kernel of the path launches once per shard.  Every
+output is tagged with its mesh's device ids (``parallel.mesh.set_home``)
+for the stage handoff of ``tensor_filter devices=``.  On a multi-process
+(``dcn.``) placement each process runs its own rows; a single-frame
+invoke gathers every process's rows (``all_gather``).
 """
 
 from __future__ import annotations
@@ -134,6 +146,8 @@ class ModelDef:
         self.in_spec = in_spec
         self.name = name
         self._dev_params: Dict[torch.device, Any] = {}
+        #: placement key -> parallel.sharded.MeshParams
+        self._mesh_params: Dict[Tuple, Any] = {}
         self._lock = threading.Lock()
 
     def flat_fn(self, device: torch.device) -> Callable:
@@ -145,6 +159,24 @@ class ModelDef:
             if device not in self._dev_params:
                 self._dev_params[device] = _place(self.params, device)
             params = self._dev_params[device]
+
+        def fn(*inputs):
+            return self.fn(params, *inputs)
+
+        return fn
+
+    def shard_fn(self, rp: Any, group: Sequence[Any]) -> Callable:
+        """Like :meth:`flat_fn` for one data shard of placement ``rp``:
+        the params laid over the mesh per its rules (placed once per
+        distinct device group, then reused by every instance)."""
+        if self.params is None:
+            return self.fn
+        with self._lock:
+            mp = self._mesh_params.get(rp.key)
+            if mp is None:
+                mp = self._mesh_params[rp.key] = rp.shard_params(
+                    self.params, place=_place)
+            params = mp.tree(group)
 
         def fn(*inputs):
             return self.fn(params, *inputs)
@@ -300,17 +332,26 @@ class _Program:
 #: both atol and rtol: 16-bit float outputs, then the rest
 FOLD_TOL = {torch.float16: 1e-2, torch.bfloat16: 1e-2}
 FOLD_TOL_DEFAULT = 1e-3
+#: how far a frame's batch split over a mesh's data shards may sit from
+#: the whole batch run once, as both atol and rtol: the check only has to
+#: tell a batch of independent rows from a model that mixes them (off by
+#: O(1)), while a 16-bit compute may round differently with the shard's
+#: batch size (another convolution algorithm)
+SPLIT_TOL = 5e-2
 
 
-def _rows_agree(row: torch.Tensor, alone: torch.Tensor) -> bool:
+def _rows_agree(row: torch.Tensor, alone: torch.Tensor,
+                tol: Optional[float] = None) -> bool:
     """One output row of a folded window against the same frame run
-    alone: equal for integer and bool outputs, within ``FOLD_TOL`` for
-    floating ones (summation order may differ with the batch size)."""
+    alone: equal for integer and bool outputs, within ``tol`` (default
+    ``FOLD_TOL``) for floating ones (summation order may differ with the
+    batch size)."""
     if tuple(row.shape) != tuple(alone.shape) or row.dtype != alone.dtype:
         return False
     if not row.dtype.is_floating_point:
         return _on_host((row == alone).all())
-    tol = FOLD_TOL.get(row.dtype, FOLD_TOL_DEFAULT)
+    if tol is None:
+        tol = FOLD_TOL.get(row.dtype, FOLD_TOL_DEFAULT)
     return _on_host(torch.isclose(row.float(), alone.float(), rtol=tol,
                                   atol=tol, equal_nan=True).all())
 
@@ -318,6 +359,25 @@ def _rows_agree(row: torch.Tensor, alone: torch.Tensor) -> bool:
 def _on_host(verdict: torch.Tensor) -> bool:
     """A device verdict read on the host: one recorded drain."""
     return bool(_xfer.to_host(verdict))
+
+
+def _seeded_inputs(spec: TensorsSpec, device: torch.device,
+                   rng: Optional[np.random.Generator] = None
+                   ) -> List[torch.Tensor]:
+    """Seeded inputs of schema ``spec`` on ``device`` (from ``rng``, else
+    seed 0): normal floats, random bools, integers in [0, 100)."""
+    rng = rng if rng is not None else np.random.default_rng(0)
+    frame = []
+    for t in spec.tensors:
+        dt = t.dtype.np_dtype
+        if np.issubdtype(dt, np.floating):
+            a = rng.standard_normal(t.shape).astype(dt)
+        elif dt == np.bool_:
+            a = rng.integers(0, 2, t.shape).astype(dt)
+        else:
+            a = rng.integers(0, 100, t.shape).astype(dt)
+        frame.append(from_numpy(a, device))
+    return frame
 
 
 def _stack_window(col: Sequence[Any], bucket: int,
@@ -358,6 +418,9 @@ class TorchCudaFilter(FilterSubplugin):
         self.batch_cache_hits = 0
         self.batch_cache_misses = 0
         self._cache_by_bucket: Dict[int, List[int]] = {}  # b -> [hit, miss]
+        #: the placement (parallel.ResolvedPlacement) of mesh=; None on
+        #: one device
+        self._placement = None
 
     def set_fused_pre(self, chains: list) -> None:
         """Install upstream transform op chains (runtime/fusion.py) to run
@@ -379,6 +442,10 @@ class TorchCudaFilter(FilterSubplugin):
     def configure(self, props: FilterProps) -> None:
         super().configure(props)
         self._donate = "donate" in (props.custom or "")
+        for prop in ("sharding", "devices"):
+            if getattr(props, prop, "") and not props.mesh:
+                raise FilterError(f"torch-cuda: {prop}="
+                                  f"{getattr(props, prop)!r} requires mesh=")
         try:
             kind = parse_accel_kind(props.accelerator)
         except ValueError as e:
@@ -388,9 +455,22 @@ class TorchCudaFilter(FilterSubplugin):
         else:
             self.device = props.device if props.device is not None \
                 else resolve_device("cuda")
+        self._placement = None
+        if props.mesh:
+            from ..parallel import Placement
+
+            try:
+                self._placement = Placement.from_props(props).resolve(
+                    self.device.type)
+            except (ValueError, TypeError) as e:
+                raise FilterError(
+                    f"torch-cuda: mesh {props.mesh!r}: {e}") from e
+            self.device = self._placement.lead.torch_device
         # shared-tensor-filter-key: instances naming one key on one
-        # device share the model and its program
-        table_key = f"torch-cuda:{props.shared_key}:{self.device}"
+        # placement share the model and its program
+        where = self._placement.key if self._placement is not None \
+            else self.device
+        table_key = f"torch-cuda:{props.shared_key}:{where}"
         if props.shared_key:
             shared = SHARED_MODELS.get(table_key)
             if shared is not None:
@@ -453,21 +533,35 @@ class TorchCudaFilter(FilterSubplugin):
         m = self._model
         return m.name if m is not None else ""
 
-    def _placement(self) -> str:
+    def _placement_label(self) -> str:
+        """Where this instance's programs run: ``mesh(<axes>)`` on a
+        mesh, else ``device``/``host``."""
+        if self._placement is not None:
+            return self._placement.describe()
         return "device" if _xfer.on_card(self.device) else "host"
 
     def weight_bytes(self) -> Optional[dict]:
-        """The model's weights on this instance's device, for
-        ``nns_model_weight_bytes{pool,placement}``; None without weights."""
+        """The model's weights on this instance's placement, for
+        ``nns_model_weight_bytes{pool,placement}``: every distinct copy
+        on a mesh (placement ``mesh``; virtual devices over one card
+        share one), the device copy otherwise; None without weights."""
         m = self._model
         if m is None or m.params is None:
             return None
+        rp = self._placement
         with m._lock:
-            params = m._dev_params.get(self.device)
-        if params is None:
+            if rp is not None:
+                mp = m._mesh_params.get(rp.key)
+                nbytes = mp.nbytes() if mp is not None else 0
+            else:
+                params = m._dev_params.get(self.device)
+                nbytes = _xfer.params_nbytes(params) \
+                    if params is not None else 0
+        if not nbytes:
             return None
-        return {"bytes": _xfer.params_nbytes(params),
-                "placement": self._placement()}
+        return {"bytes": nbytes,
+                "placement": "mesh" if rp is not None
+                else self._placement_label()}
 
     def _capture(self, fn: Callable, *args: Any, bucket: int) -> Any:
         """``fn(*args)`` with its cost recorded for ``(model, bucket)``
@@ -478,7 +572,7 @@ class TorchCudaFilter(FilterSubplugin):
         w = self.weight_bytes()
         return _xlacost.capture(
             self._model.name, fn, *args, bucket=bucket,
-            placement=self._placement(),
+            placement=self._placement_label(),
             platform=device_platform(self.device),
             weight_bytes=w["bytes"] if w else 0)
 
@@ -511,30 +605,43 @@ class TorchCudaFilter(FilterSubplugin):
         epilogue, outputs normalized to a tuple, per frame and over a
         stacked window.  The output schema comes from one call on
         zeros."""
-        model_fn = self._model.flat_fn(self.device)
+        rp = self._placement
+        model_fns = [self._model.flat_fn(self.device)] if rp is None else \
+            [self._model.shard_fn(rp, g) for g in rp.groups]
         pre = self._pre_fns(in_spec) if self._pre_chains else None
         pre_w = self._pre_fns(in_spec, lead=1) if self._pre_chains else None
         post = self._post_fns[0] if self._post_fns else None
 
-        def run(inputs):
-            out = model_fn(*inputs)
+        def run(inputs, k=0):
+            out = model_fns[k](*inputs)
             out = tuple(out) if isinstance(out, (list, tuple)) else (out,)
             if post is not None:
                 out = tuple(post(*out))
             return out
 
-        def program(*inputs):
+        def frame_call(k, inputs):
             if pre is not None:
                 inputs = [g(x) for g, x in zip(pre, inputs)]
-            return run(inputs)
+            return run(inputs, k)
 
-        def window_program(*stacked):
+        def window_call(k, stacked):
             """(bucket, *frame_shape) per input → the outputs with the
             window folded into their leading axis."""
             if pre_w is not None:
                 stacked = [g(x) for g, x in zip(pre_w, stacked)]
             return run([x.reshape((-1,) + tuple(x.shape[2:]))
-                        for x in stacked])
+                        for x in stacked], k)
+
+        check_split = None
+        if rp is None:
+            def program(*inputs):
+                return frame_call(0, inputs)
+
+            def window_program(*stacked):
+                return window_call(0, stacked)
+        else:
+            program, window_program, check_split = self._sharded_programs(
+                rp, frame_call, window_call)
 
         zeros = [torch.zeros(t.shape, dtype=t.dtype.torch_dtype,
                              device=self.device) for t in in_spec.tensors]
@@ -548,11 +655,96 @@ class TorchCudaFilter(FilterSubplugin):
             raise FilterError(
                 f"torch-cuda: model {self._model.name} rejects input "
                 f"{in_spec}: {e}") from e
+        if check_split is not None and self.device.type != "meta":
+            with torch.inference_mode():
+                check_split(_seeded_inputs(in_spec, self.device))
         out_spec = TensorsSpec.from_shapes(
             [tuple(o.shape) for o in outs],
             [DType.from_torch(o.dtype) for o in outs])
         return _Program(program, window_program, in_spec, out_spec,
                         with_pre=pre is not None, with_post=post is not None)
+
+    @staticmethod
+    def _sharded_programs(rp: Any, frame_call: Callable,
+                          window_call: Callable):
+        """The per-frame and window programs over placement ``rp``, and
+        the split check.  The window splits over this process's data
+        shards in whole frames, contiguous and in stack order; every
+        shard runs ``window_call(k, rows)`` on its lead device and the
+        outputs gather on the first.  A frame's own leading axis splits
+        the same way once ``check(inputs)`` has held the split against
+        the whole batch on seeded inputs (a frame whose leading axis is
+        not a batch of independent rows runs replicated); a batch that
+        does not divide runs once, replicated.  A multi-process frame
+        batch is the global one: this process runs its own rows and the
+        outputs gather from every process."""
+        from ..parallel.sharded import run_sharded
+
+        groups = rp.groups
+        verdict = [None]  # True: a frame's leading axis splits
+
+        def frame(inputs, split: bool):
+            if split and rp.num_processes > 1:
+                outs = run_sharded(groups, frame_call,
+                                   [rp.local_rows(x) for x in inputs], True)
+                return tuple(rp.gather_global(o) for o in outs)
+            return run_sharded(groups, frame_call, inputs, split)
+
+        def divisible(inputs) -> bool:
+            b = int(inputs[0].shape[0]) if inputs and inputs[0].dim() \
+                else 1
+            return rp.data_axis_size > 1 and b % rp.data_axis_size == 0
+
+        def program(*inputs):
+            return frame(inputs, divisible(inputs) and bool(verdict[0]))
+
+        def window_program(*stacked):
+            sharded = rp.window_sharding(int(stacked[0].shape[0])) \
+                is not None
+            return run_sharded(groups, window_call, stacked, sharded)
+
+        def check(inputs) -> None:
+            if not divisible(inputs):
+                return
+            try:
+                split = frame(inputs, True)
+            except (RuntimeError, ValueError, TypeError, IndexError):
+                verdict[0] = False
+                return
+            whole = frame(inputs, False)
+            verdict[0] = len(split) == len(whole) and all(
+                _rows_agree(a, w, SPLIT_TOL) for a, w in zip(split, whole))
+
+        return program, window_program, check
+
+    def _record_mesh(self, slots: int, frames: int, sharded: bool,
+                     local: bool = False) -> None:
+        """Feed one mesh dispatch into the per-shard attribution store
+        (keyed by model name, like the cost rows), over every data axis
+        of the placement.  ``local=True`` (a window) restricts a
+        multi-process placement to its local data axes: this process
+        sees only its own ``slots``/``frames``."""
+        from ..obs import meshstat as _meshstat
+        from ..parallel.placement import DCN_PREFIX
+
+        rp = self._placement
+        axes = rp.data_axes
+        if local and rp.num_processes > 1:
+            axes = tuple(a for a in rp.data_axes
+                         if not a.startswith(DCN_PREFIX)) or axes
+        _meshstat.record_dispatch(
+            self._model.name if self._model is not None else "?",
+            rp.mesh, axes, slots, frames, sharded)
+
+    def _tag_home(self, outs: Sequence[Any]) -> None:
+        """Mark a mesh dispatch's outputs as the mesh's (gathered on its
+        first device; the stage handoff reads the tag)."""
+        from ..parallel.mesh import set_home
+
+        home = self._placement.device_ids
+        for o in outs:
+            if isinstance(o, torch.Tensor):
+                set_home(o, home)
 
     # -- model info ----------------------------------------------------------
 
@@ -591,7 +783,17 @@ class TorchCudaFilter(FilterSubplugin):
         inputs = [x if x.device == self.device else
                   _xfer.move(x, self.device) for x in inputs]
         with torch.inference_mode():
-            return list(p.fn(*inputs))
+            out = list(p.fn(*inputs))
+        if self._placement is not None:
+            # the leading dim batch-shards over the data axes when it
+            # divides, else the frame ran replicated
+            b = int(p.in_spec.tensors[0].shape[0] or 1) \
+                if p.in_spec.tensors and p.in_spec.tensors[0].shape else 1
+            self._record_mesh(
+                slots=b, frames=b,
+                sharded=b % self._placement.data_axis_size == 0)
+            self._tag_home(out)
+        return out
 
     def invoke_batched(self, frames: Sequence[Sequence[Any]],
                        bucket: int) -> List[List[Any]]:
@@ -627,9 +829,19 @@ class TorchCudaFilter(FilterSubplugin):
                 with self._batch_lock:
                     if self._program is p:
                         self._batch_fold[key] = verdict
-            if out is not None:
-                return out
-            return [self._run_alone(p, f) for f in frames]
+            folded = out is not None
+            if not folded:
+                out = [self._run_alone(p, f) for f in frames]
+        rp = self._placement
+        if rp is not None:
+            # window attribution: bucket slots over the local data shards
+            # (pads included — they burn device time)
+            self._record_mesh(slots=bucket, frames=n, local=True,
+                              sharded=folded
+                              and rp.window_sharding(bucket) is not None)
+            for o in out:
+                self._tag_home(o)
+        return out
 
     def _fold(self, p: _Program, frames: Sequence[Sequence[Any]],
               bucket: int, probe: bool):
@@ -642,8 +854,15 @@ class TorchCudaFilter(FilterSubplugin):
         window = [_stack_window([f[j] for f in frames], bucket, self.device)
                   for j in range(len(p.in_spec.tensors))]
         # the bucket's cost row, counted on its first (probe) dispatch
-        outs = self._capture(p.window_fn, *window, bucket=bucket) if probe \
-            else p.window_fn(*window)
+        try:
+            outs = self._capture(p.window_fn, *window, bucket=bucket) \
+                if probe else p.window_fn(*window)
+        except (RuntimeError, ValueError, TypeError, IndexError):
+            if not probe:
+                raise
+            # the fold itself breaks the model (a frame whose leading
+            # axis is not a batch): the window runs frame by frame
+            return None, False
         want = [(bucket * t.shape[0],) + tuple(t.shape[1:])
                 for t in p.out_spec.tensors]
         if [tuple(o.shape) for o in outs] != want:
@@ -762,19 +981,8 @@ class TorchCudaFilter(FilterSubplugin):
         wait for the device, so the flip inherits finished work."""
         p = shadow._program
         rng = np.random.default_rng(0)
-        pair = []
-        for _ in range(2):
-            frame = []
-            for t in p.in_spec.tensors:
-                dt = t.dtype.np_dtype
-                if np.issubdtype(dt, np.floating):
-                    a = rng.standard_normal(t.shape).astype(dt)
-                elif dt == np.bool_:
-                    a = rng.integers(0, 2, t.shape).astype(dt)
-                else:
-                    a = rng.integers(0, 100, t.shape).astype(dt)
-                frame.append(from_numpy(a, shadow.device))
-            pair.append(frame)
+        pair = [_seeded_inputs(p.in_spec, shadow.device, rng)
+                for _ in range(2)]
         outs = list(shadow.invoke(pair[0]))
         for b in buckets:
             window = [pair[0]] + [pair[1]] * (int(b) - 1)

@@ -33,10 +33,12 @@ The active layer feeds it too: the ``forecasts`` table (``obs/forecast.py``,
 filled by a running watchdog), the ``control`` table (``obs/control.py``),
 the ``profile`` table and the host-profiler families (``obs/prof.py``),
 ``/prof`` (the profiler's stacks), and ``/healthz``'s ``alerts``,
-``control``, ``capacity`` and ``prof`` sections.  Not in the port yet,
-and absent rather than stubbed: the snapshot's ``compiles`` (the port
-compiles no XLA programs), and ``mesh`` with the placement-overlap
-gauges (mesh placement, ``obs/meshstat.py``).
+``control``, ``capacity`` and ``prof`` sections.  The parallel layer
+feeds the ``mesh`` table (``obs/meshstat.py``: the ``nns_shard_imbalance``
+and ``nns_mesh_*`` families), the ``nns_placement_overlap`` gauges and
+the pool rows' ``placement``/``stage``/``mesh`` join (``nns_pool_shards``,
+``nns_pool_shard_imbalance``, ``nns_pool_pad_frac``).  Absent rather than
+stubbed: the snapshot's ``compiles`` (the port compiles no XLA programs).
 """
 
 from __future__ import annotations
@@ -199,6 +201,7 @@ class MetricsRegistry:
                  collect_transfers: bool = False,
                  collect_devices: bool = False,
                  collect_executables: bool = False,
+                 collect_mesh: bool = False,
                  collect_stages: bool = False,
                  collect_tenants: bool = False,
                  collect_prof: bool = False):
@@ -208,7 +211,7 @@ class MetricsRegistry:
         self._pipelines: Dict[int, Any] = {}  # id -> weakref.ref
         self._server = None
         # the LinkMetrics, TransferLedger, device-memory, XlaCostStats,
-        # stage and tenant stores are process-wide: only registries that
+        # MeshStats, stage and tenant stores are process-wide: only registries that
         # opt in — the global REGISTRY does — pull them, so a
         # private/test registry's exposition isn't polluted by unrelated
         # state.  The executables join is additionally STATEFUL
@@ -218,6 +221,7 @@ class MetricsRegistry:
         self._collect_transfers = bool(collect_transfers)
         self._collect_devices = bool(collect_devices)
         self._collect_executables = bool(collect_executables)
+        self._collect_mesh = bool(collect_mesh)
         self._collect_stages = bool(collect_stages)
         self._collect_tenants = bool(collect_tenants)
         self._collect_prof = bool(collect_prof)
@@ -310,7 +314,7 @@ class MetricsRegistry:
         metric samples are DERIVED from those tables — so the two
         views in one snapshot can never disagree, and the hot-path
         locks are not taken a second time.  Returns ``(tables, pools,
-        models, links, transfers, devmem, execs, stages, tenants,
+        models, links, transfers, devmem, execs, mesh, stages, tenants,
         fams)``."""
         fams: Dict[str, dict] = {}
         with self._lock:
@@ -324,6 +328,7 @@ class MetricsRegistry:
         devmem = _device_table() if self._collect_devices else []
         execs, exec_util = _executable_join() \
             if self._collect_executables else ([], [])
+        mesh = _mesh_table() if self._collect_mesh else []
         stages = _stage_table() if self._collect_stages else []
         tenants = _tenant_table() if self._collect_tenants else []
 
@@ -371,8 +376,14 @@ class MetricsRegistry:
             add(name, kind, help, labels, value)
         for name, kind, help, labels, value in _util_samples(exec_util):
             add(name, kind, help, labels, value)
+        for name, kind, help, labels, value in _mesh_samples(mesh):
+            add(name, kind, help, labels, value)
         for name, kind, help, labels, value in _stage_samples(stages):
             add(name, kind, help, labels, value)
+        if self._collect_stages:
+            for name, kind, help, labels, value \
+                    in _placement_overlap_samples():
+                add(name, kind, help, labels, value)
         for name, kind, help, labels, value in _tenant_samples(tenants):
             add(name, kind, help, labels, value)
         from .transfer import TRANSFER_SECONDS_BUCKETS
@@ -438,7 +449,7 @@ class MetricsRegistry:
                 "pressure proxy)", {},
                 float(_prof.PROFILER.gil_waiters))
         return (tables, pools, models, links, transfers, devmem, execs,
-                stages, tenants, fams)
+                mesh, stages, tenants, fams)
 
     def exposition(self) -> str:
         """Prometheus text exposition format 0.0.4."""
@@ -461,8 +472,8 @@ class MetricsRegistry:
         device-memory / executable / stage / tenant tables — all views
         derived from the same single read of the runtime state (see
         :meth:`_collect_all`)."""
-        (tables, pools, models, links, transfers, devmem, execs, stages,
-         tenants, fams) = self._collect_all()
+        (tables, pools, models, links, transfers, devmem, execs, mesh,
+         stages, tenants, fams) = self._collect_all()
         return {
             "version": SNAPSHOT_VERSION,
             "time": time.time(),
@@ -474,6 +485,7 @@ class MetricsRegistry:
             "transfers": transfers,
             "device_memory": devmem,
             "executables": execs,
+            "mesh": mesh,
             "stages": stages,
             "tenants": tenants,
             "forecasts": _forecast_table(),
@@ -642,6 +654,29 @@ def _pool_table() -> List[dict]:
                 # params footprint + placement of the pooled model —
                 # the nns_model_weight_bytes{pool,placement} gauge
                 row["weights"] = w
+        rp = getattr(entry, "placement", None)
+        if rp is not None:
+            # pool <-> mesh join: the entry's placement names the shard
+            # topology, the MESH_STATS row (keyed by the pooled model)
+            # how this pool's windows actually split
+            from .meshstat import MESH_STATS
+
+            row["placement"] = rp.describe()
+            # which explicit device subset ("0-3") this pool's stage
+            # runs on — "" for whole-inventory placements
+            row["stage"] = getattr(rp, "stage", "")
+            m = MESH_STATS.get(row.get("model", "")) or {}
+            sf = m.get("shard_frames") or []
+            total = sum(sf)
+            row["mesh"] = {
+                "shards": int(rp.data_axis_size),
+                "processes": int(rp.num_processes),
+                "max_shard_share": (max(sf) / total) if total else 0.0,
+                "imbalance": m.get("imbalance", 0.0),
+                "pad_frac": m.get("pad_frac", 0.0),
+                "replicated_dispatches": m.get(
+                    "replicated_dispatches", 0),
+            }
         b = _batcher_info(getattr(entry, "batcher", None))
         if b is not None:
             row["batcher"] = b
@@ -1066,6 +1101,53 @@ def _stage_table() -> List[dict]:
     return STAGE_STATS.snapshot()
 
 
+def _mesh_table() -> List[dict]:
+    from .meshstat import MESH_STATS
+
+    return MESH_STATS.snapshot()
+
+
+def _mesh_samples(mesh) -> Iterable[tuple]:
+    """Flat per-shard attribution samples derived from the structured
+    mesh table (same single-read rule as :func:`_pipeline_samples`)."""
+    from .meshstat import shard_device_label
+
+    for row in mesh:
+        labels = {"source": row["source"]}
+        yield ("nns_shard_imbalance", "gauge",
+               "per-shard useful-frame imbalance (max/mean - 1; 0.0 "
+               "on even splits)", labels, row["imbalance"])
+        yield ("nns_mesh_dispatches_total", "counter",
+               "dispatches issued over the mesh", labels,
+               row["dispatches"])
+        yield ("nns_mesh_pad_slots_total", "counter",
+               "micro-batch pad slots executed on the mesh (wasted "
+               "device time)", labels, row["pad_slots"])
+        yield ("nns_mesh_replicated_dispatches_total", "counter",
+               "mesh dispatches whose batch could not shard over the "
+               "data axis (input replicated onto every device)", labels,
+               row["replicated_dispatches"])
+        for i, n in enumerate(row["shard_frames"]):
+            yield ("nns_mesh_shard_frames_total", "counter",
+                   "useful frames attributed to one shard of the mesh",
+                   {**labels, "shard": str(i),
+                    "device": shard_device_label(row, i)}, n)
+
+
+def _placement_overlap_samples() -> Iterable[tuple]:
+    """``nns_placement_overlap`` gauges: one series per detected pair
+    of overlapping explicit ``devices=`` subsets (value = times the
+    overlapping resolution happened).  No series means no overlap."""
+    from ..parallel.placement import overlap_snapshot
+
+    for row in overlap_snapshot():
+        yield ("nns_placement_overlap", "gauge",
+               "explicit device subsets sharing devices (per-shard "
+               "attribution is unreliable while this fires)",
+               {"platform": row["platform"], "a": row["a"],
+                "b": row["b"], "shared": row["shared"]}, row["count"])
+
+
 def _stage_samples(stages) -> Iterable[tuple]:
     """Flat per-stage samples derived from the structured stages table
     (same single-read rule as :func:`_pipeline_samples`): the
@@ -1241,6 +1323,19 @@ def _pool_samples(pools) -> Iterable[tuple]:
             yield ("nns_model_weight_bytes", "gauge",
                    "params footprint of the pooled model",
                    {**labels, "placement": w["placement"]}, w["bytes"])
+        m = row.get("mesh")
+        if m is not None:
+            # pool-side view of the mesh join (the per-shard detail stays
+            # on the nns_mesh_* families keyed by model)
+            yield ("nns_pool_shards", "gauge",
+                   "data-parallel shards the pool window spreads over",
+                   labels, m["shards"])
+            yield ("nns_pool_shard_imbalance", "gauge",
+                   "max/mean-1 of useful frames across the pool's "
+                   "shards", labels, m["imbalance"])
+            yield ("nns_pool_pad_frac", "gauge",
+                   "fraction of the pool's window slots that were "
+                   "padding", labels, m["pad_frac"])
         yield from _cache_samples(labels, row.get("cache"))
         b = row.get("batcher")
         if b is not None:
@@ -1446,11 +1541,11 @@ class MetricsServer:
 
 #: the process-wide registry every Pipeline registers with on start();
 #: the only registry that pulls the (equally process-wide) link,
-#: transfer, device-memory, executable, stage and tenant stores
+#: transfer, device-memory, executable, mesh, stage and tenant stores
 REGISTRY = MetricsRegistry(collect_stages=True, collect_links=True,
                            collect_transfers=True, collect_devices=True,
-                           collect_executables=True, collect_tenants=True,
-                           collect_prof=True)
+                           collect_executables=True, collect_mesh=True,
+                           collect_tenants=True, collect_prof=True)
 
 
 # -- dispatch cost attribution (nns_invoke_*) ---------------------------------

@@ -7,9 +7,12 @@ Counterpart of the JAX package's ``obs/stagestat.py``:
   local — ``nns_cascade_offload_ratio`` is offloaded/total.
   ``tensor_if offload=`` records each routing decision here.
 - **handoff rows** (one per receiving stage filter): frames and exact
-  bytes that crossed INTO a stage from another device subset, and the
-  inter-stage depth.  :func:`record_handoff` is here with its export; it
-  has no caller until the port places stages on device subsets.
+  bytes that crossed INTO a stage from another device subset (the
+  canonical source/destination subset labels,
+  ``parallel.placement.subset_label``), and the inter-stage depth —
+  frames handed off but not yet emitted by the stage.  The filter's
+  stage ingress (``tensor_filter devices=``) records the handoff; the
+  stage's emit seams record the depth's decrement.
 
 Pulled by the metrics registry at scrape time: the snapshot's ``stages``
 table and the ``nns_stage_handoff_{bytes,frames}_total`` /

@@ -2,10 +2,11 @@
 parity for this runtime), fleet-capable.
 
 Counterpart of the JAX package's ``obs/top.py``, reading the same
-snapshot keys.  The MESH section waits for the port's mesh placement
-(``obs/meshstat.py``), and the port compiles no XLA programs, so there
-is no COMPILE section; LINK rows render from the edge links
-(``edge/``).
+snapshot keys.  The MESH section renders the ``mesh`` table
+(``obs/meshstat.py``: one row per data shard, its device, frames, share,
+imbalance, pad and replicated dispatches); the port compiles no XLA
+programs, so there is no COMPILE section; LINK rows render from the edge
+links (``edge/``).
 
 Renders, per registered pipeline, one row per element: frames/s in/out
 (counter deltas between two registry snapshots), queue depth/capacity,
@@ -327,6 +328,37 @@ def render(cur: dict, prev: Optional[dict] = None) -> str:
                 + _fmt(lat, 9, 0) + _fmt(row["errors"], 8)
                 + canary.rjust(8) + _fmt(row["load_s"], 8, 3)
                 + f"  {row.get('source', '')}"[:40])
+        lines.append("")
+    mesh = cur.get("mesh", [])
+    if mesh:
+        from .meshstat import shard_device_label
+
+        prev_mesh = {r["source"]: r for r in (prev or {}).get("mesh", [])}
+        lines.append(
+            f"{'MESH':<24}{'TOPOLOGY':<16}{'SHARD':>7}{'DEVICE':>22}"
+            f"{'FRAMES':>10}{'FRM/s':>9}{'SHARE%':>8}{'IMBAL':>8}"
+            f"{'PAD%':>7}{'REPL':>6}")
+        for row in mesh:
+            topo = ",".join(f"{n}:{s}" for n, s in row["axes"])
+            pv = prev_mesh.get(row["source"], {})
+            total = sum(row["shard_frames"]) or 1
+            psf = pv.get("shard_frames", [])
+            for i, n in enumerate(row["shard_frames"]):
+                dev = shard_device_label(row, i, empty="-")
+                frate = _rate(n, psf[i] if i < len(psf) else None, dt)
+                lines.append(
+                    (f"{row['source']:<24.24}" if i == 0
+                     else " " * 24)
+                    + (f"{topo:<16.16}" if i == 0 else " " * 16)
+                    + _fmt(i, 7) + dev[:22].rjust(22)
+                    + _fmt(n, 10) + _fmt(frate, 9, 0)
+                    + _fmt(n / total * 100.0, 8, 1)
+                    + (_fmt(row["imbalance"], 8, 3) if i == 0
+                       else "-".rjust(8))
+                    + (_fmt(row["pad_frac"] * 100.0, 7, 2) if i == 0
+                       else "-".rjust(7))
+                    + (_fmt(row["replicated_dispatches"], 6)
+                       if i == 0 else "-".rjust(6)))
         lines.append("")
     devmem = cur.get("device_memory", [])
     if devmem:

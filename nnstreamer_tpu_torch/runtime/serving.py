@@ -10,8 +10,12 @@ prediction-serving systems that share one model replica across request
 streams (Clipper, NSDI '17) coalesce at the MODEL, not the element:
 
 - :class:`ModelPool` — a process-wide table of opened sub-plugin
-  instances, ref-counted and keyed by ``(framework, model, device,
-  custom, forced specs, shared key)``.  N filters with
+  instances, ref-counted and keyed by ``(framework, model, placement,
+  custom, forced specs, shared key)``; the placement is the CANONICAL
+  key of ``parallel.Placement`` (``mesh=data:-1`` and ``mesh=data:8`` on
+  8 devices join one pool), and one model opened under two provably
+  different mesh placements raises :class:`PoolConflictError` (disjoint
+  ``devices=`` stage subsets may coexist).  N filters with
   ``share-model=true`` on the same model share ONE instance (one weight
   copy), opened by the framework's ``open_shared`` when the first
   sharer acquires the key and closed by ``close_shared`` when the last
@@ -58,7 +62,12 @@ bounded, reversible knobs (a ``max-batch`` actuation checks the fold of
 every bucket the new window can reach before the window may grow onto
 it); a window flush is the lock witness's dispatch fence; and each
 dispatch cycle is split into CPU, card wait and neither for the host
-profiler.  Not in this slice: placement over a mesh.
+profiler.
+
+Mesh-native pools: :attr:`PoolEntry.placement` is the pooled instance's
+resolved placement — the window divisibility rule, the shard count the
+obs layer attributes against and the multi-process fan-out all read it;
+the window stacks once and dispatches sharded (filters/torch_cuda.py).
 """
 
 from __future__ import annotations
@@ -75,7 +84,7 @@ from ..obs import tenantstat as _tenantstat
 from ..obs import transfer as _xfer
 from ..obs.tracer import TRACE_META_KEY
 from ..utils import lockdep as _lockdep
-from ..utils.device import device_key
+from ..utils.device import device_key, parse_accel_kind
 from ..utils.profile import GATE
 from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
 from .admission import (
@@ -253,6 +262,12 @@ class PoolEntry:
     def stream_ids(self) -> List[int]:
         with self._lock:
             return list(self._streams)
+
+    @property
+    def placement(self):
+        """The resolved placement (``parallel.ResolvedPlacement``) the
+        pooled sub-plugin runs over; None on a single-device pool."""
+        return getattr(self.subplugin, "_placement", None)
 
     def label(self) -> str:
         """Short pool label: ``framework:model-tail``."""
@@ -636,6 +651,9 @@ class PoolEntry:
         once a window at each such bucket (``TorchCudaFilter``
         ``check_buckets``).  A framework that keeps no verdicts has
         nothing to check."""
+        from ..filters.api import FilterError
+        from .actuators import ActuationError
+
         instances = [self.subplugin]
         lc = self._lifecycle
         if lc is not None and lc.canary_active:
@@ -643,7 +661,12 @@ class PoolEntry:
         for sp in instances:
             check = getattr(sp, "check_buckets", None)
             if check is not None:
-                check(buckets)
+                try:
+                    check(buckets)
+                except FilterError as e:
+                    # the instance closed under the actuation: stop()
+                    # won the race, a clean actuation failure
+                    raise ActuationError(f"{self.label()}: {e}") from e
 
     # -- the cross-stream dispatch -------------------------------------------
 
@@ -876,10 +899,42 @@ class ModelPool:
         with self._lock:
             entry = self._entries.get(key)
             if entry is None:
+                self._check_placement(key)
                 entry = PoolEntry(key, open_fn(), close_fn)
                 self._entries[key] = entry
             entry.refcount += 1
             return entry
+
+    def _check_placement(self, key: Tuple) -> None:
+        """Same model, DIFFERENT mesh placement: a second pool would
+        silently defeat the sharing the filter asked for (two weight
+        copies, two windows) — the pool-level conflict it is.  Only
+        mesh-keyed placements conflict: a ``raw`` key is an unresolvable
+        spec whose own configure error must surface, two ``device`` keys
+        differ legitimately, and disjoint ``devices=`` subsets are the
+        pipeline split (one pool per stage).  Equivalent spellings never
+        get here: they share one canonical key.  Caller holds the lock."""
+        base, pk = _key_base(key), _key_placement(key)
+        for other in self._entries.values():
+            ok = _key_placement(other.key)
+            kinds = {p[0] if isinstance(p, tuple) and p else "?"
+                     for p in (pk, ok)}
+            if "raw" in kinds or "mesh" not in kinds:
+                continue
+            if len(other.key) == len(key) and _key_base(other.key) == base \
+                    and ok != pk and not _disjoint_mesh_subsets(pk, ok):
+                raise PoolConflictError(
+                    f"share-model filters disagree on placement for "
+                    f"{key[0]}:{key[1]}: this open resolves to {pk!r} but "
+                    f"a live pool of the same model runs {ok!r} — "
+                    f"placement (mesh/sharding/devices/accelerator) is "
+                    f"pool-level for sharing filters; align the "
+                    f"properties, or stop the other sharers before "
+                    f"re-placing the model")
+
+    def get(self, key: Tuple) -> Optional[PoolEntry]:
+        with self._lock:
+            return self._entries.get(key)
 
     def release(self, entry: PoolEntry) -> None:
         close = False
@@ -912,16 +967,53 @@ class ModelPool:
 def pool_key(framework: str, props: Any) -> Tuple:
     """Build the ModelPool key from a framework name + FilterProps:
     everything that makes two opens non-interchangeable (model identity,
-    device, custom options, forced I/O specs, shared key).  Non-string
+    placement, custom options, forced I/O specs, shared key).  Non-string
     models (callables, ModelDef) key by object identity — two filters
-    share only when handed the very same object."""
+    share only when handed the very same object.
+
+    The placement is ``("device", <device>)`` without ``mesh=``, else the
+    CANONICAL key of ``parallel.Placement``: equivalent spellings
+    (``mesh=data:-1`` vs ``mesh=data:8`` on 8 devices, ``sharding=dp``
+    vs ``replicated``, ``accelerator=gpu`` vs ``true:cuda``) join ONE
+    pool."""
+    from ..parallel import Placement
+
     model = props.model
     mkey = model if isinstance(model, str) else f"obj:{id(model)}"
-    return (str(framework), mkey,
-            device_key(props.accelerator, props.device),
+    pl = Placement.from_props(props)
+    if pl.is_null:
+        where = ("device", device_key(props.accelerator, props.device))
+    else:
+        kind = parse_accel_kind(props.accelerator) or (
+            props.device.type if props.device is not None else "cuda")
+        where = pl.key(kind)
+    return (str(framework), mkey, where,
             str(props.custom or ""),
             str(props.input_spec or ""), str(props.output_spec or ""),
             str(props.shared_key or ""))
+
+
+def _disjoint_mesh_subsets(a, b) -> bool:
+    """Two canonical mesh keys (``("mesh", platform, axes, device-ids,
+    rules)``) name non-overlapping device subsets — the coexistence the
+    pipeline split runs on.  False for any shared device (or malformed
+    keys), which keeps the conflict error."""
+    try:
+        ida, idb = set(a[3]), set(b[3])
+    except Exception:  # noqa: BLE001 - malformed/foreign key: conflict
+        return False
+    return bool(ida) and bool(idb) and not (ida & idb)
+
+
+def _key_placement(key: Tuple):
+    """The placement component of a :func:`pool_key` tuple."""
+    return key[2] if len(key) > 2 else None
+
+
+def _key_base(key: Tuple) -> Tuple:
+    """A :func:`pool_key` tuple with the placement removed — the model
+    identity two conflicting placements collide on."""
+    return key[:2] + key[3:]
 
 
 #: the process-wide pool `tensor_filter share-model=true` attaches to

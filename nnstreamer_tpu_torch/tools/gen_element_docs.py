@@ -128,6 +128,25 @@ PROP_DOCS = {
         "`3:224:224:1`.",
     ("tensor_filter", "outputtype"): "Override model output types.",
     ("tensor_filter", "output"): "Override model output dimensions.",
+    ("tensor_filter", "mesh"): "Mesh placement: axis spec like "
+        "`data:4,model:2` (or `data:-1` to absorb every device) — the "
+        "invoke splits its batch over the `data` axis in contiguous rows "
+        "and runs each shard on its device. `dcn.`-prefixed leading "
+        "axes span the PROCESSES of a torch.distributed group "
+        "(`dcn.data:2,data:4` = 2 processes x 4 local devices, the "
+        "multi-process pool placement). Equivalent spellings resolve to "
+        "ONE canonical placement (parallel/placement.py), so `data:-1` "
+        "and `data:8` on 8 devices share pools and instances.",
+    ("tensor_filter", "sharding"): "Named parameter-layout rule set from "
+        "nnstreamer_tpu_torch.parallel.PARAM_RULES (e.g. `tp`: pointwise "
+        "convolutions and dense products split over `model`); requires "
+        "`mesh`. Alias names resolving to the same rules (`dp`/"
+        "`replicated`) are one canonical placement.",
+    ("tensor_filter", "devices"): "Device-index subset for `mesh` "
+        "(`0-3`, `4,5,6,7`): lays the mesh over those devices so two "
+        "filter stages occupy disjoint devices with a device-to-device "
+        "handoff between them (the pipeline split; requires `mesh`; not "
+        "combinable with `dcn.` axes).",
     ("tensor_filter", "batch"): "Dynamic micro-batching window: coalesce "
         "up to this many in-flight buffers into ONE program call "
         "(1 = off, the unbatched hot path). Put a `queue` in front so "

@@ -46,6 +46,13 @@ description in a child opens no CUDA context.  MQTT on the card:
 ``mqttsink`` drains each card tensor once (one d2h a tensor), and a
 ``connect-type=hybrid`` query link found through the broker serves card
 frames with and without the device channel.
+The parallel layer on the card, over 8 virtual device records laid over
+the one card: the ViT (bf16, the attention kernel on each shard's batch
+slice) and the SSD (f32, TF32 off, the fused ``scale_bias_cast``
+prologue) sharded over ``data:4`` and ``data:2,model:2`` against the
+unsharded invoke — logits within 5e-2 at bf16 and 1e-4 at f32,
+detections equal — each kernel launched once per shard; and
+``stage_handoff`` keeping a card frame on the card with one ``d2d`` row.
 """
 
 import os
@@ -1544,3 +1551,127 @@ def test_hybrid_query_link_on_card(card, devch):
         assert st["deposits"] == st["takes"] == 12 and st["evicted"] == 0
     else:
         assert (d2h[0], h2d[0]) == (12, 6) and st["deposits"] == 0
+
+
+# -- the parallel layer on the card -----------------------------------------
+
+
+@pytest.fixture
+def virtual_cards(card):
+    from nnstreamer_tpu_torch.parallel import mesh
+
+    mesh.set_virtual_devices(8, "cuda")
+    yield card
+    mesh.clear_virtual_devices()
+
+
+@pytest.mark.parametrize("placement", ["mesh=data:4", "mesh=data:8"])
+def test_sharded_vit_equals_unsharded_on_card(virtual_cards, placement):
+    """A window of 8 ViT frames: one attention launch a layer per shard,
+    each shard's qkv rows through the kernel, logits within 5e-2 (bf16)
+    of the unsharded window."""
+    from nnstreamer_tpu_torch.elements.filter import FilterSingle
+    from nnstreamer_tpu_torch.filters import unregister_model
+    from nnstreamer_tpu_torch.models import register_vit
+
+    register_vit("cuda_mesh_vit", batch=1, image_size=32, patch=8, dim=256,
+                 depth=2, heads=2, mlp_dim=128, num_classes=10)
+    try:
+        frames = [[torch.from_numpy(np.random.default_rng(i).standard_normal(
+            (1, 32, 32, 3)).astype(np.float32)).cuda()] for i in range(8)]
+        plain = FilterSingle(framework="torch-cuda", model="cuda_mesh_vit")
+        meshed = FilterSingle(framework="torch-cuda", model="cuda_mesh_vit",
+                              mesh=placement.split("=")[1])
+        shards = len(meshed.subplugin._placement.groups)
+        want = plain.subplugin.invoke_batched(frames, 8)
+        meshed.subplugin.invoke_batched(frames, 8)  # the fold probe
+        n0 = kernels.flash_attention.launches
+        got = meshed.subplugin.invoke_batched(frames, 8)
+        torch.cuda.synchronize()
+        assert kernels.flash_attention.launches - n0 == 2 * shards
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a[0], b[0], rtol=5e-2, atol=5e-2)
+    finally:
+        unregister_model("cuda_mesh_vit")
+
+
+@pytest.mark.parametrize("placement", [dict(mesh="data:4"),
+                                       dict(mesh="data:2,model:2",
+                                            sharding="tp")])
+def test_sharded_ssd_equals_unsharded_on_card(virtual_cards, placement):
+    """The SSD at f32 (TF32 off) behind the fused normalize prologue:
+    sharded raw heads within 1e-4 of the unsharded ones, the prologue
+    kernel launched once per data shard."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.filters import register_model, \
+        unregister_model
+    from nnstreamer_tpu_torch.models import convert
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = convert.ssd_from_jax(convert.ssd_mobilenet_v2_init(0, 5))
+    register_model("cuda_mesh_ssd", lambda m, x: m(x, dtype=torch.float32),
+                   params=model, in_shapes=[(8, 64, 64, 3)])
+    x = np.random.default_rng(1).integers(0, 255, (8, 64, 64, 3),
+                                          dtype=np.uint8)
+
+    def run(**kw):
+        props = " ".join(f"{k}={v}" for k, v in kw.items())
+        p = parse_launch(
+            "appsrc name=src ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 backend=cuda ! "
+            "tensor_filter "
+            f"framework=torch-cuda model=cuda_mesh_ssd {props} ! "
+            "appsink name=out")
+        p["src"].spec = TensorsSpec.from_shapes([x.shape], np.uint8)
+        with p:
+            # the second frame's launches: the first pays the build
+            p["src"].push_buffer(Buffer.of(x))
+            assert p["out"].pull(timeout=120) is not None
+            n0 = kernels.scale_bias_cast.launches
+            p["src"].push_buffer(Buffer.of(x))
+            out = p["out"].pull(timeout=120)
+            p["src"].end_of_stream()
+            torch.cuda.synchronize()
+            return out, kernels.scale_bias_cast.launches - n0
+
+    try:
+        want, _ = run()
+        got, launches = run(**placement)
+        shards = 2 if "model" in placement["mesh"] else 4
+        assert launches == shards
+        for a, b in zip(got.tensors, want.tensors):
+            torch.testing.assert_close(a.torch(), b.torch(), rtol=1e-4,
+                                       atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        unregister_model("cuda_mesh_ssd")
+
+
+def test_stage_handoff_on_card(virtual_cards):
+    """A card frame handed to another device record's stage stays on the
+    card: a fresh copy, one d2d/handoff row of its bytes, no host
+    crossing."""
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.edge import devicechannel as devch
+    from nnstreamer_tpu_torch.obs import transfer as xfer
+    from nnstreamer_tpu_torch.parallel import mesh
+
+    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+    target = mesh.local_devices("cuda")[4]
+    t0 = xfer.LEDGER.totals(direction="d2d", reason="handoff")
+    h0 = xfer.LEDGER.totals(direction="d2h")[0] + \
+        xfer.LEDGER.totals(direction="h2d")[0]
+    out = devch.stage_handoff(Buffer.of(x), target, chan=("stage", "c"))
+    y = out.tensors[0].torch()
+    t1 = xfer.LEDGER.totals(direction="d2d", reason="handoff")
+    h1 = xfer.LEDGER.totals(direction="d2h")[0] + \
+        xfer.LEDGER.totals(direction="h2d")[0]
+    assert y.is_cuda and out.residency == "device"
+    assert y.data_ptr() != x.data_ptr() and torch.equal(y, x)
+    assert mesh.device_ids_of(y) == (4,)
+    assert (t1[0] - t0[0], t1[1] - t0[1]) == (1, 4096) and h1 == h0

@@ -6,6 +6,7 @@ dies, the subscriber's re-dial loop fails until its breaker opens, the
 publisher is back at +0.5 s, and the ``breaker-open`` rule's playbook
 forces the half-open probe before the open window ends."""
 
+import gc
 import threading
 import time
 
@@ -30,6 +31,11 @@ BACK_AFTER_S = 0.5  # the publisher returns (the script's is 1 s)
 
 @pytest.fixture(autouse=True)
 def _clean():
+    # a stopped edgesrc of an earlier test in this process keeps its
+    # retry policy (the registry holds them weakly) until the cyclic
+    # collector frees its pipeline: collect, so only this test's links
+    # are live
+    gc.collect()
     LinkMetrics.clear_all()
     yield
     LinkMetrics.clear_all()

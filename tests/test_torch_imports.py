@@ -76,6 +76,9 @@ def test_port_imports_with_jax_blocked():
                 "analyze.ctlplaybooks", "analyze.pipelines", "check",
                 "tools", "tools.gen_element_docs",
                 "tools.pipeline_convert", "tools.gen_custom_filter",
+                "parallel", "parallel.mesh", "parallel.sharded",
+                "parallel.placement", "parallel.multihost",
+                "parallel.collectives", "obs.meshstat",
                 "edge", "edge.wire", "edge.ntputil", "edge.devicechannel",
                 "edge.transport", "edge.query", "edge.mqtt",
                 "edge.grpc_bridge"):

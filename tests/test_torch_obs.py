@@ -269,17 +269,17 @@ def test_snapshot_and_exposition_carry_element_stats(P):
 
 def test_port_snapshot_tables():
     """The port's snapshot keeps the JAX package's keys for every table
-    it has; the tables of later slices (mesh placement, XLA compiles)
-    are absent, not stubbed."""
+    it has, the ``mesh`` table included; the XLA compile table is absent,
+    not stubbed (the port compiles no XLA programs)."""
     snap = tobs.REGISTRY.snapshot()
     jsnap = jobs.REGISTRY.snapshot()
     assert snap["version"] == jsnap["version"]
     assert set(snap) == {"version", "time", "host", "pipelines", "pools",
                          "models", "links", "transfers", "device_memory",
-                         "executables", "stages", "tenants", "forecasts",
-                         "control", "profile", "metrics"}
+                         "executables", "mesh", "stages", "tenants",
+                         "forecasts", "control", "profile", "metrics"}
     assert set(snap) <= set(jsnap)
-    assert set(jsnap) - set(snap) == {"compiles", "mesh"}
+    assert set(jsnap) - set(snap) == {"compiles"}
     for table in ("forecasts", "control", "profile"):
         assert set(snap[table]) == set(jsnap[table]), table
     json.dumps(snap)
