@@ -11,6 +11,8 @@
     python3 chip_smoke.py --repairs                   # build + phase 16 only
     python3 chip_smoke.py --edge                      # build + phase 17 only
     python3 chip_smoke.py --mqtt                      # build + phase 18 only
+    python3 chip_smoke.py --parallel                  # build + phase 19 only
+    python3 chip_smoke.py --training                  # build + phase 20 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -383,7 +385,40 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    and the pool at ``mesh=dcn.data:1,data:-1``; the two-rank world runs
    only in the CPU tests (gloo).  (e) The analyzer over phase 19's
    descriptions: 0 errors;
-20. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+20. in-pipeline training (``nnstreamer_tpu_torch/trainers/``,
+   ``tensor_trainer``).  (a) MobileNetV1 at full width (1.0, 224x224x3
+   uint8 samples, 1001 classes, bf16 compute on f32 leaves) trained from
+   seed 0 on 1024 seeded samples that ``datareposink`` wrote: ``datareposrc
+   epochs=2 ! tensor_demux`` → the image through ``tensor_transform
+   backend=cuda`` (the normalize kernel; a transform converts every
+   tensor of a buffer, so the int32 label goes round it) → ``tensor_mux``
+   → ``tensor_trainer framework=torch-optim`` (sgd, lr 1e-2, batch 128,
+   ``mesh=data:-1``, i.e. ``data:1``) → ``appsink``: 16 steps, each loss
+   finite, 2 epoch events and 1 completion, 2048 (1,5) float64 status
+   buffers, ``scale_bias_cast`` once a sample and ``flash_attention``
+   never; it prints the step time p50/p90 split into forward, backward
+   and update (CUDA events), samples/s over an epoch, the device busy
+   share and top rows over a 3-step ``torch.profiler`` window, the peak
+   card memory and each epoch's loss; then the same step again alone on
+   one batch already on the card (no data path beside it); the kernel
+   against its plain version at the path's shape; the saved ``.pkl`` through
+   ``FilterSingle`` bit-equal to ``mobilenet_v1_tree_apply`` of its tree.
+   (b) Three ``train_step`` steps of sgd, adam and adamw on the card
+   against the CPU (width 0.25, 32x32, batch 16, f32, TF32 off, lr
+   1e-4): the first loss within rtol 1e-4, the later ones 5e-3, leaves
+   within 20·lr (ReLU6 elements at a clip boundary flip between the two
+   devices' roundings: ``tests/test_torch_training.py``); the share of
+   leaf entries within 1e-6 and the largest bf16 loss difference
+   printed.  (c) ``tests/test_training.py``'s
+   learnable toy on the card: the epoch losses fall.  (d) (a)'s tree as
+   step 16 of a checkpoint root (``save_step``), staged as ``root@latest``
+   into a share-model MobileNetV1 pool serving the untrained tree and
+   committed: version tag ``16``, every frame after the flip with the
+   trained model's label (logits within 1e-4 of it alone); the staging
+   seconds and the flip stall printed.  (e) Both kernels' wrappers refuse
+   a card input that requires grad and launch under ``no_grad``.  (f) The
+   analyzer over phase 20's descriptions: 0 errors;
+21. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -395,9 +430,9 @@ unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
 line); ``--elements``, ``--obs``, ``--control``, ``--repairs``,
-``--edge``, ``--mqtt`` and ``--parallel`` do the same for phases 13,
-14, 15, 16, 17, 18 and 19 (phase 16 alone analyzes only its own
-descriptions).
+``--edge``, ``--mqtt``, ``--parallel`` and ``--training`` do the same
+for phases 13, 14, 15, 16, 17, 18, 19 and 20 (phase 16 alone analyzes
+only its own descriptions).
 """
 
 from __future__ import annotations
@@ -5239,7 +5274,6 @@ def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
                                        during_fn=(lambda: during_fn(rig))
                                        if during_fn else None)
         adm = rig.entry.admission
-        shed = adm.total_shed if adm is not None else 0
     finally:
         rig.stop()
         gc.unfreeze()
@@ -5248,7 +5282,10 @@ def ctl_script(name, card, power, rig_kw, jax_rate, chaos_spec, rules,
     row["gc"] = {"heap_objects": heap, "full_collect_s": full_collect_s,
                  **pauses.summary()}
     # rig.stop() unwound the pool before the check: its flush delivered
-    # every parked frame
+    # every parked frame, and the pumps pushed their last frames, so the
+    # shed count is read only now (read before the stop, a frame shed
+    # after the read counted as lost)
+    shed = adm.total_shed if adm is not None else 0
     row["frames"] = rig.check_streams(shed)
     row["capacity_fps"] = cap
     row["offered_fps"] = rate
@@ -5845,6 +5882,8 @@ def repairs_prefetch(frames, card: str, power: str):
 
     from torch.profiler import ProfilerActivity, profile
 
+    from nnstreamer_tpu_torch.utils.profile import GATE, stop_when_quiescent
+
     p = parse_launch(prefetch_pipe("true", n), device="cuda")
     p["src"].frames = frames
     p["src"].pool_size = len(frames)
@@ -5854,14 +5893,15 @@ def repairs_prefetch(frames, card: str, power: str):
     first, last = PREFETCH_PROFILED
 
     def profiled(b):
-        # start/stop on the streaming thread (see steady_profile)
+        # start/stop with no other thread inside a torch op: the filter
+        # launches on the thread ahead of the queue (utils/profile.py)
         seen[0] += 1
         if seen[0] == first:
-            prof.start()
+            GATE.hold(prof.start, 60.0)
             host.append(time.perf_counter())
         elif seen[0] == last:
             host.append(time.perf_counter())
-            prof.stop()
+            stop_when_quiescent(prof.stop, 60.0)
         render(b)
 
     sink.render = profiled
@@ -7827,6 +7867,676 @@ def phase_parallel(card: str, power: str, phase8_fps=None):
     return res
 
 
+# -- phase 20: in-pipeline training ------------------------------------------
+
+TRAIN_DEVICE = "cuda"      # the pipelines' device (a CPU dry run: cpu)
+TRAIN_SAMPLES = 1024       # (a): seeded uint8 samples in the dataset
+TRAIN_SIZE = 224
+TRAIN_CLASSES = 1001
+TRAIN_WIDTH = 1.0
+TRAIN_EPOCHS = 2
+TRAIN_BATCH = 128          # 2 epochs of 8 steps
+TRAIN_LR = 1e-2
+TRAIN_PROFILED = (8, 11)   # (a): steps [8, 11) inside torch.profiler
+TRAIN_ALONE_STEPS = 6      # (a): the step again, alone, on a card batch
+TRAIN_ROWS = 8             # (a): the profile's top device rows printed
+#: (b): the card's step against the CPU's (tests/test_torch_training.py's
+#: sizes and lr): the first loss rtol, the later losses rtol, the leaves
+#: atol (about 3x the largest card reading, 3.2e-5), and each leaf's
+#: update gap ||Δcard − Δcpu|| / ||Δcpu|| by optimizer (the test's limits
+#: against the JAX step)
+TRAIN_SMALL = dict(width=0.25, size=32, classes=10, batch=16, lr=1e-4)
+TRAIN_SMALL_TOL = dict(first_loss=1e-4, loss=5e-3, leaf=1e-4,
+                       update_gap={"sgd": 0.1, "adam": 0.4, "adamw": 0.4})
+TRAIN_SERVE_FRAMES = 32    # (d): frames each serving leg sees
+TRAIN_WRITE_PIPE = ("appsrc name=src ! datareposink name=sink "
+                    "location={data} json={js}")
+TRAIN_PIPE = (
+    "tensor_mux name=m ! tensor_trainer name=trn framework=torch-optim "
+    "num-inputs=1 num-labels=1 num-training-samples={n} epochs={epochs} "
+    "model-save-path={save} ! appsink name=out max-buffers={sink} "
+    "datareposrc name=src location={data} json={js} epochs={epochs} "
+    "is-shuffle=false ! tensor_demux name=d tensorpick=0,1 "
+    "d.src_0 ! tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! m.sink_0 d.src_1 ! m.sink_1")
+TRAIN_TOY_PIPE = (
+    "appsrc name=src ! tensor_trainer name=trn framework=torch-optim "
+    "num-inputs=1 num-labels=1 num-training-samples=32 epochs=3 ! "
+    "appsink name=out max-buffers=128")
+TRAIN_SERVE_PIPE = (
+    "appsrc name=src ! tensor_transform name=norm mode=arithmetic "
+    "option={norm} backend=cuda ! tensor_filter name={name} "
+    "framework=torch-cuda model={model}{props} ! appsink name=out "
+    "max-buffers={sink}")
+
+
+def train_dataset(root: str):
+    """(a)'s dataset through ``datareposink``: TRAIN_SAMPLES seeded uint8
+    (1,S,S,3) samples with int32 labels in [0, TRAIN_CLASSES).  Returns
+    the two paths and the first TRAIN_SERVE_FRAMES samples."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    data = os.path.join(root, "train.dat")
+    js = os.path.join(root, "train.json")
+    p = parse_launch(TRAIN_WRITE_PIPE.format(data=data, js=js),
+                     device="cpu")
+    s = TRAIN_SIZE
+    p["src"].spec = TensorsSpec.parse(f"3:{s}:{s}:1,1:1", "uint8,int32")
+    rng = np.random.default_rng(SEED)
+    kept = []
+    with p:
+        for i in range(TRAIN_SAMPLES):
+            x = rng.integers(0, 256, (1, s, s, 3), dtype=np.uint8)
+            y = rng.integers(0, TRAIN_CLASSES, (1, 1), dtype=np.int32)
+            p["src"].push_buffer(Buffer.of(x, y))
+            if i < TRAIN_SERVE_FRAMES:
+                kept.append(x)
+        p["src"].end_of_stream()
+        if not p.wait_eos(timeout=600):
+            raise RuntimeError("training: the dataset writer reached no EOS")
+    return data, js, kept
+
+
+def _norm_fold():
+    """The transform's folded (scale, bias-over-scale) for NORM on uint8,
+    as its kernel path computes them."""
+    from nnstreamer_tpu_torch.core.types import DType
+    from nnstreamer_tpu_torch.elements.transform import (_fold_affine,
+                                                         parse_arith_ops)
+
+    a, b, _ = _fold_affine(parse_arith_ops(NORM), DType.UINT8)
+    return a, b / a
+
+
+def _percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def train_full_width(root: str, data: str, js: str, kept, card: str,
+                     power: str):
+    """20a: MobileNetV1 at full width trained through ``datareposrc !
+    (demux: the image through the CUDA normalize, the label as it is;
+    mux) ! tensor_trainer``, 2 epochs at batch 128."""
+    import pickle
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import nnstreamer_tpu_torch.parallel as par
+    from nnstreamer_tpu_torch.elements.filter import FilterSingle
+    from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.runtime import parse_launch
+    from nnstreamer_tpu_torch.utils.profile import GATE, stop_when_quiescent
+
+    on_card = TRAIN_DEVICE == "cuda"
+    # training under cuDNN's defaults; the bit-for-bit check below under
+    # deterministic algorithms (earlier phases leave them set)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    save = os.path.join(root, "mnv1.pkl")
+    p = parse_launch(TRAIN_PIPE.format(
+        n=TRAIN_SAMPLES, epochs=TRAIN_EPOCHS, save=save, data=data, js=js,
+        norm=NORM, sink=TRAIN_SAMPLES * TRAIN_EPOCHS + 8),
+        device=TRAIN_DEVICE)
+    # a dict model-config does not fit in a launch string: set before start
+    p["trn"].model_config = {
+        "apply": "nnstreamer_tpu_torch.models.convert:"
+                 "mobilenet_v1_tree_apply",
+        "init": lambda seed: mobilenet_v1_init(seed, TRAIN_CLASSES,
+                                               TRAIN_WIDTH),
+        "seed": SEED, "batch_size": TRAIN_BATCH, "optimizer": "sgd",
+        "lr": TRAIN_LR, "mesh": "data:-1"}
+    steps, losses, prof_box, events = [], [], {}, []
+
+    class Profiled:
+        """The trainer's step with the profiler window and the loss log
+        around each call, on the trainer's worker thread; the profiler
+        starts and stops with no other thread inside a torch op (the
+        streaming thread launches the normalize meanwhile:
+        utils/profile.py).  Every attribute is the step's."""
+
+        def __init__(self, step):
+            self.step = step
+
+        def __getattr__(self, name):
+            return getattr(self.step, name)
+
+        def __call__(self, *args):
+            step = self.step
+            if step.steps == TRAIN_PROFILED[0] and on_card:
+                prof_box["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                GATE.hold(prof_box["prof"].start, 60.0)
+                prof_box["t0"] = time.perf_counter()
+            out = step(*args)
+            losses.append(float(step.last_loss))
+            if step.steps == TRAIN_PROFILED[1] and "prof" in prof_box:
+                torch.cuda.synchronize()
+                prof_box["wall_ms"] = (time.perf_counter()
+                                       - prof_box["t0"]) * 1e3
+                stop_when_quiescent(prof_box["prof"].stop, 60.0)
+            return out
+
+    real = par.train_step
+
+    def recording(*args, **kw):
+        step, params, opt_state = real(*args, **kw)
+        step.record_events = on_card
+        steps.append(step)
+        return Profiled(step), params, opt_state
+
+    p.bus.add_watch(lambda m: events.append((time.perf_counter(),
+                                             dict(m.data)))
+                    if isinstance(m.data, dict) and "event" in m.data
+                    else None)
+    _par_zero()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    par.train_step = recording
+    t0 = time.perf_counter()
+    statuses = []
+    try:
+        p.start()
+        if not p.wait_eos(timeout=900):
+            raise RuntimeError("training (a): no EOS within 900 s")
+        while True:
+            b = p["out"].pull(timeout=0.5)
+            if b is None:
+                break
+            statuses.append(b)
+    finally:
+        p.stop()
+        par.train_step = real
+        torch.backends.cudnn.deterministic = True
+    wall_s = time.perf_counter() - t0
+    launches = _par_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20 if on_card \
+        else float("nan")
+    if p.error is not None:
+        raise RuntimeError(f"training (a): pipeline error {p.error}")
+    # -- holds ------------------------------------------------------------
+    n_steps = TRAIN_EPOCHS * -(-TRAIN_SAMPLES // TRAIN_BATCH)
+    if len(steps) != 1 or steps[0].steps != n_steps:
+        raise RuntimeError(f"training (a): {len(steps)} step builds, "
+                           f"{steps[0].steps if steps else 0} steps, not "
+                           f"{n_steps}")
+    if steps[0].device.type != TRAIN_DEVICE:
+        raise RuntimeError(f"training (a): the step ran on "
+                           f"{steps[0].device}")
+    if len(losses) != n_steps or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"training (a): step losses {losses}")
+    kinds = Counter(e["event"] for _, e in events)
+    if kinds != Counter({"epoch-completion": TRAIN_EPOCHS,
+                         "training-completion": 1}) or any(
+            "error" in e for _, e in events):
+        raise RuntimeError(f"training (a): events {events}")
+    n_status = TRAIN_SAMPLES * TRAIN_EPOCHS
+    bad = [b for b in statuses
+           if b.num_tensors != 1 or b.tensors[0].shape != (1, 5)
+           or b.tensors[0].dtype.np_dtype != np.float64]
+    if len(statuses) != n_status or bad:
+        raise RuntimeError(f"training (a): {len(statuses)} status buffers "
+                           f"({len(bad)} not one (1,5) float64), not "
+                           f"{n_status}")
+    sbc = launches["scale_bias_cast"]
+    if on_card and not n_status <= sbc <= n_status + 2 or \
+            launches["flash_attention"]:
+        raise RuntimeError(f"training (a): launches {launches}, want "
+                           f"scale_bias_cast one a sample ({n_status}) and "
+                           f"no flash_attention")
+    epoch_t = [t for t, e in events if e["event"] == "epoch-completion"]
+    epoch_losses = [e["training_loss"] for _, e in events
+                    if e["event"] == "epoch-completion"]
+    samples_per_s = TRAIN_SAMPLES / (epoch_t[1] - epoch_t[0])
+    split = steps[0].timings()[1:] if on_card else []
+    res = {"wall_s": wall_s, "steps": n_steps, "step_losses": losses,
+           "epoch_losses": epoch_losses,
+           "samples_per_s_epoch2": samples_per_s,
+           "samples_per_s_epoch1": TRAIN_SAMPLES / (epoch_t[0] - t0),
+           "peak_mib": peak_mib, "launches": launches,
+           "status_buffers": len(statuses)}
+    if split:
+        for i, part in enumerate(("forward", "backward", "update")):
+            ms = [s[i] for s in split]
+            res[f"{part}_ms_p50"] = _percentile(ms, 0.5)
+            res[f"{part}_ms_p90"] = _percentile(ms, 0.9)
+        tot = [sum(s) for s in split]
+        res["step_ms_p50"] = _percentile(tot, 0.5)
+        res["step_ms_p90"] = _percentile(tot, 0.9)
+        res["first_step_ms"] = sum(steps[0].timings()[0])
+    prof = prof_box.get("prof")
+    if prof is not None:
+        busy, span, _ = device_busy(prof.events())
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.self_device_time_total, reverse=True)
+        if busy <= 0 or not rows:
+            print("training (a) profile: torch.profiler recorded no device "
+                  "kernels; busy share not measured", flush=True)
+        else:
+            res["profile"] = {"busy_ms": busy, "span_ms": span,
+                              "wall_ms": prof_box["wall_ms"],
+                              "busy_share": busy / prof_box["wall_ms"]}
+            for e in rows[:TRAIN_ROWS]:
+                print(f"training (a) profile: "
+                      f"{e.self_device_time_total / 1e3:9.3f} ms "
+                      f"{e.self_device_time_total / 1e3 / busy:6.1%} "
+                      f"n={e.count:5d} {e.key[:100]}", flush=True)
+    # -- the path's kernel against its plain version, at the path's shape -
+    a, b = _norm_fold()
+    x0 = torch.from_numpy(kept[0]).to(TRAIN_DEVICE)
+    with torch.no_grad():
+        y0 = kernels.scale_bias_cast(x0, a, b)
+    res["max_abs_err"] = float((y0 - kernels.scale_bias_cast_reference(
+        x0, a, b)).abs().max())
+    if res["max_abs_err"] > 0:
+        raise RuntimeError(f"training (a): scale_bias_cast differs from its "
+                           f"plain version by {res['max_abs_err']}")
+    # -- the saved model served: logits bit for bit ----------------------
+    with open(save, "rb") as f:
+        blob = pickle.load(f)
+    tree = blob["params"]
+    xs = torch.cat([kernels.scale_bias_cast_reference(
+        torch.from_numpy(k).to(TRAIN_DEVICE), a, b) for k in kept[:8]])
+    fs = FilterSingle(framework="torch-cuda", model=save,
+                      device=TRAIN_DEVICE)
+    try:
+        got = fs.invoke([xs])[0]
+    finally:
+        fs.close()
+
+    def placed(t):
+        if isinstance(t, dict):
+            return {k: placed(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [placed(v) for v in t]
+        return torch.from_numpy(t).to(TRAIN_DEVICE)
+
+    with torch.no_grad():
+        want = mobilenet_v1_tree_apply(placed(tree), xs)
+    if not torch.equal(got, want):
+        raise RuntimeError(f"training (a): the saved model's logits differ "
+                           f"from mobilenet_v1_tree_apply by "
+                           f"{float((got - want).abs().max())}")
+    # -- the same step alone: one batch already on the card, no data path
+    # beside it (its first step discarded) — what the pipeline's
+    # streaming thread costs the step
+    rs = np.random.default_rng(SEED + 1)
+    xb = torch.from_numpy(rs.standard_normal(
+        (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.float32)).to(
+        TRAIN_DEVICE)
+    yb = torch.from_numpy(rs.integers(0, TRAIN_CLASSES, TRAIN_BATCH).astype(
+        np.int32)).to(TRAIN_DEVICE)
+    step = steps[0]
+    step.events.clear()
+    torch.backends.cudnn.deterministic = False
+    params, opt_state = step.params, step.opt_state
+    t1 = time.perf_counter()
+    for _ in range(TRAIN_ALONE_STEPS):
+        params, opt_state, loss = step(params, opt_state, xb, yb)
+        float(loss)     # the trainer reads each loss too
+    res["alone_host_ms"] = (time.perf_counter() - t1) * 1e3 \
+        / TRAIN_ALONE_STEPS
+    alone = step.timings()[1:]
+    if alone:
+        for i, part in enumerate(("forward", "backward", "update")):
+            res[f"alone_{part}_ms_p50"] = _percentile(
+                [a[i] for a in alone], 0.5)
+        res["alone_step_ms_p50"] = _percentile([sum(a) for a in alone],
+                                               0.5)
+    torch.backends.cudnn.deterministic = det
+    res["tree"] = tree
+    msg = (f"training (a): MobileNetV1 w{TRAIN_WIDTH} {TRAIN_SIZE}x"
+           f"{TRAIN_SIZE} {TRAIN_CLASSES} classes, {TRAIN_SAMPLES} samples x "
+           f"{TRAIN_EPOCHS} epochs at batch {TRAIN_BATCH}: {n_steps} steps, "
+           f"every loss finite, epoch losses {epoch_losses}, "
+           f"{len(statuses)} (1,5) f64 status buffers, "
+           f"{TRAIN_EPOCHS} epoch events + 1 completion; samples/s "
+           f"{samples_per_s:.1f} (epoch 2), {res['samples_per_s_epoch1']:.1f}"
+           f" (epoch 1, with the first step's warm-up); peak card memory "
+           f"{peak_mib:.1f} MiB; launches {launches}; scale_bias_cast at "
+           f"{tuple(x0.shape)} uint8 vs plain {res['max_abs_err']}; the "
+           f"saved .pkl through FilterSingle bit-equal to "
+           f"mobilenet_v1_tree_apply on 8 frames")
+    if split:
+        msg += (f"; step ms p50/p90 (steps 2-{n_steps}, CUDA events): "
+                f"forward {res['forward_ms_p50']:.3f}/"
+                f"{res['forward_ms_p90']:.3f}, backward "
+                f"{res['backward_ms_p50']:.3f}/{res['backward_ms_p90']:.3f}, "
+                f"update {res['update_ms_p50']:.3f}/"
+                f"{res['update_ms_p90']:.3f}, whole "
+                f"{res['step_ms_p50']:.3f}/{res['step_ms_p90']:.3f}; first "
+                f"step {res['first_step_ms']:.3f}; the step alone on a card "
+                f"batch (p50 of {TRAIN_ALONE_STEPS - 1}): forward "
+                f"{res['alone_forward_ms_p50']:.3f}, backward "
+                f"{res['alone_backward_ms_p50']:.3f}, update "
+                f"{res['alone_update_ms_p50']:.3f}, whole "
+                f"{res['alone_step_ms_p50']:.3f} ms (host "
+                f"{res['alone_host_ms']:.3f} ms a step)")
+    if "profile" in res:
+        pr = res["profile"]
+        msg += (f"; steps {TRAIN_PROFILED[0] + 1}-{TRAIN_PROFILED[1]} "
+                f"profiled: device busy {pr['busy_ms']:.3f} ms of "
+                f"{pr['wall_ms']:.3f} ms wall (busy share "
+                f"{pr['busy_share']:.3f}), kernel span {pr['span_ms']:.3f} ms")
+    print(msg + f" [{card}, {power}]", flush=True)
+    return res
+
+
+def train_card_vs_cpu(card: str, power: str):
+    """20b: three train_step steps of each optimizer on the card and on
+    the CPU (width 0.25, 32x32, 10 classes, batch 16, f32, TF32 off)."""
+    import functools
+
+    import torch
+
+    from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.parallel import mesh as M
+    from nnstreamer_tpu_torch.parallel.sharded import (train_step,
+                                                       trained_tree)
+    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+    sm = TRAIN_SMALL
+    rng = np.random.default_rng(SEED + 3)
+    xs = rng.standard_normal((3, sm["batch"], sm["size"], sm["size"], 3)
+                             ).astype(np.float32)
+    ys = rng.integers(0, sm["classes"], (3, sm["batch"])).astype(np.int32)
+    tree = mobilenet_v1_init(SEED, sm["classes"], sm["width"])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def run(dev, name, dtype):
+        step, params, opt = train_step(
+            M.make_mesh("data:1", M.local_devices(dev)[:1]),
+            functools.partial(mobilenet_v1_tree_apply, dtype=dtype), tree,
+            optimizer=_make_optimizer({"optimizer": name, "lr": sm["lr"]}))
+        losses = []
+        for x, y in zip(xs, ys):
+            params, opt, loss = step(params, opt, x, y)
+            losses.append(float(loss))
+        return losses, trained_tree(params)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k])
+        elif isinstance(t, list):
+            for v in t:
+                yield from leaves(v)
+        else:
+            yield t
+
+    res = {}
+    try:
+        for name in ("sgd", "adam", "adamw"):
+            (lc, tc), (lh, th) = (run(TRAIN_DEVICE, name, torch.float32),
+                                  run("cpu", name, torch.float32))
+            rels = [abs(a - b) / abs(b) for a, b in zip(lc, lh)]
+            diffs = np.concatenate([np.abs(a - b).ravel() for a, b in
+                                    zip(leaves(tc), leaves(th))])
+            gaps = []
+            for a, b, i0 in zip(leaves(tc), leaves(th), leaves(tree)):
+                nb = np.linalg.norm(b - i0)
+                gaps.append(np.linalg.norm(a - b) / nb if nb else
+                            (0.0 if np.array_equal(a, b) else np.inf))
+            res[name] = {"first_loss_rel": rels[0], "loss_rel": max(rels),
+                         "leaf_max": float(diffs.max()),
+                         "update_gap": float(max(gaps)),
+                         "within_1e-6": float((diffs <= 1e-6).mean())}
+            if rels[0] > TRAIN_SMALL_TOL["first_loss"] or \
+                    max(rels) > TRAIN_SMALL_TOL["loss"] or \
+                    diffs.max() > TRAIN_SMALL_TOL["leaf"] or \
+                    max(gaps) > TRAIN_SMALL_TOL["update_gap"][name]:
+                raise RuntimeError(
+                    f"training (b) {name}: card vs CPU loss rel {rels}, "
+                    f"leaf max {diffs.max()}, update gap {max(gaps)} "
+                    f"(limits {TRAIN_SMALL_TOL})")
+        lc, _ = run(TRAIN_DEVICE, "sgd", torch.bfloat16)
+        lh, _ = run("cpu", "sgd", torch.bfloat16)
+        res["bf16_loss_max_diff"] = max(abs(a - b) for a, b in zip(lc, lh))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    print("training (b): 3 steps of MobileNetV1 w0.25 32x32 batch 16 f32 "
+          "(TF32 off, lr 1e-4), card vs CPU: " + "; ".join(
+              f"{n} first loss rel {r['first_loss_rel']:.3e}, losses rel "
+              f"{r['loss_rel']:.3e}, leaves max "
+              f"{r['leaf_max']:.3e} ({r['within_1e-6']:.4f} of entries "
+              f"within 1e-6), largest leaf update gap {r['update_gap']:.3e}"
+              for n, r in res.items() if n != "bf16_loss_max_diff")
+          + f"; at bf16 (sgd) the largest loss difference "
+          f"{res['bf16_loss_max_diff']:.3e} [{card}, {power}]", flush=True)
+    return res
+
+
+def toy_apply(params, x, train=False):
+    """20c's model: ``tests/test_training.py``'s linear toy."""
+    return x @ params["w"] + params["b"]
+
+
+def train_toy(card: str, power: str):
+    """20c: ``tests/test_training.py``'s learnable toy case on the card:
+    3 epochs of 32 separable samples, sgd at lr 0.5; the epoch losses
+    fall."""
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    p = parse_launch(TRAIN_TOY_PIPE, device=TRAIN_DEVICE)
+    p["src"].spec = TensorsSpec.parse("8:1,1:1", "float32,int32")
+    p["trn"].model_config = {
+        "apply": toy_apply,
+        "init": {"w": np.zeros((8, 2), np.float32),
+                 "b": np.zeros((2,), np.float32)},
+        "batch_size": 8, "lr": 0.5, "optimizer": "sgd", "mesh": "data:-1"}
+    losses = []
+    p.bus.add_watch(lambda m: losses.append(m.data["training_loss"])
+                    if isinstance(m.data, dict)
+                    and m.data.get("event") == "epoch-completion" else None)
+    rng = np.random.default_rng(1)
+    stats = []
+    with p:
+        for _ in range(3):
+            for i in range(32):
+                y = i % 2
+                x = rng.standard_normal(8).astype(np.float32) + \
+                    (3.0 if y else -3.0)
+                p["src"].push_buffer(Buffer.of(
+                    x.reshape(1, 8), np.array([[y]], np.int32)))
+        p["src"].end_of_stream()
+        if not p.wait_eos(timeout=120):
+            raise RuntimeError("training (c): no EOS")
+        while True:
+            b = p["out"].pull(timeout=0.3)
+            if b is None:
+                break
+            stats.append(b)
+    if len(losses) != 3 or not losses[0] > 0 or \
+            not losses[-1] < losses[0] or len(stats) != 96:
+        raise RuntimeError(f"training (c): epoch losses {losses}, "
+                           f"{len(stats)} status buffers")
+    print(f"training (c): the toy's epoch losses {losses} fall, 96 status "
+          f"buffers [{card}, {power}]", flush=True)
+    return {"epoch_losses": losses}
+
+
+def train_served(root: str, tree, kept, card: str, power: str):
+    """20d: (a)'s tree as step 16 of a checkpoint root, swapped into a
+    shared MobileNetV1 pool serving the untrained tree."""
+    import pickle
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.runtime import parse_launch
+    from nnstreamer_tpu_torch.trainers.checkpoint import save_step
+
+    torch.backends.cudnn.deterministic = True
+    ckpts = os.path.join(root, "ckpts")
+    save_step(ckpts, 16, tree)
+    models = {}
+    for tag, params in (("init", mobilenet_v1_init(SEED, TRAIN_CLASSES,
+                                                   TRAIN_WIDTH)),
+                        ("trained", tree)):
+        models[tag] = os.path.join(root, f"serve_{tag}.pkl")
+        with open(models[tag], "wb") as f:
+            pickle.dump({"apply": "nnstreamer_tpu_torch.models.convert:"
+                                  "mobilenet_v1_tree_apply",
+                         "params": params,
+                         "in_shapes": [(1, TRAIN_SIZE, TRAIN_SIZE, 3)],
+                         "in_dtypes": np.dtype("float32")}, f)
+    spec = TensorsSpec.parse(f"3:{TRAIN_SIZE}:{TRAIN_SIZE}:1", "uint8")
+
+    def serve(p, frames, first):
+        outs = []
+        for i, x in enumerate(frames):
+            p["src"].push_buffer(Buffer.of(x, pts=first + i))
+        for _ in frames:
+            b = p["out"].pull(timeout=120)
+            if b is None:
+                raise RuntimeError("training (d): a frame was lost")
+            outs.append(b.tensors[0].torch().reshape(-1).clone())
+        return outs
+
+    ref = parse_launch(TRAIN_SERVE_PIPE.format(
+        name="alone", norm=NORM, model=models["trained"], props="",
+        sink=TRAIN_SERVE_FRAMES + 4), device=TRAIN_DEVICE)
+    ref["src"].spec = spec
+    with ref:
+        want = serve(ref, kept, 0)
+    pipe = parse_launch(TRAIN_SERVE_PIPE.format(
+        name="net", norm=NORM, model=models["init"],
+        props=" share-model=true is-updatable=true",
+        sink=TRAIN_SERVE_FRAMES + 4), device=TRAIN_DEVICE)
+    pipe["src"].spec = spec
+    with pipe:
+        before = serve(pipe, kept, 0)
+        lc = pipe["net"].pool.lifecycle
+        t0 = time.perf_counter()
+        ver = lc.stage(f"{ckpts}@latest")
+        stage_s = time.perf_counter() - t0
+        lc.swap(ver)
+        after = serve(pipe, kept, len(kept))
+    if lc.baseline.tag != "16" or lc.swaps != 1:
+        raise RuntimeError(f"training (d): version {lc.baseline.tag}, "
+                           f"{lc.swaps} swaps")
+    worst = max(float((a - w).abs().max()) for a, w in zip(after, want))
+    labels = [int(a.argmax()) for a in after]
+    if labels != [int(w.argmax()) for w in want] or worst > SERVE_TOL:
+        raise RuntimeError(f"training (d): after the flip labels {labels} "
+                           f"against {[int(w.argmax()) for w in want]}, "
+                           f"logits {worst} apart")
+    changed = sum(int(b.argmax()) != lab for b, lab in zip(before, labels))
+    res = {"version": lc.baseline.tag, "stage_s": stage_s,
+           "load_s": ver.load_s, "swap_stall_s": lc.last_swap_stall_s,
+           "frames": 2 * len(kept), "max_abs_diff": worst,
+           "labels_changed_by_training": changed}
+    print(f"training (d): a share-model MobileNetV1 pool at full width "
+          f"staged {ckpts}@latest (step 16) in {stage_s:.6f} s (load+place+"
+          f"warm {ver.load_s:.6f} s), flip stall "
+          f"{lc.last_swap_stall_s * 1e3:.6f} ms; version tag "
+          f"{lc.baseline.tag}; {len(kept)} frames after the flip carry the "
+          f"trained tree's labels (logits within {worst} of the trained "
+          f"model alone), {changed} of them differ from the untrained "
+          f"tree's [{card}, {power}]", flush=True)
+    return res
+
+
+def train_grad_guard(card: str, power: str):
+    """20e: both wrappers refuse a card input that requires grad under
+    grad mode, and launch under no_grad."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import kernels
+
+    x = torch.rand(2, 8, 8, 3, device=TRAIN_DEVICE, requires_grad=True)
+    q = torch.randn(1, 2, 64, 64, device=TRAIN_DEVICE,
+                    dtype=torch.bfloat16, requires_grad=True)
+    refused = []
+    for name, call in (("scale_bias_cast",
+                        lambda: kernels.scale_bias_cast(x, 2.0, 1.0)),
+                       ("flash_attention",
+                        lambda: kernels.flash_attention(q, q, q))):
+        try:
+            call()
+        except RuntimeError as e:
+            if name in str(e):
+                refused.append(name)
+    n0 = _par_counts()
+    with torch.no_grad():
+        kernels.scale_bias_cast(x, 2.0, 1.0)
+        kernels.flash_attention(q, q, q)
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    launched = {k: v - n0[k] for k, v in _par_counts().items()}
+    want = 1 if TRAIN_DEVICE == "cuda" else 0
+    if refused != ["scale_bias_cast", "flash_attention"] and want or \
+            launched != {"flash_attention": want, "scale_bias_cast": want}:
+        raise RuntimeError(f"training (e): refused {refused}, launched "
+                           f"under no_grad {launched}")
+    print(f"training (e): both wrappers refuse a card input that requires "
+          f"grad ({refused}) and launch under no_grad ({launched}) "
+          f"[{card}, {power}]", flush=True)
+    return {"refused": refused, "launched": launched}
+
+
+def train_lint(card: str, power: str):
+    """20f: the analyzer over the descriptions phase 20 parsed."""
+    from nnstreamer_tpu_torch.analyze import Severity, analyze_description
+
+    descs = sorted({d for ph, d in LAUNCHED if ph == "20"})
+    tally, errors = Counter(), []
+    for desc in descs:
+        diags, _ = analyze_description(desc)
+        for d in diags:
+            tally[d.severity] += 1
+            if d.severity == Severity.ERROR:
+                errors.append((desc, str(d)))
+    if errors:
+        raise RuntimeError(f"training (f): analyzer errors {errors}")
+    print(f"training (f): the analyzer over phase 20's {len(descs)} distinct "
+          f"descriptions: 0 errors, {tally[Severity.WARNING]} warnings, "
+          f"{tally[Severity.INFO]} info [{card}, {power}]", flush=True)
+    return {"descriptions": len(descs), "errors": 0,
+            "warnings": tally[Severity.WARNING]}
+
+
+def phase_training(card: str, power: str):
+    """Phase 20: (a)-(f) above; (a)'s kernel counts from 0."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="nns_train_")
+    res = {}
+    try:
+        data, js, kept = train_dataset(root)
+        res["dataset_s"] = time.perf_counter() - t0
+        res["full_width"] = train_full_width(root, data, js, kept, card,
+                                             power)
+        tree = res["full_width"].pop("tree")
+        res["launches"] = res["full_width"]["launches"]
+        res["card_vs_cpu"] = train_card_vs_cpu(card, power)
+        res["toy"] = train_toy(card, power)
+        res["served"] = train_served(root, tree, kept, card, power)
+        res["grad_guard"] = train_grad_guard(card, power)
+        res["lint"] = train_lint(card, power)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"training phase: {res['seconds']:.1f} s (the dataset "
+          f"{res['dataset_s']:.1f} s), launches {res['launches']} "
+          f"[{card}, {power}]", flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -7848,6 +8558,7 @@ def main() -> int:
     edge_alone = sys.argv[1:] == ["--edge"]
     mqtt_alone = sys.argv[1:] == ["--mqtt"]
     parallel_alone = sys.argv[1:] == ["--parallel"]
+    training_alone = sys.argv[1:] == ["--training"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -7922,6 +8633,11 @@ def main() -> int:
         print(json.dumps({"parallel": phase_parallel(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if training_alone:
+        PHASE[0] = "20"
+        print(json.dumps({"training": phase_training(card, power),
+                          "card": card, "power_limit": power}))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     PHASE[0] = "4"
@@ -7958,6 +8674,8 @@ def main() -> int:
     PHASE[0] = "19"
     parallel = phase_parallel(card, power,
                               serving["shared"]["frames_per_s"])
+    PHASE[0] = "20"
+    training = phase_training(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
@@ -7965,6 +8683,7 @@ def main() -> int:
                       "decoders": decoders, "elements": elements,
                       "obs": obs, "control": control, "repairs": repairs,
                       "edge": edge, "mqtt": mqtt, "parallel": parallel,
+                      "training": training,
                       "card": card, "power_limit": power}, default=str))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
@@ -7992,7 +8711,8 @@ def main() -> int:
                    "edge_vit": edge["vit"]["launches"]["scale_bias_cast"],
                    "mqtt_camera": mqtt["camera"]["launches"],
                    "mqtt_vit": mqtt["vit"]["launches"]["scale_bias_cast"],
-                   "parallel": parallel["launches"]["scale_bias_cast"]}
+                   "parallel": parallel["launches"]["scale_bias_cast"],
+                   "training": training["launches"]["scale_bias_cast"]}
     if mqtt["grpc"]["ran"]:
         sbc_by_path["mqtt_grpc"] = mqtt["grpc"]["launches"]
     fa_by_path = {"vit": vit_path["flash_launches"],
@@ -8005,7 +8725,8 @@ def main() -> int:
                   "repairs_single": repairs["single"]["launches"],
                   "edge_vit": edge["vit"]["launches"]["flash_attention"],
                   "mqtt_vit": mqtt["vit"]["launches"]["flash_attention"],
-                  "parallel": parallel["launches"]["flash_attention"]}
+                  "parallel": parallel["launches"]["flash_attention"],
+                  "training": training["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

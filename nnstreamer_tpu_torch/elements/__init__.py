@@ -15,4 +15,5 @@ from . import rate  # noqa: F401
 from . import repo  # noqa: F401
 from . import sensorsrc  # noqa: F401
 from . import sparse  # noqa: F401
+from . import trainer  # noqa: F401
 from . import transform  # noqa: F401

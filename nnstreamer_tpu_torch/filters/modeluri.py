@@ -9,9 +9,9 @@ Versioned references: a ``@<tag>`` suffix names one version of a model
 (``file://models/vit.safetensors@v2``).  :func:`resolve_model_uri_versioned`
 returns ``(model, tag)``, so a hot swap records which version went live
 (``runtime/lifecycle.py``); a suffix whose base names nothing raises
-:class:`ModelUriError`.  A checkpoint ROOT (a directory) with a tag also
-raises: step directories are written by the trainer, which the port does
-not have yet.
+:class:`ModelUriError`.  A checkpoint ROOT (a directory) with a tag names
+one of its numbered step directories (``trainers/checkpoint.py``):
+``ckpts/net@latest`` resolves to the newest step and its number.
 """
 
 from __future__ import annotations
@@ -77,6 +77,8 @@ def resolve_model_uri_versioned(model: Any) -> Tuple[Any, str]:
 
     - ``file://models/net.pkl@v2`` → ``("models/net.pkl", "v2")``; the
       file must exist;
+    - ``ckpts/net@123`` / ``ckpts/net@latest`` → the step DIRECTORY under
+      the checkpoint root and the concrete step as the tag;
     - untagged references resolve as :func:`resolve_model_uri` does,
       with tag ``""``;
     - a plain string whose ``@``-base names nothing on disk is a
@@ -97,10 +99,15 @@ def resolve_model_uri_versioned(model: Any) -> Tuple[Any, str]:
     if not tag:
         return base, ""
     if isinstance(base, str) and os.path.isdir(base):
-        raise ModelUriError(
-            f"model {model!r}: version suffix @{tag} names a step under "
-            f"the checkpoint root {base!r}; checkpoint roots wait for the "
-            f"trainer slice of the port")
+        # checkpoint root: the tag names a step directory
+        from ..trainers.checkpoint import resolve_step_dir
+
+        try:
+            return resolve_step_dir(base, tag)
+        except ValueError as e:
+            raise ModelUriError(
+                f"model {model!r}: version suffix @{tag} does not "
+                f"resolve under checkpoint root {base!r}: {e}") from None
     if isinstance(base, str) and not os.path.exists(base):
         raise ModelUriError(
             f"model {model!r}: version suffix @{tag} was split off, "

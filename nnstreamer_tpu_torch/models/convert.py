@@ -21,6 +21,13 @@ package run on the same weights.
   (``models/params_io.py``; ``tensor_filter model=file://…``): they run
   the tree the file holds, building its module once per tree.  What the
   tree does not hold comes from the file's ``apply_kwargs``.
+- ``mobilenet_v1_to_jax``/``mobilenet_v2_to_jax`` carry a module's
+  weights back to a JAX-layout numpy tree (OIHW to HWIO), bit for bit:
+  ``to_jax(from_jax(tree))`` equals ``tree``.  :func:`tree_module_of`
+  maps a tree apply to the function that makes its module and the
+  module's own apply — a tree apply caches its module per tree and
+  detaches the leaves, so a trainer trains the module and carries the
+  weights back (:data:`MODULE_TO_JAX`).
 """
 
 from __future__ import annotations
@@ -29,13 +36,13 @@ import functools
 import math
 import threading
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..core.buffer import from_numpy
+from ..core.buffer import from_numpy, to_numpy
 from .mobilenet import (
     _V1_BLOCKS,
     _V2_BLOCKS,
@@ -108,6 +115,24 @@ def _conv_state(prefix: str, p: Params, out: Dict[str, torch.Tensor]) -> None:
 def _dense_state(prefix: str, p: Params, out: Dict[str, torch.Tensor]) -> None:
     out[prefix + "w"] = _leaf(p["w"])
     out[prefix + "b"] = _leaf(p["b"])
+
+
+def _host_leaf(t: torch.Tensor) -> np.ndarray:
+    """A module leaf as an owned numpy array (bf16 by bit pattern)."""
+    return to_numpy(t.detach().contiguous()).copy()
+
+
+def _conv_tree(m: nn.Module) -> Params:
+    """A ConvBN's leaves in the JAX layout: OIHW → HWIO, the batch-norm
+    vectors as they are."""
+    out: Params = {"w": _host_leaf(m.weight.detach().permute(2, 3, 1, 0))}
+    for k in ("scale", "bias", "mean", "var"):
+        out[k] = _host_leaf(getattr(m, k))
+    return out
+
+
+def _dense_tree(m: nn.Module) -> Params:
+    return {"w": _host_leaf(m.w), "b": _host_leaf(m.b)}
 
 
 def _assign(make: Callable[[], nn.Module],
@@ -192,6 +217,15 @@ def mobilenet_v1_from_jax(tree: Any) -> MobileNetV1:
                    mobilenet_v1_params_from_jax(tree))
 
 
+def mobilenet_v1_to_jax(model: MobileNetV1) -> Params:
+    """The JAX-layout numpy tree of a :class:`MobileNetV1`'s weights: the
+    inverse of :func:`mobilenet_v1_from_jax`."""
+    return {"stem": _conv_tree(model.stem),
+            "blocks": [{"dw": _conv_tree(b.dw), "pw": _conv_tree(b.pw)}
+                       for b in model.blocks],
+            "head": _dense_tree(model.head)}
+
+
 def mobilenet_v2_params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     """``state_dict`` of :class:`MobileNetV2` from a JAX-layout tree
     (``stem``, ``blocks[i].{expand,dw,project}``, ``last``, ``head``)."""
@@ -218,6 +252,21 @@ def mobilenet_v2_from_jax(tree: Any) -> MobileNetV2:
     classes = _shape(tree["head"]["w"])[1]
     return _assign(lambda: MobileNetV2(classes, width),
                    mobilenet_v2_params_from_jax(tree))
+
+
+def mobilenet_v2_to_jax(model: MobileNetV2) -> Params:
+    """The JAX-layout numpy tree of a :class:`MobileNetV2` classifier's
+    weights: the inverse of :func:`mobilenet_v2_from_jax`."""
+    blocks = []
+    for b in model.blocks:
+        p: Params = {}
+        if b.expand is not None:
+            p["expand"] = _conv_tree(b.expand)
+        p["dw"] = _conv_tree(b.dw)
+        p["project"] = _conv_tree(b.project)
+        blocks.append(p)
+    return {"stem": _conv_tree(model.stem), "blocks": blocks,
+            "last": _conv_tree(model.last), "head": _dense_tree(model.head)}
 
 
 # -- YOLO ----------------------------------------------------------------------
@@ -328,17 +377,60 @@ def _anchors_on(size: int, device: str) -> torch.Tensor:
 
 
 def mobilenet_v1_tree_apply(tree: Params, x: torch.Tensor,
-                            dtype: Any = None) -> torch.Tensor:
-    """``apply`` of a MobileNetV1 weights file: f32 logits."""
+                            dtype: Any = None,
+                            train: bool = False) -> torch.Tensor:
+    """``apply`` of a MobileNetV1 weights file: f32 logits.  The tree's
+    module is cached and its leaves detached, so no gradient reaches the
+    tree: train through :func:`tree_module_of`."""
     return mobilenet_v1_apply(_module_of_tree(tree, mobilenet_v1_from_jax),
-                              x, _dtype(dtype))
+                              x, _dtype(dtype), train)
 
 
 def mobilenet_v2_tree_apply(tree: Params, x: torch.Tensor,
-                            dtype: Any = None) -> torch.Tensor:
-    """``apply`` of a MobileNetV2 classifier weights file: f32 logits."""
+                            dtype: Any = None,
+                            train: bool = False) -> torch.Tensor:
+    """``apply`` of a MobileNetV2 classifier weights file: f32 logits
+    (no gradient reaches the tree, as :func:`mobilenet_v1_tree_apply`)."""
     return mobilenet_v2_apply(_module_of_tree(tree, mobilenet_v2_from_jax),
-                              x, _dtype(dtype))
+                              x, _dtype(dtype), train)
+
+
+def _module_apply(family_apply: Callable, model: nn.Module, x: torch.Tensor,
+                  dtype: Any = None, train: bool = False) -> torch.Tensor:
+    return family_apply(model, x, _dtype(dtype), train)
+
+
+#: tree apply → (the function that makes its module, the module's apply)
+TREE_MODULES: Dict[Callable, Tuple[Callable, Callable]] = {
+    mobilenet_v1_tree_apply: (mobilenet_v1_from_jax, mobilenet_v1_apply),
+    mobilenet_v2_tree_apply: (mobilenet_v2_from_jax, mobilenet_v2_apply),
+}
+
+#: module type → its inverse: the JAX-layout tree of a module's weights
+MODULE_TO_JAX: Dict[type, Callable] = {
+    MobileNetV1: mobilenet_v1_to_jax,
+    MobileNetV2: mobilenet_v2_to_jax,
+}
+
+
+def tree_module_of(apply: Callable) -> Optional[Tuple[Callable, Callable]]:
+    """``(build, module_apply)`` for a tree apply of :data:`TREE_MODULES`
+    (through ``functools.partial``, whose keywords the module apply
+    keeps), or None: ``build(tree)`` gives the module and
+    ``module_apply(module, x, train=...)`` runs it; :data:`MODULE_TO_JAX`
+    gives the tree back."""
+    kwargs: Dict[str, Any] = {}
+    fn = apply
+    while isinstance(fn, functools.partial):
+        if fn.args:
+            return None
+        kwargs = {**fn.keywords, **kwargs}
+        fn = fn.func
+    entry = TREE_MODULES.get(fn)
+    if entry is None:
+        return None
+    build, family_apply = entry
+    return build, functools.partial(_module_apply, family_apply, **kwargs)
 
 
 def ssd_tree_apply(tree: Params, x: torch.Tensor, end_to_end: bool = True,

@@ -20,7 +20,11 @@ Counterpart of the JAX package's ``models/mobilenet.py``:
 
 Inference applies *folded* batch-norm: the scale and offset are computed
 in f32 and cast to the compute dtype before the epilogue, in the JAX
-package's order.  Weights may sit in bf16 (``params_io.weights_to_bf16``):
+package's order.  With ``train=True`` (the trainer's forward) the
+statistics are the batch's instead of the ``mean``/``var`` leaves: the
+mean and population variance of the convolution's output over (N, H, W),
+taken in f32, as the JAX ``_conv_bn`` takes them; the stored leaves are
+left alone.  Weights may sit in bf16 (``params_io.weights_to_bf16``):
 the per-call ``.to(dtype)`` is then a no-op at bf16 compute, while the
 batch-norm buffers stay f32.  ``jnp.mean`` over bf16 sums in f32 and
 rounds once, and so does :func:`_mean_hw`.  The head is ``_dense``'s two
@@ -198,8 +202,10 @@ class ConvBN(nn.Module):
         self.register_buffer("mean", torch.zeros(cout))
         self.register_buffer("var", torch.ones(cout))
 
-    def forward(self, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-        """``x`` (N,H,W,C) in ``dtype`` → (N,H',W',Cout) in ``dtype``."""
+    def forward(self, x: torch.Tensor, dtype=torch.bfloat16,
+                train: bool = False) -> torch.Tensor:
+        """``x`` (N,H,W,C) in ``dtype`` → (N,H',W',Cout) in ``dtype``;
+        ``train`` normalizes by the batch's statistics."""
         h = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
         ph = same_padding(h.shape[2], self.k, self.stride)
         pw = same_padding(h.shape[3], self.k, self.stride)
@@ -207,9 +213,15 @@ class ConvBN(nn.Module):
             h = F.pad(h, (pw[0], pw[1], ph[0], ph[1]))
         y = F.conv2d(h, self.weight.to(dtype), stride=self.stride,
                      groups=self.groups).permute(0, 2, 3, 1)
-        r = torch.rsqrt(self.var + _BN_EPS)
+        if train:
+            y32 = y.to(torch.float32)
+            mean = y32.mean(dim=(0, 1, 2))
+            var = y32.var(dim=(0, 1, 2), unbiased=False)
+        else:
+            mean, var = self.mean, self.var
+        r = torch.rsqrt(var + _BN_EPS)
         inv = (self.scale * r).to(dtype)
-        off = (self.bias - self.mean * self.scale * r).to(dtype)
+        off = (self.bias - mean * self.scale * r).to(dtype)
         y = y * inv + off
         if self.relu6:
             y = torch.clamp(y, 0.0, 6.0)
@@ -227,12 +239,13 @@ class InvertedResidual(nn.Module):
         self.dw = ConvBN(mid, mid, 3, stride=stride, groups=mid)
         self.project = ConvBN(mid, cout, 1, relu6=False)
 
-    def forward(self, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=torch.bfloat16,
+                train: bool = False) -> torch.Tensor:
         h = x
         if self.expand is not None:
-            h = self.expand(h, dtype)
-        h = self.dw(h, dtype)
-        h = self.project(h, dtype)
+            h = self.expand(h, dtype, train)
+        h = self.dw(h, dtype, train)
+        h = self.project(h, dtype, train)
         if self.stride == 1 and x.shape[-1] == h.shape[-1]:
             h = h + x  # residual
         return h
@@ -253,14 +266,14 @@ class MobileNetV2Backbone(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x: torch.Tensor, dtype=torch.bfloat16,
-                taps: Sequence[int] = ()) -> Tuple[torch.Tensor,
-                                                   List[torch.Tensor]]:
+                taps: Sequence[int] = (), train: bool = False
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """``x`` (N,H,W,3) → (final feature map, [outputs of the blocks
         listed in ``taps``]), NHWC."""
-        x = self.stem(x.to(dtype), dtype)
+        x = self.stem(x.to(dtype), dtype, train)
         tapped = []
         for i, block in enumerate(self.blocks):
-            x = block(x, dtype)
+            x = block(x, dtype, train)
             if i in taps:
                 tapped.append(x)
         return x, tapped
@@ -281,8 +294,9 @@ class DepthwiseSeparable(nn.Module):
         self.dw = ConvBN(cin, cin, 3, stride=stride, groups=cin)
         self.pw = ConvBN(cin, cout, 1)
 
-    def forward(self, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-        return self.pw(self.dw(x, dtype), dtype)
+    def forward(self, x: torch.Tensor, dtype=torch.bfloat16,
+                train: bool = False) -> torch.Tensor:
+        return self.pw(self.dw(x, dtype, train), dtype, train)
 
 
 class MobileNetV1(nn.Module):
@@ -300,10 +314,11 @@ class MobileNetV1(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.head = Dense(cin, num_classes)
 
-    def forward(self, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-        x = self.stem(x.to(dtype), dtype)
+    def forward(self, x: torch.Tensor, dtype=torch.bfloat16,
+                train: bool = False) -> torch.Tensor:
+        x = self.stem(x.to(dtype), dtype, train)
         for block in self.blocks:
-            x = block(x, dtype)
+            x = block(x, dtype, train)
         return self.head(_mean_hw(x), dtype).to(torch.float32)
 
 
@@ -318,24 +333,24 @@ class MobileNetV2(MobileNetV2Backbone):
         self.head = Dense(last, num_classes)
 
     def forward(self, x: torch.Tensor,  # type: ignore[override]
-                dtype=torch.bfloat16) -> torch.Tensor:
-        x, _ = super().forward(x, dtype)
-        x = self.last(x, dtype)
+                dtype=torch.bfloat16, train: bool = False) -> torch.Tensor:
+        x, _ = super().forward(x, dtype, train=train)
+        x = self.last(x, dtype, train)
         return self.head(_mean_hw(x), dtype).to(torch.float32)
 
 
 def mobilenet_v1_apply(model: MobileNetV1, x: torch.Tensor,
-                       dtype=None) -> torch.Tensor:
+                       dtype=None, train: bool = False) -> torch.Tensor:
     """(N, H, W, 3) → (N, num_classes) f32 logits; compute in ``dtype``
-    (bf16 by default)."""
-    return model(x, torch.bfloat16 if dtype is None else dtype)
+    (bf16 by default); ``train`` takes the batch's statistics."""
+    return model(x, torch.bfloat16 if dtype is None else dtype, train)
 
 
 def mobilenet_v2_apply(model: MobileNetV2, x: torch.Tensor,
-                       dtype=None) -> torch.Tensor:
+                       dtype=None, train: bool = False) -> torch.Tensor:
     """(N, H, W, 3) → (N, num_classes) f32 logits; compute in ``dtype``
-    (bf16 by default)."""
-    return model(x, torch.bfloat16 if dtype is None else dtype)
+    (bf16 by default); ``train`` takes the batch's statistics."""
+    return model(x, torch.bfloat16 if dtype is None else dtype, train)
 
 
 class _ComputeIn(nn.Module):

@@ -112,6 +112,34 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, flat)
 
 
+def nms_single(boxes: torch.Tensor, scores: torch.Tensor, max_out: int = 100,
+               iou_thresh: float = 0.5, score_thresh: float = 0.25,
+               pre_topk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-shape greedy NMS for one class: boxes (A,4), scores (A,) →
+    (boxes (max_out,4), scores (max_out,)); suppressed slots score 0.
+
+    The JAX package's ``nms_single``: a top-k preselect, one IoU matrix,
+    then the sequential greedy pass over the k candidates (its
+    ``lax.scan``) — candidate i survives iff no kept candidate ranked
+    above it overlaps it, and its score passes the threshold."""
+    k = min(pre_topk, scores.shape[0])
+    top_scores, idx = _top_k(scores, k)
+    top_boxes = boxes[idx]
+    over = _iou_matrix(top_boxes) > iou_thresh
+    valid = top_scores > score_thresh
+    keep = torch.zeros(k, dtype=torch.bool, device=scores.device)
+    for i in range(k):
+        keep[i] = ~(over[i, :i] & keep[:i]).any() & valid[i]
+    kept = torch.where(keep, top_scores, torch.zeros_like(top_scores))
+    out_scores, out_idx = _top_k(kept, min(max_out, k))
+    out_boxes = top_boxes[out_idx]
+    if max_out > k:                                  # fixed-shape contract
+        out_scores = torch.nn.functional.pad(out_scores, (0, max_out - k))
+        out_boxes = torch.nn.functional.pad(out_boxes,
+                                            (0, 0, 0, max_out - k))
+    return out_boxes, out_scores
+
+
 def batched_nms(boxes: torch.Tensor, class_scores: torch.Tensor,
                 max_out: int = 100, iou_thresh: float = 0.5,
                 score_thresh: float = 0.25, pre_topk: int = 128,
@@ -194,23 +222,25 @@ class SSDMobileNetV2(nn.Module):
             for c in (96, 320, *_EXTRA_CHANNELS))
 
     def forward(self, x: torch.Tensor, dtype=torch.bfloat16,
-                cls_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+                cls_dtype=torch.float32, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``x``: (N, H, W, 3) normalized NHWC → (loc (N,A,4) float32,
-        cls (N,A,C) in ``cls_dtype``) raw head outputs."""
-        feat, taps = self.backbone(x, dtype, taps=(_TAP_BLOCK,))
+        cls (N,A,C) in ``cls_dtype``) raw head outputs; ``train`` takes
+        the batch's statistics in every layer."""
+        feat, taps = self.backbone(x, dtype, taps=(_TAP_BLOCK,), train=train)
         maps = [taps[0], feat]
         h = feat
         for extra in self.extras:
-            h = extra(h, dtype)
+            h = extra(h, dtype, train)
             maps.append(h)
         locs, clss = [], []
         for fmap, head in zip(maps, self.heads):
             n = fmap.shape[0]
             # NHWC (n, fs, fs, A·4) → (n, fs·fs·A, 4): the anchor table is
             # interleaved per cell, so the reshape must see NHWC order
-            locs.append(head.loc(fmap, dtype).reshape(n, -1, 4))
-            clss.append(head.cls(fmap, dtype).reshape(n, -1,
-                                                      self.num_classes))
+            locs.append(head.loc(fmap, dtype, train).reshape(n, -1, 4))
+            clss.append(head.cls(fmap, dtype, train).reshape(
+                n, -1, self.num_classes))
         return (torch.cat(locs, dim=1).to(torch.float32),
                 torch.cat(clss, dim=1).to(cls_dtype))
 

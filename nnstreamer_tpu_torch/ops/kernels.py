@@ -68,6 +68,17 @@ def _plain(t: torch.Tensor) -> bool:
                              and getattr(_scope, "shape_only", False))
 
 
+def _no_grad_through(kernel: str, *xs: torch.Tensor) -> None:
+    """Raise when autograd would record a call of ``kernel``: its output
+    is allocated outside autograd and it has no backward, so a gradient
+    through it would be dropped without a word.  The plain versions keep
+    autograd on the CPU; on the card, call under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the CUDA kernel has no "
+            f"backward; call it under torch.no_grad() or detach the input")
+
+
 def _torch_dtype(dt) -> torch.dtype:
     if isinstance(dt, torch.dtype):
         return dt
@@ -121,7 +132,9 @@ def scale_bias_cast(x: torch.Tensor, scale: float, bias: float,
 
     A CPU tensor gets the plain version (a meta one inside
     :func:`shape_only` too).  A CUDA tensor must be contiguous, of a type :func:`scale_bias_cast_available` accepts, with
-    an f32 or bf16 ``out_dtype``; anything else raises."""
+    an f32 or bf16 ``out_dtype``; anything else raises.  The kernel has
+    no backward: with grad mode on, a CUDA input that requires grad
+    raises (:func:`_no_grad_through`) instead of dropping the gradient."""
     out_dtype = _torch_dtype(out_dtype)
     # cost capture (obs/xlacost.py): 2 FLOPs an element, on either path
     # (the counter sees neither the kernel nor elementwise plain ops)
@@ -130,6 +143,7 @@ def scale_bias_cast(x: torch.Tensor, scale: float, bias: float,
         return scale_bias_cast_reference(x, scale, bias, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"scale_bias_cast: unsupported device {x.device}")
+    _no_grad_through("scale_bias_cast", x)
     if x.dtype not in _IN_CODES:
         raise ValueError(f"scale_bias_cast: no kernel for input {x.dtype}")
     if out_dtype not in _OUT_CODES:
@@ -271,7 +285,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     any strides TMA takes, so the head-split views of a qkv projection go
     in without a copy; anything else raises ``ValueError``.  The output
     is allocated (B, S, H, D) and returned as its (..., S, D) view, so
-    ``o.transpose(1, 2)`` of a 4-d result is contiguous."""
+    ``o.transpose(1, 2)`` of a 4-d result is contiguous.  No backward:
+    an input that requires grad raises under grad mode."""
     scale = _default_scale(q, scale)
     if _plain(q):
         return flash_attention_reference(q, k, v, scale)
@@ -279,6 +294,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must share a device")
+    _no_grad_through("flash_attention", q, k, v)
     why = _fa_unsupported(q.shape, k.shape, v.shape,
                           [q.dtype, k.dtype, v.dtype])
     if why is not None:

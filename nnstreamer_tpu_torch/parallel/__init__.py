@@ -9,15 +9,16 @@ Counterpart of the JAX package's ``parallel/``, on eager PyTorch:
   included), and the canonical key equivalent spellings share;
 - :mod:`.mesh` — the device inventory (with the virtual-device seam,
   :func:`.mesh.set_virtual_devices`) and mesh construction;
-- :mod:`.sharded` — the sharding rules and the sharded invoke (the split,
-  the weight replicas and ``model`` slices, the gathers XLA would insert);
+- :mod:`.sharded` — the sharding rules, the sharded invoke (the split,
+  the weight replicas and ``model`` slices, the gathers XLA would insert)
+  and the training step;
 - :mod:`.multihost` — the ``torch.distributed`` process group and hybrid
   meshes;
 - :mod:`.collectives` — merge, reduce, ring shift, regroup and ring
   attention across devices.
 
-Not here yet: ``train_step`` (the sharded training step comes with the
-trainer, ROADMAP item 7).
+The sharded training step (:func:`train_step`, :func:`softmax_xent`) is
+what the ``torch-optim`` trainer runs.
 """
 
 from .mesh import (  # noqa: F401
@@ -42,4 +43,6 @@ from .sharded import (  # noqa: F401
     replicated,
     replicated_param_rules,
     shard_params,
+    softmax_xent,
+    train_step,
 )

@@ -1,5 +1,5 @@
-"""Sharded model execution: the sharding rules and the data/model-parallel
-invoke.
+"""Sharded model execution: the sharding rules, the data/model-parallel
+invoke and the sharded training step.
 
 Counterpart of the JAX package's ``parallel/sharded.py``.  JAX hands a
 sharded program to XLA, which inserts the collectives.  Eager PyTorch has
@@ -29,8 +29,17 @@ pointwise convolution is ``(cout, cin, 1, 1)`` here where the JAX tree
 holds ``(1, 1, cin, cout)``, and a dense ``w`` is ``(din, dout)`` in
 both — the same leaves split (``models/convert.py`` maps the two trees).
 
-Not here yet: ``train_step`` and ``softmax_xent`` (the sharded training
-step) come with the trainer (ROADMAP item 7).
+The training step (:func:`train_step`) is the JAX step's function: one
+forward over the GLOBAL batch with the batch's statistics, its backward,
+one optimizer update of every leaf.  In JAX that is one SPMD program
+whose batch statistics XLA all-reduces over the data shards.  Here every
+data shard of the mesh must live on one ``torch.device`` (the card, or
+virtual records over it or the CPU), and the step runs the stacked
+batch there once — splitting it would compute per-shard statistics, a
+different function.  A mesh over distinct real devices raises: that
+needs a cross-shard reduction of the moments (sync batch norm), a later
+ROADMAP item.  A ``model`` axis replicates every leaf, as JAX's
+``shard_params`` does on a mesh without one.
 """
 
 from __future__ import annotations
@@ -456,3 +465,245 @@ class ShardedModel:
 
         _meshstat.record_dispatch(self.name, self.mesh, self._data_axis,
                                   slots=b, frames=b, sharded=sharded)
+
+
+# -- sharded training step ---------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels) -> torch.Tensor:
+    """Mean over the batch of ``-sum(onehot · log_softmax(logits))``, the
+    one-hot in f32 as ``jax.nn.one_hot`` makes it: a label outside the
+    classes gives a zero row (its loss 0), where ``F.cross_entropy``
+    would raise."""
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = torch.as_tensor(labels, device=logits.device)
+    classes = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (labels[..., None] == classes).to(torch.float32)
+    return -(onehot * logp).sum(dim=-1).mean()
+
+
+def mesh_device(mesh) -> torch.device:
+    """The one ``torch.device`` every record of ``mesh`` lives on; raises
+    ``ValueError`` when the records span distinct real devices."""
+    devs = sorted({d.torch_device for d in np.asarray(mesh.devices).flat},
+                  key=str)
+    if len(devs) != 1:
+        raise ValueError(
+            f"training on mesh {mesh!r} spans {len(devs)} devices "
+            f"({', '.join(map(str, devs))}); the step's batch statistics "
+            "are the global batch's, which across real devices needs a "
+            "cross-shard reduction of the moments (sync batch norm, "
+            "ROADMAP item 7b: data-parallel training across real cards)")
+    return devs[0]
+
+
+def _as_device_tensor(a: Any, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        t = a.to(device)
+        return t.clone() if t.is_inference() else t
+    from ..core.buffer import from_numpy
+
+    return from_numpy(np.asarray(a), device)
+
+
+def _trainable_tree(tree: Any, device: torch.device,
+                    leaves: List[torch.Tensor]) -> Any:
+    """A copy of ``tree`` on ``device`` whose floating leaves require
+    grad (appended to ``leaves`` in tree order); other leaves are kept
+    as they are."""
+    if isinstance(tree, dict):
+        return {k: _trainable_tree(v, device, leaves)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_trainable_tree(v, device, leaves) for v in tree)
+    if isinstance(tree, (torch.Tensor, np.ndarray, np.generic)):
+        t = tree.detach().to(device).clone() \
+            if isinstance(tree, torch.Tensor) \
+            else _as_device_tensor(np.array(tree), device)
+        if t.is_floating_point():
+            t.requires_grad_(True)
+            leaves.append(t)
+        return t
+    return tree
+
+
+def _module_leaves(model: torch.nn.Module) -> List[torch.Tensor]:
+    """Every floating parameter and buffer of ``model``, made trainable:
+    the batch-norm vectors are buffers here and leaves of the JAX tree,
+    which the JAX step updates too."""
+    leaves = []
+    for t in list(model.parameters()) + list(model.buffers()):
+        if t.is_floating_point():
+            t.requires_grad_(True)
+            leaves.append(t)
+    return leaves
+
+
+def make_optimizer(name: str = "sgd", lr: float = 1e-2,
+                   momentum: float = 0.9
+                   ) -> Callable[[List[torch.Tensor]], torch.optim.Optimizer]:
+    """``leaves -> torch.optim.Optimizer`` with optax's settings for
+    ``sgd`` (momentum trace starting at g: ``dampening=0``, no Nesterov),
+    ``adam`` (eps 1e-8, ``eps_root`` 0) and ``adamw`` (decay optax's
+    1e-4, not torch's 1e-2).  Raises ``ValueError`` on another name."""
+    name = name.lower()
+    if name == "sgd":
+        return lambda leaves: torch.optim.SGD(
+            leaves, lr=lr, momentum=momentum, dampening=0.0, nesterov=False)
+    if name == "adam":
+        return lambda leaves: torch.optim.Adam(
+            leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if name == "adamw":
+        return lambda leaves: torch.optim.AdamW(
+            leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+class TrainStep:
+    """``step(params, opt_state, x, y) -> (params, opt_state, loss)``:
+    the forward with ``train=True`` over the whole batch on the mesh's
+    device, the loss, the backward, and one update of every leaf.
+    ``params`` and ``opt_state`` are the objects :func:`train_step`
+    returned (updated in place and handed back, as the JAX step hands
+    back new ones); ``loss`` is a 0-d tensor on the device.
+
+    :meth:`apply` runs the forward alone (``train=False``: the stored
+    statistics, as the JAX trainer's eval calls the apply).
+
+    For measurement: ``record_events`` keeps four CUDA events a step
+    (start, forward done, backward done, update done; :meth:`timings`),
+    and ``last_loss`` is the latest step's loss."""
+
+    def __init__(self, apply: Callable, params: Any,
+                 opt_state: torch.optim.Optimizer,
+                 leaves: List[torch.Tensor], loss_fn: Callable,
+                 device: torch.device, data_size: int):
+        self.apply = apply
+        self.params = params
+        self.opt_state = opt_state
+        self.leaves = leaves
+        self.loss_fn = loss_fn
+        self.device = device
+        self.data_size = data_size
+        self.steps = 0
+        self.last_loss: Optional[torch.Tensor] = None
+        self.record_events = False
+        self.events: List[Tuple[Any, ...]] = []
+
+    def _event(self):
+        if not self.record_events or self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def __call__(self, params, opt_state, x, y):
+        if params is not self.params or opt_state is not self.opt_state:
+            raise ValueError("train step: pass back the params and "
+                             "optimizer state the step returned")
+        x = _as_device_tensor(x, self.device)
+        y = _as_device_tensor(y, self.device)
+        if x.shape[0] % self.data_size:
+            raise ValueError(
+                f"train step: batch {x.shape[0]} does not split over the "
+                f"data axis of size {self.data_size}")
+        with _on(self.device), torch.enable_grad():
+            e0 = self._event()
+            opt_state.zero_grad(set_to_none=True)
+            loss = self.loss_fn(self.apply(params, x, train=True), y)
+            e1 = self._event()
+            loss.backward()
+            e2 = self._event()
+            for t in self.leaves:
+                if t.grad is None:   # not in the graph: a zero gradient,
+                    t.grad = torch.zeros_like(t)   # as JAX's grad gives
+            opt_state.step()
+            e3 = self._event()
+        if e0 is not None:
+            self.events.append((e0, e1, e2, e3))
+        self.steps += 1
+        self.last_loss = loss.detach()
+        return params, opt_state, self.last_loss
+
+    def timings(self) -> List[Tuple[float, float, float]]:
+        """(forward, backward, update) ms of each recorded step, from its
+        CUDA events (waits for the last one)."""
+        out = []
+        for e0, e1, e2, e3 in self.events:
+            e3.synchronize()
+            out.append((e0.elapsed_time(e1), e1.elapsed_time(e2),
+                        e2.elapsed_time(e3)))
+        return out
+
+
+def train_step(mesh, apply_fn: Callable, params, optimizer=None,
+               loss_fn: Callable = softmax_xent,
+               rules: Callable = mobilenet_param_rules,
+               data_axis: str = "data"):
+    """Build the training step over ``mesh``: ``(step, params,
+    opt_state)``, as the JAX ``train_step``.
+
+    - ``apply_fn(params, x, train=True)`` is the forward.  A tree apply
+      that caches a module per tree (``models.convert.tree_module_of``:
+      ``mobilenet_v1_tree_apply``, ``mobilenet_v2_tree_apply``) is
+      replaced by its module, built once from the tree; the step trains
+      the module's leaves and the returned ``params`` is that module
+      (``to_jax`` carries it back to a tree).  An ``nn.Module`` as
+      ``params`` is trained as a copy.  Any other tree is copied to the
+      device with its floating leaves trainable.
+    - ``optimizer(leaves) -> torch.optim.Optimizer`` builds the update
+      (default: :func:`make_optimizer`'s sgd, lr 1e-2, momentum 0.9, as
+      the JAX default ``optax.sgd(1e-2, momentum=0.9)``); it is the
+      returned ``opt_state``.
+    - ``rules`` is accepted for the JAX signature: every leaf stays
+      whole (a ``model`` axis replicates).
+
+    Raises ``ValueError`` when the mesh spans distinct real devices
+    (:func:`mesh_device`)."""
+    del rules  # every leaf replicated (module docstring)
+    from ..models.convert import tree_module_of
+
+    device = mesh_device(mesh)
+    data_size = dict(zip(mesh.axis_names, mesh.devices.shape)).get(
+        data_axis, 1)
+    entry = tree_module_of(apply_fn) \
+        if not isinstance(params, torch.nn.Module) else None
+    if isinstance(params, torch.nn.Module):
+        model = copy.deepcopy(params).to(device)
+        leaves = _module_leaves(model)
+        params, apply = model, apply_fn
+    elif entry is not None:
+        build, apply = entry
+        model = build(params).to(device)
+        leaves = _module_leaves(model)
+        params = model
+    else:
+        leaves = []
+        params = _trainable_tree(params, device, leaves)
+        apply = apply_fn
+    opt_state = (optimizer or make_optimizer())(leaves)
+    step = TrainStep(apply, params, opt_state, leaves, loss_fn, device,
+                     data_size)
+    return step, params, opt_state
+
+
+def trained_tree(params: Any) -> Any:
+    """The JAX-layout numpy tree of a step's ``params``: a module through
+    its inverse (``models.convert.MODULE_TO_JAX``), a tree leaf by leaf
+    (owned copies, so later steps do not write into it)."""
+    from ..core.buffer import to_numpy
+    from ..models.convert import MODULE_TO_JAX
+
+    if isinstance(params, torch.nn.Module):
+        to_jax = MODULE_TO_JAX.get(type(params))
+        if to_jax is None:
+            raise ValueError(f"no JAX-layout inverse for module "
+                             f"{type(params).__name__}")
+        return to_jax(params)
+    if isinstance(params, dict):
+        return {k: trained_tree(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(trained_tree(v) for v in params)
+    if isinstance(params, torch.Tensor):
+        return to_numpy(params.detach().contiguous()).copy()
+    return params

@@ -31,14 +31,16 @@ kept in ``history`` and noted in the flight recorder
 (``runtime/actuators.py``, kind ``model``): ``swap`` and ``canary`` take
 the model reference as a TEXT value, ``promote``/``rollback`` are
 numeric and playbook-drivable; a failed operation raises
-:class:`LifecycleError`, an ``ActuationError``.  Not in this slice:
-checkpoint step directories (the trainer's orbax layout) as swap
-sources.
+:class:`LifecycleError`, an ``ActuationError``.  A checkpoint step
+directory (``root@latest``, ``trainers/checkpoint.py``) is a weights-only
+swap source: its tree replaces the weights and the serving architecture
+stays.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 import types
@@ -259,8 +261,21 @@ class VersionManager:
 
         entry = self.entry
         resolved, tag = resolve_model_uri_versioned(model)
-        source = resolved if isinstance(resolved, str) \
-            else getattr(resolved, "name", repr(type(resolved)))
+        if isinstance(resolved, str) and os.path.isdir(resolved):
+            # a checkpoint (step) directory: weights-only swap — load the
+            # tree and keep the serving architecture
+            from ..trainers.checkpoint import load_dir
+
+            source = str(resolved)
+            try:
+                resolved = load_dir(resolved)
+            except ValueError as e:
+                raise LifecycleError(
+                    f"{entry.label()}: staging {source!r} failed: {e}"
+                ) from e
+        else:
+            source = resolved if isinstance(resolved, str) \
+                else getattr(resolved, "name", repr(type(resolved)))
         with self._lock:
             self._seq += 1
             version = str(version or tag or f"v{self._seq}")

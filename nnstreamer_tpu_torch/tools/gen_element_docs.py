@@ -284,6 +284,25 @@ PROP_DOCS = {
     ("datareposrc", "tensors_sequence"): "Select/reorder tensors per "
         "sample, e.g. `1,0`.",
     ("datareposrc", "seed"): "Shuffle RNG seed.",
+    # -- trainer ----------------------------------------------------------
+    ("tensor_trainer", "framework"): "Trainer sub-plugin (`torch-optim` "
+        "flagship).",
+    ("tensor_trainer", "model_config"): "Model/optimizer config (dict or "
+        "JSON path) interpreted by the sub-plugin.",
+    ("tensor_trainer", "model_save_path"): "Where the trained params are "
+        "saved on completion.",
+    ("tensor_trainer", "model_load_path"): "Warm-start params.",
+    ("tensor_trainer", "num_inputs"): "Leading tensors of each sample "
+        "that are model inputs.",
+    ("tensor_trainer", "num_labels"): "Following tensors that are labels.",
+    ("tensor_trainer", "num_training_samples"): "Training samples per "
+        "epoch.",
+    ("tensor_trainer", "num_validation_samples"): "Validation samples per "
+        "epoch.",
+    ("tensor_trainer", "epochs"): "Total epochs; EOS is held until "
+        "training completes.",
+    ("tensor_trainer", "completion_timeout"): "Seconds to wait for "
+        "epoch/training completion before erroring.",
     # -- sources ----------------------------------------------------------
     ("device_src", "pattern"): "`noise`, `zeros`, `ones`, `ramp`, or "
         "`counter` — frames generated ON the device (no host copy).",
@@ -321,7 +340,9 @@ EXAMPLES = {
         "queue prefetch-host=true ! tensor_decoder mode=bounding_boxes "
         "option1=mobilenet-ssd-postprocess option4=640:480 ! appsink",
     "datareposrc": "datareposrc location=train.dat json=train.json "
-        "epochs=10 is-shuffle=true ! tensor_sink",
+        "epochs=10 ! tensor_trainer framework=torch-optim num-inputs=1 "
+        "num-labels=1 num-training-samples=500 epochs=10 "
+        "model-save-path=out.ckpt ! tensor_sink",
     "tensor_if": "appsrc ! tensor_if compared-value=A_VALUE "
         "compared-value-option=0:0 supplied-value=0.5 operator=ge "
         "then=PASSTHROUGH else=SKIP ! tensor_sink",

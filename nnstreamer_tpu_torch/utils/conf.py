@@ -81,10 +81,22 @@ class Conf:
         v = os.environ.get(f"{ENV_PREFIX}COMMON_ENABLE_ENVVAR", v)
         return v.strip().lower() in _TRUE
 
+    def get_bool(self, section: str, key: str, default: bool = False) -> bool:
+        v = self.get(section, key, "")
+        if not v:
+            return default
+        return v.strip().lower() in _TRUE
+
     @property
     def extra_plugin_modules(self) -> List[str]:
         v = self.get("common", "plugins", "")
         return [m for m in v.split(":") if m.strip()]
+
+    @property
+    def element_restriction(self) -> Optional[List[str]]:
+        v = self.get("element", "restriction", "")
+        items = [m for m in v.split(":") if m.strip()]
+        return items or None
 
     def framework_priority(self, ext: str) -> List[str]:
         v = self.get("filter", f"framework_priority_{ext.lstrip('.')}", "")

@@ -6,7 +6,8 @@ recent invoke latencies, overflow-safe accumulators, throughput as
 1000×FPS, and the thresholded LATENCY bus report).  The metrics registry
 pulls :meth:`InvokeStats.snapshot` at scrape time (``obs/metrics.py``).
 The JAX package's process-wide XLA compile counters have no counterpart:
-the port compiles no programs.
+the port compiles no programs.  :class:`DispatchStats` is its count of
+launches by launch site, for a caller that keeps one.
 """
 
 from __future__ import annotations
@@ -287,3 +288,32 @@ class DispatchSampler:
         self._last_out = (outs[-1] if outs else None) \
             if not _hooks.DISABLED else None
         return t2
+
+
+class DispatchStats:
+    """A process-wide count of program launches by launch site
+    (``filter`` / ``transform`` / ``decoder`` / ``decoder_pack`` in the
+    JAX package, whose ``bench.py`` gates dispatches per frame on a delta
+    of :attr:`total`).  One short lock per count."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._sites: dict = {}
+
+    def count(self, site: str, n: int = 1) -> None:
+        with self._lock:
+            self._sites[site] = self._sites.get(site, 0) + int(n)
+
+    @property
+    def total(self) -> int:
+        with self._lock:
+            return sum(self._sites.values())
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._sites)
+
+    def reset(self) -> None:
+        """Tests/bench only."""
+        with self._lock:
+            self._sites.clear()

@@ -53,6 +53,16 @@ prologue) sharded over ``data:4`` and ``data:2,model:2`` against the
 unsharded invoke — logits within 5e-2 at bf16 and 1e-4 at f32,
 detections equal — each kernel launched once per shard; and
 ``stage_handoff`` keeping a card frame on the card with one ``d2d`` row.
+Training on the card: both kernels' wrappers raise on a card input that
+requires grad under grad mode (no backward kernel exists) and launch
+under ``torch.no_grad()``; three ``train_step`` steps of MobileNetV1 at
+width 0.25 (f32, TF32 off, lr 1e-4) against the CPU's — the first loss
+rtol 1e-4, the later ones 5e-3, leaves atol 1e-4 (about 3x the largest
+reading on the card, 3.2e-5), and each leaf's update (after − before)
+within ``tests/test_torch_training.py``'s relative-norm limits against
+the JAX step (0.1 under sgd, 0.4 under adam/adamw); and the
+``torch-optim`` trainer fed card samples written on a side stream,
+training on the card with the losses of the same samples on the CPU.
 """
 
 import os
@@ -1675,3 +1685,136 @@ def test_stage_handoff_on_card(virtual_cards):
     assert y.data_ptr() != x.data_ptr() and torch.equal(y, x)
     assert mesh.device_ids_of(y) == (4,)
     assert (t1[0] - t0[0], t1[1] - t0[1]) == (1, 4096) and h1 == h0
+
+
+# -- training on the card ----------------------------------------------------------
+
+
+def test_kernel_wrappers_refuse_grad_on_card(card):
+    """No backward kernel: a card input that requires grad raises under
+    grad mode, naming the kernel; under no_grad both kernels launch."""
+    x = torch.rand(2, 8, 8, 3, device=card, requires_grad=True)
+    q = torch.randn(1, 2, 64, 64, device=card, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="scale_bias_cast"):
+        kernels.scale_bias_cast(x, 2.0, 1.0)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        kernels.flash_attention(q, q.detach(), q.detach())
+    n0 = (kernels.scale_bias_cast.launches, kernels.flash_attention.launches)
+    with torch.no_grad():
+        y = kernels.scale_bias_cast(x, 2.0, 1.0)
+        o = kernels.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert (kernels.scale_bias_cast.launches,
+            kernels.flash_attention.launches) == (n0[0] + 1, n0[1] + 1)
+    torch.testing.assert_close(
+        y, kernels.scale_bias_cast_reference(x.detach(), 2.0, 1.0))
+    assert bool(torch.isfinite(o).all())
+    # the plain versions keep autograd on the CPU
+    xc = torch.rand(2, 3, requires_grad=True)
+    kernels.scale_bias_cast(xc, 2.0, 1.0).sum().backward()
+    assert torch.equal(xc.grad, torch.full((2, 3), 2.0))
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam", "adamw"])
+def test_train_step_on_card_matches_cpu(card, name, monkeypatch):
+    import functools
+
+    from nnstreamer_tpu_torch.models import convert, mobilenet
+    from nnstreamer_tpu_torch.parallel import mesh, sharded
+    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((3, 16, 32, 32, 3)).astype(np.float32)
+    ys = rng.integers(0, 10, (3, 16)).astype(np.int32)
+    tree = mobilenet.mobilenet_v1_init(0, 10, 0.25)
+    apply = functools.partial(convert.mobilenet_v1_tree_apply,
+                              dtype=torch.float32)
+    lr = 1e-4
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        recs = mesh.local_devices(dev)[:1]
+        step, p, o = sharded.train_step(
+            mesh.make_mesh("data:1", recs), apply, tree,
+            optimizer=_make_optimizer({"optimizer": name, "lr": lr}))
+        losses = []
+        for x, y in zip(xs, ys):
+            p, o, loss = step(p, o, x, y)
+            assert loss.device.type == dev
+            losses.append(float(loss))
+        runs[dev] = (losses, sharded.trained_tree(p))
+    assert runs["cuda"][0][0] == pytest.approx(runs["cpu"][0][0], rel=1e-4)
+    assert runs["cuda"][0] == pytest.approx(runs["cpu"][0], rel=5e-3)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k])
+        elif isinstance(t, list):
+            for v in t:
+                yield from leaves(v)
+        else:
+            yield t
+
+    limit = {"sgd": 0.1, "adam": 0.4, "adamw": 0.4}[name]
+    for a, b, i0 in zip(leaves(runs["cuda"][1]), leaves(runs["cpu"][1]),
+                        leaves(tree)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+        nb = np.linalg.norm(b - i0)
+        if nb:
+            assert np.linalg.norm(a - b) / nb <= limit
+        else:
+            assert np.array_equal(a, b)
+
+
+def test_trainer_on_card_with_side_stream_samples(card, monkeypatch):
+    """Card samples written on a side stream and pushed with it current
+    (as a streaming thread on its own stream would): the trainer waits on
+    their events before it stacks them on its worker thread, trains on
+    the card, and its epoch losses equal the CPU trainer's on the same
+    samples."""
+    from nnstreamer_tpu_torch.trainers import TrainerProps
+    from nnstreamer_tpu_torch.trainers.torch_optim import TorchOptimTrainer
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    def apply(params, x, train=False):
+        return x @ params["w"] + params["b"]
+
+    rng = np.random.default_rng(4)
+    xs = rng.standard_normal((32, 1, 256)).astype(np.float32)
+    ys = (xs.sum(axis=(1, 2)) > 0).astype(np.int32).reshape(32, 1, 1)
+    losses = {}
+    side = torch.cuda.Stream()
+    for dev in ("cuda", "cpu"):
+        seen = []
+        sp = TorchOptimTrainer()
+        sp.configure(TrainerProps(
+            model_config={"apply": apply, "init": {
+                "w": np.zeros((256, 2), np.float32),
+                "b": np.zeros(2, np.float32)}, "batch_size": 8, "lr": 0.1},
+            num_training_samples=32, num_epochs=2, device=dev),
+            lambda ev, data: seen.append(data.get("training_loss"))
+            if ev == "epoch-completion" else None)
+        sp.start()
+        try:
+            for _ in range(2):
+                for x, y in zip(xs, ys):
+                    if dev == "cpu":
+                        sp.push_data([x], [y])
+                        continue
+                    with torch.cuda.stream(side):
+                        t = torch.from_numpy(x).to(card) * 1.0
+                        for _ in range(20):   # a long write
+                            t = t * 1.0
+                        sp.push_data([t], [torch.from_numpy(y)])
+            assert sp.finished.wait(120)
+            assert sp.error is None
+            assert sp.built[2]["w"].device.type == dev
+        finally:
+            sp.stop()
+        losses[dev] = seen
+    assert len(losses["cuda"]) == 2
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)

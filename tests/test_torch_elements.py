@@ -141,7 +141,7 @@ def test_element_registry_matches_jax_package():
                    "nnstreamer_tpu.")
     port = _builtin(truntime.list_elements(), truntime.element_factory,
                     "nnstreamer_tpu_torch.")
-    assert port == jax - {"tensor_trainer"}
+    assert port == jax
 
 
 def test_filter_registry_matches_jax_package():

@@ -81,7 +81,8 @@ def test_port_imports_with_jax_blocked():
                 "parallel.collectives", "obs.meshstat",
                 "edge", "edge.wire", "edge.ntputil", "edge.devicechannel",
                 "edge.transport", "edge.query", "edge.mqtt",
-                "edge.grpc_bridge"):
+                "edge.grpc_bridge", "trainers", "trainers.torch_optim",
+                "trainers.checkpoint", "elements.trainer"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 

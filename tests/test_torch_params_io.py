@@ -200,8 +200,13 @@ def test_modeluri_same_outputs_and_errors_in_both_packages(tmp_path):
 def test_modeluri_registered_resolver_and_checkpoint_root(tmp_path):
     root = tmp_path / "ckpts"
     (root / "100").mkdir(parents=True)
-    with pytest.raises(tmodeluri.ModelUriError, match="trainer"):
-        tmodeluri.resolve_model_uri_versioned(f"{root}@100")
+    for ref in (f"{root}@100", f"{root}@latest"):
+        assert tmodeluri.resolve_model_uri_versioned(ref) == \
+            jmodeluri.resolve_model_uri_versioned(ref) == \
+            (str(root / "100"), "100")
+    for ref in (f"{root}@7", f"{root}@v1"):
+        assert _outcome(tmodeluri.resolve_model_uri_versioned, ref) == \
+            _outcome(jmodeluri.resolve_model_uri_versioned, ref)
     target = tmp_path / "m.npz"
     target.write_bytes(b"")
     for mod in (tmodeluri, jmodeluri):
