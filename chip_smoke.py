@@ -13,6 +13,7 @@
     python3 chip_smoke.py --mqtt                      # build + phase 18 only
     python3 chip_smoke.py --parallel                  # build + phase 19 only
     python3 chip_smoke.py --training                  # build + phase 20 only
+    python3 chip_smoke.py --importers                 # build + phase 21 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -27,8 +28,9 @@ repaired elements with the static analyzer against all of them, and the
 edge layer (query offload across processes and within one, the pooled
 ViT served to several clients, pub/sub), and MQTT (a camera in another
 process fed to the SSD through a broker, the pooled ViT found through the
-broker and moved mid-run, the gRPC bridge) — through ``parse_launch`` at
-full width.
+broker and moved mid-run, the gRPC bridge), and in-pipeline training, and
+the model-file importers (ONNX and TFLite MobileNetV2, TF graphs) with the
+native wire codec — through ``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
@@ -418,7 +420,35 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    seconds and the flip stall printed.  (e) Both kernels' wrappers refuse
    a card input that requires grad and launch under ``no_grad``.  (f) The
    analyzer over phase 20's descriptions: 0 errors;
-21. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+21. the importers (``filters/onnx.py``, ``tflite.py``, ``tensorflow.py``)
+   on files the tests' writer (``tests/torch_model_files.py``) makes from
+   seeds, and the native codec, under PyTorch's default switches (cuDNN
+   TF32 on, matmuls float32: what a user's pipeline gets).  (a) The
+   QLinear MobileNetV2 1.0 (224x224, 1000 classes) through
+   ``device_src`` (uint8 256 frames) → the normalize on
+   ``scale_bias_cast`` → the NHWC→NCHW transpose → ``tensor_filter
+   framework=onnxruntime`` → ``image_labeling``, both transforms fused
+   into the filter, in each qmode (bf16, dequant, int8, float): frames/s
+   and the p50 window over 4 windows, the kernel's launches (at least one
+   a window), then one batch-2 window on the card against the CPU, with
+   TF32 off and again under the defaults: int8 codes equal, bf16/dequant
+   within 2 output quanta, float within 8 (16 under TF32), top-1 equal
+   where the CPU's top-2 margin exceeds the tolerance.  (b) The uint8
+   MobileNetV2 (65 operators, 1001 classes) through
+   ``framework=tensorflow-lite`` for auto, dequant and float, the same
+   numbers; dequant within 2 quanta, auto (bf16) within 4, float within
+   0.5 (1 under TF32).  (c) The speech ``conv`` graph (64 filters) on 64
+   seeded 1 s clips (clips/s) and one clip against the CPU within 1e-4
+   (1e-3 under TF32); mnist at batch 256 behind the /255 normalize, a
+   batch-2 window against the CPU within 1e-5 both ways.  (d) The native
+   protobuf codec loads (no quiet fallback), encodes phase 18c's buffers
+   (the SSD's batch-256 outputs, the batch of camera frames) byte-equal
+   to the Python path and decodes them back equal on both paths; encode
+   and decode MB/s of each on the card's host; then phase 18c's path
+   itself, 4 windows with each codec (native, Python, Python, native):
+   host ms a window, and the ms of it in the outputs' copy from the card,
+   the encode and the decode;
+22. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -430,9 +460,9 @@ unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
 line); ``--elements``, ``--obs``, ``--control``, ``--repairs``,
-``--edge``, ``--mqtt``, ``--parallel`` and ``--training`` do the same
-for phases 13, 14, 15, 16, 17, 18, 19 and 20 (phase 16 alone analyzes
-only its own descriptions).
+``--edge``, ``--mqtt``, ``--parallel``, ``--training`` and
+``--importers`` do the same for phases 13, 14, 15, 16, 17, 18, 19, 20 and
+21 (phase 16 alone analyzes only its own descriptions).
 """
 
 from __future__ import annotations
@@ -839,10 +869,16 @@ def phase_kernels(card: str, power: str):
         ("f32", (2, 224, 224, 3), torch.float32, torch.bfloat16),
         ("bf16", (1, 299, 299, 3), torch.bfloat16, torch.float32),
         ("bf16", (3, 5), torch.bfloat16, torch.bfloat16),
+        # phase 21: the normalize ahead of the ONNX filter, and mnist's
+        # div:255 (scale 1/255, bias 0)
+        ("u8 importers onnx", (IMP_BATCH, IMP_SIZE, IMP_SIZE, 3),
+         torch.uint8, torch.float32),
+        ("u8 importers mnist", (IMP_BATCH, 784), torch.uint8,
+         torch.float32, (1.0 / 255.0, 0.0)),
     ]
-    scale, bias = 1.0 / 127.5, -127.5
     worst = 0.0
-    for label, shape, idt, odt in cases:
+    for label, shape, idt, odt, *affine in cases:
+        scale, bias = affine[0] if affine else (1.0 / 127.5, -127.5)
         if idt == torch.uint8:
             x = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
         elif idt.is_floating_point:
@@ -864,6 +900,7 @@ def phase_kernels(card: str, power: str):
                                "its plain version")
         worst = max(worst, diff)
     # time at the main path's shape and types
+    scale, bias = 1.0 / 127.5, -127.5
     x = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g,
                       dtype=torch.uint8).to(dev)
     n = x.numel()
@@ -7208,9 +7245,10 @@ def mqtt_vit(card: str, power: str):
     return res
 
 
-def mqtt_grpc(card: str, power: str):
+def mqtt_grpc(card: str, power: str, windows: int = MQTT_GRPC_WINDOWS):
     """18c: the SSD's outputs at batch BATCH over the gRPC bridge, where
-    grpcio is installed."""
+    grpcio is installed; ``windows`` windows, the host seconds from the
+    first push to the last pull in ``host_s``."""
     try:
         import grpc  # noqa: F401
     except ImportError as e:
@@ -7226,7 +7264,7 @@ def mqtt_grpc(card: str, power: str):
     g = torch.Generator().manual_seed(SEED + 21)
     frames = [torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g,
                             dtype=torch.uint8).to(EDGE_DEVICE)
-              for _ in range(MQTT_GRPC_WINDOWS)]
+              for _ in range(windows)]
     head = ("appsrc name=src max-buffers=4 ! tensor_transform "
             f"mode=arithmetic option={NORM} backend=cuda ! tensor_filter "
             "framework=torch-cuda model=ssd_mobilenet_v2 ! ")
@@ -7236,13 +7274,13 @@ def mqtt_grpc(card: str, power: str):
     for p in (local, send):
         p["src"].spec = TensorsSpec.parse(f"3:{SIZE}:{SIZE}:{BATCH}", "uint8")
     with local:
-        want, _, _ = edge_loop(local, frames, MQTT_GRPC_WINDOWS, 1)
+        want, _, _ = edge_loop(local, frames, windows, 1)
         edge_eos(local)
     send.start()
     try:
         recv = edge_pipe(f"tensor_src_grpc name=gr server=false "
                          f"port={send['gs'].bound_port} idl=protobuf "
-                         f"num-buffers={MQTT_GRPC_WINDOWS} ! appsink "
+                         f"num-buffers={windows} ! appsink "
                          "name=out max-buffers=8", "grpc-recv")
         recv.start()
         try:
@@ -7252,10 +7290,12 @@ def mqtt_grpc(card: str, power: str):
                     raise RuntimeError("mqtt (c): no RecvTensors subscriber")
                 time.sleep(0.02)
             kernels.scale_bias_cast.launches = 0
+            t0 = time.perf_counter()
             for i, f in enumerate(frames):
                 send["src"].push_buffer(Buffer(tensors=[Tensor(f)], pts=i))
             got = [recv["out"].pull(timeout=300)
-                   for _ in range(MQTT_GRPC_WINDOWS)]
+                   for _ in range(windows)]
+            host_s = time.perf_counter() - t0
             launches = kernels.scale_bias_cast.launches
         finally:
             recv.stop()
@@ -7269,9 +7309,9 @@ def mqtt_grpc(card: str, power: str):
         nbytes += sum(t.nbytes for t in g_.tensors)
     _edge_card_gate(launches > 0, "mqtt (c): scale_bias_cast never "
                     "launched", "18c's launches")
-    res = {"ran": True, "windows": MQTT_GRPC_WINDOWS, "bytes": nbytes,
-           "launches": launches}
-    print(f"mqtt (c) gRPC bridge: {MQTT_GRPC_WINDOWS} SSD windows at batch "
+    res = {"ran": True, "windows": windows, "bytes": nbytes,
+           "launches": launches, "host_s": host_s}
+    print(f"mqtt (c) gRPC bridge: {windows} SSD windows at batch "
           f"{BATCH} through tensor_sink_grpc → tensor_src_grpc, {nbytes} B "
           f"byte-equal to local; scale_bias_cast {launches} launches "
           f"[{card}, {power}]", flush=True)
@@ -8537,6 +8577,512 @@ def phase_training(card: str, power: str):
     return res
 
 
+# -- phase 21: the importers (onnx, tensorflow-lite, tensorflow), the codec --
+
+IMP_DEVICE = "cuda"       # the importer phase's device (a CPU dry run: cpu)
+IMP_BATCH = 256
+IMP_SIZE = 224
+IMP_WIDTH = 1.0
+IMP_WINDOWS = 4           # windows of each qmode's run: frames/s over 2..n
+IMP_CHECK_BATCH = 2       # frames of the card-vs-CPU window
+IMP_SPEECH_FILTERS = 64   # conv_actions_frozen.pb's width
+IMP_CLIPS = 64            # speech clips streamed through the filter
+IMP_CLIP_POOL = 8         # distinct seeded clips, staged on the card
+IMP_MNIST_WINDOWS = 8     # mnist windows of IMP_BATCH digits
+IMP_CODEC_REPS = 5        # encodes/decodes timed per path, median taken
+#: card-vs-CPU tolerances in output quanta (the output tensor's scale),
+#: with TF32 off: the integer modes' f32 sums of integer codes are exact
+#: below 2**24 on both devices, and the pools sum in one fixed order;
+#: real-valued activations round to their quantized grid (onnx float) or
+#: to bf16 (tflite auto) after each op, so a rounding that flips on one
+#: device moves later codes by a few quanta (the JAX package and the port,
+#: both on the CPU, part by up to 5 quanta in onnx float at 96x96).  Top-1
+#: must agree where the CPU's top-2 margin exceeds the tolerance.
+IMP_TOL_QUANTA = {("onnx", "int8"): 0, ("onnx", "bf16"): 2,
+                  ("onnx", "dequant"): 2, ("onnx", "float"): 8,
+                  ("tflite", "auto"): 4, ("tflite", "dequant"): 2,
+                  ("tflite", "float"): 0.5}
+#: PyTorch's default switches, which a user's pipeline runs under: cuDNN
+#: convolutions take float32 operands at TF32, matmuls stay float32.  The
+#: importers set no switch of their own, so the streams run so, and each
+#: check window runs again so, held to these tolerances.  Integer codes
+#: (|c| <= 255) enter TF32 unrounded and bf16 and float64 convolutions do
+#: not use it, so every mode but the float ones keeps its TF32-off
+#: tolerance (the H100 read the same values both ways); the float modes'
+#: operands round to 10 mantissa bits: about twice the H100's readings
+#: (onnx float 8.0 quanta, tflite float 0.375; speech 1.7e-4).
+IMP_TF32 = (True, False)  # (cudnn.allow_tf32, cuda.matmul.allow_tf32)
+IMP_TOL_QUANTA_TF32 = {**IMP_TOL_QUANTA, ("onnx", "float"): 16,
+                       ("tflite", "float"): 1}
+IMP_ONNX_QMODES = ("bf16", "dequant", "int8", "float")
+IMP_TFLITE_QMODES = ("auto", "dequant", "float")
+IMP_SPEECH_TOL = 1e-4     # softmax probabilities, card vs CPU
+IMP_SPEECH_TOL_TF32 = 1e-3   # ... under IMP_TF32 (its convolutions)
+IMP_MNIST_TOL = 1e-5      # matmuls only: the same under IMP_TF32
+IMP_GRPC_WINDOWS = 4      # 18c's windows per codec path in 21d
+ONNX_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic option={norm} "
+    "backend=cuda ! "
+    "tensor_transform name=tr mode=transpose option=1:2:0:3 ! "
+    "tensor_filter name=onnx framework=onnxruntime model={model} "
+    "custom=qmode:{qmode} ! {dec}appsink name=out max-buffers={sink}")
+TFLITE_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_filter name=tflite framework=tensorflow-lite model={model} "
+    "custom=qmode:{qmode} ! {dec}appsink name=out max-buffers={sink}")
+SPEECH_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_filter name=speech framework=tensorflow model={model} ! "
+    "appsink name=out max-buffers={sink}")
+MNIST_PIPE = (
+    "device_src name=src num-buffers={n} ! "
+    "tensor_transform name=norm mode=arithmetic "
+    "option=typecast:float32,div:255.0 backend=cuda ! "
+    "tensor_filter name=mnist framework=tensorflow model={model} "
+    "input=784:{b} inputtype=float32 ! appsink name=out max-buffers={sink}")
+
+
+def imp_files() -> dict:
+    """The model files of phase 21, written from seeds by the tests'
+    writer (``tests/torch_model_files.py``) into the ignored ``build/``.
+    The writer is loaded from its file, so the tests directory does not
+    join the import path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_model_files", os.path.join(HERE, "tests",
+                                          "torch_model_files.py"))
+    mf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mf)
+
+    d = os.path.join(decoders_dir(), "importers")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    files = {
+        "onnx": mf.write_onnx_qlinear(os.path.join(d, "mnv2_q.onnx"), SEED,
+                                      IMP_WIDTH, IMP_SIZE, 1000),
+        "tflite": mf.write_tflite_quant(os.path.join(d, "mnv2_q.tflite"),
+                                        SEED, IMP_WIDTH, IMP_SIZE, 1001),
+        "speech": mf.write_speech_pb(os.path.join(d, "conv_actions.pb"),
+                                     SEED, IMP_SPEECH_FILTERS),
+        "mnist": mf.write_mnist_pb(os.path.join(d, "mnist.pb"), SEED),
+        "labels_1000": os.path.join(d, "labels_1000.txt"),
+        "labels_1001": os.path.join(d, "labels_1001.txt"),
+        "mf": mf,
+    }
+    for n in (1000, 1001):
+        with open(files[f"labels_{n}"], "w") as f:
+            f.write("".join(f"class {i}\n" for i in range(n)))
+    print(f"importers: model files written in "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"({os.path.getsize(files['onnx'])} B onnx, "
+          f"{os.path.getsize(files['tflite'])} B tflite, "
+          f"{os.path.getsize(files['speech'])} B speech pb)", flush=True)
+    return files
+
+
+def _imp_out_scale(kind: str, path: str) -> float:
+    """The output tensor's quantization scale: one output quantum."""
+    if kind == "onnx":
+        from nnstreamer_tpu_torch.filters.onnx_import import OnnxModel
+
+        return float(np.ravel(OnnxModel(path).inits["logits_scale"])[0])
+    from nnstreamer_tpu_torch.filters.tflite_import import TFLiteModel
+
+    m = TFLiteModel(path)
+    return float(m.tensors[m.outputs[0]].scale[0])
+
+
+def set_tf32(cudnn: bool, matmul: bool) -> None:
+    """Set PyTorch's two TF32 switches (cuDNN convolutions, matmuls)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def imp_windows(desc: str, frames):
+    """One window of ``desc`` on the card with TF32 off, on the CPU, and
+    on the card under IMP_TF32 (which stays set after)."""
+    set_tf32(False, False)
+    g, c = card_vs_cpu(desc, frames)
+    set_tf32(*IMP_TF32)
+    _, d, _ = run_pipeline(desc, frames, 1)
+    return g, c, d[0]
+
+
+def imp_card_vs_cpu(kind: str, desc: str, path: str, qmode: str,
+                    card: str, power: str) -> dict:
+    """One window of IMP_CHECK_BATCH frames through ``desc`` on the card
+    and on the CPU, held to IMP_TOL_QUANTA with TF32 off and to
+    IMP_TOL_QUANTA_TF32 under PyTorch's default switches."""
+    rng = np.random.default_rng(SEED + 21)
+    frames = [rng.integers(0, 256, (IMP_CHECK_BATCH, IMP_SIZE, IMP_SIZE, 3),
+                           dtype=np.uint8)]
+    import torch
+
+    g, c, d = imp_windows(desc, frames)
+    lc = c.tensors[0].torch().float()
+    q = _imp_out_scale(kind, path)
+    top2 = lc.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]) / q
+    res = {}
+    for flags, buf, tols in (("tf32_off", g, IMP_TOL_QUANTA),
+                             ("tf32_default", d, IMP_TOL_QUANTA_TF32)):
+        lg = buf.tensors[0].torch().cpu().float()
+        tol = tols[(kind, qmode)]
+        err = float((lg - lc).abs().max()) / q
+        same = bool((lg.argmax(-1) == lc.argmax(-1))[margin > tol].all())
+        print(f"importers {kind} {qmode}: batch {IMP_CHECK_BATCH} card "
+              f"({flags}) vs CPU max |diff| = {err} output quanta "
+              f"(tolerance {tol}; quantum {q}); top-2 margins "
+              f"{margin.tolist()} quanta; top-1 {lg.argmax(-1).tolist()} vs "
+              f"{lc.argmax(-1).tolist()} [{card}, {power}]", flush=True)
+        if tuple(lg.shape) != tuple(lc.shape) or not bool(
+                torch.isfinite(lg).all()) or err > tol or not same:
+            raise RuntimeError(f"importers {kind} {qmode}: card ({flags}) "
+                               f"and CPU disagree ({err} quanta, top-1 "
+                               f"same={same})")
+        res[flags] = {"max_diff_quanta": err, "tol_quanta": tol,
+                      "top1_same": same}
+    return res
+
+
+def imp_stream(kind: str, desc: str, frames, windows: int, batch: int,
+               card: str, power: str, what: str):
+    """``windows`` windows of ``desc`` on the card: frames/s over windows
+    2..n, the p50 window, and the scale_bias_cast launches of the run."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import kernels
+
+    on_card = IMP_DEVICE == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.scale_bias_cast.launches = 0
+    p, bufs, secs = run_pipeline(desc, frames, windows, device=IMP_DEVICE,
+                                 setup=stamp_times)
+    launches = kernels.scale_bias_cast.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    if all("device_done" in b.meta for b in bufs):
+        clock = "CUDA events at the sink"
+        fps, p50 = window_times(bufs, batch)
+    else:
+        # a host buffer (the label) carries no event: its arrival, after
+        # the decoder's one drain of the window, on the host clock
+        clock = "sink arrivals, host clock"
+        ts = [b.meta["t_sink"] for b in bufs]
+        gaps = [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+        fps = (len(ts) - 1) * batch / max(ts[-1] - ts[0], 1e-9)
+        p50 = statistics.median(gaps)
+    segs = [(s.transforms, s.filter, s.decoder) for s in p.fused_segments]
+    print(f"importers {what}: {fps:.1f} frames/s over windows 2..{windows} "
+          f"({clock}) at batch {batch}, p50 window {p50:.3f} ms, host "
+          f"start→EOS "
+          f"{secs:.2f} s, peak device memory {peak:.2f} GiB; fused "
+          f"{segs}; scale_bias_cast launches={launches} [{card}, {power}]",
+          flush=True)
+    return p, bufs, {"frames_per_s": fps, "p50_window_ms": p50,
+                     "clock": clock,
+                     "host_s": secs, "peak_gib": peak, "launches": launches,
+                     "fused": [list(s[0]) for s in segs]}
+
+
+def _imp_labels(bufs, n: int, classes: int) -> int:
+    """``image_labeling`` gives one label a buffer, the argmax over the
+    whole (n, classes) score tensor; each must index into it.  Returns the
+    count of distinct labels."""
+    seen = set()
+    for b in bufs:
+        idx = b.meta.get("label_index")
+        text = bytes(b.tensors[0].np().tobytes()).decode("utf-8")
+        if idx is None or not 0 <= idx < n * classes or \
+                text != b.meta.get("label"):
+            raise RuntimeError(f"importers: label {text!r} (index {idx}) "
+                               f"is no label of a ({n}, {classes}) score")
+        seen.add(idx)
+    return len(seen)
+
+
+def imp_onnx(files: dict, frames, card: str, power: str) -> dict:
+    """21a: the QLinear MobileNetV2 through ``framework=onnxruntime``,
+    behind the normalize (scale_bias_cast, fused into the filter) and the
+    NHWC→NCHW transpose, in each qmode."""
+    res = {}
+    for qmode in IMP_ONNX_QMODES:
+        dec = (f"tensor_decoder name=label mode=image_labeling "
+               f"option1={files['labels_1000']} ! ")
+        desc = ONNX_PIPE.format(n=IMP_WINDOWS, norm=NORM,
+                                model=files["onnx"], qmode=qmode, dec=dec,
+                                sink=IMP_WINDOWS + 4)
+        p, bufs, r = imp_stream("onnx", desc, frames, IMP_WINDOWS, IMP_BATCH,
+                                card, power, f"21a onnx {qmode}")
+        if IMP_DEVICE == "cuda" and r["launches"] < IMP_WINDOWS:
+            raise RuntimeError(f"21a onnx {qmode}: scale_bias_cast launched "
+                               f"{r['launches']} times for {IMP_WINDOWS} "
+                               f"windows")
+        if r["fused"] != [["norm", "tr"]]:
+            raise RuntimeError(f"21a onnx {qmode}: the prologue is not fused "
+                               f"into the filter: {r['fused']}")
+        r["distinct_labels"] = _imp_labels(bufs, IMP_BATCH, 1000)
+        check = ONNX_PIPE.format(n=1, norm=NORM, model=files["onnx"],
+                                 qmode=qmode, dec="", sink=5)
+        r["card_vs_cpu"] = imp_card_vs_cpu("onnx", check, files["onnx"],
+                                           qmode, card, power)
+        res[qmode] = r
+    return res
+
+
+def imp_tflite(files: dict, frames, card: str, power: str) -> dict:
+    """21b: the uint8 MobileNetV2 through ``framework=tensorflow-lite``."""
+    res = {}
+    for qmode in IMP_TFLITE_QMODES:
+        dec = (f"tensor_decoder name=label mode=image_labeling "
+               f"option1={files['labels_1001']} ! ")
+        desc = TFLITE_PIPE.format(n=IMP_WINDOWS, model=files["tflite"],
+                                  qmode=qmode, dec=dec, sink=IMP_WINDOWS + 4)
+        _p, bufs, r = imp_stream("tflite", desc, frames, IMP_WINDOWS,
+                                 IMP_BATCH, card, power,
+                                 f"21b tflite {qmode}")
+        r["distinct_labels"] = _imp_labels(bufs, IMP_BATCH, 1001)
+        check = TFLITE_PIPE.format(n=1, model=files["tflite"], qmode=qmode,
+                                   dec="", sink=5)
+        r["card_vs_cpu"] = imp_card_vs_cpu("tflite", check, files["tflite"],
+                                           qmode, card, power)
+        res[qmode] = r
+    return res
+
+
+def imp_tensorflow(files: dict, card: str, power: str) -> dict:
+    """21c: the speech ``conv`` graph on a stream of seeded 1 s clips, and
+    the mnist graph at batch IMP_BATCH behind the /255 normalize; each
+    held against the CPU."""
+    mf = files["mf"]
+    clips = [mf.seeded_clip(SEED + i) for i in range(IMP_CLIP_POOL)]
+    desc = SPEECH_PIPE.format(n=IMP_CLIPS, model=files["speech"],
+                              sink=IMP_CLIPS + 4)
+    _p, bufs, speech = imp_stream("tf", desc, clips, IMP_CLIPS, 1, card,
+                                  power, "21c speech conv graph (clips)")
+    speech["clips_per_s"] = speech.pop("frames_per_s")
+    probs = np.stack([b.tensors[0].np() for b in bufs]).reshape(
+        IMP_CLIPS, -1)
+    if probs.shape[1] != 12 or not np.allclose(probs.sum(-1), 1, atol=1e-4):
+        raise RuntimeError(f"21c speech: outputs {probs.shape} are not "
+                           f"12-way softmaxes")
+    one = SPEECH_PIPE.format(n=1, model=files["speech"], sink=5)
+    speech["card_vs_cpu"] = imp_prob_check(
+        "speech", one, clips[:1], (IMP_SPEECH_TOL, IMP_SPEECH_TOL_TF32),
+        card, power, mf.SPEECH_LABELS)
+    rng = np.random.default_rng(SEED + 22)
+    digits = [rng.integers(0, 256, (IMP_BATCH, 784), dtype=np.uint8)
+              for _ in range(POOL)]
+    desc = MNIST_PIPE.format(n=IMP_MNIST_WINDOWS, model=files["mnist"],
+                             b=IMP_BATCH, sink=IMP_MNIST_WINDOWS + 4)
+    _p, bufs, mnist = imp_stream("tf", desc, digits, IMP_MNIST_WINDOWS,
+                                 IMP_BATCH, card, power,
+                                 f"21c mnist batch {IMP_BATCH}")
+    one = MNIST_PIPE.format(n=1, model=files["mnist"], b=IMP_CHECK_BATCH,
+                            sink=5)
+    mnist["card_vs_cpu"] = imp_prob_check(
+        "mnist", one, [d[:IMP_CHECK_BATCH] for d in digits[:1]],
+        (IMP_MNIST_TOL, IMP_MNIST_TOL), card, power)
+    return {"speech": speech, "mnist": mnist}
+
+
+def imp_prob_check(what: str, desc: str, frames, tols, card: str,
+                   power: str, labels=None) -> dict:
+    """21c's card-vs-CPU check: the outputs' largest difference with TF32
+    off and under IMP_TF32, held to ``tols`` (in that order)."""
+    g, c, d = imp_windows(desc, frames)
+    want = c.tensors[0].np()
+    res = {}
+    for (flags, buf), tol in zip((("tf32_off", g), ("tf32_default", d)),
+                                 tols):
+        got = buf.tensors[0].np()
+        err = float(np.abs(got - want).max())
+        top = f"; top label {labels[int(got.argmax())]}" if labels else ""
+        print(f"importers 21c {what}: card ({flags}) vs CPU max |diff| = "
+              f"{err} (tolerance {tol}){top} [{card}, {power}]", flush=True)
+        if got.shape != want.shape or not np.isfinite(got).all() or \
+                err > tol:
+            raise RuntimeError(f"21c {what}: card ({flags}) and CPU "
+                               f"disagree ({err})")
+        res[flags] = err
+    return res
+
+
+def imp_codec(card: str, power: str) -> dict:
+    """21d: the native protobuf codec must load here; phase 18c's buffers
+    (the SSD's batch outputs, and the batch of camera frames it reads)
+    encode byte-equal to the Python path and decode back equal, both
+    paths; encode/decode MB/s of each on this host."""
+    import torch
+
+    from nnstreamer_tpu_torch import nativelib
+    from nnstreamer_tpu_torch.converters import codecs
+    from nnstreamer_tpu_torch.core import Buffer
+    from nnstreamer_tpu_torch.elements.filter import FilterSingle
+
+    nativelib._lib, nativelib._tried = None, False
+    lib = nativelib.get_native()
+    if lib is None:
+        raise RuntimeError("21d: the native codec did not load on this "
+                           "machine (no quiet fallback)")
+    edge_register_ssd("ssd_mobilenet_v2", BATCH)
+    g = torch.Generator().manual_seed(SEED + 21)
+    frame = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g,
+                          dtype=torch.uint8)
+    fs = FilterSingle(framework="torch-cuda", model="ssd_mobilenet_v2",
+                      device=IMP_DEVICE)
+    x = (frame.to(IMP_DEVICE).float() - 127.5) / 127.5
+    outs = [o.cpu().numpy() for o in fs.invoke([x])]
+    bufs = {"ssd_outputs": Buffer.of(*outs), "camera_window":
+            Buffer.of(frame.numpy())}
+    res = {"library": str(nativelib.library_path())}
+    for name, b in bufs.items():
+        spec = b.spec()
+        row = {}
+        frames = {}
+        for path in ("native", "python"):
+            nativelib._lib, nativelib._tried = (lib, True) \
+                if path == "native" else (None, True)
+            enc_t, dec_t = [], []
+            for _ in range(IMP_CODEC_REPS):
+                t0 = time.perf_counter()
+                f = codecs.protobuf_encode(b, spec)
+                enc_t.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                out, _ = codecs.protobuf_decode(f)
+                dec_t.append(time.perf_counter() - t0)
+            frames[path] = f
+            for got, want in zip(out.tensors, b.tensors):
+                if got.np().tobytes() != want.np().tobytes():
+                    raise RuntimeError(f"21d {name}: {path} decode differs")
+            mb = len(f) / 1e6
+            row[path] = {"encode_mb_s": mb / statistics.median(enc_t),
+                         "decode_mb_s": mb / statistics.median(dec_t)}
+        nativelib._lib, nativelib._tried = lib, True
+        if frames["native"] != frames["python"]:
+            raise RuntimeError(f"21d {name}: native and Python encodings "
+                               f"differ")
+        row["bytes"] = len(frames["native"])
+        print(f"importers 21d codec {name}: {row['bytes']} B, native == "
+              f"Python bytes both ways; encode MB/s native "
+              f"{row['native']['encode_mb_s']:.1f} vs Python "
+              f"{row['python']['encode_mb_s']:.1f}; decode MB/s native "
+              f"{row['native']['decode_mb_s']:.1f} vs Python "
+              f"{row['python']['decode_mb_s']:.1f} (host of {card}, "
+              f"{power})", flush=True)
+        res[name] = row
+    res["grpc_18c"] = imp_codec_on_grpc(card, power)
+    print(f"importers 21d: native codec loaded from {res['library']}",
+          flush=True)
+    return res
+
+
+def imp_codec_on_grpc(card: str, power: str) -> dict:
+    """21d: phase 18c's path (the SSD's outputs over the gRPC bridge, the
+    one path here whose frames go through the protobuf codec) with the
+    native codec and with the Python one (``NNS_TPU_TORCH_NO_NATIVE``),
+    in the order native, Python, Python, native: the host seconds a
+    window from the first push to the last pull, and the seconds a window
+    spends in the bridge's protobuf encode and decode, apart from the
+    host copy of the outputs that the encode waits on."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError as e:
+        print(f"importers 21d on 18c: not run: grpcio is not installed "
+              f"here ({e})", flush=True)
+        return {"ran": False, "reason": str(e)}
+    from nnstreamer_tpu_torch import nativelib
+    from nnstreamer_tpu_torch.edge import grpc_bridge
+
+    codec = grpc_bridge._CODECS["protobuf"]
+    spent = {"fetch": 0.0, "encode": 0.0, "decode": 0.0}
+
+    def encode(buf, *a):
+        # the outputs' host copies first (the wait for the SSD on the
+        # card), cached on the tensors, so the encode times the codec
+        t0 = time.perf_counter()
+        for t in buf.tensors:
+            t.np()
+        t1 = time.perf_counter()
+        try:
+            return codec[0](buf, *a)
+        finally:
+            spent["fetch"] += t1 - t0
+            spent["encode"] += time.perf_counter() - t1
+
+    def decode(frame):
+        t0 = time.perf_counter()
+        try:
+            return codec[1](frame)
+        finally:
+            spent["decode"] += time.perf_counter() - t0
+
+    n = IMP_GRPC_WINDOWS
+    runs = {"native": [], "python": []}
+    grpc_bridge._CODECS["protobuf"] = (encode, decode)
+    try:
+        for path in ("native", "python", "python", "native"):
+            if path == "python":
+                os.environ["NNS_TPU_TORCH_NO_NATIVE"] = "1"
+            else:
+                os.environ.pop("NNS_TPU_TORCH_NO_NATIVE", None)
+            nativelib._lib, nativelib._tried = None, False
+            if (nativelib.get_native() is None) != (path == "python"):
+                raise RuntimeError(f"21d on 18c: the {path} codec was not "
+                                   f"the one in use")
+            spent.update(fetch=0.0, encode=0.0, decode=0.0)
+            r = mqtt_grpc(card, power, n)
+            runs[path].append({"host_ms_per_window": r["host_s"] / n * 1e3,
+                               **{f"{k}_ms_per_window": v / n * 1e3
+                                  for k, v in spent.items()}})
+    finally:
+        grpc_bridge._CODECS["protobuf"] = codec
+        os.environ.pop("NNS_TPU_TORCH_NO_NATIVE", None)
+        nativelib._lib, nativelib._tried = None, False
+        nativelib.get_native()
+    for path, rows in runs.items():
+        print(f"importers 21d on 18c, {path} codec: {n} SSD windows at batch "
+              f"{BATCH}, per window: host "
+              f"{[r['host_ms_per_window'] for r in rows]} ms, fetch "
+              f"from the card {[r['fetch_ms_per_window'] for r in rows]} "
+              f"ms, encode {[r['encode_ms_per_window'] for r in rows]}"
+              f" ms, decode "
+              f"{[r['decode_ms_per_window'] for r in rows]} ms "
+              f"(host of {card}, {power})", flush=True)
+    return {"ran": True, "windows": n, **runs}
+
+
+def phase_importers(card: str, power: str) -> dict:
+    """Phase 21: the importer frameworks at full width, and the native
+    codec (see the module doc)."""
+    import torch
+
+    t0 = time.perf_counter()
+    # PyTorch's defaults, which a user's pipeline runs under (earlier
+    # phases leave TF32 off and cuDNN deterministic)
+    set_tf32(*IMP_TF32)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    files = imp_files()
+    rng = np.random.default_rng(SEED + 23)
+    frames = [rng.integers(0, 256, (IMP_BATCH, IMP_SIZE, IMP_SIZE, 3),
+                           dtype=np.uint8) for _ in range(POOL)]
+    res = {"onnx": imp_onnx(files, frames, card, power),
+           "tflite": imp_tflite(files, frames, card, power)}
+    res.update(imp_tensorflow(files, card, power))
+    res["codec"] = imp_codec(card, power)
+    res["launches"] = {
+        "onnx": sum(r["launches"] for r in res["onnx"].values()),
+        "mnist": res["mnist"]["launches"]}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"importers phase: {res['seconds']:.2f} s", flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -8559,6 +9105,7 @@ def main() -> int:
     mqtt_alone = sys.argv[1:] == ["--mqtt"]
     parallel_alone = sys.argv[1:] == ["--parallel"]
     training_alone = sys.argv[1:] == ["--training"]
+    importers_alone = sys.argv[1:] == ["--importers"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -8638,6 +9185,12 @@ def main() -> int:
         print(json.dumps({"training": phase_training(card, power),
                           "card": card, "power_limit": power}))
         return 0
+    if importers_alone:
+        PHASE[0] = "21"
+        print(json.dumps({"importers": phase_importers(card, power),
+                          "card": card, "power_limit": power},
+                         default=str))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     PHASE[0] = "4"
@@ -8676,6 +9229,8 @@ def main() -> int:
                               serving["shared"]["frames_per_s"])
     PHASE[0] = "20"
     training = phase_training(card, power)
+    PHASE[0] = "21"
+    importers = phase_importers(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
@@ -8683,7 +9238,7 @@ def main() -> int:
                       "decoders": decoders, "elements": elements,
                       "obs": obs, "control": control, "repairs": repairs,
                       "edge": edge, "mqtt": mqtt, "parallel": parallel,
-                      "training": training,
+                      "training": training, "importers": importers,
                       "card": card, "power_limit": power}, default=str))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
@@ -8712,7 +9267,9 @@ def main() -> int:
                    "mqtt_camera": mqtt["camera"]["launches"],
                    "mqtt_vit": mqtt["vit"]["launches"]["scale_bias_cast"],
                    "parallel": parallel["launches"]["scale_bias_cast"],
-                   "training": training["launches"]["scale_bias_cast"]}
+                   "training": training["launches"]["scale_bias_cast"],
+                   "importers_onnx": importers["launches"]["onnx"],
+                   "importers_mnist": importers["launches"]["mnist"]}
     if mqtt["grpc"]["ran"]:
         sbc_by_path["mqtt_grpc"] = mqtt["grpc"]["launches"]
     fa_by_path = {"vit": vit_path["flash_launches"],

@@ -26,13 +26,17 @@ needed; it accepts packed and unpacked repeated dimensions.  FlexBuffers
 and FlatBuffers need the ``flatbuffers`` package, imported when a
 payload is first encoded or decoded: without it they raise an
 ``ImportError`` naming the package, and protobuf goes on working.  The
-JAX package first tries a C++ mirror of the protobuf loops
-(``nnstreamer_tpu/native/nns_wire.cc``); the port has only the Python
-path.
+protobuf codec first tries the C++ mirror of its loops
+(``native/nns_wire.cc`` through ``nativelib.py``, built with g++ on first
+use) and takes the Python path only when there is no library: no
+toolchain, a failed build, or ``NNS_TPU_TORCH_NO_NATIVE`` set.  Both paths
+give the same bytes; a frame the native parser calls malformed goes to the
+Python path, which decides.
 """
 
 from __future__ import annotations
 
+import threading
 from fractions import Fraction
 from typing import List, Optional, Sequence, Tuple
 
@@ -292,6 +296,9 @@ def _ld(field: int, payload: bytes) -> bytes:
 
 def protobuf_encode(buf: Buffer, spec: Optional[TensorsSpec] = None) -> bytes:
     arrays, names, rate, fmt = _frame(buf, spec)
+    native = _native_encode(arrays, names, rate, fmt)
+    if native is not None:
+        return native
     out = bytearray()
     out += _tag(1, 0) + _varint(len(arrays))                  # num_tensor
     fr = _tag(1, 0) + _varint(int(rate.numerator)) \
@@ -358,6 +365,9 @@ def _decode_tensor(data: bytes) -> Tuple[str, int, List[int], bytes]:
 
 def protobuf_decode(data: bytes) -> Tuple[Buffer, TensorsSpec]:
     data = bytes(data)
+    native = _native_decode(data)
+    if native is not None:
+        return native
     rate_n = rate_d = 0
     fmt = int(TensorFormat.STATIC.value)
     arrays, names = [], []
@@ -391,3 +401,84 @@ def protobuf_decode(data: bytes) -> Tuple[Buffer, TensorsSpec]:
         else:
             i = _skip(data, i, wire)
     return _rebuild(arrays, names, rate_n, rate_d, fmt)
+
+
+# -- native (C++) protobuf codec, the fast path ------------------------------
+
+def _native_encode(arrays, names, rate, fmt):
+    import ctypes
+
+    from ..nativelib import RANK_LIMIT, get_native
+
+    lib = get_native()
+    if lib is None:
+        return None
+    n = len(arrays)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    payloads = [np.ascontiguousarray(a) for a in arrays]
+    ptrs = (u8p * n)(*[p.ctypes.data_as(u8p) for p in payloads])
+    sizes = (ctypes.c_uint64 * n)(*[p.nbytes for p in payloads])
+    dtypes = (ctypes.c_uint32 * n)(*[
+        int(DType.from_np(a.dtype).value) for a in arrays])
+    dims = (ctypes.c_uint32 * (n * RANK_LIMIT))()
+    for i, a in enumerate(arrays):
+        for d, v in enumerate(_wire_dims(a)):
+            dims[i * RANK_LIMIT + d] = int(v)
+    name_bytes = [nm.encode() for nm in names]
+    name_bufs = [ctypes.create_string_buffer(b, len(b) or 1)
+                 for b in name_bytes]
+    name_ptrs = (u8p * n)(*[ctypes.cast(b, u8p) for b in name_bufs])
+    name_lens = (ctypes.c_uint32 * n)(*[len(b) for b in name_bytes])
+    bound = lib.nns_pb_encode_bound(sizes, name_lens, n)
+    out = np.empty(int(bound), np.uint8)
+    written = lib.nns_pb_encode(
+        ptrs, sizes, dtypes, dims, name_ptrs, name_lens, n,
+        int(rate.numerator), int(rate.denominator), int(fmt.value),
+        out.ctypes.data_as(u8p), bound)
+    if not written:
+        return None
+    return out[:written].tobytes()
+
+
+_scratch = threading.local()
+
+
+def _decode_scratch(ctypes, cap, rank):
+    s = getattr(_scratch, "pb", None)
+    if s is None:
+        s = _scratch.pb = (
+            (ctypes.c_uint64 * cap)(), (ctypes.c_uint64 * cap)(),
+            (ctypes.c_uint32 * cap)(), (ctypes.c_uint32 * (cap * rank))(),
+            (ctypes.c_uint64 * cap)(), (ctypes.c_uint64 * cap)(),
+            (ctypes.c_int32 * 2)(), ctypes.c_uint32())
+    return s
+
+
+def _native_decode(data: bytes):
+    import ctypes
+
+    from ..core import TENSOR_COUNT_LIMIT
+    from ..nativelib import RANK_LIMIT, get_native
+
+    lib = get_native()
+    if lib is None:
+        return None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    cap = TENSOR_COUNT_LIMIT
+    p_off, p_len, dtypes, dims, n_off, n_len, rate, fmt = \
+        _decode_scratch(ctypes, cap, RANK_LIMIT)
+    # zero-copy view of the immutable frame (the C side only reads)
+    view = np.frombuffer(data, np.uint8)
+    n = lib.nns_pb_decode(
+        view.ctypes.data_as(u8p), len(data), cap, p_off, p_len, dtypes,
+        dims, n_off, n_len, rate, ctypes.byref(fmt))
+    if n < 0:
+        return None  # malformed per native parser: python path decides
+    arrays, names = [], []
+    for i in range(n):
+        payload = data[p_off[i]:p_off[i] + p_len[i]]
+        ds = [dims[i * RANK_LIMIT + d] for d in range(RANK_LIMIT)]
+        arrays.append(_np_from_wire(dtypes[i], ds, payload))
+        names.append(data[n_off[i]:n_off[i] + n_len[i]].decode()
+                     if n_len[i] else "")
+    return _rebuild(arrays, names, rate[0], rate[1], int(fmt.value))

@@ -1,5 +1,6 @@
 """Filter sub-plugin layer (L2/L3): ABI, registry, frameworks (torch-cuda,
-pytorch, custom-easy/custom, python3)."""
+pytorch, custom-easy/custom, python3, and the model-file importers onnx,
+tensorflow-lite and tensorflow, which the registry loads on first use)."""
 
 from .api import FilterError, FilterProps, FilterSubplugin
 from .registry import (

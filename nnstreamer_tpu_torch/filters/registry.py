@@ -90,6 +90,13 @@ def _ensure_builtin() -> None:
     with _builtin_lock:
         if _builtin_done:
             return
-        from . import custom, pytorch, torch_cuda  # noqa: F401
+        from . import (  # noqa: F401  self-registering
+            custom,
+            onnx,
+            pytorch,
+            tensorflow,
+            tflite,
+            torch_cuda,
+        )
 
         _builtin_done = True

@@ -33,7 +33,9 @@ leading axis) runs the window frame by frame instead, as the JAX
 package does for a framework without ``SUPPORTS_BATCH``.  The check
 costs two lone calls per (schema, bucket); the verdict is cached.
 
-Model files (``model=`` a path, or ``file://…@tag``): ``.npz`` and
+Model files (``model=`` a path, or ``file://…@tag``; the per-instance
+seam :meth:`TorchCudaFilter._load_file`, which the importer frameworks of
+``onnx.py``, ``tflite.py`` and ``tensorflow.py`` override): ``.npz`` and
 ``.safetensors`` weights files (``models/params_io.py``: the JAX
 package's pytree layout, numpy leaves, plus an ``apply`` "module:callable"
 naming a port callable ``fn(params, *inputs)``) and ``.pkl`` dicts.
@@ -507,8 +509,7 @@ class TorchCudaFilter(FilterSubplugin):
             }
 
 
-    @staticmethod
-    def _resolve_model(model) -> ModelDef:
+    def _resolve_model(self, model) -> ModelDef:
         if isinstance(model, ModelDef):
             return model
         if isinstance(model, str):
@@ -521,13 +522,22 @@ class TorchCudaFilter(FilterSubplugin):
                 except (ValueError, KeyError) as e:
                     raise FilterError(f"torch-cuda: {e}") from None
             if os.path.isfile(model):
-                return _load_file(model)
+                return self._load_file(model)
             raise FilterError(
                 f"torch-cuda: model {model!r} is neither a registered name "
                 "nor a file")
         if callable(model):
             return ModelDef(model)
         raise FilterError(f"torch-cuda: unsupported model object {type(model)}")
+
+    def _load_file(self, path: str) -> ModelDef:
+        """A model file, by its extension.  The importer frameworks
+        (``onnx``, ``tensorflow-lite``, ``tensorflow``) override this for
+        their own extension and hand any other here, so an imported model
+        runs on everything below: the fused prologue, hot reload (the
+        shadow is an instance of the same class), ``share-model`` and
+        ``mesh=``."""
+        return _load_file(path)
 
     def model_name(self) -> str:
         m = self._model

@@ -2,8 +2,9 @@
 ``runtime/fusion.py``).
 
 Before negotiation, every maximal run of ``tensor_transform`` elements
-feeding a ``torch-cuda`` ``tensor_filter`` is folded into the filter's
-per-frame program: the transforms become passthrough nodes and the filter
+feeding a ``torch-cuda`` ``tensor_filter`` (or an importer framework
+built on it: ``onnx``, ``tensorflow-lite``, ``tensorflow``) is folded into
+the filter's per-frame program: the transforms become passthrough nodes and the filter
 runs ``model ∘ t_k ∘ … ∘ t_1`` itself (the prologue); a
 ``tensor_decoder mode=bounding_boxes option7=device`` right after it
 becomes the program's epilogue.  One element then does the device work of
@@ -12,7 +13,8 @@ stages.  (The reference's Orc multi-op fusion idea,
 nnstreamer:gst/nnstreamer/elements/gsttensor_transform.c:473-483.)
 
 Fusion is skipped for a candidate filter when any of these hold (the
-pipeline still runs, just unfused): framework isn't torch-cuda,
+pipeline still runs, just unfused): framework isn't torch-cuda or built
+on it,
 input/output-combination or invoke-dynamic in play, the filter shares its
 model with other pipelines (share-model), a transform mid-run feeds more
 than one consumer, or a transform has no static mode.  A micro-batched
@@ -52,16 +54,23 @@ class FusedSegment:
 
 
 def _is_torch_cuda(flt) -> bool:
-    fw = (flt.framework or "auto")
-    if fw == "torch-cuda":
-        return True
-    if fw != "auto":
-        return False
-    from ..filters.registry import detect_framework
+    """Whether the filter opens the torch-cuda sub-plugin or one built on
+    it: the importer frameworks (``onnx``, ``tensorflow-lite``,
+    ``tensorflow`` and their aliases) run their imported graph on its
+    program, so they take the fused prologue too.  The JAX package fuses
+    into ``jax-xla`` alone."""
+    from ..filters.registry import detect_framework, find_filter
+    from ..filters.torch_cuda import TorchCudaFilter
 
+    fw = (flt.framework or "auto")
+    if fw == "auto":
+        try:
+            fw = detect_framework(flt.model)
+        except ValueError:
+            return False
     try:
-        return detect_framework(flt.model) == "torch-cuda"
-    except ValueError:
+        return issubclass(find_filter(fw), TorchCudaFilter)
+    except KeyError:
         return False
 
 

@@ -94,16 +94,31 @@ PROP_DOCS = {
         "listed by `python -m nnstreamer_tpu_torch.check` (e.g. "
         "`bounding_boxes`, `image_labeling`, `direct_video`, `pose`, ...).",
     ("tensor_filter", "framework"): "Filter sub-plugin: `torch-cuda` "
-        "(flagship), `custom`, `custom-easy`, `python3`; `auto` detects "
-        "from the model file extension + conf priority.",
+        "(flagship), `pytorch`, `custom`, `custom-easy`, `python3`, and the "
+        "importers `onnx` (alias `onnxruntime`), `tensorflow-lite` (alias "
+        "`tensorflow2-lite`) and `tensorflow` (alias `tensorflow2`), which "
+        "rebuild a model file as a PyTorch function on the torch-cuda "
+        "machinery; `auto` detects from the model file extension + conf "
+        "priority (`.onnx`, `.tflite`, `.pb` go to the importers).",
     ("tensor_filter", "model"): "Model path / registered name / callable "
         "(framework-dependent; torch-cuda loads a registered model or a "
         "weights file, `.npz`/`.safetensors`/`.pkl`, optionally as "
-        "`file://…@version`).",
+        "`file://…@version`; the importers load `.onnx`, `.tflite` and "
+        "frozen `.pb` graphs).",
+    ("tensor_filter", "custom"): "Free-form custom properties "
+        "(`key:value,...`): `donate` (torch-cuda); `qmode:` of the "
+        "importers — onnx `bf16` (default) / `dequant` (integer codes, "
+        "float32 sums: exact below 2**24) / `int8` (exact integer sums, "
+        "in float64) / `float`; tensorflow-lite `auto` (default: `bf16` "
+        "on a quantized graph, which rounds real values to bf16 and is "
+        "approximate) / `bf16` / `dequant` (integer codes, float32 sums: "
+        "exact below 2**24) / `float`. The importers keep PyTorch's TF32 "
+        "switches: under its default, the `float` modes' convolutions "
+        "take TF32 operands on the card (tolerances in the importer "
+        "modules' docs).",
     ("tensor_filter", "accelerator"): "Accelerator preference string "
         "(parity: `true:gpu`); `gpu`/`cuda` runs on the card, `cpu` on "
         "the host, '' on the pipeline's device.",
-    ("tensor_filter", "custom"): "Free-form sub-plugin option string.",
     ("tensor_filter", "input_combination"): "Select/reorder input tensors "
         "fed to the model, e.g. `i0,i2` (parity: input-combination).",
     ("tensor_filter", "output_combination"): "Assemble output buffer from "

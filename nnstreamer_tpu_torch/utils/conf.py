@@ -18,7 +18,9 @@ for the JAX package (``NNS_TPU_*``, whose plugins import JAX modules and
 whose priorities name ``jax-xla``) leave the port unchanged.  The
 defaults differ where the port runs other frameworks: model files that
 the JAX package hands to ``jax-xla`` go to ``torch-cuda`` here, and
-TorchScript files to ``pytorch``.
+TorchScript files to ``pytorch``; ``.tflite``, ``.onnx`` and ``.pb`` go to
+the importers (``tensorflow-lite``, ``onnx``, ``tensorflow``), as the JAX
+package's ``filters/registry.py`` ``_EXT_DEFAULTS`` sends them.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         "framework_priority_pt": "pytorch",
         "framework_priority_pth": "pytorch",
         "framework_priority_py": "python3",
+        "framework_priority_tflite": "tensorflow-lite",
+        "framework_priority_onnx": "onnx",
+        "framework_priority_pb": "tensorflow",
     },
 }
 

@@ -63,6 +63,12 @@ within ``tests/test_torch_training.py``'s relative-norm limits against
 the JAX step (0.1 under sgd, 0.4 under adam/adamw); and the
 ``torch-optim`` trainer fed card samples written on a side stream,
 training on the card with the losses of the same samples on the CPU.
+The importers on the card (files from ``tests/torch_model_files.py`` at
+width 0.25, 96x96): the ONNX QLinear MobileNetV2 in its integer modes
+(int8, dequant, bf16) and the TFLite one in ``dequant`` give the CPU's
+outputs exactly, TF32 off; the speech graph's clip and mnist's batch
+within 1e-5; the native codec loads and encodes a card buffer's bytes as
+the Python path does.
 """
 
 import os
@@ -1818,3 +1824,88 @@ def test_trainer_on_card_with_side_stream_samples(card, monkeypatch):
         losses[dev] = seen
     assert len(losses["cuda"]) == 2
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)
+
+
+# -- the importers and the native codec -------------------------------------
+
+
+@pytest.fixture
+def importer_files(card, tmp_path_factory, monkeypatch):
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_model_files as mf
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    d = tmp_path_factory.mktemp("importers")
+    return {"onnx": mf.write_onnx_qlinear(str(d / "q.onnx"), 0, 0.25, 96,
+                                          1000),
+            "tflite": mf.write_tflite_quant(str(d / "q.tflite"), 0, 0.25,
+                                            96, 1001),
+            "speech": mf.write_speech_pb(str(d / "s.pb"), filters=8),
+            "mnist": mf.write_mnist_pb(str(d / "m.pb")), "mf": mf}
+
+
+def _single(fw, path, x, device, **kw):
+    from nnstreamer_tpu_torch.elements.filter import FilterSingle
+
+    out = FilterSingle(framework=fw, model=path, device=device,
+                       **kw).invoke([x])[0]
+    return out.cpu().numpy()
+
+
+@pytest.mark.parametrize("fw,qmode", [("onnx", "int8"), ("onnx", "dequant"),
+                                      ("onnx", "bf16"),
+                                      ("tensorflow-lite", "dequant")])
+def test_importer_integer_modes_on_card_equal_cpu(importer_files, fw,
+                                                  qmode):
+    q = np.random.default_rng(3).integers(0, 256, (2, 96, 96, 3),
+                                          dtype=np.uint8)
+    if fw == "onnx":
+        x = np.ascontiguousarray(np.transpose(
+            q.astype(np.float32) / 127.5 - 1.0, (0, 3, 1, 2)))
+        path = importer_files["onnx"]
+    else:
+        x, path = q, importer_files["tflite"]
+    got = _single(fw, path, x, "cuda", custom=f"qmode:{qmode}")
+    want = _single(fw, path, x, "cpu", custom=f"qmode:{qmode}")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_importer_tf_graphs_on_card_match_cpu(importer_files):
+    from nnstreamer_tpu_torch.core import TensorsSpec
+
+    clip = importer_files["mf"].seeded_clip(1)
+    got = _single("tensorflow", importer_files["speech"], clip, "cuda")
+    want = _single("tensorflow", importer_files["speech"], clip, "cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    x = np.random.default_rng(2).random((4, 784)).astype(np.float32)
+    spec = TensorsSpec.parse("784:4", "float32")
+    np.testing.assert_allclose(
+        _single("tensorflow", importer_files["mnist"], x, "cuda",
+                input_spec=spec),
+        _single("tensorflow", importer_files["mnist"], x, "cpu",
+                input_spec=spec), rtol=1e-5, atol=1e-6)
+
+
+def test_native_codec_on_the_card_machine(card):
+    from nnstreamer_tpu_torch import nativelib
+    from nnstreamer_tpu_torch.converters import codecs
+    from nnstreamer_tpu_torch.core import Buffer, Tensor
+
+    lib = nativelib.get_native()
+    assert lib is not None, "the native codec did not build here"
+    b = Buffer(tensors=[Tensor(torch.arange(24, dtype=torch.float32,
+                                            device=card).reshape(2, 3, 4))])
+    native = codecs.protobuf_encode(b)
+    try:
+        nativelib._lib = None
+        python = codecs.protobuf_encode(b)
+    finally:
+        nativelib._lib = lib
+    assert native == python
+    out, _ = codecs.protobuf_decode(native)
+    np.testing.assert_array_equal(out.tensors[0].np(),
+                                  np.arange(24, dtype=np.float32).reshape(
+                                      2, 3, 4))

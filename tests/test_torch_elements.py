@@ -125,15 +125,10 @@ def test_golden_repo_loop(tmp_path):
 
 # -- 2. registries -------------------------------------------------------------
 
-def _builtin(names, lookup, prefix, skip=()):
+def _builtin(names, lookup, prefix):
     """The names a package's own modules registered (tests register
-    more), minus those from the modules in ``skip``."""
-    out = set()
-    for n in names:
-        mod = lookup(n).__module__
-        if mod.startswith(prefix) and not mod.startswith(tuple(skip)):
-            out.add(n)
-    return out
+    more)."""
+    return {n for n in names if lookup(n).__module__.startswith(prefix)}
 
 
 def test_element_registry_matches_jax_package():
@@ -145,15 +140,15 @@ def test_element_registry_matches_jax_package():
 
 
 def test_filter_registry_matches_jax_package():
-    """The importers (onnx, tflite, tensorflow, with their alias names)
-    wait for ROADMAP item 3b; torch-cuda stands where jax-xla does."""
+    """Every framework of the JAX package, the importers (onnx,
+    tensorflow-lite, tensorflow and their alias names) included, with no
+    skip list; torch-cuda stands where jax-xla does."""
     jax = _builtin(jfilters.list_filters(), jfilters.find_filter,
-                   "nnstreamer_tpu.filters.",
-                   skip=("nnstreamer_tpu.filters.onnx",
-                         "nnstreamer_tpu.filters.tflite",
-                         "nnstreamer_tpu.filters.tensorflow"))
+                   "nnstreamer_tpu.filters.")
     port = _builtin(tfilters.list_filters(), tfilters.find_filter,
                     "nnstreamer_tpu_torch.filters.")
+    assert {"onnx", "onnxruntime", "tensorflow-lite", "tensorflow2-lite",
+            "tensorflow", "tensorflow2"} <= jax
     assert port == (jax - {"jax-xla"}) | {"torch-cuda"}
 
 

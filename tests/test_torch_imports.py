@@ -82,7 +82,11 @@ def test_port_imports_with_jax_blocked():
                 "edge", "edge.wire", "edge.ntputil", "edge.devicechannel",
                 "edge.transport", "edge.query", "edge.mqtt",
                 "edge.grpc_bridge", "trainers", "trainers.torch_optim",
-                "trainers.checkpoint", "elements.trainer"):
+                "trainers.checkpoint", "elements.trainer",
+                "filters.importer_util", "filters.importer_ops",
+                "filters.onnx", "filters.onnx_import", "filters.tflite",
+                "filters.tflite_import", "filters.tensorflow",
+                "filters.tf_import", "nativelib"):
         assert f"nnstreamer_tpu_torch.{mod}" in names, mod
 
 
@@ -185,9 +189,9 @@ def test_filter_accelerator_grammar(monkeypatch):
 
 
 def test_obs_and_chaos_read_only_the_ports_keys():
-    """The obs, chaos, utils, analyze and edge modules read environment keys of
-    the port's prefix only, and the JAX package's keys leave the port as it
-    is: no kill switch, no chaos plan, no flight recorder armed, no
+    """The obs, chaos, utils, analyze and edge modules and the native
+    codec's loader read environment keys of the port's prefix only, and
+    the JAX package's keys leave the port as it is: no kill switch, no chaos plan, no flight recorder armed, no
     metrics endpoint, no price, text logs, no host profiler, watchdog,
     controller or lock witness."""
     import re
@@ -199,6 +203,10 @@ def test_obs_and_chaos_read_only_the_ports_keys():
                 if f.endswith(".py"):
                     keys |= set(re.findall(r"NNS_TPU_[A-Z_]+",
                                            open(os.path.join(root, f)).read()))
+    for f in ("nativelib.py", os.path.join("converters", "codecs.py")):
+        keys |= set(re.findall(r"NNS_TPU_[A-Z_]+",
+                               open(os.path.join(PKG, f)).read()))
+    assert "NNS_TPU_TORCH_NO_NATIVE" in keys
     assert keys and all(k.startswith("NNS_TPU_TORCH_") for k in keys), keys
     code = (
         "import sys, json, logging\n"
