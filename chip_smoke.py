@@ -14,6 +14,7 @@
     python3 chip_smoke.py --parallel                  # build + phase 19 only
     python3 chip_smoke.py --training                  # build + phase 20 only
     python3 chip_smoke.py --importers                 # build + phase 21 only
+    python3 chip_smoke.py --orbax                     # build + phase 22 only
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -30,7 +31,8 @@ ViT served to several clients, pub/sub), and MQTT (a camera in another
 process fed to the SSD through a broker, the pooled ViT found through the
 broker and moved mid-run, the gRPC bridge), and in-pipeline training, and
 the model-file importers (ONNX and TFLite MobileNetV2, TF graphs) with the
-native wire codec — through ``parse_launch`` at full width.
+native wire codec, and the JAX package's orbax steps as hot-swap and
+resume sources — through ``parse_launch`` at full width.
 Phases, each of which raises on failure (nothing is caught and passed over):
 
 1. environment: torch version, the card's name and power limit; requires
@@ -448,7 +450,24 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    itself, 4 windows with each codec (native, Python, Python, native):
    host ms a window, and the ms of it in the outputs' copy from the card,
    the encode and the decode;
-22. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
+22. JAX orbax steps as swap and resume sources (``trainers/ocdbt.py``,
+   ``orbax_format.py`` over the g++-built zstd decoder of
+   ``native/nns_zstd.cc``), under ``cudnn.deterministic``.  (a) The
+   committed JAX step ``tests/data/orbax_step/`` read bit-equal to its
+   seeded tree (``tests/torch_orbax_files.py``), and the decoder's MB/s
+   on its tensorstore-compressed chunks.  (b) MobileNetV1 1.0 (224x224,
+   1001 classes) written as step 16 by the tests' orbax writer and by
+   ``save_step``; a ``share-model=true is-updatable=true`` pool stages
+   each root's ``@latest`` in turn: version tag ``16``, every frame's
+   logits after each flip bit-equal between the formats and within 1e-4
+   of the tree alone; each format's read and staging seconds, the
+   reader's MB/s.  (c) The ViT at phase 9's width with bf16 weights
+   swapped into phase 9's 8-stream pool from each format: every frame's
+   logits bit-equal (lockstep rounds of one frame a stream).  (d) A
+   ``torch-optim`` trainer with ``model-load-path=`` (b)'s orbax step
+   trains 2 steps at batch 128; the losses equal those from the
+   safetensors step (or within 5e-3 relative, and it says which);
+23. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
 
@@ -460,9 +479,9 @@ unshared legs with the port in DIR: run it for two trees in one call, in
 the order parent, change, change, parent, to compare them.
 ``--decoders`` builds the kernels and runs phase 12 alone (no ``ok``
 line); ``--elements``, ``--obs``, ``--control``, ``--repairs``,
-``--edge``, ``--mqtt``, ``--parallel``, ``--training`` and
-``--importers`` do the same for phases 13, 14, 15, 16, 17, 18, 19, 20 and
-21 (phase 16 alone analyzes only its own descriptions).
+``--edge``, ``--mqtt``, ``--parallel``, ``--training``, ``--importers``
+and ``--orbax`` do the same for phases 13, 14, 15, 16, 17, 18, 19, 20, 21
+and 22 (phase 16 alone analyzes only its own descriptions).
 """
 
 from __future__ import annotations
@@ -875,6 +894,10 @@ def phase_kernels(card: str, power: str):
          torch.uint8, torch.float32),
         ("u8 importers mnist", (IMP_BATCH, 784), torch.uint8,
          torch.float32, (1.0 / 255.0, 0.0)),
+        # phases 20 and 22: one frame ahead of the MobileNetV1 pools and
+        # one sample ahead of the trainers
+        ("u8 training frame", (1, TRAIN_SIZE, TRAIN_SIZE, 3), torch.uint8,
+         torch.float32),
     ]
     worst = 0.0
     for label, shape, idt, odt, *affine in cases:
@@ -2091,7 +2114,8 @@ def lc_pipes(model: str, canary: str = ""):
 
     pipes = [parse_launch(LC_PIPE.format(
         norm=NORM, model=model, buckets=",".join(map(str, SERVE_BUCKETS)),
-        canary=f" canary={canary}" if canary else ""), device=LC_DEVICE)
+        canary=f" canary={canary}" if canary else ""),
+        device=LC_DEVICE)
         for _ in range(SERVE_STREAMS)]
     for p in pipes:
         p["src"].spec = TensorsSpec.parse(f"3:{VIT_SIZE}:{VIT_SIZE}:1",
@@ -7950,10 +7974,11 @@ TRAIN_SERVE_PIPE = (
     "max-buffers={sink}")
 
 
-def train_dataset(root: str):
-    """(a)'s dataset through ``datareposink``: TRAIN_SAMPLES seeded uint8
-    (1,S,S,3) samples with int32 labels in [0, TRAIN_CLASSES).  Returns
-    the two paths and the first TRAIN_SERVE_FRAMES samples."""
+def train_dataset(root: str, samples: int = 0):
+    """(a)'s dataset through ``datareposink``: ``samples`` (default
+    TRAIN_SAMPLES) seeded uint8 (1,S,S,3) samples with int32 labels in
+    [0, TRAIN_CLASSES).  Returns the two paths and the first
+    TRAIN_SERVE_FRAMES samples."""
     from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
     from nnstreamer_tpu_torch.runtime import parse_launch
 
@@ -7966,7 +7991,7 @@ def train_dataset(root: str):
     rng = np.random.default_rng(SEED)
     kept = []
     with p:
-        for i in range(TRAIN_SAMPLES):
+        for i in range(samples or TRAIN_SAMPLES):
             x = rng.integers(0, 256, (1, s, s, 3), dtype=np.uint8)
             y = rng.integers(0, TRAIN_CLASSES, (1, 1), dtype=np.int32)
             p["src"].push_buffer(Buffer.of(x, y))
@@ -9083,6 +9108,458 @@ def phase_importers(card: str, power: str) -> dict:
     return res
 
 
+# -- phase 22: JAX orbax steps as swap and resume sources --------------------
+
+ORBAX_STEP = 16            # the step number each checkpoint root holds
+ORBAX_FRAMES = 16          # (b): frames served after each flip
+ORBAX_VIT_ROUNDS = 4       # (c): lockstep rounds, one frame a stream each
+ORBAX_TRAIN_STEPS = 2      # (d): steps at TRAIN_BATCH from each step
+ORBAX_DECODE_S = 0.5       # (a): at least this long decoding, timed
+
+
+def _orbax_files():
+    """The tests' orbax writer and fixture (``tests/torch_orbax_files.py``:
+    numpy, struct and json only), loaded once from its file, so the tests
+    directory does not join the import path."""
+    import importlib.util
+
+    name = "torch_orbax_files"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "tests", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[name] = mod
+    return sys.modules[name]
+
+
+def _orbax_leaf_bytes(leaf):
+    """(dtype name, shape, raw bytes) of a numpy or torch leaf."""
+    import torch
+
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        return str(t.dtype).replace("torch.", ""), tuple(t.shape), \
+            raw.numpy().tobytes()
+    a = np.asarray(leaf)
+    return a.dtype.name, a.shape, a.tobytes()
+
+
+def _orbax_same(got, want, what: str) -> int:
+    """``got`` equals ``want`` leaf by leaf, bit for bit, in the same
+    structure and dtypes; returns the leaves compared."""
+    W = _orbax_files()
+    g, w = W.flat_leaves(got), W.flat_leaves(want)
+    if sorted(g) != sorted(w):
+        raise RuntimeError(f"{what}: leaves {sorted(set(g) ^ set(w))} "
+                           "differ between the trees")
+    bad = [k for k in w if _orbax_leaf_bytes(g[k]) != _orbax_leaf_bytes(w[k])]
+    if bad:
+        raise RuntimeError(f"{what}: leaves {bad[:5]} differ")
+    return len(w)
+
+
+def orbax_fixture(card: str, power: str):
+    """22a: the committed JAX step read through the g++-built decoder,
+    bit-equal to its seeded tree; the decoder's MB/s on its chunks
+    (tensorstore's level-1 frames: Huffman literals, FSE sequences)."""
+    from nnstreamer_tpu_torch import nativelib
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+    from nnstreamer_tpu_torch.trainers.ocdbt import Ocdbt
+
+    W = _orbax_files()
+    t0 = time.perf_counter()
+    nativelib.get_zstd()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = load_dir(W.FIXTURE_DIR)
+    read_s = time.perf_counter() - t0
+    want = W.fixture_tree()
+    leaves = _orbax_same(got, want, "orbax (a)")
+    db = Ocdbt(W.FIXTURE_DIR)
+    sizes = {k: np.asarray(v).nbytes for k, v in W.flat_leaves(want).items()}
+    frames = [(db.read(f"{k}/{'0.0' if np.ndim(want_leaf) == 2 else '0'}"),
+               sizes[k]) for k, want_leaf in W.flat_leaves(want).items()
+              if np.ndim(want_leaf) in (1, 2)]
+    out_bytes = in_bytes = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < ORBAX_DECODE_S:
+        for frame, size in frames:
+            nativelib.zstd_decompress(frame, size)
+            out_bytes += size
+            in_bytes += len(frame)
+    dt = time.perf_counter() - t0
+    res = {"leaves": leaves, "build_s": build_s, "read_s": read_s,
+           "decode_mb_per_s": out_bytes / dt / 1e6,
+           "decode_in_mb_per_s": in_bytes / dt / 1e6,
+           "frames": len(frames), "step_bytes": W.step_bytes(W.FIXTURE_DIR)}
+    print(f"orbax (a): the committed JAX step ({res['step_bytes']} B, "
+          f"{leaves} leaves) read bit-equal to its seeded tree in "
+          f"{read_s:.6f} s through the g++-built decoder (built or loaded "
+          f"in {build_s:.3f} s); decoding its {len(frames)} chunk frames "
+          f"again and again: {res['decode_mb_per_s']:.1f} MB/s out, "
+          f"{res['decode_in_mb_per_s']:.1f} MB/s in [{card}, {power}]",
+          flush=True)
+    return res
+
+
+def _orbax_serve(p, frames, first: int):
+    """Each frame through ``p`` in turn: its logits, flattened."""
+    from nnstreamer_tpu_torch.core import Buffer
+
+    outs = []
+    for i, x in enumerate(frames):
+        p["src"].push_buffer(Buffer.of(x, pts=first + i))
+    for _ in frames:
+        b = p["out"].pull(timeout=120)
+        if b is None:
+            raise RuntimeError("orbax: a frame was lost")
+        outs.append(b.tensors[0].torch().reshape(-1).clone())
+    return outs
+
+
+def _orbax_roots(root: str, name: str, tree, seed: int):
+    """``tree`` as step ORBAX_STEP of two roots, written by the tests'
+    orbax writer and by ``save_step``; both read back bit-equal.  Returns
+    ({format: root}, the orbax step's bytes, {format: read seconds})."""
+    from nnstreamer_tpu_torch.trainers.checkpoint import (load_dir,
+                                                          save_step,
+                                                          step_dir)
+
+    W = _orbax_files()
+    roots = {"orbax": os.path.join(root, f"{name}_orbax"),
+             "safetensors": os.path.join(root, f"{name}_safetensors")}
+    W.write_orbax_step(step_dir(roots["orbax"], ORBAX_STEP), tree, seed=seed)
+    save_step(roots["safetensors"], ORBAX_STEP, tree)
+    trees, read_s = {}, {}
+    for fmt, r in roots.items():
+        t0 = time.perf_counter()
+        trees[fmt] = load_dir(step_dir(r, ORBAX_STEP))
+        read_s[fmt] = time.perf_counter() - t0
+    _orbax_same(trees["orbax"], trees["safetensors"], f"orbax ({name})")
+    _orbax_same(trees["orbax"], tree, f"orbax ({name})")
+    return roots, W.step_bytes(step_dir(roots["orbax"], ORBAX_STEP)), read_s
+
+
+def orbax_mobilenet(root: str, card: str, power: str):
+    """22b: MobileNetV1 1.0 (224x224, 1001 classes) as step 16 of an orbax
+    root and of a safetensors root, staged in turn into one share-model
+    pool: the logits after each flip bit-equal, within phase 20d's check
+    of the tree alone."""
+    import pickle
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    tree = mobilenet_v1_init(SEED + 1, TRAIN_CLASSES, TRAIN_WIDTH)
+    roots, nbytes, read_s = _orbax_roots(root, "mnv1", tree, SEED)
+    models = {}
+    for tag, params in (("init", mobilenet_v1_init(SEED, TRAIN_CLASSES,
+                                                   TRAIN_WIDTH)),
+                        ("step", tree)):
+        models[tag] = os.path.join(root, f"mnv1_{tag}.pkl")
+        with open(models[tag], "wb") as f:
+            pickle.dump({"apply": "nnstreamer_tpu_torch.models.convert:"
+                                  "mobilenet_v1_tree_apply",
+                         "params": params,
+                         "in_shapes": [(1, TRAIN_SIZE, TRAIN_SIZE, 3)],
+                         "in_dtypes": np.dtype("float32")}, f)
+    rng = np.random.default_rng(SEED + 22)
+    frames = [rng.integers(0, 256, (1, TRAIN_SIZE, TRAIN_SIZE, 3),
+                           dtype=np.uint8) for _ in range(ORBAX_FRAMES)]
+    spec = TensorsSpec.parse(f"3:{TRAIN_SIZE}:{TRAIN_SIZE}:1", "uint8")
+    ref = parse_launch(TRAIN_SERVE_PIPE.format(
+        name="alone", norm=NORM, model=models["step"], props="",
+        sink=ORBAX_FRAMES + 4), device=LC_DEVICE)
+    ref["src"].spec = spec
+    with ref:
+        want = _orbax_serve(ref, frames, 0)
+    pipe = parse_launch(TRAIN_SERVE_PIPE.format(
+        name="mnv1", norm=NORM, model=models["init"],
+        props=" share-model=true is-updatable=true",
+        sink=ORBAX_FRAMES + 4), device=LC_DEVICE)
+    pipe["src"].spec = spec
+    outs, stage_s, load_s = {}, {}, {}
+    _par_zero()
+    with pipe:
+        lc = pipe["mnv1"].pool.lifecycle
+        for i, fmt in enumerate(roots):
+            t0 = time.perf_counter()
+            ver = lc.stage(f"{roots[fmt]}@latest")
+            stage_s[fmt] = time.perf_counter() - t0
+            load_s[fmt] = ver.load_s
+            lc.swap(ver)
+            if lc.baseline.tag != str(ORBAX_STEP):
+                raise RuntimeError(f"orbax (b): {fmt}: version "
+                                   f"{lc.baseline.tag}")
+            outs[fmt] = _orbax_serve(pipe, frames, i * ORBAX_FRAMES)
+    launches = _par_counts()
+    if lc.swaps != 2 or pipe.error is not None:
+        raise RuntimeError(f"orbax (b): {lc.swaps} swaps, error {pipe.error}")
+    differ = [i for i, (a, b) in enumerate(zip(outs["orbax"],
+                                               outs["safetensors"]))
+              if not torch.equal(a, b)]
+    worst = max(float((a - w).abs().max())
+                for a, w in zip(outs["orbax"], want))
+    labels = [int(a.argmax()) for a in outs["orbax"]]
+    if differ or worst > SERVE_TOL or \
+            labels != [int(w.argmax()) for w in want]:
+        raise RuntimeError(f"orbax (b): frames {differ} differ between the "
+                           f"formats; logits {worst} from the tree alone")
+    if LC_DEVICE == "cuda" and \
+            launches["scale_bias_cast"] < 2 * ORBAX_FRAMES:
+        raise RuntimeError(f"orbax (b): launches {launches} for "
+                           f"{2 * ORBAX_FRAMES} frames")
+    res = {"step_bytes": nbytes, "read_s": read_s, "stage_s": stage_s,
+           "load_s": load_s, "reader_mb_per_s":
+               nbytes / read_s["orbax"] / 1e6,
+           "frames": 2 * ORBAX_FRAMES, "max_abs_diff_alone": worst,
+           "launches": launches}
+    print(f"orbax (b): MobileNetV1 {TRAIN_WIDTH} ({TRAIN_SIZE}x{TRAIN_SIZE},"
+          f" {TRAIN_CLASSES} classes) as step {ORBAX_STEP}: the orbax step "
+          f"({nbytes} B) read in {read_s['orbax']:.6f} s "
+          f"({res['reader_mb_per_s']:.1f} MB/s), the safetensors step in "
+          f"{read_s['safetensors']:.6f} s; staged into one share-model pool "
+          f"from orbax in {stage_s['orbax']:.6f} s (load+place+warm "
+          f"{load_s['orbax']:.6f}), from safetensors in "
+          f"{stage_s['safetensors']:.6f} s ({load_s['safetensors']:.6f}); "
+          f"version tag {lc.baseline.tag}; {ORBAX_FRAMES} frames after each "
+          f"flip bit-equal, within {worst} of the tree alone; launches "
+          f"{launches} [{card}, {power}]", flush=True)
+    return res
+
+
+def orbax_vit(root: str, card: str, power: str):
+    """22c: the ViT at phase 9's width with bf16 weights, as step 16 of an
+    orbax root and a safetensors root, swapped in turn into phase 9's
+    8-stream pool serving the seed-0 file: one round before the first
+    swap within SERVE_TOL of the seed-0 weights alone, and every frame
+    after each swap within SERVE_TOL of the step's tree alone and
+    bit-equal between the formats (lockstep rounds, so every window pads
+    to the same bucket)."""
+    import functools
+
+    import torch
+
+    from nnstreamer_tpu_torch.core import Buffer, TensorsSpec
+    from nnstreamer_tpu_torch.filters.torch_cuda import ModelDef
+    from nnstreamer_tpu_torch.models import params_io, vit_tree, vit_tree_apply
+
+    widths = {k: v for k, v in VIT.items() if k != "heads"}
+    tree = params_io.weights_to_bf16(vit_tree(SEED + 7, image_size=VIT_SIZE,
+                                              **widths))
+    roots, nbytes, read_s = _orbax_roots(root, "vit", tree, SEED + 1)
+    base = write_vit_file(os.path.join(root, "vit_v0.safetensors"), 0)
+    pools, _ = serve_pools(device=LC_DEVICE)
+    rounds = [pool[:ORBAX_VIT_ROUNDS] for pool in pools]
+    step = ModelDef(functools.partial(vit_tree_apply, heads=VIT["heads"]),
+                    tree, TensorsSpec.from_shapes(
+                        [(1, VIT_SIZE, VIT_SIZE, 3)], np.float32), "step")
+    alone = {"v0": alone_logits(base, rounds),
+             "step": alone_logits(step, rounds)}
+    apart = min(float((alone["v0"][s] - alone["step"][s]).abs().amax(-1)
+                      .min()) for s in range(SERVE_STREAMS))
+    if apart <= 2 * SERVE_TOL:
+        raise RuntimeError(f"orbax (c): the seed-0 and step logits of one "
+                           f"frame lie only {apart} apart")
+
+    def serve_round(r: int, pts: int):
+        for s, p in enumerate(pipes):
+            p["src"].push_buffer(Buffer.of(pools[s][r], pts=pts))
+        got = []
+        for p in pipes:
+            b = p["out"].pull(timeout=120)
+            if b is None:
+                raise RuntimeError("orbax (c): a frame was lost")
+            got.append(b.tensors[0].torch().reshape(-1).clone())
+        return got
+
+    def held(got, version: str, r: int, what: str) -> float:
+        d = max(float((y - alone[version][s][r]).abs().max())
+                for s, y in enumerate(got))
+        if d > SERVE_TOL:
+            raise RuntimeError(f"orbax (c): {what}: logits {d} from the "
+                               f"{version} weights alone (limit {SERVE_TOL})")
+        return d
+
+    pipes = lc_pipes(f"file://{base}@v0")
+    outs, stage_s, worst = {}, {}, {}
+    _par_zero()
+    try:
+        lc = pipes[0]["net"].pool.lifecycle
+        worst["v0"] = held(serve_round(0, 0), "v0", 0, "before the swaps")
+        for i, fmt in enumerate(roots):
+            t0 = time.perf_counter()
+            ver = lc.stage(f"{roots[fmt]}@latest")
+            stage_s[fmt] = time.perf_counter() - t0
+            lc.swap(ver)
+            if lc.baseline.tag != str(ORBAX_STEP):
+                raise RuntimeError(f"orbax (c): {fmt}: version "
+                                   f"{lc.baseline.tag}")
+            outs[fmt], worst[fmt] = [], 0.0
+            for r in range(ORBAX_VIT_ROUNDS):
+                got = serve_round(r, 1 + i * ORBAX_VIT_ROUNDS + r)
+                worst[fmt] = max(worst[fmt], held(got, "step", r, fmt))
+                outs[fmt] += got
+        check_pipes(pipes)
+    finally:
+        for p in pipes:
+            p.stop()
+    launches = _par_counts()
+    differ = [i for i, (a, b) in enumerate(zip(outs["orbax"],
+                                               outs["safetensors"]))
+              if not torch.equal(a, b)]
+    if differ or lc.swaps != 2:
+        raise RuntimeError(f"orbax (c): frames {differ} differ between the "
+                           f"formats, {lc.swaps} swaps")
+    n = len(outs["orbax"])
+    if LC_DEVICE == "cuda" and (
+            launches["flash_attention"] < VIT["depth"] * 2 * ORBAX_VIT_ROUNDS
+            or launches["scale_bias_cast"] < 2 * n):
+        raise RuntimeError(f"orbax (c): launches {launches} for {2 * n} "
+                           f"frames")
+    res = {"step_bytes": nbytes, "read_s": read_s, "stage_s": stage_s,
+           "frames": 2 * n + SERVE_STREAMS, "max_abs_diff_alone": worst,
+           "apart": apart, "launches": launches}
+    print(f"orbax (c): the ViT ({VIT}, image {VIT_SIZE}, bf16 weights) as "
+          f"step {ORBAX_STEP}: the orbax step ({nbytes} B) read in "
+          f"{read_s['orbax']:.6f} s, the safetensors step in "
+          f"{read_s['safetensors']:.6f} s; phase 9's {SERVE_STREAMS}-stream "
+          f"pool staged it from orbax in {stage_s['orbax']:.6f} s, from "
+          f"safetensors in {stage_s['safetensors']:.6f} s; {SERVE_STREAMS} "
+          f"frames before the swaps within {worst['v0']} of the seed-0 "
+          f"weights alone; {n} frames after each flip bit-equal, within "
+          f"{max(worst['orbax'], worst['safetensors'])} of the step's tree "
+          f"alone (the two lie at least {apart} apart); launches {launches} "
+          f"[{card}, {power}]", flush=True)
+    return res
+
+
+def orbax_resume(root: str, roots: dict, card: str, power: str):
+    """22d: a ``torch-optim`` trainer with ``model-load-path=`` (b)'s orbax
+    step trains ORBAX_TRAIN_STEPS steps at phase 20's batch; the same run
+    from the safetensors step gives the same losses."""
+    import math
+
+    import torch
+
+    import nnstreamer_tpu_torch.parallel as par
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.runtime import parse_launch
+    from nnstreamer_tpu_torch.trainers.checkpoint import step_dir
+
+    n = ORBAX_TRAIN_STEPS * TRAIN_BATCH
+    data, js, _ = train_dataset(root, n)
+    losses, launches = {}, {}
+    real = par.train_step
+    for fmt, r in roots.items():
+        got = []
+
+        class Logged:
+            """The trainer's step, its loss logged after each call; every
+            attribute is the step's."""
+
+            def __init__(self, step):
+                self.step = step
+
+            def __getattr__(self, name):
+                return getattr(self.step, name)
+
+            def __call__(self, *a):
+                out = self.step(*a)
+                got.append(float(self.step.last_loss))
+                return out
+
+        def recording(*args, **kw):
+            step, params, opt_state = real(*args, **kw)
+            return Logged(step), params, opt_state
+
+        p = parse_launch(TRAIN_PIPE.format(
+            n=n, epochs=1, save=os.path.join(root, f"resumed_{fmt}.pkl"),
+            data=data, js=js, norm=NORM, sink=n + 8).replace(
+            "model-save-path=", f"model-load-path={step_dir(r, ORBAX_STEP)} "
+                                "model-save-path="), device=LC_DEVICE)
+        # the init tree is the template of the orbax step, as in jax-optax
+        p["trn"].model_config = {
+            "apply": "nnstreamer_tpu_torch.models.convert:"
+                     "mobilenet_v1_tree_apply",
+            "init": mobilenet_v1_init(SEED, TRAIN_CLASSES, TRAIN_WIDTH),
+            "batch_size": TRAIN_BATCH, "optimizer": "sgd", "lr": TRAIN_LR,
+            "mesh": "data:-1"}
+        _par_zero()
+        par.train_step = recording
+        try:
+            p.start()
+            if not p.wait_eos(timeout=600):
+                raise RuntimeError(f"orbax (d): {fmt}: no EOS")
+        finally:
+            p.stop()
+            par.train_step = real
+        if p.error is not None:
+            raise RuntimeError(f"orbax (d): {fmt}: pipeline error {p.error}")
+        launches[fmt] = _par_counts()
+        losses[fmt] = got
+        if len(got) != ORBAX_TRAIN_STEPS or \
+                not all(math.isfinite(v) for v in got):
+            raise RuntimeError(f"orbax (d): {fmt}: losses {got}")
+        if LC_DEVICE == "cuda" and launches[fmt]["scale_bias_cast"] < n:
+            raise RuntimeError(f"orbax (d): {fmt}: launches {launches[fmt]}")
+    a, b = losses["orbax"], losses["safetensors"]
+    rel = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+    if a == b:
+        held = "equal"
+    elif rel <= TRAIN_SMALL_TOL["loss"]:
+        held = f"within rtol {TRAIN_SMALL_TOL['loss']} (not equal)"
+    else:
+        raise RuntimeError(f"orbax (d): losses {a} from orbax against {b} "
+                           f"from safetensors")
+    print(f"orbax (d): a torch-optim trainer resumed from step "
+          f"{ORBAX_STEP} trained {ORBAX_TRAIN_STEPS} steps at batch "
+          f"{TRAIN_BATCH}: losses {a} from orbax, {b} from safetensors: "
+          f"{held} (largest relative gap {rel}); launches {launches} "
+          f"[{card}, {power}]", flush=True)
+    return {"losses": losses, "held": held, "max_rel": rel,
+            "launches": launches}
+
+
+def phase_orbax(card: str, power: str):
+    """Phase 22: (a)-(d) above, under ``cudnn.deterministic``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    build_root = os.path.join(HERE, "build")
+    os.makedirs(build_root, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="nns_orbax_", dir=build_root)
+    res = {}
+    try:
+        res["fixture"] = orbax_fixture(card, power)
+        res["mobilenet"] = orbax_mobilenet(root, card, power)
+        res["vit"] = orbax_vit(root, card, power)
+        res["resume"] = orbax_resume(
+            root, {"orbax": os.path.join(root, "mnv1_orbax"),
+                   "safetensors": os.path.join(root, "mnv1_safetensors")},
+            card, power)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["launches"] = {k: res["mobilenet"]["launches"][k]
+                       + res["vit"]["launches"][k]
+                       + sum(v[k] for v in res["resume"]["launches"].values())
+                       for k in ("scale_bias_cast", "flash_attention")}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"orbax phase: {res['seconds']:.1f} s, launches {res['launches']} "
+          f"[{card}, {power}]", flush=True)
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-per-forward":
         return count_forward_kernels(sys.argv[2])
@@ -9106,6 +9583,7 @@ def main() -> int:
     parallel_alone = sys.argv[1:] == ["--parallel"]
     training_alone = sys.argv[1:] == ["--training"]
     importers_alone = sys.argv[1:] == ["--importers"]
+    orbax_alone = sys.argv[1:] == ["--orbax"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -9191,6 +9669,12 @@ def main() -> int:
                           "card": card, "power_limit": power},
                          default=str))
         return 0
+    if orbax_alone:
+        PHASE[0] = "22"
+        print(json.dumps({"orbax": phase_orbax(card, power),
+                          "card": card, "power_limit": power},
+                         default=str))
+        return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     PHASE[0] = "4"
@@ -9231,6 +9715,8 @@ def main() -> int:
     training = phase_training(card, power)
     PHASE[0] = "21"
     importers = phase_importers(card, power)
+    PHASE[0] = "22"
+    orbax = phase_orbax(card, power)
 
     print(json.dumps({"main_path": main_path, "vit_path": vit_path,
                       "serving": serving, "lifecycle": lifecycle,
@@ -9239,7 +9725,8 @@ def main() -> int:
                       "obs": obs, "control": control, "repairs": repairs,
                       "edge": edge, "mqtt": mqtt, "parallel": parallel,
                       "training": training, "importers": importers,
-                      "card": card, "power_limit": power}, default=str))
+                      "orbax": orbax, "card": card, "power_limit": power},
+                     default=str))
     served = serving["launches"]
     sbc_by_path = {"detection": main_path["launches"],
                    "vit": vit_path["scale_bias_cast_launches"],
@@ -9269,7 +9756,13 @@ def main() -> int:
                    "parallel": parallel["launches"]["scale_bias_cast"],
                    "training": training["launches"]["scale_bias_cast"],
                    "importers_onnx": importers["launches"]["onnx"],
-                   "importers_mnist": importers["launches"]["mnist"]}
+                   "importers_mnist": importers["launches"]["mnist"],
+                   "orbax_mobilenet":
+                       orbax["mobilenet"]["launches"]["scale_bias_cast"],
+                   "orbax_vit": orbax["vit"]["launches"]["scale_bias_cast"],
+                   "orbax_resume": sum(
+                       v["scale_bias_cast"]
+                       for v in orbax["resume"]["launches"].values())}
     if mqtt["grpc"]["ran"]:
         sbc_by_path["mqtt_grpc"] = mqtt["grpc"]["launches"]
     fa_by_path = {"vit": vit_path["flash_launches"],
@@ -9283,7 +9776,8 @@ def main() -> int:
                   "edge_vit": edge["vit"]["launches"]["flash_attention"],
                   "mqtt_vit": mqtt["vit"]["launches"]["flash_attention"],
                   "parallel": parallel["launches"]["flash_attention"],
-                  "training": training["launches"]["flash_attention"]}
+                  "training": training["launches"]["flash_attention"],
+                  "orbax_vit": orbax["vit"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

@@ -262,14 +262,16 @@ class VersionManager:
         entry = self.entry
         resolved, tag = resolve_model_uri_versioned(model)
         if isinstance(resolved, str) and os.path.isdir(resolved):
-            # a checkpoint (step) directory: weights-only swap — load the
-            # tree and keep the serving architecture
+            # a checkpoint (step) directory, the port's or a JAX orbax
+            # one: weights-only swap — load the tree and keep the serving
+            # architecture
+            from ..nativelib import NativeBuildError
             from ..trainers.checkpoint import load_dir
 
             source = str(resolved)
             try:
                 resolved = load_dir(resolved)
-            except ValueError as e:
+            except (ValueError, NativeBuildError) as e:
                 raise LifecycleError(
                     f"{entry.label()}: staging {source!r} failed: {e}"
                 ) from e

@@ -6,20 +6,24 @@ Counterpart of the JAX package's ``trainers/checkpoint.py``
 - file paths (``.pkl``) hold the ``torch-cuda`` filter's model dict
   (``apply``, ``params``, ``in_shapes``, ``in_dtypes``), so an inference
   pipeline loads the trained model directly;
-- directory paths hold one ``params.safetensors``
-  (``models/params_io.py``) with the JAX-layout tree.  The JAX package
-  writes orbax checkpoints there; orbax is a JAX library this port does
-  not use, so a JAX-written orbax step does not load here (a later
-  ROADMAP item), and a port step directory is not an orbax one.
+- directory paths: the port writes one ``params.safetensors``
+  (``models/params_io.py``) with the JAX-layout tree.  :func:`load_dir`
+  reads that, and also the JAX package's orbax steps (``_METADATA``
+  beside an OCDBT ``manifest.ocdbt``, or per-file zarr arrays), without
+  orbax: ``trainers/orbax_format.py`` over ``trainers/ocdbt.py`` and the
+  zstd decoder of ``native/nns_zstd.cc`` (built with g++ on first use).
+  Which format a directory holds is read from the files it holds, never
+  from its name.  The port does not write orbax.
 
 Step layout: a checkpoint ROOT directory holds numbered step
 subdirectories (``root/100/``, ``root/200/``, …).  The step helpers
 (copies of the JAX package's) resolve ``root@123`` / ``root@latest``
 references (``filters/modeluri.py``) to a step directory and its version
 tag, which is how a serving pool's hot-swap path
-(``runtime/lifecycle.py``) loads the newest trained weights.
-:func:`save_step` writes a new step whole before it appears under its
-number, so ``root@latest`` never names a step still being written.
+(``runtime/lifecycle.py``) loads the newest trained weights, from a port
+step or a JAX one.  :func:`save_step` writes a new step whole before it
+appears under its number, so ``root@latest`` never names a step still
+being written.
 """
 
 from __future__ import annotations
@@ -119,13 +123,19 @@ def save_step(root: str, step: int, tree: Any) -> str:
     return path
 
 
-def load_dir(path: str) -> Any:
-    """The tree a step directory holds.  Raises ``ValueError`` for a
-    directory without ``params.safetensors`` (a JAX orbax step among
-    them)."""
+def load_dir(path: str, template: Optional[Any] = None) -> Any:
+    """The tree a step directory holds: the port's ``params.safetensors``,
+    or a JAX orbax step (``orbax_format.load_orbax``; ``template`` gives
+    each leaf its dtype there, as the JAX trainer's resume does, and is
+    not used for a port step).  Raises ``ValueError`` for a directory
+    that holds neither."""
     file = os.path.join(path, STEP_FILE)
-    if not os.path.isfile(file):
-        raise ValueError(
-            f"{path!r} holds no {STEP_FILE}: not a step directory of this "
-            "port (a JAX orbax checkpoint does not load here)")
-    return load_safetensors(file)[0]
+    if os.path.isfile(file):
+        return load_safetensors(file)[0]
+    from .orbax_format import is_orbax_dir, load_orbax
+
+    if is_orbax_dir(path):
+        return load_orbax(path, template)
+    raise ValueError(
+        f"{path!r} is not a step directory: it holds neither {STEP_FILE} "
+        "(a step of this port) nor _METADATA (a JAX orbax step)")

@@ -91,12 +91,17 @@ def _resolve_apply(cfg: Dict, load_path: str) -> Tuple[Any, Any, str]:
     else:
         raise TrainerError("torch-optim: model-config needs an 'apply'")
     if load_path:
+        from ..nativelib import NativeBuildError
         from .checkpoint import is_dir_path, load_dir
 
         if is_dir_path(load_path):
+            # the init tree, where given, is the template of a JAX orbax
+            # step (each leaf takes its dtype), as jax-optax's resume
+            template = params if isinstance(params, (dict, list, tuple)) \
+                else None
             try:
-                params = load_dir(load_path)
-            except ValueError as e:
+                params = load_dir(load_path, template)
+            except (ValueError, NativeBuildError) as e:
                 raise TrainerError(f"torch-optim: {e}") from e
         else:
             with open(load_path, "rb") as f:

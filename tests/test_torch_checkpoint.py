@@ -3,10 +3,9 @@
 1. ``tests/test_checkpoint.py`` replayed through the port: the path rule
    (``is_orbax_path`` is the port's ``is_dir_path``), a directory round
    trip and a trainer that saves to a directory and a second one that
-   resumes from it.  The JAX package writes orbax there; the port writes
-   its step-directory format (``trainers/checkpoint.py``: one
-   ``params.safetensors``), so the replay reads ``load_orbax(path,
-   template)`` as ``load_dir(path)``.
+   resumes from it.  The port writes its own step-directory format
+   (``trainers/checkpoint.py``: one ``params.safetensors``), so the replay
+   reads ``load_orbax(path, template)`` as ``load_dir(path)``.
 2. ``tests/test_lifecycle.py::test_orbax_step_dir_resolution``'s
    assertions on the port's step helpers and model URIs, each result
    equal to the JAX package's on the same directories.
@@ -16,8 +15,15 @@
 4. A step directory as a weights-only swap source: a pool serving a
    MobileNetV1 ``.pkl`` reloads ``root@latest``, keeps its architecture,
    takes the step as its version tag, and serves the step's logits
-   (f32, equal to the tree applied alone).  A directory without
-   ``params.safetensors`` (a JAX orbax step among them) is refused.
+   (f32, equal to the tree applied alone).  A directory that holds
+   neither ``params.safetensors`` nor an orbax ``_METADATA`` is refused.
+5. The orbax cases of ``tests/test_checkpoint.py`` across the packages:
+   the JAX package writes orbax (``save_orbax``, its ``jax-optax``
+   trainer), the port reads it (``trainers/orbax_format.py``): the round
+   trip with a template, a ``torch-optim`` trainer resuming from a JAX
+   trainer's orbax directory, and a port pool's weights-only swap into a
+   JAX-written ``root@latest`` serving, bit for bit, the logits the same
+   tree gives from a safetensors step.
 """
 
 import os
@@ -178,7 +184,8 @@ def test_step_directory_is_a_weights_only_swap_source(tmp_path):
         lc = flt.pool.lifecycle
         assert lc.baseline.tag == "40"
         assert lc.baseline.source == f"{root / '40'}@40"
-        with pytest.raises(LifecycleError, match="params.safetensors"):
+        with pytest.raises(LifecycleError,
+                           match="neither params.safetensors.*nor _METADATA"):
             lc.stage(f"{root}@7")
         src.push_buffer(TBuffer.of(x, pts=0))
         got = sink.pull(timeout=60)
@@ -186,3 +193,125 @@ def test_step_directory_is_a_weights_only_swap_source(tmp_path):
         assert p.wait_eos(timeout=60)
     assert got is not None
     torch.testing.assert_close(got.tensors[0].torch(), want, rtol=0, atol=0)
+
+
+# -- 5. orbax steps across the packages ----------------------------------------
+
+
+def _bits_equal(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        w = np.asarray(want[k])
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        assert got[k].tobytes() == w.tobytes(), k
+
+
+def test_orbax_roundtrip_jax_writes_port_reads(tmp_path):
+    """``TestCheckpointBackends.test_orbax_roundtrip`` with the JAX
+    package writing and the port reading, with and without the
+    template."""
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "b": np.zeros(3, np.float32)}
+    path = str(tmp_path / "ck")
+    jck.save_orbax(path, tree)
+    out = tck.load_dir(path, template=tree)
+    np.testing.assert_array_equal(out["w"], tree["w"])
+    np.testing.assert_array_equal(out["b"], tree["b"])
+    _bits_equal(out, jck.load_orbax(path, template=tree))
+    _bits_equal(tck.load_dir(path), jck.load_orbax(path))
+
+
+def _jax_train(save_path, n=16):
+    """``TestTrainerOrbaxResume.run_training``: the JAX trainer on
+    ``mesh: data:-1`` saving an orbax directory."""
+    from nnstreamer_tpu.core import Buffer, TensorsSpec
+    from nnstreamer_tpu.elements.basic import AppSink, AppSrc
+    from nnstreamer_tpu.runtime import Pipeline
+    from nnstreamer_tpu.runtime.registry import make
+
+    p = Pipeline()
+    src = AppSrc(name="src", spec=TensorsSpec.parse("4:1,1:1",
+                                                    "float32,int32"))
+    trn = make("tensor_trainer", el_name="trn", framework="jax-optax",
+               model_config={
+                   "apply": "test_torch_checkpoint:ck_tree_apply",
+                   "init": {"w": np.zeros((4, 2), np.float32),
+                            "b": np.zeros((2,), np.float32)},
+                   "batch_size": 8, "lr": 0.5, "mesh": "data:-1"},
+               model_save_path=save_path, num_inputs=1, num_labels=1,
+               num_training_samples=n, epochs=1)
+    snk = AppSink(name="out", max_buffers=2 * n + 8)
+    p.add(src, trn, snk).link(src, trn, snk)
+    rng = np.random.default_rng(0)
+    with p:
+        for _ in range(n):
+            x = rng.standard_normal((1, 4)).astype(np.float32)
+            y = np.array([[int(x.sum() > 0)]], np.int32)
+            src.push_buffer(Buffer.of(x, y))
+        src.end_of_stream()
+        assert p.wait_eos(timeout=180)
+
+
+def test_save_orbax_then_resume_jax_trainer_to_port_trainer(tmp_path):
+    """``TestTrainerOrbaxResume.test_save_orbax_then_resume`` across the
+    packages: the JAX trainer saves orbax, a ``torch-optim`` trainer
+    resumes from it.  At lr 0 the port saves the JAX step's tree bit for
+    bit (it started from it); at lr 0.5 it trains on from it."""
+    ck = str(tmp_path / "trainer_ck")  # no extension: an orbax directory
+    _jax_train(ck)
+    template = {"w": np.zeros((4, 2), np.float32),
+                "b": np.zeros((2,), np.float32)}
+    restored = tck.load_dir(ck, template=template)
+    _bits_equal(restored, jck.load_orbax(ck, template=template))
+    assert np.abs(restored["w"]).sum() > 0
+    _train(str(tmp_path / "kept"), load_path=ck, lr=0.0)
+    _bits_equal(tck.load_dir(str(tmp_path / "kept")), restored)
+    _train(str(tmp_path / "ck2"), load_path=ck)
+    again = tck.load_dir(str(tmp_path / "ck2"))
+    assert np.isfinite(again["w"]).all()
+    assert not np.array_equal(again["w"], restored["w"])
+
+
+def test_pool_swaps_into_a_jax_orbax_root_latest(tmp_path):
+    """A port pool's weights-only swap into the JAX package's
+    ``root@latest`` (orbax) serves the logits the same tree serves from
+    a safetensors step: f32, bit for bit, tag = the step."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((1, 32, 32, 3)).astype(np.float32)
+    tree0 = tmb.mobilenet_v1_init(0, 10, 0.25)
+    tree1 = tmb.mobilenet_v1_init(1, 10, 0.25)
+    model = tmp_path / "mnv1.pkl"
+    with open(model, "wb") as f:
+        pickle.dump({"apply": "nnstreamer_tpu_torch.models.convert:"
+                              "mobilenet_v1_tree_apply",
+                     "apply_kwargs": {"dtype": "float32"},
+                     "params": tree0, "in_shapes": [(1, 32, 32, 3)],
+                     "in_dtypes": np.dtype("float32")}, f)
+    jroot, troot = tmp_path / "jax_ckpts", tmp_path / "port_ckpts"
+    jck.save_orbax_step(str(jroot), 3, tree0)
+    jck.save_orbax_step(str(jroot), 40, tree1)
+    tck.save_step(str(troot), 40, tree1)
+    got = {}
+    for name, root in (("orbax", jroot), ("safetensors", troot)):
+        p = TPipeline(name=f"ck-orbax-{name}", device="cpu")
+        src = TAppSrc(name="src", spec=TSpec.from_shapes([(1, 32, 32, 3)],
+                                                         np.float32))
+        flt = TensorFilter(name="net", framework="torch-cuda",
+                           model=str(model), share_model=True,
+                           is_updatable=True)
+        sink = TAppSink(name="sink", max_buffers=8)
+        p.add(src, flt, sink).link(src, flt, sink)
+        with p:
+            flt.handle_event(None, Event.reload_model(f"{root}@latest"))
+            assert flt.pool.lifecycle.baseline.tag == "40"
+            src.push_buffer(TBuffer.of(x, pts=0))
+            out = sink.pull(timeout=60)
+            src.end_of_stream()
+            assert p.wait_eos(timeout=60)
+        assert out is not None
+        got[name] = out.tensors[0].torch()
+    assert got["orbax"].dtype == torch.float32
+    assert torch.equal(got["orbax"], got["safetensors"])
+    want = convert.mobilenet_v1_tree_apply(
+        tree1, torch.from_numpy(x), dtype="float32").detach()
+    torch.testing.assert_close(got["orbax"], want, rtol=0, atol=0)

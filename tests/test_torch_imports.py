@@ -115,8 +115,10 @@ def test_edge_imports_without_grpcio():
 
 
 def test_no_jax_or_jax_package_import_in_source():
-    """AST scan: no ``import jax``/``from jax`` and no import of the JAX
-    package anywhere in the port, chip_smoke.py or flash_study.py."""
+    """AST scan: no ``import jax``/``from jax``, no import of the JAX
+    package and none of the libraries orbax steps are read without
+    (orbax, tensorstore, zstandard, numcodecs, zarr) anywhere in the
+    port, chip_smoke.py or flash_study.py."""
     bad = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), filename=path)
@@ -129,10 +131,35 @@ def test_no_jax_or_jax_package_import_in_source():
                 continue
             for m in mods:
                 root = m.split(".")[0]
-                if root in ("jax", "jaxlib", "nnstreamer_tpu"):
+                if root in ("jax", "jaxlib", "nnstreamer_tpu", "orbax",
+                            "tensorstore", "zstandard", "numcodecs",
+                            "zarr"):
                     bad.append(f"{os.path.relpath(path, REPO)}:"
                                f"{node.lineno} imports {m}")
     assert not bad, bad
+
+
+def test_orbax_reader_without_a_compiler_names_gpp(monkeypatch, tmp_path):
+    """Where the zstd decoder cannot be built, reading a JAX orbax step
+    raises naming g++ (there is no Python decoder to fall back to); a
+    pool staging it and a trainer resuming from it say so too."""
+    from nnstreamer_tpu_torch import nativelib
+    from nnstreamer_tpu_torch.trainers import torch_optim
+    from nnstreamer_tpu_torch.trainers import TrainerError
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+
+    step = os.path.join(REPO, "tests", "data", "orbax_step")
+    monkeypatch.setattr(nativelib, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(nativelib, "_zstd", None)
+    monkeypatch.setattr(nativelib, "_zstd_error", None)
+    monkeypatch.setattr(nativelib.shutil, "which", lambda name: None)
+    with pytest.raises(nativelib.NativeBuildError, match="g\\+\\+"):
+        load_dir(step)
+    with pytest.raises(nativelib.NativeBuildError, match="g\\+\\+"):
+        load_dir(step)                  # the failure is kept, not retried
+    with pytest.raises(TrainerError, match="g\\+\\+"):
+        torch_optim._resolve_apply({"apply": "math:sqrt"}, step)
+    assert not (tmp_path / "native").exists()
 
 
 def test_cuda_without_card_raises(monkeypatch):

@@ -1,0 +1,583 @@
+"""The JAX package's orbax steps read by the port, without orbax, on the CPU.
+
+1. The zstd decoder (``native/nns_zstd.cc`` through ``nativelib.py``)
+   against ``zstandard``: hypothesis inputs of 0 B to 1 MB at levels 1, 3
+   and 19, with and without the checksum and the content size,
+   multi-block frames; raw- and RLE-only frames, skippable and
+   concatenated frames; truncated and bit-flipped frames return an error
+   (a flipped frame with a checksum errors, or decodes to the original
+   where the flip hit a bit the decoder does not read).
+2. The OCDBT store (``trainers/ocdbt.py``) against tensorstore's own
+   reads, on a store with interior nodes and inline and indirect values;
+   damaged nodes and manifests raise.
+3. Steps the JAX package writes (``save_orbax``), each leaf held bit for
+   bit against ``orbax.checkpoint.StandardCheckpointer().restore``: every
+   dtype, 0-d and Python scalars, nested dicts and lists, empty nodes;
+   sharded and replicated leaves on the 8 virtual devices (several chunks
+   a leaf); a ``use_ocdbt=False`` save; a JAX ``tensor_trainer`` step;
+   templates (dtype casts; a structure mismatch raises where orbax
+   raises; a shape mismatch keeps the stored shape, as orbax does).
+4. The tests' own writer (``tests/torch_orbax_files.py``, which phase 22
+   of ``chip_smoke.py`` uses) held against orbax's restore: a chunk grid
+   that does not divide the shape, missing chunks, bf16 torch leaves.
+5. The committed step ``tests/data/orbax_step/`` (JAX ``save_orbax`` of
+   ``torch_orbax_files.fixture_tree()``): multi-block frames with Huffman
+   literals and FSE sequences, read bit-equal to the seeded tree.
+6. Refusals, each naming its field: zarr v3, other compressors,
+   ``filters``, order F; a directory of neither format.
+"""
+
+import json
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import orbax.checkpoint as ocp
+import pytest
+import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
+from jax.sharding import Mesh, NamedSharding
+from jax.sharding import PartitionSpec as P
+
+import torch_orbax_files as W
+from nnstreamer_tpu.trainers.checkpoint import load_orbax as jload_orbax
+from nnstreamer_tpu.trainers.checkpoint import save_orbax
+from nnstreamer_tpu_torch import nativelib
+from nnstreamer_tpu_torch.trainers import checkpoint as tck
+from nnstreamer_tpu_torch.trainers.ocdbt import Ocdbt, OcdbtError
+from nnstreamer_tpu_torch.trainers.orbax_format import OrbaxFormatError
+
+zstandard = pytest.importorskip("zstandard")
+
+
+# -- helpers -------------------------------------------------------------------
+
+
+def restore(path, template=None):
+    """orbax's own restore (the JAX package's ``load_orbax``)."""
+    return jload_orbax(str(path), template)
+
+
+def assert_same(got, want, where="tree"):
+    """``got`` (the port's) equals orbax's ``want`` bit for bit, in the
+    same structure and dtypes; bf16 leaves are torch.bfloat16 tensors."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), where
+        for k in want:
+            assert_same(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert isinstance(got, list) and len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{where}.{i}")
+    elif want is None:
+        assert got is None, where
+    elif isinstance(want, (bool, int, float)):
+        assert type(got) is type(want) and got == want, (where, got, want)
+    else:
+        w = np.asarray(want)
+        if w.dtype.name == "bfloat16":
+            assert isinstance(got, torch.Tensor), where
+            assert got.dtype == torch.bfloat16, where
+            g, w = got.view(torch.int16).numpy(), w.view(np.int16)
+        else:
+            assert isinstance(got, np.ndarray), (where, type(got))
+            g = got
+        assert g.dtype == w.dtype, (where, g.dtype, w.dtype)
+        assert g.shape == w.shape, (where, g.shape, w.shape)
+        assert g.tobytes() == w.tobytes(), where
+
+
+def zdecode(frame: bytes, size=None) -> bytes:
+    return nativelib.zstd_decompress(frame, size).tobytes()
+
+
+def frame_blocks(frame: bytes):
+    """(block type, literals type, sequence modes) of each block of a
+    zstd frame: type 0 raw, 1 RLE, 2 compressed; literals 0 raw, 1 RLE,
+    2 Huffman, 3 treeless; modes (LL, OF, ML), 2 = FSE-coded."""
+    fhd = frame[4]
+    single, fcs, did = fhd >> 5 & 1, fhd >> 6, fhd & 3
+    pos = 5 + (0 if single else 1) + (0, 1, 2, 4)[did] + \
+        ((1 if single else 0), 2, 4, 8)[fcs]
+    out = []
+    while True:
+        bh = int.from_bytes(frame[pos:pos + 3], "little")
+        pos += 3
+        last, kind, size = bh & 1, bh >> 1 & 3, bh >> 3
+        if kind != 2:
+            out.append((kind, None, None))
+            pos += 1 if kind == 1 else size
+        else:
+            b = frame[pos:pos + size]
+            ltype, sfmt = b[0] & 3, b[0] >> 2 & 3
+            if ltype < 2:
+                hs = (1, 2, 1, 3)[sfmt]
+                h = int.from_bytes(b[:hs], "little")
+                regen = h >> 3 if hs == 1 else h >> 4
+                lit = hs + (regen if ltype == 0 else 1)
+            else:
+                hs = (3, 3, 4, 5)[sfmt]
+                bits = (10, 10, 14, 18)[sfmt]
+                h = int.from_bytes(b[:hs], "little")
+                lit = hs + (h >> (4 + bits) & ((1 << bits) - 1))
+            n0 = b[lit]
+            q = lit + (1 if n0 < 128 else 2 if n0 < 255 else 3)
+            modes = None if n0 == 0 else (b[q] >> 6, b[q] >> 4 & 3,
+                                          b[q] >> 2 & 3)
+            out.append((2, ltype, modes))
+            pos += size
+        if last:
+            return out
+
+
+def payload(kind: int, n: int, seed: int) -> bytes:
+    """Seeded bytes of one of five kinds: uniform, a 4-letter alphabet,
+    float32 normals, quarter-step floats (long repeats), words."""
+    rng = np.random.default_rng(seed)
+    if kind == 0:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    if kind == 1:
+        return rng.integers(0, 4, n, dtype=np.uint8).tobytes()
+    if kind == 2:
+        return rng.standard_normal(n // 4 + 1).astype(np.float32) \
+            .tobytes()[:n]
+    if kind == 3:
+        return (np.round(rng.standard_normal(n // 4 + 1) * 4) / 4) \
+            .astype(np.float32).tobytes()[:n]
+    words = [b"orbax ", b"ocdbt ", b"zarr", b"\n", b"chunk ", b"0.0 "]
+    return b"".join(words[i] for i in rng.integers(0, 6, n // 2 + 1))[:n]
+
+
+# -- 1. the zstd decoder -------------------------------------------------------
+
+
+@settings(max_examples=60, deadline=None, database=None, derandomize=True,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(kind=st.integers(0, 4),
+       size=st.one_of(st.integers(0, 600), st.integers(0, 1 << 20)),
+       level=st.sampled_from([1, 3, 19]), checksum=st.booleans(),
+       content_size=st.booleans(), seed=st.integers(0, 2 ** 31))
+def test_zstd_equals_zstandard(kind, size, level, checksum, content_size,
+                               seed):
+    data = payload(kind, size, seed)
+    frame = zstandard.ZstdCompressor(
+        level=level, write_checksum=checksum,
+        write_content_size=content_size).compress(data)
+    assert zdecode(frame, len(data)) == data
+    if content_size:
+        assert zdecode(frame) == data            # the size from the frame
+
+
+@pytest.mark.parametrize("level", [1, 3, 19])
+def test_zstd_multi_block_frames_cover_the_block_kinds(level):
+    """Frames of several blocks mixing compressed (Huffman, treeless,
+    FSE, repeat modes), raw and RLE blocks decode as zstandard does."""
+    parts = [payload(3, 300_000, level), payload(0, 200_000, level),
+             bytes(150_000), payload(4, 300_000, level + 1),
+             payload(2, 200_000, level + 2)]
+    data = b"".join(parts)
+    frame = zstandard.ZstdCompressor(level=level,
+                                     write_checksum=True).compress(data)
+    kinds = frame_blocks(frame)
+    assert len(kinds) >= 8
+    assert {k for k, _, _ in kinds} >= {0, 2}
+    assert any(lt == 2 for _, lt, _ in kinds)
+    assert any(m and 2 in m for _, _, m in kinds)
+    assert zdecode(frame, len(data)) == data
+
+
+def _raw_rle_frame(pieces, checksum_free=True):
+    """A frame of raw (bytes) and RLE ((byte, count)) blocks, no
+    checksum, content size stored."""
+    total = sum(len(p) if isinstance(p, bytes) else p[1] for p in pieces)
+    out = [bytes.fromhex("28b52ffd"), bytes([0xA0]),
+           total.to_bytes(4, "little")]
+    for i, p in enumerate(pieces):
+        last = int(i == len(pieces) - 1)
+        if isinstance(p, bytes):
+            out += [((len(p) << 3) | last).to_bytes(3, "little"), p]
+        else:
+            out += [((p[1] << 3) | 2 | last).to_bytes(3, "little"),
+                    bytes([p[0]])]
+    return b"".join(out)
+
+
+def test_zstd_raw_rle_skippable_and_concatenated_frames():
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 256, 70_000, dtype=np.uint8).tobytes()
+    pieces = [a, (7, 131_072), a[:5], (0, 1), b"", (255, 40_000)]
+    frame = _raw_rle_frame(pieces)
+    want = a + bytes([7]) * 131_072 + a[:5] + b"\0" + bytes([255]) * 40_000
+    assert zstandard.ZstdDecompressor().decompress(frame) == want
+    assert zdecode(frame) == want
+    assert zdecode(W.zstd_raw_frame(want)) == want
+    assert zdecode(W.zstd_raw_frame(b"")) == b""
+    skip = (0x184D2A5A).to_bytes(4, "little") + (3).to_bytes(4, "little") \
+        + b"xyz"
+    other = zstandard.ZstdCompressor(level=3, write_checksum=True) \
+        .compress(a)
+    assert zdecode(skip + frame + other + skip, len(want) + len(a)) == \
+        want + a
+
+
+def test_zstd_corrupt_frames_return_an_error():
+    rng = np.random.default_rng(11)
+    frames = []
+    for level in (1, 3, 19):
+        for kind in (2, 3, 4):
+            data = payload(kind, 50_000 if level == 19 else 200_000, level)
+            frames.append((zstandard.ZstdCompressor(
+                level=level, write_checksum=True).compress(data), data))
+    flips = errors = 0
+    for frame, data in frames:
+        for cut in range(0, len(frame), max(1, len(frame) // 60)):
+            with pytest.raises(ValueError, match="zstd"):
+                zdecode(frame[:cut], len(data))
+        for _ in range(150):
+            bad = bytearray(frame)
+            i = int(rng.integers(0, len(bad)))
+            bad[i] ^= 1 << int(rng.integers(0, 8))
+            flips += 1
+            try:
+                out = zdecode(bytes(bad), len(data))
+            except ValueError:
+                errors += 1
+                continue
+            assert out == data, f"flip at byte {i} decoded to other bytes"
+        # garbage after a valid frame header
+        for _ in range(40):
+            junk = frame[:6] + rng.integers(
+                0, 256, int(rng.integers(0, 3000)), dtype=np.uint8).tobytes()
+            try:
+                zdecode(junk, len(data))
+            except ValueError:
+                pass
+    assert errors >= 0.98 * flips
+    with pytest.raises(ValueError, match="expected"):
+        zdecode(frames[0][0], len(frames[0][1]) + 1)
+
+
+def test_zstd_refuses_dictionaries():
+    d = zstandard.train_dictionary(
+        2048, [payload(4, 300, s) for s in range(200)])
+    frame = zstandard.ZstdCompressor(dict_data=d).compress(payload(4, 500, 1))
+    with pytest.raises(ValueError, match="dictionary"):
+        zdecode(frame, 500)
+
+
+def test_crc32c_of_the_check_string():
+    assert nativelib.crc32c(b"123456789") == 0xE3069283 == \
+        W.crc32c(b"123456789")
+    data = payload(0, 10_000, 3)
+    assert nativelib.crc32c(data) == W.crc32c(data)
+
+
+# -- 2. the OCDBT store --------------------------------------------------------
+
+
+def test_ocdbt_against_tensorstore(tmp_path):
+    """Small nodes force interior levels, subtree prefixes, inline and
+    indirect values over many data files and versions."""
+    ts = pytest.importorskip("tensorstore")
+    root = tmp_path / "kv"
+    kv = ts.KvStore.open({"driver": "ocdbt", "base": f"file://{root}/",
+                          "config": {"max_decoded_node_bytes": 200,
+                                     "max_inline_value_bytes": 8}}).result()
+    for i in range(40):
+        kv.write(f"key/{i:03d}/abc", bytes([i]) * (i % 20)).result()
+    with ts.Transaction() as txn:
+        for i in range(40, 120):
+            kv.with_transaction(txn).write(f"key/{i:03d}/xyz",
+                                           bytes([i]) * 5)
+    kv.delete_range(ts.KvStore.KeyRange("key/010", "key/013")).result()
+    db = Ocdbt(str(root))
+    keys = [k.decode() for k in kv.list().result()]
+    assert db.list() == sorted(keys) and len(keys) == 117
+    for k in keys:
+        assert db.read(k) == kv.read(k).result().value
+    assert db.read("key/011/abc") is None
+    assert db.generation > 16          # older versions sit in version nodes
+
+
+def _root_node_file(step: str) -> str:
+    files = [f for f in os.listdir(os.path.join(step, "d"))]
+    assert len(files) == 1
+    return os.path.join(step, "d", files[0])
+
+
+def test_ocdbt_damage_raises(tmp_path):
+    step = str(tmp_path / "step")
+    shutil.copytree(W.FIXTURE_DIR, step)
+    Ocdbt(step)
+    rng = np.random.default_rng(2)
+    for path in (os.path.join(step, "manifest.ocdbt"),
+                 _root_node_file(step)):
+        good = open(path, "rb").read()
+        for cut in range(0, len(good), 7):
+            open(path, "wb").write(good[:cut])
+            with pytest.raises(OcdbtError):
+                Ocdbt(step)
+        for _ in range(60):
+            bad = bytearray(good)
+            bad[int(rng.integers(0, len(bad)))] ^= \
+                1 << int(rng.integers(0, 8))
+            open(path, "wb").write(bytes(bad))
+            with pytest.raises(OcdbtError):
+                Ocdbt(step)
+        open(path, "wb").write(good)
+    Ocdbt(step)
+
+
+# -- 3. steps the JAX package writes -------------------------------------------
+
+
+def _dtypes_tree(rng):
+    return {
+        "f32": rng.standard_normal((5, 7)).astype(np.float32),
+        "f16": rng.standard_normal(9).astype(np.float16),
+        "f64": rng.standard_normal((2, 3)),
+        "bf16": jnp.asarray(rng.standard_normal((4, 6)), jnp.bfloat16),
+        "ints": [rng.integers(-128, 127, 6).astype(np.int8),
+                 rng.integers(-2 ** 31, 2 ** 31 - 1, (3, 2)).astype(np.int32),
+                 rng.integers(-2 ** 62, 2 ** 62, 4).astype(np.int64),
+                 rng.integers(0, 255, (2, 2, 2)).astype(np.uint8),
+                 rng.integers(0, 2, 5).astype(np.bool_)],
+        "scalars": {"f": np.float32(2.5), "i": np.int64(-7),
+                    "py_float": 0.125, "py_int": 42,
+                    "jax": jnp.float32(3.25)},
+        "nested": {"a": {"b": [{"c": np.arange(4, dtype=np.int16)},
+                               np.ones((1, 1), np.float32)]}},
+        "empty": {"d": {}, "l": [], "n": None},
+        "0": np.arange(3, dtype=np.uint16),   # a digit dict key
+    }
+
+
+def test_dtypes_and_structure_bit_equal_to_orbax(tmp_path):
+    path = tmp_path / "ck"
+    save_orbax(str(path), _dtypes_tree(np.random.default_rng(0)))
+    assert_same(tck.load_dir(str(path)), restore(path))
+
+
+def test_sharded_and_replicated_leaves_in_several_chunks(tmp_path):
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2),
+                ("data", "model"))
+    rng = np.random.default_rng(1)
+    tree = {
+        "w": jax.device_put(rng.standard_normal((64, 32)).astype(np.float32),
+                            NamedSharding(mesh, P("data", "model"))),
+        "rep": jax.device_put(np.arange(16, dtype=np.float32),
+                              NamedSharding(mesh, P())),
+        "rep2": jax.device_put(
+            rng.standard_normal((24, 5)).astype(np.float32),
+            NamedSharding(mesh, P())),
+        "rows": jax.device_put(rng.integers(0, 9, (8, 3)).astype(np.int32),
+                               NamedSharding(mesh, P("data"))),
+        "bf": jax.device_put(jnp.asarray(rng.standard_normal((8, 4)),
+                                         jnp.bfloat16),
+                             NamedSharding(mesh, P(None, "model"))),
+    }
+    path = tmp_path / "ck"
+    save_orbax(str(path), tree)
+    chunks = {}
+    for key in Ocdbt(str(path)).list():
+        name, _, chunk = key.partition("/")
+        if chunk != ".zarray":
+            chunks[name] = chunks.get(name, 0) + 1
+    assert chunks["w"] == 8 and chunks["rep"] == 8 and chunks["rep2"] > 1
+    assert chunks["rows"] > 1 and chunks["bf"] > 1
+    assert_same(tck.load_dir(str(path)), restore(path))
+
+
+def test_use_ocdbt_false_save(tmp_path):
+    path = tmp_path / "ck"
+    tree = {"x": np.arange(6, dtype=np.float32),
+            "y": {"z": np.ones((2, 2), np.int8)},
+            "s": np.float64(0.5)}
+    ckptr = ocp.Checkpointer(ocp.StandardCheckpointHandler(use_ocdbt=False))
+    ckptr.save(str(path), args=ocp.args.StandardSave(tree))
+    assert not os.path.exists(path / "manifest.ocdbt")
+    assert os.path.isfile(path / "y.z" / ".zarray")
+    assert_same(tck.load_dir(str(path)), ckptr.restore(str(path)))
+
+
+def jck_apply(params, x, train=False):
+    return x @ params["w"] + params["b"]
+
+
+def test_jax_tensor_trainer_step(tmp_path):
+    """The step ``tests/test_checkpoint.py``'s JAX trainer writes
+    (``mesh: data:-1``, 8 devices): several chunks a leaf, bit-equal."""
+    from nnstreamer_tpu.core import Buffer, TensorsSpec
+    from nnstreamer_tpu.elements.basic import AppSink, AppSrc
+    from nnstreamer_tpu.runtime import Pipeline
+    from nnstreamer_tpu.runtime.registry import make
+
+    ck = str(tmp_path / "trainer_ck")
+    p = Pipeline()
+    src = AppSrc(name="src", spec=TensorsSpec.parse("4:1,1:1",
+                                                    "float32,int32"))
+    trn = make("tensor_trainer", el_name="trn", framework="jax-optax",
+               model_config={"apply": "test_torch_orbax:jck_apply",
+                             "init": {"w": np.zeros((4, 2), np.float32),
+                                      "b": np.zeros((16,), np.float32)[:2]},
+                             "batch_size": 8, "lr": 0.5, "mesh": "data:-1"},
+               model_save_path=ck, num_inputs=1, num_labels=1,
+               num_training_samples=16, epochs=1)
+    snk = AppSink(name="out", max_buffers=64)
+    p.add(src, trn, snk).link(src, trn, snk)
+    rng = np.random.default_rng(0)
+    with p:
+        for _ in range(16):
+            x = rng.standard_normal((1, 4)).astype(np.float32)
+            src.push_buffer(Buffer.of(x, np.array([[int(x.sum() > 0)]],
+                                                  np.int32)))
+        src.end_of_stream()
+        assert p.wait_eos(timeout=180)
+    got = tck.load_dir(ck)
+    assert np.abs(got["w"]).sum() > 0
+    assert_same(got, restore(ck))
+
+
+_BASE = {"w": np.zeros((2, 3), np.float32), "b": np.zeros(3, np.float32),
+         "i": np.int64(0), "l": [np.zeros(2, np.uint8)]}
+
+
+@pytest.mark.parametrize("case, template", [
+    ("same", _BASE),
+    ("cast", {**_BASE, "w": np.zeros((2, 3), np.float16),
+              "b": np.zeros(3, jnp.bfloat16), "i": np.int32(0)}),
+    ("cast_to_int", {**_BASE, "w": np.zeros((2, 3), np.int32)}),
+    ("bf16_to_f32", {**_BASE, "l": [np.zeros(2, np.float32)]}),
+    ("shape_mismatch", {**_BASE, "w": np.zeros((3, 3), np.float32)}),
+    ("rank_mismatch", {**_BASE, "w": np.zeros(6, np.float32)}),
+    ("extra_key", {**_BASE, "z": np.zeros(3, np.float32)}),
+    ("missing_key", {k: v for k, v in _BASE.items() if k != "b"}),
+    ("list_length", {**_BASE, "l": [np.zeros(2, np.uint8)] * 2}),
+    ("list_as_dict", {**_BASE, "l": {"0": np.zeros(2, np.uint8)}}),
+    ("none_leaf", {**_BASE, "i": None}),
+])
+def test_template_as_orbax(tmp_path, case, template):
+    path = tmp_path / "ck"
+    save_orbax(str(path), {
+        "w": np.arange(6, dtype=np.float32).reshape(2, 3) + 0.3,
+        "b": np.array([1e-3, -2.5, 7e4], np.float32), "i": np.int64(7),
+        "l": [np.array([3, 250], np.uint8) if case != "bf16_to_f32"
+              else jnp.asarray([1.5, -2.25], jnp.bfloat16)]})
+    try:
+        want = restore(path, template)
+    except ValueError:
+        with pytest.raises(OrbaxFormatError, match="structure"):
+            tck.load_dir(str(path), template)
+        assert case in ("extra_key", "missing_key", "list_length",
+                        "list_as_dict")
+        return
+    assert case not in ("extra_key", "missing_key", "list_length",
+                        "list_as_dict")
+    assert_same(tck.load_dir(str(path), template), want)
+    # a torch template (bf16 included) gives the same leaves
+    ttemplate = {k: (torch.zeros(v.shape, dtype=torch.bfloat16)
+                     if getattr(v, "dtype", None) is not None
+                     and str(v.dtype) == "bfloat16"
+                     else torch.from_numpy(np.asarray(v))
+                     if isinstance(v, np.ndarray) else v)
+                 for k, v in template.items()}
+    assert_same(tck.load_dir(str(path), ttemplate), want)
+
+
+# -- 4. the tests' writer ------------------------------------------------------
+
+
+def test_writer_steps_restore_in_orbax(tmp_path):
+    rng = np.random.default_rng(3)
+    tree = {"w": rng.standard_normal((300, 200)).astype(np.float32),
+            "grid": rng.standard_normal((10, 7)).astype(np.float32),
+            "bf": torch.randn(4, 6, generator=torch.Generator().manual_seed(
+                0)).to(torch.bfloat16),
+            "s": 2.5, "i": 7,
+            "l": [np.arange(3, dtype=np.int8), np.float32(1.5)],
+            "big": rng.standard_normal(100_000).astype(np.float32)}
+    path = str(tmp_path / "ck")
+    # a chunk grid that does not divide the shape: edge chunks are cut
+    W.write_orbax_step(path, tree, chunks={"grid": (3, 4), "big": (30_000,)})
+    want = restore(path)
+    assert_same(tck.load_dir(path), want)
+    np.testing.assert_array_equal(np.asarray(want["grid"]), tree["grid"])
+    # orbax stored every chunk: a missing one is damage, for both readers
+    W.write_orbax_step(path, tree, chunks={"grid": (3, 4)},
+                       missing=["grid/1.1"])
+    with pytest.raises(ValueError, match="grid/1.1"):
+        restore(path)
+    with pytest.raises(OrbaxFormatError, match="grid/1.1"):
+        tck.load_dir(path)
+    # where the step says it did not, the missing chunk reads as fill
+    meta_path = os.path.join(path, "_METADATA")
+    meta = json.load(open(meta_path))
+    meta["store_array_data_equal_to_fill_value"] = False
+    json.dump(meta, open(meta_path, "w"))
+    want = restore(path)
+    assert_same(tck.load_dir(path), want)
+    assert not np.asarray(want["grid"])[3:6, 4:7].any()
+
+
+# -- 5. the committed fixture --------------------------------------------------
+
+
+def test_fixture_frames_and_tree():
+    db = Ocdbt(W.FIXTURE_DIR)
+    kinds = {k: frame_blocks(db.read(k)) for k in db.list()
+             if not k.endswith(".zarray")}
+    multi = [k for k, b in kinds.items() if len(b) > 1
+             and any(lt == 2 for _, lt, _ in b)
+             and any(m and 2 in m for _, _, m in b)]
+    assert multi == ["quant/0.0"], kinds
+    assert os.path.isdir(os.path.join(W.FIXTURE_DIR, "ocdbt.process_0"))
+    assert W.step_bytes(W.FIXTURE_DIR) <= 256 * 1024
+    want = W.fixture_tree()
+    got = tck.load_dir(W.FIXTURE_DIR)
+    assert_same(got, want)
+    assert_same(got, restore(W.FIXTURE_DIR))
+
+
+# -- 6. refusals ---------------------------------------------------------------
+
+
+def _files_step(tmp_path):
+    path = tmp_path / "files"
+    ocp.Checkpointer(ocp.StandardCheckpointHandler(use_ocdbt=False)).save(
+        str(path), args=ocp.args.StandardSave(
+            {"x": np.arange(6, dtype=np.float32)}))
+    return path
+
+
+@pytest.mark.parametrize("field, value, match", [
+    ("compressor", {"id": "blosc", "cname": "lz4"}, "compressor 'blosc'"),
+    ("compressor", "zstd", "compressor 'zstd'"),
+    ("shape", "six", "malformed .zarray"),
+    ("filters", [{"id": "delta", "dtype": "<f4"}], "filters"),
+    ("order", "F", "order 'F'"),
+    ("dtype", "<c8", "dtype"),
+])
+def test_zarray_refusals_name_the_field(tmp_path, field, value, match):
+    path = _files_step(tmp_path)
+    zarray = path / "x" / ".zarray"
+    meta = json.loads(zarray.read_text())
+    meta[field] = value
+    zarray.write_text(json.dumps(meta))
+    with pytest.raises(OrbaxFormatError, match=match):
+        tck.load_dir(str(path))
+
+
+def test_zarr3_and_neither_format_refused(tmp_path):
+    path = _files_step(tmp_path)
+    meta = json.loads((path / "_METADATA").read_text())
+    meta["use_zarr3"] = True
+    (path / "_METADATA").write_text(json.dumps(meta))
+    with pytest.raises(OrbaxFormatError, match="use_zarr3"):
+        tck.load_dir(str(path))
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(ValueError, match="params.safetensors.*_METADATA"):
+        tck.load_dir(str(empty))
