@@ -397,7 +397,8 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    backend=cuda`` (the normalize kernel; a transform converts every
    tensor of a buffer, so the int32 label goes round it) → ``tensor_mux``
    → ``tensor_trainer framework=torch-optim`` (sgd, lr 1e-2, batch 128,
-   ``mesh=data:-1``, i.e. ``data:1``) → ``appsink``: 16 steps, each loss
+   ``mesh=data:1,model:-1``: one data shard) → ``appsink``: 16 steps,
+   each loss
    finite, 2 epoch events and 1 completion, 2048 (1,5) float64 status
    buffers, ``scale_bias_cast`` once a sample and ``flash_attention``
    never; it prints the step time p50/p90 split into forward, backward
@@ -420,8 +421,22 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    committed: version tag ``16``, every frame after the flip with the
    trained model's label (logits within 1e-4 of it alone); the staging
    seconds and the flip stall printed.  (e) Both kernels' wrappers refuse
-   a card input that requires grad and launch under ``no_grad``.  (f) The
-   analyzer over phase 20's descriptions: 0 errors;
+   a card input that requires grad and launch under ``no_grad``.  (g)
+   The split step (data-parallel training, the batch statistics combined
+   over every shard: ``parallel/syncbn.py``): (i) (b)'s three steps of
+   each optimizer on ``data:4`` over 4 virtual records on the card, on
+   ``data:2`` over a card record and a ``cpu`` record (two distinct real
+   devices) and on the stacked ``data:1`` on the card, the first two held
+   against the stacked step and all three against the CPU at (b)'s
+   limits, TF32 off; per-shard statistics planted (the shard group
+   bypassed) must fail the same check on both split meshes; (ii) (a)'s
+   pipeline again with ``mesh=data:4`` over 4 virtual records on the
+   card: the same holds as (a), the first loss within rtol 1e-4 of (a)'s
+   (``data:1``) on the same samples, the step split, samples/s, peak
+   memory and the host wait at the barriers printed; (iii) with two or
+   more cards, ``mesh=data:-1`` over them, against (a)'s samples/s, else
+   one line "not run: 1 card".  Each line names its mesh, S and devices.
+   (f) The analyzer over phase 20's descriptions: 0 errors;
 21. the importers (``filters/onnx.py``, ``tflite.py``, ``tensorflow.py``)
    on files the tests' writer (``tests/torch_model_files.py``) makes from
    seeds, and the native codec, under PyTorch's default switches (cuDNN
@@ -8055,7 +8070,9 @@ def train_full_width(root: str, data: str, js: str, kept, card: str,
         "init": lambda seed: mobilenet_v1_init(seed, TRAIN_CLASSES,
                                                TRAIN_WIDTH),
         "seed": SEED, "batch_size": TRAIN_BATCH, "optimizer": "sgd",
-        "lr": TRAIN_LR, "mesh": "data:-1"}
+        # one data shard on the first card however many the machine has
+        # (a mesh spans every card; the model axis replicates)
+        "lr": TRAIN_LR, "mesh": "data:1,model:-1"}
     steps, losses, prof_box, events = [], [], {}, []
 
     class Profiled:
@@ -8129,9 +8146,10 @@ def train_full_width(root: str, data: str, js: str, kept, card: str,
         raise RuntimeError(f"training (a): {len(steps)} step builds, "
                            f"{steps[0].steps if steps else 0} steps, not "
                            f"{n_steps}")
-    if steps[0].device.type != TRAIN_DEVICE:
+    if steps[0].device.type != TRAIN_DEVICE or steps[0].data_size != 1:
         raise RuntimeError(f"training (a): the step ran on "
-                           f"{steps[0].device}")
+                           f"{steps[0].device} over {steps[0].data_size} "
+                           f"data shards, not 1")
     if len(losses) != n_steps or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"training (a): step losses {losses}")
     kinds = Counter(e["event"] for _, e in events)
@@ -8292,83 +8310,113 @@ def train_full_width(root: str, data: str, js: str, kept, card: str,
     return res
 
 
-def train_card_vs_cpu(card: str, power: str):
-    """20b: three train_step steps of each optimizer on the card and on
-    the CPU (width 0.25, 32x32, 10 classes, batch 16, f32, TF32 off)."""
-    import functools
-
-    import torch
-
-    from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
+def _small_batches():
+    """(b)'s and (g)'s three seeded batches and tree (TRAIN_SMALL)."""
     from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
-    from nnstreamer_tpu_torch.parallel import mesh as M
-    from nnstreamer_tpu_torch.parallel.sharded import (train_step,
-                                                       trained_tree)
-    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
 
     sm = TRAIN_SMALL
     rng = np.random.default_rng(SEED + 3)
     xs = rng.standard_normal((3, sm["batch"], sm["size"], sm["size"], 3)
                              ).astype(np.float32)
     ys = rng.integers(0, sm["classes"], (3, sm["batch"])).astype(np.int32)
-    tree = mobilenet_v1_init(SEED, sm["classes"], sm["width"])
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    return xs, ys, mobilenet_v1_init(SEED, sm["classes"], sm["width"])
+
+
+def _small_run(mesh, name, dtype, step_seen=None, perm=None):
+    """Three ``train_step`` steps of ``name`` over ``mesh`` from
+    ``_small_batches`` (their rows in the order ``perm``, where given: the
+    same function): (losses, the trained tree)."""
+    import functools
+
+    from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
+    from nnstreamer_tpu_torch.parallel.sharded import (train_step,
+                                                       trained_tree)
+    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+    xs, ys, tree = _small_batches()
+    if perm is not None:
+        xs, ys = xs[:, perm], ys[:, perm]
+    step, params, opt = train_step(
+        mesh, functools.partial(mobilenet_v1_tree_apply, dtype=dtype), tree,
+        optimizer=_make_optimizer({"optimizer": name,
+                                   "lr": TRAIN_SMALL["lr"]}))
+    step.record_events = True     # a split step keeps its barrier waits
+    losses = []
+    for x, y in zip(xs, ys):
+        params, opt, loss = step(params, opt, x, y)
+        losses.append(float(loss))
+    step.close()
+    if step_seen is not None:
+        step_seen.append(step)
+    return losses, trained_tree(params)
+
+
+def _tree_leaves(t):
+    if isinstance(t, dict):
+        for k in sorted(t):
+            yield from _tree_leaves(t[k])
+    elif isinstance(t, list):
+        for v in t:
+            yield from _tree_leaves(v)
+    else:
+        yield t
+
+
+def _small_compare(got, want, name):
+    """``got`` against ``want`` (each ``_small_run``'s result) at
+    TRAIN_SMALL_TOL: (readings, whether every one is within its limit)."""
+    (lc, tc), (lh, th) = got, want
+    tree = _small_batches()[2]
+    rels = [abs(a - b) / abs(b) for a, b in zip(lc, lh)]
+    diffs = np.concatenate([np.abs(a - b).ravel() for a, b in
+                            zip(_tree_leaves(tc), _tree_leaves(th))])
+    gaps = []
+    for a, b, i0 in zip(_tree_leaves(tc), _tree_leaves(th),
+                        _tree_leaves(tree)):
+        nb = np.linalg.norm(b - i0)
+        gaps.append(np.linalg.norm(a - b) / nb if nb else
+                    (0.0 if np.array_equal(a, b) else np.inf))
+    r = {"first_loss_rel": rels[0], "loss_rel": max(rels),
+         "leaf_max": float(diffs.max()), "update_gap": float(max(gaps)),
+         "within_1e-6": float((diffs <= 1e-6).mean())}
+    over = [k for k, v, lim in (
+        ("first_loss_rel", rels[0], TRAIN_SMALL_TOL["first_loss"]),
+        ("loss_rel", max(rels), TRAIN_SMALL_TOL["loss"]),
+        ("leaf_max", diffs.max(), TRAIN_SMALL_TOL["leaf"]),
+        ("update_gap", max(gaps), TRAIN_SMALL_TOL["update_gap"][name]))
+        if not v <= lim]
+    return r, over
+
+
+def train_card_vs_cpu(card: str, power: str):
+    """20b: three train_step steps of each optimizer on the card and on
+    the CPU (width 0.25, 32x32, 10 classes, batch 16, f32, TF32 off)."""
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import mesh as M
 
     def run(dev, name, dtype):
-        step, params, opt = train_step(
-            M.make_mesh("data:1", M.local_devices(dev)[:1]),
-            functools.partial(mobilenet_v1_tree_apply, dtype=dtype), tree,
-            optimizer=_make_optimizer({"optimizer": name, "lr": sm["lr"]}))
-        losses = []
-        for x, y in zip(xs, ys):
-            params, opt, loss = step(params, opt, x, y)
-            losses.append(float(loss))
-        return losses, trained_tree(params)
-
-    def leaves(t):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                yield from leaves(t[k])
-        elif isinstance(t, list):
-            for v in t:
-                yield from leaves(v)
-        else:
-            yield t
+        return _small_run(M.make_mesh("data:1", M.local_devices(dev)[:1]),
+                          name, dtype)
 
     res = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    set_tf32(False, False)
     try:
         for name in ("sgd", "adam", "adamw"):
-            (lc, tc), (lh, th) = (run(TRAIN_DEVICE, name, torch.float32),
-                                  run("cpu", name, torch.float32))
-            rels = [abs(a - b) / abs(b) for a, b in zip(lc, lh)]
-            diffs = np.concatenate([np.abs(a - b).ravel() for a, b in
-                                    zip(leaves(tc), leaves(th))])
-            gaps = []
-            for a, b, i0 in zip(leaves(tc), leaves(th), leaves(tree)):
-                nb = np.linalg.norm(b - i0)
-                gaps.append(np.linalg.norm(a - b) / nb if nb else
-                            (0.0 if np.array_equal(a, b) else np.inf))
-            res[name] = {"first_loss_rel": rels[0], "loss_rel": max(rels),
-                         "leaf_max": float(diffs.max()),
-                         "update_gap": float(max(gaps)),
-                         "within_1e-6": float((diffs <= 1e-6).mean())}
-            if rels[0] > TRAIN_SMALL_TOL["first_loss"] or \
-                    max(rels) > TRAIN_SMALL_TOL["loss"] or \
-                    diffs.max() > TRAIN_SMALL_TOL["leaf"] or \
-                    max(gaps) > TRAIN_SMALL_TOL["update_gap"][name]:
+            res[name], over = _small_compare(
+                run(TRAIN_DEVICE, name, torch.float32),
+                run("cpu", name, torch.float32), name)
+            if over:
                 raise RuntimeError(
-                    f"training (b) {name}: card vs CPU loss rel {rels}, "
-                    f"leaf max {diffs.max()}, update gap {max(gaps)} "
+                    f"training (b) {name}: card vs CPU {res[name]} "
                     f"(limits {TRAIN_SMALL_TOL})")
         lc, _ = run(TRAIN_DEVICE, "sgd", torch.bfloat16)
         lh, _ = run("cpu", "sgd", torch.bfloat16)
         res["bf16_loss_max_diff"] = max(abs(a - b) for a, b in zip(lc, lh))
     finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
+        set_tf32(*tf32)
     print("training (b): 3 steps of MobileNetV1 w0.25 32x32 batch 16 f32 "
           "(TF32 off, lr 1e-4), card vs CPU: " + "; ".join(
               f"{n} first loss rel {r['first_loss_rel']:.3e}, losses rel "
@@ -8573,8 +8621,408 @@ def train_lint(card: str, power: str):
             "warnings": tally[Severity.WARNING]}
 
 
+TRAIN_DP_SHARDS = 4    # (g): virtual records over the card, (i) and (ii)
+TRAIN_DP_PERMS = 8     # (g i): row orders of the stacked step (adam's spread)
+
+
+def _meshes_20g():
+    """(g i)'s meshes: (label, mesh) — ``data:4`` over 4 virtual records
+    on the card, ``data:2`` over a card record and a ``cpu`` record (two
+    distinct real devices), the stacked ``data:1`` on the card, and the
+    stacked ``data:1`` on the CPU (the reference)."""
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import mesh as M
+    from nnstreamer_tpu_torch.utils.device import resolve_device
+
+    card = resolve_device(TRAIN_DEVICE)
+    M.set_virtual_devices(TRAIN_DP_SHARDS, TRAIN_DEVICE)
+    try:
+        virtual = M.make_mesh(f"data:{TRAIN_DP_SHARDS}",
+                              M.local_devices(TRAIN_DEVICE))
+    finally:
+        M.clear_virtual_devices()
+    mixed = M.make_mesh("data:2", [
+        M.Device(card.type, 0, 0, card),
+        M.Device("cpu", 1, 0, torch.device("cpu"))])
+    return [(f"data:{TRAIN_DP_SHARDS} virtual", virtual),
+            ("data:2 card+cpu", mixed),
+            ("data:1 card", M.make_mesh("data:1", [M.Device(card.type, 0, 0,
+                                                            card)])),
+            ("data:1 cpu", M.make_mesh("data:1", M.local_devices("cpu")))]
+
+
+def _mesh_line(mesh, step) -> str:
+    return (f"mesh {dict(zip(mesh.axis_names, mesh.devices.shape))} S="
+            f"{step.data_size} devices "
+            f"{[str(d) for d in step.devices]}")
+
+
+def _perm_spread(mesh, name: str, base) -> float:
+    """The stacked step over ``mesh`` against itself (``base``) on
+    TRAIN_DP_PERMS row orders of its batches, the same function: the
+    largest leaf difference.  Under adam a gradient entry within rounding
+    of zero changes sign with the order of its sums, and its update by up
+    to 2·lr a step."""
+    import torch
+
+    worst = 0.0
+    for seed in range(TRAIN_DP_PERMS):
+        perm = np.random.default_rng(seed).permutation(TRAIN_SMALL["batch"])
+        r, _ = _small_compare(_small_run(mesh, name, torch.float32,
+                                         perm=perm), base, name)
+        worst = max(worst, r["leaf_max"])
+    return worst
+
+
+def train_split_small(card: str, power: str):
+    """20g (i): the split step against the stacked one and the CPU, and
+    the planted fault of per-shard statistics."""
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import syncbn
+
+    meshes = _meshes_20g()
+    res = {"perm_spread": {}}
+    spread = res["perm_spread"]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    set_tf32(False, False)
+    try:
+        for name in ("sgd", "adam", "adamw"):
+            runs, steps = {}, []
+            for label, mesh in meshes:
+                runs[label] = _small_run(mesh, name, torch.float32, steps)
+            for label, mesh in meshes[:2]:
+                st = steps[[m for _, m in meshes].index(mesh)]
+                if st.data_size < 2 or len(st.barrier_ms) != 3:
+                    raise RuntimeError(f"training (g i): {label} ran "
+                                       f"{st.data_size} shards, "
+                                       f"{len(st.barrier_ms)} split steps")
+            out = {}
+            for label, _ in meshes[:3]:
+                pairs = [("cpu", "data:1 cpu")] + (
+                    [("stacked", "data:1 card")] if "data:1" not in label
+                    else [])
+                for ref, ref_label in pairs:
+                    key = f"{label} vs {ref}"
+                    out[key], over = _small_compare(
+                        runs[label], runs[ref_label], name)
+                    if over == ["leaf_max"] and name != "sgd":
+                        # adam's sign flips: held to the stacked step's
+                        # own spread over row orders (module doc, 20g)
+                        if name not in spread:
+                            spread[name] = _perm_spread(
+                                meshes[2][1], name, runs["data:1 card"])
+                        if out[key]["leaf_max"] <= spread[name]:
+                            over = []
+                    if over:
+                        raise RuntimeError(
+                            f"training (g i) {name}: {label} against "
+                            f"{ref_label}: {out[key]} over {over} (limits "
+                            f"{TRAIN_SMALL_TOL}, the stacked step's spread "
+                            f"over row orders {spread.get(name)})")
+            res[name] = out
+            for (label, mesh), st in zip(meshes[:2], steps[:2]):
+                print(f"training (g i) {name}: {_mesh_line(mesh, st)}: "
+                      + "; ".join(
+                          f"{k.split(' vs ')[1]}: first loss rel "
+                          f"{r['first_loss_rel']:.3e}, losses rel "
+                          f"{r['loss_rel']:.3e}, leaves max "
+                          f"{r['leaf_max']:.3e}, largest update gap "
+                          f"{r['update_gap']:.3e}"
+                          for k, r in out.items() if k.startswith(label))
+                      + (f"; the stacked card step against itself over "
+                         f"{TRAIN_DP_PERMS} row orders: leaves max "
+                         f"{spread[name]:.3e}" if name in spread else "")
+                      + f" [{card}, {power}]", flush=True)
+        # the planted fault: each shard's statistics from its own rows
+        real = syncbn.batch_moments
+        syncbn.batch_moments = lambda y, dims: (
+            y.mean(dim=dims), y.var(dim=dims, unbiased=False))
+        try:
+            planted = {label: _small_run(mesh, "sgd", torch.float32)
+                       for label, mesh in meshes[:2]}
+        finally:
+            syncbn.batch_moments = real
+        res["planted"] = {}
+        ref = _small_run(meshes[2][1], "sgd", torch.float32)
+        for label, run in planted.items():
+            r, over = _small_compare(run, ref, "sgd")
+            res["planted"][label] = dict(r, over=over)
+            if not over:
+                raise RuntimeError(f"training (g i): per-shard statistics "
+                                   f"on {label} pass the check: {r}")
+    finally:
+        set_tf32(*tf32)
+    print("training (g i): per-shard statistics planted (the shard group "
+          "bypassed), sgd, against the stacked card step: " + "; ".join(
+              f"{label} fails on {r['over']} (first loss rel "
+              f"{r['first_loss_rel']:.3e}, largest update gap "
+              f"{r['update_gap']:.3e})"
+              for label, r in res["planted"].items())
+          + f" [{card}, {power}]", flush=True)
+    return res
+
+
+def _train_run(root: str, data: str, js: str, mesh: str, tag: str):
+    """(a)'s pipeline once more with ``mesh=``: the recorded step, the step
+    losses, the bus events, the status buffers, the launches (counted
+    from 0), the peak card memory, the wall seconds."""
+    import torch
+
+    import nnstreamer_tpu_torch.parallel as par
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.runtime import parse_launch
+
+    on_card = TRAIN_DEVICE == "cuda"
+    save = os.path.join(root, f"mnv1_{tag.replace(' ', '_')}.pkl")
+    p = parse_launch(TRAIN_PIPE.format(
+        n=TRAIN_SAMPLES, epochs=TRAIN_EPOCHS, save=save, data=data, js=js,
+        norm=NORM, sink=TRAIN_SAMPLES * TRAIN_EPOCHS + 8),
+        device=TRAIN_DEVICE)
+    p["trn"].model_config = {
+        "apply": "nnstreamer_tpu_torch.models.convert:"
+                 "mobilenet_v1_tree_apply",
+        "init": lambda seed: mobilenet_v1_init(seed, TRAIN_CLASSES,
+                                               TRAIN_WIDTH),
+        "seed": SEED, "batch_size": TRAIN_BATCH, "optimizer": "sgd",
+        "lr": TRAIN_LR, "mesh": mesh}
+    steps, meshes, losses, events, statuses = [], [], [], [], []
+    real = par.train_step
+
+    class Logged:
+        """The trainer's step with each loss logged; every attribute is
+        the step's."""
+
+        def __init__(self, step):
+            self.step = step
+
+        def __getattr__(self, name):
+            return getattr(self.step, name)
+
+        def __call__(self, *args):
+            out = self.step(*args)
+            losses.append(float(self.step.last_loss))
+            return out
+
+    def recording(mesh, *args, **kw):
+        step, params, opt_state = real(mesh, *args, **kw)
+        step.record_events = on_card
+        steps.append(step)
+        meshes.append(mesh)
+        return Logged(step), params, opt_state
+
+    p.bus.add_watch(lambda m: events.append((time.perf_counter(),
+                                             dict(m.data)))
+                    if isinstance(m.data, dict) and "event" in m.data
+                    else None)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False     # as (a) trains
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _par_zero()
+    par.train_step = recording
+    t0 = time.perf_counter()
+    try:
+        p.start()
+        if not p.wait_eos(timeout=900):
+            raise RuntimeError(f"training ({tag}): no EOS within 900 s")
+        while True:
+            b = p["out"].pull(timeout=0.5)
+            if b is None:
+                break
+            statuses.append(b)
+    finally:
+        p.stop()
+        par.train_step = real
+        torch.backends.cudnn.deterministic = det
+    launches = _par_counts()
+    if p.error is not None:
+        raise RuntimeError(f"training ({tag}): pipeline error {p.error}")
+    return {"steps": steps, "mesh": meshes[0] if meshes else None,
+            "losses": losses, "events": events,
+            "statuses": statuses, "launches": launches, "t0": t0,
+            "wall_s": time.perf_counter() - t0,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20
+            if on_card else float("nan")}
+
+
+def _split_figures(run: dict, base: dict, tag: str, shards: int) -> dict:
+    """(g ii)/(g iii)'s holds and figures from a ``_train_run``."""
+    on_card = TRAIN_DEVICE == "cuda"
+    n_steps = TRAIN_EPOCHS * -(-TRAIN_SAMPLES // TRAIN_BATCH)
+    steps, losses = run["steps"], run["losses"]
+    if len(steps) != 1 or steps[0].steps != n_steps or \
+            steps[0].data_size != shards:
+        raise RuntimeError(f"training ({tag}): {len(steps)} step builds, "
+                           f"{steps[0].steps if steps else 0} steps over "
+                           f"{steps[0].data_size if steps else 0} shards, "
+                           f"not {n_steps} over {shards}")
+    step = steps[0]
+    if on_card and len(step.barrier_ms) != n_steps:
+        raise RuntimeError(f"training ({tag}): {len(step.barrier_ms)} split "
+                           f"forwards of {n_steps} steps")
+    if len(losses) != n_steps or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"training ({tag}): step losses {losses}")
+    first_rel = abs(losses[0] - base["step_losses"][0]) / \
+        abs(base["step_losses"][0])
+    if first_rel > TRAIN_SMALL_TOL["first_loss"]:
+        raise RuntimeError(f"training ({tag}): first loss {losses[0]} "
+                           f"against (a)'s {base['step_losses'][0]}: rel "
+                           f"{first_rel} over {TRAIN_SMALL_TOL['first_loss']}")
+    kinds = Counter(e["event"] for _, e in run["events"])
+    if kinds != Counter({"epoch-completion": TRAIN_EPOCHS,
+                         "training-completion": 1}):
+        raise RuntimeError(f"training ({tag}): events {run['events']}")
+    n_status = TRAIN_SAMPLES * TRAIN_EPOCHS
+    sbc = run["launches"]["scale_bias_cast"]
+    if len(run["statuses"]) != n_status or (
+            on_card and not n_status <= sbc <= n_status + 2) or \
+            run["launches"]["flash_attention"]:
+        raise RuntimeError(f"training ({tag}): {len(run['statuses'])} status "
+                           f"buffers, launches {run['launches']}")
+    epoch_t = [t for t, e in run["events"]
+               if e["event"] == "epoch-completion"]
+    res = {"steps": n_steps, "shards": step.data_size,
+           "devices": [str(d) for d in step.devices],
+           "step_losses": losses, "first_loss_rel": first_rel,
+           "loss_rel_max": max(abs(a - b) / abs(b) for a, b in
+                               zip(losses, base["step_losses"])),
+           "samples_per_s_epoch2": TRAIN_SAMPLES / (epoch_t[1] - epoch_t[0]),
+           "samples_per_s_epoch1": TRAIN_SAMPLES / (epoch_t[0] - run["t0"]),
+           "peak_mib": run["peak_mib"], "launches": run["launches"],
+           "wall_s": run["wall_s"]}
+    split = step.timings()[1:] if on_card else []
+    if split:
+        for i, part in enumerate(("forward", "backward", "update")):
+            ms = [s[i] for s in split]
+            res[f"{part}_ms_p50"] = _percentile(ms, 0.5)
+            res[f"{part}_ms_p90"] = _percentile(ms, 0.9)
+        tot = [sum(s) for s in split]
+        res["step_ms_p50"] = _percentile(tot, 0.5)
+        res["step_ms_p90"] = _percentile(tot, 0.9)
+        res["barrier_ms_p50"] = _percentile(step.barrier_ms[1:], 0.5)
+    _step_alone(step, res)
+    return res
+
+
+def _step_alone(step, res: dict) -> None:
+    """The recorded step again, alone, on one batch already on the card
+    (no data path beside it; its first step discarded), as (a) does: the
+    p50 split and the host ms a step into ``res``."""
+    import torch
+
+    rs = np.random.default_rng(SEED + 1)
+    xb = torch.from_numpy(rs.standard_normal(
+        (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.float32)).to(
+        TRAIN_DEVICE)
+    yb = torch.from_numpy(rs.integers(0, TRAIN_CLASSES, TRAIN_BATCH).astype(
+        np.int32)).to(TRAIN_DEVICE)
+    step.events.clear()
+    step.barrier_ms.clear()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    params, opt_state = step.params, step.opt_state
+    t1 = time.perf_counter()
+    try:
+        for _ in range(TRAIN_ALONE_STEPS):
+            params, opt_state, loss = step(params, opt_state, xb, yb)
+            float(loss)     # the trainer reads each loss too
+    finally:
+        torch.backends.cudnn.deterministic = det
+        step.close()
+    res["alone_host_ms"] = (time.perf_counter() - t1) * 1e3 \
+        / TRAIN_ALONE_STEPS
+    alone = step.timings()[1:]
+    if alone:
+        for i, part in enumerate(("forward", "backward", "update")):
+            res[f"alone_{part}_ms_p50"] = _percentile(
+                [a[i] for a in alone], 0.5)
+        res["alone_step_ms_p50"] = _percentile([sum(a) for a in alone], 0.5)
+        res["alone_barrier_ms_p50"] = _percentile(step.barrier_ms[1:], 0.5)
+
+
+def _split_line(res: dict, base: dict) -> str:
+    msg = (f"{res['steps']} steps, every loss finite, the first "
+           f"{res['step_losses'][0]:.6f} against (a)'s "
+           f"{base['step_losses'][0]:.6f} (rel {res['first_loss_rel']:.3e}; "
+           f"the largest over the steps {res['loss_rel_max']:.3e}); samples/s "
+           f"{res['samples_per_s_epoch2']:.1f} (epoch 2; (a) "
+           f"{base['samples_per_s_epoch2']:.1f}), "
+           f"{res['samples_per_s_epoch1']:.1f} (epoch 1); peak card memory "
+           f"{res['peak_mib']:.1f} MiB ((a) {base['peak_mib']:.1f}); launches "
+           f"{res['launches']}")
+    if "step_ms_p50" in res:
+        msg += (f"; step ms p50/p90 (steps 2-{res['steps']}, CUDA events): "
+                f"forward {res['forward_ms_p50']:.3f}/"
+                f"{res['forward_ms_p90']:.3f}, backward "
+                f"{res['backward_ms_p50']:.3f}/{res['backward_ms_p90']:.3f}, "
+                f"update {res['update_ms_p50']:.3f}/{res['update_ms_p90']:.3f}"
+                f", whole {res['step_ms_p50']:.3f}/{res['step_ms_p90']:.3f} "
+                f"((a) {base.get('step_ms_p50', float('nan')):.3f}/"
+                f"{base.get('step_ms_p90', float('nan')):.3f}); host wait at "
+                f"the barriers p50 {res['barrier_ms_p50']:.3f} ms a forward")
+    if "alone_step_ms_p50" in res:
+        msg += (f"; the step alone on a card batch (p50 of "
+                f"{TRAIN_ALONE_STEPS - 1}): forward "
+                f"{res['alone_forward_ms_p50']:.3f}, backward "
+                f"{res['alone_backward_ms_p50']:.3f}, update "
+                f"{res['alone_update_ms_p50']:.3f}, whole "
+                f"{res['alone_step_ms_p50']:.3f} ms ((a) "
+                f"{base.get('alone_step_ms_p50', float('nan')):.3f}), host "
+                f"{res['alone_host_ms']:.3f} ms a step, barrier wait p50 "
+                f"{res['alone_barrier_ms_p50']:.3f} ms")
+    return msg
+
+
+def train_split(root: str, data: str, js: str, base: dict, card: str,
+                power: str):
+    """20g: (i) the split step at TRAIN_SMALL on three meshes; (ii) (a)'s
+    pipeline on ``mesh=data:4`` over 4 virtual records on the card;
+    (iii) on ``mesh=data:-1`` over every real card, where there are two or
+    more."""
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import mesh as M
+
+    res = {"small": train_split_small(card, power)}
+    M.set_virtual_devices(TRAIN_DP_SHARDS, TRAIN_DEVICE)
+    try:
+        run = _train_run(root, data, js, f"data:{TRAIN_DP_SHARDS}", "g ii")
+    finally:
+        M.clear_virtual_devices()
+    res["virtual"] = _split_figures(run, base, "g ii", TRAIN_DP_SHARDS)
+    res["launches"] = res["virtual"]["launches"]
+    print(f"training (g ii): MobileNetV1 w{TRAIN_WIDTH} {TRAIN_SIZE}x"
+          f"{TRAIN_SIZE} {TRAIN_CLASSES} classes, {TRAIN_SAMPLES} samples x "
+          f"{TRAIN_EPOCHS} epochs at batch {TRAIN_BATCH} through "
+          f"tensor_trainer mesh=data:{TRAIN_DP_SHARDS}, "
+          f"{_mesh_line(run['mesh'], run['steps'][0])}: "
+          f"{_split_line(res['virtual'], base)} [{card}, {power}]",
+          flush=True)
+    cards = torch.cuda.device_count() if TRAIN_DEVICE == "cuda" else 0
+    if cards < 2:
+        res["cards"] = {"ran": False, "cards": cards}
+        print(f"training (g iii): mesh=data:-1 over the real cards: not run: "
+              f"{cards} card [{card}, {power}]", flush=True)
+        return res
+    run = _train_run(root, data, js, "data:-1", "g iii")
+    res["cards"] = dict(_split_figures(run, base, "g iii", cards), ran=True)
+    ratio = res["cards"]["samples_per_s_epoch2"] / \
+        base["samples_per_s_epoch2"]
+    print(f"training (g iii): the same pipeline through tensor_trainer "
+          f"mesh=data:-1, "
+          f"{_mesh_line(run['mesh'], run['steps'][0])}: "
+          f"{_split_line(res['cards'], base)}; against one card ((a), "
+          f"one data shard) {ratio:.3f}x samples/s [{card}, {power}]",
+          flush=True)
+    return res
+
+
 def phase_training(card: str, power: str):
-    """Phase 20: (a)-(f) above; (a)'s kernel counts from 0."""
+    """Phase 20: (a)-(e), (g), then (f) over every description; (a)'s and
+    (g)'s kernel counts each from 0."""
     import shutil
     import tempfile
 
@@ -8592,6 +9040,8 @@ def phase_training(card: str, power: str):
         res["toy"] = train_toy(card, power)
         res["served"] = train_served(root, tree, kept, card, power)
         res["grad_guard"] = train_grad_guard(card, power)
+        res["split"] = train_split(root, data, js, res["full_width"], card,
+                                   power)
         res["lint"] = train_lint(card, power)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -9755,6 +10205,8 @@ def main() -> int:
                    "mqtt_vit": mqtt["vit"]["launches"]["scale_bias_cast"],
                    "parallel": parallel["launches"]["scale_bias_cast"],
                    "training": training["launches"]["scale_bias_cast"],
+                   "training_split":
+                       training["split"]["launches"]["scale_bias_cast"],
                    "importers_onnx": importers["launches"]["onnx"],
                    "importers_mnist": importers["launches"]["mnist"],
                    "orbax_mobilenet":
@@ -9765,6 +10217,9 @@ def main() -> int:
                        for v in orbax["resume"]["launches"].values())}
     if mqtt["grpc"]["ran"]:
         sbc_by_path["mqtt_grpc"] = mqtt["grpc"]["launches"]
+    if training["split"]["cards"]["ran"]:
+        sbc_by_path["training_cards"] = \
+            training["split"]["cards"]["launches"]["scale_bias_cast"]
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],
@@ -9777,6 +10232,8 @@ def main() -> int:
                   "mqtt_vit": mqtt["vit"]["launches"]["flash_attention"],
                   "parallel": parallel["launches"]["flash_attention"],
                   "training": training["launches"]["flash_attention"],
+                  "training_split":
+                      training["split"]["launches"]["flash_attention"],
                   "orbax_vit": orbax["vit"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",

@@ -23,8 +23,10 @@ in f32 and cast to the compute dtype before the epilogue, in the JAX
 package's order.  With ``train=True`` (the trainer's forward) the
 statistics are the batch's instead of the ``mean``/``var`` leaves: the
 mean and population variance of the convolution's output over (N, H, W),
-taken in f32, as the JAX ``_conv_bn`` takes them; the stored leaves are
-left alone.  Weights may sit in bf16 (``params_io.weights_to_bf16``):
+taken in f32, as the JAX ``_conv_bn`` takes them, through
+``parallel/syncbn.py`` ``batch_moments``: in a split training step the
+moments of every data shard's rows, as XLA's all-reduce makes them in
+the JAX step; the stored leaves are left alone.  Weights may sit in bf16 (``params_io.weights_to_bf16``):
 the per-call ``.to(dtype)`` is then a no-op at bf16 compute, while the
 batch-norm buffers stay f32.  ``jnp.mean`` over bf16 sums in f32 and
 rounds once, and so does :func:`_mean_hw`.  The head is ``_dense``'s two
@@ -44,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import syncbn as _syncbn
 from .vit import Dense
 
 Params = Dict[str, Any]
@@ -213,10 +216,8 @@ class ConvBN(nn.Module):
             h = F.pad(h, (pw[0], pw[1], ph[0], ph[1]))
         y = F.conv2d(h, self.weight.to(dtype), stride=self.stride,
                      groups=self.groups).permute(0, 2, 3, 1)
-        if train:
-            y32 = y.to(torch.float32)
-            mean = y32.mean(dim=(0, 1, 2))
-            var = y32.var(dim=(0, 1, 2), unbiased=False)
+        if train:   # the batch's, over every data shard of a split step
+            mean, var = _syncbn.batch_moments(y.to(torch.float32), (0, 1, 2))
         else:
             mean, var = self.mean, self.var
         r = torch.rsqrt(var + _BN_EPS)

@@ -15,10 +15,14 @@ Counterpart of the JAX package's ``parallel/``, on eager PyTorch:
 - :mod:`.multihost` — the ``torch.distributed`` process group and hybrid
   meshes;
 - :mod:`.collectives` — merge, reduce, ring shift, regroup and ring
-  attention across devices.
+  attention across devices;
+- :mod:`.syncbn` — the batch statistics of a split training step,
+  combined over its data shards.
 
 The sharded training step (:func:`train_step`, :func:`softmax_xent`) is
-what the ``torch-optim`` trainer runs.
+what the ``torch-optim`` trainer runs; over more than one data shard it
+splits the batch, and :mod:`.syncbn` combines each batch-norm layer's
+moments over the shards (:func:`batch_moments`, :class:`ShardGroup`).
 """
 
 from .mesh import (  # noqa: F401
@@ -43,6 +47,9 @@ from .sharded import (  # noqa: F401
     replicated,
     replicated_param_rules,
     shard_params,
+    TrainStep,
+    data_shard_groups,
     softmax_xent,
     train_step,
 )
+from .syncbn import ShardGroup, ShardGroupError, batch_moments  # noqa: F401

@@ -32,26 +32,36 @@ both — the same leaves split (``models/convert.py`` maps the two trees).
 The training step (:func:`train_step`) is the JAX step's function: one
 forward over the GLOBAL batch with the batch's statistics, its backward,
 one optimizer update of every leaf.  In JAX that is one SPMD program
-whose batch statistics XLA all-reduces over the data shards.  Here every
-data shard of the mesh must live on one ``torch.device`` (the card, or
-virtual records over it or the CPU), and the step runs the stacked
-batch there once — splitting it would compute per-shard statistics, a
-different function.  A mesh over distinct real devices raises: that
-needs a cross-shard reduction of the moments (sync batch norm), a later
-ROADMAP item.  A ``model`` axis replicates every leaf, as JAX's
-``shard_params`` does on a mesh without one.
+whose batch statistics and gradients XLA all-reduces over the data
+shards.  Here, over S > 1 data shards, the step splits the batch into S
+contiguous row blocks in shard order, runs each block's forward on its
+shard's lead ``torch.device`` on a host thread of its own, with every
+batch-norm layer normalizing by the moments of all S blocks
+(``parallel/syncbn.py``), gathers the logits on the first shard's device
+for one loss over the whole batch, and one ``backward()`` sums every
+shard's gradient into the master leaves before one update.  The shards
+may share a device (virtual records) or not: one code path.  With S = 1
+the batch runs stacked on its one device.  A ``model`` axis replicates
+every leaf, as JAX's ``shard_params`` does on a mesh without one.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import itertools
+import queue
+import threading
+import weakref
 from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.profile import GATE
+from . import syncbn
 
 
 class PartitionSpec(tuple):
@@ -482,19 +492,20 @@ def softmax_xent(logits: torch.Tensor, labels) -> torch.Tensor:
     return -(onehot * logp).sum(dim=-1).mean()
 
 
-def mesh_device(mesh) -> torch.device:
-    """The one ``torch.device`` every record of ``mesh`` lives on; raises
-    ``ValueError`` when the records span distinct real devices."""
-    devs = sorted({d.torch_device for d in np.asarray(mesh.devices).flat},
-                  key=str)
-    if len(devs) != 1:
+def _shard_devices(mesh, data_axis: str) -> List[torch.device]:
+    """The lead ``torch.device`` of each data shard of ``mesh``, in shard
+    order (:func:`data_shard_groups`).  Raises ``ValueError`` for records
+    another process owns: training across processes is a later item."""
+    from .multihost import process_info
+
+    rank = process_info()[0]
+    groups = data_shard_groups(mesh, (data_axis,))
+    others = sorted({g[0].process_index for g in groups} - {rank})
+    if others:
         raise ValueError(
-            f"training on mesh {mesh!r} spans {len(devs)} devices "
-            f"({', '.join(map(str, devs))}); the step's batch statistics "
-            "are the global batch's, which across real devices needs a "
-            "cross-shard reduction of the moments (sync batch norm, "
-            "ROADMAP item 7b: data-parallel training across real cards)")
-    return devs[0]
+            f"train step: mesh {mesh!r} holds data shards of processes "
+            f"{others}; the step runs only this process's ({rank})")
+    return [g[0].torch_device for g in groups]
 
 
 def _as_device_tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -559,36 +570,138 @@ def make_optimizer(name: str = "sgd", lr: float = 1e-2,
     raise ValueError(f"unknown optimizer {name!r}")
 
 
+def _tree_on(tree: Any, device: torch.device) -> Any:
+    """``tree`` with every tensor leaf ``.to(device)``: differentiable, and
+    the leaf itself where it already lies there."""
+    if isinstance(tree, dict):
+        return {k: _tree_on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_on(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
+
+
+class _Applied(torch.nn.Module):
+    """``apply(model, x, train=True)`` as a forward, so
+    ``torch.func.functional_call`` runs it with a shard's leaves."""
+
+    def __init__(self, apply: Callable, model: torch.nn.Module):
+        super().__init__()
+        self.apply_fn = apply
+        self.model = model
+
+    def forward(self, x: torch.Tensor):
+        return self.apply_fn(self.model, x, train=True)
+
+
+def _shard_loop(jobs: "queue.SimpleQueue") -> None:
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        fn, done = job
+        try:
+            fn()
+        except BaseException:   # noqa: BLE001 - the step raises it: the
+            pass                # shard group keeps the first error
+        finally:
+            done.set()
+        del job, fn, done      # the step must not outlive its last call
+
+
+def _stop_shard_threads(queues: List["queue.SimpleQueue"]) -> None:
+    for q in queues:
+        q.put(None)
+
+
+class _ShardThreads:
+    """The host threads of shards 1..S−1, alive as long as their step, so
+    what torch keeps per thread (cuDNN's execution plans, library
+    handles) is built once, not at every step."""
+
+    def __init__(self, n: int):
+        self._queues = [queue.SimpleQueue() for _ in range(n)]
+        self.threads = [threading.Thread(target=_shard_loop, args=(q,),
+                                         name=f"train-shard-{k + 1}",
+                                         daemon=True)
+                        for k, q in enumerate(self._queues)]
+        for t in self.threads:
+            t.start()
+        self._stop = weakref.finalize(self, _stop_shard_threads,
+                                      self._queues)
+
+    def submit(self, k: int, fn: Callable[[], None]) -> threading.Event:
+        """Run ``fn`` on shard ``k``'s thread; the event is set once it
+        returned or raised."""
+        done = threading.Event()
+        self._queues[k - 1].put((fn, done))
+        return done
+
+    def close(self) -> None:
+        self._stop()
+        for t in self.threads:
+            t.join()
+
+
 class TrainStep:
     """``step(params, opt_state, x, y) -> (params, opt_state, loss)``:
-    the forward with ``train=True`` over the whole batch on the mesh's
-    device, the loss, the backward, and one update of every leaf.
-    ``params`` and ``opt_state`` are the objects :func:`train_step`
-    returned (updated in place and handed back, as the JAX step hands
-    back new ones); ``loss`` is a 0-d tensor on the device.
+    the forward with ``train=True`` over the whole batch, the loss, the
+    backward, and one update of every leaf.  ``params`` and ``opt_state``
+    are the objects :func:`train_step` returned (updated in place and
+    handed back, as the JAX step hands back new ones); ``loss`` is a 0-d
+    tensor on :attr:`device`, the first data shard's.
+
+    Over S = ``len(devices)`` > 1 data shards the forward splits (module
+    docstring): shard *k* runs rows ``[k*b/S, (k+1)*b/S)`` on
+    ``devices[k]`` on a host thread of its own (shard 0 on the caller's,
+    the others on threads that live with the step: :meth:`close` ends
+    them), with the master leaves
+    ``.to(devices[k])`` (a module through ``torch.func.functional_call``
+    on a leafless copy of it), every thread setting its grad mode, CUDA
+    device and stream and entering ``utils/profile.py``'s gate; the
+    batch-norm moments combine over a :class:`~.syncbn.ShardGroup`
+    (``barrier_timeout`` seconds a barrier).  A shard's error aborts the
+    others, and the step raises the first one.
 
     :meth:`apply` runs the forward alone (``train=False``: the stored
-    statistics, as the JAX trainer's eval calls the apply).
+    statistics, as the JAX trainer's eval calls the apply), stacked.
 
-    For measurement: ``record_events`` keeps four CUDA events a step
-    (start, forward done, backward done, update done; :meth:`timings`),
-    and ``last_loss`` is the latest step's loss."""
+    For measurement: ``record_events`` keeps four CUDA events a step on
+    the first shard's device (start, forward done, backward done, update
+    done; :meth:`timings`) and, for a split step, the host ms the
+    slowest-waiting shard spent at the forward's barriers
+    (``barrier_ms``: host clocks, no synchronisation); ``last_loss`` is the
+    latest step's loss."""
 
     def __init__(self, apply: Callable, params: Any,
                  opt_state: torch.optim.Optimizer,
                  leaves: List[torch.Tensor], loss_fn: Callable,
-                 device: torch.device, data_size: int):
+                 devices: Sequence[torch.device]):
         self.apply = apply
         self.params = params
         self.opt_state = opt_state
         self.leaves = leaves
         self.loss_fn = loss_fn
-        self.device = device
-        self.data_size = data_size
+        self.devices = list(devices)
+        self.device = self.devices[0]
+        self.data_size = len(self.devices)
+        self.barrier_timeout = syncbn.BARRIER_TIMEOUT_S
         self.steps = 0
         self.last_loss: Optional[torch.Tensor] = None
         self.record_events = False
         self.events: List[Tuple[Any, ...]] = []
+        self.barrier_ms: List[float] = []
+        self._shells: Optional[List[_Applied]] = None
+        self._threads: Optional[_ShardThreads] = None
+        if self.data_size > 1 and isinstance(params, torch.nn.Module):
+            # a shard's module holds no weights of its own: the master
+            # leaves go in at each call (meta: an unswapped leaf raises)
+            self._named = [("model." + n, t) for n, t in
+                           list(params.named_parameters())
+                           + list(params.named_buffers())]
+            self._shells = [_Applied(apply, copy.deepcopy(params).to("meta"))
+                            for _ in self.devices]
 
     def _event(self):
         if not self.record_events or self.device.type != "cuda":
@@ -596,6 +709,48 @@ class TrainStep:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record(torch.cuda.current_stream(self.device))
         return ev
+
+    def _shard_forward(self, k: int, x: torch.Tensor):
+        dev = self.devices[k]
+        if self._shells is None:
+            return self.apply(_tree_on(self.params, dev), x, train=True)
+        return torch.func.functional_call(
+            self._shells[k], {n: t.to(dev) for n, t in self._named}, (x,))
+
+    def _split_forward(self, x: torch.Tensor):
+        """The S shards' forwards over one group; their logits gathered
+        on the first shard's device in shard order."""
+        s = self.data_size
+        blocks = x.split(x.shape[0] // s)
+        group = syncbn.ShardGroup(s, self.barrier_timeout)
+        streams = [torch.cuda.current_stream(d) if d.type == "cuda"
+                   else None for d in self.devices]
+        outs: List[Any] = [None] * s
+
+        def run(k: int) -> None:
+            dev = self.devices[k]
+            with group.shard(k), GATE.inside(), _on(dev), \
+                    (torch.cuda.stream(streams[k]) if streams[k] is not None
+                     else nullcontext()), torch.enable_grad():
+                outs[k] = self._shard_forward(k, blocks[k].to(dev))
+
+        if self._threads is None:
+            self._threads = _ShardThreads(s - 1)
+        dones = [self._threads.submit(k, functools.partial(run, k))
+                 for k in range(1, s)]
+        try:
+            run(0)
+        except syncbn.ShardGroupError:
+            pass    # another shard's error or a timeout: raised below
+        finally:
+            with GATE.outside():   # a wait, not a torch op
+                for done in dones:
+                    done.wait()
+        if group.error is not None:
+            raise group.error[1]
+        if self.record_events:
+            self.barrier_ms.append(max(group.wait_s) * 1e3)
+        return torch.cat([o.to(self.device) for o in outs])
 
     def __call__(self, params, opt_state, x, y):
         if params is not self.params or opt_state is not self.opt_state:
@@ -610,7 +765,9 @@ class TrainStep:
         with _on(self.device), torch.enable_grad():
             e0 = self._event()
             opt_state.zero_grad(set_to_none=True)
-            loss = self.loss_fn(self.apply(params, x, train=True), y)
+            out = self.apply(params, x, train=True) if self.data_size == 1 \
+                else self._split_forward(x)
+            loss = self.loss_fn(out, y)
             e1 = self._event()
             loss.backward()
             e2 = self._event()
@@ -624,6 +781,12 @@ class TrainStep:
         self.steps += 1
         self.last_loss = loss.detach()
         return params, opt_state, self.last_loss
+
+    def close(self) -> None:
+        """End the shard threads (a later call starts them anew)."""
+        if self._threads is not None:
+            self._threads.close()
+            self._threads = None
 
     def timings(self) -> List[Tuple[float, float, float]]:
         """(forward, backward, update) ms of each recorded step, from its
@@ -649,8 +812,12 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
       replaced by its module, built once from the tree; the step trains
       the module's leaves and the returned ``params`` is that module
       (``to_jax`` carries it back to a tree).  An ``nn.Module`` as
-      ``params`` is trained as a copy.  Any other tree is copied to the
-      device with its floating leaves trainable.
+      ``params`` is trained as a copy.  Any other tree is copied with its
+      floating leaves trainable.  The master leaves live on the first
+      data shard's device.
+    - The data shards are ``mesh``'s along ``data_axis``
+      (:func:`data_shard_groups`); over more than one the step splits
+      (:class:`TrainStep`), on any placement of their records.
     - ``optimizer(leaves) -> torch.optim.Optimizer`` builds the update
       (default: :func:`make_optimizer`'s sgd, lr 1e-2, momentum 0.9, as
       the JAX default ``optax.sgd(1e-2, momentum=0.9)``); it is the
@@ -658,14 +825,13 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
     - ``rules`` is accepted for the JAX signature: every leaf stays
       whole (a ``model`` axis replicates).
 
-    Raises ``ValueError`` when the mesh spans distinct real devices
-    (:func:`mesh_device`)."""
+    Raises ``ValueError`` for a mesh holding another process's records
+    (:func:`_shard_devices`)."""
     del rules  # every leaf replicated (module docstring)
     from ..models.convert import tree_module_of
 
-    device = mesh_device(mesh)
-    data_size = dict(zip(mesh.axis_names, mesh.devices.shape)).get(
-        data_axis, 1)
+    devices = _shard_devices(mesh, data_axis)
+    device = devices[0]
     entry = tree_module_of(apply_fn) \
         if not isinstance(params, torch.nn.Module) else None
     if isinstance(params, torch.nn.Module):
@@ -682,8 +848,7 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
         params = _trainable_tree(params, device, leaves)
         apply = apply_fn
     opt_state = (optimizer or make_optimizer())(leaves)
-    step = TrainStep(apply, params, opt_state, leaves, loss_fn, device,
-                     data_size)
+    step = TrainStep(apply, params, opt_state, leaves, loss_fn, devices)
     return step, params, opt_state
 
 

@@ -1,0 +1,160 @@
+"""Batch statistics over every data shard of a training step (sync batch
+norm): the cross-shard moments, and nothing else.
+
+The JAX package has no counterpart: its ``train_step`` is one SPMD
+program, and XLA all-reduces each train-mode ``mean``/``var`` over the
+data shards.  The port's step (``parallel/sharded.py`` ``TrainStep``)
+runs each data shard's forward on its own host thread, on its lead
+record's ``torch.device``; every batch-norm statistic of the port's
+models passes through :func:`batch_moments`
+(``models/mobilenet.py`` ``ConvBN``), which combines the shards' moments
+when the calling thread runs a shard of a :class:`ShardGroup`.
+
+One exchange a layer: each shard posts ``(n_k, mean_k, var_k)`` from one
+``torch.var_mean`` of its rows and waits at the group's barrier; then
+each shard copies every posted pair to its own device and combines them
+by Chan's formula,
+
+    μ  = Σ n_k·mean_k / N
+    σ² = Σ n_k·(var_k + (mean_k − μ)²) / N,
+
+the global batch's mean and population variance.  All of it is torch ops
+and ``.to()`` copies, so autograd carries each shard's gradient through
+the other shards' statistics; no backward is written by hand.
+
+A shard that raises aborts the barrier, so the others raise
+:class:`ShardGroupError` instead of waiting; a barrier that waits longer
+than the group's timeout breaks the same way, naming the layer and the
+shards that did not arrive.  No path carries on with a shard's own
+statistics.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..utils.profile import GATE
+
+#: seconds a shard waits at a layer's barrier before the group breaks
+BARRIER_TIMEOUT_S = 120.0
+
+_local = threading.local()
+
+
+class ShardGroupError(RuntimeError):
+    """A shard group's barrier broke: a timeout, or another shard's
+    error."""
+
+
+class ShardGroup:
+    """The data shards of one training step: ``size`` slots, one barrier,
+    and each shard's thread entering through :meth:`shard`.
+
+    Posts alternate between two slot rows by layer parity: a shard posts
+    layer L+1 only after every shard has passed layer L's barrier, and
+    each shard reads layer L's row right after that barrier, before it
+    posts again."""
+
+    def __init__(self, size: int, timeout: float = BARRIER_TIMEOUT_S):
+        self.size = int(size)
+        self.timeout = float(timeout)
+        self._barrier = threading.Barrier(self.size)
+        self._rows: Tuple[List, List] = ([None] * self.size,
+                                         [None] * self.size)
+        self._posted = [-1] * self.size      # each shard's last layer
+        self._weights: Dict[Tuple, torch.Tensor] = {}
+        self._lock = threading.Lock()
+        #: (shard, exception) of the first shard that raised
+        self.error: Optional[Tuple[int, BaseException]] = None
+        #: host seconds each shard waited at the barriers
+        self.wait_s = [0.0] * self.size
+
+    @contextmanager
+    def shard(self, index: int):
+        """Run the calling thread as shard ``index``: :func:`batch_moments`
+        combines over the group.  An exception inside aborts the group."""
+        prev = getattr(_local, "cur", None)
+        _local.cur = [self, int(index), 0]
+        try:
+            yield
+        except BaseException as e:
+            self.fail(index, e)
+            raise
+        finally:
+            _local.cur = prev
+
+    def fail(self, index: int, exc: BaseException) -> None:
+        """Record ``exc`` (the first one kept) and break the barrier."""
+        with self._lock:
+            if self.error is None:
+                self.error = (int(index), exc)
+        self._barrier.abort()
+
+    def _weights_on(self, device: torch.device, ns: Sequence[int]
+                    ) -> torch.Tensor:
+        """(S, 1) f32 ``n_k / N`` on ``device``: one small copy a step and
+        device (the fractions repeat from layer to layer), from pinned
+        memory to a card, so the host never waits for it."""
+        total = sum(ns)
+        key = (device, tuple(n / total for n in ns))
+        w = self._weights.get(key)
+        if w is None:
+            w = torch.tensor([[f] for f in key[1]], dtype=torch.float32)
+            if device.type == "cuda":
+                w = w.pin_memory().to(device, non_blocking=True)
+            else:
+                w = w.to(device)
+            self._weights[key] = w    # a race only makes it twice
+        return w
+
+    def _broken(self, index: int, layer: int) -> ShardGroupError:
+        err = self.error
+        if err is not None and err[0] != index:
+            return ShardGroupError(
+                f"sync batch norm: layer {layer}: shard {err[0]} raised "
+                f"{type(err[1]).__name__}: {err[1]}")
+        late = [j for j, p in enumerate(self._posted) if p < layer]
+        return ShardGroupError(
+            f"sync batch norm: layer {layer}: shards {late} of "
+            f"{self.size} did not arrive within {self.timeout:g} s")
+
+    def moments(self, index: int, layer: int, y32: torch.Tensor,
+                dims: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = math.prod(y32.shape[d] for d in dims)
+        var, mean = torch.var_mean(y32, dim=dims, correction=0)
+        row = self._rows[layer % 2]
+        row[index] = (n, mean, var)
+        self._posted[index] = layer
+        t0 = time.perf_counter()
+        try:
+            with GATE.outside():      # a wait, not a torch op
+                self._barrier.wait(self.timeout)
+        except threading.BrokenBarrierError:
+            raise self._broken(index, layer) from None
+        self.wait_s[index] += time.perf_counter() - t0
+        dev = mean.device
+        ns = [p[0] for p in row]
+        w = self._weights_on(dev, ns)
+        m = torch.stack([p[1].to(dev) for p in row])
+        v = torch.stack([p[2].to(dev) for p in row])
+        mu = (w * m).sum(0)
+        return mu, (w * (v + (m - mu) ** 2)).sum(0)
+
+
+def batch_moments(y32: torch.Tensor, dims: Tuple[int, ...]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mean, var)`` over ``dims`` of ``y32``, the variance the
+    population's: of these rows alone when no group is active, else of
+    every shard's rows of the calling thread's group (one barrier)."""
+    cur = getattr(_local, "cur", None)
+    if cur is None:
+        return y32.mean(dim=dims), y32.var(dim=dims, unbiased=False)
+    group, index, layer = cur
+    cur[2] = layer + 1
+    return group.moments(index, layer, y32, dims)

@@ -22,8 +22,11 @@ pipeline asks for it; without a card a CUDA pipeline's trainer raises.
 - ``batch_size`` — micro-batch assembled from the sample stream
   (default 8; rounded up to a multiple of the data-axis size)
 - ``mesh``    — mesh spec string, default ``"data:-1"``, over the
-  pipeline device's records (every data shard must share one device:
-  ``parallel/sharded.py``)
+  records of the pipeline device's platform (every card, or the
+  virtual records when set); its first data shard must lead on the
+  pipeline's device, where the batch is stacked.  Over S > 1 data
+  shards the step splits, with the batch statistics over all of them
+  (``parallel/sharded.py``, ``parallel/syncbn.py``)
 - ``seed``    — seed for init (default 0)
 
 Training runs on a worker thread, so ``push_data`` blocks only when the
@@ -210,6 +213,8 @@ class TorchOptimTrainer(TrainerSubplugin):
         if self._thread is not None:
             self._thread.join(timeout=30.0)
             self._thread = None
+        if self.built is not None:
+            self.built[1].close()   # a split step's shard threads
 
     # -- data feed ------------------------------------------------------------
 
@@ -273,26 +278,30 @@ class TorchOptimTrainer(TrainerSubplugin):
     def _mesh_and_step(self):
         from ..parallel import make_mesh, train_step
         from ..parallel.mesh import local_devices
-        from ..parallel.sharded import mesh_device
+        from ..parallel.sharded import data_shard_groups
 
         mesh_spec = str(self._cfg.get("mesh", "data:-1"))
         dev = self._device
         try:
             mesh = make_mesh(mesh_spec, local_devices(dev.type))
-            on = mesh_device(mesh)
         except ValueError as e:
             raise TrainerError(f"torch-optim: {e}") from e
-        if on != dev:
+        lead = data_shard_groups(mesh, ("data",))[0][0].torch_device
+        if lead != dev:
             raise TrainerError(
-                f"torch-optim: mesh {mesh_spec!r} lives on {on}, the "
-                f"pipeline on {dev}")
+                f"torch-optim: mesh {mesh_spec!r} is led by {lead}, the "
+                f"pipeline runs on {dev}: the batch is stacked on the "
+                "pipeline's device, where the first data shard must run")
         data_axis = dict(zip(mesh.axis_names, mesh.devices.shape)).get(
             "data", 1)
         batch = int(self._cfg.get("batch_size", 8))
         batch = data_axis * max(1, -(-batch // data_axis))
-        step, params, opt_state = train_step(
-            mesh, self._apply, self._params,
-            optimizer=_make_optimizer(self._cfg))
+        try:
+            step, params, opt_state = train_step(
+                mesh, self._apply, self._params,
+                optimizer=_make_optimizer(self._cfg))
+        except ValueError as e:
+            raise TrainerError(f"torch-optim: {e}") from e
         return mesh, step, params, opt_state, batch
 
     def _stack(self, items: List[Tuple]) -> torch.Tensor:

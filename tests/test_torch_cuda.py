@@ -63,6 +63,10 @@ within ``tests/test_torch_training.py``'s relative-norm limits against
 the JAX step (0.1 under sgd, 0.4 under adam/adamw); and the
 ``torch-optim`` trainer fed card samples written on a side stream,
 training on the card with the losses of the same samples on the CPU.
+The split step (``parallel/syncbn.py``) across distinct devices: ``data:2``
+over a card record and a ``cpu`` record against the stacked card step at
+the same limits (sgd, adam), and ``data:2`` over two real cards, skipped
+where the machine has fewer, naming the count.
 The importers on the card (files from ``tests/torch_model_files.py`` at
 width 0.25, 96x96): the ONNX QLinear MobileNetV2 in its integer modes
 (int8, dequant, bf16) and the TFLite one in ``dequant`` give the CPU's
@@ -1773,6 +1777,96 @@ def test_train_step_on_card_matches_cpu(card, name, monkeypatch):
             assert np.linalg.norm(a - b) / nb <= limit
         else:
             assert np.array_equal(a, b)
+
+
+def _split_small_run(recs, name):
+    """3 ``train_step`` steps of MobileNetV1 w0.25 (f32, lr 1e-4) over a
+    ``data:len(recs)`` mesh of ``recs``: (losses, the trained tree, the
+    step)."""
+    import functools
+
+    from nnstreamer_tpu_torch.models import convert, mobilenet
+    from nnstreamer_tpu_torch.parallel import mesh, sharded
+    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((3, 16, 32, 32, 3)).astype(np.float32)
+    ys = rng.integers(0, 10, (3, 16)).astype(np.int32)
+    step, p, o = sharded.train_step(
+        mesh.make_mesh(f"data:{len(recs)}", recs),
+        functools.partial(convert.mobilenet_v1_tree_apply,
+                          dtype=torch.float32),
+        mobilenet.mobilenet_v1_init(0, 10, 0.25),
+        optimizer=_make_optimizer({"optimizer": name, "lr": 1e-4}))
+    losses = []
+    for x, y in zip(xs, ys):
+        p, o, loss = step(p, o, x, y)
+        losses.append(float(loss))
+    return losses, sharded.trained_tree(p), step
+
+
+def _tree_leaves(t):
+    if isinstance(t, dict):
+        for k in sorted(t):
+            yield from _tree_leaves(t[k])
+    elif isinstance(t, list):
+        for v in t:
+            yield from _tree_leaves(v)
+    else:
+        yield t
+
+
+def _hold_split_leaves(lp, tp, ls, ts, name):
+    """The split step's losses and tree against the stacked step's, at the
+    limits of ``test_train_step_on_card_matches_cpu``."""
+    from nnstreamer_tpu_torch.models import mobilenet
+
+    assert lp[0] == pytest.approx(ls[0], rel=1e-4)
+    assert lp == pytest.approx(ls, rel=5e-3)
+    limit = {"sgd": 0.1, "adam": 0.4, "adamw": 0.4}[name]
+    for a, b, i0 in zip(_tree_leaves(tp), _tree_leaves(ts), _tree_leaves(
+            mobilenet.mobilenet_v1_init(0, 10, 0.25))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+        nb = np.linalg.norm(b - i0)
+        if nb:
+            assert np.linalg.norm(a - b) / nb <= limit
+        else:
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam"])
+def test_train_step_split_over_card_and_cpu_matches_stacked(card, name,
+                                                             monkeypatch):
+    """``data:2`` over a card record and a ``cpu`` record — two distinct
+    real devices, one shard on each, the batch statistics combined across
+    them — against the stacked ``data:1`` step on the card."""
+    from nnstreamer_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cuda0 = mesh.Device("cuda", 0, 0, torch.device("cuda", 0))
+    ls, ts, _ = _split_small_run([cuda0], name)
+    lp, tp, step = _split_small_run(
+        [cuda0, mesh.Device("cpu", 1, 0, torch.device("cpu"))], name)
+    assert step.devices == [torch.device("cuda", 0), torch.device("cpu")]
+    _hold_split_leaves(lp, tp, ls, ts, name)
+
+
+def test_train_step_split_over_two_cards_matches_stacked(card, monkeypatch):
+    """``data:2`` over two real cards against the stacked step on the
+    first: runs only where the machine has two."""
+    from nnstreamer_tpu_torch.parallel import mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards, the machine has {n}")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    recs = mesh.local_devices("cuda")[:2]
+    ls, ts, _ = _split_small_run(recs[:1], "sgd")
+    lp, tp, step = _split_small_run(recs, "sgd")
+    assert step.devices == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    _hold_split_leaves(lp, tp, ls, ts, "sgd")
 
 
 def test_trainer_on_card_with_side_stream_samples(card, monkeypatch):

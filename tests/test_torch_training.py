@@ -19,7 +19,9 @@ over 8 virtual host devices (``parallel.mesh.set_virtual_devices``).
 4. ``train_step``: 3 steps of sgd, adam and adamw from the same seeded
    MobileNetV1 tree (width 0.25, 10 classes, 32x32, batch 16, seeded
    stored ``mean``/``var``) and batches, the port on ``data:-1`` over 8
-   devices, at f32, lr 1e-4, against the JAX ``train_step``.  The JAX
+   devices — the split step: 8 shards of 2 rows on 8 threads, the batch
+   statistics combined over all of them (``parallel/syncbn.py``) —, at
+   f32, lr 1e-4, against the JAX ``train_step`` (8 CPU devices for sgd).  The JAX
    adam/adamw reference runs on a one-device mesh: its optax ``count``
    sits on one device, and the JAX step refuses it beside 8-device params
    (a JAX-package fault, not copied).  Tolerances:
@@ -43,7 +45,9 @@ over 8 virtual host devices (``parallel.mesh.set_virtual_devices``).
    planted defect of ``test_update_check_sees_planted_faults`` reads at
    least 1.0: the update skipped, a leaf's gradient zeroed, mean/var left
    out of adamw (1.0 each), the batch statistics detached (1.39 under
-   adam, about 700 under sgd).  The losses alone pass some of them.
+   adam, about 700 under sgd), each shard normalizing by its own 2 rows'
+   statistics (the shard group bypassed: 1.09e3 under sgd, 1.86 under
+   adam).  The losses alone pass some of them.
 5. The optimizers alone, exactly: a smooth linear model (no kinks) with a
    leaf the apply never reads, 3 steps of each optimizer at lr 1e-2 over
    8 devices: losses rtol 1e-6, every leaf atol 1e-6, the unread leaf
@@ -59,10 +63,22 @@ over 8 virtual host devices (``parallel.mesh.set_virtual_devices``).
    accuracies equal), and the
    stored-statistics forward they come from differs from the
    batch-statistics one.
-7. What the port refuses: a mesh over distinct real devices (sync batch
-   norm is a later ROADMAP item), a CUDA trainer without a card.  Before
-   them: the trainer's threads leave the profiler's gate to wait, so a
-   profiler start or stop runs while a trainer is fed.
+7. The split step itself: ``data:8`` against the stacked ``data:1`` on
+   the same global batch for MobileNetV1 and V2 at width 0.25 (losses
+   rtol 1e-5, leaves atol 1e-4; measured 1.6e-6 and 4.0e-5 for V1, 1.0e-6
+   and 2.7e-7 for V2); ``batch_moments`` over three shards of 1, 3 and 4
+   rows against ``torch.var_mean`` of the stacked rows, values and
+   gradients, and under more shard threads than cores over 200 layers
+   with a short switch interval; a shard that raises makes the step
+   raise its error at once
+   and a shard that never reaches a barrier breaks it after the timeout,
+   naming the layer and the shard, the step running again after either
+   and its shard threads ending with ``close()``; a mesh over
+   two distinct devices (``cpu`` and ``meta`` records) runs each shard on
+   its own record's device.  What the trainer refuses: a mesh led on
+   another device than the pipeline's, a CUDA trainer without a card.
+   Before them: the trainer's threads leave the profiler's gate to wait,
+   so a profiler start or stop runs while a trainer is fed.
 8. The ``trainer_status`` golden (``tests/golden_cases.py``) through the
    port's ``register_trainer``, byte for byte.
 
@@ -92,6 +108,7 @@ from nnstreamer_tpu_torch.models import convert
 from nnstreamer_tpu_torch.models import mobilenet as tmb
 from nnstreamer_tpu_torch.parallel import mesh as tmesh
 from nnstreamer_tpu_torch.parallel import sharded as tsharded
+from nnstreamer_tpu_torch.parallel import syncbn
 from nnstreamer_tpu_torch.runtime import parse_launch as t_parse
 from nnstreamer_tpu_torch.trainers import TrainerError, TrainerProps
 from nnstreamer_tpu_torch.trainers import torch_optim
@@ -257,7 +274,9 @@ def _port_steps(name, lr, fault=None):
     """The port's 3 losses and final tree; ``fault`` plants one defect
     the update check must see: ``no_update`` (the optimizer's step
     skipped), ``head_bias_grad`` (the head bias's gradient zeroed),
-    ``stats_left_out`` (mean/var not handed to the optimizer)."""
+    ``stats_left_out`` (mean/var not handed to the optimizer),
+    ``shard_stats`` (each shard's statistics from its own rows: the shard
+    group bypassed)."""
     opt = torch_optim._make_optimizer({"optimizer": name, "lr": lr})
     if fault == "no_update":
         build = opt
@@ -270,7 +289,11 @@ def _port_steps(name, lr, fault=None):
         tmesh.make_mesh("data:-1"),
         functools.partial(convert.mobilenet_v1_tree_apply,
                           dtype=torch.float32), _step_tree(), optimizer=opt)
-    assert step.data_size == 8
+    assert step.data_size == 8 and len(step.devices) == 8
+    if fault == "shard_stats":
+        monkeypatch = pytest.MonkeyPatch()
+        monkeypatch.setattr(syncbn, "batch_moments", lambda y, dims: (
+            y.mean(dim=dims), y.var(dim=dims, unbiased=False)))
     if fault == "head_bias_grad":
         tp.head.b.register_hook(torch.zeros_like)
     if fault == "stats_left_out":
@@ -279,9 +302,13 @@ def _port_steps(name, lr, fault=None):
         for g in to.param_groups:
             g["params"] = [t for t in g["params"] if id(t) not in held]
     losses = []
-    for x, y in zip(*_step_data()):
-        tp, to, loss = step(tp, to, x, y)
-        losses.append(float(loss))
+    try:
+        for x, y in zip(*_step_data()):
+            tp, to, loss = step(tp, to, x, y)
+            losses.append(float(loss))
+    finally:
+        if fault == "shard_stats":
+            monkeypatch.undo()
     return losses, tsharded.trained_tree(tp)
 
 
@@ -342,24 +369,29 @@ def test_train_step_decays_the_statistics_as_jax():
     ("no_update", "sgd"), ("no_update", "adam"),
     ("detached_stats", "sgd"), ("detached_stats", "adam"),
     ("head_bias_grad", "sgd"), ("head_bias_grad", "adamw"),
-    ("stats_left_out", "adamw")])
+    ("stats_left_out", "adamw"), ("shard_stats", "sgd"),
+    ("shard_stats", "adam")])
 def test_update_check_sees_planted_faults(fault, name, monkeypatch):
     """The update check of the two tests above fails a step with one
     planted defect (the losses alone pass some of them)."""
     lr = STATS_LR if fault == "stats_left_out" else STEP_LR
     if fault == "detached_stats":   # the batch mean/variance detached
         mean, var = torch.Tensor.mean, torch.Tensor.var
+        var_mean = torch.var_mean   # a split step's per-shard moments
         monkeypatch.setattr(
             torch.Tensor, "mean", lambda t, *a, **k: mean(t, *a, **k).detach()
             if k.get("dim") == (0, 1, 2) else mean(t, *a, **k))
         monkeypatch.setattr(torch.Tensor, "var",
                             lambda t, *a, **k: var(t, *a, **k).detach())
+        monkeypatch.setattr(torch, "var_mean", lambda *a, **k: tuple(
+            t.detach() for t in var_mean(*a, **k)))
     _, jp = _jax_steps(name, lr)
     _, got = _port_steps(name, lr, fault)
     monkeypatch.undo()
     gaps = _update_gaps(_step_tree(), jp, got)
     print(f"planted {fault} under {name}: largest leaf update gap "
           f"{max(gaps.values()):.3e}")
+    assert max(gaps.values()) >= 1.0
     with pytest.raises(AssertionError, match="leaf updates off"):
         _hold_updates(gaps, STATS_GAP if lr == STATS_LR
                       else UPDATE_GAP[name], stats_only=lr == STATS_LR)
@@ -543,16 +575,195 @@ def test_trainer_threads_step_out_of_the_profiler_gate():
         t.join(5)
 
 
-# -- 7. refusals ---------------------------------------------------------------------
+# -- 7. the split step, and refusals ----------------------------------------------
+
+#: the split step against the stacked one on one global batch: losses
+#: rtol, leaves atol (module doc: measured 1.6e-6 / 4.0e-5 at the worst)
+SPLIT_LOSS_RTOL = 1e-5
+SPLIT_LEAF_ATOL = 1e-4
 
 
-def test_mesh_over_distinct_devices_raises():
+@pytest.mark.parametrize("family", ["v1", "v2"])
+def test_split_step_matches_stacked(family):
+    """``data:8`` (8 shards of 2 rows, the statistics over all 16) against
+    ``data:1`` (the 16 rows stacked): the same function up to the order
+    of the sums."""
+    tree = getattr(tmb, f"mobilenet_{family}_init")(0, CLASSES, 0.25)
+    apply = functools.partial(
+        getattr(convert, f"mobilenet_{family}_tree_apply"),
+        dtype=torch.float32)
+    recs = tmesh.local_devices("cpu")
+    runs = {}
+    for spec, devs in (("data:1", recs[:1]), ("data:8", recs)):
+        step, tp, to = tsharded.train_step(
+            tmesh.make_mesh(spec, devs), apply, tree,
+            optimizer=torch_optim._make_optimizer({"optimizer": "sgd",
+                                                   "lr": STEP_LR}))
+        assert step.data_size == len(devs)
+        losses = []
+        for x, y in zip(*_step_data()):
+            tp, to, loss = step(tp, to, x, y)
+            losses.append(float(loss))
+        runs[spec] = (losses, tsharded.trained_tree(tp))
+    (ls, ts), (lp, tp_) = runs["data:1"], runs["data:8"]
+    worst = max(float(np.abs(a - b).max()) for _, a, b in _pairs(ts, tp_))
+    print(f"split {family}: losses rel "
+          f"{max(abs(a - b) / abs(a) for a, b in zip(ls, lp)):.3e}, leaves "
+          f"max {worst:.3e}")
+    assert lp == pytest.approx(ls, rel=SPLIT_LOSS_RTOL)
+    assert worst <= SPLIT_LEAF_ATOL
+
+
+def _as_shards(group, fn, n):
+    """``fn(k)`` on ``n`` threads as the shards of ``group``; the results
+    in shard order, or the first error raised."""
+    import threading
+
+    outs, errs = [None] * n, []
+
+    def run(k):
+        try:
+            with group.shard(k):
+                outs[k] = fn(k)
+        except BaseException as e:   # noqa: BLE001 - returned below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+    return outs, errs
+
+
+def test_batch_moments_over_uneven_shards_equal_the_stacked_ones():
+    rng = np.random.default_rng(8)
+    rows = (1, 3, 4)
+    full = torch.from_numpy(rng.standard_normal((8, 5, 5, 7)).astype(
+        np.float32) * 3 + 1)
+    parts = [p.clone().requires_grad_(True)
+             for p in full.split(list(rows))]
+    whole = full.clone().requires_grad_(True)
+    dims = (0, 1, 2)
+    # outside a group: the plain moments of the rows given
+    m0, v0 = syncbn.batch_moments(whole, dims)
+    var, mean = torch.var_mean(whole, dim=dims, correction=0)
+    assert torch.equal(m0, whole.mean(dim=dims)) and torch.equal(
+        v0, whole.var(dim=dims, unbiased=False))
+    outs, errs = _as_shards(syncbn.ShardGroup(3, timeout=30),
+                            lambda k: syncbn.batch_moments(parts[k], dims),
+                            3)
+    assert not errs
+    a, b = torch.linspace(-1, 1, 7), torch.linspace(2, 0.5, 7)
+    for m, v in outs:
+        torch.testing.assert_close(m, mean, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(v, var, rtol=1e-5, atol=1e-6)
+    # the gradients reach every shard's rows through the others' moments
+    sum((a * m + b * v).sum() for m, v in outs).backward()
+    (3 * (a * mean + b * var).sum()).backward()
+    for g, w in zip([p.grad for p in parts], whole.grad.split(list(rows))):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+
+
+def test_batch_moments_hold_under_many_shards_and_layers():
+    """More shard threads than cores, 200 layers in a row and a short
+    switch interval: every layer's moments on every shard are the stacked
+    rows' (a post overwritten before another shard read it would not
+    be)."""
+    import sys
+
+    n, layers = (os.cpu_count() or 4) + 4, 200
+    rng = np.random.default_rng(9)
+    data = torch.from_numpy(rng.standard_normal((layers, n, 3, 5)).astype(
+        np.float32) * np.arange(1, n + 1, dtype=np.float32)[:, None, None])
+
+    def shard(k):
+        return [syncbn.batch_moments(data[layer, k], (0,))
+                for layer in range(layers)]
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        outs, errs = _as_shards(syncbn.ShardGroup(n, timeout=60), shard, n)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errs
+    for layer in range(layers):
+        var, mean = torch.var_mean(data[layer].reshape(-1, 5), dim=(0,),
+                                   correction=0)
+        for k in range(n):
+            m, v = outs[k][layer]
+            torch.testing.assert_close(m, mean, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(v, var, rtol=1e-5, atol=1e-6)
+
+
+def _shard_apply(params, x, train=False, skip=False):
+    """Two normalized layers of a linear model; a shard whose rows hold a
+    NaN raises after its first moments, or (``skip``) leaves before its
+    second."""
+    h = x @ params["w"]
+    mean, var = syncbn.batch_moments(h, (0,))
+    if bool(torch.isnan(x).any()):
+        if not skip:
+            raise ValueError("planted shard error")
+        return h
+    h = (h - mean) * torch.rsqrt(var + 1e-3)
+    mean, var = syncbn.batch_moments(h, (0,))
+    return (h - mean) + params["b"]
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_a_failing_shard_fails_the_step(skip):
+    import threading
+    import time
+
+    tree = {"w": np.ones((6, 4), np.float32), "b": np.zeros(4, np.float32)}
+    step, tp, to = tsharded.train_step(
+        tmesh.make_mesh("data:-1"),
+        functools.partial(_shard_apply, skip=skip), tree)
+    step.barrier_timeout = 2.0
+    x = np.ones((16, 6), np.float32)
+    x[10, 0] = np.nan        # shard 5's rows: 10 and 11
+    y = np.zeros(16, np.int32)
+    t0 = time.perf_counter()
+    want = (syncbn.ShardGroupError, r"layer 1: shards \[5\] of 8 did not "
+            r"arrive within 2 s") if skip else (ValueError, "planted")
+    with pytest.raises(want[0], match=want[1]):
+        step(tp, to, x, y)
+    took = time.perf_counter() - t0
+    assert took < (10.0 if skip else 1.5)
+    x[10, 0] = 1.0           # the step runs again once the rows are sound
+    tp, to, loss = step(tp, to, x, y)
+    assert np.isfinite(float(loss))
+    # the shard threads live with the step and end with it
+    threads = step._threads.threads
+    assert len(threads) == 7 and all(t.is_alive() for t in threads)
+    step.close()
+    assert not any(t.is_alive() for t in threads)
+    assert not [t for t in threading.enumerate() if t in threads]
+
+
+def test_split_step_runs_each_shard_on_its_device():
+    """A mesh over two distinct devices (a ``cpu`` and a ``meta`` record)
+    is accepted: each shard's rows and leaves go to its record's device;
+    the gather from ``meta`` then raises, as a copy out of it must."""
+    seen = []
+
+    def apply(params, x, train=False):
+        seen.append((x.device.type, params["w"].device.type, x.shape[0]))
+        return x @ params["w"] + params["b"]
+
     recs = [tmesh.Device("cpu", 0, 0, torch.device("cpu")),
             tmesh.Device("meta", 1, 0, torch.device("meta"))]
-    mesh = tmesh.make_mesh("data:-1", recs)
     tree = {"w": np.zeros((6, 4), np.float32), "b": np.zeros(4, np.float32)}
-    with pytest.raises(ValueError, match="sync batch norm"):
-        tsharded.train_step(mesh, _smooth_apply, tree)
+    step, tp, to = tsharded.train_step(tmesh.make_mesh("data:-1", recs),
+                                       apply, tree)
+    assert step.devices == [torch.device("cpu"), torch.device("meta")]
+    assert tp["w"].device.type == "cpu"
+    with pytest.raises((NotImplementedError, RuntimeError), match="meta"):
+        step(tp, to, np.zeros((8, 6), np.float32), np.zeros(8, np.int32))
+    assert sorted(seen) == [("cpu", "cpu", 4), ("meta", "meta", 4)]
 
 
 def test_trainer_refuses_distinct_devices_and_a_missing_card(monkeypatch):
@@ -566,10 +777,12 @@ def test_trainer_refuses_distinct_devices_and_a_missing_card(monkeypatch):
     sp.configure(TrainerProps(model_config=cfg, device="cpu"), None)
     import nnstreamer_tpu_torch.parallel.mesh as pm
 
+    # a mesh whose first data shard leads elsewhere than the pipeline
     monkeypatch.setattr(pm, "local_devices", lambda platform=None: [
-        pm.Device("cpu", 0, 0, torch.device("cpu")),
-        pm.Device("meta", 1, 0, torch.device("meta"))])
-    with pytest.raises(TrainerError, match="ROADMAP item 7b"):
+        pm.Device("meta", 0, 0, torch.device("meta")),
+        pm.Device("cpu", 1, 0, torch.device("cpu"))])
+    with pytest.raises(TrainerError, match="led by meta, the pipeline "
+                       "runs on cpu"):
         sp._mesh_and_step()
 
 
