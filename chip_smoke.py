@@ -5826,7 +5826,8 @@ def phase_control(card: str, power: str):
 
 PREFETCH_WINDOWS = 12       # windows of each 16a run
 PREFETCH_RUNS = ("false", "true", "true", "false")
-PREFETCH_PROFILED = (3, 8)  # sink arrivals the 16a profile spans
+PREFETCH_PROFILED = (3, 8)  # the source's windows 16a's profile spans
+PREFETCH_SINK_DELAY_S = 5.0  # 16a: the sink held back, the source runs ahead
 SINGLE_INVOKES = 8          # 16b: FilterSingle invokes timed
 SINGLE_TOL = 5e-2           # phase 7's bf16 tolerance, kernel vs plain
 PREFETCH_PIPE = (
@@ -5886,14 +5887,96 @@ def copy_streams(trace_path: str):
     return {e["args"].get("stream") for e in d2h}, filt, len(d2h)
 
 
+def _prefetch_profile(frames, n: int, window: str, sink_delay_s: float = 0.0):
+    """One prefetch run of 16a with a CUDA profile over the windows
+    PREFETCH_PROFILED: opened on the source's thread before it makes window
+    ``first`` and closed before it makes the one after ``last``
+    (``window="source"``), or opened at the sink's arrival ``first`` and
+    closed at its arrival ``last`` (``"sink"``).  ``sink_delay_s`` holds
+    the sink at its first arrival that long.  Returns (the profile, busy
+    ms, device span ms, scale_bias_cast launches at its start, at its stop
+    and by the sink's arrival ``first``, host ms between start and
+    stop)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.runtime import parse_launch
+    from nnstreamer_tpu_torch.utils.profile import GATE, stop_when_quiescent
+
+    p = parse_launch(prefetch_pipe("true", n), device="cuda")
+    p["src"].frames = frames
+    p["src"].pool_size = len(frames)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    seen, made, host, launched = [0], [0], [], {}
+    sink, render = p["out"], p["out"].render
+    create = p["src"].create
+    first, last = PREFETCH_PROFILED
+
+    def stop():
+        torch.cuda.synchronize()    # the windows' kernels and copies done
+        prof.stop()
+
+    def start_at():
+        launched["at_start"] = kernels.scale_bias_cast.launches
+        GATE.hold(prof.start, 60.0)
+        host.append(time.perf_counter())
+
+    def stop_at():
+        launched["at_stop"] = kernels.scale_bias_cast.launches
+        stop_when_quiescent(stop, 60.0)
+        host.append(time.perf_counter())
+
+    def created():
+        # the source's thread launches every window's kernels and
+        # device→host copies.  A window opened at the sink's arrival
+        # ``first`` misses every one the source launched before it: with
+        # max-size-buffers 16 ahead of 12 windows nothing holds the source
+        # back, and a CUDA profile holds only what is launched while it
+        # runs.  (A start and its stop run on one thread: the profiler's
+        # host state is the thread's own.)
+        made[0] += 1
+        if window == "source" and made[0] == first:
+            start_at()
+        elif window == "source" and made[0] == last + 1:
+            stop_at()
+        return create()
+
+    def profiled(b):
+        seen[0] += 1
+        if seen[0] == 1 and sink_delay_s:
+            time.sleep(sink_delay_s)
+        if seen[0] == first:
+            launched["at_sink_first"] = kernels.scale_bias_cast.launches
+            if window == "sink":
+                start_at()
+        elif seen[0] == last and window == "sink":
+            stop_at()
+        render(b)
+
+    p["src"].create = created
+    sink.render = profiled
+    kernels.scale_bias_cast.launches = 0
+    p.start()
+    try:
+        if not p.wait_eos(timeout=600):
+            raise RuntimeError("repairs (a) profile: no EOS")
+    finally:
+        p.stop()
+    while p["out"].pull(timeout=0) is not None:
+        pass
+    busy, span, _ = device_busy(prof.events())
+    return prof, busy, span, launched, (host[1] - host[0]) * 1e3
+
+
 def repairs_prefetch(frames, card: str, power: str):
     """16a: the SSD detection path with the host decoder behind
     ``queue prefetch-host=``, false and true in turns."""
     import hashlib
+    import tempfile
 
     from nnstreamer_tpu_torch.obs import transfer as xfer
     from nnstreamer_tpu_torch.ops import kernels
-    from nnstreamer_tpu_torch.runtime import parse_launch
 
     n = PREFETCH_WINDOWS
     runs, digests, dot = [], {}, {}
@@ -5954,42 +6037,13 @@ def repairs_prefetch(frames, card: str, power: str):
         raise RuntimeError(f"repairs (a): device→host bytes differ: "
                            f"{by['true']} vs {by['false']}")
     # a profile window of the prefetch run: the copies' streams
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from nnstreamer_tpu_torch.utils.profile import GATE, stop_when_quiescent
-
-    p = parse_launch(prefetch_pipe("true", n), device="cuda")
-    p["src"].frames = frames
-    p["src"].pool_size = len(frames)
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    seen, host = [0], []
-    sink, render = p["out"], p["out"].render
-    first, last = PREFETCH_PROFILED
-
-    def profiled(b):
-        # start/stop with no other thread inside a torch op: the filter
-        # launches on the thread ahead of the queue (utils/profile.py)
-        seen[0] += 1
-        if seen[0] == first:
-            GATE.hold(prof.start, 60.0)
-            host.append(time.perf_counter())
-        elif seen[0] == last:
-            host.append(time.perf_counter())
-            stop_when_quiescent(prof.stop, 60.0)
-        render(b)
-
-    sink.render = profiled
-    p.start()
-    try:
-        if not p.wait_eos(timeout=600):
-            raise RuntimeError("repairs (a) profile: no EOS")
-    finally:
-        p.stop()
-    while p["out"].pull(timeout=0) is not None:
-        pass
-    busy, span, _ = device_busy(prof.events())
+    prof, busy, span, launched, host_ms = _prefetch_profile(frames, n,
+                                                            "source")
+    if span <= 0:
+        raise RuntimeError(
+            f"repairs (a) profile: the profile held no device event "
+            f"(scale_bias_cast launches: {launched.get('at_start')} before "
+            f"it started, {launched.get('at_stop')} when it stopped)")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "prefetch.json")
         prof.export_chrome_trace(path)
@@ -5998,13 +6052,35 @@ def repairs_prefetch(frames, card: str, power: str):
         raise RuntimeError(f"repairs (a): device→host copies on streams "
                            f"{copy_s}, the filter's kernels on {filt_s}: "
                            "the copies must run on a stream of their own")
-    host_ms = (host[1] - host[0]) * 1e3
-    print(f"repairs (a) profile, sink arrivals {first}..{last}: "
+    first, last = PREFETCH_PROFILED
+    # +1: the negotiation's launch ahead of the first window
+    print(f"repairs (a) profile, the source's windows {first}..{last} "
+          f"(scale_bias_cast launches before it started "
+          f"{launched['at_start']}, by its stop {launched['at_stop']}, by "
+          f"the sink's arrival {first} {launched['at_sink_first']}, of {n} "
+          f"+ 1): "
           f"{n_copies} device→host copies on stream(s) {sorted(copy_s)}, "
           f"the filter's kernels on stream(s) {sorted(filt_s)}; device busy "
           f"{busy:.3f} ms of a {span:.3f} ms device span (share "
-          f"{busy / span:.3f}), {host_ms:.3f} ms of host time "
-          f"[{card}, {power}]", flush=True)
+          f"{busy / span:.3f}), {host_ms:.3f} ms of host time on the "
+          f"source's thread (the stop waits for the card) [{card}, {power}]",
+          flush=True)
+    # the window's start against a source that ran ahead: the sink held
+    # back at its first arrival until the source has launched every window
+    slow = {}
+    for window in ("sink", "source"):
+        _, b_, s_, l_, _ = _prefetch_profile(frames, n, window,
+                                             PREFETCH_SINK_DELAY_S)
+        slow[window] = {"busy_ms": b_, "span_ms": s_, "launched": l_}
+    if slow["sink"]["span_ms"] > 0 or slow["source"]["span_ms"] <= 0:
+        raise RuntimeError(f"repairs (a) profile behind a slow sink: {slow}")
+    print(f"repairs (a) profile behind a sink held {PREFETCH_SINK_DELAY_S} s "
+          f"at its first arrival: opened at the sink's arrival {first} "
+          f"(scale_bias_cast launches by then "
+          f"{slow['sink']['launched']['at_start']} of {n} + 1) it holds no "
+          f"device event; opened on the source's thread it holds "
+          f"{slow['source']['busy_ms']:.3f} ms of kernels [{card}, {power}]",
+          flush=True)
     if "text" not in dot or "?" in dot["text"]:
         raise RuntimeError(f"repairs (c): to_dot of the running pipeline "
                            f"lacks negotiated caps: {dot}")
@@ -6019,6 +6095,7 @@ def repairs_prefetch(frames, card: str, power: str):
             for pf in ("false", "true")}
     return {"runs": runs, "p50_window_ms": p50s, "d2h": by,
             "busy_ms": busy, "span_ms": span, "busy_share": busy / span,
+            "profile_launches": launched, "slow_sink": slow,
             "copy_streams": sorted(copy_s), "filter_streams": sorted(filt_s),
             "launches": sum(r["launches"] for r in runs), "dot_links":
             len(links)}
@@ -8322,11 +8399,16 @@ def _small_batches():
     return xs, ys, mobilenet_v1_init(SEED, sm["classes"], sm["width"])
 
 
-def _small_run(mesh, name, dtype, step_seen=None, perm=None):
+def _small_run(mesh, name, dtype, step_seen=None, perm=None, rules=None,
+               fault=None):
     """Three ``train_step`` steps of ``name`` over ``mesh`` from
     ``_small_batches`` (their rows in the order ``perm``, where given: the
-    same function): (losses, the trained tree)."""
+    same function), with ``rules`` (default: the step's, which split over
+    ``model``): (losses, the trained tree).  ``fault="slice_grad"`` zeroes
+    the gradient of the last pointwise weight's second slice."""
     import functools
+
+    import torch
 
     from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
     from nnstreamer_tpu_torch.parallel.sharded import (train_step,
@@ -8339,7 +8421,10 @@ def _small_run(mesh, name, dtype, step_seen=None, perm=None):
     step, params, opt = train_step(
         mesh, functools.partial(mobilenet_v1_tree_apply, dtype=dtype), tree,
         optimizer=_make_optimizer({"optimizer": name,
-                                   "lr": TRAIN_SMALL["lr"]}))
+                                   "lr": TRAIN_SMALL["lr"]}),
+        **({"rules": rules} if rules is not None else {}))
+    if fault == "slice_grad":
+        params.blocks[12].pw.weight.slices[1].register_hook(torch.zeros_like)
     step.record_events = True     # a split step keeps its barrier waits
     losses = []
     for x, y in zip(xs, ys):
@@ -8765,10 +8850,12 @@ def train_split_small(card: str, power: str):
     return res
 
 
-def _train_run(root: str, data: str, js: str, mesh: str, tag: str):
-    """(a)'s pipeline once more with ``mesh=``: the recorded step, the step
-    losses, the bus events, the status buffers, the launches (counted
-    from 0), the peak card memory, the wall seconds."""
+def _train_run(root: str, data: str, js: str, mesh: str, tag: str,
+               save: str = ""):
+    """(a)'s pipeline once more with ``mesh=`` (saving to ``save``, else a
+    ``.pkl`` of the tag): the recorded step, the step losses, the bus
+    events, the status buffers, the launches (counted from 0), the peak
+    card memory, the wall seconds."""
     import torch
 
     import nnstreamer_tpu_torch.parallel as par
@@ -8776,7 +8863,7 @@ def _train_run(root: str, data: str, js: str, mesh: str, tag: str):
     from nnstreamer_tpu_torch.runtime import parse_launch
 
     on_card = TRAIN_DEVICE == "cuda"
-    save = os.path.join(root, f"mnv1_{tag.replace(' ', '_')}.pkl")
+    save = save or os.path.join(root, f"mnv1_{tag.replace(' ', '_')}.pkl")
     p = parse_launch(TRAIN_PIPE.format(
         n=TRAIN_SAMPLES, epochs=TRAIN_EPOCHS, save=save, data=data, js=js,
         norm=NORM, sink=TRAIN_SAMPLES * TRAIN_EPOCHS + 8),
@@ -8840,6 +8927,9 @@ def _train_run(root: str, data: str, js: str, mesh: str, tag: str):
     launches = _par_counts()
     if p.error is not None:
         raise RuntimeError(f"training ({tag}): pipeline error {p.error}")
+    failed = [e for _, e in events if "error" in e]
+    if failed:
+        raise RuntimeError(f"training ({tag}): the trainer failed: {failed}")
     return {"steps": steps, "mesh": meshes[0] if meshes else None,
             "losses": losses, "events": events,
             "statuses": statuses, "launches": launches, "t0": t0,
@@ -8860,7 +8950,7 @@ def _split_figures(run: dict, base: dict, tag: str, shards: int) -> dict:
                            f"{steps[0].data_size if steps else 0} shards, "
                            f"not {n_steps} over {shards}")
     step = steps[0]
-    if on_card and len(step.barrier_ms) != n_steps:
+    if on_card and shards > 1 and len(step.barrier_ms) != n_steps:
         raise RuntimeError(f"training ({tag}): {len(step.barrier_ms)} split "
                            f"forwards of {n_steps} steps")
     if len(losses) != n_steps or not all(math.isfinite(v) for v in losses):
@@ -8902,7 +8992,8 @@ def _split_figures(run: dict, base: dict, tag: str, shards: int) -> dict:
         tot = [sum(s) for s in split]
         res["step_ms_p50"] = _percentile(tot, 0.5)
         res["step_ms_p90"] = _percentile(tot, 0.9)
-        res["barrier_ms_p50"] = _percentile(step.barrier_ms[1:], 0.5)
+        if shards > 1:
+            res["barrier_ms_p50"] = _percentile(step.barrier_ms[1:], 0.5)
     _step_alone(step, res)
     return res
 
@@ -8940,7 +9031,9 @@ def _step_alone(step, res: dict) -> None:
             res[f"alone_{part}_ms_p50"] = _percentile(
                 [a[i] for a in alone], 0.5)
         res["alone_step_ms_p50"] = _percentile([sum(a) for a in alone], 0.5)
-        res["alone_barrier_ms_p50"] = _percentile(step.barrier_ms[1:], 0.5)
+        if step.data_size > 1:
+            res["alone_barrier_ms_p50"] = _percentile(step.barrier_ms[1:],
+                                                      0.5)
 
 
 def _split_line(res: dict, base: dict) -> str:
@@ -8961,8 +9054,10 @@ def _split_line(res: dict, base: dict) -> str:
                 f"update {res['update_ms_p50']:.3f}/{res['update_ms_p90']:.3f}"
                 f", whole {res['step_ms_p50']:.3f}/{res['step_ms_p90']:.3f} "
                 f"((a) {base.get('step_ms_p50', float('nan')):.3f}/"
-                f"{base.get('step_ms_p90', float('nan')):.3f}); host wait at "
-                f"the barriers p50 {res['barrier_ms_p50']:.3f} ms a forward")
+                f"{base.get('step_ms_p90', float('nan')):.3f})")
+        if "barrier_ms_p50" in res:
+            msg += (f"; host wait at the barriers p50 "
+                    f"{res['barrier_ms_p50']:.3f} ms a forward")
     if "alone_step_ms_p50" in res:
         msg += (f"; the step alone on a card batch (p50 of "
                 f"{TRAIN_ALONE_STEPS - 1}): forward "
@@ -8971,8 +9066,10 @@ def _split_line(res: dict, base: dict) -> str:
                 f"{res['alone_update_ms_p50']:.3f}, whole "
                 f"{res['alone_step_ms_p50']:.3f} ms ((a) "
                 f"{base.get('alone_step_ms_p50', float('nan')):.3f}), host "
-                f"{res['alone_host_ms']:.3f} ms a step, barrier wait p50 "
-                f"{res['alone_barrier_ms_p50']:.3f} ms")
+                f"{res['alone_host_ms']:.3f} ms a step")
+        if "alone_barrier_ms_p50" in res:
+            msg += (f", barrier wait p50 {res['alone_barrier_ms_p50']:.3f} "
+                    "ms")
     return msg
 
 
@@ -9020,9 +9117,197 @@ def train_split(root: str, data: str, js: str, base: dict, card: str,
     return res
 
 
+TRAIN_MP = 2          # (h): the model axis's devices
+
+
+def _virtual_mesh(spec: str, n: int):
+    """``spec`` over ``n`` virtual records laid over the card (TRAIN_DEVICE)."""
+    from nnstreamer_tpu_torch.parallel import mesh as M
+
+    M.set_virtual_devices(n, TRAIN_DEVICE)
+    try:
+        return M.make_mesh(spec, M.local_devices(TRAIN_DEVICE))
+    finally:
+        M.clear_virtual_devices()
+
+
+def train_model_split_small(spread: dict, card: str, power: str):
+    """20h (i): TRAIN_SMALL × sgd/adam/adamw on ``data:2,model:2`` over 4
+    virtual records on the card (the pointwise convolutions and the head
+    in 2 slices) against the replicated step on the same mesh and the
+    stacked CPU step, at TRAIN_SMALL_TOL, TF32 off; a zeroed slice
+    gradient must fail the check against the replicated step.  Under
+    adam/adamw a gap in the leaves alone against the CPU is held to 20g's
+    spread of the stacked step over row orders (``spread``), as 20g
+    holds its split."""
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import mesh as M
+    from nnstreamer_tpu_torch.parallel.sharded import replicated_param_rules
+
+    mesh = _virtual_mesh(f"data:2,model:{TRAIN_MP}", 2 * TRAIN_MP)
+    cpu = M.make_mesh("data:1", M.local_devices("cpu")[:1])
+    res = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    set_tf32(False, False)
+    try:
+        for name in ("sgd", "adam", "adamw"):
+            steps = []
+            split = _small_run(mesh, name, torch.float32, steps)
+            step = steps[0]
+            if step.data_size != 2 or step.placement is None or \
+                    len([v for v in step.placement.specs.values() if v]) \
+                    != 14:
+                raise RuntimeError(f"training (h i): {_mesh_line(mesh, step)}"
+                                   f", specs {step.placement and step.placement.specs}")
+            rep = _small_run(mesh, name, torch.float32,
+                             rules=replicated_param_rules)
+            host = _small_run(cpu, name, torch.float32)
+            out = {}
+            for ref, run in (("replicated", rep), ("cpu", host)):
+                out[ref], over = _small_compare(split, run, name)
+                if ref == "cpu" and over == ["leaf_max"] and \
+                        name != "sgd" and name in spread and \
+                        out[ref]["leaf_max"] <= spread[name]:
+                    over = []
+                if over:
+                    raise RuntimeError(
+                        f"training (h i) {name}: the model split against "
+                        f"the {ref} step: {out[ref]} over {over} (limits "
+                        f"{TRAIN_SMALL_TOL}, spread {spread.get(name)})")
+            out["leaf_bytes"] = step.leaf_bytes()
+            res[name] = out
+            print(f"training (h i) {name}: {_mesh_line(mesh, step)}, "
+                  f"leaf bytes by record {out['leaf_bytes']}: " + "; ".join(
+                      f"against the {ref} step: first loss rel "
+                      f"{r['first_loss_rel']:.3e}, losses rel "
+                      f"{r['loss_rel']:.3e}, leaves max {r['leaf_max']:.3e}, "
+                      f"largest update gap {r['update_gap']:.3e}"
+                      for ref, r in out.items() if ref != "leaf_bytes")
+                  + f" [{card}, {power}]", flush=True)
+        planted = _small_run(mesh, "sgd", torch.float32, fault="slice_grad")
+        rep = _small_run(mesh, "sgd", torch.float32,
+                         rules=replicated_param_rules)
+        r, over = _small_compare(planted, rep, "sgd")
+        res["planted"] = dict(r, over=over)
+        if not over:
+            raise RuntimeError(f"training (h i): a zeroed slice gradient "
+                               f"passes the check: {r}")
+    finally:
+        set_tf32(*tf32)
+    print(f"training (h i): one slice's gradient zeroed (the last pointwise "
+          f"weight's second half), sgd, against the replicated step: fails "
+          f"on {over} (largest update gap {r['update_gap']:.3e}, leaves max "
+          f"{r['leaf_max']:.3e}) [{card}, {power}]", flush=True)
+    return res
+
+
+def train_model_split(root: str, data: str, js: str, base: dict,
+                      spread: dict, card: str, power: str):
+    """20h: (i) the model-split step at TRAIN_SMALL; (ii) (a)'s pipeline on
+    ``mesh=data:1,model:2`` over 2 virtual records on the card, its
+    trained step saved as orbax and read back bit-equal to
+    ``trained_tree``; (iii) ``data:1,model:2`` over two real cards, where
+    there are two or more."""
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import mesh as M
+    from nnstreamer_tpu_torch.parallel.sharded import trained_tree
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+    from nnstreamer_tpu_torch.trainers.orbax_write import step_bytes
+
+    res = {"small": train_model_split_small(spread, card, power)}
+    save = os.path.join(root, "mnv1_h_ii") + "/"
+    M.set_virtual_devices(TRAIN_MP, TRAIN_DEVICE)
+    try:
+        run = _train_run(root, data, js, f"data:1,model:{TRAIN_MP}", "h ii",
+                         save=save)
+    finally:
+        M.clear_virtual_devices()
+    step = run["steps"][0]
+    if step.placement is None or not os.path.isfile(
+            os.path.join(save, "_METADATA")):
+        raise RuntimeError(f"training (h ii): placement {step.placement}, "
+                           f"saved {sorted(os.listdir(save))}")
+    t0 = time.perf_counter()
+    got = load_dir(save)
+    read_s = time.perf_counter() - t0
+    leaves = _orbax_same(got, trained_tree(step.params), "training (h ii)")
+    leaf_bytes = step.leaf_bytes()
+    res["pipeline"] = _split_figures(run, base, "h ii", 1)
+    res["pipeline"].update(leaf_bytes=leaf_bytes, saved_leaves=leaves,
+                           saved_bytes=step_bytes(save), read_s=read_s)
+    res["launches"] = res["pipeline"]["launches"]
+    print(f"training (h ii): MobileNetV1 w{TRAIN_WIDTH} {TRAIN_SIZE}x"
+          f"{TRAIN_SIZE} {TRAIN_CLASSES} classes, {TRAIN_SAMPLES} samples x "
+          f"{TRAIN_EPOCHS} epochs at batch {TRAIN_BATCH} through "
+          f"tensor_trainer mesh=data:1,model:{TRAIN_MP}, "
+          f"{_mesh_line(run['mesh'], step)}, leaf bytes by record "
+          f"{leaf_bytes}: {_split_line(res['pipeline'], base)}; the trained "
+          f"step written as orbax by model-save-path ({step_bytes(save)} B) "
+          f"read back in {read_s:.6f} s, {leaves} leaves bit-equal to "
+          f"trained_tree [{card}, {power}]", flush=True)
+    cards = torch.cuda.device_count() if TRAIN_DEVICE == "cuda" else 0
+    if cards < 2:
+        res["cards"] = {"ran": False, "cards": cards}
+        print(f"training (h iii): data:1,model:{TRAIN_MP} over two real "
+              f"cards: not run: {cards} card [{card}, {power}]", flush=True)
+        return res
+    res["cards"] = dict(train_model_split_cards(card, power), ran=True)
+    return res
+
+
+def train_model_split_cards(card: str, power: str) -> dict:
+    """20h (iii): the full-width step on ``data:1,model:2`` over the first
+    two cards, TRAIN_ALONE_STEPS steps on one card batch: each card's
+    leaf bytes and peak memory, the step's p50."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.parallel import mesh as M
+    from nnstreamer_tpu_torch.parallel.sharded import train_step
+    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+    recs = M.local_devices("cuda")[:TRAIN_MP]
+    for r in recs:
+        torch.cuda.reset_peak_memory_stats(r.torch_device)
+    step, params, opt = train_step(
+        M.make_mesh(f"data:1,model:{TRAIN_MP}", recs),
+        mobilenet_v1_tree_apply,
+        mobilenet_v1_init(SEED, TRAIN_CLASSES, TRAIN_WIDTH),
+        optimizer=_make_optimizer({"optimizer": "sgd", "lr": TRAIN_LR}))
+    step.record_events = True
+    rs = np.random.default_rng(SEED + 1)
+    xb = torch.from_numpy(rs.standard_normal(
+        (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.float32)).to(
+        recs[0].torch_device)
+    yb = torch.from_numpy(rs.integers(0, TRAIN_CLASSES, TRAIN_BATCH).astype(
+        np.int32)).to(recs[0].torch_device)
+    losses = []
+    for _ in range(TRAIN_ALONE_STEPS):
+        params, opt, loss = step(params, opt, xb, yb)
+        losses.append(float(loss))
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"training (h iii): losses {losses}")
+    res = {"leaf_bytes": step.leaf_bytes(), "losses": losses,
+           "step_ms_p50": _percentile([sum(t) for t in step.timings()[1:]],
+                                      0.5),
+           "peak_mib": {str(r): torch.cuda.max_memory_allocated(
+               r.torch_device) / 2 ** 20 for r in recs}}
+    print(f"training (h iii): MobileNetV1 w{TRAIN_WIDTH} at batch "
+          f"{TRAIN_BATCH} on data:1,model:{TRAIN_MP} over "
+          f"{[str(r) for r in recs]}: {TRAIN_ALONE_STEPS} steps, losses "
+          f"{losses}; leaf bytes by card {res['leaf_bytes']}; peak memory "
+          f"by card (MiB) {res['peak_mib']}; step p50 "
+          f"{res['step_ms_p50']:.3f} ms [{card}, {power}]", flush=True)
+    return res
+
+
 def phase_training(card: str, power: str):
-    """Phase 20: (a)-(e), (g), then (f) over every description; (a)'s and
-    (g)'s kernel counts each from 0."""
+    """Phase 20: (a)-(e), (g), (h), then (f) over every description; (a)'s,
+    (g)'s and (h)'s kernel counts each from 0."""
     import shutil
     import tempfile
 
@@ -9042,6 +9327,9 @@ def phase_training(card: str, power: str):
         res["grad_guard"] = train_grad_guard(card, power)
         res["split"] = train_split(root, data, js, res["full_width"], card,
                                    power)
+        res["model_split"] = train_model_split(
+            root, data, js, res["full_width"],
+            res["split"]["small"]["perm_spread"], card, power)
         res["lint"] = train_lint(card, power)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -9568,9 +9856,9 @@ ORBAX_DECODE_S = 0.5       # (a): at least this long decoding, timed
 
 
 def _orbax_files():
-    """The tests' orbax writer and fixture (``tests/torch_orbax_files.py``:
-    numpy, struct and json only), loaded once from its file, so the tests
-    directory does not join the import path."""
+    """The committed JAX step's seeded tree (``tests/torch_orbax_files.py``
+    ``fixture_tree``), loaded once from its file, so the tests directory
+    does not join the import path."""
     import importlib.util
 
     name = "torch_orbax_files"
@@ -9599,8 +9887,9 @@ def _orbax_leaf_bytes(leaf):
 def _orbax_same(got, want, what: str) -> int:
     """``got`` equals ``want`` leaf by leaf, bit for bit, in the same
     structure and dtypes; returns the leaves compared."""
-    W = _orbax_files()
-    g, w = W.flat_leaves(got), W.flat_leaves(want)
+    from nnstreamer_tpu_torch.trainers.orbax_write import flat_leaves
+
+    g, w = flat_leaves(got), flat_leaves(want)
     if sorted(g) != sorted(w):
         raise RuntimeError(f"{what}: leaves {sorted(set(g) ^ set(w))} "
                            "differ between the trees")
@@ -9669,34 +9958,57 @@ def _orbax_serve(p, frames, first: int):
     return outs
 
 
-def _orbax_roots(root: str, name: str, tree, seed: int):
-    """``tree`` as step ORBAX_STEP of two roots, written by the tests'
-    orbax writer and by ``save_step``; both read back bit-equal.  Returns
-    ({format: root}, the orbax step's bytes, {format: read seconds})."""
-    from nnstreamer_tpu_torch.trainers.checkpoint import (load_dir,
+def _orbax_roots(root: str, name: str, tree):
+    """``tree`` as step ORBAX_STEP of two roots: an orbax step written by
+    the package's ``save_step`` and an older port step, one
+    ``params.safetensors`` (``models/params_io.save_safetensors``); both
+    read back bit-equal.  Returns ({format: root}, {format: step bytes},
+    {format: write seconds}, {format: read seconds})."""
+    from nnstreamer_tpu_torch.models.params_io import save_safetensors
+    from nnstreamer_tpu_torch.trainers.checkpoint import (STEP_FILE,
+                                                          load_dir,
                                                           save_step,
                                                           step_dir)
+    from nnstreamer_tpu_torch.trainers.orbax_write import step_bytes
 
-    W = _orbax_files()
     roots = {"orbax": os.path.join(root, f"{name}_orbax"),
              "safetensors": os.path.join(root, f"{name}_safetensors")}
-    W.write_orbax_step(step_dir(roots["orbax"], ORBAX_STEP), tree, seed=seed)
-    save_step(roots["safetensors"], ORBAX_STEP, tree)
-    trees, read_s = {}, {}
+    write_s = {}
+    t0 = time.perf_counter()
+    save_step(roots["orbax"], ORBAX_STEP, tree)
+    write_s["orbax"] = time.perf_counter() - t0
+    path = step_dir(roots["safetensors"], ORBAX_STEP)
+    os.makedirs(path)
+    t0 = time.perf_counter()
+    save_safetensors(os.path.join(path, STEP_FILE), tree)
+    write_s["safetensors"] = time.perf_counter() - t0
+    trees, read_s, nbytes = {}, {}, {}
     for fmt, r in roots.items():
+        nbytes[fmt] = step_bytes(step_dir(r, ORBAX_STEP))
         t0 = time.perf_counter()
         trees[fmt] = load_dir(step_dir(r, ORBAX_STEP))
         read_s[fmt] = time.perf_counter() - t0
+    if os.path.exists(os.path.join(step_dir(roots["orbax"], ORBAX_STEP),
+                                   STEP_FILE)):
+        raise RuntimeError(f"orbax ({name}): save_step wrote {STEP_FILE}")
     _orbax_same(trees["orbax"], trees["safetensors"], f"orbax ({name})")
     _orbax_same(trees["orbax"], tree, f"orbax ({name})")
-    return roots, W.step_bytes(step_dir(roots["orbax"], ORBAX_STEP)), read_s
+    return roots, nbytes, write_s, read_s
+
+
+def _io_line(nbytes: dict, write_s: dict, read_s: dict) -> str:
+    return "; ".join(
+        f"{fmt} step {nbytes[fmt]} B written in {write_s[fmt]:.6f} s "
+        f"({nbytes[fmt] / write_s[fmt] / 1e6:.1f} MB/s), read in "
+        f"{read_s[fmt]:.6f} s ({nbytes[fmt] / read_s[fmt] / 1e6:.1f} MB/s)"
+        for fmt in nbytes)
 
 
 def orbax_mobilenet(root: str, card: str, power: str):
     """22b: MobileNetV1 1.0 (224x224, 1001 classes) as step 16 of an orbax
-    root and of a safetensors root, staged in turn into one share-model
-    pool: the logits after each flip bit-equal, within phase 20d's check
-    of the tree alone."""
+    root (the package's ``save_step``) and of a safetensors root, staged
+    in turn into one share-model pool: the logits after each flip
+    bit-equal, within phase 20d's check of the tree alone."""
     import pickle
 
     import torch
@@ -9706,7 +10018,7 @@ def orbax_mobilenet(root: str, card: str, power: str):
     from nnstreamer_tpu_torch.runtime import parse_launch
 
     tree = mobilenet_v1_init(SEED + 1, TRAIN_CLASSES, TRAIN_WIDTH)
-    roots, nbytes, read_s = _orbax_roots(root, "mnv1", tree, SEED)
+    roots, nbytes, write_s, read_s = _orbax_roots(root, "mnv1", tree)
     models = {}
     for tag, params in (("init", mobilenet_v1_init(SEED, TRAIN_CLASSES,
                                                    TRAIN_WIDTH)),
@@ -9764,18 +10076,19 @@ def orbax_mobilenet(root: str, card: str, power: str):
             launches["scale_bias_cast"] < 2 * ORBAX_FRAMES:
         raise RuntimeError(f"orbax (b): launches {launches} for "
                            f"{2 * ORBAX_FRAMES} frames")
-    res = {"step_bytes": nbytes, "read_s": read_s, "stage_s": stage_s,
-           "load_s": load_s, "reader_mb_per_s":
-               nbytes / read_s["orbax"] / 1e6,
+    res = {"step_bytes": nbytes, "write_s": write_s, "read_s": read_s,
+           "stage_s": stage_s, "load_s": load_s,
+           "writer_mb_per_s": {f: nbytes[f] / write_s[f] / 1e6
+                               for f in nbytes},
+           "reader_mb_per_s": {f: nbytes[f] / read_s[f] / 1e6
+                               for f in nbytes},
            "frames": 2 * ORBAX_FRAMES, "max_abs_diff_alone": worst,
            "launches": launches}
     print(f"orbax (b): MobileNetV1 {TRAIN_WIDTH} ({TRAIN_SIZE}x{TRAIN_SIZE},"
-          f" {TRAIN_CLASSES} classes) as step {ORBAX_STEP}: the orbax step "
-          f"({nbytes} B) read in {read_s['orbax']:.6f} s "
-          f"({res['reader_mb_per_s']:.1f} MB/s), the safetensors step in "
-          f"{read_s['safetensors']:.6f} s; staged into one share-model pool "
-          f"from orbax in {stage_s['orbax']:.6f} s (load+place+warm "
-          f"{load_s['orbax']:.6f}), from safetensors in "
+          f" {TRAIN_CLASSES} classes) as step {ORBAX_STEP}: "
+          f"{_io_line(nbytes, write_s, read_s)}; staged into one "
+          f"share-model pool from orbax in {stage_s['orbax']:.6f} s "
+          f"(load+place+warm {load_s['orbax']:.6f}), from safetensors in "
           f"{stage_s['safetensors']:.6f} s ({load_s['safetensors']:.6f}); "
           f"version tag {lc.baseline.tag}; {ORBAX_FRAMES} frames after each "
           f"flip bit-equal, within {worst} of the tree alone; launches "
@@ -9802,7 +10115,7 @@ def orbax_vit(root: str, card: str, power: str):
     widths = {k: v for k, v in VIT.items() if k != "heads"}
     tree = params_io.weights_to_bf16(vit_tree(SEED + 7, image_size=VIT_SIZE,
                                               **widths))
-    roots, nbytes, read_s = _orbax_roots(root, "vit", tree, SEED + 1)
+    roots, nbytes, write_s, read_s = _orbax_roots(root, "vit", tree)
     base = write_vit_file(os.path.join(root, "vit_v0.safetensors"), 0)
     pools, _ = serve_pools(device=LC_DEVICE)
     rounds = [pool[:ORBAX_VIT_ROUNDS] for pool in pools]
@@ -9872,13 +10185,15 @@ def orbax_vit(root: str, card: str, power: str):
             or launches["scale_bias_cast"] < 2 * n):
         raise RuntimeError(f"orbax (c): launches {launches} for {2 * n} "
                            f"frames")
-    res = {"step_bytes": nbytes, "read_s": read_s, "stage_s": stage_s,
+    res = {"step_bytes": nbytes, "write_s": write_s, "read_s": read_s,
+           "stage_s": stage_s,
+           "writer_mb_per_s": {f: nbytes[f] / write_s[f] / 1e6
+                               for f in nbytes},
            "frames": 2 * n + SERVE_STREAMS, "max_abs_diff_alone": worst,
            "apart": apart, "launches": launches}
     print(f"orbax (c): the ViT ({VIT}, image {VIT_SIZE}, bf16 weights) as "
-          f"step {ORBAX_STEP}: the orbax step ({nbytes} B) read in "
-          f"{read_s['orbax']:.6f} s, the safetensors step in "
-          f"{read_s['safetensors']:.6f} s; phase 9's {SERVE_STREAMS}-stream "
+          f"step {ORBAX_STEP}: {_io_line(nbytes, write_s, read_s)}; phase "
+          f"9's {SERVE_STREAMS}-stream "
           f"pool staged it from orbax in {stage_s['orbax']:.6f} s, from "
           f"safetensors in {stage_s['safetensors']:.6f} s; {SERVE_STREAMS} "
           f"frames before the swaps within {worst['v0']} of the seed-0 "
@@ -9889,24 +10204,68 @@ def orbax_vit(root: str, card: str, power: str):
     return res
 
 
-def orbax_resume(root: str, roots: dict, card: str, power: str):
-    """22d: a ``torch-optim`` trainer with ``model-load-path=`` (b)'s orbax
-    step trains ORBAX_TRAIN_STEPS steps at phase 20's batch; the same run
-    from the safetensors step gives the same losses."""
-    import math
+def _trained_step(root: str, data: str, js: str, n: int) -> str:
+    """(a)'s trainer (its model-config and mesh) over ``n`` samples, one
+    epoch, with ``model-save-path=<dir>/``: the orbax step it writes."""
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.runtime import parse_launch
+    from nnstreamer_tpu_torch.trainers.checkpoint import STEP_FILE
 
-    import torch
+    save = os.path.join(root, "trained") + "/"
+    p = parse_launch(TRAIN_PIPE.format(
+        n=n, epochs=1, save=save, data=data, js=js, norm=NORM, sink=n + 8),
+        device=LC_DEVICE)
+    p["trn"].model_config = {
+        "apply": "nnstreamer_tpu_torch.models.convert:"
+                 "mobilenet_v1_tree_apply",
+        "init": lambda seed: mobilenet_v1_init(seed, TRAIN_CLASSES,
+                                               TRAIN_WIDTH),
+        "seed": SEED, "batch_size": TRAIN_BATCH, "optimizer": "sgd",
+        "lr": TRAIN_LR, "mesh": "data:1,model:-1"}
+    _par_zero()
+    p.start()
+    try:
+        if not p.wait_eos(timeout=600):
+            raise RuntimeError("orbax (d): the writing trainer reached no "
+                               "EOS")
+    finally:
+        p.stop()
+    if p.error is not None or not os.path.isfile(
+            os.path.join(save, "_METADATA")) or os.path.exists(
+            os.path.join(save, STEP_FILE)):
+        raise RuntimeError(f"orbax (d): the trainer's step holds "
+                           f"{sorted(os.listdir(save))}, error {p.error}")
+    return save
+
+
+def orbax_resume(root: str, card: str, power: str):
+    """22d: (a)'s trainer writes its trained step with
+    ``model-save-path=<dir>/`` (an orbax step); a ``torch-optim`` trainer
+    with ``model-load-path=`` that step trains ORBAX_TRAIN_STEPS steps at
+    phase 20's batch, and the same run from the same tree as a
+    ``params.safetensors`` step gives the same losses."""
+    import math
 
     import nnstreamer_tpu_torch.parallel as par
     from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.models.params_io import save_safetensors
     from nnstreamer_tpu_torch.runtime import parse_launch
-    from nnstreamer_tpu_torch.trainers.checkpoint import step_dir
+    from nnstreamer_tpu_torch.trainers.checkpoint import STEP_FILE, load_dir
 
     n = ORBAX_TRAIN_STEPS * TRAIN_BATCH
     data, js, _ = train_dataset(root, n)
-    losses, launches = {}, {}
+    written = _trained_step(root, data, js, n)
+    write_launches = _par_counts()
+    copy = os.path.join(root, "trained_safetensors")
+    os.makedirs(copy)
+    save_safetensors(os.path.join(copy, STEP_FILE), load_dir(written))
+    if LC_DEVICE == "cuda" and write_launches["scale_bias_cast"] < n:
+        raise RuntimeError(f"orbax (d): the writing trainer's launches "
+                           f"{write_launches}")
+    steps = {"orbax": written, "safetensors": copy}
+    losses, launches = {}, {"written": write_launches}
     real = par.train_step
-    for fmt, r in roots.items():
+    for fmt, path in steps.items():
         got = []
 
         class Logged:
@@ -9931,7 +10290,7 @@ def orbax_resume(root: str, roots: dict, card: str, power: str):
         p = parse_launch(TRAIN_PIPE.format(
             n=n, epochs=1, save=os.path.join(root, f"resumed_{fmt}.pkl"),
             data=data, js=js, norm=NORM, sink=n + 8).replace(
-            "model-save-path=", f"model-load-path={step_dir(r, ORBAX_STEP)} "
+            "model-save-path=", f"model-load-path={path} "
                                 "model-save-path="), device=LC_DEVICE)
         # the init tree is the template of the orbax step, as in jax-optax
         p["trn"].model_config = {
@@ -9967,9 +10326,11 @@ def orbax_resume(root: str, roots: dict, card: str, power: str):
     else:
         raise RuntimeError(f"orbax (d): losses {a} from orbax against {b} "
                            f"from safetensors")
-    print(f"orbax (d): a torch-optim trainer resumed from step "
-          f"{ORBAX_STEP} trained {ORBAX_TRAIN_STEPS} steps at batch "
-          f"{TRAIN_BATCH}: losses {a} from orbax, {b} from safetensors: "
+    print(f"orbax (d): (a)'s trainer wrote its trained step as orbax "
+          f"(model-save-path=<dir>/); a torch-optim trainer resumed from it "
+          f"trained {ORBAX_TRAIN_STEPS} steps at batch "
+          f"{TRAIN_BATCH}: losses {a} from orbax, {b} from the same tree as "
+          f"safetensors: "
           f"{held} (largest relative gap {rel}); launches {launches} "
           f"[{card}, {power}]", flush=True)
     return {"losses": losses, "held": held, "max_rel": rel,
@@ -9994,10 +10355,7 @@ def phase_orbax(card: str, power: str):
         res["fixture"] = orbax_fixture(card, power)
         res["mobilenet"] = orbax_mobilenet(root, card, power)
         res["vit"] = orbax_vit(root, card, power)
-        res["resume"] = orbax_resume(
-            root, {"orbax": os.path.join(root, "mnv1_orbax"),
-                   "safetensors": os.path.join(root, "mnv1_safetensors")},
-            card, power)
+        res["resume"] = orbax_resume(root, card, power)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     res["launches"] = {k: res["mobilenet"]["launches"][k]
@@ -10207,6 +10565,8 @@ def main() -> int:
                    "training": training["launches"]["scale_bias_cast"],
                    "training_split":
                        training["split"]["launches"]["scale_bias_cast"],
+                   "training_model_split":
+                       training["model_split"]["launches"]["scale_bias_cast"],
                    "importers_onnx": importers["launches"]["onnx"],
                    "importers_mnist": importers["launches"]["mnist"],
                    "orbax_mobilenet":
@@ -10234,6 +10594,8 @@ def main() -> int:
                   "training": training["launches"]["flash_attention"],
                   "training_split":
                       training["split"]["launches"]["flash_attention"],
+                  "training_model_split":
+                      training["model_split"]["launches"]["flash_attention"],
                   "orbax_vit": orbax["vit"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",

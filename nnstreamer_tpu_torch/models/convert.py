@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from ..core.buffer import from_numpy, to_numpy
+from ..parallel.sharded import ShardedLeaf
 from .mobilenet import (
     _V1_BLOCKS,
     _V2_BLOCKS,
@@ -118,7 +119,11 @@ def _dense_state(prefix: str, p: Params, out: Dict[str, torch.Tensor]) -> None:
 
 
 def _host_leaf(t: torch.Tensor) -> np.ndarray:
-    """A module leaf as an owned numpy array (bf16 by bit pattern)."""
+    """A module leaf as an owned numpy array (bf16 by bit pattern); a
+    leaf a training step split over the ``model`` axis as its host slices
+    (``parallel.sharded.ShardedLeaf.host``)."""
+    if isinstance(t, ShardedLeaf):
+        return t.host()
     return to_numpy(t.detach().contiguous()).copy()
 
 

@@ -41,8 +41,12 @@ batch-norm layer normalizing by the moments of all S blocks
 for one loss over the whole batch, and one ``backward()`` sums every
 shard's gradient into the master leaves before one update.  The shards
 may share a device (virtual records) or not: one code path.  With S = 1
-the batch runs stacked on its one device.  A ``model`` axis replicates
-every leaf, as JAX's ``shard_params`` does on a mesh without one.
+the batch runs stacked on its one device.  On a ``model`` axis the step
+splits the leaves its rules split, as the JAX step's ``shard_params``
+places them: each becomes a :class:`ShardedLeaf` of trainable slices on
+the first data shard's ``model`` group, the other shards' groups get the
+slices by ``.to()``, and the layer's gather carries each slice's
+gradient back.
 """
 
 from __future__ import annotations
@@ -188,6 +192,35 @@ class ShardedLeaf:
                                self.split_dim,
                                self.spec, self._shape)
         return self.full().to(*args, **kwargs)
+
+    def detach(self) -> "ShardedLeaf":
+        return ShardedLeaf([s.detach() for s in self.slices],
+                           self.split_dim, self.spec, self._shape)
+
+    def permute(self, *dims) -> "ShardedLeaf":
+        """Each slice permuted, the split dim and spec following it (a
+        leaf's JAX layout, ``models/convert.py``)."""
+        dims = tuple(dims[0]) if len(dims) == 1 and \
+            isinstance(dims[0], (tuple, list)) else dims
+        spec = tuple(self.spec) + (None,) * (self.ndim - len(self.spec))
+        return ShardedLeaf([s.permute(*dims) for s in self.slices],
+                           dims.index(self.split_dim),
+                           PartitionSpec(*[spec[d] for d in dims]),
+                           [self._shape[d] for d in dims])
+
+    def host(self) -> "ShardedLeaf":
+        """Each slice as an owned numpy array, copied from its own device
+        (bf16 by bit pattern): no gather on one device."""
+        from ..core.buffer import to_numpy
+
+        return ShardedLeaf([s if isinstance(s, np.ndarray) else
+                            to_numpy(s.detach().contiguous()).copy()
+                            for s in self.slices],
+                           self.split_dim, self.spec, self._shape)
+
+    def numpy(self) -> np.ndarray:
+        """The whole leaf of :meth:`host`'s slices, concatenated."""
+        return np.concatenate(self.host().slices, self.split_dim)
 
     def __repr__(self) -> str:
         return (f"ShardedLeaf(shape={tuple(self._shape)}, dim={self.split_dim}, "
@@ -492,20 +525,21 @@ def softmax_xent(logits: torch.Tensor, labels) -> torch.Tensor:
     return -(onehot * logp).sum(dim=-1).mean()
 
 
-def _shard_devices(mesh, data_axis: str) -> List[torch.device]:
-    """The lead ``torch.device`` of each data shard of ``mesh``, in shard
-    order (:func:`data_shard_groups`).  Raises ``ValueError`` for records
+def _shard_groups(mesh, data_axis: str) -> List[List[Any]]:
+    """The device groups of ``mesh``'s data shards, in shard order
+    (:func:`data_shard_groups`): a shard's lead record first, then the
+    rest of its ``model`` group.  Raises ``ValueError`` for records
     another process owns: training across processes is a later item."""
     from .multihost import process_info
 
     rank = process_info()[0]
     groups = data_shard_groups(mesh, (data_axis,))
-    others = sorted({g[0].process_index for g in groups} - {rank})
+    others = sorted({d.process_index for g in groups for d in g} - {rank})
     if others:
         raise ValueError(
             f"train step: mesh {mesh!r} holds data shards of processes "
             f"{others}; the step runs only this process's ({rank})")
-    return [g[0].torch_device for g in groups]
+    return groups
 
 
 def _as_device_tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -517,24 +551,17 @@ def _as_device_tensor(a: Any, device: torch.device) -> torch.Tensor:
     return from_numpy(np.asarray(a), device)
 
 
-def _trainable_tree(tree: Any, device: torch.device,
-                    leaves: List[torch.Tensor]) -> Any:
-    """A copy of ``tree`` on ``device`` whose floating leaves require
-    grad (appended to ``leaves`` in tree order); other leaves are kept
-    as they are."""
+def _tree_copy(tree: Any, device: torch.device) -> Any:
+    """A copy of ``tree`` with its array leaves as tensors on ``device``;
+    other leaves are kept as they are."""
     if isinstance(tree, dict):
-        return {k: _trainable_tree(v, device, leaves)
-                for k, v in tree.items()}
+        return {k: _tree_copy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_trainable_tree(v, device, leaves) for v in tree)
-    if isinstance(tree, (torch.Tensor, np.ndarray, np.generic)):
-        t = tree.detach().to(device).clone() \
-            if isinstance(tree, torch.Tensor) \
-            else _as_device_tensor(np.array(tree), device)
-        if t.is_floating_point():
-            t.requires_grad_(True)
-            leaves.append(t)
-        return t
+        return type(tree)(_tree_copy(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device).clone()
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return _as_device_tensor(np.array(tree), device)
     return tree
 
 
@@ -570,16 +597,42 @@ def make_optimizer(name: str = "sgd", lr: float = 1e-2,
     raise ValueError(f"unknown optimizer {name!r}")
 
 
-def _tree_on(tree: Any, device: torch.device) -> Any:
-    """``tree`` with every tensor leaf ``.to(device)``: differentiable, and
-    the leaf itself where it already lies there."""
+def _leaf_on(leaf: ShardedLeaf, group: Sequence[Any]) -> ShardedLeaf:
+    """A split leaf's slices ``.to()`` the devices of ``group``, slice *j*
+    to its *j*-th: differentiable, and the slice itself where it already
+    lies there."""
+    return ShardedLeaf([t.to(d.torch_device)
+                        for t, d in zip(leaf.slices, group)],
+                       leaf.split_dim, leaf.spec, leaf.shape)
+
+
+def _tree_on(tree: Any, group: Sequence[Any]) -> Any:
+    """``tree`` with every tensor leaf ``.to()`` the group's lead device
+    and every split leaf over the group (:func:`_leaf_on`)."""
     if isinstance(tree, dict):
-        return {k: _tree_on(v, device) for k, v in tree.items()}
+        return {k: _tree_on(v, group) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_on(v, device) for v in tree)
+        return type(tree)(_tree_on(v, group) for v in tree)
+    if isinstance(tree, ShardedLeaf):
+        return _leaf_on(tree, group)
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        return tree.to(group[0].torch_device)
     return tree
+
+
+def _split_leaves(obj: Any) -> List[Tuple[Tuple[str, ...], ShardedLeaf]]:
+    """(owner path, leaf) of every split leaf of a module (the owner's
+    attribute path, the attribute last) or a tree (its keys)."""
+    if isinstance(obj, torch.nn.Module):
+        return [(tuple(f"{name}.{attr}".lstrip(".").split(".")), v)
+                for name, m in obj.named_modules()
+                for attr, v in vars(m).items() if isinstance(v, ShardedLeaf)]
+    if isinstance(obj, ShardedLeaf):
+        return [((), obj)]
+    items = obj.items() if isinstance(obj, dict) else \
+        enumerate(obj) if isinstance(obj, (list, tuple)) else ()
+    return [((str(k),) + path, leaf) for k, v in items
+            for path, leaf in _split_leaves(v)]
 
 
 class _Applied(torch.nn.Module):
@@ -667,6 +720,16 @@ class TrainStep:
     :meth:`apply` runs the forward alone (``train=False``: the stored
     statistics, as the JAX trainer's eval calls the apply), stacked.
 
+    With a ``model`` axis (``groups``: each data shard's lead record, then
+    the rest of its ``model`` group) a leaf split by the step's rules is a
+    :class:`ShardedLeaf` of trainable slices on the first shard's group;
+    shard *k* runs with them ``.to()`` its own group (:func:`_leaf_on`),
+    and the convolutions and products gather after each layer
+    (:class:`ShardedLeaf`), so autograd brings every slice its gradient
+    through the gathers.  Before a shard's thread reads what the caller's
+    streams wrote (its rows, the master leaves the last update wrote), its
+    current streams wait on an event recorded on the caller's.
+
     For measurement: ``record_events`` keeps four CUDA events a step on
     the first shard's device (start, forward done, backward done, update
     done; :meth:`timings`) and, for a split step, the host ms the
@@ -677,13 +740,18 @@ class TrainStep:
     def __init__(self, apply: Callable, params: Any,
                  opt_state: torch.optim.Optimizer,
                  leaves: List[torch.Tensor], loss_fn: Callable,
-                 devices: Sequence[torch.device]):
+                 groups: Sequence[Sequence[Any]],
+                 placement: Optional[MeshParams] = None):
         self.apply = apply
         self.params = params
         self.opt_state = opt_state
         self.leaves = leaves
         self.loss_fn = loss_fn
-        self.devices = list(devices)
+        self.groups = [list(g) for g in groups]
+        #: the rules' placement of the leaves (``specs``), or None without
+        #: a ``model`` axis of more than one device
+        self.placement = placement
+        self.devices = [g[0].torch_device for g in self.groups]
         self.device = self.devices[0]
         self.data_size = len(self.devices)
         self.barrier_timeout = syncbn.BARRIER_TIMEOUT_S
@@ -694,14 +762,17 @@ class TrainStep:
         self.barrier_ms: List[float] = []
         self._shells: Optional[List[_Applied]] = None
         self._threads: Optional[_ShardThreads] = None
+        self._split = _split_leaves(params)
         if self.data_size > 1 and isinstance(params, torch.nn.Module):
             # a shard's module holds no weights of its own: the master
-            # leaves go in at each call (meta: an unswapped leaf raises)
+            # leaves go in at each call (meta: an unswapped leaf raises),
+            # a split leaf's slices as a ShardedLeaf over the shard's group
             self._named = [("model." + n, t) for n, t in
                            list(params.named_parameters())
                            + list(params.named_buffers())]
-            self._shells = [_Applied(apply, copy.deepcopy(params).to("meta"))
-                            for _ in self.devices]
+            self._shells = [_Applied(apply, copy.deepcopy(
+                params, {id(leaf): None for _, leaf in self._split})
+                .to("meta")) for _ in self.devices]
 
     def _event(self):
         if not self.record_events or self.device.type != "cuda":
@@ -710,10 +781,28 @@ class TrainStep:
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
+    def leaf_bytes(self) -> Dict[str, int]:
+        """Bytes of the master leaves on each record of the first shard's
+        group: the whole leaves on its lead, each split leaf's slice *j*
+        on its *j*-th record."""
+        group = self.groups[0]
+        out = {str(d): 0 for d in group}
+        split = {id(t) for _, leaf in self._split for t in leaf.slices}
+        out[str(group[0])] = sum(t.numel() * t.element_size()
+                                 for t in self.leaves if id(t) not in split)
+        for _, leaf in self._split:
+            for t, d in zip(leaf.slices, group):
+                out[str(d)] += t.numel() * t.element_size()
+        return out
+
     def _shard_forward(self, k: int, x: torch.Tensor):
-        dev = self.devices[k]
+        dev, group = self.devices[k], self.groups[k]
         if self._shells is None:
-            return self.apply(_tree_on(self.params, dev), x, train=True)
+            return self.apply(_tree_on(self.params, group), x, train=True)
+        model = self._shells[k].model
+        for path, leaf in self._split:
+            owner = model.get_submodule(".".join(path[:-1]))
+            setattr(owner, path[-1], _leaf_on(leaf, group))
         return torch.func.functional_call(
             self._shells[k], {n: t.to(dev) for n, t in self._named}, (x,))
 
@@ -725,6 +814,12 @@ class TrainStep:
         group = syncbn.ShardGroup(s, self.barrier_timeout)
         streams = [torch.cuda.current_stream(d) if d.type == "cuda"
                    else None for d in self.devices]
+        # the rows and the master leaves, as the caller's streams wrote them
+        ready = {}
+        for d in {d.torch_device for d in self.groups[0]}:
+            if d.type == "cuda":
+                ready[d] = torch.cuda.Event()
+                ready[d].record(torch.cuda.current_stream(d))
         outs: List[Any] = [None] * s
 
         def run(k: int) -> None:
@@ -732,6 +827,8 @@ class TrainStep:
             with group.shard(k), GATE.inside(), _on(dev), \
                     (torch.cuda.stream(streams[k]) if streams[k] is not None
                      else nullcontext()), torch.enable_grad():
+                for d, ev in ready.items():
+                    torch.cuda.current_stream(d).wait_event(ev)
                 outs[k] = self._shard_forward(k, blocks[k].to(dev))
 
         if self._threads is None:
@@ -814,48 +911,77 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
       (``to_jax`` carries it back to a tree).  An ``nn.Module`` as
       ``params`` is trained as a copy.  Any other tree is copied with its
       floating leaves trainable.  The master leaves live on the first
-      data shard's device.
+      data shard's group.
     - The data shards are ``mesh``'s along ``data_axis``
       (:func:`data_shard_groups`); over more than one the step splits
       (:class:`TrainStep`), on any placement of their records.
+    - ``rules`` places the leaves as the JAX ``shard_params`` does: on a
+      ``model`` axis of M > 1 devices, a leaf it splits whose split dim
+      divides by M becomes M trainable slices, one on each device of the
+      first data shard's ``model`` group (:class:`MeshParams`, the step's
+      ``placement``); every other leaf, and every leaf of a mesh without
+      a ``model`` axis, stays whole.
     - ``optimizer(leaves) -> torch.optim.Optimizer`` builds the update
       (default: :func:`make_optimizer`'s sgd, lr 1e-2, momentum 0.9, as
-      the JAX default ``optax.sgd(1e-2, momentum=0.9)``); it is the
-      returned ``opt_state``.
-    - ``rules`` is accepted for the JAX signature: every leaf stays
-      whole (a ``model`` axis replicates).
+      the JAX default ``optax.sgd(1e-2, momentum=0.9)``) over the whole
+      leaves and the slices; it is the returned ``opt_state``.
 
     Raises ``ValueError`` for a mesh holding another process's records
-    (:func:`_shard_devices`)."""
-    del rules  # every leaf replicated (module docstring)
+    (:func:`_shard_groups`)."""
     from ..models.convert import tree_module_of
 
-    devices = _shard_devices(mesh, data_axis)
-    device = devices[0]
+    groups = _shard_groups(mesh, data_axis)
+    device = groups[0][0].torch_device
     entry = tree_module_of(apply_fn) \
         if not isinstance(params, torch.nn.Module) else None
     if isinstance(params, torch.nn.Module):
-        model = copy.deepcopy(params).to(device)
-        leaves = _module_leaves(model)
-        params, apply = model, apply_fn
+        params, apply = copy.deepcopy(params).to(device), apply_fn
     elif entry is not None:
         build, apply = entry
-        model = build(params).to(device)
-        leaves = _module_leaves(model)
-        params = model
+        params = build(params).to(device)
     else:
-        leaves = []
-        params = _trainable_tree(params, device, leaves)
+        params = _tree_copy(params, device)
         apply = apply_fn
+    placement = None
+    model_axis = "model" if "model" in mesh.axis_names \
+        and data_axis != "model" else ""
+    if model_axis and len(groups[0]) > 1:
+        # the master leaves split in place over the first group
+        placement = MeshParams(params, rules, model_axis,
+                               place=lambda obj, dev: obj)
+        params = placement.tree(groups[0])
+    leaves = _trainable_leaves(params)
     opt_state = (optimizer or make_optimizer())(leaves)
-    step = TrainStep(apply, params, opt_state, leaves, loss_fn, devices)
+    step = TrainStep(apply, params, opt_state, leaves, loss_fn, groups,
+                     placement)
     return step, params, opt_state
 
 
-def trained_tree(params: Any) -> Any:
+def _trainable_leaves(obj: Any) -> List[torch.Tensor]:
+    """Every floating leaf of a module or a tree, a split leaf's slices in
+    its place (a module's after its own leaves), made trainable."""
+    if isinstance(obj, ShardedLeaf):
+        return [t.requires_grad_(True) for t in obj.slices]
+    if isinstance(obj, torch.nn.Module):
+        return _module_leaves(obj) + [t.requires_grad_(True)
+                                      for _, leaf in _split_leaves(obj)
+                                      for t in leaf.slices]
+    if isinstance(obj, (dict, list, tuple)):
+        values = obj.values() if isinstance(obj, dict) else obj
+        return [t for v in values for t in _trainable_leaves(v)]
+    if isinstance(obj, torch.Tensor) and obj.is_floating_point():
+        return [obj.requires_grad_(True)]
+    return []
+
+
+def trained_tree(params: Any, gather: bool = True) -> Any:
     """The JAX-layout numpy tree of a step's ``params``: a module through
     its inverse (``models.convert.MODULE_TO_JAX``), a tree leaf by leaf
-    (owned copies, so later steps do not write into it)."""
+    (owned copies, so later steps do not write into it).  A leaf split
+    over the ``model`` axis is gathered into one array, or, without
+    ``gather``, kept as a :class:`ShardedLeaf` of host slices (each copied
+    from its own device), which the orbax writer stores a chunk a
+    slice."""
     from ..core.buffer import to_numpy
     from ..models.convert import MODULE_TO_JAX
 
@@ -864,11 +990,13 @@ def trained_tree(params: Any) -> Any:
         if to_jax is None:
             raise ValueError(f"no JAX-layout inverse for module "
                              f"{type(params).__name__}")
-        return to_jax(params)
+        return trained_tree(to_jax(params), gather)
     if isinstance(params, dict):
-        return {k: trained_tree(v) for k, v in params.items()}
+        return {k: trained_tree(v, gather) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        return type(params)(trained_tree(v) for v in params)
+        return type(params)(trained_tree(v, gather) for v in params)
+    if isinstance(params, ShardedLeaf):
+        return params.numpy() if gather else params.host()
     if isinstance(params, torch.Tensor):
         return to_numpy(params.detach().contiguous()).copy()
     return params

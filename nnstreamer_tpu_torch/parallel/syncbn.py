@@ -11,14 +11,21 @@ models passes through :func:`batch_moments`
 when the calling thread runs a shard of a :class:`ShardGroup`.
 
 One exchange a layer: each shard posts ``(n_k, mean_k, var_k)`` from one
-``torch.var_mean`` of its rows and waits at the group's barrier; then
-each shard copies every posted pair to its own device and combines them
-by Chan's formula,
+``torch.var_mean`` of its rows, with a CUDA event recorded behind it on
+the poster's stream where the rows lie on a card, and waits at the
+group's barrier; then each shard copies every posted pair to its own
+device and combines them by Chan's formula,
 
     μ  = Σ n_k·mean_k / N
     σ² = Σ n_k·(var_k + (mean_k − μ)²) / N,
 
-the global batch's mean and population variance.  All of it is torch ops
+the global batch's mean and population variance.  A copy is ordered only
+against the copying thread's current stream on the source device, and
+the poster's kernels run on its own (a split step runs each shard on its
+caller's current stream: ``parallel/sharded.py``), so the reader's
+current stream on the poster's device waits on the poster's event before
+the copy, and the posted tensors are marked in use on that stream.  All
+of it is torch ops
 and ``.to()`` copies, so autograd carries each shard's gradient through
 the other shards' statistics; no backward is written by hand.
 
@@ -128,8 +135,12 @@ class ShardGroup:
                 dims: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
         n = math.prod(y32.shape[d] for d in dims)
         var, mean = torch.var_mean(y32, dim=dims, correction=0)
+        ready = None
+        if mean.is_cuda:    # behind the kernels of this shard's stream
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(mean.device))
         row = self._rows[layer % 2]
-        row[index] = (n, mean, var)
+        row[index] = (n, mean, var, ready)
         self._posted[index] = layer
         t0 = time.perf_counter()
         try:
@@ -141,10 +152,21 @@ class ShardGroup:
         dev = mean.device
         ns = [p[0] for p in row]
         w = self._weights_on(dev, ns)
-        m = torch.stack([p[1].to(dev) for p in row])
-        v = torch.stack([p[2].to(dev) for p in row])
+        m = torch.stack([_fetch(p[1], p[3], dev) for p in row])
+        v = torch.stack([_fetch(p[2], p[3], dev) for p in row])
         mu = (w * m).sum(0)
         return mu, (w * (v + (m - mu) ** 2)).sum(0)
+
+
+def _fetch(t: torch.Tensor, ready, dev: torch.device) -> torch.Tensor:
+    """``t``, posted by another shard, on ``dev``: the calling thread's
+    current stream on ``t``'s card waits for the poster's event first (a
+    host tensor needs none)."""
+    if ready is not None:
+        stream = torch.cuda.current_stream(t.device)
+        stream.wait_event(ready)
+        t.record_stream(stream)
+    return t.to(dev)
 
 
 def batch_moments(y32: torch.Tensor, dims: Tuple[int, ...]

@@ -6,14 +6,17 @@ Counterpart of the JAX package's ``trainers/checkpoint.py``
 - file paths (``.pkl``) hold the ``torch-cuda`` filter's model dict
   (``apply``, ``params``, ``in_shapes``, ``in_dtypes``), so an inference
   pipeline loads the trained model directly;
-- directory paths: the port writes one ``params.safetensors``
-  (``models/params_io.py``) with the JAX-layout tree.  :func:`load_dir`
-  reads that, and also the JAX package's orbax steps (``_METADATA``
-  beside an OCDBT ``manifest.ocdbt``, or per-file zarr arrays), without
-  orbax: ``trainers/orbax_format.py`` over ``trainers/ocdbt.py`` and the
-  zstd decoder of ``native/nns_zstd.cc`` (built with g++ on first use).
+- directory paths hold an orbax step, as the JAX trainer's do: the port
+  writes the layout of orbax's ``StandardCheckpointer``
+  (``trainers/orbax_write.py``: ``_METADATA`` beside an OCDBT
+  ``manifest.ocdbt``, zarr v2 arrays), which the JAX package's
+  ``load_orbax`` reads.  :func:`load_dir` reads those, the JAX package's
+  own (also per-file zarr arrays), and the port's older steps, one
+  ``params.safetensors`` (``models/params_io.py``), all without orbax:
+  ``trainers/orbax_format.py`` over ``trainers/ocdbt.py`` and the zstd
+  decoder of ``native/nns_zstd.cc`` (built with g++ on first use).
   Which format a directory holds is read from the files it holds, never
-  from its name.  The port does not write orbax.
+  from its name.
 
 Step layout: a checkpoint ROOT directory holds numbered step
 subdirectories (``root/100/``, ``root/200/``, …).  The step helpers
@@ -21,21 +24,21 @@ subdirectories (``root/100/``, ``root/200/``, …).  The step helpers
 references (``filters/modeluri.py``) to a step directory and its version
 tag, which is how a serving pool's hot-swap path
 (``runtime/lifecycle.py``) loads the newest trained weights, from a port
-step or a JAX one.  :func:`save_step` writes a new step whole before it
-appears under its number, so ``root@latest`` never names a step still
-being written.
+step or a JAX one.  :func:`save_dir` and :func:`save_step` write a step
+whole in a hidden directory of its root and rename it to its name, so
+``root@latest`` never names a step still being written, in either
+package.
 """
 
 from __future__ import annotations
 
 import os
-import shutil
-import tempfile
 from typing import Any, List, Optional, Tuple
 
-from ..models.params_io import load_safetensors, save_safetensors
+from ..models.params_io import load_safetensors
+from .orbax_write import save_orbax
 
-#: the one file of a step directory
+#: the one file of a step directory of PRs before the port wrote orbax
 STEP_FILE = "params.safetensors"
 
 
@@ -93,42 +96,27 @@ def resolve_step_dir(root: str, tag: str) -> Tuple[str, str]:
 
 
 def save_dir(path: str, tree: Any) -> str:
-    """Write ``tree`` as the directory ``path``'s ``params.safetensors``
-    (through a temporary file, so a reader sees the old file or the new
-    one)."""
-    os.makedirs(path, exist_ok=True)
-    final = os.path.join(path, STEP_FILE)
-    tmp = final + ".tmp"
-    save_safetensors(tmp, tree)
-    os.replace(tmp, final)
-    return path
+    """Write ``tree`` as the orbax step directory ``path``
+    (``orbax_write.save_orbax``: written whole beside it and renamed into
+    place, replacing what was there), as the JAX trainer's ``save_orbax``
+    does.  Leaves split over the ``model`` axis are written a chunk a
+    slice."""
+    return save_orbax(path, tree)
 
 
 def save_step(root: str, step: int, tree: Any) -> str:
     """Save one training step under the step layout (``root/<step>/``)
     and return its directory — the producer side of the ``root@latest``
-    hot-swap reference.  A new step is written in a hidden directory and
-    renamed to its number once whole."""
-    path = step_dir(root, step)
-    if os.path.isdir(path):
-        return save_dir(path, tree)
-    os.makedirs(root, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix=f".step-{int(step)}-", dir=root)
-    try:
-        save_dir(tmp, tree)
-        os.rename(tmp, path)
-    except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise
-    return path
+    hot-swap reference, the JAX package's ``save_orbax_step``."""
+    return save_dir(step_dir(root, step), tree)
 
 
 def load_dir(path: str, template: Optional[Any] = None) -> Any:
-    """The tree a step directory holds: the port's ``params.safetensors``,
-    or a JAX orbax step (``orbax_format.load_orbax``; ``template`` gives
-    each leaf its dtype there, as the JAX trainer's resume does, and is
-    not used for a port step).  Raises ``ValueError`` for a directory
-    that holds neither."""
+    """The tree a step directory holds: an orbax step, the port's or the
+    JAX package's (``orbax_format.load_orbax``; ``template`` gives each
+    leaf its dtype there, as the JAX trainer's resume does), or an older
+    port step's ``params.safetensors`` (``template`` not used).  Raises
+    ``ValueError`` for a directory that holds neither."""
     file = os.path.join(path, STEP_FILE)
     if os.path.isfile(file):
         return load_safetensors(file)[0]
@@ -138,4 +126,4 @@ def load_dir(path: str, template: Optional[Any] = None) -> Any:
         return load_orbax(path, template)
     raise ValueError(
         f"{path!r} is not a step directory: it holds neither {STEP_FILE} "
-        "(a step of this port) nor _METADATA (a JAX orbax step)")
+        "(an older step of this port) nor _METADATA (an orbax step)")

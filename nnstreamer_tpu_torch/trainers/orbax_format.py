@@ -28,9 +28,11 @@ true``, a compressor other than zstd or none, ``filters``, order ``F``.
 nested dicts and lists of numpy arrays (0-d arrays stay 0-d), scalars as
 Python numbers, except that a bf16 leaf is a ``torch.bfloat16`` tensor as
 in ``models/params_io.py`` (numpy has no bf16 of its own).  With a
-template, each leaf takes the template's dtype; where the template's
-structure differs from the step's, it raises as orbax raises, and a
-leaf's stored shape wins over the template's, as orbax's does.
+template, each leaf takes the template's dtype (a Python number in the
+template makes the leaf a number of its type, as orbax's restore does);
+where the template's structure differs from the step's, it raises as
+orbax raises, and a leaf's stored shape wins over the template's, as
+orbax's does.
 """
 
 from __future__ import annotations
@@ -251,6 +253,11 @@ def _cast(leaf: Any, like: Any, where: str) -> Any:
     """``leaf`` in the dtype of the template leaf ``like``."""
     if like is None:
         return None
+    if isinstance(like, (dict, list, tuple)):      # an empty node
+        return leaf
+    if isinstance(like, (bool, int, float)) and \
+            not isinstance(like, np.generic):   # a number: its type, as orbax
+        return type(like)(leaf.item() if hasattr(leaf, "item") else leaf)
     dt = getattr(like, "dtype", None)
     if dt is None:
         raise OrbaxFormatError(f"template leaf {where} has no dtype: "

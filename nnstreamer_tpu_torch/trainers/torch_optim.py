@@ -26,7 +26,9 @@ pipeline asks for it; without a card a CUDA pipeline's trainer raises.
   virtual records when set); its first data shard must lead on the
   pipeline's device, where the batch is stacked.  Over S > 1 data
   shards the step splits, with the batch statistics over all of them
-  (``parallel/sharded.py``, ``parallel/syncbn.py``)
+  (``parallel/sharded.py``, ``parallel/syncbn.py``); a ``model`` axis
+  of M > 1 splits the pointwise convolutions and the dense head into M
+  slices over each shard's ``model`` group, as the JAX step places them
 - ``seed``    — seed for init (default 0)
 
 Training runs on a worker thread, so ``push_data`` blocks only when the
@@ -38,8 +40,10 @@ on before it reads it.
 
 The saved model (``model-save-path``): a ``.pkl`` dict (``apply``, the
 JAX-layout ``params`` tree, ``in_shapes``, ``in_dtypes``) the
-``torch-cuda`` filter loads with ``model=<path>.pkl``, or a step
-directory (``trainers/checkpoint.py``) for a directory path.  The eval
+``torch-cuda`` filter loads with ``model=<path>.pkl``, or, for a
+directory path, an orbax step the JAX package's ``load_orbax`` reads
+(``trainers/checkpoint.py``, ``trainers/orbax_write.py``), a split
+leaf written a chunk a slice.  The eval
 (``training_accuracy``, the validation numbers) runs the apply without
 ``train``, on the stored ``mean``/``var`` leaves that training never
 sets — as the JAX trainer does.
@@ -241,20 +245,23 @@ class TorchOptimTrainer(TrainerSubplugin):
         with self._status_lock:
             return dict(self._status)
 
-    def trained_params(self) -> Any:
+    def trained_params(self, gather: bool = True) -> Any:
         """The current weights as a JAX-layout numpy tree (the
-        configured tree before the first step)."""
+        configured tree before the first step); without ``gather`` a leaf
+        split over the ``model`` axis stays in slices
+        (``parallel.sharded.trained_tree``)."""
         if self.built is None:
             return self._params
         from ..parallel.sharded import trained_tree
 
-        return trained_tree(self.built[2])
+        return trained_tree(self.built[2], gather)
 
     def save(self, path: str) -> None:
         from .checkpoint import is_dir_path, save_dir
 
         if is_dir_path(path):
-            save_dir(path, self.trained_params())
+            # an orbax step, split leaves a chunk a slice, as jax-optax's
+            save_dir(path, self.trained_params(gather=False))
             return
         if not self._apply_path:
             raise TrainerError(

@@ -24,6 +24,12 @@
    trainer's orbax directory, and a port pool's weights-only swap into a
    JAX-written ``root@latest`` serving, bit for bit, the logits the same
    tree gives from a safetensors step.
+6. The other direction: the port writes orbax (``save_dir``/``save_step``,
+   its ``torch-optim`` trainer's directory save), the JAX package reads
+   it: a ``jax-optax`` trainer resumes from a port trainer's step, and a
+   JAX pool's weights-only swap into a port-written ``root@latest``
+   serves, bit for bit, the logits a JAX-written root of the same tree
+   serves.
 """
 
 import os
@@ -43,6 +49,7 @@ from nnstreamer_tpu_torch.elements.filter import TensorFilter
 from nnstreamer_tpu_torch.filters import modeluri as tmodeluri
 from nnstreamer_tpu_torch.models import convert
 from nnstreamer_tpu_torch.models import mobilenet as tmb
+from nnstreamer_tpu_torch.models.params_io import save_safetensors
 from nnstreamer_tpu_torch.runtime import Pipeline as TPipeline
 from nnstreamer_tpu_torch.runtime.events import Event
 from nnstreamer_tpu_torch.runtime.lifecycle import LifecycleError
@@ -290,7 +297,9 @@ def test_pool_swaps_into_a_jax_orbax_root_latest(tmp_path):
     jroot, troot = tmp_path / "jax_ckpts", tmp_path / "port_ckpts"
     jck.save_orbax_step(str(jroot), 3, tree0)
     jck.save_orbax_step(str(jroot), 40, tree1)
-    tck.save_step(str(troot), 40, tree1)
+    # an older port step: one params.safetensors, still read
+    os.makedirs(troot / "40")
+    save_safetensors(str(troot / "40" / tck.STEP_FILE), tree1)
     got = {}
     for name, root in (("orbax", jroot), ("safetensors", troot)):
         p = TPipeline(name=f"ck-orbax-{name}", device="cpu")
@@ -315,3 +324,110 @@ def test_pool_swaps_into_a_jax_orbax_root_latest(tmp_path):
     want = convert.mobilenet_v1_tree_apply(
         tree1, torch.from_numpy(x), dtype="float32").detach()
     torch.testing.assert_close(got["orbax"], want, rtol=0, atol=0)
+
+
+# -- 6. port steps read by the JAX package ---------------------------------------
+
+
+def _jax_train_from(save_path, load_path, lr, n=16):
+    """``_jax_train`` resuming from ``load_path`` at ``lr``."""
+    from nnstreamer_tpu.core import Buffer, TensorsSpec
+    from nnstreamer_tpu.elements.basic import AppSink, AppSrc
+    from nnstreamer_tpu.runtime import Pipeline
+    from nnstreamer_tpu.runtime.registry import make
+
+    p = Pipeline()
+    src = AppSrc(name="src", spec=TensorsSpec.parse("4:1,1:1",
+                                                    "float32,int32"))
+    trn = make("tensor_trainer", el_name="trn", framework="jax-optax",
+               model_config={
+                   "apply": "test_torch_checkpoint:ck_tree_apply",
+                   "init": {"w": np.zeros((4, 2), np.float32),
+                            "b": np.zeros((2,), np.float32)},
+                   "batch_size": 8, "lr": lr, "mesh": "data:-1"},
+               model_save_path=save_path, model_load_path=load_path,
+               num_inputs=1, num_labels=1, num_training_samples=n, epochs=1)
+    snk = AppSink(name="out", max_buffers=2 * n + 8)
+    p.add(src, trn, snk).link(src, trn, snk)
+    rng = np.random.default_rng(1)
+    with p:
+        for _ in range(n):
+            x = rng.standard_normal((1, 4)).astype(np.float32)
+            y = np.array([[int(x.sum() > 0)]], np.int32)
+            src.push_buffer(Buffer.of(x, y))
+        src.end_of_stream()
+        assert p.wait_eos(timeout=180)
+
+
+def test_jax_trainer_resumes_from_a_port_trainer_step(tmp_path):
+    """The port's trainer saves a directory (an orbax step); the JAX
+    ``jax-optax`` trainer resumes from it: at lr 0 it saves the port's
+    tree bit for bit (read by both packages), at lr 0.5 it trains on."""
+    ck = str(tmp_path / "port_ck")
+    _train(ck)
+    assert os.path.isfile(os.path.join(ck, "_METADATA"))
+    assert not os.path.exists(os.path.join(ck, tck.STEP_FILE))
+    port = tck.load_dir(ck)
+    assert np.abs(port["w"]).sum() > 0
+    _bits_equal(jck.load_orbax(ck), port)
+    _jax_train_from(str(tmp_path / "kept"), ck, 0.0)
+    _bits_equal(jck.load_orbax(str(tmp_path / "kept")), port)
+    _bits_equal(tck.load_dir(str(tmp_path / "kept")), port)
+    _jax_train_from(str(tmp_path / "on"), ck, 0.5)
+    again = np.asarray(jck.load_orbax(str(tmp_path / "on"))["w"])
+    assert np.isfinite(again).all() and not np.array_equal(again, port["w"])
+
+
+def test_jax_pool_swaps_into_a_port_root_latest(tmp_path):
+    """``test_pool_swaps_into_a_jax_orbax_root_latest`` with the roles
+    exchanged: a JAX pool serving a MobileNetV1 ``.pkl`` reloads
+    ``root@latest`` of a root the port wrote (``save_step``) and serves,
+    bit for bit, the logits the same tree serves from a JAX-written
+    root, tag = the step."""
+    from nnstreamer_tpu.core import Buffer, TensorsSpec
+    from nnstreamer_tpu.elements.basic import AppSink, AppSrc
+    from nnstreamer_tpu.elements.filter import TensorFilter as JFilter
+    from nnstreamer_tpu.filters.jax_xla import save_params_model
+    from nnstreamer_tpu.runtime import Pipeline
+    from nnstreamer_tpu.runtime.events import Event as JEvent
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((1, 32, 32, 3)).astype(np.float32)
+    tree0 = tmb.mobilenet_v1_init(0, 10, 0.25)
+    tree1 = tmb.mobilenet_v1_init(1, 10, 0.25)
+    model = str(tmp_path / "mnv1.pkl")
+    save_params_model(model, "nnstreamer_tpu.models.mobilenet:"
+                             "mobilenet_v1_apply", tree0,
+                      in_shapes=[(1, 32, 32, 3)], in_dtypes="float32")
+    troot, jroot = tmp_path / "port_ckpts", tmp_path / "jax_ckpts"
+    tck.save_step(str(troot), 3, tree0)
+    tck.save_step(str(troot), 40, tree1)
+    assert sorted(os.listdir(troot)) == ["3", "40"]  # no hidden leftovers
+    jck.save_orbax_step(str(jroot), 40, tree1)
+    got = {}
+    for name, root in (("port", troot), ("jax", jroot)):
+        p = Pipeline(name=f"ck-jax-{name}")
+        src = AppSrc(name="src", spec=TensorsSpec.from_shapes(
+            [(1, 32, 32, 3)], np.float32))
+        flt = JFilter(name="net", framework="jax-xla", model=model,
+                      share_model=True, is_updatable=True)
+        sink = AppSink(name="sink", max_buffers=8)
+        p.add(src, flt, sink).link(src, flt, sink)
+        with p:
+            flt.handle_event(None, JEvent.reload_model(f"{root}@latest"))
+            assert flt.pool.lifecycle.baseline.tag == "40"
+            src.push_buffer(Buffer.of(x, pts=0))
+            out = sink.pull(timeout=60)
+            src.end_of_stream()
+            assert p.wait_eos(timeout=60)
+        assert out is not None
+        got[name] = np.asarray(out.tensors[0].np())
+    assert got["port"].tobytes() == got["jax"].tobytes()
+    # the step's weights, not the .pkl's: within 1e-4 of the step's tree
+    # alone, over 1e-3 from the .pkl's (their logits lie 7e-3 apart)
+    from nnstreamer_tpu.models.mobilenet import mobilenet_v1_apply
+
+    alone = np.asarray(mobilenet_v1_apply(tree1, x))
+    np.testing.assert_allclose(got["port"], alone, rtol=0, atol=1e-4)
+    assert np.abs(np.asarray(mobilenet_v1_apply(tree0, x))
+                  - got["port"]).max() > 1e-3

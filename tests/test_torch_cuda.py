@@ -66,7 +66,9 @@ training on the card with the losses of the same samples on the CPU.
 The split step (``parallel/syncbn.py``) across distinct devices: ``data:2``
 over a card record and a ``cpu`` record against the stacked card step at
 the same limits (sgd, adam), and ``data:2`` over two real cards, skipped
-where the machine has fewer, naming the count.
+where the machine has fewer, naming the count; the card + ``cpu`` split
+with the caller on a side stream behind spin kernels, bit-equal to the
+default streams.
 The importers on the card (files from ``tests/torch_model_files.py`` at
 width 0.25, 96x96): the ONNX QLinear MobileNetV2 in its integer modes
 (int8, dequant, bf16) and the TFLite one in ``dequant`` give the CPU's
@@ -75,6 +77,7 @@ within 1e-5; the native codec loads and encodes a card buffer's bytes as
 the Python path does.
 """
 
+import contextlib
 import os
 import time
 
@@ -1867,6 +1870,101 @@ def test_train_step_split_over_two_cards_matches_stacked(card, monkeypatch):
     lp, tp, step = _split_small_run(recs, "sgd")
     assert step.devices == [torch.device("cuda", 0), torch.device("cuda", 1)]
     _hold_split_leaves(lp, tp, ls, ts, "sgd")
+
+
+#: cycles of each spin kernel of the side-stream test (about 10 ms)
+SIDE_SPIN_CYCLES = 20_000_000
+
+
+def _spin_apply(params, x, train=False):
+    """Two normalized layers of a small model; on a card shard a spin
+    kernel runs ahead of each ``batch_moments``, so that a shard reading
+    the card shard's moments unordered reads memory not yet written."""
+    from nnstreamer_tpu_torch.parallel import syncbn
+
+    h = x @ params["w1"]
+    if h.is_cuda:
+        torch.cuda._sleep(SIDE_SPIN_CYCLES)
+    mean, var = syncbn.batch_moments(h, (0,))
+    h = torch.relu((h - mean) * torch.rsqrt(var + 1e-3)) @ params["w2"]
+    if h.is_cuda:
+        torch.cuda._sleep(SIDE_SPIN_CYCLES)
+    mean, var = syncbn.batch_moments(h, (0,))
+    return (h - mean) * torch.rsqrt(var + 1e-3) + params["b"]
+
+
+def _side_run(model, recs, side):
+    """3 sgd steps of ``model`` over ``data:2`` of ``recs``, the caller
+    inside ``torch.cuda.stream(side)`` with a spin kernel on it ahead of
+    each step (``side`` None: the default streams); (losses, tree)."""
+    import functools
+
+    from nnstreamer_tpu_torch.models import convert, mobilenet
+    from nnstreamer_tpu_torch.parallel import mesh, sharded
+    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+    rng = np.random.default_rng(12)
+    if model == "spin":
+        apply = _spin_apply
+        tree = {"w1": rng.standard_normal((64, 32)).astype(np.float32) * .1,
+                "w2": rng.standard_normal((32, 10)).astype(np.float32) * .1,
+                "b": np.zeros(10, np.float32)}
+        xs = rng.standard_normal((3, 16, 64)).astype(np.float32)
+    else:
+        apply = functools.partial(convert.mobilenet_v1_tree_apply,
+                                  dtype=torch.float32)
+        tree = mobilenet.mobilenet_v1_init(0, 10, 0.25)
+        xs = rng.standard_normal((3, 16, 32, 32, 3)).astype(np.float32)
+    ys = rng.integers(0, 10, (3, 16)).astype(np.int32)
+    step, p, o = sharded.train_step(
+        mesh.make_mesh("data:2", recs), apply, tree,
+        optimizer=_make_optimizer({"optimizer": "sgd", "lr": 1e-2}))
+    losses = []
+    ctx = torch.cuda.stream(side) if side is not None else \
+        contextlib.nullcontext()
+    with ctx:
+        for x, y in zip(xs, ys):
+            if side is not None:
+                torch.cuda._sleep(SIDE_SPIN_CYCLES)
+            p, o, loss = step(p, o, x, y)
+            losses.append(float(loss))
+    torch.cuda.synchronize()
+    step.close()
+    return losses, sharded.trained_tree(p)
+
+
+@pytest.mark.parametrize("model", ["spin", "mobilenet"])
+def test_split_step_on_a_side_stream_equals_the_default_stream(
+        card, model, monkeypatch):
+    """The split step over a card record and a ``cpu`` record with the
+    caller inside ``torch.cuda.stream(side)`` and a spin kernel on it
+    ahead of the forward (and, for ``spin``, ahead of each moment): the
+    ``cpu`` shard's thread reads the card shard's rows, leaves and
+    moments through its own streams, which wait on the caller's and the
+    poster's events (``parallel/syncbn.py``, ``parallel/sharded.py``).
+    ``spin``'s losses and leaves equal the default-stream run's bit for
+    bit (the side run goes first, so no block it reads can hold the
+    default run's values; without the poster's event its losses go NaN).
+    MobileNetV1 is held at the split step's limits: a leaf it reads
+    twice on the card shard gets three gradient terms, two from the card
+    and one from the ``cpu`` shard, and autograd adds them in the order
+    its device threads deliver them, so two default-stream runs differ
+    in the last bits too."""
+    from nnstreamer_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    recs = [mesh.Device("cuda", 0, 0, torch.device("cuda", 0)),
+            mesh.Device("cpu", 1, 0, torch.device("cpu"))]
+    ls, ts = _side_run(model, recs, torch.cuda.Stream())
+    ld, td = _side_run(model, recs, None)
+    if model == "mobilenet":
+        _hold_split_leaves(ls, ts, ld, td, "sgd")
+        return
+    assert ls == ld
+    for a, b in zip(_tree_leaves(ts), _tree_leaves(td)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
 def test_trainer_on_card_with_side_stream_samples(card, monkeypatch):

@@ -17,14 +17,27 @@
    a leaf); a ``use_ocdbt=False`` save; a JAX ``tensor_trainer`` step;
    templates (dtype casts; a structure mismatch raises where orbax
    raises; a shape mismatch keeps the stored shape, as orbax does).
-4. The tests' own writer (``tests/torch_orbax_files.py``, which phase 22
-   of ``chip_smoke.py`` uses) held against orbax's restore: a chunk grid
-   that does not divide the shape, missing chunks, bf16 torch leaves.
+4. The tests' writer (``tests/torch_orbax_files.py``: the package's
+   encoder with per-leaf chunk shapes and missing chunks) held against
+   orbax's restore: a chunk grid that does not divide the shape, missing
+   chunks, bf16 torch leaves.
 5. The committed step ``tests/data/orbax_step/`` (JAX ``save_orbax`` of
    ``torch_orbax_files.fixture_tree()``): multi-block frames with Huffman
    literals and FSE sequences, read bit-equal to the seeded tree.
 6. Refusals, each naming its field: zarr v3, other compressors,
    ``filters``, order F; a directory of neither format.
+7. The port's writer (``trainers/orbax_write.py``, ``save_dir`` and
+   ``save_step``): orbax's restore (the JAX package's ``load_orbax``)
+   reads every leaf it writes bit for bit, with and without a template,
+   as it reads the same tree saved by the JAX package — every dtype the
+   reader reads, bf16 torch tensors, 0-d arrays, Python scalars, nested
+   lists, empty nodes —, a trained MobileNetV1 tree, a leaf split over
+   ``model`` written a chunk a slice; the port's reader reads each such
+   step equal to what was written; the writer never writes a form the
+   reader refuses (zarr v3, another compressor, filters, order F);
+   a step root written half by each package, where both packages'
+   ``latest_step`` pick the highest step; the write replaces a step
+   whole and leaves nothing hidden behind.
 """
 
 import json
@@ -43,12 +56,15 @@ from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
 import torch_orbax_files as W
+from nnstreamer_tpu.trainers import checkpoint as jck
 from nnstreamer_tpu.trainers.checkpoint import load_orbax as jload_orbax
 from nnstreamer_tpu.trainers.checkpoint import save_orbax
 from nnstreamer_tpu_torch import nativelib
 from nnstreamer_tpu_torch.trainers import checkpoint as tck
 from nnstreamer_tpu_torch.trainers.ocdbt import Ocdbt, OcdbtError
-from nnstreamer_tpu_torch.trainers.orbax_format import OrbaxFormatError
+from nnstreamer_tpu_torch.trainers import orbax_write as OW
+from nnstreamer_tpu_torch.trainers.orbax_format import (OrbaxFormatError,
+                                                        load_orbax)
 
 zstandard = pytest.importorskip("zstandard")
 
@@ -581,3 +597,222 @@ def test_zarr3_and_neither_format_refused(tmp_path):
     empty.mkdir()
     with pytest.raises(ValueError, match="params.safetensors.*_METADATA"):
         tck.load_dir(str(empty))
+
+
+# -- 7. the port's writer --------------------------------------------------------
+
+
+def _port_tree(rng):
+    """``_dtypes_tree`` as the port holds it: bf16 as a torch tensor, no
+    JAX arrays; and the same tree with those leaves as JAX arrays."""
+    tree = _dtypes_tree(rng)
+    bf = np.array(tree["bf16"])
+    tree["bf16"] = torch.from_numpy(bf.view(np.int16)).view(torch.bfloat16)
+    tree["scalars"]["jax"] = np.float32(3.25)
+    jtree = dict(tree, bf16=jnp.asarray(bf),
+                 scalars=dict(tree["scalars"], jax=jnp.float32(3.25)))
+    return tree, jtree
+
+
+def _as_port(tree):
+    """An orbax restore with each numpy bf16 leaf as the port's torch
+    bf16 tensor of the same bits (``assert_same``'s form of ``got``)."""
+    if isinstance(tree, dict):
+        return {k: _as_port(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_port(v) for v in tree]
+    if getattr(tree, "dtype", None) is not None and \
+            str(tree.dtype) == "bfloat16":
+        return torch.from_numpy(np.asarray(tree).view(np.int16)).view(
+            torch.bfloat16)
+    return tree
+
+
+def _template(tree):
+    return {k: _template(v) if isinstance(v, dict) else
+            [_template(x) if isinstance(x, dict) else x for x in v]
+            if isinstance(v, list) else
+            jnp.zeros(v.shape, jnp.bfloat16) if isinstance(v, torch.Tensor)
+            else v for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("with_template", [False, True])
+def test_port_steps_read_by_orbax_bit_for_bit(tmp_path, with_template):
+    """The port's step and the JAX package's step of one tree: orbax's
+    restore gives the same leaves from both, bit for bit, in the same
+    structure and types; the port's reader reads the port's step as
+    orbax does."""
+    tree, jtree = _port_tree(np.random.default_rng(0))
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tck.save_dir(port, tree) == port
+    save_orbax(ref, jtree)
+    template = _template(tree) if with_template else None
+    want = restore(ref, template)
+    assert_same(_as_port(restore(port, template)), want)
+    assert_same(tck.load_dir(port, template), want)
+    assert_same(load_orbax(port), restore(ref))
+
+    def value_types(path):
+        meta = json.load(open(os.path.join(path, "_METADATA")))
+        return {k: v["value_metadata"]["value_type"]
+                for k, v in meta["tree_metadata"].items()}
+
+    # the port writes its arrays as numpy arrays, where JAX's are jax.Array
+    assert value_types(port) == {
+        k: "np.ndarray" if t == "jax.Array" else t
+        for k, t in value_types(ref).items()}
+
+
+def test_port_step_of_a_trained_mobilenet(tmp_path):
+    """A tree the port trains (``trained_tree`` after two steps) through
+    ``save_step``: orbax's restore and the port's reader give it bit for
+    bit."""
+    import functools
+
+    from nnstreamer_tpu_torch.models import convert
+    from nnstreamer_tpu_torch.models import mobilenet as tmb
+    from nnstreamer_tpu_torch.parallel import mesh as tmesh
+    from nnstreamer_tpu_torch.parallel import sharded as tsharded
+
+    rng = np.random.default_rng(4)
+    step, tp, to = tsharded.train_step(
+        tmesh.make_mesh("data:1", tmesh.local_devices("cpu")[:1]),
+        functools.partial(convert.mobilenet_v1_tree_apply,
+                          dtype=torch.float32),
+        tmb.mobilenet_v1_init(0, 10, 0.25))
+    for _ in range(2):
+        tp, to, _ = step(tp, to, rng.standard_normal(
+            (4, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 10, 4).astype(np.int32))
+    tree = tsharded.trained_tree(tp)
+    root = str(tmp_path / "ckpts")
+    path = tck.save_step(root, 7, tree)
+    assert sorted(os.listdir(root)) == ["7"]
+    assert_same(restore(path), tree)
+    assert_same(tck.load_dir(path), tree)
+    assert len(W.flat_leaves(tree)) == 5 + 13 * 2 * 5 + 2
+
+
+def test_split_leaf_written_a_chunk_a_slice(tmp_path):
+    """A :class:`ShardedLeaf` (as ``trained_tree(gather=False)`` gives a
+    leaf split over ``model``) is written one chunk a slice, each slice
+    from its own array; orbax restores the whole leaf."""
+    from nnstreamer_tpu_torch.parallel.sharded import P, ShardedLeaf
+
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((1, 1, 8, 12)).astype(np.float32)
+    bf = torch.randn(6, 4, generator=torch.Generator().manual_seed(1)) \
+        .to(torch.bfloat16)
+    tree = {"pw": ShardedLeaf([torch.from_numpy(w[..., :4].copy()),
+                               torch.from_numpy(w[..., 4:8].copy()),
+                               torch.from_numpy(w[..., 8:].copy())],
+                              3, P(None, None, None, "model"), w.shape),
+            "head": ShardedLeaf([bf[:, :2], bf[:, 2:]], 1, P(None, "model"),
+                                (6, 4)),
+            "b": np.ones(3, np.float32)}
+    path = str(tmp_path / "ck")
+    tck.save_dir(path, tree)
+    keys = sorted(Ocdbt(path).list())
+    assert [k for k in keys if not k.endswith(".zarray")] == [
+        "b/0", "head/0.0", "head/0.1", "pw/0.0.0.0", "pw/0.0.0.1",
+        "pw/0.0.0.2"]
+    want = {"pw": w, "b": tree["b"],
+            "head": np.asarray(jnp.asarray(bf.float().numpy(), jnp.bfloat16))}
+    assert_same(_as_port(restore(path)), want)
+    assert_same(tck.load_dir(path), want)
+
+
+@pytest.mark.parametrize("form, field, value, match", [
+    ("zarr v3", "use_zarr3", True, "use_zarr3"),
+    ("blosc", "compressor", {"id": "blosc", "cname": "lz4"},
+     "compressor 'blosc'"),
+    ("gzip", "compressor", {"id": "gzip", "level": 1}, "compressor 'gzip'"),
+    ("zlib", "compressor", {"id": "zlib", "level": 1}, "compressor 'zlib'"),
+    ("lz4", "compressor", {"id": "lz4"}, "compressor 'lz4'"),
+    ("filters", "filters", [{"id": "delta", "dtype": "<f4"}], "filters"),
+    ("order F", "order", "F", "order 'F'"),
+])
+def test_writer_never_writes_a_refused_form(tmp_path, form, field, value,
+                                            match):
+    """The port's step is never in ``form``: zarr v2 in ``_METADATA``,
+    zstd, no filters and order C in every ``.zarray``; the port's reader
+    reads it back equal to the tree, and refuses the same step once
+    turned into ``form``, naming the field."""
+    tree = {"x": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "y": {"z": np.ones((2, 2), np.int8)}, "s": 0.5}
+    path = str(tmp_path / "ck")
+    tck.save_dir(path, tree)
+    meta = json.load(open(os.path.join(path, "_METADATA")))
+    assert meta["use_zarr3"] is False and meta["use_ocdbt"] is True
+    db = Ocdbt(path)
+    zarrays = {k: json.loads(db.read(k)) for k in db.list()
+               if k.endswith(".zarray")}
+    db.close()
+    assert len(zarrays) == 3
+    for z in zarrays.values():
+        assert z["zarr_format"] == 2 and z["compressor"]["id"] == "zstd"
+        assert z["filters"] is None and z["order"] == "C"
+    assert_same(load_orbax(path), tree)
+    # the same step turned into the refused form (zarr arrays as files)
+    files = str(tmp_path / "files")
+    ocp.Checkpointer(ocp.StandardCheckpointHandler(use_ocdbt=False)).save(
+        files, args=ocp.args.StandardSave({"x": tree["x"]}))
+    if field == "use_zarr3":
+        meta = json.load(open(os.path.join(files, "_METADATA")))
+        meta[field] = value
+        json.dump(meta, open(os.path.join(files, "_METADATA"), "w"))
+    else:
+        zpath = os.path.join(files, "x", ".zarray")
+        z = json.load(open(zpath))
+        z[field] = value
+        json.dump(z, open(zpath, "w"))
+    with pytest.raises(OrbaxFormatError, match=match):
+        load_orbax(files)
+
+
+@pytest.mark.parametrize("newest", ["jax", "port"])
+def test_root_written_half_by_each_package(tmp_path, newest):
+    """Steps 5 and 12 of one root, one written by each package: both
+    packages' ``latest_step``/``resolve_step_dir`` pick 12, and both
+    readers read each step as written."""
+    root = str(tmp_path / "ckpts")
+    trees = {5: {"w": np.full((3, 2), 5.0, np.float32)},
+             12: {"w": np.full((3, 2), 12.0, np.float32)}}
+    by = {12: newest, 5: "port" if newest == "jax" else "jax"}
+    for step, who in by.items():
+        if who == "jax":
+            jck.save_orbax_step(root, step, trees[step])
+        else:
+            tck.save_step(root, step, trees[step])
+    assert tck.list_steps(root) == jck.list_steps(root) == [5, 12]
+    assert tck.latest_step(root) == jck.latest_step(root) == 12
+    assert tck.resolve_step_dir(root, "latest") == \
+        jck.resolve_step_dir(root, "latest") == (os.path.join(root, "12"),
+                                                 "12")
+    for step, tree in trees.items():
+        path = tck.step_dir(root, step)
+        assert_same(tck.load_dir(path), tree)
+        assert_same(restore(path), tree)
+
+
+def test_save_replaces_a_step_whole(tmp_path):
+    """Saving over a step replaces the directory (an older step's
+    ``params.safetensors`` goes with it) and leaves nothing hidden in
+    the root."""
+    from nnstreamer_tpu_torch.models.params_io import save_safetensors
+
+    root = str(tmp_path / "ckpts")
+    old = os.path.join(root, "3")
+    os.makedirs(old)
+    save_safetensors(os.path.join(old, tck.STEP_FILE),
+                     {"w": np.zeros(2, np.float32)})
+    assert_same(tck.load_dir(old), {"w": np.zeros(2, np.float32)})
+    tck.save_step(root, 3, {"w": np.ones(2, np.float32)})
+    assert sorted(os.listdir(old)) == ["_CHECKPOINT_METADATA", "_METADATA",
+                                       "d", "manifest.ocdbt"]
+    assert os.listdir(root) == ["3"]
+    assert_same(restore(old), {"w": np.ones(2, np.float32)})
+    with pytest.raises(ValueError, match="zero size"):
+        tck.save_step(root, 4, {"w": np.zeros((0, 2), np.float32)})
+    assert os.listdir(root) == ["3"]
+    assert OW.step_bytes(old) == W.step_bytes(old) > 0
