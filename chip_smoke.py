@@ -13,6 +13,7 @@
     python3 chip_smoke.py --mqtt                      # build + phase 18 only
     python3 chip_smoke.py --parallel                  # build + phase 19 only
     python3 chip_smoke.py --training                  # build + phase 20 only
+    python3 chip_smoke.py --train-rank-child R PORT CFG  # one rank of 20i
     python3 chip_smoke.py --importers                 # build + phase 21 only
     python3 chip_smoke.py --orbax                     # build + phase 22 only
 
@@ -386,9 +387,9 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    equal frame for frame.  (d) A one-rank NCCL world through
    ``multihost.initialize``: the five collectives on CUDA tensors over a
    ``replica`` (dcn) x ``data`` mesh against their one-device meaning,
-   and the pool at ``mesh=dcn.data:1,data:-1``; the two-rank world runs
-   only in the CPU tests (gloo).  (e) The analyzer over phase 19's
-   descriptions: 0 errors;
+   and the pool at ``mesh=dcn.data:1,data:-1`` (a two-rank world trains
+   in 20i; its collectives and pool run in the CPU tests, gloo).  (e) The
+   analyzer over phase 19's descriptions: 0 errors;
 20. in-pipeline training (``nnstreamer_tpu_torch/trainers/``,
    ``tensor_trainer``).  (a) MobileNetV1 at full width (1.0, 224x224x3
    uint8 samples, 1001 classes, bf16 compute on f32 leaves) trained from
@@ -436,7 +437,31 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    memory and the host wait at the barriers printed; (iii) with two or
    more cards, ``mesh=data:-1`` over them, against (a)'s samples/s, else
    one line "not run: 1 card".  Each line names its mesh, S and devices.
-   (f) The analyzer over phase 20's descriptions: 0 errors;
+   (h) Leaves split over ``model`` (``ShardedLeaf`` slices): (i) (b)'s
+   steps on ``data:2,model:2`` over 4 virtual records against the
+   replicated step and the CPU, a zeroed slice gradient planted; (ii)
+   (a)'s pipeline on ``mesh=data:1,model:2``, its orbax step read back
+   bit-equal; (iii) ``data:1,model:2`` over two real cards, else "not
+   run".  (i) The step across processes (``TrainStep`` with ``ranks``:
+   the moments exchanged over every rank a layer, the gradients summed
+   over the ranks in buckets): (i) two children of this script
+   (``--train-rank-child RANK PORT CFG``, each with its own limit) join a
+   gloo group on the one card, each normalizes its 64 rows of a global
+   batch of 128 seeded uint8 samples with ``scale_bias_cast`` (one launch
+   a rank, held against its plain version at (64,224,224,3)) and trains
+   (a)'s model on ``make_mesh("data:-1")`` (one card record a rank), sgd
+   at lr 1e-2, ``TRAIN_ALONE_STEPS`` steps: against the one-process
+   ``data:2`` split step over 2 virtual records on the same global batch
+   (first loss rtol 1e-4, later 5e-3), the ranks' leaves bit-equal by a
+   digest each child prints; then (b)'s steps of each optimizer over the
+   ranks (TF32 off) against the CPU at (b)'s limits, adam/adamw's leaves
+   held to (g i)'s spread over row orders, and the planted "gradients
+   not reduced" must fail.  Each rank prints its step split (CUDA
+   events), the host ms in the gradient all-reduce and in the per-layer
+   exchanges, samples/s and peak memory, beside the one-process step and
+   (a)'s stacked step; (ii) with two or more cards, NCCL with one rank a
+   card, ``data:-1`` over them, the same checks, else one line "not run:
+   1 card".  (f) The analyzer over phase 20's descriptions: 0 errors;
 21. the importers (``filters/onnx.py``, ``tflite.py``, ``tensorflow.py``)
    on files the tests' writer (``tests/torch_model_files.py``) makes from
    seeds, and the native codec, under PyTorch's default switches (cuDNN
@@ -8400,24 +8425,30 @@ def _small_batches():
 
 
 def _small_run(mesh, name, dtype, step_seen=None, perm=None, rules=None,
-               fault=None):
+               fault=None, rows=None):
     """Three ``train_step`` steps of ``name`` over ``mesh`` from
     ``_small_batches`` (their rows in the order ``perm``, where given: the
-    same function), with ``rules`` (default: the step's, which split over
-    ``model``): (losses, the trained tree).  ``fault="slice_grad"`` zeroes
-    the gradient of the last pointwise weight's second slice."""
+    same function; only the rows ``rows``, where given: a rank's of a
+    step across ranks), with ``rules`` (default: the step's, which split
+    over ``model``): (losses, the trained tree).  ``fault="slice_grad"``
+    zeroes the gradient of the last pointwise weight's second slice;
+    ``fault="no_grad_reduce"`` leaves each rank with its own gradients
+    (only the loss is summed over the ranks)."""
     import functools
 
     import torch
 
     from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
-    from nnstreamer_tpu_torch.parallel.sharded import (train_step,
+    from nnstreamer_tpu_torch.parallel.sharded import (TrainStep,
+                                                       train_step,
                                                        trained_tree)
     from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
 
     xs, ys, tree = _small_batches()
     if perm is not None:
         xs, ys = xs[:, perm], ys[:, perm]
+    if rows is not None:
+        xs, ys = xs[:, rows], ys[:, rows]
     step, params, opt = train_step(
         mesh, functools.partial(mobilenet_v1_tree_apply, dtype=dtype), tree,
         optimizer=_make_optimizer({"optimizer": name,
@@ -8425,12 +8456,22 @@ def _small_run(mesh, name, dtype, step_seen=None, perm=None, rules=None,
         **({"rules": rules} if rules is not None else {}))
     if fault == "slice_grad":
         params.blocks[12].pw.weight.slices[1].register_hook(torch.zeros_like)
+    real_reduce = TrainStep._reduce
+    if fault == "no_grad_reduce":
+        def loss_only(self, loss):
+            total = loss.clone()
+            self.ranks.all_reduce(total)
+            return total
+        TrainStep._reduce = loss_only
     step.record_events = True     # a split step keeps its barrier waits
     losses = []
-    for x, y in zip(xs, ys):
-        params, opt, loss = step(params, opt, x, y)
-        losses.append(float(loss))
-    step.close()
+    try:
+        for x, y in zip(xs, ys):
+            params, opt, loss = step(params, opt, x, y)
+            losses.append(float(loss))
+    finally:
+        TrainStep._reduce = real_reduce
+        step.close()
     if step_seen is not None:
         step_seen.append(step)
     return losses, trained_tree(params)
@@ -9305,9 +9346,422 @@ def train_model_split_cards(card: str, power: str) -> dict:
     return res
 
 
+TRAIN_RANKS = 2               # (i): ranks on the one card, over gloo
+TRAIN_RANK_TIMEOUT_S = 480    # (i)/(ii): each child's own limit
+
+
+def _rank_batch():
+    """(i)'s global batch: TRAIN_BATCH seeded uint8 samples and labels (a
+    rank takes its rows, in rank order)."""
+    rs = np.random.default_rng(SEED + 5)
+    return (rs.integers(0, 256, (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                        dtype=np.uint8),
+            rs.integers(0, TRAIN_CLASSES, TRAIN_BATCH).astype(np.int32))
+
+
+def _digest(tree) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for leaf in _tree_leaves(tree):
+        h.update(np.ascontiguousarray(leaf).tobytes())
+    return h.hexdigest()
+
+
+def _rank_records(world: int, backend: str):
+    """One device record a rank, in rank order: every rank on the one
+    card (gloo), rank r on card r (NCCL), or the host (a CPU dry run)."""
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import mesh as M
+
+    if TRAIN_DEVICE != "cuda":
+        return [M.Device("cpu", r, r, torch.device("cpu"))
+                for r in range(world)]
+    return [M.Device("cuda", r, r, torch.device(
+        "cuda", r if backend == "nccl" else 0)) for r in range(world)]
+
+
+def _timed_steps(step, params, opt, xb, yb, dev) -> dict:
+    """``TRAIN_ALONE_STEPS`` steps on one batch: the losses, the host ms a
+    step and samples/s of the global batch (p50 of steps 2 on), the peak
+    card memory since the step's build and, on the card, the step split
+    by its CUDA events (and, across ranks, the host ms in the gradient
+    all-reduce and in the exchanges)."""
+    import torch
+
+    losses, host_ms = [], []
+    try:
+        for _ in range(TRAIN_ALONE_STEPS):
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, xb, yb)
+            losses.append(float(loss))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        step.close()
+    host = _percentile(host_ms[1:], 0.5)
+    res = {"losses": losses, "host_ms_p50": host,
+           "samples_per_s": TRAIN_BATCH / host * 1e3,
+           "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20
+           if dev.type == "cuda" else float("nan")}
+    if step.events:
+        parts = step.timings()[1:]
+        for i, part in enumerate(("forward", "backward", "update")):
+            res[f"{part}_ms_p50"] = _percentile([t[i] for t in parts], 0.5)
+        res["step_ms_p50"] = _percentile([sum(t) for t in parts], 0.5)
+    if step.reduce_ms:
+        res["reduce_ms_p50"] = _percentile(step.reduce_ms[1:], 0.5)
+        res["exchange_ms_p50"] = _percentile(step.exchange_ms[1:], 0.5)
+    return res
+
+
+def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
+    """``--train-rank-child RANK PORT CFG``: one rank of 20i.  It joins the
+    ``CFG["world"]``-rank group (``CFG["backend"]``), normalizes its rows of
+    the global batch with ``scale_bias_cast``, trains full-width
+    MobileNetV1 on ``data:-1`` over one record a rank for
+    ``TRAIN_ALONE_STEPS`` steps, then TRAIN_SMALL × sgd/adam/adamw (TF32
+    off) and the planted "gradients not reduced" sgd, written to
+    ``CFG["out"]``; it prints ``TRAIN_RANK {json}`` last."""
+    global TRAIN_DEVICE, TRAIN_SIZE, TRAIN_CLASSES, TRAIN_WIDTH, TRAIN_BATCH
+    global TRAIN_ALONE_STEPS, TRAIN_SMALL
+    import pickle
+
+    import torch
+
+    from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.parallel import mesh as M
+    from nnstreamer_tpu_torch.parallel import multihost
+    from nnstreamer_tpu_torch.parallel.sharded import train_step, trained_tree
+    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+    cfg = json.loads(cfg_json)
+    (TRAIN_DEVICE, TRAIN_SIZE, TRAIN_CLASSES, TRAIN_WIDTH, TRAIN_BATCH,
+     TRAIN_ALONE_STEPS, TRAIN_SMALL) = (
+        cfg["device"], cfg["size"], cfg["classes"], cfg["width"],
+        cfg["batch"], cfg["steps"], cfg["small"])
+    world, backend = cfg["world"], cfg["backend"]
+    on_card = TRAIN_DEVICE == "cuda"
+    recs = _rank_records(world, backend)
+    dev = recs[rank].torch_device
+    if on_card:
+        torch.cuda.set_device(dev)
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=world, process_id=rank,
+                         backend=backend)
+    # make_mesh's own inventory where it is one record a rank (one card,
+    # or the host); else one record a rank by hand (the inventory lists
+    # every card to every rank)
+    mesh = M.make_mesh("data:-1") if len(M.local_devices()) == 1 else \
+        M.make_mesh("data:-1", recs)
+    if [d.process_index for d in mesh.devices.flat] != list(range(world)):
+        raise RuntimeError(f"training (i) rank {rank}: mesh {mesh!r}")
+    b = TRAIN_BATCH // world
+    mine = slice(rank * b, (rank + 1) * b)
+    u8, labels = _rank_batch()
+    xu = torch.from_numpy(u8[mine]).to(dev)
+    yb = torch.from_numpy(labels[mine]).to(dev)
+    a, bias = _norm_fold()
+    torch.backends.cudnn.deterministic = False     # as (a) trains
+    step, params, opt = train_step(
+        mesh, mobilenet_v1_tree_apply,
+        mobilenet_v1_init(SEED, TRAIN_CLASSES, TRAIN_WIDTH),
+        optimizer=_make_optimizer({"optimizer": "sgd", "lr": TRAIN_LR}))
+    step.record_events = on_card
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    # -- the main path: counts from 0, the rows normalized by the kernel --
+    _par_zero()
+    with torch.no_grad():
+        xb = kernels.scale_bias_cast(xu, a, bias)
+    res = _timed_steps(step, params, opt, xb, yb, dev)
+    launches = _par_counts()
+    # -- the kernel against its plain version on this rank's rows --------
+    err = float((xb - kernels.scale_bias_cast_reference(xu, a, bias))
+                .abs().max())
+    res.update(rank=rank, world=world, backend=backend, device=str(dev),
+               launches=launches, max_abs_err=err, rows=b,
+               digest=_digest(trained_tree(params)))
+    del step, params, opt, xb
+    # -- TRAIN_SMALL on the ranks, TF32 off; the planted fault -----------
+    sb = TRAIN_SMALL["batch"] // world
+    rows = slice(rank * sb, (rank + 1) * sb)
+    small = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    set_tf32(False, False)
+    try:
+        for name in ("sgd", "adam", "adamw"):
+            small[name] = _small_run(mesh, name, torch.float32, rows=rows)
+        small["no_grad_reduce"] = _small_run(mesh, "sgd", torch.float32,
+                                             rows=rows,
+                                             fault="no_grad_reduce")
+    finally:
+        set_tf32(*tf32)
+    res["small_digests"] = {k: _digest(t) for k, (_, t) in small.items()}
+    with open(os.path.join(cfg["out"], f"small_{rank}.pkl"), "wb") as f:
+        pickle.dump(small, f)
+    multihost.shutdown()
+    print("TRAIN_RANK " + json.dumps(res), flush=True)
+    return 0
+
+
+def _rank_children(world: int, backend: str, out: str):
+    """Run ``world`` children of 20i (``--train-rank-child``), each with
+    its own limit; every child's ``TRAIN_RANK`` record, in rank order.
+    A child that fails or runs out of time fails the phase (the others
+    are killed)."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    cfg = json.dumps({"world": world, "backend": backend, "out": out,
+                      "device": TRAIN_DEVICE, "size": TRAIN_SIZE,
+                      "classes": TRAIN_CLASSES, "width": TRAIN_WIDTH,
+                      "batch": TRAIN_BATCH, "steps": TRAIN_ALONE_STEPS,
+                      "small": TRAIN_SMALL})
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK"))}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-rank-child",
+         str(r), port, cfg], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    deadline = time.monotonic() + TRAIN_RANK_TIMEOUT_S
+    outs, failed = [], []
+    try:
+        for r, pr in enumerate(procs):
+            try:
+                out_r, _ = pr.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r}: no exit within "
+                              f"{TRAIN_RANK_TIMEOUT_S} s")
+                break
+            outs.append(out_r)
+            if pr.returncode != 0:
+                failed.append(f"rank {r}: exit {pr.returncode}:\n"
+                              f"{out_r[-4000:]}")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    if failed:
+        raise RuntimeError("training (i): " + "\n".join(failed))
+    recs = []
+    for r, out_r in enumerate(outs):
+        lines = [ln for ln in out_r.splitlines()
+                 if ln.startswith("TRAIN_RANK ")]
+        if not lines:
+            raise RuntimeError(f"training (i): rank {r} printed no record:"
+                               f"\n{out_r[-4000:]}")
+        recs.append(json.loads(lines[-1][len("TRAIN_RANK "):]))
+    return recs
+
+
+def _one_process_ranks(world: int) -> dict:
+    """20i's reference: the one-process ``data:world`` split step over
+    ``world`` virtual records of the card on the whole global batch
+    (normalized by the plain version, bit-equal to the kernel: 20a)."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.ops import kernels
+    from nnstreamer_tpu_torch.parallel.sharded import train_step
+    from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+    on_card = TRAIN_DEVICE == "cuda"
+    mesh = _virtual_mesh(f"data:{world}", world)
+    dev = mesh.devices.flat[0].torch_device
+    u8, labels = _rank_batch()
+    a, bias = _norm_fold()
+    xb = kernels.scale_bias_cast_reference(torch.from_numpy(u8).to(dev), a,
+                                           bias)
+    yb = torch.from_numpy(labels).to(dev)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False     # as (a) trains
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    step, params, opt = train_step(
+        mesh, mobilenet_v1_tree_apply,
+        mobilenet_v1_init(SEED, TRAIN_CLASSES, TRAIN_WIDTH),
+        optimizer=_make_optimizer({"optimizer": "sgd", "lr": TRAIN_LR}))
+    step.record_events = on_card
+    try:
+        return _timed_steps(step, params, opt, xb, yb, dev)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def _rank_line(r: dict) -> str:
+    msg = (f"rank {r['rank']} on {r['device']} ({r['rows']} rows): losses "
+           f"{[round(v, 6) for v in r['losses']]}, launches {r['launches']}, "
+           f"scale_bias_cast at ({r['rows']},{TRAIN_SIZE},{TRAIN_SIZE},3) "
+           f"uint8 vs plain {r['max_abs_err']}, host ms a step p50 "
+           f"{r['host_ms_p50']:.3f}, samples/s {r['samples_per_s']:.1f}, "
+           f"peak card memory {r['peak_mib']:.1f} MiB")
+    if "step_ms_p50" in r:
+        msg += (f", step ms p50 (CUDA events, steps 2-{len(r['losses'])}): "
+                f"forward {r['forward_ms_p50']:.3f}, backward "
+                f"{r['backward_ms_p50']:.3f}, update {r['update_ms_p50']:.3f}"
+                f", whole {r['step_ms_p50']:.3f}; host ms in the gradient "
+                f"all-reduce p50 {r['reduce_ms_p50']:.3f}, in the per-layer "
+                f"exchanges p50 {r['exchange_ms_p50']:.3f}")
+    return msg
+
+
+def train_ranks(world: int, backend: str, base: dict, spread: dict,
+                tag: str, card: str, power: str) -> dict:
+    """One 20i leg: ``world`` ranks over ``backend`` against the
+    one-process ``data:world`` step (first loss rtol 1e-4, later losses
+    5e-3, the ranks' digests equal), TRAIN_SMALL against the CPU at
+    TRAIN_SMALL_TOL (adam/adamw's leaves within 20g's spread over row
+    orders, as 20g holds its split), the planted fault failing."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import mesh as M
+
+    out = tempfile.mkdtemp(prefix="nns_ranks_")
+    try:
+        recs = _rank_children(world, backend, out)
+        small = []
+        for r in range(world):
+            with open(os.path.join(out, f"small_{r}.pkl"), "rb") as f:
+                small.append(pickle.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    digests = {r["digest"] for r in recs}
+    small_digests = {json.dumps({k: v for k, v in r["small_digests"].items()
+                                 if k != "no_grad_reduce"}, sort_keys=True)
+                     for r in recs}
+    if len(digests) != 1 or len(small_digests) != 1:
+        raise RuntimeError(f"training ({tag}): the ranks' leaves differ: "
+                           f"{[r['digest'] for r in recs]}, "
+                           f"{[r['small_digests'] for r in recs]}")
+    losses = recs[0]["losses"]
+    if any(r["losses"] != losses for r in recs) or not all(
+            math.isfinite(v) for v in losses):
+        raise RuntimeError(f"training ({tag}): losses by rank "
+                           f"{[r['losses'] for r in recs]}")
+    on_card = TRAIN_DEVICE == "cuda"
+    for r in recs:
+        if r["max_abs_err"] > 0 or (on_card and r["launches"] != {
+                "flash_attention": 0, "scale_bias_cast": 1}):
+            raise RuntimeError(f"training ({tag}): rank {r['rank']}: "
+                               f"launches {r['launches']}, scale_bias_cast "
+                               f"vs plain {r['max_abs_err']}")
+    ref = _one_process_ranks(world)
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    if rels[0] > TRAIN_SMALL_TOL["first_loss"] or \
+            max(rels) > TRAIN_SMALL_TOL["loss"]:
+        raise RuntimeError(f"training ({tag}): losses {losses} against the "
+                           f"one-process data:{world} step's "
+                           f"{ref['losses']}: rel {rels}")
+    cpu = M.make_mesh("data:1", M.local_devices("cpu")[:1])
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    set_tf32(False, False)
+    try:
+        host = {name: _small_run(cpu, name, torch.float32)
+                for name in ("sgd", "adam", "adamw")}
+    finally:
+        set_tf32(*tf32)
+    vs_cpu = {}
+    for name in ("sgd", "adam", "adamw"):
+        vs_cpu[name], over = _small_compare(small[0][name], host[name], name)
+        if over == ["leaf_max"] and name != "sgd":
+            # adam's sign flips: held to the stacked step's own spread over
+            # row orders, as 20g holds its split (20g's, or taken here)
+            if name not in spread:
+                stacked = _meshes_20g()[2][1]
+                set_tf32(False, False)
+                try:
+                    spread[name] = _perm_spread(stacked, name, _small_run(
+                        stacked, name, torch.float32))
+                finally:
+                    set_tf32(*tf32)
+            if vs_cpu[name]["leaf_max"] <= spread[name]:
+                over = []
+        if over:
+            raise RuntimeError(f"training ({tag}) {name}: the ranks against "
+                               f"the CPU: {vs_cpu[name]} over {over} (limits "
+                               f"{TRAIN_SMALL_TOL}, spread {spread.get(name)})")
+    planted, over = _small_compare(small[0]["no_grad_reduce"], host["sgd"],
+                                   "sgd")
+    if not over:
+        raise RuntimeError(f"training ({tag}): gradients not reduced pass "
+                           f"the check: {planted}")
+    res = {"world": world, "backend": backend, "ranks": recs,
+           "one_process": ref, "loss_rel": rels,
+           "small_vs_cpu": vs_cpu, "planted": dict(planted, over=over),
+           "launches": {k: sum(r["launches"][k] for r in recs)
+                        for k in recs[0]["launches"]}}
+    for r in recs:
+        print(f"training ({tag}): MobileNetV1 w{TRAIN_WIDTH} {TRAIN_SIZE}x"
+              f"{TRAIN_SIZE} {TRAIN_CLASSES} classes, global batch "
+              f"{TRAIN_BATCH} over {world} ranks ({backend}), "
+              f"{TRAIN_ALONE_STEPS} steps: {_rank_line(r)} [{card}, {power}]",
+              flush=True)
+    line = (f"training ({tag}): beside them the one-process data:{world} "
+            f"step over {world} virtual records: losses "
+            f"{[round(v, 6) for v in ref['losses']]} (the ranks' first loss "
+            f"rel {rels[0]:.3e}, the largest {max(rels):.3e}), host ms a "
+            f"step p50 {ref['host_ms_p50']:.3f}, samples/s "
+            f"{ref['samples_per_s']:.1f}, peak card memory "
+            f"{ref['peak_mib']:.1f} MiB")
+    if "step_ms_p50" in ref:
+        line += (f", step ms p50 forward {ref['forward_ms_p50']:.3f}, "
+                 f"backward {ref['backward_ms_p50']:.3f}, update "
+                 f"{ref['update_ms_p50']:.3f}, whole {ref['step_ms_p50']:.3f}"
+                 f"; (a)'s stacked step alone at batch {TRAIN_BATCH}: whole "
+                 f"{base.get('alone_step_ms_p50', float('nan')):.3f} ms, host "
+                 f"{base.get('alone_host_ms', float('nan')):.3f} ms")
+    print(line + f"; the ranks' leaves bit-equal (digest "
+          f"{recs[0]['digest'][:16]}) [{card}, {power}]", flush=True)
+    print(f"training ({tag}): TRAIN_SMALL over the {world} ranks (TF32 off) "
+          f"against the CPU: " + "; ".join(
+              f"{n} first loss rel {r['first_loss_rel']:.3e}, losses rel "
+              f"{r['loss_rel']:.3e}, leaves max {r['leaf_max']:.3e}, largest "
+              f"update gap {r['update_gap']:.3e}" for n, r in vs_cpu.items())
+          + f"; gradients not reduced (planted) fail on {over} (leaves max "
+          f"{planted['leaf_max']:.3e}, largest update gap "
+          f"{planted['update_gap']:.3e}) [{card}, {power}]", flush=True)
+    return res
+
+
+def train_multiprocess(base: dict, spread: dict, card: str,
+                       power: str) -> dict:
+    """20i: (i) TRAIN_RANKS ranks on the one card over gloo; (ii) one rank
+    a card over NCCL where there are two or more cards."""
+    import torch
+
+    res = {"ranks": train_ranks(TRAIN_RANKS, "gloo", base, spread, "i",
+                                card, power)}
+    res["launches"] = res["ranks"]["launches"]
+    cards = torch.cuda.device_count() if TRAIN_DEVICE == "cuda" else 0
+    if cards < 2:
+        res["cards"] = {"ran": False, "cards": cards}
+        print(f"training (i ii): not run: {cards} card [{card}, {power}]",
+              flush=True)
+        return res
+    res["cards"] = dict(train_ranks(cards, "nccl", base, spread, "i ii",
+                                    card, power), ran=True)
+    return res
+
+
 def phase_training(card: str, power: str):
-    """Phase 20: (a)-(e), (g), (h), then (f) over every description; (a)'s,
-    (g)'s and (h)'s kernel counts each from 0."""
+    """Phase 20: (a)-(e), (g), (h), (i), then (f) over every description;
+    (a)'s, (g)'s and (h)'s kernel counts each from 0, (i)'s in each rank's
+    child."""
     import shutil
     import tempfile
 
@@ -9330,6 +9784,9 @@ def phase_training(card: str, power: str):
         res["model_split"] = train_model_split(
             root, data, js, res["full_width"],
             res["split"]["small"]["perm_spread"], card, power)
+        res["multiprocess"] = train_multiprocess(
+            res["full_width"], res["split"]["small"]["perm_spread"], card,
+            power)
         res["lint"] = train_lint(card, power)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -10381,6 +10838,8 @@ def main() -> int:
         return edge_server_child(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--mqtt-pub-child":
         return mqtt_pub_child(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--train-rank-child":
+        return train_rank_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     alone = sys.argv[1:] == ["--decoders"]
     elements_alone = sys.argv[1:] == ["--elements"]
     obs_alone = sys.argv[1:] == ["--obs"]
@@ -10567,6 +11026,8 @@ def main() -> int:
                        training["split"]["launches"]["scale_bias_cast"],
                    "training_model_split":
                        training["model_split"]["launches"]["scale_bias_cast"],
+                   "training_multiprocess":
+                       training["multiprocess"]["launches"]["scale_bias_cast"],
                    "importers_onnx": importers["launches"]["onnx"],
                    "importers_mnist": importers["launches"]["mnist"],
                    "orbax_mobilenet":
@@ -10580,6 +11041,9 @@ def main() -> int:
     if training["split"]["cards"]["ran"]:
         sbc_by_path["training_cards"] = \
             training["split"]["cards"]["launches"]["scale_bias_cast"]
+    if training["multiprocess"]["cards"]["ran"]:
+        sbc_by_path["training_multiprocess_cards"] = \
+            training["multiprocess"]["cards"]["launches"]["scale_bias_cast"]
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],
@@ -10596,6 +11060,8 @@ def main() -> int:
                       training["split"]["launches"]["flash_attention"],
                   "training_model_split":
                       training["model_split"]["launches"]["flash_attention"],
+                  "training_multiprocess":
+                      training["multiprocess"]["launches"]["flash_attention"],
                   "orbax_vit": orbax["vit"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",

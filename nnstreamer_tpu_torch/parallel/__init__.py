@@ -22,7 +22,8 @@ Counterpart of the JAX package's ``parallel/``, on eager PyTorch:
 The sharded training step (:func:`train_step`, :func:`softmax_xent`) is
 what the ``torch-optim`` trainer runs; over more than one data shard it
 splits the batch, and :mod:`.syncbn` combines each batch-norm layer's
-moments over the shards (:func:`batch_moments`, :class:`ShardGroup`).
+moments over the shards (:func:`batch_moments`, :class:`ShardGroup`),
+across processes too (:class:`~.syncbn.RankShards`).
 """
 
 from .mesh import (  # noqa: F401

@@ -19,6 +19,12 @@ traffic that crosses processes is the data-parallel tier's.
 
 NCCL puts one rank on one GPU: on a one-card host the only NCCL world is
 a one-rank world.  Two-rank worlds run on gloo over the host.
+
+A world of several ranks also trains one model: ``sharded.train_step``
+on a mesh whose data shards lie on every rank (``make_mesh("data:-1")``
+over ``mesh.devices()``) reduces each batch-norm layer's moments and the
+gradients over the ranks (``syncbn.RankShards``), gloo staging card
+tensors through the host; two ranks on one card are a gloo world.
 """
 
 from __future__ import annotations

@@ -47,6 +47,16 @@ places them: each becomes a :class:`ShardedLeaf` of trainable slices on
 the first data shard's ``model`` group, the other shards' groups get the
 slices by ``.to()``, and the layer's gather carries each slice's
 gradient back.
+
+Across processes (a mesh whose data shards lie on more than one rank of
+the ``torch.distributed`` group) each rank runs its own shards on its
+own rows and keeps a whole copy of the master leaves: the batch-norm
+moments are exchanged over every rank once a layer
+(``parallel/syncbn.py`` :class:`~.syncbn.RankShards`), each rank's loss
+is its rows' share of the global batch's, and one ``all_reduce`` a
+bucket sums the leaves' gradients over the ranks before the update, so
+every rank takes the same update.  A ``model`` group stays inside one
+rank.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import functools
 import itertools
 import queue
 import threading
+import time
 import weakref
 from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -525,21 +536,42 @@ def softmax_xent(logits: torch.Tensor, labels) -> torch.Tensor:
     return -(onehot * logp).sum(dim=-1).mean()
 
 
-def _shard_groups(mesh, data_axis: str) -> List[List[Any]]:
-    """The device groups of ``mesh``'s data shards, in shard order
-    (:func:`data_shard_groups`): a shard's lead record first, then the
-    rest of its ``model`` group.  Raises ``ValueError`` for records
-    another process owns: training across processes is a later item."""
-    from .multihost import process_info
+def _shard_groups(mesh, data_axis: str
+                  ) -> Tuple[List[List[Any]], Optional[syncbn.RankShards]]:
+    """This process's device groups of ``mesh``'s data shards, in shard
+    order (:func:`data_shard_groups`: a shard's lead record first, then
+    the rest of its ``model`` group), and, where the data shards lie on
+    more than one process, their :class:`~.syncbn.RankShards` (else
+    None).  Raises ``ValueError`` for a ``model`` group whose records lie
+    on more than one process, and for data shards of processes that are
+    not every rank of the process group."""
+    from .multihost import backend, process_info
 
-    rank = process_info()[0]
+    rank, world = process_info()
     groups = data_shard_groups(mesh, (data_axis,))
-    others = sorted({d.process_index for g in groups for d in g} - {rank})
-    if others:
+    for k, g in enumerate(groups):
+        owners = sorted({d.process_index for d in g})
+        if len(owners) > 1:
+            raise ValueError(
+                f"train step: the model group of data shard {k} "
+                f"({', '.join(str(d) for d in g)}) lies on processes "
+                f"{owners}; a model group must lie in one process")
+    owners = sorted({g[0].process_index for g in groups})
+    if owners == [rank]:
+        return groups, None
+    if owners != list(range(world)):
         raise ValueError(
             f"train step: mesh {mesh!r} holds data shards of processes "
-            f"{others}; the step runs only this process's ({rank})")
-    return groups
+            f"{owners}; the step runs over every rank of the process "
+            f"group ({world} here, this one {rank})")
+    if backend() == "nccl" and any(g[0].torch_device.type != "cuda"
+                                   for g in groups
+                                   if g[0].process_index == rank):
+        raise ValueError("train step: an nccl group reduces only card "
+                         "tensors; this rank's data shards lead on "
+                         "another device")
+    mine = [k for k, g in enumerate(groups) if g[0].process_index == rank]
+    return [groups[k] for k in mine], syncbn.RankShards(mine, len(groups))
 
 
 def _as_device_tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -720,6 +752,18 @@ class TrainStep:
     :meth:`apply` runs the forward alone (``train=False``: the stored
     statistics, as the JAX trainer's eval calls the apply), stacked.
 
+    With ``ranks`` (:class:`~.syncbn.RankShards`: the mesh's data shards
+    lie on more than one process) ``x``/``y`` are this rank's rows, its
+    shards' in shard order, and the step always splits, over this rank's
+    shards (one or more), the moments exchanged across ranks.  Before the
+    forward one ``all_reduce`` gives every rank each rank's row count,
+    shard count and row shape: unless every data shard takes the same
+    number of rows of one shape, every rank raises ``ValueError``.  The
+    loss of this rank's rows is scaled by ``b_local / B_global``; after
+    the backward one ``all_reduce`` a bucket (a device and dtype) sums the
+    leaves' gradients and the loss parts over the ranks; the returned
+    loss is the global batch's, on every rank.
+
     With a ``model`` axis (``groups``: each data shard's lead record, then
     the rest of its ``model`` group) a leaf split by the step's rules is a
     :class:`ShardedLeaf` of trainable slices on the first shard's group;
@@ -735,13 +779,16 @@ class TrainStep:
     done; :meth:`timings`) and, for a split step, the host ms the
     slowest-waiting shard spent at the forward's barriers
     (``barrier_ms``: host clocks, no synchronisation); ``last_loss`` is the
-    latest step's loss."""
+    latest step's loss.  Across ranks it also keeps, a step, the host ms
+    of the gradient all-reduce (``reduce_ms``) and of the moments'
+    exchanges, forward and backward (``exchange_ms``)."""
 
     def __init__(self, apply: Callable, params: Any,
                  opt_state: torch.optim.Optimizer,
                  leaves: List[torch.Tensor], loss_fn: Callable,
                  groups: Sequence[Sequence[Any]],
-                 placement: Optional[MeshParams] = None):
+                 placement: Optional[MeshParams] = None,
+                 ranks: Optional[syncbn.RankShards] = None):
         self.apply = apply
         self.params = params
         self.opt_state = opt_state
@@ -751,6 +798,8 @@ class TrainStep:
         #: the rules' placement of the leaves (``specs``), or None without
         #: a ``model`` axis of more than one device
         self.placement = placement
+        #: this rank's shards among every rank's, or None in one process
+        self.ranks = ranks
         self.devices = [g[0].torch_device for g in self.groups]
         self.device = self.devices[0]
         self.data_size = len(self.devices)
@@ -760,6 +809,8 @@ class TrainStep:
         self.record_events = False
         self.events: List[Tuple[Any, ...]] = []
         self.barrier_ms: List[float] = []
+        self.reduce_ms: List[float] = []
+        self.exchange_ms: List[float] = []
         self._shells: Optional[List[_Applied]] = None
         self._threads: Optional[_ShardThreads] = None
         self._split = _split_leaves(params)
@@ -811,7 +862,7 @@ class TrainStep:
         on the first shard's device in shard order."""
         s = self.data_size
         blocks = x.split(x.shape[0] // s)
-        group = syncbn.ShardGroup(s, self.barrier_timeout)
+        group = syncbn.ShardGroup(s, self.barrier_timeout, self.ranks)
         streams = [torch.cuda.current_stream(d) if d.type == "cuda"
                    else None for d in self.devices]
         # the rows and the master leaves, as the caller's streams wrote them
@@ -855,29 +906,106 @@ class TrainStep:
                              "optimizer state the step returned")
         x = _as_device_tensor(x, self.device)
         y = _as_device_tensor(y, self.device)
-        if x.shape[0] % self.data_size:
+        ranks = self.ranks
+        if ranks is not None:
+            batch = self._global_batch(x)
+        elif x.shape[0] % self.data_size:
             raise ValueError(
                 f"train step: batch {x.shape[0]} does not split over the "
                 f"data axis of size {self.data_size}")
         with _on(self.device), torch.enable_grad():
             e0 = self._event()
             opt_state.zero_grad(set_to_none=True)
-            out = self.apply(params, x, train=True) if self.data_size == 1 \
+            if ranks is not None:
+                ranks.exchange_s = 0.0
+            out = self.apply(params, x, train=True) \
+                if self.data_size == 1 and ranks is None \
                 else self._split_forward(x)
             loss = self.loss_fn(out, y)
+            if ranks is not None:   # these rows' share of the global loss
+                loss = loss * (x.shape[0] / batch)
             e1 = self._event()
             loss.backward()
             e2 = self._event()
             for t in self.leaves:
                 if t.grad is None:   # not in the graph: a zero gradient,
                     t.grad = torch.zeros_like(t)   # as JAX's grad gives
+            if ranks is not None:
+                loss = self._reduce(loss.detach())
             opt_state.step()
             e3 = self._event()
         if e0 is not None:
             self.events.append((e0, e1, e2, e3))
+        if ranks is not None and self.record_events:
+            self.exchange_ms.append(ranks.exchange_s * 1e3)
         self.steps += 1
         self.last_loss = loss.detach()
         return params, opt_state, self.last_loss
+
+    def _global_batch(self, x: torch.Tensor) -> int:
+        """The global batch's row count, after one ``all_reduce`` of each
+        rank's (rows, data shards, ``x.dim()``, row shape); raises
+        ``ValueError`` on every rank where a rank's rows do not split
+        over its shards, or a shard's rows differ in count or shape from
+        another's."""
+        from .multihost import backend
+
+        r = self.ranks
+        dims = list(x.shape[1:1 + _ROW_DIMS])
+        info = torch.zeros((r.world, 3 + _ROW_DIMS), dtype=torch.int64)
+        info[r.rank, :3 + len(dims)] = torch.tensor(
+            [x.shape[0], self.data_size, x.dim()] + dims)
+        if backend() == "nccl":
+            info = info.to(self.device)
+        r.all_reduce(info)
+        rows = info.tolist()
+        counts = [(b, s) for b, s, *_ in rows]
+        bad = [q for q, (b, s) in enumerate(counts) if b % s]
+        if bad:
+            raise ValueError(
+                f"train step: the batch of rank {bad[0]} ({counts[bad[0]][0]}"
+                f" rows) does not split over its {counts[bad[0]][1]} data "
+                f"shards (rows and data shards by rank: {counts})")
+        if len({b // s for b, s in counts}) > 1:
+            raise ValueError(
+                f"train step: the ranks' rows are of unequal count for "
+                f"their data shards (rows and data shards by rank: "
+                f"{counts}); every data shard takes as many rows")
+        if len({tuple(row[2:]) for row in rows}) > 1:
+            raise ValueError(
+                f"train step: the ranks' rows differ in shape (row shape "
+                f"by rank: {[row[3:2 + row[2]] for row in rows]})")
+        return counts[0][0] // counts[0][1] * r.size
+
+    def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        """One ``all_reduce(SUM)`` over the ranks a bucket of the leaves'
+        gradients (a bucket a device and dtype, in leaf order), this
+        rank's loss part at the end of its own device's and dtype's; each
+        gradient becomes its slice of the summed bucket.  Returns the
+        summed loss."""
+        t0 = time.perf_counter()
+        buckets: Dict[Tuple, List[torch.Tensor]] = {}
+        for t in self.leaves:
+            buckets.setdefault((t.grad.device, t.grad.dtype), []).append(t)
+        key = (loss.device, loss.dtype)
+        buckets.setdefault(key, [])
+        total = loss
+        for k, ts in buckets.items():
+            parts = [t.grad.reshape(-1) for t in ts]
+            if k == key:
+                parts.append(loss.reshape(1))
+            flat = torch.cat(parts)
+            self.ranks.all_reduce(flat)
+            o = 0
+            for t in ts:
+                n = t.grad.numel()
+                t.grad = flat[o:o + n].view_as(t.grad)
+                o += n
+            if k == key:
+                total = flat[o]
+        if self.record_events:
+            self.reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return total
 
     def close(self) -> None:
         """End the shard threads (a later call starts them anew)."""
@@ -894,6 +1022,10 @@ class TrainStep:
             out.append((e0.elapsed_time(e1), e1.elapsed_time(e2),
                         e2.elapsed_time(e3)))
         return out
+
+
+#: the row dimensions a cross-rank step compares between ranks
+_ROW_DIMS = 8
 
 
 def train_step(mesh, apply_fn: Callable, params, optimizer=None,
@@ -914,7 +1046,15 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
       data shard's group.
     - The data shards are ``mesh``'s along ``data_axis``
       (:func:`data_shard_groups`); over more than one the step splits
-      (:class:`TrainStep`), on any placement of their records.
+      (:class:`TrainStep`), on any placement of their records.  Where
+      they lie on more than one process (``make_mesh("data:-1")`` over
+      the ``devices()`` of a world of R ranks), every rank of the
+      ``torch.distributed`` group builds the step on the same mesh and
+      calls it with its own rows: the step is the global batch's, with
+      the moments and the gradients reduced over every rank
+      (:class:`TrainStep`'s ``ranks``), and every rank's leaves stay
+      bit-equal.  gloo reduces host or card tensors (two ranks on one
+      card are gloo), NCCL card tensors only.
     - ``rules`` places the leaves as the JAX ``shard_params`` does: on a
       ``model`` axis of M > 1 devices, a leaf it splits whose split dim
       divides by M becomes M trainable slices, one on each device of the
@@ -926,11 +1066,12 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
       the JAX default ``optax.sgd(1e-2, momentum=0.9)``) over the whole
       leaves and the slices; it is the returned ``opt_state``.
 
-    Raises ``ValueError`` for a mesh holding another process's records
+    Raises ``ValueError`` for a ``model`` group across processes, and for
+    data shards of processes that are not every rank of the group
     (:func:`_shard_groups`)."""
     from ..models.convert import tree_module_of
 
-    groups = _shard_groups(mesh, data_axis)
+    groups, ranks = _shard_groups(mesh, data_axis)
     device = groups[0][0].torch_device
     entry = tree_module_of(apply_fn) \
         if not isinstance(params, torch.nn.Module) else None
@@ -953,7 +1094,7 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
     leaves = _trainable_leaves(params)
     opt_state = (optimizer or make_optimizer())(leaves)
     step = TrainStep(apply, params, opt_state, leaves, loss_fn, groups,
-                     placement)
+                     placement, ranks)
     return step, params, opt_state
 
 

@@ -29,11 +29,28 @@ of it is torch ops
 and ``.to()`` copies, so autograd carries each shard's gradient through
 the other shards' statistics; no backward is written by hand.
 
+Across processes (a mesh whose data shards lie on more than one rank,
+:class:`RankShards`) a layer takes one exchange more: after the barrier
+the lead shard (shard 0, the step's calling thread) writes its rank's
+``(mean_k, var_k)`` rows into a zero-filled ``(S_global, 2C)`` buffer at
+their global shard indices and all-reduces it (SUM, exact: each entry has
+one non-zero term); every local shard waits at a second barrier, then
+reads the buffer and combines all S_global shards by the same formula in
+global shard order.  The exchange is a ``torch.autograd.Function``
+(:class:`RankExchange`) whose backward all-reduces the gradient buffer
+and keeps the rank's own rows, so each rank's rows get the gradient of
+every rank's loss through the statistics.  One thread a rank issues each
+collective, and every rank issues them in one order: the forward's in
+layer order, the backward's in reverse, since all of a step's exchange
+nodes sit on the lead shard's device and each layer's statistics depend
+on the layer before (a chain of batch-norm layers: every model of the
+port).
+
 A shard that raises aborts the barrier, so the others raise
 :class:`ShardGroupError` instead of waiting; a barrier that waits longer
 than the group's timeout breaks the same way, naming the layer and the
 shards that did not arrive.  No path carries on with a shard's own
-statistics.
+statistics, or with its own rank's.
 """
 
 from __future__ import annotations
@@ -59,21 +76,87 @@ class ShardGroupError(RuntimeError):
     error."""
 
 
+class RankShards:
+    """This process's data shards among every process's: ``index`` holds
+    the global shard index of each local shard (in local shard order),
+    ``size`` the number of shards over every rank of the default process
+    group.  ``exchange_s`` counts the host seconds spent in the
+    exchanges' all-reduces, forward and backward."""
+
+    def __init__(self, index: Sequence[int], size: int):
+        from .multihost import process_info
+
+        self.index = [int(i) for i in index]
+        self.size = int(size)
+        self.rank, self.world = process_info()
+        self.exchange_s = 0.0
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        """SUM ``t`` in place over every rank (the caller's backend: gloo
+        or NCCL, whichever the group was formed with)."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t)
+
+    def exchange(self, local: torch.Tensor) -> torch.Tensor:
+        """``(S_global, W)`` of every rank's rows from this rank's
+        ``(S_local, W)`` (:class:`RankExchange`), timed into
+        ``exchange_s``."""
+        return RankExchange.apply(local, self)
+
+
+class RankExchange(torch.autograd.Function):
+    """Every rank's shard rows from each rank's own.
+
+    forward: one ``all_reduce(SUM)`` of a zero-filled ``(S_global, W)``
+    buffer in which this rank fills its shards' rows; backward: one
+    ``all_reduce(SUM)`` of the gradient buffer, of which this rank keeps
+    its own rows (the sum over every rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, ranks: RankShards):
+        ctx.ranks = ranks
+        buf = local.new_zeros((ranks.size, local.shape[1]))
+        buf[ranks.index] = local
+        t0 = time.perf_counter()
+        ranks.all_reduce(buf)
+        ranks.exchange_s += time.perf_counter() - t0
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        ranks = ctx.ranks
+        g = grad.clone(memory_format=torch.contiguous_format)
+        t0 = time.perf_counter()
+        ranks.all_reduce(g)
+        ranks.exchange_s += time.perf_counter() - t0
+        return g[ranks.index], None
+
+
 class ShardGroup:
     """The data shards of one training step: ``size`` slots, one barrier,
-    and each shard's thread entering through :meth:`shard`.
+    and each shard's thread entering through :meth:`shard`; with
+    ``ranks`` (:class:`RankShards`) the shards of this process among
+    every process's.
 
     Posts alternate between two slot rows by layer parity: a shard posts
     layer L+1 only after every shard has passed layer L's barrier, and
     each shard reads layer L's row right after that barrier, before it
-    posts again."""
+    posts again.  Across ranks the lead's exchanged buffer alternates the
+    same way, read after the second barrier."""
 
-    def __init__(self, size: int, timeout: float = BARRIER_TIMEOUT_S):
+    def __init__(self, size: int, timeout: float = BARRIER_TIMEOUT_S,
+                 ranks: Optional[RankShards] = None):
         self.size = int(size)
         self.timeout = float(timeout)
+        self.ranks = ranks
+        if ranks is not None and len(ranks.index) != self.size:
+            raise ValueError(f"sync batch norm: {self.size} shards, "
+                             f"{len(ranks.index)} global shard indices")
         self._barrier = threading.Barrier(self.size)
         self._rows: Tuple[List, List] = ([None] * self.size,
                                          [None] * self.size)
+        self._swapped: List[Optional[Tuple]] = [None, None]
         self._posted = [-1] * self.size      # each shard's last layer
         self._weights: Dict[Tuple, torch.Tensor] = {}
         self._lock = threading.Lock()
@@ -120,16 +203,30 @@ class ShardGroup:
             self._weights[key] = w    # a race only makes it twice
         return w
 
-    def _broken(self, index: int, layer: int) -> ShardGroupError:
+    def _broken(self, index: int, layer: int,
+                exchanged: bool = False) -> ShardGroupError:
         err = self.error
         if err is not None and err[0] != index:
             return ShardGroupError(
                 f"sync batch norm: layer {layer}: shard {err[0]} raised "
                 f"{type(err[1]).__name__}: {err[1]}")
+        if exchanged:
+            return ShardGroupError(
+                f"sync batch norm: layer {layer}: the exchange across "
+                f"ranks did not finish within {self.timeout:g} s")
         late = [j for j, p in enumerate(self._posted) if p < layer]
         return ShardGroupError(
             f"sync batch norm: layer {layer}: shards {late} of "
             f"{self.size} did not arrive within {self.timeout:g} s")
+
+    def _wait(self, index: int, layer: int, exchanged: bool = False) -> None:
+        t0 = time.perf_counter()
+        try:
+            with GATE.outside():      # a wait, not a torch op
+                self._barrier.wait(self.timeout)
+        except threading.BrokenBarrierError:
+            raise self._broken(index, layer, exchanged) from None
+        self.wait_s[index] += time.perf_counter() - t0
 
     def moments(self, index: int, layer: int, y32: torch.Tensor,
                 dims: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -142,20 +239,40 @@ class ShardGroup:
         row = self._rows[layer % 2]
         row[index] = (n, mean, var, ready)
         self._posted[index] = layer
-        t0 = time.perf_counter()
-        try:
-            with GATE.outside():      # a wait, not a torch op
-                self._barrier.wait(self.timeout)
-        except threading.BrokenBarrierError:
-            raise self._broken(index, layer) from None
-        self.wait_s[index] += time.perf_counter() - t0
+        self._wait(index, layer)
         dev = mean.device
-        ns = [p[0] for p in row]
+        if self.ranks is None:
+            ns = [p[0] for p in row]
+            m = torch.stack([_fetch(p[1], p[3], dev) for p in row])
+            v = torch.stack([_fetch(p[2], p[3], dev) for p in row])
+        else:
+            if index == 0:
+                self._swapped[layer % 2] = self._exchange(row, dev)
+            self._wait(index, layer, exchanged=True)
+            got, ready = self._swapped[layer % 2]
+            r = _fetch(got, ready, dev)
+            c = r.shape[1] // 2
+            m, v = r[:, :c].contiguous(), r[:, c:].contiguous()
+            # every shard holds b/S_global rows of one row shape (the
+            # step checks it across ranks before its forward)
+            ns = [n] * self.ranks.size
         w = self._weights_on(dev, ns)
-        m = torch.stack([_fetch(p[1], p[3], dev) for p in row])
-        v = torch.stack([_fetch(p[2], p[3], dev) for p in row])
         mu = (w * m).sum(0)
         return mu, (w * (v + (m - mu) ** 2)).sum(0)
+
+    def _exchange(self, row, dev: torch.device):
+        """The lead's cross-rank exchange of one layer: this rank's
+        ``(mean_k, var_k)`` rows gathered on the lead's device, every
+        rank's after the all-reduce, and an event behind it where it lies
+        on a card."""
+        m = torch.stack([_fetch(p[1], p[3], dev) for p in row])
+        v = torch.stack([_fetch(p[2], p[3], dev) for p in row])
+        got = self.ranks.exchange(torch.cat([m, v], 1))
+        ready = None
+        if got.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(got.device))
+        return got, ready
 
 
 def _fetch(t: torch.Tensor, ready, dev: torch.device) -> torch.Tensor:

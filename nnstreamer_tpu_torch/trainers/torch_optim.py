@@ -21,10 +21,12 @@ pipeline asks for it; without a card a CUDA pipeline's trainer raises.
 - ``lr``      — learning rate (default 1e-2)
 - ``batch_size`` — micro-batch assembled from the sample stream
   (default 8; rounded up to a multiple of the data-axis size)
-- ``mesh``    — mesh spec string, default ``"data:-1"``, over the
-  records of the pipeline device's platform (every card, or the
-  virtual records when set); its first data shard must lead on the
-  pipeline's device, where the batch is stacked.  Over S > 1 data
+- ``mesh``    — mesh spec string, default ``"data:-1"``, over this
+  process's records of the pipeline device's platform (every card, or
+  the virtual records when set: in a world of several ranks each rank's
+  trainer trains alone, as the JAX ``jax-optax`` trainer, whose step
+  JAX refuses numpy rows on a mesh across processes); its first data
+  shard must lead on the pipeline's device, where the batch is stacked.  Over S > 1 data
   shards the step splits, with the batch statistics over all of them
   (``parallel/sharded.py``, ``parallel/syncbn.py``); a ``model`` axis
   of M > 1 splits the pointwise convolutions and the dense head into M

@@ -68,7 +68,9 @@ over a card record and a ``cpu`` record against the stacked card step at
 the same limits (sgd, adam), and ``data:2`` over two real cards, skipped
 where the machine has fewer, naming the count; the card + ``cpu`` split
 with the caller on a side stream behind spin kernels, bit-equal to the
-default streams.
+default streams; two gloo ranks each over a card record and a ``cpu``
+record against the one-process ``data:4`` step over the same records
+(the ranks' leaves bit-equal).
 The importers on the card (files from ``tests/torch_model_files.py`` at
 width 0.25, 96x96): the ONNX QLinear MobileNetV2 in its integer modes
 (int8, dequant, bf16) and the TFLite one in ``dequant`` give the CPU's
@@ -1870,6 +1872,100 @@ def test_train_step_split_over_two_cards_matches_stacked(card, monkeypatch):
     lp, tp, step = _split_small_run(recs, "sgd")
     assert step.devices == [torch.device("cuda", 0), torch.device("cuda", 1)]
     _hold_split_leaves(lp, tp, ls, ts, "sgd")
+
+
+RANK_WORKER = """\
+import functools, pickle, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from nnstreamer_tpu_torch.models import convert, mobilenet
+from nnstreamer_tpu_torch.parallel import mesh, multihost, sharded
+from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+multihost.initialize(coordinator_address="127.0.0.1:" + port,
+                     num_processes=2, process_id=rank, backend="gloo")
+devs = (torch.device("cuda", 0), torch.device("cpu"))
+recs = [mesh.Device(d.type, 2 * r + i, r, d)
+        for r in range(2) for i, d in enumerate(devs)]
+rng = np.random.default_rng(3)
+xs = rng.standard_normal((3, 16, 32, 32, 3)).astype(np.float32)
+ys = rng.integers(0, 10, (3, 16)).astype(np.int32)
+step, p, o = sharded.train_step(
+    mesh.make_mesh("data:4", recs),
+    functools.partial(convert.mobilenet_v1_tree_apply, dtype=torch.float32),
+    mobilenet.mobilenet_v1_init(0, 10, 0.25),
+    optimizer=_make_optimizer({{"optimizer": "sgd", "lr": 1e-4}}))
+assert step.devices == list(devs)
+losses = []
+for x, y in zip(xs, ys):
+    p, o, loss = step(p, o, x[8 * rank:8 * rank + 8], y[8 * rank:8 * rank + 8])
+    losses.append(float(loss))
+step.close()
+with open(out, "wb") as f:
+    pickle.dump((losses, sharded.trained_tree(p)), f)
+multihost.shutdown()
+"""
+
+
+def test_two_ranks_over_a_card_and_a_cpu_record_each_match_one_process(
+        card, tmp_path, monkeypatch):
+    """Two gloo ranks, each with a card shard and a ``cpu`` shard (two
+    distinct devices of one rank: the backward runs on the card's
+    autograd thread and the CPU's, and every rank must issue the
+    exchanges' all-reduces in one order), against the one-process
+    ``data:4`` step over the same four records, at the split step's
+    limits; the ranks' losses and leaves bit-equal."""
+    import pickle
+    import socket
+    import subprocess
+    import sys
+
+    from nnstreamer_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    script = tmp_path / "rank_worker.py"
+    script.write_text(RANK_WORKER.format(repo=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK"))}
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(r), port,
+         str(tmp_path / f"rank{r}.pkl")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=300)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    for r, (pr, out) in enumerate(zip(procs, outs)):
+        assert pr.returncode == 0, f"rank {r}:\n{out}"
+    got = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            got.append(pickle.load(f))
+    (l0, t0), (l1, t1) = got
+    assert l0 == l1
+    for a, b in zip(_tree_leaves(t0), _tree_leaves(t1)):
+        assert a.tobytes() == b.tobytes()
+    devs = (torch.device("cuda", 0), torch.device("cpu"))
+    recs = [mesh.Device(d.type, i, 0, d) for i, d in enumerate(devs * 2)]
+    lp, tp, _ = _split_small_run(recs, "sgd")
+    _hold_split_leaves(l0, t0, lp, tp, "sgd")
 
 
 #: cycles of each spin kernel of the side-stream test (about 10 ms)

@@ -1,0 +1,628 @@
+"""The port's train step across processes (``parallel/sharded.py``
+``TrainStep`` with ``ranks``, ``parallel/syncbn.py`` ``RankShards``), on
+the CPU: two worker processes join one gloo group through
+``multihost.initialize``, each with 4 virtual ``cpu`` records
+(``set_virtual_devices(4, "cpu")``), and train on
+``make_mesh("data:-1")`` over both ranks' 8 records, each rank feeding
+its own 8 rows of the 16-row batch.  Beside them two JAX CPU workers
+(``--xla_force_host_platform_device_count=4`` each) join through the JAX
+package's ``multihost.initialize`` and run its ``train_step`` on its
+``make_mesh("data:-1")``, each feeding its rows through
+``jax.make_array_from_process_local_data``.  One worker pair of each
+runs every case, and a fifth process computes the one-process
+references meanwhile; each has its own timeout, each pair its free port,
+and each lowers its own priority (``os.nice``), so the other test
+files' workers keep the host first.
+
+The tree, rows and optimizers are ``tests/test_torch_training.py``'s
+``_step_tree()`` and ``_step_data()``: MobileNetV1 at width 0.25, 10
+classes, 32x32, batch 16, f32, lr 1e-4, 3 steps.
+
+(a) Against the JAX step on two processes (sgd), at that file's item 4
+    limits: the first loss rtol 1e-5, later losses 5e-3, every leaf's
+    update within relative norm 0.1, mean/var left bit for bit.  adam
+    and adamw against the one-device JAX step (the JAX step fails them
+    on a multi-device mesh: ROADMAP queue C), update gap 0.4.
+(b) Against the port's one-process split step, ``data:8`` over 8
+    virtual records, on the same global batch: losses rtol 1e-5, leaves
+    atol 1e-4 (item 7's limits), for sgd, adam and adamw; rank 0's losses
+    and leaves bit-equal to rank 1's.  Under adam/adamw the leaves are
+    held to the larger of 1e-4 and the one-process step's own spread over
+    two row orders of its batches (the same function, other orders of its
+    sums), as ``chip_smoke.py`` 20g holds its split step: adam turns the
+    sign of a gradient entry within rounding of zero into a step of lr,
+    and the two ranks sum each leaf's gradient in another order (each
+    rank's shards, then the ranks) than one process does.  Measured: the
+    two ranks 1.49e-4 from one process under adam and adamw, one process
+    1.75e-4 to 1.97e-4 from itself over three row orders; under sgd
+    1.19e-7 (3.98e-5 with the references on 8 threads, not 2).
+(c) Planted faults, each of which (b) must fail: the gradients not
+    all-reduced, the statistics combined within the rank only.
+(d) ``data:4,model:2`` over the two ranks (every ``model`` group inside
+    one rank) against the one-process ``data:4,model:2`` step: the first
+    loss rtol 1e-6 and leaves atol 5e-5 (``test_model_split_step_matches_
+    replicated``'s limits), the later losses at (b)'s rtol 1e-5: after an
+    update they carry the leaves' rounding from the other order of the
+    gradient sums.  Measured: the first loss bit-equal, the later ones
+    within 1.08e-6 to 1.66e-6, leaves 1.19e-7.
+(e) Refusals, each raised on every rank: a ``model`` group across the
+    ranks, rows of unequal count on the two ranks, a batch that does not
+    split over the rank's shards, rows of another shape.  In this
+    process: ``RankExchange`` against a stand-in all-reduce (its buffer,
+    its rows, its backward), and the mesh refusals that need no group.
+(f) The ``torch-optim`` trainer element builds its mesh over
+    ``local_devices``: in the two-rank world each rank's trainer trains
+    on its own records and rows alone, as a one-process trainer on those
+    rows does (the JAX ``jax-optax`` trainer cannot train across
+    processes: ROADMAP queue C).
+"""
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from nnstreamer_tpu_torch.parallel import mesh as tmesh
+from nnstreamer_tpu_torch.trainers import TrainerProps
+from nnstreamer_tpu_torch.trainers import torch_optim
+import test_torch_training
+from test_torch_training import (STEP_LR, UPDATE_GAP, _hold_updates,
+                                 _jax_steps, _pairs, _port_steps, _step_data,
+                                 _step_tree, _update_gaps)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: (b): the two-rank step against the one-process split step
+SPLIT_LOSS_RTOL = 1e-5
+SPLIT_LEAF_ATOL = 1e-4
+#: (d): the two-rank model split against the one-process model split:
+#: the first loss, the leaves (later losses at SPLIT_LOSS_RTOL)
+MODEL_FIRST_LOSS_RTOL = 1e-6
+MODEL_LEAF_ATOL = 5e-5
+#: seconds each worker may take, and a refusal on a rank
+WORKER_TIMEOUT_S = 420
+REFUSAL_S = 30.0
+TOY_SAMPLES = 16
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _virtual_devices():
+    tmesh.set_virtual_devices(8, "cpu")
+    yield
+    tmesh.clear_virtual_devices()
+
+
+PORT_WORKER = textwrap.dedent("""\
+    import functools
+    import os
+    import pickle
+    import sys
+    import time
+    os.nice(10)
+    sys.path.insert(0, {repo!r})
+    import numpy as np
+    import torch
+
+    pid, port, cfg_path, out_path = (int(sys.argv[1]), sys.argv[2],
+                                     sys.argv[3], sys.argv[4])
+
+    from nnstreamer_tpu_torch.models import convert
+    from nnstreamer_tpu_torch.parallel import mesh, multihost, sharded
+    from nnstreamer_tpu_torch.parallel import syncbn
+    from nnstreamer_tpu_torch.trainers import TrainerProps, torch_optim
+
+    mesh.set_virtual_devices(4, "cpu")
+    multihost.initialize(coordinator_address="127.0.0.1:" + port,
+                         num_processes=2, process_id=pid, backend="gloo")
+    with open(cfg_path, "rb") as f:
+        cfg = pickle.load(f)
+    tree, xs, ys = cfg["tree"], cfg["xs"], cfg["ys"]
+    b = xs.shape[1] // 2
+    mine = slice(pid * b, (pid + 1) * b)
+    apply = functools.partial(convert.mobilenet_v1_tree_apply,
+                              dtype=torch.float32)
+    out = {{"runs": {{}}, "refusals": {{}}}}
+
+    def build(name, spec):
+        opt = torch_optim._make_optimizer({{"optimizer": name,
+                                           "lr": cfg["lr"]}})
+        return sharded.train_step(mesh.make_mesh(spec), apply, tree,
+                                  optimizer=opt)
+
+    def run(case, name, spec="data:-1"):
+        step, tp, to = build(name, spec)
+        assert step.ranks is not None and step.ranks.size == 8 // \\
+            mesh.make_mesh(spec).shape.get("model", 1), step.ranks
+        assert all(g[0].process_index == pid for g in step.groups)
+        losses = []
+        for x, y in zip(xs, ys):
+            tp, to, loss = step(tp, to, x[mine], y[mine])
+            losses.append(float(loss))
+        step.close()
+        out["runs"][case] = {{"losses": losses,
+                             "tree": sharded.trained_tree(tp),
+                             "split": step.placement is not None}}
+        print(f"ran {{case}} process={{pid}} losses={{losses}}", flush=True)
+
+    for name in ("sgd", "adam", "adamw"):
+        run(name, name)
+    run("model", "sgd", "data:4,model:2")
+
+    # -- planted faults, the same on both ranks ---------------------------
+    real_reduce = sharded.TrainStep._reduce
+
+    def loss_only(self, loss):   # the gradients left as each rank's own
+        total = loss.clone()
+        self.ranks.all_reduce(total)
+        return total
+
+    sharded.TrainStep._reduce = loss_only
+    try:
+        run("no_grad_reduce", "sgd")
+    finally:
+        sharded.TrainStep._reduce = real_reduce
+    real_group = syncbn.ShardGroup
+    syncbn.ShardGroup = lambda size, timeout, ranks=None: real_group(
+        size, timeout)   # each rank's shards combined among themselves
+    try:
+        run("rank_stats", "sgd")
+    finally:
+        syncbn.ShardGroup = real_group
+
+    # -- refusals, each on every rank -------------------------------------
+    def refused(case, fn):
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except ValueError as e:
+            out["refusals"][case] = (str(e), time.perf_counter() - t0)
+        else:
+            out["refusals"][case] = (None, time.perf_counter() - t0)
+        print(f"refusal {{case}} process={{pid}}: "
+              f"{{out['refusals'][case]}}", flush=True)
+
+    refused("model_group_across_ranks",
+            lambda: build("sgd", "model:2,data:4"))
+    step, tp, to = build("sgd", "data:-1")
+    rows = 8 if pid == 0 else 4
+    refused("unequal_rows", lambda: step(tp, to, xs[0][:rows], ys[0][:rows]))
+    rows = 6 if pid == 0 else 8
+    refused("batch_not_split",
+            lambda: step(tp, to, xs[0][:rows], ys[0][:rows]))
+    side = 32 if pid == 0 else 16
+    refused("row_shape",
+            lambda: step(tp, to, xs[0][:8, :side, :side], ys[0][:8]))
+    step.close()
+
+    # -- the trainer element: its mesh is this rank's records -------------
+    sp = torch_optim.TorchOptimTrainer()
+    sp.configure(TrainerProps(
+        model_config={{"apply": lambda p, x, train=False: x @ p["w"] + p["b"],
+                       "init": cfg["toy_init"], "batch_size": 8, "lr": 0.1,
+                       "mesh": "data:-1"}},
+        num_training_samples={toy}, num_epochs=1, device="cpu"),
+        lambda ev, data: None)
+    sp.start()
+    try:
+        for x, y in cfg["toy"][pid]:
+            sp.push_data([x], [y])
+        assert sp.finished.wait(60) and sp.error is None, sp.error
+        tmesh_, step = sp.built[0], sp.built[1]
+        out["trainer"] = {{
+            "records": [d.process_index for d in tmesh_.devices.flat],
+            "ranks": step.ranks, "shards": step.data_size,
+            "params": sp.trained_params()}}
+    finally:
+        sp.stop()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    print(f"worker ok process={{pid}}", flush=True)
+    multihost.shutdown()
+""")
+
+JAX_WORKER = textwrap.dedent("""\
+    import functools
+    import os
+    import pickle
+    import sys
+    os.nice(10)
+    sys.path.insert(0, {repo!r})
+    import numpy as np
+
+    pid, port, cfg_path, out_path = (int(sys.argv[1]), sys.argv[2],
+                                     sys.argv[3], sys.argv[4])
+
+    from nnstreamer_tpu.parallel import multihost
+
+    multihost.initialize(coordinator_address="127.0.0.1:" + port,
+                         num_processes=2, process_id=pid)
+
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from nnstreamer_tpu.models import mobilenet as jmb
+    from nnstreamer_tpu.parallel import make_mesh, train_step
+    from nnstreamer_tpu.parallel.sharded import batch_sharding
+
+    with open(cfg_path, "rb") as f:
+        cfg = pickle.load(f)
+    xs, ys = cfg["xs"], cfg["ys"]
+    b = xs.shape[1] // 2
+    mine = slice(pid * b, (pid + 1) * b)
+    mesh = make_mesh("data:-1")
+    assert len(jax.devices()) == 8 and jax.process_count() == 2
+    step, p, o = train_step(
+        mesh, functools.partial(jmb.mobilenet_v1_apply, dtype=jnp.float32),
+        cfg["tree"], optimizer=optax.sgd(cfg["lr"], momentum=0.9))
+    rows = batch_sharding(mesh)
+    losses = []
+    for x, y in zip(xs, ys):
+        p, o, loss = step(
+            p, o, jax.make_array_from_process_local_data(rows, x[mine],
+                                                         x.shape),
+            jax.make_array_from_process_local_data(rows, y[mine], y.shape))
+        losses.append(float(loss))
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a.addressable_data(0)),
+                                  p)
+    with open(out_path, "wb") as f:
+        pickle.dump({{"losses": losses, "tree": tree}}, f)
+    print(f"jax ok process={{pid}} losses={{losses}}", flush=True)
+""")
+
+
+REFS_WORKER = textwrap.dedent("""\
+    import os
+    import pickle
+    import sys
+    os.nice(10)
+    sys.path.insert(0, {repo!r})
+    sys.path.insert(0, os.path.join({repo!r}, "tests"))
+    import torch
+
+    from nnstreamer_tpu_torch.parallel import mesh
+
+    mesh.set_virtual_devices(8, "cpu")
+    torch.set_num_threads(2)
+    import test_torch_training_multihost as t
+
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(t._references(), f)
+""")
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _toy():
+    """(f)'s linear model and each rank's own samples."""
+    rng = np.random.default_rng(12)
+    init = {"w": np.full((6, 4), 0.1, np.float32),
+            "b": np.zeros(4, np.float32)}
+    per_rank = [[(rng.standard_normal(6).astype(np.float32),
+                  np.array([i % 4], np.int32)) for i in range(TOY_SAMPLES)]
+                for _ in range(2)]
+    return init, per_rank
+
+
+def _one_process(name, mesh="data:8", perm=None):
+    """The one-process step's 3 losses and tree (``_port_steps``), on
+    ``_step_data``'s rows in the order ``perm`` where given (patched into
+    ``test_torch_training``, whose ``_port_steps`` reads them)."""
+    if perm is None:
+        return _port_steps(name, STEP_LR, mesh=mesh)
+    xs, ys = _step_data()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(test_torch_training, "_step_data",
+                   lambda: (xs[:, perm], ys[:, perm]))
+        return _port_steps(name, STEP_LR, mesh=mesh)
+
+
+def _references():
+    """What the workers are held to (``REFS_WORKER`` computes it while
+    they run, 8 virtual records, 2 threads): the one-process split steps,
+    the adam/adamw spread over row orders, the one-device JAX adam/adamw
+    steps."""
+    refs = {name: _one_process(name) for name in ("sgd", "adam", "adamw")}
+    refs["model"] = _one_process("sgd", "data:4,model:2")
+    refs["spread"], refs["jax"] = {}, {}
+    for name in ("adam", "adamw"):
+        refs["spread"][name] = max(
+            _split_gaps(_one_process(name, perm=np.random.default_rng(
+                seed).permutation(16)), refs[name])[1] for seed in (0, 1))
+        refs["jax"][name] = _jax_steps(name, STEP_LR)
+    return refs
+
+
+def _start(tmp, name, text, args, env, n=2):
+    """``n`` processes of ``text`` (process i gets ``i``, then ``args``,
+    then its output path), at a lower priority (each script lowers its
+    own): they share the host with other test files' workers."""
+    script = tmp / f"{name}_worker.py"
+    script.write_text(text.format(repo=REPO, toy=TOY_SAMPLES))
+    return [(subprocess.Popen(
+        [sys.executable, str(script)] + ([str(i)] if n > 1 else [])
+        + [str(a) for a in args] + [str(tmp / f"{name}{i}.pkl")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=str(tmp)), tmp / f"{name}{i}.pkl") for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both worker pairs and the references, started together: {"port":
+    [rank 0's, rank 1's results], "jax": [...], "refs": [what they are
+    held to]}."""
+    tmp = tmp_path_factory.mktemp("training_multihost")
+    xs, ys = _step_data()
+    init, per_rank = _toy()
+    cfg = tmp / "cfg.pkl"
+    with open(cfg, "wb") as f:
+        pickle.dump({"tree": _step_tree(), "xs": xs, "ys": ys, "lr": STEP_LR,
+                     "toy_init": init, "toy": per_rank}, f)
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK"))}
+    port_env = dict(base, OMP_NUM_THREADS="1")
+    jax_env = dict(base, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    refs_env = dict(base, JAX_PLATFORMS="cpu",
+                    XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    pairs = {"port": _start(tmp, "port", PORT_WORKER,
+                            [_free_port(), cfg], port_env),
+             "jax": _start(tmp, "jax", JAX_WORKER, [_free_port(), cfg],
+                           jax_env),
+             "refs": _start(tmp, "refs", REFS_WORKER, [], refs_env, n=1)}
+    deadline = time.monotonic() + WORKER_TIMEOUT_S
+    outs, failed = {}, []
+    try:
+        for kind, procs in pairs.items():
+            for i, (pr, _) in enumerate(procs):
+                try:
+                    out, _ = pr.communicate(
+                        timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    failed.append(f"{kind} worker {i} timed out")
+                    continue
+                outs[(kind, i)] = out
+                if pr.returncode != 0:
+                    failed.append(f"{kind} worker {i} exit "
+                                  f"{pr.returncode}:\n{out}")
+    finally:
+        for procs in pairs.values():
+            for pr, _ in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.communicate()
+    if failed:
+        pytest.fail("\n".join(failed))
+    res = {}
+    for kind, procs in pairs.items():
+        res[kind] = []
+        for _, path in procs:
+            with open(path, "rb") as f:
+                res[kind].append(pickle.load(f))
+    return res
+
+
+def _split_gaps(got, want):
+    """(losses rel, leaves max) of ``got`` against ``want`` (each
+    ``(losses, tree)``)."""
+    (lg, tg), (lw, tw) = got, want
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lw))
+    worst = max(float(np.abs(a - b).max()) for _, a, b in _pairs(tw, tg))
+    return rel, worst
+
+
+def _ran(runs, case, rank=0):
+    r = runs["port"][rank]["runs"][case]
+    return r["losses"], r["tree"]
+
+
+# -- (a) against the JAX step ---------------------------------------------------
+
+
+def test_two_ranks_match_the_jax_step_on_two_processes(runs):
+    jax_runs = runs["jax"]
+    assert jax_runs[0]["losses"] == jax_runs[1]["losses"]
+    jl, jp = jax_runs[0]["losses"], jax_runs[0]["tree"]
+    tl, got = _ran(runs, "sgd")
+    assert tl[0] == pytest.approx(jl[0], rel=1e-5)
+    assert tl == pytest.approx(jl, rel=5e-3)
+    gaps = _update_gaps(_step_tree(), jp, got)
+    print(f"two ranks against the two-process JAX step, sgd: losses rel "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(tl, jl)):.3e}, largest "
+          f"leaf update gap {max(gaps.values()):.3e}")
+    _hold_updates(gaps, UPDATE_GAP["sgd"])
+    assert all(g == 0.0 for p, g in gaps.items()
+               if p.endswith(("/mean", "/var")))
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_two_ranks_match_the_one_device_jax_step(runs, name):
+    jl, jp = runs["refs"][0]["jax"][name]
+    tl, got = _ran(runs, name)
+    assert tl[0] == pytest.approx(jl[0], rel=1e-5)
+    assert tl == pytest.approx(jl, rel=5e-3)
+    gaps = _update_gaps(_step_tree(), jp, got)
+    print(f"two ranks against the one-device JAX step, {name}: largest "
+          f"leaf update gap {max(gaps.values()):.3e}")
+    _hold_updates(gaps, UPDATE_GAP[name])
+
+
+# -- (b) against the one-process split step ----------------------------------------
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam", "adamw"])
+def test_two_ranks_match_the_one_process_split_step(runs, name):
+    rel, worst = _split_gaps(_ran(runs, name), runs["refs"][0][name])
+    spread = runs["refs"][0]["spread"].get(name, 0.0)
+    print(f"two ranks against one process on data:8, {name}: losses rel "
+          f"{rel:.3e}, leaves max {worst:.3e}" + (
+              f" (the one process over row orders: {spread:.3e})"
+              if spread else ""))
+    assert rel <= SPLIT_LOSS_RTOL
+    assert worst <= max(SPLIT_LEAF_ATOL, spread)
+
+
+@pytest.mark.parametrize("case", ["sgd", "adam", "adamw", "model"])
+def test_the_ranks_leaves_are_bit_equal(runs, case):
+    (l0, t0), (l1, t1) = _ran(runs, case, 0), _ran(runs, case, 1)
+    assert l0 == l1
+    pairs = list(_pairs(t0, t1))
+    assert len(pairs) == 5 + 13 * 2 * 5 + 2
+    for path, a, b in pairs:
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), path
+
+
+# -- (c) planted faults ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fault", ["no_grad_reduce", "rank_stats"])
+def test_planted_faults_fail_the_split_check(runs, fault):
+    rel, worst = _split_gaps(_ran(runs, fault), runs["refs"][0]["sgd"])
+    print(f"planted {fault}: losses rel {rel:.3e}, leaves max {worst:.3e}")
+    assert rel > SPLIT_LOSS_RTOL or worst > SPLIT_LEAF_ATOL
+    assert worst > 10 * SPLIT_LEAF_ATOL
+
+
+# -- (d) model groups inside each rank ---------------------------------------------
+
+
+def test_model_groups_inside_ranks_match_one_process(runs):
+    assert runs["port"][0]["runs"]["model"]["split"]
+    got, want = _ran(runs, "model"), runs["refs"][0]["model"]
+    rel, worst = _split_gaps(got, want)
+    print(f"two ranks on data:4,model:2 against one process: losses rel "
+          f"{rel:.3e}, leaves max {worst:.3e}")
+    assert got[0][0] == pytest.approx(want[0][0], rel=MODEL_FIRST_LOSS_RTOL)
+    assert rel <= SPLIT_LOSS_RTOL
+    assert worst <= MODEL_LEAF_ATOL
+
+
+# -- (e) refusals ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case,match", [
+    ("model_group_across_ranks",
+     r"model group of data shard 0 \(cpu:0, cpu:4\) lies on processes "
+     r"\[0, 1\]"),
+    ("unequal_rows", r"unequal count .*\[\(8, 4\), \(4, 4\)\]"),
+    ("batch_not_split", r"batch of rank 0 \(6 rows\) does not split over "
+     r"its 4 data shards"),
+    ("row_shape", r"differ in shape \(row shape by rank: \[\[32, 32, 3\], "
+     r"\[16, 16, 3\]\]\)")])
+def test_refusals_raise_on_every_rank(runs, case, match):
+    import re
+
+    for rank in (0, 1):
+        msg, took = runs["port"][rank]["refusals"][case]
+        assert msg is not None, f"rank {rank} was not refused"
+        assert re.search(match, msg), msg
+        assert took < REFUSAL_S
+
+
+# -- (f) the trainer element trains each rank alone --------------------------------
+
+
+def test_the_trainer_element_trains_each_rank_alone(runs):
+    init, per_rank = _toy()
+    got = []
+    for rank in (0, 1):
+        tr = runs["port"][rank]["trainer"]
+        assert tr["records"] == [rank] * 4 and tr["ranks"] is None
+        assert tr["shards"] == 4
+        # a one-process trainer on this rank's rows, on 4 records
+        tmesh.set_virtual_devices(4, "cpu")
+        sp = torch_optim.TorchOptimTrainer()
+        sp.configure(TrainerProps(
+            model_config={"apply": lambda p, x, train=False:
+                          x @ p["w"] + p["b"], "init": init,
+                          "batch_size": 8, "lr": 0.1, "mesh": "data:-1"},
+            num_training_samples=TOY_SAMPLES, num_epochs=1, device="cpu"),
+            lambda ev, data: None)
+        sp.start()
+        try:
+            for x, y in per_rank[rank]:
+                sp.push_data([x], [y])
+            assert sp.finished.wait(60) and sp.error is None
+            want = sp.trained_params()
+        finally:
+            sp.stop()
+            tmesh.set_virtual_devices(8, "cpu")
+        for k in ("w", "b"):
+            np.testing.assert_allclose(tr["params"][k], want[k], rtol=0,
+                                       atol=1e-6, err_msg=k)
+        got.append(tr["params"])
+    assert not np.allclose(got[0]["w"], got[1]["w"], atol=1e-3)
+
+
+def test_rank_exchange_fills_its_rows_and_keeps_their_gradient(monkeypatch):
+    """``RankExchange`` with a stand-in all-reduce that adds what the
+    other rank would: forward, a zero buffer with this rank's rows at
+    their global indices plus the other's; backward, the summed gradient
+    buffer's rows of this rank."""
+    from nnstreamer_tpu_torch.parallel import multihost, syncbn
+
+    monkeypatch.setattr(multihost, "process_info", lambda: (1, 2))
+    ranks = syncbn.RankShards([2, 3], 4)
+    assert (ranks.rank, ranks.world, ranks.size) == (1, 2, 4)
+    g = torch.Generator().manual_seed(0)
+    other_fwd = torch.zeros(4, 6)
+    other_fwd[:2] = torch.randn(2, 6, generator=g)
+    other_bwd = torch.randn(4, 6, generator=g)
+    seen = []
+
+    def all_reduce(t):
+        seen.append(t.clone())
+        t.add_(other_fwd if len(seen) == 1 else other_bwd)
+
+    monkeypatch.setattr(ranks, "all_reduce", all_reduce)
+    local = torch.randn(2, 6, generator=g, requires_grad=True)
+    out = ranks.exchange(local)
+    assert torch.equal(seen[0][:2], torch.zeros(2, 6))
+    assert torch.equal(out[:2], other_fwd[:2])
+    assert torch.equal(out[2:], local.detach())
+    w = torch.randn(4, 6, generator=g)
+    (out * w).sum().backward()
+    assert len(seen) == 2 and torch.equal(seen[1], w)
+    assert torch.equal(local.grad, (w + other_bwd)[2:])
+    assert ranks.exchange_s > 0
+
+
+def _records(owners):
+    return [tmesh.Device("cpu", i, p, torch.device("cpu"))
+            for i, p in enumerate(owners)]
+
+
+def test_a_model_group_across_processes_is_refused():
+    from nnstreamer_tpu_torch.parallel import sharded
+
+    mesh = tmesh.make_mesh("model:2,data:2", _records([0, 0, 1, 1]))
+    with pytest.raises(ValueError, match=r"model group of data shard 0 "
+                       r"\(cpu:0, cpu:2\) lies on processes \[0, 1\]"):
+        sharded.train_step(mesh, lambda p, x, train=False: x @ p["w"],
+                           {"w": np.zeros((6, 4), np.float32)})
+
+
+def test_data_shards_of_ranks_outside_the_group_are_refused():
+    """In a one-process world a mesh holding another process's data
+    shards has no group to reduce over: refused, naming the owners."""
+    from nnstreamer_tpu_torch.parallel import sharded
+
+    mesh = tmesh.make_mesh("data:-1", _records([0, 0, 1, 1]))
+    with pytest.raises(ValueError, match=r"data shards of processes "
+                       r"\[0, 1\]; the step runs over every rank of the "
+                       r"process group \(1 here, this one 0\)"):
+        sharded.train_step(mesh, lambda p, x, train=False: x @ p["w"],
+                           {"w": np.zeros((6, 4), np.float32)})
