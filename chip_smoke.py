@@ -13,7 +13,7 @@
     python3 chip_smoke.py --mqtt                      # build + phase 18 only
     python3 chip_smoke.py --parallel                  # build + phase 19 only
     python3 chip_smoke.py --training                  # build + phase 20 only
-    python3 chip_smoke.py --train-rank-child R PORT CFG  # one rank of 20i
+    python3 chip_smoke.py --train-rank-child R PORT CFG  # a rank of 20i/20j
     python3 chip_smoke.py --importers                 # build + phase 21 only
     python3 chip_smoke.py --orbax                     # build + phase 22 only
 
@@ -461,7 +461,28 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    exchanges, samples/s and peak memory, beside the one-process step and
    (a)'s stacked step; (ii) with two or more cards, NCCL with one rank a
    card, ``data:-1`` over them, the same checks, else one line "not run:
-   1 card".  (f) The analyzer over phase 20's descriptions: 0 errors;
+   1 card".  (j) ``model`` groups across processes (a split layer's
+   output gathered over the group's ranks, its input gradient summed
+   over them, each data shard counted once): (i) two gloo children on
+   the one card train (a)'s model on ``make_mesh("model:2")`` (one card
+   record a rank: one data shard whose model group is both ranks), each
+   given the same 128 seeded uint8 rows and normalizing them with
+   ``scale_bias_cast`` (one launch a rank, held against its plain
+   version), sgd at lr 1e-2, ``TRAIN_ALONE_STEPS`` steps, cuDNN's
+   default (not bit-reproducible) algorithms as (a) trains: against the one-process ``data:1,model:2`` step over 2 virtual
+   records on the same batch (first loss rtol 1e-4, later 5e-3, the
+   gathered tree within (b)'s leaf limit), the ranks' gathered trees
+   bit-equal by digest; then (b)'s steps of each optimizer over the
+   ranks against the CPU at (b)'s limits (adam/adamw: (i)'s spread
+   rule), and two planted faults — the input-gradient sum removed, the
+   replicated gradients summed over every rank and not divided by the
+   ranks of a group — must fail.  Each
+   rank prints its step split, the host ms in the gathers, the input
+   reductions, the exchanges and the gradient all-reduce, samples/s and
+   peak memory beside the one-process step; (ii) NCCL, one rank a card:
+   ``model:2,data:2`` over four cards, ``model:2`` over two, else one
+   line "not run: 1 card".  (f) The analyzer over phase 20's
+   descriptions: 0 errors;
 21. the importers (``filters/onnx.py``, ``tflite.py``, ``tensorflow.py``)
    on files the tests' writer (``tests/torch_model_files.py``) makes from
    seeds, and the native codec, under PyTorch's default switches (cuDNN
@@ -8433,12 +8454,17 @@ def _small_run(mesh, name, dtype, step_seen=None, perm=None, rules=None,
     over ``model``): (losses, the trained tree).  ``fault="slice_grad"``
     zeroes the gradient of the last pointwise weight's second slice;
     ``fault="no_grad_reduce"`` leaves each rank with its own gradients
-    (only the loss is summed over the ranks)."""
+    (only the loss is summed over the ranks); on a ``model`` group across
+    ranks ``fault="no_input_reduce"`` drops the sum of a split layer's
+    input gradient over the group and ``fault="every_rank_grads"`` leaves
+    the replicated leaves' gradients summed over every rank undivided
+    (each data shard counted once a rank of its group)."""
     import functools
 
     import torch
 
     from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
+    from nnstreamer_tpu_torch.parallel import sharded
     from nnstreamer_tpu_torch.parallel.sharded import (TrainStep,
                                                        train_step,
                                                        trained_tree)
@@ -8463,6 +8489,14 @@ def _small_run(mesh, name, dtype, step_seen=None, perm=None, rules=None,
             self.ranks.all_reduce(total)
             return total
         TrainStep._reduce = loss_only
+    if fault == "every_rank_grads":
+        def every_rank(self, loss):
+            self.ranks.mates = 1    # the sum over every rank not divided
+            return real_reduce(self, loss)
+        TrainStep._reduce = every_rank
+    real_input = sharded._model_input
+    if fault == "no_input_reduce":
+        sharded._model_input = lambda x, model: x
     step.record_events = True     # a split step keeps its barrier waits
     losses = []
     try:
@@ -8471,6 +8505,7 @@ def _small_run(mesh, name, dtype, step_seen=None, perm=None, rules=None,
             losses.append(float(loss))
     finally:
         TrainStep._reduce = real_reduce
+        sharded._model_input = real_input
         step.close()
     if step_seen is not None:
         step_seen.append(step)
@@ -9412,17 +9447,31 @@ def _timed_steps(step, params, opt, xb, yb, dev) -> dict:
     if step.reduce_ms:
         res["reduce_ms_p50"] = _percentile(step.reduce_ms[1:], 0.5)
         res["exchange_ms_p50"] = _percentile(step.exchange_ms[1:], 0.5)
+        res["gather_ms_p50"] = _percentile(step.gather_ms[1:], 0.5)
+        res["input_ms_p50"] = _percentile(step.input_ms[1:], 0.5)
     return res
 
 
+def _rank_spec(world: int, model: bool) -> str:
+    """20i's mesh (``data:-1``), or 20j's: ``model:2`` over two ranks,
+    ``model:2,data:world/2`` over more (every model group across ranks)."""
+    if not model:
+        return "data:-1"
+    return "model:2" if world == 2 else f"model:2,data:{world // 2}"
+
+
 def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
-    """``--train-rank-child RANK PORT CFG``: one rank of 20i.  It joins the
-    ``CFG["world"]``-rank group (``CFG["backend"]``), normalizes its rows of
-    the global batch with ``scale_bias_cast``, trains full-width
-    MobileNetV1 on ``data:-1`` over one record a rank for
+    """``--train-rank-child RANK PORT CFG``: one rank of 20i or 20j
+    (``CFG["mode"] == "model"``).  It joins the ``CFG["world"]``-rank group
+    (``CFG["backend"]``), normalizes its rows of the global batch with
+    ``scale_bias_cast`` (20j: its data shard's rows, every rank of a
+    model group the same), trains full-width MobileNetV1 on
+    :func:`_rank_spec`'s mesh over one record a rank for
     ``TRAIN_ALONE_STEPS`` steps, then TRAIN_SMALL × sgd/adam/adamw (TF32
-    off) and the planted "gradients not reduced" sgd, written to
-    ``CFG["out"]``; it prints ``TRAIN_RANK {json}`` last."""
+    off) and the planted faults (20i: gradients not reduced; 20j: the
+    input-gradient sum removed, replicated gradients summed over every
+    rank), written to ``CFG["out"]`` (20j: rank 0 also writes the
+    gathered tree); it prints ``TRAIN_RANK {json}`` last."""
     global TRAIN_DEVICE, TRAIN_SIZE, TRAIN_CLASSES, TRAIN_WIDTH, TRAIN_BATCH
     global TRAIN_ALONE_STEPS, TRAIN_SMALL
     import pickle
@@ -9434,7 +9483,9 @@ def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
     from nnstreamer_tpu_torch.ops import kernels
     from nnstreamer_tpu_torch.parallel import mesh as M
     from nnstreamer_tpu_torch.parallel import multihost
-    from nnstreamer_tpu_torch.parallel.sharded import train_step, trained_tree
+    from nnstreamer_tpu_torch.parallel.sharded import (_split_leaves,
+                                                       train_step,
+                                                       trained_tree)
     from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
 
     cfg = json.loads(cfg_json)
@@ -9443,6 +9494,8 @@ def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
         cfg["device"], cfg["size"], cfg["classes"], cfg["width"],
         cfg["batch"], cfg["steps"], cfg["small"])
     world, backend = cfg["world"], cfg["backend"]
+    model = cfg.get("mode") == "model"
+    spec = _rank_spec(world, model)
     on_card = TRAIN_DEVICE == "cuda"
     recs = _rank_records(world, backend)
     dev = recs[rank].torch_device
@@ -9454,17 +9507,22 @@ def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
     # make_mesh's own inventory where it is one record a rank (one card,
     # or the host); else one record a rank by hand (the inventory lists
     # every card to every rank)
-    mesh = M.make_mesh("data:-1") if len(M.local_devices()) == 1 else \
-        M.make_mesh("data:-1", recs)
+    mesh = M.make_mesh(spec) if len(M.local_devices()) == 1 else \
+        M.make_mesh(spec, recs)
     if [d.process_index for d in mesh.devices.flat] != list(range(world)):
         raise RuntimeError(f"training (i) rank {rank}: mesh {mesh!r}")
-    b = TRAIN_BATCH // world
-    mine = slice(rank * b, (rank + 1) * b)
+    # 20i: rank r's rows; 20j: the rows of rank r's data shard (rank r
+    # holds model coordinate r // shards of data shard r % shards)
+    shards = world // 2 if model else world
+    b = TRAIN_BATCH // shards
+    mine = slice(rank % shards * b, (rank % shards + 1) * b)
     u8, labels = _rank_batch()
     xu = torch.from_numpy(u8[mine]).to(dev)
     yb = torch.from_numpy(labels[mine]).to(dev)
     a, bias = _norm_fold()
-    torch.backends.cudnn.deterministic = False     # as (a) trains
+    # as (a) trains: the ranks' leaves stay bit-equal without it (20j: the
+    # replicated gradients are summed over every rank)
+    torch.backends.cudnn.deterministic = False
     step, params, opt = train_step(
         mesh, mobilenet_v1_tree_apply,
         mobilenet_v1_init(SEED, TRAIN_CLASSES, TRAIN_WIDTH),
@@ -9481,13 +9539,22 @@ def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
     # -- the kernel against its plain version on this rank's rows --------
     err = float((xb - kernels.scale_bias_cast_reference(xu, a, bias))
                 .abs().max())
+    tree = trained_tree(params)
     res.update(rank=rank, world=world, backend=backend, device=str(dev),
-               launches=launches, max_abs_err=err, rows=b,
-               digest=_digest(trained_tree(params)))
-    del step, params, opt, xb
-    # -- TRAIN_SMALL on the ranks, TF32 off; the planted fault -----------
-    sb = TRAIN_SMALL["batch"] // world
-    rows = slice(rank * sb, (rank + 1) * sb)
+               launches=launches, max_abs_err=err, rows=b, mesh=spec,
+               digest=_digest(tree))
+    if model:
+        held = [(".".join(p), list(leaf.index)) for p, leaf in
+                _split_leaves(params)]
+        res.update(split_leaves=len(held),
+                   held=sorted({str(i) for _, i in held}))
+        if rank == 0:
+            with open(os.path.join(cfg["out"], "tree.pkl"), "wb") as f:
+                pickle.dump(tree, f)
+    del step, params, opt, xb, tree
+    # -- TRAIN_SMALL on the ranks, TF32 off; the planted faults ----------
+    sb = TRAIN_SMALL["batch"] // shards
+    rows = slice(rank % shards * sb, (rank % shards + 1) * sb)
     small = {}
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
@@ -9495,9 +9562,10 @@ def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
     try:
         for name in ("sgd", "adam", "adamw"):
             small[name] = _small_run(mesh, name, torch.float32, rows=rows)
-        small["no_grad_reduce"] = _small_run(mesh, "sgd", torch.float32,
-                                             rows=rows,
-                                             fault="no_grad_reduce")
+        for fault in (("no_input_reduce", "every_rank_grads") if model
+                      else ("no_grad_reduce",)):
+            small[fault] = _small_run(mesh, "sgd", torch.float32,
+                                      rows=rows, fault=fault)
     finally:
         set_tf32(*tf32)
     res["small_digests"] = {k: _digest(t) for k, (_, t) in small.items()}
@@ -9508,11 +9576,11 @@ def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
     return 0
 
 
-def _rank_children(world: int, backend: str, out: str):
-    """Run ``world`` children of 20i (``--train-rank-child``), each with
-    its own limit; every child's ``TRAIN_RANK`` record, in rank order.
-    A child that fails or runs out of time fails the phase (the others
-    are killed)."""
+def _rank_children(world: int, backend: str, out: str, mode: str = "data"):
+    """Run ``world`` children of 20i (20j: ``mode="model"``)
+    (``--train-rank-child``), each with its own limit; every child's
+    ``TRAIN_RANK`` record, in rank order.  A child that fails or runs out
+    of time fails the phase (the others are killed)."""
     import socket
 
     s = socket.socket()
@@ -9520,7 +9588,7 @@ def _rank_children(world: int, backend: str, out: str):
     port = str(s.getsockname()[1])
     s.close()
     cfg = json.dumps({"world": world, "backend": backend, "out": out,
-                      "device": TRAIN_DEVICE, "size": TRAIN_SIZE,
+                      "mode": mode, "device": TRAIN_DEVICE, "size": TRAIN_SIZE,
                       "classes": TRAIN_CLASSES, "width": TRAIN_WIDTH,
                       "batch": TRAIN_BATCH, "steps": TRAIN_ALONE_STEPS,
                       "small": TRAIN_SMALL})
@@ -9563,20 +9631,24 @@ def _rank_children(world: int, backend: str, out: str):
     return recs
 
 
-def _one_process_ranks(world: int) -> dict:
+def _one_process_ranks(world: int, model: bool = False) -> dict:
     """20i's reference: the one-process ``data:world`` split step over
     ``world`` virtual records of the card on the whole global batch
-    (normalized by the plain version, bit-equal to the kernel: 20a)."""
+    (normalized by the plain version, bit-equal to the kernel: 20a); 20j's
+    (``model``): the ``data:world/2,model:2`` step over ``world`` virtual
+    records, with its gathered tree; cuDNN's default algorithms, as the
+    ranks and (a) train."""
     import torch
 
     from nnstreamer_tpu_torch.models.convert import mobilenet_v1_tree_apply
     from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
     from nnstreamer_tpu_torch.ops import kernels
-    from nnstreamer_tpu_torch.parallel.sharded import train_step
+    from nnstreamer_tpu_torch.parallel.sharded import train_step, trained_tree
     from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
 
     on_card = TRAIN_DEVICE == "cuda"
-    mesh = _virtual_mesh(f"data:{world}", world)
+    mesh = _virtual_mesh(f"data:{world // 2},model:2" if model
+                         else f"data:{world}", world)
     dev = mesh.devices.flat[0].torch_device
     u8, labels = _rank_batch()
     a, bias = _norm_fold()
@@ -9593,7 +9665,10 @@ def _one_process_ranks(world: int) -> dict:
         optimizer=_make_optimizer({"optimizer": "sgd", "lr": TRAIN_LR}))
     step.record_events = on_card
     try:
-        return _timed_steps(step, params, opt, xb, yb, dev)
+        res = _timed_steps(step, params, opt, xb, yb, dev)
+        if model:
+            res["tree"] = trained_tree(params)
+        return res
     finally:
         torch.backends.cudnn.deterministic = det
 
@@ -9612,16 +9687,32 @@ def _rank_line(r: dict) -> str:
                 f", whole {r['step_ms_p50']:.3f}; host ms in the gradient "
                 f"all-reduce p50 {r['reduce_ms_p50']:.3f}, in the per-layer "
                 f"exchanges p50 {r['exchange_ms_p50']:.3f}")
+        if r.get("mesh", "data:-1") != "data:-1":
+            msg += (f", in the split layers' gathers p50 "
+                    f"{r['gather_ms_p50']:.3f}, in their input-gradient "
+                    f"reductions p50 {r['input_ms_p50']:.3f}")
     return msg
 
 
+#: 20i's planted faults, 20j's
+RANK_FAULTS = {"data": ("no_grad_reduce",),
+               "model": ("no_input_reduce", "every_rank_grads")}
+
+
 def train_ranks(world: int, backend: str, base: dict, spread: dict,
-                tag: str, card: str, power: str) -> dict:
+                tag: str, card: str, power: str, mode: str = "data") -> dict:
     """One 20i leg: ``world`` ranks over ``backend`` against the
     one-process ``data:world`` step (first loss rtol 1e-4, later losses
     5e-3, the ranks' digests equal), TRAIN_SMALL against the CPU at
     TRAIN_SMALL_TOL (adam/adamw's leaves within 20g's spread over row
-    orders, as 20g holds its split), the planted fault failing."""
+    orders, as 20g holds its split), the planted fault failing.  One 20j
+    leg (``mode="model"``): the same over :func:`_rank_spec`'s model mesh
+    against the one-process ``data:world/2,model:2`` step, each rank
+    holding its own slice of each split leaf (the 13 pointwise
+    convolutions; the head too where its classes split), the gathered
+    tree within
+    TRAIN_SMALL_TOL's leaf limit of the one-process tree, both planted
+    faults failing."""
     import pickle
     import shutil
     import tempfile
@@ -9630,18 +9721,23 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
 
     from nnstreamer_tpu_torch.parallel import mesh as M
 
+    model = mode == "model"
+    faults = RANK_FAULTS[mode]
     out = tempfile.mkdtemp(prefix="nns_ranks_")
     try:
-        recs = _rank_children(world, backend, out)
+        recs = _rank_children(world, backend, out, mode)
         small = []
         for r in range(world):
             with open(os.path.join(out, f"small_{r}.pkl"), "rb") as f:
                 small.append(pickle.load(f))
+        if model:
+            with open(os.path.join(out, "tree.pkl"), "rb") as f:
+                tree = pickle.load(f)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     digests = {r["digest"] for r in recs}
     small_digests = {json.dumps({k: v for k, v in r["small_digests"].items()
-                                 if k != "no_grad_reduce"}, sort_keys=True)
+                                 if k not in faults}, sort_keys=True)
                      for r in recs}
     if len(digests) != 1 or len(small_digests) != 1:
         raise RuntimeError(f"training ({tag}): the ranks' leaves differ: "
@@ -9659,13 +9755,30 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
             raise RuntimeError(f"training ({tag}): rank {r['rank']}: "
                                f"launches {r['launches']}, scale_bias_cast "
                                f"vs plain {r['max_abs_err']}")
-    ref = _one_process_ranks(world)
+    shards = world // 2 if model else world
+    # the 13 pointwise convolutions, and the head where its classes split
+    n_split = 13 + (TRAIN_CLASSES % 2 == 0)
+    if model and any(r["split_leaves"] != n_split or r["held"] != [
+            str([r["rank"] // shards])] for r in recs):
+        raise RuntimeError(f"training ({tag}): split leaves and slices "
+                           f"held by rank {[(r['split_leaves'], r['held']) for r in recs]}")
+    ref = _one_process_ranks(world, model)
+    ref_spec = f"data:{shards},model:2" if model else f"data:{world}"
     rels = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
     if rels[0] > TRAIN_SMALL_TOL["first_loss"] or \
             max(rels) > TRAIN_SMALL_TOL["loss"]:
         raise RuntimeError(f"training ({tag}): losses {losses} against the "
-                           f"one-process data:{world} step's "
+                           f"one-process {ref_spec} step's "
                            f"{ref['losses']}: rel {rels}")
+    tree_max = None
+    if model:
+        tree_max = max(float(np.abs(a - b).max()) for a, b in zip(
+            _tree_leaves(tree), _tree_leaves(ref.pop("tree"))))
+        if not tree_max <= TRAIN_SMALL_TOL["leaf"]:
+            raise RuntimeError(f"training ({tag}): the gathered tree "
+                               f"against the one-process {ref_spec} step's: "
+                               f"leaves max {tree_max} over "
+                               f"{TRAIN_SMALL_TOL['leaf']}")
     cpu = M.make_mesh("data:1", M.local_devices("cpu")[:1])
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
@@ -9695,23 +9808,26 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
             raise RuntimeError(f"training ({tag}) {name}: the ranks against "
                                f"the CPU: {vs_cpu[name]} over {over} (limits "
                                f"{TRAIN_SMALL_TOL}, spread {spread.get(name)})")
-    planted, over = _small_compare(small[0]["no_grad_reduce"], host["sgd"],
-                                   "sgd")
-    if not over:
-        raise RuntimeError(f"training ({tag}): gradients not reduced pass "
-                           f"the check: {planted}")
-    res = {"world": world, "backend": backend, "ranks": recs,
-           "one_process": ref, "loss_rel": rels,
-           "small_vs_cpu": vs_cpu, "planted": dict(planted, over=over),
+    planted = {}
+    for fault in faults:
+        got, over = _small_compare(small[0][fault], host["sgd"], "sgd")
+        if not over:
+            raise RuntimeError(f"training ({tag}): the planted {fault} "
+                               f"passes the check: {got}")
+        planted[fault] = dict(got, over=over)
+    res = {"world": world, "backend": backend, "mesh": recs[0]["mesh"],
+           "ranks": recs, "one_process": ref, "loss_rel": rels,
+           "tree_leaf_max": tree_max,
+           "small_vs_cpu": vs_cpu, "planted": planted,
            "launches": {k: sum(r["launches"][k] for r in recs)
                         for k in recs[0]["launches"]}}
     for r in recs:
         print(f"training ({tag}): MobileNetV1 w{TRAIN_WIDTH} {TRAIN_SIZE}x"
               f"{TRAIN_SIZE} {TRAIN_CLASSES} classes, global batch "
-              f"{TRAIN_BATCH} over {world} ranks ({backend}), "
-              f"{TRAIN_ALONE_STEPS} steps: {_rank_line(r)} [{card}, {power}]",
-              flush=True)
-    line = (f"training ({tag}): beside them the one-process data:{world} "
+              f"{TRAIN_BATCH} over {world} ranks ({backend}) on "
+              f"{r['mesh']}, {TRAIN_ALONE_STEPS} steps: {_rank_line(r)} "
+              f"[{card}, {power}]", flush=True)
+    line = (f"training ({tag}): beside them the one-process {ref_spec} "
             f"step over {world} virtual records: losses "
             f"{[round(v, 6) for v in ref['losses']]} (the ranks' first loss "
             f"rel {rels[0]:.3e}, the largest {max(rels):.3e}), host ms a "
@@ -9725,6 +9841,9 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
                  f"; (a)'s stacked step alone at batch {TRAIN_BATCH}: whole "
                  f"{base.get('alone_step_ms_p50', float('nan')):.3f} ms, host "
                  f"{base.get('alone_host_ms', float('nan')):.3f} ms")
+    if tree_max is not None:
+        line += (f"; the ranks' gathered tree against its: leaves max "
+                 f"{tree_max:.3e} (cuDNN's default algorithms on both)")
     print(line + f"; the ranks' leaves bit-equal (digest "
           f"{recs[0]['digest'][:16]}) [{card}, {power}]", flush=True)
     print(f"training ({tag}): TRAIN_SMALL over the {world} ranks (TF32 off) "
@@ -9732,9 +9851,11 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
               f"{n} first loss rel {r['first_loss_rel']:.3e}, losses rel "
               f"{r['loss_rel']:.3e}, leaves max {r['leaf_max']:.3e}, largest "
               f"update gap {r['update_gap']:.3e}" for n, r in vs_cpu.items())
-          + f"; gradients not reduced (planted) fail on {over} (leaves max "
-          f"{planted['leaf_max']:.3e}, largest update gap "
-          f"{planted['update_gap']:.3e}) [{card}, {power}]", flush=True)
+          + "; " + "; ".join(
+              f"planted {f} fails on {p['over']} (leaves max "
+              f"{p['leaf_max']:.3e}, largest update gap "
+              f"{p['update_gap']:.3e})" for f, p in planted.items())
+          + f" [{card}, {power}]", flush=True)
     return res
 
 
@@ -9758,10 +9879,32 @@ def train_multiprocess(base: dict, spread: dict, card: str,
     return res
 
 
+def train_model_multiprocess(base: dict, spread: dict, card: str,
+                             power: str) -> dict:
+    """20j: (i) two gloo ranks on the one card on ``model:2``; (ii) NCCL,
+    one rank a card, on ``model:2,data:2`` over four cards or ``model:2``
+    over two, else one line "not run"."""
+    import torch
+
+    res = {"ranks": train_ranks(2, "gloo", base, spread, "j", card, power,
+                                "model")}
+    res["launches"] = res["ranks"]["launches"]
+    cards = torch.cuda.device_count() if TRAIN_DEVICE == "cuda" else 0
+    if cards < 2:
+        res["cards"] = {"ran": False, "cards": cards}
+        print(f"training (j ii): not run: {cards} card [{card}, {power}]",
+              flush=True)
+        return res
+    res["cards"] = dict(train_ranks(4 if cards >= 4 else 2, "nccl", base,
+                                    spread, "j ii", card, power, "model"),
+                        ran=True)
+    return res
+
+
 def phase_training(card: str, power: str):
-    """Phase 20: (a)-(e), (g), (h), (i), then (f) over every description;
-    (a)'s, (g)'s and (h)'s kernel counts each from 0, (i)'s in each rank's
-    child."""
+    """Phase 20: (a)-(e), (g), (h), (i), (j), then (f) over every
+    description; (a)'s, (g)'s and (h)'s kernel counts each from 0, (i)'s
+    and (j)'s in each rank's child."""
     import shutil
     import tempfile
 
@@ -9785,6 +9928,9 @@ def phase_training(card: str, power: str):
             root, data, js, res["full_width"],
             res["split"]["small"]["perm_spread"], card, power)
         res["multiprocess"] = train_multiprocess(
+            res["full_width"], res["split"]["small"]["perm_spread"], card,
+            power)
+        res["model_ranks"] = train_model_multiprocess(
             res["full_width"], res["split"]["small"]["perm_spread"], card,
             power)
         res["lint"] = train_lint(card, power)
@@ -11028,6 +11174,8 @@ def main() -> int:
                        training["model_split"]["launches"]["scale_bias_cast"],
                    "training_multiprocess":
                        training["multiprocess"]["launches"]["scale_bias_cast"],
+                   "training_model_across_ranks":
+                       training["model_ranks"]["launches"]["scale_bias_cast"],
                    "importers_onnx": importers["launches"]["onnx"],
                    "importers_mnist": importers["launches"]["mnist"],
                    "orbax_mobilenet":
@@ -11044,6 +11192,9 @@ def main() -> int:
     if training["multiprocess"]["cards"]["ran"]:
         sbc_by_path["training_multiprocess_cards"] = \
             training["multiprocess"]["cards"]["launches"]["scale_bias_cast"]
+    if training["model_ranks"]["cards"]["ran"]:
+        sbc_by_path["training_model_across_ranks_cards"] = \
+            training["model_ranks"]["cards"]["launches"]["scale_bias_cast"]
     fa_by_path = {"vit": vit_path["flash_launches"],
                   "serving_shared": served["shared"]["flash_attention"],
                   "serving_unshared": served["unshared"]["flash_attention"],
@@ -11062,6 +11213,8 @@ def main() -> int:
                       training["model_split"]["launches"]["flash_attention"],
                   "training_multiprocess":
                       training["multiprocess"]["launches"]["flash_attention"],
+                  "training_model_across_ranks":
+                      training["model_ranks"]["launches"]["flash_attention"],
                   "orbax_vit": orbax["vit"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",

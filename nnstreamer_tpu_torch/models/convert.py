@@ -121,7 +121,9 @@ def _dense_state(prefix: str, p: Params, out: Dict[str, torch.Tensor]) -> None:
 def _host_leaf(t: torch.Tensor) -> np.ndarray:
     """A module leaf as an owned numpy array (bf16 by bit pattern); a
     leaf a training step split over the ``model`` axis as its host slices
-    (``parallel.sharded.ShardedLeaf.host``)."""
+    (``parallel.sharded.ShardedLeaf.host``): across ranks, this rank's
+    slices only, their indices and model group kept (its ``numpy()``
+    gathers the rest)."""
     if isinstance(t, ShardedLeaf):
         return t.host()
     return to_numpy(t.detach().contiguous()).copy()

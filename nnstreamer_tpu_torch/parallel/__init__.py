@@ -12,8 +12,8 @@ Counterpart of the JAX package's ``parallel/``, on eager PyTorch:
 - :mod:`.sharded` — the sharding rules, the sharded invoke (the split,
   the weight replicas and ``model`` slices, the gathers XLA would insert)
   and the training step;
-- :mod:`.multihost` — the ``torch.distributed`` process group and hybrid
-  meshes;
+- :mod:`.multihost` — the ``torch.distributed`` process group, its
+  subgroups (:class:`~.multihost.Subgroup`) and hybrid meshes;
 - :mod:`.collectives` — merge, reduce, ring shift, regroup and ring
   attention across devices;
 - :mod:`.syncbn` — the batch statistics of a split training step,
@@ -23,7 +23,10 @@ The sharded training step (:func:`train_step`, :func:`softmax_xent`) is
 what the ``torch-optim`` trainer runs; over more than one data shard it
 splits the batch, and :mod:`.syncbn` combines each batch-norm layer's
 moments over the shards (:func:`batch_moments`, :class:`ShardGroup`),
-across processes too (:class:`~.syncbn.RankShards`).
+across processes too (:class:`~.syncbn.RankShards`).  A ``model`` group
+may span processes: its split layers gather over the group's ranks
+(:class:`ModelGroup`), and the moments and gradients reduce over the
+data peers, each data shard counted once.
 """
 
 from .mesh import (  # noqa: F401
@@ -32,7 +35,13 @@ from .mesh import (  # noqa: F401
     make_mesh,
     parse_device_indices,
 )
-from .multihost import hybrid_mesh, initialize, process_info  # noqa: F401
+from .multihost import (  # noqa: F401
+    Subgroup,
+    hybrid_mesh,
+    initialize,
+    process_info,
+    subgroups,
+)
 from .placement import (  # noqa: F401
     Placement,
     ResolvedPlacement,
@@ -40,6 +49,8 @@ from .placement import (  # noqa: F401
 )
 from .sharded import (  # noqa: F401
     PARAM_RULES,
+    ModelGroup,
+    ShardedLeaf,
     ShardedModel,
     batch_sharding,
     get_param_rules,
@@ -52,5 +63,11 @@ from .sharded import (  # noqa: F401
     data_shard_groups,
     softmax_xent,
     train_step,
+    trained_tree,
 )
-from .syncbn import ShardGroup, ShardGroupError, batch_moments  # noqa: F401
+from .syncbn import (  # noqa: F401
+    RankShards,
+    ShardGroup,
+    ShardGroupError,
+    batch_moments,
+)

@@ -24,12 +24,17 @@ A world of several ranks also trains one model: ``sharded.train_step``
 on a mesh whose data shards lie on every rank (``make_mesh("data:-1")``
 over ``mesh.devices()``) reduces each batch-norm layer's moments and the
 gradients over the ranks (``syncbn.RankShards``), gloo staging card
-tensors through the host; two ranks on one card are a gloo world.
+tensors through the host; two ranks on one card are a gloo world.  Where
+a ``model`` group spans ranks (``make_mesh("model:2,data:4")`` over two
+ranks' records) the step forms process subgroups (:func:`subgroups`):
+one a model group, over which its split layers gather, and one a set of
+data peers, over which the moments and the split slices' gradients
+reduce (the replicated gradients reduce over every rank).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -76,6 +81,7 @@ def initialize(coordinator_address: Optional[str] = None,
 def shutdown() -> None:
     """Leave the process group (no-op when none was formed)."""
     dist = _dist()
+    _GROUPS.clear()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -103,6 +109,58 @@ def world_key() -> int:
     after)."""
     rank, world = process_info()
     return world * 4099 + rank
+
+
+class Subgroup:
+    """A set of ranks of the process group (``ranks``, ascending) and the
+    ``torch.distributed`` group its collectives run on: ``group`` None is
+    the default group (a set of every rank), and a set of one rank runs no
+    collective.  :meth:`all_reduce` raises where the collective fails."""
+
+    __slots__ = ("ranks", "group")
+
+    def __init__(self, ranks: Sequence[int], group=None):
+        self.ranks = tuple(sorted(int(r) for r in ranks))
+        self.group = group
+
+    def all_reduce(self, t) -> None:
+        """SUM ``t`` in place over the set's ranks."""
+        if len(self.ranks) > 1:
+            _dist().all_reduce(t, group=self.group)
+
+    def __repr__(self) -> str:
+        return f"Subgroup(ranks={list(self.ranks)})"
+
+
+#: (world_key, ranks, n) -> the n-th torch.distributed group of that set
+_GROUPS: Dict[Tuple, object] = {}
+
+
+def subgroups(rank_sets: Sequence[Sequence[int]]) -> List[Subgroup]:
+    """One :class:`Subgroup` a set of ranks, in the order given: a set of
+    two or more ranks gets a ``torch.distributed.new_group`` of its own
+    (the default group's backend: gloo under gloo, NCCL under NCCL), even
+    where it is every rank or repeats an earlier set of this call, so that
+    collectives issued from different threads never share a group; a set
+    of one rank gets none.  The groups are kept for the life of the
+    process group (:func:`shutdown` drops them): a later call with the
+    same sets gets the same groups and forms none.  ``new_group`` is
+    collective over the whole world: every rank calls this with the same
+    sets in the same order."""
+    dist = _dist()
+    rank = process_info()[0]
+    seen: Dict[Tuple[int, ...], int] = {}
+    out = []
+    for rs in rank_sets:
+        sub = Subgroup(rs)
+        if len(sub.ranks) > 1:
+            n = seen[sub.ranks] = seen.get(sub.ranks, -1) + 1
+            key = (world_key(), sub.ranks, n)
+            if key not in _GROUPS:
+                _GROUPS[key] = dist.new_group(list(sub.ranks))
+            sub.group = _GROUPS[key] if rank in sub.ranks else None
+        out.append(sub)
+    return out
 
 
 def hybrid_mesh(ici_axes: Sequence[Tuple[str, int]],

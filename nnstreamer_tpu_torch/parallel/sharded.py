@@ -55,8 +55,26 @@ moments are exchanged over every rank once a layer
 (``parallel/syncbn.py`` :class:`~.syncbn.RankShards`), each rank's loss
 is its rows' share of the global batch's, and one ``all_reduce`` a
 bucket sums the leaves' gradients over the ranks before the update, so
-every rank takes the same update.  A ``model`` group stays inside one
-rank.
+every rank takes the same update.
+
+A ``model`` group may span ranks too (``make_mesh("model:2,data:4")``
+over two ranks' records: every group one record on each rank).  Then
+every rank of a group runs that data shard on the same rows, as
+Megatron's tensor parallelism does: a split layer computes this rank's
+slices of its output and gathers the others over the group's ranks
+(:class:`_GatherSlices`, whose backward keeps this rank's slices of the
+output gradient), and its input's gradient is summed over them in the
+backward (:class:`_ReduceInputGrads`, one node a layer for all of a
+rank's shards, so every rank issues those collectives in one order).
+The master leaves hold this rank's slices only.  Everything downstream
+of a gather runs alike on each rank of the group, so each shard must
+count once, where a plain sum over every rank would count it once a rank
+of its group (the fault the JAX step shows on a ``model`` axis: ROADMAP
+queue C): the moments and a slice's gradient reduce over the data peers
+(one rank of each data shard's group), and the replicated leaves'
+gradients and the loss over every rank, divided by the ranks of a group,
+so that each rank of a group takes the same update even where its
+kernels rounded its own gradients otherwise (:meth:`TrainStep._reduce`).
 """
 
 from __future__ import annotations
@@ -176,37 +194,68 @@ class ShardedLeaf:
     0, the output channels) and a product ``x @ w`` (split on the last
     dim) compute one slice of the output per device and concatenate on
     the input's device — the gather right after the layer.  ``.to(dtype)``
-    keeps the split; anything else sees the gathered tensor."""
+    keeps the split; anything else sees the gathered tensor.
+
+    Where the group spans ranks (``model``: its :class:`ModelGroup`) the
+    leaf holds only this rank's slices, slice indices ``model.index`` of
+    ``model.count``, each on its own record's device: the layer computes
+    those slices of its output, then gathers the rest over the model
+    subgroup (:class:`_GatherSlices`), and its input's gradient is summed
+    over the subgroup in the backward (:func:`_model_input`), the two
+    halves of a Megatron tensor-parallel layer.  :meth:`full` and
+    :meth:`numpy` gather over the subgroup (every rank of it calls them
+    in one order); :meth:`host` keeps this rank's slices."""
 
     def __init__(self, slices: Sequence[torch.Tensor], dim: int,
-                 spec: PartitionSpec, shape: Sequence[int]):
+                 spec: PartitionSpec, shape: Sequence[int],
+                 model: Optional["ModelGroup"] = None):
         self.slices = list(slices)
         self.split_dim = int(dim)
         self.spec = spec
         self._shape = torch.Size(shape)
+        self.model = model
 
     shape = property(lambda self: self._shape)
     ndim = property(lambda self: len(self._shape))
     dtype = property(lambda self: self.slices[0].dtype)
     device = property(lambda self: self.slices[0].device)
 
+    @property
+    def index(self) -> Tuple[int, ...]:
+        """The slice index of each slice held here, of :attr:`count`."""
+        return self.model.index if self.model is not None \
+            else tuple(range(len(self.slices)))
+
+    @property
+    def count(self) -> int:
+        """The number of slices over the whole ``model`` group."""
+        return self.model.count if self.model is not None \
+            else len(self.slices)
+
+    def _like(self, slices, dim=None, spec=None, shape=None) -> "ShardedLeaf":
+        return ShardedLeaf(slices, self.split_dim if dim is None else dim,
+                           self.spec if spec is None else spec,
+                           self._shape if shape is None else shape,
+                           self.model)
+
     def full(self) -> torch.Tensor:
-        """The whole parameter, gathered on the first slice's device."""
+        """The whole parameter, gathered on the first slice's device (over
+        the model subgroup where it spans ranks: differentiable)."""
         dev = self.slices[0].device
-        return torch.cat([s.to(dev) for s in self.slices], self.split_dim)
+        local = torch.cat([s.to(dev) for s in self.slices], self.split_dim)
+        if self.model is None:
+            return local
+        return _GatherSlices.apply(local, self.model, self.split_dim)
 
     def to(self, *args, **kwargs):
         dt = kwargs.get("dtype") if not args else args[0]
         if isinstance(dt, torch.dtype) and len(args) <= 1 and \
                 set(kwargs) <= {"dtype"}:
-            return ShardedLeaf([s.to(dt) for s in self.slices],
-                               self.split_dim,
-                               self.spec, self._shape)
+            return self._like([s.to(dt) for s in self.slices])
         return self.full().to(*args, **kwargs)
 
     def detach(self) -> "ShardedLeaf":
-        return ShardedLeaf([s.detach() for s in self.slices],
-                           self.split_dim, self.spec, self._shape)
+        return self._like([s.detach() for s in self.slices])
 
     def permute(self, *dims) -> "ShardedLeaf":
         """Each slice permuted, the split dim and spec following it (a
@@ -214,28 +263,44 @@ class ShardedLeaf:
         dims = tuple(dims[0]) if len(dims) == 1 and \
             isinstance(dims[0], (tuple, list)) else dims
         spec = tuple(self.spec) + (None,) * (self.ndim - len(self.spec))
-        return ShardedLeaf([s.permute(*dims) for s in self.slices],
-                           dims.index(self.split_dim),
-                           PartitionSpec(*[spec[d] for d in dims]),
-                           [self._shape[d] for d in dims])
+        return self._like([s.permute(*dims) for s in self.slices],
+                          dims.index(self.split_dim),
+                          PartitionSpec(*[spec[d] for d in dims]),
+                          [self._shape[d] for d in dims])
 
     def host(self) -> "ShardedLeaf":
         """Each slice as an owned numpy array, copied from its own device
-        (bf16 by bit pattern): no gather on one device."""
+        (bf16 by bit pattern): no gather on one device, and across ranks
+        this rank's slices only (:attr:`index`)."""
         from ..core.buffer import to_numpy
 
-        return ShardedLeaf([s if isinstance(s, np.ndarray) else
-                            to_numpy(s.detach().contiguous()).copy()
-                            for s in self.slices],
-                           self.split_dim, self.spec, self._shape)
+        return self._like([s if isinstance(s, np.ndarray) else
+                           to_numpy(s.detach().contiguous()).copy()
+                           for s in self.slices])
 
     def numpy(self) -> np.ndarray:
-        """The whole leaf of :meth:`host`'s slices, concatenated."""
-        return np.concatenate(self.host().slices, self.split_dim)
+        """The whole leaf of :meth:`host`'s slices, concatenated; across
+        ranks the other ranks' slices gathered over the subgroup as a
+        layer's output is (:class:`_GatherSlices`: a zero keeps no sign),
+        through the card under NCCL."""
+        from ..core.buffer import from_numpy, to_numpy
+        from .multihost import backend
+
+        local = np.concatenate(self.host().slices, self.split_dim)
+        if self.model is None:
+            return local
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if backend() == "nccl" else torch.device("cpu")
+        with torch.no_grad():
+            whole = _GatherSlices.apply(from_numpy(local, dev, "gather"),
+                                        self.model, self.split_dim)
+        return to_numpy(whole).copy()
 
     def __repr__(self) -> str:
+        held = "" if self.model is None else \
+            f", index={list(self.index)} of {self.count}"
         return (f"ShardedLeaf(shape={tuple(self._shape)}, dim={self.split_dim}, "
-                f"slices={len(self.slices)})")
+                f"slices={len(self.slices)}{held})")
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
@@ -244,17 +309,19 @@ class ShardedLeaf:
                 and isinstance(args[1], cls) and args[1].split_dim == 0 \
                 and not isinstance(args[0], cls) \
                 and kwargs.get("bias") is None:
-            x, w = args[0], args[1]
+            x, w = _model_input(args[0], args[1].model), args[1]
             outs = [func(x.to(s.device), s, *args[2:], **kwargs)
                     for s in w.slices]
-            return torch.cat([o.to(x.device) for o in outs], 1)
+            return _model_output(torch.cat([o.to(x.device) for o in outs], 1),
+                                 w.model, 1)
         if func in _MATMULS and len(args) == 2 \
                 and isinstance(args[1], cls) \
                 and args[1].split_dim == args[1].ndim - 1 \
                 and not isinstance(args[0], cls):
-            x, w = args
+            x, w = _model_input(args[0], args[1].model), args[1]
             outs = [torch.matmul(x.to(s.device), s) for s in w.slices]
-            return torch.cat([o.to(x.device) for o in outs], -1)
+            out = torch.cat([o.to(x.device) for o in outs], -1)
+            return _model_output(out, w.model, out.dim() - 1)
         return func(*_gathered(args), **_gathered(kwargs))
 
 
@@ -269,6 +336,126 @@ def _gathered(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_gathered(v) for v in obj)
     return obj
+
+
+# -- a model group across ranks ----------------------------------------------
+
+
+class ModelGroup:
+    """One data shard's ``model`` group where its records lie on more than
+    one rank, as this rank holds it: the global data shard (``shard``),
+    the model coordinates of this rank's records (``index``, ascending) of
+    ``count``, and the subgroup of the group's ranks (``sub``,
+    ``multihost.Subgroup``).  :meth:`all_reduce` times its collectives
+    into ``ranks`` (:class:`~.syncbn.RankShards`) where set."""
+
+    __slots__ = ("shard", "index", "count", "sub", "ranks")
+
+    def __init__(self, shard: int, index: Sequence[int], count: int, sub,
+                 ranks: Optional[syncbn.RankShards] = None):
+        self.shard = int(shard)
+        self.index = tuple(int(j) for j in index)
+        self.count = int(count)
+        self.sub = sub
+        self.ranks = ranks
+
+    def __reduce__(self):
+        # a copy elsewhere keeps which slices these are, not the subgroup
+        return (ModelGroup, (self.shard, self.index, self.count, None))
+
+    def all_reduce(self, t: torch.Tensor, kind: str) -> None:
+        """SUM ``t`` in place over the group's ranks; ``kind`` ("gather"
+        or "input") names the counter its host seconds go to."""
+        if self.sub is None:
+            raise ValueError(f"{self!r}: a copy of a model group across "
+                             f"ranks has no subgroup to gather over")
+        t0 = time.perf_counter()
+        self.sub.all_reduce(t)
+        if self.ranks is not None:
+            self.ranks.add(kind, time.perf_counter() - t0)
+
+    def __repr__(self) -> str:
+        ranks = list(self.sub.ranks) if self.sub is not None else None
+        return (f"ModelGroup(shard={self.shard}, index={list(self.index)} "
+                f"of {self.count}, ranks={ranks})")
+
+
+class _GatherSlices(torch.autograd.Function):
+    """The whole output of a split layer from this rank's slices of it.
+
+    forward: this rank's slices (concatenated along ``dim`` in index
+    order) concatenated at their places with zero slices into the whole
+    output (``torch.cat``, so the buffer keeps the layer output's memory
+    format, channels-last for a convolution over NHWC data, as the
+    in-rank gather's does), and one ``all_reduce(SUM)`` of it over the
+    model subgroup: every entry has one non-zero term, so the sum is
+    exact, the same gather on every rank.  backward: this rank's slices of the output
+    gradient, which every rank of the group holds whole and alike (they
+    run the same downstream on the same rows): no collective, and no
+    slice counted twice."""
+
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, model: ModelGroup, dim: int):
+        ctx.model, ctx.dim = model, dim
+        k = local.shape[dim] // len(model.index)
+        held = dict((j, i) for i, j in enumerate(model.index))
+        zero = torch.zeros_like(local.narrow(dim, 0, k))
+        buf = torch.cat([local.narrow(dim, held[j] * k, k) if j in held
+                         else zero for j in range(model.count)], dim)
+        model.all_reduce(buf, "gather")
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        model, dim = ctx.model, ctx.dim
+        k = grad.shape[dim] // model.count
+        return torch.cat([grad.narrow(dim, j * k, k) for j in model.index],
+                         dim), None, None
+
+
+class _ReduceInputGrads(torch.autograd.Function):
+    """The split layers' inputs of every local shard at one layer.
+
+    forward: each input as it is (a view).  backward: each shard's input
+    gradient — this rank's slices' share of it — summed over its model
+    subgroup (one ``all_reduce(SUM)`` a shard, in shard order), so every
+    rank of a group continues its backward with the whole gradient.  One
+    node a layer for all of a rank's shards (:func:`syncbn.joined`): the
+    autograd engine runs it once, and every rank issues the layer's
+    collectives in one order."""
+
+    @staticmethod
+    def forward(ctx, models, *xs):
+        ctx.models = models
+        ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = []
+        for g, model, (shape, dtype, dev) in zip(grads, ctx.models,
+                                                 ctx.like):
+            g = torch.zeros(shape, dtype=dtype, device=dev) if g is None \
+                else g.clone(memory_format=torch.contiguous_format)
+            model.all_reduce(g, "input")
+            out.append(g)
+        return (None, *out)
+
+
+def _model_input(x: torch.Tensor, model: Optional[ModelGroup]):
+    """``x`` as a split layer's input: itself within a rank; across ranks
+    behind :class:`_ReduceInputGrads`, joined with the other local
+    shards' inputs of this layer, where a gradient will flow."""
+    if model is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return syncbn.joined((x, model), lambda pairs: _ReduceInputGrads.apply(
+        tuple(m for _, m in pairs), *[t for t, _ in pairs]))
+
+
+def _model_output(out: torch.Tensor, model: Optional[ModelGroup], dim: int):
+    """A split layer's output: whole within a rank; across ranks this
+    rank's slices gathered with the others (:class:`_GatherSlices`)."""
+    return out if model is None else _GatherSlices.apply(out, model, dim)
 
 
 # -- placing params over a mesh ----------------------------------------------
@@ -295,27 +482,34 @@ def _plain_place(obj: Any, device: torch.device) -> Any:
 
 
 def _split_leaf(leaf: torch.Tensor, spec: PartitionSpec,
-                group: Sequence[Any], model_axis: str):
+                group: Sequence[Any], model_axis: str,
+                model: Optional[ModelGroup] = None):
     """``leaf`` split over the group's ``model`` devices per ``spec``, or
-    None when the split dim does not divide (the leaf stays whole)."""
+    None when the split dim does not divide (the leaf stays whole).  With
+    ``model`` (a group across ranks) ``group`` is this rank's records of
+    it and only their slices are made, each on its own record's device."""
     dims = [i for i, s in enumerate(spec) if s is not None]
     if not dims or spec[dims[0]] != model_axis:
         return None
-    dim, n = dims[0], len(group)
+    dim = dims[0]
+    n = model.count if model is not None else len(group)
     if n <= 1 or leaf.shape[dim] % n:
         return None
     k = leaf.shape[dim] // n
+    index = model.index if model is not None else range(n)
     with torch.no_grad():
         slices = [leaf.detach().narrow(dim, j * k, k).contiguous()
-                  .to(group[j].torch_device) for j in range(n)]
-    return ShardedLeaf(slices, dim, spec, tuple(leaf.shape))
+                  .to(rec.torch_device) for rec, j in zip(group, index)]
+    return ShardedLeaf(slices, dim, spec, tuple(leaf.shape), model)
 
 
 class MeshParams:
     """A params tree laid over a mesh per ``rules``: :meth:`tree` gives the
     tree a data shard's group runs with (its replica, model-split leaves
     as :class:`ShardedLeaf`), placed once per distinct group of
-    ``torch.device``s — virtual records over one device share it."""
+    ``torch.device``s — virtual records over one device share it.  A
+    group across ranks is this rank's records of it with its
+    :class:`ModelGroup`."""
 
     def __init__(self, params: Any, rules: Callable, model_axis: str,
                  place: Callable[[Any, torch.device], Any] = _plain_place):
@@ -327,24 +521,26 @@ class MeshParams:
         #: leaf path ("a.b.w") -> PartitionSpec actually applied
         self.specs: Dict[str, PartitionSpec] = {}
 
-    def tree(self, group: Sequence[Any]) -> Any:
-        key = tuple(d.torch_device for d in group)
+    def tree(self, group: Sequence[Any],
+             model: Optional[ModelGroup] = None) -> Any:
+        key = (tuple(d.torch_device for d in group), model)
         t = self._trees.get(key)
         if t is None:
-            t = self._trees[key] = self._build(group)
+            t = self._trees[key] = self._build(group, model)
         return t
 
-    def _build(self, group: Sequence[Any]) -> Any:
+    def _build(self, group: Sequence[Any],
+               model: Optional[ModelGroup]) -> Any:
         base = self._place(self.params, group[0].torch_device)
-        return self._shard(base, (), group)
+        return self._shard(base, (), group, model)
 
-    def _shard(self, obj: Any, path: Tuple, group) -> Any:
+    def _shard(self, obj: Any, path: Tuple, group, model=None) -> Any:
         if isinstance(obj, torch.nn.Module):
             named = list(obj.named_parameters()) + list(obj.named_buffers())
             for name, leaf in named:
                 lpath = path + tuple(name.split("."))
                 spec = P(*self.rules(lpath, leaf))
-                sl = _split_leaf(leaf, spec, group, self.model_axis)
+                sl = _split_leaf(leaf, spec, group, self.model_axis, model)
                 self.specs[".".join(map(str, lpath))] = \
                     spec if sl is not None else P()
                 if sl is None:
@@ -357,15 +553,15 @@ class MeshParams:
             return obj
         if isinstance(obj, torch.Tensor):
             spec = P(*self.rules(path, obj))
-            sl = _split_leaf(obj, spec, group, self.model_axis)
+            sl = _split_leaf(obj, spec, group, self.model_axis, model)
             self.specs[".".join(map(str, path))] = \
                 spec if sl is not None else P()
             return obj if sl is None else sl
         if isinstance(obj, dict):
-            return {k: self._shard(v, path + (k,), group)
+            return {k: self._shard(v, path + (k,), group, model)
                     for k, v in obj.items()}
         if isinstance(obj, (list, tuple)):
-            return type(obj)(self._shard(v, path + (i,), group)
+            return type(obj)(self._shard(v, path + (i,), group, model)
                              for i, v in enumerate(obj))
         return obj
 
@@ -431,13 +627,35 @@ def data_shard_groups(mesh, data_axes: Sequence[str],
     return groups
 
 
+def _refuse_model_groups_across(mesh, model_axis: str, who: str) -> None:
+    """``ValueError`` naming the first ``model`` group of ``mesh`` whose
+    records lie on more than one process, and their owners: a sharded
+    invoke runs each group in one process."""
+    names = list(mesh.axis_names)
+    if model_axis not in names:
+        return
+    ax = names.index(model_axis)
+    fibers = np.moveaxis(mesh.devices, ax, -1).reshape(
+        -1, mesh.devices.shape[ax])
+    for g in fibers:
+        owners = sorted({d.process_index for d in g})
+        if len(owners) > 1:
+            raise ValueError(
+                f"{who}: the model group ({', '.join(str(d) for d in g)}) "
+                f"lies on processes {owners}; a sharded invoke runs each "
+                f"model group in one process (train_step trains one "
+                f"across ranks)")
+
+
 def shard_params(mesh, params, rules: Callable = mobilenet_param_rules,
                  model_axis: str = "model",
                  place: Callable[[Any, torch.device], Any] = _plain_place
                  ) -> MeshParams:
     """Lay a params tree over ``mesh`` per ``rules``; a leaf whose split
     dim does not divide over the ``model`` axis (or a mesh without one)
-    stays replicated."""
+    stays replicated.  Raises ``ValueError`` where a ``model`` group's
+    records lie on more than one process."""
+    _refuse_model_groups_across(mesh, model_axis, "shard_params")
     return MeshParams(params, rules, model_axis if model_axis in
                       mesh.axis_names else "", place)
 
@@ -471,7 +689,9 @@ class ShardedModel:
     """A model sharded over a mesh: params laid out by ``rules``, inputs
     split on the batch over ``data`` — one invoke spans every device of
     the mesh.  Returns what ``fn`` returns (a tensor or a tuple),
-    gathered on the mesh's first device."""
+    gathered on the mesh's first device.  Raises ``ValueError`` for a
+    mesh whose ``model`` group lies on more than one process, or that
+    holds no data shard of this one."""
 
     def __init__(self, mesh, fn: Callable, params: Any = None,
                  rules: Callable = mobilenet_param_rules,
@@ -483,8 +703,13 @@ class ShardedModel:
         self.name = name or getattr(fn, "__name__", "sharded")
         self._fn = fn
         self._data_axis = data_axis
+        _refuse_model_groups_across(mesh, "model", "ShardedModel")
+        pid = process_info()[0]
         self._groups = data_shard_groups(mesh, (data_axis,),
-                                         process_index=process_info()[0])
+                                         process_index=pid)
+        if not self._groups:
+            raise ValueError(f"ShardedModel: mesh {mesh!r} holds no data "
+                             f"shard of process {pid}")
         self.params = shard_params(mesh, params, rules) \
             if params is not None else None
 
@@ -540,38 +765,93 @@ def _shard_groups(mesh, data_axis: str
                   ) -> Tuple[List[List[Any]], Optional[syncbn.RankShards]]:
     """This process's device groups of ``mesh``'s data shards, in shard
     order (:func:`data_shard_groups`: a shard's lead record first, then
-    the rest of its ``model`` group), and, where the data shards lie on
-    more than one process, their :class:`~.syncbn.RankShards` (else
-    None).  Raises ``ValueError`` for a ``model`` group whose records lie
-    on more than one process, and for data shards of processes that are
-    not every rank of the process group."""
-    from .multihost import backend, process_info
+    the rest of its ``model`` group; of a group across ranks, this rank's
+    records of it in model order), and, where the mesh's records lie on
+    more than one process, their :class:`~.syncbn.RankShards` (else None).
+
+    A ``model`` group may span ranks where every rank holds the same model
+    coordinates of each group it holds records of, and every group splits
+    over its ranks alike (``make_mesh("model:M,data:D")`` over the
+    ``devices()`` of M ranks, or ``hybrid_mesh`` with ``model`` a DCN
+    axis; or M/R records of each group on each of R ranks).  Then every
+    rank runs each data shard it holds records of, its ``ModelGroup``
+    gathering the split layers over the group's ranks; the moments and
+    the slices' gradients reduce over the data peers (the ranks holding
+    the same coordinates, one of each data shard's group), the replicated
+    leaves' gradients and the loss over every rank, divided by the ranks
+    of a group (:meth:`TrainStep._reduce`).  The subgroups are
+    made here, on every rank in one order: each cross-rank model group's
+    in shard order, then the data peers' by coordinates.
+
+    Raises ``ValueError`` (on every rank alike: the check reads only the
+    mesh) for another layout of a group across ranks, naming the group and
+    its owners; for records of processes that are not every rank of the
+    process group; and, under NCCL, for a record of this rank that is not
+    a card."""
+    from .multihost import backend, process_info, subgroups
 
     rank, world = process_info()
-    groups = data_shard_groups(mesh, (data_axis,))
-    for k, g in enumerate(groups):
-        owners = sorted({d.process_index for d in g})
-        if len(owners) > 1:
-            raise ValueError(
-                f"train step: the model group of data shard {k} "
-                f"({', '.join(str(d) for d in g)}) lies on processes "
-                f"{owners}; a model group must lie in one process")
-    owners = sorted({g[0].process_index for g in groups})
+    full = data_shard_groups(mesh, (data_axis,))
+    owners = sorted({d.process_index for g in full for d in g})
     if owners == [rank]:
-        return groups, None
+        return full, None
     if owners != list(range(world)):
         raise ValueError(
             f"train step: mesh {mesh!r} holds data shards of processes "
             f"{owners}; the step runs over every rank of the process "
             f"group ({world} here, this one {rank})")
-    if backend() == "nccl" and any(g[0].torch_device.type != "cuda"
-                                   for g in groups
-                                   if g[0].process_index == rank):
+    # each shard's owners -> the model coordinates of their records
+    coords = [{p: tuple(j for j, d in enumerate(g) if d.process_index == p)
+               for p in sorted({d.process_index for d in g})} for g in full]
+
+    def named(k):
+        return (f"the model group of data shard {k} "
+                f"({', '.join(str(d) for d in full[k])}) on processes "
+                f"{sorted(coords[k])}")
+
+    held: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+    for k, c in enumerate(coords):
+        for p, js in c.items():
+            k0, js0 = held.setdefault(p, (k, js))
+            if js0 != js:
+                raise ValueError(
+                    f"train step: {named(k)}: process {p} holds model "
+                    f"coordinates {list(js)} of it and {list(js0)} of data "
+                    f"shard {k0}'s; a rank holds the same coordinates of "
+                    f"every model group it runs")
+    parts = [sorted(c.values()) for c in coords]
+    for k, part in enumerate(parts):
+        if part != parts[0]:
+            raise ValueError(
+                f"train step: {named(k)} splits as "
+                f"{[list(js) for js in part]} by process, data shard 0's "
+                f"as {[list(js) for js in parts[0]]}; every model group "
+                f"splits over its ranks alike")
+    mine = [k for k, c in enumerate(coords) if rank in c]
+    local = [[full[k][j] for j in coords[k][rank]] for k in mine]
+    if backend() == "nccl" and any(d.torch_device.type != "cuda"
+                                   for g in local for d in g):
         raise ValueError("train step: an nccl group reduces only card "
-                         "tensors; this rank's data shards lead on "
-                         "another device")
-    mine = [k for k, g in enumerate(groups) if g[0].process_index == rank]
-    return [groups[k] for k in mine], syncbn.RankShards(mine, len(groups))
+                         "tensors; this rank's data shards lie on another "
+                         "device")
+    spans = [k for k, c in enumerate(coords) if len(c) > 1]
+    classes = sorted({js for c in coords for js in c.values()})
+    sets = [sorted(coords[k]) for k in spans]
+    if len(classes) > 1:
+        sets += [sorted(p for p, (_, js) in held.items() if js == cls)
+                 for cls in classes]
+    subs = subgroups(sets)
+    by_shard = dict(zip(spans, subs))
+    peers = subs[len(spans) + classes.index(held[rank][1])] \
+        if len(classes) > 1 else None
+    models = [ModelGroup(k, coords[k][rank], len(full[k]), by_shard[k])
+              if k in by_shard else None for k in mine]
+    ranks = syncbn.RankShards(mine, len(full), peers,
+                              [sorted(c) for c in coords], models)
+    for m in models:
+        if m is not None:
+            m.ranks = ranks
+    return local, ranks
 
 
 def _as_device_tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -629,24 +909,27 @@ def make_optimizer(name: str = "sgd", lr: float = 1e-2,
     raise ValueError(f"unknown optimizer {name!r}")
 
 
-def _leaf_on(leaf: ShardedLeaf, group: Sequence[Any]) -> ShardedLeaf:
+def _leaf_on(leaf: ShardedLeaf, group: Sequence[Any],
+             model: Optional[ModelGroup] = None) -> ShardedLeaf:
     """A split leaf's slices ``.to()`` the devices of ``group``, slice *j*
     to its *j*-th: differentiable, and the slice itself where it already
-    lies there."""
+    lies there.  Across ranks ``group`` is this rank's records of the
+    shard's group and ``model`` its :class:`ModelGroup`."""
     return ShardedLeaf([t.to(d.torch_device)
                         for t, d in zip(leaf.slices, group)],
-                       leaf.split_dim, leaf.spec, leaf.shape)
+                       leaf.split_dim, leaf.spec, leaf.shape, model)
 
 
-def _tree_on(tree: Any, group: Sequence[Any]) -> Any:
+def _tree_on(tree: Any, group: Sequence[Any],
+             model: Optional[ModelGroup] = None) -> Any:
     """``tree`` with every tensor leaf ``.to()`` the group's lead device
     and every split leaf over the group (:func:`_leaf_on`)."""
     if isinstance(tree, dict):
-        return {k: _tree_on(v, group) for k, v in tree.items()}
+        return {k: _tree_on(v, group, model) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_on(v, group) for v in tree)
+        return type(tree)(_tree_on(v, group, model) for v in tree)
     if isinstance(tree, ShardedLeaf):
-        return _leaf_on(tree, group)
+        return _leaf_on(tree, group, model)
     if isinstance(tree, torch.Tensor):
         return tree.to(group[0].torch_device)
     return tree
@@ -781,7 +1064,17 @@ class TrainStep:
     (``barrier_ms``: host clocks, no synchronisation); ``last_loss`` is the
     latest step's loss.  Across ranks it also keeps, a step, the host ms
     of the gradient all-reduce (``reduce_ms``) and of the moments'
-    exchanges, forward and backward (``exchange_ms``)."""
+    exchanges, forward and backward (``exchange_ms``), and, where a
+    ``model`` group spans ranks, of the split layers' gathers
+    (``gather_ms``) and input-gradient reductions (``input_ms``), each
+    summed over the threads that spent them.
+
+    Where a ``model`` group spans ranks (``ranks.models``) ``groups`` holds
+    this rank's records of each of its shards' groups, ``x``/``y`` are the
+    rows of every data shard this rank runs (each shard's rows given to
+    every rank of its group alike: a digest of them is compared across the
+    group before the forward), and the loss, the moments and the gradients
+    reduce once a data shard (module docstring, :meth:`_reduce`)."""
 
     def __init__(self, apply: Callable, params: Any,
                  opt_state: torch.optim.Optimizer,
@@ -811,6 +1104,8 @@ class TrainStep:
         self.barrier_ms: List[float] = []
         self.reduce_ms: List[float] = []
         self.exchange_ms: List[float] = []
+        self.gather_ms: List[float] = []
+        self.input_ms: List[float] = []
         self._shells: Optional[List[_Applied]] = None
         self._threads: Optional[_ShardThreads] = None
         self._split = _split_leaves(params)
@@ -835,7 +1130,8 @@ class TrainStep:
     def leaf_bytes(self) -> Dict[str, int]:
         """Bytes of the master leaves on each record of the first shard's
         group: the whole leaves on its lead, each split leaf's slice *j*
-        on its *j*-th record."""
+        on its *j*-th record (across ranks: this rank's records of the
+        group and their slices)."""
         group = self.groups[0]
         out = {str(d): 0 for d in group}
         split = {id(t) for _, leaf in self._split for t in leaf.slices}
@@ -848,12 +1144,14 @@ class TrainStep:
 
     def _shard_forward(self, k: int, x: torch.Tensor):
         dev, group = self.devices[k], self.groups[k]
+        across = self.ranks.models[k] if self.ranks is not None else None
         if self._shells is None:
-            return self.apply(_tree_on(self.params, group), x, train=True)
+            return self.apply(_tree_on(self.params, group, across), x,
+                              train=True)
         model = self._shells[k].model
         for path, leaf in self._split:
             owner = model.get_submodule(".".join(path[:-1]))
-            setattr(owner, path[-1], _leaf_on(leaf, group))
+            setattr(owner, path[-1], _leaf_on(leaf, group, across))
         return torch.func.functional_call(
             self._shells[k], {n: t.to(dev) for n, t in self._named}, (x,))
 
@@ -917,7 +1215,7 @@ class TrainStep:
             e0 = self._event()
             opt_state.zero_grad(set_to_none=True)
             if ranks is not None:
-                ranks.exchange_s = 0.0
+                ranks.exchange_s = ranks.gather_s = ranks.input_s = 0.0
             out = self.apply(params, x, train=True) \
                 if self.data_size == 1 and ranks is None \
                 else self._split_forward(x)
@@ -938,26 +1236,42 @@ class TrainStep:
             self.events.append((e0, e1, e2, e3))
         if ranks is not None and self.record_events:
             self.exchange_ms.append(ranks.exchange_s * 1e3)
+            self.gather_ms.append(ranks.gather_s * 1e3)
+            self.input_ms.append(ranks.input_s * 1e3)
         self.steps += 1
         self.last_loss = loss.detach()
         return params, opt_state, self.last_loss
 
     def _global_batch(self, x: torch.Tensor) -> int:
-        """The global batch's row count, after one ``all_reduce`` of each
-        rank's (rows, data shards, ``x.dim()``, row shape); raises
-        ``ValueError`` on every rank where a rank's rows do not split
-        over its shards, or a shard's rows differ in count or shape from
-        another's."""
+        """The global batch's row count (each data shard's rows once,
+        however many ranks run it), after one ``all_reduce`` over every
+        rank of each rank's (rows, data shards, ``x.dim()``, row shape)
+        and, where a ``model`` group spans ranks, a digest of each of its
+        data shards' rows (:func:`_row_digests`); raises ``ValueError`` on
+        every rank where a rank's rows do not split over its shards, a
+        shard's rows differ in count or shape from another's, or the ranks
+        of one data shard's model group were given different rows."""
+        import torch.distributed as dist
+
         from .multihost import backend
 
         r = self.ranks
+        across = [k for k, o in enumerate(r.owners or ()) if len(o) > 1]
         dims = list(x.shape[1:1 + _ROW_DIMS])
-        info = torch.zeros((r.world, 3 + _ROW_DIMS), dtype=torch.int64)
+        head = 3 + _ROW_DIMS
+        info = torch.zeros((r.world, head + 3 * len(across)),
+                           dtype=torch.int64)
         info[r.rank, :3 + len(dims)] = torch.tensor(
             [x.shape[0], self.data_size, x.dim()] + dims)
+        if across and x.shape[0] and x.shape[0] % self.data_size == 0:
+            digests = _row_digests(x, self.data_size)
+            for i, k in enumerate(r.index):
+                if k in across:
+                    c = head + 3 * across.index(k)
+                    info[r.rank, c:c + 3] = digests[i]
         if backend() == "nccl":
             info = info.to(self.device)
-        r.all_reduce(info)
+        dist.all_reduce(info)
         rows = info.tolist()
         counts = [(b, s) for b, s, *_ in rows]
         bad = [q for q, (b, s) in enumerate(counts) if b % s]
@@ -971,23 +1285,46 @@ class TrainStep:
                 f"train step: the ranks' rows are of unequal count for "
                 f"their data shards (rows and data shards by rank: "
                 f"{counts}); every data shard takes as many rows")
-        if len({tuple(row[2:]) for row in rows}) > 1:
+        if len({tuple(row[2:head]) for row in rows}) > 1:
             raise ValueError(
                 f"train step: the ranks' rows differ in shape (row shape "
                 f"by rank: {[row[3:2 + row[2]] for row in rows]})")
+        for i, k in enumerate(across):
+            c = head + 3 * i
+            seen = {p: tuple(rows[p][c:c + 3]) for p in r.owners[k]}
+            if len(set(seen.values())) > 1:
+                raise ValueError(
+                    f"train step: data shard {k}'s rows differ between the "
+                    f"ranks {list(r.owners[k])} of its model group (digest "
+                    f"by rank: {seen}); every rank of a model group takes "
+                    f"that shard's rows")
         return counts[0][0] // counts[0][1] * r.size
 
     def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
-        """One ``all_reduce(SUM)`` over the ranks a bucket of the leaves'
-        gradients (a bucket a device and dtype, in leaf order), this
-        rank's loss part at the end of its own device's and dtype's; each
-        gradient becomes its slice of the summed bucket.  Returns the
-        summed loss."""
+        """One ``all_reduce(SUM)`` a bucket of the leaves' gradients (a
+        bucket a device and dtype, in leaf order), this rank's loss part at
+        the end of its own device's and dtype's; each gradient becomes its
+        slice of the summed bucket.  Returns the summed loss.
+
+        The replicated leaves' buckets and the loss sum over every rank
+        and are divided by ``ranks.mates``, the ranks of a data shard's
+        model group: each of them computes those gradients from that
+        shard's rows, so the sum counts each shard once a rank of its
+        group.  Every rank then holds the same sum, whatever order its own
+        kernels added in (cuDNN's default backward algorithms are not
+        bit-reproducible), so the replicated leaves stay bit-equal on
+        every rank.  Where a group spans ranks a split leaf's slices go in
+        buckets of their own, summed over the data peers: the ranks that
+        hold those slices, each shard's once."""
         t0 = time.perf_counter()
+        r = self.ranks
+        split = {id(t) for _, leaf in self._split for t in leaf.slices} \
+            if r.peers is not r.every else set()
         buckets: Dict[Tuple, List[torch.Tensor]] = {}
         for t in self.leaves:
-            buckets.setdefault((t.grad.device, t.grad.dtype), []).append(t)
-        key = (loss.device, loss.dtype)
+            buckets.setdefault((id(t) in split, t.grad.device, t.grad.dtype),
+                               []).append(t)
+        key = (False, loss.device, loss.dtype)
         buckets.setdefault(key, [])
         total = loss
         for k, ts in buckets.items():
@@ -995,7 +1332,12 @@ class TrainStep:
             if k == key:
                 parts.append(loss.reshape(1))
             flat = torch.cat(parts)
-            self.ranks.all_reduce(flat)
+            if k[0]:
+                r.all_reduce(flat)
+            else:
+                r.every.all_reduce(flat)
+                if r.mates > 1:
+                    flat.div_(r.mates)
             o = 0
             for t in ts:
                 n = t.grad.numel()
@@ -1026,6 +1368,28 @@ class TrainStep:
 
 #: the row dimensions a cross-rank step compares between ranks
 _ROW_DIMS = 8
+#: the low bits of each 4-byte word that a row digest squares
+_LOW = 0x7FFF
+
+
+def _row_digests(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, 3) int64 on the host: for each of ``x``'s ``n`` row blocks, the
+    sum of its 4-byte words (1- and 2-byte elements widened), the sum of
+    each row's low 15 bits weighted by the row's place in its block, and
+    the sum of their squares.  Integer sums: the same rows give the same
+    digest on any device and thread count, and no sum overflows for rows
+    of under 2^24 words."""
+    b = x.shape[0]
+    v = x.detach().reshape(b, -1).contiguous()
+    v = v.view({1: torch.uint8, 2: torch.int16}.get(v.element_size(),
+                                                    torch.int32))
+    v = v.to(torch.int32)
+    low = v & _LOW
+    place = torch.arange(1, b // n + 1, device=v.device).repeat(n)
+    sums = torch.stack([v.sum(1, dtype=torch.int64),
+                        low.sum(1, dtype=torch.int64) * place,
+                        (low * low).sum(1, dtype=torch.int64)], 1)
+    return sums.reshape(n, b // n, 3).sum(1).cpu()
 
 
 def train_step(mesh, apply_fn: Callable, params, optimizer=None,
@@ -1061,14 +1425,22 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
       first data shard's ``model`` group (:class:`MeshParams`, the step's
       ``placement``); every other leaf, and every leaf of a mesh without
       a ``model`` axis, stays whole.
+    - A ``model`` group may span ranks (``make_mesh("model:M,data:D")``
+      over the ``devices()`` of M ranks, or ``hybrid_mesh(ici_axes=
+      [("data", D)], dcn_axes=[("model", M)])``, or M/R records of each
+      group on each of R ranks): a rank then holds only its records'
+      slices, the split layers gather over the group's ranks, every rank
+      of a group is given that data shard's rows, and each data shard
+      counts once in the loss and the gradients (:func:`_shard_groups`,
+      :class:`TrainStep`).
     - ``optimizer(leaves) -> torch.optim.Optimizer`` builds the update
       (default: :func:`make_optimizer`'s sgd, lr 1e-2, momentum 0.9, as
       the JAX default ``optax.sgd(1e-2, momentum=0.9)``) over the whole
       leaves and the slices; it is the returned ``opt_state``.
 
-    Raises ``ValueError`` for a ``model`` group across processes, and for
-    data shards of processes that are not every rank of the group
-    (:func:`_shard_groups`)."""
+    Raises ``ValueError`` for a layout of ``model`` groups across
+    processes the step does not take, and for data shards of processes
+    that are not every rank of the group (:func:`_shard_groups`)."""
     from ..models.convert import tree_module_of
 
     groups, ranks = _shard_groups(mesh, data_axis)
@@ -1086,11 +1458,12 @@ def train_step(mesh, apply_fn: Callable, params, optimizer=None,
     placement = None
     model_axis = "model" if "model" in mesh.axis_names \
         and data_axis != "model" else ""
-    if model_axis and len(groups[0]) > 1:
+    if model_axis and mesh.shape[model_axis] > 1:
         # the master leaves split in place over the first group
         placement = MeshParams(params, rules, model_axis,
                                place=lambda obj, dev: obj)
-        params = placement.tree(groups[0])
+        params = placement.tree(
+            groups[0], ranks.models[0] if ranks is not None else None)
     leaves = _trainable_leaves(params)
     opt_state = (optimizer or make_optimizer())(leaves)
     step = TrainStep(apply, params, opt_state, leaves, loss_fn, groups,
@@ -1121,8 +1494,11 @@ def trained_tree(params: Any, gather: bool = True) -> Any:
     (owned copies, so later steps do not write into it).  A leaf split
     over the ``model`` axis is gathered into one array, or, without
     ``gather``, kept as a :class:`ShardedLeaf` of host slices (each copied
-    from its own device), which the orbax writer stores a chunk a
-    slice."""
+    from its own device), which the orbax writer stores a chunk a slice.
+    Where the split spans ranks, ``gather`` gathers each split leaf over
+    its model subgroup (every rank of it calls this, and every rank gets
+    the whole tree); without, the leaf holds this rank's slices, their
+    indices in :attr:`ShardedLeaf.index`."""
     from ..core.buffer import to_numpy
     from ..models.convert import MODULE_TO_JAX
 

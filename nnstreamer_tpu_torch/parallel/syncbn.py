@@ -10,11 +10,13 @@ models passes through :func:`batch_moments`
 (``models/mobilenet.py`` ``ConvBN``), which combines the shards' moments
 when the calling thread runs a shard of a :class:`ShardGroup`.
 
-One exchange a layer: each shard posts ``(n_k, mean_k, var_k)`` from one
-``torch.var_mean`` of its rows, with a CUDA event recorded behind it on
-the poster's stream where the rows lie on a card, and waits at the
-group's barrier; then each shard copies every posted pair to its own
-device and combines them by Chan's formula,
+One exchange a layer: each shard posts ``(n_k, mean_k, var_k)`` of its
+rows (``mean`` and ``var``, the functions the stacked step takes, so the
+formula below gives a lone shard's own moments bit for bit: its weight
+is exactly 1 and ``mean_k − μ`` exactly 0), with a CUDA event recorded
+behind it on the poster's stream where the rows lie on a card, and
+waits at the group's barrier; then each shard copies every posted pair
+to its own device and combines them by Chan's formula,
 
     μ  = Σ n_k·mean_k / N
     σ² = Σ n_k·(var_k + (mean_k − μ)²) / N,
@@ -33,18 +35,30 @@ Across processes (a mesh whose data shards lie on more than one rank,
 :class:`RankShards`) a layer takes one exchange more: after the barrier
 the lead shard (shard 0, the step's calling thread) writes its rank's
 ``(mean_k, var_k)`` rows into a zero-filled ``(S_global, 2C)`` buffer at
-their global shard indices and all-reduces it (SUM, exact: each entry has
-one non-zero term); every local shard waits at a second barrier, then
-reads the buffer and combines all S_global shards by the same formula in
-global shard order.  The exchange is a ``torch.autograd.Function``
+their global shard indices and all-reduces it over the rank's data peers
+(SUM, exact: each entry has one non-zero term); every local shard waits
+at a second barrier, then reads the buffer and combines all S_global
+shards by the same formula in global shard order.  The data peers are
+the ranks that hold this rank's ``model`` coordinates: every rank where
+no ``model`` group spans ranks, else one rank of each data shard's model
+group (``make_mesh("model:2,data:4")`` over two ranks: each rank alone,
+running all four shards).  So a shard whose model group spans M ranks
+has its row written once in each set of peers, not M times, and each of
+its M ranks reads it.  The exchange is a ``torch.autograd.Function``
 (:class:`RankExchange`) whose backward all-reduces the gradient buffer
-and keeps the rank's own rows, so each rank's rows get the gradient of
-every rank's loss through the statistics.  One thread a rank issues each
-collective, and every rank issues them in one order: the forward's in
-layer order, the backward's in reverse, since all of a step's exchange
-nodes sit on the lead shard's device and each layer's statistics depend
-on the layer before (a chain of batch-norm layers: every model of the
-port).
+over the same peers and keeps the rank's own rows, so each rank's rows
+get the gradient of every peer's loss through the statistics, each data
+shard's once.  One thread a rank issues each collective, and every rank
+issues them in one order: the forward's in layer order, the backward's
+in reverse, since all of a step's exchange nodes sit on the lead shard's
+device and each layer's statistics depend on the layer before (a chain
+of batch-norm layers: every model of the port).
+
+:meth:`ShardGroup.join` is the same rendezvous for another layer: the
+lead applies one function to every local shard's tensor (the split
+step's input-gradient reduction over a cross-rank ``model`` group,
+``parallel/sharded.py``), so that reduction too is one node a layer whose
+collectives every rank issues in shard order.
 
 A shard that raises aborts the barrier, so the others raise
 :class:`ShardGroupError` instead of waiting; a barrier that waits longer
@@ -59,7 +73,7 @@ import math
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,26 +94,55 @@ class RankShards:
     """This process's data shards among every process's: ``index`` holds
     the global shard index of each local shard (in local shard order),
     ``size`` the number of shards over every rank of the default process
-    group.  ``exchange_s`` counts the host seconds spent in the
-    exchanges' all-reduces, forward and backward."""
+    group.
 
-    def __init__(self, index: Sequence[int], size: int):
-        from .multihost import process_info
+    ``peers`` (``multihost.Subgroup``) are the data peers the moments
+    and a split leaf's slice gradients reduce over: every rank unless a
+    ``model`` group spans ranks.  ``every`` is every rank (the default
+    group), over which the step sums the replicated leaves' gradients and
+    the loss, ``mates`` the ranks of each data shard's model group (1
+    unless a group spans ranks), by which it divides that sum.
+    ``owners`` lists the ranks of each global shard's model group;
+    ``models`` holds, for each local shard, its model group across ranks
+    (``sharded.ModelGroup``) or None where the group lies in this rank.
+
+    Host seconds, summed over the threads that spent them:
+    ``exchange_s`` in the exchanges' all-reduces, forward and backward;
+    ``gather_s`` in the split layers' cross-rank gathers; ``input_s`` in
+    their input-gradient reductions."""
+
+    def __init__(self, index: Sequence[int], size: int, peers=None,
+                 owners: Optional[Sequence[Sequence[int]]] = None,
+                 models: Optional[Sequence] = None):
+        from .multihost import Subgroup, process_info
 
         self.index = [int(i) for i in index]
         self.size = int(size)
         self.rank, self.world = process_info()
+        self.every = Subgroup(range(self.world))
+        self.peers = peers if peers is not None else self.every
+        self.owners = [tuple(o) for o in owners] if owners is not None \
+            else None
+        self.mates = len(self.owners[0]) if self.owners else 1
+        self.models = list(models) if models is not None \
+            else [None] * len(self.index)
         self.exchange_s = 0.0
+        self.gather_s = 0.0
+        self.input_s = 0.0
+        self._lock = threading.Lock()
 
     def all_reduce(self, t: torch.Tensor) -> None:
-        """SUM ``t`` in place over every rank (the caller's backend: gloo
-        or NCCL, whichever the group was formed with)."""
-        import torch.distributed as dist
+        """SUM ``t`` in place over the data peers (the caller's backend:
+        gloo or NCCL, whichever the group was formed with)."""
+        self.peers.all_reduce(t)
 
-        dist.all_reduce(t)
+    def add(self, kind: str, seconds: float) -> None:
+        """Add ``seconds`` to ``<kind>_s`` (any thread)."""
+        with self._lock:
+            setattr(self, kind + "_s", getattr(self, kind + "_s") + seconds)
 
     def exchange(self, local: torch.Tensor) -> torch.Tensor:
-        """``(S_global, W)`` of every rank's rows from this rank's
+        """``(S_global, W)`` of every data shard's rows from this rank's
         ``(S_local, W)`` (:class:`RankExchange`), timed into
         ``exchange_s``."""
         return RankExchange.apply(local, self)
@@ -108,10 +151,11 @@ class RankShards:
 class RankExchange(torch.autograd.Function):
     """Every rank's shard rows from each rank's own.
 
-    forward: one ``all_reduce(SUM)`` of a zero-filled ``(S_global, W)``
-    buffer in which this rank fills its shards' rows; backward: one
-    ``all_reduce(SUM)`` of the gradient buffer, of which this rank keeps
-    its own rows (the sum over every rank's loss)."""
+    forward: one ``all_reduce(SUM)`` over the data peers of a zero-filled
+    ``(S_global, W)`` buffer in which this rank fills its shards' rows;
+    backward: one ``all_reduce(SUM)`` of the gradient buffer over the same
+    peers, of which this rank keeps its own rows (the sum over the peers'
+    losses: each data shard's once)."""
 
     @staticmethod
     def forward(ctx, local: torch.Tensor, ranks: RankShards):
@@ -158,6 +202,10 @@ class ShardGroup:
                                          [None] * self.size)
         self._swapped: List[Optional[Tuple]] = [None, None]
         self._posted = [-1] * self.size      # each shard's last layer
+        self._joins: Tuple[List, List] = ([None] * self.size,
+                                          [None] * self.size)
+        self._joined: List[Optional[Sequence]] = [None, None]
+        self._joined_at = [-1] * self.size   # each shard's last join
         self._weights: Dict[Tuple, torch.Tensor] = {}
         self._lock = threading.Lock()
         #: (shard, exception) of the first shard that raised
@@ -168,9 +216,10 @@ class ShardGroup:
     @contextmanager
     def shard(self, index: int):
         """Run the calling thread as shard ``index``: :func:`batch_moments`
-        combines over the group.  An exception inside aborts the group."""
+        combines over the group, :func:`joined` joins it.  An exception
+        inside aborts the group."""
         prev = getattr(_local, "cur", None)
-        _local.cur = [self, int(index), 0]
+        _local.cur = [self, int(index), 0, 0]
         try:
             yield
         except BaseException as e:
@@ -203,35 +252,53 @@ class ShardGroup:
             self._weights[key] = w    # a race only makes it twice
         return w
 
-    def _broken(self, index: int, layer: int,
-                exchanged: bool = False) -> ShardGroupError:
+    def _broken(self, index: int, layer: int, exchanged: bool = False,
+                join: bool = False) -> ShardGroupError:
+        where = f"join {layer}" if join else f"layer {layer}"
         err = self.error
         if err is not None and err[0] != index:
             return ShardGroupError(
-                f"sync batch norm: layer {layer}: shard {err[0]} raised "
+                f"sync batch norm: {where}: shard {err[0]} raised "
                 f"{type(err[1]).__name__}: {err[1]}")
         if exchanged:
             return ShardGroupError(
-                f"sync batch norm: layer {layer}: the exchange across "
-                f"ranks did not finish within {self.timeout:g} s")
-        late = [j for j, p in enumerate(self._posted) if p < layer]
+                f"sync batch norm: {where}: the "
+                f"{'lead' if join else 'exchange across ranks'} did not "
+                f"finish within {self.timeout:g} s")
+        posted = self._joined_at if join else self._posted
+        late = [j for j, p in enumerate(posted) if p < layer]
         return ShardGroupError(
-            f"sync batch norm: layer {layer}: shards {late} of "
+            f"sync batch norm: {where}: shards {late} of "
             f"{self.size} did not arrive within {self.timeout:g} s")
 
-    def _wait(self, index: int, layer: int, exchanged: bool = False) -> None:
+    def _wait(self, index: int, layer: int, exchanged: bool = False,
+              join: bool = False) -> None:
         t0 = time.perf_counter()
         try:
             with GATE.outside():      # a wait, not a torch op
                 self._barrier.wait(self.timeout)
         except threading.BrokenBarrierError:
-            raise self._broken(index, layer, exchanged) from None
+            raise self._broken(index, layer, exchanged, join) from None
         self.wait_s[index] += time.perf_counter() - t0
+
+    def join(self, index: int, call: int, x, fn: Callable[[List], Sequence]):
+        """``fn`` applied by the lead (shard 0) to every shard's ``x`` of
+        this call, between two barriers; shard ``index``'s item of what it
+        returned.  Posts alternate between two rows by call parity, as the
+        moments do by layer parity."""
+        row = self._joins[call % 2]
+        row[index] = x
+        self._joined_at[index] = call
+        self._wait(index, call, join=True)
+        if index == 0:
+            self._joined[call % 2] = fn(list(row))
+        self._wait(index, call, exchanged=True, join=True)
+        return self._joined[call % 2][index]
 
     def moments(self, index: int, layer: int, y32: torch.Tensor,
                 dims: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
         n = math.prod(y32.shape[d] for d in dims)
-        var, mean = torch.var_mean(y32, dim=dims, correction=0)
+        mean, var = y32.mean(dim=dims), y32.var(dim=dims, unbiased=False)
         ready = None
         if mean.is_cuda:    # behind the kernels of this shard's stream
             ready = torch.cuda.Event()
@@ -286,6 +353,19 @@ def _fetch(t: torch.Tensor, ready, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
+def joined(x, fn: Callable[[List], Sequence]):
+    """``fn(xs)``'s item for the calling shard, ``fn`` applied once to
+    every shard's ``x`` of the calling thread's group
+    (:meth:`ShardGroup.join`); ``fn([x])[0]`` when no group is active.
+    Every shard of a group joins at the same calls in the same order."""
+    cur = getattr(_local, "cur", None)
+    if cur is None:
+        return fn([x])[0]
+    group, index, _, call = cur
+    cur[3] = call + 1
+    return group.join(index, call, x, fn)
+
+
 def batch_moments(y32: torch.Tensor, dims: Tuple[int, ...]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(mean, var)`` over ``dims`` of ``y32``, the variance the
@@ -294,6 +374,6 @@ def batch_moments(y32: torch.Tensor, dims: Tuple[int, ...]
     cur = getattr(_local, "cur", None)
     if cur is None:
         return y32.mean(dim=dims), y32.var(dim=dims, unbiased=False)
-    group, index, layer = cur
+    group, index, layer, _ = cur
     cur[2] = layer + 1
     return group.moments(index, layer, y32, dims)

@@ -289,6 +289,12 @@ def tree_values(tree: Any) -> Tuple[Dict[str, Any], Dict[bytes, Value]]:
         scalar = _is_number(leaf)
         meta[key] = leaf_entry(keys, "scalar" if scalar else "np.ndarray")
         if _is_split(leaf):
+            if len(leaf.slices) != leaf.count:
+                raise ValueError(
+                    f"orbax: {name} holds slices {list(leaf.index)} of "
+                    f"{leaf.count} on this rank; a leaf split over ranks is "
+                    f"not written yet: gather it first "
+                    f"(trained_tree(params, gather=True))")
             parts = [host_array(s) for s in leaf.slices]
             arr, bf16 = parts[0]
             shape = tuple(leaf.shape)

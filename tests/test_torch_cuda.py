@@ -1784,10 +1784,10 @@ def test_train_step_on_card_matches_cpu(card, name, monkeypatch):
             assert np.array_equal(a, b)
 
 
-def _split_small_run(recs, name):
+def _split_small_run(recs, name, spec=None):
     """3 ``train_step`` steps of MobileNetV1 w0.25 (f32, lr 1e-4) over a
-    ``data:len(recs)`` mesh of ``recs``: (losses, the trained tree, the
-    step)."""
+    ``data:len(recs)`` mesh of ``recs`` (or ``spec``): (losses, the
+    trained tree, the step)."""
     import functools
 
     from nnstreamer_tpu_torch.models import convert, mobilenet
@@ -1798,7 +1798,7 @@ def _split_small_run(recs, name):
     xs = rng.standard_normal((3, 16, 32, 32, 3)).astype(np.float32)
     ys = rng.integers(0, 10, (3, 16)).astype(np.int32)
     step, p, o = sharded.train_step(
-        mesh.make_mesh(f"data:{len(recs)}", recs),
+        mesh.make_mesh(spec or f"data:{len(recs)}", recs),
         functools.partial(convert.mobilenet_v1_tree_apply,
                           dtype=torch.float32),
         mobilenet.mobilenet_v1_init(0, 10, 0.25),
@@ -1883,10 +1883,11 @@ from nnstreamer_tpu_torch.models import convert, mobilenet
 from nnstreamer_tpu_torch.parallel import mesh, multihost, sharded
 from nnstreamer_tpu_torch.trainers.torch_optim import _make_optimizer
 
-rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+rank, port, out, spec, det = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                              sys.argv[4], sys.argv[5] == "1")
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.deterministic = det
 multihost.initialize(coordinator_address="127.0.0.1:" + port,
                      num_processes=2, process_id=rank, backend="gloo")
 devs = (torch.device("cuda", 0), torch.device("cpu"))
@@ -1896,14 +1897,17 @@ rng = np.random.default_rng(3)
 xs = rng.standard_normal((3, 16, 32, 32, 3)).astype(np.float32)
 ys = rng.integers(0, 10, (3, 16)).astype(np.int32)
 step, p, o = sharded.train_step(
-    mesh.make_mesh("data:4", recs),
+    mesh.make_mesh(spec, recs),
     functools.partial(convert.mobilenet_v1_tree_apply, dtype=torch.float32),
     mobilenet.mobilenet_v1_init(0, 10, 0.25),
     optimizer=_make_optimizer({{"optimizer": "sgd", "lr": 1e-4}}))
 assert step.devices == list(devs)
+# data:4: each rank its 8 rows; model:2,data:2: every model group spans
+# the ranks, and each rank runs both data shards on all 16 rows
+rows = slice(8 * rank, 8 * rank + 8) if spec == "data:4" else slice(None)
 losses = []
 for x, y in zip(xs, ys):
-    p, o, loss = step(p, o, x[8 * rank:8 * rank + 8], y[8 * rank:8 * rank + 8])
+    p, o, loss = step(p, o, x[rows], y[rows])
     losses.append(float(loss))
 step.close()
 with open(out, "wb") as f:
@@ -1912,24 +1916,15 @@ multihost.shutdown()
 """
 
 
-def test_two_ranks_over_a_card_and_a_cpu_record_each_match_one_process(
-        card, tmp_path, monkeypatch):
-    """Two gloo ranks, each with a card shard and a ``cpu`` shard (two
-    distinct devices of one rank: the backward runs on the card's
-    autograd thread and the CPU's, and every rank must issue the
-    exchanges' all-reduces in one order), against the one-process
-    ``data:4`` step over the same four records, at the split step's
-    limits; the ranks' losses and leaves bit-equal."""
+def _two_rank_run(tmp_path, spec, deterministic):
+    """The two gloo ranks of ``RANK_WORKER`` on ``spec`` over (card, cpu)
+    records each, cuDNN ``deterministic`` or not: [(losses, tree)] by
+    rank."""
     import pickle
     import socket
     import subprocess
     import sys
 
-    from nnstreamer_tpu_torch.parallel import mesh
-
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     script = tmp_path / "rank_worker.py"
     script.write_text(RANK_WORKER.format(repo=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
@@ -1941,7 +1936,8 @@ def test_two_ranks_over_a_card_and_a_cpu_record_each_match_one_process(
            if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK"))}
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(r), port,
-         str(tmp_path / f"rank{r}.pkl")], stdout=subprocess.PIPE,
+         str(tmp_path / f"rank{r}.pkl"), spec, str(int(deterministic))],
+        stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
     outs = []
     try:
@@ -1958,14 +1954,50 @@ def test_two_ranks_over_a_card_and_a_cpu_record_each_match_one_process(
     for r in range(2):
         with open(tmp_path / f"rank{r}.pkl", "rb") as f:
             got.append(pickle.load(f))
-    (l0, t0), (l1, t1) = got
+    return got
+
+
+def _hold_two_ranks(tmp_path, monkeypatch, spec, deterministic=True):
+    """Two gloo ranks, each with a card record and a ``cpu`` record (two
+    distinct devices of one rank: the backward runs on the card's
+    autograd thread and the CPU's, and every rank must issue its
+    collectives in one order), cuDNN ``deterministic`` or not on the
+    ranks, against the one-process step on the same mesh over the same
+    four records (deterministic), at the split step's limits; the ranks'
+    losses and leaves bit-equal."""
+    from nnstreamer_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    (l0, t0), (l1, t1) = _two_rank_run(tmp_path, spec, deterministic)
     assert l0 == l1
     for a, b in zip(_tree_leaves(t0), _tree_leaves(t1)):
         assert a.tobytes() == b.tobytes()
     devs = (torch.device("cuda", 0), torch.device("cpu"))
     recs = [mesh.Device(d.type, i, 0, d) for i, d in enumerate(devs * 2)]
-    lp, tp, _ = _split_small_run(recs, "sgd")
+    lp, tp, _ = _split_small_run(recs, "sgd", spec)
     _hold_split_leaves(l0, t0, lp, tp, "sgd")
+
+
+def test_two_ranks_over_a_card_and_a_cpu_record_each_match_one_process(
+        card, tmp_path, monkeypatch):
+    """``data:4``: a data shard a record, against one process."""
+    _hold_two_ranks(tmp_path, monkeypatch, "data:4")
+
+
+def test_model_groups_across_two_ranks_over_a_card_and_a_cpu_record(
+        card, tmp_path, monkeypatch):
+    """``model:2,data:2``: every model group spans the ranks (the card
+    shard's group both ranks' card records, the other both ``cpu``
+    records), its split layers gathered over them, each rank running
+    both data shards on all 16 rows; against one process on the same
+    mesh.  The ranks run cuDNN's default algorithms, whose backward
+    sums are not bit-reproducible: each rank of a group computes the
+    replicated layers' gradients itself, and their leaves stay bit-equal
+    only because the step sums those gradients over every rank."""
+    _hold_two_ranks(tmp_path, monkeypatch, "model:2,data:2",
+                    deterministic=False)
 
 
 #: cycles of each spin kernel of the side-stream test (about 10 ms)

@@ -673,6 +673,33 @@ def test_batch_moments_over_uneven_shards_equal_the_stacked_ones():
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
 
 
+def test_a_lone_shards_moments_are_the_stacked_ones():
+    """One data shard in all (a ``model`` group across ranks over one
+    shard: ``RankShards`` of one global shard, no collective): Chan's
+    formula with weight 1 gives the rows' own ``mean``/``var`` bit for
+    bit, as the stacked step takes them (``relu6_edge_study.py``: a
+    one-pass ``var_mean`` rounds a ReLU6 input to the other side of 0),
+    and the gradient through them."""
+    rng = np.random.default_rng(10)
+    rows = torch.from_numpy(rng.standard_normal((16, 3, 3, 7)).astype(
+        np.float32) * 2 + 1)
+    dims = (0, 1, 2)
+    a, b = torch.linspace(-1, 1, 7), torch.linspace(2, 0.5, 7)
+    whole = rows.clone().requires_grad_(True)
+    m0, v0 = syncbn.batch_moments(whole, dims)
+    (a * m0 + b * v0).sum().backward()
+    lone = rows.clone().requires_grad_(True)
+    group = syncbn.ShardGroup(1, timeout=30,
+                              ranks=syncbn.RankShards([0], 1))
+    outs, errs = _as_shards(group, lambda k: syncbn.batch_moments(lone, dims),
+                            1)
+    assert not errs
+    (m, v), = outs
+    assert torch.equal(m, m0) and torch.equal(v, v0)
+    (a * m + b * v).sum().backward()
+    torch.testing.assert_close(lone.grad, whole.grad, rtol=1e-6, atol=1e-7)
+
+
 def test_batch_moments_hold_under_many_shards_and_layers():
     """More shard threads than cores, 200 layers in a row and a short
     switch interval: every layer's moments on every shard are the stacked

@@ -11,8 +11,10 @@ package's ``multihost.initialize`` and run its ``train_step`` on its
 ``jax.make_array_from_process_local_data``.  One worker pair of each
 runs every case, and a fifth process computes the one-process
 references meanwhile; each has its own timeout, each pair its free port,
-and each lowers its own priority (``os.nice``), so the other test
-files' workers keep the host first.
+and each lowers its own priority to the least (``os.nice(19)``), so the
+other test files' workers keep the host first (the JAX
+``test_chaos.py::TestPoolFaults::test_per_owner_error_routing_keeps_other_stream_alive``
+races its bus against its sink and fails on a loaded host).
 
 The tree, rows and optimizers are ``tests/test_torch_training.py``'s
 ``_step_tree()`` and ``_step_data()``: MobileNetV1 at width 0.25, 10
@@ -45,16 +47,48 @@ classes, 32x32, batch 16, f32, lr 1e-4, 3 steps.
     update they carry the leaves' rounding from the other order of the
     gradient sums.  Measured: the first loss bit-equal, the later ones
     within 1.08e-6 to 1.66e-6, leaves 1.19e-7.
-(e) Refusals, each raised on every rank: a ``model`` group across the
-    ranks, rows of unequal count on the two ranks, a batch that does not
-    split over the rank's shards, rows of another shape.  In this
-    process: ``RankExchange`` against a stand-in all-reduce (its buffer,
-    its rows, its backward), and the mesh refusals that need no group.
+(e) Refusals, each raised on every rank: rows of unequal count on the
+    two ranks, a batch that does not split over the rank's shards, rows
+    of another shape, and (k) below.  In this process: ``RankExchange``
+    and ``_GatherSlices`` against stand-in all-reduces (their buffers,
+    rows and backwards), the row digest, and the mesh refusals that need
+    no group, the sharded invoke's of a model group across processes
+    among them.
 (f) The ``torch-optim`` trainer element builds its mesh over
     ``local_devices``: in the two-rank world each rank's trainer trains
     on its own records and rows alone, as a one-process trainer on those
     rows does (the JAX ``jax-optax`` trainer cannot train across
     processes: ROADMAP queue C).
+(g) ``model`` groups across the ranks: ``model:2,data:4`` over the two
+    ranks' 8 records (every group one record on each rank), the same
+    shape from ``hybrid_mesh`` with ``model`` its DCN axis, and
+    ``model:4,data:2`` (two records of each group on each rank), each
+    rank fed all 16 rows, against the one-process step on the same mesh
+    shape at (d)'s limits, and against ``data:8`` at (b)'s for sgd, adam
+    and adamw.
+(h) sgd on ``model:2,data:4`` against the JAX step on two processes over
+    ``data:-1`` at (a)'s limits; the JAX worker also runs its own step on
+    the cross-process ``model:2,data:4`` mesh, whose gap from its
+    ``data:-1`` step is printed and not held (ROADMAP queue C).
+(i) The gathered trees bit-equal on both ranks, also where rank 1
+    scales a replicated leaf's gradient by 1 + 2^-20 (as a backward
+    kernel that adds in another order rounds it: the sum over every rank
+    leaves both one update); each rank holding only its slice of each
+    split leaf, and ``trained_tree(gather=False)`` giving that slice; a
+    step built again on the same rank sets forms no new group.
+(j) Planted faults, each of which (g) must fail: the input-gradient sum
+    over the model group removed, the replicated gradients summed over
+    every rank and not divided by the ranks of a group, a shard's
+    moments written by both ranks of its group.
+(k) Refusals on every rank: a shard's rows that differ between the ranks
+    of its model group, a layout of groups across ranks the step does
+    not take.
+(l) Four ranks (``QUAD_WORKER``, 2 virtual ``cpu`` records each) on
+    ``model:2,data:4``: every model group spans two ranks and every set
+    of data peers two ranks, so the moments' exchanges and the slices'
+    gradients reduce over a real peer group between the model groups'
+    gathers; against the one-process step at (g)'s limits, the four
+    ranks' losses and leaves bit-equal.
 """
 
 import os
@@ -105,7 +139,7 @@ PORT_WORKER = textwrap.dedent("""\
     import pickle
     import sys
     import time
-    os.nice(10)
+    os.nice(19)
     sys.path.insert(0, {repo!r})
     import numpy as np
     import torch
@@ -130,30 +164,68 @@ PORT_WORKER = textwrap.dedent("""\
                               dtype=torch.float32)
     out = {{"runs": {{}}, "refusals": {{}}}}
 
-    def build(name, spec):
+    def build_on(name, m):
         opt = torch_optim._make_optimizer({{"optimizer": name,
                                            "lr": cfg["lr"]}})
-        return sharded.train_step(mesh.make_mesh(spec), apply, tree,
-                                  optimizer=opt)
+        return sharded.train_step(m, apply, tree, optimizer=opt)
 
-    def run(case, name, spec="data:-1"):
-        step, tp, to = build(name, spec)
+    def build(name, spec):
+        return build_on(name, mesh.make_mesh(spec))
+
+    def run(case, name, spec="data:-1", rows=None, m=None, nudge=False):
+        m = m if m is not None else mesh.make_mesh(spec)
+        opt = torch_optim._make_optimizer({{"optimizer": name,
+                                           "lr": cfg["lr"]}})
+        step, tp, to = sharded.train_step(m, apply, tree, optimizer=opt)
+        if nudge and pid == 1:   # a replicated gradient rounded otherwise
+            split = {{id(t) for _, leaf in sharded._split_leaves(tp)
+                     for t in leaf.slices}}
+            first = next(t for t in step.leaves if id(t) not in split)
+            first.register_hook(lambda g: g * (1 + 2.0 ** -20))
         assert step.ranks is not None and step.ranks.size == 8 // \\
-            mesh.make_mesh(spec).shape.get("model", 1), step.ranks
-        assert all(g[0].process_index == pid for g in step.groups)
+            m.shape.get("model", 1), step.ranks
+        assert all(d.process_index == pid for g in step.groups for d in g)
+        rows = mine if rows is None else rows
         losses = []
         for x, y in zip(xs, ys):
-            tp, to, loss = step(tp, to, x[mine], y[mine])
+            tp, to, loss = step(tp, to, x[rows], y[rows])
             losses.append(float(loss))
         step.close()
         out["runs"][case] = {{"losses": losses,
                              "tree": sharded.trained_tree(tp),
                              "split": step.placement is not None}}
+        if any(g is not None for g in step.ranks.models):
+            out["runs"][case].update(
+                local=sharded.trained_tree(tp, gather=False),
+                held=[(".".join(path), list(leaf.index),
+                       [tuple(t.shape) for t in leaf.slices])
+                      for path, leaf in sharded._split_leaves(tp)],
+                models=[repr(g) for g in step.ranks.models],
+                peers=list(step.ranks.peers.ranks))
         print(f"ran {{case}} process={{pid}} losses={{losses}}", flush=True)
 
     for name in ("sgd", "adam", "adamw"):
         run(name, name)
     run("model", "sgd", "data:4,model:2")
+    # -- (g) model groups across the ranks: every rank all 16 rows --------
+    every = slice(None)
+    for name in ("sgd", "adam", "adamw"):
+        run("across_" + name, name, "model:2,data:4", every)
+    run("hybrid", "sgd", rows=every, m=multihost.hybrid_mesh(
+        [("data", 4)], [("model", 2)]))
+    run("mixed", "sgd", "model:4,data:2", every)
+    run("nudged", "sgd", "model:2,data:4", every, nudge=True)
+    # a step built again on the same sets forms no group
+    out["groups"] = len(multihost._GROUPS)
+    formed = []
+    real_new_group = torch.distributed.new_group
+    torch.distributed.new_group = lambda *a, **k: (
+        formed.append(a) or real_new_group(*a, **k))
+    try:
+        build("sgd", "model:2,data:4")[0].close()
+    finally:
+        torch.distributed.new_group = real_new_group
+    out["formed_again"] = len(formed)
 
     # -- planted faults, the same on both ranks ---------------------------
     real_reduce = sharded.TrainStep._reduce
@@ -176,6 +248,38 @@ PORT_WORKER = textwrap.dedent("""\
     finally:
         syncbn.ShardGroup = real_group
 
+    # -- (j) planted faults on the groups across ranks ----------------------
+    real_input = sharded._model_input
+    sharded._model_input = lambda x, model: x   # no input-gradient sum
+    try:
+        run("no_input_reduce", "sgd", "model:2,data:4", every)
+    finally:
+        sharded._model_input = real_input
+
+    def every_rank(self, loss):   # each shard's gradient once a rank
+        self.ranks.mates = 1        # the sum over every rank not divided
+        return real_reduce(self, loss)
+
+    sharded.TrainStep._reduce = every_rank
+    try:
+        run("every_rank_grads", "sgd", "model:2,data:4", every)
+    finally:
+        sharded.TrainStep._reduce = real_reduce
+    real_fwd = syncbn.RankExchange.forward
+
+    def both_write(ctx, local, ranks):   # every rank of a group writes
+        ctx.ranks = ranks
+        buf = local.new_zeros((ranks.size, local.shape[1]))
+        buf[ranks.index] = local
+        torch.distributed.all_reduce(buf)
+        return buf
+
+    syncbn.RankExchange.forward = staticmethod(both_write)
+    try:
+        run("both_write_moments", "sgd", "model:2,data:4", every)
+    finally:
+        syncbn.RankExchange.forward = staticmethod(real_fwd)
+
     # -- refusals, each on every rank -------------------------------------
     def refused(case, fn):
         t0 = time.perf_counter()
@@ -188,8 +292,16 @@ PORT_WORKER = textwrap.dedent("""\
         print(f"refusal {{case}} process={{pid}}: "
               f"{{out['refusals'][case]}}", flush=True)
 
-    refused("model_group_across_ranks",
-            lambda: build("sgd", "model:2,data:4"))
+    devs = mesh.devices()
+    refused("layout", lambda: build_on(
+        "sgd", mesh.make_mesh("data:4,model:2",
+                              [devs[i] for i in (0, 4, 1, 2, 5, 6, 3, 7)])))
+    step, tp, to = build("sgd", "model:2,data:4")
+    x = xs[0].copy()
+    if pid == 1:   # two rows of data shard 2 swapped on rank 1
+        x[[8, 9]] = x[[9, 8]]
+    refused("rows_differ", lambda: step(tp, to, x, ys[0]))
+    step.close()
     step, tp, to = build("sgd", "data:-1")
     rows = 8 if pid == 0 else 4
     refused("unequal_rows", lambda: step(tp, to, xs[0][:rows], ys[0][:rows]))
@@ -232,7 +344,7 @@ JAX_WORKER = textwrap.dedent("""\
     import os
     import pickle
     import sys
-    os.nice(10)
+    os.nice(19)
     sys.path.insert(0, {repo!r})
     import numpy as np
 
@@ -272,9 +384,84 @@ JAX_WORKER = textwrap.dedent("""\
         losses.append(float(loss))
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a.addressable_data(0)),
                                   p)
+    res = {{"losses": losses, "tree": tree}}
+
+    # (h): the same step on model:2,data:4, each model group across the
+    # processes; every process feeds all rows (the batch is replicated
+    # over model)
+    try:
+        from jax.experimental import multihost_utils
+
+        mmesh = make_mesh("model:2,data:4")
+        step, p, o = train_step(
+            mmesh, functools.partial(jmb.mobilenet_v1_apply,
+                                     dtype=jnp.float32),
+            cfg["tree"], optimizer=optax.sgd(cfg["lr"], momentum=0.9))
+        rows = batch_sharding(mmesh)
+        mlosses = []
+        for x, y in zip(xs, ys):
+            p, o, loss = step(
+                p, o, jax.make_array_from_process_local_data(rows, x, x.shape),
+                jax.make_array_from_process_local_data(rows, y, y.shape))
+            mlosses.append(float(loss))
+        res["model"] = {{"losses": mlosses, "tree": jax.tree_util.tree_map(
+            lambda a: np.asarray(multihost_utils.process_allgather(
+                a, tiled=True)), p)}}
+    except Exception as e:   # recorded: the test prints what it raised
+        res["model"] = {{"error": f"{{type(e).__name__}}: {{e}}"}}
     with open(out_path, "wb") as f:
-        pickle.dump({{"losses": losses, "tree": tree}}, f)
-    print(f"jax ok process={{pid}} losses={{losses}}", flush=True)
+        pickle.dump(res, f)
+    print(f"jax ok process={{pid}} losses={{losses}} model="
+          f"{{res['model'].get('losses', res['model'].get('error'))}}",
+          flush=True)
+""")
+
+
+QUAD_WORKER = textwrap.dedent("""\
+    import functools
+    import os
+    import pickle
+    import sys
+    os.nice(19)
+    sys.path.insert(0, {repo!r})
+    import numpy as np
+    import torch
+
+    pid, port, cfg_path, out_path = (int(sys.argv[1]), sys.argv[2],
+                                     sys.argv[3], sys.argv[4])
+
+    from nnstreamer_tpu_torch.models import convert
+    from nnstreamer_tpu_torch.parallel import mesh, multihost, sharded
+    from nnstreamer_tpu_torch.trainers import torch_optim
+
+    mesh.set_virtual_devices(2, "cpu")
+    multihost.initialize(coordinator_address="127.0.0.1:" + port,
+                         num_processes=4, process_id=pid, backend="gloo")
+    with open(cfg_path, "rb") as f:
+        cfg = pickle.load(f)
+    xs, ys = cfg["xs"], cfg["ys"]
+    step, tp, to = sharded.train_step(
+        mesh.make_mesh("model:2,data:4"),
+        functools.partial(convert.mobilenet_v1_tree_apply,
+                          dtype=torch.float32),
+        cfg["tree"], optimizer=torch_optim._make_optimizer(
+            {{"optimizer": "sgd", "lr": cfg["lr"]}}))
+    # every rank the rows of its data shards, in shard order
+    b = xs.shape[1] // 4
+    rows = np.concatenate([np.arange(k * b, (k + 1) * b)
+                           for k in step.ranks.index])
+    losses = []
+    for x, y in zip(xs, ys):
+        tp, to, loss = step(tp, to, x[rows], y[rows])
+        losses.append(float(loss))
+    step.close()
+    out = {{"losses": losses, "tree": sharded.trained_tree(tp),
+           "index": step.ranks.index, "peers": list(step.ranks.peers.ranks),
+           "models": [repr(g) for g in step.ranks.models]}}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    print(f"quad ok process={{pid}} losses={{losses}}", flush=True)
+    multihost.shutdown()
 """)
 
 
@@ -282,7 +469,7 @@ REFS_WORKER = textwrap.dedent("""\
     import os
     import pickle
     import sys
-    os.nice(10)
+    os.nice(19)
     sys.path.insert(0, {repo!r})
     sys.path.insert(0, os.path.join({repo!r}, "tests"))
     import torch
@@ -337,6 +524,8 @@ def _references():
     steps."""
     refs = {name: _one_process(name) for name in ("sgd", "adam", "adamw")}
     refs["model"] = _one_process("sgd", "data:4,model:2")
+    refs["across"] = _one_process("sgd", "model:2,data:4")
+    refs["mixed"] = _one_process("sgd", "model:4,data:2")
     refs["spread"], refs["jax"] = {}, {}
     for name in ("adam", "adamw"):
         refs["spread"][name] = max(
@@ -361,9 +550,9 @@ def _start(tmp, name, text, args, env, n=2):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both worker pairs and the references, started together: {"port":
-    [rank 0's, rank 1's results], "jax": [...], "refs": [what they are
-    held to]}."""
+    """Both worker pairs, the four-rank world and the references, started
+    together: {"port": [rank 0's, rank 1's results], "jax": [...],
+    "quad": [the four ranks'], "refs": [what they are held to]}."""
     tmp = tmp_path_factory.mktemp("training_multihost")
     xs, ys = _step_data()
     init, per_rank = _toy()
@@ -382,6 +571,8 @@ def runs(tmp_path_factory):
                             [_free_port(), cfg], port_env),
              "jax": _start(tmp, "jax", JAX_WORKER, [_free_port(), cfg],
                            jax_env),
+             "quad": _start(tmp, "quad", QUAD_WORKER, [_free_port(), cfg],
+                            port_env, n=4),
              "refs": _start(tmp, "refs", REFS_WORKER, [], refs_env, n=1)}
     deadline = time.monotonic() + WORKER_TIMEOUT_S
     outs, failed = {}, []
@@ -475,7 +666,10 @@ def test_two_ranks_match_the_one_process_split_step(runs, name):
     assert worst <= max(SPLIT_LEAF_ATOL, spread)
 
 
-@pytest.mark.parametrize("case", ["sgd", "adam", "adamw", "model"])
+@pytest.mark.parametrize("case", ["sgd", "adam", "adamw", "model",
+                                  "across_sgd", "across_adam",
+                                  "across_adamw", "hybrid", "mixed",
+                                  "nudged"])
 def test_the_ranks_leaves_are_bit_equal(runs, case):
     (l0, t0), (l1, t1) = _ran(runs, case, 0), _ran(runs, case, 1)
     assert l0 == l1
@@ -510,13 +704,201 @@ def test_model_groups_inside_ranks_match_one_process(runs):
     assert worst <= MODEL_LEAF_ATOL
 
 
+# -- (g)-(j) model groups across the ranks -----------------------------------------
+
+
+def _across_limits(got, want):
+    """(d)'s limits: the first loss, the later losses, the leaves."""
+    rel, worst = _split_gaps(got, want)
+    return (abs(got[0][0] - want[0][0]) / abs(want[0][0])
+            <= MODEL_FIRST_LOSS_RTOL and rel <= SPLIT_LOSS_RTOL
+            and worst <= MODEL_LEAF_ATOL), rel, worst
+
+
+@pytest.mark.parametrize("case,ref", [("across_sgd", "across"),
+                                      ("hybrid", "across"),
+                                      ("mixed", "mixed"),
+                                      ("nudged", "across")])
+def test_model_groups_across_ranks_match_one_process(runs, case, ref):
+    """(g): every model group across the two ranks (``model:2,data:4``;
+    the same shape from ``hybrid_mesh`` with ``model`` its DCN axis;
+    ``model:4,data:2``, two records of each group on each rank; (i)'s
+    nudged gradient on rank 1) against the one-process step on the same
+    mesh shape, at (d)'s limits."""
+    r = runs["port"][0]["runs"][case]
+    assert r["split"] and r["peers"] == [0]
+    got, want = _ran(runs, case), runs["refs"][0][ref]
+    ok, rel, worst = _across_limits(got, want)
+    print(f"two ranks, {case}, against one process: first loss rel "
+          f"{abs(got[0][0] - want[0][0]) / abs(want[0][0]):.3e}, losses rel "
+          f"{rel:.3e}, leaves max {worst:.3e}")
+    assert ok
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam", "adamw"])
+def test_model_groups_across_ranks_match_the_data_split(runs, name):
+    """(g): against the one-process replicated ``data:8`` step at (b)'s
+    limits (adam/adamw: (b)'s spread rule)."""
+    rel, worst = _split_gaps(_ran(runs, "across_" + name),
+                             runs["refs"][0][name])
+    spread = runs["refs"][0]["spread"].get(name, 0.0)
+    print(f"two ranks on model:2,data:4 against one process on data:8, "
+          f"{name}: losses rel {rel:.3e}, leaves max {worst:.3e}")
+    assert rel <= SPLIT_LOSS_RTOL
+    assert worst <= max(SPLIT_LEAF_ATOL, spread)
+
+
+def test_model_groups_across_ranks_match_the_jax_step(runs):
+    """(h): against the JAX step on two processes over ``data:-1`` at
+    (a)'s limits: by SPMD's contract the same function."""
+    jl, jp = runs["jax"][0]["losses"], runs["jax"][0]["tree"]
+    tl, got = _ran(runs, "across_sgd")
+    assert tl[0] == pytest.approx(jl[0], rel=1e-5)
+    assert tl == pytest.approx(jl, rel=5e-3)
+    gaps = _update_gaps(_step_tree(), jp, got)
+    print(f"two ranks on model:2,data:4 against the two-process JAX step "
+          f"on data:-1: largest leaf update gap {max(gaps.values()):.3e}")
+    _hold_updates(gaps, UPDATE_GAP["sgd"])
+
+
+def test_the_jax_step_across_processes_on_a_model_axis(runs):
+    """(h): the JAX step on the cross-process ``model:2,data:4`` mesh,
+    its gap from its own ``data:-1`` step printed and not held (ROADMAP
+    queue C: the reference scales the depthwise gradients by M), or the
+    error it raised."""
+    got = runs["jax"][0]["model"]
+    if "error" in got:
+        print(f"the JAX step on model:2,data:4 across two processes raised "
+              f"{got['error']}")
+        assert got["error"]
+        return
+    jl, jp = runs["jax"][0]["losses"], runs["jax"][0]["tree"]
+    gaps = _update_gaps(_step_tree(), jp, got["tree"])
+    dw = max(g for p, g in gaps.items() if "/dw/w" in p)
+    print(f"the JAX step on model:2,data:4 across two processes against "
+          f"its data:-1 step: losses {got['losses']} vs {jl}, largest leaf "
+          f"update gap {max(gaps.values()):.3e}, depthwise weights "
+          f"{dw:.3e}")
+    assert got["losses"][0] == pytest.approx(jl[0], rel=1e-5)
+
+
+def test_each_rank_holds_only_its_slices(runs):
+    """(i): on ``model:2,data:4`` each rank holds its own slice of each
+    split leaf (slice index = rank) on its own record; ``gather=False``
+    gives that slice, equal to its part of the gathered tree, and the
+    gathered trees are equal on both ranks (the bit-equality test)."""
+    from nnstreamer_tpu_torch.parallel.sharded import ShardedLeaf
+
+    for rank in (0, 1):
+        r = runs["port"][rank]["runs"]["across_sgd"]
+        assert len(r["held"]) == 14, r["held"]   # 13 pointwise + head
+        assert all(index == [rank] and len(shapes) == 1
+                   for _, index, shapes in r["held"]), r["held"]
+        assert r["peers"] == [rank]
+        assert all(f"index=[{rank}] of 2, ranks=[0, 1]" in m
+                   for m in r["models"]), r["models"]
+        n = 0
+        for path, whole in _leaves(r["tree"]):
+            part = _at(r["local"], path)
+            if not isinstance(part, ShardedLeaf):
+                assert part.tobytes() == whole.tobytes(), path
+                continue
+            n += 1
+            assert list(part.index) == [rank] and part.count == 2
+            (mine,) = part.slices
+            k = whole.shape[part.split_dim] // 2
+            want = np.take(whole, range(rank * k, (rank + 1) * k),
+                           axis=part.split_dim)
+            assert mine.tobytes() == np.ascontiguousarray(want).tobytes()
+        assert n == 14
+
+
+def test_a_step_built_again_forms_no_new_group(runs):
+    """(i): the subgroups live with the process group: the four of
+    ``model:2,data:4`` (one a data shard, each both ranks) serve every
+    later step on those sets, and building one again forms none."""
+    for rank in (0, 1):
+        assert runs["port"][rank]["groups"] == 4
+        assert runs["port"][rank]["formed_again"] == 0
+
+
+# -- (l) four ranks: model groups and data peers both across ranks -----------------
+
+
+def test_four_ranks_run_their_shards_over_their_peers(runs):
+    """``model:2,data:4`` over four ranks of two records: ranks 0 and 2
+    hold data shards 0 and 1 (model coordinates 0 and 1), ranks 1 and 3
+    shards 2 and 3; the data peers are {0, 1} and {2, 3}."""
+    quad = runs["quad"]
+    assert [q["index"] for q in quad] == [[0, 1], [2, 3], [0, 1], [2, 3]]
+    assert [q["peers"] for q in quad] == [[0, 1], [0, 1], [2, 3], [2, 3]]
+    for rank, q in enumerate(quad):
+        mates = [0, 2] if rank % 2 == 0 else [1, 3]
+        assert all(f"index=[{rank // 2}] of 2, ranks={mates}" in m
+                   for m in q["models"]), q["models"]
+
+
+def test_four_ranks_match_one_process(runs):
+    """(l) against the one-process ``model:2,data:4`` step at (g)'s
+    limits."""
+    q = runs["quad"][0]
+    got, want = (q["losses"], q["tree"]), runs["refs"][0]["across"]
+    ok, rel, worst = _across_limits(got, want)
+    print(f"four ranks on model:2,data:4 against one process: first loss "
+          f"rel {abs(got[0][0] - want[0][0]) / abs(want[0][0]):.3e}, losses "
+          f"rel {rel:.3e}, leaves max {worst:.3e}")
+    assert ok
+
+
+def test_four_ranks_leaves_are_bit_equal(runs):
+    quad = runs["quad"]
+    for q in quad[1:]:
+        assert q["losses"] == quad[0]["losses"]
+        for path, a, b in _pairs(quad[0]["tree"], q["tree"]):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), path
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("fault", ["no_input_reduce", "every_rank_grads",
+                                   "both_write_moments"])
+def test_planted_faults_fail_the_across_check(runs, fault):
+    """(j): the input-gradient sum removed, replicated gradients summed
+    over every rank (each shard counted twice), a shard's moments written
+    by both ranks of its group: each fails (g)."""
+    got, want = _ran(runs, fault), runs["refs"][0]["across"]
+    ok, rel, worst = _across_limits(got, want)
+    gaps = _update_gaps(_step_tree(), want[1], got[1])
+    print(f"planted {fault}: losses rel {rel:.3e}, leaves max {worst:.3e}, "
+          f"largest leaf update gap {max(gaps.values()):.3e}")
+    assert not ok
+    assert max(gaps.values()) > UPDATE_GAP["sgd"]
+
+
 # -- (e) refusals ------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("case,match", [
-    ("model_group_across_ranks",
-     r"model group of data shard 0 \(cpu:0, cpu:4\) lies on processes "
-     r"\[0, 1\]"),
+    ("layout", r"model group of data shard 1 \(cpu:1, cpu:2\) on processes "
+     r"\[0\]: process 0 holds model coordinates \[0, 1\] of it and \[0\] "
+     r"of data shard 0's"),
+    ("rows_differ", r"data shard 2's rows differ between the ranks \[0, 1\] "
+     r"of its model group"),
     ("unequal_rows", r"unequal count .*\[\(8, 4\), \(4, 4\)\]"),
     ("batch_not_split", r"batch of rank 0 \(6 rows\) does not split over "
      r"its 4 data shards"),
@@ -605,16 +987,6 @@ def _records(owners):
             for i, p in enumerate(owners)]
 
 
-def test_a_model_group_across_processes_is_refused():
-    from nnstreamer_tpu_torch.parallel import sharded
-
-    mesh = tmesh.make_mesh("model:2,data:2", _records([0, 0, 1, 1]))
-    with pytest.raises(ValueError, match=r"model group of data shard 0 "
-                       r"\(cpu:0, cpu:2\) lies on processes \[0, 1\]"):
-        sharded.train_step(mesh, lambda p, x, train=False: x @ p["w"],
-                           {"w": np.zeros((6, 4), np.float32)})
-
-
 def test_data_shards_of_ranks_outside_the_group_are_refused():
     """In a one-process world a mesh holding another process's data
     shards has no group to reduce over: refused, naming the owners."""
@@ -626,3 +998,95 @@ def test_data_shards_of_ranks_outside_the_group_are_refused():
                        r"process group \(1 here, this one 0\)"):
         sharded.train_step(mesh, lambda p, x, train=False: x @ p["w"],
                            {"w": np.zeros((6, 4), np.float32)})
+
+
+@pytest.mark.parametrize("who", ["ShardedModel", "shard_params"])
+def test_a_sharded_invoke_refuses_a_model_group_across_processes(who):
+    """A sharded invoke runs each model group in one process: on a mesh
+    whose group lies partly on another process both refuse, naming the
+    group and its owners (no remote slice placed here, no IndexError)."""
+    from nnstreamer_tpu_torch.parallel import sharded
+
+    mesh = tmesh.make_mesh("model:2,data:2", _records([0, 0, 1, 1]))
+    params = {"w": np.zeros((6, 4), np.float32)}
+    with pytest.raises(ValueError, match=rf"{who}: the model group "
+                       r"\(cpu:0, cpu:2\) lies on processes \[0, 1\]"):
+        if who == "ShardedModel":
+            sharded.ShardedModel(mesh, lambda p, x: x @ p["w"], params)
+        else:
+            sharded.shard_params(mesh, params)
+
+
+def test_a_sharded_invoke_refuses_a_mesh_without_this_process():
+    from nnstreamer_tpu_torch.parallel import sharded
+
+    mesh = tmesh.make_mesh("data:2", _records([1, 1]))
+    with pytest.raises(ValueError, match=r"holds no data shard of "
+                       r"process 0"):
+        sharded.ShardedModel(mesh, lambda x: x)
+
+
+def test_gather_slices_fills_the_others_and_keeps_its_gradient(
+        monkeypatch):
+    """``_GatherSlices`` with a stand-in subgroup that adds what rank 0
+    would: forward, this rank's slice (index 1 of 2) at its place in a
+    zero buffer, the other's added; backward, this rank's part of the
+    output gradient, no collective."""
+    from nnstreamer_tpu_torch.parallel import sharded
+    from nnstreamer_tpu_torch.parallel.multihost import Subgroup
+
+    g = torch.Generator().manual_seed(0)
+    other = torch.randn(3, 2, 5, generator=g)
+    seen = []
+
+    class Stand(Subgroup):
+        def all_reduce(self, t):
+            seen.append(t.clone())
+            t[:, :2] += other
+
+    model = sharded.ModelGroup(0, [1], 2, Stand([0, 1]))
+    local = torch.randn(3, 2, 5, generator=g, requires_grad=True)
+    out = sharded._GatherSlices.apply(local, model, 1)
+    assert torch.equal(seen[0][:, :2], torch.zeros(3, 2, 5))
+    assert torch.equal(out[:, :2], other)
+    assert torch.equal(out[:, 2:], local.detach())
+    w = torch.randn(3, 4, 5, generator=g)
+    (out * w).sum().backward()
+    assert len(seen) == 1 and torch.equal(local.grad, w[:, 2:])
+    # a copy elsewhere keeps which slices, not the subgroup
+    import pickle
+
+    copy = pickle.loads(pickle.dumps(model))
+    assert (copy.index, copy.count, copy.sub) == ((1,), 2, None)
+    with pytest.raises(ValueError, match="no subgroup"):
+        copy.all_reduce(torch.zeros(1), "gather")
+
+
+def test_row_digests_see_a_swap_within_a_shard_and_any_dtype():
+    from nnstreamer_tpu_torch.parallel.sharded import _row_digests
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((8, 3, 4)).astype(np.float32))
+    d = _row_digests(x, 2)
+    assert d.shape == (2, 3) and d.dtype == torch.int64
+    y = x.clone()
+    y[[4, 5]] = y[[5, 4]]
+    e = _row_digests(y, 2)
+    assert torch.equal(d[0], e[0]) and not torch.equal(d[1], e[1])
+    for dt in (torch.uint8, torch.bfloat16, torch.float64, torch.bool):
+        a = _row_digests(x.to(dt), 4)
+        assert torch.equal(a, _row_digests(x.to(dt).clone(), 4))
+
+
+def test_orbax_refuses_a_leaf_split_over_ranks(tmp_path):
+    """A rank-local leaf (``trained_tree(gather=False)`` across ranks) is
+    not written: the writer names it and the gather to call first."""
+    from nnstreamer_tpu_torch.parallel import sharded
+    from nnstreamer_tpu_torch.trainers import orbax_write
+
+    leaf = sharded.ShardedLeaf([np.zeros((4, 2), np.float32)], 1,
+                               sharded.P(None, "model"), (4, 4),
+                               sharded.ModelGroup(0, [1], 2, None))
+    with pytest.raises(ValueError, match=r"head.w holds slices \[1\] of 2 "
+                       r"on this rank"):
+        orbax_write.tree_values({"head": {"w": leaf}})
