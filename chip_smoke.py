@@ -481,8 +481,22 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    reductions, the exchanges and the gradient all-reduce, samples/s and
    peak memory beside the one-process step; (ii) NCCL, one rank a card:
    ``model:2,data:2`` over four cards, ``model:2`` over two, else one
-   line "not run: 1 card".  (f) The analyzer over phase 20's
-   descriptions: 0 errors;
+   line "not run: 1 card".  (k) Steps saved across processes
+   (``save_step(root, n, trained_tree(params, gather=False),
+   group=step.ranks.every)``, ``trainers/orbax_write.py``): (i)'s and
+   (j)'s ranks each save their trained step together as steps 1 and 2
+   of one root (each rank's share into its own ``ocdbt.process_<rank>/``
+   store, one merged manifest); this process reads each back with
+   ``load_dir`` bit-equal to rank 0's gathered tree, holds every chunk
+   written once (no key in two stores, the chunk bytes the leaves'
+   bytes), prints the write seconds and MB/s a rank beside the
+   one-process step's bytes and seconds, and the planted fault (j's rank
+   1 leaving its slices out of a second save) must make the reader
+   raise on the missing chunk; then ``root@latest`` is staged into a
+   share-model MobileNetV1 pool and swapped in, ORBAX_FRAMES frames
+   (``scale_bias_cast`` once a frame) within SERVE_TOL of the step's
+   tree alone; (ii)'s NCCL ranks save too, else one line "not run: 1
+   card".  (f) The analyzer over phase 20's descriptions: 0 errors;
 21. the importers (``filters/onnx.py``, ``tflite.py``, ``tensorflow.py``)
    on files the tests' writer (``tests/torch_model_files.py``) makes from
    seeds, and the native codec, under PyTorch's default switches (cuDNN
@@ -9548,9 +9562,11 @@ def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
                 _split_leaves(params)]
         res.update(split_leaves=len(held),
                    held=sorted({str(i) for _, i in held}))
-        if rank == 0:
-            with open(os.path.join(cfg["out"], "tree.pkl"), "wb") as f:
-                pickle.dump(tree, f)
+    if rank == 0:
+        with open(os.path.join(cfg["out"], "tree.pkl"), "wb") as f:
+            pickle.dump(tree, f)
+    if cfg.get("save"):
+        res["saved"] = _rank_save(cfg, rank, params, step, model)
     del step, params, opt, xb, tree
     # -- TRAIN_SMALL on the ranks, TF32 off; the planted faults ----------
     sb = TRAIN_SMALL["batch"] // shards
@@ -9576,7 +9592,143 @@ def train_rank_child(rank: int, port: str, cfg_json: str) -> int:
     return 0
 
 
-def _rank_children(world: int, backend: str, out: str, mode: str = "data"):
+def _rank_save(cfg: dict, rank: int, params, step, model: bool) -> dict:
+    """20k: every rank saves the trained step together
+    (``save_step(root, n, trained_tree(params, gather=False),
+    group=step.ranks.every)``: this rank's slices and the replicated
+    leaves copied to the host, then each rank writes only its share); the
+    seconds of the copy and of the write, and this rank's store bytes.
+    On ``model`` rank 1 then leaves its slices out of a second save (the
+    planted fault the parent's reader must refuse)."""
+    from nnstreamer_tpu_torch.parallel.sharded import trained_tree
+    from nnstreamer_tpu_torch.trainers import checkpoint, orbax_write
+
+    t0 = time.perf_counter()
+    local = trained_tree(params, gather=False)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = checkpoint.save_step(cfg["save"], cfg["step"], local,
+                                group=step.ranks.every)
+    took = time.perf_counter() - t0
+    store = orbax_write.step_bytes(os.path.join(
+        path, orbax_write.process_store(rank)))
+    out = {"path": path, "write_s": took, "host_s": host_s,
+           "store_bytes": store, "mb_per_s": store / took / 1e6}
+    if model:
+        real = orbax_write.share
+
+        def left_out(tree, plans, r, primary):
+            return {k: v for k, v in real(tree, plans, r, primary).items()
+                    if k.endswith(b".zarray")
+                    or plans[k.decode().split("/")[0]].dim < 0}
+
+        if rank == 1:
+            orbax_write.share = left_out
+        try:
+            out["left_out"] = checkpoint.save_step(
+                cfg["save"] + "_left_out", cfg["step"], local,
+                group=step.ranks.every)
+        finally:
+            orbax_write.share = real
+    return out
+
+
+def _once_written(path: str, tree):
+    """20k's once-check of a step written across ranks: (the keys found in
+    more than one ``ocdbt.process_<rank>/`` store, the chunk bytes decoded
+    over the stores, the leaves' bytes, the chunk bytes by store)."""
+    from nnstreamer_tpu_torch import nativelib
+    from nnstreamer_tpu_torch.trainers.ocdbt import Ocdbt
+
+    seen, by_store = {}, {}
+    for name in sorted(n for n in os.listdir(path)
+                       if n.startswith("ocdbt.process_")):
+        db = Ocdbt(os.path.join(path, name))
+        try:
+            by_store[name] = 0
+            for k in db.list():
+                seen.setdefault(k, []).append(name)
+                if not k.endswith(".zarray"):
+                    by_store[name] += nativelib.zstd_decompress(
+                        db.read(k)).nbytes
+        finally:
+            db.close()
+    twice = {k: v for k, v in seen.items() if len(v) > 1}
+    want = sum(np.asarray(leaf).nbytes for leaf in _tree_leaves(tree))
+    return twice, sum(by_store.values()), want, by_store
+
+
+def _saved_check(recs: list, tree, tag: str, model: bool, card: str,
+                 power: str) -> dict:
+    """20k, one leg: the step the ranks saved together read back with
+    ``load_dir`` bit-equal to rank 0's gathered tree, each chunk written
+    once, the planted left-out slices refused by the reader; the write
+    seconds and MB/s a rank beside the one-process step's bytes and
+    seconds (the gathered tree written alone)."""
+    import shutil
+
+    from nnstreamer_tpu_torch.trainers import checkpoint
+    from nnstreamer_tpu_torch.trainers.orbax_format import OrbaxFormatError
+    from nnstreamer_tpu_torch.trainers.orbax_write import step_bytes
+
+    saved = [r["saved"] for r in recs]
+    path = saved[0]["path"]
+    if any(s["path"] != path for s in saved):
+        raise RuntimeError(f"training ({tag} k): the ranks saved "
+                           f"{[s['path'] for s in saved]}")
+    t0 = time.perf_counter()
+    got = checkpoint.load_dir(path)
+    read_s = time.perf_counter() - t0
+    leaves = _orbax_same(got, tree, f"training ({tag} k)")
+    twice, chunk_bytes, leaf_bytes, by_store = _once_written(path, tree)
+    if twice or chunk_bytes != leaf_bytes or len(by_store) != len(recs):
+        raise RuntimeError(f"training ({tag} k): {len(twice)} keys in two "
+                           f"stores ({sorted(twice)[:3]}), chunk bytes "
+                           f"{chunk_bytes} against the leaves' {leaf_bytes},"
+                           f" stores {sorted(by_store)}")
+    one = os.path.join(os.path.dirname(os.path.dirname(path)),
+                       f"one_process_{tag.replace(' ', '_')}")
+    t0 = time.perf_counter()
+    checkpoint.save_dir(one, tree)
+    one_s = time.perf_counter() - t0
+    one_bytes = step_bytes(one)
+    shutil.rmtree(one, ignore_errors=True)
+    res = {"path": path, "leaves": leaves, "read_s": read_s,
+           "write_s": [s["write_s"] for s in saved],
+           "host_s": [s["host_s"] for s in saved],
+           "store_bytes": [s["store_bytes"] for s in saved],
+           "mb_per_s": [s["mb_per_s"] for s in saved],
+           "chunk_bytes_by_store": by_store, "step_bytes": step_bytes(path),
+           "one_process_bytes": one_bytes, "one_process_write_s": one_s}
+    planted = ""
+    if model:
+        try:
+            checkpoint.load_dir(saved[1]["left_out"])
+        except OrbaxFormatError as e:
+            if "is missing" not in str(e):
+                raise
+            res["left_out_refused"] = str(e)
+            planted = f"; the planted left-out slices refused: {e}"
+        else:
+            raise RuntimeError(f"training ({tag} k): the step with rank "
+                               f"1's slices left out reads")
+    print(f"training ({tag} k): the {len(recs)} ranks' step saved together "
+          f"as {path}: written in {[round(x, 6) for x in res['write_s']]} "
+          f"s by rank (its tree copied to the host before, in "
+          f"{[round(x, 6) for x in res['host_s']]} s), MB/s a rank "
+          f"{[round(m, 1) for m in res['mb_per_s']]}; process stores of "
+          f"{res['store_bytes']} B (chunks {sorted(by_store.values())} B, "
+          f"each written once: {chunk_bytes} B, the leaves' bytes), the "
+          f"step {res['step_bytes']} B against the one-process step's "
+          f"{one_bytes} B (the gathered tree written alone in {one_s:.6f} "
+          f"s); read back with load_dir bit-equal to rank 0's gathered "
+          f"tree ({leaves} leaves) in {read_s:.6f} s{planted} "
+          f"[{card}, {power}]", flush=True)
+    return res
+
+
+def _rank_children(world: int, backend: str, out: str, mode: str = "data",
+                   save=None):
     """Run ``world`` children of 20i (20j: ``mode="model"``)
     (``--train-rank-child``), each with its own limit; every child's
     ``TRAIN_RANK`` record, in rank order.  A child that fails or runs out
@@ -9588,6 +9740,7 @@ def _rank_children(world: int, backend: str, out: str, mode: str = "data"):
     port = str(s.getsockname()[1])
     s.close()
     cfg = json.dumps({"world": world, "backend": backend, "out": out,
+                      "save": save and save[0], "step": save and save[1],
                       "mode": mode, "device": TRAIN_DEVICE, "size": TRAIN_SIZE,
                       "classes": TRAIN_CLASSES, "width": TRAIN_WIDTH,
                       "batch": TRAIN_BATCH, "steps": TRAIN_ALONE_STEPS,
@@ -9699,8 +9852,14 @@ RANK_FAULTS = {"data": ("no_grad_reduce",),
                "model": ("no_input_reduce", "every_rank_grads")}
 
 
+#: 20k: the step number each leg saves into the ranks' root (20j's is
+#: the newest of the one-card legs: ``root@latest``)
+RANK_STEPS = {"i": 1, "j": 2, "i ii": 3, "j ii": 4}
+
+
 def train_ranks(world: int, backend: str, base: dict, spread: dict,
-                tag: str, card: str, power: str, mode: str = "data") -> dict:
+                tag: str, card: str, power: str, mode: str = "data",
+                save_root=None) -> dict:
     """One 20i leg: ``world`` ranks over ``backend`` against the
     one-process ``data:world`` step (first loss rtol 1e-4, later losses
     5e-3, the ranks' digests equal), TRAIN_SMALL against the CPU at
@@ -9712,7 +9871,9 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
     convolutions; the head too where its classes split), the gathered
     tree within
     TRAIN_SMALL_TOL's leaf limit of the one-process tree, both planted
-    faults failing."""
+    faults failing.  With ``save_root`` (20k) the ranks also save the
+    trained step together as step ``RANK_STEPS[tag]`` of it
+    (:func:`_saved_check`)."""
     import pickle
     import shutil
     import tempfile
@@ -9725,14 +9886,14 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
     faults = RANK_FAULTS[mode]
     out = tempfile.mkdtemp(prefix="nns_ranks_")
     try:
-        recs = _rank_children(world, backend, out, mode)
+        recs = _rank_children(world, backend, out, mode, save_root and (
+            save_root, RANK_STEPS[tag]))
         small = []
         for r in range(world):
             with open(os.path.join(out, f"small_{r}.pkl"), "rb") as f:
                 small.append(pickle.load(f))
-        if model:
-            with open(os.path.join(out, "tree.pkl"), "rb") as f:
-                tree = pickle.load(f)
+        with open(os.path.join(out, "tree.pkl"), "rb") as f:
+            tree = pickle.load(f)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     digests = {r["digest"] for r in recs}
@@ -9815,8 +9976,10 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
             raise RuntimeError(f"training ({tag}): the planted {fault} "
                                f"passes the check: {got}")
         planted[fault] = dict(got, over=over)
+    saved = _saved_check(recs, tree, tag, model, card, power) \
+        if save_root else None
     res = {"world": world, "backend": backend, "mesh": recs[0]["mesh"],
-           "ranks": recs, "one_process": ref, "loss_rel": rels,
+           "ranks": recs, "one_process": ref, "loss_rel": rels, "saved": saved,
            "tree_leaf_max": tree_max,
            "small_vs_cpu": vs_cpu, "planted": planted,
            "launches": {k: sum(r["launches"][k] for r in recs)
@@ -9860,13 +10023,14 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
 
 
 def train_multiprocess(base: dict, spread: dict, card: str,
-                       power: str) -> dict:
+                       power: str, save_root=None) -> dict:
     """20i: (i) TRAIN_RANKS ranks on the one card over gloo; (ii) one rank
-    a card over NCCL where there are two or more cards."""
+    a card over NCCL where there are two or more cards; each leg saving
+    its step into ``save_root`` (20k) where given."""
     import torch
 
     res = {"ranks": train_ranks(TRAIN_RANKS, "gloo", base, spread, "i",
-                                card, power)}
+                                card, power, save_root=save_root)}
     res["launches"] = res["ranks"]["launches"]
     cards = torch.cuda.device_count() if TRAIN_DEVICE == "cuda" else 0
     if cards < 2:
@@ -9875,29 +10039,113 @@ def train_multiprocess(base: dict, spread: dict, card: str,
               flush=True)
         return res
     res["cards"] = dict(train_ranks(cards, "nccl", base, spread, "i ii",
-                                    card, power), ran=True)
+                                    card, power, save_root=save_root),
+                        ran=True)
     return res
 
 
 def train_model_multiprocess(base: dict, spread: dict, card: str,
-                             power: str) -> dict:
+                             power: str, save_root=None) -> dict:
     """20j: (i) two gloo ranks on the one card on ``model:2``; (ii) NCCL,
     one rank a card, on ``model:2,data:2`` over four cards or ``model:2``
-    over two, else one line "not run"."""
+    over two, else one line "not run"; each leg saving its step into
+    ``save_root`` (20k) where given."""
     import torch
 
     res = {"ranks": train_ranks(2, "gloo", base, spread, "j", card, power,
-                                "model")}
+                                "model", save_root)}
     res["launches"] = res["ranks"]["launches"]
     cards = torch.cuda.device_count() if TRAIN_DEVICE == "cuda" else 0
     if cards < 2:
         res["cards"] = {"ran": False, "cards": cards}
         print(f"training (j ii): not run: {cards} card [{card}, {power}]",
               flush=True)
+        if save_root:
+            print(f"training (k ii): not run: {cards} card [{card}, "
+                  f"{power}]", flush=True)
         return res
     res["cards"] = dict(train_ranks(4 if cards >= 4 else 2, "nccl", base,
-                                    spread, "j ii", card, power, "model"),
-                        ran=True)
+                                    spread, "j ii", card, power, "model",
+                                    save_root), ran=True)
+    return res
+
+
+def train_saved_serve(root: str, card: str, power: str) -> dict:
+    """20k: ``root@latest`` (the newest step the ranks saved together)
+    staged into a share-model MobileNetV1 pool serving the untrained tree
+    and swapped in: ORBAX_FRAMES frames, each normalized by
+    ``scale_bias_cast``, within SERVE_TOL of the step's tree applied
+    alone, labels equal."""
+    import pickle
+
+    from nnstreamer_tpu_torch.core import TensorsSpec
+    from nnstreamer_tpu_torch.models.mobilenet import mobilenet_v1_init
+    from nnstreamer_tpu_torch.runtime import parse_launch
+    from nnstreamer_tpu_torch.trainers.checkpoint import (load_dir,
+                                                          resolve_step_dir)
+
+    path, tag = resolve_step_dir(root, "latest")
+    models = {}
+    for name, params in (("init", mobilenet_v1_init(SEED, TRAIN_CLASSES,
+                                                    TRAIN_WIDTH)),
+                         ("step", load_dir(path))):
+        models[name] = os.path.join(root + "_models", f"{name}.pkl")
+        os.makedirs(os.path.dirname(models[name]), exist_ok=True)
+        with open(models[name], "wb") as f:
+            pickle.dump({"apply": "nnstreamer_tpu_torch.models.convert:"
+                                  "mobilenet_v1_tree_apply",
+                         "params": params,
+                         "in_shapes": [(1, TRAIN_SIZE, TRAIN_SIZE, 3)],
+                         "in_dtypes": np.dtype("float32")}, f)
+    rng = np.random.default_rng(SEED + 24)
+    frames = [rng.integers(0, 256, (1, TRAIN_SIZE, TRAIN_SIZE, 3),
+                           dtype=np.uint8) for _ in range(ORBAX_FRAMES)]
+    spec = TensorsSpec.parse(f"3:{TRAIN_SIZE}:{TRAIN_SIZE}:1", "uint8")
+    ref = parse_launch(TRAIN_SERVE_PIPE.format(
+        name="alone", norm=NORM, model=models["step"], props="",
+        sink=ORBAX_FRAMES + 4), device=TRAIN_DEVICE)
+    ref["src"].spec = spec
+    with ref:
+        want = _orbax_serve(ref, frames, 0)
+    pipe = parse_launch(TRAIN_SERVE_PIPE.format(
+        name="ranks", norm=NORM, model=models["init"],
+        props=" share-model=true is-updatable=true",
+        sink=ORBAX_FRAMES + 4), device=TRAIN_DEVICE)
+    pipe["src"].spec = spec
+    _par_zero()
+    with pipe:
+        lc = pipe["ranks"].pool.lifecycle
+        t0 = time.perf_counter()
+        ver = lc.stage(f"{root}@latest")
+        stage_s = time.perf_counter() - t0
+        lc.swap(ver)
+        if lc.baseline.tag != tag:
+            raise RuntimeError(f"training (k): version {lc.baseline.tag}, "
+                               f"the root's latest step {tag}")
+        got = _orbax_serve(pipe, frames, 0)
+    launches = _par_counts()
+    if lc.swaps != 1 or pipe.error is not None:
+        raise RuntimeError(f"training (k): {lc.swaps} swaps, error "
+                           f"{pipe.error}")
+    worst = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    labels = [int(a.argmax()) for a in got]
+    if worst > SERVE_TOL or labels != [int(w.argmax()) for w in want]:
+        raise RuntimeError(f"training (k): logits {worst} from the step's "
+                           f"tree alone (limit {SERVE_TOL}), labels "
+                           f"{labels}")
+    if TRAIN_DEVICE == "cuda" and \
+            launches["scale_bias_cast"] < ORBAX_FRAMES:
+        raise RuntimeError(f"training (k): launches {launches} for "
+                           f"{ORBAX_FRAMES} frames")
+    res = {"step": tag, "stage_s": stage_s, "load_s": ver.load_s,
+           "frames": ORBAX_FRAMES, "max_abs_diff_alone": worst,
+           "launches": launches}
+    print(f"training (k): {root}@latest (step {tag}, the ranks' "
+          f"model-split step) staged into a share-model MobileNetV1 pool in "
+          f"{stage_s:.6f} s (load+place+warm {ver.load_s:.6f}) and swapped "
+          f"in: {ORBAX_FRAMES} frames within {worst} of the step's tree "
+          f"alone, labels equal; launches {launches} [{card}, {power}]",
+          flush=True)
     return res
 
 
@@ -9927,12 +10175,14 @@ def phase_training(card: str, power: str):
         res["model_split"] = train_model_split(
             root, data, js, res["full_width"],
             res["split"]["small"]["perm_spread"], card, power)
+        ranks_root = os.path.join(root, "ranks_steps")
         res["multiprocess"] = train_multiprocess(
             res["full_width"], res["split"]["small"]["perm_spread"], card,
-            power)
+            power, ranks_root)
         res["model_ranks"] = train_model_multiprocess(
             res["full_width"], res["split"]["small"]["perm_spread"], card,
-            power)
+            power, ranks_root)
+        res["saved_steps"] = train_saved_serve(ranks_root, card, power)
         res["lint"] = train_lint(card, power)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -11176,6 +11426,8 @@ def main() -> int:
                        training["multiprocess"]["launches"]["scale_bias_cast"],
                    "training_model_across_ranks":
                        training["model_ranks"]["launches"]["scale_bias_cast"],
+                   "training_saved_step_serving": training["saved_steps"][
+                       "launches"]["scale_bias_cast"],
                    "importers_onnx": importers["launches"]["onnx"],
                    "importers_mnist": importers["launches"]["mnist"],
                    "orbax_mobilenet":
@@ -11215,6 +11467,8 @@ def main() -> int:
                       training["multiprocess"]["launches"]["flash_attention"],
                   "training_model_across_ranks":
                       training["model_ranks"]["launches"]["flash_attention"],
+                  "training_saved_step_serving": training["saved_steps"][
+                      "launches"]["flash_attention"],
                   "orbax_vit": orbax["vit"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",

@@ -29,7 +29,10 @@ a ``model`` group spans ranks (``make_mesh("model:2,data:4")`` over two
 ranks' records) the step forms process subgroups (:func:`subgroups`):
 one a model group, over which its split layers gather, and one a set of
 data peers, over which the moments and the split slices' gradients
-reduce (the replicated gradients reduce over every rank).
+reduce (the replicated gradients reduce over every rank).  Such a step
+is saved by every rank together, through a :class:`Subgroup` of them
+(:func:`as_subgroup`; ``trainers/orbax_write.py`` exchanges each rank's
+leaves with :meth:`Subgroup.all_gather_object`).
 """
 
 from __future__ import annotations
@@ -128,8 +131,31 @@ class Subgroup:
         if len(self.ranks) > 1:
             _dist().all_reduce(t, group=self.group)
 
+    def all_gather_object(self, obj) -> list:
+        """Every rank's ``obj`` (picklable), in the set's rank order; each
+        rank of the set calls it with its own."""
+        if len(self.ranks) == 1:
+            return [obj]
+        out = [None] * len(self.ranks)
+        _dist().all_gather_object(out, obj, group=self.group)
+        return out
+
     def __repr__(self) -> str:
         return f"Subgroup(ranks={list(self.ranks)})"
+
+
+def as_subgroup(group) -> Optional[Subgroup]:
+    """``group`` as a :class:`Subgroup`: a ``Subgroup`` as it is, a
+    ``torch.distributed`` process group with its ranks, None as None.
+    Raises ``ValueError`` where this process is not one of its ranks."""
+    if group is None or isinstance(group, Subgroup):
+        sub = group
+    else:
+        sub = Subgroup(_dist().get_process_group_ranks(group), group)
+    if sub is not None and process_info()[0] not in sub.ranks:
+        raise ValueError(f"{sub!r} does not hold this process (rank "
+                         f"{process_info()[0]})")
+    return sub
 
 
 #: (world_key, ranks, n) -> the n-th torch.distributed group of that set

@@ -1074,7 +1074,14 @@ class TrainStep:
     rows of every data shard this rank runs (each shard's rows given to
     every rank of its group alike: a digest of them is compared across the
     group before the forward), and the loss, the moments and the gradients
-    reduce once a data shard (module docstring, :meth:`_reduce`)."""
+    reduce once a data shard (module docstring, :meth:`_reduce`).
+
+    Across ranks the trained step is saved by every rank together:
+    ``checkpoint.save_step(root, n, trained_tree(params, gather=False),
+    group=step.ranks.every)`` writes one orbax step, each rank's share
+    into its own ``ocdbt.process_<rank>/`` store under one merged
+    manifest, which the JAX ``load_orbax`` and the port's ``load_dir``
+    read whole (:func:`trained_tree`)."""
 
     def __init__(self, apply: Callable, params: Any,
                  opt_state: torch.optim.Optimizer,
@@ -1498,7 +1505,12 @@ def trained_tree(params: Any, gather: bool = True) -> Any:
     Where the split spans ranks, ``gather`` gathers each split leaf over
     its model subgroup (every rank of it calls this, and every rank gets
     the whole tree); without, the leaf holds this rank's slices, their
-    indices in :attr:`ShardedLeaf.index`."""
+    indices in :attr:`ShardedLeaf.index`.  A step across ranks is saved
+    from either tree by every rank together,
+    ``checkpoint.save_step(root, n, tree, group=step.ranks.every)``
+    (``trainers/orbax_write.py``): each slice written by the ranks holding
+    it, no gather needed, each replicated leaf split over the ranks, every
+    chunk once."""
     from ..core.buffer import to_numpy
     from ..models.convert import MODULE_TO_JAX
 

@@ -27,7 +27,10 @@ tag, which is how a serving pool's hot-swap path
 step or a JAX one.  :func:`save_dir` and :func:`save_step` write a step
 whole in a hidden directory of its root and rename it to its name, so
 ``root@latest`` never names a step still being written, in either
-package.
+package; a step trained across processes is saved by every rank
+together (``group=``), one ``ocdbt.process_<rank>/`` store a rank under
+one merged ``manifest.ocdbt``, as the JAX package's ``save_orbax``
+called from every process saves it.
 """
 
 from __future__ import annotations
@@ -95,20 +98,25 @@ def resolve_step_dir(root: str, tag: str) -> Tuple[str, str]:
     return path, str(int(tag))
 
 
-def save_dir(path: str, tree: Any) -> str:
+def save_dir(path: str, tree: Any, group=None) -> str:
     """Write ``tree`` as the orbax step directory ``path``
     (``orbax_write.save_orbax``: written whole beside it and renamed into
     place, replacing what was there), as the JAX trainer's ``save_orbax``
     does.  Leaves split over the ``model`` axis are written a chunk a
-    slice."""
-    return save_orbax(path, tree)
+    slice.  With ``group`` (two or more ranks, e.g. a train step's
+    ``ranks.every``) every rank of it calls this with its own tree: each
+    writes its share into ``ocdbt.process_<rank>/``, the lowest rank
+    merges the stores and renames the step into place, and no rank
+    returns before it is there (the ranks share a filesystem)."""
+    return save_orbax(path, tree, group)
 
 
-def save_step(root: str, step: int, tree: Any) -> str:
+def save_step(root: str, step: int, tree: Any, group=None) -> str:
     """Save one training step under the step layout (``root/<step>/``)
     and return its directory — the producer side of the ``root@latest``
-    hot-swap reference, the JAX package's ``save_orbax_step``."""
-    return save_dir(step_dir(root, step), tree)
+    hot-swap reference, the JAX package's ``save_orbax_step``; ``group``
+    as :func:`save_dir`'s."""
+    return save_dir(step_dir(root, step), tree, group)
 
 
 def load_dir(path: str, template: Optional[Any] = None) -> Any:

@@ -228,11 +228,12 @@ class Ocdbt:
             self.close()
             raise
 
-    def close(self) -> None:
-        """Close the data files :meth:`read` keeps open."""
+    def close(self, _close=os.close) -> None:
+        """Close the data files :meth:`read` keeps open (``os.close`` held
+        here: a store collected at interpreter exit outlives ``os``)."""
         fds, self._fds = self._fds, {}
         for fd in fds.values():
-            os.close(fd)
+            _close(fd)
 
     def __del__(self) -> None:
         self.close()

@@ -38,6 +38,13 @@
    a step root written half by each package, where both packages'
    ``latest_step`` pick the highest step; the write replaces a step
    whole and leaves nothing hidden behind.
+8. A step written across ranks, made in one process: each rank's share
+   (``held``, ``plan``, ``share``) in its ``ocdbt.process_<rank>/``
+   store, merged (``merge_stores``) and read by orbax's restore and the
+   port's reader bit for bit, two and four ranks; each chunk in one
+   store; a rank's share left out fails the read; the plan's refusals; a
+   slice split over its holders; a group of one rank writes as one
+   process.  Across real processes: ``test_torch_training_multihost.py``.
 """
 
 import json
@@ -816,3 +823,173 @@ def test_save_replaces_a_step_whole(tmp_path):
         tck.save_step(root, 4, {"w": np.zeros((0, 2), np.float32)})
     assert os.listdir(root) == ["3"]
     assert OW.step_bytes(old) == W.step_bytes(old) > 0
+
+
+# -- 8. steps written across ranks, merged in one process ------------------------
+
+
+def _rank_trees(ranks):
+    """The tree each of ``ranks`` holds after a step across them (the
+    replicated leaves alike on every rank, ``pw``'s slice ``i`` on the
+    ``i``-th rank, as ``trained_tree(gather=False)`` gives them), and the
+    whole tree as orbax restores it."""
+    from nnstreamer_tpu_torch.parallel.sharded import (P, ModelGroup,
+                                                       ShardedLeaf)
+
+    rng = np.random.default_rng(24)
+    n = len(ranks)
+    pw = rng.standard_normal((1, 1, 6, 4 * n)).astype(np.float32)
+    whole = {"rep": rng.standard_normal((8, 6)).astype(np.float32),
+             "odd": rng.standard_normal((5, 3)).astype(np.float32),
+             "bf": torch.randn(6, 2, generator=torch.Generator()
+                               .manual_seed(3)).to(torch.bfloat16),
+             "layers": [{"b": rng.standard_normal(4).astype(np.float16)},
+                        {"n": np.int64(7)}],
+             "s": 3, "f": 1.5, "e": {}, "pw": pw}
+    trees = {}
+    for i, r in enumerate(ranks):
+        tree = dict(whole)
+        tree["pw"] = ShardedLeaf(
+            [torch.from_numpy(pw[..., 4 * i:4 * (i + 1)].copy())], 3,
+            P(None, None, None, "model"), pw.shape,
+            ModelGroup(0, [i], n, None))
+        trees[r] = tree
+    return trees, dict(whole, bf=np.asarray(jnp.asarray(
+        whole["bf"].float().numpy(), jnp.bfloat16)))
+
+
+def _merged_step(path, trees, keep=None):
+    """The step every rank of ``trees`` writes, made in one process:
+    each rank's share (``keep`` filters a rank's values) into its
+    ``ocdbt.process_<rank>/`` store, then the lowest rank's merge and
+    metadata.  Returns each rank's store keys."""
+    tables = {r: OW.held(t) for r, t in trees.items()}
+    plans = OW.plan(tables)
+    stores, keys = {}, {}
+    first = min(trees)
+    for r, tree in trees.items():
+        values = OW.share(tree, plans, r, r == first)
+        if keep is not None:
+            values = {k: v for k, v in values.items() if keep(r, k)}
+        keys[r] = sorted(k.decode() for k in values)
+        stores[r] = OW.write_store(os.path.join(path, OW.process_store(r)),
+                                   values)
+    OW.merge_stores(path, stores)
+    OW.write_metadata(path, OW.tree_meta(trees[first], tables[first]))
+    return keys
+
+
+@pytest.mark.parametrize("ranks", [[0, 1], [0, 1, 2, 3]])
+def test_process_stores_merged_read_by_orbax(tmp_path, ranks):
+    """Two (four) hand-made process stores of one step, merged: orbax's
+    restore and the port's reader give every leaf bit for bit; each
+    chunk lies in one rank's store (the replicated ``rep`` split over the
+    ranks along its first axis, ``odd`` whole on rank 0 where no axis
+    divides, ``pw`` a slice a rank, every ``.zarray`` on rank 0), and the
+    root's entries point into the ranks' data files."""
+    trees, whole = _rank_trees(ranks)
+    path = str(tmp_path / "step")
+    keys = _merged_step(path, trees)
+    assert sorted(os.listdir(path)) == sorted(
+        ["d", "manifest.ocdbt"] + ["_CHECKPOINT_METADATA", "_METADATA"]
+        + [f"ocdbt.process_{r}" for r in ranks])
+    n = len(ranks)
+    chunks = {r: [k for k in ks if not k.endswith(".zarray")]
+              for r, ks in keys.items()}
+    flat = [k for ks in chunks.values() for k in ks]
+    assert len(flat) == len(set(flat))
+    assert all(k.endswith(".zarray") for k in set(keys[0]) - set(chunks[0]))
+    assert not any(k.endswith(".zarray") for r in ranks[1:] for k in keys[r])
+    for i, r in enumerate(ranks):
+        assert f"rep/{i}.0" in chunks[r] and f"pw/0.0.0.{i}" in chunks[r]
+        assert ("odd/0.0" in chunks[r]) == (i == 0)
+    db = Ocdbt(path)
+    try:
+        assert db.list() == sorted(k for ks in keys.values() for k in ks)
+        files = {v[0] for v in db.values.values() if isinstance(v, tuple)}
+        assert {f.split("/")[0] for f in files} <= {
+            f"ocdbt.process_{r}" for r in ranks}
+        assert json.loads(db.read("rep/.zarray"))["chunks"] == [8 // n, 6]
+    finally:
+        db.close()
+    assert_same(_as_port(restore(path)), whole)
+    assert_same(tck.load_dir(path), whole)
+
+
+def test_a_left_out_rank_share_fails_the_read(tmp_path):
+    """A rank whose chunks are left out of its store: the merged step
+    misses them, and both readers raise on the missing chunk."""
+    trees, _ = _rank_trees([0, 1])
+    path = str(tmp_path / "step")
+    _merged_step(path, trees, keep=lambda r, k: r == 0
+                 or not k.startswith(b"pw/"))
+    with pytest.raises(OrbaxFormatError, match=r"chunk 'pw/0\.0\.0\.1' is "
+                       r"missing"):
+        tck.load_dir(path)
+    with pytest.raises(Exception):
+        restore(path)
+
+
+def test_the_plan_refuses_what_it_cannot_write():
+    """Every rank derives one plan: trees of other leaves, a leaf of
+    another shape on one rank, a zero-size leaf and a slice no rank holds
+    are refused, each naming the leaf."""
+    trees, _ = _rank_trees([0, 1])
+    tables = {r: OW.held(t) for r, t in trees.items()}
+    with pytest.raises(ValueError, match=r"trees differ: rank 1 holds "
+                       r"\['x'\] and not \[\]"):
+        OW.plan({0: tables[0], 1: tables[1] + [("x", ("scalar", (), "<i8",
+                                                      -1, 1, (0,)))]})
+    other = dict(trees[1], odd=np.zeros((5, 4), np.float32))
+    with pytest.raises(ValueError, match=r"odd differs between the ranks"):
+        OW.plan({0: tables[0], 1: OW.held(other)})
+    zero = {r: OW.held(dict(t, z=np.zeros((0, 3), np.float32)))
+            for r, t in trees.items()}
+    with pytest.raises(ValueError, match="zero size: z"):
+        OW.plan(zero)
+    with pytest.raises(ValueError, match=r"pw: slices \[1\] of 2 are held "
+                       r"by no rank"):
+        OW.plan({0: tables[0], 1: OW.held(trees[0])})
+
+
+def test_the_plan_splits_a_slice_over_its_holders():
+    """Where two ranks hold each slice (four ranks on ``model:2,data:4``:
+    slice 0 on ranks 0 and 1), each slice splits over its two holders
+    along its first axis they divide; every key once."""
+    from nnstreamer_tpu_torch.parallel.sharded import (P, ModelGroup,
+                                                       ShardedLeaf)
+
+    w = np.arange(4 * 6, dtype=np.float32).reshape(4, 6)
+    trees = {r: {"w": ShardedLeaf([w[:, 3 * (r // 2):3 * (r // 2 + 1)]], 1,
+                                  P(None, "model"), w.shape,
+                                  ModelGroup(0, [r // 2], 2, None))}
+             for r in range(4)}
+    plans = OW.plan({r: OW.held(t) for r, t in trees.items()})
+    lp = plans["w"]
+    assert lp.chunks == (2, 3)
+    assert [(p.writer, p.key) for p in lp.pieces] == [
+        (0, "w/0.0"), (1, "w/1.0"), (2, "w/0.1"), (3, "w/1.1")]
+    got = np.zeros_like(w)
+    for r, tree in trees.items():
+        for k, v in OW.share(tree, plans, r, r == 0).items():
+            if not k.endswith(b".zarray"):
+                i, j = map(int, k.decode().split("/")[1].split("."))
+                got[2 * i:2 * i + 2, 3 * j:3 * j + 3] = \
+                    v.view(np.float32).reshape(2, 3)
+    assert got.tobytes() == w.tobytes()
+
+
+def test_one_rank_groups_write_as_one_process(tmp_path):
+    """A group of one rank (and no group) writes as one process does: no
+    process store, one chunk a leaf."""
+    from nnstreamer_tpu_torch.parallel.multihost import Subgroup
+
+    tree = {"w": np.arange(8, dtype=np.float32).reshape(4, 2), "s": 2}
+    for group in (None, Subgroup([0])):
+        path = str(tmp_path / f"ck{group is None}")
+        tck.save_dir(path, tree, group=group)
+        assert sorted(os.listdir(path)) == ["_CHECKPOINT_METADATA",
+                                            "_METADATA", "d",
+                                            "manifest.ocdbt"]
+        assert_same(tck.load_dir(path), tree)
+        assert_same(restore(path), tree)

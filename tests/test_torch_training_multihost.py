@@ -89,8 +89,26 @@ classes, 32x32, batch 16, f32, lr 1e-4, 3 steps.
     gradients reduce over a real peer group between the model groups'
     gathers; against the one-process step at (g)'s limits, the four
     ranks' losses and leaves bit-equal.
+(m) Orbax steps written across processes (``trainers/orbax_write.py``
+    ``save_orbax(..., group=)`` through ``checkpoint.save_step``): the
+    two ranks' ``data:-1`` and ``model:2,data:4`` sgd steps
+    (``trained_tree(gather=False)``: each rank its slices) and the four
+    ranks' step, each saved by every rank together; the JAX package's
+    ``load_orbax`` and the port's ``load_dir`` read each bit-equal to the
+    gathered tree; no key lies in two process stores and the chunk bytes
+    are the leaves' bytes; each rank builds the step again from what it
+    reads, its leaves the saved ones.  The JAX workers save their
+    ``data:-1`` and ``model:2,data:4`` steps with the JAX ``save_orbax``
+    from both processes, and the port reads each bit-equal to the JAX
+    tree; the two packages' top-level files and merged keys are compared.
+    Planted faults, each failing: rank 1 raising before it writes (its
+    store, a leaf's chunk): every rank raises naming rank 1, nothing left
+    but the older step, intact; rank 1 leaving its slices out: the
+    readers raise on the missing chunk; rank 1 also writing rank 0's
+    replicated chunks: the once-check fails.
 """
 
+import json
 import os
 import pickle
 import socket
@@ -151,6 +169,7 @@ PORT_WORKER = textwrap.dedent("""\
     from nnstreamer_tpu_torch.parallel import mesh, multihost, sharded
     from nnstreamer_tpu_torch.parallel import syncbn
     from nnstreamer_tpu_torch.trainers import TrainerProps, torch_optim
+    from nnstreamer_tpu_torch.trainers import checkpoint, orbax_write
 
     mesh.set_virtual_devices(4, "cpu")
     multihost.initialize(coordinator_address="127.0.0.1:" + port,
@@ -162,17 +181,33 @@ PORT_WORKER = textwrap.dedent("""\
     mine = slice(pid * b, (pid + 1) * b)
     apply = functools.partial(convert.mobilenet_v1_tree_apply,
                               dtype=torch.float32)
-    out = {{"runs": {{}}, "refusals": {{}}}}
+    out = {{"runs": {{}}, "refusals": {{}}, "faults": {{}}}}
 
-    def build_on(name, m):
+    def build_on(name, m, params=None):
         opt = torch_optim._make_optimizer({{"optimizer": name,
                                            "lr": cfg["lr"]}})
-        return sharded.train_step(m, apply, tree, optimizer=opt)
+        return sharded.train_step(m, apply, tree if params is None
+                                  else params, optimizer=opt)
+
+    def save(case, name, m, step, tp):
+        # both ranks save the step together, then each builds it again
+        # from what it reads back
+        root = os.path.join(os.getcwd(), "saved_" + case)
+        t0 = time.perf_counter()
+        path = checkpoint.save_step(root, 1, sharded.trained_tree(
+            tp, gather=False), group=step.ranks.every)
+        took = time.perf_counter() - t0
+        again, tp2, _ = build_on(name, m, checkpoint.load_dir(path))
+        again.close()
+        out["runs"][case].update(saved=path, save_s=took, reloaded=
+                                 sharded.trained_tree(tp2),
+                                 listed=sorted(os.listdir(root)))
 
     def build(name, spec):
         return build_on(name, mesh.make_mesh(spec))
 
-    def run(case, name, spec="data:-1", rows=None, m=None, nudge=False):
+    def run(case, name, spec="data:-1", rows=None, m=None, nudge=False,
+            saved=False):
         m = m if m is not None else mesh.make_mesh(spec)
         opt = torch_optim._make_optimizer({{"optimizer": name,
                                            "lr": cfg["lr"]}})
@@ -202,15 +237,18 @@ PORT_WORKER = textwrap.dedent("""\
                       for path, leaf in sharded._split_leaves(tp)],
                 models=[repr(g) for g in step.ranks.models],
                 peers=list(step.ranks.peers.ranks))
+        if saved:
+            save(case, name, m, step, tp)
         print(f"ran {{case}} process={{pid}} losses={{losses}}", flush=True)
 
     for name in ("sgd", "adam", "adamw"):
-        run(name, name)
+        run(name, name, saved=name == "sgd")
     run("model", "sgd", "data:4,model:2")
     # -- (g) model groups across the ranks: every rank all 16 rows --------
     every = slice(None)
     for name in ("sgd", "adam", "adamw"):
-        run("across_" + name, name, "model:2,data:4", every)
+        run("across_" + name, name, "model:2,data:4", every,
+            saved=name == "sgd")
     run("hybrid", "sgd", rows=every, m=multihost.hybrid_mesh(
         [("data", 4)], [("model", 2)]))
     run("mixed", "sgd", "model:4,data:2", every)
@@ -279,6 +317,69 @@ PORT_WORKER = textwrap.dedent("""\
         run("both_write_moments", "sgd", "model:2,data:4", every)
     finally:
         syncbn.RankExchange.forward = staticmethod(real_fwd)
+
+    # -- planted faults of the write across ranks ---------------------------
+    ranks = multihost.Subgroup([0, 1])
+    good = out["runs"]["sgd"]["tree"]
+
+    def plus_one(t):
+        if isinstance(t, dict):
+            return {{k: plus_one(v) for k, v in t.items()}}
+        if isinstance(t, list):
+            return [plus_one(v) for v in t]
+        return t + 1
+
+    def fault(case, module_name, on_rank_1, root, tree):
+        real = getattr(orbax_write, module_name)
+        if pid == 1:
+            setattr(orbax_write, module_name, on_rank_1(real))
+        try:
+            checkpoint.save_step(root, 1, tree, group=ranks)
+        except orbax_write.OrbaxWriteError as e:
+            out["faults"][case] = str(e)
+        else:
+            out["faults"][case] = None
+        finally:
+            setattr(orbax_write, module_name, real)
+        out["faults"][case + "_listed"] = sorted(os.listdir(root))
+        out["faults"][case + "_root"] = root
+        ranks.all_gather_object(None)   # each rank listed before the next
+
+    def cannot_write(real):
+        def failing(path, values, token=b""):
+            raise OSError("planted: the store cannot be written")
+        return failing
+
+    def cannot_copy(real):
+        def failing(leaf):
+            raise OSError("planted: the leaf cannot be copied")
+        return failing
+
+    def leave_out(real):   # rank 1's slices of the split leaves left out
+        def share(tree, plans, rank, primary):
+            return {{k: v for k, v in real(tree, plans, rank, primary)
+                    .items() if k.endswith(b".zarray")
+                    or plans[k.decode().split("/")[0]].dim < 0}}
+        return share
+
+    def both_write(real):   # rank 1 also writes rank 0's replicated chunks
+        def share(tree, plans, rank, primary):
+            vals = real(tree, plans, rank, primary)
+            vals.update({{k: v for k, v in real(tree, plans, 0, False)
+                         .items() if plans[k.decode().split("/")[0]]
+                         .dim < 0}})
+            return vals
+        return share
+
+    older = os.path.join(os.getcwd(), "fault_older")
+    checkpoint.save_step(older, 1, good, group=ranks)
+    fault("store", "write_store", cannot_write, older, plus_one(good))
+    fault("leaf", "host_array", cannot_copy, older, plus_one(good))
+    fault("left_out", "share", leave_out,
+          os.path.join(os.getcwd(), "fault_left_out"),
+          out["runs"]["across_sgd"]["local"])
+    fault("both_write", "share", both_write,
+          os.path.join(os.getcwd(), "fault_both_write"), good)
 
     # -- refusals, each on every rank -------------------------------------
     def refused(case, fn):
@@ -384,7 +485,11 @@ JAX_WORKER = textwrap.dedent("""\
         losses.append(float(loss))
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a.addressable_data(0)),
                                   p)
-    res = {{"losses": losses, "tree": tree}}
+    from nnstreamer_tpu.trainers.checkpoint import save_orbax
+
+    res = {{"losses": losses, "tree": tree,
+           "saved": os.path.join(os.getcwd(), "jax_saved", "data")}}
+    save_orbax(res["saved"], p)
 
     # (h): the same step on model:2,data:4, each model group across the
     # processes; every process feeds all rows (the batch is replicated
@@ -406,7 +511,9 @@ JAX_WORKER = textwrap.dedent("""\
             mlosses.append(float(loss))
         res["model"] = {{"losses": mlosses, "tree": jax.tree_util.tree_map(
             lambda a: np.asarray(multihost_utils.process_allgather(
-                a, tiled=True)), p)}}
+                a, tiled=True)), p),
+            "saved": os.path.join(os.getcwd(), "jax_saved", "model")}}
+        save_orbax(res["model"]["saved"], p)
     except Exception as e:   # recorded: the test prints what it raised
         res["model"] = {{"error": f"{{type(e).__name__}}: {{e}}"}}
     with open(out_path, "wb") as f:
@@ -458,6 +565,19 @@ QUAD_WORKER = textwrap.dedent("""\
     out = {{"losses": losses, "tree": sharded.trained_tree(tp),
            "index": step.ranks.index, "peers": list(step.ranks.peers.ranks),
            "models": [repr(g) for g in step.ranks.models]}}
+    # the four ranks save the step together, then each builds it again
+    from nnstreamer_tpu_torch.trainers import checkpoint
+
+    out["saved"] = checkpoint.save_step(
+        os.path.join(os.getcwd(), "quad_saved"), 1,
+        sharded.trained_tree(tp, gather=False), group=step.ranks.every)
+    again, tp2, _ = sharded.train_step(
+        mesh.make_mesh("model:2,data:4"),
+        functools.partial(convert.mobilenet_v1_tree_apply,
+                          dtype=torch.float32),
+        checkpoint.load_dir(out["saved"]))
+    again.close()
+    out["reloaded"] = sharded.trained_tree(tp2)
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
     print(f"quad ok process={{pid}} losses={{losses}}", flush=True)
@@ -1090,3 +1210,202 @@ def test_orbax_refuses_a_leaf_split_over_ranks(tmp_path):
     with pytest.raises(ValueError, match=r"head.w holds slices \[1\] of 2 "
                        r"on this rank"):
         orbax_write.tree_values({"head": {"w": leaf}})
+
+
+# -- orbax steps written across processes ------------------------------------------
+
+
+def _hold_bit_equal(got, want, where):
+    """Every leaf of ``got`` bit-equal to ``want``'s, the trained tree's
+    137 leaves."""
+    pairs = list(_pairs(want, got))
+    assert len(pairs) == 5 + 13 * 2 * 5 + 2, where
+    for path, a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape and \
+            a.tobytes() == b.tobytes(), (where, path)
+
+
+def _process_stores(path):
+    return sorted(d for d in os.listdir(path)
+                  if d.startswith("ocdbt.process_"))
+
+
+def _once(path, tree):
+    """The once-check of a step written across ranks: (the keys found in
+    more than one process store, the chunk bytes decoded over every
+    process store, the leaves' bytes), and the chunk bytes by store."""
+    from nnstreamer_tpu_torch.nativelib import zstd_decompress
+    from nnstreamer_tpu_torch.trainers.ocdbt import Ocdbt
+
+    seen, by_store = {}, {}
+    for name in _process_stores(path):
+        db = Ocdbt(os.path.join(path, name))
+        try:
+            by_store[name] = 0
+            for k in db.list():
+                seen.setdefault(k, []).append(name)
+                if not k.endswith(".zarray"):
+                    by_store[name] += zstd_decompress(db.read(k)).nbytes
+        finally:
+            db.close()
+    twice = {k: v for k, v in seen.items() if len(v) > 1}
+    want = sum(a.nbytes for _, a, _ in _pairs(tree, tree))
+    return twice, sum(by_store.values()), want, by_store
+
+
+def _saved(runs, case):
+    """(the step path, the tree the ranks saved, the ranks' results)."""
+    if case == "quad":
+        return runs["quad"][0]["saved"], runs["quad"][0]["tree"], runs["quad"]
+    ranks = [r["runs"][case] for r in runs["port"]]
+    return ranks[0]["saved"], ranks[0]["tree"], ranks
+
+
+@pytest.mark.parametrize("case", ["sgd", "across_sgd", "quad"])
+def test_a_step_saved_across_ranks_reads_bit_equal_in_both_packages(runs,
+                                                                    case):
+    """(a)-(c): the ranks' step on ``data:-1`` (two ranks), on
+    ``model:2,data:4`` (two ranks, each saving its slices of the split
+    leaves) and on four ranks, saved with ``save_step(..., group=)``: one
+    step directory with a store a rank, which the JAX package's
+    ``load_orbax`` and the port's ``load_dir`` each read bit-equal to the
+    gathered tree."""
+    from nnstreamer_tpu.trainers.checkpoint import load_orbax as jload
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+
+    path, tree, ranks = _saved(runs, case)
+    assert all(r["saved"] == path for r in ranks)
+    n = len(ranks)
+    assert sorted(os.listdir(path)) == sorted(
+        ["_CHECKPOINT_METADATA", "_METADATA", "d", "manifest.ocdbt"]
+        + [f"ocdbt.process_{i}" for i in range(n)])
+    assert sorted(os.listdir(os.path.dirname(path))) == ["1"]
+    _hold_bit_equal(load_dir(path), tree, f"{case}: load_dir")
+    _hold_bit_equal(jload(path), tree, f"{case}: the JAX load_orbax")
+
+
+@pytest.mark.parametrize("case", ["sgd", "across_sgd", "quad"])
+def test_each_chunk_is_written_once(runs, case):
+    """(b): no store key lies in two process stores, and the chunk bytes
+    over the stores are the leaves' bytes, each written once; every rank
+    writes a share."""
+    path, tree, ranks = _saved(runs, case)
+    twice, total, want, by_store = _once(path, tree)
+    print(f"{case}: chunk bytes by process store {by_store}, the leaves "
+          f"{want} B; save s by rank "
+          f"{[round(r.get('save_s', 0.0), 3) for r in ranks]}")
+    assert not twice and total == want
+    assert all(b > 0 for b in by_store.values())
+
+
+@pytest.mark.parametrize("case", ["sgd", "across_sgd", "quad"])
+def test_each_rank_builds_the_saved_step_again(runs, case):
+    """(f): each rank reads the step back with ``load_dir`` and builds the
+    same step from it: its leaves are the saved ones, on every rank."""
+    _, tree, ranks = _saved(runs, case)
+    for rank, r in enumerate(ranks):
+        _hold_bit_equal(r["reloaded"], tree, f"{case}: rank {rank}")
+
+
+@pytest.mark.parametrize("case", ["data", "model"])
+def test_the_port_reads_the_jax_step_saved_from_two_processes(runs, case):
+    """(d): the JAX ``save_orbax`` called from both JAX processes (a store
+    a process, chunks of the replicated leaves spread over both): the
+    port's ``load_dir`` reads every leaf bit-equal to the JAX tree."""
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+
+    res = runs["jax"][0] if case == "data" else runs["jax"][0]["model"]
+    assert "error" not in res, res.get("error")
+    assert sorted(_process_stores(res["saved"])) == ["ocdbt.process_0",
+                                                     "ocdbt.process_1"]
+    _hold_bit_equal(load_dir(res["saved"]), res["tree"], case)
+
+
+def test_the_port_and_jax_steps_across_processes_differ_as_named(runs):
+    """(d): the top-level files of the port's and the JAX package's
+    two-process ``data:-1`` steps differ only by the JAX step's
+    ``_sharding`` and ``array_metadatas/``; their merged stores hold the
+    same leaves, each with one ``.zarray`` of one shape and dtype, and
+    differ in the chunk grids of the replicated leaves (the JAX step
+    splits them over its 8 devices, the port over its 2 ranks)."""
+    from nnstreamer_tpu_torch.trainers.ocdbt import Ocdbt
+
+    port, jax_ = runs["port"][0]["runs"]["sgd"]["saved"], \
+        runs["jax"][0]["saved"]
+    assert set(os.listdir(jax_)) - set(os.listdir(port)) == {
+        "_sharding", "array_metadatas"}
+    assert set(os.listdir(port)) <= set(os.listdir(jax_))
+    zarrays, chunks = {}, {}
+    for who, path in (("port", port), ("jax", jax_)):
+        db = Ocdbt(path)
+        try:
+            keys = db.list()
+            zarrays[who] = {k: json.loads(db.read(k)) for k in keys
+                            if k.endswith(".zarray")}
+            chunks[who] = [k for k in keys if not k.endswith(".zarray")]
+        finally:
+            db.close()
+    assert sorted(zarrays["port"]) == sorted(zarrays["jax"])
+    grids = 0
+    for k, z in zarrays["port"].items():
+        j = zarrays["jax"][k]
+        assert (z["shape"], z["dtype"]) == (j["shape"], j["dtype"]), k
+        grids += z["chunks"] != j["chunks"]
+    print(f"merged stores: {len(zarrays['port'])} leaves in both; chunks "
+          f"port {len(chunks['port'])}, JAX {len(chunks['jax'])}; chunk "
+          f"grids differ in {grids} leaves")
+    assert grids > 0
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("store", r"writing each rank's store of \S+ across ranks \[0, 1\] "
+     r"failed: rank 1: OSError: planted: the store cannot be written"),
+    ("leaf", r"rank 1: ValueError: orbax: chunk \S+/\S+ of \S+ cannot be "
+     r"written: OSError: planted: the leaf cannot be copied")])
+def test_a_failed_write_raises_on_every_rank_and_keeps_the_older_step(
+        runs, fault, match):
+    """(e): rank 1 raises before it writes (its store, or a leaf's
+    chunk): every rank raises naming rank 1 (and the chunk and its leaf),
+    the root holds only the older step, no hidden directory, and that
+    step reads as it was written."""
+    import re
+
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+
+    for rank in (0, 1):
+        got = runs["port"][rank]["faults"]
+        assert got[fault] is not None, f"rank {rank} did not raise"
+        assert re.search(match, got[fault]), got[fault]
+        assert got[fault + "_listed"] == ["1"]
+    root = runs["port"][0]["faults"][fault + "_root"]
+    assert sorted(os.listdir(root)) == ["1"]
+    _hold_bit_equal(load_dir(os.path.join(root, "1")),
+                    runs["port"][0]["runs"]["sgd"]["tree"], fault)
+
+
+def test_a_rank_whose_slices_are_left_out_fails_the_read(runs):
+    """(e): rank 1 leaves its slices of the split leaves out of its store:
+    the step is written, and both readers raise on a missing chunk."""
+    from nnstreamer_tpu.trainers.checkpoint import load_orbax as jload
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+    from nnstreamer_tpu_torch.trainers.orbax_format import OrbaxFormatError
+
+    got = runs["port"][0]["faults"]
+    assert got["left_out"] is None and got["left_out_listed"] == ["1"]
+    path = os.path.join(got["left_out_root"], "1")
+    with pytest.raises(OrbaxFormatError, match=r"chunk '\S+\.1' is missing"):
+        load_dir(path)
+    with pytest.raises(Exception):
+        jload(path)
+
+
+def test_two_ranks_writing_a_replicated_leaf_fail_the_once_check(runs):
+    """(e): rank 1 also writes rank 0's chunks of the replicated leaves:
+    (b)'s once-check fails."""
+    got = runs["port"][0]["faults"]
+    assert got["both_write"] is None
+    path = os.path.join(got["both_write_root"], "1")
+    twice, total, want, _ = _once(path, runs["port"][0]["runs"]["sgd"]["tree"])
+    print(f"both write: {len(twice)} keys in two stores, chunk bytes "
+          f"{total} against the leaves' {want}")
+    assert twice and total > want
