@@ -526,8 +526,9 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    host ms a window, and the ms of it in the outputs' copy from the card,
    the encode and the decode;
 22. JAX orbax steps as swap and resume sources (``trainers/ocdbt.py``,
-   ``orbax_format.py`` over the g++-built zstd decoder of
-   ``native/nns_zstd.cc``), under ``cudnn.deterministic``.  (a) The
+   ``orbax_format.py`` over the g++-built zstd and blosc decoders of
+   ``native/nns_zstd.cc`` and ``native/nns_blosc.cc``), under
+   ``cudnn.deterministic``.  (a) The
    committed JAX step ``tests/data/orbax_step/`` read bit-equal to its
    seeded tree (``tests/torch_orbax_files.py``), and the decoder's MB/s
    on its tensorstore-compressed chunks.  (b) MobileNetV1 1.0 (224x224,
@@ -541,7 +542,16 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    logits bit-equal (lockstep rounds of one frame a stream).  (d) A
    ``torch-optim`` trainer with ``model-load-path=`` (b)'s orbax step
    trains 2 steps at batch 128; the losses equal those from the
-   safetensors step (or within 5e-3 relative, and it says which);
+   safetensors step (or within 5e-3 relative, and it says which).  (e)
+   The committed forms ``tests/data/orbax_forms/<form>/`` (zarr v3 with
+   its sharding codec, inner chunks, transpose + gzip + crc32c, zarr v2
+   blosc and bz2 order F, numbered OCDBT manifests) read bit-equal to
+   their seeded tree through the g++-built zstd and blosc decoders; the
+   decoders' host MB/s on their chunks (blosc by cname, gzip, bz2, zarr
+   v3 sharded zstd).  (f) (c) again with the ViT as a zarr v3 step (the
+   tests' writer, ``form="zarr3"``) against a zarr v2 step: every
+   frame's logits bit-equal between them, each format's read and staging
+   seconds;
 23. prints a ``{"kernels": [...]}`` line, then, last, the ``ok`` line.
 
 Without a usable card it exits non-zero and prints no result.
@@ -10796,6 +10806,106 @@ def orbax_fixture(card: str, power: str):
     return res
 
 
+def _decode_rate(items, fn):
+    """(MB/s out, MB/s in) of ``fn`` over ``items`` ((input, output
+    size) pairs), decoded again and again for ORBAX_DECODE_S."""
+    out_bytes = in_bytes = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < ORBAX_DECODE_S:
+        for data, size in items:
+            fn(data, size)
+            out_bytes += size
+            in_bytes += len(data)
+    dt = time.perf_counter() - t0
+    return out_bytes / dt / 1e6, in_bytes / dt / 1e6
+
+
+def orbax_forms(card: str, power: str):
+    """22e: the committed forms ``tests/data/orbax_forms/<form>/`` (zarr v3
+    as orbax writes it with and without compression, inner chunks with
+    the index at the start, transpose + gzip + crc32c, zarr v2 blosc and
+    bz2 order F, numbered OCDBT manifests) read through the g++-built
+    decoders, each bit-equal to its seeded tree; the decoders' MB/s on
+    their chunks: blosc by cname, gzip, bz2, and whole zarr v3 arrays of
+    sharded zstd chunks."""
+    import bz2
+    import zlib
+
+    from nnstreamer_tpu_torch import nativelib
+    from nnstreamer_tpu_torch.trainers import orbax_format
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+    from nnstreamer_tpu_torch.trainers.ocdbt import Ocdbt
+
+    W = _orbax_files()
+    t0 = time.perf_counter()
+    nativelib.get_blosc()
+    build_s = time.perf_counter() - t0
+    want = W.forms_tree()
+    sizes = {k: np.asarray(v).nbytes for k, v in W.flat_leaves(want).items()}
+    read_s, leaves = {}, 0
+    for form in W.FORMS:
+        t0 = time.perf_counter()
+        got = load_dir(os.path.join(W.FORMS_DIR, form))
+        read_s[form] = time.perf_counter() - t0
+        leaves += _orbax_same(got, want, f"orbax (e): {form}")
+
+    def chunks(form):
+        db = Ocdbt(os.path.join(W.FORMS_DIR, form))
+        try:
+            return {k: db.read(k) for k in db.list()
+                    if not k.endswith(("/.zarray", "/zarr.json"))}
+        finally:
+            db.close()
+
+    def raw_size(data: bytes) -> int:
+        return int.from_bytes(data[4:8], "little")
+
+    rates = {}
+    blosc = chunks("zarr2_blosc")
+    for cname in sorted({v["cname"] for v in W.BLOSC_LEAVES.values()}):
+        items = [(v, raw_size(v)) for k, v in blosc.items()
+                 if W.BLOSC_LEAVES[k.split("/")[0]]["cname"] == cname]
+        rates[f"blosc_{cname}"] = _decode_rate(
+            items, lambda d, n: nativelib.blosc_decompress(d, n))
+    gz = [v[:-4] for v in chunks("zarr3_transpose_gzip_crc32c").values()]
+    rates["gzip"] = _decode_rate(
+        [(v, len(zlib.decompress(v, 31))) for v in gz],
+        lambda d, n: zlib.decompressobj(31).decompress(d, n + 1))
+    bz = list(chunks("zarr2_bz2_order_f").values())
+    rates["bz2"] = _decode_rate([(v, len(bz2.decompress(v))) for v in bz],
+                                lambda d, n: bz2.decompress(d))
+    db = Ocdbt(os.path.join(W.FORMS_DIR, "zarr3_orbax"))
+    try:
+        names = [(name, sizes[name]) for name in sizes]
+        shard_bytes = sum(len(v) for v in chunks("zarr3_orbax").values())
+        t0 = time.perf_counter()
+        n_out = n_in = 0
+        while time.perf_counter() - t0 < ORBAX_DECODE_S:
+            for name, size in names:
+                orbax_format.read_zarr3(db, name)
+                n_out += size
+            n_in += shard_bytes
+        dt = time.perf_counter() - t0
+        rates["zarr3_sharded_zstd"] = (n_out / dt / 1e6, n_in / dt / 1e6)
+    finally:
+        db.close()
+    res = {"forms": len(W.FORMS), "leaves": leaves, "build_s": build_s,
+           "read_s": read_s,
+           "decode_mb_per_s": {k: v[0] for k, v in rates.items()},
+           "decode_in_mb_per_s": {k: v[1] for k, v in rates.items()},
+           "step_bytes": {f: W.step_bytes(os.path.join(W.FORMS_DIR, f))
+                          for f in W.FORMS}}
+    print(f"orbax (e): {len(W.FORMS)} committed forms ({leaves} leaves) "
+          f"read bit-equal to their seeded tree, in "
+          + ", ".join(f"{f} {s:.6f} s" for f, s in read_s.items())
+          + f" (the blosc decoder built or loaded in {build_s:.3f} s); "
+          "decoding their chunks again and again, MB/s out (in): "
+          + ", ".join(f"{k} {v[0]:.1f} ({v[1]:.1f})"
+                      for k, v in rates.items())
+          + f" [{card}, {power}, host CPU]", flush=True)
+    return res
+
+
 def _orbax_serve(p, frames, first: int):
     """Each frame through ``p`` in turn: its logits, flattened."""
     from nnstreamer_tpu_torch.core import Buffer
@@ -10949,14 +11059,55 @@ def orbax_mobilenet(root: str, card: str, power: str):
     return res
 
 
-def orbax_vit(root: str, card: str, power: str):
+def _orbax_zarr3_roots(root: str, name: str, tree):
+    """``tree`` as step ORBAX_STEP of two orbax roots: zarr v3 arrays
+    written by the tests' writer (``tests/torch_orbax_files.py``
+    ``form="zarr3"``: one ``sharding_indexed`` chunk a leaf, inner
+    ``bytes`` + ``zstd``, index ``bytes`` + ``crc32c``, as orbax's
+    ``use_zarr3`` writes them) and zarr v2 arrays written by the package's
+    ``save_step``; both read back bit-equal.  Returns what
+    :func:`_orbax_roots` returns."""
+    from nnstreamer_tpu_torch.trainers.checkpoint import (load_dir,
+                                                          save_step,
+                                                          step_dir)
+    from nnstreamer_tpu_torch.trainers.orbax_write import step_bytes
+
+    W = _orbax_files()
+    roots = {"zarr3": os.path.join(root, f"{name}_zarr3"),
+             "zarr2": os.path.join(root, f"{name}_zarr2")}
+    write_s = {}
+    t0 = time.perf_counter()
+    W.write_orbax_step(step_dir(roots["zarr3"], ORBAX_STEP), tree,
+                       form="zarr3")
+    write_s["zarr3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_step(roots["zarr2"], ORBAX_STEP, tree)
+    write_s["zarr2"] = time.perf_counter() - t0
+    trees, read_s, nbytes = {}, {}, {}
+    for fmt, r in roots.items():
+        path = step_dir(r, ORBAX_STEP)
+        with open(os.path.join(path, "_METADATA")) as f:
+            if json.load(f)["use_zarr3"] is not (fmt == "zarr3"):
+                raise RuntimeError(f"orbax ({name}): the {fmt} step's "
+                                   "_METADATA names the other format")
+        nbytes[fmt] = step_bytes(path)
+        t0 = time.perf_counter()
+        trees[fmt] = load_dir(path)
+        read_s[fmt] = time.perf_counter() - t0
+    _orbax_same(trees["zarr3"], trees["zarr2"], f"orbax ({name})")
+    _orbax_same(trees["zarr3"], tree, f"orbax ({name})")
+    return roots, nbytes, write_s, read_s
+
+
+def orbax_vit(root: str, card: str, power: str, zarr3: bool = False):
     """22c: the ViT at phase 9's width with bf16 weights, as step 16 of an
-    orbax root and a safetensors root, swapped in turn into phase 9's
-    8-stream pool serving the seed-0 file: one round before the first
-    swap within SERVE_TOL of the seed-0 weights alone, and every frame
-    after each swap within SERVE_TOL of the step's tree alone and
-    bit-equal between the formats (lockstep rounds, so every window pads
-    to the same bucket)."""
+    orbax root and a safetensors root (22f, ``zarr3``: of a zarr v3 root
+    and a zarr v2 root), swapped in turn into phase 9's 8-stream pool
+    serving the seed-0 file: one round before the first swap within
+    SERVE_TOL of the seed-0 weights alone, and every frame after each
+    swap within SERVE_TOL of the step's tree alone and bit-equal between
+    the formats (lockstep rounds, so every window pads to the same
+    bucket)."""
     import functools
 
     import torch
@@ -10968,7 +11119,10 @@ def orbax_vit(root: str, card: str, power: str):
     widths = {k: v for k, v in VIT.items() if k != "heads"}
     tree = params_io.weights_to_bf16(vit_tree(SEED + 7, image_size=VIT_SIZE,
                                               **widths))
-    roots, nbytes, write_s, read_s = _orbax_roots(root, "vit", tree)
+    part = "(f)" if zarr3 else "(c)"
+    roots, nbytes, write_s, read_s = (_orbax_zarr3_roots if zarr3 else
+                                      _orbax_roots)(root, "vit", tree)
+    first, second = roots
     base = write_vit_file(os.path.join(root, "vit_v0.safetensors"), 0)
     pools, _ = serve_pools(device=LC_DEVICE)
     rounds = [pool[:ORBAX_VIT_ROUNDS] for pool in pools]
@@ -10980,7 +11134,7 @@ def orbax_vit(root: str, card: str, power: str):
     apart = min(float((alone["v0"][s] - alone["step"][s]).abs().amax(-1)
                       .min()) for s in range(SERVE_STREAMS))
     if apart <= 2 * SERVE_TOL:
-        raise RuntimeError(f"orbax (c): the seed-0 and step logits of one "
+        raise RuntimeError(f"orbax {part}: the seed-0 and step logits of one "
                            f"frame lie only {apart} apart")
 
     def serve_round(r: int, pts: int):
@@ -10990,7 +11144,7 @@ def orbax_vit(root: str, card: str, power: str):
         for p in pipes:
             b = p["out"].pull(timeout=120)
             if b is None:
-                raise RuntimeError("orbax (c): a frame was lost")
+                raise RuntimeError(f"orbax {part}: a frame was lost")
             got.append(b.tensors[0].torch().reshape(-1).clone())
         return got
 
@@ -10998,7 +11152,7 @@ def orbax_vit(root: str, card: str, power: str):
         d = max(float((y - alone[version][s][r]).abs().max())
                 for s, y in enumerate(got))
         if d > SERVE_TOL:
-            raise RuntimeError(f"orbax (c): {what}: logits {d} from the "
+            raise RuntimeError(f"orbax {part}: {what}: logits {d} from the "
                                f"{version} weights alone (limit {SERVE_TOL})")
         return d
 
@@ -11014,7 +11168,7 @@ def orbax_vit(root: str, card: str, power: str):
             stage_s[fmt] = time.perf_counter() - t0
             lc.swap(ver)
             if lc.baseline.tag != str(ORBAX_STEP):
-                raise RuntimeError(f"orbax (c): {fmt}: version "
+                raise RuntimeError(f"orbax {part}: {fmt}: version "
                                    f"{lc.baseline.tag}")
             outs[fmt], worst[fmt] = [], 0.0
             for r in range(ORBAX_VIT_ROUNDS):
@@ -11026,32 +11180,33 @@ def orbax_vit(root: str, card: str, power: str):
         for p in pipes:
             p.stop()
     launches = _par_counts()
-    differ = [i for i, (a, b) in enumerate(zip(outs["orbax"],
-                                               outs["safetensors"]))
+    differ = [i for i, (a, b) in enumerate(zip(outs[first], outs[second]))
               if not torch.equal(a, b)]
     if differ or lc.swaps != 2:
-        raise RuntimeError(f"orbax (c): frames {differ} differ between the "
+        raise RuntimeError(f"orbax {part}: frames {differ} differ between the "
                            f"formats, {lc.swaps} swaps")
-    n = len(outs["orbax"])
+    n = len(outs[first])
     if LC_DEVICE == "cuda" and (
             launches["flash_attention"] < VIT["depth"] * 2 * ORBAX_VIT_ROUNDS
             or launches["scale_bias_cast"] < 2 * n):
-        raise RuntimeError(f"orbax (c): launches {launches} for {2 * n} "
+        raise RuntimeError(f"orbax {part}: launches {launches} for {2 * n} "
                            f"frames")
     res = {"step_bytes": nbytes, "write_s": write_s, "read_s": read_s,
            "stage_s": stage_s,
+           "reader_mb_per_s": {f: nbytes[f] / read_s[f] / 1e6
+                               for f in nbytes},
            "writer_mb_per_s": {f: nbytes[f] / write_s[f] / 1e6
                                for f in nbytes},
            "frames": 2 * n + SERVE_STREAMS, "max_abs_diff_alone": worst,
            "apart": apart, "launches": launches}
-    print(f"orbax (c): the ViT ({VIT}, image {VIT_SIZE}, bf16 weights) as "
-          f"step {ORBAX_STEP}: {_io_line(nbytes, write_s, read_s)}; phase "
-          f"9's {SERVE_STREAMS}-stream "
-          f"pool staged it from orbax in {stage_s['orbax']:.6f} s, from "
-          f"safetensors in {stage_s['safetensors']:.6f} s; {SERVE_STREAMS} "
+    print(f"orbax {part}: the ViT ({VIT}, image {VIT_SIZE}, bf16 weights) "
+          f"as step {ORBAX_STEP}: {_io_line(nbytes, write_s, read_s)}; "
+          f"phase 9's {SERVE_STREAMS}-stream pool staged it from {first} in "
+          f"{stage_s[first]:.6f} s, from {second} in "
+          f"{stage_s[second]:.6f} s; {SERVE_STREAMS} "
           f"frames before the swaps within {worst['v0']} of the seed-0 "
           f"weights alone; {n} frames after each flip bit-equal, within "
-          f"{max(worst['orbax'], worst['safetensors'])} of the step's tree "
+          f"{max(worst[first], worst[second])} of the step's tree "
           f"alone (the two lie at least {apart} apart); launches {launches} "
           f"[{card}, {power}]", flush=True)
     return res
@@ -11191,7 +11346,7 @@ def orbax_resume(root: str, card: str, power: str):
 
 
 def phase_orbax(card: str, power: str):
-    """Phase 22: (a)-(d) above, under ``cudnn.deterministic``."""
+    """Phase 22: (a)-(f) above, under ``cudnn.deterministic``."""
     import shutil
     import tempfile
 
@@ -11209,10 +11364,13 @@ def phase_orbax(card: str, power: str):
         res["mobilenet"] = orbax_mobilenet(root, card, power)
         res["vit"] = orbax_vit(root, card, power)
         res["resume"] = orbax_resume(root, card, power)
+        res["forms"] = orbax_forms(card, power)
+        res["vit_zarr3"] = orbax_vit(root, card, power, zarr3=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     res["launches"] = {k: res["mobilenet"]["launches"][k]
                        + res["vit"]["launches"][k]
+                       + res["vit_zarr3"]["launches"][k]
                        + sum(v[k] for v in res["resume"]["launches"].values())
                        for k in ("scale_bias_cast", "flash_attention")}
     res["seconds"] = time.perf_counter() - t0
@@ -11433,6 +11591,8 @@ def main() -> int:
                    "orbax_mobilenet":
                        orbax["mobilenet"]["launches"]["scale_bias_cast"],
                    "orbax_vit": orbax["vit"]["launches"]["scale_bias_cast"],
+                   "orbax_vit_zarr3":
+                       orbax["vit_zarr3"]["launches"]["scale_bias_cast"],
                    "orbax_resume": sum(
                        v["scale_bias_cast"]
                        for v in orbax["resume"]["launches"].values())}
@@ -11469,7 +11629,9 @@ def main() -> int:
                       training["model_ranks"]["launches"]["flash_attention"],
                   "training_saved_step_serving": training["saved_steps"][
                       "launches"]["flash_attention"],
-                  "orbax_vit": orbax["vit"]["launches"]["flash_attention"]}
+                  "orbax_vit": orbax["vit"]["launches"]["flash_attention"],
+                  "orbax_vit_zarr3":
+                      orbax["vit_zarr3"]["launches"]["flash_attention"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",

@@ -1,7 +1,7 @@
 """Loader for the port's native (C++) host code, one library a source.
 
-Counterpart of the JAX package's ``nativelib.py``, for two sources under
-``native/``:
+Counterpart of the JAX package's ``nativelib.py``, for three sources
+under ``native/``:
 
 - ``nns_wire.cc`` (a copy of the JAX package's): the protobuf wire codec.
   ``converters/codecs.py`` tries it first for protobuf frames and falls
@@ -30,6 +30,7 @@ import os
 import shutil
 import subprocess
 import threading
+import zlib
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -40,10 +41,14 @@ _lib = None
 _tried = False
 _zstd = None
 _zstd_error: Optional[str] = None
+_blosc = None
+_blosc_error: Optional[str] = None
+_zstd_fn = None                  # nns_zstd_decompress, handed to the blosc one
 
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 SOURCE = NATIVE_DIR / "nns_wire.cc"
 ZSTD_SOURCE = NATIVE_DIR / "nns_zstd.cc"
+BLOSC_SOURCE = NATIVE_DIR / "nns_blosc.cc"
 BUILD_DIR = (Path(__file__).resolve().parents[1] / "build"
              / "nnstreamer_tpu_torch" / "native")
 CXX_FLAGS = ("-O2", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared")
@@ -56,6 +61,13 @@ ZSTD_STATUS = {-1: "corrupt frame", -2: "truncated frame",
                -4: "unsupported frame (dictionary or reserved bit)",
                -5: "content checksum mismatch",
                -6: "frame content size mismatch", -7: "out of memory"}
+#: ``nns_blosc_decompress`` status codes (``native/nns_blosc.cc``)
+BLOSC_STATUS = {-1: "corrupt frame", -2: "truncated frame",
+                -3: "output larger than expected",
+                -4: "unsupported frame (format version or block codec)",
+                -5: "a zlib or zstd stream inside the frame is corrupt",
+                -6: "no decoder for the frame's block codec",
+                -7: "out of memory"}
 
 
 class NativeBuildError(RuntimeError):
@@ -87,13 +99,48 @@ def _configure(lib) -> None:
 def _configure_zstd(lib) -> None:
     lib.nns_zstd_decompress.restype = ctypes.c_int32
     lib.nns_zstd_decompress.argtypes = [
-        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64,
         ctypes.POINTER(ctypes.c_uint64)]
     lib.nns_zstd_content_size.restype = ctypes.c_int32
     lib.nns_zstd_content_size.argtypes = [
-        ctypes.c_char_p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_int64)]
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_int64)]
     lib.nns_crc32c.restype = ctypes.c_uint32
     lib.nns_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+
+
+#: a decoder of one whole stream, as ``nns_blosc.cc``'s ``StreamFn``
+STREAM_FN = ctypes.CFUNCTYPE(
+    ctypes.c_int32, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p,
+    ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64))
+
+
+def _configure_blosc(lib) -> None:
+    lib.nns_blosc_nbytes.restype = ctypes.c_int32
+    lib.nns_blosc_nbytes.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64)]
+    lib.nns_blosc_decompress.restype = ctypes.c_int32
+    lib.nns_blosc_decompress.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_void_p, STREAM_FN]
+
+
+def _inflate(src, n, dst, cap, got) -> int:
+    """A blosc zlib stream (``compress2``'s form) through :mod:`zlib`."""
+    try:
+        d = zlib.decompressobj()
+        out = d.decompress(ctypes.string_at(src, n), cap + 1)
+        if len(out) > cap:
+            return -3
+        if not d.eof or d.unused_data:
+            return -1
+    except zlib.error:
+        return -1
+    ctypes.memmove(dst, out, len(out))
+    got[0] = len(out)
+    return 0
+
+
+_INFLATE = STREAM_FN(_inflate)
 
 
 def library_path(source: Path = SOURCE) -> Path:
@@ -188,6 +235,53 @@ def get_zstd() -> ctypes.CDLL:
     return _zstd
 
 
+def get_blosc() -> ctypes.CDLL:
+    """The blosc decoder's library, building it on first use; raises
+    :class:`NativeBuildError` (the same one again after a failed
+    build)."""
+    global _blosc, _blosc_error
+    if _blosc is not None:
+        return _blosc
+    with _lock:
+        if _blosc is None:
+            if _blosc_error is not None:
+                raise NativeBuildError(_blosc_error)
+            try:
+                _blosc = load_library(BLOSC_SOURCE, _configure_blosc)
+            except NativeBuildError as e:
+                _blosc_error = (f"the blosc decoder for orbax steps is not "
+                                f"available: {e}")
+                raise NativeBuildError(_blosc_error) from e
+    return _blosc
+
+
+def blosc_decompress(src: bytes, size: Optional[int] = None) -> np.ndarray:
+    """The bytes the blosc frame ``src`` holds, as a uint8 array; ``size``
+    (where given) must equal the size its header declares.  Raises
+    ``ValueError`` on a corrupt frame."""
+    lib = get_blosc()
+    src = bytes(src)
+    nbytes = ctypes.c_uint64()
+    rc = lib.nns_blosc_nbytes(src, len(src), ctypes.byref(nbytes))
+    if rc != 0:
+        raise ValueError(f"blosc: {BLOSC_STATUS.get(rc, rc)}")
+    if size is not None and nbytes.value != size:
+        raise ValueError(f"blosc: frame holds {nbytes.value} bytes, "
+                         f"expected {size}")
+    global _zstd_fn
+    if _zstd_fn is None:
+        _zstd_fn = ctypes.cast(get_zstd().nns_zstd_decompress,
+                               ctypes.c_void_p)
+    out = np.empty(max(nbytes.value, 1), np.uint8)
+    got = ctypes.c_uint64()
+    rc = lib.nns_blosc_decompress(src, len(src), out.ctypes.data,
+                                  nbytes.value, ctypes.byref(got), _zstd_fn,
+                                  _INFLATE)
+    if rc != 0:
+        raise ValueError(f"blosc: {BLOSC_STATUS.get(rc, rc)}")
+    return out[:got.value]
+
+
 def zstd_decompress(src: bytes, size: Optional[int] = None,
                     limit: int = 1 << 34) -> np.ndarray:
     """The bytes the zstd frames of ``src`` hold, as a uint8 array.
@@ -196,10 +290,13 @@ def zstd_decompress(src: bytes, size: Optional[int] = None,
     or a buffer grown up to ``limit``.  Raises ``ValueError`` on corrupt
     input."""
     lib = get_zstd()
-    src = bytes(src)
+    # a view of the caller's bytes (a slice of a shard stays uncopied);
+    # ``src`` lives until the call returns
+    src = np.frombuffer(src, np.uint8)
+    ptr = src.ctypes.data
     if size is None:
         declared = ctypes.c_int64()
-        rc = lib.nns_zstd_content_size(src, len(src), ctypes.byref(declared))
+        rc = lib.nns_zstd_content_size(ptr, len(src), ctypes.byref(declared))
         if rc != 0:
             raise ValueError(f"zstd: {ZSTD_STATUS.get(rc, rc)}")
         if declared.value >= 0:
@@ -212,7 +309,7 @@ def zstd_decompress(src: bytes, size: Optional[int] = None,
     got = ctypes.c_uint64()
     while True:
         out = np.empty(max(cap, 1), np.uint8)
-        rc = lib.nns_zstd_decompress(src, len(src), out.ctypes.data, cap,
+        rc = lib.nns_zstd_decompress(ptr, len(src), out.ctypes.data, cap,
                                      ctypes.byref(got))
         if rc == -3 and size is None and cap < limit:
             cap = min(2 * cap, limit)

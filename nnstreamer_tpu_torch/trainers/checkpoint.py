@@ -11,10 +11,12 @@ Counterpart of the JAX package's ``trainers/checkpoint.py``
   (``trainers/orbax_write.py``: ``_METADATA`` beside an OCDBT
   ``manifest.ocdbt``, zarr v2 arrays), which the JAX package's
   ``load_orbax`` reads.  :func:`load_dir` reads those, the JAX package's
-  own (also per-file zarr arrays), and the port's older steps, one
-  ``params.safetensors`` (``models/params_io.py``), all without orbax:
-  ``trainers/orbax_format.py`` over ``trainers/ocdbt.py`` and the zstd
-  decoder of ``native/nns_zstd.cc`` (built with g++ on first use).
+  own, every other step orbax's restore reads (zarr v3, other
+  compressors, per-file arrays, numbered manifests), and the port's
+  older steps, one ``params.safetensors`` (``models/params_io.py``), all
+  without orbax: ``trainers/orbax_format.py`` over ``trainers/ocdbt.py``
+  and the zstd and blosc decoders of ``native/nns_zstd.cc`` and
+  ``native/nns_blosc.cc`` (built with g++ on first use).
   Which format a directory holds is read from the files it holds, never
   from its name.
 

@@ -11,11 +11,17 @@ Layout read (format version 0):
   the format version and the compression (varints; 0 raw, 1 zstd); the
   body; a CRC-32C of everything before it.  The body holds the config
   (uuid, manifest kind, inline value and node size limits, the version
-  tree's arity, the compression method), then the newest versions of
-  the version tree: a data-file table, then per version its generation,
-  root height, root node reference (data file, offset, length), its
-  statistics and commit time, then references to older version nodes
-  (not read: only the newest version is).
+  tree's arity, the compression method), then, for manifest kind 0
+  ("single"), the newest versions of the version tree: a data-file
+  table, then per version its generation, root height, root node
+  reference (data file, offset, length), its statistics and commit
+  time, then references to older version nodes (not read: only the
+  newest version is, which is what a restore gives).
+- manifest kind 1 ("numbered"): ``manifest.ocdbt`` holds the config
+  alone, and each commit writes ``manifest.<generation as 16 hex
+  digits>``, framed and checked as above, holding the same config (the
+  same uuid, kind 0) and the version tree.  The highest-numbered one is
+  read.
 - b-tree nodes (magic ``0x0cdb20de``, the same framing): the height, a
   data-file table, the entries' keys as shared-prefix lengths, suffix
   lengths and suffix bytes, then for an interior node each child's
@@ -31,6 +37,11 @@ Every node's length and CRC-32C are checked before it is decoded, its
 decoded size is bounded by the config's ``max_decoded_node_bytes``, and
 every varint, table, offset and path is bounds-checked: a damaged store
 raises :class:`OcdbtError` (a ``ValueError``).
+
+Refused: format versions above 0 (tensorstore writes version 0; orbax
+and this port write nothing else, so a later version is a format this
+reader has never been held against), compression methods other than
+none and zstd, and value kinds other than inline and indirect.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from ..nativelib import crc32c, zstd_decompress
 MANIFEST_MAGIC = 0x0CDB3A2A
 BTREE_MAGIC = 0x0CDB20DE
 MANIFEST = "manifest.ocdbt"
+NUMBERED = "manifest."             # + 16 hex digits: a numbered manifest
 
 #: a value: inline bytes, or (data file, offset, length)
 Value = Union[bytes, Tuple[str, int, int]]
@@ -179,28 +191,23 @@ class Ocdbt:
     def __init__(self, root: str):
         self.root = os.path.abspath(root)
         self._fds: Dict[str, int] = {}
+        self.values: Dict[bytes, Value] = {}
+        self._files: Dict[str, str] = {}
+        self.generation = 0
         path = os.path.join(self.root, MANIFEST)
-        try:
-            with open(path, "rb") as f:
-                raw = f.read()
-        except OSError as e:
-            raise OcdbtError(f"{path}: {e}") from None
-        body = _unwrap(raw, MANIFEST_MAGIC, path, limit=1 << 30)
-        c = _Cursor(body, path)
-        c.take(16)                                  # the store's uuid
-        kind = c.varint()
-        if kind != 0:
-            raise OcdbtError(f"{path}: manifest kind {kind} (numbered "
-                             "manifests) is not read")
-        c.varint()                                  # max_inline_value_bytes
-        self.max_node = c.varint()                  # max_decoded_node_bytes
-        c.byte()                                    # version_tree_arity_log2
-        method = c.varint()
-        if method == 1:
-            c.take(4)                               # zstd level (int32 LE)
-        elif method != 0:
-            raise OcdbtError(f"{path}: compression method {method} is not "
-                             "read")
+        c = self._manifest(path)
+        uuid, kind = self._config(c)
+        if kind == 1:                    # numbered: the config alone here
+            c.done()
+            path = self._numbered()
+            if path is None:                        # nothing written yet
+                return
+            c = self._manifest(path)
+            if self._config(c) != (uuid, 0):
+                raise OcdbtError(f"{path}: not a version manifest of the "
+                                 f"store {MANIFEST} describes")
+        elif kind != 0:
+            raise OcdbtError(f"{path}: manifest kind {kind} is not read")
         files = _file_table(c)
         n = c.count()
         gens = c.varints(n)
@@ -213,9 +220,6 @@ class Ocdbt:
         c.take(8 * m)                               # commit times
         c.take(m)                                   # heights
         c.done()
-        self.values: Dict[bytes, Value] = {}
-        self._files: Dict[str, str] = {}
-        self.generation = 0
         if n == 0:
             return
         k = max(range(n), key=gens.__getitem__)
@@ -227,6 +231,44 @@ class Ocdbt:
         except BaseException:
             self.close()
             raise
+
+    @staticmethod
+    def _manifest(path: str) -> _Cursor:
+        try:
+            with open(path, "rb") as f:
+                raw = f.read()
+        except OSError as e:
+            raise OcdbtError(f"{path}: {e}") from None
+        return _Cursor(_unwrap(raw, MANIFEST_MAGIC, path, limit=1 << 30),
+                       path)
+
+    def _config(self, c: _Cursor) -> Tuple[bytes, int]:
+        """(the store's uuid, the manifest kind) of a manifest's config;
+        keeps its node size limit."""
+        uuid = c.take(16)
+        kind = c.varint()
+        c.varint()                                  # max_inline_value_bytes
+        self.max_node = c.varint()                  # max_decoded_node_bytes
+        c.byte()                                    # version_tree_arity_log2
+        method = c.varint()
+        if method == 1:
+            c.take(4)                               # zstd level (int32 LE)
+        elif method != 0:
+            c.fail(f"compression method {method} is not read")
+        return uuid, kind
+
+    def _numbered(self) -> Optional[str]:
+        """The path of the newest numbered manifest, or None."""
+        try:
+            names = os.listdir(self.root)
+        except OSError as e:
+            raise OcdbtError(f"{self.root}: {e}") from None
+        gens = [int(n[len(NUMBERED):], 16) for n in names
+                if n.startswith(NUMBERED) and len(n) == len(NUMBERED) + 16
+                and all(ch in "0123456789abcdef" for ch in n[-16:])]
+        if not gens:
+            return None
+        return os.path.join(self.root, f"{NUMBERED}{max(gens):016x}")
 
     def close(self, _close=os.close) -> None:
         """Close the data files :meth:`read` keeps open (``os.close`` held

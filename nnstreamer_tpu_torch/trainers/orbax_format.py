@@ -1,7 +1,10 @@
-"""The JAX package's orbax step directories, read without orbax.
+"""The orbax step directories the JAX package's ``load_orbax`` reads,
+read without orbax.
 
 ``nnstreamer_tpu/trainers/checkpoint.py`` saves a pytree with
-``orbax.checkpoint.StandardCheckpointer``.  A step directory then holds:
+``orbax.checkpoint.StandardCheckpointer`` and restores one with its
+``restore``, which reads whatever tensorstore opens: steps written by any
+orbax client, not only by ``save_orbax``.  A step directory holds:
 
 - ``_METADATA``: JSON; ``tree_metadata`` maps each leaf's key path (a
   tuple's string) to its ``key_metadata`` (each key with ``key_type`` 2
@@ -9,20 +12,46 @@
   (``value_type`` ``np.ndarray``, ``jax.Array`` or ``scalar`` for an
   array, ``None``/``Dict``/``List`` for an empty node); ``use_ocdbt`` and
   ``use_zarr3`` say how the arrays are stored;
-- with ``use_ocdbt``: an OCDBT store (``trainers/ocdbt.py``) holding, for
-  each leaf named by its keys joined with ``.``, a zarr v2 array:
-  ``<name>/.zarray`` and one chunk a key (``<name>/0.1``; ``0`` for a 0-d
-  array); without it, the same keys as files under the directory.
+- with ``use_ocdbt``: an OCDBT store (``trainers/ocdbt.py``: single or
+  numbered manifests) holding each leaf, named by its keys joined with
+  ``.``, as a zarr array; without it, the same keys as files under the
+  directory.
 
-A ``.zarray`` is read for its dtype (``<f2``/``<f4``/``<f8``, signed and
-unsigned integers of 1 to 8 bytes, ``|b1``, ``bfloat16``;
-little-endian), shape, chunk grid, ``fill_value`` (a missing chunk holds it;
+Zarr v2 (``use_zarr3: false``, :func:`read_zarr`): ``<name>/.zarray`` and
+one chunk a key (``<name>/0.1``, separator ``.`` or ``/``; ``0`` for a
+0-d array).  Read: dtypes ``f2``/``f4``/``f8``, ``c8``/``c16``, signed
+and unsigned integers of 1 to 8 bytes, ``|b1`` in either byte order
+(big-endian arrays come back native-endian, as orbax's restore gives
+them) and ``bfloat16``; the shape and chunk grid (edge chunks stored at
+the full chunk shape and cut); ``fill_value`` (a missing chunk holds it;
 null reads as zeros; where ``_METADATA`` says every chunk was stored,
 ``store_array_data_equal_to_fill_value``, a missing chunk raises as
-orbax's restore does) and order ``C``.  Edge chunks are stored at the full
-chunk shape and cut.  Chunks are zstd frames (``native/nns_zstd.cc``) or
-raw bytes.  Not read yet, each refused naming its field: ``use_zarr3:
-true``, a compressor other than zstd or none, ``filters``, order ``F``.
+orbax's restore does); order ``C`` and ``F``; chunks raw or compressed
+with zstd (``native/nns_zstd.cc``), blosc (``native/nns_blosc.cc``),
+zlib, gzip or bz2 (the standard library).
+
+Zarr v3 (``use_zarr3: true``, :func:`read_zarr3`): ``<name>/zarr.json``
+(``zarr_format`` 3, ``node_type`` array, the dtypes above by their v3
+names, ``fill_value`` a number, ``NaN``, ``Infinity``, ``-Infinity`` or
+the hex string of its bits, ``[real, imag]`` for complex), the
+``regular`` chunk grid, the ``default`` (``<name>/c/0/1``, ``<name>/c``
+for 0-d; separator ``/`` or ``.``) and ``v2`` chunk key encodings, and the
+codec chain: ``transpose``; then ``bytes`` (either endian) or
+``sharding_indexed`` (inner chunks with their own chain, an index of
+(offset, length) pairs in ``bytes`` with an optional ``crc32c``, at the
+start or the end; an inner chunk of offset and length 2^64-1 holds the
+fill value, or is damage where every chunk was stored); then ``zstd``,
+``gzip``, ``blosc`` and ``crc32c`` (checked).  Orbax's own ``use_zarr3``
+step is one ``sharding_indexed`` chunk a leaf: inner ``bytes`` +
+``zstd``, index ``bytes`` + ``crc32c`` at the end.
+
+Refused, each raising :class:`OrbaxFormatError` naming its field: zarr
+v2 ``filters`` (tensorstore refuses to write them, so orbax's restore
+never meets them) and a compressor other than those above; dtypes outside
+the set above (strings, objects, structured types, ``f16``: no orbax
+leaf is one); any other zarr v3 codec, index codec, chunk grid or chunk
+key encoding, and non-empty ``storage_transformers`` (tensorstore writes
+none of them into an orbax step); malformed metadata.
 
 :func:`load_orbax` gives the tree ``load_orbax`` of the JAX package gives:
 nested dicts and lists of numpy arrays (0-d arrays stay 0-d), scalars as
@@ -37,16 +66,18 @@ orbax's does.
 
 from __future__ import annotations
 
+import bz2
 import itertools
 import json
 import os
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.params_io import _bf16_tensor
-from ..nativelib import zstd_decompress
+from ..nativelib import blosc_decompress, crc32c, zstd_decompress
 from .ocdbt import Ocdbt
 
 METADATA = "_METADATA"
@@ -82,7 +113,15 @@ class _Files:
             return None
 
 
-# -- zarr v2 -------------------------------------------------------------------
+# -- the dtypes and fill values of both zarr versions --------------------------
+
+#: zarr v3 ``data_type`` names and the zarr v2 dtype each is
+V3_TYPES = {"bool": "|b1", "int8": "|i1", "uint8": "|u1", "int16": "<i2",
+            "uint16": "<u2", "int32": "<i4", "uint32": "<u4", "int64": "<i8",
+            "uint64": "<u8", "float16": "<f2", "float32": "<f4",
+            "float64": "<f8", "complex64": "<c8", "complex128": "<c16",
+            "bfloat16": "bfloat16"}
+_ALL_ONES = (1 << 64) - 1                 # a sharding index's "no chunk"
 
 
 def _dtype(desc: Any, name: str) -> Tuple[np.dtype, bool]:
@@ -94,34 +133,158 @@ def _dtype(desc: Any, name: str) -> Tuple[np.dtype, bool]:
     except TypeError:
         raise OrbaxFormatError(f"{name}: dtype {desc!r} is not read") \
             from None
-    if dt.kind not in "fiub" or dt.byteorder == ">" or dt.itemsize > 8 \
-            or dt.kind == "f" and dt.itemsize not in (2, 4, 8):
+    if dt.kind not in "fiubc" or dt.itemsize > 16 or dt.fields \
+            or dt.kind == "f" and dt.itemsize not in (2, 4, 8) \
+            or dt.kind == "c" and dt.itemsize not in (8, 16) \
+            or dt.kind in "iub" and dt.itemsize > 8:
         raise OrbaxFormatError(f"{name}: dtype {desc!r} is not read")
     return dt, False
 
 
+def _number(value: Any, dt: np.dtype, name: str):
+    """One fill value of a real dtype: a number, a special float's name,
+    or (zarr v3) the hex string of its bits."""
+    if isinstance(value, str):
+        if value.startswith("0x"):
+            try:
+                bits = int(value, 16)
+                return np.array(bits, f"<u{dt.itemsize}").view(
+                    dt.newbyteorder("<"))
+            except (ValueError, OverflowError):
+                raise OrbaxFormatError(f"{name}: fill_value {value!r} is "
+                                       "not read") from None
+        special = {"NaN": np.nan, "Infinity": np.inf, "-Infinity": -np.inf}
+        if value not in special:
+            raise OrbaxFormatError(f"{name}: fill_value {value!r} is not "
+                                   "read")
+        return special[value]
+    if not isinstance(value, (bool, int, float)):
+        raise OrbaxFormatError(f"{name}: fill_value {value!r} is not read")
+    return value
+
+
 def _fill(value: Any, dt: np.dtype, bf16: bool, name: str) -> np.ndarray:
-    """The 0-d array a missing chunk is filled with."""
+    """The 0-d array (native byte order) a missing chunk is filled with."""
+    dt = dt.newbyteorder("=")
     if value is None:
         return np.zeros((), dt)
-    if isinstance(value, str):
-        value = {"NaN": np.nan, "Infinity": np.inf,
-                 "-Infinity": -np.inf}.get(value)
-        if value is None:
-            raise OrbaxFormatError(f"{name}: fill_value is not read")
+    if dt.kind == "c":
+        if not (isinstance(value, (list, tuple)) and len(value) == 2):
+            raise OrbaxFormatError(f"{name}: fill_value {value!r} of a "
+                                   "complex dtype is not [real, imag]")
+        part = np.dtype(f"f{dt.itemsize // 2}")
+        re, im = (np.asarray(_number(v, part, name), part) for v in value)
+        return np.array(complex(re.item(), im.item()), dt)
     if bf16:
-        t = torch.tensor(float(value), dtype=torch.float32)
+        v = _number(value, dt, name)
+        if isinstance(v, np.ndarray):               # hex: the bits
+            return v.astype(np.uint16)
+        t = torch.tensor(float(v), dtype=torch.float32)
         return np.asarray(t.to(torch.bfloat16).view(torch.int16).numpy()
                           .view(np.uint16))
-    return np.array(value, dt)
+    v = _number(value, dt, name)
+    try:
+        return np.asarray(v).astype(dt) if isinstance(v, np.ndarray) \
+            else np.array(v, dt)
+    except (OverflowError, ValueError):
+        raise OrbaxFormatError(f"{name}: fill_value {value!r} does not fit "
+                               f"{dt}") from None
+
+
+def _assemble(store, name: str, shape: tuple, chunks: tuple, dt: np.dtype,
+              fill: np.ndarray, key, decode, fill_missing: bool
+              ) -> np.ndarray:
+    """The array from its chunk grid: ``key(idx)`` names chunk ``idx``,
+    ``decode(data, key, valid)`` gives its array of the chunk shape
+    (``valid``: the extent inside the array); edge chunks are cut, a
+    missing chunk holds ``fill`` or raises where ``fill_missing`` is
+    false."""
+    if len(chunks) != len(shape) or any(c < 1 for c in chunks):
+        raise OrbaxFormatError(f"{name}: chunks {chunks} for shape {shape}")
+    grid = [-(-s // c) for s, c in zip(shape, chunks)]
+    out = None
+    for idx in itertools.product(*map(range, grid)):
+        k = key(idx)
+        data = store.read(k)
+        lo = [i * c for i, c in zip(idx, chunks)]
+        hi = [min(a + c, s) for a, c, s in zip(lo, chunks, shape)]
+        if data is None:
+            if not fill_missing:
+                raise OrbaxFormatError(f"chunk {k!r} is missing")
+            block = None
+        else:
+            block = decode(data, k, tuple(b - a for a, b in zip(lo, hi)))
+        if block is not None and chunks == shape:
+            out = block if block.flags.c_contiguous else block.copy()
+            break
+        if out is None:
+            out = np.empty(shape, dt)
+        region = tuple(slice(a, b) for a, b in zip(lo, hi))
+        if block is None:
+            out[region] = fill
+        else:
+            out[region] = block[tuple(slice(0, b - a) for a, b in
+                                      zip(lo, hi))]
+    if out is None:                          # a shape with a 0 dimension
+        out = np.empty(shape, dt)
+    return out
+
+
+def _stdlib(codec: str, data: bytes, size: int, key: str) -> bytes:
+    """``data`` inflated by the standard library's ``codec`` (zlib, gzip
+    or bz2), at most ``size`` bytes."""
+    try:
+        if codec == "bz2":
+            d = bz2.BZ2Decompressor()
+        else:
+            d = zlib.decompressobj(31 if codec == "gzip" else 15)
+        out = d.decompress(bytes(data), size + 1)
+        done = d.eof and not d.unused_data
+    except (zlib.error, OSError, ValueError, EOFError) as e:
+        raise OrbaxFormatError(f"{key}: {codec}: {e}") from None
+    if len(out) > size or not done:
+        raise OrbaxFormatError(f"{key}: {codec}: the stream does not end "
+                               f"within {size} bytes")
+    return out
+
+
+def _inflate(codec: str, data, size: Optional[int], cap: int, key: str):
+    """The bytes a compressed chunk holds (a uint8 array from the native
+    decoders, else ``bytes``); ``size`` the exact decoded size where
+    known, else at most ``cap``."""
+    try:
+        if codec == "zstd":
+            return zstd_decompress(data, size, limit=cap)
+        if codec == "blosc":
+            return blosc_decompress(data, size)
+    except ValueError as e:
+        raise OrbaxFormatError(f"{key}: {e}") from None
+    out = _stdlib(codec, data, size if size is not None else cap, key)
+    if size is not None and len(out) != size:
+        raise OrbaxFormatError(f"{key}: {codec}: {len(out)} bytes, expected "
+                               f"{size}")
+    return out
+
+
+def _as_array(data, dt: np.dtype) -> np.ndarray:
+    """A writable 1-D array of ``dt`` over a chunk's bytes: a decoder's
+    own array as it is, anything else copied once."""
+    if isinstance(data, np.ndarray) and data.flags.writeable:
+        return data.view(dt)
+    return np.frombuffer(bytearray(data), dt)
+
+
+# -- zarr v2 -------------------------------------------------------------------
+
+V2_COMPRESSORS = ("zstd", "blosc", "zlib", "gzip", "bz2")
 
 
 def read_zarr(store, name: str, fill_missing: bool = True
               ) -> Tuple[np.ndarray, bool]:
     """(the zarr v2 array ``name`` of ``store``, is bf16): ``store.read``
     gives a key's bytes or None.  A bf16 array comes back as its uint16
-    words.  A missing chunk holds the fill value, or raises where
-    ``fill_missing`` is false."""
+    words, every array in native byte order.  A missing chunk holds the
+    fill value, or raises where ``fill_missing`` is false."""
     raw = store.read(f"{name}/.zarray")
     if raw is None:
         raise OrbaxFormatError(f"{name}: no .zarray")
@@ -135,59 +298,295 @@ def read_zarr(store, name: str, fill_missing: bool = True
         raise OrbaxFormatError(f"{name}: zarr_format "
                                f"{meta.get('zarr_format')!r} is not read")
     comp = meta.get("compressor")
+    codec = comp.get("id") if isinstance(comp, dict) else comp
     if comp is not None and (not isinstance(comp, dict)
-                             or comp.get("id") != "zstd"):
-        what = comp.get("id") if isinstance(comp, dict) else comp
-        raise OrbaxFormatError(f"{name}: compressor {what!r} is not read "
-                               "(zstd or none)")
+                             or codec not in V2_COMPRESSORS):
+        raise OrbaxFormatError(f"{name}: compressor {codec!r} is not read "
+                               f"({', '.join(V2_COMPRESSORS)} or none)")
     if meta.get("filters"):
+        # tensorstore writes no filters, so orbax's restore never meets them
         raise OrbaxFormatError(f"{name}: filters {meta['filters']!r} are "
                                "not read")
-    if meta.get("order", "C") != "C":
-        raise OrbaxFormatError(f"{name}: order {meta['order']!r} is not "
-                               "read (C only)")
+    order = meta.get("order", "C")
+    if order not in ("C", "F"):
+        raise OrbaxFormatError(f"{name}: order {order!r} is not read")
     dt, bf16 = _dtype(meta.get("dtype"), name)
-    if len(chunks) != len(shape) or any(c < 1 for c in chunks):
-        raise OrbaxFormatError(f"{name}: chunks {chunks} for shape {shape}")
     sep = meta.get("dimension_separator", ".")
+    if sep not in (".", "/"):
+        raise OrbaxFormatError(f"{name}: dimension_separator {sep!r} is "
+                               "not read")
     fill = _fill(meta.get("fill_value"), dt, bf16, name)
     chunk_bytes = int(np.prod(chunks, dtype=np.int64)) * dt.itemsize
-    grid = [-(-s // c) for s, c in zip(shape, chunks)]
-    out = None
-    for idx in itertools.product(*map(range, grid)):
-        key = f"{name}/{sep.join(map(str, idx)) if idx else '0'}"
-        data = store.read(key)
-        if data is None:
-            if not fill_missing:
-                raise OrbaxFormatError(f"chunk {key!r} is missing")
-            block = None
+    native = dt.newbyteorder("=")
+
+    def decode(data, key, valid):
+        if codec is not None:
+            data = _inflate(codec, data, chunk_bytes, chunk_bytes, key)
+        elif len(data) != chunk_bytes:
+            raise OrbaxFormatError(f"{key}: {len(data)} bytes, expected "
+                                   f"{chunk_bytes}")
+        block = _as_array(data, dt)
+        block = block.reshape(chunks[::-1]).T if order == "F" else \
+            block.reshape(chunks)
+        return block if dt == native else block.astype(native)
+
+    out = _assemble(store, name, shape, chunks, native, fill,
+                    lambda idx: f"{name}/{sep.join(map(str, idx)) or '0'}",
+                    decode, fill_missing)
+    return out, bf16
+
+
+# -- zarr v3 -------------------------------------------------------------------
+
+ARRAY_TO_ARRAY = ("transpose",)
+ARRAY_TO_BYTES = ("bytes", "sharding_indexed")
+BYTES_TO_BYTES = ("zstd", "gzip", "blosc", "crc32c")
+
+
+def _config(spec: Any, name: str, where: str) -> Tuple[str, dict]:
+    """(name, configuration) of one codec or grid entry."""
+    if not isinstance(spec, dict) or not isinstance(spec.get("name"), str):
+        raise OrbaxFormatError(f"{name}: {where}: malformed entry {spec!r}")
+    conf = spec.get("configuration", {})
+    if not isinstance(conf, dict):
+        raise OrbaxFormatError(f"{name}: {where}: malformed configuration")
+    return spec["name"], conf
+
+
+def _ints(value: Any, name: str, what: str) -> tuple:
+    if not isinstance(value, list) or not all(
+            isinstance(v, int) and not isinstance(v, bool) for v in value):
+        raise OrbaxFormatError(f"{name}: {what} {value!r} is not a list of "
+                               "integers")
+    return tuple(value)
+
+
+class _Chain:
+    """A zarr v3 codec chain over chunks of ``shape`` (the decoded form):
+    :meth:`decode` gives a chunk's array (native byte order) from its
+    bytes."""
+
+    def __init__(self, codecs: Any, shape: tuple, dt: np.dtype,
+                 fill: np.ndarray, fill_missing: bool, name: str,
+                 where: str = "codecs"):
+        if not isinstance(codecs, list) or not codecs:
+            raise OrbaxFormatError(f"{name}: {where}: {codecs!r} is not a "
+                                   "list of codecs")
+        self.name, self.dt, self.fill = name, dt, fill
+        self.fill_missing = fill_missing
+        self.perms: List[tuple] = []                 # transposes, in order
+        enc = shape
+        specs = [_config(c, name, where) for c in codecs]
+        i = 0
+        while i < len(specs) and specs[i][0] in ARRAY_TO_ARRAY:
+            perm = self._order(specs[i][1].get("order"), len(enc), where)
+            self.perms.append(perm)
+            enc = tuple(enc[p] for p in perm)
+            i += 1
+        if i == len(specs) or specs[i][0] not in ARRAY_TO_BYTES:
+            what = specs[i][0] if i < len(specs) else None
+            raise OrbaxFormatError(
+                f"{name}: {where}: codec {what!r} is not read (the array "
+                f"to bytes codec must be one of {', '.join(ARRAY_TO_BYTES)}"
+                f", after {', '.join(ARRAY_TO_ARRAY)})")
+        self.enc = enc
+        self.kind, conf = specs[i]
+        self.size: Optional[int] = None        # the bytes codec's output
+        if self.kind == "bytes":
+            self.order = self._endian(conf, dt, where)
+            self.size = int(np.prod(enc, dtype=np.int64)) * dt.itemsize
         else:
-            if comp is not None:
-                try:
-                    buf = zstd_decompress(data, chunk_bytes)
-                except ValueError as e:
-                    raise OrbaxFormatError(f"{key}: {e}") from None
-            elif len(data) != chunk_bytes:
-                raise OrbaxFormatError(f"{key}: {len(data)} bytes, expected "
-                                       f"{chunk_bytes}")
+            self._sharding(conf, where)
+        self.bytes_codecs = []
+        for codec, c in specs[i + 1:]:
+            if codec not in BYTES_TO_BYTES:
+                raise OrbaxFormatError(
+                    f"{name}: {where}: codec {codec!r} is not read (bytes "
+                    f"to bytes: {', '.join(BYTES_TO_BYTES)})")
+            self.bytes_codecs.append(codec)
+        raw = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        self.cap = 2 * raw + (1 << 16)         # a bound for unsized streams
+
+    def _order(self, order: Any, rank: int, where: str) -> tuple:
+        if order == "C":
+            return tuple(range(rank))
+        if order == "F":
+            return tuple(reversed(range(rank)))
+        perm = _ints(order, self.name, f"{where}: transpose order")
+        if sorted(perm) != list(range(rank)):
+            raise OrbaxFormatError(f"{self.name}: {where}: transpose order "
+                                   f"{list(perm)} for rank {rank}")
+        return perm
+
+    def _endian(self, conf: dict, dt: np.dtype, where: str) -> str:
+        endian = conf.get("endian", "little" if dt.itemsize == 1 else None)
+        if endian not in ("little", "big"):
+            raise OrbaxFormatError(f"{self.name}: {where}: bytes endian "
+                                   f"{endian!r} is not read")
+        return "<" if endian == "little" else ">"
+
+    def _sharding(self, conf: dict, where: str) -> None:
+        inner = _ints(conf.get("chunk_shape"), self.name,
+                      f"{where}: sharding_indexed chunk_shape")
+        if len(inner) != len(self.enc) or any(
+                c < 1 or s % c for s, c in zip(self.enc, inner)):
+            raise OrbaxFormatError(
+                f"{self.name}: {where}: sharding_indexed chunk_shape "
+                f"{list(inner)} does not divide the shard {list(self.enc)}")
+        self.inner = inner
+        self.grid = tuple(s // c for s, c in zip(self.enc, inner))
+        self.inner_chain = _Chain(conf.get("codecs"), inner, self.dt,
+                                  self.fill, self.fill_missing, self.name,
+                                  f"{where}: sharding_indexed codecs")
+        index = [_config(c, self.name, f"{where}: index_codecs")
+                 for c in conf.get("index_codecs") or []]
+        if not index or index[0][0] != "bytes" or \
+                [n for n, _ in index[1:]] not in ([], ["crc32c"]):
+            raise OrbaxFormatError(
+                f"{self.name}: {where}: index_codecs "
+                f"{[n for n, _ in index]} are not read (bytes, then "
+                "crc32c or nothing)")
+        self.index_order = self._endian(index[0][1], np.dtype("<u8"), where)
+        self.index_crc = len(index) == 2
+        loc = conf.get("index_location", "end")
+        if loc not in ("start", "end"):
+            raise OrbaxFormatError(f"{self.name}: {where}: index_location "
+                                   f"{loc!r} is not read")
+        self.index_at_start = loc == "start"
+        n = int(np.prod(self.grid, dtype=np.int64))
+        self.index_bytes = 16 * n + 4 * self.index_crc
+
+    def decode(self, data: bytes, key: str, valid: tuple) -> np.ndarray:
+        """The chunk ``key``'s array from its bytes; ``valid`` is its
+        extent inside the array (inner chunks beyond it are not read)."""
+        sizes = [self.size]
+        for codec in self.bytes_codecs[:-1]:
+            sizes.append(sizes[-1] + 4 if codec == "crc32c" and
+                         sizes[-1] is not None else None)
+        for codec, size in zip(reversed(self.bytes_codecs), reversed(sizes)):
+            if codec == "crc32c":
+                data = _crc_checked(data, key)
             else:
-                buf = np.frombuffer(bytearray(data), np.uint8)
-            block = buf.view(dt).reshape(chunks)
-        lo = [i * c for i, c in zip(idx, chunks)]
-        hi = [min(a + c, s) for a, c, s in zip(lo, chunks, shape)]
-        if block is not None and chunks == shape:
-            out = block                      # the one chunk is the array
-            break
-        if out is None:
-            out = np.empty(shape, dt)
-        region = tuple(slice(a, b) for a, b in zip(lo, hi))
-        if block is None:
-            out[region] = fill
+                data = _inflate(codec, data, size, self.cap, key)
+        for perm in self.perms:
+            valid = tuple(valid[p] for p in perm)
+        if self.kind == "bytes":
+            if len(data) != self.size:
+                raise OrbaxFormatError(f"{key}: {len(data)} bytes, expected "
+                                       f"{self.size}")
+            dt = self.dt.newbyteorder(self.order)
+            arr = _as_array(data, dt).reshape(self.enc)
+            if dt != self.dt.newbyteorder("="):
+                arr = arr.astype(self.dt.newbyteorder("="))
         else:
-            out[region] = block[tuple(slice(0, b - a) for a, b in
-                                      zip(lo, hi))]
-    if out is None:                          # a shape with a 0 dimension
-        out = np.empty(shape, dt)
+            arr = self._shard(data, key, valid)
+        for perm in reversed(self.perms):
+            arr = arr.transpose(np.argsort(perm))
+        return arr
+
+    def _shard(self, data, key: str, valid: tuple) -> np.ndarray:
+        data = memoryview(data).cast("B")       # inner chunks as views
+        if len(data) < self.index_bytes:
+            raise OrbaxFormatError(f"{key}: shard of {len(data)} bytes, "
+                                   f"its index alone takes "
+                                   f"{self.index_bytes}")
+        raw = data[:self.index_bytes] if self.index_at_start else \
+            data[len(data) - self.index_bytes:]
+        if self.index_crc:
+            raw = _crc_checked(raw, f"{key} (shard index)")
+        index = np.frombuffer(raw, np.dtype("u8").newbyteorder(
+            self.index_order)).reshape(self.grid + (2,))
+        out = None
+        if self.inner != self.enc:
+            out = np.empty(self.enc, self.dt.newbyteorder("="))
+        for idx in itertools.product(*map(range, self.grid)):
+            lo = [i * c for i, c in zip(idx, self.inner)]
+            if any(a >= v for a, v in zip(lo, valid)):
+                continue                 # wholly outside the array: unread
+            off, nb = (int(v) for v in index[idx])
+            region = tuple(slice(a, a + c) for a, c in zip(lo, self.inner))
+            what = f"{key} inner chunk {list(idx)}"
+            if off == _ALL_ONES and nb == _ALL_ONES:
+                if not self.fill_missing:
+                    raise OrbaxFormatError(f"{what} is missing")
+                if out is None:
+                    return np.full(self.enc, self.fill)
+                out[region] = self.fill
+                continue
+            if off + nb > len(data):
+                raise OrbaxFormatError(f"{what}: [{off}, {off + nb}) runs "
+                                       f"past the shard's {len(data)} bytes")
+            block = self.inner_chain.decode(
+                data[off:off + nb], what,
+                tuple(min(c, v - a) for a, c, v in zip(lo, self.inner,
+                                                       valid)))
+            if out is None:                  # one inner chunk: the shard
+                return block
+            out[region] = block
+        return out
+
+
+def _crc_checked(data, key: str):
+    """``data`` less its trailing CRC-32C, which must match."""
+    if len(data) < 4:
+        raise OrbaxFormatError(f"{key}: crc32c: {len(data)} bytes")
+    body = data[:-4]
+    if crc32c(body) != int.from_bytes(bytes(data[-4:]), "little"):
+        raise OrbaxFormatError(f"{key}: crc32c mismatch")
+    return body
+
+
+def read_zarr3(store, name: str, fill_missing: bool = True
+               ) -> Tuple[np.ndarray, bool]:
+    """(the zarr v3 array ``name`` of ``store``, is bf16), as
+    :func:`read_zarr` gives a zarr v2 array."""
+    raw = store.read(f"{name}/zarr.json")
+    if raw is None:
+        raise OrbaxFormatError(f"{name}: no zarr.json")
+    try:
+        meta = json.loads(bytes(raw).decode("utf-8"))
+        shape = tuple(int(s) for s in meta["shape"])
+    except (ValueError, KeyError, TypeError):
+        raise OrbaxFormatError(f"{name}: malformed zarr.json") from None
+    if meta.get("zarr_format") != 3:
+        raise OrbaxFormatError(f"{name}: zarr_format "
+                               f"{meta.get('zarr_format')!r} is not read")
+    if meta.get("node_type") != "array":
+        raise OrbaxFormatError(f"{name}: node_type "
+                               f"{meta.get('node_type')!r} is not read")
+    if meta.get("storage_transformers"):
+        raise OrbaxFormatError(f"{name}: storage_transformers "
+                               f"{meta['storage_transformers']!r} are not "
+                               "read")
+    dtype = meta.get("data_type")
+    if dtype not in V3_TYPES:
+        raise OrbaxFormatError(f"{name}: data_type {dtype!r} is not read")
+    dt, bf16 = _dtype(V3_TYPES[dtype], name)
+    grid, conf = _config(meta.get("chunk_grid"), name, "chunk_grid")
+    if grid != "regular":
+        raise OrbaxFormatError(f"{name}: chunk_grid {grid!r} is not read "
+                               "(regular only)")
+    chunks = _ints(conf.get("chunk_shape"), name, "chunk_shape")
+    enc, conf = _config(meta.get("chunk_key_encoding",
+                                 {"name": "default"}), name,
+                        "chunk_key_encoding")
+    if enc not in ("default", "v2"):
+        raise OrbaxFormatError(f"{name}: chunk_key_encoding {enc!r} is not "
+                               "read")
+    sep = conf.get("separator", "/" if enc == "default" else ".")
+    if sep not in ("/", "."):
+        raise OrbaxFormatError(f"{name}: chunk_key_encoding separator "
+                               f"{sep!r} is not read")
+    fill = _fill(meta.get("fill_value"), dt, bf16, name)
+    chain = _Chain(meta.get("codecs"), chunks, dt, fill, fill_missing, name)
+    if enc == "default":
+        def key(idx):
+            return f"{name}/c" + "".join(f"{sep}{i}" for i in idx)
+    else:
+        def key(idx):
+            return f"{name}/{sep.join(map(str, idx)) or '0'}"
+    out = _assemble(store, name, shape, chunks, dt.newbyteorder("="), fill,
+                    key, chain.decode, fill_missing)
     return out, bf16
 
 
@@ -278,7 +677,9 @@ def _cast(leaf: Any, like: Any, where: str) -> Any:
 
 
 def _read_entries(store, meta: dict, path: str) -> List[tuple]:
-    """(key path, leaf) of every entry of ``_METADATA``'s tree."""
+    """(key path, leaf) of every entry of ``_METADATA``'s tree, each array
+    read as zarr v3 where ``use_zarr3`` says so, else as zarr v2."""
+    read = read_zarr3 if meta.get("use_zarr3") else read_zarr
     # orbax stores every chunk where this is set, and its restore then
     # takes a missing one for damage
     fill_missing = not meta.get("store_array_data_equal_to_fill_value")
@@ -296,8 +697,8 @@ def _read_entries(store, meta: dict, path: str) -> List[tuple]:
         if vt in EMPTY_TYPES:
             entries.append((keys, EMPTY_TYPES[vt]()))
         elif vt in ARRAY_TYPES:
-            arr, bf16 = read_zarr(store, ".".join(k for k, _ in keys),
-                                  fill_missing)
+            arr, bf16 = read(store, ".".join(k for k, _ in keys),
+                             fill_missing)
             entries.append((keys, _leaf(arr, bf16, vt)))
         else:
             raise OrbaxFormatError(f"{path}: {key}: value_type {vt!r} is "
@@ -316,9 +717,6 @@ def load_orbax(path: str, template: Optional[Any] = None) -> Any:
     except (OSError, ValueError) as e:
         raise OrbaxFormatError(f"{path}: {METADATA} unreadable: {e}") \
             from None
-    if meta.get("use_zarr3"):
-        raise OrbaxFormatError(f"{path}: use_zarr3: true (zarr v3 arrays) "
-                               "is not read yet")
     store = Ocdbt(path) if meta.get("use_ocdbt", True) else _Files(path)
     try:
         entries = _read_entries(store, meta, path)

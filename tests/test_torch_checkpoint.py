@@ -30,6 +30,10 @@
    JAX pool's weights-only swap into a port-written ``root@latest``
    serves, bit for bit, the logits a JAX-written root of the same tree
    serves.
+7. Zarr v3 steps, as orbax's ``use_zarr3`` writes them: ``load_dir``
+   with and without a template equal to the JAX ``load_orbax``, a
+   ``torch-optim`` trainer's ``model-load-path=`` one, and a port pool's
+   weights-only swap into a zarr v3 ``root@latest``.
 """
 
 import os
@@ -431,3 +435,86 @@ def test_jax_pool_swaps_into_a_port_root_latest(tmp_path):
     np.testing.assert_allclose(got["port"], alone, rtol=0, atol=1e-4)
     assert np.abs(np.asarray(mobilenet_v1_apply(tree0, x))
                   - got["port"]).max() > 1e-3
+
+
+# -- 7. zarr v3 steps (orbax's use_zarr3) --------------------------------------
+
+
+def _zarr3_save(path, tree):
+    """``tree`` saved by orbax with ``use_zarr3=True`` (zarr v3 arrays,
+    one ``sharding_indexed`` chunk a leaf), as a client of orbax other
+    than the JAX package's ``save_orbax`` writes it."""
+    import orbax.checkpoint as ocp
+
+    ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_zarr3=True)).save(
+        path, args=ocp.args.PyTreeSave(tree))
+    return path
+
+
+def test_load_dir_reads_a_zarr3_step(tmp_path):
+    """``load_dir`` of a zarr v3 step, with and without a template, gives
+    what the JAX package's ``load_orbax`` gives, bit for bit."""
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3) / 7,
+            "b": np.array([1e-3, -2.5, 7e4], np.float32),
+            "i": np.arange(4, dtype=np.int64)}
+    path = _zarr3_save(str(tmp_path / "ck"), tree)
+    assert tck.load_dir(path)["w"].tobytes() == tree["w"].tobytes()
+    _bits_equal(tck.load_dir(path), jck.load_orbax(path))
+    template = {"w": np.zeros((2, 3), np.float64),
+                "b": np.zeros(3, np.float32), "i": np.zeros(4, np.int32)}
+    _bits_equal(tck.load_dir(path, template),
+                jck.load_orbax(path, template=template))
+
+
+def test_port_trainer_resumes_from_a_zarr3_step(tmp_path):
+    """A ``torch-optim`` trainer's ``model-load-path=`` a zarr v3 step
+    (the JAX trainer's trained tree saved by orbax with ``use_zarr3``):
+    at lr 0 it saves that tree bit for bit, at lr 0.5 it trains on."""
+    ck = str(tmp_path / "jax_ck")
+    _jax_train(ck)
+    tree = {k: np.asarray(v) for k, v in jck.load_orbax(ck).items()}
+    z3 = _zarr3_save(str(tmp_path / "z3"), tree)
+    _train(str(tmp_path / "kept"), load_path=z3, lr=0.0)
+    _bits_equal(tck.load_dir(str(tmp_path / "kept")), tree)
+    _train(str(tmp_path / "on"), load_path=z3)
+    again = tck.load_dir(str(tmp_path / "on"))
+    assert np.isfinite(again["w"]).all()
+    assert not np.array_equal(again["w"], tree["w"])
+
+
+def test_pool_swaps_into_a_zarr3_root_latest(tmp_path):
+    """A port pool's weights-only swap into ``root@latest`` of zarr v3
+    steps (orbax's ``use_zarr3``) serves the step's logits bit for bit,
+    tag = the step."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((1, 32, 32, 3)).astype(np.float32)
+    tree0 = tmb.mobilenet_v1_init(0, 10, 0.25)
+    tree1 = tmb.mobilenet_v1_init(1, 10, 0.25)
+    model = tmp_path / "mnv1.pkl"
+    with open(model, "wb") as f:
+        pickle.dump({"apply": "nnstreamer_tpu_torch.models.convert:"
+                              "mobilenet_v1_tree_apply",
+                     "apply_kwargs": {"dtype": "float32"},
+                     "params": tree0, "in_shapes": [(1, 32, 32, 3)],
+                     "in_dtypes": np.dtype("float32")}, f)
+    root = tmp_path / "z3_ckpts"
+    _zarr3_save(str(root / "3"), tree0)
+    _zarr3_save(str(root / "40"), tree1)
+    p = TPipeline(name="ck-zarr3", device="cpu")
+    src = TAppSrc(name="src", spec=TSpec.from_shapes([(1, 32, 32, 3)],
+                                                     np.float32))
+    flt = TensorFilter(name="net", framework="torch-cuda", model=str(model),
+                       share_model=True, is_updatable=True)
+    sink = TAppSink(name="sink", max_buffers=8)
+    p.add(src, flt, sink).link(src, flt, sink)
+    with p:
+        flt.handle_event(None, Event.reload_model(f"{root}@latest"))
+        assert flt.pool.lifecycle.baseline.tag == "40"
+        src.push_buffer(TBuffer.of(x, pts=0))
+        out = sink.pull(timeout=60)
+        src.end_of_stream()
+        assert p.wait_eos(timeout=60)
+    assert out is not None
+    want = convert.mobilenet_v1_tree_apply(
+        tree1, torch.from_numpy(x), dtype="float32").detach()
+    torch.testing.assert_close(out.tensors[0].torch(), want, rtol=0, atol=0)

@@ -106,6 +106,12 @@ classes, 32x32, batch 16, f32, lr 1e-4, 3 steps.
     but the older step, intact; rank 1 leaving its slices out: the
     readers raise on the missing chunk; rank 1 also writing rank 0's
     replicated chunks: the once-check fails.
+(n) A zarr v3 step across processes: the JAX workers save their
+    ``model:2,data:4`` step through orbax's
+    ``PyTreeCheckpointHandler(use_zarr3=True)`` from both processes (a
+    store a process, ``sharding_indexed`` chunks); the port's
+    ``load_dir`` reads every leaf bit-equal to the JAX tree and to orbax's
+    restore in the test process (a target of one device a leaf).
 """
 
 import json
@@ -516,6 +522,18 @@ JAX_WORKER = textwrap.dedent("""\
         save_orbax(res["model"]["saved"], p)
     except Exception as e:   # recorded: the test prints what it raised
         res["model"] = {{"error": f"{{type(e).__name__}}: {{e}}"}}
+    # (n): the same model:2,data:4 step saved by orbax itself with zarr v3
+    # arrays, as an orbax client other than save_orbax saves it
+    try:
+        import orbax.checkpoint as ocp
+
+        res["zarr3"] = {{"saved": os.path.join(os.getcwd(), "jax_saved",
+                                               "zarr3"),
+                        "tree": res["model"]["tree"]}}
+        ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_zarr3=True)).save(
+            res["zarr3"]["saved"], args=ocp.args.PyTreeSave(p))
+    except Exception as e:
+        res["zarr3"] = {{"error": f"{{type(e).__name__}}: {{e}}"}}
     with open(out_path, "wb") as f:
         pickle.dump(res, f)
     print(f"jax ok process={{pid}} losses={{losses}} model="
@@ -1319,6 +1337,43 @@ def test_the_port_reads_the_jax_step_saved_from_two_processes(runs, case):
     assert sorted(_process_stores(res["saved"])) == ["ocdbt.process_0",
                                                      "ocdbt.process_1"]
     _hold_bit_equal(load_dir(res["saved"]), res["tree"], case)
+
+
+def test_the_port_reads_the_jax_zarr3_step_saved_from_two_processes(runs):
+    """(n): orbax's ``use_zarr3`` save of the JAX ``model:2,data:4`` step
+    from both JAX processes: ``_METADATA`` says zarr v3, each process has
+    its store, and the port's ``load_dir`` reads every leaf bit-equal to
+    the JAX tree and to orbax's restore of the same step."""
+    import jax
+    import orbax.checkpoint as ocp
+    from jax.sharding import SingleDeviceSharding
+
+    from nnstreamer_tpu_torch.trainers.checkpoint import load_dir
+    from nnstreamer_tpu_torch.trainers.ocdbt import Ocdbt
+
+    res = runs["jax"][0]["zarr3"]
+    assert "error" not in res, res.get("error")
+    path = res["saved"]
+    with open(os.path.join(path, "_METADATA")) as f:
+        assert json.load(f)["use_zarr3"] is True
+    assert _process_stores(path) == ["ocdbt.process_0", "ocdbt.process_1"]
+    db = Ocdbt(path)
+    try:
+        keys = db.list()
+    finally:
+        db.close()
+    assert any(k.endswith("/zarr.json") for k in keys)
+    assert not any(k.endswith("/.zarray") for k in keys)
+    got = load_dir(path)
+    _hold_bit_equal(got, res["tree"], "zarr3: load_dir")
+    # the step's leaves were sharded over two processes' devices: orbax's
+    # restore in one process needs a target placing each on one device
+    one = SingleDeviceSharding(jax.devices()[0])
+    target = jax.tree_util.tree_map(
+        lambda a: jax.ShapeDtypeStruct(np.shape(a), np.asarray(a).dtype,
+                                       sharding=one), res["tree"])
+    _hold_bit_equal(got, ocp.StandardCheckpointer().restore(path, target),
+                    "zarr3: orbax's restore")
 
 
 def test_the_port_and_jax_steps_across_processes_differ_as_named(runs):
