@@ -45,7 +45,6 @@ when the frame leaves this filter).
 from __future__ import annotations
 
 import time
-from contextlib import nullcontext as _nullcontext
 from fractions import Fraction
 from typing import Any, List, Optional, Sequence
 
@@ -67,17 +66,6 @@ from ..runtime.registry import register_element
 from ..utils import profile as _profile
 from ..utils.device import DeviceLike, block_all, resolve_device
 from ..utils.stats import STAT_SAMPLE_INTERVAL, DispatchSampler, InvokeStats
-
-
-def _trace_ids(bufs: Sequence[Buffer]) -> List[str]:
-    """Obs trace ids riding a dispatch's buffers (usually empty: only
-    1-in-N sampled frames carry a trace)."""
-    out = []
-    for b in bufs:
-        tr = b.meta.get(TRACE_META_KEY)
-        if tr is not None and tr.get("id"):
-            out.append(str(tr["id"]))
-    return out
 
 
 #: meta marker riding a frame that crossed a stage boundary (set at the
@@ -175,7 +163,7 @@ class TensorFilter(Element):
         self.in_spec: Optional[TensorsSpec] = None
         self.out_spec: Optional[TensorsSpec] = None
         self.invoke_stats = InvokeStats()
-        self._sampler = DispatchSampler(self.invoke_stats)
+        self._sampler = DispatchSampler(self.invoke_stats, self.name)
         self._in_combi = None
         self._out_combi = None
         self._throttle_interval = 0.0
@@ -233,7 +221,7 @@ class TensorFilter(Element):
             sp = cls()
             sp.configure(fprops)
             if self._fused_pre and hasattr(sp, "set_fused_pre"):
-                sp.set_fused_pre(self._fused_pre)
+                sp.set_fused_pre(self._fused_pre, self.name)
             if self._fused_post and hasattr(sp, "set_fused_post"):
                 sp.set_fused_post(self._fused_post)
             self.subplugin = sp
@@ -488,12 +476,9 @@ class TensorFilter(Element):
         else:
             inputs = [t.torch(sp.device) for t in tensors]
         t1 = time.monotonic()
-        if _profile.trace_active():
-            # trace correlation: the sampled frame's trace id shows up
-            # as a span on the torch.profiler timeline
-            with _profile.frame_annotation(_trace_ids([buf])):
-                outputs = sp.invoke(inputs)
-        else:
+        # trace correlation: a sampled frame's trace id shows up as a
+        # span on the torch.profiler timeline, inside the dispatch's
+        with _profile.span("invoke", self.name, buf):
             outputs = sp.invoke(inputs)
         if getattr(sp, "_donate", False):
             self._mark_donated(buf)
@@ -649,10 +634,8 @@ class TensorFilter(Element):
         bucket = pick_bucket(len(frames), self._buckets)
         t1 = time.monotonic()
         # trace correlation: the window's sampled trace ids ride the
-        # dispatch as a span (no-op without an active torch.profiler
-        # capture, guarded to keep the hot path free)
-        with _profile.frame_annotation(_trace_ids(bufs)) \
-                if _profile.trace_active() else _nullcontext():
+        # dispatch as a span inside the dispatch's
+        with _profile.span("invoke", self.name, bufs):
             if getattr(sp, "SUPPORTS_BATCH", False):
                 outs = sp.invoke_batched(frames, bucket)
             else:

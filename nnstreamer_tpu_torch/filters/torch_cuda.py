@@ -98,6 +98,7 @@ from ..obs import xlacost as _xlacost
 from ..obs.hwspec import device_platform
 from ..ops.kernels import shape_only
 from ..runtime.events import Event, EventKind
+from ..utils import profile as _profile
 from ..utils.device import parse_accel_kind, resolve_device
 from .api import SHARED_MODELS, FilterError, FilterProps, FilterSubplugin
 from .modeluri import resolve_model_uri
@@ -408,6 +409,7 @@ class TorchCudaFilter(FilterSubplugin):
         self._model: Optional[ModelDef] = None
         self._program: Optional[_Program] = None
         self._pre_chains: list = []  # fused transform op chains, in order
+        self._pre_owner = ""         # the element whose prologue they are
         self._post_fns: list = []    # fused downstream epilogue (≤1)
         # window verdicts, keyed by (in_spec, bucket): True = the window
         # folds into one program call, False = it runs frame by frame
@@ -424,13 +426,15 @@ class TorchCudaFilter(FilterSubplugin):
         #: one device
         self._placement = None
 
-    def set_fused_pre(self, chains: list) -> None:
+    def set_fused_pre(self, chains: list, owner: str = "") -> None:
         """Install upstream transform op chains (runtime/fusion.py) to run
-        as this filter's prologue.  They apply at the next
+        as this filter's prologue, under ``nns:prologue:<owner>`` spans
+        (``owner``: the filter element).  They apply at the next
         ``set_input_info`` — negotiation always calls it when chains are
         present.  The list is kept BY REFERENCE: a transform that unfuses
         during negotiation removes its chain in place."""
         self._pre_chains = chains
+        self._pre_owner = owner
 
     def set_fused_post(self, posts: list) -> None:
         """Install a downstream epilogue (runtime/fusion.py decoder
@@ -629,16 +633,20 @@ class TorchCudaFilter(FilterSubplugin):
                 out = tuple(post(*out))
             return out
 
+        owner = self._pre_owner
+
         def frame_call(k, inputs):
             if pre is not None:
-                inputs = [g(x) for g, x in zip(pre, inputs)]
+                with _profile.span("prologue", owner):
+                    inputs = [g(x) for g, x in zip(pre, inputs)]
             return run(inputs, k)
 
         def window_call(k, stacked):
             """(bucket, *frame_shape) per input → the outputs with the
             window folded into their leading axis."""
             if pre_w is not None:
-                stacked = [g(x) for g, x in zip(pre_w, stacked)]
+                with _profile.span("prologue", owner):
+                    stacked = [g(x) for g, x in zip(pre_w, stacked)]
             return run([x.reshape((-1,) + tuple(x.shape[2:]))
                         for x in stacked], k)
 
@@ -960,6 +968,7 @@ class TorchCudaFilter(FilterSubplugin):
         # and the serving schema is forced so the flip serves the caps
         # already flowing; a private instance until commit (no shared key)
         shadow._pre_chains = self._pre_chains
+        shadow._pre_owner = self._pre_owner
         shadow._post_fns = self._post_fns
         shadow.configure(dataclasses.replace(
             self.props, model=model,

@@ -19,6 +19,12 @@ Where the JAX code rounds, this code rounds too:
   added in the compute type;
 - the head is an f32 product of the bf16 pooled features.
 
+Each layer runs under an ``nns:vit:<layer>`` span (``embed``, ``ln``,
+``attn``, ``gelu``, ``residual``, ``head``), and each dense product's
+weight casts, product and bias add under ``nns:dense:weights``,
+``nns:dense:gemm`` and ``nns:dense:bias``, so a profiler trace puts
+every kernel of the step under its layer (``utils/profile.py``).
+
 ``vit_init`` draws the JAX package's shapes and scales from a numpy seed
 (the bits differ from ``jax.random``'s); ``models/convert.py`` carries a
 JAX parameter tree across.  ``vit_tree_apply`` is the ``apply`` of a ViT
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import flash_attention
+from ..utils.profile import span
 
 Params = Dict[str, Any]
 
@@ -55,7 +62,13 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         ct = torch.promote_types(x.dtype, dtype)
-        return x.to(ct) @ self.w.to(ct) + self.b.to(ct)
+        with span("dense", "weights"):
+            w, b = self.w.to(ct), self.b.to(ct)
+        with span("dense", "gemm"):
+            y = x.to(ct) @ w
+        del w  # freed before the bias add, as in one expression
+        with span("dense", "bias"):
+            return y + b
 
 
 class LayerNorm(nn.Module):
@@ -67,11 +80,12 @@ class LayerNorm(nn.Module):
         self.b = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.to(torch.float32)
-        mu = x32.mean(-1, keepdim=True)
-        var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
-        out = (x32 - mu) * torch.rsqrt(var + _LN_EPS)
-        return (out * self.g + self.b).to(x.dtype)
+        with span("vit", "ln"):
+            x32 = x.to(torch.float32)
+            mu = x32.mean(-1, keepdim=True)
+            var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+            out = (x32 - mu) * torch.rsqrt(var + _LN_EPS)
+            return (out * self.g + self.b).to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -106,15 +120,22 @@ class Block(nn.Module):
         too."""
         B, S, D = x.shape
         q, k, v = self.qkv(x, dtype).split(D, dim=-1)
-        o = flash_attention(*(_split_heads(t, heads) for t in (q, k, v)))
-        o = o.transpose(1, 2).reshape(B, S, D)
+        with span("vit", "attn"):
+            o = flash_attention(*(_split_heads(t, heads) for t in (q, k, v)))
+            o = o.transpose(1, 2).reshape(B, S, D)
         return self.proj(o, dtype)
 
     def forward(self, x: torch.Tensor, heads: int,
                 dtype: torch.dtype) -> torch.Tensor:
-        x = x + self.attention(self.ln1(x), heads, dtype)
+        a = self.attention(self.ln1(x), heads, dtype)
+        with span("vit", "residual"):
+            x = x + a
         h = self.mlp1(self.ln2(x), dtype)
-        return x + self.mlp2(gelu(h), dtype)
+        with span("vit", "gelu"):
+            h = gelu(h)
+        m = self.mlp2(h, dtype)
+        with span("vit", "residual"):
+            return x + m
 
 
 class ViT(nn.Module):
@@ -139,16 +160,19 @@ class ViT(nn.Module):
     def forward(self, x: torch.Tensor,
                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         """(B, H, W, 3) image → (B, num_classes) f32 logits."""
-        x = x.to(dtype)
-        h = F.conv2d(x.permute(0, 3, 1, 2), self.embed_w.to(dtype),
-                     stride=self.patch).permute(0, 2, 3, 1)
-        B, ph, pw, D = h.shape
-        h = h.reshape(B, ph * pw, D) + self.embed_b.to(dtype)
-        h = h + self.pos.to(dtype)
+        with span("vit", "embed"):
+            x = x.to(dtype)
+            h = F.conv2d(x.permute(0, 3, 1, 2), self.embed_w.to(dtype),
+                         stride=self.patch).permute(0, 2, 3, 1)
+            B, ph, pw, D = h.shape
+            h = h.reshape(B, ph * pw, D) + self.embed_b.to(dtype)
+            h = h + self.pos.to(dtype)
         for block in self.blocks:
             h = block(h, self.heads, dtype)
-        h = self.ln_f(h).mean(dim=1)                        # global pool
-        return self.head(h, torch.float32).to(torch.float32)
+        h = self.ln_f(h)
+        with span("vit", "head"):
+            h = h.mean(dim=1)                               # global pool
+            return self.head(h, torch.float32).to(torch.float32)
 
 
 def _dense_tree(rng: np.random.Generator, din: int, dout: int) -> Params:

@@ -54,7 +54,8 @@ alert-triggered capture episodes: on a watch rule's rising edge
 for ``NNS_TPU_TORCH_PROF_DEEP_SECONDS`` and writes a collapsed-stack file
 next to the flight-recorder dump, optionally (``_PROF_DEEP_DEVICE=1``)
 wrapping the episode in one ``torch.profiler`` session whose Chrome
-trace holds the card's kernel rows.  Same discipline as the flight
+trace holds the card's kernel rows and the ops and ``nns:*`` spans of
+every thread, element threads included.  Same discipline as the flight
 recorder: rising-edge only (once per alert episode), internally
 rate-limited, never on the sampler thread.
 
@@ -770,15 +771,14 @@ class DeepProfiler:
         logw("deep profiler: device trace %s", self.last_device_error)
 
     def _start_device_trace(self):
-        """One ``torch.profiler`` session (CPU and, with a card, CUDA
-        activity), started at a quiescent point; None (counted) when it
-        cannot start."""
+        """One ``torch.profiler`` session of every thread (CPU and, with
+        a card, CUDA activity; ``utils/profile.py``
+        ``profile_all_threads``), started at a quiescent point; None
+        (counted) when it cannot start, another session recording
+        included."""
         try:
-            import torch.profiler
-
-            session = torch.profiler.profile(
-                activities=_uprofile._activities())
-            _uprofile.GATE.hold(session.start, self.quiesce_s)
+            session = _uprofile.profile_all_threads()
+            _uprofile.start_session(session, self.quiesce_s)
             self.gate_holds_s.append(_uprofile.GATE.last_hold_s)
             return session
         except Exception as e:  # noqa: BLE001 - counted and logged

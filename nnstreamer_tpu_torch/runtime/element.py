@@ -359,10 +359,7 @@ class Element:
                     else "", self.name, (tr,) if tr is not None else None)
             if tracer is not None:
                 tracer.pre_chain(self, buf)
-            if _profile.trace_active():
-                with _profile.annotate(self.name):
-                    self.chain(pad, buf)
-            else:
+            with _profile.span("chain", self.name):
                 self.chain(pad, buf)
             if tracer is not None:
                 tracer.post_chain(self, buf)
@@ -552,7 +549,8 @@ class SourceElement(Element):
             gate.enter()
             try:
                 try:
-                    buf = self.create()
+                    with _profile.span("create", self.name):
+                        buf = self.create()
                 except Exception as e:  # noqa: BLE001 - report, don't kill pipeline
                     self.post_error(e)
                     break
@@ -643,12 +641,14 @@ class SinkElement(Element):
             return
         tracer = _hooks.tracer
         if tracer is None:
-            card_wait(ev.synchronize)
+            with _profile.span("fence", self.name):
+                card_wait(ev.synchronize)
             return
         import time
 
         t0 = time.monotonic()
-        card_wait(ev.synchronize)
+        with _profile.span("fence", self.name):
+            card_wait(ev.synchronize)
         tracer.sink_fenced(self, time.monotonic() - t0, traces)
 
     def render(self, buf: Buffer) -> None:

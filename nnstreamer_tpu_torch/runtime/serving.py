@@ -242,7 +242,7 @@ class PoolEntry:
         # blocking stats samples (dispatches are serialized by the
         # batcher's flush lock); the cadence is the default, tightened by
         # any attached filter's stat-sample-interval-ms (the minimum)
-        self._sampler = DispatchSampler(self.stats)
+        self._sampler = DispatchSampler(self.stats, self.label())
         self.sample_interval = STAT_SAMPLE_INTERVAL
         # model lifecycle (runtime/lifecycle.py), built on first use: a
         # pool that never swaps pays nothing for it

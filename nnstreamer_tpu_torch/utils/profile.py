@@ -1,13 +1,39 @@
-"""Profiling hooks: ``torch.profiler`` traces with per-element annotation.
+"""Profiling hooks: ``torch.profiler`` traces with the port's spans.
 
 Counterpart of the JAX package's ``utils/profile.py``.  The reference
 defers profiling to GStreamer ecosystem tooling (gst-instruments,
 gst-top, NNShark) plus its per-filter latency props; here the substitute
 is ``torch.profiler``: :func:`pipeline_trace` captures a Chrome trace of
-everything the pipeline runs (CPU ops and, on a card, the CUDA kernels
-and copies), and every element's chain runs under a ``record_function``
-span carrying the element name, so per-element time shows on the
-timeline the way gst-top attributes time per GstElement.
+what every thread of the process runs (CPU ops and, on a card, the CUDA
+runtime calls, kernels and copies), and the port's code runs under
+``nns:<kind>:<name>`` spans (``record_function``) that name where the
+work comes from, the way gst-top attributes time per GstElement:
+
+- ``nns:chain:<element>``: an element's chain (a container);
+- ``nns:create:<element>``: a source's ``create()``;
+- ``nns:invoke:<element>``: a filter's dispatch, per frame or a window
+  (a container), with ``nns:frames:<ids>`` inside it when sampled obs
+  frames ride it (:func:`frame_annotation`);
+- ``nns:prologue:<element>``: the fused transform chain inside the
+  filter's program;
+- ``nns:stats_sync:<element>``: the blocking waits of a stats sample
+  (``utils/stats.py`` ``DispatchSampler``);
+- ``nns:fence:<element>``: a sink's wait for the window before;
+- ``nns:vit:*`` and ``nns:dense:*``: the ViT's layers and its dense
+  products' weight casts, products and bias adds (``models/vit.py``).
+
+A span opens whenever a ``torch.profiler`` session records in the
+process, whoever opened it (the process-wide flag
+``torch.autograd.profiler._is_profiler_enabled``); with no session a
+span site is one attribute read and a branch, and returns
+:data:`NULL_SPAN`.  Which threads' spans land in the trace is the
+session's choice: :func:`profile_all_threads` (the session of
+:func:`pipeline_trace` and of ``obs/prof.py``'s deep capture) records
+every thread; a session opened by plain ``torch.profiler.profile``
+records only the thread that opened it, so the spans of the element
+threads are not in its trace.  Spans recorded in the session share the
+clock of its kernel records: a kernel joins its runtime launch by
+``correlation``, and the launch the innermost span open on its thread.
 
 Usage::
 
@@ -17,9 +43,6 @@ Usage::
         with pipeline:
             ... stream ...
     # chrome://tracing or ui.perfetto.dev: /tmp/nns-trace/trace.json
-
-Annotations are near-free when no trace is active; ``annotate`` is used
-by the runtime automatically.
 
 Which thread may open a trace: ``torch.profiler`` starts and stops on
 the calling thread while the other threads keep running ops, and starting
@@ -35,7 +58,9 @@ another thread's window flush, an empty ``appsrc`` or repo slot, a full
 inside :meth:`OpGate.hold`, which closes the gate, waits until no other
 thread is inside, runs the call and reopens.  Threads the gate does not
 cover are the application's own: run no torch op on them while a trace
-opens or closes.
+opens or closes.  The port's sessions start through
+:func:`start_session`, which refuses to start one while another records:
+two sessions that record every thread and overlap can crash the process.
 """
 
 from __future__ import annotations
@@ -45,10 +70,14 @@ import os
 import threading
 import time
 
-_active = threading.Event()
+from torch.autograd import profiler as _tap
 
 #: the file a trace is written to inside ``log_dir``
 TRACE_FILE = "trace.json"
+
+#: what a span site returns while no session records: one shared
+#: context that does nothing
+NULL_SPAN = contextlib.nullcontext()
 
 
 def _activities():
@@ -59,6 +88,32 @@ def _activities():
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     return acts
+
+
+def profile_all_threads():
+    """A ``torch.profiler`` session (not started) of CPU and, with a
+    card, CUDA activity that records the ops and spans of every thread
+    of the process, not only of the one that starts it."""
+    import torch.profiler
+
+    return torch.profiler.profile(
+        activities=_activities(),
+        experimental_config=torch.profiler._ExperimentalConfig(
+            profile_all_threads=True))
+
+
+def start_session(session, timeout_s: float) -> None:
+    """Start ``session`` inside :meth:`OpGate.hold`; refused
+    (RuntimeError, nothing started) while another session records in the
+    process: two sessions that overlap can crash it.  Holds take turns,
+    so two starts cannot both pass the check."""
+    def start():
+        if _tap._is_profiler_enabled:
+            raise RuntimeError("a torch.profiler session is already "
+                               "recording in this process")
+        session.start()
+
+    GATE.hold(start, timeout_s)
 
 
 class OpGate:
@@ -180,20 +235,16 @@ TRACE_QUIESCE_S = 60.0
 
 @contextlib.contextmanager
 def pipeline_trace(log_dir: str):
-    """Capture a ``torch.profiler`` trace of everything run inside and
-    write it as ``<log_dir>/trace.json`` (Chrome trace format).  The
-    session starts and stops inside :meth:`OpGate.hold`, so it may open
-    while pipelines run."""
-    import torch.profiler
-
+    """Capture a ``torch.profiler`` trace of everything every thread
+    runs inside and write it as ``<log_dir>/trace.json`` (Chrome trace
+    format).  The session starts and stops inside :meth:`OpGate.hold`,
+    so it may open while pipelines run."""
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=_activities())
-    GATE.hold(prof.start, TRACE_QUIESCE_S)
-    _active.set()
+    prof = profile_all_threads()
+    start_session(prof, TRACE_QUIESCE_S)
     try:
         yield log_dir
     finally:
-        _active.clear()
         stop_when_quiescent(prof.stop, TRACE_QUIESCE_S)
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
@@ -212,30 +263,50 @@ def stop_when_quiescent(stop, timeout_s: float, on_timeout=None) -> None:
                 on_timeout(e)
 
 
-def trace_active() -> bool:
-    return _active.is_set()
+def span(kind: str, name: str, frames=None):
+    """The ``nns:<kind>:<name>`` span while a ``torch.profiler`` session
+    records in the process, else :data:`NULL_SPAN`.  ``frames``: the
+    buffer, or the list of buffers, a dispatch carries; those an obs
+    tracer sampled put an ``nns:frames:<ids>`` span inside this one
+    (:func:`frame_annotation`)."""
+    if not _tap._is_profiler_enabled:
+        return NULL_SPAN
+    name = f"nns:{kind}:{name}"
+    ids = () if frames is None else _trace_ids(
+        [frames] if hasattr(frames, "meta") else frames)
+    if not ids:
+        return _record(name)
+    stack = contextlib.ExitStack()
+    stack.enter_context(_record(name))
+    stack.enter_context(frame_annotation(ids))
+    return stack
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Per-element trace span; no-op unless a trace is being captured."""
-    if not _active.is_set():
-        yield
-        return
+def _record(name: str):
     import torch.profiler
 
-    with torch.profiler.record_function(name):
-        yield
+    return torch.profiler.record_function(name)
+
+
+def _trace_ids(bufs):
+    """Obs trace ids riding ``bufs`` (only 1-in-N sampled frames carry
+    one)."""
+    from ..obs.tracer import TRACE_META_KEY
+
+    out = []
+    for b in bufs:
+        tr = b.meta.get(TRACE_META_KEY)
+        if tr is not None and tr.get("id"):
+            out.append(str(tr["id"]))
+    return out
 
 
 def step_marker(name: str, step: int) -> "contextlib.AbstractContextManager":
-    """A ``<name>#<step>`` span for training loops (a no-op outside a
-    trace)."""
-    if not _active.is_set():
-        return contextlib.nullcontext()
-    import torch.profiler
-
-    return torch.profiler.record_function(f"{name}#{step}")
+    """A ``<name>#<step>`` span for training loops (:data:`NULL_SPAN`
+    while no session records)."""
+    if not _tap._is_profiler_enabled:
+        return NULL_SPAN
+    return _record(f"{name}#{step}")
 
 
 def frame_annotation(trace_ids) -> "contextlib.AbstractContextManager":
@@ -246,12 +317,8 @@ def frame_annotation(trace_ids) -> "contextlib.AbstractContextManager":
     a process-unique id, and wrapping the dispatch in
     ``nns:frames:<ids>`` makes the same ids searchable on the
     ``torch.profiler`` timeline, so a slow frame found in one trace can
-    be located in the other.  No-op (and near-free) unless a
-    :func:`pipeline_trace` capture is active AND the dispatch carries at
-    least one sampled frame."""
-    if not _active.is_set() or not trace_ids:
-        return contextlib.nullcontext()
-    import torch.profiler
-
-    return torch.profiler.record_function(
-        "nns:frames:" + ",".join(str(i) for i in trace_ids))
+    be located in the other.  :data:`NULL_SPAN` unless a session records
+    AND the dispatch carries at least one sampled frame."""
+    if not _tap._is_profiler_enabled or not trace_ids:
+        return NULL_SPAN
+    return _record("nns:frames:" + ",".join(str(i) for i in trace_ids))

@@ -18,6 +18,7 @@ import time
 from typing import Any, List, Optional, Tuple
 
 from ..obs import hooks as _hooks
+from . import profile as _profile
 from .device import block_all
 
 STAT_MAX_RECENT = 10
@@ -254,8 +255,11 @@ class DispatchSampler:
     is a sample — the dispatch path never waits for the card — and no
     output is kept alive for a next sample."""
 
-    def __init__(self, stats: InvokeStats):
+    def __init__(self, stats: InvokeStats, name: str = ""):
         self.stats = stats
+        #: the dispatching element (or pool): its samples' waits run
+        #: under ``nns:stats_sync:<name>`` spans (``utils/profile.py``)
+        self.name = name
         self._seq = 0
         self._last_ts = 0.0
         self._last_out: Any = None  # the previous dispatch's last output
@@ -270,7 +274,8 @@ class DispatchSampler:
         sample = (force or self._seq == 1 or
                   time.monotonic() - self._last_ts >= interval_s)
         if sample and self._last_out is not None:
-            block_all([self._last_out])
+            with _profile.span("stats_sync", self.name):
+                block_all([self._last_out])
         return sample, time.monotonic()
 
     def end(self, outs: List[Any], t0: float, sample: bool, frames: int = 1,
@@ -278,7 +283,8 @@ class DispatchSampler:
         """Record (sample) or count the dispatch that started at ``t0``;
         returns the time its outputs were done (a sample) or queued."""
         if sample:
-            block_all(outs)
+            with _profile.span("stats_sync", self.name):
+                block_all(outs)
             t2 = time.monotonic()
             self.stats.record(t2 - t0, frames=frames, streams=streams)
             self._last_ts = t2

@@ -16,6 +16,18 @@ from nnstreamer_tpu_torch.utils import profile as _uprofile  # noqa: E402
 CARD_WAIT_S = 0.01
 
 
+@pytest.fixture(autouse=True)
+def _no_capture_outlives_its_test():
+    """A deep capture a test started ends inside that test: its
+    ``torch.profiler`` session records every thread, and one still
+    running would overlap the sessions of the tests after it."""
+    yield
+    deadline = time.monotonic() + 30
+    while prof.DEEP._capturing and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert not prof.DEEP._capturing, "a deep capture outlived its test"
+
+
 class CardWaitSink(AppSink):
     """Blocks CARD_WAIT_S a buffer in a stub card wait: the C call
     (``time.sleep``) stands where ``Event.synchronize`` blocks on a
@@ -208,7 +220,9 @@ def test_deep_capture_holds_off_open_loop_traffic(tmp_path, monkeypatch):
             self.push(buf)
 
     class FakeSession:
-        def __init__(self, activities=None):
+        def __init__(self, activities=None, experimental_config=None):
+            # the deep capture's session records every thread
+            # (``utils/profile.py`` ``profile_all_threads``)
             pass
 
         def start(self):

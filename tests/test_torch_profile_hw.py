@@ -1,5 +1,18 @@
+"""``tests/test_profile_hw.py`` replayed on the port, whose spans open
+while any ``torch.profiler`` session records (the process-wide flag
+stands for the JAX package's ``trace_active()``; ``span`` for its
+``annotate``), then the port's own gate tests."""
+
 from torch_replay import replay
-replay("test_profile_hw.py", globals())
+
+replay("test_profile_hw.py", globals(), subs=(
+    ("from nnstreamer_tpu.utils.profile import (\n    annotate,\n"
+     "    pipeline_trace,\n    trace_active,\n)",
+     "from torch.autograd import profiler as _tap\n\n"
+     "from nnstreamer_tpu.utils.profile import pipeline_trace, span\n\n\n"
+     "def trace_active():\n    return _tap._is_profiler_enabled\n\n\n"
+     "def annotate(name):\n    return span(\"chain\", name)"),
+))
 
 
 # -- the port alone: trace start and stop behind the gate --------------------
