@@ -53,7 +53,12 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    |plain| >= 1/64 (the kernel rounds p to bf16 for p·v), f32 within atol
    1e-5 + rtol 1e-4, on contiguous inputs and on the ViT's head-split
    views of one qkv projection ("vit qkv views"); timed on both layouts
-   beside ``scaled_dot_product_attention`` as a yardstick;
+   beside ``scaled_dot_product_attention`` as a yardstick.
+   ``layer_norm``: bf16 within 1 bf16 ulp where |plain| >= 1/64 (the two
+   sum the row in another order), f32 within rtol 1e-5 + atol 1e-6, at
+   widths 64 to 2048 and ragged row counts; timed at the benchmark
+   cell's rows (8192·196, 768) and phase 7's (64·256, 512) in bf16 beside
+   ``F.layer_norm`` as a yardstick;
 4. detection path: the composite detection pipeline through ``parse_launch`` at
    full width — SSD-MobileNetV2, 91 classes, 300x300, max_out=10, batch
    256, bf16-resident weights (``weights_to_bf16``, as the JAX benchmark)
@@ -73,9 +78,10 @@ Phases, each of which raises on failure (nothing is caught and passed over):
    64, 256x256, patch 16, dim 512, depth 6, 4 heads, MLP 2048, 1000
    classes, bf16 compute.
    (a) without the decoder: one fused segment, ``flash_attention`` run at
-   least 6 times a window, finite (64, 1000) logits, frames/s and p50
-   window; one window's logits with the plain attention swapped in agree
-   with the kernel's within atol 5e-2 + rtol 5e-2, same argmax; (b) with
+   least 6 times a window and ``layer_norm`` 13 times a forward, finite
+   (64, 1000) logits, frames/s and p50 window; one window's logits with
+   the plain attention swapped in agree with the kernel's within atol
+   5e-2 + rtol 5e-2, same argmax; (b) with
    the decoder: the label is the argmax of (a)'s logits; (c) batch 2, f32,
    TF32 off: card against CPU within 1e-3, labels equal; then a profile,
    and the number of CUDA kernels one forward queues;
@@ -702,6 +708,11 @@ q, k, v = (torch.randn(1, 2, 17, 128, device="cuda").bfloat16()
 ok = ok and torch.allclose(kernels.flash_attention(q, k, v).float(),
                            kernels.flash_attention_reference(q, k, v).float(),
                            atol=1e-2, rtol=1e-2)
+x = torch.randn(5, 768, device="cuda").bfloat16()
+g, b = torch.rand(768, device="cuda") + 0.5, torch.randn(768, device="cuda")
+ok = ok and torch.allclose(kernels.layer_norm(x, g, b).float(),
+                           kernels.layer_norm_reference(x, g, b).float(),
+                           atol=1e-2, rtol=1e-2)
 print(json.dumps({{"load_s": load_s, "nvcc_runs": build.nvcc_runs,
                   "stats": compilecache.CACHE_STATS.snapshot(),
                   "ok": bool(ok)}}))
@@ -1109,6 +1120,104 @@ def phase_flash_attention(card: str, power: str):
                    "library_ms": sdpa, "bound_ms": bound, "bound_by": by}
 
 
+#: the layer norm's rows at the benchmark's ViT-B/16 cell (8192 frames of
+#: 196 tokens, width 768) and at phase 7's ViT (64 frames of 256, width 512)
+LN_CELL = (8192 * 196, 768)
+LN_PHASE7 = (VIT_BATCH * (VIT_SIZE // VIT["patch"]) ** 2, VIT["dim"])
+
+
+def phase_layer_norm(card: str, power: str):
+    """``layer_norm`` against its plain version on the card at the ViT
+    paths' widths (masked lanes, one row, ragged row counts, f32 too),
+    then its time at the benchmark cell's shape and phase 7's (bf16)
+    beside the plain version, ``F.layer_norm`` (a yardstick only: the
+    port never calls it) and the bound: one read and one write of x, g
+    and b read once.  bf16 within 1 bf16 ulp where |plain| >= 1/64
+    (``bf16_ulps``; the two sum in another order), f32 within rtol 1e-5 +
+    atol 1e-6.  The plain version is timed by ``events_ms``: at the cell's
+    shape the host's queueing of its calls outlasts any spin."""
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED)
+
+    def events_ms(fn, reps: int = 10):
+        """Device time a call over ``reps`` calls between two CUDA events
+        after a warm-up, with no spin: gaps while the host queues count."""
+        fn()
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / reps
+
+    def inputs(shape, dt):
+        rows, width = shape[:-1], shape[-1]
+        x = torch.randn(shape, generator=g) * (1 + 3 * torch.rand(
+            rows + (1,), generator=g)) + 2 * torch.randn(rows + (1,),
+                                                          generator=g)
+        return (x.to(dt).to(dev),
+                (1 + 0.2 * torch.randn(width, generator=g)).to(dev),
+                (0.5 * torch.randn(width, generator=g)).to(dev))
+
+    cases = [("vit-b/16 cell", LN_CELL, torch.bfloat16),
+             ("phase 7", LN_PHASE7, torch.bfloat16),
+             ("one row", (1, 768), torch.bfloat16),
+             ("ragged rows", (1001, 768), torch.bfloat16),
+             ("f32 tiny vit", (32, 256), torch.float32),
+             ("width 64", (37, 64), torch.bfloat16),
+             ("width 128", (37, 128), torch.bfloat16),
+             ("width 2048", (5, 2048), torch.bfloat16),
+             ("f32 width 1024", (5, 1024), torch.float32)]
+    worst, shapes = 0.0, {}
+    for label, shape, dt in cases:
+        x, gain, bias = inputs(shape, dt)
+        y = kernels.layer_norm(x, gain, bias)
+        r = kernels.layer_norm_reference(x, gain, bias)
+        torch.cuda.synchronize()
+        diff = float((y.float() - r.float()).abs().max())
+        if dt == torch.bfloat16:
+            ulps = bf16_ulps(y, r)
+            bad = ulps > 1
+        else:
+            ulps = None
+            bad = not torch.allclose(y, r, rtol=1e-5, atol=1e-6)
+        print(f"kernel layer_norm {label} {shape} {dt}: max_abs_diff={diff}"
+              + (f" max_bf16_ulps(|plain|>=1/64)={ulps:.2f}"
+                 if ulps is not None else ""), flush=True)
+        if bad or not bool(torch.isfinite(y).all()):
+            raise RuntimeError(f"layer_norm {label} {dt}: off its plain "
+                               f"version (max |diff| {diff}, ulps {ulps})")
+        worst = max(worst, diff)
+        del x, y, r
+    torch.cuda.empty_cache()
+    for label, shape in (("cell", LN_CELL), ("phase7", LN_PHASE7)):
+        x, gain, bias = inputs(shape, torch.bfloat16)
+        width = shape[-1]
+        gb, bb = gain.bfloat16(), bias.bfloat16()
+        ms = time_ms(lambda: kernels.layer_norm(x, gain, bias))
+        plain = events_ms(lambda: kernels.layer_norm_reference(x, gain, bias))
+        lib = time_ms(lambda: F.layer_norm(x, (width,), gb, bb, 1e-6))
+        nbytes = 2 * x.numel() * x.element_size() + 2 * width * 4
+        bound = nbytes / hbm_bandwidth(card) * 1e3
+        print(f"kernel layer_norm bf16 {shape}: ms={ms:.6f} "
+              f"plain_ms={plain:.6f} library_ms={lib:.6f} (F.layer_norm) "
+              f"bound_ms={bound:.6f} (bytes; {nbytes} B) "
+              f"share_of_bound={bound / ms:.3f} vs_plain={plain / ms:.1f}x "
+              f"vs_library={lib / ms:.2f}x [{card}, {power}]", flush=True)
+        shapes[label] = {"shape": list(shape), "ms": ms, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": bound}
+        del x
+        torch.cuda.empty_cache()
+    return worst, shapes
+
+
 def vit_qkv_views(g, dtype, batch: int = VIT_BATCH):
     """q, k, v as the ViT path hands them to the kernel: the head-split
     thirds of one (batch, S, 3·dim) qkv projection, strides (S·3·dim, dh,
@@ -1445,19 +1554,26 @@ def phase_vit(card: str, power: str):
     torch.cuda.reset_peak_memory_stats()
     kernels.flash_attention.launches = 0
     kernels.scale_bias_cast.launches = 0
+    kernels.layer_norm.launches = 0
     p, bufs, secs = run_pipeline(vit_pipe("vit_b64", NUM_BUFFERS), frames,
                                  NUM_BUFFERS)
     fa_launches = kernels.flash_attention.launches
     sbc_launches = kernels.scale_bias_cast.launches
+    ln_launches = kernels.layer_norm.launches
     peak = torch.cuda.max_memory_allocated()
     check_fused(p, None, "vit")
     depth = VIT["depth"]
-    if fa_launches < depth * NUM_BUFFERS or sbc_launches < NUM_BUFFERS:
+    # every forward: depth attentions and 2·depth + 1 layer norms
+    if fa_launches < depth * NUM_BUFFERS or sbc_launches < NUM_BUFFERS \
+            or fa_launches % depth \
+            or ln_launches != fa_launches // depth * (2 * depth + 1):
         raise RuntimeError(f"vit: flash_attention launched {fa_launches} "
-                           f"times, scale_bias_cast {sbc_launches} times, "
+                           f"times, layer_norm {ln_launches}, "
+                           f"scale_bias_cast {sbc_launches} times, "
                            f"for {NUM_BUFFERS} windows of depth {depth}")
     print(f"vit (a): fused {p.fused_segments[0]}; flash_attention "
-          f"launches={fa_launches}, scale_bias_cast launches={sbc_launches} "
+          f"launches={fa_launches}, layer_norm launches={ln_launches}, "
+          f"scale_bias_cast launches={sbc_launches} "
           f"for {NUM_BUFFERS} windows", flush=True)
     logits = [b.tensors[0].torch() for b in bufs]
     for y in logits:
@@ -1554,6 +1670,7 @@ def phase_vit(card: str, power: str):
               flush=True)
     return {"fps": fps, "p50_window_ms": p50, "host_s": secs,
             "peak_gib": peak / 2**30, "flash_launches": fa_launches,
+            "layer_norm_launches": ln_launches,
             "scale_bias_cast_launches": sbc_launches,
             "kernel_vs_plain_max_abs_diff": err, "card_vs_cpu_f32": err_c,
             "flash_share_of_device": share,
@@ -1864,10 +1981,12 @@ def phase_serving(card: str, power: str):
     for share in (True, False):
         kernels.flash_attention.launches = 0
         kernels.scale_bias_cast.launches = 0
+        kernels.layer_norm.launches = 0
         legs[share], outs = serve_leg(share, pools, card, power)
         launches["shared" if share else "unshared"] = {
             "flash_attention": kernels.flash_attention.launches,
-            "scale_bias_cast": kernels.scale_bias_cast.launches}
+            "scale_bias_cast": kernels.scale_bias_cast.launches,
+            "layer_norm": kernels.layer_norm.launches}
         if share:
             shared_outs = outs
     frames = SERVE_STREAMS * (SERVE_WARMUP + SERVE_FRAMES)
@@ -1933,6 +2052,7 @@ def phase_serving(card: str, power: str):
     p["src"].spec = TensorsSpec.parse(f"3:{VIT_SIZE}:{VIT_SIZE}:1", "uint8")
     kernels.flash_attention.launches = 0
     kernels.scale_bias_cast.launches = 0
+    kernels.layer_norm.launches = 0
     with p:
         for i in range(n16):
             p["src"].push_buffer(Buffer(
@@ -1943,7 +2063,8 @@ def phase_serving(card: str, power: str):
         windows = p["net"].invoke_stats.total_invoke_num
     b16 = {"windows": windows,
            "scale_bias_cast": kernels.scale_bias_cast.launches,
-           "flash_attention": kernels.flash_attention.launches}
+           "flash_attention": kernels.flash_attention.launches,
+           "layer_norm": kernels.layer_norm.launches}
     bufs = [p["out"].pull(timeout=1) for _ in range(n16)]
     if [b.pts for b in bufs] != list(range(n16)) or \
             [(x.transforms, x.filter) for x in p.fused_segments] != \
@@ -2459,7 +2580,7 @@ def lc_cache(root: str, card: str, power: str):
     if cold["stats"] != {"hits": 0, "misses": n, "stores": n, "errors": 0} \
             or warm["stats"] != {"hits": n, "misses": 0, "stores": 0,
                                  "errors": 0} or warm["nvcc_runs"] \
-            or torn["stats"] != {"hits": 1, "misses": 1, "stores": 1,
+            or torn["stats"] != {"hits": n - 1, "misses": 1, "stores": 1,
                                  "errors": 1}:
         raise RuntimeError(f"kernel cache: {cold} / {warm} / {torn}")
     return {"cold_load_s": cold["load_s"], "warm_load_s": warm["load_s"],
@@ -2516,10 +2637,12 @@ def phase_lifecycle(card: str, power: str):
               flush=True)
         kernels.flash_attention.launches = 0
         kernels.scale_bias_cast.launches = 0
+        kernels.layer_norm.launches = 0
         swap = lc_hot_swap(pools, refs, files, card, power)
         canary = lc_canary(pools, refs, files, tree2, card, power)
         launches = {"flash_attention": kernels.flash_attention.launches,
-                    "scale_bias_cast": kernels.scale_bias_cast.launches}
+                    "scale_bias_cast": kernels.scale_bias_cast.launches,
+                    "layer_norm": kernels.layer_norm.launches}
         frames = swap["frames"] + SERVE_STREAMS * LC_ROUND * 5
         if launches["scale_bias_cast"] < frames or \
                 launches["flash_attention"] < VIT["depth"] * swap["windows"]:
@@ -4235,6 +4358,7 @@ def obs_vit_serving(card: str, power: str, phase8=None):
             raise RuntimeError("obs: admission does not read the registry")
         kernels.flash_attention.launches = 0
         kernels.scale_bias_cast.launches = 0
+        kernels.layer_norm.launches = 0
         closed_loop(pipes, pools, 0, SERVE_WARMUP, SERVE_DEPTH)
         torch.cuda.synchronize()
         warm_p99 = entry.admission.p99_s
@@ -4272,7 +4396,8 @@ def obs_vit_serving(card: str, power: str, phase8=None):
         finally:
             gc.enable()
         launches = {"flash_attention": kernels.flash_attention.launches,
-                    "scale_bias_cast": kernels.scale_bias_cast.launches}
+                    "scale_bias_cast": kernels.scale_bias_cast.launches,
+                    "layer_norm": kernels.layer_norm.launches}
         adm_p99 = entry.admission.p99_s
         for p in pipes:
             p["src"].end_of_stream()
@@ -5874,10 +5999,12 @@ def phase_control(card: str, power: str):
     register_vit("vit_serve", batch=1, image_size=VIT_SIZE, seed=SEED, **VIT)
     kernels.flash_attention.launches = 0
     kernels.scale_bias_cast.launches = 0
+    kernels.layer_norm.launches = 0
     hostprof = ctl_hostprof(card, power)
     mttr, top_res = ctl_mttr(card, power)
     launches = {"flash_attention": kernels.flash_attention.launches,
-                "scale_bias_cast": kernels.scale_bias_cast.launches}
+                "scale_bias_cast": kernels.scale_bias_cast.launches,
+                "layer_norm": kernels.layer_norm.launches}
     _ctl_card_gate(all(launches.values()),
                    f"control: a kernel never launched: {launches}",
                    "kernel launches on phase 15's path")
@@ -6851,6 +6978,7 @@ def edge_vit(card: str, power: str):
             routed.clear()
         kernels.flash_attention.launches = 0
         kernels.scale_bias_cast.launches = 0
+        kernels.layer_norm.launches = 0
 
         def client(s):
             try:
@@ -6869,7 +6997,8 @@ def edge_vit(card: str, power: str):
             t.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = {"flash_attention": kernels.flash_attention.launches,
-                    "scale_bias_cast": kernels.scale_bias_cast.launches}
+                    "scale_bias_cast": kernels.scale_bias_cast.launches,
+                    "layer_norm": kernels.layer_norm.launches}
         sp.invoke_batched = batched
         for p in clients:
             edge_eos(p)
@@ -7360,6 +7489,7 @@ def mqtt_vit(card: str, power: str):
             clients.append(p)
         kernels.flash_attention.launches = 0
         kernels.scale_bias_cast.launches = 0
+        kernels.layer_norm.launches = 0
         first, wall1 = drive(0)
         t_stop = time.perf_counter()
         srv1.stop()
@@ -7368,7 +7498,8 @@ def mqtt_vit(card: str, power: str):
         second, wall2 = drive(MQTT_VIT_HALF)
         moved_s = min(pulls[0] for _, pulls in second.values()) - t_stop
         launches = {"flash_attention": kernels.flash_attention.launches,
-                    "scale_bias_cast": kernels.scale_bias_cast.launches}
+                    "scale_bias_cast": kernels.scale_bias_cast.launches,
+                    "layer_norm": kernels.layer_norm.launches}
         for p in clients:
             edge_eos(p)
     finally:
@@ -7544,7 +7675,8 @@ def _par_counts():
     from nnstreamer_tpu_torch.ops import kernels
 
     return {"flash_attention": kernels.flash_attention.launches,
-            "scale_bias_cast": kernels.scale_bias_cast.launches}
+            "scale_bias_cast": kernels.scale_bias_cast.launches,
+            "layer_norm": kernels.layer_norm.launches}
 
 
 def _par_zero():
@@ -7552,6 +7684,7 @@ def _par_zero():
 
     kernels.flash_attention.launches = 0
     kernels.scale_bias_cast.launches = 0
+    kernels.layer_norm.launches = 0
 
 
 def _par_logits(outs):
@@ -8086,7 +8219,13 @@ def phase_parallel(card: str, power: str, phase8_fps=None):
         for r in res["virtual_vit"].values()) + sum(
         r["scale_bias_cast"] for r in res["virtual_ssd"].values()) \
         + res["multihost"]["launches"]["scale_bias_cast"]
-    res["launches"] = {"flash_attention": fa, "scale_bias_cast": sbc}
+    # the pools' layer norms (the windows taken alone count attention only)
+    ln = res["serving"]["launches"]["layer_norm"] + sum(
+        r["pool_launches"]["layer_norm"]
+        for r in res["virtual_vit"].values()) \
+        + res["multihost"]["launches"]["layer_norm"]
+    res["launches"] = {"flash_attention": fa, "scale_bias_cast": sbc,
+                       "layer_norm": ln}
     res["seconds"] = time.perf_counter() - t0
     print(f"parallel phase: {res['seconds']:.1f} s, launches "
           f"{res['launches']} [{card}, {power}]", flush=True)
@@ -8776,7 +8915,8 @@ def train_grad_guard(card: str, power: str):
     launched = {k: v - n0[k] for k, v in _par_counts().items()}
     want = 1 if TRAIN_DEVICE == "cuda" else 0
     if refused != ["scale_bias_cast", "flash_attention"] and want or \
-            launched != {"flash_attention": want, "scale_bias_cast": want}:
+            launched != {"flash_attention": want, "scale_bias_cast": want,
+                         "layer_norm": 0}:
         raise RuntimeError(f"training (e): refused {refused}, launched "
                            f"under no_grad {launched}")
     print(f"training (e): both wrappers refuse a card input that requires "
@@ -9922,7 +10062,8 @@ def train_ranks(world: int, backend: str, base: dict, spread: dict,
     on_card = TRAIN_DEVICE == "cuda"
     for r in recs:
         if r["max_abs_err"] > 0 or (on_card and r["launches"] != {
-                "flash_attention": 0, "scale_bias_cast": 1}):
+                "flash_attention": 0, "scale_bias_cast": 1,
+                "layer_norm": 0}):
             raise RuntimeError(f"training ({tag}): rank {r['rank']}: "
                                f"launches {r['launches']}, scale_bias_cast "
                                f"vs plain {r['max_abs_err']}")
@@ -11372,7 +11513,8 @@ def phase_orbax(card: str, power: str):
                        + res["vit"]["launches"][k]
                        + res["vit_zarr3"]["launches"][k]
                        + sum(v[k] for v in res["resume"]["launches"].values())
-                       for k in ("scale_bias_cast", "flash_attention")}
+                       for k in ("scale_bias_cast", "flash_attention",
+                                 "layer_norm")}
     res["seconds"] = time.perf_counter() - t0
     print(f"orbax phase: {res['seconds']:.1f} s, launches {res['launches']} "
           f"[{card}, {power}]", flush=True)
@@ -11498,6 +11640,7 @@ def main() -> int:
         return 0
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
+    ln_worst, ln = phase_layer_norm(card, power)
     PHASE[0] = "4"
     main_path = phase_main_path(card, power)
     PHASE[0] = "5"
@@ -11632,6 +11775,19 @@ def main() -> int:
                   "orbax_vit": orbax["vit"]["launches"]["flash_attention"],
                   "orbax_vit_zarr3":
                       orbax["vit_zarr3"]["launches"]["flash_attention"]}
+    ln_by_path = {"vit": vit_path["layer_norm_launches"],
+                  "serving_shared": served["shared"]["layer_norm"],
+                  "serving_unshared": served["unshared"]["layer_norm"],
+                  "lifecycle": lifecycle["launches"]["layer_norm"],
+                  "obs_vit_serving": obs["vit_serving"]["launches"][
+                      "layer_norm"],
+                  "control": control["launches"]["layer_norm"],
+                  "edge_vit": edge["vit"]["launches"]["layer_norm"],
+                  "mqtt_vit": mqtt["vit"]["launches"]["layer_norm"],
+                  "parallel": parallel["launches"]["layer_norm"],
+                  "orbax_vit": orbax["vit"]["launches"]["layer_norm"],
+                  "orbax_vit_zarr3":
+                      orbax["vit_zarr3"]["launches"]["layer_norm"]}
     print(json.dumps({"kernels": [{
         "name": "scale_bias_cast",
         "route": "cuda",
@@ -11667,6 +11823,23 @@ def main() -> int:
         "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
+        "card": card,
+        "power_limit": power,
+    }, {
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/ops/csrc/layer_norm.cu",
+        "replaces": None,
+        "launches": sum(ln_by_path.values()),
+        "launches_by_path": ln_by_path,
+        "max_abs_err": ln_worst,
+        "max_abs_diff": ln_worst,
+        "ms": ln["cell"]["ms"],
+        "ms_phase7": ln["phase7"]["ms"],
+        "plain_ms": ln["cell"]["plain_ms"],
+        "bound_ms": ln["cell"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": ln["cell"]["library_ms"],
         "card": card,
         "power_limit": power,
     }]}))

@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``models/vit.py``, with its names and
 its public layout: an NHWC image in, ``(B, num_classes)`` f32 logits out,
-bf16 compute with f32 weights cast per call.  The attention runs on the
-hand-written kernel (``ops.flash_attention``, bound once as this module's
-``flash_attention``); PyTorch's own fused attention is not used.
+bf16 compute with f32 weights cast per call.  The attention and the layer
+norm run on hand-written kernels (``ops.flash_attention`` and
+``ops.layer_norm``, bound once as this module's names); PyTorch's own
+fused attention and layer norm are not used.
 
 Where the JAX code rounds, this code rounds too:
 
@@ -12,7 +13,9 @@ Where the JAX code rounds, this code rounds too:
   type (``F.linear`` with a bias would round once);
 - ``_ln`` computes in f32 with the population variance and eps 1e-6,
   applies g and b in f32, then casts back (``nn.LayerNorm`` would use
-  eps 1e-5);
+  eps 1e-5): ``ops.layer_norm``, one kernel on the card that reads and
+  writes each row once in the compute type, its plain version on the
+  CPU;
 - ``jax.nn.gelu`` is the tanh approximation;
 - the patch embed is a VALID convolution with stride = patch (HWIO
   weights in the JAX tree, OIHW here), then the bias and ``pos`` are
@@ -41,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import flash_attention
+from ..ops.kernels import flash_attention, layer_norm
 from ..utils.profile import span
 
 Params = Dict[str, Any]
@@ -72,7 +75,8 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """``_ln``: f32 statistics (population variance), eps 1e-6."""
+    """``_ln``: f32 statistics (population variance), eps 1e-6, through
+    ``ops.layer_norm``."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -81,11 +85,7 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("vit", "ln"):
-            x32 = x.to(torch.float32)
-            mu = x32.mean(-1, keepdim=True)
-            var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
-            out = (x32 - mu) * torch.rsqrt(var + _LN_EPS)
-            return (out * self.g + self.b).to(x.dtype)
+            return layer_norm(x, self.g, self.b, _LN_EPS)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

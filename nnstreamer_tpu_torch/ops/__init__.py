@@ -9,6 +9,9 @@ from .kernels import (
     flash_attention,
     flash_attention_available,
     flash_attention_reference,
+    layer_norm,
+    layer_norm_available,
+    layer_norm_reference,
     scale_bias_cast,
     scale_bias_cast_available,
     scale_bias_cast_reference,
@@ -17,6 +20,7 @@ from .kernels import (
 __all__ = [
     "flash_attention", "flash_attention_available",
     "flash_attention_reference",
+    "layer_norm", "layer_norm_available", "layer_norm_reference",
     "scale_bias_cast", "scale_bias_cast_available",
     "scale_bias_cast_reference",
 ]

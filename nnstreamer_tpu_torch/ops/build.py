@@ -44,6 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES: Dict[str, str] = {
     "scale_bias_cast": "scale_bias_cast.cu",
     "flash_attention": "flash_attention.cu",
+    "layer_norm": "layer_norm.cu",
 }
 
 _lock = threading.Lock()

@@ -13,6 +13,12 @@
   the CUDA cores; head dims 64 and 128, any sequence lengths; q, k and v
   are read by stride (:func:`_fa_layout`), so the ViT hands it the
   head-split views of its qkv projection.
+- ``layer_norm`` is the ViT's ``_ln`` (f32 statistics, population
+  variance, ``g`` and ``b`` applied in f32, one rounding back) as one
+  kernel (``csrc/layer_norm.cu``).  It replaces no Pallas kernel: XLA fuses
+  the JAX package's ``_ln``, and the port's eager version ran it as about
+  twelve f32 passes.  One warp a row, held in registers: one read and one
+  write of each row in its own type.
 
 Every kernel has three faces here: the plain version
 (``*_reference``: what the CPU tests run and what the card's result is
@@ -20,8 +26,8 @@ held against), the wrapper (plain version for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises — it never falls back; a meta
 tensor only inside :func:`shape_only`), and a
 launch count on the wrapper (``scale_bias_cast.launches``,
-``flash_attention.launches``) that shows a run really went through the
-kernel.
+``flash_attention.launches``, ``layer_norm.launches``) that shows a run
+really went through the kernel.
 """
 
 from __future__ import annotations
@@ -331,3 +337,110 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+# -- layer norm ---------------------------------------------------------------
+
+_LN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: a warp holds a row in registers, eight 16-byte vectors a lane at most
+_LN_MAX_ROW_BYTES = 4096
+
+
+def _ln_unsupported(width: int, dtype) -> Optional[str]:
+    """Why the kernel cannot take rows of ``width`` elements of ``dtype``,
+    or None: every width and type rule of the kernel lives here."""
+    dtype = _torch_dtype(dtype)
+    if dtype not in _LN_DTYPES:
+        return f"no kernel for {dtype}"
+    vec, most = 16 // dtype.itemsize, _LN_MAX_ROW_BYTES // dtype.itemsize
+    if width < vec or width % vec or width > most:
+        return (f"width {width}: the kernel takes {dtype} rows of a "
+                f"multiple of {vec} elements, up to {most}")
+    return None
+
+
+def layer_norm_available(shape, dtype) -> bool:
+    """Kernel eligibility: bf16 or f32 rows (the last dim) of a multiple of
+    one 16-byte vector, at most 4 KiB: bf16 widths 8 to 2048, f32 4 to
+    1024.  Any number of rows."""
+    return len(shape) >= 1 and _ln_unsupported(shape[-1], dtype) is None
+
+
+def layer_norm_reference(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """Plain version, the JAX package's ``_ln``: statistics in f32 over
+    the last dim with the population variance, ``g`` and ``b`` applied in
+    f32, then one cast back to ``x``'s type."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * g + b).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """:func:`layer_norm_reference` as one CUDA kernel: each row read once
+    and written once in ``x``'s type.
+
+    A CPU tensor gets the plain version (a meta one inside
+    :func:`shape_only` too).  A CUDA ``x`` must have a type and width
+    :func:`layer_norm_available` accepts, a last dim of stride 1, leading
+    dims that merge into rows, and a 16-byte aligned base and row stride;
+    ``g`` and ``b`` are ``(width,)`` f32 or bf16 (widened exactly) on its
+    device.  Anything else raises ``ValueError``.  The output is
+    contiguous.  No backward: an input that requires grad raises under
+    grad mode."""
+    if _plain(x):
+        return layer_norm_reference(x, g, b, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm: unsupported device {x.device}")
+    if g.device != x.device or b.device != x.device:
+        raise ValueError("layer_norm: x, g and b must share a device")
+    _no_grad_through("layer_norm", x, g, b)
+    if x.dim() < 1:
+        raise ValueError("layer_norm: needs (..., width), got a scalar")
+    width = x.shape[-1]
+    why = _ln_unsupported(width, x.dtype)
+    if why is not None:
+        raise ValueError(f"layer_norm: {why}")
+    params = []
+    for name, p in (("g", g), ("b", b)):
+        if tuple(p.shape) != (width,) or p.dtype not in _LN_DTYPES:
+            raise ValueError(f"layer_norm: {name} must be ({width},) float32 "
+                             f"or bfloat16, got {tuple(p.shape)} {p.dtype}")
+        params.append(p.to(torch.float32).contiguous())
+    if x.stride(-1) != 1:
+        raise ValueError(f"layer_norm: the last dim must have stride 1, got "
+                         f"{x.stride(-1)}")
+    try:
+        rows = x.view(-1, width)
+    except RuntimeError:
+        raise ValueError(f"layer_norm: leading dims {tuple(x.shape[:-1])} "
+                         f"with strides {x.stride()[:-1]} do not merge into "
+                         "rows") from None
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if rows.shape[0] == 0:
+        return y
+    stride = rows.stride(0) if rows.shape[0] > 1 else width
+    if x.data_ptr() % 16 or (stride * x.element_size()) % 16:
+        raise ValueError(f"layer_norm: its base {x.data_ptr():#x} or its row "
+                         f"stride of {stride * x.element_size()} bytes is "
+                         "not 16-byte aligned")
+    fn = _launcher("layer_norm", "nns_layer_norm",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), params[0].data_ptr(), params[1].data_ptr(),
+                y.data_ptr(), rows.shape[0], stride, width,
+                _LN_DTYPES[x.dtype], float(eps), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"layer_norm: kernel launch failed "
+                           f"(cudaError {rc})")
+    layer_norm.launches += 1
+    return y
+
+
+layer_norm.launches = 0

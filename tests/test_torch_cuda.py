@@ -254,6 +254,108 @@ def test_flash_attention_kernel_on_qkv_views(card, dtype, d, s, sk):
                                if dtype == torch.float32 else tol)
 
 
+def _ln_inputs(shape, dtype, card, seed=5):
+    """x off zero mean with a spread that differs by row, and g and b away
+    from ones and zeros, as trained norms hold them."""
+    g = torch.Generator().manual_seed(seed)
+    width = shape[-1]
+    x = torch.randn(shape, generator=g) * (1 + 3 * torch.rand(
+        shape[:-1] + (1,), generator=g)) + 2 * torch.randn(
+        shape[:-1] + (1,), generator=g)
+    gain = 1 + 0.2 * torch.randn(width, generator=g)
+    bias = 0.5 * torch.randn(width, generator=g)
+    return x.to(dtype).to(card), gain.to(card), bias.to(card)
+
+
+def _assert_ln_close(y, r):
+    """The kernel against its plain version.  Both sum the row in f32 but
+    in another order, so mu and var differ in their last f32 bits: a bf16
+    result may round to the neighbour of the plain one, 1 bf16 ulp of the
+    plain value.  Near zero that ulp shrinks with the value while the f32
+    difference does not, so the allowance never falls below 2^-16: far
+    above the f32 noise (about 1e-6 at the rows' scale), far below a bf16
+    ulp there (2^-7 at 1).  f32 results differ by those last bits alone:
+    rtol 1e-5, atol 1e-6 for elements near the mean, where (x - mu) loses
+    its leading bits."""
+    assert y.shape == r.shape and y.dtype == r.dtype
+    assert y.is_contiguous()
+    if y.dtype == torch.float32:
+        torch.testing.assert_close(y, r, rtol=1e-5, atol=1e-6)
+        return
+    yf, rf = y.float(), r.float()
+    ulp = torch.exp2(torch.floor(torch.log2(rf.abs().clamp_min(2 ** -40)))
+                     - 7)
+    diff = (yf - rf).abs()
+    allowed = ulp.clamp_min(2 ** -16)
+    bad = diff > allowed
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} elements beyond 1 bf16 ulp; "
+        f"worst {float(diff.max())}")
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((64, 196, 768), torch.bfloat16),     # the ViT-B/16 cell's rows
+    ((3, 256, 512), torch.bfloat16),      # chip_smoke phase 7's width
+    ((1, 1, 768), torch.bfloat16),        # one row
+    ((1001, 768), torch.bfloat16),        # not a multiple of 8 rows a block
+    ((2, 16, 256), torch.float32),        # test_vit_on_card_matches_cpu's
+    ((37, 64), torch.bfloat16),           # masked lanes: 8 of 32 hold a vector
+    ((37, 128), torch.bfloat16),
+    ((5, 2048), torch.bfloat16),          # the widest: 8 vectors a lane
+    ((5, 1024), torch.float32),
+])
+def test_layer_norm_kernel_matches_plain(card, shape, dtype):
+    x, gain, bias = _ln_inputs(shape, dtype, card)
+    before = kernels.layer_norm.launches
+    y = kernels.layer_norm(x, gain, bias, 1e-6)
+    r = kernels.layer_norm_reference(x, gain, bias, 1e-6)
+    torch.cuda.synchronize()
+    assert kernels.layer_norm.launches == before + 1
+    _assert_ln_close(y, r)
+
+
+def test_layer_norm_kernel_on_strided_rows_and_bf16_params(card):
+    """Rows a multiple of 16 bytes apart (the first 768 columns of wider
+    rows) go in without a copy; bf16 g and b are widened exactly."""
+    x, gain, bias = _ln_inputs((40, 1024), torch.bfloat16, card)
+    view = x[:, 128:896]
+    y = kernels.layer_norm(view, gain[:768].bfloat16(), bias[:768].bfloat16())
+    r = kernels.layer_norm_reference(view, gain[:768].bfloat16().float(),
+                                     bias[:768].bfloat16().float())
+    _assert_ln_close(y, r)
+
+
+def test_layer_norm_refuses_without_fallback(card):
+    x, gain, bias = _ln_inputs((4, 768), torch.bfloat16, card)
+    before = kernels.layer_norm.launches
+    with pytest.raises(RuntimeError, match="layer_norm"):
+        kernels.layer_norm(x, gain.clone().requires_grad_(), bias)
+    with pytest.raises(ValueError, match="stride 1"):
+        kernels.layer_norm(torch.zeros(768, 8, dtype=torch.bfloat16,
+                                       device=card).t(), gain, bias)
+    flat = torch.zeros(4 * 768 + 8, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.layer_norm(flat[1:1 + 4 * 768].view(4, 768), gain, bias)
+    wide = torch.zeros(4, 772, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.layer_norm(wide[:, :768], gain, bias)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match=str(dt)):
+            kernels.layer_norm(x.to(dt), gain, bias)
+    big = torch.zeros(2, 4104, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="width 4104"):
+        kernels.layer_norm(big, torch.ones(4104, device=card),
+                           torch.zeros(4104, device=card))
+    with pytest.raises(ValueError, match="width 770"):
+        kernels.layer_norm(torch.zeros(2, 770, dtype=torch.bfloat16,
+                                       device=card),
+                           torch.ones(770, device=card),
+                           torch.zeros(770, device=card))
+    with pytest.raises(ValueError, match="g must be"):
+        kernels.layer_norm(x, gain[:512], bias)
+    assert kernels.layer_norm.launches == before
+
+
 def test_vit_on_card_matches_cpu(card):
     """The tiny ViT at f32 (TF32 off): the card, through the kernels,
     against the CPU's plain versions."""
@@ -265,10 +367,12 @@ def test_vit_on_card_matches_cpu(card):
                      mlp_dim=128, num_classes=5)
     x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(2))
     before = kernels.flash_attention.launches
+    ln_before = kernels.layer_norm.launches
     with torch.inference_mode():
         want = vit_apply(model, x, torch.float32)
         got = vit_apply(model.to(card), x.to(card), torch.float32)
     assert kernels.flash_attention.launches == before + 2   # one per block
+    assert kernels.layer_norm.launches == ln_before + 2 * 2 + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 

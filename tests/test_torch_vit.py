@@ -34,6 +34,7 @@ from nnstreamer_tpu.runtime import parse_launch as jax_parse_launch
 from nnstreamer_tpu_torch.filters import register_model
 from nnstreamer_tpu_torch.models import convert
 from nnstreamer_tpu_torch.models import vit as tvit
+from nnstreamer_tpu_torch.ops import kernels as ops_kernels
 from nnstreamer_tpu_torch.runtime import parse_launch
 
 # tests/test_vit.py's tiny config (S = 16 patches, dh = 256 / 2 = 128)
@@ -156,6 +157,87 @@ def test_layernorm_population_variance_and_eps():
     assert got_b.dtype == torch.bfloat16
     np.testing.assert_array_equal(got_b.float().numpy(),
                                   want_b.astype(np.float32))
+
+
+def _former_ln(x, g, b):
+    """``LayerNorm.forward``'s body before it called ``ops.layer_norm``."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + 1e-6)
+    return (out * g + b).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_reference_is_the_former_forward(dtype):
+    """The plain version is the eager math it replaced, bit for bit, with
+    g and b away from ones and zeros and rows off zero mean."""
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(3, 7, 256, generator=g) * 3 + 5).to(dtype)
+    gain = 1 + 0.1 * torch.randn(256, generator=g)
+    bias = torch.randn(256, generator=g)
+    got = ops_kernels.layer_norm_reference(x, gain, bias, 1e-6)
+    want = _former_ln(x, gain, bias)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    ln = tvit.LayerNorm(256)
+    ln.load_state_dict({"g": gain, "b": bias})
+    with torch.inference_mode():
+        assert torch.equal(ln(x), want)
+
+
+def test_layernorm_on_the_cpu_never_touches_the_kernel(monkeypatch):
+    """A CPU tensor takes the plain version: the ViT's 2·depth + 1 norms
+    build no library and count no launch."""
+    def no_kernel(*a, **kw):
+        raise AssertionError("a CPU tensor reached the CUDA launcher")
+
+    monkeypatch.setattr(ops_kernels, "_launcher", no_kernel)
+    before = ops_kernels.layer_norm.launches
+    calls = []
+    inner = tvit.layer_norm
+
+    def count(*a, **kw):
+        calls.append(a[0].device.type)
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(tvit, "layer_norm", count)
+    model = convert.vit_from_jax(_jax_tree(), 2)
+    _port_logits(model, _image(1), torch.bfloat16)
+    assert calls == ["cpu"] * (2 * TINY["depth"] + 1)
+    assert ops_kernels.layer_norm.launches == before
+
+
+def test_layer_norm_meta_gives_the_shape_only_inside_shape_only():
+    x = torch.empty(2, 196, 768, dtype=torch.bfloat16, device="meta")
+    g = torch.empty(768, device="meta")
+    with ops_kernels.shape_only():
+        y = ops_kernels.layer_norm(x, g, g)
+    assert y.device.type == "meta"
+    assert (y.shape, y.dtype) == (x.shape, torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        ops_kernels.layer_norm(x, g, g)
+
+
+@pytest.mark.parametrize("width,dtype,ok", [
+    (64, torch.bfloat16, True), (128, torch.bfloat16, True),
+    (256, torch.bfloat16, True), (512, torch.bfloat16, True),
+    (768, torch.bfloat16, True), (1024, torch.bfloat16, True),
+    (2048, torch.bfloat16, True), (256, torch.float32, True),
+    (1024, torch.float32, True), (4, torch.float32, True),
+    (2056, torch.bfloat16, False), (1028, torch.float32, False),
+    (4100, torch.bfloat16, False), (770, torch.bfloat16, False),
+    (4, torch.bfloat16, False), (258, torch.float32, False),
+    (768, torch.float16, False), (768, torch.float64, False)])
+def test_layer_norm_available_by_width_and_type(width, dtype, ok):
+    """Every width the port's ViTs use on the card takes the kernel; a row
+    over 4 KiB, a width that is no multiple of the 16-byte vector, or
+    another type does not, and the reason names the width or type."""
+    assert ops_kernels.layer_norm_available((3, width), dtype) is ok
+    why = ops_kernels._ln_unsupported(width, dtype)
+    assert (why is None) is ok
+    if not ok:
+        assert (f"width {width}" in why) or str(dtype) in why
 
 
 def test_dense_rounds_twice_in_bf16():
