@@ -16,6 +16,7 @@
     python3 chip_smoke.py --train-rank-child R PORT CFG  # a rank of 20i/20j
     python3 chip_smoke.py --importers                 # build + phase 21 only
     python3 chip_smoke.py --orbax                     # build + phase 22 only
+    python3 chip_smoke.py --rel-attention             # build + phase 3's biased attention
 
 It drives the port's paths — the composite detection pipeline, the ViT
 classification pipeline, shared-model serving at the ViT's width, the
@@ -613,6 +614,12 @@ SPIN_CYCLES = 20_000_000
 #: bf16 ulps (where |plain| >= 1/64) the attention kernel may be off:
 #: p is rounded to bf16 (2^-9 relative) before p·v, and o once more
 FA_BF16_ULPS = 16
+#: the same with SAM's relative-position bias: P's rounding alone
+#: (``fa_p_bf16`` against the plain version) reads 16-18 ulps at SAM's
+#: window shape and 7-8 on its global grid over four seeds, the kernel
+#: 16-18 and 7 (H100); unbiased, P's rounding reads 7-11, so 16 keeps about
+#: 5 ulps of room over it, and so does 24 over 18
+FA_REL_BF16_ULPS = 24
 
 #: the classification path: the JAX package's bench_classify (bench.py:
 #: 66,71,533-586): MobileNetV1, 1001 classes, argmax in the model,
@@ -1084,7 +1091,8 @@ def phase_flash_attention(card: str, power: str):
             print(f"kernel flash_attention {label} q{tuple(q.shape)} "
                   f"kv{tuple(k.shape)} strides {q.stride()} {dt}: "
                   f"max_abs_diff={diff}" +
-                  (f" max_bf16_ulps(|plain|>=1/64)={ulps:.2f}"
+                  (f" max_bf16_ulps(|plain|>=1/64)={ulps:.2f} p_bf16_ulps="
+                   f"{bf16_ulps(fa_p_bf16(q, k, v), r):.2f}"
                    if dt == torch.bfloat16 else ""), flush=True)
             atol, rtol = tol[dt]
             bad = (o.float() - r.float()).abs() > atol + rtol * r.float().abs()
@@ -1118,6 +1126,148 @@ def phase_flash_attention(card: str, power: str):
           f"vs_sdpa={ms / sdpa:.2f}x [{card}, {power}]", flush=True)
     return worst, {"ms": ms, "views_ms": views_ms, "plain_ms": plain,
                    "library_ms": sdpa, "bound_ms": bound, "bound_by": by}
+
+
+#: SAM ViT-L's two attention launches at the benchmark's cell (256 frames a
+#: window): (batch, heads, tokens, head dim, key grid), windowed then global;
+#: and the shapes its card tests check, where the plain version and a
+#: materialized mask fit
+SAM_ATTN_CELL = [("window", (256 * 25, 16, 196, 64), (14, 14)),
+                 ("global", (256, 16, 4096, 64), (64, 64))]
+SAM_ATTN_CHECK = [("window", (32 * 25, 16, 196, 64), (14, 14)),
+                  ("global", (8, 16, 4096, 64), (64, 64))]
+
+
+def fa_p_bf16(q, k, v, scale=None, rel_h=None, rel_w=None, key_grid=None):
+    """The plain attention with the one rounding the bf16 kernel's P·V
+    product has to make: the scores and their exponentials in f32, the
+    row sums of the f32 exponentials, but P rounded to bf16 before P·V.
+    Its distance from ``flash_attention_reference`` is the part of the
+    kernel's that P's rounding explains.  A leading index at a time."""
+    import torch
+
+    from nnstreamer_tpu_torch.ops import kernels
+
+    out = []
+    for i in range(q.shape[0]):
+        s = torch.einsum("...qd,...kd->...qk", q[i].float(), k[i].float())
+        s = s * kernels._default_scale(q, scale)
+        if rel_h is not None:
+            kh, kw = key_grid
+            s = (s.unflatten(-1, (kh, kw)) + rel_h[i, ..., None]
+                 + rel_w[i, ..., None, :]).flatten(-2)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.einsum("...qk,...kd->...qd", p.to(torch.bfloat16).float(),
+                         v[i].float()) / p.sum(dim=-1, keepdim=True)
+        out.append(o.to(q.dtype))
+    return torch.stack(out)
+
+
+def phase_flash_attention_rel(card: str, power: str):
+    """``flash_attention`` with SAM's decomposed relative-position bias
+    (``rel_h``, ``rel_w``, ``key_grid``) at SAM ViT-L's two shapes, on the
+    head-split views of a qkv projection: against its plain version within
+    the card tests' bf16 atol and rtol (1e-2) on their shapes, and in bf16
+    ulps within ``FA_REL_BF16_ULPS`` (the distance of ``fa_p_bf16``, P
+    rounded as the kernel rounds it, printed beside), then timed beside the
+    plain version and ``scaled_dot_product_attention`` with the bias
+    materialized as a float mask (a yardstick only: the port never calls
+    it), and alone at the benchmark cell's shapes against its bound: q, k,
+    v and o read or written once in bf16, the two tables once in f32, and
+    4·S·Sk·D operations a head."""
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops import kernels
+
+    g = torch.Generator().manual_seed(SEED)
+
+    def views(shape):
+        b, h, s, d = shape
+        qkv = torch.randn((b, s, 3 * h * d), generator=g).to(
+            torch.bfloat16).cuda()
+        return [t.reshape(b, s, h, d).transpose(1, 2)
+                for t in qkv.split(h * d, dim=-1)]
+
+    def tables(shape, grid):
+        return [torch.randn(shape[:-1] + (n,), generator=g).cuda()
+                for n in grid]
+
+    def bound(shape, grid):
+        b, h, s, d = shape
+        flops = 4 * b * h * s * s * d
+        nbytes = 4 * b * h * s * d * 2 + b * h * s * sum(grid) * 4
+        bytes_ms = nbytes / hbm_bandwidth(card) * 1e3
+        ops_ms = flops / card_spec(card).peak_flops * 1e3
+        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                       else "operations")
+
+    out, worst = {}, 0.0
+    for (label, shape, grid), (_, cell, _) in zip(SAM_ATTN_CHECK,
+                                                  SAM_ATTN_CELL):
+        q, k, v = views(shape)
+        rh, rw = tables(shape, grid)
+        o = kernels.flash_attention(q, k, v, rel_h=rh, rel_w=rw,
+                                    key_grid=grid)
+        r = torch.cat([kernels.flash_attention_reference(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], rel_h=rh[i:i + 1],
+            rel_w=rw[i:i + 1], key_grid=grid) for i in range(shape[0])])
+        torch.cuda.synchronize()
+        diff = float((o.float() - r.float()).abs().max())
+        ulps = bf16_ulps(o, r)
+        p_ulps = bf16_ulps(fa_p_bf16(q, k, v, rel_h=rh, rel_w=rw,
+                                     key_grid=grid), r)
+        bad = (o.float() - r.float()).abs() > 1e-2 + 1e-2 * r.float().abs()
+        print(f"kernel flash_attention rel {label} q{tuple(q.shape)} grid "
+              f"{grid}: max_abs_diff={diff} max_bf16_ulps(|plain|>=1/64)="
+              f"{ulps:.2f} p_bf16_ulps={p_ulps:.2f} (the plain version "
+              f"with P rounded to bf16)", flush=True)
+        if bool(bad.any()) or not bool(torch.isfinite(o).all()):
+            raise RuntimeError(f"flash_attention rel {label}: "
+                               f"{int(bad.sum())} elements off its plain "
+                               f"version (atol 1e-2, rtol 1e-2)")
+        if ulps > FA_REL_BF16_ULPS:
+            raise RuntimeError(f"flash_attention rel {label}: {ulps} bf16 "
+                               f"ulps off its plain version (at most "
+                               f"{FA_REL_BF16_ULPS}; P's rounding alone "
+                               f"reads {p_ulps})")
+        worst = max(worst, diff)
+        del r
+        ms = time_ms(lambda: kernels.flash_attention(
+            q, k, v, rel_h=rh, rel_w=rw, key_grid=grid), reps=10)
+        plain = time_ms(lambda: kernels.flash_attention_reference(
+            q[:1], k[:1], v[:1], rel_h=rh[:1], rel_w=rw[:1],
+            key_grid=grid), reps=3, groups=3) * shape[0]
+        mask = (rh[..., None] + rw[..., None, :]).flatten(-2).to(
+            torch.bfloat16)
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), reps=10)
+        del mask, q, k, v, rh, rw, o
+        torch.cuda.empty_cache()
+        b_ms, by = bound(shape, grid)
+        q, k, v = views(cell)
+        rh, rw = tables(cell, grid)
+        cell_ms = time_ms(lambda: kernels.flash_attention(
+            q, k, v, rel_h=rh, rel_w=rw, key_grid=grid), reps=5, groups=3)
+        unbiased_ms = time_ms(lambda: kernels.flash_attention(q, k, v),
+                              reps=5, groups=3)
+        cell_b, cell_by = bound(cell, grid)
+        del q, k, v, rh, rw
+        torch.cuda.empty_cache()
+        print(f"kernel flash_attention rel {label} {shape}: ms={ms:.6f} "
+              f"plain_ms={plain:.6f} (a leading index at a time) "
+              f"sdpa_float_mask_ms={sdpa:.6f} bound_ms={b_ms:.6f} ({by}) "
+              f"share_of_bound={b_ms / ms:.3f}; cell {cell}: ms={cell_ms:.6f} "
+              f"unbiased_ms={unbiased_ms:.6f} bound_ms={cell_b:.6f} "
+              f"({cell_by}) share_of_bound={cell_b / cell_ms:.3f} "
+              f"[{card}, {power}]", flush=True)
+        out[label] = {"shape": shape, "grid": grid, "ms": ms,
+                      "max_bf16_ulps": ulps, "p_bf16_ulps": p_ulps,
+                      "plain_ms": plain, "library_ms": sdpa,
+                      "bound_ms": b_ms, "bound_by": by, "cell_shape": cell,
+                      "cell_ms": cell_ms, "cell_unbiased_ms": unbiased_ms,
+                      "cell_bound_ms": cell_b, "cell_bound_by": cell_by}
+    return worst, out
 
 
 #: the layer norm's rows at the benchmark's ViT-B/16 cell (8192 frames of
@@ -11547,6 +11697,7 @@ def main() -> int:
     training_alone = sys.argv[1:] == ["--training"]
     importers_alone = sys.argv[1:] == ["--importers"]
     orbax_alone = sys.argv[1:] == ["--orbax"]
+    rel_alone = sys.argv[1:] == ["--rel-attention"]
     import torch
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -11632,6 +11783,11 @@ def main() -> int:
                           "card": card, "power_limit": power},
                          default=str))
         return 0
+    if rel_alone:
+        PHASE[0] = "3"
+        print(json.dumps({"rel_attention": phase_flash_attention_rel(
+            card, power)[1], "card": card, "power_limit": power}))
+        return 0
     if orbax_alone:
         PHASE[0] = "22"
         print(json.dumps({"orbax": phase_orbax(card, power),
@@ -11641,6 +11797,7 @@ def main() -> int:
     worst, (ms, plain_ms, bound_ms) = phase_kernels(card, power)
     fa_worst, fa = phase_flash_attention(card, power)
     ln_worst, ln = phase_layer_norm(card, power)
+    rel_worst, fa_rel = phase_flash_attention_rel(card, power)
     PHASE[0] = "4"
     main_path = phase_main_path(card, power)
     PHASE[0] = "5"
@@ -11823,6 +11980,7 @@ def main() -> int:
         "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
+        "rel_pos": {"max_abs_diff": rel_worst, **fa_rel},
         "card": card,
         "power_limit": power,
     }, {

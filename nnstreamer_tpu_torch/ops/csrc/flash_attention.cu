@@ -67,6 +67,29 @@
 // sum are warp reductions; each lane then owns D/32 columns of the
 // accumulator and folds in p_j·v_j for the 32 keys, p_j broadcast by
 // shuffle.
+//
+// Decomposed relative position (SAM's image encoder, models/sam.py): with
+// the `kRel` template argument set, the keys lie on a (Kh, Kw) grid
+// (Sk = Kh·Kw) and every score gains two terms read from per-row tables,
+//   s[i, j] = (q_i·k_j)·scale + rel_h[i, j / Kw] + rel_w[i, j % Kw],
+// before the running max; rel_h (B, H, S, Kh) and rel_w (B, H, S, Kw) are
+// contiguous f32, O(S·(Kh + Kw)) a head, so no (S, Sk) bias exists in
+// memory.  The scores are then x = s·log2(e) and the max is taken on x (the
+// raw-score max trick needs a positive scale and no bias).  With `kRel` 0
+// the kernel is the unbiased one above, unchanged.  bf16, D = 64:
+// - kRelShared, any grid with Kh + Kw <= kMaxRelCols (SAM's 14x14
+//   windows): each consumer warp copies its 16 query rows' tables into its
+//   own region of shared memory with cp.async (4-byte copies), one item
+//   ahead in a two-stage ring, so they land while the previous item runs
+//   (a 196-token window has only two key tiles to hide them behind).  Each
+//   thread reads its two rows' entries for its 32 key columns, the
+//   (j / Kw, j % Kw) pairs stepped by additions from one division a tile.
+// - kRelGrid64, Kw = 64 (SAM's global 64x64 grid): a 128-key tile spans
+//   two grid rows, so a thread's column j of a tile always reads
+//   rel_w[i, j % 64] and rel_h[i, kt/64 + j/64]: its 32 rel_w entries sit
+//   in registers for the whole item and its 4 rel_h entries are loaded a
+//   tile, while the tile's Q·Kᵀ runs.
+// f32: each lane adds its key's two terms.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -83,6 +106,14 @@ using bf16 = __nv_bfloat16;
 // A rank-4 (B, H, S, D) view with element strides; the last dim's is 1.
 struct Layout {
   int64_t B, H, S, D, sB, sH, sS;
+};
+
+// The decomposed relative-position tables: rel_h (B·H, S, Kh) and rel_w
+// (B·H, S, Kw), contiguous f32; all zero for an unbiased launch.
+struct RelPos {
+  const float* h;
+  const float* w;
+  int S, Kh, Kw;
 };
 
 // -- bf16: TMA, wgmma, warp-specialised -------------------------------------
@@ -116,8 +147,27 @@ struct Smem {
   static constexpr int kBar = kO + kQTile;
   static constexpr int kBars = 2 * (kQStages + kKStages + kVStages);
   static constexpr int kBytes = kBar + 8 * kBars + 1024;  // + 1024 to align the base
+  static constexpr int kRel = (kBar + 8 * kBars + 127) / 128 * 128;  // the bias tables
 };
 static_assert(Smem<128>::kBytes <= 232448, "shared memory of one H100 block");
+
+// The bias modes (the kernel's `kRel`) and, for kRelShared, the tables in
+// shared memory: a stage holds 16 rows of rel_h then 16 of rel_w for each
+// consumer warp, as they lie in global memory; the slack after a stage
+// covers the reads of masked columns past Sk (row-relative index < Kh +
+// 127), which are discarded.
+constexpr int kRelNone = 0, kRelShared = 1, kRelGrid64 = 2;
+constexpr int kRelWarps = kConsumers / 32;
+constexpr int kRelSlack = 136;
+constexpr int kRelStages = 2;
+constexpr int kMaxRelCols = 112;
+__host__ __device__ constexpr int rel_stage_floats(int cols) {
+  return kRelWarps * 16 * cols + kRelSlack;
+}
+__host__ __device__ constexpr int rel_smem_bytes(int cols) {
+  return Smem<64>::kRel + 4 * kRelStages * rel_stage_floats(cols) + 1024;
+}
+static_assert(rel_smem_bytes(kMaxRelCols) <= 232448, "shared memory of one H100 block");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
@@ -171,6 +221,13 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
           "l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A 4-byte copy from global to shared memory that does not hold up the
+// thread; `bytes` 0 writes a zero and reads nothing.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -291,13 +348,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 }
 
 
-template <int D>
+template <int D, int kRel>
 __global__ void __launch_bounds__(kFaThreads, 1)
     flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap mq,
                                 const __grid_constant__ CUtensorMap mk,
                                 const __grid_constant__ CUtensorMap mv,
                                 const __grid_constant__ CUtensorMap mo, int H, int Sk,
-                                int n_qtiles, int n_items, float scale_log2) {
+                                int n_qtiles, int n_items, float scale_log2, RelPos rel) {
+  static_assert(kRel == kRelNone || D == 64, "the bias is taken at D = 64 only");
   using L = Smem<D>;
   constexpr int kAtoms = L::kAtoms;
   extern __shared__ __align__(128) uint8_t smem_raw[];
@@ -387,6 +445,31 @@ __global__ void __launch_bounds__(kFaThreads, 1)
     const float fill = pos ? -INFINITY : INFINITY;  // never a row's extreme
     // partial extreme and sum (of 4 a row) that element i feeds
     const auto part = [](int i) { return (i & 1) | (((i >> 2) & 1) << 1); };
+    constexpr float kLog2e = 1.4426950408889634f;
+    // kRelShared: this warp's table region in stage 0; stage s is s·stage
+    // floats further on
+    const int rel_stage = rel_stage_floats(rel.Kh + rel.Kw);
+    float* const rel_rows = reinterpret_cast<float*>(smem + L::kRel) +
+                            (wg * 4 + warp) * 16 * (rel.Kh + rel.Kw);
+    // copy item `at`'s tables for this warp's 16 rows into stage `stage`
+    // and commit them as one cp.async group
+    const auto copy_tables = [&](int at, int stage) {
+      const int tbh = at / n_qtiles;
+      const int row0 = (at - tbh * n_qtiles) * kBM + wg * kWgRows + warp * 16;
+      const int rows = max(0, min(16, rel.S - row0));
+      const int64_t first = static_cast<int64_t>(tbh) * rel.S + (rows > 0 ? row0 : 0);
+      const uint32_t dst = static_cast<uint32_t>(
+          __cvta_generic_to_shared(rel_rows + stage * rel_stage));
+      const float* const hs = rel.h + first * rel.Kh;
+      const float* const ws = rel.w + first * rel.Kw;
+      for (int i = lane; i < 16 * rel.Kh; i += 32)
+        cp_async4(dst + 4 * i, i < rows * rel.Kh ? hs + i : rel.h, i < rows * rel.Kh ? 4u : 0u);
+      for (int i = lane; i < 16 * rel.Kw; i += 32)
+        cp_async4(dst + 4 * (16 * rel.Kh + i), i < rows * rel.Kw ? ws + i : rel.w,
+                  i < rows * rel.Kw ? 4u : 0u);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    if constexpr (kRel == kRelShared) copy_tables(blockIdx.x, 0);
     int it = 0, n = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
       const int bh = item / n_qtiles, q0 = (item - bh * n_qtiles) * kBM;
@@ -398,6 +481,32 @@ __global__ void __launch_bounds__(kFaThreads, 1)
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY};
       float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+      // kRelGrid64: this thread's rows g and g + 8 (clamped to S; rows past
+      // S are not stored) and their rel_w entries for its key columns
+      // 8·c + 2·t4 + e (mod 64), scaled by log2(e)
+      const float* rel_h_rows[2];
+      float wl[2][16];
+      if constexpr (kRel == kRelShared) {
+        __syncwarp();  // every lane has read item n - 1's tables: prefetch n + 1's
+        if (item + gridDim.x < n_items)
+          copy_tables(item + gridDim.x, (n + 1) % kRelStages);
+        else
+          asm volatile("cp.async.commit_group;\n" ::: "memory");  // an empty group
+      } else if constexpr (kRel == kRelGrid64) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qrow = min(q0 + wg * kWgRows + warp * 16 + g + 8 * r, rel.S - 1);
+          const int64_t at = static_cast<int64_t>(bh) * rel.S + qrow;
+          rel_h_rows[r] = rel.h + at * rel.Kh;
+          const float2* const w2 = reinterpret_cast<const float2*>(rel.w + at * 64 + 2 * t4);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const float2 v = w2[4 * c];  // columns 8c + 2·t4 and + 1
+            wl[r][2 * c] = v.x * kLog2e;
+            wl[r][2 * c + 1] = v.y * kLog2e;
+          }
+        }
+      }
       mbar_wait(full_q(qs), (n / kQStages) & 1);
 
       const int n_tiles = (Sk + kBN - 1) / kBN;
@@ -405,6 +514,17 @@ __global__ void __launch_bounds__(kFaThreads, 1)
         const int kt = t * kBN;
         const int ks = it % kKStages, vs = it % kVStages;
         const uint32_t sk = base + L::kK + ks * L::kKVTile;
+
+        // kRelGrid64: the tile's two grid rows of rel_h, loaded while Q·Kᵀ runs
+        float hl[2][2];
+        if constexpr (kRel == kRelGrid64) {
+          const int j0 = kt >> 6, j1 = min(j0 + 1, rel.Kh - 1);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            hl[r][0] = rel_h_rows[r][j0];
+            hl[r][1] = rel_h_rows[r][j1];
+          }
+        }
 
         // S = Q·Kᵀ: D/16 k-steps of 32 bytes along each 64-column atom
         float sc[kBN / 2];
@@ -422,61 +542,135 @@ __global__ void __launch_bounds__(kFaThreads, 1)
         mbar_arrive(empty_k(ks));
         if (t == n_tiles - 1) mbar_arrive(empty_q(qs));  // the item's last read of Q
 
-        // Online softmax in base 2, x = s·scale·log2(e).  The row's extreme
-        // is taken on the raw scores (the max, or the min for a negative
-        // scale), so a score costs one FFMA and one exp2; four partial
-        // extremes and sums a row keep the dependency chains short.  Key
-        // columns past Sk take part in neither.
-        const bool ragged = kt + kBN > Sk;
-        if (ragged) {
+        float corr[2];
+        float rs[2][4] = {};
+        if constexpr (kRel != kRelNone) {
+          // x = (s·scale + rel_h[i, j / Kw] + rel_w[i, j % Kw])·log2(e), then
+          // the online softmax on x; key columns past Sk are -inf (their
+          // table reads, past the row, are discarded)
+          if constexpr (kRel == kRelGrid64) {
 #pragma unroll
-          for (int i = 0; i < kBN / 2; ++i)
-            if (kt + 8 * (i >> 2) + 2 * t4 + (i & 1) >= Sk) sc[i] = fill;
-        }
-        float ext[2][4];
+            for (int c = 0; c < kBN / 8; ++c) {  // j / 64 = kt/64 + c/8, j % 64 = 8(c%8) + ..
+              const int hi = c >> 3, cw = 2 * (c & 7);
+              sc[4 * c + 0] = fmaf(sc[4 * c + 0], scale_log2, fmaf(hl[0][hi], kLog2e, wl[0][cw]));
+              sc[4 * c + 1] = fmaf(sc[4 * c + 1], scale_log2, fmaf(hl[0][hi], kLog2e, wl[0][cw + 1]));
+              sc[4 * c + 2] = fmaf(sc[4 * c + 2], scale_log2, fmaf(hl[1][hi], kLog2e, wl[1][cw]));
+              sc[4 * c + 3] = fmaf(sc[4 * c + 3], scale_log2, fmaf(hl[1][hi], kLog2e, wl[1][cw + 1]));
+            }
+          } else {
+            if (t == 0) {  // this item's tables have landed (the next item's may not)
+              asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+              __syncwarp();
+            }
+            const float* const r0 = rel_rows + (n % kRelStages) * rel_stage + g * rel.Kh;
+            const float* const r1 = r0 + 8 * rel.Kh;
+            const float* const w0 = rel_rows + (n % kRelStages) * rel_stage + 16 * rel.Kh + g * rel.Kw;
+            const float* const w1 = w0 + 8 * rel.Kw;
+            const int Kw = rel.Kw, step_h = 8 / Kw, step_w = 8 - step_h * Kw;
+            int jh = (kt + 2 * t4) / Kw;
+            int jw = kt + 2 * t4 - jh * Kw;
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
+            for (int c = 0; c < kBN / 8; ++c) {
+              int jh1 = jh, jw1 = jw + 1;  // key column 8c + 2·t4 + 1
+              if (jw1 == Kw) {
+                jw1 = 0;
+                ++jh1;
+              }
+              sc[4 * c + 0] = fmaf(sc[4 * c + 0], scale_log2, (r0[jh] + w0[jw]) * kLog2e);
+              sc[4 * c + 1] = fmaf(sc[4 * c + 1], scale_log2, (r0[jh1] + w0[jw1]) * kLog2e);
+              sc[4 * c + 2] = fmaf(sc[4 * c + 2], scale_log2, (r1[jh] + w1[jw]) * kLog2e);
+              sc[4 * c + 3] = fmaf(sc[4 * c + 3], scale_log2, (r1[jh1] + w1[jw1]) * kLog2e);
+              jh += step_h;
+              jw += step_w;
+              if (jw >= Kw) {
+                jw -= Kw;
+                ++jh;
+              }
+            }
+          }
+          if (kt + kBN > Sk) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) ext[r][q] = fill;
-        if (pos) {
+            for (int i = 0; i < kBN / 2; ++i)
+              if (kt + 8 * (i >> 2) + 2 * t4 + (i & 1) >= Sk) sc[i] = -INFINITY;
+          }
+          float ext[2][4];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) ext[r][q] = -INFINITY;
 #pragma unroll
           for (int i = 0; i < kBN / 2; ++i)
             ext[(i >> 1) & 1][part(i)] = fmaxf(ext[(i >> 1) & 1][part(i)], sc[i]);
-        } else {
 #pragma unroll
-          for (int i = 0; i < kBN / 2; ++i)
-            ext[(i >> 1) & 1][part(i)] = fminf(ext[(i >> 1) & 1][part(i)], sc[i]);
-        }
-        float corr[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float e = pos ? fmaxf(fmaxf(ext[r][0], ext[r][1]), fmaxf(ext[r][2], ext[r][3]))
-                        : fminf(fminf(ext[r][0], ext[r][1]), fminf(ext[r][2], ext[r][3]));
-#pragma unroll
-          for (int w = 1; w <= 2; w <<= 1) {  // the quad shares the row
-            const float o = __shfl_xor_sync(0xffffffffu, e, w);
-            e = pos ? fmaxf(e, o) : fminf(e, o);
+          for (int r = 0; r < 2; ++r) {
+            float e = fmaxf(fmaxf(ext[r][0], ext[r][1]), fmaxf(ext[r][2], ext[r][3]));
+            e = fmaxf(e, __shfl_xor_sync(0xffffffffu, e, 1));
+            e = fmaxf(e, __shfl_xor_sync(0xffffffffu, e, 2));
+            const float mx = fmaxf(m[r], e);  // finite: every tile has a key < Sk
+            corr[r] = exp2f(m[r] - mx);
+            m[r] = mx;
           }
-          const float mx = fmaxf(m[r], e * scale_log2);
-          corr[r] = exp2f(m[r] - mx);  // 2^-inf = 0 on the first tile
-          m[r] = mx;
-        }
-        float rs[2][4] = {};
-        // p = 2^(x - m); on the ragged tile, 0 past Sk (for any scale, 0
-        // included); full tiles pay for no mask
-        const auto exps = [&](auto masked) {
 #pragma unroll
           for (int i = 0; i < kBN / 2; ++i) {
-            float p = exp2f(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));
-            if (decltype(masked)::value && kt + 8 * (i >> 2) + 2 * t4 + (i & 1) >= Sk) p = 0.f;
+            const float p = exp2f(sc[i] - m[(i >> 1) & 1]);  // 2^-inf = 0 past Sk
             sc[i] = p;
             rs[(i >> 1) & 1][part(i)] += p;
           }
-        };
-        if (ragged)
-          exps(std::true_type{});
-        else
-          exps(std::false_type{});
+        } else {
+          // Online softmax in base 2, x = s·scale·log2(e).  The row's extreme
+          // is taken on the raw scores (the max, or the min for a negative
+          // scale), so a score costs one FFMA and one exp2; four partial
+          // extremes and sums a row keep the dependency chains short.  Key
+          // columns past Sk take part in neither.
+          const bool ragged = kt + kBN > Sk;
+          if (ragged) {
+#pragma unroll
+            for (int i = 0; i < kBN / 2; ++i)
+              if (kt + 8 * (i >> 2) + 2 * t4 + (i & 1) >= Sk) sc[i] = fill;
+          }
+          float ext[2][4];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) ext[r][q] = fill;
+          if (pos) {
+#pragma unroll
+            for (int i = 0; i < kBN / 2; ++i)
+              ext[(i >> 1) & 1][part(i)] = fmaxf(ext[(i >> 1) & 1][part(i)], sc[i]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < kBN / 2; ++i)
+              ext[(i >> 1) & 1][part(i)] = fminf(ext[(i >> 1) & 1][part(i)], sc[i]);
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float e = pos ? fmaxf(fmaxf(ext[r][0], ext[r][1]), fmaxf(ext[r][2], ext[r][3]))
+                          : fminf(fminf(ext[r][0], ext[r][1]), fminf(ext[r][2], ext[r][3]));
+#pragma unroll
+            for (int w = 1; w <= 2; w <<= 1) {  // the quad shares the row
+              const float o = __shfl_xor_sync(0xffffffffu, e, w);
+              e = pos ? fmaxf(e, o) : fminf(e, o);
+            }
+            const float mx = fmaxf(m[r], e * scale_log2);
+            corr[r] = exp2f(m[r] - mx);  // 2^-inf = 0 on the first tile
+            m[r] = mx;
+          }
+          // p = 2^(x - m); on the ragged tile, 0 past Sk (for any scale, 0
+          // included); full tiles pay for no mask
+          const auto exps = [&](auto masked) {
+#pragma unroll
+            for (int i = 0; i < kBN / 2; ++i) {
+              float p = exp2f(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));
+              if (decltype(masked)::value && kt + 8 * (i >> 2) + 2 * t4 + (i & 1) >= Sk) p = 0.f;
+              sc[i] = p;
+              rs[(i >> 1) & 1][part(i)] += p;
+            }
+          };
+          if (ragged)
+            exps(std::true_type{});
+          else
+            exps(std::false_type{});
+        }
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           l[r] = l[r] * corr[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
@@ -555,11 +749,12 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kBQ32 = kRowsPerWarp * (kThreads / 32);  // 16 query rows
 constexpr int kBK32 = 32;                               // one key per lane
 
-template <int D>
+template <int D, bool kRel>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, float* __restrict__ o, Layout lq,
-                               Layout lk, Layout lv, Layout lo, int n_qtiles, float scale) {
+                               Layout lk, Layout lv, Layout lo, int n_qtiles, float scale,
+                               RelPos rel) {
   constexpr int kCols = D / 32;  // accumulator columns per lane
   __shared__ float sQ[kBQ32][D];
   __shared__ float sK[kBK32][D + 1];  // +1: lanes read distinct banks
@@ -608,9 +803,21 @@ __global__ void __launch_bounds__(kThreads)
       for (int r = 0; r < kRowsPerWarp; ++r) s[r] = fmaf(sQ[wrow + r][d], kd, s[r]);
     }
     const bool valid = kt + lane < Sk;
+    float bias[kRowsPerWarp] = {};
+    if constexpr (kRel) {  // this lane's key: rel_h[i, j / Kw] + rel_w[i, j % Kw]
+      const int j = kt + lane, jh = j / rel.Kw, jw = j - jh * rel.Kw;
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int row = q0 + wrow + r;
+        if (valid && row < S) {
+          const int64_t at = bh * S + row;
+          bias[r] = rel.h[at * rel.Kh + jh] + rel.w[at * rel.Kw + jw];
+        }
+      }
+    }
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float sr = valid ? s[r] * scale : -INFINITY;
+      const float sr = !valid ? -INFINITY : kRel ? s[r] * scale + bias[r] : s[r] * scale;
       float mx = sr;
 #pragma unroll
       for (int w = 16; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
@@ -689,9 +896,9 @@ bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, const Layo
 
 constexpr int kMaxDevices = 64;
 
-template <int D>
+template <int D, int kRel>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const Layout* t,
-                        float scale, cudaStream_t stream) {
+                        float scale, const RelPos& rel, cudaStream_t stream) {
   static int sm_count[kMaxDevices];  // per device, set once: 0 until then
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
@@ -703,9 +910,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, co
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return rc;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  constexpr bool kTables = kRel == kRelShared;
+  const int smem_bytes = kTables ? rel_smem_bytes(rel.Kh + rel.Kw) : Smem<D>::kBytes;
   if (sm_count[dev] == 0) {
-    rc = cudaFuncSetAttribute(flash_attention_bf16_kernel<D>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
+    rc = cudaFuncSetAttribute(flash_attention_bf16_kernel<D, kRel>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kTables ? rel_smem_bytes(kMaxRelCols) : Smem<D>::kBytes);
     if (rc != cudaSuccess) return rc;
     int sms = 0;
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -716,26 +926,37 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, co
   const int64_t n_items = t[0].B * t[0].H * n_qtiles;
   if (n_items > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const int grid = static_cast<int>(n_items < sm_count[dev] ? n_items : sm_count[dev]);
-  flash_attention_bf16_kernel<D><<<grid, kFaThreads, Smem<D>::kBytes, stream>>>(
+  flash_attention_bf16_kernel<D, kRel><<<grid, kFaThreads, smem_bytes, stream>>>(
       mq, mk, mv, mo, static_cast<int>(t[0].H), static_cast<int>(t[1].S),
-      static_cast<int>(n_qtiles), static_cast<int>(n_items), scale * 1.4426950408889634f);
+      static_cast<int>(n_qtiles), static_cast<int>(n_items), scale * 1.4426950408889634f, rel);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kRel>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, const Layout* t,
-                       float scale, cudaStream_t stream) {
+                       float scale, const RelPos& rel, cudaStream_t stream) {
   const int64_t n_qtiles = (t[0].S + kBQ32 - 1) / kBQ32;
   const int64_t blocks = t[0].B * t[0].H * n_qtiles;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  flash_attention_f32_kernel<D><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  flash_attention_f32_kernel<D, kRel><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), t[0], t[1], t[2], t[3], static_cast<int>(n_qtiles), scale);
+      static_cast<float*>(o), t[0], t[1], t[2], t[3], static_cast<int>(n_qtiles), scale, rel);
   return cudaGetLastError();
 }
 
 bool same(const Layout& a, const Layout& b, bool seq) {
   return a.B == b.B && a.H == b.H && a.D == b.D && (!seq || a.S == b.S);
+}
+
+// The four layouts of `layouts` (q, k, v, o), checked as the launchers
+// need them; false for one they do not take.
+bool read_layouts(const int64_t* layouts, Layout* t) {
+  for (int i = 0; i < 4; ++i) {
+    const int64_t* r = layouts + 7 * i;
+    t[i] = Layout{r[0], r[1], r[2], r[3], r[4], r[5], r[6]};
+    if (t[i].B < 1 || t[i].H < 1 || t[i].S < 1 || t[i].S > 0x7fffffff) return false;
+  }
+  return same(t[0], t[3], true) && same(t[1], t[2], true) && same(t[0], t[1], false);
 }
 
 }  // namespace
@@ -750,22 +971,43 @@ extern "C" int nns_flash_attention(const void* q, const void* k, const void* v, 
                                    const int64_t* layouts, int dtype_code, float scale,
                                    void* stream) {
   Layout t[4];
-  for (int i = 0; i < 4; ++i) {
-    const int64_t* r = layouts + 7 * i;
-    t[i] = Layout{r[0], r[1], r[2], r[3], r[4], r[5], r[6]};
-    if (t[i].B < 1 || t[i].H < 1 || t[i].S < 1 || t[i].S > 0x7fffffff)
-      return cudaErrorInvalidValue;
+  if (!read_layouts(layouts, t)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t d = t[0].D;
+  const RelPos none{};
+  if (dtype_code == 1) {
+    if (d == 64) return launch_bf16<64, kRelNone>(q, k, v, o, t, scale, none, st);
+    if (d == 128) return launch_bf16<128, kRelNone>(q, k, v, o, t, scale, none, st);
+  } else if (dtype_code == 0) {
+    if (d == 64) return launch_f32<64, false>(q, k, v, o, t, scale, none, st);
+    if (d == 128) return launch_f32<128, false>(q, k, v, o, t, scale, none, st);
   }
-  if (!same(t[0], t[3], true) || !same(t[1], t[2], true) || !same(t[0], t[1], false))
+  return cudaErrorInvalidValue;
+}
+
+// As nns_flash_attention, with the decomposed relative-position bias: the
+// keys lie on a (kh, kw) grid, Sk = kh·kw; rel_h (B, H, S, kh) and rel_w
+// (B, H, S, kw) are contiguous f32 device tables.  bf16 takes D = 64 with
+// kw = 64 (kRelGrid64) or kh + kw <= 112 (kRelShared); f32 takes D 64 or
+// 128.
+extern "C" int nns_flash_attention_rel(const void* q, const void* k, const void* v, void* o,
+                                       const int64_t* layouts, int dtype_code, float scale,
+                                       const float* rel_h, const float* rel_w, int kh, int kw,
+                                       void* stream) {
+  Layout t[4];
+  if (!read_layouts(layouts, t) || rel_h == nullptr || rel_w == nullptr || kh < 1 || kw < 1 ||
+      static_cast<int64_t>(kh) * kw != t[1].S)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t d = t[0].D;
+  const RelPos rel{rel_h, rel_w, static_cast<int>(t[0].S), kh, kw};
   if (dtype_code == 1) {
-    if (d == 64) return launch_bf16<64>(q, k, v, o, t, scale, st);
-    if (d == 128) return launch_bf16<128>(q, k, v, o, t, scale, st);
+    if (d == 64 && kw == 64) return launch_bf16<64, kRelGrid64>(q, k, v, o, t, scale, rel, st);
+    if (d == 64 && kh + kw <= kMaxRelCols)
+      return launch_bf16<64, kRelShared>(q, k, v, o, t, scale, rel, st);
   } else if (dtype_code == 0) {
-    if (d == 64) return launch_f32<64>(q, k, v, o, t, scale, st);
-    if (d == 128) return launch_f32<128>(q, k, v, o, t, scale, st);
+    if (d == 64) return launch_f32<64, true>(q, k, v, o, t, scale, rel, st);
+    if (d == 128) return launch_f32<128, true>(q, k, v, o, t, scale, rel, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -12,7 +12,10 @@
   ``wgmma``, a producer warpgroup and two consumer warpgroups), f32 on
   the CUDA cores; head dims 64 and 128, any sequence lengths; q, k and v
   are read by stride (:func:`_fa_layout`), so the ViT hands it the
-  head-split views of its qkv projection.
+  head-split views of its qkv projection.  With ``rel_h``, ``rel_w`` and
+  ``key_grid`` it adds SAM's decomposed relative-position bias to every
+  score (``models/sam.py``), reading the two small tables a row and never
+  an (S, Sk) bias.
 - ``layer_norm`` is the ViT's ``_ln`` (f32 statistics, population
   variance, ``g`` and ``b`` applied in f32, one rounding back) as one
   kernel (``csrc/layer_norm.cu``).  It replaces no Pallas kernel: XLA fuses
@@ -27,7 +30,8 @@ tensor it launches the kernel or raises — it never falls back; a meta
 tensor only inside :func:`shape_only`), and a
 launch count on the wrapper (``scale_bias_cast.launches``,
 ``flash_attention.launches``, ``layer_norm.launches``) that shows a run
-really went through the kernel.
+really went through the kernel (``flash_attention.rel_pos_launches``
+counts the biased launches among its ``launches``).
 """
 
 from __future__ import annotations
@@ -180,15 +184,23 @@ scale_bias_cast.launches = 0
 
 _FA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FA_HEAD_DIMS = (64, 128)
+#: the bf16 kernel keeps two query tiles' bias tables in shared memory beside
+#: its D = 64 tiles: at most this many columns (Kh + Kw) a row, unless Kw is
+#: 64 (the tables of a 64-wide grid are read into registers instead)
+_FA_REL_MAX_COLS = 112
+_FA_REL_GRID_W = 64
 
 
 def _default_scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return 1.0 / float(np.sqrt(q.shape[-1])) if scale is None else scale
 
 
-def _fa_unsupported(q_shape, k_shape, v_shape, dtypes) -> Optional[str]:
+def _fa_unsupported(q_shape, k_shape, v_shape, dtypes,
+                    rel=None) -> Optional[str]:
     """Why the kernel cannot take these shapes and types, or None: every
-    shape and type rule of the kernel lives here."""
+    shape and type rule of the kernel lives here.  ``rel`` is None, or the
+    bias's ``(rel_h shape, rel_w shape, [rel_h dtype, rel_w dtype],
+    key_grid)`` (:func:`_fa_rel_unsupported`)."""
     q_shape, k_shape, v_shape = tuple(q_shape), tuple(k_shape), tuple(v_shape)
     dtypes = [_torch_dtype(dt) for dt in dtypes]
     if len(set(dtypes)) != 1:
@@ -205,6 +217,48 @@ def _fa_unsupported(q_shape, k_shape, v_shape, dtypes) -> Optional[str]:
         return f"head dim must be one of {_FA_HEAD_DIMS}, got {q_shape[-1]}"
     if q_shape[-2] < 1 or k_shape[-2] < 1:
         return f"empty sequence: q {q_shape}, k {k_shape}"
+    if rel is not None:
+        return _fa_rel_unsupported(q_shape, k_shape, dtypes[0], *rel)
+    return None
+
+
+def _key_grid(key_grid, sk: int):
+    """``key_grid`` as (Kh, Kw), or why it is not a grid of ``sk`` keys."""
+    try:
+        kh, kw = (int(n) for n in key_grid)
+    except (TypeError, ValueError):
+        return f"key_grid must be (Kh, Kw), got {key_grid!r}"
+    if kh < 1 or kw < 1 or kh * kw != sk:
+        return f"key_grid {(kh, kw)} is not a grid of the {sk} keys"
+    return kh, kw
+
+
+def _fa_rel_unsupported(q_shape, k_shape, dtype, rel_h_shape, rel_w_shape,
+                        rel_dtypes, key_grid) -> Optional[str]:
+    """The bias's rules: keys on a ``key_grid`` (Kh, Kw) with Kh·Kw = Sk;
+    rel_h (..., S, Kh) and rel_w (..., S, Kw) float32 with q's leading
+    dims; bf16 takes head dim 64 and either Kw = 64 or Kh + Kw up to 112
+    (the tables share shared memory with the tiles), f32 any head dim the
+    kernel takes."""
+    grid = _key_grid(key_grid, k_shape[-2])
+    if isinstance(grid, str):
+        return grid
+    kh, kw = grid
+    want_h, want_w = q_shape[:-1] + (kh,), q_shape[:-1] + (kw,)
+    if tuple(rel_h_shape) != want_h or tuple(rel_w_shape) != want_w:
+        return (f"rel_h {tuple(rel_h_shape)} and rel_w {tuple(rel_w_shape)} "
+                f"must be {want_h} and {want_w}")
+    rel_dtypes = [_torch_dtype(dt) for dt in rel_dtypes]
+    if any(dt != torch.float32 for dt in rel_dtypes):
+        return f"rel_h and rel_w must be float32, got {rel_dtypes}"
+    if dtype == torch.bfloat16:
+        if q_shape[-1] != 64:
+            return (f"the bf16 kernel takes a relative-position bias at head "
+                    f"dim 64, got {q_shape[-1]}")
+        if kw != _FA_REL_GRID_W and kh + kw > _FA_REL_MAX_COLS:
+            return (f"the bf16 kernel takes a key grid with Kw = "
+                    f"{_FA_REL_GRID_W} or Kh + Kw up to {_FA_REL_MAX_COLS}, "
+                    f"got {kh} + {kw}")
     return None
 
 
@@ -218,14 +272,23 @@ def flash_attention_available(q_shape, k_shape, dtype) -> bool:
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
-                              scale: Optional[float] = None) -> torch.Tensor:
+                              scale: Optional[float] = None,
+                              rel_h: Optional[torch.Tensor] = None,
+                              rel_w: Optional[torch.Tensor] = None,
+                              key_grid=None) -> torch.Tensor:
     """Plain version, in the kernel's math: q and k to f32, scores
     ``(q·kᵀ) * scale`` in f32, a full softmax, ``p·v`` in f32, cast to
     q's type.  (The JAX package's reference takes the first product in
-    the input type, which rounds bf16 scores; the kernel does not.)"""
+    the input type, which rounds bf16 scores; the kernel does not.)
+    With the bias, key j of the (Kh, Kw) grid adds ``rel_h[..., i, j //
+    Kw] + rel_w[..., i, j % Kw]`` to score (i, j), here materialized."""
     scale = _default_scale(q, scale)
     s = torch.einsum("...qd,...kd->...qk", q.to(torch.float32),
                      k.to(torch.float32)) * scale
+    if rel_h is not None:
+        kh, kw = (int(n) for n in key_grid)
+        s = (s.unflatten(-1, (kh, kw)) + rel_h.to(torch.float32)[..., None]
+             + rel_w.to(torch.float32)[..., None, :]).flatten(-2)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("...qk,...kd->...qd", p,
@@ -280,9 +343,18 @@ def _fa_layout(t: torch.Tensor) -> Union[_FaLayout, str]:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    rel_h: Optional[torch.Tensor] = None,
+                    rel_w: Optional[torch.Tensor] = None,
+                    key_grid=None) -> torch.Tensor:
     """``softmax(q·kᵀ·scale)·v`` (scale defaults to 1/√D) as one CUDA
     kernel, never materializing the (S, Sk) scores.
+
+    With ``rel_h`` (..., S, Kh), ``rel_w`` (..., S, Kw) and ``key_grid``
+    (Kh, Kw), Sk = Kh·Kw, score (i, j) is ``q_i·k_j·scale + rel_h[..., i,
+    j // Kw] + rel_w[..., i, j % Kw]``: SAM's decomposed relative
+    position.  The kernel reads the contiguous float32 tables a query row
+    at a time; no (S, Sk) bias is made (the plain version makes one).
 
     CPU tensors get the plain version (meta ones inside
     :func:`shape_only` too).  CUDA tensors must be on one
@@ -294,17 +366,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``o.transpose(1, 2)`` of a 4-d result is contiguous.  No backward:
     an input that requires grad raises under grad mode."""
     scale = _default_scale(q, scale)
+    biased = (rel_h is not None, rel_w is not None, key_grid is not None)
+    if any(biased) and not all(biased):
+        raise ValueError("flash_attention: rel_h, rel_w and key_grid go "
+                         "together")
+    biased = all(biased)
     if _plain(q):
-        return flash_attention_reference(q, k, v, scale)
+        return flash_attention_reference(q, k, v, scale, rel_h, rel_w,
+                                         key_grid)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k and v must share a device")
-    _no_grad_through("flash_attention", q, k, v)
+    tensors = (q, k, v) + ((rel_h, rel_w) if biased else ())
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash_attention: q, k, v and the tables must "
+                         "share a device")
+    _no_grad_through("flash_attention", *tensors)
+    rel = ((rel_h.shape, rel_w.shape, [rel_h.dtype, rel_w.dtype], key_grid)
+           if biased else None)
     why = _fa_unsupported(q.shape, k.shape, v.shape,
-                          [q.dtype, k.dtype, v.dtype])
+                          [q.dtype, k.dtype, v.dtype], rel)
     if why is not None:
         raise ValueError(f"flash_attention: {why}")
+    if biased and not (rel_h.is_contiguous() and rel_w.is_contiguous()):
+        raise ValueError("flash_attention: rel_h and rel_w must be "
+                         "contiguous")
     if q.numel() == 0:
         return torch.empty_like(q)
     layouts = []
@@ -317,18 +402,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o4 = torch.empty((B, S, H, D), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     layouts.append(_fa_layout(o4))
-    fn = _launcher("flash_attention", "nns_flash_attention",
-                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
-                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+            ctypes.c_float]
+    lay = (ctypes.c_int64 * 28)(*(x for lay in layouts for x in lay))
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(),
-                (ctypes.c_int64 * 28)(*(x for lay in layouts for x in lay)),
-                _FA_DTYPES[q.dtype], float(scale), _stream(q))
+        if biased:
+            fn = _launcher("flash_attention", "nns_flash_attention_rel",
+                           args + [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p])
+            kh, kw = _key_grid(key_grid, k.shape[-2])
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(),
+                    lay, _FA_DTYPES[q.dtype], float(scale), rel_h.data_ptr(),
+                    rel_w.data_ptr(), kh, kw, _stream(q))
+        else:
+            fn = _launcher("flash_attention", "nns_flash_attention",
+                           args + [ctypes.c_void_p])
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(),
+                    lay, _FA_DTYPES[q.dtype], float(scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention.launches += 1
+    flash_attention.rel_pos_launches += biased
     # cost capture (obs/xlacost.py): 4·B·H·S·Sk·D, which the counter
     # cannot see through ctypes (on the CPU it counts the plain
     # version's matmuls instead)
@@ -337,6 +434,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.rel_pos_launches = 0
 
 
 # -- layer norm ---------------------------------------------------------------

@@ -11,7 +11,12 @@ on the card:
 - ``flash_attention``: f32 atol 1e-5 + rtol 1e-4 (the order of summation
   differs); bf16 atol 1e-2 + rtol 1e-2 (the kernel rounds p to bf16 for
   the p·v product on the tensor cores, the plain version does not); on
-  contiguous inputs and on the ViT's strided qkv views alike.
+  contiguous inputs and on the ViT's strided qkv views alike, and with
+  SAM's decomposed relative-position bias at SAM's two shapes (14x14
+  windows, the 64x64 grid) and on grids of every kind.
+SAM's encoder runs on the card at a small size: one biased launch a
+block, f32 against the CPU within 1e-4, bf16 within the benchmark's gap;
+at ViT-L's published sizes one forward makes 24 biased launches.
 MobileNetV1, the MobileNetV2 classifier and YOLO (raw and end to end) run
 on the card against the CPU at f32 with TF32 off (logits and boxes within
 1e-4, classes and ``num`` equal), and the yolo decoder's pre-reduce on a
@@ -252,6 +257,156 @@ def test_flash_attention_kernel_on_qkv_views(card, dtype, d, s, sk):
     tol = _FA_TOL[dtype]
     torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol * 10
                                if dtype == torch.float32 else tol)
+
+
+def _rel_tables(q, grid, seed=7):
+    """rel_h (..., S, Kh) and rel_w (..., S, Kw), contiguous f32 on q's
+    device, std 1 (a bias term moves a score as much as q·kᵀ·scale)."""
+    g = torch.Generator().manual_seed(seed)
+    lead = tuple(q.shape[:-1])
+    return [torch.randn(lead + (n,), generator=g).to(q.device)
+            for n in grid]
+
+
+def _rel_plain_by_batch(q, k, v, rel_h, rel_w, grid):
+    """The plain version a leading index at a time, so the materialized
+    (S, Sk) scores of a 4096-token head fit beside the inputs."""
+    return torch.cat([kernels.flash_attention_reference(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], rel_h=rel_h[i:i + 1],
+        rel_w=rel_w[i:i + 1], key_grid=grid) for i in range(q.shape[0])])
+
+
+@pytest.mark.parametrize("B,s,grid", [(32 * 25, 196, (14, 14)),
+                                      (8, 4096, (64, 64))])
+def test_flash_attention_rel_pos_on_qkv_views(card, B, s, grid):
+    """SAM's two shapes, windowed (196 tokens of a 14x14 window, ragged in
+    both tiles) and global (a 64x64 grid), on the head-split views of a
+    qkv projection, bf16, at the unbiased kernel's tolerances; the biased
+    launch is counted."""
+    q, k, v = _qkv_views(B, s, s, 16, 64, torch.bfloat16, card)
+    rel_h, rel_w = _rel_tables(q, grid)
+    before = (kernels.flash_attention.launches,
+              kernels.flash_attention.rel_pos_launches)
+    o = kernels.flash_attention(q, k, v, rel_h=rel_h, rel_w=rel_w,
+                                key_grid=grid)
+    r = _rel_plain_by_batch(q, k, v, rel_h, rel_w, grid)
+    torch.cuda.synchronize()
+    assert (kernels.flash_attention.launches,
+            kernels.flash_attention.rel_pos_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    tol = _FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol)
+    # the bias moved the result: without it the output is far off
+    unbiased = kernels.flash_attention(q[:2], k[:2], v[:2])
+    assert float((unbiased.float() - r[:2].float()).abs().max()) > 10 * tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,s,grid", [(64, 17, (1, 17)), (64, 60, (6, 10)),
+                                      (128, 300, (15, 20)),
+                                      (64, 255, (17, 15)), (64, 192, (3, 64)),
+                                      (64, 64, (1, 64))])
+def test_flash_attention_rel_pos_matches_plain(card, dtype, d, s, grid):
+    """Grids of every kind: one row, Kw < 8 steps and wraps, a ragged last
+    tile, odd Kw, and 64-wide grids (bf16 reads their tables into
+    registers) with an odd Kh, so a tile's second grid row is past Sk;
+    f32 at head dims 64 and 128 (bf16 takes 64 alone)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv((2, 3, s, d), (2, 3, s, d), dtype, card, seed=2)
+    rel_h, rel_w = _rel_tables(q, grid)
+    if dtype == torch.bfloat16 and d != 64:
+        with pytest.raises(ValueError, match="head dim 64"):
+            kernels.flash_attention(q, k, v, rel_h=rel_h, rel_w=rel_w,
+                                    key_grid=grid)
+        return
+    o = kernels.flash_attention(q, k, v, scale=0.2, rel_h=rel_h, rel_w=rel_w,
+                                key_grid=grid)
+    r = kernels.flash_attention_reference(q, k, v, scale=0.2, rel_h=rel_h,
+                                          rel_w=rel_w, key_grid=grid)
+    torch.cuda.synchronize()
+    tol = _FA_TOL[dtype]
+    torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol * 10
+                               if dtype == torch.float32 else tol)
+
+
+def test_flash_attention_rel_pos_refuses_without_fallback(card):
+    q, k, v = _qkv((1, 2, 12, 64), (1, 2, 12, 64), torch.bfloat16, card)
+    rel_h, rel_w = _rel_tables(q, (3, 4))
+    before = kernels.flash_attention.launches
+    with pytest.raises(ValueError, match="go together"):
+        kernels.flash_attention(q, k, v, rel_h=rel_h, key_grid=(3, 4))
+    with pytest.raises(ValueError, match="not a grid"):
+        kernels.flash_attention(q, k, v, rel_h=rel_h, rel_w=rel_w,
+                                key_grid=(4, 4))
+    with pytest.raises(ValueError, match="float32"):
+        kernels.flash_attention(q, k, v, rel_h=rel_h.bfloat16(),
+                                rel_w=rel_w, key_grid=(3, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.flash_attention(q, k, v, rel_h=rel_h, key_grid=(3, 4),
+                                rel_w=rel_w.transpose(1, 2).contiguous()
+                                .transpose(1, 2))
+    assert kernels.flash_attention.launches == before
+
+
+def test_sam_encoder_on_the_card(card):
+    """SAM's encoder at a small size (a 10x10 grid in 3x3 windows, padded
+    to 12, and a global block; 2 heads of 64): one biased launch a block,
+    f32 on the card against the CPU within 1e-4 of the largest element
+    (TF32 off; the order of summation differs), bf16 within 0.2 of each
+    frame's RMS (the benchmark's ``embed_gap`` reads 0.07-0.09 at ViT-L)."""
+    from nnstreamer_tpu_torch.models import sam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _sam_on_the_card(card, sam)
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+
+
+def _sam_on_the_card(card, sam):
+    kw = dict(patch=16, dim=128, depth=3, heads=2, mlp_dim=256,
+              out_chans=32, window=3, global_attn_indexes=(1,))
+    sd = sam.sam_state_dict(6, 160, **kw)
+    x = torch.randn(2, 160, 160, 3, generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        want = sam.sam_apply(sam.sam_from_state_dict(sd), x, torch.float32)
+        model = sam.sam_from_state_dict({k: v.to(card) for k, v in sd.items()})
+        before = (kernels.flash_attention.launches,
+                  kernels.flash_attention.rel_pos_launches)
+        got = sam.sam_apply(model, x.to(card), torch.float32)
+        torch.cuda.synchronize()
+        assert (kernels.flash_attention.launches - before[0],
+                kernels.flash_attention.rel_pos_launches - before[1]) == (3, 3)
+        bf16 = sam.sam_apply(model, x.to(card)).cpu()
+    assert got.shape == (2, 32, 10, 10) and got.is_cuda
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    rms = want.pow(2).mean(dim=(1, 2, 3)).sqrt()
+    assert float(((bf16 - want).abs().amax(dim=(1, 2, 3)) / rms).max()) < 0.2
+
+
+def test_sam_vit_l_forward_launches_24_biased_attentions(card):
+    """SAM ViT-L at its published sizes (24 blocks, width 1024, 16 heads
+    of 64, global blocks 5, 11, 17 and 23, 14x14 windows padded to 70x70):
+    one bf16 forward of a frame launches the attention kernel 24 times,
+    each with the bias, and gives the (1, 256, 64, 64) embedding."""
+    from nnstreamer_tpu_torch.models import sam
+
+    model = sam.sam_from_state_dict(
+        {k: v.to(card) for k, v in sam.sam_state_dict(3).items()})
+    x = torch.randn(1, 1024, 1024, 3,
+                    generator=torch.Generator().manual_seed(4)).to(card)
+    with torch.inference_mode():
+        before = (kernels.flash_attention.launches,
+                  kernels.flash_attention.rel_pos_launches)
+        got = sam.sam_apply(model, x)
+        torch.cuda.synchronize()
+    assert (kernels.flash_attention.launches - before[0],
+            kernels.flash_attention.rel_pos_launches - before[1]) == (24, 24)
+    assert got.shape == (1, 256, 64, 64) and bool(torch.isfinite(got).all())
 
 
 def _ln_inputs(shape, dtype, card, seed=5):

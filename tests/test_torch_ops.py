@@ -288,3 +288,106 @@ def test_flash_attention_eligibility():
     meta = torch.empty(1, 4, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="device"):
         tk.flash_attention(meta, meta, meta)
+
+
+# -- flash_attention with SAM's decomposed relative-position bias -------------
+
+
+def _rel_case(lead, s, grid, d=64, dtype=torch.float32, seed=8):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(lead + (s, d), generator=g).to(dtype)
+               for _ in range(3))
+    rel_h, rel_w = (torch.randn(lead + (s, n), generator=g) for n in grid)
+    return q, k, v, rel_h, rel_w
+
+
+def _materialized_softmax(q, k, v, rel_h, rel_w, grid, scale):
+    """The bias written out key by key, then a full softmax, in float64."""
+    kh, kw = grid
+    s = torch.einsum("...qd,...kd->...qk", q.double(), k.double()) * scale
+    bias = torch.stack([rel_h[..., j // kw] + rel_w[..., j % kw]
+                        for j in range(kh * kw)], dim=-1)
+    return torch.softmax(s + bias.double(), dim=-1) @ v.double()
+
+
+@pytest.mark.parametrize("lead,s,grid", [((2, 3), 12, (3, 4)),
+                                         ((5,), 36, (6, 6)),
+                                         ((1, 2), 17, (1, 17))],
+                         ids=["rect", "square", "one-row"])
+def test_flash_attention_rel_pos_plain_version(lead, s, grid):
+    """Key j of the (Kh, Kw) grid adds rel_h[i, j // Kw] + rel_w[i, j % Kw]
+    to score (i, j) before the softmax: the wrapper's plain version on the
+    CPU against the bias written out key by key, within f32 rounding."""
+    q, k, v, rel_h, rel_w = _rel_case(lead, s, grid)
+    got = tk.flash_attention(q, k, v, scale=0.3, rel_h=rel_h, rel_w=rel_w,
+                             key_grid=grid)
+    want = _materialized_softmax(q, k, v, rel_h, rel_w, grid, 0.3)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    plain = tk.flash_attention(q, k, v, scale=0.3)
+    assert float((plain - got).abs().max()) > 1e-2      # the bias moved it
+
+
+def test_flash_attention_rel_pos_bf16_plain_version_keeps_f32_tables():
+    """bf16 q, k, v with f32 tables: scores and bias in f32, one cast at
+    the end."""
+    q, k, v, rel_h, rel_w = _rel_case((2, 2), 20, (4, 5),
+                                      dtype=torch.bfloat16)
+    got = tk.flash_attention_reference(q, k, v, rel_h=rel_h, rel_w=rel_w,
+                                       key_grid=(4, 5))
+    want = _materialized_softmax(q, k, v, rel_h, rel_w, (4, 5), 1 / 8)
+    assert got.dtype == torch.bfloat16
+    assert float((got.double() - want).abs().max()) <= 2 ** -8
+
+
+@pytest.mark.parametrize("q_shape,rel,why", [
+    ((1, 2, 12, 64), ((1, 2, 12, 3), (1, 2, 12, 4), ["float32"] * 2, (4, 4)),
+     "not a grid of the 12 keys"),
+    ((1, 2, 12, 64), ((1, 2, 12, 3), (1, 2, 12, 4), ["float32"] * 2, 12),
+     "key_grid must be (Kh, Kw)"),
+    ((1, 2, 12, 64), ((1, 2, 12, 4), (1, 2, 12, 3), ["float32"] * 2, (3, 4)),
+     "must be (1, 2, 12, 3) and (1, 2, 12, 4)"),
+    ((1, 2, 12, 64), ((1, 2, 12, 3), (1, 2, 12, 4),
+                      ["float32", "bfloat16"], (3, 4)), "must be float32"),
+    ((1, 2, 12, 128), ((1, 2, 12, 3), (1, 2, 12, 4), ["float32"] * 2, (3, 4)),
+     "at head dim 64"),
+    ((1, 1, 12100, 64), ((1, 1, 12100, 110), (1, 1, 12100, 110),
+                         ["float32"] * 2, (110, 110)), "up to 112"),
+], ids=["grid-size", "grid-form", "table-shapes", "table-type", "bf16-D128",
+        "bf16-wide-grid"])
+def test_fa_unsupported_states_the_bias_rules(q_shape, rel, why):
+    kv = q_shape[:-2] + (q_shape[-2], q_shape[-1])
+    rel = rel[:2] + ([getattr(torch, t) for t in rel[2]],) + rel[3:]
+    got = tk._fa_unsupported(q_shape, kv, kv, [torch.bfloat16], rel)
+    assert got is not None and why in got, got
+    if why in ("at head dim 64", "up to 112"):   # bf16-only rules
+        assert tk._fa_unsupported(q_shape, kv, kv, [torch.float32],
+                                  rel) is None
+
+
+def _rel_why(q_shape, grid, dtype=torch.bfloat16):
+    """``_fa_unsupported`` of a self-attention over a ``grid`` of keys with
+    tables of the right shapes."""
+    lead = q_shape[:-1]
+    return tk._fa_unsupported(q_shape, q_shape, q_shape, [dtype],
+                              (lead + grid[:1], lead + grid[1:],
+                               [torch.float32] * 2, grid))
+
+
+def test_flash_attention_rel_pos_kernel_shapes_and_arguments():
+    """SAM's two launches are the kernel's; a 64-wide grid takes any Kh
+    (its tables go to registers), another grid Kh + Kw up to 112, and f32
+    any grid at head dims 64 and 128; the three bias arguments go
+    together."""
+    assert _rel_why((8, 16, 4096, 64), (64, 64)) is None
+    assert _rel_why((800, 16, 196, 64), (14, 14)) is None
+    assert _rel_why((1, 2, 12800, 64), (200, 64)) is None
+    assert "up to 112" in _rel_why((1, 2, 7000, 64), (100, 70))
+    assert "head dim 64" in _rel_why((2, 4, 196, 128), (14, 14))
+    assert _rel_why((2, 4, 196, 128), (14, 14), torch.float32) is None
+    q, k, v, rel_h, rel_w = _rel_case((1, 2), 12, (3, 4))
+    with pytest.raises(ValueError, match="go together"):
+        tk.flash_attention(q, k, v, rel_h=rel_h, key_grid=(3, 4))
+    with pytest.raises(ValueError, match="go together"):
+        tk.flash_attention(q, k, v, rel_h=rel_h, rel_w=rel_w)
